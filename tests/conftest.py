@@ -19,3 +19,9 @@ def tpch_tiny():
 @pytest.fixture()
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU with CUDA (the port's hand "
+        "kernels); skipped where torch.cuda.is_available() is false")
