@@ -8,31 +8,51 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 1. device  — the card's name and, from nvidia-smi, name and power limit;
 2. build   — compiles the hand-written CUDA kernels from the sources in
              the checkout (one nvcc per source, started together);
-3. kernels — each kernel (K1 fused multi-filter Bloom probe, K2 Bloom
-             build) against its plain torch version on the card, at the
-             shapes TPC-H SF 1 gives them: 2^23-row (lineitem's bucket)
-             and 2^21-row key columns, filters sized for 1.5 M and 6 M
-             keys plus a one-block filter, ragged counts, survivor-id
-             gathers. As on the main path, each filter of a K1 call
-             probes its own key column, and each filter is built from
-             its own build-side keys. Results must be bit-exact. Median
-             CUDA-event times of kernel and plain version, and the bound
-             (bytes moved over the H100's 3.35 TB/s);
-4. slice   — generates TPC-H at `--sf` (seed 7) and runs all 20 join
-             queries through `Executor` under `pred-trans` with the cuda
-             bloom and join backends and the device-resident data plane,
-             plus `pred-trans-adaptive` on Q5; every result must have the
-             md5 (`table_digest`) of the port's eager numpy oracle; then
-             one warm run each of Q5 and Q9 under torch.profiler (device
-             busy seconds, idle share, top device ops). Each path reads
-             its own kernel launch counts: they are zeroed just before
-             the path's runs (cold and warm) and read just after, and
-             both kernels must have launched on each path. The profile
-             runs come after both readings.
+3. kernels — each Bloom kernel (K1 fused multi-filter probe, K2 build,
+             K3 single-filter probe) against its plain torch version on
+             the card, at the shapes TPC-H SF 1 gives them: 2^23-row
+             (lineitem's bucket) and 2^21-row key columns, filters sized
+             for 1.5 M and 6 M keys plus a one-block filter, ragged
+             counts, survivor-id gathers. As on the main path, each
+             filter of a K1 call probes its own key column, and each
+             filter is built from its own build-side keys. Results must
+             be bit-exact. Median CUDA-event times of kernel and plain
+             version, and the bound (bytes moved over the H100's 3.35
+             TB/s);
+4. joinmap — the hash-map join kernels (K4 build, K5 lookup) at the
+             orders shape of SF 1: 1,500,000 distinct keys in 2^22
+             slots, probed by 6,001,215 lineitem-like keys. K4's
+             occupied count must equal the distinct count and the plain
+             sequential build's (run on CPU copies: a step-by-step build
+             on the card would eat the time limit); K5's rows must equal
+             the plain lookup over the same K4 table at every shape, and
+             at SF 1 a sort-and-searchsorted expectation too; a build
+             with duplicate keys must count its distinct keys. Times and
+             bounds as in phase 3, the lookup's table reads counted as
+             the distinct 32-byte sectors its probe walks touch;
+5. slice   — generates TPC-H at `--sf` (seed 7) and runs all 20 join
+             queries through `Executor` with the cuda bloom and join
+             backends, three paths: `pred-trans` with the device-resident
+             data plane on (`pred-trans`), `pred-trans-adaptive` on Q5
+             with it on (`pred-trans-adaptive`), and `pred-trans` with it
+             off (`pred-trans-plane-off`: per-filter probes, hash-map
+             joins). Every result must have the md5 (`table_digest`) of
+             the port's eager numpy oracle. Each path reads its own
+             kernel launch counts: they are zeroed just before the path's
+             runs (cold and warm) and read just after; the plane-on paths
+             must launch K1 and K2, the plane-off path K2, K3, K4 and K5
+             and never K1, and the plane-on sweep never K3, K4 or K5. A
+             `compare` line sets each query's warm seconds and round
+             trips on the two planes side by side. Then one warm run each
+             of Q5 and Q9 on each plane under torch.profiler (device busy
+             seconds, idle share, top device ops), after every reading.
 
 The line before the last is the kernel table
 `{"kernels": [{"name", "route", "source", "replaces", "launches",
-"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}]}`
+"max_abs_err", "ms", "plain_ms", "plain_device", "bound_ms", "bound_by",
+"library_ms"}]}` (`plain_device` says where `plain_ms` was taken: "cuda"
+for CUDA-event times on the card, "cpu" for K4's sequential build timed
+on the host)
 and the last line is `{"ok": true, "device": {...}}`. Without CUDA, or
 without the repository's `src/` beside it, the script exits non-zero
 before printing any result. Imports torch, numpy and `repro_torch` only.
@@ -91,7 +111,7 @@ def check(cond: bool, what: str) -> None:
 
 
 def kernel_phase(torch, np, kb, bloom, hashing, dev):
-    """K1/K2 vs their plain versions on the card; returns the record
+    """K1/K2/K3 vs their plain versions on the card; returns the record
     of each kernel at the main path's heaviest shape, and each kernel's
     largest error."""
     rng = np.random.default_rng(7)
@@ -108,7 +128,7 @@ def kernel_phase(torch, np, kb, bloom, hashing, dev):
     idx = torch.from_numpy(np.sort(rng.choice(N_BIG, N_MID, replace=False))
                            .astype(np.int32)).to(dev)
     valid = torch.from_numpy(rng.random(N_BIG) < 0.95).to(dev)
-    worst = {"multi_probe": 0, "bloom_build": 0}
+    worst = {"multi_probe": 0, "bloom_build": 0, "probe": 0}
     rep = {}
 
     def probe_case(name, which, n, count, ix):
@@ -136,8 +156,35 @@ def kernel_phase(torch, np, kb, bloom, hashing, dev):
                "count": count, "filters": [COLUMNS[c][2] for c in which],
                "nblocks": [int(w.shape[0]) for w in ws],
                "alive": alive, "ms": ms, "plain_ms": plain,
+               "plain_device": "cuda",
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
-               "survivors": int(ref[-1].sum()), "max_abs_err": err}
+               "survivors": int(ref[-1].sum()), "max_abs_err": err,
+               "library_ms": None}
+        emit({"phase": "kernels", **rec})
+        return rec
+
+    def single_case(name, c, n, count, ix):
+        args = (filt[c], cols[c][0], cols[c][1])
+        got = kb.probe(*args, idx=ix, count=count)
+        ref = kb.probe_ref(*args, idx=ix, count=count)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int16) - ref.to(torch.int16)).abs().max())
+        worst["probe"] = max(worst["probe"], err)
+        check(torch.equal(got, ref), f"probe {name} disagrees")
+        # the live rows' key halves (and survivor ids), the filter once,
+        # one mask byte per row
+        nbytes = (8 * count + (4 * count if ix is not None else 0)
+                  + filt[c].numel() * 4 + n)
+        ms = cuda_ms(torch, lambda: kb.probe(*args, idx=ix, count=count),
+                     20)
+        plain = cuda_ms(torch, lambda: kb.probe_ref(*args, idx=ix,
+                                                    count=count), 3, warm=1)
+        rec = {"kernel": "probe", "case": name, "n": n, "count": count,
+               "filter": COLUMNS[c][2], "nblocks": int(filt[c].shape[0]),
+               "ms": ms, "plain_ms": plain, "plain_device": "cuda",
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+               "survivors": int(ref.sum()), "max_abs_err": err,
+               "library_ms": None}
         emit({"phase": "kernels", **rec})
         return rec
 
@@ -157,8 +204,9 @@ def kernel_phase(torch, np, kb, bloom, hashing, dev):
             lo, hi, nb, idx=ix, count=count, valid=v), 3, warm=1)
         rec = {"kernel": "bloom_build", "case": name, "n": count,
                "nblocks": nb, "ms": ms, "plain_ms": plain,
+               "plain_device": "cuda",
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
-               "max_abs_err": err}
+               "max_abs_err": err, "library_ms": None}
         emit({"phase": "kernels", **rec})
         return rec
 
@@ -168,6 +216,8 @@ def kernel_phase(torch, np, kb, bloom, hashing, dev):
     rep["multi_probe"] = probe_case("2^23 m=2", [0, 1], N_BIG, ragged, None)
     probe_case("2^23 m=3 one-block", [0, 1, 2], N_BIG, ragged, None)
     probe_case("2^21 m=2 gather", [1, 0], N_MID, N_MID - 12345, idx)
+    rep["probe"] = single_case("2^23 orders", 0, N_BIG, ragged, None)
+    single_case("2^21 orders gather", 0, N_MID, N_MID - 12345, idx)
     rep["bloom_build"] = build_case("2^23 lineitem", 1, nb_big, ragged,
                                     None, None)
     build_case("2^21 orders gather+valid", 0, nb_mid, N_MID - 777, idx,
@@ -176,7 +226,95 @@ def kernel_phase(torch, np, kb, bloom, hashing, dev):
     return rep, worst
 
 
-def profile_query(torch, run, qn: int) -> dict:
+def joinmap_phase(torch, np, sj, bloom, hashing, dev):
+    """K4/K5 vs their plain versions and a sort-based expectation on the
+    card; returns each kernel's record at the SF 1 orders shape and its
+    largest error."""
+    rng = np.random.default_rng(11)
+    worst = {"joinmap_build": 0, "joinmap_lookup": 0}
+
+    def halves(keys):
+        return bloom.halves_to_device(*hashing.key_halves(keys), dev)
+
+    def build(name, keys):
+        lo, hi = halves(keys)
+        n, cap = len(keys), sj.capacity_for(len(keys))
+        table, occ = sj.build_rows(lo, hi, cap)
+        distinct = len(np.unique(keys))
+        rec = {"kernel": "joinmap_build", "case": name, "n": n, "cap": cap,
+               "occupied": int(occ), "distinct": distinct}
+        t = time.perf_counter()
+        _, ref_occ = sj.build_rows_ref(lo.cpu(), hi.cpu(), cap)
+        rec["plain_ms"] = (time.perf_counter() - t) * 1e3
+        rec["plain_device"] = "cpu"
+        err = max(abs(int(occ) - distinct), abs(int(occ) - int(ref_occ)))
+        worst["joinmap_build"] = max(worst["joinmap_build"], err)
+        check(err == 0, f"joinmap_build {name}: occupied {int(occ)}, "
+              f"plain {int(ref_occ)}, distinct {distinct}")
+        # keys in, the table (16 bytes a slot) and the count out
+        nbytes = 8 * n + 16 * cap + 8
+        rec.update(ms=cuda_ms(torch, lambda: sj.build_rows(lo, hi, cap), 10),
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes,
+                   max_abs_err=err, library_ms=None)
+        emit({"phase": "joinmap", **rec})
+        return rec, table
+
+    def lookup(name, table, probe, want=None):
+        """K5 against the plain lookup over the same table, and against
+        `want` where one is given."""
+        plo, phi = halves(probe)
+        got = sj.lookup(table, plo, phi)
+        ref = sj.lookup_ref(table, plo, phi)
+        err = 0
+        for exp, what in ((ref, "the plain lookup"), (want, "the sort")):
+            if exp is None:
+                continue
+            err = max(err, int((got.to(torch.int64) - exp.to(torch.int64))
+                               .abs().max()))
+            check(torch.equal(got, exp),
+                  f"joinmap_lookup {name} disagrees with {what}")
+        worst["joinmap_lookup"] = max(worst["joinmap_lookup"], err)
+        visited, sectors = sj.lookup_work(table, plo, phi)
+        # keys in, rows out, and each 32-byte sector of the table the
+        # walks touch read once (at most the whole table)
+        nbytes = 12 * len(probe) + 32 * sectors
+        rec = {"kernel": "joinmap_lookup", "case": name, "n": len(probe),
+               "cap": int(table.shape[0]), "slots_visited": visited,
+               "sectors": sectors, "hits": int((ref >= 0).sum()),
+               "ms": cuda_ms(torch, lambda: sj.lookup(table, plo, phi), 20),
+               "plain_ms": cuda_ms(torch, lambda: sj.lookup_ref(
+                   table, plo, phi), 3, warm=1),
+               "plain_device": "cuda",
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+               "max_abs_err": err, "library_ms": None}
+        emit({"phase": "joinmap", **rec})
+        return rec
+
+    # 2^16 keys: K5 against the plain lookup over the same K4 table
+    small = rng.choice(1 << 40, 1 << 16, replace=False).astype(np.int64)
+    _, table = build("2^16", small)
+    probe = np.concatenate([small, rng.integers(0, 1 << 40, 1 << 16)])
+    lookup("2^16", table, probe)
+    # duplicate keys: occupied is the distinct count
+    build("2^20 dups", rng.integers(0, 1 << 19, 1 << 20).astype(np.int64))
+    # SF 1: orders' 1.5 M keys, probed by lineitem's 6,001,215 (one in 8
+    # drawn outside the orders domain, so it misses)
+    keys = rng.choice(6_000_000, KEYS_ORDERS, replace=False).astype(np.int64)
+    rep = {}
+    rep["joinmap_build"], table = build("SF 1 orders", keys)
+    probe = keys[rng.integers(0, KEYS_ORDERS, 6_001_215)]
+    probe[::8] = rng.integers(6_000_000, 24_000_000, len(probe[::8]))
+    bk = torch.from_numpy(keys).to(dev)
+    order = torch.argsort(bk)
+    sk = bk[order]
+    pk = torch.from_numpy(probe).to(dev)
+    pos = torch.searchsorted(sk, pk).clamp(max=len(keys) - 1)
+    want = torch.where(sk[pos] == pk, order[pos], -1).to(torch.int32)
+    rep["joinmap_lookup"] = lookup("SF 1 lineitem", table, probe, want)
+    return rep, worst
+
+
+def profile_query(torch, run, qn: int, path: str) -> dict:
     """One warm run of a query under torch.profiler: wall seconds, the
     seconds the device was busy (kernels and copies; one stream, so
     they do not overlap), the idle share, and the top device ops."""
@@ -192,14 +330,27 @@ def profile_query(torch, run, qn: int) -> dict:
     busy = sum(ms for ms, _ in by_name.values()) / 1e3
     top = sorted(((ms, cnt, name) for name, (ms, cnt) in by_name.items()),
                  reverse=True)[:6]
-    return {"phase": "profile", "query": qn, "strategy": "pred-trans",
+    return {"phase": "profile", "query": qn, "path": path,
             "wall_seconds": wall, "device_busy_seconds": busy,
             "device_idle_share": 1.0 - busy / wall,
             "top_device_ms": [{"op": k[:80], "ms": ms, "count": c}
                               for ms, c, k in top]}
 
 
-def slice_phase(torch, kb, sf: float):
+#: (path, strategy, device-resident plane, kernels that must launch on
+#: it, kernels that must not)
+PATHS = (
+    ("pred-trans", "pred-trans", True, ("multi_probe", "bloom_build"),
+     ("probe", "joinmap_build", "joinmap_lookup")),
+    ("pred-trans-adaptive", "pred-trans-adaptive", True,
+     ("multi_probe", "bloom_build"), ()),
+    ("pred-trans-plane-off", "pred-trans", False,
+     ("probe", "bloom_build", "joinmap_build", "joinmap_lookup"),
+     ("multi_probe",)),
+)
+
+
+def slice_phase(torch, kb, sj, sf: float):
     from repro_torch.core.transfer import make_strategy
     from repro_torch.relational import ExecConfig, Executor
     from repro_torch.relational.table import table_digest
@@ -211,20 +362,24 @@ def slice_phase(torch, kb, sf: float):
           "seconds": time.perf_counter() - t0,
           "lineitem_rows": len(cat["lineitem"])})
 
-    def cfg(strategy):
+    def launches():
+        return {**kb.LAUNCHES, **sj.LAUNCHES}
+
+    def cfg(strategy, plane: bool):
         return ExecConfig(
             strategy=make_strategy(strategy, backend="cuda",
-                                   device_resident=True),
-            join_backend="cuda", device="on")
+                                   device_resident=plane),
+            join_backend="cuda", device="on" if plane else "off")
 
-    def run(strategy, qn):
-        before = dict(kb.LAUNCHES)
+    def run(strategy, plane, qn):
+        before = launches()
         t = time.perf_counter()
-        res, st = Executor(cat, cfg(strategy)).execute(
+        res, st = Executor(cat, cfg(strategy, plane)).execute(
             build_query(qn, sf=sf))
         torch.cuda.synchronize()
         sec = time.perf_counter() - t
-        return res, st, sec, {k: kb.LAUNCHES[k] - before[k] for k in before}
+        return res, st, sec, {k: v - before[k]
+                              for k, v in launches().items()}
 
     oracle = {}
     for qn in sorted(QUERIES):
@@ -232,32 +387,51 @@ def slice_phase(torch, kb, sf: float):
             build_query(qn, sf=sf))
         oracle[qn] = table_digest(res)
 
-    per_query, launches = {}, {}
-    for strategy, queries in (("pred-trans", sorted(QUERIES)),
-                              ("pred-trans-adaptive", [5])):
+    per_query, counts = {}, {}
+    for path, strategy, plane, _, _ in PATHS:
+        queries = [5] if strategy == "pred-trans-adaptive" \
+            else sorted(QUERIES)
         kb.reset_launches()           # this path's counts start at 0 here
+        sj.reset_launches()
         for qn in queries:
-            _, _, cold, _ = run(strategy, qn)
-            res, st, warm, query_launches = run(strategy, qn)
+            _, _, cold, _ = run(strategy, plane, qn)
+            res, st, warm, query_launches = run(strategy, plane, qn)
             check(table_digest(res) == oracle[qn],
-                  f"Q{qn} {strategy} differs from the eager oracle")
+                  f"Q{qn} {path} differs from the eager oracle")
             rep = st.report()
-            rec = {"phase": "slice", "query": qn, "strategy": strategy,
+            rec = {"phase": "slice", "query": qn, "path": path,
                    "seconds": warm, "cold_seconds": cold,
                    "rows": len(res), "phase_seconds": rep["phase_seconds"],
                    "transfer_seconds": rep["transfer"]["seconds"],
                    "device": rep["device"], "launches": query_launches,
                    "md5_equal": True}
-            per_query[(strategy, qn)] = rec
+            per_query[(path, qn)] = rec
             emit(rec)
-        launches[strategy] = dict(kb.LAUNCHES)   # read just after the path
-    emit({"kernels": launches})
-    for strategy, counts in launches.items():
-        for name, cnt in counts.items():
-            check(cnt > 0, f"kernel {name} never launched on {strategy}")
-    for qn in (5, 9):                 # outside both counted windows
-        emit(profile_query(torch, lambda: run("pred-trans", qn), qn))
-    return per_query, launches["pred-trans"]
+        counts[path] = launches()     # read just after the path
+    emit({"kernels": counts})
+    for path, _, _, must, never in PATHS:
+        for name in must:
+            check(counts[path][name] > 0,
+                  f"kernel {name} never launched on {path}")
+        for name in never:
+            check(counts[path][name] == 0,
+                  f"kernel {name} launched on {path}")
+    compare = []
+    for qn in sorted(QUERIES):
+        on = per_query[("pred-trans", qn)]
+        off = per_query[("pred-trans-plane-off", qn)]
+        compare.append({"query": qn, "seconds_on": on["seconds"],
+                        "seconds_off": off["seconds"],
+                        "round_trips_on": on["device"]["round_trips"],
+                        "round_trips_off": off["device"]["round_trips"]})
+    emit({"phase": "compare", "sf": sf, "queries": compare})
+    for path, strategy, plane in (("pred-trans", "pred-trans", True),
+                                  ("pred-trans-plane-off", "pred-trans",
+                                   False)):
+        for qn in (5, 9):             # outside every counted window
+            emit(profile_query(torch, lambda: run(strategy, plane, qn), qn,
+                               path))
+    return per_query, counts
 
 
 def main() -> int:
@@ -275,6 +449,7 @@ def main() -> int:
     from repro_torch.core import bloom, hashing
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.bloom import ops as kb
+    from repro_torch.kernels.semijoin import ops as sj
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -295,19 +470,39 @@ def main() -> int:
               for name, (s, log) in info.items()}})
 
     rep, worst = kernel_phase(torch, np, kb, bloom, hashing, dev)
-    _, launches = slice_phase(torch, kb, args.sf)
+    jrep, jworst = joinmap_phase(torch, np, sj, bloom, hashing, dev)
+    rep.update(jrep)
+    worst.update(jworst)
+    _, counts = slice_phase(torch, kb, sj, args.sf)
 
-    source = "src/repro_torch/kernels/bloom/csrc/bloom.cu"
-    replaces = {"multi_probe": "src/repro/kernels/bloom/bloom.py:151",
-                "bloom_build": "src/repro/kernels/bloom/bloom.py:218"}
+    bloom_cu = "src/repro_torch/kernels/bloom/csrc/bloom.cu"
+    semijoin_cu = "src/repro_torch/kernels/semijoin/csrc/semijoin.cu"
+    # kernel: (source, TPU kernel it replaces, the path whose count is
+    # its `launches`); every path's count is in `launches_by_path`
+    table = {
+        "multi_probe": (bloom_cu, "src/repro/kernels/bloom/bloom.py:151",
+                        "pred-trans"),
+        "bloom_build": (bloom_cu, "src/repro/kernels/bloom/bloom.py:218",
+                        "pred-trans"),
+        "probe": (bloom_cu, "src/repro/kernels/bloom/bloom.py:99",
+                  "pred-trans-plane-off"),
+        "joinmap_build": (semijoin_cu,
+                          "src/repro/kernels/semijoin/semijoin.py:223",
+                          "pred-trans-plane-off"),
+        "joinmap_lookup": (semijoin_cu,
+                           "src/repro/kernels/semijoin/semijoin.py:274",
+                           "pred-trans-plane-off"),
+    }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,
-         "replaces": replaces[name], "launches": launches[name],
+         "replaces": replaces, "launches": counts[path][name],
+         "launches_by_path": {p: c[name] for p, c in counts.items()},
          "max_abs_err": worst[name], "ms": rep[name]["ms"],
          "plain_ms": rep[name]["plain_ms"],
+         "plain_device": rep[name]["plain_device"],
          "bound_ms": rep[name]["bound_ms"], "bound_by": "bytes",
          "library_ms": None}
-        for name in ("multi_probe", "bloom_build")]})
+        for name, (source, replaces, path) in table.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -16,11 +16,15 @@ executed:
 * **one scan probe→build** — a `VertexScan` carries the survivor set
   from the probe half to the build half, so emitting each outgoing
   filter is a gather over survivors, never a rescan of the table;
-* **device-resident scans** — the `cuda` backend keeps the key halves
-  and a re-bucketed survivor-id array on the device: one fused probe
-  kernel (K1) per vertex, range cut, min-max and compaction as torch
-  ops that never sync, builds through the build kernel (K2), and one
-  small counts-vector sync per vertex;
+* **device scans** — the `cuda` backend keeps the key halves and a
+  re-bucketed survivor-id array on the device and builds through the
+  build kernel (K2). With the device-resident data plane on, one fused
+  probe kernel (K1) runs per vertex, range cut, min-max and compaction
+  are torch ops that never sync, and the host syncs one small
+  counts-vector per vertex. With the plane off (the reference's
+  on-TPU `device="off"` posture), each incoming filter is probed on its
+  own (K3) and the survivors are compacted on the device after one
+  scalar sync per filter; range cuts and min-max go through the host;
 * **bucketed batches** — key batches are padded to power-of-two buckets
   (`TILE` floor), the same rule as the reference package, so the bytes
   `DeviceStats` counts match it.
@@ -31,8 +35,8 @@ Two backends with bit-identical filter semantics:
 * ``cuda``  — `repro_torch.kernels.bloom` CUDA kernels on a CUDA device;
   on a CPU device (tests only) the kernels' plain torch versions.
 
-The plain-torch device engine (the reference's ``jax`` role) and the
-plane-off route are not part of this package yet.
+The plain-torch device engine (the reference's ``jax`` role) is not part
+of this package yet.
 """
 from __future__ import annotations
 
@@ -510,7 +514,7 @@ class _NumpyScan(VertexScan):
 
 
 class _DeviceScan(VertexScan):
-    """Device-resident scan over a *compacted* survivor set.
+    """Device scan over a *compacted* survivor set.
 
     The working set is a device int32 array of original row ids,
     re-bucketed (power-of-two, `TILE` floor) after every probe — so later
@@ -519,9 +523,12 @@ class _DeviceScan(VertexScan):
     padding (zeros, masked by `count` — no separate validity array).
     `idx=None` is the identity (every row live).
 
-    Per vertex the host syncs one per-filter counts vector (the fused
-    probe), one scalar per range cut and 16 bytes per min-max; the
-    survivor ids themselves sync only when the host needs the mask."""
+    With the device-resident plane on, the host syncs per vertex one
+    per-filter counts vector (the fused probe), one scalar per range cut
+    and 16 bytes per min-max. With it off, the host syncs one scalar per
+    filter, and range cuts and min-max read the survivor ids on the
+    host. Either way the survivor ids themselves sync only when the host
+    needs them."""
 
     def __init__(self, mask: np.ndarray, engine: "CudaEngine"):
         self._e = engine
@@ -557,13 +564,34 @@ class _DeviceScan(VertexScan):
         device_plane.count_compaction()
 
     def probe(self, incoming):
-        """One fused probe kernel applies every incoming filter and the
-        survivors are compacted on device; the host syncs a single
-        per-filter counts vector for the whole vertex."""
         if not incoming:
             self.live_after = []
             return 0
         faultinject.fire("engine.probe")
+        if self._e.device_resident:
+            return self._probe_fused(incoming)
+        rows = 0
+        counts: list = []
+        self.live_after = counts
+        for words, ek in incoming:
+            if self._count == 0:
+                counts.append(0)
+                continue
+            rows += self._count
+            ok = self._e.probe_idx(
+                device_plane.to_device(words, self._e.device), ek,
+                self._idx, self._count, self._n)
+            count = device_plane.scalar(torch.sum(ok, dtype=torch.int32))
+            if count != self._count:
+                self._set_live(device_plane.compact(ok, ok.shape[0],
+                                                    self._idx), count)
+            counts.append(count)
+        return rows
+
+    def _probe_fused(self, incoming):
+        """One fused probe kernel applies every incoming filter and the
+        survivors are compacted on device; the host syncs a single
+        per-filter counts vector for the whole vertex."""
         if self._count == 0:
             self.live_after = [0] * len(incoming)
             return 0
@@ -582,13 +610,14 @@ class _DeviceScan(VertexScan):
         return rows
 
     def probe_range(self, raw, lo, hi, ek=None):
-        """Range pre-filter. With the column's keys (`ek`) the cut runs
-        on device from the cached key halves and syncs one scalar;
-        otherwise the survivor ids are synced and tested on host."""
+        """Range pre-filter. With the device-resident plane on and the
+        column's keys (`ek`) the cut runs on device from the cached key
+        halves and syncs one scalar; otherwise the survivor ids are
+        synced and tested on host."""
         if self._count == 0:
             return 0
         rows = self._count
-        if ek is not None:
+        if self._e.device_resident and ek is not None:
             dlo, dhi = ek.dev(self._e.bucket(self._n))
             idx, cnt = _range_cut(dlo, dhi, self._idx, self._count, lo, hi)
             self._set_live(idx, device_plane.scalar(cnt))
@@ -610,7 +639,7 @@ class _DeviceScan(VertexScan):
     def key_range(self, raw, ek=None, valid=None):
         if self._count == 0:
             return None
-        if ek is None:
+        if not (self._e.device_resident and ek is not None):
             return super().key_range(raw, ek=ek, valid=valid)
         b = self._e.bucket(self._n)
         dlo, dhi = ek.dev(b)
@@ -696,6 +725,11 @@ class BloomEngine:
         self.k = k
 
     # -- device-scan hooks ---------------------------------------------
+    def probe_idx(self, words, ek: "EngineKeys", idx, count: int, n: int):
+        """One filter over the live rows: device bool mask over the
+        current bucket (False at and past `count`), not synced."""
+        raise NotImplementedError
+
     def fused_probe_idx(self, words, eks, idx, count: int, n: int):
         """One device pass over every incoming filter: returns (packed
         survivor ids, device int32 live-count-after-each-filter vector)
@@ -767,10 +801,13 @@ class NumpyEngine(BloomEngine):
 
 
 class CudaEngine(BloomEngine):
-    """`repro_torch.kernels.bloom` kernels over device-resident,
-    survivor-compacted batches (the reference's `PallasEngine` role).
-    On a CPU device — tests only — the kernel wrappers run their plain
-    torch versions. Builds and compaction always stay on the device."""
+    """`repro_torch.kernels.bloom` kernels over survivor-compacted
+    batches on the device (the reference's `PallasEngine` role). With
+    the device-resident plane on, one fused probe (K1) per vertex; with
+    it off, one probe (K3) per filter. On a CPU device — tests only —
+    the kernel wrappers run their plain torch versions. Builds (K2) and
+    compaction always stay on the device, as the reference's do on a
+    TPU."""
 
     backend = "cuda"
 
@@ -781,12 +818,7 @@ class CudaEngine(BloomEngine):
         self.device = device_plane.resolve_device(device)
         if device_resident is None:
             device_resident = self.device.type == "cuda"
-        if not device_resident:
-            raise NotImplementedError(
-                "the cuda bloom engine runs only with the device-resident "
-                "data plane; the plane-off route (per-filter probes, "
-                "kernel K3) is ROADMAP Queue 1, next slice")
-        self.device_resident = True
+        self.device_resident = bool(device_resident)
 
     def keys(self, values):
         lo, hi = hashing.key_halves(np.asarray(values))
@@ -797,6 +829,11 @@ class CudaEngine(BloomEngine):
 
     def bucket(self, n):
         return _bucket(n, floor=TILE)
+
+    def probe_idx(self, words, ek, idx, count, n):
+        from repro_torch.kernels.bloom import ops as kb
+        lo, hi = ek.dev(self.bucket(n))
+        return kb.probe(words, lo, hi, idx=idx, count=count, k=self.k)
 
     def fused_probe_idx(self, words, eks, idx, count, n):
         from repro_torch.kernels.bloom import ops as kb
@@ -830,8 +867,9 @@ def get_engine(backend: str = "numpy", k: int = DEFAULT_K,
     `device` is where the ``cuda`` backend runs: a CUDA device (the
     default) launches the kernels, ``"cpu"`` runs their plain torch
     versions (tests). Without CUDA, a CUDA device raises RuntimeError.
-    `device_resident=None` resolves to on for a CUDA device. The numpy
-    backend ignores both."""
+    `device_resident` picks the data plane: None resolves to on for a
+    CUDA device and off for the CPU, False is the plane-off route. The
+    numpy backend ignores both."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown bloom backend {backend!r}; "
                          f"choose from {BACKENDS}")

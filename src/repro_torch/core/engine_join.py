@@ -26,12 +26,15 @@ phase itself stop re-materializing them. Two layers:
     global probe order — identical (build_idx, probe_idx) to the sorted
     path because equal keys always share a partition and the
     partition-local stable sort preserves their global relative order;
-  - ``cuda``   — the device-resident data plane: every join runs as the
-    sorted-segment device join (`repro_torch.kernels.semijoin.ops`),
-    duplicate build keys and NULLs included, and returns device index
-    vectors, so the cursors' selection vectors stay on the GPU until the
-    single payload gather. The plane-off hash-map route (kernels K4/K5)
-    is not part of this package yet.
+  - ``cuda``   — with the device-resident data plane on, every join
+    runs as the sorted-segment device join
+    (`repro_torch.kernels.semijoin.ops`), duplicate build keys and NULLs
+    included, and returns device index vectors, so the cursors'
+    selection vectors stay on the GPU until the single payload gather.
+    With the plane off, the open-addressing key -> row map of kernels
+    K4 (build) and K5 (lookup) joins duplicate-free build sides
+    (detected from the map's occupancy, which dedups equal keys) and the
+    host engine joins the rest.
 
 The output contract — probe rows in original order; a probe row's
 matches in the build side's stable key order — makes every downstream
@@ -295,15 +298,30 @@ class NumpyJoinEngine(JoinEngine):
 
 
 class CudaJoinEngine(JoinEngine):
-    """Device-resident joins: with the data plane on, every join goes
-    through the sorted-segment device join
-    (`kernels.semijoin.ops.segment_join_device`), which joins duplicate
-    build keys natively, handles the NULL contract by zeroing match
-    counts instead of the host compact-and-remap, and returns *device*
-    index vectors. Empty sides go to the host engine. On a CPU device
-    (tests only) the same torch ops run on the CPU."""
+    """Joins on the device (the reference's `PallasJoinEngine` role).
+
+    With the device-resident data plane on, every join goes through the
+    sorted-segment device join (`kernels.semijoin.ops.
+    segment_join_device`), which joins duplicate build keys natively,
+    handles the NULL contract by zeroing match counts instead of the
+    host compact-and-remap, and returns *device* index vectors.
+
+    With it off, a join builds the key -> row map (K4) and looks the
+    probe keys up (K5), returning host index vectors. The data decides
+    the route, as in the reference: empty sides, builds above
+    `device_max_build` and builds with duplicate keys (occupancy below
+    the build size) join on the host engine. A kernel that fails to
+    build or launch raises. NULLs take the base class's
+    compact-and-remap.
+
+    On a CPU device (tests only) the kernel wrappers run their plain
+    torch versions."""
 
     backend = "cuda"
+
+    #: plane off: builds above this size join on the host (the
+    #: reference's bound, which keeps the table within 2^23 slots)
+    device_max_build = 1 << 22
 
     def __init__(self, device_resident: Optional[bool] = None,
                  device="cuda"):
@@ -311,24 +329,44 @@ class CudaJoinEngine(JoinEngine):
         self.device = device_plane.resolve_device(device)
         if device_resident is None:
             device_resident = self.device.type == "cuda"
-        if not device_resident:
-            raise NotImplementedError(
-                "the cuda join engine runs only with the device-resident "
-                "data plane; the plane-off hash-map route (kernels K4/K5) "
-                "is ROADMAP Queue 1, next slice")
-        self.device_resident = True
+        self.device_resident = bool(device_resident)
         self._host = NumpyJoinEngine()
 
     def join_indices(self, build_key, probe_key, how="inner"):
-        if len(build_key) == 0 or len(probe_key) == 0:
-            return self._host.join_indices(build_key, probe_key, how)
-        faultinject.fire("join.indices")
         from repro_torch.kernels.semijoin import ops as sj
-        return sj.segment_join_device(build_key, probe_key, how,
-                                      device=self.device)
+        nb = len(build_key)
+        if self.device_resident:
+            if nb == 0 or len(probe_key) == 0:
+                return self._host.join_indices(build_key, probe_key, how)
+            faultinject.fire("join.indices")
+            return sj.segment_join_device(build_key, probe_key, how,
+                                          device=self.device)
+        faultinject.fire("join.indices")
+        if nb == 0 or len(probe_key) == 0 or nb > self.device_max_build:
+            return self._host.join_indices(build_key, probe_key, how)
+        table, occupied = sj.joinmap_build(build_key, self.device)
+        if occupied < nb:                     # duplicate build keys
+            return self._host.join_indices(build_key, probe_key, how)
+        rows = sj.joinmap_lookup(table, probe_key)  # int64, -1 on a miss
+        found = rows >= 0
+        if how == "semi":
+            sel = np.flatnonzero(found)
+            return np.full(len(sel), -1, np.int64), sel
+        if how == "anti":
+            sel = np.flatnonzero(~found)
+            return np.full(len(sel), -1, np.int64), sel
+        if how == "left":
+            return rows, np.arange(len(probe_key), dtype=np.int64)
+        if how == "inner":
+            sel = np.flatnonzero(found)
+            return rows[sel], sel
+        raise ValueError(how)
 
     def join_indices_valid(self, build_key, probe_key, how="inner",
                            build_valid=None, probe_valid=None):
+        if not self.device_resident:
+            return super().join_indices_valid(build_key, probe_key, how,
+                                              build_valid, probe_valid)
         if len(build_key) == 0 or len(probe_key) == 0:
             return self._host.join_indices_valid(
                 build_key, probe_key, how, build_valid, probe_valid)
@@ -356,8 +394,9 @@ def get_join_engine(backend: str = "numpy",
 
     ``device`` is where the ``cuda`` engine runs (``"cpu"`` for tests;
     a CUDA device without CUDA raises RuntimeError);
-    ``device_resident=None`` resolves to on for a CUDA device. The
-    numpy engine has no device path and ignores both."""
+    ``device_resident`` picks its data plane: None resolves to on for a
+    CUDA device and off for the CPU. The numpy engine has no device path
+    and ignores both."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown join backend {backend!r}; "
                          f"choose from {BACKENDS}")

@@ -1,5 +1,6 @@
 // Blocked-Bloom kernels for Hopper (sm_90a): the fused multi-filter probe
-// (K1) and the filter build (K2). Plain C interface, loaded with ctypes by
+// (K1), the filter build (K2) and the single-filter probe (K3). Plain C
+// interface, loaded with ctypes by
 // repro_torch/kernels/bloom/ops.py; every entry point launches on the
 // caller's stream, never synchronises, and returns cudaGetLastError().
 //
@@ -14,6 +15,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hash.cuh"
+
 namespace {
 
 constexpr uint32_t kGolden = 0x9E3779B9u;
@@ -22,18 +25,27 @@ constexpr int kLanes = 8;
 constexpr int kMaxFilters = 16;
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
 // log2nb == 0 (one block) must not shift: a shift by 32 is undefined
 __device__ __forceinline__ uint32_t block_of(uint32_t h, int log2nb) {
   return log2nb ? (h >> (32 - log2nb)) : 0u;
+}
+
+// Does the key with hash h find all k of its bits in its block of the
+// filter whose first block is `offset` in `words`? Stops at the first
+// missing bit; the k word reads fall in one 32-byte sector.
+__device__ __forceinline__ bool block_hit(const uint32_t* __restrict__ words,
+                                          uint32_t h, int log2nb, int offset,
+                                          int k) {
+  const uint32_t* blk =
+      words + (size_t)(block_of(h, log2nb) + offset) * kLanes;
+  uint32_t g1 = fmix32(h ^ kGolden);
+  uint32_t g2 = fmix32(h ^ kP2) | 1u;
+  bool ok = true;
+  for (int j = 0; j < k && ok; ++j) {
+    uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
+    ok = (__ldg(blk + (pos >> 5)) >> (pos & 31u)) & 1u;
+  }
+  return ok;
 }
 
 struct ProbeArgs {
@@ -70,20 +82,41 @@ __global__ void multi_probe_kernel(const uint32_t* __restrict__ words,
   int src = (ok && idx != nullptr) ? idx[r] : r;
   for (int f = 0; f < m; ++f) {
     if (ok) {
-      uint32_t h = fmix32(__ldg(args.lo[f] + src) ^
-                          fmix32(__ldg(args.hi[f] + src)));
-      const uint32_t* blk =
-          words + (size_t)(block_of(h, args.log2nb[f]) + args.offset[f]) *
-                      kLanes;
-      uint32_t g1 = fmix32(h ^ kGolden);
-      uint32_t g2 = fmix32(h ^ kP2) | 1u;
-      for (int j = 0; j < k && ok; ++j) {
-        uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
-        ok = (__ldg(blk + (pos >> 5)) >> (pos & 31u)) & 1u;
-      }
+      uint32_t h = key_hash(__ldg(args.lo[f] + src), __ldg(args.hi[f] + src));
+      ok = block_hit(words, h, args.log2nb[f], args.offset[f], k);
     }
     out[(size_t)f * n + r] = ok ? 1 : 0;
   }
+}
+
+// K3. Replaces the TPU kernel repro/kernels/bloom/bloom.py probe_pallas
+// (_probe_kernel), reached from the reference's PallasEngine.probe_idx on
+// the plane-off route: one filter per launch, the host reading a survivor
+// count after each.
+//
+// Bound on this card: memory. Per live row it reads 8 bytes of key halves
+// (plus a 4-byte survivor id with `idx`) and one 32-byte filter block, and
+// it writes one byte per row; the filter mostly stays in the 50 MB L2.
+//
+// Design: K1's per-row body for one filter, as its own entry point so the
+// launch counts tell the two routes apart. The kernel gathers the
+// survivors' key halves through `idx` and writes False at and past
+// `count`, which replaces the reference's _gather2 + _mask_count around
+// probe_pallas: no gathered key copies, no separate mask pass.
+__global__ void probe_kernel(const uint32_t* __restrict__ words, int log2nb,
+                             int k, const uint32_t* __restrict__ lo,
+                             const uint32_t* __restrict__ hi,
+                             const int32_t* __restrict__ idx, int n,
+                             int count, uint8_t* __restrict__ out) {
+  int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  bool ok = r < count;
+  if (ok) {
+    int src = idx != nullptr ? idx[r] : r;
+    ok = block_hit(words, key_hash(__ldg(lo + src), __ldg(hi + src)), log2nb,
+                   0, k);
+  }
+  out[r] = ok ? 1 : 0;
 }
 
 // K2. Replaces the TPU kernel repro/kernels/bloom/bloom.py build_pallas
@@ -106,7 +139,7 @@ __global__ void build_kernel(const uint32_t* __restrict__ lo,
   if (r >= count) return;
   int src = idx != nullptr ? idx[r] : r;
   if (valid != nullptr && !valid[src]) return;
-  uint32_t h = fmix32(__ldg(lo + src) ^ fmix32(__ldg(hi + src)));
+  uint32_t h = key_hash(__ldg(lo + src), __ldg(hi + src));
   uint32_t* blk = words + (size_t)block_of(h, log2nb) * kLanes;
   uint32_t g1 = fmix32(h ^ kGolden);
   uint32_t g2 = fmix32(h ^ kP2) | 1u;
@@ -160,6 +193,22 @@ int bloom_build(const void* lo, const void* hi, const void* idx,
         static_cast<const uint32_t*>(lo), static_cast<const uint32_t*>(hi),
         static_cast<const int32_t*>(idx), static_cast<const uint8_t*>(valid),
         count, log2nb, k, static_cast<uint32_t*>(words));
+  }
+  return (int)cudaGetLastError();
+}
+
+// words: uint32 [nblocks, 8] (device); lo/hi: uint32 key halves [>= n, or
+// >= max(idx)+1]; idx: int32 [n] survivor ids or null; out: uint8 [n].
+int bloom_probe(const void* words, int log2nb, int k, const void* lo,
+                const void* hi, const void* idx, int n, int count, void* out,
+                void* stream) {
+  if (n > 0) {
+    int grid = (n + kThreads - 1) / kThreads;
+    probe_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(words), log2nb, k,
+        static_cast<const uint32_t*>(lo), static_cast<const uint32_t*>(hi),
+        static_cast<const int32_t*>(idx), n, count,
+        static_cast<uint8_t*>(out));
   }
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,14 @@
-"""Blocked-Bloom kernels K1 (fused multi-filter probe) and K2 (build).
+"""Blocked-Bloom kernels K1 (fused multi-filter probe), K2 (build) and K3
+(single-filter probe).
 
-`multi_probe` and `build` are the wrappers the engine calls. On a CUDA
-tensor each launches its hand-written kernel from `csrc/bloom.cu` on the
-current stream (and raises if it cannot); on a CPU tensor it runs the
-plain torch version beside it, `multi_probe_ref` / `build_ref`, which
-repeats the kernel's hash arithmetic in int64 masked to 32 bits — the
-port's counterpart of running the reference's Pallas kernels in
-interpret mode. Any other device raises.
+`multi_probe`, `build` and `probe` are the wrappers the engine calls
+(K1 on the device-resident plane, K3 on the plane-off route, K2 on
+both). On a CUDA tensor each launches its hand-written kernel from
+`csrc/bloom.cu` on the current stream (and raises if it cannot); on a
+CPU tensor it runs the plain torch version beside it (`multi_probe_ref`,
+`build_ref`, `probe_ref`), which repeats the kernel's hash arithmetic
+in int64 masked to 32 bits — the port's counterpart of running the
+reference's Pallas kernels in interpret mode. Any other device raises.
 
 Device layout: key halves and filter words are `int32` tensors holding
 the uint32 bit pattern (the kernels read them as `uint32_t`); survivor
@@ -25,9 +27,9 @@ import torch
 
 from repro_torch.core import bloom
 from repro_torch.core.bloom import DEFAULT_K, LANES
-from repro_torch.kernels.build import check, library
+from repro_torch.kernels.build import check, check_i32, library
 
-LAUNCHES = {"multi_probe": 0, "bloom_build": 0}
+LAUNCHES = {"multi_probe": 0, "bloom_build": 0, "probe": 0}
 
 _c_void_p_p = ctypes.POINTER(ctypes.c_void_p)
 _c_int_p = ctypes.POINTER(ctypes.c_int)
@@ -50,6 +52,11 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p]
         lib.bloom_build.restype = ctypes.c_int
+        lib.bloom_probe.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.bloom_probe.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -61,15 +68,11 @@ def _log2(nb: int) -> int:
     return l2
 
 
-def _check_i32(t: torch.Tensor, dev: torch.device, what: str,
-               ndim: int = 1) -> None:
-    if t.device != dev:
-        raise ValueError(f"{what} is on {t.device}, expected {dev}")
-    if t.dtype != torch.int32 or t.dim() != ndim:
-        raise ValueError(f"{what} must be a {ndim}-D int32 tensor, "
-                         f"got {t.dtype} {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
+def _check_words(words: torch.Tensor, dev: torch.device,
+                 what: str) -> None:
+    check_i32(words, dev, what, ndim=2)
+    if words.shape[1] != LANES:
+        raise ValueError(f"{what} must be [nblocks, {LANES}]")
 
 
 def _rows(los: Sequence[torch.Tensor], idx: Optional[torch.Tensor],
@@ -131,15 +134,13 @@ def multi_probe(words_list: Sequence[torch.Tensor],
     n, count = _rows(los, idx, count)
     ncol = int(los[0].shape[0])
     for f in range(m):
-        _check_i32(words_list[f], dev, f"words[{f}]", ndim=2)
-        if words_list[f].shape[1] != LANES:
-            raise ValueError(f"words[{f}] must be [nblocks, {LANES}]")
-        _check_i32(los[f], dev, f"lo[{f}]")
-        _check_i32(his[f], dev, f"hi[{f}]")
+        _check_words(words_list[f], dev, f"words[{f}]")
+        check_i32(los[f], dev, f"lo[{f}]")
+        check_i32(his[f], dev, f"hi[{f}]")
         if los[f].shape[0] != ncol or his[f].shape[0] != ncol:
             raise ValueError("key columns differ in length")
     if idx is not None:
-        _check_i32(idx, dev, "idx")
+        check_i32(idx, dev, "idx")
     elif n > ncol:
         raise ValueError("n exceeds the key columns")
     log2nbs, offsets, acc = [], [], 0
@@ -160,6 +161,58 @@ def multi_probe(words_list: Sequence[torch.Tensor],
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check(err, "bloom_multi_probe")
     LAUNCHES["multi_probe"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# K3: single-filter probe
+# --------------------------------------------------------------------------
+
+
+def probe_ref(words: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+              idx: Optional[torch.Tensor] = None,
+              count: Optional[int] = None,
+              k: int = DEFAULT_K) -> torch.Tensor:
+    """Plain torch K3: bool [n], membership of rows `idx` (None = rows
+    0..n-1 of the key columns) in one filter; rows at and past `count`
+    are False."""
+    n, count = _rows([lo], idx, count)
+    ok = torch.arange(n, device=lo.device) < count
+    if idx is not None:
+        sel = idx.to(torch.int64)
+        lo, hi = lo[sel], hi[sel]
+    return ok & bloom.probe(words, lo, hi, k=k)
+
+
+def probe(words: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+          idx: Optional[torch.Tensor] = None, count: Optional[int] = None,
+          k: int = DEFAULT_K) -> torch.Tensor:
+    """K3. Probe one filter (int32 words [nb, 8]) over int32 key halves;
+    see `probe_ref`. Returns bool [n]."""
+    dev = lo.device
+    if dev.type == "cpu":
+        return probe_ref(words, lo, hi, idx, count, k)
+    if dev.type != "cuda":
+        raise RuntimeError(f"bloom probe: no kernel for device {dev}")
+    lib = _lib()
+    _check_words(words, dev, "words")
+    check_i32(lo, dev, "lo")
+    check_i32(hi, dev, "hi")
+    if hi.shape[0] != lo.shape[0]:
+        raise ValueError("lo and hi differ in length")
+    n, count = _rows([lo], idx, count)
+    if idx is not None:
+        check_i32(idx, dev, "idx")
+    log2nb = _log2(words.shape[0])
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return out
+    err = lib.bloom_probe(
+        words.data_ptr(), log2nb, int(k), lo.data_ptr(), hi.data_ptr(),
+        None if idx is None else idx.data_ptr(), n, count, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "bloom_probe")
+    LAUNCHES["probe"] += 1
     return out
 
 
@@ -200,13 +253,13 @@ def build(lo: torch.Tensor, hi: torch.Tensor, nblocks: int,
     if dev.type != "cuda":
         raise RuntimeError(f"bloom build: no kernel for device {dev}")
     lib = _lib()
-    _check_i32(lo, dev, "lo")
-    _check_i32(hi, dev, "hi")
+    check_i32(lo, dev, "lo")
+    check_i32(hi, dev, "hi")
     if hi.shape[0] != lo.shape[0]:
         raise ValueError("lo and hi differ in length")
     n, count = _rows([lo], idx, count)
     if idx is not None:
-        _check_i32(idx, dev, "idx")
+        check_i32(idx, dev, "idx")
     if valid is not None:
         if (valid.device != dev or valid.dtype != torch.bool
                 or valid.dim() != 1 or not valid.is_contiguous()):

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel source (`kernels/<name>/csrc/*.cu`) is compiled with `nvcc`
-into a shared library with a plain C interface and loaded with `ctypes`.
-Builds happen at first use, from the sources in the checkout only, into
+into a shared library with a plain C interface and loaded with `ctypes`;
+the headers they share (the key hash) live in `kernels/csrc/`. Builds
+happen at first use, from the sources in the checkout only, into
 `src/repro_torch/_build/` (git-ignored); a library's file name carries a
-digest of its source, so an edited source is rebuilt and a current one
-is loaded as it is. `build_all` starts one `nvcc` per source, all at
-once, and waits for them together.
+digest of its source and the shared headers, so an edited source or
+header is rebuilt and a current one is loaded as it is. `build_all`
+starts one `nvcc` per source, all at once, and waits for them together.
 
 Importing this module builds nothing: a library is built and loaded
 only when a wrapper launches its kernel on a CUDA tensor, or when
@@ -24,11 +25,16 @@ import threading
 import time
 from typing import Dict, Tuple
 
+import torch
+
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG / "_build"
 SOURCES: Dict[str, pathlib.Path] = {
     "bloom": _PKG / "kernels" / "bloom" / "csrc" / "bloom.cu",
+    "semijoin": _PKG / "kernels" / "semijoin" / "csrc" / "semijoin.cu",
 }
+#: headers every source may include (`#include "hash.cuh"`)
+INCLUDE_DIR = _PKG / "kernels" / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,7 +56,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    digest = hashlib.sha1(SOURCES[name].read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1(SOURCES[name].read_bytes())
+    for header in sorted(INCLUDE_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -61,7 +70,8 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp),
+           str(SOURCES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out, time.perf_counter()
@@ -106,3 +116,16 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def check_i32(t: torch.Tensor, dev: torch.device, what: str,
+              ndim: int = 1) -> None:
+    """Raise unless `t` is a contiguous `ndim`-D int32 tensor on `dev`:
+    what every kernel entry point takes (as uint32 or int32 words)."""
+    if t.device != dev:
+        raise ValueError(f"{what} is on {t.device}, expected {dev}")
+    if t.dtype != torch.int32 or t.dim() != ndim:
+        raise ValueError(f"{what} must be a {ndim}-D int32 tensor, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")

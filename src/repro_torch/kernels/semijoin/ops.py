@@ -1,10 +1,13 @@
-"""Device sorted-segment equi-join (the device-resident data plane's join).
+"""Device equi-joins: the sorted-segment join of the device-resident data
+plane, and the open-addressing key -> row map of the plane-off route
+(kernels K4 and K5).
 
-Duplicate-key joins entirely on the device — a stable argsort of the
-build keys, a binary search per probe key, segment emission — with the
-host syncing one output-size scalar per join. Bit-identical
-(build_idx, probe_idx) to `engine_join.sorted_join_indices` under the
-NULL contract of `JoinEngine.join_indices_valid`.
+**Sorted-segment join** (`segment_join_device`). Duplicate-key joins
+entirely on the device — a stable argsort of the build keys, a binary
+search per probe key, segment emission — with the host syncing one
+output-size scalar per join. Bit-identical (build_idx, probe_idx) to
+`engine_join.sorted_join_indices` under the NULL contract of
+`JoinEngine.join_indices_valid`.
 
 torch sorts and searches int64 natively, so the keys travel as their
 (lo, hi) int32 halves (one stacked upload per side, the same bytes as
@@ -13,22 +16,42 @@ and padding build rows are sorted past every real key with a second
 stable pass on an invalid flag, and each probe row's match range is
 clamped to the valid prefix, so they never match; NULL-key probe rows
 get a zero match count (inner drops them, left emits them unmatched,
-anti keeps them — no compact-and-remap on either side).
+anti keeps them — no compact-and-remap on either side). These are torch
+ops, not a hand kernel: sort and searchsorted were XLA primitives in the
+reference too.
 
-These are torch ops, not a hand kernel: sort and searchsorted were XLA
-primitives in the reference too.
+**Key -> row map** (`joinmap_build` / `joinmap_lookup`, the plane-off
+hash-map join). `build_rows` (K4) and `lookup` (K5) are the wrappers:
+on a CUDA tensor each launches its hand-written kernel from
+`csrc/semijoin.cu` on the current stream (and raises if it cannot); on a
+CPU tensor it runs the plain torch version beside it, `build_rows_ref`
+(the reference's sequential insert) / `lookup_ref`. The table is int32
+[cap, 4], one 16-byte record per slot: key halves, state (0 empty,
+1 published), row — a finished table's columns are the reference's
+klo/khi/occ/row lanes. `LAUNCHES` counts kernel launches.
 """
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import device_plane as dp
 from repro_torch.core import hashing
+from repro_torch.kernels.build import check, check_i32, library
 
 _I64MAX = torch.iinfo(torch.int64).max
+
+LAUNCHES = {"joinmap_build": 0, "joinmap_lookup": 0}
+
+#: the reference's Pallas tile: `capacity_for` keeps its floor of TILE // 2
+TILE = 1024
+#: slot record columns and the published state of a finished table
+_LO, _HI, _STATE, _ROW = range(4)
+_PUBLISHED = 1
+_LIB: Optional[ctypes.CDLL] = None
 
 
 def _pow2(n: int, floor: int = 256) -> int:
@@ -139,3 +162,187 @@ def segment_join_device(build_key: np.ndarray, probe_key: np.ndarray,
         return np.empty(0, np.int64), np.empty(0, np.int64)
     return _segjoin_emit(order, lo_pos, counts, out_counts, total,
                          how == "left")
+
+
+# --------------------------------------------------------------------------
+# key -> row map: K4 (build) and K5 (lookup)
+# --------------------------------------------------------------------------
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = library("semijoin")
+        lib.joinmap_build_rows.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        lib.joinmap_build_rows.restype = ctypes.c_int
+        lib.joinmap_lookup.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        lib.joinmap_lookup.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def capacity_for(n: int) -> int:
+    """Power-of-two capacity at <= 50% load (at least TILE // 2)."""
+    return _pow2(2 * max(int(n), 1), floor=TILE // 2)
+
+
+def _check_cap(cap: int, n: int) -> None:
+    if cap < 1 or cap & (cap - 1) or cap <= n:
+        raise ValueError(f"table capacity {cap} must be a power of two "
+                         f"above the {n} keys")
+
+
+def _check_halves(lo: torch.Tensor, hi: torch.Tensor) -> None:
+    check_i32(lo, lo.device, "lo")
+    check_i32(hi, lo.device, "hi")
+    if hi.shape != lo.shape:
+        raise ValueError("lo and hi differ in length")
+
+
+def build_rows_ref(lo: torch.Tensor, hi: torch.Tensor, cap: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch K4: the reference's sequential insert, one key at a
+    time in row order, linear probing from the key's home slot; equal
+    keys share one slot and the last row wins. The table is the
+    reference's (klo, khi, occ, row) byte for byte. Returns (int32 table
+    [cap, 4], int64 [1] count of occupied slots)."""
+    _check_cap(cap, lo.shape[0])
+    mask = cap - 1
+    home = (hashing.hash64(lo, hi) & mask).tolist()
+    los, his = lo.tolist(), hi.tolist()
+    klo, khi, state, row = ([0] * cap for _ in range(4))
+    for i, (a, b, s) in enumerate(zip(los, his, home)):
+        while state[s] and (klo[s] != a or khi[s] != b):
+            s = (s + 1) & mask
+        klo[s], khi[s], state[s], row[s] = a, b, _PUBLISHED, i
+    table = torch.stack([torch.tensor(c, dtype=torch.int32)
+                         for c in (klo, khi, state, row)], dim=1)
+    occupied = torch.tensor([sum(state)], dtype=torch.int64)
+    return table.to(lo.device), occupied.to(lo.device)
+
+
+def build_rows(lo: torch.Tensor, hi: torch.Tensor, cap: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4. Key -> row map of int32 key halves [n] (row i = key i) in a
+    table of `cap` slots; see `build_rows_ref`. Returns the table and the
+    occupied count as device tensors (nothing is synced)."""
+    dev = lo.device
+    if dev.type == "cpu":
+        return build_rows_ref(lo, hi, cap)
+    if dev.type != "cuda":
+        raise RuntimeError(f"joinmap build: no kernel for device {dev}")
+    lib = _lib()
+    _check_halves(lo, hi)
+    n = int(lo.shape[0])
+    _check_cap(cap, n)
+    table = torch.zeros((cap, 4), dtype=torch.int32, device=dev)
+    occupied = torch.zeros(1, dtype=torch.int64, device=dev)
+    if n == 0:
+        return table, occupied
+    err = lib.joinmap_build_rows(
+        lo.data_ptr(), hi.data_ptr(), n, cap, table.data_ptr(),
+        occupied.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "joinmap_build_rows")
+    LAUNCHES["joinmap_build"] += 1
+    return table, occupied
+
+
+def _walk(table: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
+    """The plain lookup loop: (int32 rows [n], slots visited, distinct
+    32-byte sectors read). Each round reads the next slot of every key
+    still unresolved; a key resolves at its own slot (its row) or an
+    empty one (-1). Two 16-byte slots share a sector."""
+    cap = table.shape[0]
+    slot = hashing.hash64(lo, hi) & (cap - 1)
+    rows = torch.full(lo.shape, -1, dtype=torch.int32, device=lo.device)
+    ids = torch.arange(lo.shape[0], device=lo.device)
+    read = torch.zeros(max(cap // 2, 1), dtype=torch.bool, device=lo.device)
+    visited = 0
+    while ids.numel():
+        rec = table[slot]
+        visited += int(ids.numel())
+        read[slot >> 1] = True
+        full = rec[:, _STATE] != 0
+        hit = full & (rec[:, _LO] == lo) & (rec[:, _HI] == hi)
+        rows[ids[hit]] = rec[hit, _ROW]
+        go = full & ~hit
+        ids, lo, hi = ids[go], lo[go], hi[go]
+        slot = (slot[go] + 1) & (cap - 1)
+    return rows, visited, int(read.sum())
+
+
+def lookup_ref(table: torch.Tensor, lo: torch.Tensor,
+               hi: torch.Tensor) -> torch.Tensor:
+    """Plain torch K5: the matched build row of each probe key (int32
+    [n]), -1 on a miss."""
+    return _walk(table, lo, hi)[0]
+
+
+def lookup_work(table: torch.Tensor, lo: torch.Tensor,
+                hi: torch.Tensor) -> Tuple[int, int]:
+    """K5's data-dependent work for these probe keys: (slots visited,
+    distinct 32-byte sectors of the table they fall in). The sectors are
+    the table bytes the lookup must move; a revisit may hit in cache."""
+    _, visited, sectors = _walk(table, lo, hi)
+    return visited, sectors
+
+
+def lookup(table: torch.Tensor, lo: torch.Tensor,
+           hi: torch.Tensor) -> torch.Tensor:
+    """K5. Linear-probe lookup of int32 key halves [n] in a `build_rows`
+    table; see `lookup_ref`. Returns int32 [n] on the device."""
+    dev = lo.device
+    if dev.type == "cpu":
+        return lookup_ref(table, lo, hi)
+    if dev.type != "cuda":
+        raise RuntimeError(f"joinmap lookup: no kernel for device {dev}")
+    lib = _lib()
+    _check_halves(lo, hi)
+    check_i32(table, dev, "table", ndim=2)
+    if table.shape[1] != 4:
+        raise ValueError("table must be [cap, 4]")
+    cap, n = int(table.shape[0]), int(lo.shape[0])
+    _check_cap(cap, 0)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    err = lib.joinmap_lookup(
+        table.data_ptr(), cap, lo.data_ptr(), hi.data_ptr(), n,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "joinmap_lookup")
+    LAUNCHES["joinmap_lookup"] += 1
+    return out
+
+
+def joinmap_build(keys: np.ndarray, device="cuda"):
+    """Key -> row map of host int64 build keys on `device`. Returns
+    (table, occupied): `occupied < len(keys)` iff the keys hold
+    duplicates (equal keys dedup into one slot), the join engine's
+    signal to join on the host. Two counted uploads (the key halves) and
+    one scalar sync (`occupied`). The reference uploads a third array, an
+    all-ones mask over its tile padding; K4 takes the row count instead,
+    so that upload is gone."""
+    keys = np.asarray(keys)
+    lo, hi = hashing.key_halves(keys)
+    table, occupied = build_rows(dp.to_device(lo, device),
+                                 dp.to_device(hi, device),
+                                 capacity_for(len(keys)))
+    return table, dp.scalar(occupied)
+
+
+def joinmap_lookup(table: torch.Tensor, keys: np.ndarray) -> np.ndarray:
+    """Matched build row per host int64 probe key, as a host int64
+    array, -1 on a miss: two counted uploads and one d2h of the rows."""
+    lo, hi = hashing.key_halves(np.asarray(keys))
+    rows = lookup(table, dp.to_device(lo, table.device),
+                  dp.to_device(hi, table.device))
+    return dp.to_host(rows).astype(np.int64)
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0

@@ -229,13 +229,16 @@ class ExecConfig:
 
     `device` controls the device-resident data plane (DESIGN.md §15)
     for the cuda join backend: "auto" (default) keeps join indices on
-    the device when `torch_device` is a CUDA device, "on" forces the
-    device path on any `torch_device` (the CPU test configuration),
-    "off" asks for the host paths, which the cuda backend does not have
-    yet (NotImplementedError). `torch_device` (default "cuda") is the
-    torch device the cuda join backend runs on; without CUDA a CUDA
-    device raises RuntimeError — pass "cpu" to run on the CPU. The
-    numpy backend ignores both.
+    the device when `torch_device` is a CUDA device and takes the
+    plane-off route on the CPU, "on" forces the device path on any
+    `torch_device` (the CPU test configuration), "off" takes the
+    plane-off route: the hash-map join (kernels K4/K5) for
+    duplicate-free build sides, host index vectors, the host engine
+    for the rest. The strategy's bloom engine picks its own plane
+    (`make_strategy(..., device_resident=)`). `torch_device` (default
+    "cuda") is the torch device the cuda join backend runs on; without
+    CUDA a CUDA device raises RuntimeError — pass "cpu" to run on the
+    CPU. The numpy backend ignores both.
 
     `breakers` (optional) is a shared `BreakerBoard` the degradation
     ladder consults before attempting a rung — an open breaker skips
@@ -350,7 +353,8 @@ class Executor:
         self._ctx: Optional[QueryContext] = None
         self._phase = "scan"
         self._reorder_info: Optional[reorder_mod.ReorderInfo] = None
-        # "auto" defers to the engine's default: on for a CUDA device
+        # "auto" defers to the engine's default: on for a CUDA device,
+        # off for the CPU
         dr = {"auto": None, "on": True, "off": False}[config.device]
         self.join_engine = get_join_engine(config.join_backend,
                                            device_resident=dr,

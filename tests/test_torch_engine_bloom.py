@@ -121,10 +121,7 @@ def _scan_outputs(eng, mask, keys, keys2, raw, out_keys, valid, words1,
             "words": bloom.words_to_host(words)}
 
 
-def test_fused_scan_matches_reference(rng):
-    """One fused probe -> range-cut -> build scan: mask after each
-    stage, per-filter live counts, device key ranges (plain and
-    NULL-masked) and emitted words == the reference host engine's."""
+def _scan_args(rng):
     n = 3000
     keys = rng.integers(0, 900, n).astype(np.int64)
     keys2 = rng.integers(0, 900, n).astype(np.int64)
@@ -135,16 +132,37 @@ def test_fused_scan_matches_reference(rng):
     nblocks = rbloom.blocks_for(n)
     words1 = _oracle_build(rng.integers(0, 900, 500), np.ones(500), 16)
     words2 = _oracle_build(rng.integers(0, 900, 700), np.ones(700), 64)
-    args = (mask, keys, keys2, raw, out_keys, valid, words1, words2,
+    return (mask, keys, keys2, raw, out_keys, valid, words1, words2,
             nblocks)
-    ref = _scan_outputs(rget_engine("numpy"), *args)
-    got = _scan_outputs(_cuda_cpu(), *args)
+
+
+def _assert_scan_matches(ref, got):
     for field in ref:
         if field.startswith("key_range") or field == "live_after":
             assert got[field] == ref[field], field
         else:
             np.testing.assert_array_equal(got[field], ref[field],
                                           err_msg=field)
+
+
+def test_fused_scan_matches_reference(rng):
+    """One fused probe -> range-cut -> build scan: mask after each
+    stage, per-filter live counts, device key ranges (plain and
+    NULL-masked) and emitted words == the reference host engine's."""
+    args = _scan_args(rng)
+    _assert_scan_matches(_scan_outputs(rget_engine("numpy"), *args),
+                         _scan_outputs(_cuda_cpu(), *args))
+
+
+def test_plane_off_scan_matches_reference(rng):
+    """The same scan with the plane off (two filters probed one by one
+    through K3's plain version, range cut and key ranges through the
+    host) == the reference host engine's."""
+    args = _scan_args(rng)
+    eng = get_engine("cuda", device="cpu", device_resident=False)
+    assert not eng.device_resident
+    _assert_scan_matches(_scan_outputs(rget_engine("numpy"), *args),
+                         _scan_outputs(eng, *args))
 
 
 def test_fused_scan_empty_survivors(rng):
@@ -181,3 +199,20 @@ def test_fused_scan_counts_one_sync_per_vertex(rng):
         scan.probe([(words, ek), (words, ek)])
     assert stats.fused_calls == 1 and stats.d2h_syncs == 1
     assert stats.h2d_syncs == 4          # 2 filters + lo/hi of one column
+
+
+def test_plane_off_scan_syncs_one_scalar_per_filter(rng):
+    """With the plane off: per filter one upload of its words and one
+    scalar sync, then a device compaction; no fused call."""
+    n = 3000
+    keys = rng.integers(0, 900, n).astype(np.int64)
+    words = _oracle_build(rng.integers(0, 900, 500), np.ones(500), 16)
+    eng = get_engine("cuda", device="cpu", device_resident=False)
+    ek = eng.keys(keys)
+    stats = device_plane.DeviceStats()
+    with device_plane.track(stats):
+        scan = eng.begin(np.ones(n, bool))
+        scan.probe([(words, ek), (words, ek)])
+    assert stats.fused_calls == 0 and stats.d2h_syncs == 2
+    assert stats.h2d_syncs == 4          # 2 filters + lo/hi of one column
+    assert stats.device_compactions == 1  # the second filter removes none

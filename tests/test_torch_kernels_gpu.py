@@ -7,9 +7,11 @@ package), so it runs on a machine with the card:
 
 Every test carries the `gpu` marker and skips, with a reason, where
 `torch.cuda.is_available()` is false (a CUDA kernel has no CPU mode).
-K1/K2 outputs are integer and boolean arrays: they must equal their
-plain torch versions bit-exactly; query results must match the port's
-eager numpy oracle by md5 (`table_digest`)."""
+K1-K5 outputs are integer and boolean arrays: they must equal their
+plain torch versions bit-exactly (K4, whose parallel build lays the
+table out in another order, by its occupied count and by K5's answers);
+query results must match the port's eager numpy oracle by md5
+(`table_digest`)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -18,6 +20,7 @@ import numpy as np
 
 from repro_torch.core import bloom, hashing
 from repro_torch.kernels.bloom import ops as kb
+from repro_torch.kernels.semijoin import ops as sj
 
 pytestmark = pytest.mark.gpu
 
@@ -65,7 +68,7 @@ def test_wrappers_count_launches_and_check_inputs(cuda):
     lo = torch.zeros(1024, dtype=torch.int32, device=cuda)
     w = kb.build(lo, lo, 8)
     kb.multi_probe([w], [lo], [lo])
-    assert kb.LAUNCHES == {"multi_probe": 1, "bloom_build": 1}
+    assert kb.LAUNCHES == {"multi_probe": 1, "bloom_build": 1, "probe": 0}
     with pytest.raises(ValueError):
         kb.build(lo.to(torch.int64), lo.to(torch.int64), 8)
     with pytest.raises(ValueError):
@@ -89,3 +92,79 @@ def test_tpch_q5_on_gpu_matches_oracle(cuda):
     assert table_digest(res) == table_digest(ref)
     assert kb.LAUNCHES["multi_probe"] > 0 and kb.LAUNCHES["bloom_build"] > 0
     assert stats.report()["device"]["fused_calls"] > 0
+
+
+@pytest.mark.parametrize("nb", [1, 64, 4096])
+def test_probe_kernel_matches_plain_version(cuda, nb):
+    """K3 == its plain version on the card, bit-exact, over every row and
+    over survivor ids with a ragged count."""
+    rng = np.random.default_rng(nb)
+    n = 1 << 16
+    keys = _keys(rng, n)
+    lo, hi = bloom.halves_to_device(*hashing.key_halves(keys), cuda)
+    words = kb.build_ref(lo[: n // 4], hi[: n // 4], nb)
+    idx = torch.from_numpy(np.sort(rng.choice(n, n // 2, replace=False))
+                           .astype(np.int32)).to(cuda)
+    kb.reset_launches()
+    for ix, count in ((None, n - 9), (idx, n // 2 - 5), (None, 0)):
+        got = kb.probe(words, lo, hi, idx=ix, count=count)
+        ref = kb.probe_ref(words, lo, hi, idx=ix, count=count)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (nb, ix is not None, count)
+    assert got.sum() == 0
+    assert kb.LAUNCHES["probe"] == 3 and kb.LAUNCHES["multi_probe"] == 0
+
+
+@pytest.mark.parametrize("domain", [None, 1 << 15], ids=["unique", "dups"])
+def test_joinmap_kernels_match_plain_versions(cuda, domain):
+    """At 2^16 keys: K4's occupied count == the plain sequential build's
+    (run on CPU copies) == the distinct count; K5's rows == the plain
+    lookup over the same K4 table, and each key finds its last row."""
+    rng = np.random.default_rng(5)
+    n = 1 << 16
+    keys = (_keys(rng, n) if domain is None
+            else rng.integers(0, domain, n).astype(np.int64))
+    lo, hi = bloom.halves_to_device(*hashing.key_halves(keys), cuda)
+    cap = sj.capacity_for(n)
+    sj.reset_launches()
+    table, occ = sj.build_rows(lo, hi, cap)
+    _, ref_occ = sj.build_rows_ref(lo.cpu(), hi.cpu(), cap)
+    distinct = len(np.unique(keys))
+    assert int(occ) == int(ref_occ) == distinct
+    probe = np.concatenate([keys, _keys(rng, n)])
+    plo, phi = bloom.halves_to_device(*hashing.key_halves(probe), cuda)
+    got = sj.lookup(table, plo, phi)
+    ref = sj.lookup_ref(table, plo, phi)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    last = {int(k): i for i, k in enumerate(keys)}
+    want = np.array([last.get(int(k), -1) for k in probe], np.int32)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert sj.LAUNCHES == {"joinmap_build": 1, "joinmap_lookup": 1}
+    with pytest.raises(ValueError):
+        sj.build_rows(lo, hi, n)                # no empty slot left
+
+
+def test_tpch_q5_plane_off_on_gpu_matches_oracle(cuda):
+    """Q5 at sf 0.01 through the cuda backends with the plane off: K2,
+    K3, K4 and K5 launch, K1 does not, and the result has the eager
+    oracle's md5."""
+    from repro_torch.core.transfer import make_strategy
+    from repro_torch.relational import ExecConfig, Executor
+    from repro_torch.relational.table import table_digest
+    from repro_torch.tpch import build_query, generate
+    cat = generate(sf=0.01, seed=7)
+    ref, _ = Executor(cat, ExecConfig(late_materialize=False)).execute(
+        build_query(5, sf=0.01))
+    kb.reset_launches()
+    sj.reset_launches()
+    res, stats = Executor(cat, ExecConfig(
+        strategy=make_strategy("pred-trans", backend="cuda",
+                               device_resident=False),
+        join_backend="cuda", device="off")).execute(build_query(5, sf=0.01))
+    assert table_digest(res) == table_digest(ref)
+    assert kb.LAUNCHES["probe"] > 0 and kb.LAUNCHES["bloom_build"] > 0
+    assert kb.LAUNCHES["multi_probe"] == 0
+    assert sj.LAUNCHES["joinmap_build"] > 0
+    assert sj.LAUNCHES["joinmap_lookup"] > 0
+    assert stats.report()["device"]["fused_calls"] == 0
