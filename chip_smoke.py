@@ -30,9 +30,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              with duplicate keys must count its distinct keys. Times and
              bounds as in phase 3, the lookup's table reads counted as
              the distinct 32-byte sectors its probe walks touch;
-5. slice   — generates TPC-H at `--sf` (seed 7) and runs all 20 join
-             queries through `Executor` with the cuda bloom and join
-             backends, three paths: `pred-trans` with the device-resident
+   Phases 3 and 4 also hold the kernels behind the kernel library's
+   public entry points against their plain versions, on the SF 1
+   columns of phase 6's cases: K7 (fused filter transfer) at case C's
+   shape (lineitem's 6,000,205 rows through a 16,384-block orders
+   filter into a 524,288-block one), K6a/K6b (key set build and
+   membership probe) at case A's (1.5 M orders keys, 2^22 slots, probed
+   by lineitem's order keys), each beside a small ragged shape (their
+   bounds count the key halves they load, of the masked or surviving
+   rows, as the distinct 32-byte sectors that hold them); K6a's
+   occupied count against the distinct count and the plain sequential
+   build (CPU copies), K6b's mask against the plain probe over the same
+   K6a table and against `torch.isin`, whose time is K6's
+   `library_ms` (compare it with K6a + K6b together);
+5. slice   — runs all 20 join queries of TPC-H at `--sf` (seed 7,
+             generated once before phase 3) through `Executor` with the
+             cuda bloom and join backends, three paths: `pred-trans`
+             with the device-resident
              data plane on (`pred-trans`), `pred-trans-adaptive` on Q5
              with it on (`pred-trans-adaptive`), and `pred-trans` with it
              off (`pred-trans-plane-off`: per-filter probes, hash-map
@@ -45,14 +59,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              `compare` line sets each query's warm seconds and round
              trips on the two planes side by side. Then one warm run each
              of Q5 and Q9 on each plane under torch.profiler (device busy
-             seconds, idle share, top device ops), after every reading.
+             seconds, idle share, top device ops), after every reading;
+6. kernel-api — path `kernel-api`: the kernel library's public entry
+             points on the same catalog, each case cold then warm, the
+             launch counts zeroed before and read after. (A) Q5's
+             lineitem ⋉ σ(orders): `semi_mask(l_orderkey, o_orderkey,
+             o_orderdate in 1994)` == `semi_mask_ref` == `torch.isin`;
+             (B) Q4's EXISTS, orders ⋉ σ(lineitem), duplicate build keys:
+             `semijoin_build(l_orderkey, l_commitdate < l_receiptdate)`
+             holds as many keys as `np.unique` finds, and
+             `semijoin_probe(.., o_orderkey)` == `semi_mask_ref`; (C) Q5's
+             transfer chain σ(orders) → lineitem → supplier:
+             `bloom_build`, `bloom_transfer` and `bloom_probe`, the
+             transfer's survivors and words bit-exact against the plain
+             version on the card and a superset of (A)'s mask, the probe
+             equal to the plain probe with no false negative. The path
+             must launch K2, K3, K6a, K6b and K7 and never K1, K4 or K5;
+             the three engine paths never launch K6a, K6b or K7.
 
 The line before the last is the kernel table
 `{"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "plain_device", "bound_ms", "bound_by",
-"library_ms"}]}` (`plain_device` says where `plain_ms` was taken: "cuda"
-for CUDA-event times on the card, "cpu" for K4's sequential build timed
-on the host)
+"library_ms", "launches_by_path"}]}` (`plain_device` says where
+`plain_ms` was taken: "cuda" for CUDA-event times on the card, "cpu" for
+the sequential K4 and K6a builds timed on the host; K6's rows add
+`library_call`, what `library_ms` timed)
 and the last line is `{"ok": true, "device": {...}}`. Without CUDA, or
 without the repository's `src/` beside it, the script exits non-zero
 before printing any result. Imports torch, numpy and `repro_torch` only.
@@ -110,14 +141,40 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def kernel_phase(torch, np, kb, bloom, hashing, dev):
-    """K1/K2/K3 vs their plain versions on the card; returns the record
-    of each kernel at the main path's heaviest shape, and each kernel's
-    largest error."""
+def sector_bytes(torch, sel) -> int:
+    """Bytes of the 32-byte sectors of a 4-byte column that hold a row
+    where `sel` (bool [n] on the card) is True: what a kernel that loads
+    the column only at those rows must read of it (torch allocations are
+    sector-aligned)."""
+    pad = torch.zeros(-(-sel.numel() // 8) * 8, dtype=torch.bool,
+                      device=sel.device)
+    pad[: sel.numel()] = sel
+    return 32 * int(pad.view(-1, 8).any(dim=1).sum())
+
+
+def api_inputs(np, cat) -> dict:
+    """The TPC-H columns of the kernel-api cases: (A) Q5's orders
+    semi-join, (B) Q4's EXISTS, (C) Q5's transfer chain."""
+    from repro_torch.tpch.gen import date
+    o, li = cat["orders"], cat["lineitem"]
+    o_date = o.array("o_orderdate")
+    return {"o_orderkey": o.array("o_orderkey").astype(np.int64),
+            "l_orderkey": li.array("l_orderkey").astype(np.int64),
+            "l_suppkey": li.array("l_suppkey").astype(np.int64),
+            "s_suppkey": cat["supplier"].array("s_suppkey").astype(np.int64),
+            "q5": (o_date >= date("1994-01-01"))
+            & (o_date < date("1995-01-01")),
+            "q4": li.array("l_commitdate") < li.array("l_receiptdate")}
+
+
+def kernel_phase(torch, np, kb, bloom, dev, api):
+    """K1/K2/K3/K7 vs their plain versions on the card; returns the
+    record of each kernel at the main path's heaviest shape (K7: case
+    C's), and each kernel's largest error."""
     rng = np.random.default_rng(7)
 
     def halves(keys):
-        return bloom.halves_to_device(*hashing.key_halves(keys), dev)
+        return bloom.keys_to_device(keys, dev)
 
     cols, filt = [], []
     for domain, nkeys, _ in COLUMNS:
@@ -128,7 +185,8 @@ def kernel_phase(torch, np, kb, bloom, hashing, dev):
     idx = torch.from_numpy(np.sort(rng.choice(N_BIG, N_MID, replace=False))
                            .astype(np.int32)).to(dev)
     valid = torch.from_numpy(rng.random(N_BIG) < 0.95).to(dev)
-    worst = {"multi_probe": 0, "bloom_build": 0, "probe": 0}
+    worst = {"multi_probe": 0, "bloom_build": 0, "probe": 0,
+             "bloom_transfer": 0}
     rep = {}
 
     def probe_case(name, which, n, count, ix):
@@ -210,6 +268,41 @@ def kernel_phase(torch, np, kb, bloom, hashing, dev):
         emit({"phase": "kernels", **rec})
         return rec
 
+    def transfer_case(name, in_words, ikeys, okeys, keep, nb):
+        ilo, ihi = halves(ikeys)
+        olo, ohi = halves(okeys)
+        mask = torch.from_numpy(keep).to(dev)
+        args = (in_words, ilo, ihi, olo, ohi, mask, nb)
+        ok, words = kb.transfer(*args)
+        ok_ref, words_ref = bloom.transfer(*args)
+        torch.cuda.synchronize()
+        err = max(int((ok.to(torch.int16) - ok_ref.to(torch.int16))
+                      .abs().max()),
+                  int((words.to(torch.int64) - words_ref.to(torch.int64))
+                      .abs().max()))
+        worst["bloom_transfer"] = max(worst["bloom_transfer"], err)
+        check(torch.equal(ok, ok_ref) and torch.equal(words, words_ref),
+              f"bloom_transfer {name} disagrees")
+        # the mask byte in and the survivor byte out per row; the incoming
+        # key halves of the masked rows and the outgoing ones of the
+        # survivors (the kernel loads no others), each 32-byte sector
+        # once; the incoming filter read once, the outgoing one written
+        n = len(ikeys)
+        nbytes = (2 * n + 2 * sector_bytes(torch, mask)
+                  + 2 * sector_bytes(torch, ok_ref)
+                  + in_words.numel() * 4 + nb * 32)
+        rec = {"kernel": "bloom_transfer", "case": name, "n": n,
+               "live": int(keep.sum()), "nblocks_in": int(in_words.shape[0]),
+               "nblocks_out": nb, "survivors": int(ok_ref.sum()),
+               "ms": cuda_ms(torch, lambda: kb.transfer(*args), 20),
+               "plain_ms": cuda_ms(torch, lambda: bloom.transfer(*args), 3,
+                                   warm=1),
+               "plain_device": "cuda",
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+               "max_abs_err": err, "library_ms": None}
+        emit({"phase": "kernels", **rec})
+        return rec
+
     ragged = 6_001_215            # SF 1 lineitem rows
     nb_mid, nb_big = (int(filt[c].shape[0]) for c in (0, 1))
     probe_case("2^23 m=1", [0], N_BIG, ragged, None)
@@ -223,18 +316,35 @@ def kernel_phase(torch, np, kb, bloom, hashing, dev):
     build_case("2^21 orders gather+valid", 0, nb_mid, N_MID - 777, idx,
                valid)
     build_case("2^21 one-block", 2, 1, N_MID, None, None)
+    # case C's shape: lineitem's rows through the Q5-date orders filter
+    # (from the plain build) into a lineitem-sized supplier-key filter
+    olo, ohi = halves(api["o_orderkey"])
+    q5 = torch.from_numpy(api["q5"]).to(dev)
+    in_words = kb.build_ref(olo, ohi, bloom.blocks_for(int(api["q5"].sum())),
+                            valid=q5)
+    n_l = len(api["l_orderkey"])
+    rep["bloom_transfer"] = transfer_case(
+        "SF 1 case C", in_words, api["l_orderkey"], api["l_suppkey"],
+        np.ones(n_l, bool), bloom.blocks_for(n_l))
+    keys = rng.integers(0, 1 << 40, 5003).astype(np.int64)
+    klo, khi = halves(keys[:1700])
+    transfer_case("5003 ragged", kb.build_ref(klo, khi, 64), keys,
+                  rng.integers(0, 1 << 40, 5003).astype(np.int64),
+                  rng.random(5003) < 0.8, 8)
     return rep, worst
 
 
-def joinmap_phase(torch, np, sj, bloom, hashing, dev):
+def joinmap_phase(torch, np, sj, bloom, dev, api):
     """K4/K5 vs their plain versions and a sort-based expectation on the
-    card; returns each kernel's record at the SF 1 orders shape and its
-    largest error."""
+    card, and K6a/K6b vs theirs and `torch.isin`; returns each kernel's
+    record at the SF 1 orders shape (K6: case A's) and its largest
+    error."""
     rng = np.random.default_rng(11)
-    worst = {"joinmap_build": 0, "joinmap_lookup": 0}
+    worst = {"joinmap_build": 0, "joinmap_lookup": 0, "semijoin_build": 0,
+             "semijoin_probe": 0}
 
     def halves(keys):
-        return bloom.halves_to_device(*hashing.key_halves(keys), dev)
+        return bloom.keys_to_device(keys, dev)
 
     def build(name, keys):
         lo, hi = halves(keys)
@@ -311,6 +421,74 @@ def joinmap_phase(torch, np, sj, bloom, hashing, dev):
     pos = torch.searchsorted(sk, pk).clamp(max=len(keys) - 1)
     want = torch.where(sk[pos] == pk, order[pos], -1).to(torch.int32)
     rep["joinmap_lookup"] = lookup("SF 1 lineitem", table, probe, want)
+
+    def set_case(name, keys, keep, probe):
+        """K6a (occupied vs the distinct count and the plain sequential
+        build on CPU copies) and K6b (vs the plain probe over the same
+        K6a table and vs torch.isin, which is timed as `library_ms`)."""
+        lo, hi = halves(keys)
+        mask = torch.from_numpy(keep).to(dev)
+        n, cap = len(keys), sj.capacity_for(len(keys))
+        table, occ = sj.set_build(lo, hi, cap, mask)
+        distinct = len(np.unique(keys[keep]))
+        t = time.perf_counter()
+        _, ref_occ = sj.set_build_ref(lo.cpu(), hi.cpu(), cap, mask.cpu())
+        plain_build = (time.perf_counter() - t) * 1e3
+        err = max(abs(int(occ) - distinct), abs(int(occ) - int(ref_occ)))
+        worst["semijoin_build"] = max(worst["semijoin_build"], err)
+        check(err == 0, f"semijoin_build {name}: occupied {int(occ)}, "
+              f"plain {int(ref_occ)}, distinct {distinct}")
+        plo, phi = halves(probe)
+        got = sj.set_probe(table, plo, phi)
+        ref = sj.set_probe_ref(table, plo, phi)
+        pk, bk = (torch.from_numpy(a).to(dev) for a in (probe, keys))
+        lib = torch.isin(pk, bk[mask])
+        perr = 0
+        for exp, what in ((ref, "the plain probe"), (lib, "torch.isin")):
+            perr = max(perr, int((got.to(torch.int16) - exp.to(torch.int16))
+                                 .abs().max()))
+            check(torch.equal(got, exp),
+                  f"semijoin_probe {name} disagrees with {what}")
+        worst["semijoin_probe"] = max(worst["semijoin_probe"], perr)
+        visited, sectors = sj.lookup_work(table, plo, phi)
+        library = {"library_ms": cuda_ms(torch, lambda: torch.isin(
+            pk, bk[mask]), 10),
+            "library_call": "torch.isin(probe, build[mask]): compare with "
+                            "semijoin_build + semijoin_probe together"}
+        # the mask byte of every row and the key halves of the live rows
+        # (the kernel loads no others, each 32-byte sector once) in, the
+        # table (16 bytes a slot) and the count out
+        nbytes = n + 2 * sector_bytes(torch, mask) + 16 * cap + 8
+        brec = {"kernel": "semijoin_build", "case": name, "n": n,
+                "live": int(keep.sum()), "cap": cap, "occupied": int(occ),
+                "distinct": distinct,
+                "ms": cuda_ms(torch, lambda: sj.set_build(lo, hi, cap, mask),
+                              10),
+                "plain_ms": plain_build, "plain_device": "cpu",
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+                "max_abs_err": err, **library}
+        # keys in, a byte out, and each 32-byte sector of the table the
+        # walks touch read once
+        nbytes = 9 * len(probe) + 32 * sectors
+        prec = {"kernel": "semijoin_probe", "case": name, "n": len(probe),
+                "cap": cap, "slots_visited": visited, "sectors": sectors,
+                "hits": int(ref.sum()),
+                "ms": cuda_ms(torch, lambda: sj.set_probe(table, plo, phi),
+                              20),
+                "plain_ms": cuda_ms(torch, lambda: sj.set_probe_ref(
+                    table, plo, phi), 3, warm=1),
+                "plain_device": "cuda",
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+                "max_abs_err": perr, **library}
+        emit({"phase": "joinmap", **brec})
+        emit({"phase": "joinmap", **prec})
+        return brec, prec
+
+    keys = rng.integers(0, 3000, 5003).astype(np.int64)
+    set_case("5003 ragged dups", keys, rng.random(5003) < 0.7,
+             np.concatenate([keys, rng.integers(0, 6000, 2001)]))
+    rep["semijoin_build"], rep["semijoin_probe"] = set_case(
+        "SF 1 case A", api["o_orderkey"], api["q5"], api["l_orderkey"])
     return rep, worst
 
 
@@ -337,30 +515,36 @@ def profile_query(torch, run, qn: int, path: str) -> dict:
                               for ms, c, k in top]}
 
 
+#: kernels that only the kernel library's public entry points reach
+API_ONLY = ("semijoin_build", "semijoin_probe", "bloom_transfer")
 #: (path, strategy, device-resident plane, kernels that must launch on
 #: it, kernels that must not)
 PATHS = (
     ("pred-trans", "pred-trans", True, ("multi_probe", "bloom_build"),
-     ("probe", "joinmap_build", "joinmap_lookup")),
+     ("probe", "joinmap_build", "joinmap_lookup", *API_ONLY)),
     ("pred-trans-adaptive", "pred-trans-adaptive", True,
-     ("multi_probe", "bloom_build"), ()),
+     ("multi_probe", "bloom_build"), API_ONLY),
     ("pred-trans-plane-off", "pred-trans", False,
      ("probe", "bloom_build", "joinmap_build", "joinmap_lookup"),
-     ("multi_probe",)),
+     ("multi_probe", *API_ONLY)),
 )
+#: the kernel-api path: (kernels that must launch, kernels that must not)
+API_PATH = (("bloom_build", "probe", *API_ONLY),
+            ("multi_probe", "joinmap_build", "joinmap_lookup"))
 
 
-def slice_phase(torch, kb, sj, sf: float):
+def check_path(counts: dict, path: str, must, never) -> None:
+    for name in must:
+        check(counts[name] > 0, f"kernel {name} never launched on {path}")
+    for name in never:
+        check(counts[name] == 0, f"kernel {name} launched on {path}")
+
+
+def slice_phase(torch, kb, sj, cat, sf: float):
     from repro_torch.core.transfer import make_strategy
     from repro_torch.relational import ExecConfig, Executor
     from repro_torch.relational.table import table_digest
-    from repro_torch.tpch import QUERIES, build_query, generate
-
-    t0 = time.perf_counter()
-    cat = generate(sf=sf, seed=7)
-    emit({"phase": "slice", "step": "generate", "sf": sf,
-          "seconds": time.perf_counter() - t0,
-          "lineitem_rows": len(cat["lineitem"])})
+    from repro_torch.tpch import QUERIES, build_query
 
     def launches():
         return {**kb.LAUNCHES, **sj.LAUNCHES}
@@ -410,12 +594,7 @@ def slice_phase(torch, kb, sj, sf: float):
         counts[path] = launches()     # read just after the path
     emit({"kernels": counts})
     for path, _, _, must, never in PATHS:
-        for name in must:
-            check(counts[path][name] > 0,
-                  f"kernel {name} never launched on {path}")
-        for name in never:
-            check(counts[path][name] == 0,
-                  f"kernel {name} launched on {path}")
+        check_path(counts[path], path, must, never)
     compare = []
     for qn in sorted(QUERIES):
         on = per_query[("pred-trans", qn)]
@@ -434,6 +613,103 @@ def slice_phase(torch, kb, sj, sf: float):
     return per_query, counts
 
 
+def kernel_api_phase(torch, np, kb, sj, bloom, dev, api) -> dict:
+    """Path `kernel-api`: cases A-C through the public entry points, cold
+    then warm, inside one launch-count window; every result is checked
+    after the window. Returns the path's launch counts."""
+    from repro_torch.kernels.bloom import (bloom_build, bloom_probe,
+                                           bloom_transfer)
+    from repro_torch.kernels.semijoin import (semi_mask, semijoin_build,
+                                              semijoin_probe)
+    from repro_torch.kernels.semijoin.ref import semi_mask_ref
+
+    l_key, o_key, q5 = api["l_orderkey"], api["o_orderkey"], api["q5"]
+    l_supp, s_key, q4 = api["l_suppkey"], api["s_suppkey"], api["q4"]
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def chain():
+        w = bloom_build(o_key, mask=q5)
+        ok, w2 = bloom_transfer(w, l_key, l_supp)
+        return w, ok, w2, bloom_probe(w2, s_key)
+
+    kb.reset_launches()             # the path's counts start at 0 here
+    sj.reset_launches()
+    runs = []
+    for run in ("cold", "warm"):
+        a, sec_a = timed(lambda: semi_mask(l_key, o_key, q5))
+        table_b, sec_build = timed(lambda: semijoin_build(l_key, q4))
+        b, sec_probe = timed(lambda: semijoin_probe(table_b, o_key))
+        c, sec_c = timed(chain)
+        runs.append((run, a, table_b, b, c, sec_a, sec_build + sec_probe,
+                     sec_c))
+    counts = {**kb.LAUNCHES, **sj.LAUNCHES}  # read just after the path
+
+    # the oracles, outside the window
+    want_a = semi_mask_ref(l_key, o_key, q5)
+    isin_a = torch.isin(torch.from_numpy(l_key).to(dev),
+                        torch.from_numpy(o_key[q5]).to(dev)).cpu().numpy()
+    check(np.array_equal(want_a, isin_a), "semi_mask_ref != torch.isin")
+    want_b = semi_mask_ref(o_key, l_key, q4)
+    distinct_b = len(np.unique(l_key[q4]))
+
+    olo, ohi = bloom.keys_to_device(o_key, dev)
+    ilo, ihi = bloom.keys_to_device(l_key, dev)
+    slo, shi = bloom.keys_to_device(l_supp, dev)
+    klo, khi = bloom.keys_to_device(s_key, dev)
+    nb_in = bloom.blocks_for(int(q5.sum()))
+    nb_out = bloom.blocks_for(len(l_key))
+    w_ref = kb.build_ref(olo, ohi, nb_in, valid=torch.from_numpy(q5).to(dev))
+    for run, a, table_b, b, (w, ok, w2, hit), sec_a, sec_b, sec_c in runs:
+        check(np.array_equal(a, want_a), f"case A ({run}) != semi_mask_ref")
+        occupied = int(torch.count_nonzero(table_b[:, 2]))
+        check(occupied == distinct_b,
+              f"case B ({run}): {occupied} keys in the set, "
+              f"{distinct_b} distinct")
+        check(np.array_equal(b, want_b), f"case B ({run}) != semi_mask_ref")
+        check(torch.equal(w, w_ref), f"case C ({run}): bloom_build words")
+        ok_ref, w2_ref = bloom.transfer(
+            w_ref, ilo, ihi, slo, shi,
+            torch.ones(len(l_key), dtype=torch.bool, device=dev), nb_out)
+        check(np.array_equal(ok, ok_ref.cpu().numpy())
+              and torch.equal(w2, w2_ref),
+              f"case C ({run}): bloom_transfer != the plain transfer")
+        check(bool(ok[a].all()), f"case C ({run}): a false negative")
+        hit_ref = kb.probe_ref(w2_ref, klo, khi).cpu().numpy()
+        check(np.array_equal(hit, hit_ref),
+              f"case C ({run}): bloom_probe != probe_ref")
+        exact = np.isin(s_key, l_supp[a])
+        check(bool(hit[exact].all()), f"case C ({run}): a supplier missed")
+        emit({"phase": "kernel-api", "run": run,
+              "A": {"seconds": sec_a, "build_rows": len(o_key),
+                    "build_live": int(q5.sum()),
+                    "cap": sj.capacity_for(len(o_key)),
+                    "probe_rows": len(l_key), "hits": int(a.sum()),
+                    "equal": ["semi_mask_ref", "torch.isin"]},
+              "B": {"seconds": sec_b, "build_rows": len(l_key),
+                    "build_live": int(q4.sum()), "distinct": distinct_b,
+                    "occupied": occupied, "cap": int(table_b.shape[0]),
+                    "table_mb": table_b.numel() * 4 / 2**20,
+                    "probe_rows": len(o_key), "hits": int(b.sum()),
+                    "equal": ["np.unique", "semi_mask_ref"]},
+              "C": {"seconds": sec_c, "nblocks_in": int(w.shape[0]),
+                    "nblocks_out": int(w2.shape[0]),
+                    "survivors": int(ok.sum()), "exact": int(a.sum()),
+                    "false_positives": int((ok & ~a).sum()),
+                    "supplier_hits": int(hit.sum()),
+                    "supplier_exact": int(exact.sum()),
+                    "supplier_false_positives": int((hit & ~exact).sum()),
+                    "equal": ["core.bloom.transfer", "probe_ref",
+                              "build_ref"]}})
+    emit({"phase": "kernel-api", "launches": counts})
+    check_path(counts, "kernel-api", *API_PATH)
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0,
@@ -446,7 +722,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import bloom, hashing
+    from repro_torch.core import bloom
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.bloom import ops as kb
     from repro_torch.kernels.semijoin import ops as sj
@@ -469,11 +745,21 @@ def main() -> int:
               ln.strip() for ln in log.splitlines() if "Used" in ln]}
               for name, (s, log) in info.items()}})
 
-    rep, worst = kernel_phase(torch, np, kb, bloom, hashing, dev)
-    jrep, jworst = joinmap_phase(torch, np, sj, bloom, hashing, dev)
+    from repro_torch.tpch import generate
+    t0 = time.perf_counter()
+    cat = generate(sf=args.sf, seed=7)
+    emit({"phase": "slice", "step": "generate", "sf": args.sf,
+          "seconds": time.perf_counter() - t0,
+          "lineitem_rows": len(cat["lineitem"])})
+    api = api_inputs(np, cat)
+
+    rep, worst = kernel_phase(torch, np, kb, bloom, dev, api)
+    jrep, jworst = joinmap_phase(torch, np, sj, bloom, dev, api)
     rep.update(jrep)
     worst.update(jworst)
-    _, counts = slice_phase(torch, kb, sj, args.sf)
+    _, counts = slice_phase(torch, kb, sj, cat, args.sf)
+    counts["kernel-api"] = kernel_api_phase(torch, np, kb, sj, bloom, dev,
+                                            api)
 
     bloom_cu = "src/repro_torch/kernels/bloom/csrc/bloom.cu"
     semijoin_cu = "src/repro_torch/kernels/semijoin/csrc/semijoin.cu"
@@ -492,6 +778,14 @@ def main() -> int:
         "joinmap_lookup": (semijoin_cu,
                            "src/repro/kernels/semijoin/semijoin.py:274",
                            "pred-trans-plane-off"),
+        "semijoin_build": (semijoin_cu,
+                           "src/repro/kernels/semijoin/semijoin.py:106",
+                           "kernel-api"),
+        "semijoin_probe": (semijoin_cu,
+                           "src/repro/kernels/semijoin/semijoin.py:299",
+                           "kernel-api"),
+        "bloom_transfer": (bloom_cu, "src/repro/kernels/bloom/bloom.py:279",
+                           "kernel-api"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,
@@ -501,7 +795,9 @@ def main() -> int:
          "plain_ms": rep[name]["plain_ms"],
          "plain_device": rep[name]["plain_device"],
          "bound_ms": rep[name]["bound_ms"], "bound_by": "bytes",
-         "library_ms": None}
+         "library_ms": rep[name]["library_ms"],
+         **({"library_call": rep[name]["library_call"]}
+            if "library_call" in rep[name] else {})}
         for name, (source, replaces, path) in table.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

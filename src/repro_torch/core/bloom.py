@@ -94,6 +94,12 @@ def halves_to_device(lo: np.ndarray, hi: np.ndarray, device
             .to(device))
 
 
+def keys_to_device(keys: np.ndarray, device
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Host int64 keys -> their device int32 (lo, hi) halves."""
+    return halves_to_device(*hashing.key_halves(np.asarray(keys)), device)
+
+
 def to_i32(w: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> int32 with the same bit pattern."""
     return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
@@ -173,6 +179,20 @@ def probe_hashed_dev(words: torch.Tensor, h: torch.Tensor,
         w = flat[base + (pos >> 5)]
         out &= ((w >> (pos & 31)) & 1) == 1
     return out
+
+
+def transfer(in_words: torch.Tensor,
+             in_lo: torch.Tensor, in_hi: torch.Tensor,
+             out_lo: torch.Tensor, out_hi: torch.Tensor,
+             mask: torch.Tensor, nblocks: int, k: int = DEFAULT_K
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused filter transformation (paper §3.2): probe the incoming filter
+    on the incoming join key; for passing rows insert the outgoing join key
+    into a fresh outgoing filter. One scan, two filters.
+
+    Returns (survivor_mask, out_words)."""
+    ok = mask.to(torch.bool) & probe(in_words, in_lo, in_hi, k=k)
+    return ok, build(out_lo, out_hi, ok, nblocks, k=k)
 
 
 # -- host (numpy) mirror -----------------------------------------------------

@@ -1,5 +1,6 @@
 // Blocked-Bloom kernels for Hopper (sm_90a): the fused multi-filter probe
-// (K1), the filter build (K2) and the single-filter probe (K3). Plain C
+// (K1), the filter build (K2), the single-filter probe (K3) and the fused
+// filter transfer (K7). Plain C
 // interface, loaded with ctypes by
 // repro_torch/kernels/bloom/ops.py; every entry point launches on the
 // caller's stream, never synchronises, and returns cudaGetLastError().
@@ -119,17 +120,32 @@ __global__ void probe_kernel(const uint32_t* __restrict__ words, int log2nb,
   out[r] = ok ? 1 : 0;
 }
 
+// ORs the k bits of the key with hash h into its block. OR is
+// order-independent, so concurrent inserts leave the same words whatever
+// the thread schedule.
+__device__ __forceinline__ void block_insert(uint32_t* __restrict__ words,
+                                             uint32_t h, int log2nb, int k) {
+  uint32_t* blk = words + (size_t)block_of(h, log2nb) * kLanes;
+  uint32_t g1 = fmix32(h ^ kGolden);
+  uint32_t g2 = fmix32(h ^ kP2) | 1u;
+  for (int j = 0; j < k; ++j) {
+    uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
+    atomicOr(blk + (pos >> 5), 1u << (pos & 31u));
+  }
+}
+
 // K2. Replaces the TPU kernel repro/kernels/bloom/bloom.py build_pallas
 // (_build_kernel), reached from the reference's PallasEngine.build_idx.
 //
 // The TPU serialises this read-modify-write (its vector unit has no
 // scatter-OR). Here each key does k atomicOr's on 32-bit words of its
-// block; OR is order-independent, so the words are bit-exact whatever the
-// thread schedule. Bound on this card: the atomics, which land in L2 (the
-// filter is at most a few MB), plus 8 bytes of key halves read per row.
-// Rows at and past `count`, and rows whose `valid` byte is 0, insert
-// nothing; `idx` gathers survivor rows, `valid` is indexed by the original
-// row id. The output words are zeroed by the caller.
+// block (block_insert); OR is order-independent, so the words are
+// bit-exact whatever the thread schedule. Bound on this card: the atomics,
+// which land in L2 (the filter is at most a few MB), plus 8 bytes of key
+// halves read per row. Rows at and past `count`, and rows whose `valid`
+// byte is 0, insert nothing; `idx` gathers survivor rows, `valid` is
+// indexed by the original row id. The output words are zeroed by the
+// caller.
 __global__ void build_kernel(const uint32_t* __restrict__ lo,
                              const uint32_t* __restrict__ hi,
                              const int32_t* __restrict__ idx,
@@ -139,13 +155,43 @@ __global__ void build_kernel(const uint32_t* __restrict__ lo,
   if (r >= count) return;
   int src = idx != nullptr ? idx[r] : r;
   if (valid != nullptr && !valid[src]) return;
-  uint32_t h = key_hash(__ldg(lo + src), __ldg(hi + src));
-  uint32_t* blk = words + (size_t)block_of(h, log2nb) * kLanes;
-  uint32_t g1 = fmix32(h ^ kGolden);
-  uint32_t g2 = fmix32(h ^ kP2) | 1u;
-  for (int j = 0; j < k; ++j) {
-    uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
-    atomicOr(blk + (pos >> 5), 1u << (pos & 31u));
+  block_insert(words, key_hash(__ldg(lo + src), __ldg(hi + src)), log2nb, k);
+}
+
+// K7. Replaces the TPU kernel repro/kernels/bloom/bloom.py transfer_pallas
+// (_transfer_kernel), reached through kernels/bloom/ops.py bloom_transfer:
+// the fused filter transformation of the paper's §3.2. Each row probes the
+// incoming filter on its incoming key, ok = mask && hit, writes ok, and if
+// ok inserts its outgoing key into the outgoing filter.
+//
+// The TPU keeps the outgoing filter resident in VMEM across its sequential
+// grid and ORs the survivors' blocks in one at a time. Here one thread per
+// row does K3's probe (block_hit) and K2's k atomicOr's (block_insert), so
+// the words are bit-exact whatever the schedule. Bound on this card:
+// memory: the mask byte in and the ok byte out per row, the incoming key
+// halves of the masked rows and the outgoing ones of the survivors only
+// (each 32-byte sector once), the incoming filter read and the outgoing
+// one written once; both filters mostly stay in the 50 MB L2. The caller
+// zeroes `out_words`.
+__global__ void transfer_kernel(const uint32_t* __restrict__ in_words,
+                                int log2nb_in,
+                                const uint32_t* __restrict__ in_lo,
+                                const uint32_t* __restrict__ in_hi,
+                                const uint32_t* __restrict__ out_lo,
+                                const uint32_t* __restrict__ out_hi,
+                                const uint8_t* __restrict__ mask, int n,
+                                int log2nb_out, int k,
+                                uint8_t* __restrict__ ok_out,
+                                uint32_t* __restrict__ out_words) {
+  int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  bool ok = mask[r] &&
+            block_hit(in_words, key_hash(__ldg(in_lo + r), __ldg(in_hi + r)),
+                      log2nb_in, 0, k);
+  ok_out[r] = ok ? 1 : 0;
+  if (ok) {
+    block_insert(out_words, key_hash(__ldg(out_lo + r), __ldg(out_hi + r)),
+                 log2nb_out, k);
   }
 }
 
@@ -209,6 +255,27 @@ int bloom_probe(const void* words, int log2nb, int k, const void* lo,
         static_cast<const uint32_t*>(lo), static_cast<const uint32_t*>(hi),
         static_cast<const int32_t*>(idx), n, count,
         static_cast<uint8_t*>(out));
+  }
+  return (int)cudaGetLastError();
+}
+
+// in_words: uint32 [2^log2nb_in, 8]; in_lo/in_hi/out_lo/out_hi: uint32 key
+// halves [n]; mask: uint8 [n]; ok: uint8 [n]; out_words: uint32
+// [2^log2nb_out, 8], zeroed by the caller.
+int bloom_transfer(const void* in_words, int log2nb_in, const void* in_lo,
+                   const void* in_hi, const void* out_lo, const void* out_hi,
+                   const void* mask, int n, int log2nb_out, int k, void* ok,
+                   void* out_words, void* stream) {
+  if (n > 0) {
+    int grid = (n + kThreads - 1) / kThreads;
+    transfer_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(in_words), log2nb_in,
+        static_cast<const uint32_t*>(in_lo),
+        static_cast<const uint32_t*>(in_hi),
+        static_cast<const uint32_t*>(out_lo),
+        static_cast<const uint32_t*>(out_hi),
+        static_cast<const uint8_t*>(mask), n, log2nb_out, k,
+        static_cast<uint8_t*>(ok), static_cast<uint32_t*>(out_words));
   }
   return (int)cudaGetLastError();
 }

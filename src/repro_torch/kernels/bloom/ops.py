@@ -1,13 +1,19 @@
-"""Blocked-Bloom kernels K1 (fused multi-filter probe), K2 (build) and K3
-(single-filter probe).
+"""Blocked-Bloom kernels K1 (fused multi-filter probe), K2 (build), K3
+(single-filter probe) and K7 (fused filter transfer), and the kernel
+library's public entry points `bloom_build`, `bloom_probe` and
+`bloom_transfer`.
 
 `multi_probe`, `build` and `probe` are the wrappers the engine calls
 (K1 on the device-resident plane, K3 on the plane-off route, K2 on
-both). On a CUDA tensor each launches its hand-written kernel from
-`csrc/bloom.cu` on the current stream (and raises if it cannot); on a
-CPU tensor it runs the plain torch version beside it (`multi_probe_ref`,
-`build_ref`, `probe_ref`), which repeats the kernel's hash arithmetic
-in int64 masked to 32 bits — the port's counterpart of running the
+both); `transfer` (K7) is reached through `bloom_transfer` only. The
+public functions take host int64 keys, upload their halves with a plain
+`.to(device)` (the reference's `jnp.asarray`, outside `DeviceStats`),
+and run K2, K3 and K7. On a CUDA tensor each wrapper launches its
+hand-written kernel from `csrc/bloom.cu` on the current stream (and
+raises if it cannot); on a CPU tensor it runs the plain torch version
+(`multi_probe_ref`, `build_ref`, `probe_ref`, and for K7
+`core.bloom.transfer`), which repeats the kernel's hash arithmetic in
+int64 masked to 32 bits — the port's counterpart of running the
 reference's Pallas kernels in interpret mode. Any other device raises.
 
 Device layout: key halves and filter words are `int32` tensors holding
@@ -21,15 +27,18 @@ the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import bloom
-from repro_torch.core.bloom import DEFAULT_K, LANES
-from repro_torch.kernels.build import check, check_i32, library
+from repro_torch.core.bloom import DEFAULT_BITS_PER_KEY, DEFAULT_K, LANES
+from repro_torch.kernels.build import (check, check_bool, check_i32,
+                                      library)
 
-LAUNCHES = {"multi_probe": 0, "bloom_build": 0, "probe": 0}
+LAUNCHES = {"multi_probe": 0, "bloom_build": 0, "probe": 0,
+            "bloom_transfer": 0}
 
 _c_void_p_p = ctypes.POINTER(ctypes.c_void_p)
 _c_int_p = ctypes.POINTER(ctypes.c_int)
@@ -57,6 +66,12 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p]
         lib.bloom_probe.restype = ctypes.c_int
+        lib.bloom_transfer.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
+        lib.bloom_transfer.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -261,12 +276,7 @@ def build(lo: torch.Tensor, hi: torch.Tensor, nblocks: int,
     if idx is not None:
         check_i32(idx, dev, "idx")
     if valid is not None:
-        if (valid.device != dev or valid.dtype != torch.bool
-                or valid.dim() != 1 or not valid.is_contiguous()):
-            raise ValueError("valid must be a contiguous 1-D bool tensor "
-                             f"on {dev}")
-        if valid.shape[0] != lo.shape[0]:
-            raise ValueError("valid must cover every key row")
+        check_bool(valid, dev, lo.shape[0], "valid")
     log2nb = _log2(nblocks)
     words = torch.zeros((nblocks, LANES), dtype=torch.int32, device=dev)
     if count == 0:
@@ -279,6 +289,102 @@ def build(lo: torch.Tensor, hi: torch.Tensor, nblocks: int,
     check(err, "bloom_build")
     LAUNCHES["bloom_build"] += 1
     return words
+
+
+# --------------------------------------------------------------------------
+# K7: fused filter transfer
+# --------------------------------------------------------------------------
+
+
+def transfer(in_words: torch.Tensor, in_lo: torch.Tensor,
+             in_hi: torch.Tensor, out_lo: torch.Tensor, out_hi: torch.Tensor,
+             mask: torch.Tensor, nblocks: int, k: int = DEFAULT_K):
+    """K7. Probe `in_words` on the incoming int32 key halves of the rows
+    whose `mask` is True, and build a fresh filter of `nblocks` blocks from
+    the outgoing key halves of the rows that pass. Its plain version is
+    `core.bloom.transfer` (`ref.bloom_transfer_ref`)."""
+    dev = in_lo.device
+    if dev.type == "cpu":
+        return bloom.transfer(in_words, in_lo, in_hi, out_lo, out_hi, mask,
+                              nblocks, k=k)
+    if dev.type != "cuda":
+        raise RuntimeError(f"bloom transfer: no kernel for device {dev}")
+    lib = _lib()
+    _check_words(in_words, dev, "in_words")
+    n = int(in_lo.shape[0])
+    for t, what in ((in_lo, "in_lo"), (in_hi, "in_hi"), (out_lo, "out_lo"),
+                    (out_hi, "out_hi")):
+        check_i32(t, dev, what)
+        if t.shape[0] != n:
+            raise ValueError("key columns differ in length")
+    check_bool(mask, dev, n, "mask")
+    log2nb_in, log2nb_out = _log2(in_words.shape[0]), _log2(nblocks)
+    ok = torch.empty(n, dtype=torch.bool, device=dev)
+    words = torch.zeros((nblocks, LANES), dtype=torch.int32, device=dev)
+    if n == 0:
+        return ok, words
+    err = lib.bloom_transfer(
+        in_words.data_ptr(), log2nb_in, in_lo.data_ptr(), in_hi.data_ptr(),
+        out_lo.data_ptr(), out_hi.data_ptr(), mask.data_ptr(), n, log2nb_out,
+        int(k), ok.data_ptr(), words.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "bloom_transfer")
+    LAUNCHES["bloom_transfer"] += 1
+    return ok, words
+
+
+# --------------------------------------------------------------------------
+# the kernel library's public entry points (host int64 keys in)
+# --------------------------------------------------------------------------
+
+
+def _live_blocks(mask: Optional[np.ndarray], n: int,
+                 bits_per_key: int) -> int:
+    """The reference's filter size: blocks for the mask's live count."""
+    live = n if mask is None else int(np.asarray(mask, bool).sum())
+    return bloom.blocks_for(max(live, 1), bits_per_key)
+
+
+def bloom_build(keys: np.ndarray, mask: Optional[np.ndarray] = None,
+                bits_per_key: int = DEFAULT_BITS_PER_KEY,
+                k: int = DEFAULT_K, device="cuda") -> torch.Tensor:
+    """Filter words (int32 [nblocks, 8] on `device`) from host int64 keys,
+    rows with a False `mask` left out, through K2."""
+    keys = np.asarray(keys)
+    lo, hi = bloom.keys_to_device(keys, device)
+    valid = (None if mask is None else
+             torch.from_numpy(np.asarray(mask, bool)).to(device))
+    return build(lo, hi, _live_blocks(mask, len(keys), bits_per_key),
+                 valid=valid, k=k)
+
+
+def bloom_probe(words: torch.Tensor, keys: np.ndarray,
+                k: int = DEFAULT_K) -> np.ndarray:
+    """Membership of host int64 keys in a filter, through K3, as a host
+    bool array."""
+    lo, hi = bloom.keys_to_device(keys, words.device)
+    return probe(words, lo, hi, k=k).cpu().numpy()
+
+
+def bloom_transfer(in_words: torch.Tensor, in_keys: np.ndarray,
+                   out_keys: np.ndarray, mask: Optional[np.ndarray] = None,
+                   bits_per_key: int = DEFAULT_BITS_PER_KEY,
+                   k: int = DEFAULT_K) -> Tuple[np.ndarray, torch.Tensor]:
+    """Fused filter transformation through K7: (host bool survivor mask,
+    the outgoing filter's words on the device). The outgoing filter is
+    sized for the mask's live rows, as the reference sizes it."""
+    in_keys, out_keys = np.asarray(in_keys), np.asarray(out_keys)
+    if len(in_keys) != len(out_keys):
+        raise ValueError("in_keys and out_keys differ in length")
+    n = len(in_keys)
+    dev = in_words.device
+    ilo, ihi = bloom.keys_to_device(in_keys, dev)
+    olo, ohi = bloom.keys_to_device(out_keys, dev)
+    live = np.ones(n, bool) if mask is None else np.asarray(mask, bool)
+    ok, words = transfer(in_words, ilo, ihi, olo, ohi,
+                         torch.from_numpy(live).to(dev),
+                         _live_blocks(mask, n, bits_per_key), k=k)
+    return ok.cpu().numpy(), words
 
 
 def reset_launches() -> None:

@@ -129,3 +129,15 @@ def check_i32(t: torch.Tensor, dev: torch.device, what: str,
                          f"got {t.dtype} {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
+
+
+def check_bool(t: torch.Tensor, dev: torch.device, n: int,
+               what: str) -> None:
+    """Raise unless `t` is a contiguous 1-D bool tensor of `n` rows on
+    `dev`: a per-row mask, which a kernel reads as one byte a row."""
+    if (t.device != dev or t.dtype != torch.bool or t.dim() != 1
+            or not t.is_contiguous()):
+        raise ValueError(f"{what} must be a contiguous 1-D bool tensor "
+                         f"on {dev}")
+    if t.shape[0] != n:
+        raise ValueError(f"{what} must cover every key row")

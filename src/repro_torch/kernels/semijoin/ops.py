@@ -1,6 +1,7 @@
 """Device equi-joins: the sorted-segment join of the device-resident data
-plane, and the open-addressing key -> row map of the plane-off route
-(kernels K4 and K5).
+plane, the open-addressing key -> row map of the plane-off route
+(kernels K4 and K5), and the open-addressing key set behind the kernel
+library's semi-join `semi_mask` (kernels K6a and K6b).
 
 **Sorted-segment join** (`segment_join_device`). Duplicate-key joins
 entirely on the device — a stable argsort of the build keys, a binary
@@ -28,7 +29,16 @@ CPU tensor it runs the plain torch version beside it, `build_rows_ref`
 (the reference's sequential insert) / `lookup_ref`. The table is int32
 [cap, 4], one 16-byte record per slot: key halves, state (0 empty,
 1 published), row — a finished table's columns are the reference's
-klo/khi/occ/row lanes. `LAUNCHES` counts kernel launches.
+klo/khi/occ/row lanes.
+
+**Key set** (`semijoin_build` / `semijoin_probe` / `semi_mask`, the
+Yannakakis semi-join of the paper's §2.2). `set_build` (K6a) and
+`set_probe` (K6b) are K4 and K5 without the row: the same table format
+with the row left at 0, the masked-off rows never inserted, and a bool
+per probe key. Their plain versions are `set_build_ref` (the reference's
+sequential insert) and `set_probe_ref`. A parallel build lays the table
+out in another order than the sequential one, so a table is only ever
+probed by the version that built it. `LAUNCHES` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -38,13 +48,16 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import bloom
 from repro_torch.core import device_plane as dp
 from repro_torch.core import hashing
-from repro_torch.kernels.build import check, check_i32, library
+from repro_torch.kernels.build import (check, check_bool, check_i32,
+                                      library)
 
 _I64MAX = torch.iinfo(torch.int64).max
 
-LAUNCHES = {"joinmap_build": 0, "joinmap_lookup": 0}
+LAUNCHES = {"joinmap_build": 0, "joinmap_lookup": 0, "semijoin_build": 0,
+            "semijoin_probe": 0}
 
 #: the reference's Pallas tile: `capacity_for` keeps its floor of TILE // 2
 TILE = 1024
@@ -181,6 +194,12 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         lib.joinmap_lookup.restype = ctypes.c_int
+        lib.semijoin_set_build.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        lib.semijoin_set_build.restype = ctypes.c_int
+        lib.semijoin_set_probe.argtypes = lib.joinmap_lookup.argtypes
+        lib.semijoin_set_probe.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -203,26 +222,52 @@ def _check_halves(lo: torch.Tensor, hi: torch.Tensor) -> None:
         raise ValueError("lo and hi differ in length")
 
 
-def build_rows_ref(lo: torch.Tensor, hi: torch.Tensor, cap: int
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch K4: the reference's sequential insert, one key at a
-    time in row order, linear probing from the key's home slot; equal
-    keys share one slot and the last row wins. The table is the
-    reference's (klo, khi, occ, row) byte for byte. Returns (int32 table
-    [cap, 4], int64 [1] count of occupied slots)."""
+def _insert_ref(lo: torch.Tensor, hi: torch.Tensor, cap: int,
+                mask: Optional[torch.Tensor], rows: bool):
+    """The reference's sequential insert: the rows (those whose `mask` is
+    True) one at a time in row order, linear probing from the key's home
+    slot; equal keys share one slot, and with `rows` the last row wins
+    (without, the row column stays 0). Returns (int32 table [cap, 4],
+    int64 [1] count of occupied slots)."""
     _check_cap(cap, lo.shape[0])
-    mask = cap - 1
-    home = (hashing.hash64(lo, hi) & mask).tolist()
+    wrap = cap - 1
+    home = (hashing.hash64(lo, hi) & wrap).tolist()
     los, his = lo.tolist(), hi.tolist()
+    ids = (range(len(los)) if mask is None
+           else torch.nonzero(mask.cpu()).flatten().tolist())
     klo, khi, state, row = ([0] * cap for _ in range(4))
-    for i, (a, b, s) in enumerate(zip(los, his, home)):
+    for i in ids:
+        a, b, s = los[i], his[i], home[i]
         while state[s] and (klo[s] != a or khi[s] != b):
-            s = (s + 1) & mask
-        klo[s], khi[s], state[s], row[s] = a, b, _PUBLISHED, i
+            s = (s + 1) & wrap
+        klo[s], khi[s], state[s] = a, b, _PUBLISHED
+        if rows:
+            row[s] = i
     table = torch.stack([torch.tensor(c, dtype=torch.int32)
                          for c in (klo, khi, state, row)], dim=1)
     occupied = torch.tensor([sum(state)], dtype=torch.int64)
     return table.to(lo.device), occupied.to(lo.device)
+
+
+def build_rows_ref(lo: torch.Tensor, hi: torch.Tensor, cap: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch K4: the reference's sequential insert of every row, the
+    last row winning (`_insert_ref`). The table is the reference's (klo,
+    khi, occ, row) byte for byte. Returns (int32 table [cap, 4], int64 [1]
+    count of occupied slots)."""
+    return _insert_ref(lo, hi, cap, None, rows=True)
+
+
+def _check_probe(table: torch.Tensor, lo: torch.Tensor,
+                 hi: torch.Tensor) -> Tuple[int, int]:
+    """Check a walk's inputs; returns (cap, n)."""
+    _check_halves(lo, hi)
+    check_i32(table, lo.device, "table", ndim=2)
+    if table.shape[1] != 4:
+        raise ValueError("table must be [cap, 4]")
+    cap = int(table.shape[0])
+    _check_cap(cap, 0)
+    return cap, int(lo.shape[0])
 
 
 def build_rows(lo: torch.Tensor, hi: torch.Tensor, cap: int
@@ -284,9 +329,10 @@ def lookup_ref(table: torch.Tensor, lo: torch.Tensor,
 
 def lookup_work(table: torch.Tensor, lo: torch.Tensor,
                 hi: torch.Tensor) -> Tuple[int, int]:
-    """K5's data-dependent work for these probe keys: (slots visited,
-    distinct 32-byte sectors of the table they fall in). The sectors are
-    the table bytes the lookup must move; a revisit may hit in cache."""
+    """K5's (and K6b's: the two walk alike) data-dependent work for these
+    probe keys: (slots visited, distinct 32-byte sectors of the table they
+    fall in). The sectors are the table bytes the walk must move; a
+    revisit may hit in cache."""
     _, visited, sectors = _walk(table, lo, hi)
     return visited, sectors
 
@@ -301,12 +347,7 @@ def lookup(table: torch.Tensor, lo: torch.Tensor,
     if dev.type != "cuda":
         raise RuntimeError(f"joinmap lookup: no kernel for device {dev}")
     lib = _lib()
-    _check_halves(lo, hi)
-    check_i32(table, dev, "table", ndim=2)
-    if table.shape[1] != 4:
-        raise ValueError("table must be [cap, 4]")
-    cap, n = int(table.shape[0]), int(lo.shape[0])
-    _check_cap(cap, 0)
+    cap, n = _check_probe(table, lo, hi)
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out
@@ -341,6 +382,111 @@ def joinmap_lookup(table: torch.Tensor, keys: np.ndarray) -> np.ndarray:
     rows = lookup(table, dp.to_device(lo, table.device),
                   dp.to_device(hi, table.device))
     return dp.to_host(rows).astype(np.int64)
+
+
+# --------------------------------------------------------------------------
+# key set: K6a (build) and K6b (membership probe), and the public semi-join
+# --------------------------------------------------------------------------
+
+
+def set_build_ref(lo: torch.Tensor, hi: torch.Tensor, cap: int,
+                  mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch K6a: the reference's sequential insert of the rows
+    whose `mask` is True (None: every row), the row column left at 0
+    (`_insert_ref`). The (lo, hi, state) columns are the reference's
+    `build_pallas` (klo, khi, occ) byte for byte. Returns (int32 table
+    [cap, 4], int64 [1] count of distinct inserted keys)."""
+    return _insert_ref(lo, hi, cap, mask, rows=False)
+
+
+def set_build(lo: torch.Tensor, hi: torch.Tensor, cap: int,
+              mask: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6a. Key set of the int32 key halves [n] whose `mask` is True (None:
+    every row) in a table of `cap` slots; see `set_build_ref`. Returns the
+    table and the occupied count as device tensors (nothing is synced)."""
+    dev = lo.device
+    if dev.type == "cpu":
+        return set_build_ref(lo, hi, cap, mask)
+    if dev.type != "cuda":
+        raise RuntimeError(f"semijoin build: no kernel for device {dev}")
+    lib = _lib()
+    _check_halves(lo, hi)
+    n = int(lo.shape[0])
+    if mask is not None:
+        check_bool(mask, dev, n, "mask")
+    _check_cap(cap, n)
+    table = torch.zeros((cap, 4), dtype=torch.int32, device=dev)
+    occupied = torch.zeros(1, dtype=torch.int64, device=dev)
+    if n == 0:
+        return table, occupied
+    err = lib.semijoin_set_build(
+        lo.data_ptr(), hi.data_ptr(),
+        None if mask is None else mask.data_ptr(), n, cap, table.data_ptr(),
+        occupied.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "semijoin_set_build")
+    LAUNCHES["semijoin_build"] += 1
+    return table, occupied
+
+
+def set_probe_ref(table: torch.Tensor, lo: torch.Tensor,
+                  hi: torch.Tensor) -> torch.Tensor:
+    """Plain torch K6b: is each probe key in the set? bool [n], by K5's
+    walk (a set's slots all hold row 0, so a hit is a row >= 0)."""
+    return _walk(table, lo, hi)[0] >= 0
+
+
+def set_probe(table: torch.Tensor, lo: torch.Tensor,
+              hi: torch.Tensor) -> torch.Tensor:
+    """K6b. Membership of int32 key halves [n] in a `set_build` table;
+    see `set_probe_ref`. Returns bool [n] on the device."""
+    dev = lo.device
+    if dev.type == "cpu":
+        return set_probe_ref(table, lo, hi)
+    if dev.type != "cuda":
+        raise RuntimeError(f"semijoin probe: no kernel for device {dev}")
+    lib = _lib()
+    cap, n = _check_probe(table, lo, hi)
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return out
+    err = lib.semijoin_set_probe(
+        table.data_ptr(), cap, lo.data_ptr(), hi.data_ptr(), n,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "semijoin_set_probe")
+    LAUNCHES["semijoin_probe"] += 1
+    return out
+
+
+def semijoin_build(keys: np.ndarray, mask: Optional[np.ndarray] = None,
+                   device="cuda") -> torch.Tensor:
+    """Key set of host int64 keys (those whose `mask` is True) on
+    `device`, through K6a: the int32 [cap, 4] table, cap sized for all
+    `len(keys)` rows as the reference sizes it. The uploads are plain
+    `.to(device)` copies (the reference's `jnp.asarray`), outside
+    `DeviceStats`."""
+    keys = np.asarray(keys)
+    lo, hi = bloom.keys_to_device(keys, device)
+    keep = (None if mask is None else
+            torch.from_numpy(np.asarray(mask, bool)).to(device))
+    return set_build(lo, hi, capacity_for(len(keys)), keep)[0]
+
+
+def semijoin_probe(table: torch.Tensor, keys: np.ndarray) -> np.ndarray:
+    """Membership of host int64 keys in a `semijoin_build` table, through
+    K6b, as a host bool array."""
+    lo, hi = bloom.keys_to_device(keys, table.device)
+    return set_probe(table, lo, hi).cpu().numpy()
+
+
+def semi_mask(probe_keys: np.ndarray, build_keys: np.ndarray,
+              build_mask: Optional[np.ndarray] = None,
+              device="cuda") -> np.ndarray:
+    """R ⋉ S membership mask over `probe_keys`: is each key among the
+    `build_keys` whose `build_mask` is True? K6a then K6b on `device`."""
+    return semijoin_probe(semijoin_build(build_keys, build_mask, device),
+                          probe_keys)
 
 
 def reset_launches() -> None:

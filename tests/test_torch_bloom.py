@@ -159,7 +159,8 @@ def test_cpu_wrappers_take_plain_version_and_do_not_count(rng):
     out = kb.multi_probe([w], [tlo], [thi], count=1000)
     assert out[0, :1000].all() and not out[0, 1000:].any()
     assert kb.probe(w, tlo, thi, count=1000).equal(out[0])
-    assert kb.LAUNCHES == {"multi_probe": 0, "bloom_build": 0, "probe": 0}
+    assert kb.LAUNCHES == {"multi_probe": 0, "bloom_build": 0, "probe": 0,
+                           "bloom_transfer": 0}
 
 
 def test_wrappers_reject_bad_inputs(rng):

@@ -224,7 +224,8 @@ def test_joinmap_wrappers_count_nothing_on_cpu_and_reject_bad_inputs(rng):
     assert int(occ) == 64
     assert (sj.lookup(table, _t(lo), _t(hi)).numpy()
             == np.arange(64)).all()
-    assert sj.LAUNCHES == {"joinmap_build": 0, "joinmap_lookup": 0}
+    assert sj.LAUNCHES == {"joinmap_build": 0, "joinmap_lookup": 0,
+                           "semijoin_build": 0, "semijoin_probe": 0}
     with pytest.raises(ValueError):
         sj.build_rows(_t(lo), _t(hi), 96)       # not a power of two
     with pytest.raises(ValueError):

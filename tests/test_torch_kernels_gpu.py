@@ -18,7 +18,7 @@ torch = pytest.importorskip("torch")
 
 import numpy as np
 
-from repro_torch.core import bloom, hashing
+from repro_torch.core import bloom
 from repro_torch.kernels.bloom import ops as kb
 from repro_torch.kernels.semijoin import ops as sj
 
@@ -45,7 +45,7 @@ def test_kernels_match_plain_versions(cuda, m):
     ragged counts, survivor ids, a validity plane and nblocks = 1."""
     rng = np.random.default_rng(m)
     n = 1 << 16
-    lo, hi = bloom.halves_to_device(*hashing.key_halves(_keys(rng, n)), cuda)
+    lo, hi = bloom.keys_to_device(_keys(rng, n), cuda)
     valid = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
     idx = torch.from_numpy(np.sort(rng.choice(n, n // 2, replace=False))
                            .astype(np.int32)).to(cuda)
@@ -68,7 +68,8 @@ def test_wrappers_count_launches_and_check_inputs(cuda):
     lo = torch.zeros(1024, dtype=torch.int32, device=cuda)
     w = kb.build(lo, lo, 8)
     kb.multi_probe([w], [lo], [lo])
-    assert kb.LAUNCHES == {"multi_probe": 1, "bloom_build": 1, "probe": 0}
+    assert kb.LAUNCHES == {"multi_probe": 1, "bloom_build": 1, "probe": 0,
+                           "bloom_transfer": 0}
     with pytest.raises(ValueError):
         kb.build(lo.to(torch.int64), lo.to(torch.int64), 8)
     with pytest.raises(ValueError):
@@ -101,7 +102,7 @@ def test_probe_kernel_matches_plain_version(cuda, nb):
     rng = np.random.default_rng(nb)
     n = 1 << 16
     keys = _keys(rng, n)
-    lo, hi = bloom.halves_to_device(*hashing.key_halves(keys), cuda)
+    lo, hi = bloom.keys_to_device(keys, cuda)
     words = kb.build_ref(lo[: n // 4], hi[: n // 4], nb)
     idx = torch.from_numpy(np.sort(rng.choice(n, n // 2, replace=False))
                            .astype(np.int32)).to(cuda)
@@ -124,7 +125,7 @@ def test_joinmap_kernels_match_plain_versions(cuda, domain):
     n = 1 << 16
     keys = (_keys(rng, n) if domain is None
             else rng.integers(0, domain, n).astype(np.int64))
-    lo, hi = bloom.halves_to_device(*hashing.key_halves(keys), cuda)
+    lo, hi = bloom.keys_to_device(keys, cuda)
     cap = sj.capacity_for(n)
     sj.reset_launches()
     table, occ = sj.build_rows(lo, hi, cap)
@@ -132,7 +133,7 @@ def test_joinmap_kernels_match_plain_versions(cuda, domain):
     distinct = len(np.unique(keys))
     assert int(occ) == int(ref_occ) == distinct
     probe = np.concatenate([keys, _keys(rng, n)])
-    plo, phi = bloom.halves_to_device(*hashing.key_halves(probe), cuda)
+    plo, phi = bloom.keys_to_device(probe, cuda)
     got = sj.lookup(table, plo, phi)
     ref = sj.lookup_ref(table, plo, phi)
     torch.cuda.synchronize()
@@ -140,7 +141,8 @@ def test_joinmap_kernels_match_plain_versions(cuda, domain):
     last = {int(k): i for i, k in enumerate(keys)}
     want = np.array([last.get(int(k), -1) for k in probe], np.int32)
     np.testing.assert_array_equal(got.cpu().numpy(), want)
-    assert sj.LAUNCHES == {"joinmap_build": 1, "joinmap_lookup": 1}
+    assert sj.LAUNCHES == {"joinmap_build": 1, "joinmap_lookup": 1,
+                           "semijoin_build": 0, "semijoin_probe": 0}
     with pytest.raises(ValueError):
         sj.build_rows(lo, hi, n)                # no empty slot left
 
@@ -168,3 +170,65 @@ def test_tpch_q5_plane_off_on_gpu_matches_oracle(cuda):
     assert sj.LAUNCHES["joinmap_build"] > 0
     assert sj.LAUNCHES["joinmap_lookup"] > 0
     assert stats.report()["device"]["fused_calls"] == 0
+
+
+@pytest.mark.parametrize("domain", [None, 1 << 14], ids=["unique", "dups"])
+def test_set_kernels_match_plain_versions(cuda, domain):
+    """At 2^16 keys with a mask: K6a's occupied count == the plain
+    sequential build's (run on CPU copies) == the distinct masked count,
+    and its table holds no row; K6b's mask == the plain probe over the
+    same K6a table == np.isin; `semi_mask` on the card == on the CPU."""
+    from repro_torch.kernels.semijoin import semi_mask
+    from repro_torch.kernels.semijoin.ref import semi_mask_ref
+    rng = np.random.default_rng(9)
+    n = 1 << 16
+    keys = (_keys(rng, n) if domain is None
+            else rng.integers(0, domain, n).astype(np.int64))
+    keep = rng.random(n) < 0.7
+    lo, hi = bloom.keys_to_device(keys, cuda)
+    mask = torch.from_numpy(keep).to(cuda)
+    cap = sj.capacity_for(n)
+    sj.reset_launches()
+    table, occ = sj.set_build(lo, hi, cap, mask)
+    _, ref_occ = sj.set_build_ref(lo.cpu(), hi.cpu(), cap, mask.cpu())
+    assert int(occ) == int(ref_occ) == len(np.unique(keys[keep]))
+    assert int(table[:, 3].abs().sum()) == 0
+    probe = np.concatenate([keys, _keys(rng, n)])
+    plo, phi = bloom.keys_to_device(probe, cuda)
+    got = sj.set_probe(table, plo, phi)
+    ref = sj.set_probe_ref(table, plo, phi)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  np.isin(probe, keys[keep]))
+    assert sj.LAUNCHES["semijoin_build"] == sj.LAUNCHES["semijoin_probe"] == 1
+    np.testing.assert_array_equal(semi_mask(probe, keys, keep),
+                                  semi_mask_ref(probe, keys, keep))
+    assert sj.LAUNCHES["semijoin_build"] == sj.LAUNCHES["semijoin_probe"] == 2
+
+
+@pytest.mark.parametrize("nb", [1, 64, 4096])
+def test_transfer_kernel_matches_plain_version(cuda, nb):
+    """K7 == its plain version on the card: survivors and outgoing words
+    bit-exact; `bloom_transfer` on the card == on the CPU."""
+    from repro_torch.kernels.bloom import bloom_build, bloom_transfer
+    rng = np.random.default_rng(nb)
+    n = (1 << 16) - 3
+    keys, out_keys = _keys(rng, n), _keys(rng, n)
+    lo, hi = bloom.keys_to_device(keys, cuda)
+    olo, ohi = bloom.keys_to_device(out_keys, cuda)
+    mask = torch.from_numpy(rng.random(n) < 0.8).to(cuda)
+    words = kb.build_ref(lo[: n // 4], hi[: n // 4], 64)
+    kb.reset_launches()
+    ok, w = kb.transfer(words, lo, hi, olo, ohi, mask, nb)
+    ok_ref, w_ref = bloom.transfer(words, lo, hi, olo, ohi, mask, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, ok_ref) and torch.equal(w, w_ref)
+    assert kb.LAUNCHES["bloom_transfer"] == 1
+    keep = rng.random(n) < 0.5
+    w_in = bloom_build(keys, keep)
+    got = bloom_transfer(w_in, keys, out_keys)
+    want = bloom_transfer(w_in.cpu(), keys, out_keys)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert got[0][keep].all()
