@@ -76,14 +76,50 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              equal to the plain probe with no false negative. The path
              must launch K2, K3, K6a, K6b and K7 and never K1, K4 or K5;
              the three engine paths never launch K6a, K6b or K7.
+7. attention — K8 (flash attention, bf16) against its plain version
+             `flash_plain` and the dense oracle `sdpa_ref` on the card,
+             within atol = rtol = 2e-2 (the reference's bf16 tolerance),
+             one line per shape: qwen1.5-4b's prefill (B 4, Sq 2048, Skv
+             2088, 20 heads, d 128, causal, the ring-cache positions of a
+             fresh prefill) and decode (Sq 1 at position 2080),
+             minitron-4b's 24/8 GQA heads, d 64 with a window of 64 and
+             ragged validity (rows that see no key included), and a
+             non-causal shape. Each line's bound is the larger of 4*D
+             flops per unmasked (q, k) pair over 989 TFLOP/s and the bytes
+             of q, k, v, o and the positions over 3.35 TB/s; its library
+             time is `torch.nn.functional.scaled_dot_product_attention`
+             with the same boolean mask (and `enable_gqa`); beside the
+             CUDA-event times, each call's device time alone from
+             torch.profiler (at Sq 1 the host's dispatch can outlast the
+             kernels);
+8. serve   — path `serve`: `repro_torch.launch.serve.serve` runs
+             qwen1.5-4b at its full config (40 layers, d_model 2560,
+             random weights from seed 0) with batch 4, a 2048-token
+             random prompt (seed 1) and 32 greedy tokens: one warm-up
+             pass, one timed pass (prefill seconds and tok/s, decode
+             ms/token and tok/s, peak device memory). Inside the path's
+             launch-count window K8 must launch 40 times per prefill call
+             and 40 times per decode step, and K1-K7 never; the engine
+             and kernel-api paths never launch K8. Then the check:
+             the greedy run's tokens, fed to the same model with the
+             attention backend "auto" (plain torch dense attention, no
+             K8 launch), must give the prefill's and every step's logits
+             within the tolerance stated at `TF_MAX_ABS`; the greedy
+             argmax agreement is reported. Last, one prefill and one
+             decode step under torch.profiler (device busy share, top
+             device ops), outside every counted window.
+f32 matmuls run with TF32 off (`torch.backends.cuda.matmul.allow_tf32 =
+False`) throughout, so the plain versions and oracles sum in f32.
 
 The line before the last is the kernel table
 `{"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "plain_device", "bound_ms", "bound_by",
 "library_ms", "launches_by_path"}]}` (`plain_device` says where
 `plain_ms` was taken: "cuda" for CUDA-event times on the card, "cpu" for
-the sequential K4 and K6a builds timed on the host; K6's rows add
-`library_call`, what `library_ms` timed)
+the sequential K4 and K6a builds timed on the host; K6's and K8's rows
+add `library_call`, what `library_ms` timed; K8's rows add `device_ms`
+and `library_device_ms`, the device time alone of a call of each, read
+from torch.profiler)
 and the last line is `{"ok": true, "device": {...}}`. Without CUDA, or
 without the repository's `src/` beside it, the script exits non-zero
 before printing any result. Imports torch, numpy and `repro_torch` only.
@@ -101,6 +137,31 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 #: published HBM3 rate of one H100 SXM (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
+#: published dense bf16 tensor-core rate of one H100 SXM (NVIDIA data sheet)
+BF16_FLOPS = 989e12
+#: serve path: qwen1.5-4b at its published widths, serve_lm.py's batch, a
+#: 2048-token prompt and 32 greedy tokens (cap = 2048 + 32 + 8 = 2088)
+SERVE = {"arch": "qwen1.5-4b", "config": "full", "batch": 4,
+         "prompt_len": 2048, "gen_tokens": 32}
+#: The teacher-forced check of the serve path: the flash run's logits
+#: against the same model's with dense attention ("auto"), fed the same
+#: tokens. Both runs compute in bf16 with the same matmuls, so they differ
+#: only where the attention rounds: the online softmax rounds p to bf16
+#: relative to a running max, the dense path the normalised
+#: probabilities, and each attention output is rounded to bf16 and
+#: carried through 40 residual layers. At init the logits have std ~1
+#: (unembed scale 0.02 * sqrt(2560)) and |max| ~5, where one bf16 ulp is
+#: 2^-5 = 0.031. Measured on the CPU with `flash_plain` at qwen1.5-4b's
+#: full width (batch 2, prompt 256, 6 steps): max |d| 0.063 / mean 0.010
+#: at 4 layers, 0.086 / 0.013 at 12; extrapolated to 40 layers, about
+#: 0.12 / 0.02. The bounds leave twice that: a wrong mask, head mapping or
+#: position moves logits by their own scale (~1), far above them.
+TF_MAX_ABS = 0.25
+TF_MEAN_ABS = 0.04
+#: the reference's bf16 tolerance for the flash kernel
+#: (tests/test_kernels_flash.py)
+FLASH_TOL = 2e-2
+FLASH = ("flash_prefill", "flash_decode")
 #: TPC-H SF 1 shapes: lineitem's rows pad to the 2^23 bucket; filters are
 #: sized for the orders-sized (1.5 M) and lineitem-sized (6 M) key sets
 N_BIG, N_MID = 1 << 23, 1 << 21
@@ -119,8 +180,10 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(torch, fn, reps: int, warm: int = 2) -> float:
-    """Median CUDA-event milliseconds of `fn` (one launch per sample)."""
+def cuda_ms(torch, fn, reps: int, warm: int = 2, per: int = 1) -> float:
+    """Median CUDA-event milliseconds of `fn`: each sample times `per`
+    calls back to back and divides (per > 1 keeps the host's launch
+    overhead out of a kernel shorter than it)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -129,10 +192,11 @@ def cuda_ms(torch, fn, reps: int, warm: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(per):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / per)
     return statistics.median(times)
 
 
@@ -492,14 +556,19 @@ def joinmap_phase(torch, np, sj, bloom, dev, api):
     return rep, worst
 
 
-def profile_query(torch, run, qn: int, path: str) -> dict:
-    """One warm run of a query under torch.profiler: wall seconds, the
-    seconds the device was busy (kernels and copies; one stream, so
-    they do not overlap), the idle share, and the top device ops."""
+def device_profile(torch, fn) -> dict:
+    """`fn()` once under torch.profiler: wall seconds (host clock, ending
+    in a synchronise), the seconds the device was busy (kernels and
+    copies; one stream, so they do not overlap), the idle share, and the
+    top device ops."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, wall, _ = run()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -508,11 +577,25 @@ def profile_query(torch, run, qn: int, path: str) -> dict:
     busy = sum(ms for ms, _ in by_name.values()) / 1e3
     top = sorted(((ms, cnt, name) for name, (ms, cnt) in by_name.items()),
                  reverse=True)[:6]
-    return {"phase": "profile", "query": qn, "path": path,
-            "wall_seconds": wall, "device_busy_seconds": busy,
+    return {"wall_seconds": wall, "device_busy_seconds": busy,
             "device_idle_share": 1.0 - busy / wall,
             "top_device_ms": [{"op": k[:80], "ms": ms, "count": c}
                               for ms, c, k in top]}
+
+
+def device_ms(torch, fn, calls: int = 20) -> float:
+    """Device milliseconds per call of `fn` (its kernels' and copies'
+    busy time under torch.profiler over `calls` calls, after a warm-up
+    call), free of the host's launch overhead."""
+    fn()
+    busy = device_profile(torch, lambda: [fn() for _ in range(calls)])
+    return busy["device_busy_seconds"] * 1e3 / calls
+
+
+def profile_query(torch, run, qn: int, path: str) -> dict:
+    """One warm run of a query under torch.profiler (`device_profile`)."""
+    return {"phase": "profile", "query": qn, "path": path,
+            **device_profile(torch, run)}
 
 
 #: kernels that only the kernel library's public entry points reach
@@ -521,16 +604,16 @@ API_ONLY = ("semijoin_build", "semijoin_probe", "bloom_transfer")
 #: it, kernels that must not)
 PATHS = (
     ("pred-trans", "pred-trans", True, ("multi_probe", "bloom_build"),
-     ("probe", "joinmap_build", "joinmap_lookup", *API_ONLY)),
+     ("probe", "joinmap_build", "joinmap_lookup", *API_ONLY, *FLASH)),
     ("pred-trans-adaptive", "pred-trans-adaptive", True,
-     ("multi_probe", "bloom_build"), API_ONLY),
+     ("multi_probe", "bloom_build"), (*API_ONLY, *FLASH)),
     ("pred-trans-plane-off", "pred-trans", False,
      ("probe", "bloom_build", "joinmap_build", "joinmap_lookup"),
-     ("multi_probe", *API_ONLY)),
+     ("multi_probe", *API_ONLY, *FLASH)),
 )
 #: the kernel-api path: (kernels that must launch, kernels that must not)
 API_PATH = (("bloom_build", "probe", *API_ONLY),
-            ("multi_probe", "joinmap_build", "joinmap_lookup"))
+            ("multi_probe", "joinmap_build", "joinmap_lookup", *FLASH))
 
 
 def check_path(counts: dict, path: str, must, never) -> None:
@@ -540,14 +623,14 @@ def check_path(counts: dict, path: str, must, never) -> None:
         check(counts[name] == 0, f"kernel {name} launched on {path}")
 
 
-def slice_phase(torch, kb, sj, cat, sf: float):
+def slice_phase(torch, kb, sj, fa, cat, sf: float):
     from repro_torch.core.transfer import make_strategy
     from repro_torch.relational import ExecConfig, Executor
     from repro_torch.relational.table import table_digest
     from repro_torch.tpch import QUERIES, build_query
 
     def launches():
-        return {**kb.LAUNCHES, **sj.LAUNCHES}
+        return {**kb.LAUNCHES, **sj.LAUNCHES, **fa.LAUNCHES}
 
     def cfg(strategy, plane: bool):
         return ExecConfig(
@@ -577,6 +660,7 @@ def slice_phase(torch, kb, sj, cat, sf: float):
             else sorted(QUERIES)
         kb.reset_launches()           # this path's counts start at 0 here
         sj.reset_launches()
+        fa.reset_launches()
         for qn in queries:
             _, _, cold, _ = run(strategy, plane, qn)
             res, st, warm, query_launches = run(strategy, plane, qn)
@@ -613,7 +697,7 @@ def slice_phase(torch, kb, sj, cat, sf: float):
     return per_query, counts
 
 
-def kernel_api_phase(torch, np, kb, sj, bloom, dev, api) -> dict:
+def kernel_api_phase(torch, np, kb, sj, fa, bloom, dev, api) -> dict:
     """Path `kernel-api`: cases A-C through the public entry points, cold
     then warm, inside one launch-count window; every result is checked
     after the window. Returns the path's launch counts."""
@@ -639,6 +723,7 @@ def kernel_api_phase(torch, np, kb, sj, bloom, dev, api) -> dict:
 
     kb.reset_launches()             # the path's counts start at 0 here
     sj.reset_launches()
+    fa.reset_launches()
     runs = []
     for run in ("cold", "warm"):
         a, sec_a = timed(lambda: semi_mask(l_key, o_key, q5))
@@ -647,7 +732,8 @@ def kernel_api_phase(torch, np, kb, sj, bloom, dev, api) -> dict:
         c, sec_c = timed(chain)
         runs.append((run, a, table_b, b, c, sec_a, sec_build + sec_probe,
                      sec_c))
-    counts = {**kb.LAUNCHES, **sj.LAUNCHES}  # read just after the path
+    # read just after the path
+    counts = {**kb.LAUNCHES, **sj.LAUNCHES, **fa.LAUNCHES}
 
     # the oracles, outside the window
     want_a = semi_mask_ref(l_key, o_key, q5)
@@ -710,6 +796,198 @@ def kernel_api_phase(torch, np, kb, sj, bloom, dev, api) -> dict:
     return counts
 
 
+def attention_phase(torch, fa, dev):
+    """K8 against `flash_plain` and `sdpa_ref` on the card, one line per
+    shape; returns the records of qwen1.5-4b's prefill and decode shapes
+    (the serve path's) and each variant's largest error."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flashattn.ref import attend_mask, sdpa_ref
+    from repro_torch.models.layers import _ring_positions
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rows(b, n, start=0):
+        return (torch.arange(start, start + n, dtype=torch.int32,
+                             device=dev)[None].expand(b, n).contiguous())
+
+    def ring(index, cap, b):          # the model's own cache positions
+        return _ring_positions(index, cap, b, dev)
+
+    ragged = torch.tensor([1024, 1000, 900, 700], device=dev)
+    cases = (  # name, b, sq, skv, h, kvh, d, causal, window, q_pos, kv
+        ("qwen1.5-4b prefill", 4, 2048, 2088, 20, 20, 128, True, None,
+         rows(4, 2048), ring(2048, 2088, 4)),
+        ("qwen1.5-4b decode", 4, 1, 2088, 20, 20, 128, True, None,
+         rows(4, 1, 2080), ring(2081, 2088, 4)),
+        ("minitron-4b GQA 24/8 prefill", 2, 2048, 2088, 24, 8, 128, True,
+         None, rows(2, 2048), ring(2048, 2088, 2)),
+        ("d64 window 64 ragged", 4, 1024, 1024, 16, 16, 64, True, 64,
+         rows(4, 1024), (rows(4, 1024), rows(4, 1024) < ragged[:, None])),
+        ("non-causal", 4, 1024, 1024, 16, 16, 128, False, None,
+         rows(4, 1024), (rows(4, 1024),
+                         torch.ones(4, 1024, dtype=torch.bool, device=dev))),
+    )
+    worst = dict.fromkeys(FLASH, 0.0)
+    rep = {}
+    for name, b, sq, skv, h, kvh, d, causal, window, qp, (kp, kval) in cases:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+        q, k, v = randn(b, sq, h, d), randn(b, skv, kvh, d), \
+            randn(b, skv, kvh, d)
+        args = (q, k, v, qp, kp, kval)
+        kw = {"causal": causal, "window": window}
+        got = fa.flash_attention(*args, **kw)
+        plain = fa.flash_plain(*args, **kw)
+        rep_kv = h // kvh
+        dense = sdpa_ref(q, k.repeat_interleave(rep_kv, 2),
+                         v.repeat_interleave(rep_kv, 2), qp, kp, kval, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"K8 {name}: not finite")
+        errs = {}
+        for ref_name, ref in (("flash_plain", plain), ("sdpa_ref", dense)):
+            errs[ref_name] = float((got.float() - ref.float()).abs().max())
+            check(torch.allclose(got.float(), ref.float(), atol=FLASH_TOL,
+                                 rtol=FLASH_TOL),
+                  f"K8 {name} differs from {ref_name} by "
+                  f"{errs[ref_name]}")
+        variant = "flash_decode" if sq == 1 else "flash_prefill"
+        worst[variant] = max(worst[variant], errs["flash_plain"])
+        # the work these inputs need: 4*d flops per unmasked (q, k) pair;
+        # q, k, v (at KVH heads), o and the positions each moved once
+        allowed = attend_mask(qp, kp, kval, **kw)
+        pairs = int(allowed.sum()) * h
+        flops = 4 * d * pairs
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) \
+            + 4 * qp.numel() + 4 * kp.numel() + kval.numel()
+        t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = allowed[:, None]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=h != kvh)
+        rec = {"phase": "attention", "kernel": variant, "case": name,
+               "shape": {"B": b, "Sq": sq, "Skv": skv, "H": h, "KVH": kvh,
+                         "D": d},
+               "causal": causal, "window": window,
+               "unmasked_pairs": pairs, "flops": flops, "bytes": nbytes,
+               "ms": cuda_ms(torch, lambda: fa.flash_attention(*args, **kw),
+                             10, per=10),
+               "plain_ms": cuda_ms(torch, lambda: fa.flash_plain(*args, **kw),
+                                   3, warm=1),
+               "plain_device": "cuda",
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library_ms": cuda_ms(torch, library, 10, per=10),
+               "library_call": "torch.nn.functional."
+                               "scaled_dot_product_attention(attn_mask="
+                               "bool, enable_gqa)",
+               # device time alone, out of the profiler: at Sq 1 the
+               # host's dispatch can outlast both calls' kernels
+               "device_ms": device_ms(
+                   torch, lambda: fa.flash_attention(*args, **kw)),
+               "library_device_ms": device_ms(torch, library),
+               "max_abs_err": errs["flash_plain"],
+               "max_abs_err_sdpa_ref": errs["sdpa_ref"], "tol": FLASH_TOL}
+        emit(rec)
+        if name.startswith("qwen1.5-4b"):
+            rep[variant] = rec
+    return rep, worst
+
+
+def serve_phase(torch, kb, sj, fa) -> dict:
+    """Path `serve`: qwen1.5-4b at full width through the serving
+    launcher, K8's launches counted and checked, then the teacher-forced
+    check against dense attention and a profile. Returns the path's
+    launch counts."""
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Batch
+    kb.reset_launches()             # the path's counts start at 0 here
+    sj.reset_launches()
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = serve.serve(**SERVE, device="cuda")
+    seconds = time.perf_counter() - t0
+    counts = {**kb.LAUNCHES, **sj.LAUNCHES, **fa.LAUNCHES}  # just after
+    peak = torch.cuda.max_memory_allocated()
+
+    model, params, prompt = res["model"], res["params"], res["prompt"]
+    b, s, g = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_tokens"]
+    n_layers = res["cfg"].n_layers
+    runs = len(res["passes"])
+    want = {"flash_prefill": n_layers * runs,
+            "flash_decode": n_layers * g * runs}
+    for name, n in counts.items():
+        check(n == want.get(name, 0),
+              f"serve launched {name} {n} times, expected "
+              f"{want.get(name, 0)}")
+    vocab = res["cfg"].vocab_size
+    check(tuple(res["tokens"].shape) == (b, g + 1)
+          and int(res["tokens"].min()) >= 0
+          and int(res["tokens"].max()) < vocab, "serve: bad tokens")
+    for lg in res["logits"]:
+        check(tuple(lg.shape) == (b, vocab)
+              and bool(torch.isfinite(lg).all()), "serve: bad logits")
+    t_pre, t_dec = res["prefill_seconds"], res["decode_seconds"]
+    emit({"phase": "serve", "arch": SERVE["arch"],
+          "config": res["cfg"].name, "params": res["cfg"].param_count(),
+          "batch": b, "prompt_len": s, "gen_tokens": g, "cap": res["cap"],
+          "passes_seconds": res["passes"], "seconds": seconds,
+          "prefill_seconds": t_pre, "prefill_tok_s": b * s / t_pre,
+          "decode_ms_per_token": t_dec / g * 1e3,
+          "decode_tok_s": b * g / t_dec, "peak_memory_bytes": peak,
+          "launches": counts, "launches_expected": want,
+          "sample": res["tokens"][0, :12].tolist()})
+
+    # the check: the greedy tokens through dense attention
+    L.set_attention_backend("auto")
+    fa.reset_launches()
+    try:
+        tf = serve.generate(model, params, prompt, g, res["cap"],
+                            forced=res["tokens"])
+    finally:
+        L.set_attention_backend("flash")
+    check(sum(fa.LAUNCHES.values()) == 0, "the auto backend launched K8")
+    steps = []
+    for i, (a, r) in enumerate(zip(res["logits"], tf["logits"])):
+        diff = (a - r).abs()
+        steps.append({"step": i, "max_abs": float(diff.max()),
+                      "mean_abs": float(diff.mean()),
+                      "argmax_equal": int((a.argmax(-1) == r.argmax(-1))
+                                          .sum())})
+    agree = sum(x["argmax_equal"] for x in steps)
+    emit({"phase": "serve", "check": "teacher-forced vs auto",
+          "max_abs": max(x["max_abs"] for x in steps),
+          "mean_abs": max(x["mean_abs"] for x in steps),
+          "tol_max_abs": TF_MAX_ABS, "tol_mean_abs": TF_MEAN_ABS,
+          "argmax_agreement": agree / (b * len(steps)),
+          "auto_prefill_seconds": tf["prefill_seconds"],
+          "auto_decode_ms_per_token": tf["decode_seconds"] / g * 1e3,
+          "steps": steps})
+    for x in steps:
+        check(x["max_abs"] <= TF_MAX_ABS and x["mean_abs"] <= TF_MEAN_ABS,
+              f"serve step {x['step']}: flash vs auto logits differ by "
+              f"{x['max_abs']} (mean {x['mean_abs']})")
+
+    # one prefill and one decode step under the profiler, uncounted
+    cap = res["cap"]
+    state = {}
+
+    def prefill():
+        state["logits"], state["caches"] = model.prefill(
+            params, Batch(prompt, prompt), cap=cap)
+
+    def decode():
+        tok = state["logits"][:, -1].argmax(-1)[:, None]
+        model.decode_step(params, tok, state["caches"], s)
+    for step, fn in (("prefill", prefill), ("decode", decode)):
+        emit({"phase": "profile", "path": "serve", "step": step,
+              **device_profile(torch, fn)})
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0,
@@ -725,8 +1003,10 @@ def main() -> int:
     from repro_torch.core import bloom
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.bloom import ops as kb
+    from repro_torch.kernels.flashattn import ops as fa
     from repro_torch.kernels.semijoin import ops as sj
 
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain versions
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -757,12 +1037,18 @@ def main() -> int:
     jrep, jworst = joinmap_phase(torch, np, sj, bloom, dev, api)
     rep.update(jrep)
     worst.update(jworst)
-    _, counts = slice_phase(torch, kb, sj, cat, args.sf)
-    counts["kernel-api"] = kernel_api_phase(torch, np, kb, sj, bloom, dev,
-                                            api)
+    _, counts = slice_phase(torch, kb, sj, fa, cat, args.sf)
+    counts["kernel-api"] = kernel_api_phase(torch, np, kb, sj, fa, bloom,
+                                            dev, api)
+    del cat, api
+    arep, aworst = attention_phase(torch, fa, dev)
+    rep.update(arep)
+    worst.update(aworst)
+    counts["serve"] = serve_phase(torch, kb, sj, fa)
 
     bloom_cu = "src/repro_torch/kernels/bloom/csrc/bloom.cu"
     semijoin_cu = "src/repro_torch/kernels/semijoin/csrc/semijoin.cu"
+    flash_cu = "src/repro_torch/kernels/flashattn/csrc/flashattn.cu"
     # kernel: (source, TPU kernel it replaces, the path whose count is
     # its `launches`); every path's count is in `launches_by_path`
     table = {
@@ -786,6 +1072,12 @@ def main() -> int:
                            "kernel-api"),
         "bloom_transfer": (bloom_cu, "src/repro/kernels/bloom/bloom.py:279",
                            "kernel-api"),
+        "flash_prefill": (flash_cu,
+                          "src/repro/kernels/flashattn/flashattn.py:79",
+                          "serve"),
+        "flash_decode": (flash_cu,
+                         "src/repro/kernels/flashattn/flashattn.py:79",
+                         "serve"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,
@@ -794,10 +1086,12 @@ def main() -> int:
          "max_abs_err": worst[name], "ms": rep[name]["ms"],
          "plain_ms": rep[name]["plain_ms"],
          "plain_device": rep[name]["plain_device"],
-         "bound_ms": rep[name]["bound_ms"], "bound_by": "bytes",
+         "bound_ms": rep[name]["bound_ms"],
+         "bound_by": rep[name].get("bound_by", "bytes"),
          "library_ms": rep[name]["library_ms"],
-         **({"library_call": rep[name]["library_call"]}
-            if "library_call" in rep[name] else {})}
+         **{key: rep[name][key] for key in
+            ("library_call", "device_ms", "library_device_ms")
+            if key in rep[name]}}
         for name, (source, replaces, path) in table.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -14,11 +14,17 @@ Layout (one directory per kernel family):
                the public `semijoin_build`, `semijoin_probe`,
                `semi_mask` in ops.py; ref.py holds the numpy oracle
                `semi_mask_ref`
+  flashattn/ — flash attention forward (K8) in csrc/flashattn.cu: a
+               prefill and a decode variant; ops.py holds the public
+               `flash_attention` (reference layout [B, S, H, D], GQA),
+               its launch wrapper and its plain torch version
+               `flash_plain`; ref.py the dense oracle `sdpa_ref`
   csrc/      — headers the kernel sources share (hash.cuh: the key hash)
   build.py   — nvcc build at first use + ctypes loading; the tensor
                checks every wrapper runs before a launch
 
-The public entry points take host int64 keys and a `device=` (default
-"cuda"): a CUDA device launches the kernels or raises, "cpu" runs their
-plain torch versions, any other device raises.
+The Bloom and semi-join entry points take host int64 keys and a
+`device=` (default "cuda"): a CUDA device launches the kernels or
+raises, "cpu" runs their plain torch versions, any other device raises.
+`flash_attention` follows its tensors' device the same way.
 """

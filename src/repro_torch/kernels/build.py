@@ -32,6 +32,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES: Dict[str, pathlib.Path] = {
     "bloom": _PKG / "kernels" / "bloom" / "csrc" / "bloom.cu",
     "semijoin": _PKG / "kernels" / "semijoin" / "csrc" / "semijoin.cu",
+    "flashattn": _PKG / "kernels" / "flashattn" / "csrc" / "flashattn.cu",
 }
 #: headers every source may include (`#include "hash.cuh"`)
 INCLUDE_DIR = _PKG / "kernels" / "csrc"

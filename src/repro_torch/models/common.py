@@ -1,0 +1,332 @@
+"""Model configuration + parameter-initialization helpers.
+
+One `ModelConfig` covers the whole zoo; per-architecture files in
+`repro_torch.configs` instantiate it (copied from the reference). Blocks
+are described by a repeating `block_pattern`; parameters keep the
+reference's layout: `embed`, `ln_f`, `unembed`, `prefix_layers`, and
+`layers` as one dict per pattern slot whose tensors are stacked on a
+leading `[n_reps]` axis.
+
+`param_shapes` walks every architecture's layout from its shapes alone,
+so `param_count` needs no initialisation. `init_params` draws from a
+`torch.Generator` at the reference's distributions for the layers the
+port runs: dense attention (with QKV bias) and the swiglu, relu2 and
+gelu MLPs. The MoE, Mamba, MLA, encoder and stub-frontend inits raise
+NotImplementedError (ROADMAP Queue 1 item 10c).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+#: where the layers the port does not run yet are listed
+TODO = "not ported yet (ROADMAP Queue 1 item 10c)"
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int              # per-expert hidden dim
+    num_shared: int = 0           # always-on shared experts
+    capacity_factor: float = 1.25
+    every_n_layers: int = 1       # MoE on layers where (i % n == n-1)
+    first_dense: int = 0          # leading dense layers (deepseek style)
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10_000.0
+    qkv_bias: bool = False
+    sliding_window: Optional[int] = None   # SWA (mixtral/mistral)
+    # MLA (deepseek): latent KV compression
+    kv_lora_rank: Optional[int] = None
+    rope_head_dim: int = 64                # decoupled RoPE dim under MLA
+    causal: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    d_model: int
+    n_layers: int
+    vocab_size: int
+    d_ff: int
+    attn: Optional[AttnConfig] = None
+    moe: Optional[MoEConfig] = None
+    mamba: Optional[MambaConfig] = None
+    # repeating layer pattern: tuple of "attn" | "mamba"; cycled over depth
+    block_pattern: Tuple[str, ...] = ("attn",)
+    act: str = "swiglu"                 # swiglu | relu2 | gelu
+    norm: str = "rmsnorm"               # rmsnorm | layernorm
+    tie_embeddings: bool = False
+    # encoder-decoder (whisper): n_enc_layers>0 adds an encoder + cross-attn
+    n_enc_layers: int = 0
+    enc_seq_len: int = 0                # encoder positions (frames)
+    # multimodal stub frontends provide pre-computed continuous embeddings
+    frontend: Optional[str] = None      # None | "audio_stub" | "vision_stub"
+    num_patches: int = 0                # vision stub: patches per sample
+    max_seq_len: int = 131_072
+    dtype: Any = torch.bfloat16
+    # long-context serving support class (DESIGN.md §5):
+    #   "full" = unbounded KV, "window" = SWA-bounded, "state" = SSM state
+    context_class: str = "full"
+
+    @property
+    def block_period(self) -> int:
+        return len(self.block_pattern)
+
+    def layer_kind(self, i: int) -> str:
+        return self.block_pattern[i % self.block_period]
+
+    def param_count(self) -> int:
+        """Total parameters (exact, from the layout's shapes)."""
+        return sum(math.prod(s) for s in _leaves(param_shapes(self)))
+
+
+def moe_layer_indices(cfg: ModelConfig) -> Sequence[int]:
+    if cfg.moe is None:
+        return []
+    m = cfg.moe
+    out = []
+    for i in range(cfg.n_layers):
+        if i < m.first_dense:
+            continue
+        if (i % m.every_n_layers) == (m.every_n_layers - 1):
+            out.append(i)
+    return out
+
+
+def layer_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(prefix layers, full pattern period, repetitions of the period):
+    the true repeat period is lcm(pattern, moe period), after a
+    non-repeating prefix of `first_dense` layers."""
+    moe_period = cfg.moe.every_n_layers if cfg.moe else 1
+    prefix = cfg.moe.first_dense if cfg.moe else 0
+    full_period = int(np.lcm(cfg.block_period, moe_period))
+    body = cfg.n_layers - prefix
+    if body % full_period:
+        raise ValueError(f"{cfg.name}: layers {cfg.n_layers} minus prefix "
+                         f"{prefix} must be divisible by pattern period "
+                         f"{full_period}")
+    return prefix, full_period, body // full_period
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# --------------------------------------------------------------------------
+# shapes of every architecture's parameters
+# --------------------------------------------------------------------------
+
+
+def _attn_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    a, d = cfg.attn, cfg.d_model
+    if a.kv_lora_rank:
+        r = a.kv_lora_rank
+        p = {"wq": (d, a.num_heads * a.head_dim), "w_dkv": (d, r),
+             "w_uk": (r, a.num_heads * a.head_dim),
+             "w_uv": (r, a.num_heads * a.head_dim),
+             "w_kr": (d, a.rope_head_dim),
+             "w_qr": (d, a.num_heads * a.rope_head_dim),
+             "wo": (a.num_heads * a.head_dim, d)}
+    else:
+        p = {"wq": (d, a.num_heads * a.head_dim),
+             "wk": (d, a.num_kv_heads * a.head_dim),
+             "wv": (d, a.num_kv_heads * a.head_dim),
+             "wo": (a.num_heads * a.head_dim, d)}
+        if a.qkv_bias:
+            p.update(bq=(a.num_heads * a.head_dim,),
+                     bk=(a.num_kv_heads * a.head_dim,),
+                     bv=(a.num_kv_heads * a.head_dim,))
+    p["ln"] = (d,)
+    return p
+
+
+def _mlp_shapes(cfg: ModelConfig, d_ff: Optional[int] = None
+                ) -> Dict[str, tuple]:
+    d_ff, d = d_ff or cfg.d_ff, cfg.d_model
+    p = {"w1": (d, d_ff), "w2": (d_ff, d), "ln": (d,)}
+    if cfg.act == "swiglu":
+        p["w3"] = (d, d_ff)
+    return p
+
+
+def _moe_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    m, d = cfg.moe, cfg.d_model
+    e, f = m.num_experts, m.d_ff_expert
+    p = {"router": (d, e), "w1": (e, d, f), "w2": (e, f, d),
+         "w3": (e, d, f), "ln": (d,)}
+    if m.num_shared:
+        p["shared"] = _mlp_shapes(cfg, d_ff=f * m.num_shared)
+    return p
+
+
+def _mamba_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    mb, d = cfg.mamba, cfg.d_model
+    d_inner = mb.expand * d
+    n_heads = d_inner // mb.head_dim
+    return {"in_proj": (d, 2 * d_inner + 2 * mb.d_state + n_heads),
+            "conv_w": (mb.d_conv, d_inner + 2 * mb.d_state),
+            "a_log": (n_heads,), "dt_bias": (n_heads,), "d_skip": (n_heads,),
+            "out_proj": (d_inner, d), "ln": (d,)}
+
+
+def _block_shapes(cfg: ModelConfig, i: int) -> Dict[str, Any]:
+    kind = cfg.layer_kind(i)
+    block = {"mixer": _mamba_shapes(cfg) if kind == "mamba"
+             else _attn_shapes(cfg)}
+    if i in set(moe_layer_indices(cfg)):
+        block["ffn"] = _moe_shapes(cfg)
+    elif cfg.d_ff > 0:
+        block["ffn"] = _mlp_shapes(cfg)
+    return block
+
+
+def _stacked(tree, n: int):
+    if isinstance(tree, dict):
+        return {k: _stacked(v, n) for k, v in tree.items()}
+    return (n,) + tuple(tree)
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter pytree of `init_params`, with shape tuples as
+    leaves, for every architecture of the zoo."""
+    d, v = cfg.d_model, cfg.vocab_size
+    out: Dict[str, Any] = {"embed": (v, d), "ln_f": (d,)}
+    if not cfg.tie_embeddings:
+        out["unembed"] = (d, v)
+    if cfg.frontend == "vision_stub":
+        out["patch_proj"] = (d, d)
+    if cfg.frontend == "audio_stub":
+        out["frame_proj"] = (d, d)
+    prefix, period, n_reps = layer_layout(cfg)
+    out["prefix_layers"] = [_block_shapes(cfg, i) for i in range(prefix)]
+    out["layers"] = [_stacked(_block_shapes(cfg, prefix + s), n_reps)
+                     for s in range(period)]
+    if cfg.n_enc_layers:
+        out["encoder"] = _stacked({"mixer": _attn_shapes(cfg),
+                                   "ffn": _mlp_shapes(cfg)},
+                                  cfg.n_enc_layers)
+        out["enc_ln_f"] = (d,)
+        out["cross"] = _stacked({**_attn_shapes(cfg), "ln_x": (d,)},
+                                cfg.n_layers)
+    return out
+
+
+# --------------------------------------------------------------------------
+# initialization
+# --------------------------------------------------------------------------
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError unless every layer of `cfg` is one the
+    port runs: dense, full attention (optionally with QKV bias), an MLP."""
+    what = []
+    if cfg.moe is not None:
+        what.append("MoE layers")
+    if cfg.mamba is not None or "mamba" in cfg.block_pattern:
+        what.append("Mamba-2 layers")
+    if cfg.attn is None:
+        what.append("attention-free stacks")
+    elif cfg.attn.kv_lora_rank:
+        what.append("MLA attention")
+    elif cfg.attn.sliding_window:
+        what.append("sliding-window attention")
+    if cfg.n_enc_layers:
+        what.append("the encoder and cross-attention")
+    if cfg.frontend is not None:
+        what.append(f"the {cfg.frontend} frontend")
+    if what:
+        raise NotImplementedError(f"{cfg.name}: {', '.join(what)} {TODO}")
+
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype):
+    x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (x * scale).to(dtype)
+
+
+def _dense(gen, lead, d_in, d_out, dtype, scale: Optional[float] = None):
+    """The reference's `_dense`: N(0, 1) * scale (1/sqrt(d_in) unless
+    given) in f32, cast to `dtype`; `lead` is the stacking prefix."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return _normal(gen, (*lead, d_in, d_out), scale, dtype)
+
+
+def init_attn_layer(gen, cfg: ModelConfig, lead=()) -> Dict[str, Any]:
+    a, d, dt = cfg.attn, cfg.d_model, cfg.dtype
+    if a.kv_lora_rank:
+        raise NotImplementedError(f"MLA attention {TODO}")
+    zeros = dict(dtype=dt, device=gen.device)
+    p = {"wq": _dense(gen, lead, d, a.num_heads * a.head_dim, dt),
+         "wk": _dense(gen, lead, d, a.num_kv_heads * a.head_dim, dt),
+         "wv": _dense(gen, lead, d, a.num_kv_heads * a.head_dim, dt),
+         "wo": _dense(gen, lead, a.num_heads * a.head_dim, d, dt)}
+    if a.qkv_bias:
+        p["bq"] = torch.zeros((*lead, a.num_heads * a.head_dim), **zeros)
+        p["bk"] = torch.zeros((*lead, a.num_kv_heads * a.head_dim), **zeros)
+        p["bv"] = torch.zeros((*lead, a.num_kv_heads * a.head_dim), **zeros)
+    p["ln"] = torch.ones((*lead, d), dtype=torch.float32, device=gen.device)
+    return p
+
+
+def init_mlp_layer(gen, cfg: ModelConfig, lead=(),
+                   d_ff: Optional[int] = None) -> Dict[str, Any]:
+    d_ff, d, dt = d_ff or cfg.d_ff, cfg.d_model, cfg.dtype
+    p = {"w1": _dense(gen, lead, d, d_ff, dt),
+         "w2": _dense(gen, lead, d_ff, d, dt),
+         "ln": torch.ones((*lead, d), dtype=torch.float32,
+                          device=gen.device)}
+    if cfg.act == "swiglu":
+        p["w3"] = _dense(gen, lead, d, d_ff, dt)    # gate
+    return p
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
+    """Full parameter pytree on `gen.device`. Repeated layers are drawn
+    stacked on a leading axis per pattern slot, as the reference's."""
+    check_ported(cfg)
+    d, dt = cfg.d_model, cfg.dtype
+    params: Dict[str, Any] = {
+        "embed": _normal(gen, (cfg.vocab_size, d), 0.02, dt),
+        "ln_f": torch.ones(d, dtype=torch.float32, device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = _dense(gen, (), d, cfg.vocab_size, dt,
+                                   scale=0.02)
+    _, period, n_reps = layer_layout(cfg)    # no prefix without MoE
+
+    def block(lead) -> Dict[str, Any]:
+        out = {"mixer": init_attn_layer(gen, cfg, lead)}
+        if cfg.d_ff > 0:                  # d_ff == 0: mixer-only block
+            out["ffn"] = init_mlp_layer(gen, cfg, lead)
+        return out
+
+    params["prefix_layers"] = []
+    params["layers"] = [block((n_reps,)) for _ in range(period)]
+    return params

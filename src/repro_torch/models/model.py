@@ -1,0 +1,136 @@
+"""Model assembly: embed -> block stack -> norm -> LM head.
+
+Depth runs as a Python loop over repetitions of the config's block
+pattern (the reference's `lax.scan`): repetition r of pattern slot s
+takes the views `[r]` of that slot's stacked parameters and cache.
+
+Caches: each attention layer writes a static-capacity ring `KVCache` in
+place (`layers._cache_update`); a slot's cache tensors are stacked on
+the same leading `[n_reps]` axis as its parameters, and its cursor is a
+host int. The port runs the dense, full-attention architectures
+(qwen1.5-4b, minitron-4b, starcoder2-7b, command-r-35b): any other
+raises NotImplementedError from `Model.__init__`.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.common import (
+    ModelConfig, check_ported, init_params, layer_layout,
+)
+
+
+class Batch(NamedTuple):
+    tokens: torch.Tensor                    # [B, S] integer
+    targets: torch.Tensor                   # [B, S] integer (-1 = no loss)
+    extra: Optional[torch.Tensor] = None    # vision/audio stub embeddings
+
+
+def _at(tree, r: int):
+    """The views `[r]` of a dict of stacked tensors."""
+    if isinstance(tree, dict):
+        return {k: _at(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        check_ported(cfg)
+        self.cfg = cfg
+        # the ported archs have no prefix layers (those come with MoE's
+        # first_dense) and one attention slot per pattern period
+        _, self.full_period, self.n_reps = layer_layout(cfg)
+
+    # ------------------------------------------------------------------
+    def init(self, gen: torch.Generator) -> Dict[str, Any]:
+        """Random parameters on `gen.device`, drawn from `gen`."""
+        return init_params(gen, self.cfg)
+
+    # ------------------------------------------------------------------
+    def _apply_block(self, p, x, positions, cache, ring):
+        cfg = self.cfg
+        x, new_cache = L.attention(p["mixer"], x, cfg.attn, positions,
+                                   cache, norm_kind=cfg.norm, ring=ring)
+        if "ffn" in p:                  # d_ff == 0: mixer-only block
+            x = L.mlp(p["ffn"], x, cfg.act, norm_kind=cfg.norm)
+        return x, new_cache
+
+    # ------------------------------------------------------------------
+    def _empty_cache_slot(self, batch: int, cap: int, device,
+                          lead=()) -> L.KVCache:
+        cfg, a = self.cfg, self.cfg.attn
+        shape = (*lead, batch, cap, a.num_kv_heads, a.head_dim)
+        return L.KVCache(
+            k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+            v=torch.zeros(shape, dtype=cfg.dtype, device=device), index=0)
+
+    def init_cache(self, batch: int, cap: int, device) -> Dict[str, Any]:
+        """Per-slot stacked caches, all empty (no prefix layers)."""
+        return {"prefix": [],
+                "slots": [self._empty_cache_slot(batch, cap, device,
+                                                 (self.n_reps,))
+                          for _ in range(self.full_period)]}
+
+    # ------------------------------------------------------------------
+    def backbone(self, params, x, positions, caches=None):
+        """Embedded input -> final hidden. Returns (x, caches), the caches
+        written in place with their cursors moved on. (The reference also
+        returns the MoE auxiliary loss, which returns with MoE layers.)
+        A slot's cache positions are computed once per call and shared by
+        all its repetitions."""
+        index = [None] * self.full_period
+        b, s = x.shape[:2]
+        rings = [L._ring_positions(sc.index + s, sc.k.shape[2], b, x.device)
+                 for sc in caches["slots"]] if caches else None
+        for r in range(self.n_reps):
+            for si in range(self.full_period):
+                c = ring = None
+                if caches:
+                    sc = caches["slots"][si]
+                    c = L.KVCache(sc.k[r], sc.v[r], sc.index)
+                    ring = rings[si]
+                x, nc = self._apply_block(_at(params["layers"][si], r), x,
+                                          positions, c, ring)
+                if nc is not None:
+                    index[si] = nc.index
+        if not caches:
+            return x, None
+        slots = [L.KVCache(sc.k, sc.v, index[si])
+                 for si, sc in enumerate(caches["slots"])]
+        return x, {"prefix": [], "slots": slots}
+
+    # ------------------------------------------------------------------
+    def embed_inputs(self, params, batch: Batch):
+        return params["embed"][batch.tokens]
+
+    def hidden_to_logits(self, params, h):
+        cfg = self.cfg
+        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        return (h @ w).float()
+
+    # ------------------------------------------------------------------
+    def prefill(self, params, batch: Batch, cap: int):
+        """Run the full prompt, returning (last-token logits, caches)."""
+        cfg = self.cfg
+        x = self.embed_inputs(params, batch)
+        b, s, _ = x.shape
+        caches = self.init_cache(b, cap, x.device)
+        pos = torch.arange(s, dtype=torch.int32,
+                           device=x.device)[None].expand(b, s)
+        x, caches = self.backbone(params, x, pos, caches)
+        x = L.norm(x, params["ln_f"], cfg.norm)
+        return self.hidden_to_logits(params, x[:, -1:]), caches
+
+    def decode_step(self, params, tokens, caches, position: int):
+        """One token step. tokens [B, 1]; position a host int."""
+        cfg = self.cfg
+        x = params["embed"][tokens]
+        b = x.shape[0]
+        pos = torch.full((b, 1), int(position), dtype=torch.int32,
+                         device=x.device)
+        x, caches = self.backbone(params, x, pos, caches)
+        x = L.norm(x, params["ln_f"], cfg.norm)
+        return self.hidden_to_logits(params, x), caches

@@ -1,0 +1,183 @@
+"""K8 (flash attention) on the CPU: the port's `flash_attention` — its plain
+torch version `flash_plain` on CPU tensors — against the reference's
+`flash_attention` (the Pallas kernel in interpret mode) and its dense
+oracle `sdpa_ref`, over the sweeps of tests/test_kernels_flash.py.
+
+Inputs are drawn with numpy from a seed and rounded to bf16 the same way
+(round to nearest even) on both sides. Tolerances are the reference's
+own: 2e-5 in f32, 2e-2 in bf16 (where the two frameworks round the
+products and p at other places)."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp
+import numpy as np
+
+from repro.kernels.flashattn import flash_attention as ref_flash
+from repro.kernels.flashattn.ref import sdpa_ref as ref_sdpa
+from repro_torch.kernels.flashattn import ops as fa
+from repro_torch.kernels.flashattn.ref import sdpa_ref
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _inputs(b, sq, skv, h, kvh, d, seed=0, dead_rows=0):
+    """f32 numpy q/k/v, decode-style positions and ragged validity (the
+    last 3 keys invalid), as the reference's tests; `dead_rows` first
+    query rows placed before every key (they see no valid key)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, skv, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((b, skv, kvh, d)).astype(np.float32)
+    q_pos = np.broadcast_to(np.arange(skv - sq, skv)[None], (b, sq)).copy()
+    kv_pos = np.broadcast_to(np.arange(skv)[None], (b, skv)).copy()
+    q_pos[:, :dead_rows] = -1
+    return (q, k, v, q_pos.astype(np.int32), kv_pos.astype(np.int32),
+            kv_pos < (skv - 3))
+
+
+def _both(arrays, dtype):
+    """(jax arrays, torch tensors) of the same values in `dtype`."""
+    q, k, v, qp, kp, kval = arrays
+    jdt = getattr(jnp, dtype)
+    tdt = getattr(torch, dtype)
+    jx = tuple(jnp.asarray(x, jdt) for x in (q, k, v)) + tuple(
+        jnp.asarray(x) for x in (qp, kp, kval))
+    tx = tuple(torch.from_numpy(x).to(tdt) for x in (q, k, v)) + tuple(
+        torch.from_numpy(x) for x in (qp, kp, kval))
+    return jx, tx
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      jnp.asarray(x, jnp.float32))
+
+
+def _expanded(x, rep):
+    return x.repeat_interleave(rep, 2) if isinstance(x, torch.Tensor) \
+        else jnp.repeat(x, rep, axis=2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,d", [
+    (2, 128, 256, 4, 2, 64),
+    (1, 200, 300, 2, 1, 128),    # non-block-aligned
+    (2, 1, 384, 4, 4, 64),       # decode shape
+])
+def test_flash_vs_reference(dtype, b, sq, skv, h, kvh, d):
+    """The port == the reference's Pallas kernel and its dense oracle."""
+    jx, tx = _both(_inputs(b, sq, skv, h, kvh, d), dtype)
+    got = fa.flash_attention(*tx, causal=True)
+    assert got.dtype == tx[0].dtype and got.shape == (b, sq, h, d)
+    rep = h // kvh
+    want_pallas = ref_flash(*jx, causal=True)
+    want_dense = ref_sdpa(jx[0], _expanded(jx[1], rep),
+                          _expanded(jx[2], rep), *jx[3:], causal=True,
+                          window=None)
+    tol = TOL[dtype]
+    for want in (want_pallas, want_dense):
+        np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("window", [None, 17, 64])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_masks(window, causal):
+    jx, tx = _both(_inputs(1, 128, 256, 2, 2, 64, seed=3), "float32")
+    got = fa.flash_attention(*tx, causal=causal, window=window)
+    for want in (ref_flash(*jx, causal=causal, window=window),
+                 ref_sdpa(*jx, causal=causal, window=window)):
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-5,
+                                   rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq", [1, 70])
+def test_rows_without_a_valid_key_follow_sdpa_ref(dtype, sq):
+    """A query row that sees no key averages v over the Skv real keys, as
+    `sdpa_ref` gives; the reference's padded Pallas path averages over
+    the padded length instead, so these rows are held to `sdpa_ref`
+    only (a difference inside the reference, ROADMAP Queue 3)."""
+    jx, tx = _both(_inputs(2, sq, 200, 4, 2, 64, seed=5, dead_rows=1), dtype)
+    got = fa.flash_attention(*tx, causal=True)
+    want = ref_sdpa(jx[0], _expanded(jx[1], 2), _expanded(jx[2], 2),
+                    *jx[3:], causal=True, window=None)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+    mean_v = np.repeat(_np(tx[2]).mean(axis=1), 2, axis=1)
+    np.testing.assert_allclose(_np(got)[:, 0], mean_v, atol=tol, rtol=tol)
+    # the Pallas path pads 200 keys to 256: its row is ΣV/256, not ΣV/200
+    pallas = _np(ref_flash(*jx, causal=True))[:, 0]
+    np.testing.assert_allclose(pallas, mean_v * 200 / 256, atol=tol,
+                               rtol=tol)
+    assert np.abs(pallas - mean_v).max() > tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 40)])
+def test_flash_plain_vs_port_sdpa_ref(dtype, causal, window):
+    """`flash_plain` == the port's own dense oracle, with GQA and ragged
+    Q and KV blocks (300 and 333 rows over 128-row blocks)."""
+    _, tx = _both(_inputs(2, 300, 333, 6, 2, 32, seed=9), dtype)
+    got = fa.flash_plain(*tx, causal=causal, window=window)
+    want = sdpa_ref(tx[0], _expanded(tx[1], 3), _expanded(tx[2], 3),
+                    *tx[3:], causal=causal, window=window)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_port_sdpa_ref_matches_reference_sdpa_ref():
+    jx, tx = _both(_inputs(2, 64, 96, 4, 4, 32, seed=2), "float32")
+    for causal, window in ((True, None), (False, 9)):
+        np.testing.assert_allclose(
+            _np(sdpa_ref(*tx, causal=causal, window=window)),
+            _np(ref_sdpa(*jx, causal=causal, window=window)),
+            atol=2e-6, rtol=2e-6)
+
+
+def test_wrapper_counts_no_launch_on_the_cpu_and_rejects_other_devices():
+    """On the CPU the plain version runs and no kernel launch is counted;
+    a tensor on any other device than CPU or CUDA raises; bad shapes
+    raise ValueError."""
+    _, tx = _both(_inputs(1, 8, 8, 2, 2, 16), "float32")
+    fa.reset_launches()
+    fa.flash_attention(*tx)
+    assert fa.LAUNCHES == {"flash_prefill": 0, "flash_decode": 0}
+    meta = [t.to("meta") for t in tx]
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        fa.flash_attention(*meta)
+    with pytest.raises(ValueError, match="KVH must divide H"):
+        fa.flash_attention(tx[0], tx[1][:, :, :1].repeat(1, 1, 3, 1),
+                           tx[2][:, :, :1].repeat(1, 1, 3, 1), *tx[3:])
+    with pytest.raises(ValueError, match="kv_pos"):
+        fa.flash_attention(*tx[:4], tx[4][:, :5], tx[5])
+
+
+def test_failed_build_raises(monkeypatch):
+    """Without a working nvcc the kernel library cannot be built: the
+    wrapper's loader raises instead of falling back to the plain
+    version."""
+    from repro_torch.kernels import build as kbuild
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(kbuild, "nvcc_path", no_nvcc)
+    monkeypatch.setattr(kbuild, "_target",
+                        lambda name: kbuild.BUILD_DIR / "missing.so")
+    monkeypatch.delitem(kbuild._LIBS, "flashattn", raising=False)
+    monkeypatch.setattr(fa, "_LIB", None)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fa._lib()
+
+
+def test_decode_group_limit_matches_kernel_source():
+    """The wrapper's `MAX_GROUP` is the decode kernel's `kMaxGroup`, so the
+    wrapper refuses exactly the groups the kernel cannot serve."""
+    import re
+    from repro_torch.kernels import build as kbuild
+    src = kbuild.SOURCES["flashattn"].read_text()
+    assert int(re.search(r"kMaxGroup = (\d+);", src).group(1)) \
+        == fa.MAX_GROUP

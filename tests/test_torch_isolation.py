@@ -142,6 +142,50 @@ def test_degrade_still_steps_host_rungs():
     assert table_digest(got) == table_digest(want)
 
 
+def test_port_serves_lm_without_jax_or_reference_in_process():
+    """A fresh interpreter runs the serving launcher on the CPU (smoke
+    config) and ends with neither `jax` nor `repro` loaded."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import serve\n"
+        "assert serve.main(['--config', 'smoke', '--device', 'cpu', "
+        "'--batch', '2', '--prompt-len', '16', '--gen-tokens', '3']) == 0\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
+        "or m.startswith(('jax.', 'repro.'))]\n"
+        "print('LOADED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+    assert "generated shape (2, 4)" in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-370m",
+                                  "deepseek-v2-lite-16b"])
+def test_unported_archs_raise_not_implemented(arch):
+    """MoE, Mamba-2 and MLA models are not ported yet: building one, or
+    serving one, raises NotImplementedError naming its ROADMAP item."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    for cfg in (get_config(arch), get_smoke_config(arch)):
+        with pytest.raises(NotImplementedError, match="item 10c"):
+            Model(cfg)
+    with pytest.raises(NotImplementedError, match="item 10c"):
+        serve.main(["--arch", arch, "--config", "smoke", "--device", "cpu"])
+
+
+def test_serve_on_cuda_without_cuda_raises(no_cuda):
+    """`--device cuda` (the default) with no CUDA raises instead of
+    running on the CPU."""
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--config", "smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--config", "smoke", "--device", "cuda:0"])
+
+
 def test_unknown_backend_and_device_rejected():
     from repro_torch.core.engine_bloom import get_engine
     from repro_torch.core.transfer import make_strategy

@@ -7,11 +7,14 @@ package), so it runs on a machine with the card:
 
 Every test carries the `gpu` marker and skips, with a reason, where
 `torch.cuda.is_available()` is false (a CUDA kernel has no CPU mode).
-K1-K5 outputs are integer and boolean arrays: they must equal their
+K1-K7 outputs are integer and boolean arrays: they must equal their
 plain torch versions bit-exactly (K4, whose parallel build lays the
 table out in another order, by its occupied count and by K5's answers);
 query results must match the port's eager numpy oracle by md5
-(`table_digest`)."""
+(`table_digest`). K8 (flash attention) is bf16 and sums in another
+order than its plain version: it must agree with `flash_plain` and with
+`sdpa_ref` within atol = rtol = 2e-2, the reference's own bf16
+tolerance (tests/test_kernels_flash.py), with f32 matmuls (TF32 off)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -232,3 +235,140 @@ def test_transfer_kernel_matches_plain_version(cuda, nb):
     np.testing.assert_array_equal(got[0], want[0])
     assert torch.equal(got[1].cpu(), want[1])
     assert got[0][keep].all()
+
+
+def _attn_inputs(rng, b, sq, skv, h, kvh, d, dev, ragged=True,
+                 dead_rows=0):
+    """bf16 q/k/v from numpy; decode-style positions; kv_valid ragged
+    (the last 3 keys invalid) and, with `dead_rows`, the first rows'
+    queries placed before every valid key (rows that see no key)."""
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, torch.bfloat16)
+    q, k, v = t((b, sq, h, d)), t((b, skv, kvh, d)), t((b, skv, kvh, d))
+    q_pos = np.broadcast_to(np.arange(skv - sq, skv)[None], (b, sq)).copy()
+    kv_pos = np.broadcast_to(np.arange(skv)[None], (b, skv)).copy()
+    kv_valid = kv_pos < (skv - 3) if ragged else np.ones((b, skv), bool)
+    if dead_rows:
+        q_pos[:, :dead_rows] = -1
+    return (q, k, v, torch.from_numpy(q_pos.astype(np.int32)).to(dev),
+            torch.from_numpy(kv_pos.astype(np.int32)).to(dev),
+            torch.from_numpy(kv_valid).to(dev))
+
+
+def _attn_expected(q, k, v, qp, kp, kval, causal, window):
+    from repro_torch.kernels.flashattn.ops import flash_plain
+    from repro_torch.kernels.flashattn.ref import sdpa_ref
+    rep = q.shape[2] // k.shape[2]
+    plain = flash_plain(q, k, v, qp, kp, kval, causal=causal, window=window)
+    dense = sdpa_ref(q, k.repeat_interleave(rep, 2),
+                     v.repeat_interleave(rep, 2), qp, kp, kval,
+                     causal=causal, window=window)
+    return plain, dense
+
+
+@pytest.fixture()
+def no_tf32():
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kvh,d,causal,window", [
+    (2, 128, 256, 4, 2, 64, True, None),       # GQA
+    (1, 200, 300, 2, 1, 128, True, None),      # no length a tile multiple
+    (2, 64, 200, 6, 2, 128, False, None),      # not causal
+    (1, 130, 130, 4, 4, 64, True, 64),         # window, ragged tiles
+    (1, 96, 96, 2, 2, 64, True, 17),
+    (2, 1, 384, 4, 4, 64, True, None),         # decode
+    (3, 1, 2088, 24, 8, 128, True, None),      # decode, GQA 3
+    (1, 1, 700, 36, 4, 128, True, 64),         # decode, 9 heads a group
+    (2, 1, 100, 8, 8, 128, False, None),
+])
+def test_flash_kernel_matches_plain_version(cuda, no_tf32, b, sq, skv, h,
+                                            kvh, d, causal, window):
+    """K8 == `flash_plain` and `sdpa_ref` on the card within 2e-2 (bf16),
+    on the variant Sq selects; the wrapper counts that launch only."""
+    from repro_torch.kernels.flashattn import ops as fa
+    rng = np.random.default_rng(sq * 7 + skv)
+    args = _attn_inputs(rng, b, sq, skv, h, kvh, d, cuda)
+    fa.reset_launches()
+    got = fa.flash_attention(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    variant = "flash_decode" if sq == 1 else "flash_prefill"
+    assert fa.LAUNCHES == {**{k: 0 for k in fa.LAUNCHES}, variant: 1}
+    assert got.shape == (b, sq, h, d) and got.dtype == torch.bfloat16
+    for want in _attn_expected(*args, causal, window):
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.parametrize("sq", [1, 70])
+def test_flash_kernel_rows_without_a_valid_key(cuda, no_tf32, sq):
+    """Rows whose query sees no key average v over the Skv real keys, as
+    `sdpa_ref` gives (no padding takes part)."""
+    from repro_torch.kernels.flashattn import ops as fa
+    rng = np.random.default_rng(11)
+    args = _attn_inputs(rng, 2, sq, 200, 4, 2, 64, cuda, dead_rows=1)
+    got = fa.flash_attention(*args, causal=True)
+    for want in _attn_expected(*args, True, None):
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+    mean_v = args[2].float().mean(dim=1).repeat_interleave(2, 1)
+    torch.testing.assert_close(got[:, 0].float(), mean_v, atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_flash_kernel_reads_strided_cache_views(cuda, no_tf32):
+    """k/v as views into a larger [B, cap, KVH, D] cache and q as a slice
+    of a wider projection: the kernel reads them through their strides."""
+    from repro_torch.kernels.flashattn import ops as fa
+    rng = np.random.default_rng(3)
+    q, k, v, qp, kp, kval = _attn_inputs(rng, 2, 80, 160, 4, 2, 128, cuda)
+    big = torch.zeros((2, 160, 6, 128), dtype=torch.bfloat16, device=cuda)
+    big[:, :, 1:3] = k
+    qwide = torch.zeros((2, 80, 8, 128), dtype=torch.bfloat16, device=cuda)
+    qwide[:, :, 4:] = q
+    got = fa.flash_attention(qwide[:, :, 4:], big[:, :, 1:3], v, qp, kp,
+                             kval, causal=True)
+    want = fa.flash_attention(q, k, v, qp, kp, kval, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    """f32, head_dim 96 and a decode group wider than the kernel serves
+    on a CUDA device raise ValueError and launch nothing. None runs the
+    plain version."""
+    from repro_torch.kernels.flashattn import ops as fa
+    rng = np.random.default_rng(5)
+    args = _attn_inputs(rng, 1, 64, 64, 2, 2, 64, cuda)
+    fa.reset_launches()
+    f32 = [t.float() for t in args[:3]] + list(args[3:])
+    with pytest.raises(ValueError, match="bf16"):
+        fa.flash_attention(*f32)
+    args96 = _attn_inputs(rng, 1, 64, 64, 2, 2, 96, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(*args96)
+    wide = _attn_inputs(rng, 1, 1, 64, 2 * fa.MAX_GROUP, 1, 64, cuda)
+    with pytest.raises(ValueError, match="query heads per kv head"):
+        fa.flash_attention(*wide)
+    assert sum(fa.LAUNCHES.values()) == 0
+
+
+def test_flash_kernel_failed_build_raises(cuda, tmp_path, monkeypatch):
+    """A source nvcc refuses makes the wrapper raise; nothing launches."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.flashattn import ops as fa
+    bad = tmp_path / "flashattn.cu"
+    bad.write_text("this is not CUDA\n")
+    monkeypatch.setitem(kbuild.SOURCES, "flashattn", bad)
+    monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.delitem(kbuild._LIBS, "flashattn", raising=False)
+    monkeypatch.setattr(fa, "_LIB", None)
+    args = _attn_inputs(np.random.default_rng(1), 1, 64, 64, 2, 2, 64, cuda)
+    fa.reset_launches()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fa.flash_attention(*args)
+    assert sum(fa.LAUNCHES.values()) == 0
