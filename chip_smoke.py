@@ -81,7 +81,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              within atol = rtol = 2e-2 (the reference's bf16 tolerance),
              one line per shape: qwen1.5-4b's prefill (B 4, Sq 2048, Skv
              2088, 20 heads, d 128, causal, the ring-cache positions of a
-             fresh prefill) and decode (Sq 1 at position 2080),
+             fresh prefill), the same shape on a ring that has wrapped
+             (kv_pos not monotone), decode (Sq 1 at position 2080),
              minitron-4b's 24/8 GQA heads, d 64 with a window of 64 and
              ragged validity (rows that see no key included), and a
              non-causal shape. Each line's bound is the larger of 4*D
@@ -91,7 +92,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              with the same boolean mask (and `enable_gqa`); beside the
              CUDA-event times, each call's device time alone from
              torch.profiler (at Sq 1 the host's dispatch can outlast the
-             kernels);
+             kernels); a prefill line adds the kernel's device TFLOP/s
+             (unmasked flops over its device time), its registers and
+             spills from nvcc's ptxas log and its shared memory a CTA;
 8. serve   — path `serve`: `repro_torch.launch.serve.serve` runs
              qwen1.5-4b at its full config (40 layers, d_model 2560,
              random weights from seed 0) with batch 4, a 2048-token
@@ -796,10 +799,37 @@ def kernel_api_phase(torch, np, kb, sj, fa, bloom, dev, api) -> dict:
     return counts
 
 
-def attention_phase(torch, fa, dev):
+def ptxas_usage(log: str, kernel: str) -> dict:
+    """Registers, spill bytes and static shared memory of the entry
+    function whose mangled name holds `kernel`, from nvcc's `-Xptxas -v`
+    log (None each when the log does not name it)."""
+    import re
+    out = dict.fromkeys(("registers", "spill_stores", "spill_loads",
+                         "static_smem_bytes"))
+    inside = False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            inside = kernel in ln
+        elif inside and "spill stores" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                out["spill_stores"], out["spill_loads"] = map(int, m.groups())
+        elif inside and "Used" in ln:
+            m = re.search(r"Used (\d+) registers", ln)
+            out["registers"] = int(m.group(1)) if m else None
+        if inside and "bytes smem" in ln:
+            out["static_smem_bytes"] = int(
+                re.search(r"(\d+) bytes smem", ln).group(1))
+    return out
+
+
+def attention_phase(torch, fa, dev, ptxas_log: str):
     """K8 against `flash_plain` and `sdpa_ref` on the card, one line per
     shape; returns the records of qwen1.5-4b's prefill and decode shapes
-    (the serve path's) and each variant's largest error."""
+    (the serve path's) and each variant's largest error. A prefill line
+    adds the kernel's device TFLOP/s (unmasked flops over `device_ms`)
+    and its registers, spills and shared memory from `ptxas_log`."""
     import torch.nn.functional as F
     from repro_torch.kernels.flashattn.ref import attend_mask, sdpa_ref
     from repro_torch.models.layers import _ring_positions
@@ -816,6 +846,10 @@ def attention_phase(torch, fa, dev):
     cases = (  # name, b, sq, skv, h, kvh, d, causal, window, q_pos, kv
         ("qwen1.5-4b prefill", 4, 2048, 2088, 20, 20, 128, True, None,
          rows(4, 2048), ring(2048, 2088, 4)),
+        # a chunk of 2048 after 1040 tokens: the ring has wrapped at slot
+        # 1000, so kv_pos is not monotone
+        ("qwen1.5-4b prefill, ring wrapped", 4, 2048, 2088, 20, 20, 128,
+         True, None, rows(4, 2048, 1040), ring(3088, 2088, 4)),
         ("qwen1.5-4b decode", 4, 1, 2088, 20, 20, 128, True, None,
          rows(4, 1, 2080), ring(2081, 2088, 4)),
         ("minitron-4b GQA 24/8 prefill", 2, 2048, 2088, 24, 8, 128, True,
@@ -889,8 +923,12 @@ def attention_phase(torch, fa, dev):
                "library_device_ms": device_ms(torch, library),
                "max_abs_err": errs["flash_plain"],
                "max_abs_err_sdpa_ref": errs["sdpa_ref"], "tol": FLASH_TOL}
+        if variant == "flash_prefill":
+            rec["device_tflops"] = flops / (rec["device_ms"] * 1e-3) / 1e12
+            rec["ptxas"] = ptxas_usage(ptxas_log, f"prefill_kernelILi{d}E")
+            rec["smem_bytes"] = fa.prefill_smem_bytes(d)
         emit(rec)
-        if name.startswith("qwen1.5-4b"):
+        if name in ("qwen1.5-4b prefill", "qwen1.5-4b decode"):
             rep[variant] = rec
     return rep, worst
 
@@ -1041,7 +1079,8 @@ def main() -> int:
     counts["kernel-api"] = kernel_api_phase(torch, np, kb, sj, fa, bloom,
                                             dev, api)
     del cat, api
-    arep, aworst = attention_phase(torch, fa, dev)
+    arep, aworst = attention_phase(torch, fa, dev,
+                                   info.get("flashattn", (0.0, ""))[1])
     rep.update(arep)
     worst.update(aworst)
     counts["serve"] = serve_phase(torch, kb, sj, fa)

@@ -42,7 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: per library: (build seconds, nvcc output incl. ptxas register counts);
-#: seconds is 0.0 when a current build was found on disk
+#: seconds is 0.0 when a current build was found on disk (its log is read
+#: from the `.log` file written beside it)
 BUILD_INFO: Dict[str, Tuple[float, str]] = {}
 
 
@@ -79,13 +80,16 @@ def _start(name: str):
 
 
 def _finish(name: str, started) -> None:
-    if started is None:
-        BUILD_INFO.setdefault(name, (0.0, ""))
+    if started is None:           # the build's nvcc log lies beside it
+        log = _target(name).with_suffix(".log")
+        BUILD_INFO.setdefault(name, (0.0, log.read_text() if log.exists()
+                                     else ""))
         return
     proc, tmp, out, t0 = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)          # atomic: concurrent builds agree
     BUILD_INFO[name] = (time.perf_counter() - t0, log)
 

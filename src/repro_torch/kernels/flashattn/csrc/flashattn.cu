@@ -53,6 +53,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -144,6 +145,30 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
   }
 }
 
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One kv tile's standing for a CTA whose rows' positions span [rmin, rmax]
+// (rows below Sq only): kSkip if no row of the CTA has an allowed key in
+// it, kFull if every row is allowed every key (no element mask needed),
+// kMasked otherwise. Holds for any positions (a wrapped ring cache is not
+// monotone): it reads only the tile's min and max over its valid keys.
+constexpr int kSkip = 0, kMasked = 1, kFull = 2;
+__device__ __forceinline__ int tile_state(const Args& a, int rmin, int rmax,
+                                          int tmin, int tmax, bool any,
+                                          bool all) {
+  if (!any || (a.causal && tmin > rmax) ||
+      (a.has_window && (long long)tmax <= (long long)rmin - a.window))
+    return kSkip;
+  if (all && (!a.causal || tmax <= rmin) &&
+      (!a.has_window || (long long)rmax - tmin < a.window))
+    return kFull;
+  return kMasked;
+}
+
 template <int D>
 __global__ void __launch_bounds__(kPrefillThreads)
     prefill_kernel(const Args a) {
@@ -154,24 +179,39 @@ __global__ void __launch_bounds__(kPrefillThreads)
   __shared__ __align__(16) __nv_bfloat16 vs[kKvTile * LD];
   __shared__ int kpos_s[kKvTile];
   __shared__ uint8_t kval_s[kKvTile];  // 0 masked key, 1 valid, 2 past Skv
+  __shared__ int rng_s[2];             // the rows' min and max position
+  __shared__ int tstat_s[2][4];        // per key warp: min, max, any, all
 
-  const int q0 = blockIdx.x * kQTile, h = blockIdx.y, b = blockIdx.z;
+  // heaviest q-tiles first: under a causal mask the last rows see most
+  // keys, so they start in the first wave and the tail runs light tiles
+  const int nqt = (a.Sq + kQTile - 1) / kQTile;
+  const int bh = blockIdx.x % (a.B * a.H);
+  const int q0 = (nqt - 1 - blockIdx.x / (a.B * a.H)) * kQTile;
+  const int h = bh % a.H, b = bh / a.H;
   const int kvh = h / (a.H / a.KVH);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const __nv_bfloat16* qb = a.q + b * a.q_b + h * a.q_h;
   const __nv_bfloat16* kb = a.k + b * a.k_b + kvh * a.k_h;
   const __nv_bfloat16* vb = a.v + b * a.v_b + kvh * a.v_h;
+  const float scale2 = a.scale * 1.4426950408889634f;  // exp(x) = 2^(x log2 e)
 
   // Q tile through the K buffer into A fragments (rows warp*16 .. +15)
+  if (threadIdx.x == 0) rng_s[0] = INT_MAX, rng_s[1] = INT_MIN;
   stage_tile<D>(ks, qb, a.q_s, q0, a.Sq);
   __syncthreads();
+  if (threadIdx.x < kQTile && q0 + threadIdx.x < a.Sq) {
+    int p = a.q_pos[(long long)b * a.Sq + q0 + threadIdx.x];
+    atomicMin(&rng_s[0], p);
+    atomicMax(&rng_s[1], p);
+  }
   uint32_t qf[KS][4];
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
     ldmatrix_x4(qf[kk], ks + (warp * 16 + (lane & 15)) * LD + kk * 16 +
                             (lane >> 4) * 8);
   __syncthreads();
+  const int rmin = rng_s[0], rmax = rng_s[1];
 
   // this thread's two query rows: g and g + 8 of the warp's sixteen
   const int qr0 = q0 + warp * 16 + g, qr1 = qr0 + 8;
@@ -179,102 +219,142 @@ __global__ void __launch_bounds__(kPrefillThreads)
   const int qp1 = qr1 < a.Sq ? a.q_pos[(long long)b * a.Sq + qr1] : 0;
 
   float o[D / 8][4];
+  float m0, m1, l0, l1;
+  // pass 0 skips the tiles no row of the CTA may see; if a row below Sq
+  // saw no allowed key at all, it must average V over every real key, so
+  // the CTA runs pass 1 over all tiles (never on the serve path)
+  for (int pass = 0; pass < 2; ++pass) {
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
+    for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+    m0 = m1 = kNeg;
+    l0 = l1 = 0.f;
 
-  for (int kv0 = 0; kv0 < a.Skv; kv0 += kKvTile) {
-    stage_tile<D>(ks, kb, a.k_s, kv0, a.Skv);
-    stage_tile<D>(vs, vb, a.v_s, kv0, a.Skv);
-    if (threadIdx.x < kKvTile) {
-      int j = kv0 + threadIdx.x;
-      bool in = j < a.Skv;
-      long long at = (long long)b * a.Skv + j;
-      kpos_s[threadIdx.x] = in ? a.kv_pos[at] : 0;
-      kval_s[threadIdx.x] = in ? (a.kv_valid[at] ? 1 : 0) : 2;
-    }
-    __syncthreads();
+    for (int kv0 = 0; kv0 < a.Skv; kv0 += kKvTile) {
+      if (threadIdx.x < kKvTile) {
+        int j = kv0 + threadIdx.x;
+        bool in = j < a.Skv;
+        long long at = (long long)b * a.Skv + j;
+        int kp = in ? a.kv_pos[at] : 0;
+        bool val = in && a.kv_valid[at];
+        kpos_s[threadIdx.x] = kp;
+        kval_s[threadIdx.x] = in ? (val ? 1 : 0) : 2;
+        int mn = val ? kp : INT_MAX, mx = val ? kp : INT_MIN;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+          mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        }
+        const int any = __any_sync(0xffffffffu, val);
+        const int all = __all_sync(0xffffffffu, val);
+        if (lane == 0) {
+          tstat_s[warp][0] = mn;
+          tstat_s[warp][1] = mx;
+          tstat_s[warp][2] = any;
+          tstat_s[warp][3] = all;
+        }
+      }
+      __syncthreads();
+      const int st = pass ? kMasked
+                          : tile_state(a, rmin, rmax,
+                                       min(tstat_s[0][0], tstat_s[1][0]),
+                                       max(tstat_s[0][1], tstat_s[1][1]),
+                                       tstat_s[0][2] || tstat_s[1][2],
+                                       tstat_s[0][3] && tstat_s[1][3]);
+      if (st == kSkip) {
+        __syncthreads();  // the next tile overwrites the key stats
+        continue;
+      }
+      stage_tile<D>(ks, kb, a.k_s, kv0, a.Skv);
+      stage_tile<D>(vs, vb, a.v_s, kv0, a.Skv);
+      __syncthreads();
 
-    // S = Q K^T: 16 rows x 64 keys per warp
-    float s[NT][4];
+      // S = Q K^T: 16 rows x 64 keys per warp
+      float s[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KS; kk += 2) {
+      for (int kk = 0; kk < KS; kk += 2) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t bf[4];
+          ldmatrix_x4(bf, ks + (nt * 8 + (lane & 7)) * LD + kk * 16 +
+                              (lane >> 3) * 8);
+          mma16816(s[nt], qf[kk], bf[0], bf[1]);
+          mma16816(s[nt], qf[kk + 1], bf[2], bf[3]);
+        }
+      }
+
+      // scores in the log2 domain (x * scale * log2 e), masks, and the new
+      // running max of rows g (regs 0,1) and g+8 (2,3); a tile every pair
+      // of which is allowed takes no element mask
+      float mx0 = m0, mx1 = m1;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, ks + (nt * 8 + (lane & 7)) * LD + kk * 16 +
-                            (lane >> 3) * 8);
-        mma16816(s[nt], qf[kk], bf[0], bf[1]);
-        mma16816(s[nt], qf[kk + 1], bf[2], bf[3]);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x0 = s[nt][e] * scale2, x1 = s[nt][2 + e] * scale2;
+          if (st != kFull) {
+            int c = nt * 8 + t4 * 2 + e;
+            int kst = kval_s[c], kp = kpos_s[c];
+            x0 = kst == 2 ? -INFINITY : (allowed(a, qp0, kp, kst) ? x0 : kNeg);
+            x1 = kst == 2 ? -INFINITY : (allowed(a, qp1, kp, kst) ? x1 : kNeg);
+          }
+          s[nt][e] = x0;
+          s[nt][2 + e] = x1;
+          mx0 = fmaxf(mx0, x0);
+          mx1 = fmaxf(mx1, x1);
+        }
       }
-    }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float al0 = fast_exp2(m0 - mx0), al1 = fast_exp2(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
 
-    // masks, scale and the new running max of rows g (regs 0,1), g+8 (2,3)
-    float mx0 = m0, mx1 = m1;
+      // P in f32 for the sums, rounded to bf16 as the A operand of P V
+      float rs0 = 0.f, rs1 = 0.f;
+      uint32_t pf[kKvTile / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        int c = nt * 8 + t4 * 2 + e;
-        int st = kval_s[c], kp = kpos_s[c];
-        float x0 = s[nt][e] * a.scale, x1 = s[nt][2 + e] * a.scale;
-        x0 = st == 2 ? -INFINITY : (allowed(a, qp0, kp, st) ? x0 : kNeg);
-        x1 = st == 2 ? -INFINITY : (allowed(a, qp1, kp, st) ? x1 : kNeg);
-        s[nt][e] = x0;
-        s[nt][2 + e] = x1;
-        mx0 = fmaxf(mx0, x0);
-        mx1 = fmaxf(mx1, x1);
+      for (int nt = 0; nt < NT; ++nt) {
+        float p00 = fast_exp2(s[nt][0] - m0), p01 = fast_exp2(s[nt][1] - m0);
+        float p10 = fast_exp2(s[nt][2] - m1), p11 = fast_exp2(s[nt][3] - m1);
+        rs0 += p00 + p01;
+        rs1 += p10 + p11;
+        pf[nt >> 1][(nt & 1) * 2] = pack_bf16(p00, p01);
+        pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p10, p11);
       }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float al0 = expf(m0 - mx0), al1 = expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-
-    // P in f32 for the sums, rounded to bf16 as the A operand of P V
-    float rs0 = 0.f, rs1 = 0.f;
-    uint32_t pf[kKvTile / 16][4];
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
+      l0 = l0 * al0 + rs0;
+      l1 = l1 * al1 + rs1;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      float p00 = expf(s[nt][0] - m0), p01 = expf(s[nt][1] - m0);
-      float p10 = expf(s[nt][2] - m1), p11 = expf(s[nt][3] - m1);
-      rs0 += p00 + p01;
-      rs1 += p10 + p11;
-      pf[nt >> 1][(nt & 1) * 2] = pack_bf16(p00, p01);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p10, p11);
-    }
-    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
-    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
-    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
-    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
-    l0 = l0 * al0 + rs0;
-    l1 = l1 * al1 + rs1;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      o[dt][0] *= al0;
-      o[dt][1] *= al0;
-      o[dt][2] *= al1;
-      o[dt][3] *= al1;
-    }
-
-    // O += P V: V's rows are the k dimension, read transposed by ldmatrix
-#pragma unroll
-    for (int kc = 0; kc < kKvTile / 16; ++kc) {
-#pragma unroll
-      for (int dt = 0; dt < D / 8; dt += 2) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                  dt * 8 + (lane >> 4) * 8);
-        mma16816(o[dt], pf[kc], bf[0], bf[1]);
-        mma16816(o[dt + 1], pf[kc], bf[2], bf[3]);
+      for (int dt = 0; dt < D / 8; ++dt) {
+        o[dt][0] *= al0;
+        o[dt][1] *= al0;
+        o[dt][2] *= al1;
+        o[dt][3] *= al1;
       }
+
+      // O += P V: V's rows are the k dimension, read transposed by ldmatrix
+#pragma unroll
+      for (int kc = 0; kc < kKvTile / 16; ++kc) {
+#pragma unroll
+        for (int dt = 0; dt < D / 8; dt += 2) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                    dt * 8 + (lane >> 4) * 8);
+          mma16816(o[dt], pf[kc], bf[0], bf[1]);
+          mma16816(o[dt + 1], pf[kc], bf[2], bf[3]);
+        }
+      }
+      __syncthreads();  // the next tile overwrites ks, vs and the key stats
     }
-    __syncthreads();  // the next tile overwrites ks and vs
+    const bool dead = (qr0 < a.Sq && m0 == kNeg) || (qr1 < a.Sq && m1 == kNeg);
+    if (pass || !__syncthreads_or(dead)) break;
   }
 
   const float L0 = fmaxf(l0, 1e-30f), L1 = fmaxf(l1, 1e-30f);
@@ -494,7 +574,7 @@ int flash_prefill(const void* q, const void* k, const void* v, void* o,
                   float scale, void* stream) {
   Args a = make_args(q, k, v, o, q_pos, kv_pos, kv_valid, strides, B, Sq, Skv,
                      H, KVH, causal, has_window, window, scale);
-  dim3 grid((Sq + kQTile - 1) / kQTile, H, B);
+  dim3 grid((Sq + kQTile - 1) / kQTile * H * B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
     prefill_kernel<64><<<grid, kPrefillThreads, 0, s>>>(a);
@@ -503,6 +583,15 @@ int flash_prefill(const void* q, const void* k, const void* v, void* o,
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// Shared memory, static and dynamic, of one prefill CTA at head_dim D.
+int flash_prefill_smem_bytes(int D) {
+  cudaFuncAttributes attr;
+  cudaError_t err = D == 64 ? cudaFuncGetAttributes(&attr, prefill_kernel<64>)
+                  : D == 128 ? cudaFuncGetAttributes(&attr, prefill_kernel<128>)
+                             : cudaErrorInvalidValue;
+  return err == cudaSuccess ? (int)attr.sharedSizeBytes : -1;
 }
 
 // K8, decode variant: as flash_prefill with Sq == 1.

@@ -57,6 +57,8 @@ def _lib() -> ctypes.CDLL:
         lib.flash_decode.argtypes = common + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_void_p]
         lib.flash_decode.restype = ctypes.c_int
+        lib.flash_prefill_smem_bytes.argtypes = [ctypes.c_int]
+        lib.flash_prefill_smem_bytes.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -64,6 +66,12 @@ def _lib() -> ctypes.CDLL:
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+
+
+def prefill_smem_bytes(d: int) -> int:
+    """Shared memory (static and dynamic bytes) one CTA of the prefill
+    kernel takes at head_dim `d`."""
+    return int(_lib().flash_prefill_smem_bytes(d))
 
 
 def _check_shapes(q, k, v, q_pos, kv_pos, kv_valid) -> None:

@@ -320,6 +320,63 @@ def test_flash_kernel_rows_without_a_valid_key(cuda, no_tf32, sq):
                                rtol=2e-2)
 
 
+def _positions(case, b, sq, skv, dev):
+    """(q_pos, kv_pos, kv_valid) of the tile-skipping cases: `ring` is
+    the model's ring cache after `skv + 188` tokens (kv_pos wraps, so it
+    is not monotone) queried by the last `sq` positions; `arange` and
+    `dead` put query i and key i at position i (`dead`: row 0 at -1, so
+    it sees no key)."""
+    if case == "ring":
+        from repro_torch.models.layers import _ring_positions
+        index = skv + 188
+        kp, kval = _ring_positions(index, skv, b, dev)
+        qp = torch.arange(index - sq, index, dtype=torch.int32, device=dev)
+        return qp[None].repeat(b, 1), kp, kval
+    qp = torch.arange(sq, dtype=torch.int32, device=dev)[None].repeat(b, 1)
+    kp = torch.arange(skv, dtype=torch.int32, device=dev)[None].repeat(b, 1)
+    if case == "dead":
+        qp[:, 0] = -1
+    return qp, kp, torch.ones(b, skv, dtype=torch.bool, device=dev)
+
+
+@pytest.mark.parametrize("case,b,sq,skv,h,kvh,d,window", [
+    ("ring", 2, 256, 512, 4, 2, 128, None),     # wrapped ring cache
+    ("ring", 1, 384, 700, 4, 4, 64, 200),
+    ("arange", 2, 1024, 1024, 4, 4, 128, 100),  # window skips leading tiles
+    ("arange", 1, 1024, 1024, 4, 2, 64, 300),
+    ("dead", 1, 512, 512, 4, 4, 128, None),     # row 0 sees no key: redo
+    ("dead", 2, 512, 512, 2, 1, 64, 64),
+    ("arange", 2, 333, 461, 4, 2, 64, None),    # no tile-multiple lengths
+    ("arange", 1, 650, 777, 4, 4, 128, None),
+    ("arange", 1, 2048, 2048, 24, 8, 128, None),  # GQA 24/8
+])
+def test_flash_prefill_skips_only_masked_tiles(cuda, no_tf32, case, b, sq,
+                                               skv, h, kvh, d, window):
+    """The prefill kernel skips kv tiles that no row of its q-tile may
+    see; on wrapped ring positions, windows, ragged lengths, GQA and a
+    row that sees no key (which needs every tile), it still equals
+    `flash_plain` and `sdpa_ref` within 2e-2."""
+    from repro_torch.kernels.flashattn import ops as fa
+    rng = np.random.default_rng(sq + skv + d)
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = t((b, sq, h, d)), t((b, skv, kvh, d)), t((b, skv, kvh, d))
+    args = (q, k, v, *_positions(case, b, sq, skv, cuda))
+    fa.reset_launches()
+    got = fa.flash_attention(*args, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_prefill"] == 1
+    for want in _attn_expected(*args, True, window):
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+    if case == "dead":
+        mean_v = v.float().mean(dim=1).repeat_interleave(h // kvh, 1)
+        torch.testing.assert_close(got[:, 0].float(), mean_v, atol=2e-2,
+                                   rtol=2e-2)
+
+
 def test_flash_kernel_reads_strided_cache_views(cuda, no_tf32):
     """k/v as views into a larger [B, cap, KVH, D] cache and q as a slice
     of a wider projection: the kernel reads them through their strides."""
