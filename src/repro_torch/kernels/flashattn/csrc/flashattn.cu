@@ -34,16 +34,45 @@
 // 85.5 MB a layer at batch 4 and a 2088-slot cache, 0.026 ms at
 // 3.35 TB/s).
 //
-// Design (a simple kernel that is right; wgmma, TMA, pipelined loads and
-// causal tile skipping are later work):
-//   * prefill_kernel<D>: one CTA of 4 warps per (q-tile of 64 rows, head,
-//     batch). Q is held in registers as mma.sync A fragments; 64-key K and
-//     V tiles are staged in shared memory (rows padded by 16 bytes, so
-//     ldmatrix is free of bank conflicts); S = Q K^T and O += P V run on the
-//     tensor cores as mma.sync.m16n8k16 bf16 -> f32, P going from the S
-//     accumulators to A fragments in registers. Every tile of every row is
-//     computed: masked tiles are not skipped yet, so causal prefill does
-//     about twice the bound's operations.
+// Design of the prefill variant, prefill_kernel<D>, for the tensor cores
+// that bound it:
+//   * one CTA of three warpgroups per (q-tile of 128 rows, head, batch),
+//     the heaviest q-tiles first (under a causal mask the last rows see
+//     most keys, so they start in the first wave and light tiles fill the
+//     tail). One producer warp loads; its warpgroup hands its registers to
+//     the two consumer warpgroups (setmaxnreg: 40 against 232), which
+//     compute 64 rows each.
+//   * loads are TMA: 4-D tensor maps over q, k and v's [B, S, H, D]
+//     strides, made on the host at each call (cuTensorMapEncodeTiled,
+//     reached through the runtime, so no libcuda is linked); boxes of 128
+//     rows x 64 d land with the 128-byte swizzle wgmma reads, and rows
+//     past Sq or Skv arrive as zeros. K and V tiles of 128 keys pass
+//     through a ring of 2 stages with full and empty mbarriers, so the
+//     next tile loads while the consumers work: 160 KB of shared memory
+//     at D 128, one CTA per SM.
+//   * S = Q K^T is wgmma m64n128k16 with both operands K-major in shared
+//     memory; O += P V is wgmma m64nDk16 with P in registers (the S
+//     accumulators, rounded to bf16, are already its A fragment) and V
+//     read as the MN-major B operand, so no copy of V is transposed.
+//   * masked tiles are skipped: before it loads a tile the producer reads
+//     the tile's positions and validity and drops it when no row of the
+//     CTA may see any of its keys (tile_state compares the rows' position
+//     range with the tile's valid-key range, so any order of positions,
+//     a wrapped ring included, is handled). This is exact: for a row with
+//     an allowed key, a tile it may not see adds p = 2^(NEG - m) = 0 after
+//     its first allowed key, and whatever it added before that is wiped
+//     by alpha = 2^(NEG - m_new) = 0. A row with no allowed key at all
+//     must average V over every real key, so when a consumer ends with
+//     m == NEG for a row below Sq, the CTA runs a second pass over every
+//     tile (never on the serve path).
+//   * a tile whose every pair is allowed (interior tiles under a causal
+//     mask) takes no element mask; scores are scaled by scale * log2 e
+//     and exponentiated with ex2.approx.
+//   * what it leaves on the table: each consumer runs QK^T, softmax and
+//     PV in turn, so the tensor cores idle through its softmax unless the
+//     other warpgroup fills the gap; no ping-pong schedule and no overlap
+//     of one tile's softmax with the next tile's QK^T.
+// Design of the decode variant:
 //   * decode_kernel<D, R>: one CTA of 8 warps per (kv head, batch) serves
 //     the H / KVH query heads of that group, so each K and V row is read
 //     once for all of them. D / 8 lanes share one key (16 bytes each), so a
@@ -51,6 +80,7 @@
 //     in flight; each key group keeps its own running max, sum and output,
 //     merged across the warp by shuffles and across warps in shared memory.
 
+#include <cuda.h>  // CUtensorMap and its enums; no driver library is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -60,10 +90,6 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kQTile = 64;   // query rows per prefill CTA (16 per warp)
-constexpr int kKvTile = 64;  // keys per shared-memory tile
-constexpr int kPad = 8;      // bf16 elements of padding per shared row
-constexpr int kPrefillThreads = 128;
 constexpr int kDecodeWarps = 8;
 constexpr int kDecodeUnroll = 4;  // keys in flight per key group
 constexpr int kMaxGroup = 16;     // most H / KVH the decode variant takes
@@ -92,57 +118,9 @@ __device__ __forceinline__ bool allowed(const Args& a, int qp, int kp,
          (!a.has_window || qp - kp < a.window);
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// c[16x8, f32] += a[16x16, bf16, row] * b[16x8, bf16, col]
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// Copy rows [r0, r0 + 64) of a [rows, D] bf16 matrix (row stride `stride`
-// elements) into shared memory with row stride D + kPad; rows at and past
-// `rows` become zeros, so no garbage (NaN) meets a zero weight.
-template <int D>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long stride, int r0,
-                                           int rows) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kKvTile * kChunks; c += kPrefillThreads) {
-    int r = c / kChunks, col = (c % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < rows)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * stride +
-                                            col);
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + col) = val;
-  }
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -169,205 +147,443 @@ __device__ __forceinline__ int tile_state(const Args& a, int rmin, int rmax,
   return kMasked;
 }
 
+// ---- Hopper primitives: mbarriers, TMA, wgmma --------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed; a wait that
+// outlasts any real load (2^28 tries, seconds) traps rather than hang
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 28)) __trap();
+  }
+}
+
+// one box of a 4-D tensor map ({d, head, row, batch}) into shared memory,
+// completing `bytes` on the barrier
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// byte offset (MN-major: the step between 64-element column blocks) and
+// stride byte offset (the step between 8-row groups), all in 16-byte units
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void reg_fence(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d[64 x 128, f32] (+)= A[64 x 16] B[16 x 128]: A and B bf16 in shared
+// memory, both K-major with the 128-byte swizzle, read through
+// descriptors
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 128, f32] (+)= A[64 x 16] B[16 x 128]: A bf16 in registers (each
+// warp's 16 rows as the m16n8k16 A fragment), B bf16 in shared memory,
+// MN-major (transposed) with the 128-byte swizzle
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64, f32] (+)= A[64 x 16] B[16 x 64]: A bf16 in registers (each
+// warp's 16 rows as the m16n8k16 A fragment), B bf16 in shared memory,
+// MN-major (transposed) with the 128-byte swizzle
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+
 template <int D>
-__global__ void __launch_bounds__(kPrefillThreads)
-    prefill_kernel(const Args a) {
-  constexpr int LD = D + kPad;
-  constexpr int KS = D / 16;  // k-steps of the Q K^T product
-  constexpr int NT = kKvTile / 8;  // 8-key column tiles of S
-  __shared__ __align__(16) __nv_bfloat16 ks[kKvTile * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[kKvTile * LD];
-  __shared__ int kpos_s[kKvTile];
-  __shared__ uint8_t kval_s[kKvTile];  // 0 masked key, 1 valid, 2 past Skv
-  __shared__ int rng_s[2];             // the rows' min and max position
-  __shared__ int tstat_s[2][4];        // per key warp: min, max, any, all
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (D == 128)
+    wgmma_rs_n128(o, a, db, 1);
+  else
+    wgmma_rs_n64(o, a, db, 1);
+}
+
+// ---- the prefill kernel --------------------------------------------------
+
+constexpr int kBM = 128;       // query rows per CTA: two consumer warpgroups
+constexpr int kBN = 128;       // keys per kv tile
+constexpr int kStages = 2;     // depth of the K/V ring
+constexpr int kPrefillThreads = 384;  // producer warpgroup + 2 consumers
+constexpr int kBlockBytes = 128 * 128;  // 128 rows of one 64-column block
+
+struct TileMeta {     // what the producer learned of one kv tile
+  int kpos[kBN];
+  uint8_t kval[kBN];  // 0 masked key, 1 valid, 2 past Skv
+  int tile;           // kv tile index; -1 ends a pass
+  int state;          // kMasked or kFull
+};
+
+template <int D>
+struct Smem {         // dynamic shared memory, 1024-byte aligned
+  static constexpr int kNB = D / 64;  // 64-column (128-byte) blocks
+  static constexpr int kTileBytes = kNB * kBlockBytes;
+  uint8_t q[kTileBytes];
+  uint8_t k[kStages][kTileBytes];
+  uint8_t v[kStages][kTileBytes];
+  TileMeta meta[kStages];
+  uint64_t q_full, full[kStages], empty[kStages];
+  int rmin, rmax, redo;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kPrefillThreads, 1)
+    prefill_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Args a) {
+  using S = Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  S& sm = *reinterpret_cast<S*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
 
   // heaviest q-tiles first: under a causal mask the last rows see most
   // keys, so they start in the first wave and the tail runs light tiles
-  const int nqt = (a.Sq + kQTile - 1) / kQTile;
+  const int nqt = (a.Sq + kBM - 1) / kBM;
   const int bh = blockIdx.x % (a.B * a.H);
-  const int q0 = (nqt - 1 - blockIdx.x / (a.B * a.H)) * kQTile;
+  const int q0 = (nqt - 1 - blockIdx.x / (a.B * a.H)) * kBM;
   const int h = bh % a.H, b = bh / a.H;
   const int kvh = h / (a.H / a.KVH);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const __nv_bfloat16* qb = a.q + b * a.q_b + h * a.q_h;
-  const __nv_bfloat16* kb = a.k + b * a.k_b + kvh * a.k_h;
-  const __nv_bfloat16* vb = a.v + b * a.v_b + kvh * a.v_h;
-  const float scale2 = a.scale * 1.4426950408889634f;  // exp(x) = 2^(x log2 e)
+  const int ntiles = (a.Skv + kBN - 1) / kBN;
 
-  // Q tile through the K buffer into A fragments (rows warp*16 .. +15)
-  if (threadIdx.x == 0) rng_s[0] = INT_MAX, rng_s[1] = INT_MIN;
-  stage_tile<D>(ks, qb, a.q_s, q0, a.Sq);
-  __syncthreads();
-  if (threadIdx.x < kQTile && q0 + threadIdx.x < a.Sq) {
-    int p = a.q_pos[(long long)b * a.Sq + q0 + threadIdx.x];
-    atomicMin(&rng_s[0], p);
-    atomicMax(&rng_s[1], p);
-  }
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    ldmatrix_x4(qf[kk], ks + (warp * 16 + (lane & 15)) * LD + kk * 16 +
-                            (lane >> 4) * 8);
-  __syncthreads();
-  const int rmin = rng_s[0], rmax = rng_s[1];
-
-  // this thread's two query rows: g and g + 8 of the warp's sixteen
-  const int qr0 = q0 + warp * 16 + g, qr1 = qr0 + 8;
-  const int qp0 = qr0 < a.Sq ? a.q_pos[(long long)b * a.Sq + qr0] : 0;
-  const int qp1 = qr1 < a.Sq ? a.q_pos[(long long)b * a.Sq + qr1] : 0;
-
-  float o[D / 8][4];
-  float m0, m1, l0, l1;
-  // pass 0 skips the tiles no row of the CTA may see; if a row below Sq
-  // saw no allowed key at all, it must average V over every real key, so
-  // the CTA runs pass 1 over all tiles (never on the serve path)
-  for (int pass = 0; pass < 2; ++pass) {
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-    m0 = m1 = kNeg;
-    l0 = l1 = 0.f;
-
-    for (int kv0 = 0; kv0 < a.Skv; kv0 += kKvTile) {
-      if (threadIdx.x < kKvTile) {
-        int j = kv0 + threadIdx.x;
-        bool in = j < a.Skv;
-        long long at = (long long)b * a.Skv + j;
-        int kp = in ? a.kv_pos[at] : 0;
-        bool val = in && a.kv_valid[at];
-        kpos_s[threadIdx.x] = kp;
-        kval_s[threadIdx.x] = in ? (val ? 1 : 0) : 2;
-        int mn = val ? kp : INT_MAX, mx = val ? kp : INT_MIN;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
-          mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        }
-        const int any = __any_sync(0xffffffffu, val);
-        const int all = __all_sync(0xffffffffu, val);
-        if (lane == 0) {
-          tstat_s[warp][0] = mn;
-          tstat_s[warp][1] = mx;
-          tstat_s[warp][2] = any;
-          tstat_s[warp][3] = all;
-        }
-      }
-      __syncthreads();
-      const int st = pass ? kMasked
-                          : tile_state(a, rmin, rmax,
-                                       min(tstat_s[0][0], tstat_s[1][0]),
-                                       max(tstat_s[0][1], tstat_s[1][1]),
-                                       tstat_s[0][2] || tstat_s[1][2],
-                                       tstat_s[0][3] && tstat_s[1][3]);
-      if (st == kSkip) {
-        __syncthreads();  // the next tile overwrites the key stats
-        continue;
-      }
-      stage_tile<D>(ks, kb, a.k_s, kv0, a.Skv);
-      stage_tile<D>(vs, vb, a.v_s, kv0, a.Skv);
-      __syncthreads();
-
-      // S = Q K^T: 16 rows x 64 keys per warp
-      float s[NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; kk += 2) {
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          uint32_t bf[4];
-          ldmatrix_x4(bf, ks + (nt * 8 + (lane & 7)) * LD + kk * 16 +
-                              (lane >> 3) * 8);
-          mma16816(s[nt], qf[kk], bf[0], bf[1]);
-          mma16816(s[nt], qf[kk + 1], bf[2], bf[3]);
-        }
-      }
-
-      // scores in the log2 domain (x * scale * log2 e), masks, and the new
-      // running max of rows g (regs 0,1) and g+8 (2,3); a tile every pair
-      // of which is allowed takes no element mask
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float x0 = s[nt][e] * scale2, x1 = s[nt][2 + e] * scale2;
-          if (st != kFull) {
-            int c = nt * 8 + t4 * 2 + e;
-            int kst = kval_s[c], kp = kpos_s[c];
-            x0 = kst == 2 ? -INFINITY : (allowed(a, qp0, kp, kst) ? x0 : kNeg);
-            x1 = kst == 2 ? -INFINITY : (allowed(a, qp1, kp, kst) ? x1 : kNeg);
-          }
-          s[nt][e] = x0;
-          s[nt][2 + e] = x1;
-          mx0 = fmaxf(mx0, x0);
-          mx1 = fmaxf(mx1, x1);
-        }
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float al0 = fast_exp2(m0 - mx0), al1 = fast_exp2(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-
-      // P in f32 for the sums, rounded to bf16 as the A operand of P V
-      float rs0 = 0.f, rs1 = 0.f;
-      uint32_t pf[kKvTile / 16][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        float p00 = fast_exp2(s[nt][0] - m0), p01 = fast_exp2(s[nt][1] - m0);
-        float p10 = fast_exp2(s[nt][2] - m1), p11 = fast_exp2(s[nt][3] - m1);
-        rs0 += p00 + p01;
-        rs1 += p10 + p11;
-        pf[nt >> 1][(nt & 1) * 2] = pack_bf16(p00, p01);
-        pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p10, p11);
-      }
-      rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
-      rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
-      rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
-      rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
-      l0 = l0 * al0 + rs0;
-      l1 = l1 * al1 + rs1;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        o[dt][0] *= al0;
-        o[dt][1] *= al0;
-        o[dt][2] *= al1;
-        o[dt][3] *= al1;
-      }
-
-      // O += P V: V's rows are the k dimension, read transposed by ldmatrix
-#pragma unroll
-      for (int kc = 0; kc < kKvTile / 16; ++kc) {
-#pragma unroll
-        for (int dt = 0; dt < D / 8; dt += 2) {
-          uint32_t bf[4];
-          ldmatrix_x4_trans(bf, vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                    dt * 8 + (lane >> 4) * 8);
-          mma16816(o[dt], pf[kc], bf[0], bf[1]);
-          mma16816(o[dt + 1], pf[kc], bf[2], bf[3]);
-        }
-      }
-      __syncthreads();  // the next tile overwrites ks, vs and the key stats
+  if (threadIdx.x == 0) {
+    mbar_init(smem_u32(&sm.q_full), 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_u32(&sm.full[s]), 1);
+      mbar_init(smem_u32(&sm.empty[s]), 8);  // one arrive per consumer warp
     }
-    const bool dead = (qr0 < a.Sq && m0 == kNeg) || (qr1 < a.Sq && m1 == kNeg);
-    if (pass || !__syncthreads_or(dead)) break;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    sm.rmin = INT_MAX;
+    sm.rmax = INT_MIN;
+    sm.redo = 0;
   }
+  __syncthreads();
+  if (threadIdx.x < kBM && q0 + threadIdx.x < a.Sq) {
+    int p = a.q_pos[(long long)b * a.Sq + q0 + threadIdx.x];
+    atomicMin(&sm.rmin, p);
+    atomicMax(&sm.rmax, p);
+  }
+  __syncthreads();
 
-  const float L0 = fmaxf(l0, 1e-30f), L1 = fmaxf(l1, 1e-30f);
-  __nv_bfloat16* ob = a.o + b * a.o_b + h * a.o_h;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+
+  if (wg == 0) {
+    // ---- producer: one warp picks the live tiles and issues TMA loads ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp != 0) return;
+    const int rmin = sm.rmin, rmax = sm.rmax;
+    if (lane == 0) {
+      uint32_t bar = smem_u32(&sm.q_full);
+      mbar_expect_tx(bar, S::kTileBytes);
+      for (int j = 0; j < S::kNB; ++j)
+        tma_load_4d(smem_u32(sm.q + j * kBlockBytes), &tq, bar, j * 64, h, q0,
+                    b);
+    }
+    const int32_t* kpos_g = a.kv_pos + (long long)b * a.Skv;
+    const uint8_t* kval_g = a.kv_valid + (long long)b * a.Skv;
+    int stage = 0, phase = 0;
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int t = 0; t <= ntiles; ++t) {
+        const bool end = t == ntiles;  // the pass's last slot ends it
+        int kp[kBN / 32], kst[kBN / 32], state = kMasked;
+        if (!end) {
+          int mn = INT_MAX, mx = INT_MIN;
+          bool any = false, all = true;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    int col = dt * 8 + t4 * 2;
-    if (qr0 < a.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)qr0 * a.o_s + col) =
-          __floats2bfloat162_rn(o[dt][0] / L0, o[dt][1] / L0);
-    if (qr1 < a.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)qr1 * a.o_s + col) =
-          __floats2bfloat162_rn(o[dt][2] / L1, o[dt][3] / L1);
+          for (int i = 0; i < kBN / 32; ++i) {
+            int j = t * kBN + i * 32 + lane;
+            bool in = j < a.Skv;
+            kp[i] = in ? kpos_g[j] : 0;
+            bool val = in && kval_g[j];
+            kst[i] = in ? (val ? 1 : 0) : 2;
+            mn = val ? min(mn, kp[i]) : mn;
+            mx = val ? max(mx, kp[i]) : mx;
+            any |= val;
+            all &= val;
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) {
+            mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+            mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          }
+          any = __any_sync(0xffffffffu, any);
+          all = __all_sync(0xffffffffu, all);
+          if (pass == 0) state = tile_state(a, rmin, rmax, mn, mx, any, all);
+          if (state == kSkip) continue;
+        }
+        mbar_wait(smem_u32(&sm.empty[stage]), phase ^ 1);
+        TileMeta& m = sm.meta[stage];
+        if (!end) {
+#pragma unroll
+          for (int i = 0; i < kBN / 32; ++i) {
+            m.kpos[i * 32 + lane] = kp[i];
+            m.kval[i * 32 + lane] = (uint8_t)kst[i];
+          }
+        }
+        if (lane == 0) {
+          m.tile = end ? -1 : t;
+          m.state = state;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          uint32_t bar = smem_u32(&sm.full[stage]);
+          if (end) {
+            mbar_arrive(bar);
+          } else {
+            mbar_expect_tx(bar, 2 * S::kTileBytes);
+            for (int j = 0; j < S::kNB; ++j) {
+              tma_load_4d(smem_u32(sm.k[stage] + j * kBlockBytes), &tk, bar,
+                          j * 64, kvh, t * kBN, b);
+              tma_load_4d(smem_u32(sm.v[stage] + j * kBlockBytes), &tv, bar,
+                          j * 64, kvh, t * kBN, b);
+            }
+          }
+        }
+        if (++stage == kStages) stage = 0, phase ^= 1;
+      }
+      // the consumers say whether a row saw no allowed key (then pass 1
+      // runs over every tile)
+      asm volatile("bar.sync 1, 288;\n" ::: "memory");
+      if (!sm.redo) break;
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup, 16 per warp ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int qr0 = q0 + cw * 64 + warp * 16 + g, qr1 = qr0 + 8;
+    const int qp0 = qr0 < a.Sq ? a.q_pos[(long long)b * a.Sq + qr0] : 0;
+    const int qp1 = qr1 < a.Sq ? a.q_pos[(long long)b * a.Sq + qr1] : 0;
+    const float scale2 = a.scale * 1.4426950408889634f;  // log2 domain
+    const uint32_t q_base = smem_u32(sm.q) + cw * 64 * 128;
+
+    float o[D / 2];
+    float s[kBN / 2];
+    float m0, m1, l0, l1;
+    int stage = 0, phase = 0;
+    mbar_wait(smem_u32(&sm.q_full), 0);
+    for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      m0 = m1 = kNeg;
+      l0 = l1 = 0.f;
+      for (;;) {
+        mbar_wait(smem_u32(&sm.full[stage]), phase);
+        const TileMeta& meta = sm.meta[stage];
+        const int tile = meta.tile, state = meta.state;
+        if (tile >= 0) {
+          // S = Q K^T over D in steps of 16
+          const uint32_t k_base = smem_u32(sm.k[stage]);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            uint32_t off = (kk / 4) * kBlockBytes + (kk % 4) * 32;
+            wgmma_ss_n128(s, sw128_desc(q_base + off, 16, 1024),
+                          sw128_desc(k_base + off, 16, 1024), kk > 0);
+          }
+          wgmma_commit_wait();
+          reg_fence<kBN / 2>(s);
+
+          // scores in the log2 domain, masks, the rows' new running max;
+          // s[4j + {0,1}] is row g, keys 8j + 2 t4 + {0,1}; s[4j + {2,3}]
+          // row g + 8
+          float mx0 = m0, mx1 = m1;
+#pragma unroll
+          for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float x0 = s[4 * j + e] * scale2, x1 = s[4 * j + 2 + e] * scale2;
+              if (state != kFull) {
+                int c = 8 * j + 2 * t4 + e;
+                int kst = meta.kval[c], kp = meta.kpos[c];
+                x0 = kst == 2 ? -INFINITY
+                              : (allowed(a, qp0, kp, kst) ? x0 : kNeg);
+                x1 = kst == 2 ? -INFINITY
+                              : (allowed(a, qp1, kp, kst) ? x1 : kNeg);
+              }
+              s[4 * j + e] = x0;
+              s[4 * j + 2 + e] = x1;
+              mx0 = fmaxf(mx0, x0);
+              mx1 = fmaxf(mx1, x1);
+            }
+          }
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+          const float al0 = fast_exp2(m0 - mx0), al1 = fast_exp2(m1 - mx1);
+          m0 = mx0;
+          m1 = mx1;
+
+          // P in f32 for the sums, rounded to bf16 as the A operand of P V
+          float rs0 = 0.f, rs1 = 0.f;
+          uint32_t pf[kBN / 16][4];
+#pragma unroll
+          for (int j = 0; j < kBN / 8; ++j) {
+            float p00 = fast_exp2(s[4 * j] - m0), p01 = fast_exp2(s[4 * j + 1] - m0);
+            float p10 = fast_exp2(s[4 * j + 2] - m1),
+                  p11 = fast_exp2(s[4 * j + 3] - m1);
+            rs0 += p00 + p01;
+            rs1 += p10 + p11;
+            pf[j >> 1][(j & 1) * 2] = pack_bf16(p00, p01);
+            pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p10, p11);
+          }
+          rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
+          rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
+          rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
+          rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
+          l0 = l0 * al0 + rs0;
+          l1 = l1 * al1 + rs1;
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            o[4 * j] *= al0;
+            o[4 * j + 1] *= al0;
+            o[4 * j + 2] *= al1;
+            o[4 * j + 3] *= al1;
+          }
+
+          // O += P V: V [keys][d] is the MN-major B operand, 16 keys a step
+          const uint32_t v_base = smem_u32(sm.v[stage]);
+          reg_fence<D / 2>(o);
+          wgmma_fence();
+#pragma unroll
+          for (int kc = 0; kc < kBN / 16; ++kc)
+            wgmma_pv<D>(o, pf[kc],
+                        sw128_desc(v_base + kc * 16 * 128, kBlockBytes, 1024));
+          wgmma_commit_wait();
+          reg_fence<D / 2>(o);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(smem_u32(&sm.empty[stage]));
+        if (++stage == kStages) stage = 0, phase ^= 1;
+        if (tile < 0) break;
+      }
+      if ((qr0 < a.Sq && m0 == kNeg) || (qr1 < a.Sq && m1 == kNeg))
+        sm.redo = 1;
+      asm volatile("bar.sync 1, 288;\n" ::: "memory");
+      if (!sm.redo) break;
+    }
+
+    const float L0 = fmaxf(l0, 1e-30f), L1 = fmaxf(l1, 1e-30f);
+    __nv_bfloat16* ob = a.o + b * a.o_b + h * a.o_h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      int col = 8 * j + 2 * t4;
+      if (qr0 < a.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (long long)qr0 * a.o_s + col) =
+            __floats2bfloat162_rn(o[4 * j] / L0, o[4 * j + 1] / L0);
+      if (qr1 < a.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (long long)qr1 * a.o_s + col) =
+            __floats2bfloat162_rn(o[4 * j + 2] / L1, o[4 * j + 3] / L1);
+    }
   }
 }
 
@@ -560,6 +776,77 @@ cudaError_t decode_for_rep(const Args& a, cudaStream_t stream) {
   return launch_decode<D, kMaxGroup>(a, stream);
 }
 
+// cuTensorMapEncodeTiled from the driver, found through the runtime so
+// that the library links no libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Tensor map over a [B, S, heads, D] bf16 tensor with element strides
+// (sb, ss, sh) and a dense head dimension: boxes of 64 d x 1 head x 128
+// rows x 1 batch, stored with the 128-byte swizzle; rows at and past S
+// read as zeros, so no garbage (NaN) meets a zero weight.
+bool make_map(CUtensorMap* map, EncodeTiled encode, const void* base, int B,
+              int S, int heads, int D, long long sb, long long ss,
+              long long sh) {
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
+                        (cuuint64_t)B};
+  cuuint64_t bytes[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                         (cuuint64_t)sb * 2};
+  cuuint32_t box[4] = {64, 1, kBN, 1};
+  cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, bytes, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+size_t prefill_smem() {
+  return sizeof(Smem<D>) + 1024;  // + the slack that aligns it to 1024
+}
+
+template <int D>
+cudaError_t launch_prefill(const Args& a, cudaStream_t stream) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, encode, a.q, a.B, a.Sq, a.H, D, a.q_b, a.q_s, a.q_h) ||
+      !make_map(&tk, encode, a.k, a.B, a.Skv, a.KVH, D, a.k_b, a.k_s, a.k_h) ||
+      !make_map(&tv, encode, a.v, a.B, a.Skv, a.KVH, D, a.v_b, a.v_s, a.v_h))
+    return cudaErrorInvalidValue;
+  const size_t smem = prefill_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const int grid = (a.Sq + kBM - 1) / kBM * a.H * a.B;
+  prefill_kernel<D><<<grid, kPrefillThreads, smem, stream>>>(tq, tk, tv, a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -574,24 +861,17 @@ int flash_prefill(const void* q, const void* k, const void* v, void* o,
                   float scale, void* stream) {
   Args a = make_args(q, k, v, o, q_pos, kv_pos, kv_valid, strides, B, Sq, Skv,
                      H, KVH, causal, has_window, window, scale);
-  dim3 grid((Sq + kQTile - 1) / kQTile * H * B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    prefill_kernel<64><<<grid, kPrefillThreads, 0, s>>>(a);
-  else if (D == 128)
-    prefill_kernel<128><<<grid, kPrefillThreads, 0, s>>>(a);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (D == 64) return (int)launch_prefill<64>(a, s);
+  if (D == 128) return (int)launch_prefill<128>(a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// Shared memory, static and dynamic, of one prefill CTA at head_dim D.
+// Shared memory of one prefill CTA at head_dim D (dynamic; it has no
+// static shared memory).
 int flash_prefill_smem_bytes(int D) {
-  cudaFuncAttributes attr;
-  cudaError_t err = D == 64 ? cudaFuncGetAttributes(&attr, prefill_kernel<64>)
-                  : D == 128 ? cudaFuncGetAttributes(&attr, prefill_kernel<128>)
-                             : cudaErrorInvalidValue;
-  return err == cudaSuccess ? (int)attr.sharedSizeBytes : -1;
+  return D == 64 ? (int)prefill_smem<64>()
+                 : D == 128 ? (int)prefill_smem<128>() : -1;
 }
 
 // K8, decode variant: as flash_prefill with Sq == 1.

@@ -8,7 +8,12 @@ tensor it launches the hand-written kernel of `csrc/flashattn.cu` on the
 current stream (the decode variant when Sq == 1, else the prefill
 variant), reading q, k and v through their strides, and raises on what
 the kernel does not take (any dtype but bf16, a head_dim other than 64
-or 128): it never runs the plain version there. On a CPU tensor it runs
+or 128): it never runs the plain version there. The prefill variant
+loads q, k and v by TMA through tensor maps over those strides (hence
+the 16-byte alignment and strides in multiples of 8 elements the checks
+ask for), runs `wgmma` on 128-row q-tiles, and skips the 128-key tiles
+that no row of a q-tile may see; a row that sees no key at all makes
+its q-tile run again over every key. On a CPU tensor it runs
 `flash_plain`, the same online-softmax algorithm in torch over 128-row
 Q and KV blocks — the port's counterpart of running the reference's
 Pallas kernel in interpret mode. Any other device raises.

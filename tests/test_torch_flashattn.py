@@ -128,6 +128,41 @@ def test_flash_plain_vs_port_sdpa_ref(dtype, causal, window):
                                rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 100])
+def test_masked_kv_blocks_leave_the_online_softmax_unchanged(dtype, window):
+    """The rule the prefill kernel's tile skipping rests on, pinned on the
+    reference's numerics (`flash_plain`, 128-key blocks). With causal
+    positions, q-block i of 128 rows sees no key of kv-blocks past i, and
+    with a window of 100 none of kv-blocks before i - 1; its output over
+    only the blocks it may see is bit-identical to its output over all
+    keys (a masked block adds p = exp(NEG - m) = 0 after a row's first
+    allowed key and is wiped by alpha = exp(NEG - m_new) = 0 before it).
+    A row with no allowed key is the exception: over all keys it
+    averages V over every key, so cutting the keys changes it."""
+    i, n = 2, 128
+    q, k, v, _, kv_pos, kv_valid = _both(
+        _inputs(2, 4 * n, 4 * n, 4, 2, 32, seed=13), dtype)[1]
+    kv_valid = torch.ones_like(kv_valid)
+    q_pos = kv_pos.clone()                     # query j at position j
+    q_pos[:, i * n] = -1                       # this row sees no key
+    rows = slice(i * n, (i + 1) * n)
+    lo = 0 if window is None else (i - 1) * n
+    keys = slice(lo, (i + 1) * n)
+
+    def run(ks):
+        return fa.flash_plain(q[:, rows], k[:, ks], v[:, ks], q_pos[:, rows],
+                              kv_pos[:, ks], kv_valid[:, ks], causal=True,
+                              window=window)
+    full, cut = run(slice(None)), run(keys)
+    assert torch.equal(full[:, 1:], cut[:, 1:])
+    assert not torch.equal(full[:, 0], cut[:, 0])
+    mean_v = v.float().mean(dim=1).repeat_interleave(2, 1)
+    tol = TOL[dtype]
+    torch.testing.assert_close(full[:, 0].float(), mean_v.to(dtype=getattr(
+        torch, dtype)).float(), atol=tol, rtol=tol)
+
+
 def test_port_sdpa_ref_matches_reference_sdpa_ref():
     jx, tx = _both(_inputs(2, 64, 96, 4, 4, 32, seed=2), "float32")
     for causal, window in ((True, None), (False, 9)):
