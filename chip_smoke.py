@@ -800,12 +800,11 @@ def kernel_api_phase(torch, np, kb, sj, fa, bloom, dev, api) -> dict:
 
 
 def ptxas_usage(log: str, kernel: str) -> dict:
-    """Registers, spill bytes and static shared memory of the entry
-    function whose mangled name holds `kernel`, from nvcc's `-Xptxas -v`
-    log (None each when the log does not name it)."""
+    """Registers and spill bytes of the entry function whose mangled name
+    holds `kernel`, from nvcc's `-Xptxas -v` log (None each when the log
+    does not name it)."""
     import re
-    out = dict.fromkeys(("registers", "spill_stores", "spill_loads",
-                         "static_smem_bytes"))
+    out = dict.fromkeys(("registers", "spill_stores", "spill_loads"))
     inside = False
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -818,9 +817,6 @@ def ptxas_usage(log: str, kernel: str) -> dict:
         elif inside and "Used" in ln:
             m = re.search(r"Used (\d+) registers", ln)
             out["registers"] = int(m.group(1)) if m else None
-        if inside and "bytes smem" in ln:
-            out["static_smem_bytes"] = int(
-                re.search(r"(\d+) bytes smem", ln).group(1))
     return out
 
 
@@ -828,8 +824,9 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
     """K8 against `flash_plain` and `sdpa_ref` on the card, one line per
     shape; returns the records of qwen1.5-4b's prefill and decode shapes
     (the serve path's) and each variant's largest error. A prefill line
-    adds the kernel's device TFLOP/s (unmasked flops over `device_ms`)
-    and its registers, spills and shared memory from `ptxas_log`."""
+    adds the kernel's device TFLOP/s (unmasked flops over `device_ms`),
+    its registers and spills from `ptxas_log` and the shared memory one
+    of its CTAs takes."""
     import torch.nn.functional as F
     from repro_torch.kernels.flashattn.ref import attend_mask, sdpa_ref
     from repro_torch.models.layers import _ring_positions
