@@ -80,7 +80,7 @@
 //     in flight; each key group keeps its own running max, sum and output,
 //     merged across the warp by shuffles and across warps in shared memory.
 
-#include <cuda.h>  // CUtensorMap and its enums; no driver library is linked
+#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -776,8 +776,8 @@ cudaError_t decode_for_rep(const Args& a, cudaStream_t stream) {
   return launch_decode<D, kMaxGroup>(a, stream);
 }
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime so
-// that the library links no libcuda
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime so that the
+// library links no libcuda
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
