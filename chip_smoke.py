@@ -82,19 +82,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              one line per shape: qwen1.5-4b's prefill (B 4, Sq 2048, Skv
              2088, 20 heads, d 128, causal, the ring-cache positions of a
              fresh prefill), the same shape on a ring that has wrapped
-             (kv_pos not monotone), decode (Sq 1 at position 2080),
-             minitron-4b's 24/8 GQA heads, d 64 with a window of 64 and
-             ragged validity (rows that see no key included), and a
-             non-causal shape. Each line's bound is the larger of 4*D
-             flops per unmasked (q, k) pair over 989 TFLOP/s and the bytes
-             of q, k, v, o and the positions over 3.35 TB/s; its library
+             (kv_pos not monotone), minitron-4b's 24/8 GQA heads, d 64
+             with a window of 64 and ragged validity (rows that see no key
+             included), a non-causal shape; and decode (Sq 1): qwen1.5-4b
+             at position 2080 (the serve path's shape), the same on a
+             wrapped ring, at B 1 over 32,768 slots (Qwen1.5-4B's context
+             length: 256 splits of the cache), minitron-4b's 24/8 GQA at
+             B 2, and d 64 with a window of 64 (15 of 17 chunks skipped).
+             Each line's bound is the larger of 4*D flops per unmasked
+             (q, k) pair over 989 TFLOP/s and the bytes these inputs need
+             over 3.35 TB/s: q, o and the positions once, K at the kv
+             slots some query row may see, V there too, or at every slot
+             when some row sees none (it averages all of V); its library
              time is `torch.nn.functional.scaled_dot_product_attention`
              with the same boolean mask (and `enable_gqa`); beside the
              CUDA-event times, each call's device time alone from
              torch.profiler (at Sq 1 the host's dispatch can outlast the
-             kernels); a prefill line adds the kernel's device TFLOP/s
-             (unmasked flops over its device time), its registers and
-             spills from nvcc's ptxas log and its shared memory a CTA;
+             kernels); each line adds its registers and spills from
+             nvcc's ptxas log; a prefill line adds the kernel's device
+             TFLOP/s (unmasked flops over its device time) and its shared
+             memory a CTA, a decode line its device GB/s (the bytes
+             above over its device time);
 8. serve   — path `serve`: `repro_torch.launch.serve.serve` runs
              qwen1.5-4b at its full config (40 layers, d_model 2560,
              random weights from seed 0) with batch 4, a 2048-token
@@ -823,10 +831,10 @@ def ptxas_usage(log: str, kernel: str) -> dict:
 def attention_phase(torch, fa, dev, ptxas_log: str):
     """K8 against `flash_plain` and `sdpa_ref` on the card, one line per
     shape; returns the records of qwen1.5-4b's prefill and decode shapes
-    (the serve path's) and each variant's largest error. A prefill line
-    adds the kernel's device TFLOP/s (unmasked flops over `device_ms`),
-    its registers and spills from `ptxas_log` and the shared memory one
-    of its CTAs takes."""
+    (the serve path's) and each variant's largest error. Every line adds
+    the kernel's registers and spills from `ptxas_log`; a prefill line
+    its device TFLOP/s (unmasked flops over `device_ms`) and the shared
+    memory one of its CTAs takes, a decode line its device GB/s."""
     import torch.nn.functional as F
     from repro_torch.kernels.flashattn.ref import attend_mask, sdpa_ref
     from repro_torch.models.layers import _ring_positions
@@ -856,6 +864,16 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
         ("non-causal", 4, 1024, 1024, 16, 16, 128, False, None,
          rows(4, 1024), (rows(4, 1024),
                          torch.ones(4, 1024, dtype=torch.bool, device=dev))),
+        # decode after 3087 tokens: the ring has wrapped at slot 999
+        ("qwen1.5-4b decode, ring wrapped", 4, 1, 2088, 20, 20, 128, True,
+         None, rows(4, 1, 3087), ring(3088, 2088, 4)),
+        # hf:Qwen/Qwen1.5-4B's max_position_embeddings, one sequence
+        ("qwen1.5-4b decode, B 1, Skv 32768", 1, 1, 32768, 20, 20, 128,
+         True, None, rows(1, 1, 32767), ring(32768, 32768, 1)),
+        ("minitron-4b GQA 24/8 decode", 2, 1, 2088, 24, 8, 128, True, None,
+         rows(2, 1, 2080), ring(2081, 2088, 2)),
+        ("d64 window 64 decode", 4, 1, 2088, 16, 16, 64, True, 64,
+         rows(4, 1, 2087), ring(2088, 2088, 4)),
     )
     worst = dict.fromkeys(FLASH, 0.0)
     rep = {}
@@ -884,11 +902,16 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
         variant = "flash_decode" if sq == 1 else "flash_prefill"
         worst[variant] = max(worst[variant], errs["flash_plain"])
         # the work these inputs need: 4*d flops per unmasked (q, k) pair;
-        # q, k, v (at KVH heads), o and the positions each moved once
+        # q, o and the positions moved once, K (at KVH heads) at the slots
+        # some row may see, V there too or, when some row sees no key (it
+        # averages V over every slot), at every slot
         allowed = attend_mask(qp, kp, kval, **kw)
         pairs = int(allowed.sum()) * h
         flops = 4 * d * pairs
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) \
+        seen = allowed.any(dim=1)
+        v_rows = seen | (~allowed.any(dim=2)).any(dim=1)[:, None]
+        nbytes = 2 * 2 * q.numel() + 2 * kvh * d * int(
+            seen.sum() + v_rows.sum()) \
             + 4 * qp.numel() + 4 * kp.numel() + kval.numel()
         t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -924,6 +947,11 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
             rec["device_tflops"] = flops / (rec["device_ms"] * 1e-3) / 1e12
             rec["ptxas"] = ptxas_usage(ptxas_log, f"prefill_kernelILi{d}E")
             rec["smem_bytes"] = fa.prefill_smem_bytes(d)
+        else:
+            rec["device_gb_s"] = nbytes / (rec["device_ms"] * 1e-3) / 1e9
+            group = min(g for g in (1, 2, 4, 8, fa.MAX_GROUP) if g >= rep_kv)
+            rec["ptxas"] = ptxas_usage(
+                ptxas_log, f"decode_kernelILi{d}ELi{group}E")
         emit(rec)
         if name in ("qwen1.5-4b prefill", "qwen1.5-4b decode"):
             rep[variant] = rec

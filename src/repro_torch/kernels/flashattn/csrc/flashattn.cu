@@ -94,6 +94,8 @@ constexpr int kDecodeWarps = 8;
 constexpr int kDecodeUnroll = 4;  // keys in flight per key group
 constexpr int kMaxGroup = 16;     // most H / KVH the decode variant takes
                                   // (MAX_GROUP in ops.py)
+constexpr int kChunk = 128;       // cache slots per decode CTA
+                                  // (DECODE_CHUNK in ops.py)
 
 struct Args {
   const __nv_bfloat16* q;
@@ -608,9 +610,82 @@ __device__ __forceinline__ void merge(float& m, float& l, float* acc,
   m = mn;
 }
 
+// One chunk's partial softmax state for the group's `rep` query heads, in
+// the scratch at [B * KVH][splits][rep * (D + 2)] f32: m[rep], l[rep],
+// o[rep][D] (o unnormalised). A chunk with no allowed key writes only
+// m = -inf (kNeg is finite, so a live chunk's m is always above it).
+template <int D>
+__device__ __forceinline__ float* decode_record(const Args& a, float* part,
+                                                int rep, int split, int kvh,
+                                                int b) {
+  const long long g = (long long)b * a.KVH + kvh;
+  return part + (g * gridDim.x + split) * rep * (D + 2);
+}
+
+// Run by every thread of a decode CTA once its record is written: the CTA
+// takes a ticket on its group's counter, and the last of the group's
+// `splits` CTAs merges their records (the NEG rule of `merge`; skipped
+// chunks left out) and writes o. With no live chunk the row has no
+// allowed key, and p = exp(NEG - NEG) = 1 for every key makes it the mean
+// of V over the Skv keys. The last CTA sets the counter back to 0 for the
+// next call on the stream.
+template <int D>
+__device__ void decode_finish(const Args& a, float* part, int* tickets,
+                              int rep, int kvh, int b) {
+  __shared__ int ticket;
+  __shared__ float big[kMaxGroup];
+  const int splits = gridDim.x;
+  const int g = b * a.KVH + kvh;
+  __threadfence();  // this thread's record, visible before the ticket
+  __syncthreads();
+  if (threadIdx.x == 0) ticket = atomicAdd(tickets + g, 1);
+  __syncthreads();
+  if (ticket != splits - 1) return;
+  __threadfence();
+  if (threadIdx.x == 0) tickets[g] = 0;
+  const int rec = rep * (D + 2);
+  const float* pg = decode_record<D>(a, part, rep, 0, kvh, b);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int r = warp; r < rep; r += nwarps) {
+    float mx = -INFINITY;
+    for (int sp = lane; sp < splits; sp += 32)
+      mx = fmaxf(mx, __ldcg(pg + (long long)sp * rec + r));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (lane == 0) big[r] = mx;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rep * D; i += blockDim.x) {
+    const int r = i / D, d = i % D;
+    const float M = big[r];
+    float out;
+    if (M == -INFINITY) {
+      const __nv_bfloat16* vb = a.v + b * a.v_b + kvh * a.v_h + d;
+      float sum = 0.f;
+      for (int j = 0; j < a.Skv; ++j)
+        sum += __bfloat162float(vb[(long long)j * a.v_s]);
+      out = sum / fmaxf((float)a.Skv, 1.f);
+    } else {
+      float L = 0.f, O = 0.f;
+      for (int sp = 0; sp < splits; ++sp) {
+        const float* ps = pg + (long long)sp * rec;
+        const float m = __ldcg(ps + r);
+        if (m == -INFINITY) continue;  // a skipped chunk
+        const float w = expf(m - M);
+        L += __ldcg(ps + rep + r) * w;
+        O += __ldcg(ps + 2 * rep + i) * w;
+      }
+      out = O / fmaxf(L, 1e-30f);
+    }
+    a.o[b * a.o_b + (kvh * rep + r) * a.o_h + d] = __float2bfloat16_rn(out);
+  }
+}
+
 template <int D, int R>
 __global__ void __launch_bounds__(kDecodeWarps * 32)
-    decode_kernel(const Args a) {
+    decode_kernel(const Args a, float* part, int* tickets) {
   constexpr int LPK = D / 8;     // lanes per key, 8 elements (16 bytes) each
   constexpr int GPW = 32 / LPK;  // key groups per warp
   constexpr int NG = kDecodeWarps * GPW;
@@ -622,19 +697,30 @@ __global__ void __launch_bounds__(kDecodeWarps * 32)
   float* l_s = m_s + kDecodeWarps * rep;    // [warps][rep]
   float* acc_s = l_s + kDecodeWarps * rep;  // [warps][rep][D]
 
-  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int j0 = split * kChunk, j1 = min(a.Skv, j0 + kChunk);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int sub = lane % LPK, grp = warp * GPW + lane / LPK;
   const int h0 = kvh * rep;
+  const int qp = a.q_pos[b];  // Sq == 1
+  const int32_t* kpos = a.kv_pos + (long long)b * a.Skv;
+  const uint8_t* kval = a.kv_valid + (long long)b * a.Skv;
+  float* rec = decode_record<D>(a, part, rep, split, kvh, b);
+
+  bool mine = false;
+  for (int j = j0 + threadIdx.x; j < j1; j += kDecodeWarps * 32)
+    mine |= allowed(a, qp, kpos[j], kval[j]);
+  if (!__syncthreads_or(mine)) {  // no allowed key: skip the chunk
+    if (threadIdx.x < rep) rec[threadIdx.x] = -INFINITY;
+    decode_finish<D>(a, part, tickets, rep, kvh, b);
+    return;
+  }
   for (int i = threadIdx.x; i < rep * D; i += kDecodeWarps * 32)
     q_s[i] = __bfloat162float(a.q[b * a.q_b + (h0 + i / D) * a.q_h + i % D]);
   __syncthreads();
 
-  const int qp = a.q_pos[b];  // Sq == 1
   const __nv_bfloat16* kb = a.k + b * a.k_b + kvh * a.k_h + sub * 8;
   const __nv_bfloat16* vb = a.v + b * a.v_b + kvh * a.v_h + sub * 8;
-  const int32_t* kpos = a.kv_pos + (long long)b * a.Skv;
-  const uint8_t* kval = a.kv_valid + (long long)b * a.Skv;
 
   float m[R], l[R], acc[R][8];
 #pragma unroll
@@ -645,15 +731,15 @@ __global__ void __launch_bounds__(kDecodeWarps * 32)
     for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
   }
 
-  for (int base = 0; base < a.Skv; base += NG * U) {
+  for (int base = j0; base < j1; base += NG * U) {
     uint4 kr[U], vr[U];
-    int st[U];  // 0 masked key, 1 valid, 2 past Skv
+    int st[U];  // 0 masked key, 1 valid, 2 past the chunk
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       int j = base + u * NG + grp;
       kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
       st[u] = 2;
-      if (j < a.Skv) {
+      if (j < j1) {
         kr[u] = *reinterpret_cast<const uint4*>(kb + (long long)j * a.k_s);
         vr[u] = *reinterpret_cast<const uint4*>(vb + (long long)j * a.v_s);
         st[u] = allowed(a, qp, kpos[j], kval[j]) ? 1 : 0;
@@ -725,8 +811,13 @@ __global__ void __launch_bounds__(kDecodeWarps * 32)
       L += l_s[w * rep + r] * e;
       O += acc_s[(w * rep + r) * D + d] * e;
     }
-    a.o[b * a.o_b + (h0 + r) * a.o_h + d] = __float2bfloat16_rn(O / fmaxf(L, 1e-30f));
+    rec[2 * rep + i] = O;
+    if (d == 0) {
+      rec[r] = mx;
+      rec[rep + r] = L;
+    }
   }
+  decode_finish<D>(a, part, tickets, rep, kvh, b);
 }
 
 Args make_args(const void* q, const void* k, const void* v, void* o,
@@ -752,7 +843,8 @@ Args make_args(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int D, int R>
-cudaError_t launch_decode(const Args& a, cudaStream_t stream) {
+cudaError_t launch_decode(const Args& a, float* part, int* tickets,
+                          cudaStream_t stream) {
   int rep = a.H / a.KVH;
   size_t smem = sizeof(float) * ((size_t)rep * D + 2 * kDecodeWarps * rep +
                                  (size_t)kDecodeWarps * rep * D);
@@ -762,18 +854,21 @@ cudaError_t launch_decode(const Args& a, cudaStream_t stream) {
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  decode_kernel<D, R><<<dim3(a.KVH, a.B), kDecodeWarps * 32, smem, stream>>>(a);
+  const int splits = a.Skv > 0 ? (a.Skv + kChunk - 1) / kChunk : 1;
+  decode_kernel<D, R><<<dim3(splits, a.KVH, a.B), kDecodeWarps * 32, smem,
+                        stream>>>(a, part, tickets);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t decode_for_rep(const Args& a, cudaStream_t stream) {
+cudaError_t decode_for_rep(const Args& a, float* part, int* tickets,
+                           cudaStream_t stream) {
   int rep = a.H / a.KVH;
-  if (rep <= 1) return launch_decode<D, 1>(a, stream);
-  if (rep <= 2) return launch_decode<D, 2>(a, stream);
-  if (rep <= 4) return launch_decode<D, 4>(a, stream);
-  if (rep <= 8) return launch_decode<D, 8>(a, stream);
-  return launch_decode<D, kMaxGroup>(a, stream);
+  if (rep <= 1) return launch_decode<D, 1>(a, part, tickets, stream);
+  if (rep <= 2) return launch_decode<D, 2>(a, part, tickets, stream);
+  if (rep <= 4) return launch_decode<D, 4>(a, part, tickets, stream);
+  if (rep <= 8) return launch_decode<D, 8>(a, part, tickets, stream);
+  return launch_decode<D, kMaxGroup>(a, part, tickets, stream);
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime so that the
@@ -874,19 +969,25 @@ int flash_prefill_smem_bytes(int D) {
                  : D == 128 ? (int)prefill_smem<128>() : -1;
 }
 
-// K8, decode variant: as flash_prefill with Sq == 1.
+// K8, decode variant: as flash_prefill with Sq == 1. `part` is f32
+// scratch of B * H * splits * (D + 2) floats (splits = ceil(Skv / kChunk),
+// at least 1); `tickets` holds B * KVH int32 counters, zero before the
+// call and zero again after it. Calls that share `tickets` must run in
+// order (one stream).
 int flash_decode(const void* q, const void* k, const void* v, void* o,
                  const void* q_pos, const void* kv_pos, const void* kv_valid,
                  const long long* strides, int B, int Skv, int H, int KVH,
                  int D, int causal, int has_window, int window, float scale,
-                 void* stream) {
+                 void* part, void* tickets, void* stream) {
   Args a = make_args(q, k, v, o, q_pos, kv_pos, kv_valid, strides, B, 1, Skv,
                      H, KVH, causal, has_window, window, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H % KVH != 0 || H / KVH > kMaxGroup)
     return (int)cudaErrorInvalidValue;
-  if (D == 64) return (int)decode_for_rep<64>(a, s);
-  if (D == 128) return (int)decode_for_rep<128>(a, s);
+  float* p = static_cast<float*>(part);
+  int* t = static_cast<int*>(tickets);
+  if (D == 64) return (int)decode_for_rep<64>(a, p, t, s);
+  if (D == 128) return (int)decode_for_rep<128>(a, p, t, s);
   return (int)cudaErrorInvalidValue;
 }
 

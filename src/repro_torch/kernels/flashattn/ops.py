@@ -1,5 +1,6 @@
 """Flash attention (K8): the public `flash_attention`, its launch wrapper
-and its plain torch version `flash_plain`.
+and its plain torch versions `flash_plain` (prefill) and
+`flash_decode_plain` (decode, Sq == 1).
 
 `flash_attention` takes the reference's layout: q [B, Sq, H, D], k/v
 [B, Skv, KVH, D] with KVH dividing H (GQA), q_pos [B, Sq] and kv_pos /
@@ -8,17 +9,26 @@ tensor it launches the hand-written kernel of `csrc/flashattn.cu` on the
 current stream (the decode variant when Sq == 1, else the prefill
 variant), reading q, k and v through their strides, and raises on what
 the kernel does not take (any dtype but bf16, a head_dim other than 64
-or 128): it never runs the plain version there. The prefill variant
+or 128): it never runs a plain version there. The prefill variant
 loads q, k and v by TMA through tensor maps over those strides (hence
 the 16-byte alignment and strides in multiples of 8 elements the checks
 ask for), runs `wgmma` on 128-row q-tiles, and skips the 128-key tiles
 that no row of a q-tile may see; a row that sees no key at all makes
-its q-tile run again over every key. On a CPU tensor it runs
+its q-tile run again over every key. The decode variant splits the
+cache into chunks of `DECODE_CHUNK` slots, one CTA per (chunk, kv head,
+batch); each writes its partial softmax state to f32 scratch taken here
+with `torch.empty`, and the last CTA of a (kv head, batch), found by a
+ticket on an int32 counter, merges them in the same launch. The
+counters live in a zeroed buffer kept per (device, stream), so calls on
+different streams never share one; the kernel sets each counter it used
+back to 0. On a CPU tensor it runs the plain version of the variant:
 `flash_plain`, the same online-softmax algorithm in torch over 128-row
-Q and KV blocks — the port's counterpart of running the reference's
-Pallas kernel in interpret mode. Any other device raises.
+Q and KV blocks, or, at Sq == 1, `flash_decode_plain`, the decode
+kernel's split and merge in torch — the port's counterpart of running
+the reference's Pallas kernel in interpret mode. Any other device
+raises.
 
-Numerics (both versions, as the TPU kernel): scores are the f32 dot
+Numerics (all versions, as the TPU kernel): scores are the f32 dot
 times 1/sqrt(D); masked entries are -1e30 and the running max starts at
 -1e30; p is rounded to v's dtype before the P.V product; o and l
 accumulate in f32; the finish is o / max(l, 1e-30), cast to q's dtype.
@@ -32,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -45,10 +55,16 @@ HEAD_DIMS = (64, 128)
 #: the most query heads per kv head the decode variant serves
 #: (`kMaxGroup` in csrc/flashattn.cu)
 MAX_GROUP = 16
+#: cache slots per CTA of the decode variant (`kChunk` in csrc/flashattn.cu)
+DECODE_CHUNK = 128
 
 LAUNCHES = {"flash_prefill": 0, "flash_decode": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
+#: the decode variant's ticket counters, one int32 per (batch, kv head),
+#: zeroed, per (device index, stream handle); grown by a fresh
+#: `torch.zeros` only when a call has more groups
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -60,7 +76,8 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_float, ctypes.c_void_p]
         lib.flash_prefill.restype = ctypes.c_int
         lib.flash_decode.argtypes = common + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
         lib.flash_decode.restype = ctypes.c_int
         lib.flash_prefill_smem_bytes.argtypes = [ctypes.c_int]
         lib.flash_prefill_smem_bytes.restype = ctypes.c_int
@@ -132,6 +149,66 @@ def flash_plain(q, k, v, q_pos, kv_pos, kv_valid, *, causal: bool = True,
     return out
 
 
+def decode_splits(skv: int) -> int:
+    """Chunks of `DECODE_CHUNK` slots the decode variant splits a cache of
+    `skv` slots into (one CTA each, at least one)."""
+    return max(1, -(-skv // DECODE_CHUNK))
+
+
+def flash_decode_plain(q, k, v, q_pos, kv_pos, kv_valid, *,
+                       causal: bool = True,
+                       window: Optional[int] = None) -> torch.Tensor:
+    """Plain torch K8 decode (Sq == 1): the kernel's split over the cache
+    and its merge. Each chunk of `DECODE_CHUNK` slots (the last one
+    ragged) takes its scores' max once, p = exp(s - m) and l = sum(p),
+    and o = p.V with p rounded to v's dtype; a chunk with no allowed key
+    is skipped (its m is -inf). The merge weighs each live chunk by
+    exp(m_c - M), M the largest m_c; with no live chunk the row averages
+    v over the Skv keys."""
+    _check_shapes(q, k, v, q_pos, kv_pos, kv_valid)
+    b, sq, h, d = q.shape
+    if sq != 1:
+        raise ValueError(f"flash_decode_plain takes Sq == 1, got {sq}")
+    skv, kvh = k.shape[1], k.shape[2]
+    rep, n = h // kvh, decode_splits(skv)
+    pad = n * DECODE_CHUNK - skv
+    qg = q[:, 0].float().view(b, kvh, rep, d)
+    s = torch.einsum("bgrd,bkgd->bgrk", qg, k.float()) / math.sqrt(d)
+    allowed = attend_mask(q_pos, kv_pos, kv_valid, causal=causal,
+                          window=window)[:, 0]             # [B, Skv]
+    s = torch.where(allowed[:, None, None], s, NEG)
+    # slots past Skv take no part: p = exp(-inf) = 0
+    s = torch.nn.functional.pad(s, (0, pad), value=-math.inf)
+    s = s.view(b, kvh, rep, n, DECODE_CHUNK)
+    vc = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    vc = vc.view(b, n, DECODE_CHUNK, kvh, d)
+    live = torch.nn.functional.pad(allowed, (0, pad)).view(
+        b, n, DECODE_CHUNK).any(dim=-1)[:, None, None]     # [B,1,1,n]
+    m = s.amax(dim=-1)                                     # [B,KVH,rep,n]
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bgrnc,bncgd->bgrnd", p.to(v.dtype).float(), vc)
+    m = torch.where(live, m, -math.inf)                    # skipped chunks
+    big = m.amax(dim=-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - big.clamp(min=NEG)), 0.0)
+    out = (o * w[..., None]).sum(dim=3) / torch.clamp(
+        (l * w).sum(dim=-1), min=1e-30)[..., None]         # [B,KVH,rep,D]
+    mean_v = v.float().sum(dim=1) / max(skv, 1)            # [B,KVH,D]
+    out = torch.where(live.any(dim=-1, keepdim=True),
+                      out, mean_v[:, :, None])
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def _decode_tickets(dev: torch.device, stream: int,
+                    groups: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < groups:
+        t = torch.zeros(groups, dtype=torch.int32, device=dev)
+        _TICKETS[key] = t
+    return t
+
+
 def _kernel_checks(q, k, v, dev) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != dev:
@@ -157,8 +234,9 @@ def flash_attention(q, k, v, q_pos, kv_pos, kv_valid, *,
     _check_shapes(q, k, v, q_pos, kv_pos, kv_valid)
     dev = q.device
     if dev.type == "cpu":
-        return flash_plain(q, k, v, q_pos, kv_pos, kv_valid, causal=causal,
-                           window=window)
+        plain = flash_decode_plain if q.shape[1] == 1 else flash_plain
+        return plain(q, k, v, q_pos, kv_pos, kv_valid, causal=causal,
+                     window=window)
     if dev.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {dev}")
     _kernel_checks(q, k, v, dev)
@@ -188,7 +266,12 @@ def flash_attention(q, k, v, q_pos, kv_pos, kv_valid, *,
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _lib()
     if sq == 1:
+        splits = decode_splits(skv)
+        scratch = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                              device=dev)
+        tickets = _decode_tickets(dev, stream, b * kvh)
         err = lib.flash_decode(*ptrs, b, skv, h, kvh, d, *flags, scale,
+                               scratch.data_ptr(), tickets.data_ptr(),
                                stream)
         check(err, "flash_decode")
         LAUNCHES["flash_decode"] += 1

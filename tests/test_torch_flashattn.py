@@ -1,7 +1,9 @@
 """K8 (flash attention) on the CPU: the port's `flash_attention` — its plain
-torch version `flash_plain` on CPU tensors — against the reference's
-`flash_attention` (the Pallas kernel in interpret mode) and its dense
-oracle `sdpa_ref`, over the sweeps of tests/test_kernels_flash.py.
+torch versions on CPU tensors, `flash_plain` and, at Sq == 1,
+`flash_decode_plain` — against the reference's `flash_attention` (the
+Pallas kernel in interpret mode) and its dense oracle `sdpa_ref`, over
+the sweeps of tests/test_kernels_flash.py and the decode kernel's
+chunk cases.
 
 Inputs are drawn with numpy from a seed and rounded to bf16 the same way
 (round to nearest even) on both sides. Tolerances are the reference's
@@ -163,6 +165,73 @@ def test_masked_kv_blocks_leave_the_online_softmax_unchanged(dtype, window):
         torch, dtype)).float(), atol=tol, rtol=tol)
 
 
+def _decode_inputs(b, skv, h, kvh, d, pos, seed):
+    """Decode inputs (Sq 1): `tail` the decode-style positions of
+    `_inputs` (the last 3 slots invalid), `ring` the model's ring cache
+    of `skv` slots after `skv + 188` tokens (kv_pos wraps), `dead` as
+    `tail` with batch row 0's query before every key."""
+    arrays = _inputs(b, 1, skv, h, kvh, d, seed=seed,
+                     dead_rows=int(pos == "dead"))
+    if pos != "ring":
+        return arrays
+    from repro_torch.models.layers import _ring_positions
+    index = skv + 188
+    kp, kval = _ring_positions(index, skv, b, "cpu")
+    qp = np.full((b, 1), index - 1, np.int32)
+    return arrays[:3] + (qp, kp.numpy(), kval.numpy())
+
+
+DECODE_CASES = [  # b, skv, h, kvh, d, window, pos
+    (2, 300, 4, 4, 64, None, "tail"),   # Skv not a chunk multiple, group 1
+    (2, 77, 6, 2, 32, None, "tail"),    # less than one chunk, group 3
+    (1, 400, 18, 2, 32, None, "tail"),  # group 9
+    (1, 260, 16, 1, 32, None, "tail"),  # group 16
+    (2, 700, 4, 2, 32, 64, "tail"),     # window: chunks 0-3 see no key
+    (2, 300, 4, 2, 32, None, "ring"),   # wrapped ring
+    (2, 300, 6, 2, 32, 100, "dead"),    # row 0 sees no key in any chunk
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,skv,h,kvh,d,window,pos", DECODE_CASES)
+def test_flash_decode_plain_vs_reference(dtype, b, skv, h, kvh, d, window,
+                                         pos):
+    """`flash_decode_plain` (what `flash_attention` runs at Sq == 1 on the
+    CPU) == the reference's Pallas kernel and its dense oracle. A row
+    that sees no key is held to `sdpa_ref` and to the mean of v over the
+    Skv keys only (the padded Pallas path averages over 128-padded
+    lengths, ROADMAP Queue 3)."""
+    jx, tx = _both(_decode_inputs(b, skv, h, kvh, d, pos, seed=skv), dtype)
+    got = fa.flash_attention(*tx, causal=True, window=window)
+    assert torch.equal(got, fa.flash_decode_plain(*tx, causal=True,
+                                                  window=window))
+    assert got.dtype == tx[0].dtype and got.shape == (b, 1, h, d)
+    rep = h // kvh
+    wants = [ref_sdpa(jx[0], _expanded(jx[1], rep), _expanded(jx[2], rep),
+                      *jx[3:], causal=True, window=window)]
+    if pos != "dead":
+        wants.append(ref_flash(*jx, causal=True, window=window))
+    tol = TOL[dtype]
+    for want in wants:
+        np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+    if pos == "dead":
+        mean_v = np.repeat(_np(tx[2]).mean(axis=1), rep, axis=1)
+        np.testing.assert_allclose(_np(got)[0, 0], mean_v[0], atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("b,skv,h,kvh,d,window,pos", DECODE_CASES)
+def test_flash_decode_plain_matches_flash_plain(b, skv, h, kvh, d, window,
+                                                pos):
+    """In f32 the split-and-merge decode equals the sequential online
+    softmax within 2e-5: only the order of the sums differs."""
+    _, tx = _both(_decode_inputs(b, skv, h, kvh, d, pos, seed=skv + 1),
+                  "float32")
+    got = fa.flash_decode_plain(*tx, causal=True, window=window)
+    want = fa.flash_plain(*tx, causal=True, window=window)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
 def test_port_sdpa_ref_matches_reference_sdpa_ref():
     jx, tx = _both(_inputs(2, 64, 96, 4, 4, 32, seed=2), "float32")
     for causal, window in ((True, None), (False, 9)):
@@ -216,3 +285,14 @@ def test_decode_group_limit_matches_kernel_source():
     src = kbuild.SOURCES["flashattn"].read_text()
     assert int(re.search(r"kMaxGroup = (\d+);", src).group(1)) \
         == fa.MAX_GROUP
+
+
+def test_decode_chunk_matches_kernel_source():
+    """The plain decode's chunk (`DECODE_CHUNK`) is the kernel's `kChunk`,
+    so the plain version splits and merges as the kernel does."""
+    import re
+    from repro_torch.kernels import build as kbuild
+    src = kbuild.SOURCES["flashattn"].read_text()
+    assert int(re.search(r"kChunk = (\d+);", src).group(1)) \
+        == fa.DECODE_CHUNK
+    assert fa.decode_splits(0) == 1 and fa.decode_splits(129) == 2

@@ -275,24 +275,35 @@ def no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = old
 
 
-@pytest.mark.parametrize("b,sq,skv,h,kvh,d,causal,window", [
-    (2, 128, 256, 4, 2, 64, True, None),       # GQA
-    (1, 200, 300, 2, 1, 128, True, None),      # no length a tile multiple
-    (2, 64, 200, 6, 2, 128, False, None),      # not causal
-    (1, 130, 130, 4, 4, 64, True, 64),         # window, ragged tiles
-    (1, 96, 96, 2, 2, 64, True, 17),
-    (2, 1, 384, 4, 4, 64, True, None),         # decode
-    (3, 1, 2088, 24, 8, 128, True, None),      # decode, GQA 3
-    (1, 1, 700, 36, 4, 128, True, 64),         # decode, 9 heads a group
-    (2, 1, 100, 8, 8, 128, False, None),
+@pytest.mark.parametrize("b,sq,skv,h,kvh,d,causal,window,pos", [
+    (2, 128, 256, 4, 2, 64, True, None, "tail"),   # GQA
+    (1, 200, 300, 2, 1, 128, True, None, "tail"),  # no length a tile multiple
+    (2, 64, 200, 6, 2, 128, False, None, "tail"),  # not causal
+    (1, 130, 130, 4, 4, 64, True, 64, "tail"),     # window, ragged tiles
+    (1, 96, 96, 2, 2, 64, True, 17, "tail"),
+    (2, 1, 384, 4, 4, 64, True, None, "tail"),     # decode
+    (3, 1, 2088, 24, 8, 128, True, None, "tail"),  # decode, GQA 3
+    (1, 1, 700, 36, 4, 128, True, 64, "tail"),     # decode, 9 heads a group
+    (2, 1, 100, 8, 8, 128, False, None, "tail"),
+    (1, 1, 32768, 20, 20, 128, True, None, "tail"),  # decode, 256 splits
+    (4, 1, 2088, 20, 20, 128, True, None, "ring"),   # qwen, wrapped ring
+    (2, 1, 2088, 16, 16, 64, True, 64, "tail"),    # 15 of 17 chunks skipped
+    (2, 1, 1000, 32, 2, 64, True, None, "dead"),   # group of 16; batch row 0
+                                                   # sees no key
 ])
 def test_flash_kernel_matches_plain_version(cuda, no_tf32, b, sq, skv, h,
-                                            kvh, d, causal, window):
+                                            kvh, d, causal, window, pos):
     """K8 == `flash_plain` and `sdpa_ref` on the card within 2e-2 (bf16),
-    on the variant Sq selects; the wrapper counts that launch only."""
+    on the variant Sq selects; the wrapper counts that launch only.
+    Positions: `tail` the decode-style ones of `_attn_inputs`, `ring` the
+    model's ring cache after it has wrapped, `dead` row 0 placed before
+    every key."""
     from repro_torch.kernels.flashattn import ops as fa
     rng = np.random.default_rng(sq * 7 + skv)
-    args = _attn_inputs(rng, b, sq, skv, h, kvh, d, cuda)
+    args = _attn_inputs(rng, b, sq, skv, h, kvh, d, cuda,
+                        dead_rows=int(pos == "dead"))
+    if pos == "ring":
+        args = args[:3] + _positions("ring", b, sq, skv, cuda)
     fa.reset_launches()
     got = fa.flash_attention(*args, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -302,6 +313,32 @@ def test_flash_kernel_matches_plain_version(cuda, no_tf32, b, sq, skv, h,
     for want in _attn_expected(*args, causal, window):
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=2e-2)
+
+
+def test_flash_decode_tickets_return_to_zero(cuda, no_tf32):
+    """Back-to-back decode calls with different B*KVH (the counter buffer
+    grows between them) give the results of a lone call and leave every
+    ticket counter at 0; a call on another stream takes its own
+    counters."""
+    from repro_torch.kernels.flashattn import ops as fa
+    rng = np.random.default_rng(21)
+    small = _attn_inputs(rng, 2, 1, 700, 8, 4, 128, cuda)
+    big = _attn_inputs(rng, 4, 1, 2088, 20, 20, 128, cuda)
+    first = fa.flash_attention(*small)
+    torch.cuda.synchronize()
+    outs = [fa.flash_attention(*x) for x in (big, small, big, small)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = fa.flash_attention(*big)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[1], first) and torch.equal(outs[3], first)
+    assert torch.equal(outs[0], outs[2]) and torch.equal(other, outs[0])
+    dev = torch.cuda.current_device()
+    mine = fa._TICKETS[(dev, torch.cuda.current_stream().cuda_stream)]
+    theirs = fa._TICKETS[(dev, side.cuda_stream)]
+    assert mine.numel() >= 4 * 20 and theirs is not mine
+    assert int(mine.abs().sum()) == 0 and int(theirs.abs().sum()) == 0
 
 
 @pytest.mark.parametrize("sq", [1, 70])

@@ -96,6 +96,75 @@ def test_prefill_and_decode_match_reference(arch, name, backend):
     assert tc["slots"][0].index == S
 
 
+def test_bf16_prefill_and_decode_match_reference(backend):
+    """qwen1.5-4b's smoke config in its own dtype, bf16: the reference's
+    params (through `params_from_arrays`) and tokens go through both
+    packages on the "flash" backend (the reference's Pallas kernel in
+    interpret mode; the port's `flash_plain` for the prefill and
+    `flash_decode_plain` for each teacher-forced decode step).
+
+    Tolerance, fixed before the first run: the two frameworks round to
+    bf16 at other places (XLA fuses elementwise chains and keeps their
+    f32 intermediates, torch rounds each op's output), so the two bf16
+    runs can agree only up to bf16's own rounding noise. That noise is
+    measured on the reference itself: its bf16 logits against its f32
+    logits over the same weights (bf16 values, widened exactly) and
+    tokens. Each bf16 run lies about that far from the f32 one, so the
+    two lie at most twice as far apart, and the port, which rounds at
+    more places, gets a further 1.5x: max |d| and mean |d| over the
+    prefill and all steps within 3x the reference's own. A wrong mask,
+    head mapping, position or cache slot moves logits by their own
+    scale, far above that."""
+    arch = "qwen1.5-4b"
+    backend("flash")
+    rcfg = ref_smoke(arch)
+    assert rcfg.dtype == jnp.bfloat16
+    rm = RModel(rcfg)
+    tree = jax.tree.map(np.asarray, rm.init(jax.random.PRNGKey(4)))
+    rng = np.random.default_rng(4)
+    mixer = tree["layers"][0]["mixer"]
+    for name in ("bq", "bk", "bv"):      # zero at init: exercise the path
+        mixer[name] = (0.5 * rng.standard_normal(mixer[name].shape)
+                       ).astype(mixer[name].dtype)
+    params = jax.tree.map(jnp.asarray, tree)
+    r32 = RModel(dataclasses.replace(rcfg, dtype=jnp.float32))
+    params32 = jax.tree.map(lambda x: x.astype(jnp.float32), params)
+    tcfg = get_smoke_config(arch)
+    assert tcfg.dtype == torch.bfloat16
+    tm, tp = Model(tcfg), params_from_arrays(tree, tcfg, "cpu")
+
+    B, S, T0 = 2, 28, 16
+    tokens = rng.integers(0, rcfg.vocab_size, (B, S)).astype(np.int32)
+    cap = S + 4
+
+    def reference(model, p):
+        prefill = jax.jit(lambda p, t: model.prefill(p, RBatch(t, t),
+                                                     cap=cap))
+        decode = jax.jit(lambda p, t, c, pos: model.decode_step(p, t, c,
+                                                                pos))
+        lg, c = prefill(p, jnp.asarray(tokens[:, :T0]))
+        out = [np.asarray(lg, np.float32)]
+        for t in range(T0, S):
+            lg, c = decode(p, jnp.asarray(tokens[:, t:t + 1]), c,
+                           jnp.int32(t))
+            out.append(np.asarray(lg, np.float32))
+        return np.stack(out)
+
+    want, exact = reference(rm, params), reference(r32, params32)
+    tt = torch.from_numpy(tokens).long()
+    lg, c = tm.prefill(tp, Batch(tt[:, :T0], tt[:, :T0]), cap=cap)
+    got = [lg.float().numpy()]
+    for t in range(T0, S):
+        lg, c = tm.decode_step(tp, tt[:, t:t + 1], c, t)
+        got.append(lg.float().numpy())
+    got = np.stack(got)
+    noise = np.abs(want - exact)
+    diff = np.abs(got - want)
+    assert np.isfinite(got).all() and noise.max() > 0
+    assert diff.max() <= 3 * noise.max(), (diff.max(), noise.max())
+    assert diff.mean() <= 3 * noise.mean(), (diff.mean(), noise.mean())
+
+
 @pytest.mark.parametrize("arch", ["qwen1.5-4b", "minitron-4b"])
 def test_port_decode_matches_full_forward(arch):
     """The port's own serving-consistency property (f32, flash backend):
