@@ -100,9 +100,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              torch.profiler (at Sq 1 the host's dispatch can outlast the
              kernels); each line adds its registers and spills from
              nvcc's ptxas log; a prefill line adds the kernel's device
-             TFLOP/s (unmasked flops over its device time) and its shared
-             memory a CTA, a decode line its device GB/s (the bytes
-             above over its device time);
+             TFLOP/s (unmasked flops over its device time), a decode line
+             its device GB/s (the bytes above over its device time), and
+             each its dynamic shared memory a CTA;
 8. serve   — path `serve`: `repro_torch.launch.serve.serve` runs
              qwen1.5-4b at its full config (40 layers, d_model 2560,
              random weights from seed 0) with batch 4, a 2048-token
@@ -832,9 +832,9 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
     """K8 against `flash_plain` and `sdpa_ref` on the card, one line per
     shape; returns the records of qwen1.5-4b's prefill and decode shapes
     (the serve path's) and each variant's largest error. Every line adds
-    the kernel's registers and spills from `ptxas_log`; a prefill line
-    its device TFLOP/s (unmasked flops over `device_ms`) and the shared
-    memory one of its CTAs takes, a decode line its device GB/s."""
+    the kernel's registers and spills from `ptxas_log` and the shared
+    memory one of its CTAs takes; a prefill line its device TFLOP/s
+    (unmasked flops over `device_ms`), a decode line its device GB/s."""
     import torch.nn.functional as F
     from repro_torch.kernels.flashattn.ref import attend_mask, sdpa_ref
     from repro_torch.models.layers import _ring_positions
@@ -952,6 +952,7 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
             group = min(g for g in (1, 2, 4, 8, fa.MAX_GROUP) if g >= rep_kv)
             rec["ptxas"] = ptxas_usage(
                 ptxas_log, f"decode_kernelILi{d}ELi{group}E")
+            rec["smem_bytes"] = fa.decode_smem_bytes(d, rep_kv)
         emit(rec)
         if name in ("qwen1.5-4b prefill", "qwen1.5-4b decode"):
             rep[variant] = rec

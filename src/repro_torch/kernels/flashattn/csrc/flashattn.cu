@@ -72,13 +72,43 @@
 //     PV in turn, so the tensor cores idle through its softmax unless the
 //     other warpgroup fills the gap; no ping-pong schedule and no overlap
 //     of one tile's softmax with the next tile's QK^T.
-// Design of the decode variant:
-//   * decode_kernel<D, R>: one CTA of 8 warps per (kv head, batch) serves
-//     the H / KVH query heads of that group, so each K and V row is read
-//     once for all of them. D / 8 lanes share one key (16 bytes each), so a
-//     warp holds 32 / (D / 8) keys and every thread keeps four keys' loads
-//     in flight; each key group keeps its own running max, sum and output,
-//     merged across the warp by shuffles and across warps in shared memory.
+// Design of the decode variant, decode_kernel<D, R> (R: the query heads of
+// a kv head, rounded up to 1, 2, 4, 8 or 16), for the bytes that bound it:
+//   * a split over the cache: the grid is (splits, KVH, B), splits =
+//     ceil(Skv / kChunk) with kChunk = 128 slots, so each K and V row is
+//     still read once, by the CTA of its chunk, for all H / KVH query
+//     heads of its group. At qwen1.5-4b's decode shape that is 17 x 20 x
+//     4 = 1,360 CTAs on 132 SMs (one CTA per (kv head, batch) gave 80); at
+//     B 1 over 32,768 slots, 256 x 20 = 5,120. A fixed chunk keeps the
+//     plain version's split the kernel's and the scratch at B * H *
+//     splits * (D + 2) floats (0.7 MB at the qwen shape).
+//   * bytes in flight: a CTA issues its chunk's K, then V, as 16-byte
+//     cp.async copies into shared memory, through the caller's strides
+//     (stacked and strided cache views): 64 KB at D 128, 67 KB with q and
+//     the scores, so 3 CTAs and about 190 KB of loads in flight an SM.
+//     V lands while the scores are computed.
+//   * the chunk's softmax in two passes, not a chain per key: first every
+//     key's score for each head of the group (a thread a key, dot products
+//     from shared memory; K rows padded by 16 bytes, so a warp's 16-byte
+//     reads hit no bank twice), then a warp per head takes the max once,
+//     p = exp(s - m) summed into l and rounded to bf16, and P.V over 256
+//     threads, a d pair and a slice of the keys each.
+//   * the merge in the same launch: each CTA writes (m, l, o) in f32 to
+//     the scratch, fences, and takes a ticket on its group's int32
+//     counter; the CTA that draws the last ticket merges the group's
+//     records, writes o and sets the counter back to 0. One launch a call,
+//     as the host-bound decode step needs. The counters assume that calls
+//     sharing them run one after another: ops.py keeps a buffer per
+//     (device, stream), so concurrent calls on two streams never share one.
+//   * skipping: a chunk none of whose keys the query may see (the empty
+//     slots of a cache not yet full, slots outside a window) loads nothing
+//     and reports m = -inf; the merge leaves it out, which is exact for a
+//     row with an allowed key (its weight would be exp(NEG - M) = 0). With
+//     no live chunk the row has no allowed key, and the merging CTA writes
+//     the mean of V over the Skv keys, as ref.sdpa_ref gives.
+//   * bound: bytes, each K and V row of a live chunk read once (85.5 MB a
+//     layer at the qwen shape, 0.026 ms at 3.35 TB/s); its 4 * D flops a
+//     head and key run on CUDA cores in a small share of that time.
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_bf16.h>
@@ -90,8 +120,7 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kDecodeWarps = 8;
-constexpr int kDecodeUnroll = 4;  // keys in flight per key group
+constexpr int kDecodeThreads = 256;
 constexpr int kMaxGroup = 16;     // most H / KVH the decode variant takes
                                   // (MAX_GROUP in ops.py)
 constexpr int kChunk = 128;       // cache slots per decode CTA
@@ -599,15 +628,19 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
   }
 }
 
-// Merge (m2, l2, acc2) into (m, l, acc): two online-softmax partial states
-__device__ __forceinline__ void merge(float& m, float& l, float* acc,
-                                      float m2, float l2, const float* acc2) {
-  float mn = fmaxf(m, m2);
-  float ea = expf(m - mn), eb = expf(m2 - mn);
-  l = l * ea + l2 * eb;
-#pragma unroll
-  for (int e = 0; e < 8; ++e) acc[e] = acc[e] * ea + acc2[e] * eb;
-  m = mn;
+// 16-byte asynchronous copy from global to shared memory, past L1
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // One chunk's partial softmax state for the group's `rep` query heads, in
@@ -624,11 +657,12 @@ __device__ __forceinline__ float* decode_record(const Args& a, float* part,
 
 // Run by every thread of a decode CTA once its record is written: the CTA
 // takes a ticket on its group's counter, and the last of the group's
-// `splits` CTAs merges their records (the NEG rule of `merge`; skipped
-// chunks left out) and writes o. With no live chunk the row has no
-// allowed key, and p = exp(NEG - NEG) = 1 for every key makes it the mean
-// of V over the Skv keys. The last CTA sets the counter back to 0 for the
-// next call on the stream.
+// `splits` CTAs merges their records and writes o: M = the largest
+// chunk max, each live chunk weighed by exp(m - M) (skipped chunks left
+// out), o = sum(w o) / max(sum(w l), 1e-30). With no live chunk the row
+// has no allowed key, and p = exp(NEG - NEG) = 1 for every key makes it
+// the mean of V over the Skv keys. The last CTA sets the counter back to
+// 0 for the next call on the stream.
 template <int D>
 __device__ void decode_finish(const Args& a, float* part, int* tickets,
                               int rep, int kvh, int b) {
@@ -668,14 +702,25 @@ __device__ void decode_finish(const Args& a, float* part, int* tickets,
         sum += __bfloat162float(vb[(long long)j * a.v_s]);
       out = sum / fmaxf((float)a.Skv, 1.f);
     } else {
+      constexpr int kBatch = 16;  // records whose loads are in flight
       float L = 0.f, O = 0.f;
-      for (int sp = 0; sp < splits; ++sp) {
-        const float* ps = pg + (long long)sp * rec;
-        const float m = __ldcg(ps + r);
-        if (m == -INFINITY) continue;  // a skipped chunk
-        const float w = expf(m - M);
-        L += __ldcg(ps + rep + r) * w;
-        O += __ldcg(ps + 2 * rep + i) * w;
+      for (int sp0 = 0; sp0 < splits; sp0 += kBatch) {
+        float mm[kBatch], ll[kBatch], oo[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const float* ps = pg + (long long)(sp0 + u) * rec;
+          const bool in = sp0 + u < splits;
+          mm[u] = in ? __ldcg(ps + r) : -INFINITY;
+          ll[u] = in ? __ldcg(ps + rep + r) : 0.f;
+          oo[u] = in ? __ldcg(ps + 2 * rep + i) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (mm[u] == -INFINITY) continue;  // a skipped chunk (or none)
+          const float w = expf(mm[u] - M);
+          L += ll[u] * w;
+          O += oo[u] * w;
+        }
       }
       out = O / fmaxf(L, 1e-30f);
     }
@@ -683,139 +728,170 @@ __device__ void decode_finish(const Args& a, float* part, int* tickets,
   }
 }
 
+// Dynamic shared memory of one decode CTA: K's chunk (rows padded by 16
+// bytes), V's chunk, the group's q in f32 and its scores.
+constexpr size_t decode_smem(int D, int rep) {
+  return 2 * (size_t)kChunk * (D + 8) + 2 * (size_t)kChunk * D +
+         4 * (size_t)rep * D + 4 * (size_t)rep * kChunk;
+}
+
 template <int D, int R>
-__global__ void __launch_bounds__(kDecodeWarps * 32)
+__global__ void __launch_bounds__(kDecodeThreads, 2)
     decode_kernel(const Args a, float* part, int* tickets) {
-  constexpr int LPK = D / 8;     // lanes per key, 8 elements (16 bytes) each
-  constexpr int GPW = 32 / LPK;  // key groups per warp
-  constexpr int NG = kDecodeWarps * GPW;
-  constexpr int U = kDecodeUnroll;
-  extern __shared__ float sm[];
+  constexpr int KROW = D + 8;  // K row in shared memory: 16 bytes of pad
+                               // keep the score pass free of bank conflicts
+  constexpr int CPR = D / 8;   // 16-byte pieces a row
+  constexpr int HPT = (R + 1) / 2;  // heads a thread scores
+  constexpr int NS = kDecodeThreads / (D / 2);  // key slices of P.V
+  extern __shared__ __align__(16) uint8_t dsm[];
+  __shared__ uint8_t st_s[kChunk];  // key allowed (1) or masked (0)
+  __shared__ float m_s[kMaxGroup], l_s[kMaxGroup];
   const int rep = a.H / a.KVH;
-  float* q_s = sm;                          // [rep][D]
-  float* m_s = q_s + rep * D;               // [warps][rep]
-  float* l_s = m_s + kDecodeWarps * rep;    // [warps][rep]
-  float* acc_s = l_s + kDecodeWarps * rep;  // [warps][rep][D]
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(dsm);  // [kChunk][KROW]
+  __nv_bfloat16* v_s = k_s + kChunk * KROW;                     // [kChunk][D]
+  float* q_s = reinterpret_cast<float*>(v_s + kChunk * D);      // [rep][D]
+  float* s_s = q_s + rep * D;                                   // [rep][kChunk]
+  float* red = reinterpret_cast<float*>(dsm);  // [NS][rep][D], over K and V
+                                               // once P.V has read them
 
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int j0 = split * kChunk, j1 = min(a.Skv, j0 + kChunk);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int sub = lane % LPK, grp = warp * GPW + lane / LPK;
+  const int j0 = split * kChunk, n = min(kChunk, a.Skv - j0);
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int h0 = kvh * rep;
-  const int qp = a.q_pos[b];  // Sq == 1
-  const int32_t* kpos = a.kv_pos + (long long)b * a.Skv;
-  const uint8_t* kval = a.kv_valid + (long long)b * a.Skv;
   float* rec = decode_record<D>(a, part, rep, split, kvh, b);
 
-  bool mine = false;
-  for (int j = j0 + threadIdx.x; j < j1; j += kDecodeWarps * 32)
-    mine |= allowed(a, qp, kpos[j], kval[j]);
-  if (!__syncthreads_or(mine)) {  // no allowed key: skip the chunk
-    if (threadIdx.x < rep) rec[threadIdx.x] = -INFINITY;
+  // which keys of the chunk the query may see; none: skip the chunk
+  bool ok = false;
+  if (t < n) {
+    const long long j = (long long)b * a.Skv + j0 + t;
+    ok = allowed(a, a.q_pos[b], a.kv_pos[j], a.kv_valid[j]);
+    st_s[t] = ok;
+  }
+  if (!__syncthreads_or(ok)) {
+    if (t < rep) rec[t] = -INFINITY;
     decode_finish<D>(a, part, tickets, rep, kvh, b);
     return;
   }
-  for (int i = threadIdx.x; i < rep * D; i += kDecodeWarps * 32)
+
+  // K's chunk, then V's, as 16-byte copies: V lands while the scores are
+  // computed
+  const __nv_bfloat16* kg =
+      a.k + b * a.k_b + kvh * a.k_h + (long long)j0 * a.k_s;
+  const __nv_bfloat16* vg =
+      a.v + b * a.v_b + kvh * a.v_h + (long long)j0 * a.v_s;
+  for (int i = t; i < n * CPR; i += kDecodeThreads) {
+    const int row = i / CPR, c = (i % CPR) * 8;
+    cp_async16(smem_u32(k_s + row * KROW + c), kg + (long long)row * a.k_s + c);
+  }
+  cp_async_commit();
+  for (int i = t; i < n * CPR; i += kDecodeThreads) {
+    const int row = i / CPR, c = (i % CPR) * 8;
+    cp_async16(smem_u32(v_s + row * D + c), vg + (long long)row * a.v_s + c);
+  }
+  cp_async_commit();
+  for (int i = t; i < rep * D; i += kDecodeThreads)
     q_s[i] = __bfloat162float(a.q[b * a.q_b + (h0 + i / D) * a.q_h + i % D]);
+  cp_async_wait<1>();
   __syncthreads();
 
-  const __nv_bfloat16* kb = a.k + b * a.k_b + kvh * a.k_h + sub * 8;
-  const __nv_bfloat16* vb = a.v + b * a.v_b + kvh * a.v_h + sub * 8;
-
-  float m[R], l[R], acc[R][8];
+  // pass 1: scores of key t % kChunk for heads t / kChunk + 2i
+  {
+    const int j = t % kChunk, hs = t / kChunk;
+    if (j < n) {
+      float dot[HPT];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = kNeg;
-    l[r] = 0.f;
+      for (int i = 0; i < HPT; ++i) dot[i] = 0.f;
+      const uint4* kr = reinterpret_cast<const uint4*>(k_s + j * KROW);
+#pragma unroll 4
+      for (int c = 0; c < CPR; ++c) {
+        float kf[8];
+        unpack8(kr[c], kf);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
-  }
-
-  for (int base = j0; base < j1; base += NG * U) {
-    uint4 kr[U], vr[U];
-    int st[U];  // 0 masked key, 1 valid, 2 past the chunk
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      int j = base + u * NG + grp;
-      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-      st[u] = 2;
-      if (j < j1) {
-        kr[u] = *reinterpret_cast<const uint4*>(kb + (long long)j * a.k_s);
-        vr[u] = *reinterpret_cast<const uint4*>(vb + (long long)j * a.v_s);
-        st[u] = allowed(a, qp, kpos[j], kval[j]) ? 1 : 0;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float kf[8], vf[8];
-      unpack8(kr[u], kf);
-      unpack8(vr[u], vf);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (r < rep) {
-          const float* qr = q_s + r * D + sub * 8;
-          float dot = 0.f;
-#pragma unroll
-          for (int e = 0; e < 8; ++e) dot = fmaf(qr[e], kf[e], dot);
-#pragma unroll
-          for (int off = LPK / 2; off > 0; off >>= 1)
-            dot += __shfl_xor_sync(0xffffffffu, dot, off);
-          if (st[u] != 2) {
-            float x = st[u] ? dot * a.scale : kNeg;
-            float mn = fmaxf(m[r], x);
-            float al = expf(m[r] - mn), p = expf(x - mn);
-            l[r] = l[r] * al + p;
-            float pb = __bfloat162float(__float2bfloat16_rn(p));
-#pragma unroll
-            for (int e = 0; e < 8; ++e) acc[r][e] = fmaf(pb, vf[e], acc[r][e] * al);
-            m[r] = mn;
+        for (int i = 0; i < HPT; ++i) {
+          if (hs + 2 * i < rep) {
+            const float4* qv =
+                reinterpret_cast<const float4*>(q_s + (hs + 2 * i) * D + c * 8);
+            const float4 qa = qv[0], qb = qv[1];
+            dot[i] = fmaf(qa.x, kf[0], dot[i]);
+            dot[i] = fmaf(qa.y, kf[1], dot[i]);
+            dot[i] = fmaf(qa.z, kf[2], dot[i]);
+            dot[i] = fmaf(qa.w, kf[3], dot[i]);
+            dot[i] = fmaf(qb.x, kf[4], dot[i]);
+            dot[i] = fmaf(qb.y, kf[5], dot[i]);
+            dot[i] = fmaf(qb.z, kf[6], dot[i]);
+            dot[i] = fmaf(qb.w, kf[7], dot[i]);
           }
         }
       }
-    }
-  }
-
-  // merge the key groups of the warp, then the warps through shared memory
+      const bool live = st_s[j];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (r < rep) {
-#pragma unroll
-      for (int off = LPK; off < 32; off <<= 1) {
-        float m2 = __shfl_xor_sync(0xffffffffu, m[r], off);
-        float l2 = __shfl_xor_sync(0xffffffffu, l[r], off);
-        float a2[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          a2[e] = __shfl_xor_sync(0xffffffffu, acc[r][e], off);
-        merge(m[r], l[r], acc[r], m2, l2, a2);
-      }
-      if (lane < LPK) {
-        if (sub == 0) {
-          m_s[warp * rep + r] = m[r];
-          l_s[warp * rep + r] = l[r];
-        }
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          acc_s[(warp * rep + r) * D + sub * 8 + e] = acc[r][e];
-      }
+      for (int i = 0; i < HPT; ++i)
+        if (hs + 2 * i < rep)
+          s_s[(hs + 2 * i) * kChunk + j] = live ? dot[i] * a.scale : kNeg;
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < rep * D; i += kDecodeWarps * 32) {
-    int r = i / D, d = i % D;
+
+  // pass 2, a warp per head: the chunk's max once, then p = exp(s - m),
+  // summed in f32 into l and kept rounded to bf16 for P.V
+  for (int r = warp; r < rep; r += kDecodeThreads / 32) {
+    float* sr = s_s + r * kChunk;
     float mx = kNeg;
-    for (int w = 0; w < kDecodeWarps; ++w) mx = fmaxf(mx, m_s[w * rep + r]);
-    float L = 0.f, O = 0.f;
-    for (int w = 0; w < kDecodeWarps; ++w) {
-      float e = expf(m_s[w * rep + r] - mx);
-      L += l_s[w * rep + r] * e;
-      O += acc_s[(w * rep + r) * D + d] * e;
+    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, sr[j]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float sum = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float p = expf(sr[j] - mx);
+      sum += p;
+      sr[j] = __bfloat162float(__float2bfloat16_rn(p));
     }
-    rec[2 * rep + i] = O;
-    if (d == 0) {
-      rec[r] = mx;
-      rec[rep + r] = L;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) {
+      m_s[r] = mx;
+      l_s[r] = sum;
     }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // P.V: the d pair t % (D / 2) over keys t / (D / 2) + NS i
+  const int c2 = t % (D / 2), sl = t / (D / 2);
+  float acc[R][2];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = 0.f;
+#pragma unroll 4
+  for (int j = sl; j < n; j += NS) {
+    const float2 vf = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(v_s + j * D + 2 * c2));
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r < rep) {
+        const float p = s_s[r * kChunk + j];
+        acc[r][0] = fmaf(p, vf.x, acc[r][0]);
+        acc[r][1] = fmaf(p, vf.y, acc[r][1]);
+      }
+    }
+  }
+  __syncthreads();  // K and V are read: `red` takes their place
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (r < rep)
+      *reinterpret_cast<float2*>(red + (sl * rep + r) * D + 2 * c2) =
+          make_float2(acc[r][0], acc[r][1]);
+  __syncthreads();
+  for (int i = t; i < rep * D; i += kDecodeThreads) {
+    float o = 0.f;
+#pragma unroll
+    for (int k = 0; k < NS; ++k) o += red[k * rep * D + i];
+    rec[2 * rep + i] = o;
+  }
+  if (t < rep) {
+    rec[t] = m_s[t];
+    rec[rep + t] = l_s[t];
   }
   decode_finish<D>(a, part, tickets, rep, kvh, b);
 }
@@ -845,9 +921,7 @@ Args make_args(const void* q, const void* k, const void* v, void* o,
 template <int D, int R>
 cudaError_t launch_decode(const Args& a, float* part, int* tickets,
                           cudaStream_t stream) {
-  int rep = a.H / a.KVH;
-  size_t smem = sizeof(float) * ((size_t)rep * D + 2 * kDecodeWarps * rep +
-                                 (size_t)kDecodeWarps * rep * D);
+  const size_t smem = decode_smem(D, a.H / a.KVH);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         decode_kernel<D, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -855,7 +929,7 @@ cudaError_t launch_decode(const Args& a, float* part, int* tickets,
     if (err != cudaSuccess) return err;
   }
   const int splits = a.Skv > 0 ? (a.Skv + kChunk - 1) / kChunk : 1;
-  decode_kernel<D, R><<<dim3(splits, a.KVH, a.B), kDecodeWarps * 32, smem,
+  decode_kernel<D, R><<<dim3(splits, a.KVH, a.B), kDecodeThreads, smem,
                         stream>>>(a, part, tickets);
   return cudaGetLastError();
 }
@@ -967,6 +1041,13 @@ int flash_prefill(const void* q, const void* k, const void* v, void* o,
 int flash_prefill_smem_bytes(int D) {
   return D == 64 ? (int)prefill_smem<64>()
                  : D == 128 ? (int)prefill_smem<128>() : -1;
+}
+
+// Dynamic shared memory of one decode CTA at head_dim D and `rep` query
+// heads per kv head (it also has about 330 bytes of static shared
+// memory).
+int flash_decode_smem_bytes(int D, int rep) {
+  return (int)decode_smem(D, rep);
 }
 
 // K8, decode variant: as flash_prefill with Sq == 1. `part` is f32

@@ -81,6 +81,8 @@ def _lib() -> ctypes.CDLL:
         lib.flash_decode.restype = ctypes.c_int
         lib.flash_prefill_smem_bytes.argtypes = [ctypes.c_int]
         lib.flash_prefill_smem_bytes.restype = ctypes.c_int
+        lib.flash_decode_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.flash_decode_smem_bytes.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -94,6 +96,12 @@ def prefill_smem_bytes(d: int) -> int:
     """Shared memory (static and dynamic bytes) one CTA of the prefill
     kernel takes at head_dim `d`."""
     return int(_lib().flash_prefill_smem_bytes(d))
+
+
+def decode_smem_bytes(d: int, rep: int) -> int:
+    """Dynamic shared memory one CTA of the decode kernel takes at head_dim
+    `d` with `rep` query heads per kv head."""
+    return int(_lib().flash_decode_smem_bytes(d, rep))
 
 
 def _check_shapes(q, k, v, q_pos, kv_pos, kv_valid) -> None:
