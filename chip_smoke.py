@@ -597,9 +597,16 @@ def device_profile(torch, fn) -> dict:
 def device_ms(torch, fn, calls: int = 20) -> float:
     """Device milliseconds per call of `fn` (its kernels' and copies'
     busy time under torch.profiler over `calls` calls, after a warm-up
-    call), free of the host's launch overhead."""
+    call), free of the host's launch overhead. A profile that recorded
+    no device op at all (torch.profiler drops one now and then) is taken
+    again, twice at most."""
     fn()
-    busy = device_profile(torch, lambda: [fn() for _ in range(calls)])
+    for _ in range(3):
+        busy = device_profile(torch, lambda: [fn() for _ in range(calls)])
+        if busy["device_busy_seconds"] > 0:
+            break
+    check(busy["device_busy_seconds"] > 0,
+          "torch.profiler recorded no device time in three tries")
     return busy["device_busy_seconds"] * 1e3 / calls
 
 

@@ -74,39 +74,47 @@
 //     of one tile's softmax with the next tile's QK^T.
 // Design of the decode variant, decode_kernel<D, R> (R: the query heads of
 // a kv head, rounded up to 1, 2, 4, 8 or 16), for the bytes that bound it:
-//   * a split over the cache: the grid is (splits, KVH, B), splits =
-//     ceil(Skv / kChunk) with kChunk = 128 slots, so each K and V row is
-//     still read once, by the CTA of its chunk, for all H / KVH query
-//     heads of its group. At qwen1.5-4b's decode shape that is 17 x 20 x
-//     4 = 1,360 CTAs on 132 SMs (one CTA per (kv head, batch) gave 80); at
-//     B 1 over 32,768 slots, 256 x 20 = 5,120. A fixed chunk keeps the
-//     plain version's split the kernel's and the scratch at B * H *
-//     splits * (D + 2) floats (0.7 MB at the qwen shape).
-//   * bytes in flight: a CTA issues its chunk's K, then V, as 16-byte
-//     cp.async copies into shared memory, through the caller's strides
-//     (stacked and strided cache views): 64 KB at D 128, 67 KB with q and
-//     the scores, so 3 CTAs and about 190 KB of loads in flight an SM.
-//     V lands while the scores are computed.
-//   * the chunk's softmax in two passes, not a chain per key: first every
-//     key's score for each head of the group (a thread a key, dot products
-//     from shared memory; K rows padded by 16 bytes, so a warp's 16-byte
-//     reads hit no bank twice), then a warp per head takes the max once,
-//     p = exp(s - m) summed into l and rounded to bf16, and P.V over 256
-//     threads, a d pair and a slice of the keys each.
-//   * the merge in the same launch: each CTA writes (m, l, o) in f32 to
-//     the scratch, fences, and takes a ticket on its group's int32
-//     counter; the CTA that draws the last ticket merges the group's
-//     records, writes o and sets the counter back to 0. One launch a call,
-//     as the host-bound decode step needs. The counters assume that calls
-//     sharing them run one after another: ops.py keeps a buffer per
-//     (device, stream), so concurrent calls on two streams never share one.
-//   * skipping: a chunk none of whose keys the query may see (the empty
-//     slots of a cache not yet full, slots outside a window) loads nothing
-//     and reports m = -inf; the merge leaves it out, which is exact for a
-//     row with an allowed key (its weight would be exp(NEG - M) = 0). With
-//     no live chunk the row has no allowed key, and the merging CTA writes
-//     the mean of V over the Skv keys, as ref.sdpa_ref gives.
-//   * bound: bytes, each K and V row of a live chunk read once (85.5 MB a
+//   * a split over the cache: the cache is cut into tiles of kTile = 64
+//     slots and the grid is (splits, KVH, B), each CTA walking `tps`
+//     consecutive tiles for all H / KVH query heads of its group, so each
+//     K and V row is still read once. The wrapper picks tps = ceil(B *
+//     KVH * tiles / 792), at most kMaxSplitTiles: 792 CTAs are two waves
+//     of 3 CTAs on 132 SMs, enough to keep every SM's loads in flight,
+//     and no more, since each split adds a record to write and merge.
+//     qwen1.5-4b's decode shape (B 4, 20 kv heads, 33 tiles) gets 4 tiles
+//     a split, 9 splits, 720 CTAs (one CTA per (kv head, batch) gave 80 on
+//     132 SMs); B 1 over 32,768 slots 13 tiles, 40 splits, 800 CTAs.
+//   * bytes in flight: a CTA's tiles pass through a ring of 2 stages in
+//     shared memory, each tile's K and V rows loaded as 16-byte cp.async
+//     copies through the caller's strides (stacked and strided cache
+//     views); tile i + 1 loads while tile i is computed, so only the
+//     first load and the epilogue are exposed. 69 KB of shared memory at
+//     D 128 and a group of 1: 3 CTAs and up to 200 KB an SM.
+//   * a tile's softmax in two passes, not a chain per key: first every
+//     key's score for each head of the group (256 threads, a key and a
+//     quarter of D each, from shared memory; K rows padded by 16 bytes, so
+//     a warp's 16-byte reads hit no bank twice), then a warp per head
+//     takes the tile's max once and p = exp(s - m) into the running sum,
+//     rounded to bf16 for P.V, which 256 threads share out by d pair and
+//     key slice. Across the split's tiles the running max and sum move on
+//     as in the prefill (alpha = exp(m_old - m_new)).
+//   * the merge in the same launch: each CTA writes (m, l, o) in f32 to the
+//     scratch, fences, and takes a ticket on its group's int32 counter;
+//     the CTA that draws the last ticket merges the group's records, writes
+//     o and sets the counter back to 0. One launch a call, as the
+//     host-bound decode step needs. The counters assume that calls sharing
+//     them run one after another: ops.py keeps a buffer per (device,
+//     stream), so concurrent calls on two streams never share one.
+//   * skipping: the CTA first reads its range's positions (a bit a key);
+//     a tile none of whose keys the query may see (the empty slots of a
+//     cache not yet full, slots outside a window) is never loaded, and a
+//     split with no live tile reports m = -inf, which the merge leaves
+//     out. Exact for a row with an allowed key: a masked key after it adds
+//     p = exp(NEG - m) = 0, one before it is wiped by alpha = exp(NEG -
+//     m_new) = 0. With no live split the row has no allowed key, and the
+//     merging CTA writes the mean of V over the Skv keys, as ref.sdpa_ref
+//     gives.
+//   * bound: bytes, each K and V row of a live tile read once (85.5 MB a
 //     layer at the qwen shape, 0.026 ms at 3.35 TB/s); its 4 * D flops a
 //     head and key run on CUDA cores in a small share of that time.
 
@@ -123,8 +131,10 @@ constexpr float kNeg = -1e30f;
 constexpr int kDecodeThreads = 256;
 constexpr int kMaxGroup = 16;     // most H / KVH the decode variant takes
                                   // (MAX_GROUP in ops.py)
-constexpr int kChunk = 128;       // cache slots per decode CTA
-                                  // (DECODE_CHUNK in ops.py)
+constexpr int kTile = 64;         // keys per decode tile (DECODE_TILE in
+                                  // ops.py)
+constexpr int kMaxSplitTiles = 64;  // most tiles a decode CTA walks
+                                    // (MAX_SPLIT_TILES in ops.py)
 
 struct Args {
   const __nv_bfloat16* q;
@@ -643,10 +653,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// One chunk's partial softmax state for the group's `rep` query heads, in
+// One split's partial softmax state for the group's `rep` query heads, in
 // the scratch at [B * KVH][splits][rep * (D + 2)] f32: m[rep], l[rep],
-// o[rep][D] (o unnormalised). A chunk with no allowed key writes only
-// m = -inf (kNeg is finite, so a live chunk's m is always above it).
+// o[rep][D] (o unnormalised). A split with no allowed key writes only
+// m = -inf (kNeg is finite, so a live split's m is always above it).
 template <int D>
 __device__ __forceinline__ float* decode_record(const Args& a, float* part,
                                                 int rep, int split, int kvh,
@@ -658,8 +668,8 @@ __device__ __forceinline__ float* decode_record(const Args& a, float* part,
 // Run by every thread of a decode CTA once its record is written: the CTA
 // takes a ticket on its group's counter, and the last of the group's
 // `splits` CTAs merges their records and writes o: M = the largest
-// chunk max, each live chunk weighed by exp(m - M) (skipped chunks left
-// out), o = sum(w o) / max(sum(w l), 1e-30). With no live chunk the row
+// split max, each live split weighed by exp(m - M) (skipped splits left
+// out), o = sum(w o) / max(sum(w l), 1e-30). With no live split the row
 // has no allowed key, and p = exp(NEG - NEG) = 1 for every key makes it
 // the mean of V over the Skv keys. The last CTA sets the counter back to
 // 0 for the next call on the stream.
@@ -702,7 +712,7 @@ __device__ void decode_finish(const Args& a, float* part, int* tickets,
         sum += __bfloat162float(vb[(long long)j * a.v_s]);
       out = sum / fmaxf((float)a.Skv, 1.f);
     } else {
-      constexpr int kBatch = 16;  // records whose loads are in flight
+      constexpr int kBatch = 8;  // records whose loads are in flight
       float L = 0.f, O = 0.f;
       for (int sp0 = 0; sp0 < splits; sp0 += kBatch) {
         float mm[kBatch], ll[kBatch], oo[kBatch];
@@ -716,7 +726,7 @@ __device__ void decode_finish(const Args& a, float* part, int* tickets,
         }
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
-          if (mm[u] == -INFINITY) continue;  // a skipped chunk (or none)
+          if (mm[u] == -INFINITY) continue;  // a skipped split (or none)
           const float w = expf(mm[u] - M);
           L += ll[u] * w;
           O += oo[u] * w;
@@ -728,155 +738,225 @@ __device__ void decode_finish(const Args& a, float* part, int* tickets,
   }
 }
 
-// Dynamic shared memory of one decode CTA: K's chunk (rows padded by 16
-// bytes), V's chunk, the group's q in f32 and its scores.
-constexpr size_t decode_smem(int D, int rep) {
-  return 2 * (size_t)kChunk * (D + 8) + 2 * (size_t)kChunk * D +
-         4 * (size_t)rep * D + 4 * (size_t)rep * kChunk;
+// Dynamic shared memory of one decode CTA: two stages of a K tile (rows
+// padded by 16 bytes) and a V tile, the group's q in f32, the quarter dot
+// products of a tile's scores and its p.
+__host__ __device__ constexpr size_t decode_stage_bytes(int D) {
+  return 2 * (size_t)kTile * (D + 8) + 2 * (size_t)kTile * D;
+}
+__host__ __device__ constexpr size_t decode_smem(int D, int rep) {
+  return 2 * decode_stage_bytes(D) + 4 * (size_t)rep * D +
+         4 * 4 * (size_t)rep * kTile + 4 * (size_t)rep * kTile;
 }
 
 template <int D, int R>
-__global__ void __launch_bounds__(kDecodeThreads, 2)
-    decode_kernel(const Args a, float* part, int* tickets) {
+__global__ void __launch_bounds__(kDecodeThreads, R <= 4 ? 3 : 2)
+    decode_kernel(const Args a, int tps, float* part, int* tickets) {
   constexpr int KROW = D + 8;  // K row in shared memory: 16 bytes of pad
                                // keep the score pass free of bank conflicts
   constexpr int CPR = D / 8;   // 16-byte pieces a row
-  constexpr int HPT = (R + 1) / 2;  // heads a thread scores
+  constexpr int QPR = CPR / 4;                  // pieces of a quarter row
   constexpr int NS = kDecodeThreads / (D / 2);  // key slices of P.V
+  constexpr int KBYTES = 2 * kTile * KROW;
+  constexpr int STAGE = (int)decode_stage_bytes(D);
   extern __shared__ __align__(16) uint8_t dsm[];
-  __shared__ uint8_t st_s[kChunk];  // key allowed (1) or masked (0)
-  __shared__ float m_s[kMaxGroup], l_s[kMaxGroup];
+  __shared__ unsigned long long bits[kMaxSplitTiles];  // allowed keys
+  __shared__ int live[kMaxSplitTiles];  // the split's live tiles, in order
+  __shared__ int nlive;
+  __shared__ float m_s[kMaxGroup], l_s[kMaxGroup], al_s[kMaxGroup];
   const int rep = a.H / a.KVH;
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(dsm);  // [kChunk][KROW]
-  __nv_bfloat16* v_s = k_s + kChunk * KROW;                     // [kChunk][D]
-  float* q_s = reinterpret_cast<float*>(v_s + kChunk * D);      // [rep][D]
-  float* s_s = q_s + rep * D;                                   // [rep][kChunk]
-  float* red = reinterpret_cast<float*>(dsm);  // [NS][rep][D], over K and V
-                                               // once P.V has read them
+  float* q_s = reinterpret_cast<float*>(dsm + 2 * STAGE);  // [rep][D]
+  float* sq_s = q_s + rep * D;           // [4][rep][kTile] quarter dots
+  float* p_s = sq_s + 4 * rep * kTile;   // [rep][kTile]
+  float* red = reinterpret_cast<float*>(dsm);  // [NS][rep][D], over the
+                                               // stages at the end
 
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int j0 = split * kChunk, n = min(kChunk, a.Skv - j0);
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int h0 = kvh * rep;
+  const int h0 = kvh * rep, tile0 = split * tps;
+  const int ntiles = min(tps, (a.Skv + kTile - 1) / kTile - tile0);
   float* rec = decode_record<D>(a, part, rep, split, kvh, b);
 
-  // which keys of the chunk the query may see; none: skip the chunk
-  bool ok = false;
-  if (t < n) {
-    const long long j = (long long)b * a.Skv + j0 + t;
-    ok = allowed(a, a.q_pos[b], a.kv_pos[j], a.kv_valid[j]);
-    st_s[t] = ok;
+  // which keys of the split's tiles the query may see, a bit a key
+  const int qp = a.q_pos[b];
+  for (int ti = warp; ti < ntiles; ti += kDecodeThreads / 32) {
+    unsigned long long m = 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = (tile0 + ti) * kTile + h * 32 + lane;
+      bool ok = false;
+      if (j < a.Skv) {
+        const long long g = (long long)b * a.Skv + j;
+        ok = allowed(a, qp, a.kv_pos[g], a.kv_valid[g]);
+      }
+      m |= (unsigned long long)__ballot_sync(0xffffffffu, ok) << (32 * h);
+    }
+    if (lane == 0) bits[ti] = m;
   }
-  if (!__syncthreads_or(ok)) {
+  __syncthreads();
+  if (t == 0) {
+    int n = 0;
+    for (int ti = 0; ti < ntiles; ++ti)
+      if (bits[ti]) live[n++] = ti;
+    nlive = n;
+  }
+  __syncthreads();
+  const int nl = nlive;
+  if (nl == 0) {  // no allowed key in the split: skip it
     if (t < rep) rec[t] = -INFINITY;
     decode_finish<D>(a, part, tickets, rep, kvh, b);
     return;
   }
 
-  // K's chunk, then V's, as 16-byte copies: V lands while the scores are
-  // computed
-  const __nv_bfloat16* kg =
-      a.k + b * a.k_b + kvh * a.k_h + (long long)j0 * a.k_s;
-  const __nv_bfloat16* vg =
-      a.v + b * a.v_b + kvh * a.v_h + (long long)j0 * a.v_s;
-  for (int i = t; i < n * CPR; i += kDecodeThreads) {
-    const int row = i / CPR, c = (i % CPR) * 8;
-    cp_async16(smem_u32(k_s + row * KROW + c), kg + (long long)row * a.k_s + c);
-  }
-  cp_async_commit();
-  for (int i = t; i < n * CPR; i += kDecodeThreads) {
-    const int row = i / CPR, c = (i % CPR) * 8;
-    cp_async16(smem_u32(v_s + row * D + c), vg + (long long)row * a.v_s + c);
-  }
-  cp_async_commit();
+  const __nv_bfloat16* kg = a.k + b * a.k_b + kvh * a.k_h;
+  const __nv_bfloat16* vg = a.v + b * a.v_b + kvh * a.v_h;
+  // a tile's K and V rows (those below Skv) into a stage, as 16-byte
+  // copies in one group
+  auto issue = [&](int ti, int stage) {
+    const int j0 = (tile0 + ti) * kTile, n = min(kTile, a.Skv - j0);
+    uint8_t* base = dsm + stage * STAGE;
+    for (int i = t; i < n * CPR; i += kDecodeThreads) {
+      const int row = i / CPR, c = (i % CPR) * 8;
+      cp_async16(smem_u32(base + 2 * (row * KROW + c)),
+                 kg + (long long)(j0 + row) * a.k_s + c);
+      cp_async16(smem_u32(base + KBYTES + 2 * (row * D + c)),
+                 vg + (long long)(j0 + row) * a.v_s + c);
+    }
+    cp_async_commit();
+  };
+  issue(live[0], 0);
   for (int i = t; i < rep * D; i += kDecodeThreads)
     q_s[i] = __bfloat162float(a.q[b * a.q_b + (h0 + i / D) * a.q_h + i % D]);
-  cp_async_wait<1>();
-  __syncthreads();
-
-  // pass 1: scores of key t % kChunk for heads t / kChunk + 2i
-  {
-    const int j = t % kChunk, hs = t / kChunk;
-    if (j < n) {
-      float dot[HPT];
-#pragma unroll
-      for (int i = 0; i < HPT; ++i) dot[i] = 0.f;
-      const uint4* kr = reinterpret_cast<const uint4*>(k_s + j * KROW);
-#pragma unroll 4
-      for (int c = 0; c < CPR; ++c) {
-        float kf[8];
-        unpack8(kr[c], kf);
-#pragma unroll
-        for (int i = 0; i < HPT; ++i) {
-          if (hs + 2 * i < rep) {
-            const float4* qv =
-                reinterpret_cast<const float4*>(q_s + (hs + 2 * i) * D + c * 8);
-            const float4 qa = qv[0], qb = qv[1];
-            dot[i] = fmaf(qa.x, kf[0], dot[i]);
-            dot[i] = fmaf(qa.y, kf[1], dot[i]);
-            dot[i] = fmaf(qa.z, kf[2], dot[i]);
-            dot[i] = fmaf(qa.w, kf[3], dot[i]);
-            dot[i] = fmaf(qb.x, kf[4], dot[i]);
-            dot[i] = fmaf(qb.y, kf[5], dot[i]);
-            dot[i] = fmaf(qb.z, kf[6], dot[i]);
-            dot[i] = fmaf(qb.w, kf[7], dot[i]);
-          }
-        }
-      }
-      const bool live = st_s[j];
-#pragma unroll
-      for (int i = 0; i < HPT; ++i)
-        if (hs + 2 * i < rep)
-          s_s[(hs + 2 * i) * kChunk + j] = live ? dot[i] * a.scale : kNeg;
-    }
+  if (t < rep) {
+    m_s[t] = kNeg;
+    l_s[t] = 0.f;
   }
-  __syncthreads();
 
-  // pass 2, a warp per head: the chunk's max once, then p = exp(s - m),
-  // summed in f32 into l and kept rounded to bf16 for P.V
-  for (int r = warp; r < rep; r += kDecodeThreads / 32) {
-    float* sr = s_s + r * kChunk;
-    float mx = kNeg;
-    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, sr[j]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float p = expf(sr[j] - mx);
-      sum += p;
-      sr[j] = __bfloat162float(__float2bfloat16_rn(p));
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) {
-      m_s[r] = mx;
-      l_s[r] = sum;
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // P.V: the d pair t % (D / 2) over keys t / (D / 2) + NS i
   const int c2 = t % (D / 2), sl = t / (D / 2);
   float acc[R][2];
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = 0.f;
-#pragma unroll 4
-  for (int j = sl; j < n; j += NS) {
-    const float2 vf = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(v_s + j * D + 2 * c2));
+
+  for (int ii = 0; ii < nl; ++ii) {
+    const int stage = ii & 1, ti = live[ii];
+    if (ii + 1 < nl)
+      issue(live[ii + 1], stage ^ 1);  // its stage was freed by the last
+    else                               // iteration's closing barrier
+      cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* ks =
+        reinterpret_cast<const __nv_bfloat16*>(dsm + stage * STAGE);
+    const __nv_bfloat16* vs =
+        reinterpret_cast<const __nv_bfloat16*>(dsm + stage * STAGE + KBYTES);
+    const int j0 = (tile0 + ti) * kTile, n = min(kTile, a.Skv - j0);
+
+    // quarter dot products: key t % kTile over the quarter t / kTile of D
+    {
+      const int j = t % kTile, qd = t / kTile;
+      if (j < n) {
+        float dot[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) dot[r] = 0.f;
+        const uint4* kr =
+            reinterpret_cast<const uint4*>(ks + j * KROW) + qd * QPR;
+#pragma unroll
+        for (int c = 0; c < QPR; ++c) {
+          float kf[8];
+          unpack8(kr[c], kf);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            if (r < rep) {
+              const float4* qv = reinterpret_cast<const float4*>(
+                  q_s + r * D + (qd * QPR + c) * 8);
+              const float4 qa = qv[0], qb = qv[1];
+              dot[r] = fmaf(qa.x, kf[0], dot[r]);
+              dot[r] = fmaf(qa.y, kf[1], dot[r]);
+              dot[r] = fmaf(qa.z, kf[2], dot[r]);
+              dot[r] = fmaf(qa.w, kf[3], dot[r]);
+              dot[r] = fmaf(qb.x, kf[4], dot[r]);
+              dot[r] = fmaf(qb.y, kf[5], dot[r]);
+              dot[r] = fmaf(qb.z, kf[6], dot[r]);
+              dot[r] = fmaf(qb.w, kf[7], dot[r]);
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (r < rep) sq_s[(qd * rep + r) * kTile + j] = dot[r];
+      }
+    }
+    __syncthreads();
+
+    // the tile's softmax, a warp per head: scores (masked NEG, past Skv
+    // none), the tile's max once, p = exp(s - m) summed into l and kept
+    // rounded to bf16 for P.V, the running max and sum moved on
+    const unsigned long long ok = bits[ti];
+    for (int r = warp; r < rep; r += kDecodeThreads / 32) {
+      float x[2], mx = kNeg;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = h * 32 + lane;
+        x[h] = -INFINITY;
+        if (j < n) {
+          const float dot = sq_s[r * kTile + j] +
+                            sq_s[(rep + r) * kTile + j] +
+                            sq_s[(2 * rep + r) * kTile + j] +
+                            sq_s[(3 * rep + r) * kTile + j];
+          x[h] = (ok >> j) & 1 ? dot * a.scale : kNeg;
+        }
+        mx = fmaxf(mx, x[h]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_old = m_s[r], m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float p = expf(x[h] - m_new);
+        sum += p;
+        p_s[r * kTile + h * 32 + lane] =
+            __bfloat162float(__float2bfloat16_rn(p));
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) {
+        const float al = expf(m_old - m_new);
+        al_s[r] = al;
+        l_s[r] = l_s[r] * al + sum;
+        m_s[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // P.V: the d pair c2 over the keys sl + NS i of the tile
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (r < rep) {
-        const float p = s_s[r * kChunk + j];
-        acc[r][0] = fmaf(p, vf.x, acc[r][0]);
-        acc[r][1] = fmaf(p, vf.y, acc[r][1]);
+        const float al = al_s[r];
+        acc[r][0] *= al;
+        acc[r][1] *= al;
       }
     }
+#pragma unroll 4
+    for (int j = sl; j < n; j += NS) {
+      const float2 vf = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(vs + j * D + 2 * c2));
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r < rep) {
+          const float p = p_s[r * kTile + j];
+          acc[r][0] = fmaf(p, vf.x, acc[r][0]);
+          acc[r][1] = fmaf(p, vf.y, acc[r][1]);
+        }
+      }
+    }
+    __syncthreads();  // the stage and the tile's scores are free again
   }
-  __syncthreads();  // K and V are read: `red` takes their place
+
+  // the key slices' sums through shared memory, then the record
 #pragma unroll
   for (int r = 0; r < R; ++r)
     if (r < rep)
@@ -919,7 +999,7 @@ Args make_args(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int D, int R>
-cudaError_t launch_decode(const Args& a, float* part, int* tickets,
+cudaError_t launch_decode(const Args& a, int tps, float* part, int* tickets,
                           cudaStream_t stream) {
   const size_t smem = decode_smem(D, a.H / a.KVH);
   if (smem > 48 * 1024) {
@@ -928,21 +1008,22 @@ cudaError_t launch_decode(const Args& a, float* part, int* tickets,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const int splits = a.Skv > 0 ? (a.Skv + kChunk - 1) / kChunk : 1;
+  const int tiles = (a.Skv + kTile - 1) / kTile;
+  const int splits = tiles > 0 ? (tiles + tps - 1) / tps : 1;
   decode_kernel<D, R><<<dim3(splits, a.KVH, a.B), kDecodeThreads, smem,
-                        stream>>>(a, part, tickets);
+                        stream>>>(a, tps, part, tickets);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t decode_for_rep(const Args& a, float* part, int* tickets,
+cudaError_t decode_for_rep(const Args& a, int tps, float* part, int* tickets,
                            cudaStream_t stream) {
   int rep = a.H / a.KVH;
-  if (rep <= 1) return launch_decode<D, 1>(a, part, tickets, stream);
-  if (rep <= 2) return launch_decode<D, 2>(a, part, tickets, stream);
-  if (rep <= 4) return launch_decode<D, 4>(a, part, tickets, stream);
-  if (rep <= 8) return launch_decode<D, 8>(a, part, tickets, stream);
-  return launch_decode<D, kMaxGroup>(a, part, tickets, stream);
+  if (rep <= 1) return launch_decode<D, 1>(a, tps, part, tickets, stream);
+  if (rep <= 2) return launch_decode<D, 2>(a, tps, part, tickets, stream);
+  if (rep <= 4) return launch_decode<D, 4>(a, tps, part, tickets, stream);
+  if (rep <= 8) return launch_decode<D, 8>(a, tps, part, tickets, stream);
+  return launch_decode<D, kMaxGroup>(a, tps, part, tickets, stream);
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime so that the
@@ -1050,25 +1131,27 @@ int flash_decode_smem_bytes(int D, int rep) {
   return (int)decode_smem(D, rep);
 }
 
-// K8, decode variant: as flash_prefill with Sq == 1. `part` is f32
-// scratch of B * H * splits * (D + 2) floats (splits = ceil(Skv / kChunk),
-// at least 1); `tickets` holds B * KVH int32 counters, zero before the
+// K8, decode variant: as flash_prefill with Sq == 1. The grid has
+// ceil(ceil(Skv / kTile) / tps) splits (at least 1) of `tps` tiles each
+// (1 <= tps <= kMaxSplitTiles); `part` is f32 scratch of B * H * splits
+// * (D + 2) floats, `tickets` B * KVH int32 counters, zero before the
 // call and zero again after it. Calls that share `tickets` must run in
 // order (one stream).
 int flash_decode(const void* q, const void* k, const void* v, void* o,
                  const void* q_pos, const void* kv_pos, const void* kv_valid,
                  const long long* strides, int B, int Skv, int H, int KVH,
                  int D, int causal, int has_window, int window, float scale,
-                 void* part, void* tickets, void* stream) {
+                 int tps, void* part, void* tickets, void* stream) {
   Args a = make_args(q, k, v, o, q_pos, kv_pos, kv_valid, strides, B, 1, Skv,
                      H, KVH, causal, has_window, window, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H % KVH != 0 || H / KVH > kMaxGroup)
+  if (H % KVH != 0 || H / KVH > kMaxGroup || tps < 1 ||
+      tps > kMaxSplitTiles)
     return (int)cudaErrorInvalidValue;
   float* p = static_cast<float*>(part);
   int* t = static_cast<int*>(tickets);
-  if (D == 64) return (int)decode_for_rep<64>(a, p, t, s);
-  if (D == 128) return (int)decode_for_rep<128>(a, p, t, s);
+  if (D == 64) return (int)decode_for_rep<64>(a, tps, p, t, s);
+  if (D == 128) return (int)decode_for_rep<128>(a, tps, p, t, s);
   return (int)cudaErrorInvalidValue;
 }
 

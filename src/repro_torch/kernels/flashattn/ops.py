@@ -14,11 +14,13 @@ loads q, k and v by TMA through tensor maps over those strides (hence
 the 16-byte alignment and strides in multiples of 8 elements the checks
 ask for), runs `wgmma` on 128-row q-tiles, and skips the 128-key tiles
 that no row of a q-tile may see; a row that sees no key at all makes
-its q-tile run again over every key. The decode variant splits the
-cache into chunks of `DECODE_CHUNK` slots, one CTA per (chunk, kv head,
-batch); each writes its partial softmax state to f32 scratch taken here
-with `torch.empty`, and the last CTA of a (kv head, batch), found by a
-ticket on an int32 counter, merges them in the same launch. The
+its q-tile run again over every key. The decode variant cuts the cache
+into tiles of `DECODE_TILE` slots and gives each CTA a split of
+consecutive tiles (`decode_split`) for one (kv head, batch); each walks
+its tiles with an online softmax, skipping those it may not see, and
+writes its partial state to f32 scratch taken here with `torch.empty`;
+the last CTA of a (kv head, batch), found by a ticket on an int32
+counter, merges them in the same launch. The
 counters live in a zeroed buffer kept per (device, stream), so calls on
 different streams never share one; the kernel sets each counter it used
 back to 0. On a CPU tensor it runs the plain version of the variant:
@@ -55,8 +57,12 @@ HEAD_DIMS = (64, 128)
 #: the most query heads per kv head the decode variant serves
 #: (`kMaxGroup` in csrc/flashattn.cu)
 MAX_GROUP = 16
-#: cache slots per CTA of the decode variant (`kChunk` in csrc/flashattn.cu)
-DECODE_CHUNK = 128
+#: cache slots per tile of the decode variant (`kTile` in csrc/flashattn.cu)
+DECODE_TILE = 64
+#: the most tiles one split of the decode variant walks (`kMaxSplitTiles`)
+MAX_SPLIT_TILES = 64
+#: CTAs the decode split aims at: two waves of 3 CTAs on an H100's 132 SMs
+DECODE_TARGET_CTAS = 792
 
 LAUNCHES = {"flash_prefill": 0, "flash_decode": 0}
 
@@ -76,7 +82,7 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_float, ctypes.c_void_p]
         lib.flash_prefill.restype = ctypes.c_int
         lib.flash_decode.argtypes = common + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p]
         lib.flash_decode.restype = ctypes.c_int
         lib.flash_prefill_smem_bytes.argtypes = [ctypes.c_int]
@@ -157,46 +163,66 @@ def flash_plain(q, k, v, q_pos, kv_pos, kv_valid, *, causal: bool = True,
     return out
 
 
-def decode_splits(skv: int) -> int:
-    """Chunks of `DECODE_CHUNK` slots the decode variant splits a cache of
-    `skv` slots into (one CTA each, at least one)."""
-    return max(1, -(-skv // DECODE_CHUNK))
+def decode_split(b: int, kvh: int, skv: int) -> Tuple[int, int]:
+    """(tiles a split walks, splits) of the decode variant's grid for B
+    `b`, `kvh` kv heads and `skv` slots: ceil(b * kvh * tiles /
+    DECODE_TARGET_CTAS) tiles a split, between 1 and MAX_SPLIT_TILES, and
+    at least one split."""
+    tiles = -(-skv // DECODE_TILE)
+    tps = min(MAX_SPLIT_TILES,
+              max(1, -(-(b * kvh * tiles) // DECODE_TARGET_CTAS)))
+    return tps, max(1, -(-tiles // tps))
 
 
 def flash_decode_plain(q, k, v, q_pos, kv_pos, kv_valid, *,
                        causal: bool = True,
                        window: Optional[int] = None) -> torch.Tensor:
     """Plain torch K8 decode (Sq == 1): the kernel's split over the cache
-    and its merge. Each chunk of `DECODE_CHUNK` slots (the last one
-    ragged) takes its scores' max once, p = exp(s - m) and l = sum(p),
-    and o = p.V with p rounded to v's dtype; a chunk with no allowed key
-    is skipped (its m is -inf). The merge weighs each live chunk by
-    exp(m_c - M), M the largest m_c; with no live chunk the row averages
+    and its merge. Each split (`decode_split`) walks its tiles of
+    `DECODE_TILE` slots (the last one ragged) with an online softmax:
+    the tile's max once, p = exp(s - m) into l, o += p.V with p rounded to
+    v's dtype; a tile with no allowed key is skipped, and a split with
+    none reports m = -inf. The merge weighs each live split by
+    exp(m_c - M), M the largest m_c; with no live split the row averages
     v over the Skv keys."""
     _check_shapes(q, k, v, q_pos, kv_pos, kv_valid)
     b, sq, h, d = q.shape
     if sq != 1:
         raise ValueError(f"flash_decode_plain takes Sq == 1, got {sq}")
     skv, kvh = k.shape[1], k.shape[2]
-    rep, n = h // kvh, decode_splits(skv)
-    pad = n * DECODE_CHUNK - skv
+    rep = h // kvh
+    tps, n = decode_split(b, kvh, skv)
+    pad = n * tps * DECODE_TILE - skv
+    pad_keys = torch.nn.functional.pad
     qg = q[:, 0].float().view(b, kvh, rep, d)
     s = torch.einsum("bgrd,bkgd->bgrk", qg, k.float()) / math.sqrt(d)
     allowed = attend_mask(q_pos, kv_pos, kv_valid, causal=causal,
                           window=window)[:, 0]             # [B, Skv]
     s = torch.where(allowed[:, None, None], s, NEG)
     # slots past Skv take no part: p = exp(-inf) = 0
-    s = torch.nn.functional.pad(s, (0, pad), value=-math.inf)
-    s = s.view(b, kvh, rep, n, DECODE_CHUNK)
-    vc = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
-    vc = vc.view(b, n, DECODE_CHUNK, kvh, d)
-    live = torch.nn.functional.pad(allowed, (0, pad)).view(
-        b, n, DECODE_CHUNK).any(dim=-1)[:, None, None]     # [B,1,1,n]
-    m = s.amax(dim=-1)                                     # [B,KVH,rep,n]
-    p = torch.exp(s - m[..., None])
-    l = p.sum(dim=-1)
-    o = torch.einsum("bgrnc,bncgd->bgrnd", p.to(v.dtype).float(), vc)
-    m = torch.where(live, m, -math.inf)                    # skipped chunks
+    s = pad_keys(s, (0, pad), value=-math.inf).view(
+        b, kvh, rep, n, tps, DECODE_TILE)
+    vt = pad_keys(v.float(), (0, 0, 0, 0, 0, pad)).view(
+        b, n, tps, DECODE_TILE, kvh, d)
+    live = pad_keys(allowed, (0, pad)).view(
+        b, n, tps, DECODE_TILE).any(dim=-1)[:, None, None]  # [B,1,1,n,tps]
+    m = torch.full((b, kvh, rep, n), NEG, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros((b, kvh, rep, n, d), dtype=torch.float32,
+                    device=q.device)
+    for i in range(tps):                  # each split's tiles, in order
+        st, on = s[..., i, :], live[..., i]
+        m_new = torch.where(on, torch.maximum(m, st.amax(dim=-1)), m)
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new[..., None])
+        pv = torch.einsum("bgrnc,bncgd->bgrnd", p.to(v.dtype).float(),
+                          vt[:, :, i])
+        l = torch.where(on, l * alpha + p.sum(dim=-1), l)
+        o = torch.where(on[..., None], o * alpha[..., None] + pv, o)
+        m = m_new
+    live = live.any(dim=-1)                                # [B,1,1,n]
+    m = torch.where(live, m, -math.inf)                    # skipped splits
     big = m.amax(dim=-1, keepdim=True)
     w = torch.where(live, torch.exp(m - big.clamp(min=NEG)), 0.0)
     out = (o * w[..., None]).sum(dim=3) / torch.clamp(
@@ -274,11 +300,11 @@ def flash_attention(q, k, v, q_pos, kv_pos, kv_valid, *,
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _lib()
     if sq == 1:
-        splits = decode_splits(skv)
+        tps, splits = decode_split(b, kvh, skv)
         scratch = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
                               device=dev)
         tickets = _decode_tickets(dev, stream, b * kvh)
-        err = lib.flash_decode(*ptrs, b, skv, h, kvh, d, *flags, scale,
+        err = lib.flash_decode(*ptrs, b, skv, h, kvh, d, *flags, scale, tps,
                                scratch.data_ptr(), tickets.data_ptr(),
                                stream)
         check(err, "flash_decode")

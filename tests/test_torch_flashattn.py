@@ -220,11 +220,18 @@ def test_flash_decode_plain_vs_reference(dtype, b, skv, h, kvh, d, window,
                                    rtol=tol)
 
 
+@pytest.mark.parametrize("splits", ["rule", "two"])
 @pytest.mark.parametrize("b,skv,h,kvh,d,window,pos", DECODE_CASES)
 def test_flash_decode_plain_matches_flash_plain(b, skv, h, kvh, d, window,
-                                                pos):
+                                                pos, splits, monkeypatch):
     """In f32 the split-and-merge decode equals the sequential online
-    softmax within 2e-5: only the order of the sums differs."""
+    softmax within 2e-5: only the order of the sums differs. At these
+    sizes the split rule gives one tile a split; `two` aims at two CTAs
+    a group, so the cache falls into two splits that walk several tiles
+    each (online across them, skipping the tiles they may not see)."""
+    if splits == "two":
+        monkeypatch.setattr(fa, "DECODE_TARGET_CTAS", 2 * b * kvh)
+        assert fa.decode_split(b, kvh, skv)[1] == 2
     _, tx = _both(_decode_inputs(b, skv, h, kvh, d, pos, seed=skv + 1),
                   "float32")
     got = fa.flash_decode_plain(*tx, causal=True, window=window)
@@ -287,12 +294,19 @@ def test_decode_group_limit_matches_kernel_source():
         == fa.MAX_GROUP
 
 
-def test_decode_chunk_matches_kernel_source():
-    """The plain decode's chunk (`DECODE_CHUNK`) is the kernel's `kChunk`,
-    so the plain version splits and merges as the kernel does."""
+def test_decode_split_matches_kernel_source():
+    """The plain decode's tile and split cap are the kernel's `kTile` and
+    `kMaxSplitTiles`; the split rule gives the grids the kernel's source
+    note states."""
     import re
     from repro_torch.kernels import build as kbuild
     src = kbuild.SOURCES["flashattn"].read_text()
-    assert int(re.search(r"kChunk = (\d+);", src).group(1)) \
-        == fa.DECODE_CHUNK
-    assert fa.decode_splits(0) == 1 and fa.decode_splits(129) == 2
+    assert int(re.search(r"kTile = (\d+);", src).group(1)) \
+        == fa.DECODE_TILE
+    assert int(re.search(r"kMaxSplitTiles = (\d+);", src).group(1)) \
+        == fa.MAX_SPLIT_TILES
+    assert fa.decode_split(4, 20, 2088) == (4, 9)       # qwen1.5-4b decode
+    assert fa.decode_split(1, 20, 32768) == (13, 40)
+    assert fa.decode_split(2, 8, 2088) == (1, 33)       # minitron-4b, B 2
+    assert fa.decode_split(1, 1, 0) == (1, 1)
+    assert fa.decode_split(512, 32, 32768)[0] == fa.MAX_SPLIT_TILES
