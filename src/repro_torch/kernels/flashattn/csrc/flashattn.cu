@@ -78,12 +78,15 @@
 //     slots and the grid is (splits, KVH, B), each CTA walking `tps`
 //     consecutive tiles for all H / KVH query heads of its group, so each
 //     K and V row is still read once. The wrapper picks tps = ceil(B *
-//     KVH * tiles / 792), at most kMaxSplitTiles: 792 CTAs are two waves
-//     of 3 CTAs on 132 SMs, enough to keep every SM's loads in flight,
-//     and no more, since each split adds a record to write and merge.
-//     qwen1.5-4b's decode shape (B 4, 20 kv heads, 33 tiles) gets 4 tiles
-//     a split, 9 splits, 720 CTAs (one CTA per (kv head, batch) gave 80 on
-//     132 SMs); B 1 over 32,768 slots 13 tiles, 40 splits, 800 CTAs.
+//     KVH * tiles / 792), at least 2 and at most kMaxSplitTiles: 792 CTAs
+//     are two waves of 3 CTAs on 132 SMs, enough to keep every SM's loads
+//     in flight, and no more, since each split adds a prologue, a record
+//     to write and one to merge; with 2 tiles or more a split always has
+//     a tile loading while it computes one. qwen1.5-4b's decode shape
+//     (B 4, 20 kv heads, 33 tiles) gets 4 tiles a split, 9 splits, 720
+//     CTAs (one CTA per (kv head, batch) gave 80 on 132 SMs); B 1 over
+//     32,768 slots 13 tiles, 40 splits, 800 CTAs. Timed over tps at
+//     these shapes by tools/sweep_flash_decode.py.
 //   * bytes in flight: a CTA's tiles pass through a ring of 2 stages in
 //     shared memory, each tile's K and V rows loaded as 16-byte cp.async
 //     copies through the caller's strides (stacked and strided cache

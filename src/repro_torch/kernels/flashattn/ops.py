@@ -166,11 +166,12 @@ def flash_plain(q, k, v, q_pos, kv_pos, kv_valid, *, causal: bool = True,
 def decode_split(b: int, kvh: int, skv: int) -> Tuple[int, int]:
     """(tiles a split walks, splits) of the decode variant's grid for B
     `b`, `kvh` kv heads and `skv` slots: ceil(b * kvh * tiles /
-    DECODE_TARGET_CTAS) tiles a split, between 1 and MAX_SPLIT_TILES, and
-    at least one split."""
+    DECODE_TARGET_CTAS) tiles a split, at least 2 (so the next tile
+    loads while one is computed) and at most MAX_SPLIT_TILES, and at
+    least one split."""
     tiles = -(-skv // DECODE_TILE)
     tps = min(MAX_SPLIT_TILES,
-              max(1, -(-(b * kvh * tiles) // DECODE_TARGET_CTAS)))
+              max(2, -(-(b * kvh * tiles) // DECODE_TARGET_CTAS)))
     return tps, max(1, -(-tiles // tps))
 
 

@@ -226,12 +226,13 @@ def test_flash_decode_plain_matches_flash_plain(b, skv, h, kvh, d, window,
                                                 pos, splits, monkeypatch):
     """In f32 the split-and-merge decode equals the sequential online
     softmax within 2e-5: only the order of the sums differs. At these
-    sizes the split rule gives one tile a split; `two` aims at two CTAs
-    a group, so the cache falls into two splits that walk several tiles
-    each (online across them, skipping the tiles they may not see)."""
+    sizes the split rule gives two tiles a split; `two` aims at two CTAs
+    a group, so the cache falls into at most two splits that walk more
+    tiles each (online across them, skipping the tiles they may not
+    see)."""
     if splits == "two":
         monkeypatch.setattr(fa, "DECODE_TARGET_CTAS", 2 * b * kvh)
-        assert fa.decode_split(b, kvh, skv)[1] == 2
+        assert fa.decode_split(b, kvh, skv)[1] <= 2
     _, tx = _both(_decode_inputs(b, skv, h, kvh, d, pos, seed=skv + 1),
                   "float32")
     got = fa.flash_decode_plain(*tx, causal=True, window=window)
@@ -307,6 +308,7 @@ def test_decode_split_matches_kernel_source():
         == fa.MAX_SPLIT_TILES
     assert fa.decode_split(4, 20, 2088) == (4, 9)       # qwen1.5-4b decode
     assert fa.decode_split(1, 20, 32768) == (13, 40)
-    assert fa.decode_split(2, 8, 2088) == (1, 33)       # minitron-4b, B 2
-    assert fa.decode_split(1, 1, 0) == (1, 1)
+    assert fa.decode_split(2, 8, 2088) == (2, 17)       # minitron-4b, B 2
+    assert fa.decode_split(2, 4, 300) == (2, 3)         # at least 2 tiles
+    assert fa.decode_split(1, 1, 0) == (2, 1)
     assert fa.decode_split(512, 32, 32768)[0] == fa.MAX_SPLIT_TILES
