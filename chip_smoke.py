@@ -87,8 +87,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              included), a non-causal shape; and decode (Sq 1): qwen1.5-4b
              at position 2080 (the serve path's shape), the same on a
              wrapped ring, at B 1 over 32,768 slots (Qwen1.5-4B's context
-             length: 256 splits of the cache), minitron-4b's 24/8 GQA at
-             B 2, and d 64 with a window of 64 (15 of 17 chunks skipped).
+             length: 40 splits of 13 64-key tiles), minitron-4b's 24/8
+             GQA at B 2, and d 64 with a window of 64 (31 of 33 tiles
+             skipped).
              Each line's bound is the larger of 4*D flops per unmasked
              (q, k) pair over 989 TFLOP/s and the bytes these inputs need
              over 3.35 TB/s: q, o and the positions once, K at the kv
@@ -100,9 +101,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              torch.profiler (at Sq 1 the host's dispatch can outlast the
              kernels); each line adds its registers and spills from
              nvcc's ptxas log; a prefill line adds the kernel's device
-             TFLOP/s (unmasked flops over its device time), a decode line
-             its device GB/s (the bytes above over its device time), and
-             each its dynamic shared memory a CTA;
+             TFLOP/s (unmasked flops over its device time) and its shared
+             memory a CTA, a decode line its device GB/s (the bytes above
+             over its device time);
 8. serve   — path `serve`: `repro_torch.launch.serve.serve` runs
              qwen1.5-4b at its full config (40 layers, d_model 2560,
              random weights from seed 0) with batch 4, a 2048-token
@@ -839,9 +840,9 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
     """K8 against `flash_plain` and `sdpa_ref` on the card, one line per
     shape; returns the records of qwen1.5-4b's prefill and decode shapes
     (the serve path's) and each variant's largest error. Every line adds
-    the kernel's registers and spills from `ptxas_log` and the shared
-    memory one of its CTAs takes; a prefill line its device TFLOP/s
-    (unmasked flops over `device_ms`), a decode line its device GB/s."""
+    the kernel's registers and spills from `ptxas_log`; a prefill line
+    its device TFLOP/s (unmasked flops over `device_ms`) and the shared
+    memory one of its CTAs takes, a decode line its device GB/s."""
     import torch.nn.functional as F
     from repro_torch.kernels.flashattn.ref import attend_mask, sdpa_ref
     from repro_torch.models.layers import _ring_positions
@@ -959,7 +960,6 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
             group = min(g for g in (1, 2, 4, 8, fa.MAX_GROUP) if g >= rep_kv)
             rec["ptxas"] = ptxas_usage(
                 ptxas_log, f"decode_kernelILi{d}ELi{group}E")
-            rec["smem_bytes"] = fa.decode_smem_bytes(d, rep_kv)
         emit(rec)
         if name in ("qwen1.5-4b prefill", "qwen1.5-4b decode"):
             rep[variant] = rec

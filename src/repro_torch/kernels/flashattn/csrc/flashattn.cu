@@ -1127,13 +1127,6 @@ int flash_prefill_smem_bytes(int D) {
                  : D == 128 ? (int)prefill_smem<128>() : -1;
 }
 
-// Dynamic shared memory of one decode CTA at head_dim D and `rep` query
-// heads per kv head (it also has about 330 bytes of static shared
-// memory).
-int flash_decode_smem_bytes(int D, int rep) {
-  return (int)decode_smem(D, rep);
-}
-
 // K8, decode variant: as flash_prefill with Sq == 1. The grid has
 // ceil(ceil(Skv / kTile) / tps) splits (at least 1) of `tps` tiles each
 // (1 <= tps <= kMaxSplitTiles); `part` is f32 scratch of B * H * splits

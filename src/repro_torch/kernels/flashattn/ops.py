@@ -47,6 +47,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.build import check, library
 from repro_torch.kernels.flashattn.ref import NEG, attend_mask
@@ -87,8 +88,6 @@ def _lib() -> ctypes.CDLL:
         lib.flash_decode.restype = ctypes.c_int
         lib.flash_prefill_smem_bytes.argtypes = [ctypes.c_int]
         lib.flash_prefill_smem_bytes.restype = ctypes.c_int
-        lib.flash_decode_smem_bytes.argtypes = [ctypes.c_int] * 2
-        lib.flash_decode_smem_bytes.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -102,12 +101,6 @@ def prefill_smem_bytes(d: int) -> int:
     """Shared memory (static and dynamic bytes) one CTA of the prefill
     kernel takes at head_dim `d`."""
     return int(_lib().flash_prefill_smem_bytes(d))
-
-
-def decode_smem_bytes(d: int, rep: int) -> int:
-    """Dynamic shared memory one CTA of the decode kernel takes at head_dim
-    `d` with `rep` query heads per kv head."""
-    return int(_lib().flash_decode_smem_bytes(d, rep))
 
 
 def _check_shapes(q, k, v, q_pos, kv_pos, kv_valid) -> None:
@@ -194,18 +187,17 @@ def flash_decode_plain(q, k, v, q_pos, kv_pos, kv_valid, *,
     rep = h // kvh
     tps, n = decode_split(b, kvh, skv)
     pad = n * tps * DECODE_TILE - skv
-    pad_keys = torch.nn.functional.pad
     qg = q[:, 0].float().view(b, kvh, rep, d)
     s = torch.einsum("bgrd,bkgd->bgrk", qg, k.float()) / math.sqrt(d)
     allowed = attend_mask(q_pos, kv_pos, kv_valid, causal=causal,
                           window=window)[:, 0]             # [B, Skv]
     s = torch.where(allowed[:, None, None], s, NEG)
     # slots past Skv take no part: p = exp(-inf) = 0
-    s = pad_keys(s, (0, pad), value=-math.inf).view(
+    s = F.pad(s, (0, pad), value=-math.inf).view(
         b, kvh, rep, n, tps, DECODE_TILE)
-    vt = pad_keys(v.float(), (0, 0, 0, 0, 0, pad)).view(
+    vt = F.pad(v.float(), (0, 0, 0, 0, 0, pad)).view(
         b, n, tps, DECODE_TILE, kvh, d)
-    live = pad_keys(allowed, (0, pad)).view(
+    live = F.pad(allowed, (0, pad)).view(
         b, n, tps, DECODE_TILE).any(dim=-1)[:, None, None]  # [B,1,1,n,tps]
     m = torch.full((b, kvh, rep, n), NEG, dtype=torch.float32,
                    device=q.device)

@@ -3,7 +3,7 @@ torch versions on CPU tensors, `flash_plain` and, at Sq == 1,
 `flash_decode_plain` — against the reference's `flash_attention` (the
 Pallas kernel in interpret mode) and its dense oracle `sdpa_ref`, over
 the sweeps of tests/test_kernels_flash.py and the decode kernel's
-chunk cases.
+tile and split cases.
 
 Inputs are drawn with numpy from a seed and rounded to bf16 the same way
 (round to nearest even) on both sides. Tolerances are the reference's
@@ -182,13 +182,13 @@ def _decode_inputs(b, skv, h, kvh, d, pos, seed):
 
 
 DECODE_CASES = [  # b, skv, h, kvh, d, window, pos
-    (2, 300, 4, 4, 64, None, "tail"),   # Skv not a chunk multiple, group 1
-    (2, 77, 6, 2, 32, None, "tail"),    # less than one chunk, group 3
+    (2, 300, 4, 4, 64, None, "tail"),   # Skv not a tile multiple, group 1
+    (2, 50, 6, 2, 32, None, "tail"),    # less than one tile, group 3
     (1, 400, 18, 2, 32, None, "tail"),  # group 9
     (1, 260, 16, 1, 32, None, "tail"),  # group 16
-    (2, 700, 4, 2, 32, 64, "tail"),     # window: chunks 0-3 see no key
+    (2, 700, 4, 2, 32, 64, "tail"),     # window: tiles 0-8 see no key
     (2, 300, 4, 2, 32, None, "ring"),   # wrapped ring
-    (2, 300, 6, 2, 32, 100, "dead"),    # row 0 sees no key in any chunk
+    (2, 300, 6, 2, 32, 100, "dead"),    # row 0 sees no key in any tile
 ]
 
 

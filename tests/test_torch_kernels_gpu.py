@@ -287,7 +287,7 @@ def no_tf32():
     (2, 1, 100, 8, 8, 128, False, None, "tail"),
     (1, 1, 32768, 20, 20, 128, True, None, "tail"),  # decode, 256 splits
     (4, 1, 2088, 20, 20, 128, True, None, "ring"),   # qwen, wrapped ring
-    (2, 1, 2088, 16, 16, 64, True, 64, "tail"),    # 15 of 17 chunks skipped
+    (2, 1, 2088, 16, 16, 64, True, 64, "tail"),    # 31 of 33 tiles skipped
     (2, 1, 1000, 32, 2, 64, True, None, "dead"),   # group of 16; batch row 0
                                                    # sees no key
 ])
