@@ -815,7 +815,7 @@ __global__ void __launch_bounds__(kDecodeThreads, R <= 4 ? 3 : 2)
   const __nv_bfloat16* vg = a.v + b * a.v_b + kvh * a.v_h;
   // a tile's K and V rows (those below Skv) into a stage, as 16-byte
   // copies in one group
-  auto issue = [&](int ti, int stage) {
+  auto load_tile = [&](int ti, int stage) {
     const int j0 = (tile0 + ti) * kTile, n = min(kTile, a.Skv - j0);
     uint8_t* base = dsm + stage * STAGE;
     for (int i = t; i < n * CPR; i += kDecodeThreads) {
@@ -827,7 +827,7 @@ __global__ void __launch_bounds__(kDecodeThreads, R <= 4 ? 3 : 2)
     }
     cp_async_commit();
   };
-  issue(live[0], 0);
+  load_tile(live[0], 0);
   for (int i = t; i < rep * D; i += kDecodeThreads)
     q_s[i] = __bfloat162float(a.q[b * a.q_b + (h0 + i / D) * a.q_h + i % D]);
   if (t < rep) {
@@ -843,7 +843,7 @@ __global__ void __launch_bounds__(kDecodeThreads, R <= 4 ? 3 : 2)
   for (int ii = 0; ii < nl; ++ii) {
     const int stage = ii & 1, ti = live[ii];
     if (ii + 1 < nl)
-      issue(live[ii + 1], stage ^ 1);  // its stage was freed by the last
+      load_tile(live[ii + 1], stage ^ 1);  // its stage was freed by the last
     else                               // iteration's closing barrier
       cp_async_commit();
     cp_async_wait<1>();
