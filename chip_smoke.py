@@ -89,7 +89,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              wrapped ring, at B 1 over 32,768 slots (Qwen1.5-4B's context
              length: 40 splits of 13 64-key tiles), minitron-4b's 24/8
              GQA at B 2, and d 64 with a window of 64 (31 of 33 tiles
-             skipped).
+             skipped). A decode line must also lie within two bf16 ulps
+             of the largest output of each reference (`decode_limit`).
              Each line's bound is the larger of 4*D flops per unmasked
              (q, k) pair over 989 TFLOP/s and the bytes these inputs need
              over 3.35 TB/s: q, o and the positions once, K at the kv
@@ -140,6 +141,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -173,6 +175,13 @@ TF_MEAN_ABS = 0.04
 #: the reference's bf16 tolerance for the flash kernel
 #: (tests/test_kernels_flash.py)
 FLASH_TOL = 2e-2
+#: bf16 ulps of the largest output a decode line may differ by: K8 decode
+#: and its references round f32 values that differ by far less than an
+#: ulp, so each output lands within one ulp of the largest output; at a
+#: long cache the outputs (averages of v over the cache) are as small as
+#: FLASH_TOL, while a split left out or misweighted moves them by a share
+#: of their own scale, well past two ulps
+DECODE_ULPS = 2
 FLASH = ("flash_prefill", "flash_decode")
 #: TPC-H SF 1 shapes: lineitem's rows pad to the 2^23 bucket; filters are
 #: sized for the orders-sized (1.5 M) and lineitem-sized (6 M) key sets
@@ -836,6 +845,13 @@ def ptxas_usage(log: str, kernel: str) -> dict:
     return out
 
 
+def decode_limit(ref) -> float:
+    """DECODE_ULPS bf16 ulps (2^-7 relative) of the largest |ref|."""
+    top = float(ref.float().abs().max())
+    return DECODE_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7) \
+        if top > 0 else 0.0
+
+
 def attention_phase(torch, fa, dev, ptxas_log: str):
     """K8 against `flash_plain` and `sdpa_ref` on the card, one line per
     shape; returns the records of qwen1.5-4b's prefill and decode shapes
@@ -900,13 +916,18 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
                          v.repeat_interleave(rep_kv, 2), qp, kp, kval, **kw)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"K8 {name}: not finite")
-        errs = {}
+        errs, limits = {}, {}
         for ref_name, ref in (("flash_plain", plain), ("sdpa_ref", dense)):
             errs[ref_name] = float((got.float() - ref.float()).abs().max())
             check(torch.allclose(got.float(), ref.float(), atol=FLASH_TOL,
                                  rtol=FLASH_TOL),
                   f"K8 {name} differs from {ref_name} by "
                   f"{errs[ref_name]}")
+            if sq == 1:
+                limits[ref_name] = decode_limit(ref)
+                check(errs[ref_name] <= limits[ref_name],
+                      f"K8 {name} differs from {ref_name} by "
+                      f"{errs[ref_name]}, over {limits[ref_name]}")
         variant = "flash_decode" if sq == 1 else "flash_prefill"
         worst[variant] = max(worst[variant], errs["flash_plain"])
         # the work these inputs need: 4*d flops per unmasked (q, k) pair;
@@ -957,6 +978,7 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
             rec["smem_bytes"] = fa.prefill_smem_bytes(d)
         else:
             rec["device_gb_s"] = nbytes / (rec["device_ms"] * 1e-3) / 1e9
+            rec["decode_limit"] = limits
             group = min(g for g in (1, 2, 4, 8, fa.MAX_GROUP) if g >= rep_kv)
             rec["ptxas"] = ptxas_usage(
                 ptxas_log, f"decode_kernelILi{d}ELi{group}E")

@@ -77,16 +77,15 @@
 //   * a split over the cache: the cache is cut into tiles of kTile = 64
 //     slots and the grid is (splits, KVH, B), each CTA walking `tps`
 //     consecutive tiles for all H / KVH query heads of its group, so each
-//     K and V row is still read once. The wrapper picks tps = ceil(B *
-//     KVH * tiles / 792), at least 2 and at most kMaxSplitTiles: 792 CTAs
-//     are two waves of 3 CTAs on 132 SMs, enough to keep every SM's loads
-//     in flight, and no more, since each split adds a prologue, a record
-//     to write and one to merge; with 2 tiles or more a split always has
-//     a tile loading while it computes one. qwen1.5-4b's decode shape
-//     (B 4, 20 kv heads, 33 tiles) gets 4 tiles a split, 9 splits, 720
-//     CTAs (one CTA per (kv head, batch) gave 80 on 132 SMs); B 1 over
-//     32,768 slots 13 tiles, 40 splits, 800 CTAs. Timed over tps at
-//     these shapes by tools/sweep_flash_decode.py.
+//     K and V row is still read once. decode_tps picks tps = ceil(B *
+//     KVH * tiles / kDecodeCtas), at least 2 and at most kMaxSplitTiles:
+//     kDecodeCtas = 792 CTAs are two waves of 3 CTAs on an H100's 132
+//     SMs, enough to keep every SM's loads in flight, and no more, since
+//     each split adds a prologue, a record to write and one to merge; with
+//     2 tiles or more a split always has a tile loading while it computes
+//     one. qwen1.5-4b's decode shape (B 4, 20 kv heads, 33 tiles) gets 4
+//     tiles a split, 9 splits, 720 CTAs (one CTA per (kv head, batch) gave
+//     80 on 132 SMs); B 1 over 32,768 slots 13 tiles, 40 splits, 800 CTAs.
 //   * bytes in flight: a CTA's tiles pass through a ring of 2 stages in
 //     shared memory, each tile's K and V rows loaded as 16-byte cp.async
 //     copies through the caller's strides (stacked and strided cache
@@ -134,10 +133,9 @@ constexpr float kNeg = -1e30f;
 constexpr int kDecodeThreads = 256;
 constexpr int kMaxGroup = 16;     // most H / KVH the decode variant takes
                                   // (MAX_GROUP in ops.py)
-constexpr int kTile = 64;         // keys per decode tile (DECODE_TILE in
-                                  // ops.py)
+constexpr int kTile = 64;         // keys per decode tile
 constexpr int kMaxSplitTiles = 64;  // most tiles a decode CTA walks
-                                    // (MAX_SPLIT_TILES in ops.py)
+constexpr int kDecodeCtas = 792;  // CTAs a decode call aims at
 
 struct Args {
   const __nv_bfloat16* q;
@@ -1001,6 +999,18 @@ Args make_args(const void* q, const void* k, const void* v, void* o,
   return a;
 }
 
+// Tiles a decode split walks, and the splits, for B, KVH and Skv (the rule
+// in the note at the top).
+int decode_tps(int B, int KVH, int Skv) {
+  const long long tiles = (Skv + kTile - 1) / kTile;
+  const long long want = (B * KVH * tiles + kDecodeCtas - 1) / kDecodeCtas;
+  return (int)(want < 2 ? 2 : want > kMaxSplitTiles ? kMaxSplitTiles : want);
+}
+int decode_splits(int B, int KVH, int Skv) {
+  const int tiles = (Skv + kTile - 1) / kTile, tps = decode_tps(B, KVH, Skv);
+  return tiles > 0 ? (tiles + tps - 1) / tps : 1;
+}
+
 template <int D, int R>
 cudaError_t launch_decode(const Args& a, int tps, float* part, int* tickets,
                           cudaStream_t stream) {
@@ -1011,8 +1021,7 @@ cudaError_t launch_decode(const Args& a, int tps, float* part, int* tickets,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const int tiles = (a.Skv + kTile - 1) / kTile;
-  const int splits = tiles > 0 ? (tiles + tps - 1) / tps : 1;
+  const int splits = decode_splits(a.B, a.KVH, a.Skv);
   decode_kernel<D, R><<<dim3(splits, a.KVH, a.B), kDecodeThreads, smem,
                         stream>>>(a, tps, part, tickets);
   return cudaGetLastError();
@@ -1127,23 +1136,25 @@ int flash_prefill_smem_bytes(int D) {
                  : D == 128 ? (int)prefill_smem<128>() : -1;
 }
 
-// K8, decode variant: as flash_prefill with Sq == 1. The grid has
-// ceil(ceil(Skv / kTile) / tps) splits (at least 1) of `tps` tiles each
-// (1 <= tps <= kMaxSplitTiles); `part` is f32 scratch of B * H * splits
-// * (D + 2) floats, `tickets` B * KVH int32 counters, zero before the
-// call and zero again after it. Calls that share `tickets` must run in
-// order (one stream).
+// Splits of the decode variant's grid for B, KVH and Skv.
+int flash_decode_splits(int B, int KVH, int Skv) {
+  return decode_splits(B, KVH, Skv);
+}
+
+// K8, decode variant: as flash_prefill with Sq == 1. `part` is f32 scratch
+// of B * H * flash_decode_splits(B, KVH, Skv) * (D + 2) floats, `tickets`
+// B * KVH int32 counters, zero before the call and zero again after it.
+// Calls that share `tickets` must run in order (one stream).
 int flash_decode(const void* q, const void* k, const void* v, void* o,
                  const void* q_pos, const void* kv_pos, const void* kv_valid,
                  const long long* strides, int B, int Skv, int H, int KVH,
                  int D, int causal, int has_window, int window, float scale,
-                 int tps, void* part, void* tickets, void* stream) {
+                 void* part, void* tickets, void* stream) {
   Args a = make_args(q, k, v, o, q_pos, kv_pos, kv_valid, strides, B, 1, Skv,
                      H, KVH, causal, has_window, window, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H % KVH != 0 || H / KVH > kMaxGroup || tps < 1 ||
-      tps > kMaxSplitTiles)
-    return (int)cudaErrorInvalidValue;
+  if (H % KVH != 0 || H / KVH > kMaxGroup) return (int)cudaErrorInvalidValue;
+  const int tps = decode_tps(B, KVH, Skv);
   float* p = static_cast<float*>(part);
   int* t = static_cast<int*>(tickets);
   if (D == 64) return (int)decode_for_rep<64>(a, tps, p, t, s);

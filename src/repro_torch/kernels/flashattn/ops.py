@@ -1,6 +1,5 @@
 """Flash attention (K8): the public `flash_attention`, its launch wrapper
-and its plain torch versions `flash_plain` (prefill) and
-`flash_decode_plain` (decode, Sq == 1).
+and its plain torch version `flash_plain`.
 
 `flash_attention` takes the reference's layout: q [B, Sq, H, D], k/v
 [B, Skv, KVH, D] with KVH dividing H (GQA), q_pos [B, Sq] and kv_pos /
@@ -9,28 +8,25 @@ tensor it launches the hand-written kernel of `csrc/flashattn.cu` on the
 current stream (the decode variant when Sq == 1, else the prefill
 variant), reading q, k and v through their strides, and raises on what
 the kernel does not take (any dtype but bf16, a head_dim other than 64
-or 128): it never runs a plain version there. The prefill variant
+or 128): it never runs the plain version there. The prefill variant
 loads q, k and v by TMA through tensor maps over those strides (hence
 the 16-byte alignment and strides in multiples of 8 elements the checks
 ask for), runs `wgmma` on 128-row q-tiles, and skips the 128-key tiles
 that no row of a q-tile may see; a row that sees no key at all makes
-its q-tile run again over every key. The decode variant cuts the cache
-into tiles of `DECODE_TILE` slots and gives each CTA a split of
-consecutive tiles (`decode_split`) for one (kv head, batch); each walks
-its tiles with an online softmax, skipping those it may not see, and
-writes its partial state to f32 scratch taken here with `torch.empty`;
-the last CTA of a (kv head, batch), found by a ticket on an int32
-counter, merges them in the same launch. The
-counters live in a zeroed buffer kept per (device, stream), so calls on
-different streams never share one; the kernel sets each counter it used
-back to 0. On a CPU tensor it runs the plain version of the variant:
-`flash_plain`, the same online-softmax algorithm in torch over 128-row
-Q and KV blocks, or, at Sq == 1, `flash_decode_plain`, the decode
-kernel's split and merge in torch — the port's counterpart of running
-the reference's Pallas kernel in interpret mode. Any other device
-raises.
+its q-tile run again over every key. The decode variant splits the
+cache over CTAs for one (kv head, batch) each (the kernel picks the
+splits; `flash_decode_splits` says how many); each walks its tiles with
+an online softmax, skipping those it may not see, and writes its partial
+state to f32 scratch taken here with `torch.empty`; the last CTA of a
+(kv head, batch), found by a ticket on an int32 counter, merges them in
+the same launch. The counters live in a zeroed buffer kept per (device,
+stream), so calls on different streams never share one; the kernel sets
+each counter it used back to 0. On a CPU tensor it runs `flash_plain`,
+the same online-softmax algorithm in torch over 128-row Q and KV blocks,
+at every Sq — the port's counterpart of running the reference's Pallas
+kernel in interpret mode. Any other device raises.
 
-Numerics (all versions, as the TPU kernel): scores are the f32 dot
+Numerics (both versions, as the TPU kernel): scores are the f32 dot
 times 1/sqrt(D); masked entries are -1e30 and the running max starts at
 -1e30; p is rounded to v's dtype before the P.V product; o and l
 accumulate in f32; the finish is o / max(l, 1e-30), cast to q's dtype.
@@ -47,7 +43,6 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.build import check, library
 from repro_torch.kernels.flashattn.ref import NEG, attend_mask
@@ -58,12 +53,6 @@ HEAD_DIMS = (64, 128)
 #: the most query heads per kv head the decode variant serves
 #: (`kMaxGroup` in csrc/flashattn.cu)
 MAX_GROUP = 16
-#: cache slots per tile of the decode variant (`kTile` in csrc/flashattn.cu)
-DECODE_TILE = 64
-#: the most tiles one split of the decode variant walks (`kMaxSplitTiles`)
-MAX_SPLIT_TILES = 64
-#: CTAs the decode split aims at: two waves of 3 CTAs on an H100's 132 SMs
-DECODE_TARGET_CTAS = 792
 
 LAUNCHES = {"flash_prefill": 0, "flash_decode": 0}
 
@@ -83,9 +72,10 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_float, ctypes.c_void_p]
         lib.flash_prefill.restype = ctypes.c_int
         lib.flash_decode.argtypes = common + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         lib.flash_decode.restype = ctypes.c_int
+        lib.flash_decode_splits.argtypes = [ctypes.c_int] * 3
+        lib.flash_decode_splits.restype = ctypes.c_int
         lib.flash_prefill_smem_bytes.argtypes = [ctypes.c_int]
         lib.flash_prefill_smem_bytes.restype = ctypes.c_int
         _LIB = lib
@@ -101,6 +91,12 @@ def prefill_smem_bytes(d: int) -> int:
     """Shared memory (static and dynamic bytes) one CTA of the prefill
     kernel takes at head_dim `d`."""
     return int(_lib().flash_prefill_smem_bytes(d))
+
+
+def flash_decode_splits(b: int, kvh: int, skv: int) -> int:
+    """Splits of the decode kernel's grid over the cache for B `b`, `kvh`
+    kv heads and `skv` slots (the rule in csrc/flashattn.cu's note)."""
+    return int(_lib().flash_decode_splits(b, kvh, skv))
 
 
 def _check_shapes(q, k, v, q_pos, kv_pos, kv_valid) -> None:
@@ -156,76 +152,6 @@ def flash_plain(q, k, v, q_pos, kv_pos, kv_valid, *, causal: bool = True,
     return out
 
 
-def decode_split(b: int, kvh: int, skv: int) -> Tuple[int, int]:
-    """(tiles a split walks, splits) of the decode variant's grid for B
-    `b`, `kvh` kv heads and `skv` slots: ceil(b * kvh * tiles /
-    DECODE_TARGET_CTAS) tiles a split, at least 2 (so the next tile
-    loads while one is computed) and at most MAX_SPLIT_TILES, and at
-    least one split."""
-    tiles = -(-skv // DECODE_TILE)
-    tps = min(MAX_SPLIT_TILES,
-              max(2, -(-(b * kvh * tiles) // DECODE_TARGET_CTAS)))
-    return tps, max(1, -(-tiles // tps))
-
-
-def flash_decode_plain(q, k, v, q_pos, kv_pos, kv_valid, *,
-                       causal: bool = True,
-                       window: Optional[int] = None) -> torch.Tensor:
-    """Plain torch K8 decode (Sq == 1): the kernel's split over the cache
-    and its merge. Each split (`decode_split`) walks its tiles of
-    `DECODE_TILE` slots (the last one ragged) with an online softmax:
-    the tile's max once, p = exp(s - m) into l, o += p.V with p rounded to
-    v's dtype; a tile with no allowed key is skipped, and a split with
-    none reports m = -inf. The merge weighs each live split by
-    exp(m_c - M), M the largest m_c; with no live split the row averages
-    v over the Skv keys."""
-    _check_shapes(q, k, v, q_pos, kv_pos, kv_valid)
-    b, sq, h, d = q.shape
-    if sq != 1:
-        raise ValueError(f"flash_decode_plain takes Sq == 1, got {sq}")
-    skv, kvh = k.shape[1], k.shape[2]
-    rep = h // kvh
-    tps, n = decode_split(b, kvh, skv)
-    pad = n * tps * DECODE_TILE - skv
-    qg = q[:, 0].float().view(b, kvh, rep, d)
-    s = torch.einsum("bgrd,bkgd->bgrk", qg, k.float()) / math.sqrt(d)
-    allowed = attend_mask(q_pos, kv_pos, kv_valid, causal=causal,
-                          window=window)[:, 0]             # [B, Skv]
-    s = torch.where(allowed[:, None, None], s, NEG)
-    # slots past Skv take no part: p = exp(-inf) = 0
-    s = F.pad(s, (0, pad), value=-math.inf).view(
-        b, kvh, rep, n, tps, DECODE_TILE)
-    vt = F.pad(v.float(), (0, 0, 0, 0, 0, pad)).view(
-        b, n, tps, DECODE_TILE, kvh, d)
-    live = F.pad(allowed, (0, pad)).view(
-        b, n, tps, DECODE_TILE).any(dim=-1)[:, None, None]  # [B,1,1,n,tps]
-    m = torch.full((b, kvh, rep, n), NEG, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros_like(m)
-    o = torch.zeros((b, kvh, rep, n, d), dtype=torch.float32,
-                    device=q.device)
-    for i in range(tps):                  # each split's tiles, in order
-        st, on = s[..., i, :], live[..., i]
-        m_new = torch.where(on, torch.maximum(m, st.amax(dim=-1)), m)
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(st - m_new[..., None])
-        pv = torch.einsum("bgrnc,bncgd->bgrnd", p.to(v.dtype).float(),
-                          vt[:, :, i])
-        l = torch.where(on, l * alpha + p.sum(dim=-1), l)
-        o = torch.where(on[..., None], o * alpha[..., None] + pv, o)
-        m = m_new
-    live = live.any(dim=-1)                                # [B,1,1,n]
-    m = torch.where(live, m, -math.inf)                    # skipped splits
-    big = m.amax(dim=-1, keepdim=True)
-    w = torch.where(live, torch.exp(m - big.clamp(min=NEG)), 0.0)
-    out = (o * w[..., None]).sum(dim=3) / torch.clamp(
-        (l * w).sum(dim=-1), min=1e-30)[..., None]         # [B,KVH,rep,D]
-    mean_v = v.float().sum(dim=1) / max(skv, 1)            # [B,KVH,D]
-    out = torch.where(live.any(dim=-1, keepdim=True),
-                      out, mean_v[:, :, None])
-    return out.reshape(b, 1, h, d).to(q.dtype)
-
-
 def _decode_tickets(dev: torch.device, stream: int,
                     groups: int) -> torch.Tensor:
     key = (dev.index, stream)
@@ -261,9 +187,8 @@ def flash_attention(q, k, v, q_pos, kv_pos, kv_valid, *,
     _check_shapes(q, k, v, q_pos, kv_pos, kv_valid)
     dev = q.device
     if dev.type == "cpu":
-        plain = flash_decode_plain if q.shape[1] == 1 else flash_plain
-        return plain(q, k, v, q_pos, kv_pos, kv_valid, causal=causal,
-                     window=window)
+        return flash_plain(q, k, v, q_pos, kv_pos, kv_valid, causal=causal,
+                           window=window)
     if dev.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {dev}")
     _kernel_checks(q, k, v, dev)
@@ -293,11 +218,11 @@ def flash_attention(q, k, v, q_pos, kv_pos, kv_valid, *,
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _lib()
     if sq == 1:
-        tps, splits = decode_split(b, kvh, skv)
+        splits = flash_decode_splits(b, kvh, skv)
         scratch = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
                               device=dev)
         tickets = _decode_tickets(dev, stream, b * kvh)
-        err = lib.flash_decode(*ptrs, b, skv, h, kvh, d, *flags, scale, tps,
+        err = lib.flash_decode(*ptrs, b, skv, h, kvh, d, *flags, scale,
                                scratch.data_ptr(), tickets.data_ptr(),
                                stream)
         check(err, "flash_decode")

@@ -1,14 +1,15 @@
 """K8 (flash attention) on the CPU: the port's `flash_attention` — its plain
-torch versions on CPU tensors, `flash_plain` and, at Sq == 1,
-`flash_decode_plain` — against the reference's `flash_attention` (the
-Pallas kernel in interpret mode) and its dense oracle `sdpa_ref`, over
-the sweeps of tests/test_kernels_flash.py and the decode kernel's
-tile and split cases.
+torch version `flash_plain` on CPU tensors — against the reference's
+`flash_attention` (the Pallas kernel in interpret mode) and its dense
+oracle `sdpa_ref`, over the sweeps of tests/test_kernels_flash.py and
+the decode kernel's tile and split cases.
 
 Inputs are drawn with numpy from a seed and rounded to bf16 the same way
 (round to nearest even) on both sides. Tolerances are the reference's
 own: 2e-5 in f32, 2e-2 in bf16 (where the two frameworks round the
 products and p at other places)."""
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -19,7 +20,7 @@ import numpy as np
 from repro.kernels.flashattn import flash_attention as ref_flash
 from repro.kernels.flashattn.ref import sdpa_ref as ref_sdpa
 from repro_torch.kernels.flashattn import ops as fa
-from repro_torch.kernels.flashattn.ref import sdpa_ref
+from repro_torch.kernels.flashattn.ref import NEG, sdpa_ref
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -194,17 +195,13 @@ DECODE_CASES = [  # b, skv, h, kvh, d, window, pos
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,skv,h,kvh,d,window,pos", DECODE_CASES)
-def test_flash_decode_plain_vs_reference(dtype, b, skv, h, kvh, d, window,
-                                         pos):
-    """`flash_decode_plain` (what `flash_attention` runs at Sq == 1 on the
-    CPU) == the reference's Pallas kernel and its dense oracle. A row
-    that sees no key is held to `sdpa_ref` and to the mean of v over the
-    Skv keys only (the padded Pallas path averages over 128-padded
-    lengths, ROADMAP Queue 3)."""
+def test_flash_decode_vs_reference(dtype, b, skv, h, kvh, d, window, pos):
+    """At Sq == 1 the port == the reference's Pallas kernel and its dense
+    oracle. A row that sees no key is held to `sdpa_ref` and to the mean
+    of v over the Skv keys only (the padded Pallas path averages over
+    128-padded lengths, ROADMAP Queue 3)."""
     jx, tx = _both(_decode_inputs(b, skv, h, kvh, d, pos, seed=skv), dtype)
     got = fa.flash_attention(*tx, causal=True, window=window)
-    assert torch.equal(got, fa.flash_decode_plain(*tx, causal=True,
-                                                  window=window))
     assert got.dtype == tx[0].dtype and got.shape == (b, 1, h, d)
     rep = h // kvh
     wants = [ref_sdpa(jx[0], _expanded(jx[1], rep), _expanded(jx[2], rep),
@@ -220,22 +217,52 @@ def test_flash_decode_plain_vs_reference(dtype, b, skv, h, kvh, d, window,
                                    rtol=tol)
 
 
-@pytest.mark.parametrize("splits", ["rule", "two"])
+def _split_merge_decode(q, k, v, allowed, n):
+    """The decode kernel's split and merge on one query row a batch row:
+    each split of `n` consecutive slots with an allowed key reports its
+    max m, l = sum exp(s - m) and o = p.V (p rounded to v's dtype), a
+    split with none is left out; the merge weighs each by exp(m - M), M
+    the largest m; with no split left the row averages v over the Skv
+    slots."""
+    b, _, h, d = q.shape
+    kvh = k.shape[2]
+    s = torch.einsum("bgrd,bkgd->bgrk", q[:, 0].view(b, kvh, h // kvh, d),
+                     k) / math.sqrt(d)
+    s = torch.where(allowed[:, None, None], s, NEG)
+    ms, ls, os_ = [], [], []
+    for j in range(0, k.shape[1], n):
+        live = allowed[:, j:j + n].any(dim=1)[:, None, None]      # [B,1,1]
+        m = s[..., j:j + n].amax(dim=-1)
+        p = torch.exp(s[..., j:j + n] - m[..., None])
+        ms.append(torch.where(live, m, -math.inf))
+        ls.append(p.sum(dim=-1))
+        os_.append(torch.einsum("bgrk,bkgd->bgrd", p.to(v.dtype),
+                                v[:, j:j + n]))
+    m, l, o = torch.stack(ms), torch.stack(ls), torch.stack(os_)
+    w = torch.exp(m - m.amax(dim=0).clamp(min=NEG))    # 0 for a dead split
+    out = (w[..., None] * o).sum(dim=0) / torch.clamp(
+        (w * l).sum(dim=0), min=1e-30)[..., None]
+    mean_v = v.mean(dim=1)[:, :, None]                 # [B,KVH,1,D]
+    out = torch.where(allowed.any(dim=1)[:, None, None, None], out, mean_v)
+    return out.reshape(b, 1, h, d)
+
+
+@pytest.mark.parametrize("split", [64, 128, 832])
 @pytest.mark.parametrize("b,skv,h,kvh,d,window,pos", DECODE_CASES)
-def test_flash_decode_plain_matches_flash_plain(b, skv, h, kvh, d, window,
-                                                pos, splits, monkeypatch):
-    """In f32 the split-and-merge decode equals the sequential online
-    softmax within 2e-5: only the order of the sums differs. At these
-    sizes the split rule gives two tiles a split; `two` aims at two CTAs
-    a group, so the cache falls into at most two splits that walk more
-    tiles each (online across them, skipping the tiles they may not
-    see)."""
-    if splits == "two":
-        monkeypatch.setattr(fa, "DECODE_TARGET_CTAS", 2 * b * kvh)
-        assert fa.decode_split(b, kvh, skv)[1] <= 2
+def test_split_kv_merge_matches_flash_plain(b, skv, h, kvh, d, window, pos,
+                                            split):
+    """The rule the decode kernel's split over the cache rests on, pinned
+    on the reference's numerics: in f32, merging per-split partial states
+    equals `flash_plain`'s sequential online softmax within 2e-5 (only
+    the order of the sums differs), with splits of one 64-key tile, of
+    two, and of 13 (B 1 over 32,768 slots on an H100); leaving out the
+    splits that see no key changes nothing but for a row that sees none,
+    which averages v."""
+    from repro_torch.kernels.flashattn.ref import attend_mask
     _, tx = _both(_decode_inputs(b, skv, h, kvh, d, pos, seed=skv + 1),
                   "float32")
-    got = fa.flash_decode_plain(*tx, causal=True, window=window)
+    allowed = attend_mask(*tx[3:], causal=True, window=window)[:, 0]
+    got = _split_merge_decode(*tx[:3], allowed, split)
     want = fa.flash_plain(*tx, causal=True, window=window)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
@@ -293,22 +320,3 @@ def test_decode_group_limit_matches_kernel_source():
     src = kbuild.SOURCES["flashattn"].read_text()
     assert int(re.search(r"kMaxGroup = (\d+);", src).group(1)) \
         == fa.MAX_GROUP
-
-
-def test_decode_split_matches_kernel_source():
-    """The plain decode's tile and split cap are the kernel's `kTile` and
-    `kMaxSplitTiles`; the split rule gives the grids the kernel's source
-    note states."""
-    import re
-    from repro_torch.kernels import build as kbuild
-    src = kbuild.SOURCES["flashattn"].read_text()
-    assert int(re.search(r"kTile = (\d+);", src).group(1)) \
-        == fa.DECODE_TILE
-    assert int(re.search(r"kMaxSplitTiles = (\d+);", src).group(1)) \
-        == fa.MAX_SPLIT_TILES
-    assert fa.decode_split(4, 20, 2088) == (4, 9)       # qwen1.5-4b decode
-    assert fa.decode_split(1, 20, 32768) == (13, 40)
-    assert fa.decode_split(2, 8, 2088) == (2, 17)       # minitron-4b, B 2
-    assert fa.decode_split(2, 4, 300) == (2, 3)         # at least 2 tiles
-    assert fa.decode_split(1, 1, 0) == (2, 1)
-    assert fa.decode_split(512, 32, 32768)[0] == fa.MAX_SPLIT_TILES

@@ -14,7 +14,11 @@ query results must match the port's eager numpy oracle by md5
 (`table_digest`). K8 (flash attention) is bf16 and sums in another
 order than its plain version: it must agree with `flash_plain` and with
 `sdpa_ref` within atol = rtol = 2e-2, the reference's own bf16
-tolerance (tests/test_kernels_flash.py), with f32 matmuls (TF32 off)."""
+tolerance (tests/test_kernels_flash.py), with f32 matmuls (TF32 off);
+a decode output (Sq 1) also within two bf16 ulps of the largest output
+(`_decode_limit`), since at a long cache 2e-2 is as large as the outputs."""
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -285,7 +289,8 @@ def no_tf32():
     (3, 1, 2088, 24, 8, 128, True, None, "tail"),  # decode, GQA 3
     (1, 1, 700, 36, 4, 128, True, 64, "tail"),     # decode, 9 heads a group
     (2, 1, 100, 8, 8, 128, False, None, "tail"),
-    (1, 1, 32768, 20, 20, 128, True, None, "tail"),  # decode, 256 splits
+    (1, 1, 32768, 20, 20, 128, True, None, "tail"),  # decode, 40 splits of
+                                                     # 13 tiles
     (4, 1, 2088, 20, 20, 128, True, None, "ring"),   # qwen, wrapped ring
     (2, 1, 2088, 16, 16, 64, True, 64, "tail"),    # 31 of 33 tiles skipped
     (2, 1, 1000, 32, 2, 64, True, None, "dead"),   # group of 16; batch row 0
@@ -294,10 +299,10 @@ def no_tf32():
 def test_flash_kernel_matches_plain_version(cuda, no_tf32, b, sq, skv, h,
                                             kvh, d, causal, window, pos):
     """K8 == `flash_plain` and `sdpa_ref` on the card within 2e-2 (bf16),
-    on the variant Sq selects; the wrapper counts that launch only.
-    Positions: `tail` the decode-style ones of `_attn_inputs`, `ring` the
-    model's ring cache after it has wrapped, `dead` row 0 placed before
-    every key."""
+    and at Sq 1 also within `_decode_limit`, on the variant Sq selects;
+    the wrapper counts that launch only. Positions: `tail` the
+    decode-style ones of `_attn_inputs`, `ring` the model's ring cache
+    after it has wrapped, `dead` row 0 placed before every key."""
     from repro_torch.kernels.flashattn import ops as fa
     rng = np.random.default_rng(sq * 7 + skv)
     args = _attn_inputs(rng, b, sq, skv, h, kvh, d, cuda,
@@ -313,6 +318,32 @@ def test_flash_kernel_matches_plain_version(cuda, no_tf32, b, sq, skv, h,
     for want in _attn_expected(*args, causal, window):
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=2e-2)
+        if sq == 1:
+            err = float((got.float() - want.float()).abs().max())
+            assert err <= _decode_limit(want), (err, _decode_limit(want))
+
+
+def _decode_limit(ref):
+    """Two bf16 ulps of the largest |ref|. The decode kernel and the
+    plain versions round f32 values that differ by far less than an ulp,
+    so each output lands at most one ulp of the largest output away;
+    decode outputs are averages over the cache, small beside 2e-2 at a
+    long one, and a split left out or misweighted moves them by a share
+    of their own scale, well past two ulps."""
+    top = float(ref.float().abs().max())
+    return 2 * 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def test_flash_decode_splits_follow_the_source_note(cuda):
+    """The decode kernel's split rule gives the grids its source note
+    states: ceil(B * KVH * tiles / 792) tiles a split, at least 2 and at
+    most 64, and at least one split."""
+    from repro_torch.kernels.flashattn import ops as fa
+    assert fa.flash_decode_splits(4, 20, 2088) == 9      # qwen1.5-4b decode
+    assert fa.flash_decode_splits(1, 20, 32768) == 40    # 13 tiles a split
+    assert fa.flash_decode_splits(2, 8, 2088) == 17      # 2 tiles a split
+    assert fa.flash_decode_splits(1, 1, 0) == 1
+    assert fa.flash_decode_splits(512, 32, 32768) == 8   # 64 tiles a split
 
 
 def test_flash_decode_tickets_return_to_zero(cuda, no_tf32):

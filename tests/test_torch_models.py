@@ -100,8 +100,8 @@ def test_bf16_prefill_and_decode_match_reference(backend):
     """qwen1.5-4b's smoke config in its own dtype, bf16: the reference's
     params (through `params_from_arrays`) and tokens go through both
     packages on the "flash" backend (the reference's Pallas kernel in
-    interpret mode; the port's `flash_plain` for the prefill and
-    `flash_decode_plain` for each teacher-forced decode step).
+    interpret mode; the port's `flash_plain` for the prefill and each
+    teacher-forced decode step).
 
     Tolerance, fixed before the first run: the two frameworks round to
     bf16 at other places (XLA fuses elementwise chains and keeps their
