@@ -140,6 +140,7 @@ before printing any result. Imports torch, numpy and `repro_torch` only.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import pathlib
@@ -250,6 +251,18 @@ def api_inputs(np, cat) -> dict:
             "q5": (o_date >= date("1994-01-01"))
             & (o_date < date("1995-01-01")),
             "q4": li.array("l_commitdate") < li.array("l_receiptdate")}
+
+
+def skewed_keys(np, rng, n: int, nblocks: int):
+    """n int64 keys whose blocks of an nblocks-block filter
+    all lie in its first 4096 (the first slice of K2's partitioned
+    build): hashes drawn below 2^32 / (nblocks / 4096), keys built back
+    from them (`hashing.keys_with_hashes`)."""
+    from repro_torch.core import hashing
+    top = (1 << 32) // max(nblocks // 4096, 1)
+    h = rng.integers(0, top, n, dtype=np.uint64).astype(np.uint32)
+    hi = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    return hashing.keys_with_hashes(h, hi)
 
 
 def kernel_phase(torch, np, kb, bloom, dev, api):
@@ -401,6 +414,11 @@ def kernel_phase(torch, np, kb, bloom, dev, api):
     build_case("2^21 orders gather+valid", 0, nb_mid, N_MID - 777, idx,
                valid)
     build_case("2^21 one-block", 2, 1, N_MID, None, None)
+    # skew: lineitem-many keys into the lineitem-sized filter, every one in
+    # the first of its 4096-block slices, so K2 cuts that slice's run into
+    # chunks (a chunking fault shows as a time as well as a wrong word)
+    cols.append(halves(skewed_keys(np, rng, N_BIG, nb_big)))
+    build_case("2^23 one slice", len(cols) - 1, nb_big, ragged, None, None)
     # case C's shape: lineitem's rows through the Q5-date orders filter
     # (from the plain build) into a lineitem-sized supplier-key filter
     olo, ohi = halves(api["o_orderkey"])
@@ -651,6 +669,32 @@ def check_path(counts: dict, path: str, must, never) -> None:
         check(counts[name] == 0, f"kernel {name} launched on {path}")
 
 
+def record_shapes(kb, shapes: dict):
+    """Wrap K1's and K2's wrappers (`kb.multi_probe`, `kb.build`, which
+    the engine looks up at each call) so each call's shape is counted in
+    `shapes` (a Counter each): K2 by (rows, nblocks), K1 by (rows, m,
+    largest nblocks), rows being the live rows rounded up to a power of
+    two. Returns a function that puts the wrappers back."""
+    multi_probe, build = kb.multi_probe, kb.build
+
+    def rows(cols, idx, count):
+        return 1 << max(kb._rows(cols, idx, count)[1] - 1, 0).bit_length()
+
+    def probe_rec(words, los, his, idx=None, count=None, **kw):
+        shapes["multi_probe"][(rows(los, idx, count), len(words),
+                               max(int(w.shape[0]) for w in words))] += 1
+        return multi_probe(words, los, his, idx=idx, count=count, **kw)
+
+    def build_rec(lo, hi, nblocks, idx=None, count=None, **kw):
+        shapes["bloom_build"][(rows([lo], idx, count), int(nblocks))] += 1
+        return build(lo, hi, nblocks, idx=idx, count=count, **kw)
+
+    def restore():
+        kb.multi_probe, kb.build = multi_probe, build
+    kb.multi_probe, kb.build = probe_rec, build_rec
+    return restore
+
+
 def slice_phase(torch, kb, sj, fa, cat, sf: float):
     from repro_torch.core.transfer import make_strategy
     from repro_torch.relational import ExecConfig, Executor
@@ -683,6 +727,8 @@ def slice_phase(torch, kb, sj, fa, cat, sf: float):
         oracle[qn] = table_digest(res)
 
     per_query, counts = {}, {}
+    shapes = {"multi_probe": collections.Counter(),
+              "bloom_build": collections.Counter()}
     for path, strategy, plane, _, _ in PATHS:
         queries = [5] if strategy == "pred-trans-adaptive" \
             else sorted(QUERIES)
@@ -691,7 +737,13 @@ def slice_phase(torch, kb, sj, fa, cat, sf: float):
         fa.reset_launches()
         for qn in queries:
             _, _, cold, _ = run(strategy, plane, qn)
-            res, st, warm, query_launches = run(strategy, plane, qn)
+            if path == "pred-trans":  # the warm sweep's K1/K2 shapes
+                restore = record_shapes(kb, shapes)
+            try:
+                res, st, warm, query_launches = run(strategy, plane, qn)
+            finally:
+                if path == "pred-trans":
+                    restore()
             check(table_digest(res) == oracle[qn],
                   f"Q{qn} {path} differs from the eager oracle")
             rep = st.report()
@@ -704,6 +756,12 @@ def slice_phase(torch, kb, sj, fa, cat, sf: float):
             per_query[(path, qn)] = rec
             emit(rec)
         counts[path] = launches()     # read just after the path
+        if path == "pred-trans":
+            emit({"phase": "slice", "path": path, "shapes": "warm", **{
+                name: [{"rows": k[0], "nblocks": k[-1], "calls": c,
+                        **({"m": k[1]} if name == "multi_probe" else {})}
+                       for k, c in sorted(counter.items())]
+                for name, counter in shapes.items()}})
     emit({"kernels": counts})
     for path, _, _, must, never in PATHS:
         check_path(counts[path], path, must, never)

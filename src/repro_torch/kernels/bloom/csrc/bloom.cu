@@ -159,26 +159,374 @@ __device__ __forceinline__ void block_insert(uint32_t* __restrict__ words,
 // K2. Replaces the TPU kernel repro/kernels/bloom/bloom.py build_pallas
 // (_build_kernel), reached from the reference's PallasEngine.build_idx.
 //
-// The TPU serialises this read-modify-write (its vector unit has no
-// scatter-OR). Here each key forms its 256-bit update in registers and
-// ORs it into its block with one 64-bit atomicOr per non-zero quarter
-// (block_insert); OR is order-independent, so the words are bit-exact
-// whatever the thread schedule. Bound on this card: the atomics,
-// which land in L2 (the filter is at most a few MB), plus 8 bytes of key
-// halves read per row. Rows at and past `count`, and rows whose `valid`
-// byte is 0, insert nothing; `idx` gathers survivor rows, `valid` is
-// indexed by the original row id. The output words are zeroed by the
-// caller.
+// The TPU keeps the whole filter resident in VMEM and ORs each key's
+// 8-lane update row (_update_rows) into it, one grid step after another.
+// An H100 SM holds 227 KB of shared memory, not the few MB a filter
+// takes, so the build partitions the keys by slice first: a slice is
+// S = min(nblocks, 4096) blocks (128 KB), and the top bits of a key's
+// hash, which pick its block, pick its slice too. The hash alone fixes
+// the block and all k bits, so the partition moves one uint32 a key.
+// Routes (the rule lives here only; bloom_build picks it):
+//  - one slice (nblocks <= 4096): slice_build_kernel<true> hashes the
+//    keys itself; a CTA takes a chunk of one_slice_chunk rows (16 rows a
+//    64-bit word of the filter, 8,192 to 2^17). One chunk stores its
+//    words plainly; several OR their non-zero 64-bit words into the
+//    output, zeroed by a memset first.
+//  - partitioned (4096 < nblocks <= 2^23, 2 to 2,048 slices): up to three
+//    kernels. slice_count_kernel hashes each row and counts rows a slice
+//    (a shared histogram a CTA, added into `counts`); slice_scatter_kernel
+//    hashes again and stages tiles of 4,096 hashes in shared memory,
+//    sorted by slice, so each slice's run is stored contiguously into the
+//    scratch `hs` (a run's place in `hs` from the scan of `counts`, a
+//    tile's place in the run from an atomic cursor: OR does not care about
+//    order); slice_build_kernel<false> gives each slice's run, cut into
+//    chunks of at most kChunk = 2^17 hashes, one CTA a chunk. A slice
+//    of one chunk (every slice of a filter sized by blocks_for, 16 keys a
+//    block at most, unless its keys are skewed) stores its 128 KB plainly;
+//    a longer run (duplicate or skewed keys) ORs each chunk's non-zero
+//    words in with 64-bit atomics, into words the scatter kernel zeroed.
+//  - wider filters: build_kernel, each key's update ORed straight into
+//    L2 (block_insert), after a memset.
+// In shared memory each key ORs only the 32-bit words whose bits are not
+// all set yet (a read first), so repeated keys cost reads, not atomics;
+// on a one-block filter a warp ORs its 32 updates together
+// (__reduce_or_sync) first. Rows at and past `count`, and rows whose
+// `valid` byte is 0, insert nothing; `idx` gathers survivor rows, `valid`
+// is indexed by the original row id. Scratch (partitioned route only,
+// bloom_build_scratch_bytes): two ints a slice and 4 bytes a row.
+//
+// Bound on this card: memory. The function must read 8 bytes of key
+// halves a row (4 more through `idx`, 1 with `valid`) and write the
+// filter once; the partitioned route moves about 2 x 8 + 3 x 4 bytes a
+// row (the keys twice, `hs` written and read once) plus the filter.
+constexpr int kSliceLog2 = 12;          // S = 4096 blocks, 128 KB
+constexpr int kMaxSlicesLog2 = 11;      // partitioned up to 2^23 blocks
+constexpr int kChunk = 1 << 17;         // hashes a build CTA takes at most
+constexpr int kBuildThreads = 1024;
+constexpr int kPassThreads = 512;       // count and scatter passes
+constexpr int kPassGrid = 1024;         // at most, grid-striding beyond
+constexpr int kTile = 4096;             // rows a scatter CTA stages at once
+constexpr int kRows = 4;                // rows a thread loads before using
+
+// Exclusive scan, in place, of a[0..n) in shared memory by the whole CTA
+// (blockDim.x a multiple of 32); a[n] = the total. Ends synchronised.
+__device__ void block_exclusive_scan(int* a, int n, int* warp_sums) {
+  int per = (n + blockDim.x - 1) / blockDim.x;
+  int begin = min((int)threadIdx.x * per, n), end = min(begin + per, n);
+  int sum = 0;
+  for (int i = begin; i < end; ++i) sum += a[i];
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  int nwarps = blockDim.x >> 5;
+  if (warp == 0) {
+    int w = lane < nwarps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    warp_sums[lane] = w;
+  }
+  __syncthreads();
+  int run = x - sum + (warp ? warp_sums[warp - 1] : 0);
+  for (int i = begin; i < end; ++i) {
+    int v = a[i];
+    a[i] = run;
+    run += v;
+  }
+  if (threadIdx.x == 0) a[n] = warp_sums[nwarps - 1];
+  __syncthreads();
+}
+
+// The hash of build row r (through `idx`) into h; false when `valid`
+// drops the row.
+__device__ __forceinline__ bool row_hash(const uint32_t* __restrict__ lo,
+                                         const uint32_t* __restrict__ hi,
+                                         const int32_t* __restrict__ idx,
+                                         const uint8_t* __restrict__ valid,
+                                         int r, uint32_t& h) {
+  int src = idx != nullptr ? __ldg(idx + r) : r;
+  if (valid != nullptr && !__ldg(valid + src)) return false;
+  h = key_hash(__ldg(lo + src), __ldg(hi + src));
+  return true;
+}
+
+// Hashes of rows r0, r0 + step, ... (kRows of them) below `count`, all
+// loads issued before any hash is used; live[i] false for rows past the
+// end or dropped by `valid`.
+__device__ __forceinline__ void rows_hash(const uint32_t* __restrict__ lo,
+                                          const uint32_t* __restrict__ hi,
+                                          const int32_t* __restrict__ idx,
+                                          const uint8_t* __restrict__ valid,
+                                          int r0, int step, int count,
+                                          uint32_t (&h)[kRows],
+                                          bool (&live)[kRows]) {
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    int r = r0 + i * step;
+    live[i] = r < count && row_hash(lo, hi, idx, valid, r, h[i]);
+  }
+}
+
+__device__ __forceinline__ int slice_of(uint32_t h, int log2p) {
+  return (int)(h >> (32 - log2p));  // log2p >= 1 on the partitioned route
+}
+
+// Pass 1 of the partitioned route: rows a slice, into `counts` (zeroed).
+__global__ void __launch_bounds__(kPassThreads)
+    slice_count_kernel(const uint32_t* __restrict__ lo,
+                       const uint32_t* __restrict__ hi,
+                       const int32_t* __restrict__ idx,
+                       const uint8_t* __restrict__ valid, int count,
+                       int log2p, int* __restrict__ counts) {
+  extern __shared__ int hist[];  // [p]
+  int p = 1 << log2p;
+  for (int s = threadIdx.x; s < p; s += blockDim.x) hist[s] = 0;
+  __syncthreads();
+  int step = gridDim.x * blockDim.x;
+  for (int r0 = blockIdx.x * blockDim.x + threadIdx.x; r0 < count;
+       r0 += kRows * step) {
+    uint32_t h[kRows];
+    bool live[kRows];
+    rows_hash(lo, hi, idx, valid, r0, step, count, h, live);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      if (live[i]) atomicAdd(&hist[slice_of(h[i], log2p)], 1);
+    }
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < p; s += blockDim.x) {
+    if (hist[s]) atomicAdd(counts + s, hist[s]);
+  }
+}
+
+// Pass 2 of the partitioned route: each live row's hash into its slice's
+// run of `hs`, a tile of kTile rows at a time, staged in shared memory
+// sorted by slice so the stores of a run are contiguous. Also zeroes the
+// words of every slice of more than one chunk.
+__global__ void __launch_bounds__(kPassThreads)
+    slice_scatter_kernel(const uint32_t* __restrict__ lo,
+                         const uint32_t* __restrict__ hi,
+                         const int32_t* __restrict__ idx,
+                         const uint8_t* __restrict__ valid, int count,
+                         int log2p, const int* __restrict__ counts,
+                         int* __restrict__ fill, uint32_t* __restrict__ hs,
+                         uint32_t* __restrict__ words) {
+  extern __shared__ int smem[];
+  __shared__ int warp_sums[32];
+  __shared__ int nmulti;
+  int p = 1 << log2p;
+  int* run = smem;             // [p + 1] where each slice's run starts
+  int* tile = run + p + 1;     // [p + 1] the tile's rows a slice, scanned
+  int* dst = tile + p + 1;     // [p] where the tile's rows of a slice go
+  int* multi = dst + p;        // [p] slices of more than one chunk
+  uint32_t* stage = reinterpret_cast<uint32_t*>(multi + p);  // [kTile]
+  if (threadIdx.x == 0) nmulti = 0;
+  __syncthreads();
+  for (int s = threadIdx.x; s < p; s += blockDim.x) {
+    int c = __ldg(counts + s);
+    run[s] = c;
+    if (c > kChunk) multi[atomicAdd(&nmulti, 1)] = s;
+  }
+  __syncthreads();
+  block_exclusive_scan(run, p, warp_sums);
+  constexpr int kSliceVecs = (kLanes << kSliceLog2) / 4;  // uint4 a slice
+  int gtid = blockIdx.x * blockDim.x + threadIdx.x;
+  for (int m = 0; m < nmulti; ++m) {
+    uint4* w = reinterpret_cast<uint4*>(words) + (size_t)multi[m] * kSliceVecs;
+    for (int i = gtid; i < kSliceVecs; i += gridDim.x * blockDim.x) {
+      w[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  constexpr int kPer = kTile / kPassThreads;  // rows a thread a tile
+  static_assert(kPer % kRows == 0, "tile rows a thread");
+  for (int t0 = blockIdx.x * kTile; t0 < count; t0 += gridDim.x * kTile) {
+    for (int s = threadIdx.x; s < p; s += blockDim.x) tile[s] = 0;
+    __syncthreads();
+    uint32_t h[kPer];
+    int rank[kPer];
+#pragma unroll
+    for (int g = 0; g < kPer; g += kRows) {
+      uint32_t hg[kRows];
+      bool live[kRows];
+      rows_hash(lo, hi, idx, valid, t0 + g * blockDim.x + threadIdx.x,
+                blockDim.x, count, hg, live);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        h[g + i] = hg[i];
+        rank[g + i] =
+            live[i] ? atomicAdd(&tile[slice_of(hg[i], log2p)], 1) : -1;
+      }
+    }
+    __syncthreads();
+    block_exclusive_scan(tile, p, warp_sums);
+    for (int s = threadIdx.x; s < p; s += blockDim.x) {
+      int c = tile[s + 1] - tile[s];
+      if (c) dst[s] = run[s] + atomicAdd(fill + s, c);
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if (rank[i] >= 0) stage[tile[slice_of(h[i], log2p)] + rank[i]] = h[i];
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < tile[p]; j += blockDim.x) {
+      uint32_t v = stage[j];
+      int s = slice_of(v, log2p);
+      hs[dst[s] + j - tile[s]] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// ORs `bits` into the shared word *w unless they are all set already.
+// A stale read only costs an atomic: OR never clears a bit.
+__device__ __forceinline__ void slice_or(uint32_t* w, uint32_t bits) {
+  if (bits & ~*w) atomicOr(w, bits);
+}
+
+// One chunk of a slice into shared memory, then into the filter. With
+// kFromKeys (one-slice route) the chunk is rows [b * chunk, (b + 1) *
+// chunk) of the build rows, hashed here; otherwise it is chunk j of the
+// run of the slice that CTA b falls in, read from `hs`, and the CTA finds
+// its slice from `counts` (CTAs past the last chunk return).
+template <bool kFromKeys>
+__global__ void __launch_bounds__(kBuildThreads)
+    slice_build_kernel(const uint32_t* __restrict__ lo,
+                       const uint32_t* __restrict__ hi,
+                       const int32_t* __restrict__ idx,
+                       const uint8_t* __restrict__ valid,
+                       const uint32_t* __restrict__ hs,
+                       const int* __restrict__ counts, int count, int log2nb,
+                       int k, int chunk, uint32_t* __restrict__ words) {
+  extern __shared__ uint4 slice_vecs[];  // the slice's words, then scans
+  __shared__ int warp_sums[32];
+  __shared__ int mine;
+  uint32_t* slice = reinterpret_cast<uint32_t*>(slice_vecs);
+  int log2s, begin, end;
+  bool single;
+  size_t first;  // the slice's first block in `words`
+  if (kFromKeys) {
+    log2s = log2nb;
+    begin = blockIdx.x * chunk;
+    end = min(begin + chunk, count);
+    single = gridDim.x == 1;
+    first = 0;
+  } else {
+    log2s = kSliceLog2;
+    int log2p = log2nb - kSliceLog2, p = 1 << log2p;
+    int* run = reinterpret_cast<int*>(slice + (kLanes << kSliceLog2));
+    int* cut = run + p + 1;  // chunks a slice, scanned
+    for (int s = threadIdx.x; s < p; s += blockDim.x) {
+      int c = __ldg(counts + s);
+      run[s] = c;
+      cut[s] = c > chunk ? (c + chunk - 1) / chunk : 1;
+    }
+    __syncthreads();
+    block_exclusive_scan(run, p, warp_sums);
+    block_exclusive_scan(cut, p, warp_sums);
+    int b = blockIdx.x;
+    if (b >= cut[p]) return;  // the grid is an upper bound on the chunks
+    for (int s = threadIdx.x; s < p; s += blockDim.x) {
+      if (cut[s] <= b && b < cut[s + 1]) mine = s;
+    }
+    __syncthreads();
+    int s = mine;
+    begin = run[s] + (b - cut[s]) * chunk;
+    end = min(begin + chunk, run[s + 1]);
+    single = cut[s + 1] - cut[s] == 1;
+    first = (size_t)s << kSliceLog2;
+  }
+  int nvecs = (kLanes << log2s) / 4;
+  for (int i = threadIdx.x; i < nvecs; i += blockDim.x) {
+    slice_vecs[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+  uint32_t bmask = (1u << log2s) - 1u;
+  int lane = threadIdx.x & 31;
+  // trips are uniform across a warp, for the one-block warp OR
+  for (int i0 = begin + (int)(threadIdx.x & ~31u); i0 < end;
+       i0 += kRows * blockDim.x) {
+    uint32_t h[kRows];
+    bool live[kRows];
+    if (kFromKeys) {
+      rows_hash(lo, hi, idx, valid, i0 + lane, blockDim.x, end, h, live);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        int r = i0 + lane + i * blockDim.x;
+        live[i] = r < end;
+        h[i] = live[i] ? __ldg(hs + r) : 0u;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      unsigned long long u[4];
+      block_update(h[i], k, u);
+      uint32_t* blk = slice + (size_t)(block_of(h[i], log2nb) & bmask) * kLanes;
+#pragma unroll
+      for (int w = 0; w < kLanes; ++w) {
+        uint32_t bits =
+            live[i] ? (uint32_t)(u[w >> 1] >> (32 * (w & 1))) : 0u;
+        if (log2nb == 0) {  // one block: OR the warp's updates first
+          bits = __reduce_or_sync(0xffffffffu, bits);
+          if (lane == 0 && bits) slice_or(slice + w, bits);
+        } else if (bits) {
+          slice_or(blk + w, bits);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (single) {
+    uint4* out = reinterpret_cast<uint4*>(words) + first * (kLanes / 4);
+    for (int i = threadIdx.x; i < nvecs; i += blockDim.x) out[i] = slice_vecs[i];
+  } else {
+    const unsigned long long* src =
+        reinterpret_cast<const unsigned long long*>(slice);
+    unsigned long long* out =
+        reinterpret_cast<unsigned long long*>(words) + first * (kLanes / 2);
+    for (int i = threadIdx.x; i < 2 * nvecs; i += blockDim.x) {
+      unsigned long long v = src[i];
+      if (v) atomicOr(out + i, v);
+    }
+  }
+}
+
+// Rows a CTA takes on the one-slice route: 16 a 64-bit word of the
+// filter, so its atomic flush (when there are several chunks) costs at
+// most one atomic per 16 rows; at least 8,192, at most kChunk.
+int one_slice_chunk(int log2nb) {
+  long long c = 64ll << log2nb;
+  return (int)(c < 8192 ? 8192 : (c > kChunk ? kChunk : c));
+}
+
+// The K2 route (see K2's note).
+enum BuildRoute { kOneSlice, kPartitioned, kWide };
+BuildRoute build_route(int log2nb) {
+  if (log2nb <= kSliceLog2) return kOneSlice;
+  if (log2nb - kSliceLog2 <= kMaxSlicesLog2) return kPartitioned;
+  return kWide;
+}
+
+// K2's wide-filter route: each key straight into L2 (block_insert). The
+// caller zeroes `words`.
 __global__ void build_kernel(const uint32_t* __restrict__ lo,
                              const uint32_t* __restrict__ hi,
                              const int32_t* __restrict__ idx,
                              const uint8_t* __restrict__ valid, int count,
                              int log2nb, int k, uint32_t* __restrict__ words) {
   int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= count) return;
-  int src = idx != nullptr ? idx[r] : r;
-  if (valid != nullptr && !valid[src]) return;
-  block_insert(words, key_hash(__ldg(lo + src), __ldg(hi + src)), log2nb, k);
+  uint32_t h;
+  if (r < count && row_hash(lo, hi, idx, valid, r, h)) {
+    block_insert(words, h, log2nb, k);
+  }
 }
 
 // K7. Replaces the TPU kernel repro/kernels/bloom/bloom.py transfer_pallas
@@ -250,18 +598,86 @@ int bloom_multi_probe(const void* words, const void* const* los,
   return (int)cudaGetLastError();
 }
 
+// Bytes of device scratch bloom_build needs for `count` rows into
+// 2^log2nb blocks: two ints a slice and a uint32 a row on the partitioned
+// route, none on the others.
+long long bloom_build_scratch_bytes(int count, int log2nb) {
+  if (build_route(log2nb) != kPartitioned) return 0;
+  return 8ll * (1 << (log2nb - kSliceLog2)) + 4ll * (count > 0 ? count : 0);
+}
+
 // lo/hi: uint32 key halves (device); idx: int32 [>= count] or null;
 // valid: uint8 per original row or null; words: uint32 [nblocks, 8],
-// zeroed by the caller.
+// 16-byte aligned, need not be zeroed; scratch:
+// bloom_build_scratch_bytes(count, log2nb) bytes, 16-byte aligned. Up to
+// three kernels and a memset on `stream` (K2's note).
 int bloom_build(const void* lo, const void* hi, const void* idx,
                 const void* valid, int count, int log2nb, int k, void* words,
-                void* stream) {
-  if (count > 0) {
-    int grid = (count + kThreads - 1) / kThreads;
-    build_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(lo), static_cast<const uint32_t*>(hi),
-        static_cast<const int32_t*>(idx), static_cast<const uint8_t*>(valid),
-        count, log2nb, k, static_cast<uint32_t*>(words));
+                void* scratch, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* lo32 = static_cast<const uint32_t*>(lo);
+  const uint32_t* hi32 = static_cast<const uint32_t*>(hi);
+  const int32_t* ix = static_cast<const int32_t*>(idx);
+  const uint8_t* ok = static_cast<const uint8_t*>(valid);
+  uint32_t* w = static_cast<uint32_t*>(words);
+  size_t filter_bytes = (size_t)kLanes * 4 << log2nb;
+  int err = 0;
+  if (count <= 0) return (int)cudaMemsetAsync(words, 0, filter_bytes, st);
+  switch (build_route(log2nb)) {
+    case kOneSlice: {
+      int chunk = one_slice_chunk(log2nb);
+      int grid = (count + chunk - 1) / chunk;
+      if (grid > 1) err = cudaMemsetAsync(words, 0, filter_bytes, st);
+      auto kernel = slice_build_kernel<true>;
+      if (!err) {
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)filter_bytes);
+      }
+      if (err) return err;
+      kernel<<<grid, kBuildThreads, filter_bytes, st>>>(
+          lo32, hi32, ix, ok, nullptr, nullptr, count, log2nb, k, chunk, w);
+      break;
+    }
+    case kPartitioned: {
+      int log2p = log2nb - kSliceLog2, p = 1 << log2p;
+      int* counts = static_cast<int*>(scratch);
+      int* fill = counts + p;
+      uint32_t* hs = reinterpret_cast<uint32_t*>(fill + p);
+      int pass_grid = (count + kTile - 1) / kTile;
+      if (pass_grid > kPassGrid) pass_grid = kPassGrid;
+      size_t scatter_smem = 4 * ((size_t)4 * p + 2 + kTile);
+      size_t build_smem = ((size_t)kLanes * 4 << kSliceLog2) + 8 * (p + 1);
+      auto build = slice_build_kernel<false>;
+      err = cudaMemsetAsync(counts, 0, 8 * (size_t)p, st);
+      if (!err) {
+        err = cudaFuncSetAttribute(slice_scatter_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)scatter_smem);
+      }
+      if (!err) {
+        err = cudaFuncSetAttribute(
+            build, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)build_smem);
+      }
+      if (err) return err;
+      slice_count_kernel<<<pass_grid, kPassThreads, 4 * (size_t)p, st>>>(
+          lo32, hi32, ix, ok, count, log2p, counts);
+      slice_scatter_kernel<<<pass_grid, kPassThreads, scatter_smem, st>>>(
+          lo32, hi32, ix, ok, count, log2p, counts, fill, hs, w);
+      build<<<p + count / kChunk, kBuildThreads, build_smem, st>>>(
+          nullptr, nullptr, nullptr, nullptr, hs, counts, count, log2nb, k,
+          kChunk, w);
+      break;
+    }
+    case kWide: {
+      err = cudaMemsetAsync(words, 0, filter_bytes, st);
+      if (err) return err;
+      int grid = (count + kThreads - 1) / kThreads;
+      build_kernel<<<grid, kThreads, 0, st>>>(lo32, hi32, ix, ok, count,
+                                              log2nb, k, w);
+      break;
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -59,8 +59,10 @@ def _lib() -> ctypes.CDLL:
         lib.bloom_build.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         lib.bloom_build.restype = ctypes.c_int
+        lib.bloom_build_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.bloom_build_scratch_bytes.restype = ctypes.c_longlong
         lib.bloom_probe.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -278,14 +280,20 @@ def build(lo: torch.Tensor, hi: torch.Tensor, nblocks: int,
     if valid is not None:
         check_bool(valid, dev, lo.shape[0], "valid")
     log2nb = _log2(nblocks)
-    words = torch.zeros((nblocks, LANES), dtype=torch.int32, device=dev)
     if count == 0:
-        return words
+        return torch.zeros((nblocks, LANES), dtype=torch.int32, device=dev)
+    # the kernels write every word; the scratch (the partitioned route's
+    # per-slice counts and hashes, see bloom.cu) is theirs for the call
+    words = torch.empty((nblocks, LANES), dtype=torch.int32, device=dev)
+    nscratch = int(lib.bloom_build_scratch_bytes(count, log2nb))
+    scratch = (torch.empty(nscratch, dtype=torch.uint8, device=dev)
+               if nscratch else None)
     err = lib.bloom_build(
         lo.data_ptr(), hi.data_ptr(),
         None if idx is None else idx.data_ptr(),
         None if valid is None else valid.data_ptr(), count, log2nb, int(k),
-        words.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        words.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     check(err, "bloom_build")
     LAUNCHES["bloom_build"] += 1
     return words

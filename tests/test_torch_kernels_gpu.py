@@ -46,10 +46,18 @@ def _keys(rng, n):
     return k
 
 
-@pytest.mark.parametrize("m", [1, 2, 3])
+#: blocks a slice of K2's partitioned build (`bloom.cu`, K2's note): a
+#: filter of at most S blocks is built from the keys in one pass, a wider
+#: one (up to 2^23 blocks) partitioned by slice first
+S = 4096
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 16])
 def test_kernels_match_plain_versions(cuda, m):
     """K1 and K2 == their plain versions on the card, bit-exact, with
-    ragged counts, survivor ids, a validity plane and nblocks = 1."""
+    ragged counts (none a multiple of the rows a K1 thread takes),
+    survivor ids, a validity plane, nblocks = 1 and a two-slice filter;
+    m = 16 is `bloom_max_filters`."""
     rng = np.random.default_rng(m)
     n = 1 << 16
     lo, hi = bloom.keys_to_device(_keys(rng, n), cuda)
@@ -57,17 +65,129 @@ def test_kernels_match_plain_versions(cuda, m):
     idx = torch.from_numpy(np.sort(rng.choice(n, n // 2, replace=False))
                            .astype(np.int32)).to(cuda)
     words = []
-    for nb in (1, 512, 64)[:m]:
-        w = kb.build(lo, hi, nb, idx=idx, count=n // 3, valid=valid)
-        ref = kb.build_ref(lo, hi, nb, idx=idx, count=n // 3, valid=valid)
+    for f in range(m):
+        nb = (1, 512, 64, 2 * S)[f % 4]
+        w = kb.build(lo, hi, nb, idx=idx, count=n // 3 - f, valid=valid)
+        ref = kb.build_ref(lo, hi, nb, idx=idx, count=n // 3 - f,
+                           valid=valid)
         assert torch.equal(w, ref), nb
         words.append(w)
-    for ix, count in ((None, n - 7), (idx, n // 2 - 5)):
+    for ix, count in ((None, n - 7), (idx, n // 2 - 5), (None, 3),
+                      (idx, 0)):
         got = kb.multi_probe(words, [lo] * m, [hi] * m, idx=ix, count=count)
         ref = kb.multi_probe_ref(words, [lo] * m, [hi] * m, idx=ix,
                                  count=count)
         torch.cuda.synchronize()
-        assert torch.equal(got, ref), (m, ix is not None)
+        assert torch.equal(got, ref), (m, ix is not None, count)
+
+
+def _sparse_build(lo, hi, nblocks, k=bloom.DEFAULT_K):
+    """K2's function for a filter too wide for `build_ref` (which packs
+    256 bools a block): the OR of each key's bits, set word by word."""
+    from repro_torch.core import hashing
+    h = hashing.hash64(lo, hi)
+    flat = torch.unique((bloom._block_index(h, nblocks)[:, None] * 256
+                         + bloom._positions(h, k)).reshape(-1))
+    words = torch.zeros(nblocks * 8, dtype=torch.int64, device=lo.device)
+    words.index_add_(0, flat >> 5, torch.ones_like(flat) << (flat & 31))
+    return bloom.to_i32(words).view(nblocks, 8)
+
+
+@pytest.mark.parametrize("nblocks,n", [
+    (1, 1 << 16), (S // 2, 1 << 16), (S, 1 << 18),    # one slice
+    (2 * S, 1 << 18), (1 << 19, 6_001_215),          # partitioned
+])
+def test_build_kernel_routes_match_plain_version(cuda, nblocks, n):
+    """K2 == `build_ref` bit-exact on each side of each route boundary
+    (one slice up to S blocks, partitioned above), the last at the SF 1
+    lineitem shape, over every row and over survivor ids with a validity
+    plane and a ragged count."""
+    rng = np.random.default_rng(nblocks)
+    lo, hi = bloom.keys_to_device(_keys(rng, n), cuda)
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
+    idx = torch.from_numpy(rng.permutation(n)[: n // 2].astype(np.int32)
+                           ).to(cuda)
+    kb.reset_launches()
+    for ix, count, v in ((None, n - 7, None), (idx, n // 2 - 5, valid)):
+        got = kb.build(lo, hi, nblocks, idx=ix, count=count, valid=v)
+        ref = kb.build_ref(lo, hi, nblocks, idx=ix, count=count, valid=v)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (ix is not None, count)
+    assert kb.LAUNCHES["bloom_build"] == 2       # one a call, any route
+
+
+@pytest.mark.parametrize("log2nb", [23, 24])
+def test_build_kernel_wide_filters_match_sparse_version(cuda, log2nb):
+    """At 2^23 blocks (2,048 slices, the partitioned route's widest) and
+    2^24 (above it: each key ORed straight into the filter), K2's words
+    equal the OR of each key's bits (`_sparse_build`, itself equal to
+    `build_ref` on a narrow filter), over survivor ids with a validity
+    plane."""
+    rng = np.random.default_rng(log2nb)
+    n = 1 << 18
+    lo, hi = bloom.keys_to_device(_keys(rng, n), cuda)
+    assert torch.equal(_sparse_build(lo, hi, 1024),
+                       kb.build_ref(lo, hi, 1024))
+    keep = rng.random(n) < 0.9
+    idx = rng.permutation(n)[: n // 2].astype(np.int32)
+    count = n // 2 - 3
+    rows = idx[:count][keep[idx[:count]]]
+    got = kb.build(lo, hi, 1 << log2nb, idx=torch.from_numpy(idx).to(cuda),
+                   count=count, valid=torch.from_numpy(keep).to(cuda))
+    sel = torch.from_numpy(rows.astype(np.int64)).to(cuda)
+    want = _sparse_build(lo[sel], hi[sel], 1 << log2nb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _build_keys(rng, case, n, nblocks):
+    """Build keys of the skew cases: `equal` one key n times, `one-slice`
+    distinct keys whose blocks all lie in the first slice (built back
+    from hashes with `hashing.keys_with_hashes`), `repeated` each key 4
+    times in a row, as `l_orderkey` repeats."""
+    from repro_torch.core import hashing
+    if case == "equal":
+        return np.full(n, 42, np.int64)
+    if case == "repeated":
+        return np.repeat(_keys(rng, n // 4), 4)
+    top = (1 << 32) // max(nblocks // S, 1)
+    h = rng.integers(0, top, n, dtype=np.uint64).astype(np.uint32)
+    hi = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    return hashing.keys_with_hashes(h, hi)
+
+
+@pytest.mark.parametrize("nblocks", [1, S, 1 << 19])
+@pytest.mark.parametrize("case", ["equal", "one-slice", "repeated",
+                                  "count-0", "all-invalid"])
+def test_build_kernel_skew_and_empty_inputs(cuda, case, nblocks):
+    """K2 == `build_ref` bit-exact where the rows pile into few blocks or
+    one slice (runs cut into several chunks, ORed together), and where
+    no row is inserted (count 0; every row invalid): 2^20 rows."""
+    rng = np.random.default_rng(len(case) + nblocks)
+    n = 1 << 20
+    keys = _build_keys(rng, case, n, nblocks) if case in (
+        "equal", "one-slice", "repeated") else _keys(rng, n)
+    lo, hi = bloom.keys_to_device(keys, cuda)
+    count = 0 if case == "count-0" else n - 1
+    valid = (torch.zeros(n, dtype=torch.bool, device=cuda)
+             if case == "all-invalid" else None)
+    got = kb.build(lo, hi, nblocks, count=count, valid=valid)
+    ref = kb.build_ref(lo, hi, nblocks, count=count, valid=valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    if case in ("count-0", "all-invalid"):
+        assert int(got.abs().sum()) == 0
+
+
+def test_build_scratch_follows_the_source_note(cuda):
+    """K2's scratch: two ints a slice and 4 bytes a row on the
+    partitioned route (S < nblocks <= 2^23), none on the others."""
+    lib = kb._lib()
+    assert lib.bloom_build_scratch_bytes(6_001_215, 12) == 0
+    assert lib.bloom_build_scratch_bytes(6_001_215, 19) == \
+        8 * 128 + 4 * 6_001_215
+    assert lib.bloom_build_scratch_bytes(10, 23) == 8 * 2048 + 40
+    assert lib.bloom_build_scratch_bytes(10, 24) == 0
 
 
 def test_wrappers_count_launches_and_check_inputs(cuda):
