@@ -271,6 +271,7 @@ __device__ __forceinline__ void rows_hash(const uint32_t* __restrict__ lo,
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     int r = r0 + i * step;
+    h[i] = 0u;
     live[i] = r < count && row_hash(lo, hi, idx, valid, r, h[i]);
   }
 }
