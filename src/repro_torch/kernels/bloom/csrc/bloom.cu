@@ -31,95 +31,6 @@ __device__ __forceinline__ uint32_t block_of(uint32_t h, int log2nb) {
   return log2nb ? (h >> (32 - log2nb)) : 0u;
 }
 
-// Does the key with hash h find all k of its bits in its block of the
-// filter whose first block is `offset` in `words`? Stops at the first
-// missing bit; the k word reads fall in one 32-byte sector.
-__device__ __forceinline__ bool block_hit(const uint32_t* __restrict__ words,
-                                          uint32_t h, int log2nb, int offset,
-                                          int k) {
-  const uint32_t* blk =
-      words + (size_t)(block_of(h, log2nb) + offset) * kLanes;
-  uint32_t g1 = fmix32(h ^ kGolden);
-  uint32_t g2 = fmix32(h ^ kP2) | 1u;
-  bool ok = true;
-  for (int j = 0; j < k && ok; ++j) {
-    uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
-    ok = (__ldg(blk + (pos >> 5)) >> (pos & 31u)) & 1u;
-  }
-  return ok;
-}
-
-struct ProbeArgs {
-  const uint32_t* lo[kMaxFilters];
-  const uint32_t* hi[kMaxFilters];
-  int log2nb[kMaxFilters];
-  int offset[kMaxFilters];  // first block of filter f in the stacked words
-};
-
-// K1. Replaces the TPU kernel repro/kernels/bloom/bloom.py
-// multi_probe_pallas (_multi_probe_kernel), reached from the reference's
-// engine_bloom._fused_pallas_count / _fused_pallas_gather.
-//
-// Bound on this card: memory. Per row it reads 8 bytes of key halves per
-// filter (4-byte gathers through `idx` when a survivor-id array is given)
-// and one 32-byte filter block per filter, and writes m bytes. Filters are
-// at most a few MB, so their blocks mostly come from the 50 MB L2.
-//
-// Design: one thread per row, so the key loads and the m output bytes are
-// coalesced across a warp; the k word reads of one filter fall in one
-// sector. A row that missed stops probing (its later rows of `out` are
-// written False without touching the filter), the per-row form of the
-// reference's survivors-only early exit. Rows at and past `count` are
-// written False here, which replaces the reference's separate iota mask,
-// and the survivor-id gather happens in the kernel instead of building
-// gathered copies of the key columns first.
-__global__ void multi_probe_kernel(const uint32_t* __restrict__ words,
-                                   ProbeArgs args, int m, int k,
-                                   const int32_t* __restrict__ idx, int n,
-                                   int count, uint8_t* __restrict__ out) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  bool ok = r < count;
-  int src = (ok && idx != nullptr) ? idx[r] : r;
-  for (int f = 0; f < m; ++f) {
-    if (ok) {
-      uint32_t h = key_hash(__ldg(args.lo[f] + src), __ldg(args.hi[f] + src));
-      ok = block_hit(words, h, args.log2nb[f], args.offset[f], k);
-    }
-    out[(size_t)f * n + r] = ok ? 1 : 0;
-  }
-}
-
-// K3. Replaces the TPU kernel repro/kernels/bloom/bloom.py probe_pallas
-// (_probe_kernel), reached from the reference's PallasEngine.probe_idx on
-// the plane-off route: one filter per launch, the host reading a survivor
-// count after each.
-//
-// Bound on this card: memory. Per live row it reads 8 bytes of key halves
-// (plus a 4-byte survivor id with `idx`) and one 32-byte filter block, and
-// it writes one byte per row; the filter mostly stays in the 50 MB L2.
-//
-// Design: K1's per-row body for one filter, as its own entry point so the
-// launch counts tell the two routes apart. The kernel gathers the
-// survivors' key halves through `idx` and writes False at and past
-// `count`, which replaces the reference's _gather2 + _mask_count around
-// probe_pallas: no gathered key copies, no separate mask pass.
-__global__ void probe_kernel(const uint32_t* __restrict__ words, int log2nb,
-                             int k, const uint32_t* __restrict__ lo,
-                             const uint32_t* __restrict__ hi,
-                             const int32_t* __restrict__ idx, int n,
-                             int count, uint8_t* __restrict__ out) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  bool ok = r < count;
-  if (ok) {
-    int src = idx != nullptr ? idx[r] : r;
-    ok = block_hit(words, key_hash(__ldg(lo + src), __ldg(hi + src)), log2nb,
-                   0, k);
-  }
-  out[r] = ok ? 1 : 0;
-}
-
 // The key's whole 256-bit update, formed in registers as the reference's
 // _update_rows forms its 8-lane row: bit pos of the block is bit pos & 63
 // of 64-bit word pos >> 6 (little-endian, so word q holds 32-bit lanes 2q
@@ -137,6 +48,144 @@ __device__ __forceinline__ void block_update(uint32_t h, int k,
 #pragma unroll
     for (int q = 0; q < 4; ++q) u[q] |= (pos >> 6) == (uint32_t)q ? bit : 0ull;
   }
+}
+
+// The key's block of the filter whose first block is `offset` in `words`,
+// read whole: two 16-byte read-only loads, one 32-byte sector (`words` is
+// 16-byte aligned; the wrappers check).
+__device__ __forceinline__ void block_load(const uint32_t* __restrict__ words,
+                                           uint32_t h, int log2nb,
+                                           int offset, uint4& a, uint4& b) {
+  const uint4* blk = reinterpret_cast<const uint4*>(words) +
+                     (size_t)(block_of(h, log2nb) + offset) * 2;
+  a = __ldg(blk);
+  b = __ldg(blk + 1);
+}
+
+// Are all k bits of the key with hash h set in its block (a, b)? Tested
+// in registers against the key's update: no load depends on another.
+__device__ __forceinline__ bool block_test(uint4 a, uint4 b, uint32_t h,
+                                           int k) {
+  unsigned long long u[4];
+  block_update(h, k, u);
+  unsigned long long w0 = a.x | (unsigned long long)a.y << 32;
+  unsigned long long w1 = a.z | (unsigned long long)a.w << 32;
+  unsigned long long w2 = b.x | (unsigned long long)b.y << 32;
+  unsigned long long w3 = b.z | (unsigned long long)b.w << 32;
+  return ((u[0] & ~w0) | (u[1] & ~w1) | (u[2] & ~w2) | (u[3] & ~w3)) == 0ull;
+}
+
+// block_load then block_test: K3's and K7's probe of one key.
+__device__ __forceinline__ bool block_hit(const uint32_t* __restrict__ words,
+                                          uint32_t h, int log2nb, int offset,
+                                          int k) {
+  uint4 a, b;
+  block_load(words, h, log2nb, offset, a, b);
+  return block_test(a, b, h, k);
+}
+
+struct ProbeArgs {
+  const uint32_t* lo[kMaxFilters];
+  const uint32_t* hi[kMaxFilters];
+  int log2nb[kMaxFilters];
+  int offset[kMaxFilters];  // first block of filter f in the stacked words
+};
+
+constexpr int kProbeRows = 4;  // rows a K1 thread keeps in flight
+
+// K1. Replaces the TPU kernel repro/kernels/bloom/bloom.py
+// multi_probe_pallas (_multi_probe_kernel), reached from the reference's
+// engine_bloom._fused_pallas_count / _fused_pallas_gather.
+//
+// Bound on this card: memory. Per row it reads 8 bytes of key halves per
+// filter the row is still live for (4-byte gathers through `idx` when a
+// survivor-id array is given) and one 32-byte filter block per such
+// filter, and writes m bytes. Filters are at most a few MB, so their
+// blocks mostly come from the 50 MB L2.
+//
+// Design: latency, not bandwidth, held the per-row kernel back (each
+// row's key load, then up to k dependent 4-byte loads of its block, a
+// filter after another). Here each thread takes kProbeRows = 4 rows, a
+// warp's rows consecutive so the key loads and the output bytes stay
+// coalesced; per filter it issues the key loads of all its live rows,
+// then each row's whole block as two 16-byte loads (block_load), and
+// only then tests the k bits in registers (block_test): two memory
+// latencies a filter for 4 rows, where there were at least two a row. A
+// row that missed loads no later key or block (the per-row form of the
+// reference's survivors-only early exit), and its later rows of `out`
+// are written False. Rows at and past `count` are written False here,
+// which replaces the reference's separate iota mask, and the survivor-id
+// gather happens in the kernel instead of building gathered copies of
+// the key columns first.
+__global__ void __launch_bounds__(kThreads)
+    multi_probe_kernel(const uint32_t* __restrict__ words, ProbeArgs args,
+                       int m, int k, const int32_t* __restrict__ idx, int n,
+                       int count, uint8_t* __restrict__ out) {
+  int r0 = blockIdx.x * blockDim.x * kProbeRows + threadIdx.x;
+  int src[kProbeRows];
+  bool ok[kProbeRows];
+#pragma unroll
+  for (int i = 0; i < kProbeRows; ++i) {
+    int r = r0 + i * blockDim.x;
+    ok[i] = r < count;
+    src[i] = ok[i] ? (idx != nullptr ? __ldg(idx + r) : r) : 0;
+  }
+  for (int f = 0; f < m; ++f) {
+    const uint32_t* lo = args.lo[f];
+    const uint32_t* hi = args.hi[f];
+    uint32_t klo[kProbeRows], khi[kProbeRows], h[kProbeRows];
+#pragma unroll
+    for (int i = 0; i < kProbeRows; ++i) {
+      klo[i] = ok[i] ? __ldg(lo + src[i]) : 0u;
+      khi[i] = ok[i] ? __ldg(hi + src[i]) : 0u;
+    }
+    uint4 a[kProbeRows], b[kProbeRows];
+#pragma unroll
+    for (int i = 0; i < kProbeRows; ++i) {
+      h[i] = key_hash(klo[i], khi[i]);
+      if (ok[i]) {
+        block_load(words, h[i], args.log2nb[f], args.offset[f], a[i], b[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kProbeRows; ++i) {
+      if (ok[i]) ok[i] = block_test(a[i], b[i], h[i], k);
+      int r = r0 + i * blockDim.x;
+      if (r < n) out[(size_t)f * n + r] = ok[i] ? 1 : 0;
+    }
+  }
+}
+
+// K3. Replaces the TPU kernel repro/kernels/bloom/bloom.py probe_pallas
+// (_probe_kernel), reached from the reference's PallasEngine.probe_idx on
+// the plane-off route: one filter per launch, the host reading a survivor
+// count after each.
+//
+// Bound on this card: memory. Per live row it reads 8 bytes of key halves
+// (plus a 4-byte survivor id with `idx`) and one 32-byte filter block, and
+// it writes one byte per row; the filter mostly stays in the 50 MB L2.
+//
+// Design: one thread a row, as its own entry point so the launch counts
+// tell the plane-off route from K1's. It shares K1's whole-block probe
+// (block_hit: block_load, then block_test in registers), not K1's rows
+// in flight. The kernel gathers the
+// survivors' key halves through `idx` and writes False at and past
+// `count`, which replaces the reference's _gather2 + _mask_count around
+// probe_pallas: no gathered key copies, no separate mask pass.
+__global__ void probe_kernel(const uint32_t* __restrict__ words, int log2nb,
+                             int k, const uint32_t* __restrict__ lo,
+                             const uint32_t* __restrict__ hi,
+                             const int32_t* __restrict__ idx, int n,
+                             int count, uint8_t* __restrict__ out) {
+  int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  bool ok = r < count;
+  if (ok) {
+    int src = idx != nullptr ? idx[r] : r;
+    ok = block_hit(words, key_hash(__ldg(lo + src), __ldg(hi + src)), log2nb,
+                   0, k);
+  }
+  out[r] = ok ? 1 : 0;
 }
 
 // ORs the key with hash h into its block: one 64-bit atomicOr per non-zero
@@ -538,8 +587,10 @@ __global__ void build_kernel(const uint32_t* __restrict__ lo,
 //
 // The TPU keeps the outgoing filter resident in VMEM across its sequential
 // grid and ORs the survivors' blocks in one at a time. Here one thread per
-// row does K3's probe (block_hit) and K2's atomic insert (block_insert), so
-// the words are bit-exact whatever the schedule. Bound on this card:
+// row does the whole-block probe K1 and K3 share (block_hit) and the
+// registers-first insert of K2's wide route (block_insert: one 64-bit
+// atomicOr per non-zero quarter of the key's update), so the words are
+// bit-exact whatever the schedule. Bound on this card:
 // memory: the mask byte in and the ok byte out per row, the incoming key
 // halves of the masked rows and the outgoing ones of the survivors only
 // (each 32-byte sector once), the incoming filter read and the outgoing
@@ -589,7 +640,8 @@ int bloom_multi_probe(const void* words, const void* const* los,
     args.offset[f] = offsets[f];
   }
   if (n > 0) {
-    int grid = (n + kThreads - 1) / kThreads;
+    int rows = kThreads * kProbeRows;
+    int grid = (n + rows - 1) / rows;
     multi_probe_kernel<<<grid, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(words), args, m, k,

@@ -92,6 +92,12 @@ def _check_words(words: torch.Tensor, dev: torch.device,
         raise ValueError(f"{what} must be [nblocks, {LANES}]")
 
 
+def _check_aligned(words: torch.Tensor, what: str) -> None:
+    """The probe kernels read a block as two 16-byte loads."""
+    if words.data_ptr() % 16:
+        raise ValueError(f"{what} must start on a 16-byte boundary")
+
+
 def _rows(los: Sequence[torch.Tensor], idx: Optional[torch.Tensor],
           count: Optional[int]):
     n = int(idx.shape[0]) if idx is not None else int(los[0].shape[0])
@@ -166,6 +172,7 @@ def multi_probe(words_list: Sequence[torch.Tensor],
         offsets.append(acc)
         acc += int(w.shape[0])
     words = words_list[0] if m == 1 else torch.cat(list(words_list))
+    _check_aligned(words, "words")
     out = torch.empty((m, n), dtype=torch.bool, device=dev)
     if n == 0:
         return out
@@ -213,6 +220,7 @@ def probe(words: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
         raise RuntimeError(f"bloom probe: no kernel for device {dev}")
     lib = _lib()
     _check_words(words, dev, "words")
+    _check_aligned(words, "words")
     check_i32(lo, dev, "lo")
     check_i32(hi, dev, "hi")
     if hi.shape[0] != lo.shape[0]:
@@ -319,6 +327,7 @@ def transfer(in_words: torch.Tensor, in_lo: torch.Tensor,
         raise RuntimeError(f"bloom transfer: no kernel for device {dev}")
     lib = _lib()
     _check_words(in_words, dev, "in_words")
+    _check_aligned(in_words, "in_words")
     n = int(in_lo.shape[0])
     for t, what in ((in_lo, "in_lo"), (in_hi, "in_hi"), (out_lo, "out_lo"),
                     (out_hi, "out_hi")):

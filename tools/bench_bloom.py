@@ -2,6 +2,7 @@
 """Time the Bloom kernels (K1, K2, K3, K7) of one checkout on one GPU.
 
     python3 tools/bench_bloom.py [--root DIR] [--sf 1.0] [--label NAME]
+                                 [--profile]
 
 Runs phase 3 of DIR's own `chip_smoke.py` (`kernel_phase`) and nothing
 else: every Bloom case held bit-exact against its plain version on the
@@ -10,8 +11,13 @@ line with the card's nvidia-smi name and power limit. DIR (default:
 this checkout) supplies both the script and `src/repro_torch`, so a
 second checkout, such as the parent commit unpacked with `git archive`,
 can be timed in the same call on the same card, in turns (one process
-per run). Each line carries `label` (default: DIR). Exits non-zero
-without CUDA or when a case disagrees.
+per run). Each line carries `label` (default: DIR). With --profile,
+instead, one line for each of K1's "2^23 m=2", K2's "2^23 lineitem" and
+K2's "2^21 orders gather+valid" shapes (inputs drawn as phase 3 draws
+them): the CUDA-event ms of a call and, from torch.profiler over 20
+calls, each device op's ms a call (kernels, copies and memsets), so a
+wrapper's host time and each of its kernels can be told apart. Exits
+non-zero without CUDA or when a case disagrees.
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ def main() -> int:
     ap.add_argument("--sf", type=float, default=1.0,
                     help="TPC-H scale factor of the K7 case's columns")
     ap.add_argument("--label", default=None)
+    ap.add_argument("--profile", action="store_true",
+                    help="profile the heaviest K1 and K2 shapes instead")
     args = ap.parse_args()
     root = pathlib.Path(args.root).resolve()
     label = args.label or str(root)
@@ -53,6 +61,15 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(json.dumps({"label": label, "nvidia_smi": smi,
                       "torch": torch.__version__}), flush=True)
+    if args.profile:
+        from repro_torch.kernels import build as kbuild
+        kbuild.library("bloom")
+        log = kbuild.BUILD_INFO.get("bloom", (0.0, ""))[1]
+        print(json.dumps({"label": label, "ptxas": [
+            ln.strip() for ln in log.splitlines()
+            if "Used" in ln or "Compiling entry" in ln or "spill" in ln]}),
+            flush=True)
+        return profile(torch, np, chip_smoke, bloom, kb, label)
     t0 = time.perf_counter()
     api = chip_smoke.api_inputs(np, generate(sf=args.sf, seed=7))
     print(json.dumps({"label": label, "generate_seconds":
@@ -61,6 +78,43 @@ def main() -> int:
     chip_smoke.emit = lambda obj: emit({"label": label, **obj})
     chip_smoke.kernel_phase(torch, np, kb, bloom, torch.device("cuda", 0),
                             api)
+    return 0
+
+
+def profile(torch, np, cs, bloom, kb, label: str) -> int:
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(7)
+    cols = [bloom.keys_to_device(rng.integers(0, d, cs.N_BIG,
+                                              dtype=np.int64), dev)
+            for d, _, _ in cs.COLUMNS[:2]]
+    nbs = [bloom.blocks_for(nk) for _, nk, _ in cs.COLUMNS[:2]]
+    idx = torch.from_numpy(np.sort(rng.choice(cs.N_BIG, cs.N_MID,
+                                              replace=False))
+                           .astype(np.int32)).to(dev)
+    valid = torch.from_numpy(rng.random(cs.N_BIG) < 0.95).to(dev)
+    ragged = 6_001_215
+    words = [kb.build(lo, hi, nb) for (lo, hi), nb in zip(cols, nbs)]
+    cases = {
+        "multi_probe 2^23 m=2": lambda: kb.multi_probe(
+            words, [c[0] for c in cols], [c[1] for c in cols],
+            count=ragged),
+        "bloom_build 2^23 lineitem": lambda: kb.build(
+            *cols[1], nbs[1], count=ragged),
+        "bloom_build 2^21 orders gather+valid": lambda: kb.build(
+            *cols[0], nbs[0], idx=idx, count=cs.N_MID - 777, valid=valid),
+    }
+    for name, fn in cases.items():
+        ms = cs.cuda_ms(torch, fn, 20)
+        calls = 20
+        fn()
+        prof = cs.device_profile(torch, lambda: [fn() for _ in range(calls)])
+        print(json.dumps({"label": label, "case": name, "event_ms": ms,
+                          "device_busy_ms": prof["device_busy_seconds"]
+                          * 1e3 / calls,
+                          "ops": [{"op": o["op"], "ms": o["ms"] / calls,
+                                   "count": o["count"] / calls}
+                                  for o in prof["top_device_ms"]]}),
+              flush=True)
     return 0
 
 
