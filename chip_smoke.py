@@ -253,14 +253,13 @@ def api_inputs(np, cat) -> dict:
             "q4": li.array("l_commitdate") < li.array("l_receiptdate")}
 
 
-def skewed_keys(np, rng, n: int, nblocks: int):
-    """n int64 keys whose blocks of an nblocks-block filter
-    all lie in its first 4096 (the first slice of K2's partitioned
-    build): hashes drawn below 2^32 / (nblocks / 4096), keys built back
-    from them (`hashing.keys_with_hashes`)."""
+def skewed_keys(np, rng, n: int):
+    """n int64 keys whose hashes all lie below 2^24, so in the first of
+    the 256 slices K2's partitioned build cuts a 2^12- to 2^19-block
+    filter into: hashes drawn there, keys built back from them
+    (`hashing.keys_with_hashes`)."""
     from repro_torch.core import hashing
-    top = (1 << 32) // max(nblocks // 4096, 1)
-    h = rng.integers(0, top, n, dtype=np.uint64).astype(np.uint32)
+    h = rng.integers(0, 1 << 24, n, dtype=np.uint64).astype(np.uint32)
     hi = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
     return hashing.keys_with_hashes(h, hi)
 
@@ -415,9 +414,9 @@ def kernel_phase(torch, np, kb, bloom, dev, api):
                valid)
     build_case("2^21 one-block", 2, 1, N_MID, None, None)
     # skew: lineitem-many keys into the lineitem-sized filter, every one in
-    # the first of its 4096-block slices, so K2 cuts that slice's run into
+    # the first of its 256 slices, so K2 cuts that slice's run into 46
     # chunks (a chunking fault shows as a time as well as a wrong word)
-    cols.append(halves(skewed_keys(np, rng, N_BIG, nb_big)))
+    cols.append(halves(skewed_keys(np, rng, N_BIG)))
     build_case("2^23 one slice", len(cols) - 1, nb_big, ragged, None, None)
     # case C's shape: lineitem's rows through the Q5-date orders filter
     # (from the plain build) into a lineitem-sized supplier-key filter

@@ -50,14 +50,14 @@ __device__ __forceinline__ void block_update(uint32_t h, int k,
   }
 }
 
-// The key's block of the filter whose first block is `offset` in `words`,
-// read whole: two 16-byte read-only loads, one 32-byte sector (`words` is
-// 16-byte aligned; the wrappers check).
+// The key's block of the filter `words`, read whole: two 16-byte
+// read-only loads, one 32-byte sector (`words` is 16-byte aligned; the
+// wrappers check).
 __device__ __forceinline__ void block_load(const uint32_t* __restrict__ words,
-                                           uint32_t h, int log2nb,
-                                           int offset, uint4& a, uint4& b) {
-  const uint4* blk = reinterpret_cast<const uint4*>(words) +
-                     (size_t)(block_of(h, log2nb) + offset) * 2;
+                                           uint32_t h, int log2nb, uint4& a,
+                                           uint4& b) {
+  const uint4* blk =
+      reinterpret_cast<const uint4*>(words) + (size_t)block_of(h, log2nb) * 2;
   a = __ldg(blk);
   b = __ldg(blk + 1);
 }
@@ -77,18 +77,17 @@ __device__ __forceinline__ bool block_test(uint4 a, uint4 b, uint32_t h,
 
 // block_load then block_test: K3's and K7's probe of one key.
 __device__ __forceinline__ bool block_hit(const uint32_t* __restrict__ words,
-                                          uint32_t h, int log2nb, int offset,
-                                          int k) {
+                                          uint32_t h, int log2nb, int k) {
   uint4 a, b;
-  block_load(words, h, log2nb, offset, a, b);
+  block_load(words, h, log2nb, a, b);
   return block_test(a, b, h, k);
 }
 
 struct ProbeArgs {
+  const uint32_t* words[kMaxFilters];
   const uint32_t* lo[kMaxFilters];
   const uint32_t* hi[kMaxFilters];
   int log2nb[kMaxFilters];
-  int offset[kMaxFilters];  // first block of filter f in the stacked words
 };
 
 constexpr int kProbeRows = 4;  // rows a K1 thread keeps in flight
@@ -118,8 +117,8 @@ constexpr int kProbeRows = 4;  // rows a K1 thread keeps in flight
 // gather happens in the kernel instead of building gathered copies of
 // the key columns first.
 __global__ void __launch_bounds__(kThreads)
-    multi_probe_kernel(const uint32_t* __restrict__ words, ProbeArgs args,
-                       int m, int k, const int32_t* __restrict__ idx, int n,
+    multi_probe_kernel(ProbeArgs args, int m, int k,
+                       const int32_t* __restrict__ idx, int n,
                        int count, uint8_t* __restrict__ out) {
   int r0 = blockIdx.x * blockDim.x * kProbeRows + threadIdx.x;
   int src[kProbeRows];
@@ -144,7 +143,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < kProbeRows; ++i) {
       h[i] = key_hash(klo[i], khi[i]);
       if (ok[i]) {
-        block_load(words, h[i], args.log2nb[f], args.offset[f], a[i], b[i]);
+        block_load(args.words[f], h[i], args.log2nb[f], a[i], b[i]);
       }
     }
 #pragma unroll
@@ -183,7 +182,7 @@ __global__ void probe_kernel(const uint32_t* __restrict__ words, int log2nb,
   if (ok) {
     int src = idx != nullptr ? idx[r] : r;
     ok = block_hit(words, key_hash(__ldg(lo + src), __ldg(hi + src)), log2nb,
-                   0, k);
+                   k);
   }
   out[r] = ok ? 1 : 0;
 }
@@ -210,52 +209,77 @@ __device__ __forceinline__ void block_insert(uint32_t* __restrict__ words,
 //
 // The TPU keeps the whole filter resident in VMEM and ORs each key's
 // 8-lane update row (_update_rows) into it, one grid step after another.
-// An H100 SM holds 227 KB of shared memory, not the few MB a filter
-// takes, so the build partitions the keys by slice first: a slice is
-// S = min(nblocks, 4096) blocks (128 KB), and the top bits of a key's
-// hash, which pick its block, pick its slice too. The hash alone fixes
-// the block and all k bits, so the partition moves one uint32 a key.
-// Routes (the rule lives here only; bloom_build picks it):
-//  - one slice (nblocks <= 4096): slice_build_kernel<true> hashes the
-//    keys itself; a CTA takes a chunk of one_slice_chunk rows (16 rows a
-//    64-bit word of the filter, 8,192 to 2^17). One chunk stores its
-//    words plainly; several OR their non-zero 64-bit words into the
-//    output, zeroed by a memset first.
-//  - partitioned (4096 < nblocks <= 2^23, 2 to 2,048 slices): up to three
-//    kernels. slice_count_kernel hashes each row and counts rows a slice
-//    (a shared histogram a CTA, added into `counts`); slice_scatter_kernel
-//    hashes again and stages tiles of 4,096 hashes in shared memory,
-//    sorted by slice, so each slice's run is stored contiguously into the
-//    scratch `hs` (a run's place in `hs` from the scan of `counts`, a
-//    tile's place in the run from an atomic cursor: OR does not care about
-//    order); slice_build_kernel<false> gives each slice's run, cut into
-//    chunks of at most kChunk = 2^17 hashes, one CTA a chunk. A slice
-//    of one chunk (every slice of a filter sized by blocks_for, 16 keys a
-//    block at most, unless its keys are skewed) stores its 128 KB plainly;
-//    a longer run (duplicate or skewed keys) ORs each chunk's non-zero
-//    words in with 64-bit atomics, into words the scatter kernel zeroed.
-//  - wider filters: build_kernel, each key's update ORed straight into
-//    L2 (block_insert), after a memset.
-// In shared memory each key ORs only the 32-bit words whose bits are not
-// all set yet (a read first), so repeated keys cost reads, not atomics;
-// on a one-block filter a warp ORs its 32 updates together
-// (__reduce_or_sync) first. Rows at and past `count`, and rows whose
-// `valid` byte is 0, insert nothing; `idx` gathers survivor rows, `valid`
-// is indexed by the original row id. Scratch (partitioned route only,
-// bloom_build_scratch_bytes): two ints a slice and 4 bytes a row.
+// Here the filter is built in shared memory a slice at a time: the keys
+// are partitioned by slice first, the top bits of a key's hash picking
+// its slice as they pick its block. The hash alone fixes the block and
+// all k bits, so the partition moves one uint32 a key. Routes (the rule
+// lives here only, in build_route; bloom_build takes it):
+//  - tiny (nblocks <= 64): the whole filter is one slice; a CTA hashes
+//    kTinyChunk = 8,192 rows into it in shared memory (on one block a
+//    warp ORs its 32 updates together first, __reduce_or_sync) and ORs
+//    its non-zero 64-bit words into the output, zeroed by a memset (one
+//    CTA: plain stores, no memset).
+//  - direct (fewer than kFewRows = 2^18 rows, or more than 2^23 blocks):
+//    one thread a row ORs its key's update straight into L2 with one
+//    64-bit atomicOr per non-zero quarter (block_insert), after a memset.
+//    Few rows cost few atomics, fewer than the partition's passes cost.
+//  - partitioned (otherwise): S = 2^clamp(log2 nblocks - 8, 4, 11)
+//    blocks a slice, so about 256 slices (two CTAs an SM) of up to 64 KB
+//    each, 8 to 4,096 slices. Up to three kernels: slice_count_kernel
+//    hashes the rows and counts rows a slice (a shared histogram a CTA,
+//    added into `counts`); slice_scatter_kernel hashes again and stages
+//    tiles of 4,096 hashes in shared memory sorted by slice, so each
+//    slice's run is stored contiguously into the scratch `hs` (a run's
+//    place from the scan of `counts`, a tile's place in the run from an
+//    atomic cursor: OR does not care about order); slice_build_kernel
+//    gives each slice's run, cut into chunks of at most kChunk = 2^17
+//    hashes, one CTA a chunk. A slice of one chunk (each slice of a
+//    filter sized by blocks_for, unless its keys are skewed) stores its
+//    words plainly; a longer run (skewed keys) ORs each chunk's non-zero
+//    64-bit words in with atomics, into words the scatter kernel zeroed.
+// In shared memory a key ORs each of its k bits in with one 32-bit
+// atomicOr, skipped when a read finds the bit set already (OR never
+// clears one), so repeated keys cost reads, not atomics. Rows at and past
+// `count`, and rows whose `valid` byte is 0, insert nothing; `idx`
+// gathers survivor rows, `valid` is indexed by the original row id.
+// Scratch (partitioned route only, bloom_build_scratch_bytes): two ints a
+// slice and 4 bytes a row.
 //
 // Bound on this card: memory. The function must read 8 bytes of key
 // halves a row (4 more through `idx`, 1 with `valid`) and write the
 // filter once; the partitioned route moves about 2 x 8 + 3 x 4 bytes a
 // row (the keys twice, `hs` written and read once) plus the filter.
-constexpr int kSliceLog2 = 12;          // S = 4096 blocks, 128 KB
-constexpr int kMaxSlicesLog2 = 11;      // partitioned up to 2^23 blocks
+constexpr int kTinyLog2 = 6;            // the tiny route: <= 64 blocks
+constexpr int kTinyChunk = 8192;        // rows a CTA on the tiny route
+constexpr int kFewRows = 1 << 18;       // fewer rows: the direct route
+constexpr int kSlicesLog2 = 8;          // about 256 slices ...
+constexpr int kMinSliceLog2 = 4;        // ... of 16 ...
+constexpr int kMaxSliceLog2 = 11;       // ... to 2,048 blocks (64 KB)
+constexpr int kMaxSlicesLog2 = 12;      // at most 4,096 slices
 constexpr int kChunk = 1 << 17;         // hashes a build CTA takes at most
 constexpr int kBuildThreads = 1024;
 constexpr int kPassThreads = 512;       // count and scatter passes
-constexpr int kPassGrid = 1024;         // at most, grid-striding beyond
 constexpr int kTile = 4096;             // rows a scatter CTA stages at once
-constexpr int kRows = 4;                // rows a thread loads before using
+constexpr int kPassRows = kTile / kPassThreads;  // rows in flight a thread
+constexpr int kBuildRows = 4;           // hashes in flight a build thread
+
+enum RouteKind { kTiny, kDirect, kPartitioned };
+struct Route {
+  RouteKind kind;
+  int log2s;  // blocks a slice (partitioned)
+};
+
+Route build_route(int count, int log2nb) {
+  if (log2nb <= kTinyLog2) return {kTiny, log2nb};
+  int log2s = log2nb - kSlicesLog2;
+  log2s = log2s < kMinSliceLog2 ? kMinSliceLog2
+                                : (log2s > kMaxSliceLog2 ? kMaxSliceLog2
+                                                         : log2s);
+  if (count < kFewRows || log2nb - log2s > kMaxSlicesLog2) {
+    return {kDirect, 0};
+  }
+  return {kPartitioned, log2s};
+}
 
 // Exclusive scan, in place, of a[0..n) in shared memory by the whole CTA
 // (blockDim.x a multiple of 32); a[n] = the total. Ends synchronised.
@@ -307,18 +331,18 @@ __device__ __forceinline__ bool row_hash(const uint32_t* __restrict__ lo,
   return true;
 }
 
-// Hashes of rows r0, r0 + step, ... (kRows of them) below `count`, all
-// loads issued before any hash is used; live[i] false for rows past the
-// end or dropped by `valid`.
+// Hashes of rows r0, r0 + step, ... (R of them) below `count`, all loads
+// issued before any hash is used; live[i] false for rows past the end or
+// dropped by `valid` (their h is 0).
+template <int R>
 __device__ __forceinline__ void rows_hash(const uint32_t* __restrict__ lo,
                                           const uint32_t* __restrict__ hi,
                                           const int32_t* __restrict__ idx,
                                           const uint8_t* __restrict__ valid,
                                           int r0, int step, int count,
-                                          uint32_t (&h)[kRows],
-                                          bool (&live)[kRows]) {
+                                          uint32_t (&h)[R], bool (&live)[R]) {
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < R; ++i) {
     int r = r0 + i * step;
     h[i] = 0u;
     live[i] = r < count && row_hash(lo, hi, idx, valid, r, h[i]);
@@ -326,7 +350,7 @@ __device__ __forceinline__ void rows_hash(const uint32_t* __restrict__ lo,
 }
 
 __device__ __forceinline__ int slice_of(uint32_t h, int log2p) {
-  return (int)(h >> (32 - log2p));  // log2p >= 1 on the partitioned route
+  return (int)(h >> (32 - log2p));  // log2p >= 3 on the partitioned route
 }
 
 // Pass 1 of the partitioned route: rows a slice, into `counts` (zeroed).
@@ -340,14 +364,13 @@ __global__ void __launch_bounds__(kPassThreads)
   int p = 1 << log2p;
   for (int s = threadIdx.x; s < p; s += blockDim.x) hist[s] = 0;
   __syncthreads();
-  int step = gridDim.x * blockDim.x;
-  for (int r0 = blockIdx.x * blockDim.x + threadIdx.x; r0 < count;
-       r0 += kRows * step) {
-    uint32_t h[kRows];
-    bool live[kRows];
-    rows_hash(lo, hi, idx, valid, r0, step, count, h, live);
+  for (int t0 = blockIdx.x * kTile; t0 < count; t0 += gridDim.x * kTile) {
+    uint32_t h[kPassRows];
+    bool live[kPassRows];
+    rows_hash(lo, hi, idx, valid, t0 + threadIdx.x, blockDim.x, count, h,
+              live);
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
+    for (int i = 0; i < kPassRows; ++i) {
       if (live[i]) atomicAdd(&hist[slice_of(h[i], log2p)], 1);
     }
   }
@@ -366,7 +389,8 @@ __global__ void __launch_bounds__(kPassThreads)
                          const uint32_t* __restrict__ hi,
                          const int32_t* __restrict__ idx,
                          const uint8_t* __restrict__ valid, int count,
-                         int log2p, const int* __restrict__ counts,
+                         int log2p, int log2s,
+                         const int* __restrict__ counts,
                          int* __restrict__ fill, uint32_t* __restrict__ hs,
                          uint32_t* __restrict__ words) {
   extern __shared__ int smem[];
@@ -387,33 +411,25 @@ __global__ void __launch_bounds__(kPassThreads)
   }
   __syncthreads();
   block_exclusive_scan(run, p, warp_sums);
-  constexpr int kSliceVecs = (kLanes << kSliceLog2) / 4;  // uint4 a slice
-  int gtid = blockIdx.x * blockDim.x + threadIdx.x;
+  int vecs = (kLanes / 4) << log2s;  // uint4 a slice
   for (int m = 0; m < nmulti; ++m) {
-    uint4* w = reinterpret_cast<uint4*>(words) + (size_t)multi[m] * kSliceVecs;
-    for (int i = gtid; i < kSliceVecs; i += gridDim.x * blockDim.x) {
+    uint4* w = reinterpret_cast<uint4*>(words) + (size_t)multi[m] * vecs;
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < vecs;
+         i += gridDim.x * blockDim.x) {
       w[i] = make_uint4(0u, 0u, 0u, 0u);
     }
   }
-  constexpr int kPer = kTile / kPassThreads;  // rows a thread a tile
-  static_assert(kPer % kRows == 0, "tile rows a thread");
   for (int t0 = blockIdx.x * kTile; t0 < count; t0 += gridDim.x * kTile) {
     for (int s = threadIdx.x; s < p; s += blockDim.x) tile[s] = 0;
+    uint32_t h[kPassRows];
+    bool live[kPassRows];
+    rows_hash(lo, hi, idx, valid, t0 + threadIdx.x, blockDim.x, count, h,
+              live);
     __syncthreads();
-    uint32_t h[kPer];
-    int rank[kPer];
+    int rank[kPassRows];
 #pragma unroll
-    for (int g = 0; g < kPer; g += kRows) {
-      uint32_t hg[kRows];
-      bool live[kRows];
-      rows_hash(lo, hi, idx, valid, t0 + g * blockDim.x + threadIdx.x,
-                blockDim.x, count, hg, live);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        h[g + i] = hg[i];
-        rank[g + i] =
-            live[i] ? atomicAdd(&tile[slice_of(hg[i], log2p)], 1) : -1;
-      }
+    for (int i = 0; i < kPassRows; ++i) {
+      rank[i] = live[i] ? atomicAdd(&tile[slice_of(h[i], log2p)], 1) : -1;
     }
     __syncthreads();
     block_exclusive_scan(tile, p, warp_sums);
@@ -422,7 +438,7 @@ __global__ void __launch_bounds__(kPassThreads)
       if (c) dst[s] = run[s] + atomicAdd(fill + s, c);
     }
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
+    for (int i = 0; i < kPassRows; ++i) {
       if (rank[i] >= 0) stage[tile[slice_of(h[i], log2p)] + rank[i]] = h[i];
     }
     __syncthreads();
@@ -435,18 +451,19 @@ __global__ void __launch_bounds__(kPassThreads)
   }
 }
 
-// ORs `bits` into the shared word *w unless they are all set already.
-// A stale read only costs an atomic: OR never clears a bit.
-__device__ __forceinline__ void slice_or(uint32_t* w, uint32_t bits) {
-  if (bits & ~*w) atomicOr(w, bits);
+// ORs `bit` into the shared word *w unless it is set already. A stale
+// read only costs an atomic: OR never clears a bit.
+__device__ __forceinline__ void slice_or(uint32_t* w, uint32_t bit) {
+  if (!(*w & bit)) atomicOr(w, bit);
 }
 
 // One chunk of a slice into shared memory, then into the filter. With
-// kFromKeys (one-slice route) the chunk is rows [b * chunk, (b + 1) *
-// chunk) of the build rows, hashed here; otherwise it is chunk j of the
-// run of the slice that CTA b falls in, read from `hs`, and the CTA finds
-// its slice from `counts` (CTAs past the last chunk return).
-template <bool kFromKeys>
+// kTinyRoute the slice is the whole filter and the chunk is rows
+// [b * kTinyChunk, (b + 1) * kTinyChunk) of the build rows, hashed here;
+// otherwise it is chunk j of the run of the slice that CTA b falls in,
+// read from `hs`, and the CTA finds its slice from `counts` (CTAs past
+// the last chunk return).
+template <bool kTinyRoute>
 __global__ void __launch_bounds__(kBuildThreads)
     slice_build_kernel(const uint32_t* __restrict__ lo,
                        const uint32_t* __restrict__ hi,
@@ -454,29 +471,28 @@ __global__ void __launch_bounds__(kBuildThreads)
                        const uint8_t* __restrict__ valid,
                        const uint32_t* __restrict__ hs,
                        const int* __restrict__ counts, int count, int log2nb,
-                       int k, int chunk, uint32_t* __restrict__ words) {
+                       int log2s, int k, uint32_t* __restrict__ words) {
   extern __shared__ uint4 slice_vecs[];  // the slice's words, then scans
   __shared__ int warp_sums[32];
   __shared__ int mine;
   uint32_t* slice = reinterpret_cast<uint32_t*>(slice_vecs);
-  int log2s, begin, end;
+  int vecs = (kLanes / 4) << log2s;
+  int begin, end;
   bool single;
   size_t first;  // the slice's first block in `words`
-  if (kFromKeys) {
-    log2s = log2nb;
-    begin = blockIdx.x * chunk;
-    end = min(begin + chunk, count);
+  if (kTinyRoute) {
+    begin = blockIdx.x * kTinyChunk;
+    end = min(begin + kTinyChunk, count);
     single = gridDim.x == 1;
     first = 0;
   } else {
-    log2s = kSliceLog2;
-    int log2p = log2nb - kSliceLog2, p = 1 << log2p;
-    int* run = reinterpret_cast<int*>(slice + (kLanes << kSliceLog2));
+    int log2p = log2nb - log2s, p = 1 << log2p;
+    int* run = reinterpret_cast<int*>(slice_vecs + vecs);
     int* cut = run + p + 1;  // chunks a slice, scanned
     for (int s = threadIdx.x; s < p; s += blockDim.x) {
       int c = __ldg(counts + s);
       run[s] = c;
-      cut[s] = c > chunk ? (c + chunk - 1) / chunk : 1;
+      cut[s] = c > kChunk ? (c + kChunk - 1) / kChunk : 1;
     }
     __syncthreads();
     block_exclusive_scan(run, p, warp_sums);
@@ -488,13 +504,12 @@ __global__ void __launch_bounds__(kBuildThreads)
     }
     __syncthreads();
     int s = mine;
-    begin = run[s] + (b - cut[s]) * chunk;
-    end = min(begin + chunk, run[s + 1]);
+    begin = run[s] + (b - cut[s]) * kChunk;
+    end = min(begin + kChunk, run[s + 1]);
     single = cut[s + 1] - cut[s] == 1;
-    first = (size_t)s << kSliceLog2;
+    first = (size_t)s << log2s;
   }
-  int nvecs = (kLanes << log2s) / 4;
-  for (int i = threadIdx.x; i < nvecs; i += blockDim.x) {
+  for (int i = threadIdx.x; i < vecs; i += blockDim.x) {
     slice_vecs[i] = make_uint4(0u, 0u, 0u, 0u);
   }
   __syncthreads();
@@ -502,33 +517,47 @@ __global__ void __launch_bounds__(kBuildThreads)
   int lane = threadIdx.x & 31;
   // trips are uniform across a warp, for the one-block warp OR
   for (int i0 = begin + (int)(threadIdx.x & ~31u); i0 < end;
-       i0 += kRows * blockDim.x) {
-    uint32_t h[kRows];
-    bool live[kRows];
-    if (kFromKeys) {
+       i0 += kBuildRows * blockDim.x) {
+    uint32_t h[kBuildRows];
+    bool live[kBuildRows];
+    if (kTinyRoute) {
       rows_hash(lo, hi, idx, valid, i0 + lane, blockDim.x, end, h, live);
     } else {
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
+      for (int i = 0; i < kBuildRows; ++i) {
         int r = i0 + lane + i * blockDim.x;
         live[i] = r < end;
         h[i] = live[i] ? __ldg(hs + r) : 0u;
       }
     }
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      unsigned long long u[4];
-      block_update(h[i], k, u);
-      uint32_t* blk = slice + (size_t)(block_of(h[i], log2nb) & bmask) * kLanes;
+    for (int i = 0; i < kBuildRows; ++i) {
+      uint32_t g1 = fmix32(h[i] ^ kGolden);
+      uint32_t g2 = fmix32(h[i] ^ kP2) | 1u;
+      if (kTinyRoute && log2nb == 0) {
+        // one block: the warp ORs its updates together, lane 0 ORs them in
+        uint32_t u[kLanes];
 #pragma unroll
-      for (int w = 0; w < kLanes; ++w) {
-        uint32_t bits =
-            live[i] ? (uint32_t)(u[w >> 1] >> (32 * (w & 1))) : 0u;
-        if (log2nb == 0) {  // one block: OR the warp's updates first
-          bits = __reduce_or_sync(0xffffffffu, bits);
-          if (lane == 0 && bits) slice_or(slice + w, bits);
-        } else if (bits) {
-          slice_or(blk + w, bits);
+        for (int w = 0; w < kLanes; ++w) u[w] = 0u;
+        for (int j = 0; live[i] && j < k; ++j) {
+          uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
+#pragma unroll
+          for (int w = 0; w < kLanes; ++w) {
+            u[w] |= (pos >> 5) == (uint32_t)w ? 1u << (pos & 31u) : 0u;
+          }
+        }
+#pragma unroll
+        for (int w = 0; w < kLanes; ++w) {
+          uint32_t bits = __reduce_or_sync(0xffffffffu, u[w]);
+          if (lane == 0 && bits && (bits & ~slice[w])) {
+            atomicOr(slice + w, bits);
+          }
+        }
+      } else if (live[i]) {
+        uint32_t* blk = slice + (block_of(h[i], log2nb) & bmask) * kLanes;
+        for (int j = 0; j < k; ++j) {
+          uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
+          slice_or(blk + (pos >> 5), 1u << (pos & 31u));
         }
       }
     }
@@ -536,37 +565,21 @@ __global__ void __launch_bounds__(kBuildThreads)
   __syncthreads();
   if (single) {
     uint4* out = reinterpret_cast<uint4*>(words) + first * (kLanes / 4);
-    for (int i = threadIdx.x; i < nvecs; i += blockDim.x) out[i] = slice_vecs[i];
+    for (int i = threadIdx.x; i < vecs; i += blockDim.x) out[i] = slice_vecs[i];
   } else {
     const unsigned long long* src =
         reinterpret_cast<const unsigned long long*>(slice);
     unsigned long long* out =
         reinterpret_cast<unsigned long long*>(words) + first * (kLanes / 2);
-    for (int i = threadIdx.x; i < 2 * nvecs; i += blockDim.x) {
+    for (int i = threadIdx.x; i < 2 * vecs; i += blockDim.x) {
       unsigned long long v = src[i];
       if (v) atomicOr(out + i, v);
     }
   }
 }
 
-// Rows a CTA takes on the one-slice route: 16 a 64-bit word of the
-// filter, so its atomic flush (when there are several chunks) costs at
-// most one atomic per 16 rows; at least 8,192, at most kChunk.
-int one_slice_chunk(int log2nb) {
-  long long c = 64ll << log2nb;
-  return (int)(c < 8192 ? 8192 : (c > kChunk ? kChunk : c));
-}
-
-// The K2 route (see K2's note).
-enum BuildRoute { kOneSlice, kPartitioned, kWide };
-BuildRoute build_route(int log2nb) {
-  if (log2nb <= kSliceLog2) return kOneSlice;
-  if (log2nb - kSliceLog2 <= kMaxSlicesLog2) return kPartitioned;
-  return kWide;
-}
-
-// K2's wide-filter route: each key straight into L2 (block_insert). The
-// caller zeroes `words`.
+// K2's direct route: one thread a row, each key's update straight into
+// L2 (block_insert). `words` is zeroed first.
 __global__ void build_kernel(const uint32_t* __restrict__ lo,
                              const uint32_t* __restrict__ hi,
                              const int32_t* __restrict__ idx,
@@ -610,7 +623,7 @@ __global__ void transfer_kernel(const uint32_t* __restrict__ in_words,
   if (r >= n) return;
   bool ok = mask[r] &&
             block_hit(in_words, key_hash(__ldg(in_lo + r), __ldg(in_hi + r)),
-                      log2nb_in, 0, k);
+                      log2nb_in, k);
   ok_out[r] = ok ? 1 : 0;
   if (ok) {
     block_insert(out_words, key_hash(__ldg(out_lo + r), __ldg(out_hi + r)),
@@ -624,28 +637,28 @@ extern "C" {
 
 int bloom_max_filters() { return kMaxFilters; }
 
-// words: uint32 [sum nblocks_f, 8] (device); los/his: host arrays of m
-// device pointers to uint32 [>= n or >= max(idx)+1]; log2nbs/offsets: host
-// int arrays of m; idx: int32 [n] survivor ids or null; out: uint8 [m, n].
-int bloom_multi_probe(const void* words, const void* const* los,
-                      const void* const* his, const int* log2nbs,
-                      const int* offsets, int m, int k, const void* idx,
-                      int n, int count, void* out, void* stream) {
+// words/los/his: host arrays of m device pointers: filter f's words,
+// uint32 [2^log2nbs[f], 8], 16-byte aligned, and its key halves, uint32
+// [>= n or >= max(idx)+1]; log2nbs: host int array of m; idx: int32 [n]
+// survivor ids or null; out: uint8 [m, n].
+int bloom_multi_probe(const void* const* words, const void* const* los,
+                      const void* const* his, const int* log2nbs, int m,
+                      int k, const void* idx, int n, int count, void* out,
+                      void* stream) {
   if (m < 1 || m > kMaxFilters) return (int)cudaErrorInvalidValue;
   ProbeArgs args;
   for (int f = 0; f < m; ++f) {
+    args.words[f] = static_cast<const uint32_t*>(words[f]);
     args.lo[f] = static_cast<const uint32_t*>(los[f]);
     args.hi[f] = static_cast<const uint32_t*>(his[f]);
     args.log2nb[f] = log2nbs[f];
-    args.offset[f] = offsets[f];
   }
   if (n > 0) {
     int rows = kThreads * kProbeRows;
     int grid = (n + rows - 1) / rows;
     multi_probe_kernel<<<grid, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(words), args, m, k,
-        static_cast<const int32_t*>(idx), n, count,
+        args, m, k, static_cast<const int32_t*>(idx), n, count,
         static_cast<uint8_t*>(out));
   }
   return (int)cudaGetLastError();
@@ -655,8 +668,9 @@ int bloom_multi_probe(const void* words, const void* const* los,
 // 2^log2nb blocks: two ints a slice and a uint32 a row on the partitioned
 // route, none on the others.
 long long bloom_build_scratch_bytes(int count, int log2nb) {
-  if (build_route(log2nb) != kPartitioned) return 0;
-  return 8ll * (1 << (log2nb - kSliceLog2)) + 4ll * (count > 0 ? count : 0);
+  Route route = build_route(count, log2nb);
+  if (route.kind != kPartitioned) return 0;
+  return 8ll * (1 << (log2nb - route.log2s)) + 4ll * count;
 }
 
 // lo/hi: uint32 key halves (device); idx: int32 [>= count] or null;
@@ -674,33 +688,34 @@ int bloom_build(const void* lo, const void* hi, const void* idx,
   const uint8_t* ok = static_cast<const uint8_t*>(valid);
   uint32_t* w = static_cast<uint32_t*>(words);
   size_t filter_bytes = (size_t)kLanes * 4 << log2nb;
-  int err = 0;
   if (count <= 0) return (int)cudaMemsetAsync(words, 0, filter_bytes, st);
-  switch (build_route(log2nb)) {
-    case kOneSlice: {
-      int chunk = one_slice_chunk(log2nb);
-      int grid = (count + chunk - 1) / chunk;
+  Route route = build_route(count, log2nb);
+  int err = 0;
+  switch (route.kind) {
+    case kTiny: {
+      int grid = (count + kTinyChunk - 1) / kTinyChunk;
       if (grid > 1) err = cudaMemsetAsync(words, 0, filter_bytes, st);
-      auto kernel = slice_build_kernel<true>;
-      if (!err) {
-        err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)filter_bytes);
-      }
       if (err) return err;
-      kernel<<<grid, kBuildThreads, filter_bytes, st>>>(
-          lo32, hi32, ix, ok, nullptr, nullptr, count, log2nb, k, chunk, w);
+      slice_build_kernel<true><<<grid, kBuildThreads, filter_bytes, st>>>(
+          lo32, hi32, ix, ok, nullptr, nullptr, count, log2nb, log2nb, k, w);
+      break;
+    }
+    case kDirect: {
+      err = cudaMemsetAsync(words, 0, filter_bytes, st);
+      if (err) return err;
+      int grid = (count + kThreads - 1) / kThreads;
+      build_kernel<<<grid, kThreads, 0, st>>>(lo32, hi32, ix, ok, count,
+                                              log2nb, k, w);
       break;
     }
     case kPartitioned: {
-      int log2p = log2nb - kSliceLog2, p = 1 << log2p;
+      int log2p = log2nb - route.log2s, p = 1 << log2p;
       int* counts = static_cast<int*>(scratch);
       int* fill = counts + p;
       uint32_t* hs = reinterpret_cast<uint32_t*>(fill + p);
-      int pass_grid = (count + kTile - 1) / kTile;
-      if (pass_grid > kPassGrid) pass_grid = kPassGrid;
+      int tiles = (count + kTile - 1) / kTile;
       size_t scatter_smem = 4 * ((size_t)4 * p + 2 + kTile);
-      size_t build_smem = ((size_t)kLanes * 4 << kSliceLog2) + 8 * (p + 1);
+      size_t build_smem = ((size_t)kLanes * 4 << route.log2s) + 8 * (p + 1);
       auto build = slice_build_kernel<false>;
       err = cudaMemsetAsync(counts, 0, 8 * (size_t)p, st);
       if (!err) {
@@ -714,21 +729,13 @@ int bloom_build(const void* lo, const void* hi, const void* idx,
             (int)build_smem);
       }
       if (err) return err;
-      slice_count_kernel<<<pass_grid, kPassThreads, 4 * (size_t)p, st>>>(
+      slice_count_kernel<<<tiles, kPassThreads, 4 * (size_t)p, st>>>(
           lo32, hi32, ix, ok, count, log2p, counts);
-      slice_scatter_kernel<<<pass_grid, kPassThreads, scatter_smem, st>>>(
-          lo32, hi32, ix, ok, count, log2p, counts, fill, hs, w);
+      slice_scatter_kernel<<<tiles, kPassThreads, scatter_smem, st>>>(
+          lo32, hi32, ix, ok, count, log2p, route.log2s, counts, fill, hs, w);
       build<<<p + count / kChunk, kBuildThreads, build_smem, st>>>(
-          nullptr, nullptr, nullptr, nullptr, hs, counts, count, log2nb, k,
-          kChunk, w);
-      break;
-    }
-    case kWide: {
-      err = cudaMemsetAsync(words, 0, filter_bytes, st);
-      if (err) return err;
-      int grid = (count + kThreads - 1) / kThreads;
-      build_kernel<<<grid, kThreads, 0, st>>>(lo32, hi32, ix, ok, count,
-                                              log2nb, k, w);
+          nullptr, nullptr, nullptr, nullptr, hs, counts, count, log2nb,
+          route.log2s, k, w);
       break;
     }
   }

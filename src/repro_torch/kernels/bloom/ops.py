@@ -52,9 +52,9 @@ def _lib() -> ctypes.CDLL:
         lib.bloom_max_filters.argtypes = []
         lib.bloom_max_filters.restype = ctypes.c_int
         lib.bloom_multi_probe.argtypes = [
-            ctypes.c_void_p, _c_void_p_p, _c_void_p_p, _c_int_p, _c_int_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            _c_void_p_p, _c_void_p_p, _c_void_p_p, _c_int_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p]
         lib.bloom_multi_probe.restype = ctypes.c_int
         lib.bloom_build.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -87,13 +87,10 @@ def _log2(nb: int) -> int:
 
 def _check_words(words: torch.Tensor, dev: torch.device,
                  what: str) -> None:
+    """A filter a kernel probes: it reads a block as two 16-byte loads."""
     check_i32(words, dev, what, ndim=2)
     if words.shape[1] != LANES:
         raise ValueError(f"{what} must be [nblocks, {LANES}]")
-
-
-def _check_aligned(words: torch.Tensor, what: str) -> None:
-    """The probe kernels read a block as two 16-byte loads."""
     if words.data_ptr() % 16:
         raise ValueError(f"{what} must start on a 16-byte boundary")
 
@@ -156,8 +153,10 @@ def multi_probe(words_list: Sequence[torch.Tensor],
                          f"{lib.bloom_max_filters()} filters, got {m}")
     n, count = _rows(los, idx, count)
     ncol = int(los[0].shape[0])
+    log2nbs = []
     for f in range(m):
         _check_words(words_list[f], dev, f"words[{f}]")
+        log2nbs.append(_log2(words_list[f].shape[0]))
         check_i32(los[f], dev, f"lo[{f}]")
         check_i32(his[f], dev, f"hi[{f}]")
         if los[f].shape[0] != ncol or his[f].shape[0] != ncol:
@@ -166,21 +165,14 @@ def multi_probe(words_list: Sequence[torch.Tensor],
         check_i32(idx, dev, "idx")
     elif n > ncol:
         raise ValueError("n exceeds the key columns")
-    log2nbs, offsets, acc = [], [], 0
-    for w in words_list:
-        log2nbs.append(_log2(w.shape[0]))
-        offsets.append(acc)
-        acc += int(w.shape[0])
-    words = words_list[0] if m == 1 else torch.cat(list(words_list))
-    _check_aligned(words, "words")
     out = torch.empty((m, n), dtype=torch.bool, device=dev)
     if n == 0:
         return out
     err = lib.bloom_multi_probe(
-        words.data_ptr(),
+        (ctypes.c_void_p * m)(*[t.data_ptr() for t in words_list]),
         (ctypes.c_void_p * m)(*[t.data_ptr() for t in los]),
         (ctypes.c_void_p * m)(*[t.data_ptr() for t in his]),
-        (ctypes.c_int * m)(*log2nbs), (ctypes.c_int * m)(*offsets),
+        (ctypes.c_int * m)(*log2nbs),
         m, int(k), None if idx is None else idx.data_ptr(), n, count,
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check(err, "bloom_multi_probe")
@@ -220,7 +212,6 @@ def probe(words: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
         raise RuntimeError(f"bloom probe: no kernel for device {dev}")
     lib = _lib()
     _check_words(words, dev, "words")
-    _check_aligned(words, "words")
     check_i32(lo, dev, "lo")
     check_i32(hi, dev, "hi")
     if hi.shape[0] != lo.shape[0]:
@@ -327,7 +318,6 @@ def transfer(in_words: torch.Tensor, in_lo: torch.Tensor,
         raise RuntimeError(f"bloom transfer: no kernel for device {dev}")
     lib = _lib()
     _check_words(in_words, dev, "in_words")
-    _check_aligned(in_words, "in_words")
     n = int(in_lo.shape[0])
     for t, what in ((in_lo, "in_lo"), (in_hi, "in_hi"), (out_lo, "out_lo"),
                     (out_hi, "out_hi")):

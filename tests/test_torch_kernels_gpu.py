@@ -46,10 +46,12 @@ def _keys(rng, n):
     return k
 
 
-#: blocks a slice of K2's partitioned build (`bloom.cu`, K2's note): a
-#: filter of at most S blocks is built from the keys in one pass, a wider
-#: one (up to 2^23 blocks) partitioned by slice first
-S = 4096
+#: K2's routes (`bloom.cu`, K2's note): a filter of at most TINY blocks
+#: is built whole in shared memory; below FEW rows (or above 2^23
+#: blocks) each key goes straight into L2; otherwise the rows are
+#: partitioned into 2^clamp(log2 nblocks - 8, 4, 11)-block slices, 256
+#: of them for 2^12 to 2^19 blocks, and a slice is built in shared memory
+TINY, FEW = 64, 1 << 18
 
 
 @pytest.mark.parametrize("m", [1, 2, 3, 16])
@@ -66,7 +68,7 @@ def test_kernels_match_plain_versions(cuda, m):
                            .astype(np.int32)).to(cuda)
     words = []
     for f in range(m):
-        nb = (1, 512, 64, 2 * S)[f % 4]
+        nb = (1, 512, 64, 8192)[f % 4]
         w = kb.build(lo, hi, nb, idx=idx, count=n // 3 - f, valid=valid)
         ref = kb.build_ref(lo, hi, nb, idx=idx, count=n // 3 - f,
                            valid=valid)
@@ -94,14 +96,16 @@ def _sparse_build(lo, hi, nblocks, k=bloom.DEFAULT_K):
 
 
 @pytest.mark.parametrize("nblocks,n", [
-    (1, 1 << 16), (S // 2, 1 << 16), (S, 1 << 18),    # one slice
-    (2 * S, 1 << 18), (1 << 19, 6_001_215),          # partitioned
+    (1, 1 << 16), (TINY, 1 << 16),                   # tiny
+    (2 * TINY, FEW + 4096), (4096, FEW + 4096),      # partitioned / direct
+    (8192, 1 << 19), (1 << 19, 6_001_215),           # partitioned
 ])
 def test_build_kernel_routes_match_plain_version(cuda, nblocks, n):
-    """K2 == `build_ref` bit-exact on each side of each route boundary
-    (one slice up to S blocks, partitioned above), the last at the SF 1
-    lineitem shape, over every row and over survivor ids with a validity
-    plane and a ragged count."""
+    """K2 == `build_ref` bit-exact on each side of each route boundary,
+    the last at the SF 1 lineitem shape, over every row (n - 7 rows:
+    FEW or more rows partition past TINY blocks) and over survivor ids
+    with a validity plane and a ragged count (n / 2 - 5 rows: below FEW
+    the direct route but at 6 M keys)."""
     rng = np.random.default_rng(nblocks)
     lo, hi = bloom.keys_to_device(_keys(rng, n), cuda)
     valid = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
@@ -118,13 +122,13 @@ def test_build_kernel_routes_match_plain_version(cuda, nblocks, n):
 
 @pytest.mark.parametrize("log2nb", [23, 24])
 def test_build_kernel_wide_filters_match_sparse_version(cuda, log2nb):
-    """At 2^23 blocks (2,048 slices, the partitioned route's widest) and
+    """At 2^23 blocks (4,096 slices, the partitioned route's widest) and
     2^24 (above it: each key ORed straight into the filter), K2's words
     equal the OR of each key's bits (`_sparse_build`, itself equal to
     `build_ref` on a narrow filter), over survivor ids with a validity
     plane."""
     rng = np.random.default_rng(log2nb)
-    n = 1 << 18
+    n = 1 << 20
     lo, hi = bloom.keys_to_device(_keys(rng, n), cuda)
     assert torch.equal(_sparse_build(lo, hi, 1024),
                        kb.build_ref(lo, hi, 1024))
@@ -140,32 +144,33 @@ def test_build_kernel_wide_filters_match_sparse_version(cuda, log2nb):
     assert torch.equal(got, want)
 
 
-def _build_keys(rng, case, n, nblocks):
+def _build_keys(rng, case, n):
     """Build keys of the skew cases: `equal` one key n times, `one-slice`
-    distinct keys whose blocks all lie in the first slice (built back
-    from hashes with `hashing.keys_with_hashes`), `repeated` each key 4
-    times in a row, as `l_orderkey` repeats."""
+    keys whose hashes all lie below 2^24, so in the first of the 256
+    slices K2 cuts a 2^12- to 2^19-block filter into (built back from
+    hashes with `hashing.keys_with_hashes`), `repeated` each key 4 times
+    in a row, as `l_orderkey` repeats."""
     from repro_torch.core import hashing
     if case == "equal":
         return np.full(n, 42, np.int64)
     if case == "repeated":
         return np.repeat(_keys(rng, n // 4), 4)
-    top = (1 << 32) // max(nblocks // S, 1)
-    h = rng.integers(0, top, n, dtype=np.uint64).astype(np.uint32)
+    h = rng.integers(0, 1 << 24, n, dtype=np.uint64).astype(np.uint32)
     hi = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
     return hashing.keys_with_hashes(h, hi)
 
 
-@pytest.mark.parametrize("nblocks", [1, S, 1 << 19])
+@pytest.mark.parametrize("nblocks", [1, 4096, 1 << 19])
 @pytest.mark.parametrize("case", ["equal", "one-slice", "repeated",
                                   "count-0", "all-invalid"])
 def test_build_kernel_skew_and_empty_inputs(cuda, case, nblocks):
     """K2 == `build_ref` bit-exact where the rows pile into few blocks or
-    one slice (runs cut into several chunks, ORed together), and where
-    no row is inserted (count 0; every row invalid): 2^20 rows."""
+    one slice (a run of 2^20 rows cut into 8 chunks, ORed together), and
+    where no row is inserted (count 0; every row invalid), on the tiny
+    and partitioned routes: 2^20 rows."""
     rng = np.random.default_rng(len(case) + nblocks)
     n = 1 << 20
-    keys = _build_keys(rng, case, n, nblocks) if case in (
+    keys = _build_keys(rng, case, n) if case in (
         "equal", "one-slice", "repeated") else _keys(rng, n)
     lo, hi = bloom.keys_to_device(keys, cuda)
     count = 0 if case == "count-0" else n - 1
@@ -181,13 +186,15 @@ def test_build_kernel_skew_and_empty_inputs(cuda, case, nblocks):
 
 def test_build_scratch_follows_the_source_note(cuda):
     """K2's scratch: two ints a slice and 4 bytes a row on the
-    partitioned route (S < nblocks <= 2^23), none on the others."""
+    partitioned route, none on the others."""
     lib = kb._lib()
-    assert lib.bloom_build_scratch_bytes(6_001_215, 12) == 0
+    assert lib.bloom_build_scratch_bytes(6_001_215, 6) == 0      # tiny
+    assert lib.bloom_build_scratch_bytes(FEW - 1, 19) == 0      # direct
     assert lib.bloom_build_scratch_bytes(6_001_215, 19) == \
-        8 * 128 + 4 * 6_001_215
-    assert lib.bloom_build_scratch_bytes(10, 23) == 8 * 2048 + 40
-    assert lib.bloom_build_scratch_bytes(10, 24) == 0
+        8 * 256 + 4 * 6_001_215                                 # S 2,048
+    assert lib.bloom_build_scratch_bytes(FEW, 7) == 8 * 8 + 4 * FEW  # S 16
+    assert lib.bloom_build_scratch_bytes(FEW, 23) == 8 * 4096 + 4 * FEW
+    assert lib.bloom_build_scratch_bytes(FEW, 24) == 0          # direct
 
 
 def test_wrappers_count_launches_and_check_inputs(cuda):
