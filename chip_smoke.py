@@ -414,8 +414,9 @@ def kernel_phase(torch, np, kb, bloom, dev, api):
                valid)
     build_case("2^21 one-block", 2, 1, N_MID, None, None)
     # skew: lineitem-many keys into the lineitem-sized filter, every one in
-    # the first of its 256 slices, so K2 cuts that slice's run into 46
-    # chunks (a chunking fault shows as a time as well as a wrong word)
+    # the first of its 256 slices, so all but that slice's capacity go to
+    # K2's overflow list (a fault there shows as a time as well as a wrong
+    # word)
     cols.append(halves(skewed_keys(np, rng, N_BIG)))
     build_case("2^23 one slice", len(cols) - 1, nb_big, ragged, None, None)
     # case C's shape: lineitem's rows through the Q5-date orders filter

@@ -91,6 +91,7 @@ struct ProbeArgs {
 };
 
 constexpr int kProbeRows = 4;  // rows a K1 thread keeps in flight
+constexpr int kProbeCtas = 4;  // K1 CTAs an SM: at most 64 registers
 
 // K1. Replaces the TPU kernel repro/kernels/bloom/bloom.py
 // multi_probe_pallas (_multi_probe_kernel), reached from the reference's
@@ -109,14 +110,16 @@ constexpr int kProbeRows = 4;  // rows a K1 thread keeps in flight
 // coalesced; per filter it issues the key loads of all its live rows,
 // then each row's whole block as two 16-byte loads (block_load), and
 // only then tests the k bits in registers (block_test): two memory
-// latencies a filter for 4 rows, where there were at least two a row. A
+// latencies a filter for 4 rows, where there were at least two a row.
+// The blocks in flight take 32 registers a thread; the kernel is held to
+// 64 (4 CTAs, 4,096 rows in flight an SM). A
 // row that missed loads no later key or block (the per-row form of the
 // reference's survivors-only early exit), and its later rows of `out`
 // are written False. Rows at and past `count` are written False here,
 // which replaces the reference's separate iota mask, and the survivor-id
 // gather happens in the kernel instead of building gathered copies of
 // the key columns first.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kProbeCtas)
     multi_probe_kernel(ProbeArgs args, int m, int k,
                        const int32_t* __restrict__ idx, int n,
                        int count, uint8_t* __restrict__ out) {
@@ -187,20 +190,30 @@ __global__ void probe_kernel(const uint32_t* __restrict__ words, int log2nb,
   out[r] = ok ? 1 : 0;
 }
 
-// ORs the key with hash h into its block: one 64-bit atomicOr per non-zero
-// quarter of its update (at k = 4, 4 * (1 - (3/4)^4) = 2.73 on average
-// instead of k 32-bit ones). OR is order-independent, so concurrent inserts
-// leave the same words whatever the thread schedule. `words` is 8-byte
-// aligned (the wrappers allocate it).
+// ORs the key with hash h into its block in L2: one 64-bit atomicOr per
+// quarter of its update that has a bit the block lacks (at k = 4 at most
+// 4 * (1 - (3/4)^4) = 2.73 on average, instead of k 32-bit ones), the
+// block read first (from L2: other threads are ORing into it) so a
+// repeated key costs a read, not atomics. A stale read only costs an
+// atomic: OR never clears a bit, and the words were zeroed before the
+// kernel. OR is order-independent, so concurrent inserts leave the same
+// words whatever the thread schedule. `words` is 16-byte aligned (the
+// wrappers allocate it).
 __device__ __forceinline__ void block_insert(uint32_t* __restrict__ words,
                                              uint32_t h, int log2nb, int k) {
   unsigned long long u[4];
   block_update(h, k, u);
   unsigned long long* blk = reinterpret_cast<unsigned long long*>(words) +
                             (size_t)block_of(h, log2nb) * (kLanes / 2);
+  const uint4* vec = reinterpret_cast<const uint4*>(blk);
+  uint4 a = __ldcg(vec), b = __ldcg(vec + 1);
+  unsigned long long w[4] = {a.x | (unsigned long long)a.y << 32,
+                             a.z | (unsigned long long)a.w << 32,
+                             b.x | (unsigned long long)b.y << 32,
+                             b.z | (unsigned long long)b.w << 32};
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    if (u[q]) atomicOr(blk + q, u[q]);
+    if (u[q] & ~w[q]) atomicOr(blk + q, u[q]);
   }
 }
 
@@ -220,35 +233,34 @@ __device__ __forceinline__ void block_insert(uint32_t* __restrict__ words,
 //    its non-zero 64-bit words into the output, zeroed by a memset (one
 //    CTA: plain stores, no memset).
 //  - direct (fewer than kFewRows = 2^18 rows, or more than 2^23 blocks):
-//    one thread a row ORs its key's update straight into L2 with one
-//    64-bit atomicOr per non-zero quarter (block_insert), after a memset.
-//    Few rows cost few atomics, fewer than the partition's passes cost.
+//    one thread a row ORs its key into L2 (block_insert), after a
+//    memset. Few rows cost few atomics, fewer than the partition costs.
 //  - partitioned (otherwise): S = 2^clamp(log2 nblocks - 8, 4, 11)
 //    blocks a slice, so about 256 slices (two CTAs an SM) of up to 64 KB
-//    each, 8 to 4,096 slices. Up to three kernels: slice_count_kernel
-//    hashes the rows and counts rows a slice (a shared histogram a CTA,
-//    added into `counts`); slice_scatter_kernel hashes again and stages
-//    tiles of 4,096 hashes in shared memory sorted by slice, so each
-//    slice's run is stored contiguously into the scratch `hs` (a run's
-//    place from the scan of `counts`, a tile's place in the run from an
-//    atomic cursor: OR does not care about order); slice_build_kernel
-//    gives each slice's run, cut into chunks of at most kChunk = 2^17
-//    hashes, one CTA a chunk. A slice of one chunk (each slice of a
-//    filter sized by blocks_for, unless its keys are skewed) stores its
-//    words plainly; a longer run (skewed keys) ORs each chunk's non-zero
-//    64-bit words in with atomics, into words the scatter kernel zeroed.
+//    each, 8 to 4,096 slices; three kernels after a memset of the
+//    cursors. slice_scatter_kernel hashes a tile of 4,096 rows, sorts the
+//    hashes by slice in shared memory and stores each slice's part
+//    contiguously into that slice's region of the scratch `hs`, which
+//    holds `cap` = 5/4 of the mean rows a slice + 256 (its place there
+//    from an atomic cursor a slice: OR does not care about order); a
+//    hash past its slice's `cap` (only skewed keys get there) goes to
+//    the overflow list instead. slice_build_kernel, one CTA a slice,
+//    ORs its region into shared memory and stores the slice plainly;
+//    overflow_kernel then ORs the overflow list into L2 (block_insert;
+//    its CTAs return at once when the list is empty).
 // In shared memory a key ORs each of its k bits in with one 32-bit
 // atomicOr, skipped when a read finds the bit set already (OR never
 // clears one), so repeated keys cost reads, not atomics. Rows at and past
 // `count`, and rows whose `valid` byte is 0, insert nothing; `idx`
 // gathers survivor rows, `valid` is indexed by the original row id.
-// Scratch (partitioned route only, bloom_build_scratch_bytes): two ints a
-// slice and 4 bytes a row.
+// Scratch (partitioned route only, bloom_build_scratch_bytes): the
+// cursors, the slices' regions (5/4 of 4 bytes a row, plus 1 KB a slice)
+// and the overflow list (4 bytes a row).
 //
 // Bound on this card: memory. The function must read 8 bytes of key
 // halves a row (4 more through `idx`, 1 with `valid`) and write the
-// filter once; the partitioned route moves about 2 x 8 + 3 x 4 bytes a
-// row (the keys twice, `hs` written and read once) plus the filter.
+// filter once; the partitioned route moves 8 + 2 x 4 bytes a row (the
+// keys once, `hs` written and read once) plus the filter.
 constexpr int kTinyLog2 = 6;            // the tiny route: <= 64 blocks
 constexpr int kTinyChunk = 8192;        // rows a CTA on the tiny route
 constexpr int kFewRows = 1 << 18;       // fewer rows: the direct route
@@ -256,12 +268,13 @@ constexpr int kSlicesLog2 = 8;          // about 256 slices ...
 constexpr int kMinSliceLog2 = 4;        // ... of 16 ...
 constexpr int kMaxSliceLog2 = 11;       // ... to 2,048 blocks (64 KB)
 constexpr int kMaxSlicesLog2 = 12;      // at most 4,096 slices
-constexpr int kChunk = 1 << 17;         // hashes a build CTA takes at most
 constexpr int kBuildThreads = 1024;
-constexpr int kPassThreads = 512;       // count and scatter passes
+constexpr int kPassThreads = 512;       // the scatter pass
 constexpr int kTile = 4096;             // rows a scatter CTA stages at once
 constexpr int kPassRows = kTile / kPassThreads;  // rows in flight a thread
 constexpr int kBuildRows = 4;           // hashes in flight a build thread
+constexpr int kOverflowCtas = 264;      // two an SM
+constexpr int kMaxDevices = 64;
 
 enum RouteKind { kTiny, kDirect, kPartitioned };
 struct Route {
@@ -279,6 +292,11 @@ Route build_route(int count, int log2nb) {
     return {kDirect, 0};
   }
   return {kPartitioned, log2s};
+}
+
+// Hashes a slice's region of `hs` holds: 5/4 of the mean, plus 256.
+int slice_cap(int count, int log2p) {
+  return (count >> log2p) + (count >> (log2p + 2)) + 256;
 }
 
 // Exclusive scan, in place, of a[0..n) in shared memory by the whole CTA
@@ -318,22 +336,10 @@ __device__ void block_exclusive_scan(int* a, int n, int* warp_sums) {
   __syncthreads();
 }
 
-// The hash of build row r (through `idx`) into h; false when `valid`
-// drops the row.
-__device__ __forceinline__ bool row_hash(const uint32_t* __restrict__ lo,
-                                         const uint32_t* __restrict__ hi,
-                                         const int32_t* __restrict__ idx,
-                                         const uint8_t* __restrict__ valid,
-                                         int r, uint32_t& h) {
-  int src = idx != nullptr ? __ldg(idx + r) : r;
-  if (valid != nullptr && !__ldg(valid + src)) return false;
-  h = key_hash(__ldg(lo + src), __ldg(hi + src));
-  return true;
-}
-
-// Hashes of rows r0, r0 + step, ... (R of them) below `count`, all loads
-// issued before any hash is used; live[i] false for rows past the end or
-// dropped by `valid` (their h is 0).
+// Hashes of rows r0, r0 + step, ... (R of them) below `count`, through
+// `idx`; live[i] false for rows past the end or dropped by `valid`. Every
+// load is issued whatever `valid` says (a row past the end reads row
+// count - 1), so none waits on another's result.
 template <int R>
 __device__ __forceinline__ void rows_hash(const uint32_t* __restrict__ lo,
                                           const uint32_t* __restrict__ hi,
@@ -341,84 +347,48 @@ __device__ __forceinline__ void rows_hash(const uint32_t* __restrict__ lo,
                                           const uint8_t* __restrict__ valid,
                                           int r0, int step, int count,
                                           uint32_t (&h)[R], bool (&live)[R]) {
+  int src[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
-    int r = r0 + i * step;
-    h[i] = 0u;
-    live[i] = r < count && row_hash(lo, hi, idx, valid, r, h[i]);
+    int r = min(r0 + i * step, count - 1);
+    src[i] = idx != nullptr ? __ldg(idx + r) : r;
   }
+  uint32_t kl[R], kh[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    kl[i] = __ldg(lo + src[i]);
+    kh[i] = __ldg(hi + src[i]);
+    live[i] = r0 + i * step < count &&
+              (valid == nullptr || __ldg(valid + src[i]));
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) h[i] = key_hash(kl[i], kh[i]);
 }
 
 __device__ __forceinline__ int slice_of(uint32_t h, int log2p) {
   return (int)(h >> (32 - log2p));  // log2p >= 3 on the partitioned route
 }
 
-// Pass 1 of the partitioned route: rows a slice, into `counts` (zeroed).
-__global__ void __launch_bounds__(kPassThreads)
-    slice_count_kernel(const uint32_t* __restrict__ lo,
-                       const uint32_t* __restrict__ hi,
-                       const int32_t* __restrict__ idx,
-                       const uint8_t* __restrict__ valid, int count,
-                       int log2p, int* __restrict__ counts) {
-  extern __shared__ int hist[];  // [p]
-  int p = 1 << log2p;
-  for (int s = threadIdx.x; s < p; s += blockDim.x) hist[s] = 0;
-  __syncthreads();
-  for (int t0 = blockIdx.x * kTile; t0 < count; t0 += gridDim.x * kTile) {
-    uint32_t h[kPassRows];
-    bool live[kPassRows];
-    rows_hash(lo, hi, idx, valid, t0 + threadIdx.x, blockDim.x, count, h,
-              live);
-#pragma unroll
-    for (int i = 0; i < kPassRows; ++i) {
-      if (live[i]) atomicAdd(&hist[slice_of(h[i], log2p)], 1);
-    }
-  }
-  __syncthreads();
-  for (int s = threadIdx.x; s < p; s += blockDim.x) {
-    if (hist[s]) atomicAdd(counts + s, hist[s]);
-  }
-}
-
-// Pass 2 of the partitioned route: each live row's hash into its slice's
-// run of `hs`, a tile of kTile rows at a time, staged in shared memory
-// sorted by slice so the stores of a run are contiguous. Also zeroes the
-// words of every slice of more than one chunk.
+// The partitioned route's scatter: each live row's hash into its slice's
+// region of `hs` (or the overflow list), a tile of kTile rows at a time,
+// staged in shared memory sorted by slice so the stores of a slice are
+// contiguous. fill[s] counts the hashes meant for slice s, fill[p] those
+// on the overflow list (all zeroed before).
 __global__ void __launch_bounds__(kPassThreads)
     slice_scatter_kernel(const uint32_t* __restrict__ lo,
                          const uint32_t* __restrict__ hi,
                          const int32_t* __restrict__ idx,
                          const uint8_t* __restrict__ valid, int count,
-                         int log2p, int log2s,
-                         const int* __restrict__ counts,
-                         int* __restrict__ fill, uint32_t* __restrict__ hs,
-                         uint32_t* __restrict__ words) {
+                         int log2p, int cap, int* __restrict__ fill,
+                         uint32_t* __restrict__ hs,
+                         uint32_t* __restrict__ overflow) {
   extern __shared__ int smem[];
   __shared__ int warp_sums[32];
-  __shared__ int nmulti;
   int p = 1 << log2p;
-  int* run = smem;             // [p + 1] where each slice's run starts
-  int* tile = run + p + 1;     // [p + 1] the tile's rows a slice, scanned
+  int* tile = smem;            // [p + 1] the tile's rows a slice, scanned
   int* dst = tile + p + 1;     // [p] where the tile's rows of a slice go
-  int* multi = dst + p;        // [p] slices of more than one chunk
-  uint32_t* stage = reinterpret_cast<uint32_t*>(multi + p);  // [kTile]
-  if (threadIdx.x == 0) nmulti = 0;
-  __syncthreads();
-  for (int s = threadIdx.x; s < p; s += blockDim.x) {
-    int c = __ldg(counts + s);
-    run[s] = c;
-    if (c > kChunk) multi[atomicAdd(&nmulti, 1)] = s;
-  }
-  __syncthreads();
-  block_exclusive_scan(run, p, warp_sums);
-  int vecs = (kLanes / 4) << log2s;  // uint4 a slice
-  for (int m = 0; m < nmulti; ++m) {
-    uint4* w = reinterpret_cast<uint4*>(words) + (size_t)multi[m] * vecs;
-    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < vecs;
-         i += gridDim.x * blockDim.x) {
-      w[i] = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
+  int* spill = dst + p;        // [p] ... and where those past `cap` go
+  uint32_t* stage = reinterpret_cast<uint32_t*>(spill + p);  // [kTile]
   for (int t0 = blockIdx.x * kTile; t0 < count; t0 += gridDim.x * kTile) {
     for (int s = threadIdx.x; s < p; s += blockDim.x) tile[s] = 0;
     uint32_t h[kPassRows];
@@ -435,7 +405,12 @@ __global__ void __launch_bounds__(kPassThreads)
     block_exclusive_scan(tile, p, warp_sums);
     for (int s = threadIdx.x; s < p; s += blockDim.x) {
       int c = tile[s + 1] - tile[s];
-      if (c) dst[s] = run[s] + atomicAdd(fill + s, c);
+      if (c) {
+        int at = atomicAdd(fill + s, c);
+        int over = at + c - (at > cap ? at : cap);  // rows past `cap`
+        dst[s] = at;
+        if (over > 0) spill[s] = atomicAdd(fill + p, over);
+      }
     }
 #pragma unroll
     for (int i = 0; i < kPassRows; ++i) {
@@ -445,7 +420,12 @@ __global__ void __launch_bounds__(kPassThreads)
     for (int j = threadIdx.x; j < tile[p]; j += blockDim.x) {
       uint32_t v = stage[j];
       int s = slice_of(v, log2p);
-      hs[dst[s] + j - tile[s]] = v;
+      int at = dst[s] + j - tile[s];
+      if (at < cap) {
+        hs[(size_t)s * cap + at] = v;
+      } else {
+        overflow[spill[s] + at - (dst[s] > cap ? dst[s] : cap)] = v;
+      }
     }
     __syncthreads();
   }
@@ -457,12 +437,11 @@ __device__ __forceinline__ void slice_or(uint32_t* w, uint32_t bit) {
   if (!(*w & bit)) atomicOr(w, bit);
 }
 
-// One chunk of a slice into shared memory, then into the filter. With
-// kTinyRoute the slice is the whole filter and the chunk is rows
-// [b * kTinyChunk, (b + 1) * kTinyChunk) of the build rows, hashed here;
-// otherwise it is chunk j of the run of the slice that CTA b falls in,
-// read from `hs`, and the CTA finds its slice from `counts` (CTAs past
-// the last chunk return).
+// A slice built in shared memory, then stored. With kTinyRoute the slice
+// is the whole filter and CTA b takes rows [b * kTinyChunk, (b + 1) *
+// kTinyChunk) of the build rows, hashed here, ORing its words into the
+// (zeroed) output when it is not the only CTA; otherwise CTA b builds
+// slice b from its region of `hs` and stores it plainly.
 template <bool kTinyRoute>
 __global__ void __launch_bounds__(kBuildThreads)
     slice_build_kernel(const uint32_t* __restrict__ lo,
@@ -470,44 +449,19 @@ __global__ void __launch_bounds__(kBuildThreads)
                        const int32_t* __restrict__ idx,
                        const uint8_t* __restrict__ valid,
                        const uint32_t* __restrict__ hs,
-                       const int* __restrict__ counts, int count, int log2nb,
-                       int log2s, int k, uint32_t* __restrict__ words) {
-  extern __shared__ uint4 slice_vecs[];  // the slice's words, then scans
-  __shared__ int warp_sums[32];
-  __shared__ int mine;
+                       const int* __restrict__ fill, int cap, int count,
+                       int log2nb, int log2s, int k,
+                       uint32_t* __restrict__ words) {
+  extern __shared__ uint4 slice_vecs[];  // the slice's words
   uint32_t* slice = reinterpret_cast<uint32_t*>(slice_vecs);
   int vecs = (kLanes / 4) << log2s;
   int begin, end;
-  bool single;
-  size_t first;  // the slice's first block in `words`
   if (kTinyRoute) {
     begin = blockIdx.x * kTinyChunk;
     end = min(begin + kTinyChunk, count);
-    single = gridDim.x == 1;
-    first = 0;
   } else {
-    int log2p = log2nb - log2s, p = 1 << log2p;
-    int* run = reinterpret_cast<int*>(slice_vecs + vecs);
-    int* cut = run + p + 1;  // chunks a slice, scanned
-    for (int s = threadIdx.x; s < p; s += blockDim.x) {
-      int c = __ldg(counts + s);
-      run[s] = c;
-      cut[s] = c > kChunk ? (c + kChunk - 1) / kChunk : 1;
-    }
-    __syncthreads();
-    block_exclusive_scan(run, p, warp_sums);
-    block_exclusive_scan(cut, p, warp_sums);
-    int b = blockIdx.x;
-    if (b >= cut[p]) return;  // the grid is an upper bound on the chunks
-    for (int s = threadIdx.x; s < p; s += blockDim.x) {
-      if (cut[s] <= b && b < cut[s + 1]) mine = s;
-    }
-    __syncthreads();
-    int s = mine;
-    begin = run[s] + (b - cut[s]) * kChunk;
-    end = min(begin + kChunk, run[s + 1]);
-    single = cut[s + 1] - cut[s] == 1;
-    first = (size_t)s << log2s;
+    begin = blockIdx.x * cap;
+    end = begin + min(__ldg(fill + blockIdx.x), cap);
   }
   for (int i = threadIdx.x; i < vecs; i += blockDim.x) {
     slice_vecs[i] = make_uint4(0u, 0u, 0u, 0u);
@@ -527,7 +481,7 @@ __global__ void __launch_bounds__(kBuildThreads)
       for (int i = 0; i < kBuildRows; ++i) {
         int r = i0 + lane + i * blockDim.x;
         live[i] = r < end;
-        h[i] = live[i] ? __ldg(hs + r) : 0u;
+        h[i] = __ldg(hs + min(r, end - 1));
       }
     }
 #pragma unroll
@@ -563,33 +517,45 @@ __global__ void __launch_bounds__(kBuildThreads)
     }
   }
   __syncthreads();
-  if (single) {
-    uint4* out = reinterpret_cast<uint4*>(words) + first * (kLanes / 4);
-    for (int i = threadIdx.x; i < vecs; i += blockDim.x) out[i] = slice_vecs[i];
-  } else {
+  if (kTinyRoute && gridDim.x > 1) {
     const unsigned long long* src =
         reinterpret_cast<const unsigned long long*>(slice);
-    unsigned long long* out =
-        reinterpret_cast<unsigned long long*>(words) + first * (kLanes / 2);
+    unsigned long long* out = reinterpret_cast<unsigned long long*>(words);
     for (int i = threadIdx.x; i < 2 * vecs; i += blockDim.x) {
       unsigned long long v = src[i];
       if (v) atomicOr(out + i, v);
     }
+  } else {
+    uint4* out = reinterpret_cast<uint4*>(words) +
+                 ((size_t)(kTinyRoute ? 0 : blockIdx.x) * vecs);
+    for (int i = threadIdx.x; i < vecs; i += blockDim.x) out[i] = slice_vecs[i];
   }
 }
 
-// K2's direct route: one thread a row, each key's update straight into
-// L2 (block_insert). `words` is zeroed first.
+// The partitioned route's last kernel: the overflow list's hashes (fill[p]
+// of them; usually none) ORed into L2.
+__global__ void overflow_kernel(const uint32_t* __restrict__ overflow,
+                                const int* __restrict__ novf, int log2nb,
+                                int k, uint32_t* __restrict__ words) {
+  int n = *novf;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    block_insert(words, __ldg(overflow + i), log2nb, k);
+  }
+}
+
+// K2's direct route: one thread a row, each key ORed into L2
+// (block_insert). `words` is zeroed first.
 __global__ void build_kernel(const uint32_t* __restrict__ lo,
                              const uint32_t* __restrict__ hi,
                              const int32_t* __restrict__ idx,
                              const uint8_t* __restrict__ valid, int count,
                              int log2nb, int k, uint32_t* __restrict__ words) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  uint32_t h;
-  if (r < count && row_hash(lo, hi, idx, valid, r, h)) {
-    block_insert(words, h, log2nb, k);
-  }
+  uint32_t h[1];
+  bool live[1];
+  rows_hash(lo, hi, idx, valid, blockIdx.x * blockDim.x + threadIdx.x, 0,
+            count, h, live);
+  if (live[0]) block_insert(words, h[0], log2nb, k);
 }
 
 // K7. Replaces the TPU kernel repro/kernels/bloom/bloom.py transfer_pallas
@@ -665,12 +631,15 @@ int bloom_multi_probe(const void* const* words, const void* const* los,
 }
 
 // Bytes of device scratch bloom_build needs for `count` rows into
-// 2^log2nb blocks: two ints a slice and a uint32 a row on the partitioned
-// route, none on the others.
+// 2^log2nb blocks: on the partitioned route the cursors (an int a slice,
+// and one), the slices' regions and the overflow list; none on the
+// others.
 long long bloom_build_scratch_bytes(int count, int log2nb) {
   Route route = build_route(count, log2nb);
   if (route.kind != kPartitioned) return 0;
-  return 8ll * (1 << (log2nb - route.log2s)) + 4ll * count;
+  int log2p = log2nb - route.log2s;
+  long long p = 1ll << log2p;
+  return 4 * (p + 1) + 4 * p * slice_cap(count, log2p) + 4ll * count;
 }
 
 // lo/hi: uint32 key halves (device); idx: int32 [>= count] or null;
@@ -697,7 +666,8 @@ int bloom_build(const void* lo, const void* hi, const void* idx,
       if (grid > 1) err = cudaMemsetAsync(words, 0, filter_bytes, st);
       if (err) return err;
       slice_build_kernel<true><<<grid, kBuildThreads, filter_bytes, st>>>(
-          lo32, hi32, ix, ok, nullptr, nullptr, count, log2nb, log2nb, k, w);
+          lo32, hi32, ix, ok, nullptr, nullptr, 0, count, log2nb, log2nb, k,
+          w);
       break;
     }
     case kDirect: {
@@ -710,32 +680,41 @@ int bloom_build(const void* lo, const void* hi, const void* idx,
     }
     case kPartitioned: {
       int log2p = log2nb - route.log2s, p = 1 << log2p;
-      int* counts = static_cast<int*>(scratch);
-      int* fill = counts + p;
-      uint32_t* hs = reinterpret_cast<uint32_t*>(fill + p);
-      int tiles = (count + kTile - 1) / kTile;
-      size_t scatter_smem = 4 * ((size_t)4 * p + 2 + kTile);
-      size_t build_smem = ((size_t)kLanes * 4 << route.log2s) + 8 * (p + 1);
-      auto build = slice_build_kernel<false>;
-      err = cudaMemsetAsync(counts, 0, 8 * (size_t)p, st);
-      if (!err) {
-        err = cudaFuncSetAttribute(slice_scatter_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)scatter_smem);
-      }
-      if (!err) {
-        err = cudaFuncSetAttribute(
-            build, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)build_smem);
-      }
+      int cap = slice_cap(count, log2p);
+      int* fill = static_cast<int*>(scratch);
+      uint32_t* hs = reinterpret_cast<uint32_t*>(fill + p + 1);
+      uint32_t* overflow = hs + (size_t)p * cap;
+      size_t scatter_smem = 4 * ((size_t)3 * p + 1 + kTile);
+      size_t build_smem = (size_t)kLanes * 4 << route.log2s;
+      // the largest sizes, once a device
+      static bool attrs_set[kMaxDevices] = {};
+      int dev = 0;
+      err = cudaGetDevice(&dev);
       if (err) return err;
-      slice_count_kernel<<<tiles, kPassThreads, 4 * (size_t)p, st>>>(
-          lo32, hi32, ix, ok, count, log2p, counts);
-      slice_scatter_kernel<<<tiles, kPassThreads, scatter_smem, st>>>(
-          lo32, hi32, ix, ok, count, log2p, route.log2s, counts, fill, hs, w);
-      build<<<p + count / kChunk, kBuildThreads, build_smem, st>>>(
-          nullptr, nullptr, nullptr, nullptr, hs, counts, count, log2nb,
+      if (dev >= kMaxDevices || !attrs_set[dev]) {
+        err = cudaFuncSetAttribute(
+            slice_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            4 * (3 * (1 << kMaxSlicesLog2) + 1 + kTile));
+        if (!err) {
+          err = cudaFuncSetAttribute(
+              slice_build_kernel<false>,
+              cudaFuncAttributeMaxDynamicSharedMemorySize,
+              kLanes * 4 << kMaxSliceLog2);
+        }
+        if (err) return err;
+        if (dev < kMaxDevices) attrs_set[dev] = true;
+      }
+      err = cudaMemsetAsync(fill, 0, 4 * ((size_t)p + 1), st);
+      if (err) return err;
+      slice_scatter_kernel<<<(count + kTile - 1) / kTile, kPassThreads,
+                             scatter_smem, st>>>(lo32, hi32, ix, ok, count,
+                                                 log2p, cap, fill, hs,
+                                                 overflow);
+      slice_build_kernel<false><<<p, kBuildThreads, build_smem, st>>>(
+          nullptr, nullptr, nullptr, nullptr, hs, fill, cap, count, log2nb,
           route.log2s, k, w);
+      overflow_kernel<<<kOverflowCtas, kThreads, 0, st>>>(overflow, fill + p,
+                                                          log2nb, k, w);
       break;
     }
   }

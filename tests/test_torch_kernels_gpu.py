@@ -165,9 +165,9 @@ def _build_keys(rng, case, n):
                                   "count-0", "all-invalid"])
 def test_build_kernel_skew_and_empty_inputs(cuda, case, nblocks):
     """K2 == `build_ref` bit-exact where the rows pile into few blocks or
-    one slice (a run of 2^20 rows cut into 8 chunks, ORed together), and
-    where no row is inserted (count 0; every row invalid), on the tiny
-    and partitioned routes: 2^20 rows."""
+    one slice (all but the slice's capacity on the overflow list, ORed
+    in through L2), and where no row is inserted (count 0; every row
+    invalid), on the tiny and partitioned routes: 2^20 rows."""
     rng = np.random.default_rng(len(case) + nblocks)
     n = 1 << 20
     keys = _build_keys(rng, case, n) if case in (
@@ -185,15 +185,19 @@ def test_build_kernel_skew_and_empty_inputs(cuda, case, nblocks):
 
 
 def test_build_scratch_follows_the_source_note(cuda):
-    """K2's scratch: two ints a slice and 4 bytes a row on the
-    partitioned route, none on the others."""
+    """K2's scratch on the partitioned route: p + 1 cursors, p slice
+    regions of 5/4 of the mean rows a slice + 256 hashes, and an
+    overflow list of a hash a row; none on the other routes."""
+    def partitioned(count, p):
+        cap = count // p + count // (4 * p) + 256
+        return 4 * (p + 1) + 4 * p * cap + 4 * count
     lib = kb._lib()
     assert lib.bloom_build_scratch_bytes(6_001_215, 6) == 0      # tiny
     assert lib.bloom_build_scratch_bytes(FEW - 1, 19) == 0      # direct
     assert lib.bloom_build_scratch_bytes(6_001_215, 19) == \
-        8 * 256 + 4 * 6_001_215                                 # S 2,048
-    assert lib.bloom_build_scratch_bytes(FEW, 7) == 8 * 8 + 4 * FEW  # S 16
-    assert lib.bloom_build_scratch_bytes(FEW, 23) == 8 * 4096 + 4 * FEW
+        partitioned(6_001_215, 256)                             # S 2,048
+    assert lib.bloom_build_scratch_bytes(FEW, 7) == partitioned(FEW, 8)
+    assert lib.bloom_build_scratch_bytes(FEW, 23) == partitioned(FEW, 4096)
     assert lib.bloom_build_scratch_bytes(FEW, 24) == 0          # direct
 
 

@@ -13,8 +13,8 @@ second checkout, such as the parent commit unpacked with `git archive`,
 can be timed in the same call on the same card, in turns (one process
 per run). Each line carries `label` (default: DIR). With --profile,
 instead, one line for each of K1's "2^23 m=2", K2's "2^23 lineitem" and
-K2's "2^21 orders gather+valid" shapes (inputs drawn as phase 3 draws
-them): the CUDA-event ms of a call and, from torch.profiler over 20
+K2's "2^21 orders gather+valid" cases (inputs drawn as phase 3 draws
+them: each filter from its own distinct build keys): the CUDA-event ms of a call and, from torch.profiler over 20
 calls, each device op's ms a call (kernels, copies and memsets), so a
 wrapper's host time and each of its kernels can be told apart. Exits
 non-zero without CUDA or when a case disagrees.
@@ -84,16 +84,19 @@ def main() -> int:
 def profile(torch, np, cs, bloom, kb, label: str) -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(7)
-    cols = [bloom.keys_to_device(rng.integers(0, d, cs.N_BIG,
-                                              dtype=np.int64), dev)
-            for d, _, _ in cs.COLUMNS[:2]]
-    nbs = [bloom.blocks_for(nk) for _, nk, _ in cs.COLUMNS[:2]]
+    cols, words = [], []
+    for domain, nkeys, _ in cs.COLUMNS[:2]:
+        cols.append(bloom.keys_to_device(
+            rng.integers(0, domain, cs.N_BIG, dtype=np.int64), dev))
+        blo, bhi = bloom.keys_to_device(
+            rng.choice(domain, nkeys, replace=False), dev)
+        words.append(kb.build_ref(blo, bhi, bloom.blocks_for(nkeys)))
+    nbs = [int(w.shape[0]) for w in words]
     idx = torch.from_numpy(np.sort(rng.choice(cs.N_BIG, cs.N_MID,
                                               replace=False))
                            .astype(np.int32)).to(dev)
     valid = torch.from_numpy(rng.random(cs.N_BIG) < 0.95).to(dev)
     ragged = 6_001_215
-    words = [kb.build(lo, hi, nb) for (lo, hi), nb in zip(cols, nbs)]
     cases = {
         "multi_probe 2^23 m=2": lambda: kb.multi_probe(
             words, [c[0] for c in cols], [c[1] for c in cols],
