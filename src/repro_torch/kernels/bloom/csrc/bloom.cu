@@ -50,37 +50,56 @@ __device__ __forceinline__ void block_update(uint32_t h, int k,
   }
 }
 
-// The key's block of the filter `words`, read whole: two 16-byte
-// read-only loads, one 32-byte sector (`words` is 16-byte aligned; the
-// wrappers check).
-__device__ __forceinline__ void block_load(const uint32_t* __restrict__ words,
-                                           uint32_t h, int log2nb, uint4& a,
-                                           uint4& b) {
-  const uint4* blk =
-      reinterpret_cast<const uint4*>(words) + (size_t)block_of(h, log2nb) * 2;
-  a = __ldg(blk);
-  b = __ldg(blk + 1);
+// The key's block of the filter `words` as two 16-byte halves (`words`
+// is 16-byte aligned; the wrappers check).
+__device__ __forceinline__ const uint4* block_halves(
+    const uint32_t* __restrict__ words, uint32_t h, int log2nb) {
+  return reinterpret_cast<const uint4*>(words) + (size_t)block_of(h, log2nb) * 2;
 }
 
-// Are all k bits of the key with hash h set in its block (a, b)? Tested
-// in registers against the key's update: no load depends on another.
-__device__ __forceinline__ bool block_test(uint4 a, uint4 b, uint32_t h,
-                                           int k) {
-  unsigned long long u[4];
-  block_update(h, k, u);
-  unsigned long long w0 = a.x | (unsigned long long)a.y << 32;
-  unsigned long long w1 = a.z | (unsigned long long)a.w << 32;
-  unsigned long long w2 = b.x | (unsigned long long)b.y << 32;
-  unsigned long long w3 = b.z | (unsigned long long)b.w << 32;
-  return ((u[0] & ~w0) | (u[1] & ~w1) | (u[2] & ~w2) | (u[3] & ~w3)) == 0ull;
+// The half of a block (0: words 0-3, 1: words 4-7) that holds most of the
+// key's k bits, the one a probe reads first: a key not in the filter
+// misses there nearly always, so most misses cost one 16-byte load.
+__device__ __forceinline__ int first_half(uint32_t g1, uint32_t g2, int k) {
+  int upper = 0;
+  for (int j = 0; j < k; ++j) upper += ((g1 + (uint32_t)j * g2) >> 7) & 1u;
+  return 2 * upper > k;
 }
 
-// block_load then block_test: K3's and K7's probe of one key.
+// Are the key's bits that lie in half `half` (v) of its block all set?
+// `other` tells whether some lie in the other half. Tested in registers.
+__device__ __forceinline__ bool half_test(uint4 v, int half, uint32_t g1,
+                                          uint32_t g2, int k, bool& other) {
+  bool ok = true;
+  other = false;
+  for (int j = 0; j < k; ++j) {
+    uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
+    if ((int)(pos >> 7) != half) {
+      other = true;
+      continue;
+    }
+    uint32_t w = (pos >> 5) & 3u;
+    uint32_t lo = (w & 1u) ? v.y : v.x, hi = (w & 1u) ? v.w : v.z;
+    ok = ok && (((w & 2u) ? hi : lo) >> (pos & 31u)) & 1u;
+  }
+  return ok;
+}
+
+// Does the key with hash h find all k of its bits in its block? The half
+// holding most of them is read first, the other only when the first
+// passes and the key has bits there: one or two 16-byte loads of one
+// 32-byte sector. K3's and K7's probe of one key; K1 runs the same steps
+// over several rows at once.
 __device__ __forceinline__ bool block_hit(const uint32_t* __restrict__ words,
                                           uint32_t h, int log2nb, int k) {
-  uint4 a, b;
-  block_load(words, h, log2nb, a, b);
-  return block_test(a, b, h, k);
+  const uint4* blk = block_halves(words, h, log2nb);
+  uint32_t g1 = fmix32(h ^ kGolden);
+  uint32_t g2 = fmix32(h ^ kP2) | 1u;
+  int half = first_half(g1, g2, k);
+  bool other;
+  bool ok = half_test(__ldg(blk + half), half, g1, g2, k, other);
+  if (ok && other) ok = half_test(__ldg(blk + (half ^ 1)), half ^ 1, g1, g2, k, other);
+  return ok;
 }
 
 struct ProbeArgs {
@@ -103,22 +122,23 @@ constexpr int kProbeCtas = 4;  // K1 CTAs an SM: at most 64 registers
 // filter, and writes m bytes. Filters are at most a few MB, so their
 // blocks mostly come from the 50 MB L2.
 //
-// Design: latency, not bandwidth, held the per-row kernel back (each
-// row's key load, then up to k dependent 4-byte loads of its block, a
-// filter after another). Here each thread takes kProbeRows = 4 rows, a
-// warp's rows consecutive so the key loads and the output bytes stay
-// coalesced; per filter it issues the key loads of all its live rows,
-// then each row's whole block as two 16-byte loads (block_load), and
-// only then tests the k bits in registers (block_test): two memory
-// latencies a filter for 4 rows, where there were at least two a row.
-// The blocks in flight take 32 registers a thread; the kernel is held to
-// 64 (4 CTAs, 4,096 rows in flight an SM). A
-// row that missed loads no later key or block (the per-row form of the
-// reference's survivors-only early exit), and its later rows of `out`
-// are written False. Rows at and past `count` are written False here,
-// which replaces the reference's separate iota mask, and the survivor-id
-// gather happens in the kernel instead of building gathered copies of
-// the key columns first.
+// Design: latency held the per-row kernel back (each row's key load,
+// then up to k dependent 4-byte loads of its block, a filter after
+// another). Here each thread takes kProbeRows = 4 rows, a warp's rows
+// consecutive so the key loads and the output bytes stay coalesced; per
+// filter it issues the key loads of all its live rows, then each row's
+// block half that holds most of its bits (block_hit's steps: one 16-byte
+// load), tests them in registers, then loads the other half for the rows
+// that passed and have bits there: at most three memory latencies a
+// filter for 4 rows. Reading both halves of every block at once was
+// slower where most rows miss (twice the L1 requests of a miss). Held to
+// 64 registers (4 CTAs, 4,096 rows in flight an SM). A row that missed
+// loads no later key or block (the per-row form of the reference's
+// survivors-only early exit), and its later rows of `out` are written
+// False. Rows at and past `count` are written False here, which replaces
+// the reference's separate iota mask, and the survivor-id gather happens
+// in the kernel instead of building gathered copies of the key columns
+// first.
 __global__ void __launch_bounds__(kThreads, kProbeCtas)
     multi_probe_kernel(ProbeArgs args, int m, int k,
                        const int32_t* __restrict__ idx, int n,
@@ -135,23 +155,37 @@ __global__ void __launch_bounds__(kThreads, kProbeCtas)
   for (int f = 0; f < m; ++f) {
     const uint32_t* lo = args.lo[f];
     const uint32_t* hi = args.hi[f];
-    uint32_t klo[kProbeRows], khi[kProbeRows], h[kProbeRows];
+    uint32_t klo[kProbeRows], khi[kProbeRows];
 #pragma unroll
     for (int i = 0; i < kProbeRows; ++i) {
       klo[i] = ok[i] ? __ldg(lo + src[i]) : 0u;
       khi[i] = ok[i] ? __ldg(hi + src[i]) : 0u;
     }
-    uint4 a[kProbeRows], b[kProbeRows];
+    const uint4* blk[kProbeRows];
+    uint32_t g1[kProbeRows], g2[kProbeRows];
+    int half[kProbeRows];
+    uint4 v[kProbeRows];
 #pragma unroll
     for (int i = 0; i < kProbeRows; ++i) {
-      h[i] = key_hash(klo[i], khi[i]);
-      if (ok[i]) {
-        block_load(args.words[f], h[i], args.log2nb[f], a[i], b[i]);
-      }
+      uint32_t h = key_hash(klo[i], khi[i]);
+      blk[i] = block_halves(args.words[f], h, args.log2nb[f]);
+      g1[i] = fmix32(h ^ kGolden);
+      g2[i] = fmix32(h ^ kP2) | 1u;
+      half[i] = first_half(g1[i], g2[i], k);
+      if (ok[i]) v[i] = __ldg(blk[i] + half[i]);
+    }
+    bool again[kProbeRows];
+#pragma unroll
+    for (int i = 0; i < kProbeRows; ++i) {
+      bool other = false;
+      if (ok[i]) ok[i] = half_test(v[i], half[i], g1[i], g2[i], k, other);
+      again[i] = ok[i] && other;
+      if (again[i]) v[i] = __ldg(blk[i] + (half[i] ^ 1));
     }
 #pragma unroll
     for (int i = 0; i < kProbeRows; ++i) {
-      if (ok[i]) ok[i] = block_test(a[i], b[i], h[i], k);
+      bool other;
+      if (again[i]) ok[i] = half_test(v[i], half[i] ^ 1, g1[i], g2[i], k, other);
       int r = r0 + i * blockDim.x;
       if (r < n) out[(size_t)f * n + r] = ok[i] ? 1 : 0;
     }
@@ -168,9 +202,9 @@ __global__ void __launch_bounds__(kThreads, kProbeCtas)
 // it writes one byte per row; the filter mostly stays in the 50 MB L2.
 //
 // Design: one thread a row, as its own entry point so the launch counts
-// tell the plane-off route from K1's. It shares K1's whole-block probe
-// (block_hit: block_load, then block_test in registers), not K1's rows
-// in flight. The kernel gathers the
+// tell the plane-off route from K1's. It shares K1's probe of a block a
+// half at a time (block_hit), not K1's rows in flight. The kernel
+// gathers the
 // survivors' key halves through `idx` and writes False at and past
 // `count`, which replaces the reference's _gather2 + _mask_count around
 // probe_pallas: no gathered key copies, no separate mask pass.
@@ -191,29 +225,33 @@ __global__ void probe_kernel(const uint32_t* __restrict__ words, int log2nb,
 }
 
 // ORs the key with hash h into its block in L2: one 64-bit atomicOr per
-// quarter of its update that has a bit the block lacks (at k = 4 at most
-// 4 * (1 - (3/4)^4) = 2.73 on average, instead of k 32-bit ones), the
-// block read first (from L2: other threads are ORing into it) so a
-// repeated key costs a read, not atomics. A stale read only costs an
-// atomic: OR never clears a bit, and the words were zeroed before the
-// kernel. OR is order-independent, so concurrent inserts leave the same
+// non-zero quarter of its update (at k = 4, 4 * (1 - (3/4)^4) = 2.73 on
+// average, instead of k 32-bit ones). With kReadFirst the block is read
+// first (from L2: other threads are ORing into it) and only quarters with
+// a bit it lacks are ORed, so a repeated key costs a read, not atomics (a
+// stale read only costs an atomic: OR never clears a bit, and the words
+// were zeroed before the kernel); without, no load waits before the
+// atomics. OR is order-independent, so concurrent inserts leave the same
 // words whatever the thread schedule. `words` is 16-byte aligned (the
 // wrappers allocate it).
+template <bool kReadFirst>
 __device__ __forceinline__ void block_insert(uint32_t* __restrict__ words,
                                              uint32_t h, int log2nb, int k) {
   unsigned long long u[4];
   block_update(h, k, u);
   unsigned long long* blk = reinterpret_cast<unsigned long long*>(words) +
                             (size_t)block_of(h, log2nb) * (kLanes / 2);
-  const uint4* vec = reinterpret_cast<const uint4*>(blk);
-  uint4 a = __ldcg(vec), b = __ldcg(vec + 1);
-  unsigned long long w[4] = {a.x | (unsigned long long)a.y << 32,
-                             a.z | (unsigned long long)a.w << 32,
-                             b.x | (unsigned long long)b.y << 32,
-                             b.z | (unsigned long long)b.w << 32};
+  if (kReadFirst) {
+    const uint4* vec = reinterpret_cast<const uint4*>(blk);
+    uint4 a = __ldcg(vec), b = __ldcg(vec + 1);
+    u[0] &= ~(a.x | (unsigned long long)a.y << 32);
+    u[1] &= ~(a.z | (unsigned long long)a.w << 32);
+    u[2] &= ~(b.x | (unsigned long long)b.y << 32);
+    u[3] &= ~(b.z | (unsigned long long)b.w << 32);
+  }
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    if (u[q] & ~w[q]) atomicOr(blk + q, u[q]);
+    if (u[q]) atomicOr(blk + q, u[q]);
   }
 }
 
@@ -246,8 +284,9 @@ __device__ __forceinline__ void block_insert(uint32_t* __restrict__ words,
 //    hash past its slice's `cap` (only skewed keys get there) goes to
 //    the overflow list instead. slice_build_kernel, one CTA a slice,
 //    ORs its region into shared memory and stores the slice plainly;
-//    overflow_kernel then ORs the overflow list into L2 (block_insert;
-//    its CTAs return at once when the list is empty).
+//    overflow_kernel then ORs the overflow list into L2 (block_insert,
+//    reading each block first: the list holds skewed, often repeated,
+//    keys; its CTAs return at once when the list is empty).
 // In shared memory a key ORs each of its k bits in with one 32-bit
 // atomicOr, skipped when a read finds the bit set already (OR never
 // clears one), so repeated keys cost reads, not atomics. Rows at and past
@@ -540,7 +579,7 @@ __global__ void overflow_kernel(const uint32_t* __restrict__ overflow,
   int n = *novf;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x) {
-    block_insert(words, __ldg(overflow + i), log2nb, k);
+    block_insert<true>(words, __ldg(overflow + i), log2nb, k);
   }
 }
 
@@ -555,7 +594,7 @@ __global__ void build_kernel(const uint32_t* __restrict__ lo,
   bool live[1];
   rows_hash(lo, hi, idx, valid, blockIdx.x * blockDim.x + threadIdx.x, 0,
             count, h, live);
-  if (live[0]) block_insert(words, h[0], log2nb, k);
+  if (live[0]) block_insert<false>(words, h[0], log2nb, k);
 }
 
 // K7. Replaces the TPU kernel repro/kernels/bloom/bloom.py transfer_pallas
@@ -566,8 +605,8 @@ __global__ void build_kernel(const uint32_t* __restrict__ lo,
 //
 // The TPU keeps the outgoing filter resident in VMEM across its sequential
 // grid and ORs the survivors' blocks in one at a time. Here one thread per
-// row does the whole-block probe K1 and K3 share (block_hit) and the
-// registers-first insert of K2's wide route (block_insert: one 64-bit
+// row does the half-at-a-time probe K1 and K3 share (block_hit) and the
+// registers-first insert of K2's direct route (block_insert: one 64-bit
 // atomicOr per non-zero quarter of the key's update), so the words are
 // bit-exact whatever the schedule. Bound on this card:
 // memory: the mask byte in and the ok byte out per row, the incoming key
@@ -592,8 +631,9 @@ __global__ void transfer_kernel(const uint32_t* __restrict__ in_words,
                       log2nb_in, k);
   ok_out[r] = ok ? 1 : 0;
   if (ok) {
-    block_insert(out_words, key_hash(__ldg(out_lo + r), __ldg(out_hi + r)),
-                 log2nb_out, k);
+    block_insert<false>(out_words,
+                        key_hash(__ldg(out_lo + r), __ldg(out_hi + r)),
+                        log2nb_out, k);
   }
 }
 
