@@ -50,55 +50,20 @@ __device__ __forceinline__ void block_update(uint32_t h, int k,
   }
 }
 
-// The key's block of the filter `words` as two 16-byte halves (`words`
-// is 16-byte aligned; the wrappers check).
-__device__ __forceinline__ const uint4* block_halves(
-    const uint32_t* __restrict__ words, uint32_t h, int log2nb) {
-  return reinterpret_cast<const uint4*>(words) + (size_t)block_of(h, log2nb) * 2;
-}
-
-// The half of a block (0: words 0-3, 1: words 4-7) that holds most of the
-// key's k bits, the one a probe reads first: a key not in the filter
-// misses there nearly always, so most misses cost one 16-byte load.
-__device__ __forceinline__ int first_half(uint32_t g1, uint32_t g2, int k) {
-  int upper = 0;
-  for (int j = 0; j < k; ++j) upper += ((g1 + (uint32_t)j * g2) >> 7) & 1u;
-  return 2 * upper > k;
-}
-
-// Are the key's bits that lie in half `half` (v) of its block all set?
-// `other` tells whether some lie in the other half. Tested in registers.
-__device__ __forceinline__ bool half_test(uint4 v, int half, uint32_t g1,
-                                          uint32_t g2, int k, bool& other) {
-  bool ok = true;
-  other = false;
-  for (int j = 0; j < k; ++j) {
-    uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
-    if ((int)(pos >> 7) != half) {
-      other = true;
-      continue;
-    }
-    uint32_t w = (pos >> 5) & 3u;
-    uint32_t lo = (w & 1u) ? v.y : v.x, hi = (w & 1u) ? v.w : v.z;
-    ok = ok && (((w & 2u) ? hi : lo) >> (pos & 31u)) & 1u;
-  }
-  return ok;
-}
-
-// Does the key with hash h find all k of its bits in its block? The half
-// holding most of them is read first, the other only when the first
-// passes and the key has bits there: one or two 16-byte loads of one
-// 32-byte sector. K3's and K7's probe of one key; K1 runs the same steps
-// over several rows at once.
+// Does the key with hash h find all k of its bits in its block? Stops at
+// the first missing bit; the k word reads fall in one 32-byte sector.
+// K3's and K7's probe of one key; K1 runs the same steps over several
+// rows at once.
 __device__ __forceinline__ bool block_hit(const uint32_t* __restrict__ words,
                                           uint32_t h, int log2nb, int k) {
-  const uint4* blk = block_halves(words, h, log2nb);
+  const uint32_t* blk = words + (size_t)block_of(h, log2nb) * kLanes;
   uint32_t g1 = fmix32(h ^ kGolden);
   uint32_t g2 = fmix32(h ^ kP2) | 1u;
-  int half = first_half(g1, g2, k);
-  bool other;
-  bool ok = half_test(__ldg(blk + half), half, g1, g2, k, other);
-  if (ok && other) ok = half_test(__ldg(blk + (half ^ 1)), half ^ 1, g1, g2, k, other);
+  bool ok = true;
+  for (int j = 0; j < k && ok; ++j) {
+    uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
+    ok = (__ldg(blk + (pos >> 5)) >> (pos & 31u)) & 1u;
+  }
   return ok;
 }
 
@@ -122,23 +87,23 @@ constexpr int kProbeCtas = 4;  // K1 CTAs an SM: at most 64 registers
 // filter, and writes m bytes. Filters are at most a few MB, so their
 // blocks mostly come from the 50 MB L2.
 //
-// Design: latency held the per-row kernel back (each row's key load,
-// then up to k dependent 4-byte loads of its block, a filter after
-// another). Here each thread takes kProbeRows = 4 rows, a warp's rows
-// consecutive so the key loads and the output bytes stay coalesced; per
-// filter it issues the key loads of all its live rows, then each row's
-// block half that holds most of its bits (block_hit's steps: one 16-byte
-// load), tests them in registers, then loads the other half for the rows
-// that passed and have bits there: at most three memory latencies a
-// filter for 4 rows. Reading both halves of every block at once was
-// slower where most rows miss (twice the L1 requests of a miss). Held to
-// 64 registers (4 CTAs, 4,096 rows in flight an SM). A row that missed
-// loads no later key or block (the per-row form of the reference's
-// survivors-only early exit), and its later rows of `out` are written
-// False. Rows at and past `count` are written False here, which replaces
-// the reference's separate iota mask, and the survivor-id gather happens
-// in the kernel instead of building gathered copies of the key columns
-// first.
+// Design: latency held the per-row kernel back: a row's key load, then
+// up to k dependent 4-byte loads of its block (block_hit), a filter
+// after another, with one row in flight a thread. Here each thread takes
+// kProbeRows = 4 rows, a warp's rows consecutive so the key loads and the
+// output bytes stay coalesced, and runs block_hit's steps on all of them
+// at once: per filter it issues the key loads of all its live rows, then
+// round j loads word j of each row still pending (independent loads, one
+// sector a row) before testing any. A row stops at its first missing bit,
+// as in block_hit: a key not in the filter mostly costs one word, where
+// reading each block whole (two 16-byte loads) doubled the L1 requests
+// of the rows that miss and was slower. Held to 64 registers (4 CTAs,
+// 4,096 rows in flight an SM). A row that missed loads no later key or
+// block (the per-row form of the reference's survivors-only early exit),
+// and its later rows of `out` are written False. Rows at and past `count`
+// are written False here, which replaces the reference's separate iota
+// mask, and the survivor-id gather happens in the kernel instead of
+// building gathered copies of the key columns first.
 __global__ void __launch_bounds__(kThreads, kProbeCtas)
     multi_probe_kernel(ProbeArgs args, int m, int k,
                        const int32_t* __restrict__ idx, int n,
@@ -161,31 +126,32 @@ __global__ void __launch_bounds__(kThreads, kProbeCtas)
       klo[i] = ok[i] ? __ldg(lo + src[i]) : 0u;
       khi[i] = ok[i] ? __ldg(hi + src[i]) : 0u;
     }
-    const uint4* blk[kProbeRows];
+    const uint32_t* blk[kProbeRows];
     uint32_t g1[kProbeRows], g2[kProbeRows];
-    int half[kProbeRows];
-    uint4 v[kProbeRows];
 #pragma unroll
     for (int i = 0; i < kProbeRows; ++i) {
       uint32_t h = key_hash(klo[i], khi[i]);
-      blk[i] = block_halves(args.words[f], h, args.log2nb[f]);
+      blk[i] = args.words[f] + (size_t)block_of(h, args.log2nb[f]) * kLanes;
       g1[i] = fmix32(h ^ kGolden);
       g2[i] = fmix32(h ^ kP2) | 1u;
-      half[i] = first_half(g1[i], g2[i], k);
-      if (ok[i]) v[i] = __ldg(blk[i] + half[i]);
     }
-    bool again[kProbeRows];
+    for (int j = 0; j < k; ++j) {
+      uint32_t pos[kProbeRows], w[kProbeRows];
+      bool any = false;
+#pragma unroll
+      for (int i = 0; i < kProbeRows; ++i) {
+        pos[i] = (g1[i] + (uint32_t)j * g2[i]) & 255u;
+        w[i] = ok[i] ? __ldg(blk[i] + (pos[i] >> 5)) : 0u;
+      }
+#pragma unroll
+      for (int i = 0; i < kProbeRows; ++i) {
+        ok[i] = ok[i] && ((w[i] >> (pos[i] & 31u)) & 1u);
+        any = any || ok[i];
+      }
+      if (!any) break;
+    }
 #pragma unroll
     for (int i = 0; i < kProbeRows; ++i) {
-      bool other = false;
-      if (ok[i]) ok[i] = half_test(v[i], half[i], g1[i], g2[i], k, other);
-      again[i] = ok[i] && other;
-      if (again[i]) v[i] = __ldg(blk[i] + (half[i] ^ 1));
-    }
-#pragma unroll
-    for (int i = 0; i < kProbeRows; ++i) {
-      bool other;
-      if (again[i]) ok[i] = half_test(v[i], half[i] ^ 1, g1[i], g2[i], k, other);
       int r = r0 + i * blockDim.x;
       if (r < n) out[(size_t)f * n + r] = ok[i] ? 1 : 0;
     }
@@ -202,9 +168,8 @@ __global__ void __launch_bounds__(kThreads, kProbeCtas)
 // it writes one byte per row; the filter mostly stays in the 50 MB L2.
 //
 // Design: one thread a row, as its own entry point so the launch counts
-// tell the plane-off route from K1's. It shares K1's probe of a block a
-// half at a time (block_hit), not K1's rows in flight. The kernel
-// gathers the
+// tell the plane-off route from K1's. It shares K1's probe steps
+// (block_hit), not K1's rows in flight. The kernel gathers the
 // survivors' key halves through `idx` and writes False at and past
 // `count`, which replaces the reference's _gather2 + _mask_count around
 // probe_pallas: no gathered key copies, no separate mask pass.
@@ -605,7 +570,7 @@ __global__ void build_kernel(const uint32_t* __restrict__ lo,
 //
 // The TPU keeps the outgoing filter resident in VMEM across its sequential
 // grid and ORs the survivors' blocks in one at a time. Here one thread per
-// row does the half-at-a-time probe K1 and K3 share (block_hit) and the
+// row does the probe K1 and K3 share (block_hit) and the
 // registers-first insert of K2's direct route (block_insert: one 64-bit
 // atomicOr per non-zero quarter of the key's update), so the words are
 // bit-exact whatever the schedule. Bound on this card:
@@ -644,9 +609,9 @@ extern "C" {
 int bloom_max_filters() { return kMaxFilters; }
 
 // words/los/his: host arrays of m device pointers: filter f's words,
-// uint32 [2^log2nbs[f], 8], 16-byte aligned, and its key halves, uint32
-// [>= n or >= max(idx)+1]; log2nbs: host int array of m; idx: int32 [n]
-// survivor ids or null; out: uint8 [m, n].
+// uint32 [2^log2nbs[f], 8], and its key halves, uint32 [>= n or >=
+// max(idx)+1]; log2nbs: host int array of m; idx: int32 [n] survivor ids
+// or null; out: uint8 [m, n].
 int bloom_multi_probe(const void* const* words, const void* const* los,
                       const void* const* his, const int* log2nbs, int m,
                       int k, const void* idx, int n, int count, void* out,

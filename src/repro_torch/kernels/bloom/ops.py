@@ -87,12 +87,9 @@ def _log2(nb: int) -> int:
 
 def _check_words(words: torch.Tensor, dev: torch.device,
                  what: str) -> None:
-    """A filter a kernel probes: it reads a block as two 16-byte loads."""
     check_i32(words, dev, what, ndim=2)
     if words.shape[1] != LANES:
         raise ValueError(f"{what} must be [nblocks, {LANES}]")
-    if words.data_ptr() % 16:
-        raise ValueError(f"{what} must start on a 16-byte boundary")
 
 
 def _rows(los: Sequence[torch.Tensor], idx: Optional[torch.Tensor],
@@ -282,7 +279,8 @@ def build(lo: torch.Tensor, hi: torch.Tensor, nblocks: int,
     if count == 0:
         return torch.zeros((nblocks, LANES), dtype=torch.int32, device=dev)
     # the kernels write every word; the scratch (the partitioned route's
-    # per-slice counts and hashes, see bloom.cu) is theirs for the call
+    # cursors, slice regions and overflow list, see bloom.cu) is theirs
+    # for the call
     words = torch.empty((nblocks, LANES), dtype=torch.int32, device=dev)
     nscratch = int(lib.bloom_build_scratch_bytes(count, log2nb))
     scratch = (torch.empty(nscratch, dtype=torch.uint8, device=dev)
