@@ -104,15 +104,16 @@ constexpr int kProbeCtas = 4;  // K1 CTAs an SM: at most 64 registers
 // are written False here, which replaces the reference's separate iota
 // mask, and the survivor-id gather happens in the kernel instead of
 // building gathered copies of the key columns first.
-__global__ void __launch_bounds__(kThreads, kProbeCtas)
+template <int R, bool kStream>
+__global__ void __launch_bounds__(kThreads, R == 1 ? 8 : kProbeCtas)
     multi_probe_kernel(ProbeArgs args, int m, int k,
                        const int32_t* __restrict__ idx, int n,
                        int count, uint8_t* __restrict__ out) {
-  int r0 = blockIdx.x * blockDim.x * kProbeRows + threadIdx.x;
-  int src[kProbeRows];
-  bool ok[kProbeRows];
+  int r0 = blockIdx.x * blockDim.x * R + threadIdx.x;
+  int src[R];
+  bool ok[R];
 #pragma unroll
-  for (int i = 0; i < kProbeRows; ++i) {
+  for (int i = 0; i < R; ++i) {
     int r = r0 + i * blockDim.x;
     ok[i] = r < count;
     src[i] = ok[i] ? (idx != nullptr ? __ldg(idx + r) : r) : 0;
@@ -120,40 +121,49 @@ __global__ void __launch_bounds__(kThreads, kProbeCtas)
   for (int f = 0; f < m; ++f) {
     const uint32_t* lo = args.lo[f];
     const uint32_t* hi = args.hi[f];
-    uint32_t klo[kProbeRows], khi[kProbeRows];
+    uint32_t klo[R], khi[R];
 #pragma unroll
-    for (int i = 0; i < kProbeRows; ++i) {
-      klo[i] = ok[i] ? __ldg(lo + src[i]) : 0u;
-      khi[i] = ok[i] ? __ldg(hi + src[i]) : 0u;
+    for (int i = 0; i < R; ++i) {
+      klo[i] = ok[i] ? (kStream ? __ldcs(lo + src[i]) : __ldg(lo + src[i]))
+                     : 0u;
+      khi[i] = ok[i] ? (kStream ? __ldcs(hi + src[i]) : __ldg(hi + src[i]))
+                     : 0u;
     }
-    const uint32_t* blk[kProbeRows];
-    uint32_t g1[kProbeRows], g2[kProbeRows];
+    const uint32_t* blk[R];
+    uint32_t g1[R], g2[R];
 #pragma unroll
-    for (int i = 0; i < kProbeRows; ++i) {
+    for (int i = 0; i < R; ++i) {
       uint32_t h = key_hash(klo[i], khi[i]);
       blk[i] = args.words[f] + (size_t)block_of(h, args.log2nb[f]) * kLanes;
       g1[i] = fmix32(h ^ kGolden);
       g2[i] = fmix32(h ^ kP2) | 1u;
     }
     for (int j = 0; j < k; ++j) {
-      uint32_t pos[kProbeRows], w[kProbeRows];
+      uint32_t pos[R], w[R];
       bool any = false;
 #pragma unroll
-      for (int i = 0; i < kProbeRows; ++i) {
+      for (int i = 0; i < R; ++i) {
         pos[i] = (g1[i] + (uint32_t)j * g2[i]) & 255u;
         w[i] = ok[i] ? __ldg(blk[i] + (pos[i] >> 5)) : 0u;
       }
 #pragma unroll
-      for (int i = 0; i < kProbeRows; ++i) {
+      for (int i = 0; i < R; ++i) {
         ok[i] = ok[i] && ((w[i] >> (pos[i] & 31u)) & 1u);
         any = any || ok[i];
       }
       if (!any) break;
     }
 #pragma unroll
-    for (int i = 0; i < kProbeRows; ++i) {
+    for (int i = 0; i < R; ++i) {
       int r = r0 + i * blockDim.x;
-      if (r < n) out[(size_t)f * n + r] = ok[i] ? 1 : 0;
+      if (r < n) {
+        uint8_t v = ok[i] ? 1 : 0;
+        if (kStream) {
+          __stcs(out + (size_t)f * n + r, v);
+        } else {
+          out[(size_t)f * n + r] = v;
+        }
+      }
     }
   }
 }
@@ -627,10 +637,41 @@ int bloom_multi_probe(const void* const* words, const void* const* los,
   if (n > 0) {
     int rows = kThreads * kProbeRows;
     int grid = (n + rows - 1) / rows;
-    multi_probe_kernel<<<grid, kThreads, 0,
+    multi_probe_kernel<kProbeRows, false><<<grid, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         args, m, k, static_cast<const int32_t*>(idx), n, count,
         static_cast<uint8_t*>(out));
+  }
+  return (int)cudaGetLastError();
+}
+
+// Sweep of K1 variants (rows a thread, streaming cache hints), for
+// tools/sweep_multi_probe.py: variant v = 2 * log2(rows) + stream.
+int bloom_multi_probe_variant(int v, const void* const* words,
+                              const void* const* los, const void* const* his,
+                              const int* log2nbs, int m, int k,
+                              const void* idx, int n, int count, void* out,
+                              void* stream) {
+  ProbeArgs args;
+  for (int f = 0; f < m; ++f) {
+    args.words[f] = static_cast<const uint32_t*>(words[f]);
+    args.lo[f] = static_cast<const uint32_t*>(los[f]);
+    args.hi[f] = static_cast<const uint32_t*>(his[f]);
+    args.log2nb[f] = log2nbs[f];
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* ix = static_cast<const int32_t*>(idx);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  int rows = kThreads << (v >> 1);
+  int grid = (n + rows - 1) / rows;
+  switch (v) {
+    case 0: multi_probe_kernel<1, false><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
+    case 1: multi_probe_kernel<1, true><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
+    case 2: multi_probe_kernel<2, false><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
+    case 3: multi_probe_kernel<2, true><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
+    case 4: multi_probe_kernel<4, false><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
+    case 5: multi_probe_kernel<4, true><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
+    default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
