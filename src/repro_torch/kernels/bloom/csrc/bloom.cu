@@ -104,7 +104,7 @@ constexpr int kProbeCtas = 4;  // K1 CTAs an SM: at most 64 registers
 // are written False here, which replaces the reference's separate iota
 // mask, and the survivor-id gather happens in the kernel instead of
 // building gathered copies of the key columns first.
-template <int R, bool kStream>
+template <int R, bool kStream, bool kHybrid = false>
 __global__ void __launch_bounds__(kThreads, R == 1 ? 8 : kProbeCtas)
     multi_probe_kernel(ProbeArgs args, int m, int k,
                        const int32_t* __restrict__ idx, int n,
@@ -138,7 +138,25 @@ __global__ void __launch_bounds__(kThreads, R == 1 ? 8 : kProbeCtas)
       g1[i] = fmix32(h ^ kGolden);
       g2[i] = fmix32(h ^ kP2) | 1u;
     }
-    for (int j = 0; j < k; ++j) {
+    if (kHybrid) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        uint32_t pos = g1[i] & 255u;
+        if (ok[i]) ok[i] = (__ldg(blk[i] + (pos >> 5)) >> (pos & 31u)) & 1u;
+        if (ok[i] && k > 1) {
+          const uint4* v = reinterpret_cast<const uint4*>(blk[i]);
+          uint4 a = __ldg(v), b = __ldg(v + 1);
+          for (int j = 1; j < k; ++j) {
+            uint32_t q = (g1[i] + (uint32_t)j * g2[i]) & 255u;
+            uint32_t w = q >> 5;
+            uint4 c = (w & 4u) ? b : a;
+            uint32_t lo = (w & 1u) ? c.y : c.x, hi = (w & 1u) ? c.w : c.z;
+            ok[i] = ok[i] && ((((w & 2u) ? hi : lo) >> (q & 31u)) & 1u);
+          }
+        }
+      }
+    }
+    for (int j = 0; !kHybrid && j < k; ++j) {
       uint32_t pos[R], w[R];
       bool any = false;
 #pragma unroll
@@ -646,7 +664,8 @@ int bloom_multi_probe(const void* const* words, const void* const* los,
 }
 
 // Sweep of K1 variants (rows a thread, streaming cache hints), for
-// tools/sweep_multi_probe.py: variant v = 2 * log2(rows) + stream.
+// tools/sweep_multi_probe.py: variant v = 2 * log2(rows) + stream below
+// 6; 6 and 7: one row, the word of bit 0 then the whole block, + stream.
 int bloom_multi_probe_variant(int v, const void* const* words,
                               const void* const* los, const void* const* his,
                               const int* log2nbs, int m, int k,
@@ -662,7 +681,7 @@ int bloom_multi_probe_variant(int v, const void* const* words,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int32_t* ix = static_cast<const int32_t*>(idx);
   uint8_t* o = static_cast<uint8_t*>(out);
-  int rows = kThreads << (v >> 1);
+  int rows = kThreads << (v < 6 ? v >> 1 : 0);
   int grid = (n + rows - 1) / rows;
   switch (v) {
     case 0: multi_probe_kernel<1, false><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
@@ -671,6 +690,8 @@ int bloom_multi_probe_variant(int v, const void* const* words,
     case 3: multi_probe_kernel<2, true><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
     case 4: multi_probe_kernel<4, false><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
     case 5: multi_probe_kernel<4, true><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
+    case 6: multi_probe_kernel<1, false, true><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
+    case 7: multi_probe_kernel<1, true, true><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

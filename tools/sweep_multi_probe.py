@@ -8,7 +8,8 @@ rows, the orders- and lineitem-sized filters, each built from its own
 distinct keys: about 25% of rows pass each filter) and the same shapes
 where every probe key is in its filter, then for each variant of
 `bloom_multi_probe_variant` in `bloom.cu` (rows a thread 1, 2 or 4;
-plain or streaming cache hints for the key loads and the output) checks
+plain or streaming cache hints for the key loads and the output; a row's
+word of bit 0, then its whole block as two 16-byte loads) checks
 the mask against `multi_probe_ref` bit for bit and prints one JSON line:
 CUDA-event ms and torch.profiler device ms a call. Exits non-zero
 without CUDA or when a variant disagrees.
@@ -64,7 +65,7 @@ def main() -> int:
         los, his = [c[1] for c in cols], [c[2] for c in cols]
         ref = kb.multi_probe_ref(words, los, his, count=ragged)
         m, n = len(words), cs.N_BIG
-        for v in range(6):
+        for v in (1, 6, 7, 0):
             out = torch.empty((m, n), dtype=torch.bool, device=dev)
 
             def call():
@@ -83,7 +84,8 @@ def main() -> int:
             if not torch.equal(out, ref):
                 raise RuntimeError(f"variant {v} disagrees ({name})")
             print(json.dumps({
-                "case": name, "variant": v, "rows": 1 << (v >> 1),
+                "case": name, "variant": v,
+                "rows": 1 << (v >> 1) if v < 6 else 1, "whole_block": v >= 6,
                 "stream": bool(v & 1), "event_ms": cs.cuda_ms(torch, call, 20),
                 "device_ms": cs.device_ms(torch, call),
                 "passed": [int(x) for x in ref.sum(dim=1)]}), flush=True)
