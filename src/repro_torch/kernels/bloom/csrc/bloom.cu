@@ -50,19 +50,30 @@ __device__ __forceinline__ void block_update(uint32_t h, int k,
   }
 }
 
-// Does the key with hash h find all k of its bits in its block? Stops at
-// the first missing bit; the k word reads fall in one 32-byte sector.
-// K3's and K7's probe of one key; K1 runs the same steps over several
-// rows at once.
+// Does the key with hash h find all k of its bits in its block? It reads
+// the word of the key's first bit (a key not in the filter mostly misses
+// there: one 4-byte request), and only if that bit is set the whole block
+// as two 16-byte loads, testing the other k - 1 bits in registers: a key
+// in the filter costs three requests and two latencies, where a bit at a
+// time cost k of each. All fall in one 32-byte sector (`words` is
+// 16-byte aligned; the wrappers check). K1's, K3's and K7's probe.
 __device__ __forceinline__ bool block_hit(const uint32_t* __restrict__ words,
                                           uint32_t h, int log2nb, int k) {
   const uint32_t* blk = words + (size_t)block_of(h, log2nb) * kLanes;
   uint32_t g1 = fmix32(h ^ kGolden);
   uint32_t g2 = fmix32(h ^ kP2) | 1u;
-  bool ok = true;
-  for (int j = 0; j < k && ok; ++j) {
-    uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
-    ok = (__ldg(blk + (pos >> 5)) >> (pos & 31u)) & 1u;
+  uint32_t pos = g1 & 255u;
+  bool ok = (__ldg(blk + (pos >> 5)) >> (pos & 31u)) & 1u;
+  if (ok && k > 1) {
+    const uint4* vec = reinterpret_cast<const uint4*>(blk);
+    uint4 a = __ldg(vec), b = __ldg(vec + 1);
+    for (int j = 1; j < k; ++j) {
+      pos = (g1 + (uint32_t)j * g2) & 255u;
+      uint32_t w = pos >> 5;
+      uint4 c = (w & 4u) ? b : a;
+      uint32_t lo = (w & 1u) ? c.y : c.x, hi = (w & 1u) ? c.w : c.z;
+      ok = ok && ((((w & 2u) ? hi : lo) >> (pos & 31u)) & 1u);
+    }
   }
   return ok;
 }
@@ -74,9 +85,6 @@ struct ProbeArgs {
   int log2nb[kMaxFilters];
 };
 
-constexpr int kProbeRows = 4;  // rows a K1 thread keeps in flight
-constexpr int kProbeCtas = 4;  // K1 CTAs an SM: at most 64 registers
-
 // K1. Replaces the TPU kernel repro/kernels/bloom/bloom.py
 // multi_probe_pallas (_multi_probe_kernel), reached from the reference's
 // engine_bloom._fused_pallas_count / _fused_pallas_gather.
@@ -87,102 +95,34 @@ constexpr int kProbeCtas = 4;  // K1 CTAs an SM: at most 64 registers
 // filter, and writes m bytes. Filters are at most a few MB, so their
 // blocks mostly come from the 50 MB L2.
 //
-// Design: latency held the per-row kernel back: a row's key load, then
-// up to k dependent 4-byte loads of its block (block_hit), a filter
-// after another, with one row in flight a thread. Here each thread takes
-// kProbeRows = 4 rows, a warp's rows consecutive so the key loads and the
-// output bytes stay coalesced, and runs block_hit's steps on all of them
-// at once: per filter it issues the key loads of all its live rows, then
-// round j loads word j of each row still pending (independent loads, one
-// sector a row) before testing any. A row stops at its first missing bit,
-// as in block_hit: a key not in the filter mostly costs one word, where
-// reading each block whole (two 16-byte loads) doubled the L1 requests
-// of the rows that miss and was slower. Held to 64 registers (4 CTAs,
-// 4,096 rows in flight an SM). A row that missed loads no later key or
-// block (the per-row form of the reference's survivors-only early exit),
-// and its later rows of `out` are written False. Rows at and past `count`
-// are written False here, which replaces the reference's separate iota
-// mask, and the survivor-id gather happens in the kernel instead of
-// building gathered copies of the key columns first.
-template <int R, bool kStream, bool kHybrid = false>
-__global__ void __launch_bounds__(kThreads, R == 1 ? 8 : kProbeCtas)
-    multi_probe_kernel(ProbeArgs args, int m, int k,
-                       const int32_t* __restrict__ idx, int n,
-                       int count, uint8_t* __restrict__ out) {
-  int r0 = blockIdx.x * blockDim.x * R + threadIdx.x;
-  int src[R];
-  bool ok[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    int r = r0 + i * blockDim.x;
-    ok[i] = r < count;
-    src[i] = ok[i] ? (idx != nullptr ? __ldg(idx + r) : r) : 0;
-  }
+// Design: one thread a row, so the key loads and the m output bytes are
+// coalesced across a warp; per filter the row probes with block_hit (its
+// first bit's word, then the whole block only for a key that passes it).
+// The probes' random 32-byte sectors, not their latency, set the pace:
+// keeping 2 or 4 rows in flight a thread was slower at every pass rate
+// tried, and reading every block whole doubled the requests of the rows
+// that miss. The key halves and survivor ids are loaded, and the output
+// stored, with streaming cache hints (each is touched once), so they do
+// not push the filters out of L2. Each filter comes by its own pointer
+// (no stacked copy of the filters a call). A row that missed loads no
+// later key or block (the per-row form of the reference's survivors-only
+// early exit), and its later rows of `out` are written False. Rows at and
+// past `count` are written False here, which replaces the reference's
+// separate iota mask, and the survivor-id gather happens in the kernel
+// instead of building gathered copies of the key columns first.
+__global__ void multi_probe_kernel(ProbeArgs args, int m, int k,
+                                   const int32_t* __restrict__ idx, int n,
+                                   int count, uint8_t* __restrict__ out) {
+  int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  bool ok = r < count;
+  int src = (ok && idx != nullptr) ? __ldcs(idx + r) : r;
   for (int f = 0; f < m; ++f) {
-    const uint32_t* lo = args.lo[f];
-    const uint32_t* hi = args.hi[f];
-    uint32_t klo[R], khi[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      klo[i] = ok[i] ? (kStream ? __ldcs(lo + src[i]) : __ldg(lo + src[i]))
-                     : 0u;
-      khi[i] = ok[i] ? (kStream ? __ldcs(hi + src[i]) : __ldg(hi + src[i]))
-                     : 0u;
+    if (ok) {
+      uint32_t h = key_hash(__ldcs(args.lo[f] + src), __ldcs(args.hi[f] + src));
+      ok = block_hit(args.words[f], h, args.log2nb[f], k);
     }
-    const uint32_t* blk[R];
-    uint32_t g1[R], g2[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      uint32_t h = key_hash(klo[i], khi[i]);
-      blk[i] = args.words[f] + (size_t)block_of(h, args.log2nb[f]) * kLanes;
-      g1[i] = fmix32(h ^ kGolden);
-      g2[i] = fmix32(h ^ kP2) | 1u;
-    }
-    if (kHybrid) {
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        uint32_t pos = g1[i] & 255u;
-        if (ok[i]) ok[i] = (__ldg(blk[i] + (pos >> 5)) >> (pos & 31u)) & 1u;
-        if (ok[i] && k > 1) {
-          const uint4* v = reinterpret_cast<const uint4*>(blk[i]);
-          uint4 a = __ldg(v), b = __ldg(v + 1);
-          for (int j = 1; j < k; ++j) {
-            uint32_t q = (g1[i] + (uint32_t)j * g2[i]) & 255u;
-            uint32_t w = q >> 5;
-            uint4 c = (w & 4u) ? b : a;
-            uint32_t lo = (w & 1u) ? c.y : c.x, hi = (w & 1u) ? c.w : c.z;
-            ok[i] = ok[i] && ((((w & 2u) ? hi : lo) >> (q & 31u)) & 1u);
-          }
-        }
-      }
-    }
-    for (int j = 0; !kHybrid && j < k; ++j) {
-      uint32_t pos[R], w[R];
-      bool any = false;
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        pos[i] = (g1[i] + (uint32_t)j * g2[i]) & 255u;
-        w[i] = ok[i] ? __ldg(blk[i] + (pos[i] >> 5)) : 0u;
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        ok[i] = ok[i] && ((w[i] >> (pos[i] & 31u)) & 1u);
-        any = any || ok[i];
-      }
-      if (!any) break;
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      int r = r0 + i * blockDim.x;
-      if (r < n) {
-        uint8_t v = ok[i] ? 1 : 0;
-        if (kStream) {
-          __stcs(out + (size_t)f * n + r, v);
-        } else {
-          out[(size_t)f * n + r] = v;
-        }
-      }
-    }
+    __stcs(out + (size_t)f * n + r, (uint8_t)(ok ? 1 : 0));
   }
 }
 
@@ -196,8 +136,8 @@ __global__ void __launch_bounds__(kThreads, R == 1 ? 8 : kProbeCtas)
 // it writes one byte per row; the filter mostly stays in the 50 MB L2.
 //
 // Design: one thread a row, as its own entry point so the launch counts
-// tell the plane-off route from K1's. It shares K1's probe steps
-// (block_hit), not K1's rows in flight. The kernel gathers the
+// tell the plane-off route from K1's; it shares K1's probe (block_hit:
+// the first bit's word, then the whole block). The kernel gathers the
 // survivors' key halves through `idx` and writes False at and past
 // `count`, which replaces the reference's _gather2 + _mask_count around
 // probe_pallas: no gathered key copies, no separate mask pass.
@@ -637,9 +577,9 @@ extern "C" {
 int bloom_max_filters() { return kMaxFilters; }
 
 // words/los/his: host arrays of m device pointers: filter f's words,
-// uint32 [2^log2nbs[f], 8], and its key halves, uint32 [>= n or >=
-// max(idx)+1]; log2nbs: host int array of m; idx: int32 [n] survivor ids
-// or null; out: uint8 [m, n].
+// uint32 [2^log2nbs[f], 8], 16-byte aligned, and its key halves, uint32
+// [>= n or >= max(idx)+1]; log2nbs: host int array of m; idx: int32 [n]
+// survivor ids or null; out: uint8 [m, n].
 int bloom_multi_probe(const void* const* words, const void* const* los,
                       const void* const* his, const int* log2nbs, int m,
                       int k, const void* idx, int n, int count, void* out,
@@ -653,46 +593,11 @@ int bloom_multi_probe(const void* const* words, const void* const* los,
     args.log2nb[f] = log2nbs[f];
   }
   if (n > 0) {
-    int rows = kThreads * kProbeRows;
-    int grid = (n + rows - 1) / rows;
-    multi_probe_kernel<kProbeRows, false><<<grid, kThreads, 0,
+    int grid = (n + kThreads - 1) / kThreads;
+    multi_probe_kernel<<<grid, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         args, m, k, static_cast<const int32_t*>(idx), n, count,
         static_cast<uint8_t*>(out));
-  }
-  return (int)cudaGetLastError();
-}
-
-// Sweep of K1 variants (rows a thread, streaming cache hints), for
-// tools/sweep_multi_probe.py: variant v = 2 * log2(rows) + stream below
-// 6; 6 and 7: one row, the word of bit 0 then the whole block, + stream.
-int bloom_multi_probe_variant(int v, const void* const* words,
-                              const void* const* los, const void* const* his,
-                              const int* log2nbs, int m, int k,
-                              const void* idx, int n, int count, void* out,
-                              void* stream) {
-  ProbeArgs args;
-  for (int f = 0; f < m; ++f) {
-    args.words[f] = static_cast<const uint32_t*>(words[f]);
-    args.lo[f] = static_cast<const uint32_t*>(los[f]);
-    args.hi[f] = static_cast<const uint32_t*>(his[f]);
-    args.log2nb[f] = log2nbs[f];
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int32_t* ix = static_cast<const int32_t*>(idx);
-  uint8_t* o = static_cast<uint8_t*>(out);
-  int rows = kThreads << (v < 6 ? v >> 1 : 0);
-  int grid = (n + rows - 1) / rows;
-  switch (v) {
-    case 0: multi_probe_kernel<1, false><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
-    case 1: multi_probe_kernel<1, true><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
-    case 2: multi_probe_kernel<2, false><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
-    case 3: multi_probe_kernel<2, true><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
-    case 4: multi_probe_kernel<4, false><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
-    case 5: multi_probe_kernel<4, true><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
-    case 6: multi_probe_kernel<1, false, true><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
-    case 7: multi_probe_kernel<1, true, true><<<grid, kThreads, 0, st>>>(args, m, k, ix, n, count, o); break;
-    default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -87,9 +87,13 @@ def _log2(nb: int) -> int:
 
 def _check_words(words: torch.Tensor, dev: torch.device,
                  what: str) -> None:
+    """A filter a kernel probes: it may read a block as two 16-byte
+    loads."""
     check_i32(words, dev, what, ndim=2)
     if words.shape[1] != LANES:
         raise ValueError(f"{what} must be [nblocks, {LANES}]")
+    if words.data_ptr() % 16:
+        raise ValueError(f"{what} must start on a 16-byte boundary")
 
 
 def _rows(los: Sequence[torch.Tensor], idx: Optional[torch.Tensor],

@@ -122,13 +122,23 @@ def test_multi_probe_ref_matches_pallas(rng, nbs):
     np.testing.assert_array_equal(got_g.numpy(), ref_g)
 
 
+def _skewed_keys(rng, n):
+    """Keys in the first 1/256 of the hash range (one slice of K2's
+    partitioned build), each 4 times in a row as `l_orderkey` repeats."""
+    h = rng.integers(0, 1 << 24, n // 4, dtype=np.uint64).astype(np.uint32)
+    hi = rng.integers(0, 1 << 32, n // 4, dtype=np.uint64).astype(np.uint32)
+    return np.repeat(hashing.keys_with_hashes(h, hi), 4)
+
+
+@pytest.mark.parametrize("skewed", [False, True], ids=["random", "skewed"])
 @pytest.mark.parametrize("nblocks", NBLOCKS)
-def test_build_ref_matches_pallas(rng, nblocks):
+def test_build_ref_matches_pallas(rng, nblocks, skewed):
     """K2's plain version == reference build_pallas (interpret mode),
     bit-exact words, over gathered survivors with a ragged count and a
-    validity plane."""
+    validity plane, on random keys and on skewed repeated ones."""
     n = 4096
-    lo, hi = rhashing.key_halves(_keys(rng, n))
+    keys = _skewed_keys(rng, n) if skewed else _keys(rng, n)
+    lo, hi = rhashing.key_halves(keys)
     idx = np.sort(rng.choice(n, 2048, replace=False)).astype(np.int32)
     count = 1500
     valid = rng.random(n) < 0.8
@@ -146,6 +156,19 @@ def test_build_ref_matches_pallas(rng, nblocks):
         nblocks, interpret=True))
     np.testing.assert_array_equal(
         bloom.words_to_host(kb.build_ref(tlo, thi, nblocks)), ref_all)
+
+
+def test_keys_with_hashes_hash_back(rng):
+    """`hashing.keys_with_hashes` (the skewed K2 inputs) gives keys whose
+    high halves and reference hash are the ones asked for; its inverse
+    mix undoes `fmix32_np`."""
+    h = rng.integers(0, 1 << 32, 5000, dtype=np.uint64).astype(np.uint32)
+    hi = rng.integers(0, 1 << 32, 5000, dtype=np.uint64).astype(np.uint32)
+    lo, khi = rhashing.key_halves(hashing.keys_with_hashes(h, hi))
+    np.testing.assert_array_equal(khi, hi)
+    np.testing.assert_array_equal(rhashing.hash64_np(lo, khi), h)
+    np.testing.assert_array_equal(
+        hashing.fmix32_np(hashing.fmix32_inv_np(h)), h)
 
 
 def test_cpu_wrappers_take_plain_version_and_do_not_count(rng):

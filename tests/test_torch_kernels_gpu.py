@@ -212,6 +212,9 @@ def test_wrappers_count_launches_and_check_inputs(cuda):
         kb.build(lo.to(torch.int64), lo.to(torch.int64), 8)
     with pytest.raises(ValueError):
         kb.multi_probe([w], [lo[::2]], [lo[::2]])
+    flat = torch.zeros(8 * 8 + 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        kb.probe(flat[1:].view(8, 8), lo, lo)   # a block may be read 16 B
 
 
 def test_tpch_q5_on_gpu_matches_oracle(cuda):
