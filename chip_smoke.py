@@ -15,10 +15,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              for 1.5 M and 6 M keys plus a one-block filter, ragged
              counts, survivor-id gathers. As on the main path, each
              filter of a K1 call probes its own key column, and each
-             filter is built from its own build-side keys. Results must
-             be bit-exact. Median CUDA-event times of kernel and plain
-             version, and the bound (bytes moved over the H100's 3.35
-             TB/s);
+             filter is built from its own build-side keys; K2 also at a
+             skew (6 M keys whose hashes all fall in one of the 256
+             slices K2's partitioned build cuts the filter into, so all
+             but one slice's share go to its overflow list). Results
+             must be bit-exact. Median CUDA-event times of kernel and
+             plain version, and the bound (bytes moved over the H100's
+             3.35 TB/s);
 4. joinmap — the hash-map join kernels (K4 build, K5 lookup) at the
              orders shape of SF 1: 1,500,000 distinct keys in 2^22
              slots, probed by 6,001,215 lineitem-like keys. K4's
@@ -57,7 +60,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              must launch K1 and K2, the plane-off path K2, K3, K4 and K5
              and never K1, and the plane-on sweep never K3, K4 or K5. A
              `compare` line sets each query's warm seconds and round
-             trips on the two planes side by side. Then one warm run each
+             trips on the two planes side by side. During the warm
+             `pred-trans` runs a wrapper around K1's and K2's wrappers
+             counts each call's shape (live rows to a power of two,
+             nblocks, K1's m) into one `shapes` line. Then one warm run each
              of Q5 and Q9 on each plane under torch.profiler (device busy
              seconds, idle share, top device ops), after every reading;
 6. kernel-api — path `kernel-api`: the kernel library's public entry
