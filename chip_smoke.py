@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--sf 1.0]
+    python3 chip_smoke.py [--sf 1.0] [--phase all|kernels]
+
+`--phase kernels` runs phases 1-4 only (to iterate on a kernel) and
+prints neither the kernel table nor the ok line.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -18,10 +21,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              filter is built from its own build-side keys; K2 also at a
              skew (6 M keys whose hashes all fall in one of the 256
              slices K2's partitioned build cuts the filter into, so all
-             but one slice's share go to its overflow list). Results
-             must be bit-exact. Median CUDA-event times of kernel and
-             plain version, and the bound (bytes moved over the H100's
-             3.35 TB/s);
+             but one slice's share go to its overflow list), and a
+             sweep of K2's direct and partitioned routes, each forced,
+             at 2^14 to 2^20 keys (`route_sweep`, after phase 4).
+             Results must be bit-exact. Median CUDA-event times of
+             kernel and plain version, the bound (bytes moved over the
+             H100's 3.35 TB/s), and, after phase 4, each case's device
+             time alone (torch.profiler, `device_times`);
 4. joinmap — the hash-map join kernels (K4 build, K5 lookup) at the
              orders shape of SF 1: 1,500,000 distinct keys in 2^22
              slots, probed by 6,001,215 lineitem-like keys. K4's
@@ -136,9 +142,9 @@ The line before the last is the kernel table
 "library_ms", "launches_by_path"}]}` (`plain_device` says where
 `plain_ms` was taken: "cuda" for CUDA-event times on the card, "cpu" for
 the sequential K4 and K6a builds timed on the host; K6's and K8's rows
-add `library_call`, what `library_ms` timed; K8's rows add `device_ms`
-and `library_device_ms`, the device time alone of a call of each, read
-from torch.profiler)
+add `library_call`, what `library_ms` timed; K1's, K2's, K3's, K7's and
+K8's rows add `device_ms`, K8's `library_device_ms` too, the device
+time alone of a call, read from torch.profiler)
 and the last line is `{"ok": true, "device": {...}}`. Without CUDA, or
 without the repository's `src/` beside it, the script exits non-zero
 before printing any result. Imports torch, numpy and `repro_torch` only.
@@ -259,21 +265,38 @@ def api_inputs(np, cat) -> dict:
             "q4": li.array("l_commitdate") < li.array("l_receiptdate")}
 
 
+def keys_with_hashes(np, h, hi):
+    """int64 keys whose high halves are `hi` (uint32) and whose hash
+    (`hashing.hash64_np` of their halves: lo ^ fmix32(hi), mixed by
+    fmix32) is `h` (uint32): fmix32 undone step by step (each step is a
+    bijection on uint32; an odd multiplier has an inverse mod 2^32)."""
+    from repro_torch.core import hashing
+    lo = np.asarray(h).astype(np.uint32, copy=True)
+    with np.errstate(over="ignore"):
+        lo ^= lo >> np.uint32(16)
+        lo *= np.uint32(pow(0xC2B2AE35, -1, 1 << 32))
+        lo ^= (lo >> np.uint32(13)) ^ (lo >> np.uint32(26))
+        lo *= np.uint32(pow(0x85EBCA6B, -1, 1 << 32))
+        lo ^= lo >> np.uint32(16)
+    lo ^= hashing.fmix32_np(hi)
+    return ((np.asarray(hi).astype(np.uint64) << np.uint64(32))
+            | lo.astype(np.uint64)).view(np.int64)
+
+
 def skewed_keys(np, rng, n: int):
     """n int64 keys whose hashes all lie below 2^24, so in the first of
     the 256 slices K2's partitioned build cuts a 2^12- to 2^19-block
-    filter into: hashes drawn there, keys built back from them
-    (`hashing.keys_with_hashes`)."""
-    from repro_torch.core import hashing
+    filter into: hashes drawn there, keys built back from them."""
     h = rng.integers(0, 1 << 24, n, dtype=np.uint64).astype(np.uint32)
     hi = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
-    return hashing.keys_with_hashes(h, hi)
+    return keys_with_hashes(np, h, hi)
 
 
-def kernel_phase(torch, np, kb, bloom, dev, api):
+def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
     """K1/K2/K3/K7 vs their plain versions on the card; returns the
     record of each kernel at the main path's heaviest shape (K7: case
-    C's), and each kernel's largest error."""
+    C's), and each kernel's largest error. Appends (record, call) for
+    each case to `later`, for `device_times`."""
     rng = np.random.default_rng(7)
 
     def halves(keys):
@@ -322,6 +345,8 @@ def kernel_phase(torch, np, kb, bloom, dev, api):
                "survivors": int(ref[-1].sum()), "max_abs_err": err,
                "library_ms": None}
         emit({"phase": "kernels", **rec})
+        later.append((rec, lambda: kb.multi_probe(*args, idx=ix,
+                                                  count=count)))
         return rec
 
     def single_case(name, c, n, count, ix):
@@ -347,6 +372,7 @@ def kernel_phase(torch, np, kb, bloom, dev, api):
                "survivors": int(ref.sum()), "max_abs_err": err,
                "library_ms": None}
         emit({"phase": "kernels", **rec})
+        later.append((rec, lambda: kb.probe(*args, idx=ix, count=count)))
         return rec
 
     def build_case(name, col, nb, count, ix, v):
@@ -369,6 +395,8 @@ def kernel_phase(torch, np, kb, bloom, dev, api):
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
                "max_abs_err": err, "library_ms": None}
         emit({"phase": "kernels", **rec})
+        later.append((rec, lambda: kb.build(lo, hi, nb, idx=ix, count=count,
+                                            valid=v)))
         return rec
 
     def transfer_case(name, in_words, ikeys, okeys, keep, nb):
@@ -404,6 +432,7 @@ def kernel_phase(torch, np, kb, bloom, dev, api):
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
                "max_abs_err": err, "library_ms": None}
         emit({"phase": "kernels", **rec})
+        later.append((rec, lambda: kb.transfer(*args)))
         return rec
 
     ragged = 6_001_215            # SF 1 lineitem rows
@@ -422,8 +451,8 @@ def kernel_phase(torch, np, kb, bloom, dev, api):
     # skew: lineitem-many keys into the lineitem-sized filter, every one in
     # the first of its 256 slices, so all but that slice's capacity go to
     # K2's overflow list (a fault there shows as a time as well as a wrong
-    # word)
-    cols.append(halves(skewed_keys(np, rng, N_BIG)))
+    # word); its own generator, so the cases after it keep their inputs
+    cols.append(halves(skewed_keys(np, np.random.default_rng(23), N_BIG)))
     build_case("2^23 one slice", len(cols) - 1, nb_big, ragged, None, None)
     # case C's shape: lineitem's rows through the Q5-date orders filter
     # (from the plain build) into a lineitem-sized supplier-key filter
@@ -441,6 +470,53 @@ def kernel_phase(torch, np, kb, bloom, dev, api):
                   rng.integers(0, 1 << 40, 5003).astype(np.int64),
                   rng.random(5003) < 0.8, 8)
     return rep, worst
+
+
+def device_times(torch, later: list) -> None:
+    """Each Bloom case's device time alone (`device_ms`), into its record
+    and one line each. Run after every CUDA-event reading of phases 3-4,
+    so that no torch.profiler session precedes those readings (as in a
+    checkout without this step)."""
+    for rec, call in later:
+        rec["device_ms"] = device_ms(torch, call)
+        emit({"phase": "kernels", "kernel": rec["kernel"],
+              "case": rec["case"], "ms": rec["ms"],
+              "device_ms": rec["device_ms"]})
+
+
+def route_sweep(torch, np, kb, bloom, dev) -> None:
+    """K2's direct and partitioned routes, each forced in turn
+    (`bloom_build_force_route`), at the build sizes the `pred-trans`
+    path gives K2 (2^14 to 2^20 keys, the `shapes` line's range, into
+    `blocks_for` blocks): each bit-exact against the plain build, one
+    line a size with both routes' CUDA-event and device ms and the route
+    K2's rule takes there (`kFewRows` in bloom.cu comes from these)."""
+    lib = kb._lib()
+    rng = np.random.default_rng(29)
+    for log2n in range(14, 21):
+        n = 1 << log2n
+        nb = bloom.blocks_for(n)
+        lo, hi = bloom.keys_to_device(
+            rng.integers(0, 1 << 40, n, dtype=np.int64), dev)
+        ref = kb.build_ref(lo, hi, nb)
+        rule = lib.bloom_build_scratch_bytes(n, kb._log2(nb))
+        rec = {"phase": "kernels", "kernel": "bloom_build",
+               "case": "route sweep", "n": n, "nblocks": nb,
+               "rule": "partitioned" if rule else "direct"}
+        for route, kind in (("direct", 1), ("partitioned", 2)):
+            lib.bloom_build_force_route(kind)
+            try:
+                got = kb.build(lo, hi, nb)
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref),
+                      f"bloom_build {route} route at {n} rows disagrees")
+                rec[f"{route}_ms"] = cuda_ms(
+                    torch, lambda: kb.build(lo, hi, nb), 20)
+                rec[f"{route}_device_ms"] = device_ms(
+                    torch, lambda: kb.build(lo, hi, nb))
+            finally:
+                lib.bloom_build_force_route(-1)
+        emit(rec)
 
 
 def joinmap_phase(torch, np, sj, bloom, dev, api):
@@ -1149,6 +1225,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0,
                     help="TPC-H scale factor of the slice phase")
+    ap.add_argument("--phase", choices=("all", "kernels"), default="all",
+                    help="kernels: phases 1-4 only, with no kernel table "
+                         "and no ok line")
     args = ap.parse_args()
 
     import numpy as np
@@ -1190,8 +1269,13 @@ def main() -> int:
           "lineitem_rows": len(cat["lineitem"])})
     api = api_inputs(np, cat)
 
-    rep, worst = kernel_phase(torch, np, kb, bloom, dev, api)
+    later = []
+    rep, worst = kernel_phase(torch, np, kb, bloom, dev, api, later)
     jrep, jworst = joinmap_phase(torch, np, sj, bloom, dev, api)
+    device_times(torch, later)
+    route_sweep(torch, np, kb, bloom, dev)
+    if args.phase == "kernels":
+        return 0
     rep.update(jrep)
     worst.update(jworst)
     _, counts = slice_phase(torch, kb, sj, fa, cat, args.sf)

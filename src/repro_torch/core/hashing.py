@@ -45,32 +45,6 @@ def fmix32_np(h: np.ndarray) -> np.ndarray:
     return h
 
 
-_C1_INV = np.uint32(pow(int(_C1), -1, 1 << 32))
-_C2_INV = np.uint32(pow(int(_C2), -1, 1 << 32))
-
-
-def fmix32_inv_np(h: np.ndarray) -> np.ndarray:
-    """The inverse of `fmix32_np`: each of its steps is a bijection on
-    uint32 (an odd multiplier has an inverse mod 2^32)."""
-    h = h.astype(np.uint32, copy=True)
-    with np.errstate(over="ignore"):
-        h ^= h >> np.uint32(16)
-        h *= _C2_INV
-        h ^= (h >> np.uint32(13)) ^ (h >> np.uint32(26))
-        h *= _C1_INV
-        h ^= h >> np.uint32(16)
-    return h
-
-
-def keys_with_hashes(h: np.ndarray, hi: np.ndarray) -> np.ndarray:
-    """int64 keys whose high halves are `hi` and whose hash (`hash64_np`
-    of their halves) is `h`: keys placed in chosen Bloom blocks, for
-    tests and skewed benchmark inputs."""
-    lo = fmix32_inv_np(h) ^ fmix32_np(hi)
-    return ((np.asarray(hi).astype(np.uint64) << np.uint64(32))
-            | lo.astype(np.uint64)).view(np.int64)
-
-
 def hash64_np(lo: np.ndarray, hi: np.ndarray,
               salt: np.uint32 = np.uint32(0)) -> np.ndarray:
     with np.errstate(over="ignore"):

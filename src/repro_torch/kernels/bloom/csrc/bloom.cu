@@ -50,30 +50,18 @@ __device__ __forceinline__ void block_update(uint32_t h, int k,
   }
 }
 
-// Does the key with hash h find all k of its bits in its block? It reads
-// the word of the key's first bit (a key not in the filter mostly misses
-// there: one 4-byte request), and only if that bit is set the whole block
-// as two 16-byte loads, testing the other k - 1 bits in registers: a key
-// in the filter costs three requests and two latencies, where a bit at a
-// time cost k of each. All fall in one 32-byte sector (`words` is
-// 16-byte aligned; the wrappers check). K1's, K3's and K7's probe.
+// Does the key with hash h find all k of its bits in its block? Stops at
+// the first missing bit; the k word reads fall in one 32-byte sector.
+// K1's, K3's and K7's probe.
 __device__ __forceinline__ bool block_hit(const uint32_t* __restrict__ words,
                                           uint32_t h, int log2nb, int k) {
   const uint32_t* blk = words + (size_t)block_of(h, log2nb) * kLanes;
   uint32_t g1 = fmix32(h ^ kGolden);
   uint32_t g2 = fmix32(h ^ kP2) | 1u;
-  uint32_t pos = g1 & 255u;
-  bool ok = (__ldg(blk + (pos >> 5)) >> (pos & 31u)) & 1u;
-  if (ok && k > 1) {
-    const uint4* vec = reinterpret_cast<const uint4*>(blk);
-    uint4 a = __ldg(vec), b = __ldg(vec + 1);
-    for (int j = 1; j < k; ++j) {
-      pos = (g1 + (uint32_t)j * g2) & 255u;
-      uint32_t w = pos >> 5;
-      uint4 c = (w & 4u) ? b : a;
-      uint32_t lo = (w & 1u) ? c.y : c.x, hi = (w & 1u) ? c.w : c.z;
-      ok = ok && ((((w & 2u) ? hi : lo) >> (pos & 31u)) & 1u);
-    }
+  bool ok = true;
+  for (int j = 0; j < k && ok; ++j) {
+    uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
+    ok = (__ldg(blk + (pos >> 5)) >> (pos & 31u)) & 1u;
   }
   return ok;
 }
@@ -96,20 +84,20 @@ struct ProbeArgs {
 // blocks mostly come from the 50 MB L2.
 //
 // Design: one thread a row, so the key loads and the m output bytes are
-// coalesced across a warp; per filter the row probes with block_hit (its
-// first bit's word, then the whole block only for a key that passes it).
-// The probes' random 32-byte sectors, not their latency, set the pace:
-// keeping 2 or 4 rows in flight a thread was slower at every pass rate
-// tried, and reading every block whole doubled the requests of the rows
-// that miss. The key halves and survivor ids are loaded, and the output
-// stored, with streaming cache hints (each is touched once), so they do
-// not push the filters out of L2. Each filter comes by its own pointer
-// (no stacked copy of the filters a call). A row that missed loads no
-// later key or block (the per-row form of the reference's survivors-only
-// early exit), and its later rows of `out` are written False. Rows at and
-// past `count` are written False here, which replaces the reference's
-// separate iota mask, and the survivor-id gather happens in the kernel
-// instead of building gathered copies of the key columns first.
+// coalesced across a warp; per filter the row probes with block_hit, which
+// stops at the first missing bit (the k word reads fall in one 32-byte
+// sector). Keeping 2 or 4 rows in flight a thread, or reading each block
+// whole, was no faster on the H100 at a quarter of rows passing: the
+// probes' random sectors, not their latency, set the pace there. The key
+// halves and survivor ids are loaded, and the output stored, with
+// streaming cache hints (each is touched once), so they do not push the
+// filters out of L2. Each filter comes by its own pointer (no stacked
+// copy of the filters a call). A row that missed loads no later key or
+// block (the per-row form of the reference's survivors-only early exit),
+// and its later rows of `out` are written False. Rows at and past `count`
+// are written False here, which replaces the reference's separate iota
+// mask, and the survivor-id gather happens in the kernel instead of
+// building gathered copies of the key columns first.
 __global__ void multi_probe_kernel(ProbeArgs args, int m, int k,
                                    const int32_t* __restrict__ idx, int n,
                                    int count, uint8_t* __restrict__ out) {
@@ -135,9 +123,8 @@ __global__ void multi_probe_kernel(ProbeArgs args, int m, int k,
 // (plus a 4-byte survivor id with `idx`) and one 32-byte filter block, and
 // it writes one byte per row; the filter mostly stays in the 50 MB L2.
 //
-// Design: one thread a row, as its own entry point so the launch counts
-// tell the plane-off route from K1's; it shares K1's probe (block_hit:
-// the first bit's word, then the whole block). The kernel gathers the
+// Design: K1's per-row body for one filter, as its own entry point so the
+// launch counts tell the two routes apart. The kernel gathers the
 // survivors' key halves through `idx` and writes False at and past
 // `count`, which replaces the reference's _gather2 + _mask_count around
 // probe_pallas: no gathered key copies, no separate mask pass.
@@ -205,7 +192,10 @@ __device__ __forceinline__ void block_insert(uint32_t* __restrict__ words,
 //    CTA: plain stores, no memset).
 //  - direct (fewer than kFewRows = 2^18 rows, or more than 2^23 blocks):
 //    one thread a row ORs its key into L2 (block_insert), after a
-//    memset. Few rows cost few atomics, fewer than the partition costs.
+//    memset. Few rows cost few atomics, fewer than the partition costs:
+//    on the H100 the direct route's device time is the lower up to 2^17
+//    keys and the higher from 2^18 (chip_smoke.py's route_sweep, both
+//    routes forced through bloom_build_force_route).
 //  - partitioned (otherwise): S = 2^clamp(log2 nblocks - 8, 4, 11)
 //    blocks a slice, so about 256 slices (two CTAs an SM) of up to 64 KB
 //    each, 8 to 4,096 slices; three kernels after a memset of the
@@ -254,15 +244,20 @@ struct Route {
   int log2s;  // blocks a slice (partitioned)
 };
 
+// -1: build_route's rule; kDirect or kPartitioned: that route wherever
+// the filter is not tiny and (partitioned) has at most 2^kMaxSlicesLog2
+// slices (bloom_build_force_route, to time both routes at one shape).
+int forced_route = -1;
+
 Route build_route(int count, int log2nb) {
   if (log2nb <= kTinyLog2) return {kTiny, log2nb};
   int log2s = log2nb - kSlicesLog2;
   log2s = log2s < kMinSliceLog2 ? kMinSliceLog2
                                 : (log2s > kMaxSliceLog2 ? kMaxSliceLog2
                                                          : log2s);
-  if (count < kFewRows || log2nb - log2s > kMaxSlicesLog2) {
-    return {kDirect, 0};
-  }
+  bool direct = forced_route < 0 ? count < kFewRows
+                                 : forced_route == kDirect;
+  if (direct || log2nb - log2s > kMaxSlicesLog2) return {kDirect, 0};
   return {kPartitioned, log2s};
 }
 
@@ -577,7 +572,7 @@ extern "C" {
 int bloom_max_filters() { return kMaxFilters; }
 
 // words/los/his: host arrays of m device pointers: filter f's words,
-// uint32 [2^log2nbs[f], 8], 16-byte aligned, and its key halves, uint32
+// uint32 [2^log2nbs[f], 8], and its key halves, uint32
 // [>= n or >= max(idx)+1]; log2nbs: host int array of m; idx: int32 [n]
 // survivor ids or null; out: uint8 [m, n].
 int bloom_multi_probe(const void* const* words, const void* const* los,
@@ -600,6 +595,16 @@ int bloom_multi_probe(const void* const* words, const void* const* los,
         static_cast<uint8_t*>(out));
   }
   return (int)cudaGetLastError();
+}
+
+// Makes every later bloom_build (and its scratch query) take `route`
+// (1 direct, 2 partitioned) where the filter allows it, or, at -1,
+// build_route's rule again; returns the setting it replaces. For timing
+// the two routes at one shape; not thread-safe.
+int bloom_build_force_route(int route) {
+  int was = forced_route;
+  forced_route = route == kDirect || route == kPartitioned ? route : -1;
+  return was;
 }
 
 // Bytes of device scratch bloom_build needs for `count` rows into

@@ -63,6 +63,8 @@ def _lib() -> ctypes.CDLL:
         lib.bloom_build.restype = ctypes.c_int
         lib.bloom_build_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.bloom_build_scratch_bytes.restype = ctypes.c_longlong
+        lib.bloom_build_force_route.argtypes = [ctypes.c_int]
+        lib.bloom_build_force_route.restype = ctypes.c_int
         lib.bloom_probe.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -87,13 +89,9 @@ def _log2(nb: int) -> int:
 
 def _check_words(words: torch.Tensor, dev: torch.device,
                  what: str) -> None:
-    """A filter a kernel probes: it may read a block as two 16-byte
-    loads."""
     check_i32(words, dev, what, ndim=2)
     if words.shape[1] != LANES:
         raise ValueError(f"{what} must be [nblocks, {LANES}]")
-    if words.data_ptr() % 16:
-        raise ValueError(f"{what} must start on a 16-byte boundary")
 
 
 def _rows(los: Sequence[torch.Tensor], idx: Optional[torch.Tensor],

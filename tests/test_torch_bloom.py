@@ -124,10 +124,10 @@ def test_multi_probe_ref_matches_pallas(rng, nbs):
 
 def _skewed_keys(rng, n):
     """Keys in the first 1/256 of the hash range (one slice of K2's
-    partitioned build), each 4 times in a row as `l_orderkey` repeats."""
-    h = rng.integers(0, 1 << 24, n // 4, dtype=np.uint64).astype(np.uint32)
-    hi = rng.integers(0, 1 << 32, n // 4, dtype=np.uint64).astype(np.uint32)
-    return np.repeat(hashing.keys_with_hashes(h, hi), 4)
+    partitioned build; `chip_smoke.skewed_keys`), each 4 times in a row
+    as `l_orderkey` repeats."""
+    import chip_smoke
+    return np.repeat(chip_smoke.skewed_keys(np, rng, n // 4), 4)
 
 
 @pytest.mark.parametrize("nblocks", NBLOCKS)
@@ -167,16 +167,14 @@ def _check_build_ref_against_pallas(rng, keys, nblocks):
 
 
 def test_keys_with_hashes_hash_back(rng):
-    """`hashing.keys_with_hashes` (the skewed K2 inputs) gives keys whose
-    high halves and reference hash are the ones asked for; its inverse
-    mix undoes `fmix32_np`."""
+    """`chip_smoke.keys_with_hashes` (the skewed K2 inputs) gives keys
+    whose high halves and reference hash are the ones asked for."""
+    import chip_smoke
     h = rng.integers(0, 1 << 32, 5000, dtype=np.uint64).astype(np.uint32)
     hi = rng.integers(0, 1 << 32, 5000, dtype=np.uint64).astype(np.uint32)
-    lo, khi = rhashing.key_halves(hashing.keys_with_hashes(h, hi))
+    lo, khi = rhashing.key_halves(chip_smoke.keys_with_hashes(np, h, hi))
     np.testing.assert_array_equal(khi, hi)
     np.testing.assert_array_equal(rhashing.hash64_np(lo, khi), h)
-    np.testing.assert_array_equal(
-        hashing.fmix32_np(hashing.fmix32_inv_np(h)), h)
 
 
 def test_cpu_wrappers_take_plain_version_and_do_not_count(rng):

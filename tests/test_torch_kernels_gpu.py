@@ -57,7 +57,7 @@ TINY, FEW = 64, 1 << 18
 @pytest.mark.parametrize("m", [1, 2, 3, 16])
 def test_kernels_match_plain_versions(cuda, m):
     """K1 and K2 == their plain versions on the card, bit-exact, with
-    ragged counts (none a multiple of the rows a K1 thread takes),
+    ragged counts,
     survivor ids, a validity plane, nblocks = 1 and a two-slice filter;
     m = 16 is `bloom_max_filters`."""
     rng = np.random.default_rng(m)
@@ -120,6 +120,39 @@ def test_build_kernel_routes_match_plain_version(cuda, nblocks, n):
     assert kb.LAUNCHES["bloom_build"] == 2       # one a call, any route
 
 
+@pytest.mark.parametrize("route", [1, 2])
+@pytest.mark.parametrize("nblocks,n", [(1024, 1 << 14), (1 << 17, 1 << 21)])
+def test_build_kernel_forced_routes_match_plain_version(cuda, route,
+                                                        nblocks, n):
+    """K2 with its direct (1) or partitioned (2) route forced
+    (`bloom_build_force_route`, as `chip_smoke.route_sweep` times them)
+    == `build_ref` bit-exact at the smallest and the largest build the
+    `pred-trans` path gives it, over survivor ids with a validity plane;
+    the scratch query follows the forced route, and -1 restores the
+    rule."""
+    rng = np.random.default_rng(n)
+    lo, hi = bloom.keys_to_device(_keys(rng, n), cuda)
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
+    idx = torch.from_numpy(rng.permutation(n)[: n // 2].astype(np.int32)
+                           ).to(cuda)
+    lib = kb._lib()
+    log2nb = int(nblocks).bit_length() - 1
+    rule = lib.bloom_build_scratch_bytes(n // 2 - 5, log2nb)
+    assert lib.bloom_build_force_route(route) == -1
+    try:
+        assert (lib.bloom_build_scratch_bytes(n // 2 - 5, log2nb) > 0) == \
+            (route == 2)
+        got = kb.build(lo, hi, nblocks, idx=idx, count=n // 2 - 5,
+                       valid=valid)
+        ref = kb.build_ref(lo, hi, nblocks, idx=idx, count=n // 2 - 5,
+                           valid=valid)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+    finally:
+        assert lib.bloom_build_force_route(-1) == route
+    assert lib.bloom_build_scratch_bytes(n // 2 - 5, log2nb) == rule
+
+
 @pytest.mark.parametrize("log2nb", [23, 24])
 def test_build_kernel_wide_filters_match_sparse_version(cuda, log2nb):
     """At 2^23 blocks (4,096 slices, the partitioned route's widest) and
@@ -148,16 +181,14 @@ def _build_keys(rng, case, n):
     """Build keys of the skew cases: `equal` one key n times, `one-slice`
     keys whose hashes all lie below 2^24, so in the first of the 256
     slices K2 cuts a 2^12- to 2^19-block filter into (built back from
-    hashes with `hashing.keys_with_hashes`), `repeated` each key 4 times
+    hashes with `chip_smoke.skewed_keys`), `repeated` each key 4 times
     in a row, as `l_orderkey` repeats."""
-    from repro_torch.core import hashing
+    import chip_smoke
     if case == "equal":
         return np.full(n, 42, np.int64)
     if case == "repeated":
         return np.repeat(_keys(rng, n // 4), 4)
-    h = rng.integers(0, 1 << 24, n, dtype=np.uint64).astype(np.uint32)
-    hi = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
-    return hashing.keys_with_hashes(h, hi)
+    return chip_smoke.skewed_keys(np, rng, n)
 
 
 @pytest.mark.parametrize("nblocks", [1, 4096, 1 << 19])
@@ -212,9 +243,6 @@ def test_wrappers_count_launches_and_check_inputs(cuda):
         kb.build(lo.to(torch.int64), lo.to(torch.int64), 8)
     with pytest.raises(ValueError):
         kb.multi_probe([w], [lo[::2]], [lo[::2]])
-    flat = torch.zeros(8 * 8 + 1, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="16-byte"):
-        kb.probe(flat[1:].view(8, 8), lo, lo)   # a block may be read 16 B
 
 
 def test_tpch_q5_on_gpu_matches_oracle(cuda):
