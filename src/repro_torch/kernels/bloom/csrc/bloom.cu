@@ -525,6 +525,24 @@ __global__ void build_kernel(const uint32_t* __restrict__ lo,
   if (live[0]) block_insert<false>(words, h[0], log2nb, k);
 }
 
+// K7's insert: the k bits of the key with hash h ORed into its block in
+// L2, one 32-bit atomicOr a bit. K7 inserts its survivors' outgoing keys,
+// and those repeat (foreign keys: at SF 1, case C of chip_smoke.py ORs in
+// about 90 copies of each of 10,000 supplier keys). There this was faster
+// on the H100 than block_insert's 64-bit quarters (0.082 against 0.093 ms
+// device), which are the faster on distinct keys (K2's direct route) and
+// on K2's overflow list (chip_smoke.py's route sweep and skew case).
+__device__ __forceinline__ void bit_insert(uint32_t* __restrict__ words,
+                                           uint32_t h, int log2nb, int k) {
+  uint32_t* blk = words + (size_t)block_of(h, log2nb) * kLanes;
+  uint32_t g1 = fmix32(h ^ kGolden);
+  uint32_t g2 = fmix32(h ^ kP2) | 1u;
+  for (int j = 0; j < k; ++j) {
+    uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
+    atomicOr(blk + (pos >> 5), 1u << (pos & 31u));
+  }
+}
+
 // K7. Replaces the TPU kernel repro/kernels/bloom/bloom.py transfer_pallas
 // (_transfer_kernel), reached through kernels/bloom/ops.py bloom_transfer:
 // the fused filter transformation of the paper's §3.2. Each row probes the
@@ -533,10 +551,9 @@ __global__ void build_kernel(const uint32_t* __restrict__ lo,
 //
 // The TPU keeps the outgoing filter resident in VMEM across its sequential
 // grid and ORs the survivors' blocks in one at a time. Here one thread per
-// row does the probe K1 and K3 share (block_hit) and the
-// registers-first insert of K2's direct route (block_insert: one 64-bit
-// atomicOr per non-zero quarter of the key's update), so the words are
-// bit-exact whatever the schedule. Bound on this card:
+// row does the probe K1 and K3 share (block_hit) and bit_insert; OR is
+// order-independent, so the words are bit-exact whatever the schedule.
+// Bound on this card:
 // memory: the mask byte in and the ok byte out per row, the incoming key
 // halves of the masked rows and the outgoing ones of the survivors only
 // (each 32-byte sector once), the incoming filter read and the outgoing
@@ -559,9 +576,8 @@ __global__ void transfer_kernel(const uint32_t* __restrict__ in_words,
                       log2nb_in, k);
   ok_out[r] = ok ? 1 : 0;
   if (ok) {
-    block_insert<false>(out_words,
-                        key_hash(__ldg(out_lo + r), __ldg(out_hi + r)),
-                        log2nb_out, k);
+    bit_insert(out_words, key_hash(__ldg(out_lo + r), __ldg(out_hi + r)),
+               log2nb_out, k);
   }
 }
 
