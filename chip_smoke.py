@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--sf 1.0] [--phase all|kernels]
 
-`--phase kernels` runs phases 1-4 only (to iterate on a kernel) and
-prints neither the kernel table nor the ok line.
+`--phase kernels` runs phases 1-4 only (to iterate on a kernel), then
+each Bloom case's device time alone and K2's route sweep, and prints
+neither the kernel table nor the ok line.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -21,13 +22,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              filter is built from its own build-side keys; K2 also at a
              skew (6 M keys whose hashes all fall in one of the 256
              slices K2's partitioned build cuts the filter into, so all
-             but one slice's share go to its overflow list), and a
-             sweep of K2's direct and partitioned routes, each forced,
-             at 2^14 to 2^20 keys (`route_sweep`, after phase 4).
-             Results must be bit-exact. Median CUDA-event times of
-             kernel and plain version, the bound (bytes moved over the
-             H100's 3.35 TB/s), and, after phase 4, each case's device
-             time alone (torch.profiler, `device_times`);
+             but one slice's share go to its overflow list), and at
+             2^17 keys, on its direct route. Results must be bit-exact.
+             Median CUDA-event times of kernel and plain version, and
+             the bound (bytes moved over the H100's 3.35 TB/s). With
+             `--phase kernels` only, after phase 4: each case's device
+             time alone (torch.profiler, `device_times`) and a sweep of
+             K2's direct and partitioned routes, each forced, at 2^14
+             to 2^20 keys (`route_sweep`);
 4. joinmap — the hash-map join kernels (K4 build, K5 lookup) at the
              orders shape of SF 1: 1,500,000 distinct keys in 2^22
              slots, probed by 6,001,215 lineitem-like keys. K4's
@@ -142,9 +144,9 @@ The line before the last is the kernel table
 "library_ms", "launches_by_path"}]}` (`plain_device` says where
 `plain_ms` was taken: "cuda" for CUDA-event times on the card, "cpu" for
 the sequential K4 and K6a builds timed on the host; K6's and K8's rows
-add `library_call`, what `library_ms` timed; K1's, K2's, K3's, K7's and
-K8's rows add `device_ms`, K8's `library_device_ms` too, the device
-time alone of a call, read from torch.profiler)
+add `library_call`, what `library_ms` timed; K8's rows add `device_ms`
+and `library_device_ms`, the device time alone of a call of each, read
+from torch.profiler)
 and the last line is `{"ok": true, "device": {...}}`. Without CUDA, or
 without the repository's `src/` beside it, the script exits non-zero
 before printing any result. Imports torch, numpy and `repro_torch` only.
@@ -296,7 +298,11 @@ def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
     """K1/K2/K3/K7 vs their plain versions on the card; returns the
     record of each kernel at the main path's heaviest shape (K7: case
     C's), and each kernel's largest error. Appends (record, call) for
-    each case to `later`, for `device_times`."""
+    each case to `later` (unless None), for `device_times`."""
+
+    def defer(rec, call):
+        if later is not None:
+            later.append((rec, call))
     rng = np.random.default_rng(7)
 
     def halves(keys):
@@ -345,8 +351,7 @@ def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
                "survivors": int(ref[-1].sum()), "max_abs_err": err,
                "library_ms": None}
         emit({"phase": "kernels", **rec})
-        later.append((rec, lambda: kb.multi_probe(*args, idx=ix,
-                                                  count=count)))
+        defer(rec, lambda: kb.multi_probe(*args, idx=ix, count=count))
         return rec
 
     def single_case(name, c, n, count, ix):
@@ -372,7 +377,7 @@ def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
                "survivors": int(ref.sum()), "max_abs_err": err,
                "library_ms": None}
         emit({"phase": "kernels", **rec})
-        later.append((rec, lambda: kb.probe(*args, idx=ix, count=count)))
+        defer(rec, lambda: kb.probe(*args, idx=ix, count=count))
         return rec
 
     def build_case(name, col, nb, count, ix, v):
@@ -395,8 +400,8 @@ def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
                "max_abs_err": err, "library_ms": None}
         emit({"phase": "kernels", **rec})
-        later.append((rec, lambda: kb.build(lo, hi, nb, idx=ix, count=count,
-                                            valid=v)))
+        defer(rec, lambda: kb.build(lo, hi, nb, idx=ix, count=count,
+                                    valid=v))
         return rec
 
     def transfer_case(name, in_words, ikeys, okeys, keep, nb):
@@ -432,7 +437,7 @@ def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
                "max_abs_err": err, "library_ms": None}
         emit({"phase": "kernels", **rec})
-        later.append((rec, lambda: kb.transfer(*args)))
+        defer(rec, lambda: kb.transfer(*args))
         return rec
 
     ragged = 6_001_215            # SF 1 lineitem rows
@@ -448,6 +453,10 @@ def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
     build_case("2^21 orders gather+valid", 0, nb_mid, N_MID - 777, idx,
                valid)
     build_case("2^21 one-block", 2, 1, N_MID, None, None)
+    # the direct route (fewer than 2^18 rows), where most of the path's
+    # calls into more than 64 blocks go (the `shapes` line)
+    build_case("2^17 orders", 0, bloom.blocks_for(1 << 17), 1 << 17, None,
+               None)
     # skew: lineitem-many keys into the lineitem-sized filter, every one in
     # the first of its 256 slices, so all but that slice's capacity go to
     # K2's overflow list (a fault there shows as a time as well as a wrong
@@ -474,9 +483,8 @@ def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
 
 def device_times(torch, later: list) -> None:
     """Each Bloom case's device time alone (`device_ms`), into its record
-    and one line each. Run after every CUDA-event reading of phases 3-4,
-    so that no torch.profiler session precedes those readings (as in a
-    checkout without this step)."""
+    and one line each; after every CUDA-event reading of phases 3-4, so
+    that no torch.profiler session precedes those readings."""
     for rec, call in later:
         rec["device_ms"] = device_ms(torch, call)
         emit({"phase": "kernels", "kernel": rec["kernel"],
@@ -1269,12 +1277,16 @@ def main() -> int:
           "lineitem_rows": len(cat["lineitem"])})
     api = api_inputs(np, cat)
 
-    later = []
+    # the Bloom cases' device times and the route sweep run with
+    # `--phase kernels` only: in a full run, with them, phase 7 read K8's
+    # device times at about half their CUDA-event times on the H100
+    # (cause not found), and the held cases raised phase 8's peak memory
+    later = [] if args.phase == "kernels" else None
     rep, worst = kernel_phase(torch, np, kb, bloom, dev, api, later)
     jrep, jworst = joinmap_phase(torch, np, sj, bloom, dev, api)
-    device_times(torch, later)
-    route_sweep(torch, np, kb, bloom, dev)
     if args.phase == "kernels":
+        device_times(torch, later)
+        route_sweep(torch, np, kb, bloom, dev)
         return 0
     rep.update(jrep)
     worst.update(jworst)
