@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--sf 1.0] [--phase all|kernels]
 
 `--phase kernels` runs phases 1-4 only (to iterate on a kernel), then
-each Bloom case's device time alone and K2's route sweep, and prints
-neither the kernel table nor the ok line.
+each Bloom and hash-map case's device time alone and the route sweeps of
+K2 and K4, and prints neither the kernel table nor the ok line.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -38,9 +38,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              on the card would eat the time limit); K5's rows must equal
              the plain lookup over the same K4 table at every shape, and
              at SF 1 a sort-and-searchsorted expectation too; a build
-             with duplicate keys must count its distinct keys. Times and
-             bounds as in phase 3, the lookup's table reads counted as
-             the distinct 32-byte sectors its probe walks touch;
+             with duplicate keys must count its distinct keys, and one of
+             2^20 keys crowded at a region's tail, at the last region's
+             wrap into slot 0 and past a region's part of K4's scratch
+             (`crowded_keys`, K4's partitioned route) must find each
+             key's last row. Times and bounds as in phase 3, the
+             lookup's table reads counted as the distinct 32-byte
+             sectors its probe walks touch. With `--phase kernels`
+             only: each case's device time and device ops alone (a
+             memset and each kernel apart) and a sweep of K4's direct
+             and partitioned routes (regions of 2^11 to 2^13 slots),
+             each forced, at 2^12 to 2^21 keys (`joinmap_route_sweep`);
    Phases 3 and 4 also hold the kernels behind the kernel library's
    public entry points against their plain versions, on the SF 1
    columns of phase 6's cases: K7 (fused filter transfer) at case C's
@@ -71,7 +79,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              trips on the two planes side by side. During the warm
              `pred-trans` runs a wrapper around K1's and K2's wrappers
              counts each call's shape (live rows to a power of two,
-             nblocks, K1's m) into one `shapes` line. Then one warm run each
+             nblocks, K1's m) into one `shapes` line, and during the warm
+             plane-off runs one around K4's and K5's (keys to a power of
+             two, table slots) into another. Then one warm run each
              of Q5 and Q9 on each plane under torch.profiler (device busy
              seconds, idle share, top device ops), after every reading;
 6. kernel-api — path `kernel-api`: the kernel library's public entry
@@ -294,6 +304,64 @@ def skewed_keys(np, rng, n: int):
     return keys_with_hashes(np, h, hi)
 
 
+def region_cap(n: int, log2p: int, log2r: int) -> int:
+    """Keys a region's part of K4's scratch holds on its partitioned
+    route (`region_cap` in semijoin.cu): 5/4 of the mean, plus 256, at
+    most the region's slots."""
+    return min((n >> log2p) + (n >> (log2p + 2)) + 256, 1 << log2r)
+
+
+def crowded_keys(np, rng, n: int, cap: int, log2r: int = 13):
+    """n int64 keys for a K4 table of `cap` slots cut into regions of
+    2^log2r slots (its partitioned route), built back from chosen home
+    slots (`keys_with_hashes`): min(n / 8, 256) keys homed in the last 32
+    slots of region 0 (their walks run past its end), as many in the last
+    32 slots of the table (the last region's walks wrap into slot 0),
+    256 more than its part of the scratch holds homed anywhere in region
+    1 (when the table has one), the rest homed outside region 1; one key
+    in 8 of the rest is repeated at a later row (the last row wins)."""
+    log2cap = cap.bit_length() - 1
+    log2r = min(log2r, log2cap)
+    nslots = 1 << log2r
+    crowd = min(n // 8, 256)
+    over = (region_cap(n, log2cap - log2r, log2r) + 256
+            if cap > nslots else 0)
+    rest = n - 2 * crowd - over
+    ndup = rest // 8
+    rest -= ndup
+    check(rest > 0, f"crowded_keys: {n} keys are too few")
+    homes = [nslots - 32 + rng.integers(0, 32, crowd),
+             cap - 32 + rng.integers(0, 32, crowd),
+             nslots + rng.integers(0, nslots, over)]
+    spread = rng.integers(0, cap - nslots if over else cap, rest)
+    homes.append(np.where((spread >= nslots) & (over > 0),
+                          spread + nslots, spread))
+    home = np.concatenate(homes).astype(np.uint64)
+    top = rng.integers(0, 1 << 32, len(home), dtype=np.uint64)
+    h = ((top << np.uint64(log2cap)) | home) & np.uint64(0xFFFFFFFF)
+    keys = keys_with_hashes(np, h.astype(np.uint32),
+                            rng.integers(0, 1 << 32, len(home),
+                                         dtype=np.uint64).astype(np.uint32))
+    keys = keys[rng.permutation(len(keys))]
+    return np.concatenate([keys, rng.choice(keys, ndup)])
+
+
+def probe_inputs(np, kb, bloom, dev):
+    """The Bloom cases' key columns and filters, one of each per
+    `COLUMNS` entry, on the card: (the generator, for the cases' further
+    inputs; [(lo, hi)] [2^23] each; [int32 words])."""
+    rng = np.random.default_rng(7)
+    cols, filt = [], []
+    for domain, nkeys, _ in COLUMNS:
+        cols.append(bloom.keys_to_device(
+            rng.integers(0, domain, N_BIG, dtype=np.int64), dev))
+        blo, bhi = bloom.keys_to_device(
+            rng.choice(domain, nkeys, replace=False), dev)
+        # filters from the plain build, so K1's check does not lean on K2
+        filt.append(kb.build_ref(blo, bhi, bloom.blocks_for(nkeys)))
+    return rng, cols, filt
+
+
 def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
     """K1/K2/K3/K7 vs their plain versions on the card; returns the
     record of each kernel at the main path's heaviest shape (K7: case
@@ -303,17 +371,11 @@ def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
     def defer(rec, call):
         if later is not None:
             later.append((rec, call))
-    rng = np.random.default_rng(7)
 
     def halves(keys):
         return bloom.keys_to_device(keys, dev)
 
-    cols, filt = [], []
-    for domain, nkeys, _ in COLUMNS:
-        cols.append(halves(rng.integers(0, domain, N_BIG, dtype=np.int64)))
-        blo, bhi = halves(rng.choice(domain, nkeys, replace=False))
-        # filters from the plain build, so K1's check does not lean on K2
-        filt.append(kb.build_ref(blo, bhi, bloom.blocks_for(nkeys)))
+    rng, cols, filt = probe_inputs(np, kb, bloom, dev)
     idx = torch.from_numpy(np.sort(rng.choice(N_BIG, N_MID, replace=False))
                            .astype(np.int32)).to(dev)
     valid = torch.from_numpy(rng.random(N_BIG) < 0.95).to(dev)
@@ -482,14 +544,20 @@ def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
 
 
 def device_times(torch, later: list) -> None:
-    """Each Bloom case's device time alone (`device_ms`), into its record
-    and one line each; after every CUDA-event reading of phases 3-4, so
-    that no torch.profiler session precedes those readings."""
+    """Each Bloom and hash-map case's device time alone (`device_busy`),
+    into its record and one line each with its device ops a call (a
+    memset and each kernel apart); after every CUDA-event reading of
+    phases 3-4, so that no torch.profiler session precedes those
+    readings."""
     for rec, call in later:
-        rec["device_ms"] = device_ms(torch, call)
+        calls = 20
+        prof = device_busy(torch, call, calls)
+        rec["device_ms"] = prof["device_busy_seconds"] * 1e3 / calls
         emit({"phase": "kernels", "kernel": rec["kernel"],
               "case": rec["case"], "ms": rec["ms"],
-              "device_ms": rec["device_ms"]})
+              "device_ms": rec["device_ms"],
+              "device_ops": [{"op": op["op"], "ms": op["ms"] / calls}
+                             for op in prof["top_device_ms"]]})
 
 
 def route_sweep(torch, np, kb, bloom, dev) -> None:
@@ -527,12 +595,78 @@ def route_sweep(torch, np, kb, bloom, dev) -> None:
         emit(rec)
 
 
-def joinmap_phase(torch, np, sj, bloom, dev, api):
+def last_rows(np, keys, probe):
+    """Each probe key's last row among `keys` (the sequential insert's
+    answer), -1 where it is absent: int32 [len(probe)]."""
+    uniq, first = np.unique(keys[::-1], return_index=True)
+    pos = np.minimum(np.searchsorted(uniq, probe), len(uniq) - 1)
+    return np.where(uniq[pos] == probe, len(keys) - 1 - first[pos],
+                    -1).astype(np.int32)
+
+
+def joinmap_inputs(np):
+    """The hash-map cases' keys: (the generator, for the cases' further
+    inputs; 2^16 distinct keys; their probe keys, half of them misses;
+    2^20 keys with duplicates; SF 1 orders' 1.5 M keys)."""
+    rng = np.random.default_rng(11)
+    small = rng.choice(1 << 40, 1 << 16, replace=False).astype(np.int64)
+    probe = np.concatenate([small, rng.integers(0, 1 << 40, 1 << 16)])
+    dups = rng.integers(0, 1 << 19, 1 << 20).astype(np.int64)
+    orders = rng.choice(6_000_000, KEYS_ORDERS,
+                        replace=False).astype(np.int64)
+    return rng, small, probe, dups, orders
+
+
+def joinmap_route_sweep(torch, np, sj, bloom, dev) -> None:
+    """K4's direct and partitioned routes, each forced in turn
+    (`joinmap_build_force_route`), the partitioned one at regions of
+    2^11, 2^12 and 2^13 slots, at 2^12 to 2^21 distinct keys in
+    `capacity_for` slots (the plane-off path's K4 calls: its `shapes`
+    line): each build's occupied count against the distinct count, one
+    line a size with every variant's CUDA-event and device ms and the
+    route K4's rule takes there (`kFewKeys` and `kRegionLog2` in
+    semijoin.cu come from these)."""
+    lib = sj._lib()
+    rng = np.random.default_rng(37)
+    for log2n in range(12, 22):
+        n = 1 << log2n
+        cap = sj.capacity_for(n)
+        keys = rng.choice(1 << 40, n, replace=False).astype(np.int64)
+        lo, hi = bloom.keys_to_device(keys, dev)
+        rule = lib.joinmap_build_scratch_bytes(n, cap)
+        rec = {"phase": "joinmap", "kernel": "joinmap_build",
+               "case": "route sweep", "n": n, "cap": cap,
+               "rule": "partitioned" if rule else "direct"}
+        for name, route, log2r in (("direct", 1, 0),
+                                   ("regions_2^11", 2, 11),
+                                   ("regions_2^12", 2, 12),
+                                   ("regions_2^13", 2, 13)):
+            lib.joinmap_build_force_route(route, log2r)
+            try:
+                _, occ = sj.build_rows(lo, hi, cap)
+                check(int(occ) == n,
+                      f"joinmap_build {name} at {n} keys: occupied "
+                      f"{int(occ)}")
+                rec[f"{name}_ms"] = cuda_ms(
+                    torch, lambda: sj.build_rows(lo, hi, cap), 20)
+                rec[f"{name}_device_ms"] = device_ms(
+                    torch, lambda: sj.build_rows(lo, hi, cap))
+            finally:
+                lib.joinmap_build_force_route(-1, 0)
+        emit(rec)
+
+
+def joinmap_phase(torch, np, sj, bloom, dev, api, later: list):
     """K4/K5 vs their plain versions and a sort-based expectation on the
     card, and K6a/K6b vs theirs and `torch.isin`; returns each kernel's
     record at the SF 1 orders shape (K6: case A's) and its largest
-    error."""
-    rng = np.random.default_rng(11)
+    error. Appends (record, call) for each case to `later` (unless
+    None), for `device_times`."""
+
+    def defer(rec, call):
+        if later is not None:
+            later.append((rec, call))
+    rng, small, small_probe, dups, orders = joinmap_inputs(np)
     worst = {"joinmap_build": 0, "joinmap_lookup": 0, "semijoin_build": 0,
              "semijoin_probe": 0}
 
@@ -560,6 +694,7 @@ def joinmap_phase(torch, np, sj, bloom, dev, api):
                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes,
                    max_abs_err=err, library_ms=None)
         emit({"phase": "joinmap", **rec})
+        defer(rec, lambda: sj.build_rows(lo, hi, cap))
         return rec, table
 
     def lookup(name, table, probe, want=None):
@@ -591,18 +726,17 @@ def joinmap_phase(torch, np, sj, bloom, dev, api):
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
                "max_abs_err": err, "library_ms": None}
         emit({"phase": "joinmap", **rec})
+        defer(rec, lambda: sj.lookup(table, plo, phi))
         return rec
 
     # 2^16 keys: K5 against the plain lookup over the same K4 table
-    small = rng.choice(1 << 40, 1 << 16, replace=False).astype(np.int64)
     _, table = build("2^16", small)
-    probe = np.concatenate([small, rng.integers(0, 1 << 40, 1 << 16)])
-    lookup("2^16", table, probe)
+    lookup("2^16", table, small_probe)
     # duplicate keys: occupied is the distinct count
-    build("2^20 dups", rng.integers(0, 1 << 19, 1 << 20).astype(np.int64))
+    build("2^20 dups", dups)
     # SF 1: orders' 1.5 M keys, probed by lineitem's 6,001,215 (one in 8
     # drawn outside the orders domain, so it misses)
-    keys = rng.choice(6_000_000, KEYS_ORDERS, replace=False).astype(np.int64)
+    keys = orders
     rep = {}
     rep["joinmap_build"], table = build("SF 1 orders", keys)
     probe = keys[rng.integers(0, KEYS_ORDERS, 6_001_215)]
@@ -614,6 +748,16 @@ def joinmap_phase(torch, np, sj, bloom, dev, api):
     pos = torch.searchsorted(sk, pk).clamp(max=len(keys) - 1)
     want = torch.where(sk[pos] == pk, order[pos], -1).to(torch.int32)
     rep["joinmap_lookup"] = lookup("SF 1 lineitem", table, probe, want)
+    # keys crowded at a region's tail, at the last region's wrap into slot
+    # 0 and past a region's part of K4's scratch, with repeated keys, on
+    # the partitioned route (`crowded_keys`; its own generator, so the
+    # cases after it keep their inputs): each key finds its last row
+    crowd_rng = np.random.default_rng(31)
+    keys = crowded_keys(np, crowd_rng, 1 << 20, sj.capacity_for(1 << 20))
+    _, table = build("2^20 crowded", keys)
+    probe = np.concatenate([keys, crowd_rng.integers(0, 1 << 40, 1 << 16)])
+    lookup("2^20 crowded", table, probe, torch.from_numpy(
+        last_rows(np, keys, probe)).to(dev))
 
     def set_case(name, keys, keep, probe):
         """K6a (occupied vs the distinct count and the plain sequential
@@ -675,6 +819,8 @@ def joinmap_phase(torch, np, sj, bloom, dev, api):
                 "max_abs_err": perr, **library}
         emit({"phase": "joinmap", **brec})
         emit({"phase": "joinmap", **prec})
+        defer(brec, lambda: sj.set_build(lo, hi, cap, mask))
+        defer(prec, lambda: sj.set_probe(table, plo, phi))
         return brec, prec
 
     keys = rng.integers(0, 3000, 5003).astype(np.int64)
@@ -712,12 +858,10 @@ def device_profile(torch, fn) -> dict:
                               for ms, c, k in top]}
 
 
-def device_ms(torch, fn, calls: int = 20) -> float:
-    """Device milliseconds per call of `fn` (its kernels' and copies'
-    busy time under torch.profiler over `calls` calls, after a warm-up
-    call), free of the host's launch overhead. A profile that recorded
-    no device op at all (torch.profiler drops one now and then) is taken
-    again, twice at most."""
+def device_busy(torch, fn, calls: int = 20) -> dict:
+    """`device_profile` of `calls` calls of `fn`, after a warm-up call. A
+    profile that recorded no device op at all (torch.profiler drops one
+    now and then) is taken again, twice at most."""
     fn()
     for _ in range(3):
         busy = device_profile(torch, lambda: [fn() for _ in range(calls)])
@@ -725,7 +869,14 @@ def device_ms(torch, fn, calls: int = 20) -> float:
             break
     check(busy["device_busy_seconds"] > 0,
           "torch.profiler recorded no device time in three tries")
-    return busy["device_busy_seconds"] * 1e3 / calls
+    return busy
+
+
+def device_ms(torch, fn, calls: int = 20) -> float:
+    """Device milliseconds per call of `fn` (its kernels' and copies'
+    busy time under torch.profiler, `device_busy`), free of the host's
+    launch overhead."""
+    return device_busy(torch, fn, calls)["device_busy_seconds"] * 1e3 / calls
 
 
 def profile_query(torch, run, qn: int, path: str) -> dict:
@@ -785,6 +936,32 @@ def record_shapes(kb, shapes: dict):
     return restore
 
 
+def record_join_shapes(sj, shapes: dict):
+    """Wrap K4's and K5's wrappers (`sj.build_rows`, `sj.lookup`, which
+    `joinmap_build` / `joinmap_lookup` look up at each call) so each
+    call's shape is counted in `shapes` (a Counter each) by (keys rounded
+    up to a power of two, table slots). Returns a function that puts the
+    wrappers back."""
+    build_rows, lookup = sj.build_rows, sj.lookup
+
+    def pow2(n: int) -> int:
+        return 1 << max(n - 1, 0).bit_length()
+
+    def build_rec(lo, hi, cap):
+        shapes["joinmap_build"][(pow2(int(lo.shape[0])), int(cap))] += 1
+        return build_rows(lo, hi, cap)
+
+    def lookup_rec(table, lo, hi):
+        shapes["joinmap_lookup"][(pow2(int(lo.shape[0])),
+                                  int(table.shape[0]))] += 1
+        return lookup(table, lo, hi)
+
+    def restore():
+        sj.build_rows, sj.lookup = build_rows, lookup
+    sj.build_rows, sj.lookup = build_rec, lookup_rec
+    return restore
+
+
 def slice_phase(torch, kb, sj, fa, cat, sf: float):
     from repro_torch.core.transfer import make_strategy
     from repro_torch.relational import ExecConfig, Executor
@@ -819,6 +996,8 @@ def slice_phase(torch, kb, sj, fa, cat, sf: float):
     per_query, counts = {}, {}
     shapes = {"multi_probe": collections.Counter(),
               "bloom_build": collections.Counter()}
+    join_shapes = {"joinmap_build": collections.Counter(),
+                   "joinmap_lookup": collections.Counter()}
     for path, strategy, plane, _, _ in PATHS:
         queries = [5] if strategy == "pred-trans-adaptive" \
             else sorted(QUERIES)
@@ -827,12 +1006,14 @@ def slice_phase(torch, kb, sj, fa, cat, sf: float):
         fa.reset_launches()
         for qn in queries:
             _, _, cold, _ = run(strategy, plane, qn)
-            if path == "pred-trans":  # the warm sweep's K1/K2 shapes
-                restore = record_shapes(kb, shapes)
+            # the warm sweeps' K1/K2 and K4/K5 shapes
+            restore = (record_shapes(kb, shapes) if path == "pred-trans"
+                       else record_join_shapes(sj, join_shapes)
+                       if path == "pred-trans-plane-off" else None)
             try:
                 res, st, warm, query_launches = run(strategy, plane, qn)
             finally:
-                if path == "pred-trans":
+                if restore is not None:
                     restore()
             check(table_digest(res) == oracle[qn],
                   f"Q{qn} {path} differs from the eager oracle")
@@ -852,6 +1033,11 @@ def slice_phase(torch, kb, sj, fa, cat, sf: float):
                         **({"m": k[1]} if name == "multi_probe" else {})}
                        for k, c in sorted(counter.items())]
                 for name, counter in shapes.items()}})
+        if path == "pred-trans-plane-off":
+            emit({"phase": "slice", "path": path, "shapes": "warm", **{
+                name: [{"keys": k[0], "cap": k[1], "calls": c}
+                       for k, c in sorted(counter.items())]
+                for name, counter in join_shapes.items()}})
     emit({"kernels": counts})
     for path, _, _, must, never in PATHS:
         check_path(counts[path], path, must, never)
@@ -1283,10 +1469,11 @@ def main() -> int:
     # (cause not found), and the held cases raised phase 8's peak memory
     later = [] if args.phase == "kernels" else None
     rep, worst = kernel_phase(torch, np, kb, bloom, dev, api, later)
-    jrep, jworst = joinmap_phase(torch, np, sj, bloom, dev, api)
+    jrep, jworst = joinmap_phase(torch, np, sj, bloom, dev, api, later)
     if args.phase == "kernels":
         device_times(torch, later)
         route_sweep(torch, np, kb, bloom, dev)
+        joinmap_route_sweep(torch, np, sj, bloom, dev)
         return 0
     rep.update(jrep)
     worst.update(jworst)

@@ -17,6 +17,7 @@
 #include <stdint.h>
 
 #include "hash.cuh"
+#include "scan.cuh"
 
 namespace {
 
@@ -87,8 +88,15 @@ struct ProbeArgs {
 // coalesced across a warp; per filter the row probes with block_hit, which
 // stops at the first missing bit (the k word reads fall in one 32-byte
 // sector). Keeping 2 or 4 rows in flight a thread, or reading each block
-// whole, was no faster on the H100 at a quarter of rows passing: the
-// probes' random sectors, not their latency, set the pace there. The key
+// whole, was no faster on the H100 at a quarter of rows passing. Nor is
+// one sector request a row the way out: at the "2^23 m=2" case (0.094 ms
+// device) a probe with a single 4-byte load a live row a filter takes
+// 0.081 ms, and one with no filter load 0.053 (tools/k1_floor.py), so no
+// probe of one request a row reaches 1.25x; warp-cooperative probes that
+// issue exactly that (a row's block read by 2 lanes in 16-byte halves, or
+// by 8 lanes a word each, the answers carried back by ballots) took 0.148
+// and 0.269 ms: queueing, the shared hash seeds and the ballots cost more
+// than the requests they save. The key
 // halves and survivor ids are loaded, and the output stored, with
 // streaming cache hints (each is touched once), so they do not push the
 // filters out of L2. Each filter comes by its own pointer (no stacked
@@ -264,43 +272,6 @@ Route build_route(int count, int log2nb) {
 // Hashes a slice's region of `hs` holds: 5/4 of the mean, plus 256.
 int slice_cap(int count, int log2p) {
   return (count >> log2p) + (count >> (log2p + 2)) + 256;
-}
-
-// Exclusive scan, in place, of a[0..n) in shared memory by the whole CTA
-// (blockDim.x a multiple of 32); a[n] = the total. Ends synchronised.
-__device__ void block_exclusive_scan(int* a, int n, int* warp_sums) {
-  int per = (n + blockDim.x - 1) / blockDim.x;
-  int begin = min((int)threadIdx.x * per, n), end = min(begin + per, n);
-  int sum = 0;
-  for (int i = begin; i < end; ++i) sum += a[i];
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = sum;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  int nwarps = blockDim.x >> 5;
-  if (warp == 0) {
-    int w = lane < nwarps ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    warp_sums[lane] = w;
-  }
-  __syncthreads();
-  int run = x - sum + (warp ? warp_sums[warp - 1] : 0);
-  for (int i = begin; i < end; ++i) {
-    int v = a[i];
-    a[i] = run;
-    run += v;
-  }
-  if (threadIdx.x == 0) a[n] = warp_sums[nwarps - 1];
-  __syncthreads();
 }
 
 // Hashes of rows r0, r0 + step, ... (R of them) below `count`, through

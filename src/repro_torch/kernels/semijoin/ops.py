@@ -188,15 +188,26 @@ def _lib() -> ctypes.CDLL:
         lib = library("semijoin")
         lib.joinmap_build_rows.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
         lib.joinmap_build_rows.restype = ctypes.c_int
+        lib.joinmap_build_scratch_bytes.argtypes = [ctypes.c_int,
+                                                    ctypes.c_int]
+        lib.joinmap_build_scratch_bytes.restype = ctypes.c_longlong
+        lib.joinmap_build_scatter.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        lib.joinmap_build_scatter.restype = ctypes.c_int
+        lib.joinmap_build_force_route.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.joinmap_build_force_route.restype = ctypes.c_int
         lib.joinmap_lookup.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         lib.joinmap_lookup.restype = ctypes.c_int
         lib.semijoin_set_build.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
         lib.semijoin_set_build.restype = ctypes.c_int
         lib.semijoin_set_probe.argtypes = lib.joinmap_lookup.argtypes
         lib.semijoin_set_probe.restype = ctypes.c_int
@@ -270,6 +281,43 @@ def _check_probe(table: torch.Tensor, lo: torch.Tensor,
     return cap, int(lo.shape[0])
 
 
+def _build(lib, rows: bool, lo: torch.Tensor, hi: torch.Tensor, cap: int,
+           mask: Optional[torch.Tensor]):
+    """Launch K4 (`rows`) or K6a over checked CUDA inputs; returns (table,
+    occupied). On the partitioned route the scatter is launched first
+    (`joinmap_build_scatter`), and the table and count are allocated
+    while it runs; the kernels write every slot and zero the count (a
+    memset first on the direct route, the regions' stores on the
+    partitioned one: semijoin.cu, K4's note), so both are allocated
+    uninitialised. The scratch is theirs for the call."""
+    dev, n = lo.device, int(lo.shape[0])
+    if n == 0:
+        return (torch.zeros((cap, 4), dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int64, device=dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    keep = None if mask is None else mask.data_ptr()
+    nscratch = int(lib.joinmap_build_scratch_bytes(n, cap))
+    scratch = (torch.empty(nscratch, dtype=torch.uint8, device=dev)
+               if nscratch else None)
+    if scratch is not None:
+        check(lib.joinmap_build_scatter(lo.data_ptr(), hi.data_ptr(), keep,
+                                        n, cap, scratch.data_ptr(), stream),
+              "joinmap_build_scatter")
+    table = torch.empty((cap, 4), dtype=torch.int32, device=dev)
+    occupied = torch.empty(1, dtype=torch.int64, device=dev)
+    args = (table.data_ptr(), occupied.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), stream)
+    if rows:
+        check(lib.joinmap_build_rows(lo.data_ptr(), hi.data_ptr(), n, cap,
+                                     *args), "joinmap_build_rows")
+        LAUNCHES["joinmap_build"] += 1
+    else:
+        check(lib.semijoin_set_build(lo.data_ptr(), hi.data_ptr(), keep, n,
+                                     cap, *args), "semijoin_set_build")
+        LAUNCHES["semijoin_build"] += 1
+    return table, occupied
+
+
 def build_rows(lo: torch.Tensor, hi: torch.Tensor, cap: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4. Key -> row map of int32 key halves [n] (row i = key i) in a
@@ -282,18 +330,8 @@ def build_rows(lo: torch.Tensor, hi: torch.Tensor, cap: int
         raise RuntimeError(f"joinmap build: no kernel for device {dev}")
     lib = _lib()
     _check_halves(lo, hi)
-    n = int(lo.shape[0])
-    _check_cap(cap, n)
-    table = torch.zeros((cap, 4), dtype=torch.int32, device=dev)
-    occupied = torch.zeros(1, dtype=torch.int64, device=dev)
-    if n == 0:
-        return table, occupied
-    err = lib.joinmap_build_rows(
-        lo.data_ptr(), hi.data_ptr(), n, cap, table.data_ptr(),
-        occupied.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "joinmap_build_rows")
-    LAUNCHES["joinmap_build"] += 1
-    return table, occupied
+    _check_cap(cap, int(lo.shape[0]))
+    return _build(lib, True, lo, hi, cap, None)
 
 
 def _walk(table: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
@@ -417,17 +455,7 @@ def set_build(lo: torch.Tensor, hi: torch.Tensor, cap: int,
     if mask is not None:
         check_bool(mask, dev, n, "mask")
     _check_cap(cap, n)
-    table = torch.zeros((cap, 4), dtype=torch.int32, device=dev)
-    occupied = torch.zeros(1, dtype=torch.int64, device=dev)
-    if n == 0:
-        return table, occupied
-    err = lib.semijoin_set_build(
-        lo.data_ptr(), hi.data_ptr(),
-        None if mask is None else mask.data_ptr(), n, cap, table.data_ptr(),
-        occupied.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "semijoin_set_build")
-    LAUNCHES["semijoin_build"] += 1
-    return table, occupied
+    return _build(lib, False, lo, hi, cap, mask)
 
 
 def set_probe_ref(table: torch.Tensor, lo: torch.Tensor,

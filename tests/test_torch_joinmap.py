@@ -230,3 +230,72 @@ def test_joinmap_wrappers_count_nothing_on_cpu_and_reject_bad_inputs(rng):
         sj.build_rows(_t(lo), _t(hi), 96)       # not a power of two
     with pytest.raises(ValueError):
         sj.build_rows(_t(lo), _t(hi), 64)       # no empty slot left
+
+
+def _partitioned_twin(keys, cap, log2r):
+    """Plain twin of K4's partitioned route (semijoin.cu, K4's note), one
+    key at a time: the keys go to their regions' parts of the scratch in
+    row order (a part keeps its first `region_cap` keys, the rest go to the
+    overflow list), each region is built alone, in order (a walk that runs
+    past the region's end sends its key to the overflow list), then the
+    overflow list is inserted into the whole table; equal keys keep the
+    largest row. Returns (int32 table [cap, 4], occupied, keys spilled
+    from a part, keys whose walk left their region)."""
+    import chip_smoke
+    lo, hi = rhashing.key_halves(keys)
+    log2cap = cap.bit_length() - 1
+    log2r = min(log2r, log2cap)
+    home = (rhashing.hash64_np(lo, hi) & (cap - 1)).astype(np.int64)
+    rcap = chip_smoke.region_cap(len(keys), log2cap - log2r, log2r)
+    parts = [[] for _ in range(cap >> log2r)]
+    overflow = []
+    for r, s in enumerate(home):
+        part = parts[s >> log2r]
+        (part if len(part) < rcap else overflow).append(r)
+    spilled = len(overflow)
+    table = np.zeros((cap, 4), np.uint32)
+
+    def insert(r, end):
+        s = home[r]
+        while table[s, 2] and (table[s, 0] != lo[r] or table[s, 1] != hi[r]):
+            s += 1
+            if s == end:
+                return False
+            s &= cap - 1
+        if not table[s, 2]:
+            table[s] = (lo[r], hi[r], 1, r)
+        table[s, 3] = max(table[s, 3], r)
+        return True
+    for reg, part in enumerate(parts):
+        for r in part:
+            if not insert(r, (reg + 1) << log2r):
+                overflow.append(r)
+    for r in overflow:
+        insert(r, None)
+    return (torch.from_numpy(table.view(np.int32)), int(table[:, 2].sum()),
+            spilled, len(overflow) - spilled)
+
+
+@pytest.mark.parametrize("n,log2r", [(3000, 8), (5000, 13), (3000, 13)],
+                         ids=["32-regions", "2-regions", "one-region"])
+def test_partitioned_build_twin_lookups_match_reference(rng, n, log2r):
+    """A plain twin of K4's partitioned route (regions in order, overflow
+    last) over keys crowded at a region's tail, at the last region's wrap
+    into slot 0 and past a region's part of the scratch
+    (`chip_smoke.crowded_keys`, with repeated keys) gives a valid table:
+    `occupied` is the distinct count, and the plain lookup over it (K5's
+    walk) finds every key's last row and misses the rest, as the
+    reference's lookup (Pallas kernel in interpret mode) does over the
+    reference's sequential table."""
+    import chip_smoke
+    cap = sj.capacity_for(n)
+    keys = chip_smoke.crowded_keys(np, rng, n, cap, log2r)
+    table, occupied, spilled, walked = _partitioned_twin(keys, cap, log2r)
+    assert walked > 0 and (spilled > 0) == (cap > 1 << log2r)
+    assert occupied == len(np.unique(keys))
+    probe = np.concatenate([keys, _keys(rng, 997)])
+    rtable, _ = rsj.joinmap_build(keys, use_pallas=False)
+    want = rsj.joinmap_lookup(rtable, probe, use_pallas=True, interpret=True)
+    plo, phi = rhashing.key_halves(probe)
+    got = sj.lookup_ref(table, _t(plo), _t(phi))
+    np.testing.assert_array_equal(got.numpy(), want)

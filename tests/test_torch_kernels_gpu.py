@@ -83,6 +83,44 @@ def test_kernels_match_plain_versions(cuda, m):
         assert torch.equal(got, ref), (m, ix is not None, count)
 
 
+@pytest.mark.parametrize("rate", [0, 25, 100])
+@pytest.mark.parametrize("m", [1, 2, 4, 16])
+def test_multi_probe_cooperative_matches_plain_version(cuda, m, rate):
+    """K1 (one sector request a live row a filter, 16 rows a warp at a
+    time) == its plain version bit-exact, each filter over its own key
+    column, where no row passes a filter (all-zero filters), about a
+    quarter does (each filter built from a quarter of its column's keys)
+    and every row does (built from all of them); counts 0, 3 and ragged,
+    over every row and over survivor ids; filters of 1 to 8,192 blocks."""
+    rng = np.random.default_rng(100 * m + rate)
+    n = (1 << 16) + 77
+    cols, words = [], []
+    for f in range(m):
+        lo, hi = bloom.keys_to_device(_keys(rng, n), cuda)
+        nb = (8192, 64, 1, 512)[f % 4]
+        members = n * rate // 100
+        words.append(kb.build_ref(lo[:members], hi[:members], nb) if members
+                     else torch.zeros((nb, bloom.LANES), dtype=torch.int32,
+                                      device=cuda))
+        cols.append((lo, hi))
+    los, his = [c[0] for c in cols], [c[1] for c in cols]
+    idx = torch.from_numpy(rng.permutation(n)[: n // 2].astype(np.int32)
+                           ).to(cuda)
+    kb.reset_launches()
+    for ix in (None, idx):
+        rows = n if ix is None else n // 2
+        for count in (0, 3, rows - 29):
+            got = kb.multi_probe(words, los, his, idx=ix, count=count)
+            ref = kb.multi_probe_ref(words, los, his, idx=ix, count=count)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (ix is not None, count)
+            if rate == 100 and count:
+                assert bool(got[:, :count].all())
+            if rate == 0:
+                assert not bool(got.any())
+    assert kb.LAUNCHES["multi_probe"] == 6
+
+
 def _sparse_build(lo, hi, nblocks, k=bloom.DEFAULT_K):
     """K2's function for a filter too wide for `build_ref` (which packs
     256 bools a block): the OR of each key's bits, set word by word."""
@@ -314,6 +352,109 @@ def test_joinmap_kernels_match_plain_versions(cuda, domain):
                            "semijoin_build": 0, "semijoin_probe": 0}
     with pytest.raises(ValueError):
         sj.build_rows(lo, hi, n)                # no empty slot left
+
+
+#: K4's and K6a's routes (`semijoin.cu`, K4's note): below FEW_KEYS keys
+#: each key goes straight into the table; otherwise the table is cut into
+#: regions of 2^REGION_LOG2 slots (at most the table), each built in
+#: shared memory, with an overflow list inserted last
+FEW_KEYS, REGION_LOG2 = 1 << 19, 13
+
+
+def _joinmap_case(rng, case):
+    """Build keys of the K4/K6a route cases: n = 0, n = 1, and keys
+    crowded at a region's tail, at the last region's wrap into slot 0 and
+    past a region's part of the scratch, with repeated keys
+    (`chip_smoke.crowded_keys`), at 5,003 keys and on each side of
+    FEW_KEYS."""
+    import chip_smoke
+    n = {"n=0": 0, "n=1": 1, "crowded-5003": 5003,
+         "crowded-threshold-1": FEW_KEYS - 1,
+         "crowded-threshold": FEW_KEYS}[case]
+    if n < 2:
+        return _keys(rng, 2)[:n]
+    return chip_smoke.crowded_keys(np, rng, n, sj.capacity_for(n),
+                                   REGION_LOG2)
+
+
+@pytest.mark.parametrize("route", [-1, 1, 2],
+                         ids=["rule", "direct", "partitioned"])
+@pytest.mark.parametrize("case", ["n=0", "n=1", "crowded-5003",
+                                  "crowded-threshold-1", "crowded-threshold"])
+@pytest.mark.parametrize("kind", ["map", "set"])
+def test_joinmap_build_routes_match_plain_versions(cuda, kind, case, route):
+    """K4 (`map`: every row) and K6a (`set`: the rows a mask keeps) on
+    each route, by the rule or forced (`joinmap_build_force_route`):
+    occupied == the plain sequential build's (CPU copies) == the distinct
+    count, and K5 (K6b) over the kernel's table == the plain walk over
+    the same table == each key's last row (membership) for every build
+    key and 997 misses; the wrapper counts one launch a build."""
+    rng = np.random.default_rng(len(case) + route)
+    keys = _joinmap_case(rng, case)
+    n = len(keys)
+    keep = (rng.random(n) < 0.7) if kind == "set" else np.ones(n, bool)
+    lo, hi = bloom.keys_to_device(keys, cuda)
+    mask = torch.from_numpy(keep).to(cuda) if kind == "set" else None
+    cap = sj.capacity_for(n)
+    lib = sj._lib()
+    lib.joinmap_build_force_route(route, 0)
+    sj.reset_launches()
+    try:
+        if kind == "map":
+            table, occ = sj.build_rows(lo, hi, cap)
+            _, ref_occ = sj.build_rows_ref(lo.cpu(), hi.cpu(), cap)
+        else:
+            table, occ = sj.set_build(lo, hi, cap, mask)
+            _, ref_occ = sj.set_build_ref(lo.cpu(), hi.cpu(), cap,
+                                          mask.cpu())
+        scratch = lib.joinmap_build_scratch_bytes(n, cap)
+    finally:
+        lib.joinmap_build_force_route(-1, 0)
+    assert int(occ) == int(ref_occ) == len(np.unique(keys[keep]))
+    launched = sj.LAUNCHES["joinmap_build" if kind == "map"
+                           else "semijoin_build"]
+    assert launched == (1 if n else 0)
+    if route == 2 or (route == -1 and n >= FEW_KEYS):
+        assert (scratch > 0) == (n > 0)
+    else:
+        assert scratch == 0
+    probe = np.concatenate([keys, _keys(rng, 997)])
+    plo, phi = bloom.keys_to_device(probe, cuda)
+    if kind == "map":
+        got, ref = sj.lookup(table, plo, phi), sj.lookup_ref(table, plo, phi)
+        last = {int(k): i for i, k in enumerate(keys)}
+        want = np.array([last.get(int(k), -1) for k in probe], np.int32)
+    else:
+        got = sj.set_probe(table, plo, phi)
+        ref = sj.set_probe_ref(table, plo, phi)
+        want = np.isin(probe, keys[keep])
+        assert int(table[:, 3].abs().sum()) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_joinmap_scratch_follows_the_source_note(cuda):
+    """K4's (K6a's) scratch on the partitioned route: p = cap / 2^13
+    regions' parts of 5/4 of the mean keys a region + 256 (at most a
+    region's slots) and an overflow list of a row, 16-byte records, and
+    p + 1 int cursors; none on the direct route (fewer than FEW_KEYS
+    keys, or more than 4,096 regions)."""
+    import chip_smoke
+
+    def partitioned(n, cap):
+        log2r = min(REGION_LOG2, cap.bit_length() - 1)
+        log2p = cap.bit_length() - 1 - log2r
+        p = 1 << log2p
+        return 16 * (p * chip_smoke.region_cap(n, log2p, log2r) + n) + 4 * (
+            p + 1)
+    lib = sj._lib()
+    assert lib.joinmap_build_scratch_bytes(FEW_KEYS - 1, 1 << 21) == 0
+    for n, cap in ((FEW_KEYS, 1 << 21), (1_500_000, 1 << 22),
+                   (6_001_215, 1 << 24), (FEW_KEYS, 1 << 25)):
+        assert lib.joinmap_build_scratch_bytes(n, cap) == \
+            partitioned(n, cap), (n, cap)
+    assert lib.joinmap_build_scratch_bytes(FEW_KEYS, 1 << 26) == 0
 
 
 def test_tpch_q5_plane_off_on_gpu_matches_oracle(cuda):
