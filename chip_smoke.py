@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--sf 1.0] [--phase all|kernels]
 
 `--phase kernels` runs phases 1-4 only (to iterate on a kernel), then
-each Bloom and hash-map case's device time alone and the route sweeps of
-K2 and K4, and prints neither the kernel table nor the ok line.
+each Bloom and hash-map case's device time alone, the route sweeps of
+K2 and K4 and the rows-a-thread sweep of K3, and prints neither the
+kernel table nor the ok line.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -17,7 +18,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              the card, at the shapes TPC-H SF 1 gives them: 2^23-row
              (lineitem's bucket) and 2^21-row key columns, filters sized
              for 1.5 M and 6 M keys plus a one-block filter, ragged
-             counts, survivor-id gathers. As on the main path, each
+             counts, survivor-id gathers, and K3 at the plane-off path's
+             most frequent shape (`K3_PATH_CASE`). As on the main path, each
              filter of a K1 call probes its own key column, and each
              filter is built from its own build-side keys; K2 also at a
              skew (6 M keys whose hashes all fall in one of the 256
@@ -25,11 +27,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              but one slice's share go to its overflow list), and at
              2^17 keys, on its direct route. Results must be bit-exact.
              Median CUDA-event times of kernel and plain version, and
-             the bound (bytes moved over the H100's 3.35 TB/s). With
-             `--phase kernels` only, after phase 4: each case's device
-             time alone (torch.profiler, `device_times`) and a sweep of
-             K2's direct and partitioned routes, each forced, at 2^14
-             to 2^20 keys (`route_sweep`);
+             the bound (bytes moved over the H100's 3.35 TB/s; K1's and
+             K3's key columns counted as the 32-byte sectors that hold a
+             row still live before the filter, `gathered_sector_bytes`).
+             With `--phase kernels` only, after phase 4: each case's
+             device time alone (torch.profiler, `device_times`) and a
+             sweep of K2's direct and partitioned routes, each forced,
+             at 2^14 to 2^20 keys (`route_sweep`);
 4. joinmap — the hash-map join kernels (K4 build, K5 lookup) at the
              orders shape of SF 1: 1,500,000 distinct keys in 2^22
              slots, probed by 6,001,215 lineitem-like keys. K4's
@@ -37,7 +41,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              sequential build's (run on CPU copies: a step-by-step build
              on the card would eat the time limit); K5's rows must equal
              the plain lookup over the same K4 table at every shape, and
-             at SF 1 a sort-and-searchsorted expectation too; a build
+             at SF 1 a sort-and-searchsorted expectation too, and at the
+             plane-off path's most frequent lookup shape
+             (`K5_PATH_CASE`); a build
              with duplicate keys must count its distinct keys, and one of
              2^20 keys crowded at a region's tail, at the last region's
              wrap into slot 0 and past a region's part of K4's scratch
@@ -81,7 +87,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              counts each call's shape (live rows to a power of two,
              nblocks, K1's m) into one `shapes` line, and during the warm
              plane-off runs one around K4's and K5's (keys to a power of
-             two, table slots) into another. Then one warm run each
+             two, table slots) and K3's (live rows to a power of two,
+             nblocks, gather or not) into another. Then one warm run each
              of Q5 and Q9 on each plane under torch.profiler (device busy
              seconds, idle share, top device ops), after every reading;
 6. kernel-api — path `kernel-api`: the kernel library's public entry
@@ -262,6 +269,17 @@ def sector_bytes(torch, sel) -> int:
     return 32 * int(pad.view(-1, 8).any(dim=1).sum())
 
 
+def gathered_sector_bytes(torch, live, idx, ncol: int) -> int:
+    """`sector_bytes` of a 4-byte key column of `ncol` rows read at the
+    rows `live` (bool [n] on the card) selects, through survivor ids
+    `idx` (int32 [n]) where given."""
+    if idx is None:
+        return sector_bytes(torch, live)
+    sel = torch.zeros(ncol, dtype=torch.bool, device=live.device)
+    sel[idx[live].long()] = True
+    return sector_bytes(torch, sel)
+
+
 def api_inputs(np, cat) -> dict:
     """The TPC-H columns of the kernel-api cases: (A) Q5's orders
     semi-join, (B) Q4's EXISTS, (C) Q5's transfer chain."""
@@ -362,6 +380,30 @@ def probe_inputs(np, kb, bloom, dev):
     return rng, cols, filt
 
 
+#: K3's cases at the plane-off path's shapes (its warm `shapes` line):
+#: name -> (rows, live rows, key domain, build keys); the most frequent
+#: (`K3_PATH_CASE`: 16,384 rows into a one-block filter, as a region's
+#: nations build) and the heaviest (2^23 rows into 4,096 blocks), neither
+#: through survivor ids
+K3_PATH_CASES = {"16384 into 1 block": (1 << 14, 12_289, 25, 5),
+                 "2^23 into 4096 blocks": (N_BIG, 6_001_215, 6_000_000,
+                                           1 << 16)}
+K3_PATH_CASE = "16384 into 1 block"
+
+
+def k3_path_inputs(torch, np, kb, bloom, dev, case: str = K3_PATH_CASE):
+    """One of `K3_PATH_CASES`: a key column of its rows over its domain
+    and a filter built (plainly) from its build keys, drawn from the
+    domain: (words, (lo, hi), idx None, live rows)."""
+    n, count, domain, nkeys = K3_PATH_CASES[case]
+    rng = np.random.default_rng(41)
+    cols = bloom.keys_to_device(rng.integers(0, domain, n, dtype=np.int64),
+                                dev)
+    blo, bhi = bloom.keys_to_device(
+        rng.choice(domain, nkeys, replace=False), dev)
+    return kb.build_ref(blo, bhi, bloom.blocks_for(nkeys)), cols, None, count
+
+
 def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
     """K1/K2/K3/K7 vs their plain versions on the card; returns the
     record of each kernel at the main path's heaviest shape (K7: case
@@ -393,12 +435,16 @@ def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
         err = int((got.to(torch.int16) - ref.to(torch.int16)).abs().max())
         worst["multi_probe"] = max(worst["multi_probe"], err)
         check(torch.equal(got, ref), f"multi_probe {name} disagrees")
-        # bytes the function must move: each filter's own key column, 8
-        # bytes for each row still live before that filter (probing stops
-        # at the first miss), the survivor ids, every filter once, and the
-        # [m, n] mask
-        alive = [count] + [int(x) for x in ref.sum(dim=1)[:-1]]
-        nbytes = (8 * sum(alive) + (4 * count if ix is not None else 0)
+        # bytes the function must move: of each filter's own key column
+        # (both halves), the 32-byte sectors that hold a row still live
+        # before that filter (probing stops at the first miss), the
+        # survivor ids, every filter once, and the [m, n] mask
+        live = [torch.arange(n, device=dev) < count] + list(ref[:-1])
+        alive = [int(x.sum()) for x in live]
+        nbytes = (sum(2 * gathered_sector_bytes(torch, x, ix,
+                                                int(cols[c][0].shape[0]))
+                      for x, c in zip(live, which))
+                  + (4 * count if ix is not None else 0)
                   + sum(w.numel() * 4 for w in ws) + m * n)
         ms = cuda_ms(torch, lambda: kb.multi_probe(*args, idx=ix,
                                                    count=count), 20)
@@ -416,24 +462,28 @@ def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
         defer(rec, lambda: kb.multi_probe(*args, idx=ix, count=count))
         return rec
 
-    def single_case(name, c, n, count, ix):
-        args = (filt[c], cols[c][0], cols[c][1])
+    def single_case(name, words, col, n, count, ix, filter_name):
+        args = (words, col[0], col[1])
         got = kb.probe(*args, idx=ix, count=count)
         ref = kb.probe_ref(*args, idx=ix, count=count)
         torch.cuda.synchronize()
         err = int((got.to(torch.int16) - ref.to(torch.int16)).abs().max())
         worst["probe"] = max(worst["probe"], err)
         check(torch.equal(got, ref), f"probe {name} disagrees")
-        # the live rows' key halves (and survivor ids), the filter once,
+        # the key halves' 32-byte sectors that hold a live row (gathered
+        # through the survivor ids, which are read once), the filter once,
         # one mask byte per row
-        nbytes = (8 * count + (4 * count if ix is not None else 0)
-                  + filt[c].numel() * 4 + n)
+        live = torch.arange(n, device=dev) < count
+        nbytes = (2 * gathered_sector_bytes(torch, live, ix,
+                                            int(col[0].shape[0]))
+                  + (4 * count if ix is not None else 0)
+                  + words.numel() * 4 + n)
         ms = cuda_ms(torch, lambda: kb.probe(*args, idx=ix, count=count),
                      20)
         plain = cuda_ms(torch, lambda: kb.probe_ref(*args, idx=ix,
                                                     count=count), 3, warm=1)
         rec = {"kernel": "probe", "case": name, "n": n, "count": count,
-               "filter": COLUMNS[c][2], "nblocks": int(filt[c].shape[0]),
+               "filter": filter_name, "nblocks": int(words.shape[0]),
                "ms": ms, "plain_ms": plain, "plain_device": "cuda",
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
                "survivors": int(ref.sum()), "max_abs_err": err,
@@ -508,8 +558,13 @@ def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
     rep["multi_probe"] = probe_case("2^23 m=2", [0, 1], N_BIG, ragged, None)
     probe_case("2^23 m=3 one-block", [0, 1, 2], N_BIG, ragged, None)
     probe_case("2^21 m=2 gather", [1, 0], N_MID, N_MID - 12345, idx)
-    rep["probe"] = single_case("2^23 orders", 0, N_BIG, ragged, None)
-    single_case("2^21 orders gather", 0, N_MID, N_MID - 12345, idx)
+    rep["probe"] = single_case("2^23 orders", filt[0], cols[0], N_BIG,
+                               ragged, None, "orders")
+    single_case("2^21 orders gather", filt[0], cols[0], N_MID,
+                N_MID - 12345, idx, "orders")
+    words, col, _, pcount = k3_path_inputs(torch, np, kb, bloom, dev)
+    single_case(K3_PATH_CASE, words, col, K3_PATH_CASES[K3_PATH_CASE][0],
+                pcount, None, "5 of 25 keys")
     rep["bloom_build"] = build_case("2^23 lineitem", 1, nb_big, ragged,
                                     None, None)
     build_case("2^21 orders gather+valid", 0, nb_mid, N_MID - 777, idx,
@@ -595,6 +650,55 @@ def route_sweep(torch, np, kb, bloom, dev) -> None:
         emit(rec)
 
 
+def probe_rows_sweep(torch, np, kb, bloom, dev) -> None:
+    """K3 at one row a thread and at four (`bloom_probe_force_rows`),
+    each bit-exact against the plain probe, over 2^16 to 2^23 rows (72%
+    live, orders-domain keys) into filters of 4,096 and 2^17 blocks
+    (`K3_PATH_CASES`' heaviest, "2^23 orders"), and through survivor ids
+    at 2^21 and 2^23 rows: one line a shape with both's CUDA-event and
+    device ms and the rows a thread K3's rule takes there (`kManyRows` in
+    bloom.cu comes from these)."""
+    lib = kb._lib()
+    rng = np.random.default_rng(61)
+    lo, hi = bloom.keys_to_device(
+        rng.integers(0, 6_000_000, N_BIG, dtype=np.int64), dev)
+    filters = {}
+    for nkeys in (1 << 16, KEYS_ORDERS):
+        blo, bhi = bloom.keys_to_device(
+            rng.choice(6_000_000, nkeys, replace=False), dev)
+        filters[nkeys] = kb.build_ref(blo, bhi, bloom.blocks_for(nkeys))
+    shapes = [(1 << log2n, nkeys, None) for nkeys in filters
+              for log2n in range(16, 24)]
+    for log2n in (21, 23):
+        idx = torch.from_numpy(np.sort(rng.choice(
+            N_BIG, (1 << log2n) * 3 // 4, replace=False)).astype(np.int32))
+        shapes.append((1 << log2n, 1 << 16, idx.to(dev)))
+    for n, nkeys, idx in shapes:
+        words = filters[nkeys]
+        rows = n if idx is None else int(idx.shape[0])
+        count = rows * 18 // 25
+        clo, chi = (lo[:n], hi[:n]) if idx is None else (lo, hi)
+        ref = kb.probe_ref(words, clo, chi, idx=idx, count=count)
+        rec = {"phase": "kernels", "kernel": "probe", "case": "rows sweep",
+               "n": rows, "count": count, "nblocks": int(words.shape[0]),
+               "gather": idx is not None,
+               "rule": lib.bloom_probe_rows(rows)}
+        for r in (1, 4):
+            lib.bloom_probe_force_rows(r)
+            try:
+                def call():
+                    return kb.probe(words, clo, chi, idx=idx, count=count)
+                got = call()
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref),
+                      f"probe at {r} rows a thread, {rows} rows disagrees")
+                rec[f"rows{r}_ms"] = cuda_ms(torch, call, 20)
+                rec[f"rows{r}_device_ms"] = device_ms(torch, call)
+            finally:
+                lib.bloom_probe_force_rows(0)
+        emit(rec)
+
+
 def last_rows(np, keys, probe):
     """Each probe key's last row among `keys` (the sequential insert's
     answer), -1 where it is absent: int32 [len(probe)]."""
@@ -615,6 +719,32 @@ def joinmap_inputs(np):
     orders = rng.choice(6_000_000, KEYS_ORDERS,
                         replace=False).astype(np.int64)
     return rng, small, probe, dups, orders
+
+
+def sf1_lookup_probe(np, rng, orders):
+    """K5's "SF 1 lineitem" probe keys over a table of `orders` (SF 1
+    orders' 1.5 M keys, `joinmap_inputs`, drawn next from its generator
+    `rng`): 6,001,215 lineitem-like keys drawn from them, one in 8
+    replaced by a key outside the orders domain, so it misses."""
+    probe = orders[rng.integers(0, KEYS_ORDERS, 6_001_215)]
+    probe[::8] = rng.integers(6_000_000, 24_000_000, len(probe[::8]))
+    return probe
+
+
+#: K5's case at the plane-off path's most frequent lookup shape (its warm
+#: `shapes` line): 4,096 probe keys into a table of 512 slots
+K5_PATH_CASE = "4096 into 512 slots"
+
+
+def k5_path_keys(np):
+    """K5's path-shape case: (200 distinct build keys, a table of
+    `capacity_for(200)` = 512 slots; 4,096 probe keys drawn from them,
+    one in 8 a miss)."""
+    rng = np.random.default_rng(43)
+    keys = rng.choice(1 << 40, 200, replace=False).astype(np.int64)
+    probe = keys[rng.integers(0, len(keys), 4096)]
+    probe[::8] = rng.integers(1 << 41, 1 << 42, len(probe[::8]))
+    return keys, probe
 
 
 def joinmap_route_sweep(torch, np, sj, bloom, dev) -> None:
@@ -739,8 +869,7 @@ def joinmap_phase(torch, np, sj, bloom, dev, api, later: list):
     keys = orders
     rep = {}
     rep["joinmap_build"], table = build("SF 1 orders", keys)
-    probe = keys[rng.integers(0, KEYS_ORDERS, 6_001_215)]
-    probe[::8] = rng.integers(6_000_000, 24_000_000, len(probe[::8]))
+    probe = sf1_lookup_probe(np, rng, keys)
     bk = torch.from_numpy(keys).to(dev)
     order = torch.argsort(bk)
     sk = bk[order]
@@ -748,6 +877,10 @@ def joinmap_phase(torch, np, sj, bloom, dev, api, later: list):
     pos = torch.searchsorted(sk, pk).clamp(max=len(keys) - 1)
     want = torch.where(sk[pos] == pk, order[pos], -1).to(torch.int32)
     rep["joinmap_lookup"] = lookup("SF 1 lineitem", table, probe, want)
+    # the plane-off path's most frequent lookup shape
+    keys, probe = k5_path_keys(np)
+    _, table = build(K5_PATH_CASE, keys)
+    lookup(K5_PATH_CASE, table, probe)
     # keys crowded at a region's tail, at the last region's wrap into slot
     # 0 and past a region's part of K4's scratch, with repeated keys, on
     # the partitioned route (`crowded_keys`; its own generator, so the
@@ -936,13 +1069,15 @@ def record_shapes(kb, shapes: dict):
     return restore
 
 
-def record_join_shapes(sj, shapes: dict):
+def record_join_shapes(sj, kb, shapes: dict):
     """Wrap K4's and K5's wrappers (`sj.build_rows`, `sj.lookup`, which
     `joinmap_build` / `joinmap_lookup` look up at each call) so each
     call's shape is counted in `shapes` (a Counter each) by (keys rounded
-    up to a power of two, table slots). Returns a function that puts the
-    wrappers back."""
-    build_rows, lookup = sj.build_rows, sj.lookup
+    up to a power of two, table slots), and K3's (`kb.probe`, which the
+    engine looks up at each call) by (live rows rounded up to a power of
+    two, nblocks, whether it gathers through survivor ids). Returns a
+    function that puts the wrappers back."""
+    build_rows, lookup, probe = sj.build_rows, sj.lookup, kb.probe
 
     def pow2(n: int) -> int:
         return 1 << max(n - 1, 0).bit_length()
@@ -956,9 +1091,15 @@ def record_join_shapes(sj, shapes: dict):
                                   int(table.shape[0]))] += 1
         return lookup(table, lo, hi)
 
+    def probe_rec(words, lo, hi, idx=None, count=None, **kw):
+        live = kb._rows([lo], idx, count)[1]
+        shapes["probe"][(pow2(live), int(words.shape[0]),
+                         idx is not None)] += 1
+        return probe(words, lo, hi, idx=idx, count=count, **kw)
+
     def restore():
-        sj.build_rows, sj.lookup = build_rows, lookup
-    sj.build_rows, sj.lookup = build_rec, lookup_rec
+        sj.build_rows, sj.lookup, kb.probe = build_rows, lookup, probe
+    sj.build_rows, sj.lookup, kb.probe = build_rec, lookup_rec, probe_rec
     return restore
 
 
@@ -997,7 +1138,8 @@ def slice_phase(torch, kb, sj, fa, cat, sf: float):
     shapes = {"multi_probe": collections.Counter(),
               "bloom_build": collections.Counter()}
     join_shapes = {"joinmap_build": collections.Counter(),
-                   "joinmap_lookup": collections.Counter()}
+                   "joinmap_lookup": collections.Counter(),
+                   "probe": collections.Counter()}
     for path, strategy, plane, _, _ in PATHS:
         queries = [5] if strategy == "pred-trans-adaptive" \
             else sorted(QUERIES)
@@ -1006,9 +1148,9 @@ def slice_phase(torch, kb, sj, fa, cat, sf: float):
         fa.reset_launches()
         for qn in queries:
             _, _, cold, _ = run(strategy, plane, qn)
-            # the warm sweeps' K1/K2 and K4/K5 shapes
+            # the warm sweeps' K1/K2 and K3/K4/K5 shapes
             restore = (record_shapes(kb, shapes) if path == "pred-trans"
-                       else record_join_shapes(sj, join_shapes)
+                       else record_join_shapes(sj, kb, join_shapes)
                        if path == "pred-trans-plane-off" else None)
             try:
                 res, st, warm, query_launches = run(strategy, plane, qn)
@@ -1035,8 +1177,9 @@ def slice_phase(torch, kb, sj, fa, cat, sf: float):
                 for name, counter in shapes.items()}})
         if path == "pred-trans-plane-off":
             emit({"phase": "slice", "path": path, "shapes": "warm", **{
-                name: [{"keys": k[0], "cap": k[1], "calls": c}
-                       for k, c in sorted(counter.items())]
+                name: [({"rows": k[0], "nblocks": k[1], "gather": k[2]}
+                        if name == "probe" else {"keys": k[0], "cap": k[1]})
+                       | {"calls": c} for k, c in sorted(counter.items())]
                 for name, counter in join_shapes.items()}})
     emit({"kernels": counts})
     for path, _, _, must, never in PATHS:
@@ -1474,6 +1617,7 @@ def main() -> int:
         device_times(torch, later)
         route_sweep(torch, np, kb, bloom, dev)
         joinmap_route_sweep(torch, np, sj, bloom, dev)
+        probe_rows_sweep(torch, np, kb, bloom, dev)
         return 0
     rep.update(jrep)
     worst.update(jworst)

@@ -135,21 +135,57 @@ __global__ void multi_probe_kernel(ProbeArgs args, int m, int k,
 // launch counts tell the two routes apart. The kernel gathers the
 // survivors' key halves through `idx` and writes False at and past
 // `count`, which replaces the reference's _gather2 + _mask_count around
-// probe_pallas: no gathered key copies, no separate mask pass.
+// probe_pallas: no gathered key copies, no separate mask pass. At the
+// "2^23 orders" case (0.076 ms device on the H100, one row a thread) the
+// key stream and mask alone take 0.031, and one 4-byte filter load a live
+// row 0.058 (0.057 at 4 rows a thread), so no probe that reads a live
+// row's block from L2 comes near the 0.054 that 1.4x needs
+// (tools/k3_floor.py). Slower there: rows probed bit by bit across 2 or 4
+// rows a thread (0.086, 0.096), a row's block read by a lane pair, a
+// 16-byte half each in one load (0.117); the filter copied into shared
+// memory where it fits was 3.3x slower at 2^23 rows into 4,096 blocks (a
+// 128 KB copy leaves one CTA an SM). What gains: kProbeRows = 4 rows a
+// thread, row i at base + i * blockDim + t (a warp's loads stay
+// coalesced), each row's per-bit chain after the last's, so a warp waits
+// on the sum of its lanes' chains and not on the longest of each round:
+// 0.067 at "2^23 orders", 0.033-0.036 against 0.045 at 2^23 rows into
+// 4,096 blocks (the plane-off path's largest calls). Four rows a thread
+// quarter the CTAs, which costs below 2^21 rows (2^16 rows: 0.0037
+// against 0.0021; 1.5 M survivor ids: 0.024 against 0.021), so the rule
+// (probe_rows, here only) takes them from kManyRows = 2^22 rows on, where
+// chip_smoke.py's probe_rows_sweep finds them the faster with and without
+// survivor ids (2^21 rows: even); bloom_probe_force_rows forces either.
+constexpr int kProbeRows = 4;
+constexpr int kManyRows = 1 << 22;
+
+// 0: probe_rows's rule; 1 or kProbeRows: that many rows a thread
+// (bloom_probe_force_rows).
+int forced_probe_rows = 0;
+
+int probe_rows(int n) {
+  if (forced_probe_rows > 0) return forced_probe_rows;
+  return n >= kManyRows ? kProbeRows : 1;
+}
+
+template <int R>
 __global__ void probe_kernel(const uint32_t* __restrict__ words, int log2nb,
                              int k, const uint32_t* __restrict__ lo,
                              const uint32_t* __restrict__ hi,
                              const int32_t* __restrict__ idx, int n,
                              int count, uint8_t* __restrict__ out) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  bool ok = r < count;
-  if (ok) {
-    int src = idx != nullptr ? idx[r] : r;
-    ok = block_hit(words, key_hash(__ldg(lo + src), __ldg(hi + src)), log2nb,
-                   k);
+  int base = blockIdx.x * blockDim.x * R + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    int r = base + i * blockDim.x;
+    if (r >= n) return;
+    bool ok = r < count;
+    if (ok) {
+      int src = idx != nullptr ? idx[r] : r;
+      ok = block_hit(words, key_hash(__ldg(lo + src), __ldg(hi + src)),
+                     log2nb, k);
+    }
+    out[r] = ok ? 1 : 0;
   }
-  out[r] = ok ? 1 : 0;
 }
 
 // ORs the key with hash h into its block in L2: one 64-bit atomicOr per
@@ -691,8 +727,12 @@ int bloom_probe(const void* words, int log2nb, int k, const void* lo,
                 const void* hi, const void* idx, int n, int count, void* out,
                 void* stream) {
   if (n > 0) {
-    int grid = (n + kThreads - 1) / kThreads;
-    probe_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    int rows = probe_rows(n);
+    auto kernel = rows == kProbeRows ? probe_kernel<kProbeRows>
+                                     : probe_kernel<1>;
+    int tile = kThreads * rows;
+    kernel<<<(n + tile - 1) / tile, kThreads, 0,
+             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(words), log2nb, k,
         static_cast<const uint32_t*>(lo), static_cast<const uint32_t*>(hi),
         static_cast<const int32_t*>(idx), n, count,
@@ -700,6 +740,18 @@ int bloom_probe(const void* words, int log2nb, int k, const void* lo,
   }
   return (int)cudaGetLastError();
 }
+
+// Makes every later bloom_probe take `rows` rows a thread (1 or
+// kProbeRows), or, at 0, probe_rows's rule again; returns the setting it
+// replaces. For timing both at one shape; not thread-safe.
+int bloom_probe_force_rows(int rows) {
+  int was = forced_probe_rows;
+  forced_probe_rows = rows == 1 || rows == kProbeRows ? rows : 0;
+  return was;
+}
+
+// The rows a thread bloom_probe takes for n rows.
+int bloom_probe_rows(int n) { return probe_rows(n); }
 
 // in_words: uint32 [2^log2nb_in, 8]; in_lo/in_hi/out_lo/out_hi: uint32 key
 // halves [n]; mask: uint8 [n]; ok: uint8 [n]; out_words: uint32

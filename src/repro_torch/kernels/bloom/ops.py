@@ -70,6 +70,10 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p]
         lib.bloom_probe.restype = ctypes.c_int
+        lib.bloom_probe_force_rows.argtypes = [ctypes.c_int]
+        lib.bloom_probe_force_rows.restype = ctypes.c_int
+        lib.bloom_probe_rows.argtypes = [ctypes.c_int]
+        lib.bloom_probe_rows.restype = ctypes.c_int
         lib.bloom_transfer.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,

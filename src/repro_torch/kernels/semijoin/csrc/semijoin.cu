@@ -429,7 +429,16 @@ __device__ __forceinline__ int32_t walk(const uint4* __restrict__ slots,
 //
 // Bound on this card: memory, 8 bytes of key halves in and 4 bytes (K6b:
 // one byte) out per key plus one 32-byte sector per slot visited; a table
-// larger than L2 sends those sector reads to HBM.
+// larger than L2 sends those sector reads to HBM. At SF 1 (6,001,215
+// random probes, 2^22 slots: 64 MB) the walk reads 7,995,080 slots in
+// 0.141 ms device on the H100, about one 64-byte burst a step at 3.35
+// TB/s: the floor of one random pass. Walking the table a 32 MB range of
+// slots at a time (each pass reading every key, walking those homed in
+// its range; tools/k5_passes.py) took 0.127 at two passes, but a pass
+// costs 0.02 even where the table sits in L2, the walk alone takes 0.068
+// there (2^20 slots), and with the probe keys in lineitem's order (sorted,
+// each key's probes together) the passes lose: 0.108 against 0.085. More
+// walks in flight a thread were slower (a warp waits on its longest).
 template <bool kRows, typename Out>
 __global__ void probe_kernel(const Slot* __restrict__ table, uint32_t mask,
                              const uint32_t* __restrict__ lo,

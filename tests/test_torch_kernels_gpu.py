@@ -323,6 +323,116 @@ def test_probe_kernel_matches_plain_version(cuda, nb):
     assert kb.LAUNCHES["probe"] == 3 and kb.LAUNCHES["multi_probe"] == 0
 
 
+#: K3's rows a thread (`bloom.cu`, K3's note): PROBE_ROWS from MANY_ROWS
+#: rows on, one below
+PROBE_ROWS, MANY_ROWS = 4, 1 << 22
+
+
+@pytest.mark.parametrize("rows", [0, 1, PROBE_ROWS],
+                         ids=["rule", "one", "four"])
+@pytest.mark.parametrize("nb", [1, 64, 1 << 12, 1 << 13, 1 << 16])
+def test_probe_kernel_filter_sizes_match_plain_version(cuda, nb, rows):
+    """K3, at the rows a thread its rule takes or forced to one or four
+    (`bloom_probe_force_rows`), == its plain version bit for bit into
+    filters of 1 to 2^16 blocks: over every row, over survivor ids, each
+    with a count below n and n not a multiple of a CTA's rows, over
+    columns and ids that do not start on a 16-byte boundary, and at
+    n = 1; one launch a call."""
+    rng = np.random.default_rng(nb + rows)
+    n = (1 << 16) + 4099
+    keys = _keys(rng, n)
+    lo, hi = bloom.keys_to_device(keys, cuda)
+    words = kb.build_ref(lo[: n // 3], hi[: n // 3], nb)
+    idx = torch.from_numpy(np.sort(rng.choice(n, n // 2 + 7, replace=False))
+                           .astype(np.int32)).to(cuda)
+    lib = kb._lib()
+    lib.bloom_probe_force_rows(rows)
+    kb.reset_launches()
+    calls = ((lo, hi, None, n - 13), (lo, hi, idx, n // 2 - 5),
+             (lo[1:], hi[1:], None, n - 2), (lo, hi, idx[1:], n // 2 - 3),
+             (lo[:1], hi[:1], None, 1), (lo, hi, idx[:1], 1))
+    try:
+        for clo, chi, ix, count in calls:
+            got = kb.probe(words, clo, chi, idx=ix, count=count)
+            ref = kb.probe_ref(words, clo, chi, idx=ix, count=count)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (ix is not None, count)
+    finally:
+        lib.bloom_probe_force_rows(0)
+    assert kb.LAUNCHES["probe"] == len(calls)
+
+
+def test_probe_kernel_many_rows_match_plain_version(cuda):
+    """K3 at the rule's four rows a thread: MANY_ROWS + 5 rows (a ragged
+    last CTA) with and without survivor ids == its plain version bit for
+    bit."""
+    rng = np.random.default_rng(3)
+    n = MANY_ROWS + 5
+    lo, hi = bloom.keys_to_device(
+        rng.integers(0, 1 << 20, 2 * n, dtype=np.int64), cuda)
+    words = kb.build_ref(lo[: 1 << 16], hi[: 1 << 16], 4096)
+    idx = torch.from_numpy(np.sort(rng.choice(2 * n, n, replace=False))
+                           .astype(np.int32)).to(cuda)
+    for ix, count in ((None, n - 3), (idx, n - 1)):
+        got = kb.probe(words, lo, hi, idx=ix, count=count)
+        ref = kb.probe_ref(words, lo, hi, idx=ix, count=count)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), ix is not None
+
+
+def test_probe_rows_follow_the_source_note(cuda):
+    """K3's rule: PROBE_ROWS rows a thread from MANY_ROWS rows on, one
+    row a thread below."""
+    lib = kb._lib()
+    for n in (1, 4096, MANY_ROWS - 1, MANY_ROWS, 1 << 23, (1 << 31) - 1):
+        assert lib.bloom_probe_rows(n) == (
+            PROBE_ROWS if n >= MANY_ROWS else 1), n
+
+
+@pytest.mark.parametrize("kind", ["map", "set"])
+def test_lookup_kernels_at_the_edges_match_plain_versions(cuda, kind):
+    """K5 (`map`) and K6b (`set`) over keys crowded at the end of a
+    quarter of the slots and at the table's end (walks that run on past
+    it into slot 0, `chip_smoke.crowded_keys`), with repeated build keys
+    and misses: == the plain walk over the same table == each key's last
+    row (membership), at 24,007 probes (not a multiple of a CTA's 256),
+    over columns that do not start on a 16-byte boundary, and at n = 0
+    and 1; one launch a call."""
+    import chip_smoke
+    rng = np.random.default_rng(len(kind))
+    n = 20_000
+    cap = sj.capacity_for(n)
+    keys = chip_smoke.crowded_keys(np, rng, n, cap, cap.bit_length() - 3)
+    keep = (rng.random(len(keys)) < 0.7 if kind == "set"
+            else np.ones(len(keys), bool))
+    lo, hi = bloom.keys_to_device(keys, cuda)
+    if kind == "map":
+        table, _ = sj.build_rows(lo, hi, cap)
+        walk, ref_walk = sj.lookup, sj.lookup_ref
+        last = {int(k): i for i, k in enumerate(keys)}
+    else:
+        table, _ = sj.set_build(lo, hi, cap, torch.from_numpy(keep).to(cuda))
+        walk, ref_walk = sj.set_probe, sj.set_probe_ref
+    probe = np.concatenate([keys, _keys(rng, 4007)])
+    plo, phi = bloom.keys_to_device(probe, cuda)
+    sj.reset_launches()
+    calls = ((plo, phi, probe), (plo[1:], phi[1:], probe[1:]),
+             (plo[:1], phi[:1], probe[:1]), (plo[:0], phi[:0], probe[:0]))
+    for clo, chi, keys_in in calls:
+        got = walk(table, clo, chi)
+        ref = ref_walk(table, clo, chi)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), len(keys_in)
+        if kind == "map":
+            want = np.array([last.get(int(k), -1) for k in keys_in],
+                            np.int32)
+        else:
+            want = np.isin(keys_in, keys[keep])
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert sj.LAUNCHES["joinmap_lookup" if kind == "map"
+                       else "semijoin_probe"] == len(calls) - 1
+
+
 @pytest.mark.parametrize("domain", [None, 1 << 15], ids=["unique", "dups"])
 def test_joinmap_kernels_match_plain_versions(cuda, domain):
     """At 2^16 keys: K4's occupied count == the plain sequential build's

@@ -1,0 +1,96 @@
+"""The design-reading tools (`tools/k3_floor.py`, `tools/k5_passes.py`)
+and `chip_smoke.py`'s input and bound helpers, on the CPU.
+
+The tools build their variant kernels from copies of the port's CUDA
+sources, cut and pasted by text: these tests hold each cut against the
+sources as they stand (one launcher, the variant's kernel in place, no
+placeholder left), so an edit of a source that breaks a tool shows here
+and not first on the card. The helpers' arithmetic (the 32-byte sectors
+a gather reads, the path-shape inputs) is checked on small tensors."""
+import importlib.util
+import pathlib
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
+
+import chip_smoke
+from repro_torch.kernels import build
+from repro_torch.kernels.semijoin import ops as sj
+
+TOOLS = pathlib.Path(__file__).resolve().parents[1] / "tools"
+
+
+def _tool(name):
+    spec = importlib.util.spec_from_file_location(name, TOOLS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+K3_FLOOR = _tool("k3_floor")
+K5_PASSES = _tool("k5_passes")
+
+
+@pytest.mark.parametrize("name", sorted(K3_FLOOR.VARIANTS))
+def test_k3_floor_variant_sources(name):
+    """Each K3 variant: `bloom.cu` with one `bloom_probe`, which launches
+    the added `floor_kernel`, every placeholder filled, and K1-K7's own
+    kernels still in place."""
+    text = build.SOURCES["bloom"].read_text()
+    src = K3_FLOOR.replace_k3(text, K3_FLOOR.VARIANTS[name])
+    assert src.count("int bloom_probe(") == 1
+    launcher = src[src.index("int bloom_probe("):]
+    assert "floor_kernel<<<" in launcher.split("\n}\n")[0]
+    added = src[src.index("tools/k3_floor.py's variant of K3"):
+                src.index("// ORs the key with hash h into its block")]
+    for mark in ("ROWS", "PROBE\n", "LOAD(", "STORE;"):
+        assert mark not in added, mark
+    for kernel in ("multi_probe_kernel", "slice_build_kernel",
+                   "transfer_kernel", "__global__ void probe_kernel"):
+        assert kernel in src, kernel
+
+
+def test_k5_passes_source():
+    """The pass route: `semijoin.cu` with one `launch_probe`, which
+    launches `pass_kernel`, inside the anonymous namespace, and the force
+    entry points inside `extern "C"`."""
+    text = build.SOURCES["semijoin"].read_text()
+    src = K5_PASSES.pass_source(text)
+    assert src.count("int launch_probe(") == 1
+    launch = src[src.index("int launch_probe("):].split("\n}\n")[0]
+    assert "pass_kernel<kRows, Out, false><<<" in launch
+    assert src.index("pass_kernel(") < src.index("}  // namespace")
+    tail = src[src.index('extern "C" {'):]
+    for fn in ("int joinmap_lookup_force(", "int joinmap_lookup_passes("):
+        assert fn in tail, fn
+
+
+def test_gathered_sector_bytes():
+    """32 bytes for each 8-row sector of a 4-byte column that holds a row
+    read: the live rows themselves, or the rows their survivor ids name."""
+    live = torch.tensor([True, False, False, True] + [False] * 12 + [True])
+    assert chip_smoke.gathered_sector_bytes(torch, live, None, 17) == 64
+    idx = torch.tensor([0, 9, 17, 40, 41], dtype=torch.int32)
+    live = torch.tensor([True, True, False, True, True])
+    assert chip_smoke.gathered_sector_bytes(torch, live, idx, 48) == 96
+    assert chip_smoke.gathered_sector_bytes(
+        torch, torch.zeros(5, dtype=torch.bool), idx, 48) == 0
+
+
+def test_lookup_case_inputs():
+    """K5's cases: the path shape is 4,096 probes into 512 slots, one in
+    8 a miss; "SF 1 lineitem" is 6,001,215 probes of orders' keys, one in
+    8 outside the orders domain."""
+    keys, probe = chip_smoke.k5_path_keys(np)
+    assert len(probe) == 4096 and sj.capacity_for(len(keys)) == 512
+    assert np.isin(probe[1::8], keys).all()
+    assert not np.isin(probe[::8], keys).any()
+    rng = np.random.default_rng(1)
+    orders = rng.choice(6_000_000, chip_smoke.KEYS_ORDERS, replace=False)
+    probe = chip_smoke.sf1_lookup_probe(np, rng, orders)
+    assert len(probe) == 6_001_215
+    assert (probe[::8] >= 6_000_000).all()
+    assert (probe[1::8] < 6_000_000).all()
