@@ -120,10 +120,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              wrapped ring, at B 1 over 32,768 slots (Qwen1.5-4B's context
              length: 40 splits of 13 64-key tiles), minitron-4b's 24/8
              GQA at B 2, and d 64 with a window of 64 (31 of 33 tiles
-             skipped). A decode line must also lie within two bf16 ulps
+             skipped), then MLA's head sizes (deepseek-v2-lite-16b:
+             16 heads, q/k 192, v 128) at its serve shapes, prefill and
+             decode, each fresh and on a wrapped ring. A decode line must
+             also lie within two bf16 ulps
              of the largest output of each reference (`decode_limit`).
-             Each line's bound is the larger of 4*D flops per unmasked
-             (q, k) pair over 989 TFLOP/s and the bytes these inputs need
+             Each line's bound is the larger of 2*(D + Dv) flops per
+             unmasked (q, k) pair over 989 TFLOP/s and the bytes these
+             inputs need
              over 3.35 TB/s: q, o and the positions once, K at the kv
              slots some query row may see, V there too, or at every slot
              when some row sees none (it averages all of V); its library
@@ -151,11 +155,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              within the tolerance stated at `TF_MAX_ABS`; the greedy
              argmax agreement is reported. Last, one prefill and one
              decode step under torch.profiler (device busy share, top
-             device ops), outside every counted window.
+             device ops), outside every counted window;
+9. serve-deepseek — path `serve-deepseek`: the same for
+             deepseek-v2-lite-16b at its full config (27 layers, d_model
+             2048, MLA with 16 heads of q/k 192 and v 128, 64 routed
+             experts top-6 and 2 shared, the first layer dense; 15.7 B
+             parameters, 31.4 GB of bf16) at the same batch, prompt and
+             tokens, once qwen1.5-4b's model is freed and the peak
+             memory reset: K8 launches 27 times per prefill call and per
+             decode step (every layer is MLA) and K1-K7 never; the
+             teacher-forced check within `TF_MLA_MAX_ABS` and
+             `TF_MLA_MEAN_ABS`, and the share of (token, layer) routing
+             choices whose experts differ between the flash run and the
+             "auto" run (`route_differing_share`).
 f32 matmuls run with TF32 off (`torch.backends.cuda.matmul.allow_tf32 =
 False`) throughout, so the plain versions and oracles sum in f32.
 
-The line before the last is the kernel table
+The line before the last is the kernel table (K8's MLA shapes in rows
+of their own, `flash_prefill_mla` and `flash_decode_mla`, whose
+launches are path `serve-deepseek`'s)
 `{"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "plain_device", "bound_ms", "bound_by",
 "library_ms", "launches_by_path"}]}` (`plain_device` says where
@@ -204,6 +222,24 @@ SERVE = {"arch": "qwen1.5-4b", "config": "full", "batch": 4,
 #: position moves logits by their own scale (~1), far above them.
 TF_MAX_ABS = 0.25
 TF_MEAN_ABS = 0.04
+#: serve-deepseek: deepseek-v2-lite-16b at its published widths, the same
+#: batch, prompt and tokens as SERVE
+SERVE_MLA = {**SERVE, "arch": "deepseek-v2-lite-16b"}
+#: Its teacher-forced check. Under a routed MoE a rounding difference can
+#: flip a token's top-6 experts, a discrete jump that then cascades: on
+#: the CPU (`tools/tf_gap.py`, flash_plain, full width, batch 2, prompt
+#: 256, 6 steps) the dense run routing on its own lies max |d| 0.051 /
+#: 0.34 / 0.76 and mean 0.0084 / 0.055 / 0.114 from the flash run at 2 /
+#: 4 / 8 layers, with 5%, 8% and 14% of (token, layer) choices flipped:
+#: at 27 layers a wrong mask would hide in that. So the gated check gives
+#: the dense run the flash run's routing choices (`record_routes`'s
+#: replay), and the two then differ only where attention rounds: max
+#: 0.050 / 0.0625 / 0.078 and mean 0.0084 / 0.0107 / 0.0125 at 2 / 4 / 8
+#: layers, about 0.11 / 0.016 at 27 by the same growth a doubling; the
+#: bounds leave twice that, the same as qwen1.5-4b's. The run that routes
+#: on its own is reported, with its share of flipped choices.
+TF_MLA_MAX_ABS = 0.25
+TF_MLA_MEAN_ABS = 0.04
 #: the reference's bf16 tolerance for the flash kernel
 #: (tests/test_kernels_flash.py)
 FLASH_TOL = 2e-2
@@ -215,6 +251,14 @@ FLASH_TOL = 2e-2
 #: of their own scale, well past two ulps
 DECODE_ULPS = 2
 FLASH = ("flash_prefill", "flash_decode")
+#: the kernel table's rows of K8 at MLA's head sizes (launched as FLASH)
+FLASH_MLA = ("flash_prefill_mla", "flash_decode_mla")
+
+
+def launched(row: str) -> str:
+    """The launch counter a kernel-table row reads: an MLA row counts its
+    variant's launches (on its own path)."""
+    return row.removesuffix("_mla")
 #: TPC-H SF 1 shapes: lineitem's rows pad to the 2^23 bucket; filters are
 #: sized for the orders-sized (1.5 M) and lineitem-sized (6 M) key sets
 N_BIG, N_MID = 1 << 23, 1 << 21
@@ -1349,41 +1393,52 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
         return _ring_positions(index, cap, b, dev)
 
     ragged = torch.tensor([1024, 1000, 900, 700], device=dev)
-    cases = (  # name, b, sq, skv, h, kvh, d, causal, window, q_pos, kv
-        ("qwen1.5-4b prefill", 4, 2048, 2088, 20, 20, 128, True, None,
-         rows(4, 2048), ring(2048, 2088, 4)),
+    cases = (  # name, b, sq, skv, h, kvh, (d, dv), causal, window, q_pos, kv
+        ("qwen1.5-4b prefill", 4, 2048, 2088, 20, 20, (128, 128), True,
+         None, rows(4, 2048), ring(2048, 2088, 4)),
         # a chunk of 2048 after 1040 tokens: the ring has wrapped at slot
         # 1000, so kv_pos is not monotone
-        ("qwen1.5-4b prefill, ring wrapped", 4, 2048, 2088, 20, 20, 128,
-         True, None, rows(4, 2048, 1040), ring(3088, 2088, 4)),
-        ("qwen1.5-4b decode", 4, 1, 2088, 20, 20, 128, True, None,
+        ("qwen1.5-4b prefill, ring wrapped", 4, 2048, 2088, 20, 20,
+         (128, 128), True, None, rows(4, 2048, 1040), ring(3088, 2088, 4)),
+        ("qwen1.5-4b decode", 4, 1, 2088, 20, 20, (128, 128), True, None,
          rows(4, 1, 2080), ring(2081, 2088, 4)),
-        ("minitron-4b GQA 24/8 prefill", 2, 2048, 2088, 24, 8, 128, True,
-         None, rows(2, 2048), ring(2048, 2088, 2)),
-        ("d64 window 64 ragged", 4, 1024, 1024, 16, 16, 64, True, 64,
+        ("minitron-4b GQA 24/8 prefill", 2, 2048, 2088, 24, 8, (128, 128),
+         True, None, rows(2, 2048), ring(2048, 2088, 2)),
+        ("d64 window 64 ragged", 4, 1024, 1024, 16, 16, (64, 64), True, 64,
          rows(4, 1024), (rows(4, 1024), rows(4, 1024) < ragged[:, None])),
-        ("non-causal", 4, 1024, 1024, 16, 16, 128, False, None,
+        ("non-causal", 4, 1024, 1024, 16, 16, (128, 128), False, None,
          rows(4, 1024), (rows(4, 1024),
                          torch.ones(4, 1024, dtype=torch.bool, device=dev))),
         # decode after 3087 tokens: the ring has wrapped at slot 999
-        ("qwen1.5-4b decode, ring wrapped", 4, 1, 2088, 20, 20, 128, True,
-         None, rows(4, 1, 3087), ring(3088, 2088, 4)),
+        ("qwen1.5-4b decode, ring wrapped", 4, 1, 2088, 20, 20, (128, 128),
+         True, None, rows(4, 1, 3087), ring(3088, 2088, 4)),
         # hf:Qwen/Qwen1.5-4B's max_position_embeddings, one sequence
-        ("qwen1.5-4b decode, B 1, Skv 32768", 1, 1, 32768, 20, 20, 128,
-         True, None, rows(1, 1, 32767), ring(32768, 32768, 1)),
-        ("minitron-4b GQA 24/8 decode", 2, 1, 2088, 24, 8, 128, True, None,
-         rows(2, 1, 2080), ring(2081, 2088, 2)),
-        ("d64 window 64 decode", 4, 1, 2088, 16, 16, 64, True, 64,
+        ("qwen1.5-4b decode, B 1, Skv 32768", 1, 1, 32768, 20, 20,
+         (128, 128), True, None, rows(1, 1, 32767), ring(32768, 32768, 1)),
+        ("minitron-4b GQA 24/8 decode", 2, 1, 2088, 24, 8, (128, 128), True,
+         None, rows(2, 1, 2080), ring(2081, 2088, 2)),
+        ("d64 window 64 decode", 4, 1, 2088, 16, 16, (64, 64), True, 64,
          rows(4, 1, 2087), ring(2088, 2088, 4)),
+        # MLA (deepseek-v2-lite-16b): 16 heads of q/k 192 (128 + 64 RoPE
+        # dims) and v 128, the serve path's shapes, fresh and wrapped
+        ("deepseek-v2-lite prefill", 4, 2048, 2088, 16, 16, (192, 128),
+         True, None, rows(4, 2048), ring(2048, 2088, 4)),
+        ("deepseek-v2-lite prefill, ring wrapped", 4, 2048, 2088, 16, 16,
+         (192, 128), True, None, rows(4, 2048, 1040), ring(3088, 2088, 4)),
+        ("deepseek-v2-lite decode", 4, 1, 2088, 16, 16, (192, 128), True,
+         None, rows(4, 1, 2080), ring(2081, 2088, 4)),
+        ("deepseek-v2-lite decode, ring wrapped", 4, 1, 2088, 16, 16,
+         (192, 128), True, None, rows(4, 1, 3087), ring(3088, 2088, 4)),
     )
-    worst = dict.fromkeys(FLASH, 0.0)
+    worst = dict.fromkeys(FLASH + FLASH_MLA, 0.0)
     rep = {}
-    for name, b, sq, skv, h, kvh, d, causal, window, qp, (kp, kval) in cases:
+    for name, b, sq, skv, h, kvh, (d, dv), causal, window, qp, (kp, kval) \
+            in cases:
         def randn(*shape):
             return torch.randn(shape, generator=gen, device=dev).to(
                 torch.bfloat16)
         q, k, v = randn(b, sq, h, d), randn(b, skv, kvh, d), \
-            randn(b, skv, kvh, d)
+            randn(b, skv, kvh, dv)
         args = (q, k, v, qp, kp, kval)
         kw = {"causal": causal, "window": window}
         got = fa.flash_attention(*args, **kw)
@@ -1406,18 +1461,19 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
                       f"K8 {name} differs from {ref_name} by "
                       f"{errs[ref_name]}, over {limits[ref_name]}")
         variant = "flash_decode" if sq == 1 else "flash_prefill"
-        worst[variant] = max(worst[variant], errs["flash_plain"])
-        # the work these inputs need: 4*d flops per unmasked (q, k) pair;
-        # q, o and the positions moved once, K (at KVH heads) at the slots
-        # some row may see, V there too or, when some row sees no key (it
-        # averages V over every slot), at every slot
+        row = variant + ("_mla" if dv != d else "")
+        worst[row] = max(worst[row], errs["flash_plain"])
+        # the work these inputs need: 2*(d + dv) flops per unmasked (q, k)
+        # pair; q, o and the positions moved once, K (at KVH heads) at the
+        # slots some row may see, V there too or, when some row sees no key
+        # (it averages V over every slot), at every slot
         allowed = attend_mask(qp, kp, kval, **kw)
         pairs = int(allowed.sum()) * h
-        flops = 4 * d * pairs
+        flops = 2 * (d + dv) * pairs
         seen = allowed.any(dim=1)
         v_rows = seen | (~allowed.any(dim=2)).any(dim=1)[:, None]
-        nbytes = 2 * 2 * q.numel() + 2 * kvh * d * int(
-            seen.sum() + v_rows.sum()) \
+        nbytes = 2 * q.numel() + 2 * got.numel() + 2 * kvh * (
+            d * int(seen.sum()) + dv * int(v_rows.sum())) \
             + 4 * qp.numel() + 4 * kp.numel() + kval.numel()
         t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1428,7 +1484,7 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
                 qt, kt, vt, attn_mask=mask, enable_gqa=h != kvh)
         rec = {"phase": "attention", "kernel": variant, "case": name,
                "shape": {"B": b, "Sq": sq, "Skv": skv, "H": h, "KVH": kvh,
-                         "D": d},
+                         "D": d, "Dv": dv},
                "causal": causal, "window": window,
                "unmasked_pairs": pairs, "flops": flops, "bytes": nbytes,
                "ms": cuda_ms(torch, lambda: fa.flash_attention(*args, **kw),
@@ -1451,57 +1507,154 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
                "max_abs_err_sdpa_ref": errs["sdpa_ref"], "tol": FLASH_TOL}
         if variant == "flash_prefill":
             rec["device_tflops"] = flops / (rec["device_ms"] * 1e-3) / 1e12
-            rec["ptxas"] = ptxas_usage(ptxas_log, f"prefill_kernelILi{d}E")
-            rec["smem_bytes"] = fa.prefill_smem_bytes(d)
+            rec["ptxas"] = ptxas_usage(ptxas_log,
+                                       f"prefill_kernelILi{d}ELi{dv}E")
+            rec["smem_bytes"] = fa.prefill_smem_bytes(d, dv)
         else:
             rec["device_gb_s"] = nbytes / (rec["device_ms"] * 1e-3) / 1e9
             rec["decode_limit"] = limits
             group = min(g for g in (1, 2, 4, 8, fa.MAX_GROUP) if g >= rep_kv)
             rec["ptxas"] = ptxas_usage(
-                ptxas_log, f"decode_kernelILi{d}ELi{group}E")
+                ptxas_log, f"decode_kernelILi{d}ELi{dv}ELi{group}E")
         emit(rec)
-        if name in ("qwen1.5-4b prefill", "qwen1.5-4b decode"):
-            rep[variant] = rec
+        if name in ("qwen1.5-4b prefill", "qwen1.5-4b decode",
+                    "deepseek-v2-lite prefill", "deepseek-v2-lite decode"):
+            rep[row] = rec
     return rep, worst
 
 
-def serve_phase(torch, kb, sj, fa) -> dict:
-    """Path `serve`: qwen1.5-4b at full width through the serving
-    launcher, K8's launches counted and checked, then the teacher-forced
-    check against dense attention and a profile. Returns the path's
-    launch counts."""
+def record_routes(L, replay=None) -> tuple:
+    """Wrap `layers.moe_route` so that each call's `Route` is kept in call
+    order; with `replay` (the routes of an earlier run on the same tokens,
+    in call order) each call returns the next of those instead of its own
+    choice. Returns (the kept routes, a function that takes the wrapper
+    off)."""
+    seen, inner = [], L.moe_route
+    queue = iter(replay) if replay is not None else None
+
+    def wrapped(router, h, m, s):
+        route = inner(router, h, m, s) if queue is None else next(queue)
+        seen.append(route)
+        return route
+    L.moe_route = wrapped
+    return seen, lambda: setattr(L, "moe_route", inner)
+
+
+def route_differences(a: list, b: list) -> tuple:
+    """(token, layer) routing choices whose sets of experts differ between
+    two runs' recorded routes, and all choices compared."""
+    differ = total = 0
+    for x, y in zip(a, b):
+        differ += int((x.top_e.sort(-1).values != y.top_e.sort(-1).values)
+                      .any(-1).sum())
+        total += x.top_e.shape[0]
+    return differ, total
+
+
+def teacher_forced_gap(torch, L, fa, serve, res, routes=None,
+                       replay: bool = False) -> dict:
+    """The greedy run `res` (from `serve.serve` or `serve.generate` on the
+    flash backend) against the same model fed the same tokens with dense
+    attention ("auto", no K8 launch): each logit row's max and mean |d|
+    and argmax agreement. For a MoE model, given the flash run's recorded
+    `routes` (`record_routes`; its last pass is the one compared): with
+    `replay` the dense run takes the flash run's routing choices, so the
+    two differ only where attention rounds; without, it routes on its own
+    and the share of (token, layer) routing choices that differ is
+    reported."""
+    from repro_torch.models.common import moe_layer_indices
+    model, params, prompt = res["model"], res["params"], res["prompt"]
+    g = res["tokens"].shape[1] - 1
+    mine = None
+    if routes is not None:
+        calls = len(moe_layer_indices(model.cfg)) * (g + 1)
+        mine = routes[-calls:]
+    L.set_attention_backend("auto")
+    fa.reset_launches()
+    seen, restore = record_routes(L, mine if replay else None) \
+        if mine is not None else ([], None)
+    try:
+        tf = serve.generate(model, params, prompt, g, res["cap"],
+                            forced=res["tokens"])
+    finally:
+        L.set_attention_backend("flash")
+        if restore:
+            restore()
+    check(sum(fa.LAUNCHES.values()) == 0, "the auto backend launched K8")
+    steps = []
+    for i, (a, r) in enumerate(zip(res["logits"], tf["logits"])):
+        diff = (a - r).abs()
+        steps.append({"step": i, "max_abs": float(diff.max()),
+                      "mean_abs": float(diff.mean()),
+                      "argmax_equal": int((a.argmax(-1) == r.argmax(-1))
+                                          .sum())})
+    out = {"max_abs": max(x["max_abs"] for x in steps),
+           "mean_abs": max(x["mean_abs"] for x in steps),
+           "argmax_agreement": sum(x["argmax_equal"] for x in steps)
+           / (prompt.shape[0] * len(steps)),
+           "auto_prefill_seconds": tf["prefill_seconds"],
+           "auto_decode_ms_per_token": tf["decode_seconds"] / g * 1e3,
+           "steps": steps}
+    if mine is not None:
+        check(len(seen) == len(mine), "the dense run routed another number "
+              "of times than the flash run")
+        differ, total = route_differences(mine, seen)
+        out.update(routes_replayed=replay, route_choices=total,
+                   route_choices_differing=differ,
+                   route_differing_share=differ / max(total, 1))
+    return out
+
+
+def serve_phase(torch, kb, sj, fa, path: str, spec: dict,
+                tol: tuple) -> dict:
+    """Path `path`: the model of `spec` at full width through the serving
+    launcher, K8's launches counted and checked (one a layer per prefill
+    call and per decode step, K1-K7 none), then the teacher-forced check
+    against dense attention within `tol` (max |d|, mean |d|), and a
+    profile. For a MoE model the routing choices are recorded in both runs
+    and the share that differs is reported. Returns the path's launch
+    counts."""
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch import serve
     from repro_torch.models import layers as L
     from repro_torch.models.model import Batch
+    torch.cuda.empty_cache()
+    moe = (get_config if spec["config"] == "full" else get_smoke_config)(
+        spec["arch"]).moe is not None
+    routes, restore = record_routes(L) if moe else (None, None)
     kb.reset_launches()             # the path's counts start at 0 here
     sj.reset_launches()
     fa.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = serve.serve(**SERVE, device="cuda")
+    try:
+        res = serve.serve(**spec, device="cuda")
+    finally:
+        if restore:
+            restore()
     seconds = time.perf_counter() - t0
     counts = {**kb.LAUNCHES, **sj.LAUNCHES, **fa.LAUNCHES}  # just after
     peak = torch.cuda.max_memory_allocated()
 
     model, params, prompt = res["model"], res["params"], res["prompt"]
-    b, s, g = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_tokens"]
+    b, s, g = spec["batch"], spec["prompt_len"], spec["gen_tokens"]
     n_layers = res["cfg"].n_layers
     runs = len(res["passes"])
     want = {"flash_prefill": n_layers * runs,
             "flash_decode": n_layers * g * runs}
     for name, n in counts.items():
         check(n == want.get(name, 0),
-              f"serve launched {name} {n} times, expected "
+              f"{path} launched {name} {n} times, expected "
               f"{want.get(name, 0)}")
     vocab = res["cfg"].vocab_size
     check(tuple(res["tokens"].shape) == (b, g + 1)
           and int(res["tokens"].min()) >= 0
-          and int(res["tokens"].max()) < vocab, "serve: bad tokens")
+          and int(res["tokens"].max()) < vocab, f"{path}: bad tokens")
     for lg in res["logits"]:
         check(tuple(lg.shape) == (b, vocab)
-              and bool(torch.isfinite(lg).all()), "serve: bad logits")
+              and bool(torch.isfinite(lg).all()), f"{path}: bad logits")
     t_pre, t_dec = res["prefill_seconds"], res["decode_seconds"]
-    emit({"phase": "serve", "arch": SERVE["arch"],
+    emit({"phase": "serve", "path": path, "arch": spec["arch"],
           "config": res["cfg"].name, "params": res["cfg"].param_count(),
           "batch": b, "prompt_len": s, "gen_tokens": g, "cap": res["cap"],
           "passes_seconds": res["passes"], "seconds": seconds,
@@ -1511,34 +1664,22 @@ def serve_phase(torch, kb, sj, fa) -> dict:
           "launches": counts, "launches_expected": want,
           "sample": res["tokens"][0, :12].tolist()})
 
-    # the check: the greedy tokens through dense attention
-    L.set_attention_backend("auto")
-    fa.reset_launches()
-    try:
-        tf = serve.generate(model, params, prompt, g, res["cap"],
-                            forced=res["tokens"])
-    finally:
-        L.set_attention_backend("flash")
-    check(sum(fa.LAUNCHES.values()) == 0, "the auto backend launched K8")
-    steps = []
-    for i, (a, r) in enumerate(zip(res["logits"], tf["logits"])):
-        diff = (a - r).abs()
-        steps.append({"step": i, "max_abs": float(diff.max()),
-                      "mean_abs": float(diff.mean()),
-                      "argmax_equal": int((a.argmax(-1) == r.argmax(-1))
-                                          .sum())})
-    agree = sum(x["argmax_equal"] for x in steps)
-    emit({"phase": "serve", "check": "teacher-forced vs auto",
-          "max_abs": max(x["max_abs"] for x in steps),
-          "mean_abs": max(x["mean_abs"] for x in steps),
-          "tol_max_abs": TF_MAX_ABS, "tol_mean_abs": TF_MEAN_ABS,
-          "argmax_agreement": agree / (b * len(steps)),
-          "auto_prefill_seconds": tf["prefill_seconds"],
-          "auto_decode_ms_per_token": tf["decode_seconds"] / g * 1e3,
-          "steps": steps})
-    for x in steps:
-        check(x["max_abs"] <= TF_MAX_ABS and x["mean_abs"] <= TF_MEAN_ABS,
-              f"serve step {x['step']}: flash vs auto logits differ by "
+    # the check: the greedy tokens through dense attention; a MoE model's
+    # dense run takes the flash run's routing choices (a flipped choice is
+    # a discrete jump, not attention's rounding), after a run that routes
+    # on its own, reported only, for the share of choices that flip
+    if moe:
+        free = teacher_forced_gap(torch, L, fa, serve, res, routes)
+        free.pop("steps")
+        emit({"phase": "serve", "path": path,
+              "check": "teacher-forced vs auto, own routing (reported)",
+              **free})
+    gap = teacher_forced_gap(torch, L, fa, serve, res, routes, replay=moe)
+    emit({"phase": "serve", "path": path, "check": "teacher-forced vs auto",
+          "tol_max_abs": tol[0], "tol_mean_abs": tol[1], **gap})
+    for x in gap["steps"]:
+        check(x["max_abs"] <= tol[0] and x["mean_abs"] <= tol[1],
+              f"{path} step {x['step']}: flash vs auto logits differ by "
               f"{x['max_abs']} (mean {x['mean_abs']})")
 
     # one prefill and one decode step under the profiler, uncounted
@@ -1553,7 +1694,7 @@ def serve_phase(torch, kb, sj, fa) -> dict:
         tok = state["logits"][:, -1].argmax(-1)[:, None]
         model.decode_step(params, tok, state["caches"], s)
     for step, fn in (("prefill", prefill), ("decode", decode)):
-        emit({"phase": "profile", "path": "serve", "step": step,
+        emit({"phase": "profile", "path": path, "step": step,
               **device_profile(torch, fn)})
     return counts
 
@@ -1629,7 +1770,11 @@ def main() -> int:
                                    info.get("flashattn", (0.0, ""))[1])
     rep.update(arep)
     worst.update(aworst)
-    counts["serve"] = serve_phase(torch, kb, sj, fa)
+    counts["serve"] = serve_phase(torch, kb, sj, fa, "serve", SERVE,
+                                  (TF_MAX_ABS, TF_MEAN_ABS))
+    counts["serve-deepseek"] = serve_phase(
+        torch, kb, sj, fa, "serve-deepseek", SERVE_MLA,
+        (TF_MLA_MAX_ABS, TF_MLA_MEAN_ABS))
 
     bloom_cu = "src/repro_torch/kernels/bloom/csrc/bloom.cu"
     semijoin_cu = "src/repro_torch/kernels/semijoin/csrc/semijoin.cu"
@@ -1663,11 +1808,18 @@ def main() -> int:
         "flash_decode": (flash_cu,
                          "src/repro/kernels/flashattn/flashattn.py:79",
                          "serve"),
+        "flash_prefill_mla": (flash_cu,
+                              "src/repro/kernels/flashattn/flashattn.py:79",
+                              "serve-deepseek"),
+        "flash_decode_mla": (flash_cu,
+                             "src/repro/kernels/flashattn/flashattn.py:79",
+                             "serve-deepseek"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,
-         "replaces": replaces, "launches": counts[path][name],
-         "launches_by_path": {p: c[name] for p, c in counts.items()},
+         "replaces": replaces, "launches": counts[path][launched(name)],
+         "launches_by_path": {p: c[launched(name)]
+                              for p, c in counts.items()},
          "max_abs_err": worst[name], "ms": rep[name]["ms"],
          "plain_ms": rep[name]["plain_ms"],
          "plain_device": rep[name]["plain_device"],

@@ -18,7 +18,12 @@
 //   o / max(l, 1e-30), rounded to q's dtype.
 // What differs from the TPU kernel's blocks, on purpose:
 //   * q, k, v are read in the model's [B, S, H, D] layout through strides
-//     and o is written as [B, Sq, H, D]: no folded [B*H, S, D] copies;
+//     and o is written as [B, Sq, H, DV]: no folded [B*H, S, D] copies;
+//   * v's head size DV may be below q and k's DK: MLA (deepseek-v2) folds
+//     [q_nope; q_rope] into DK = 128 + 64 = 192 with DV = 128, where the
+//     reference pads v with zeros to 192 and slices o back to 128. Both
+//     variants are templates on (DK, DV), compiled for (64, 64),
+//     (128, 128) and (192, 128); the scale stays 1/sqrt(DK);
 //   * GQA: query head h reads kv head h / (H / KVH), which is what the
 //     reference's jnp.repeat(k, H / KVH, axis=2) gives, without the copy;
 //   * nothing is padded to 128: keys past Skv take no part at all (their
@@ -28,14 +33,15 @@
 //     length instead).
 //
 // Bound on this card (the H100 SXM's published peaks, which assume its
-// 700 W limit): prefill is bound by operations (4*D flops per unmasked
-// (q, k) pair over 989 TFLOP/s bf16: qwen1.5-4b's prompt of 2048, causal,
-// 80 heads, is 0.087 ms), decode by bytes (each K and V row read once:
-// 85.5 MB a layer at batch 4 and a 2088-slot cache, 0.026 ms at
-// 3.35 TB/s).
+// 700 W limit): prefill is bound by operations (2 * (DK + DV) flops per
+// unmasked (q, k) pair over 989 TFLOP/s bf16: qwen1.5-4b's prompt of
+// 2048, causal, 80 heads, is 0.087 ms, and deepseek-v2-lite's at 64 heads
+// of (192, 128) the same), decode by bytes (each K and V row read once:
+// 85.5 MB a layer at batch 4 and a 2088-slot cache for either model,
+// 0.026 ms at 3.35 TB/s).
 //
-// Design of the prefill variant, prefill_kernel<D>, for the tensor cores
-// that bound it:
+// Design of the prefill variant, prefill_kernel<DK, DV>, for the tensor
+// cores that bound it:
 //   * one CTA of three warpgroups per (q-tile of 128 rows, head, batch),
 //     the heaviest q-tiles first (under a causal mask the last rows see
 //     most keys, so they start in the first wave and light tiles fill the
@@ -49,11 +55,14 @@
 //     past Sq or Skv arrive as zeros. K and V tiles of 128 keys pass
 //     through a ring of 2 stages with full and empty mbarriers, so the
 //     next tile loads while the consumers work: 160 KB of shared memory
-//     at D 128, one CTA per SM.
+//     at (128, 128), 208 KB at (192, 128) (q and k tiles of three
+//     64-column blocks, v of two), one CTA per SM.
 //   * S = Q K^T is wgmma m64n128k16 with both operands K-major in shared
-//     memory; O += P V is wgmma m64nDk16 with P in registers (the S
-//     accumulators, rounded to bf16, are already its A fragment) and V
-//     read as the MN-major B operand, so no copy of V is transposed.
+//     memory, DK / 16 steps; O += P V is wgmma m64nDVk16 with P in
+//     registers (the S accumulators, rounded to bf16, are already its A
+//     fragment) and V read as the MN-major B operand, so no copy of V is
+//     transposed. The registers a consumer holds (S and O) depend on DV
+//     only, so (192, 128) keeps (128, 128)'s budget.
 //   * masked tiles are skipped: before it loads a tile the producer reads
 //     the tile's positions and validity and drops it when no row of the
 //     CTA may see any of its keys (tile_state compares the rows' position
@@ -72,8 +81,9 @@
 //     PV in turn, so the tensor cores idle through its softmax unless the
 //     other warpgroup fills the gap; no ping-pong schedule and no overlap
 //     of one tile's softmax with the next tile's QK^T.
-// Design of the decode variant, decode_kernel<D, R> (R: the query heads of
-// a kv head, rounded up to 1, 2, 4, 8 or 16), for the bytes that bound it:
+// Design of the decode variant, decode_kernel<DK, DV, R> (R: the query
+// heads of a kv head, rounded up to 1, 2, 4, 8 or 16), for the bytes that
+// bound it:
 //   * a split over the cache: the cache is cut into tiles of kTile = 64
 //     slots and the grid is (splits, KVH, B), each CTA walking `tps`
 //     consecutive tiles for all H / KVH query heads of its group, so each
@@ -91,15 +101,16 @@
 //     copies through the caller's strides (stacked and strided cache
 //     views); tile i + 1 loads while tile i is computed, so only the
 //     first load and the epilogue are exposed. 69 KB of shared memory at
-//     D 128 and a group of 1: 3 CTAs and up to 200 KB an SM.
+//     (128, 128) and a group of 1: 3 CTAs and up to 200 KB an SM; 84 KB
+//     at (192, 128): 2 CTAs an SM.
 //   * a tile's softmax in two passes, not a chain per key: first every
 //     key's score for each head of the group (256 threads, a key and a
-//     quarter of D each, from shared memory; K rows padded by 16 bytes, so
-//     a warp's 16-byte reads hit no bank twice), then a warp per head
+//     quarter of DK each, from shared memory; K rows padded by 16 bytes,
+//     so a warp's 16-byte reads hit no bank twice), then a warp per head
 //     takes the tile's max once and p = exp(s - m) into the running sum,
-//     rounded to bf16 for P.V, which 256 threads share out by d pair and
-//     key slice. Across the split's tiles the running max and sum move on
-//     as in the prefill (alpha = exp(m_old - m_new)).
+//     rounded to bf16 for P.V, which 256 threads share out by pair of DV
+//     columns and key slice. Across the split's tiles the running max and
+//     sum move on as in the prefill (alpha = exp(m_old - m_new)).
 //   * the merge in the same launch: each CTA writes (m, l, o) in f32 to the
 //     scratch, fences, and takes a ticket on its group's int32 counter;
 //     the CTA that draws the last ticket merges the group's records, writes
@@ -117,8 +128,9 @@
 //     merging CTA writes the mean of V over the Skv keys, as ref.sdpa_ref
 //     gives.
 //   * bound: bytes, each K and V row of a live tile read once (85.5 MB a
-//     layer at the qwen shape, 0.026 ms at 3.35 TB/s); its 4 * D flops a
-//     head and key run on CUDA cores in a small share of that time.
+//     layer at the qwen shape, 0.026 ms at 3.35 TB/s); its 2 * (DK + DV)
+//     flops a head and key run on CUDA cores in a small share of that
+//     time.
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_bf16.h>
@@ -340,10 +352,10 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
 }
 
 
-template <int D>
+template <int DV>
 __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
                                          uint64_t db) {
-  if constexpr (D == 128)
+  if constexpr (DV == 128)
     wgmma_rs_n128(o, a, db, 1);
   else
     wgmma_rs_n64(o, a, db, 1);
@@ -364,24 +376,26 @@ struct TileMeta {     // what the producer learned of one kv tile
   int state;          // kMasked or kFull
 };
 
-template <int D>
+template <int DK, int DV>
 struct Smem {         // dynamic shared memory, 1024-byte aligned
-  static constexpr int kNB = D / 64;  // 64-column (128-byte) blocks
-  static constexpr int kTileBytes = kNB * kBlockBytes;
-  uint8_t q[kTileBytes];
-  uint8_t k[kStages][kTileBytes];
-  uint8_t v[kStages][kTileBytes];
+  static constexpr int kNBK = DK / 64;  // 64-column (128-byte) blocks
+  static constexpr int kNBV = DV / 64;
+  static constexpr int kKBytes = kNBK * kBlockBytes;  // a q or k tile
+  static constexpr int kVBytes = kNBV * kBlockBytes;
+  uint8_t q[kKBytes];
+  uint8_t k[kStages][kKBytes];
+  uint8_t v[kStages][kVBytes];
   TileMeta meta[kStages];
   uint64_t q_full, full[kStages], empty[kStages];
   int rmin, rmax, redo;
 };
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kPrefillThreads, 1)
     prefill_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const Args a) {
-  using S = Smem<D>;
+  using S = Smem<DK, DV>;
   extern __shared__ uint8_t smem_raw[];
   S& sm = *reinterpret_cast<S*>(
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
@@ -424,8 +438,8 @@ __global__ void __launch_bounds__(kPrefillThreads, 1)
     const int rmin = sm.rmin, rmax = sm.rmax;
     if (lane == 0) {
       uint32_t bar = smem_u32(&sm.q_full);
-      mbar_expect_tx(bar, S::kTileBytes);
-      for (int j = 0; j < S::kNB; ++j)
+      mbar_expect_tx(bar, S::kKBytes);
+      for (int j = 0; j < S::kNBK; ++j)
         tma_load_4d(smem_u32(sm.q + j * kBlockBytes), &tq, bar, j * 64, h, q0,
                     b);
     }
@@ -480,13 +494,13 @@ __global__ void __launch_bounds__(kPrefillThreads, 1)
           if (end) {
             mbar_arrive(bar);
           } else {
-            mbar_expect_tx(bar, 2 * S::kTileBytes);
-            for (int j = 0; j < S::kNB; ++j) {
+            mbar_expect_tx(bar, S::kKBytes + S::kVBytes);
+            for (int j = 0; j < S::kNBK; ++j)
               tma_load_4d(smem_u32(sm.k[stage] + j * kBlockBytes), &tk, bar,
                           j * 64, kvh, t * kBN, b);
+            for (int j = 0; j < S::kNBV; ++j)
               tma_load_4d(smem_u32(sm.v[stage] + j * kBlockBytes), &tv, bar,
                           j * 64, kvh, t * kBN, b);
-            }
           }
         }
         if (++stage == kStages) stage = 0, phase ^= 1;
@@ -507,14 +521,14 @@ __global__ void __launch_bounds__(kPrefillThreads, 1)
     const float scale2 = a.scale * 1.4426950408889634f;  // log2 domain
     const uint32_t q_base = smem_u32(sm.q) + cw * 64 * 128;
 
-    float o[D / 2];
+    float o[DV / 2];
     float s[kBN / 2];
     float m0, m1, l0, l1;
     int stage = 0, phase = 0;
     mbar_wait(smem_u32(&sm.q_full), 0);
     for (int pass = 0; pass < 2; ++pass) {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
       m0 = m1 = kNeg;
       l0 = l1 = 0.f;
       for (;;) {
@@ -522,11 +536,11 @@ __global__ void __launch_bounds__(kPrefillThreads, 1)
         const TileMeta& meta = sm.meta[stage];
         const int tile = meta.tile, state = meta.state;
         if (tile >= 0) {
-          // S = Q K^T over D in steps of 16
+          // S = Q K^T over DK in steps of 16
           const uint32_t k_base = smem_u32(sm.k[stage]);
           wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk) {
+          for (int kk = 0; kk < DK / 16; ++kk) {
             uint32_t off = (kk / 4) * kBlockBytes + (kk % 4) * 32;
             wgmma_ss_n128(s, sw128_desc(q_base + off, 16, 1024),
                           sw128_desc(k_base + off, 16, 1024), kk > 0);
@@ -585,7 +599,7 @@ __global__ void __launch_bounds__(kPrefillThreads, 1)
           l0 = l0 * al0 + rs0;
           l1 = l1 * al1 + rs1;
 #pragma unroll
-          for (int j = 0; j < D / 8; ++j) {
+          for (int j = 0; j < DV / 8; ++j) {
             o[4 * j] *= al0;
             o[4 * j + 1] *= al0;
             o[4 * j + 2] *= al1;
@@ -594,14 +608,14 @@ __global__ void __launch_bounds__(kPrefillThreads, 1)
 
           // O += P V: V [keys][d] is the MN-major B operand, 16 keys a step
           const uint32_t v_base = smem_u32(sm.v[stage]);
-          reg_fence<D / 2>(o);
+          reg_fence<DV / 2>(o);
           wgmma_fence();
 #pragma unroll
           for (int kc = 0; kc < kBN / 16; ++kc)
-            wgmma_pv<D>(o, pf[kc],
-                        sw128_desc(v_base + kc * 16 * 128, kBlockBytes, 1024));
+            wgmma_pv<DV>(o, pf[kc],
+                         sw128_desc(v_base + kc * 16 * 128, kBlockBytes, 1024));
           wgmma_commit_wait();
-          reg_fence<D / 2>(o);
+          reg_fence<DV / 2>(o);
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(smem_u32(&sm.empty[stage]));
@@ -617,7 +631,7 @@ __global__ void __launch_bounds__(kPrefillThreads, 1)
     const float L0 = fmaxf(l0, 1e-30f), L1 = fmaxf(l1, 1e-30f);
     __nv_bfloat16* ob = a.o + b * a.o_b + h * a.o_h;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       int col = 8 * j + 2 * t4;
       if (qr0 < a.Sq)
         *reinterpret_cast<__nv_bfloat162*>(ob + (long long)qr0 * a.o_s + col) =
@@ -655,15 +669,15 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // One split's partial softmax state for the group's `rep` query heads, in
-// the scratch at [B * KVH][splits][rep * (D + 2)] f32: m[rep], l[rep],
-// o[rep][D] (o unnormalised). A split with no allowed key writes only
+// the scratch at [B * KVH][splits][rep * (DV + 2)] f32: m[rep], l[rep],
+// o[rep][DV] (o unnormalised). A split with no allowed key writes only
 // m = -inf (kNeg is finite, so a live split's m is always above it).
-template <int D>
+template <int DV>
 __device__ __forceinline__ float* decode_record(const Args& a, float* part,
                                                 int rep, int split, int kvh,
                                                 int b) {
   const long long g = (long long)b * a.KVH + kvh;
-  return part + (g * gridDim.x + split) * rep * (D + 2);
+  return part + (g * gridDim.x + split) * rep * (DV + 2);
 }
 
 // Run by every thread of a decode CTA once its record is written: the CTA
@@ -674,7 +688,7 @@ __device__ __forceinline__ float* decode_record(const Args& a, float* part,
 // has no allowed key, and p = exp(NEG - NEG) = 1 for every key makes it
 // the mean of V over the Skv keys. The last CTA sets the counter back to
 // 0 for the next call on the stream.
-template <int D>
+template <int DV>
 __device__ void decode_finish(const Args& a, float* part, int* tickets,
                               int rep, int kvh, int b) {
   __shared__ int ticket;
@@ -688,8 +702,8 @@ __device__ void decode_finish(const Args& a, float* part, int* tickets,
   if (ticket != splits - 1) return;
   __threadfence();
   if (threadIdx.x == 0) tickets[g] = 0;
-  const int rec = rep * (D + 2);
-  const float* pg = decode_record<D>(a, part, rep, 0, kvh, b);
+  const int rec = rep * (DV + 2);
+  const float* pg = decode_record<DV>(a, part, rep, 0, kvh, b);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
   for (int r = warp; r < rep; r += nwarps) {
@@ -702,8 +716,8 @@ __device__ void decode_finish(const Args& a, float* part, int* tickets,
     if (lane == 0) big[r] = mx;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < rep * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
+  for (int i = threadIdx.x; i < rep * DV; i += blockDim.x) {
+    const int r = i / DV, d = i % DV;
     const float M = big[r];
     float out;
     if (M == -INFINITY) {
@@ -742,41 +756,44 @@ __device__ void decode_finish(const Args& a, float* part, int* tickets,
 // Dynamic shared memory of one decode CTA: two stages of a K tile (rows
 // padded by 16 bytes) and a V tile, the group's q in f32, the quarter dot
 // products of a tile's scores and its p.
-__host__ __device__ constexpr size_t decode_stage_bytes(int D) {
-  return 2 * (size_t)kTile * (D + 8) + 2 * (size_t)kTile * D;
+__host__ __device__ constexpr size_t decode_stage_bytes(int DK, int DV) {
+  return 2 * (size_t)kTile * (DK + 8) + 2 * (size_t)kTile * DV;
 }
-__host__ __device__ constexpr size_t decode_smem(int D, int rep) {
-  return 2 * decode_stage_bytes(D) + 4 * (size_t)rep * D +
+__host__ __device__ constexpr size_t decode_smem(int DK, int DV, int rep) {
+  return 2 * decode_stage_bytes(DK, DV) + 4 * (size_t)rep * DK +
          4 * 4 * (size_t)rep * kTile + 4 * (size_t)rep * kTile;
 }
 
-template <int D, int R>
+template <int DK, int DV, int R>
 __global__ void __launch_bounds__(kDecodeThreads, R <= 4 ? 3 : 2)
     decode_kernel(const Args a, int tps, float* part, int* tickets) {
-  constexpr int KROW = D + 8;  // K row in shared memory: 16 bytes of pad
-                               // keep the score pass free of bank conflicts
-  constexpr int CPR = D / 8;   // 16-byte pieces a row
-  constexpr int QPR = CPR / 4;                  // pieces of a quarter row
-  constexpr int NS = kDecodeThreads / (D / 2);  // key slices of P.V
+  constexpr int KROW = DK + 8;  // K row in shared memory: 16 bytes of pad
+                                // keep the score pass free of bank conflicts
+  constexpr int CPK = DK / 8;   // 16-byte pieces of a K row
+  constexpr int CPV = DV / 8;   // and of a V row
+  constexpr int QPR = CPK / 4;  // pieces of a quarter K row
+  constexpr int NS = kDecodeThreads / (DV / 2);  // key slices of P.V
+  static_assert(CPK % 4 == 0 && kDecodeThreads % (DV / 2) == 0,
+                "a quarter K row and P.V's key slices must be whole");
   constexpr int KBYTES = 2 * kTile * KROW;
-  constexpr int STAGE = (int)decode_stage_bytes(D);
+  constexpr int STAGE = (int)decode_stage_bytes(DK, DV);
   extern __shared__ __align__(16) uint8_t dsm[];
   __shared__ unsigned long long bits[kMaxSplitTiles];  // allowed keys
   __shared__ int live[kMaxSplitTiles];  // the split's live tiles, in order
   __shared__ int nlive;
   __shared__ float m_s[kMaxGroup], l_s[kMaxGroup], al_s[kMaxGroup];
   const int rep = a.H / a.KVH;
-  float* q_s = reinterpret_cast<float*>(dsm + 2 * STAGE);  // [rep][D]
-  float* sq_s = q_s + rep * D;           // [4][rep][kTile] quarter dots
+  float* q_s = reinterpret_cast<float*>(dsm + 2 * STAGE);  // [rep][DK]
+  float* sq_s = q_s + rep * DK;          // [4][rep][kTile] quarter dots
   float* p_s = sq_s + 4 * rep * kTile;   // [rep][kTile]
-  float* red = reinterpret_cast<float*>(dsm);  // [NS][rep][D], over the
+  float* red = reinterpret_cast<float*>(dsm);  // [NS][rep][DV], over the
                                                // stages at the end
 
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int h0 = kvh * rep, tile0 = split * tps;
   const int ntiles = min(tps, (a.Skv + kTile - 1) / kTile - tile0);
-  float* rec = decode_record<D>(a, part, rep, split, kvh, b);
+  float* rec = decode_record<DV>(a, part, rep, split, kvh, b);
 
   // which keys of the split's tiles the query may see, a bit a key
   const int qp = a.q_pos[b];
@@ -805,7 +822,7 @@ __global__ void __launch_bounds__(kDecodeThreads, R <= 4 ? 3 : 2)
   const int nl = nlive;
   if (nl == 0) {  // no allowed key in the split: skip it
     if (t < rep) rec[t] = -INFINITY;
-    decode_finish<D>(a, part, tickets, rep, kvh, b);
+    decode_finish<DV>(a, part, tickets, rep, kvh, b);
     return;
   }
 
@@ -816,24 +833,27 @@ __global__ void __launch_bounds__(kDecodeThreads, R <= 4 ? 3 : 2)
   auto load_tile = [&](int ti, int stage) {
     const int j0 = (tile0 + ti) * kTile, n = min(kTile, a.Skv - j0);
     uint8_t* base = dsm + stage * STAGE;
-    for (int i = t; i < n * CPR; i += kDecodeThreads) {
-      const int row = i / CPR, c = (i % CPR) * 8;
+    for (int i = t; i < n * CPK; i += kDecodeThreads) {
+      const int row = i / CPK, c = (i % CPK) * 8;
       cp_async16(smem_u32(base + 2 * (row * KROW + c)),
                  kg + (long long)(j0 + row) * a.k_s + c);
-      cp_async16(smem_u32(base + KBYTES + 2 * (row * D + c)),
+    }
+    for (int i = t; i < n * CPV; i += kDecodeThreads) {
+      const int row = i / CPV, c = (i % CPV) * 8;
+      cp_async16(smem_u32(base + KBYTES + 2 * (row * DV + c)),
                  vg + (long long)(j0 + row) * a.v_s + c);
     }
     cp_async_commit();
   };
   load_tile(live[0], 0);
-  for (int i = t; i < rep * D; i += kDecodeThreads)
-    q_s[i] = __bfloat162float(a.q[b * a.q_b + (h0 + i / D) * a.q_h + i % D]);
+  for (int i = t; i < rep * DK; i += kDecodeThreads)
+    q_s[i] = __bfloat162float(a.q[b * a.q_b + (h0 + i / DK) * a.q_h + i % DK]);
   if (t < rep) {
     m_s[t] = kNeg;
     l_s[t] = 0.f;
   }
 
-  const int c2 = t % (D / 2), sl = t / (D / 2);
+  const int c2 = t % (DV / 2), sl = t / (DV / 2);
   float acc[R][2];
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = 0.f;
@@ -852,7 +872,7 @@ __global__ void __launch_bounds__(kDecodeThreads, R <= 4 ? 3 : 2)
         reinterpret_cast<const __nv_bfloat16*>(dsm + stage * STAGE + KBYTES);
     const int j0 = (tile0 + ti) * kTile, n = min(kTile, a.Skv - j0);
 
-    // quarter dot products: key t % kTile over the quarter t / kTile of D
+    // quarter dot products: key t % kTile over the quarter t / kTile of DK
     {
       const int j = t % kTile, qd = t / kTile;
       if (j < n) {
@@ -869,7 +889,7 @@ __global__ void __launch_bounds__(kDecodeThreads, R <= 4 ? 3 : 2)
           for (int r = 0; r < R; ++r) {
             if (r < rep) {
               const float4* qv = reinterpret_cast<const float4*>(
-                  q_s + r * D + (qd * QPR + c) * 8);
+                  q_s + r * DK + (qd * QPR + c) * 8);
               const float4 qa = qv[0], qb = qv[1];
               dot[r] = fmaf(qa.x, kf[0], dot[r]);
               dot[r] = fmaf(qa.y, kf[1], dot[r]);
@@ -932,7 +952,7 @@ __global__ void __launch_bounds__(kDecodeThreads, R <= 4 ? 3 : 2)
     }
     __syncthreads();
 
-    // P.V: the d pair c2 over the keys sl + NS i of the tile
+    // P.V: the column pair c2 of DV over the keys sl + NS i of the tile
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (r < rep) {
@@ -944,7 +964,7 @@ __global__ void __launch_bounds__(kDecodeThreads, R <= 4 ? 3 : 2)
 #pragma unroll 4
     for (int j = sl; j < n; j += NS) {
       const float2 vf = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(vs + j * D + 2 * c2));
+          *reinterpret_cast<const __nv_bfloat162*>(vs + j * DV + 2 * c2));
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (r < rep) {
@@ -961,20 +981,20 @@ __global__ void __launch_bounds__(kDecodeThreads, R <= 4 ? 3 : 2)
 #pragma unroll
   for (int r = 0; r < R; ++r)
     if (r < rep)
-      *reinterpret_cast<float2*>(red + (sl * rep + r) * D + 2 * c2) =
+      *reinterpret_cast<float2*>(red + (sl * rep + r) * DV + 2 * c2) =
           make_float2(acc[r][0], acc[r][1]);
   __syncthreads();
-  for (int i = t; i < rep * D; i += kDecodeThreads) {
+  for (int i = t; i < rep * DV; i += kDecodeThreads) {
     float o = 0.f;
 #pragma unroll
-    for (int k = 0; k < NS; ++k) o += red[k * rep * D + i];
+    for (int k = 0; k < NS; ++k) o += red[k * rep * DV + i];
     rec[2 * rep + i] = o;
   }
   if (t < rep) {
     rec[t] = m_s[t];
     rec[rep + t] = l_s[t];
   }
-  decode_finish<D>(a, part, tickets, rep, kvh, b);
+  decode_finish<DV>(a, part, tickets, rep, kvh, b);
 }
 
 Args make_args(const void* q, const void* k, const void* v, void* o,
@@ -1011,31 +1031,31 @@ int decode_splits(int B, int KVH, int Skv) {
   return tiles > 0 ? (tiles + tps - 1) / tps : 1;
 }
 
-template <int D, int R>
+template <int DK, int DV, int R>
 cudaError_t launch_decode(const Args& a, int tps, float* part, int* tickets,
                           cudaStream_t stream) {
-  const size_t smem = decode_smem(D, a.H / a.KVH);
+  const size_t smem = decode_smem(DK, DV, a.H / a.KVH);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<D, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        decode_kernel<DK, DV, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
   const int splits = decode_splits(a.B, a.KVH, a.Skv);
-  decode_kernel<D, R><<<dim3(splits, a.KVH, a.B), kDecodeThreads, smem,
-                        stream>>>(a, tps, part, tickets);
+  decode_kernel<DK, DV, R><<<dim3(splits, a.KVH, a.B), kDecodeThreads, smem,
+                             stream>>>(a, tps, part, tickets);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t decode_for_rep(const Args& a, int tps, float* part, int* tickets,
                            cudaStream_t stream) {
   int rep = a.H / a.KVH;
-  if (rep <= 1) return launch_decode<D, 1>(a, tps, part, tickets, stream);
-  if (rep <= 2) return launch_decode<D, 2>(a, tps, part, tickets, stream);
-  if (rep <= 4) return launch_decode<D, 4>(a, tps, part, tickets, stream);
-  if (rep <= 8) return launch_decode<D, 8>(a, tps, part, tickets, stream);
-  return launch_decode<D, kMaxGroup>(a, tps, part, tickets, stream);
+  if (rep <= 1) return launch_decode<DK, DV, 1>(a, tps, part, tickets, stream);
+  if (rep <= 2) return launch_decode<DK, DV, 2>(a, tps, part, tickets, stream);
+  if (rep <= 4) return launch_decode<DK, DV, 4>(a, tps, part, tickets, stream);
+  if (rep <= 8) return launch_decode<DK, DV, 8>(a, tps, part, tickets, stream);
+  return launch_decode<DK, DV, kMaxGroup>(a, tps, part, tickets, stream);
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime so that the
@@ -1085,27 +1105,29 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* base, int B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DK, int DV>
 size_t prefill_smem() {
-  return sizeof(Smem<D>) + 1024;  // + the slack that aligns it to 1024
+  return sizeof(Smem<DK, DV>) + 1024;  // + the slack that aligns it to 1024
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch_prefill(const Args& a, cudaStream_t stream) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, encode, a.q, a.B, a.Sq, a.H, D, a.q_b, a.q_s, a.q_h) ||
-      !make_map(&tk, encode, a.k, a.B, a.Skv, a.KVH, D, a.k_b, a.k_s, a.k_h) ||
-      !make_map(&tv, encode, a.v, a.B, a.Skv, a.KVH, D, a.v_b, a.v_s, a.v_h))
+  if (!make_map(&tq, encode, a.q, a.B, a.Sq, a.H, DK, a.q_b, a.q_s, a.q_h) ||
+      !make_map(&tk, encode, a.k, a.B, a.Skv, a.KVH, DK, a.k_b, a.k_s,
+                a.k_h) ||
+      !make_map(&tv, encode, a.v, a.B, a.Skv, a.KVH, DV, a.v_b, a.v_s, a.v_h))
     return cudaErrorInvalidValue;
-  const size_t smem = prefill_smem<D>();
+  const size_t smem = prefill_smem<DK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      prefill_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const int grid = (a.Sq + kBM - 1) / kBM * a.H * a.B;
-  prefill_kernel<D><<<grid, kPrefillThreads, smem, stream>>>(tq, tk, tv, a);
+  prefill_kernel<DK, DV><<<grid, kPrefillThreads, smem, stream>>>(tq, tk, tv,
+                                                                  a);
   return cudaGetLastError();
 }
 
@@ -1113,27 +1135,31 @@ cudaError_t launch_prefill(const Args& a, cudaStream_t stream) {
 
 extern "C" {
 
-// K8, prefill variant: q [B, Sq, H, D], k/v [B, Skv, KVH, D], o [B, Sq, H, D]
-// (bf16; `strides` holds the batch, sequence and head strides of q, k, v
-// and o, in elements; the head dimension is dense). D is 64 or 128.
+// K8, prefill variant: q [B, Sq, H, D], k [B, Skv, KVH, D], v [B, Skv, KVH,
+// Dv], o [B, Sq, H, Dv] (bf16; `strides` holds the batch, sequence and head
+// strides of q, k, v and o, in elements; the head dimension is dense).
+// (D, Dv) is (64, 64), (128, 128) or (192, 128).
 int flash_prefill(const void* q, const void* k, const void* v, void* o,
                   const void* q_pos, const void* kv_pos, const void* kv_valid,
                   const long long* strides, int B, int Sq, int Skv, int H,
-                  int KVH, int D, int causal, int has_window, int window,
-                  float scale, void* stream) {
+                  int KVH, int D, int Dv, int causal, int has_window,
+                  int window, float scale, void* stream) {
   Args a = make_args(q, k, v, o, q_pos, kv_pos, kv_valid, strides, B, Sq, Skv,
                      H, KVH, causal, has_window, window, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch_prefill<64>(a, s);
-  if (D == 128) return (int)launch_prefill<128>(a, s);
+  if (D == 64 && Dv == 64) return (int)launch_prefill<64, 64>(a, s);
+  if (D == 128 && Dv == 128) return (int)launch_prefill<128, 128>(a, s);
+  if (D == 192 && Dv == 128) return (int)launch_prefill<192, 128>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Shared memory of one prefill CTA at head_dim D (dynamic; it has no
-// static shared memory).
-int flash_prefill_smem_bytes(int D) {
-  return D == 64 ? (int)prefill_smem<64>()
-                 : D == 128 ? (int)prefill_smem<128>() : -1;
+// Shared memory of one prefill CTA at head sizes (D, Dv) (dynamic; it has
+// no static shared memory); -1 for a pair it is not compiled for.
+int flash_prefill_smem_bytes(int D, int Dv) {
+  if (D == 64 && Dv == 64) return (int)prefill_smem<64, 64>();
+  if (D == 128 && Dv == 128) return (int)prefill_smem<128, 128>();
+  if (D == 192 && Dv == 128) return (int)prefill_smem<192, 128>();
+  return -1;
 }
 
 // Splits of the decode variant's grid for B, KVH and Skv.
@@ -1142,14 +1168,14 @@ int flash_decode_splits(int B, int KVH, int Skv) {
 }
 
 // K8, decode variant: as flash_prefill with Sq == 1. `part` is f32 scratch
-// of B * H * flash_decode_splits(B, KVH, Skv) * (D + 2) floats, `tickets`
+// of B * H * flash_decode_splits(B, KVH, Skv) * (Dv + 2) floats, `tickets`
 // B * KVH int32 counters, zero before the call and zero again after it.
 // Calls that share `tickets` must run in order (one stream).
 int flash_decode(const void* q, const void* k, const void* v, void* o,
                  const void* q_pos, const void* kv_pos, const void* kv_valid,
                  const long long* strides, int B, int Skv, int H, int KVH,
-                 int D, int causal, int has_window, int window, float scale,
-                 void* part, void* tickets, void* stream) {
+                 int D, int Dv, int causal, int has_window, int window,
+                 float scale, void* part, void* tickets, void* stream) {
   Args a = make_args(q, k, v, o, q_pos, kv_pos, kv_valid, strides, B, 1, Skv,
                      H, KVH, causal, has_window, window, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1157,8 +1183,11 @@ int flash_decode(const void* q, const void* k, const void* v, void* o,
   const int tps = decode_tps(B, KVH, Skv);
   float* p = static_cast<float*>(part);
   int* t = static_cast<int*>(tickets);
-  if (D == 64) return (int)decode_for_rep<64>(a, tps, p, t, s);
-  if (D == 128) return (int)decode_for_rep<128>(a, tps, p, t, s);
+  if (D == 64 && Dv == 64) return (int)decode_for_rep<64, 64>(a, tps, p, t, s);
+  if (D == 128 && Dv == 128)
+    return (int)decode_for_rep<128, 128>(a, tps, p, t, s);
+  if (D == 192 && Dv == 128)
+    return (int)decode_for_rep<192, 128>(a, tps, p, t, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,14 +1,18 @@
 """Flash attention (K8): the public `flash_attention`, its launch wrapper
 and its plain torch version `flash_plain`.
 
-`flash_attention` takes the reference's layout: q [B, Sq, H, D], k/v
-[B, Skv, KVH, D] with KVH dividing H (GQA), q_pos [B, Sq] and kv_pos /
-kv_valid [B, Skv]; it returns [B, Sq, H, D] in q's dtype. On a CUDA
-tensor it launches the hand-written kernel of `csrc/flashattn.cu` on the
-current stream (the decode variant when Sq == 1, else the prefill
-variant), reading q, k and v through their strides, and raises on what
-the kernel does not take (any dtype but bf16, a head_dim other than 64
-or 128): it never runs the plain version there. The prefill variant
+`flash_attention` takes the reference's layout: q [B, Sq, H, D], k
+[B, Skv, KVH, D] and v [B, Skv, KVH, Dv] with KVH dividing H (GQA) and
+Dv <= D, q_pos [B, Sq] and kv_pos / kv_valid [B, Skv]; it returns
+[B, Sq, H, Dv] in q's dtype, with scores scaled by 1/sqrt(D). A Dv below
+D is MLA's call (q/k 192 = 128 + 64 RoPE dims, v 128): the reference pads
+v with zeros to D and slices the output back to Dv, which gives exactly
+this. On a CUDA tensor it launches the hand-written kernel of
+`csrc/flashattn.cu` on the current stream (the decode variant when
+Sq == 1, else the prefill variant), reading q, k and v through their
+strides, and raises on what the kernel does not take (any dtype but
+bf16, a (D, Dv) pair other than those of `HEAD_DIMS`): it never runs the
+plain version there. The prefill variant
 loads q, k and v by TMA through tensor maps over those strides (hence
 the 16-byte alignment and strides in multiples of 8 elements the checks
 ask for), runs `wgmma` on 128-row q-tiles, and skips the 128-key tiles
@@ -48,8 +52,8 @@ from repro_torch.kernels.build import check, library
 from repro_torch.kernels.flashattn.ref import NEG, attend_mask
 
 BLOCK = 128
-#: head sizes the CUDA kernel is compiled for
-HEAD_DIMS = (64, 128)
+#: the (q/k, v) head sizes the CUDA kernel is compiled for
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 #: the most query heads per kv head the decode variant serves
 #: (`kMaxGroup` in csrc/flashattn.cu)
 MAX_GROUP = 16
@@ -68,15 +72,15 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = library("flashattn")
         common = [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
-        lib.flash_prefill.argtypes = common + [ctypes.c_int] * 9 + [
+        lib.flash_prefill.argtypes = common + [ctypes.c_int] * 10 + [
             ctypes.c_float, ctypes.c_void_p]
         lib.flash_prefill.restype = ctypes.c_int
-        lib.flash_decode.argtypes = common + [ctypes.c_int] * 8 + [
+        lib.flash_decode.argtypes = common + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         lib.flash_decode.restype = ctypes.c_int
         lib.flash_decode_splits.argtypes = [ctypes.c_int] * 3
         lib.flash_decode_splits.restype = ctypes.c_int
-        lib.flash_prefill_smem_bytes.argtypes = [ctypes.c_int]
+        lib.flash_prefill_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.flash_prefill_smem_bytes.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -87,10 +91,10 @@ def reset_launches() -> None:
         LAUNCHES[key] = 0
 
 
-def prefill_smem_bytes(d: int) -> int:
+def prefill_smem_bytes(d: int, dv: int) -> int:
     """Shared memory (static and dynamic bytes) one CTA of the prefill
-    kernel takes at head_dim `d`."""
-    return int(_lib().flash_prefill_smem_bytes(d))
+    kernel takes at head sizes (`d`, `dv`)."""
+    return int(_lib().flash_prefill_smem_bytes(d, dv))
 
 
 def flash_decode_splits(b: int, kvh: int, skv: int) -> int:
@@ -100,8 +104,10 @@ def flash_decode_splits(b: int, kvh: int, skv: int) -> int:
 
 
 def _check_shapes(q, k, v, q_pos, kv_pos, kv_valid) -> None:
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError("q must be [B,Sq,H,D] and k, v [B,Skv,KVH,D]")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3] or v.shape[3] > k.shape[3]:
+        raise ValueError("q must be [B,Sq,H,D], k [B,Skv,KVH,D] and v "
+                         "[B,Skv,KVH,Dv] with Dv <= D")
     b, sq, h, d = q.shape
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q "
@@ -119,6 +125,7 @@ def flash_plain(q, k, v, q_pos, kv_pos, kv_valid, *, causal: bool = True,
     blocks (the last block of each is ragged, not padded)."""
     _check_shapes(q, k, v, q_pos, kv_pos, kv_valid)
     b, sq, h, d = q.shape
+    dv = v.shape[3]
     skv, rep = k.shape[1], h // k.shape[2]
     scale = 1.0 / math.sqrt(d)
     qh = q.permute(0, 2, 1, 3)                       # [B,H,Sq,D]
@@ -126,14 +133,15 @@ def flash_plain(q, k, v, q_pos, kv_pos, kv_valid, *, causal: bool = True,
     if rep > 1:                                      # jnp.repeat(k, rep, 2)
         kh = kh.repeat_interleave(rep, dim=1)
         vh = vh.repeat_interleave(rep, dim=1)
-    out = torch.empty_like(q)
+    out = q.new_empty((b, sq, h, dv))
     for i in range(0, sq, BLOCK):
         qb = qh[:, :, i:i + BLOCK].float()
         qp = q_pos[:, i:i + BLOCK]
         m = torch.full(qb.shape[:3], NEG, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros_like(m)
-        acc = torch.zeros(qb.shape, dtype=torch.float32, device=q.device)
+        acc = torch.zeros((*qb.shape[:3], dv), dtype=torch.float32,
+                          device=q.device)
         for j in range(0, skv, BLOCK):
             s = (qb @ kh[:, :, j:j + BLOCK].float().transpose(-1, -2)) * scale
             mask = attend_mask(qp, kv_pos[:, j:j + BLOCK],
@@ -173,17 +181,17 @@ def _kernel_checks(q, k, v, dev) -> None:
                 or t.data_ptr() % 16:
             raise ValueError(f"{name} needs a dense head dimension, strides "
                              f"in multiples of 8 and 16-byte alignment")
-    d = q.shape[3]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention's CUDA kernel takes head_dim "
-                         f"{HEAD_DIMS}, got {d}")
+    dims = (q.shape[3], v.shape[3])
+    if dims not in HEAD_DIMS:
+        raise ValueError(f"flash_attention's CUDA kernel takes (head_dim, "
+                         f"v head_dim) in {HEAD_DIMS}, got {dims}")
 
 
 def flash_attention(q, k, v, q_pos, kv_pos, kv_valid, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """K8. q [B,Sq,H,D]; k/v [B,Skv,KVH,D] (KVH | H); positions [B,S*].
-    Returns [B,Sq,H,D]."""
+    """K8. q [B,Sq,H,D]; k [B,Skv,KVH,D], v [B,Skv,KVH,Dv] (KVH | H,
+    Dv <= D); positions [B,S*]. Returns [B,Sq,H,Dv]."""
     _check_shapes(q, k, v, q_pos, kv_pos, kv_valid)
     dev = q.device
     if dev.type == "cpu":
@@ -193,7 +201,7 @@ def flash_attention(q, k, v, q_pos, kv_pos, kv_valid, *,
         raise RuntimeError(f"flash_attention: no kernel for device {dev}")
     _kernel_checks(q, k, v, dev)
     b, sq, h, d = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
+    skv, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     if sq == 1 and h // kvh > MAX_GROUP:
         raise ValueError(f"flash_attention's decode kernel takes at most "
                          f"{MAX_GROUP} query heads per kv head")
@@ -204,7 +212,7 @@ def flash_attention(q, k, v, q_pos, kv_pos, kv_valid, *,
     q_pos = q_pos.to(torch.int32).contiguous()
     kv_pos = kv_pos.to(torch.int32).contiguous()
     kv_valid = kv_valid.to(torch.bool).contiguous()
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
     strides = (ctypes.c_longlong * 12)(*[
@@ -219,17 +227,17 @@ def flash_attention(q, k, v, q_pos, kv_pos, kv_valid, *,
     lib = _lib()
     if sq == 1:
         splits = flash_decode_splits(b, kvh, skv)
-        scratch = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
-                              device=dev)
+        scratch = torch.empty(b * h * splits * (dv + 2),
+                              dtype=torch.float32, device=dev)
         tickets = _decode_tickets(dev, stream, b * kvh)
-        err = lib.flash_decode(*ptrs, b, skv, h, kvh, d, *flags, scale,
+        err = lib.flash_decode(*ptrs, b, skv, h, kvh, d, dv, *flags, scale,
                                scratch.data_ptr(), tickets.data_ptr(),
                                stream)
         check(err, "flash_decode")
         LAUNCHES["flash_decode"] += 1
     else:
-        err = lib.flash_prefill(*ptrs, b, sq, skv, h, kvh, d, *flags, scale,
-                                stream)
+        err = lib.flash_prefill(*ptrs, b, sq, skv, h, kvh, d, dv, *flags,
+                                scale, stream)
         check(err, "flash_prefill")
         LAUNCHES["flash_prefill"] += 1
     return out

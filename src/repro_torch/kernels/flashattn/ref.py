@@ -43,7 +43,8 @@ def masked_logits(q, k, q_pos, kv_pos, kv_valid, *, causal: bool,
 
 def sdpa_ref(q, k, v, q_pos, kv_pos, kv_valid, *, causal: bool,
              window: Optional[int]) -> torch.Tensor:
-    """q [B,Sq,H,D], k/v [B,Skv,H,D] (pre-expanded heads)."""
+    """q [B,Sq,H,D], k [B,Skv,H,D], v [B,Skv,H,Dv] (pre-expanded heads;
+    the scale is 1/sqrt(D) whatever Dv is). Returns [B,Sq,H,Dv]."""
     logits = masked_logits(q, k, q_pos, kv_pos, kv_valid, causal=causal,
                            window=window)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)

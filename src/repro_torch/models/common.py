@@ -10,8 +10,10 @@ leading `[n_reps]` axis.
 `param_shapes` walks every architecture's layout from its shapes alone,
 so `param_count` needs no initialisation. `init_params` draws from a
 `torch.Generator` at the reference's distributions for the layers the
-port runs: dense attention (with QKV bias) and the swiglu, relu2 and
-gelu MLPs. The MoE, Mamba, MLA, encoder and stub-frontend inits raise
+port runs: full attention (with QKV bias), MLA's latent attention, the
+swiglu, relu2 and gelu MLPs and the routed MoE (with shared experts and
+deepseek's leading dense layers as `prefix_layers`). Sliding-window
+attention, Mamba, the encoder and the stub frontends raise
 NotImplementedError (ROADMAP Queue 1 item 10c).
 """
 from __future__ import annotations
@@ -245,16 +247,13 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError unless every layer of `cfg` is one the
-    port runs: dense, full attention (optionally with QKV bias), an MLP."""
+    port runs: full attention (optionally with QKV bias) or MLA, then an
+    MLP or a routed MoE."""
     what = []
-    if cfg.moe is not None:
-        what.append("MoE layers")
     if cfg.mamba is not None or "mamba" in cfg.block_pattern:
         what.append("Mamba-2 layers")
     if cfg.attn is None:
         what.append("attention-free stacks")
-    elif cfg.attn.kv_lora_rank:
-        what.append("MLA attention")
     elif cfg.attn.sliding_window:
         what.append("sliding-window attention")
     if cfg.n_enc_layers:
@@ -265,23 +264,41 @@ def check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: {', '.join(what)} {TODO}")
 
 
-def _normal(gen: torch.Generator, shape, scale: float, dtype):
+def _normal(gen: torch.Generator, shape, scale: float, dtype,
+            by_lead: bool = False):
+    """N(0, 1) * scale drawn in f32, cast to `dtype`. `by_lead` draws one
+    leading index at a time into the result, so the f32 temporary is a
+    slice of it (the stacked experts of a full MoE are 9.6 GB in bf16)."""
+    if by_lead and len(shape) > 1:
+        out = torch.empty(shape, dtype=dtype, device=gen.device)
+        for i in range(shape[0]):
+            out[i] = _normal(gen, shape[1:], scale, dtype)
+        return out
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     return (x * scale).to(dtype)
 
 
-def _dense(gen, lead, d_in, d_out, dtype, scale: Optional[float] = None):
+def _dense(gen, lead, d_in, d_out, dtype, scale: Optional[float] = None,
+           by_lead: bool = False):
     """The reference's `_dense`: N(0, 1) * scale (1/sqrt(d_in) unless
     given) in f32, cast to `dtype`; `lead` is the stacking prefix."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return _normal(gen, (*lead, d_in, d_out), scale, dtype)
+    return _normal(gen, (*lead, d_in, d_out), scale, dtype, by_lead)
 
 
 def init_attn_layer(gen, cfg: ModelConfig, lead=()) -> Dict[str, Any]:
     a, d, dt = cfg.attn, cfg.d_model, cfg.dtype
-    if a.kv_lora_rank:
-        raise NotImplementedError(f"MLA attention {TODO}")
+    ones = torch.ones((*lead, d), dtype=torch.float32, device=gen.device)
+    if a.kv_lora_rank:                    # MLA: latent KV + decoupled RoPE
+        r, hd, dr = a.kv_lora_rank, a.num_heads * a.head_dim, a.rope_head_dim
+        return {"wq": _dense(gen, lead, d, hd, dt),
+                "w_dkv": _dense(gen, lead, d, r, dt),
+                "w_uk": _dense(gen, lead, r, hd, dt),
+                "w_uv": _dense(gen, lead, r, hd, dt),
+                "w_kr": _dense(gen, lead, d, dr, dt),
+                "w_qr": _dense(gen, lead, d, a.num_heads * dr, dt),
+                "wo": _dense(gen, lead, hd, d, dt), "ln": ones}
     zeros = dict(dtype=dt, device=gen.device)
     p = {"wq": _dense(gen, lead, d, a.num_heads * a.head_dim, dt),
          "wk": _dense(gen, lead, d, a.num_kv_heads * a.head_dim, dt),
@@ -291,7 +308,7 @@ def init_attn_layer(gen, cfg: ModelConfig, lead=()) -> Dict[str, Any]:
         p["bq"] = torch.zeros((*lead, a.num_heads * a.head_dim), **zeros)
         p["bk"] = torch.zeros((*lead, a.num_kv_heads * a.head_dim), **zeros)
         p["bv"] = torch.zeros((*lead, a.num_kv_heads * a.head_dim), **zeros)
-    p["ln"] = torch.ones((*lead, d), dtype=torch.float32, device=gen.device)
+    p["ln"] = ones
     return p
 
 
@@ -307,9 +324,28 @@ def init_mlp_layer(gen, cfg: ModelConfig, lead=(),
     return p
 
 
+def init_moe_layer(gen, cfg: ModelConfig, lead=()) -> Dict[str, Any]:
+    """The reference's `init_moe_layer`: an f32 router, the experts'
+    weights stacked on an [E] axis (after `lead`), and the shared experts
+    as one MLP of `d_ff_expert * num_shared`."""
+    m, d, dt = cfg.moe, cfg.d_model, cfg.dtype
+    e, f = m.num_experts, m.d_ff_expert
+    p = {"router": _dense(gen, lead, d, e, torch.float32),
+         "w1": _dense(gen, (*lead, e), d, f, dt, by_lead=True),
+         "w2": _dense(gen, (*lead, e), f, d, dt, by_lead=True),
+         "w3": _dense(gen, (*lead, e), d, f, dt, by_lead=True),
+         "ln": torch.ones((*lead, d), dtype=torch.float32,
+                          device=gen.device)}
+    if m.num_shared:
+        p["shared"] = init_mlp_layer(gen, cfg, lead, d_ff=f * m.num_shared)
+    return p
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     """Full parameter pytree on `gen.device`. Repeated layers are drawn
-    stacked on a leading axis per pattern slot, as the reference's."""
+    stacked on a leading axis per pattern slot, as the reference's; the
+    leading dense layers of a MoE config (`first_dense`) unstacked in
+    `prefix_layers`."""
     check_ported(cfg)
     d, dt = cfg.d_model, cfg.dtype
     params: Dict[str, Any] = {
@@ -319,14 +355,17 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["unembed"] = _dense(gen, (), d, cfg.vocab_size, dt,
                                    scale=0.02)
-    _, period, n_reps = layer_layout(cfg)    # no prefix without MoE
+    prefix, period, n_reps = layer_layout(cfg)
+    moe_idx = set(moe_layer_indices(cfg))
 
-    def block(lead) -> Dict[str, Any]:
+    def block(i: int, lead) -> Dict[str, Any]:
         out = {"mixer": init_attn_layer(gen, cfg, lead)}
-        if cfg.d_ff > 0:                  # d_ff == 0: mixer-only block
+        if i in moe_idx:
+            out["ffn"] = init_moe_layer(gen, cfg, lead)
+        elif cfg.d_ff > 0:                # d_ff == 0: mixer-only block
             out["ffn"] = init_mlp_layer(gen, cfg, lead)
         return out
 
-    params["prefix_layers"] = []
-    params["layers"] = [block((n_reps,)) for _ in range(period)]
+    params["prefix_layers"] = [block(i, ()) for i in range(prefix)]
+    params["layers"] = [block(prefix + s, (n_reps,)) for s in range(period)]
     return params

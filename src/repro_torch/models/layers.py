@@ -1,6 +1,7 @@
 """Forward passes of the blocks the port runs: pre-norm residual
 attention (GQA, optionally biased QKV — qwen; RoPE; a static-capacity
-ring KV cache for serving) and the swiglu / relu2 / gelu MLPs.
+ring KV cache for serving), MLA's latent attention (deepseek-v2), the
+swiglu / relu2 / gelu MLPs and the top-k routed MoE with shared experts.
 
 Two execution modes, as the reference's:
   * prefill: full-sequence forward, writing the KV cache if one is given;
@@ -16,24 +17,33 @@ Differences from the reference, on purpose:
     its cursor is a host int, so no step syncs the device to read it;
   * the attention backend defaults to "flash", the hand-written kernel
     (K8): the reference defaults to "auto" only because Pallas runs in
-    interpret mode off a TPU (ROADMAP Queue 3).
+    interpret mode off a TPU (ROADMAP Queue 3);
+  * MLA hands K8 its v at head_dim 128 against q/k's 192, where the
+    reference pads v with zeros to 192 and slices the output back: the
+    same numbers without the padded columns;
+  * the MoE gathers each expert's kept tokens into [E, C, d] and adds
+    the experts' outputs back per token, where the reference multiplies
+    by one-hot [T, E, C] dispatch and combine tensors: the same sums
+    without the products by zero (at deepseek-v2-lite's prefill each
+    such tensor has 503 M entries).
 The reference's sharding hints (`parallel/hints.py`) are identities
 without a mesh and are left out (they return with the distributed
-runtime). MLA, cross-attention, MoE and Mamba-2 raise
+runtime); so is its MoE's token grouping, one group without a mesh.
+Cross-attention, the MoE's auxiliary loss (training's) and Mamba-2 raise
 NotImplementedError.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flashattn import flash_attention
 from repro_torch.kernels.flashattn.ref import masked_logits, sdpa_ref
-from repro_torch.models.common import TODO, AttnConfig
+from repro_torch.models.common import TODO, AttnConfig, ModelConfig, MoEConfig
 
 # --------------------------------------------------------------------------
 # norms & basics
@@ -103,8 +113,8 @@ def _sdpa_chunked(q, k, v, q_pos, kv_pos, kv_valid, *, causal, window):
     """Online-softmax attention over Q and KV chunks: the peak score
     buffer is [B,H,Qc,Kc] regardless of sequence length (the reference's
     pure-JAX flash formulation, as loops)."""
-    b, sq, h, d = q.shape
-    skv = k.shape[1]
+    b, sq, h, _ = q.shape
+    skv, dv = k.shape[1], v.shape[-1]
     qc, kc = min(_Q_CHUNK, sq), min(_KV_CHUNK, skv)
     pad_q, pad_k = (-sq) % qc, (-skv) % kc
     if pad_q:
@@ -118,7 +128,7 @@ def _sdpa_chunked(q, k, v, q_pos, kv_pos, kv_valid, *, causal, window):
     outs = []
     for i in range(0, q.shape[1], qc):
         qi, qpi = q[:, i:i + qc], q_pos[:, i:i + qc]
-        acc = torch.zeros((b, h, qc, d), dtype=torch.float32,
+        acc = torch.zeros((b, h, qc, dv), dtype=torch.float32,
                           device=q.device)
         mx = torch.full((b, h, qc), -math.inf, dtype=torch.float32,
                         device=q.device)
@@ -156,7 +166,8 @@ def set_attention_backend(name: str) -> None:
 
 def _sdpa(q, k, v, q_pos, kv_pos, kv_valid, *, causal: bool,
           window: Optional[int]):
-    """q [B,Sq,H,D], k/v [B,Skv,KVH,D] (KVH divides H). fp32 softmax."""
+    """q [B,Sq,H,D], k [B,Skv,KVH,D], v [B,Skv,KVH,Dv] (KVH divides H,
+    Dv <= D). fp32 softmax, scores scaled by 1/sqrt(D)."""
     if _SDPA_BACKEND == "flash":
         return flash_attention(q, k, v, q_pos, kv_pos, kv_valid,
                                causal=causal, window=window)
@@ -227,7 +238,7 @@ def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, a: AttnConfig,
     b, s, d = x.shape
     h = norm(x, p["ln"], norm_kind)
     if a.kv_lora_rank:
-        return _mla_attention(p, x, h, a, positions, cache, norm_kind)
+        return _mla_attention(p, x, h, a, positions, cache, ring)
 
     q = h @ p["wq"]
     k = h @ p["wk"]
@@ -259,8 +270,42 @@ def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, a: AttnConfig,
     return x + y, new_cache
 
 
-def _mla_attention(p, x, h, a: AttnConfig, positions, cache, norm_kind):
-    raise NotImplementedError(f"MLA attention {TODO}")
+def _mla_attention(p, x, h, a: AttnConfig, positions, cache, ring):
+    """DeepSeek-V2 multi-head latent attention. The cache holds only the
+    compressed c_kv [B, cap, r] (in `KVCache.k`) and the shared, rotated
+    k_rope [B, cap, dr] (in `KVCache.v`); k_nope and v are expanded from
+    the whole cache at each call, as the reference does."""
+    b, s, _ = x.shape
+    nh, hd, dr = a.num_heads, a.head_dim, a.rope_head_dim
+    c_kv = h @ p["w_dkv"]                                   # [B,S,r]
+    cos, sin = rope_tables(positions, dr, a.rope_theta)
+    k_rope = apply_rope((h @ p["w_kr"]).reshape(b, s, 1, dr), cos, sin)
+    q = (h @ p["wq"]).reshape(b, s, nh, hd)
+    q_rope = apply_rope((h @ p["w_qr"]).reshape(b, s, nh, dr), cos, sin)
+
+    if cache is not None:
+        cache = _cache_update(cache, c_kv, k_rope[:, :, 0])
+        c_all = cache.k.to(x.dtype)                         # [B,cap,r]
+        kr_all = cache.v.to(x.dtype)[:, :, None]            # [B,cap,1,dr]
+        kv_pos, kv_valid = ring or _ring_positions(
+            cache.index, cache.k.shape[1], b, x.device)
+    else:
+        c_all, kr_all = c_kv, k_rope
+        kv_pos = positions
+        kv_valid = torch.ones((b, s), dtype=torch.bool, device=x.device)
+
+    skv = c_all.shape[1]
+    k_nope = (c_all @ p["w_uk"]).reshape(b, skv, nh, hd)
+    vv = (c_all @ p["w_uv"]).reshape(b, skv, nh, hd)
+    # [q_nope; q_rope] . [k_nope; k_rope] is the two-term MLA logit, and
+    # the scale 1/sqrt(hd + dr) is the reference's (its v padded to
+    # hd + dr, sliced back after)
+    qq = torch.cat([q, q_rope], dim=-1)
+    kk = torch.cat([k_nope, kr_all.expand(b, skv, nh, dr)], dim=-1)
+    out = _sdpa(qq, kk, vv, positions, kv_pos, kv_valid, causal=a.causal,
+                window=None)
+    y = out.reshape(b, s, nh * hd) @ p["wo"]
+    return x + y, cache
 
 
 def cross_attention(p, x, enc_out, a: AttnConfig, norm_kind="rmsnorm"):
@@ -283,12 +328,74 @@ def mlp(p, x, act: str, norm_kind: str = "rmsnorm"):
     return x + y
 
 
-def moe(p, x, cfg, norm_kind: str = "rmsnorm"):
-    raise NotImplementedError(f"MoE layers {TODO}")
+class Route(NamedTuple):
+    """A MoE layer's routing of T tokens: each token's top-k experts
+    (`top_e`, by descending weight) and weights renormalised over them
+    (`top_w`, f32), each (token, slot)'s place in its expert's queue
+    (`pos`, counted over the tokens and slots in order), whether it fits
+    the expert's `capacity` (`keep`)."""
+    top_w: torch.Tensor     # [T, k] f32
+    top_e: torch.Tensor     # [T, k] int64
+    pos: torch.Tensor       # [T, k] int64
+    keep: torch.Tensor      # [T, k] bool
+    capacity: int
+
+
+def moe_route(router: torch.Tensor, h: torch.Tensor, m: MoEConfig,
+              s: int) -> Route:
+    """The reference's routing with one token group: f32 router logits,
+    softmax, top-k renormalised, capacity int(cf * T * k / E) (at least
+    1), or T at decode (s == 1: dropless). `h` is [T, d]."""
+    t = h.shape[0]
+    probs = torch.softmax(h.float() @ router, dim=-1)
+    top_w, top_e = torch.topk(probs, m.top_k, dim=-1)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    cap = t if s == 1 else int(max(1, m.capacity_factor * t * m.top_k
+                                   / m.num_experts))
+    # each expert's row of (token, slot) picks, scanned along the row: a
+    # scan down [T*k, E] would run E-wide (336 ms of deepseek-v2-lite's
+    # 0.53 s prefill on an H100)
+    flat = F.one_hot(top_e.reshape(-1), m.num_experts).t().contiguous()
+    pos = ((torch.cumsum(flat, dim=1) - flat) * flat).sum(0)
+    pos = pos.reshape(t, m.top_k)
+    return Route(top_w, top_e, pos, pos < cap, cap)
+
+
+def moe(p, x, cfg: ModelConfig, norm_kind: str = "rmsnorm"):
+    """Top-k routed experts with a capacity (overflow tokens take only the
+    residual path), plus the shared experts run densely (deepseek). Each
+    expert's kept tokens are gathered into its rows of [E, C + 1, d] (a
+    dropped (token, slot) into the spare row C, whose output no token
+    takes), the experts run as batched products, and each (token, slot)
+    adds its expert's output times its weight (rounded to the model dtype,
+    as the reference's combine; 0 where dropped) back to the token, summed
+    in f32. Nothing waits on the device: no count of kept slots is read."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    h = norm(x, p["ln"], norm_kind).reshape(t, d)
+    r = moe_route(p["router"], h, m, s)
+    tok = torch.arange(t, device=x.device).repeat_interleave(m.top_k)
+    e = r.top_e.reshape(-1)
+    c = r.pos.reshape(-1).clamp(max=r.capacity)
+    xin = h.new_zeros((m.num_experts, r.capacity + 1, d))
+    xin[e, c] = h[tok]
+    hmid = silu(torch.bmm(xin, p["w1"])) * torch.bmm(xin, p["w3"])
+    xout = torch.bmm(hmid, p["w2"])                          # [E,C+1,d]
+    w = (r.top_w * r.keep).reshape(-1).to(x.dtype).float()
+    y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    y.index_add_(0, tok, xout[e, c].float() * w[:, None])
+    y = y.to(x.dtype)
+    if m.num_shared:
+        sp = p["shared"]
+        hs = norm(x, sp["ln"], norm_kind).reshape(t, d)
+        y = y + (silu(hs @ sp["w1"]) * (hs @ sp["w3"])) @ sp["w2"]
+    return x + y.reshape(b, s, d)
 
 
 def moe_aux_loss(p, x, cfg, norm_kind: str = "rmsnorm"):
-    raise NotImplementedError(f"MoE layers {TODO}")
+    raise NotImplementedError("the MoE auxiliary loss is training's, not "
+                              "ported yet (ROADMAP Queue 1 item 10a)")
 
 
 def mamba2(p, x, mb, cache=None, norm_kind: str = "rmsnorm"):

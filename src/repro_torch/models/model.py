@@ -1,15 +1,21 @@
 """Model assembly: embed -> block stack -> norm -> LM head.
 
-Depth runs as a Python loop over repetitions of the config's block
-pattern (the reference's `lax.scan`): repetition r of pattern slot s
-takes the views `[r]` of that slot's stacked parameters and cache.
+The leading layers that do not repeat (deepseek's first dense layer)
+run first, one by one; then depth runs as a Python loop over repetitions
+of the config's block pattern (the reference's `lax.scan`): repetition r
+of pattern slot s takes the views `[r]` of that slot's stacked
+parameters and cache. Every ported layer is attention (or MLA), so a
+layer's descriptor is whether its FFN is the MoE (the reference's slot
+descriptors also name the mixer kind, for Mamba).
 
 Caches: each attention layer writes a static-capacity ring `KVCache` in
-place (`layers._cache_update`); a slot's cache tensors are stacked on
-the same leading `[n_reps]` axis as its parameters, and its cursor is a
-host int. The port runs the dense, full-attention architectures
-(qwen1.5-4b, minitron-4b, starcoder2-7b, command-r-35b): any other
-raises NotImplementedError from `Model.__init__`.
+place (`layers._cache_update`): K and V, or under MLA the latent c_kv
+and the rotated k_rope. A slot's cache tensors are stacked on the same
+leading `[n_reps]` axis as its parameters, a prefix layer's are not;
+every cursor is a host int. The port runs the full-attention
+architectures, MLA and MoE ones included (qwen1.5-4b, minitron-4b,
+starcoder2-7b, command-r-35b, deepseek-v2-lite-16b): any other raises
+NotImplementedError from `Model.__init__`.
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.common import (
-    ModelConfig, check_ported, init_params, layer_layout,
+    ModelConfig, check_ported, init_params, layer_layout, moe_layer_indices,
 )
 
 
@@ -40,9 +46,12 @@ class Model:
     def __init__(self, cfg: ModelConfig):
         check_ported(cfg)
         self.cfg = cfg
-        # the ported archs have no prefix layers (those come with MoE's
-        # first_dense) and one attention slot per pattern period
-        _, self.full_period, self.n_reps = layer_layout(cfg)
+        self.prefix_n, self.full_period, self.n_reps = layer_layout(cfg)
+        moe_idx = set(moe_layer_indices(cfg))
+        # static layer descriptors: whether the layer's FFN is the MoE
+        self.prefix_moe = [i in moe_idx for i in range(self.prefix_n)]
+        self.slot_moe = [i in moe_idx for i in range(
+            self.prefix_n, self.prefix_n + self.full_period)]
 
     # ------------------------------------------------------------------
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
@@ -50,11 +59,13 @@ class Model:
         return init_params(gen, self.cfg)
 
     # ------------------------------------------------------------------
-    def _apply_block(self, p, x, positions, cache, ring):
+    def _apply_block(self, is_moe: bool, p, x, positions, cache, ring):
         cfg = self.cfg
         x, new_cache = L.attention(p["mixer"], x, cfg.attn, positions,
                                    cache, norm_kind=cfg.norm, ring=ring)
-        if "ffn" in p:                  # d_ff == 0: mixer-only block
+        if is_moe:
+            x = L.moe(p["ffn"], x, cfg, norm_kind=cfg.norm)
+        elif "ffn" in p:                # d_ff == 0: mixer-only block
             x = L.mlp(p["ffn"], x, cfg.act, norm_kind=cfg.norm)
         return x, new_cache
 
@@ -62,45 +73,62 @@ class Model:
     def _empty_cache_slot(self, batch: int, cap: int, device,
                           lead=()) -> L.KVCache:
         cfg, a = self.cfg, self.cfg.attn
-        shape = (*lead, batch, cap, a.num_kv_heads, a.head_dim)
+        if a.kv_lora_rank:              # MLA: c_kv and k_rope
+            k_shape = (*lead, batch, cap, a.kv_lora_rank)
+            v_shape = (*lead, batch, cap, a.rope_head_dim)
+        else:
+            k_shape = v_shape = (*lead, batch, cap, a.num_kv_heads,
+                                 a.head_dim)
         return L.KVCache(
-            k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-            v=torch.zeros(shape, dtype=cfg.dtype, device=device), index=0)
+            k=torch.zeros(k_shape, dtype=cfg.dtype, device=device),
+            v=torch.zeros(v_shape, dtype=cfg.dtype, device=device), index=0)
 
     def init_cache(self, batch: int, cap: int, device) -> Dict[str, Any]:
-        """Per-slot stacked caches, all empty (no prefix layers)."""
-        return {"prefix": [],
+        """Empty caches: one per prefix layer, and one per pattern slot
+        stacked on `[n_reps]`."""
+        return {"prefix": [self._empty_cache_slot(batch, cap, device)
+                           for _ in self.prefix_moe],
                 "slots": [self._empty_cache_slot(batch, cap, device,
                                                  (self.n_reps,))
-                          for _ in range(self.full_period)]}
+                          for _ in self.slot_moe]}
 
     # ------------------------------------------------------------------
     def backbone(self, params, x, positions, caches=None):
         """Embedded input -> final hidden. Returns (x, caches), the caches
         written in place with their cursors moved on. (The reference also
-        returns the MoE auxiliary loss, which returns with MoE layers.)
-        A slot's cache positions are computed once per call and shared by
-        all its repetitions."""
-        index = [None] * self.full_period
+        returns the MoE auxiliary loss, which is training's.) A cache's
+        positions after this write are computed once per call (one for
+        the prefix layers, one per slot) and shared by its layers."""
         b, s = x.shape[:2]
-        rings = [L._ring_positions(sc.index + s, sc.k.shape[2], b, x.device)
-                 for sc in caches["slots"]] if caches else None
+
+        def ring(sc, cap_dim):
+            return L._ring_positions(sc.index + s, sc.k.shape[cap_dim], b,
+                                     x.device)
+        prefix = []
+        for i, is_moe in enumerate(self.prefix_moe):
+            c = caches["prefix"][i] if caches else None
+            x, nc = self._apply_block(is_moe, params["prefix_layers"][i], x,
+                                      positions, c,
+                                      ring(c, 1) if caches else None)
+            prefix.append(nc)
+        index = [None] * self.full_period
+        rings = [ring(sc, 2) for sc in caches["slots"]] if caches else None
         for r in range(self.n_reps):
-            for si in range(self.full_period):
-                c = ring = None
+            for si, is_moe in enumerate(self.slot_moe):
+                c = rg = None
                 if caches:
                     sc = caches["slots"][si]
                     c = L.KVCache(sc.k[r], sc.v[r], sc.index)
-                    ring = rings[si]
-                x, nc = self._apply_block(_at(params["layers"][si], r), x,
-                                          positions, c, ring)
+                    rg = rings[si]
+                x, nc = self._apply_block(is_moe, _at(params["layers"][si], r),
+                                          x, positions, c, rg)
                 if nc is not None:
                     index[si] = nc.index
         if not caches:
             return x, None
         slots = [L.KVCache(sc.k, sc.v, index[si])
                  for si, sc in enumerate(caches["slots"])]
-        return x, {"prefix": [], "slots": slots}
+        return x, {"prefix": prefix, "slots": slots}
 
     # ------------------------------------------------------------------
     def embed_inputs(self, params, batch: Batch):

@@ -320,3 +320,66 @@ def test_decode_group_limit_matches_kernel_source():
     src = kbuild.SOURCES["flashattn"].read_text()
     assert int(re.search(r"kMaxGroup = (\d+);", src).group(1)) \
         == fa.MAX_GROUP
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,d,dv,pos", [
+    (2, 128, 256, 4, 4, 48, 32, "tail"),    # deepseek's smoke MLA sizes
+    (1, 200, 300, 2, 2, 192, 128, "tail"),  # deepseek-v2-lite's, ragged
+    (2, 1, 300, 4, 4, 192, 128, "ring"),    # decode on a wrapped ring
+    (2, 1, 200, 4, 2, 96, 64, "dead"),      # GQA; row 0 sees no key
+])
+def test_flash_with_narrower_v_matches_padded_reference(dtype, b, sq, skv,
+                                                        h, kvh, d, dv, pos):
+    """MLA's call: v's head dim Dv below q/k's D. The port with v
+    [.., Dv] == the reference's kernel (Pallas, interpret mode) and dense
+    oracle on v zero-padded to D, sliced back to Dv, as the reference's
+    MLA does (the scale stays 1/sqrt(D)); a row that sees no key, as in
+    `test_flash_decode_vs_reference`, against the dense oracle only."""
+    arrays = _decode_inputs(b, skv, h, kvh, d, pos, seed=d + dv) \
+        if sq == 1 else _inputs(b, sq, skv, h, kvh, d, seed=d + dv)
+    arrays = (arrays[0], arrays[1], arrays[2][..., :dv]) + arrays[3:]
+    padded = arrays[:2] + (np.concatenate(
+        [arrays[2], np.zeros(arrays[2].shape[:3] + (d - dv,), np.float32)],
+        axis=-1),) + arrays[3:]
+    jx, _ = _both(padded, dtype)
+    _, tx = _both(arrays, dtype)
+    got = fa.flash_attention(*tx, causal=True)
+    assert got.shape == (b, sq, h, dv) and got.dtype == tx[0].dtype
+    rep = h // kvh
+    wants = [ref_sdpa(jx[0], _expanded(jx[1], rep), _expanded(jx[2], rep),
+                      *jx[3:], causal=True, window=None)]
+    if pos != "dead":
+        wants.append(ref_flash(*jx, causal=True))
+    tol = TOL[dtype]
+    for want in wants:
+        np.testing.assert_allclose(_np(got), _np(want)[..., :dv], atol=tol,
+                                   rtol=tol)
+    dense = sdpa_ref(tx[0], _expanded(tx[1], rep), _expanded(tx[2], rep),
+                     *tx[3:], causal=True, window=None)
+    assert dense.shape == got.shape
+    torch.testing.assert_close(got.float(), dense.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_v_wider_than_k_is_rejected():
+    _, tx = _both(_inputs(1, 8, 8, 2, 2, 16), "float32")
+    wide = torch.cat([tx[2], tx[2]], dim=-1)
+    with pytest.raises(ValueError, match="Dv <= D"):
+        fa.flash_attention(tx[0], tx[1], wide, *tx[3:])
+    with pytest.raises(ValueError, match="Dv <= D"):
+        fa.flash_plain(tx[0], tx[1], wide[:, :4], *tx[3:])
+
+
+def test_head_dim_pairs_match_kernel_source():
+    """The wrapper's `HEAD_DIMS` are the (D, Dv) pairs `flashattn.cu`
+    instantiates for both variants, so a CUDA call at any other pair is
+    refused before it reaches the library."""
+    import re
+    from repro_torch.kernels import build as kbuild
+    src = kbuild.SOURCES["flashattn"].read_text()
+    for fn in ("flash_prefill", "flash_decode"):
+        body = src[src.index(f"int {fn}("):]
+        body = body[:body.index("\n}\n")]
+        pairs = re.findall(r"D == (\d+) && Dv == (\d+)", body)
+        assert tuple((int(a), int(b)) for a, b in pairs) == fa.HEAD_DIMS, fn

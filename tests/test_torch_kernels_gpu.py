@@ -858,6 +858,81 @@ def test_flash_prefill_skips_only_masked_tiles(cuda, no_tf32, case, b, sq,
                                    rtol=2e-2)
 
 
+def _mla_positions(case, b, sq, skv, dev):
+    """(q_pos, kv_pos, kv_valid) of deepseek-v2-lite's serve path: `fresh`
+    the ring cache of `skv` slots right after a prompt of `sq` tokens
+    (prefill) or at the step that writes slot skv - 8 (decode), `ring`
+    and `dead` as in `_positions`."""
+    if case != "fresh":
+        return _positions(case, b, sq, skv, dev)
+    from repro_torch.models.layers import _ring_positions
+    index = sq if sq > 1 else skv - 7
+    kp, kval = _ring_positions(index, skv, b, dev)
+    qp = torch.arange(index - sq, index, dtype=torch.int32, device=dev)
+    return qp[None].repeat(b, 1), kp, kval
+
+
+@pytest.mark.parametrize("b,sq,skv,case", [
+    (4, 2048, 2088, "fresh"),    # deepseek-v2-lite's serve prefill
+    (2, 256, 512, "ring"),       # wrapped ring cache
+    (1, 512, 512, "dead"),       # row 0 sees no key: the second pass
+    (1, 333, 461, "fresh"),      # no tile-multiple lengths
+    (4, 1, 2088, "fresh"),       # its serve decode step
+    (4, 1, 2088, "ring"),
+    (2, 1, 1000, "dead"),        # no row sees a key: the mean of v
+    (1, 1, 32768, "fresh"),      # B 1 over a long cache: 40 splits
+])
+def test_flash_kernel_matches_plain_version_at_mla_head_sizes(
+        cuda, no_tf32, b, sq, skv, case):
+    """K8 at MLA's head sizes, q/k 192 and v 128 (16 heads, one query head
+    a kv head, as deepseek-v2-lite calls it): == `flash_plain` and
+    `sdpa_ref` within 2e-2, a decode line also within `_decode_limit`;
+    a row that sees no key averages v over every key."""
+    from repro_torch.kernels.flashattn import ops as fa
+    rng = np.random.default_rng(sq + skv + 192)
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+    h = 16
+    q, k, v = t((b, sq, h, 192)), t((b, skv, h, 192)), t((b, skv, h, 128))
+    args = (q, k, v, *_mla_positions(case, b, sq, skv, cuda))
+    fa.reset_launches()
+    got = fa.flash_attention(*args, causal=True)
+    torch.cuda.synchronize()
+    variant = "flash_decode" if sq == 1 else "flash_prefill"
+    assert fa.LAUNCHES == {**{k: 0 for k in fa.LAUNCHES}, variant: 1}
+    assert got.shape == (b, sq, h, 128) and got.dtype == torch.bfloat16
+    for want in _attn_expected(*args, True, None):
+        assert want.shape == got.shape
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+        if sq == 1:
+            err = float((got.float() - want.float()).abs().max())
+            assert err <= _decode_limit(want), (err, _decode_limit(want))
+    if case == "dead":
+        torch.testing.assert_close(got[:, 0].float(),
+                                   v.float().mean(dim=1), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.parametrize("sq", [1, 64])
+@pytest.mark.parametrize("d,dv", [(192, 192), (128, 64), (96, 96),
+                                  (192, 64)])
+def test_flash_kernel_rejects_uncompiled_head_sizes(cuda, d, dv, sq):
+    """A (D, Dv) pair the library is not compiled for raises ValueError on
+    a CUDA tensor, for either variant, and launches nothing; the plain
+    version never stands in."""
+    from repro_torch.kernels.flashattn import ops as fa
+    rng = np.random.default_rng(d + dv)
+    q, k, v, qp, kp, kval = _attn_inputs(rng, 1, sq, 64, 2, 2, d, cuda)
+    v = v[..., :dv] if dv < d else torch.cat([v, v], -1)[..., :dv]
+    fa.reset_launches()
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, k, v.contiguous(), qp, kp, kval)
+    assert sum(fa.LAUNCHES.values()) == 0
+
+
 def test_flash_kernel_reads_strided_cache_views(cuda, no_tf32):
     """k/v as views into a larger [B, cap, KVH, D] cache and q as a slice
     of a wider projection: the kernel reads them through their strides."""

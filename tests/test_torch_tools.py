@@ -94,3 +94,41 @@ def test_lookup_case_inputs():
     assert len(probe) == 6_001_215
     assert (probe[::8] >= 6_000_000).all()
     assert (probe[1::8] < 6_000_000).all()
+
+
+def test_teacher_forced_gap_replays_and_counts_routes():
+    """`chip_smoke`'s serve check on deepseek-v2-lite's smoke config on
+    the CPU: the routes recorded in a flash run are the MoE layers' calls
+    in order (2 a step: the first layer is dense); replayed into the dense
+    run, no routing choice differs and the logits agree as closely as
+    attention's rounding allows; the wrapper is taken off after each
+    run."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flashattn import ops as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    cfg = get_smoke_config("deepseek-v2-lite-16b")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab_size, (2, 24),
+                           generator=torch.Generator().manual_seed(1))
+    inner = L.moe_route
+    routes, restore = chip_smoke.record_routes(L)
+    try:
+        res = serve.generate(model, params, prompt, 3, 32)
+    finally:
+        restore()
+    assert L.moe_route is inner and len(routes) == 2 * (1 + 3)
+    assert [tuple(r.top_e.shape) for r in routes[:3]] == [(48, 2), (48, 2),
+                                                           (2, 2)]
+    res.update(model=model, params=params, prompt=prompt, cap=32)
+    free = chip_smoke.teacher_forced_gap(torch, L, fa, serve, res, routes)
+    held = chip_smoke.teacher_forced_gap(torch, L, fa, serve, res, routes,
+                                         replay=True)
+    assert L.moe_route is inner and L._SDPA_BACKEND == "flash"
+    assert held["routes_replayed"] and held["route_choices_differing"] == 0
+    assert held["route_choices"] == free["route_choices"] == 2 * (48 + 3 * 2)
+    assert 0 <= free["route_differing_share"] <= 1
+    assert len(held["steps"]) == 4 and held["max_abs"] < 0.25
+    assert chip_smoke.route_differences(routes, routes) == (0, 108)

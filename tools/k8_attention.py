@@ -1,0 +1,55 @@
+#!/usr/bin/env python3
+"""K8's cases alone (phase 7 of `chip_smoke.py`) from any checkout, on one
+NVIDIA GPU.
+
+    python3 tools/k8_attention.py [--root DIR]
+
+Imports `chip_smoke` and `repro_torch` from the checkout at DIR (default:
+this one), builds its kernel libraries from its own sources, and runs its
+`attention_phase`: one JSON line a K8 case (CUDA-event and device ms,
+errors against `flash_plain` and `sdpa_ref`, bound, SDPA's times), then
+one line with each case's device ms. Two trees are compared by running
+each tree's phase in its own process, in turns within one call on one
+card: parent, change, change, parent (the parent unpacked with
+`git archive` into the ignored `.chip_check/`).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import sys
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=str(pathlib.Path(__file__)
+                                          .resolve().parents[1]))
+    args = ap.parse_args()
+    root = pathlib.Path(args.root).resolve()
+    sys.path[:0] = [str(root), str(root / "src")]
+    import torch
+    if not torch.cuda.is_available():
+        print("k8_attention: CUDA is not available", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flashattn import ops as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log = build.build_all().get("flashattn", (0.0, ""))[1]
+    lines = []
+    emit = chip_smoke.emit
+
+    def keep(obj):
+        lines.append(obj)
+        emit(obj)
+    chip_smoke.emit = keep
+    chip_smoke.attention_phase(torch, fa, torch.device("cuda", 0), log)
+    print(json.dumps({"root": str(root), "device_ms": {
+        rec["case"]: rec["device_ms"] for rec in lines
+        if "device_ms" in rec}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,84 @@
+#!/usr/bin/env python3
+"""The teacher-forced gap of the serving path at full width and cut
+depth, on any device: how far the flash backend's logits (K8, or its
+plain version `flash_plain` on the CPU) lie from dense attention's
+("auto") when both are fed the same tokens, and, for a MoE model, the
+share of (token, layer) routing choices that differ.
+
+    PYTHONPATH=src python3 tools/tf_gap.py --arch deepseek-v2-lite-16b \\
+        --layers 3 6 --batch 2 --prompt-len 256 --gen-tokens 6 --device cpu
+
+For each depth: the model's published config with `n_layers` cut to
+that depth (random weights from seed 0, a random prompt from seed 1, as
+`repro_torch.launch.serve`), one greedy pass on the flash backend, then
+one JSON line of `chip_smoke.teacher_forced_gap` (max and mean |d| over
+the prefill's and every step's logits, argmax agreement) and, for a MoE
+model, a second with the dense run taking the flash run's routing
+choices (`routes_replayed`; the first reports the share of routing
+choices that differ). `chip_smoke.py`'s teacher-forced bounds are set
+from these readings.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import pathlib
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="deepseek-v2-lite-16b")
+    ap.add_argument("--layers", type=int, nargs="+", default=[3])
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=256)
+    ap.add_argument("--gen-tokens", type=int, default=6)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flashattn import ops as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    dev = serve.resolve_device(args.device)
+    for n in args.layers:
+        cfg = dataclasses.replace(get_config(args.arch), n_layers=n)
+        model = Model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        prompt = torch.randint(0, cfg.vocab_size,
+                               (args.batch, args.prompt_len),
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(1), device=dev)
+        cap = args.prompt_len + args.gen_tokens + 8
+        routes, restore = chip_smoke.record_routes(L) if cfg.moe else \
+            (None, None)
+        try:
+            res = serve.generate(model, params, prompt, args.gen_tokens, cap)
+        finally:
+            if restore:
+                restore()
+        res.update(model=model, params=params, prompt=prompt, cap=cap)
+        for replay in (False, True) if cfg.moe else (False,):
+            gap = chip_smoke.teacher_forced_gap(torch, L, fa, serve, res,
+                                                routes, replay=replay)
+            gap.pop("steps")
+            print(json.dumps({"arch": args.arch, "layers": n,
+                              "device": str(dev), "batch": args.batch,
+                              "prompt_len": args.prompt_len,
+                              "gen_tokens": args.gen_tokens, **gap}),
+                  flush=True)
+        del model, params, res
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
