@@ -5,8 +5,8 @@
 
 `--phase kernels` runs phases 1-4 only (to iterate on a kernel), then
 each Bloom and hash-map case's device time alone, the route sweeps of
-K2 and K4 and the rows-a-thread sweep of K3, and prints neither the
-kernel table nor the ok line.
+K2 and K4, the rows-a-thread sweep of K3 and the plan sweep of K7, and
+prints neither the kernel table nor the ok line.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -59,9 +59,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    public entry points against their plain versions, on the SF 1
    columns of phase 6's cases: K7 (fused filter transfer) at case C's
    shape (lineitem's 6,000,205 rows through a 16,384-block orders
-   filter into a 524,288-block one), K6a/K6b (key set build and
-   membership probe) at case A's (1.5 M orders keys, 2^22 slots, probed
-   by lineitem's order keys), each beside a small ragged shape (their
+   filter into a 524,288-block one), the same with every outgoing key
+   distinct, and a ragged shape into 8 blocks (`transfer_cases`); with
+   `--phase kernels` only, K7 at 2^16 to 2^23 rows and into filters of
+   at most 64 blocks, foreign and distinct outgoing keys, with each
+   layout, insert and route forced (`transfer_sweep`; each case's device
+   ops name the outgoing filter's memset apart from the kernel); K6a/K6b
+   (key set build and membership probe) at case A's (1.5 M orders keys,
+   2^22 slots, probed by lineitem's order keys), each beside a small
+   ragged shape (their
    bounds count the key halves they load, of the masked or surviving
    rows, as the distinct 32-byte sectors that hold them); K6a's
    occupied count against the distinct count and the plain sequential
@@ -448,6 +454,103 @@ def k3_path_inputs(torch, np, kb, bloom, dev, case: str = K3_PATH_CASE):
     return kb.build_ref(blo, bhi, bloom.blocks_for(nkeys)), cols, None, count
 
 
+def transfer_cases(torch, np, kb, bloom, dev, api) -> dict:
+    """K7's cases, name -> `transfer` arguments (in_words, in lo, in hi,
+    out lo, out hi, mask, nblocks_out) on the card: "SF 1 case C"
+    (lineitem's rows probed on `l_orderkey` against the Q5-date orders
+    filter, from the plain build, into a lineitem-sized filter of the
+    survivors' `l_suppkey`: about 90 copies of each of 10,000 keys),
+    "case C distinct" (the same, every outgoing key distinct) and "5003
+    ragged" (random keys, a 64-block incoming filter, 80% of rows
+    masked, an 8-block outgoing filter: the tiny route)."""
+    olo, ohi = bloom.keys_to_device(api["o_orderkey"], dev)
+    q5 = torch.from_numpy(api["q5"]).to(dev)
+    in_words = kb.build_ref(olo, ohi, bloom.blocks_for(int(api["q5"].sum())),
+                            valid=q5)
+    n_l = len(api["l_orderkey"])
+    ilo, ihi = bloom.keys_to_device(api["l_orderkey"], dev)
+    live = torch.ones(n_l, dtype=torch.bool, device=dev)
+    nb = bloom.blocks_for(n_l)
+    rng = np.random.default_rng(53)
+    keys = rng.integers(0, 1 << 40, 5003).astype(np.int64)
+    klo, khi = bloom.keys_to_device(keys[:1700], dev)
+    return {"SF 1 case C": (in_words, ilo, ihi,
+                            *bloom.keys_to_device(api["l_suppkey"], dev),
+                            live, nb),
+            "case C distinct": (in_words, ilo, ihi, *bloom.keys_to_device(
+                np.arange(n_l, dtype=np.int64) + (1 << 33), dev), live, nb),
+            "5003 ragged": (kb.build_ref(klo, khi, 64),
+                            *bloom.keys_to_device(keys, dev),
+                            *bloom.keys_to_device(rng.integers(
+                                0, 1 << 40, 5003).astype(np.int64), dev),
+                            torch.from_numpy(rng.random(5003) < 0.8).to(dev),
+                            8)}
+
+
+#: K7's sweep: rows (2^16-2^23 into `blocks_for` blocks, and the outgoing
+#: filters of at most 64 blocks the tiny route takes: rows, nblocks_out)
+TRANSFER_SWEEP = ([(1 << log2n, None) for log2n in range(16, 24)]
+                  + [(1024, 64), (4096, 64), (16384, 64), (5003, 8),
+                     (1 << 16, 1)])
+#: bloom_transfer_force's codes (bloom.cu, K7's note)
+TRANSFER_LAYOUTS = {1: "one", 2: "strided", 3: "adjacent"}
+TRANSFER_INSERTS = {1: "bit", 2: "read_first", 3: "warp_or"}
+TRANSFER_ROUTES = {1: "l2", 2: "tiny", 3: "partitioned"}
+
+
+def transfer_sweep_cases(torch, np, kb, bloom, dev) -> dict:
+    """K7 at `TRANSFER_SWEEP`'s shapes, name -> `transfer` arguments, with
+    case C's proportions: incoming keys drawn from 1.5 M order keys and
+    sorted (lineitem's rows come by order), every row live, probed against
+    a 16,384-block filter of 228,000 of them drawn at random (Q5's 15%, so
+    the survivors are spread over the rows); the survivors' outgoing keys
+    either about 90 copies each ("foreign", as suppliers are) or all
+    distinct."""
+    rng = np.random.default_rng(67)
+    blo, bhi = bloom.keys_to_device(
+        rng.choice(KEYS_ORDERS, 228_000, replace=False), dev)
+    in_words = kb.build_ref(blo, bhi, bloom.blocks_for(228_000))
+    cases = {}
+    for n, nb in TRANSFER_SWEEP:
+        ilo, ihi = bloom.keys_to_device(
+            np.sort(rng.integers(0, KEYS_ORDERS, n, dtype=np.int64)), dev)
+        live = torch.ones(n, dtype=torch.bool, device=dev)
+        nb = bloom.blocks_for(n) if nb is None else nb
+        foreign = rng.integers(0, max(1, n * 152 // 1000 // 90), n,
+                               dtype=np.int64)
+        distinct = rng.permutation(n).astype(np.int64) + (1 << 33)
+        for kind, out in (("foreign", foreign), ("distinct", distinct)):
+            cases[f"{n} into {nb} {kind}"] = (
+                in_words, ilo, ihi, *bloom.keys_to_device(out, dev), live,
+                nb)
+    return cases
+
+
+def transfer_plans(nb: int) -> dict:
+    """K7's distinct plans into nb blocks, (layout, insert, route) codes ->
+    name: every layout and insert on the L2 route; every layout on the
+    tiny route (at most 64 blocks: its inserts go to shared memory) or the
+    partitioned one (more: its layout and inserts are its own)."""
+    plans = {(layout, insert, 1): f"{lname}_{iname}_l2"
+             for layout, lname in TRANSFER_LAYOUTS.items()
+             for insert, iname in TRANSFER_INSERTS.items()}
+    if nb <= 64:
+        plans.update({(layout, 1, 2): f"{lname}_tiny"
+                      for layout, lname in TRANSFER_LAYOUTS.items()})
+    else:
+        plans[(3, 1, 3)] = "partitioned"
+    return plans
+
+
+def transfer_plan(lib, n: int, nb: int) -> dict:
+    """The layout, insert and route K7's rule takes for n rows into nb
+    blocks (`bloom_transfer_plan`)."""
+    code = lib.bloom_transfer_plan(n, nb.bit_length() - 1)
+    return {"layout": TRANSFER_LAYOUTS[code & 15],
+            "insert": TRANSFER_INSERTS[code >> 4 & 15],
+            "route": TRANSFER_ROUTES[code >> 8]}
+
+
 def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
     """K1/K2/K3/K7 vs their plain versions on the card; returns the
     record of each kernel at the main path's heaviest shape (K7: case
@@ -560,11 +663,8 @@ def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
                                     valid=v))
         return rec
 
-    def transfer_case(name, in_words, ikeys, okeys, keep, nb):
-        ilo, ihi = halves(ikeys)
-        olo, ohi = halves(okeys)
-        mask = torch.from_numpy(keep).to(dev)
-        args = (in_words, ilo, ihi, olo, ohi, mask, nb)
+    def transfer_case(name, args):
+        in_words, _, _, _, _, mask, nb = args
         ok, words = kb.transfer(*args)
         ok_ref, words_ref = bloom.transfer(*args)
         torch.cuda.synchronize()
@@ -579,12 +679,12 @@ def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
         # key halves of the masked rows and the outgoing ones of the
         # survivors (the kernel loads no others), each 32-byte sector
         # once; the incoming filter read once, the outgoing one written
-        n = len(ikeys)
+        n = int(mask.shape[0])
         nbytes = (2 * n + 2 * sector_bytes(torch, mask)
                   + 2 * sector_bytes(torch, ok_ref)
                   + in_words.numel() * 4 + nb * 32)
         rec = {"kernel": "bloom_transfer", "case": name, "n": n,
-               "live": int(keep.sum()), "nblocks_in": int(in_words.shape[0]),
+               "live": int(mask.sum()), "nblocks_in": int(in_words.shape[0]),
                "nblocks_out": nb, "survivors": int(ok_ref.sum()),
                "ms": cuda_ms(torch, lambda: kb.transfer(*args), 20),
                "plain_ms": cuda_ms(torch, lambda: bloom.transfer(*args), 3,
@@ -624,21 +724,11 @@ def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
     # word); its own generator, so the cases after it keep their inputs
     cols.append(halves(skewed_keys(np, np.random.default_rng(23), N_BIG)))
     build_case("2^23 one slice", len(cols) - 1, nb_big, ragged, None, None)
-    # case C's shape: lineitem's rows through the Q5-date orders filter
-    # (from the plain build) into a lineitem-sized supplier-key filter
-    olo, ohi = halves(api["o_orderkey"])
-    q5 = torch.from_numpy(api["q5"]).to(dev)
-    in_words = kb.build_ref(olo, ohi, bloom.blocks_for(int(api["q5"].sum())),
-                            valid=q5)
-    n_l = len(api["l_orderkey"])
-    rep["bloom_transfer"] = transfer_case(
-        "SF 1 case C", in_words, api["l_orderkey"], api["l_suppkey"],
-        np.ones(n_l, bool), bloom.blocks_for(n_l))
-    keys = rng.integers(0, 1 << 40, 5003).astype(np.int64)
-    klo, khi = halves(keys[:1700])
-    transfer_case("5003 ragged", kb.build_ref(klo, khi, 64), keys,
-                  rng.integers(0, 1 << 40, 5003).astype(np.int64),
-                  rng.random(5003) < 0.8, 8)
+    cases = transfer_cases(torch, np, kb, bloom, dev, api)
+    rep["bloom_transfer"] = transfer_case("SF 1 case C",
+                                          cases.pop("SF 1 case C"))
+    for name, args in cases.items():
+        transfer_case(name, args)
     return rep, worst
 
 
@@ -740,6 +830,40 @@ def probe_rows_sweep(torch, np, kb, bloom, dev) -> None:
                 rec[f"rows{r}_device_ms"] = device_ms(torch, call)
             finally:
                 lib.bloom_probe_force_rows(0)
+        emit(rec)
+
+
+def transfer_sweep(torch, np, kb, bloom, dev) -> None:
+    """K7 with each layout, insert and route forced in turn
+    (`bloom_transfer_force`) at `transfer_sweep_cases`' shapes, each run
+    bit-exact against the plain version (survivors and words): one line
+    a shape with every plan's CUDA-event and device ms and the plan K7's
+    rule takes there (`kManyTransferRows` and the rule's insert in
+    bloom.cu come from these)."""
+    lib = kb._lib()
+    for case, args in transfer_sweep_cases(torch, np, kb, bloom,
+                                           dev).items():
+        n, nb = int(args[1].shape[0]), args[6]
+        ok_ref, words_ref = bloom.transfer(*args)
+        rec = {"phase": "kernels", "kernel": "bloom_transfer",
+               "case": "transfer sweep", "shape": case, "n": n,
+               "nblocks_out": nb, "survivors": int(ok_ref.sum()),
+               "rule": transfer_plan(lib, n, nb)}
+        for (layout, insert, route), name in transfer_plans(nb).items():
+            check(lib.bloom_transfer_force(layout, insert, route) == 0,
+                  f"bloom_transfer_force {name}")
+            try:
+                ok, words = kb.transfer(*args)
+                torch.cuda.synchronize()
+                check(torch.equal(ok, ok_ref)
+                      and torch.equal(words, words_ref),
+                      f"bloom_transfer {name} at {case} disagrees")
+                rec[f"{name}_ms"] = cuda_ms(torch,
+                                            lambda: kb.transfer(*args), 20)
+                rec[f"{name}_device_ms"] = device_ms(
+                    torch, lambda: kb.transfer(*args))
+            finally:
+                lib.bloom_transfer_force(0, 0, 0)
         emit(rec)
 
 
@@ -1759,6 +1883,7 @@ def main() -> int:
         route_sweep(torch, np, kb, bloom, dev)
         joinmap_route_sweep(torch, np, sj, bloom, dev)
         probe_rows_sweep(torch, np, kb, bloom, dev)
+        transfer_sweep(torch, np, kb, bloom, dev)
         return 0
     rep.update(jrep)
     worst.update(jworst)

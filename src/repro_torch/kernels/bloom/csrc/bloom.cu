@@ -1,7 +1,6 @@
 // Blocked-Bloom kernels for Hopper (sm_90a): the fused multi-filter probe
 // (K1), the filter build (K2), the single-filter probe (K3) and the fused
-// filter transfer (K7). Plain C
-// interface, loaded with ctypes by
+// filter transfer (K7). Plain C interface, loaded with ctypes by
 // repro_torch/kernels/bloom/ops.py; every entry point launches on the
 // caller's stream, never synchronises, and returns cudaGetLastError().
 //
@@ -293,12 +292,18 @@ struct Route {
 // slices (bloom_build_force_route, to time both routes at one shape).
 int forced_route = -1;
 
+// log2 of the blocks a slice of a 2^log2nb-block filter: about 256
+// slices, of 2^kMinSliceLog2 to 2^kMaxSliceLog2 blocks.
+int slice_log2(int log2nb) {
+  int log2s = log2nb - kSlicesLog2;
+  return log2s < kMinSliceLog2 ? kMinSliceLog2
+                               : (log2s > kMaxSliceLog2 ? kMaxSliceLog2
+                                                        : log2s);
+}
+
 Route build_route(int count, int log2nb) {
   if (log2nb <= kTinyLog2) return {kTiny, log2nb};
-  int log2s = log2nb - kSlicesLog2;
-  log2s = log2s < kMinSliceLog2 ? kMinSliceLog2
-                                : (log2s > kMaxSliceLog2 ? kMaxSliceLog2
-                                                         : log2s);
+  int log2s = slice_log2(log2nb);
   bool direct = forced_route < 0 ? count < kFewRows
                                  : forced_route == kDirect;
   if (direct || log2nb - log2s > kMaxSlicesLog2) return {kDirect, 0};
@@ -343,17 +348,65 @@ __device__ __forceinline__ int slice_of(uint32_t h, int log2p) {
   return (int)(h >> (32 - log2p));  // log2p >= 3 on the partitioned route
 }
 
+// K2's rows for the scatter: the hashes of the build rows t0 + threadIdx.x,
+// t0 + threadIdx.x + blockDim.x, ... (rows_hash).
+struct BuildRows {
+  const uint32_t* lo;
+  const uint32_t* hi;
+  const int32_t* idx;
+  const uint8_t* valid;
+  int count;
+  __device__ __forceinline__ int size() const { return count; }
+  __device__ __forceinline__ bool skip(int) const { return false; }
+  __device__ __forceinline__ void operator()(int t0, uint32_t (&h)[kPassRows],
+                                             bool (&live)[kPassRows]) const {
+    rows_hash(lo, hi, idx, valid, t0 + threadIdx.x, blockDim.x, count, h,
+              live);
+  }
+};
+
+// K7's survivors' list (transfer_compact_kernel): kListStripes stripes of
+// `cap` hashes each (a multiple of kTile), stripe s holding
+// counts[s * kCountStride] hashes from its start (the counts 128 bytes
+// apart, so their atomics spread over L2's slices). A row of the scatter
+// is a slot of the list; a tile past its stripe's count is skipped whole.
+constexpr int kListStripes = 32;
+constexpr int kCountStride = 32;
+
+struct ListRows {
+  const uint32_t* list;
+  const int* counts;
+  int cap;
+  __device__ __forceinline__ int size() const { return kListStripes * cap; }
+  __device__ __forceinline__ bool skip(int t0) const {
+    int s = t0 / cap;
+    return t0 - s * cap >= __ldg(counts + s * kCountStride);
+  }
+  __device__ __forceinline__ void operator()(int t0, uint32_t (&h)[kPassRows],
+                                             bool (&live)[kPassRows]) const {
+    int s = t0 / cap;
+    int end = s * cap + __ldg(counts + s * kCountStride);
+#pragma unroll
+    for (int i = 0; i < kPassRows; ++i) {
+      int r = t0 + threadIdx.x + i * blockDim.x;
+      live[i] = r < end;
+      h[i] = live[i] ? __ldg(list + r) : 0u;
+    }
+  }
+};
+
 // The partitioned route's scatter: each live row's hash into its slice's
 // region of `hs` (or the overflow list), a tile of kTile rows at a time,
 // staged in shared memory sorted by slice so the stores of a slice are
-// contiguous. fill[s] counts the hashes meant for slice s, fill[p] those
-// on the overflow list (all zeroed before).
+// contiguous. `rows` gives the rows' count (size()), the tiles with no live
+// row (skip(t0), the same for the whole CTA), and a thread's kPassRows
+// hashes of the tile from row t0, and which are live: K2's build rows
+// (BuildRows) or K7's survivors' outgoing hashes (ListRows). fill[s]
+// counts the hashes meant for slice s, fill[p] those on the overflow list
+// (all zeroed before).
+template <class Rows>
 __global__ void __launch_bounds__(kPassThreads)
-    slice_scatter_kernel(const uint32_t* __restrict__ lo,
-                         const uint32_t* __restrict__ hi,
-                         const int32_t* __restrict__ idx,
-                         const uint8_t* __restrict__ valid, int count,
-                         int log2p, int cap, int* __restrict__ fill,
+    slice_scatter_kernel(Rows rows, int log2p, int cap, int* __restrict__ fill,
                          uint32_t* __restrict__ hs,
                          uint32_t* __restrict__ overflow) {
   extern __shared__ int smem[];
@@ -363,12 +416,13 @@ __global__ void __launch_bounds__(kPassThreads)
   int* dst = tile + p + 1;     // [p] where the tile's rows of a slice go
   int* spill = dst + p;        // [p] ... and where those past `cap` go
   uint32_t* stage = reinterpret_cast<uint32_t*>(spill + p);  // [kTile]
+  int count = rows.size();
   for (int t0 = blockIdx.x * kTile; t0 < count; t0 += gridDim.x * kTile) {
+    if (rows.skip(t0)) continue;
     for (int s = threadIdx.x; s < p; s += blockDim.x) tile[s] = 0;
     uint32_t h[kPassRows];
     bool live[kPassRows];
-    rows_hash(lo, hi, idx, valid, t0 + threadIdx.x, blockDim.x, count, h,
-              live);
+    rows(t0, h, live);
     __syncthreads();
     int rank[kPassRows];
 #pragma unroll
@@ -557,35 +611,430 @@ __device__ __forceinline__ void bit_insert(uint32_t* __restrict__ words,
 // ok inserts its outgoing key into the outgoing filter.
 //
 // The TPU keeps the outgoing filter resident in VMEM across its sequential
-// grid and ORs the survivors' blocks in one at a time. Here one thread per
-// row does the probe K1 and K3 share (block_hit) and bit_insert; OR is
-// order-independent, so the words are bit-exact whatever the schedule.
-// Bound on this card:
-// memory: the mask byte in and the ok byte out per row, the incoming key
-// halves of the masked rows and the outgoing ones of the survivors only
-// (each 32-byte sector once), the incoming filter read and the outgoing
-// one written once; both filters mostly stay in the 50 MB L2. The caller
-// zeroes `out_words`.
-__global__ void transfer_kernel(const uint32_t* __restrict__ in_words,
-                                int log2nb_in,
-                                const uint32_t* __restrict__ in_lo,
-                                const uint32_t* __restrict__ in_hi,
-                                const uint32_t* __restrict__ out_lo,
-                                const uint32_t* __restrict__ out_hi,
-                                const uint8_t* __restrict__ mask, int n,
-                                int log2nb_out, int k,
-                                uint8_t* __restrict__ ok_out,
-                                uint32_t* __restrict__ out_words) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  bool ok = mask[r] &&
-            block_hit(in_words, key_hash(__ldg(in_lo + r), __ldg(in_hi + r)),
-                      log2nb_in, k);
-  ok_out[r] = ok ? 1 : 0;
-  if (ok) {
-    bit_insert(out_words, key_hash(__ldg(out_lo + r), __ldg(out_hi + r)),
-               log2nb_out, k);
+// grid and ORs the survivors' blocks in one at a time. Here the rows run in
+// parallel and OR into one filter: OR is order-independent, so the words
+// are bit-exact whatever the schedule.
+//
+// Bound on this card: memory. The mask byte in and the ok byte out per
+// row, the incoming key halves of the masked rows and the outgoing ones of
+// the survivors only (each 32-byte sector once), the incoming filter read
+// and the outgoing one written once; both filters mostly stay in the 50 MB
+// L2.
+//
+// Design (the rule lives here only, in transfer_plan; bloom_transfer takes
+// it, bloom_transfer_force forces each part):
+//  - layout: one row a thread below kManyTransferRows rows; from there
+//    kTransferRows = 4 rows a thread, each row's probe chain (block_hit)
+//    after the last's, so a warp waits on the sum of its lanes' chains and
+//    not on the longest of each round (K3's lever). The rows of a thread
+//    are adjacent where the key columns are 16-byte aligned and the mask
+//    and ok 4-byte aligned: one 16-byte load of each key half column, one
+//    4-byte load of the mask and one 4-byte store of ok per 4 rows;
+//    otherwise, as for column views such as lo[1:], row i of thread t is
+//    base + i * blockDim + t, inside the same kernel.
+//  - insert (L2 route): kBitInsert (bit_insert: one 32-bit atomicOr a
+//    bit), kReadFirstInsert (block_insert<true>: the block read from L2
+//    first, so a repeated key costs a read and not atomics) or
+//    kWarpOrInsert (the survivors of a warp that share an outgoing block
+//    ORed together by __match_any_sync and __reduce_or_sync, one lane's
+//    atomics a word).
+//  - route: kTinyTransferRoute for an outgoing filter of at most
+//    2^kTinyLog2 = 64 blocks (2 KB): each CTA (kTinyTransferCtas at most,
+//    walking the tiles) builds it in shared memory and ORs its non-zero
+//    64-bit words into the output (one CTA: plain stores, no zeroing).
+//    kPartitionedTransfer: transfer_compact_kernel probes and appends the
+//    survivors' outgoing hashes to a list in the scratch (one atomicAdd a
+//    CTA, on one of 32 counters); K2's scatter, slice build and overflow
+//    kernels then build the
+//    filter from that list (ListRows) a slice at a time in shared memory
+//    and store each slice whole, so the filter needs no zeroing and its
+//    inserts no L2 atomics. kL2Route: the survivors OR into L2 after the
+//    filter is zeroed. Zeroing is zero_kernel's (a 16-byte store a
+//    thread), not a cudaMemsetAsync.
+constexpr int kTransferRows = 4;
+constexpr int kManyTransferRows = 1 << 22;  // the partitioned route's rows
+constexpr int kTinyRowsABlock = 128;        // the tiny route's rows a block
+constexpr int kTinyTransferCtas = 264;      // two an SM
+
+enum TransferLayout { kOneRow = 1, kStridedRows = 2, kAdjacentRows = 3 };
+enum TransferInsert { kBitInsert = 1, kReadFirstInsert = 2, kWarpOrInsert = 3 };
+enum TransferRoute {
+  kL2Route = 1,
+  kTinyTransferRoute = 2,
+  kPartitionedTransfer = 3
+};
+
+struct TransferPlan {
+  int layout, insert, route;
+};
+
+// 0 each: transfer_plan's rule; otherwise that layout, insert or route
+// (the tiny route only where the filter has at most 64 blocks, the
+// partitioned one only where it has more) (bloom_transfer_force).
+TransferPlan forced_transfer = {0, 0, 0};
+
+TransferPlan transfer_plan(int n, int log2nb_out) {
+  TransferPlan p;
+  int route = forced_transfer.route;
+  if (log2nb_out <= kTinyLog2) {
+    bool tiny = route ? route != kL2Route
+                      : n >= kTinyRowsABlock << log2nb_out;
+    p.route = tiny ? kTinyTransferRoute : kL2Route;
+  } else if (route == kL2Route || route == kPartitionedTransfer) {
+    p.route = route;
+  } else {
+    p.route = n >= kManyTransferRows ? kPartitionedTransfer : kL2Route;
   }
+  p.layout = forced_transfer.layout ? forced_transfer.layout
+             : p.route == kPartitionedTransfer ? kAdjacentRows
+                                               : kOneRow;
+  p.insert = forced_transfer.insert ? forced_transfer.insert : kBitInsert;
+  return p;
+}
+
+struct TransferArgs {
+  const uint32_t* in_words;
+  const uint32_t* in_lo;
+  const uint32_t* in_hi;
+  const uint32_t* out_lo;
+  const uint32_t* out_hi;
+  const uint8_t* mask;
+  uint8_t* ok;
+  uint32_t* out_words;
+  int log2nb_in, log2nb_out, k, n;
+  bool adjacent;  // the columns allow adjacent rows (see K7's note)
+};
+
+// Probes R rows a thread of the tile from row `base` (blockDim.x threads:
+// adjacent rows where kAdjacent and a.adjacent, else strided), writes their
+// ok bytes, and returns each row's ok and its outgoing key's hash (0 where
+// not ok).
+template <int R, bool kAdjacent>
+__device__ __forceinline__ void transfer_probe(const TransferArgs& a,
+                                               int base, bool (&ok)[R],
+                                               uint32_t (&g)[R]) {
+  static_assert(!kAdjacent || R % 4 == 0, "adjacent rows come 4 at a time");
+  bool adj = kAdjacent && a.adjacent;
+  int first = adj ? base + threadIdx.x * R : base + threadIdx.x;
+  int step = adj ? 1 : blockDim.x;
+  bool full = adj && first + R <= a.n;  // one vector access per 4 rows
+  uint32_t h[R];
+  if constexpr (kAdjacent) {
+    if (full) {
+#pragma unroll
+      for (int q = 0; q < R / 4; ++q) {
+        unsigned m4 =
+            __ldg(reinterpret_cast<const unsigned*>(a.mask + first) + q);
+        uint4 x = make_uint4(0u, 0u, 0u, 0u), y = x;
+        if (m4) {
+          x = __ldg(reinterpret_cast<const uint4*>(a.in_lo + first) + q);
+          y = __ldg(reinterpret_cast<const uint4*>(a.in_hi + first) + q);
+        }
+        uint32_t lo[4] = {x.x, x.y, x.z, x.w}, hi[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ok[4 * q + i] = (m4 >> (8 * i)) & 0xffu;
+          h[4 * q + i] = key_hash(lo[i], hi[i]);
+        }
+      }
+    }
+  }
+  if (!full) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      int r = first + i * step;
+      ok[i] = r < a.n && a.mask[r];
+      h[i] = ok[i] ? key_hash(__ldg(a.in_lo + r), __ldg(a.in_hi + r)) : 0u;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (ok[i]) ok[i] = block_hit(a.in_words, h[i], a.log2nb_in, a.k);
+  }
+  if constexpr (kAdjacent) {
+    if (full) {
+#pragma unroll
+      for (int q = 0; q < R / 4; ++q) {
+        unsigned packed = 0u;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) packed |= (unsigned)ok[4 * q + i] << (8 * i);
+        reinterpret_cast<unsigned*>(a.ok + first)[q] = packed;
+        uint4 x = make_uint4(0u, 0u, 0u, 0u), y = x;
+        if (packed) {
+          x = __ldg(reinterpret_cast<const uint4*>(a.out_lo + first) + q);
+          y = __ldg(reinterpret_cast<const uint4*>(a.out_hi + first) + q);
+        }
+        uint32_t lo[4] = {x.x, x.y, x.z, x.w}, hi[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          g[4 * q + i] = ok[4 * q + i] ? key_hash(lo[i], hi[i]) : 0u;
+        }
+      }
+    }
+  }
+  if (!full) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      int r = first + i * step;
+      if (r < a.n) a.ok[r] = ok[i] ? 1 : 0;
+      g[i] = ok[i] ? key_hash(__ldg(a.out_lo + r), __ldg(a.out_hi + r)) : 0u;
+    }
+  }
+}
+
+// ORs the survivor's (live) outgoing key with hash h into `words` (the
+// tiny route's shared filter, or the output in L2). Every lane of the warp
+// calls it (kWarpOrInsert votes).
+template <int kInsert, bool kTiny>
+__device__ __forceinline__ void transfer_insert(uint32_t* words, bool live,
+                                                uint32_t h, int log2nb,
+                                                int k) {
+  if (kTiny) {
+    if (!live) return;
+    uint32_t* blk = words + block_of(h, log2nb) * kLanes;
+    uint32_t g1 = fmix32(h ^ kGolden), g2 = fmix32(h ^ kP2) | 1u;
+    for (int j = 0; j < k; ++j) {
+      uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
+      slice_or(blk + (pos >> 5), 1u << (pos & 31u));
+    }
+  } else if (kInsert == kWarpOrInsert) {
+    unsigned alive = __ballot_sync(0xffffffffu, live);
+    if (!live) return;
+    uint32_t b = block_of(h, log2nb);
+    unsigned peers = __match_any_sync(alive, b);
+    uint32_t g1 = fmix32(h ^ kGolden), g2 = fmix32(h ^ kP2) | 1u;
+    uint32_t u[kLanes];
+#pragma unroll
+    for (int w = 0; w < kLanes; ++w) u[w] = 0u;
+    for (int j = 0; j < k; ++j) {
+      uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
+#pragma unroll
+      for (int w = 0; w < kLanes; ++w) {
+        u[w] |= (pos >> 5) == (uint32_t)w ? 1u << (pos & 31u) : 0u;
+      }
+    }
+    bool lead = (threadIdx.x & 31u) == (unsigned)(__ffs(peers) - 1);
+#pragma unroll
+    for (int w = 0; w < kLanes; ++w) {
+      uint32_t bits = __reduce_or_sync(peers, u[w]);
+      if (lead && bits) atomicOr(words + (size_t)b * kLanes + w, bits);
+    }
+  } else if (live) {
+    if (kInsert == kReadFirstInsert) {
+      block_insert<true>(words, h, log2nb, k);
+    } else {
+      bit_insert(words, h, log2nb, k);
+    }
+  }
+}
+
+// K7's kernel on the L2 and tiny routes: on the L2 route one tile of
+// kThreads * R rows a CTA; on the tiny route each CTA walks tiles
+// blockIdx.x, blockIdx.x + gridDim.x, ... into its shared copy of the
+// outgoing filter, then ORs (or, alone, stores) it into the output.
+template <int R, bool kAdjacent, int kInsert, bool kTiny>
+__global__ void __launch_bounds__(kThreads)
+    transfer_kernel(TransferArgs a) {
+  extern __shared__ uint4 tiny_vecs[];  // kTiny: the outgoing filter
+  uint32_t* tiny = reinterpret_cast<uint32_t*>(tiny_vecs);
+  int vecs = (kLanes / 4) << a.log2nb_out;
+  int rows = kThreads * R;
+  bool ok[R];
+  uint32_t g[R];
+  if (kTiny) {
+    for (int i = threadIdx.x; i < vecs; i += kThreads) {
+      tiny_vecs[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    __syncthreads();
+    for (int t = blockIdx.x * rows; t < a.n; t += gridDim.x * rows) {
+      transfer_probe<R, kAdjacent>(a, t, ok, g);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        transfer_insert<kInsert, true>(tiny, ok[i], g[i], a.log2nb_out, a.k);
+      }
+    }
+    __syncthreads();
+    if (gridDim.x == 1) {
+      uint4* out = reinterpret_cast<uint4*>(a.out_words);
+      for (int i = threadIdx.x; i < vecs; i += kThreads) out[i] = tiny_vecs[i];
+    } else {
+      const unsigned long long* src =
+          reinterpret_cast<const unsigned long long*>(tiny);
+      unsigned long long* out =
+          reinterpret_cast<unsigned long long*>(a.out_words);
+      for (int i = threadIdx.x; i < 2 * vecs; i += kThreads) {
+        unsigned long long v = src[i];
+        if (v) atomicOr(out + i, v);
+      }
+    }
+  } else {
+    transfer_probe<R, kAdjacent>(a, blockIdx.x * rows, ok, g);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      transfer_insert<kInsert, false>(a.out_words, ok[i], g[i],
+                                      a.log2nb_out, a.k);
+    }
+  }
+}
+
+using TransferFn = void (*)(TransferArgs);
+
+template <int R, bool kAdjacent>
+TransferFn transfer_fn(int insert, bool tiny) {
+  if (tiny) return transfer_kernel<R, kAdjacent, kBitInsert, true>;
+  switch (insert) {
+    case kReadFirstInsert:
+      return transfer_kernel<R, kAdjacent, kReadFirstInsert, false>;
+    case kWarpOrInsert:
+      return transfer_kernel<R, kAdjacent, kWarpOrInsert, false>;
+    default:
+      return transfer_kernel<R, kAdjacent, kBitInsert, false>;
+  }
+}
+
+// K7's partitioned route, first kernel: R rows a thread probed
+// (transfer_probe), and the survivors' outgoing hashes appended to the
+// list: a CTA counts its survivors by a scan and takes its place in stripe
+// blockIdx.x mod kListStripes with one atomicAdd on that stripe's count
+// (zeroed before); its threads store their survivors' hashes contiguously
+// there (the order does not matter: OR is order-independent).
+template <int R, bool kAdjacent>
+__global__ void __launch_bounds__(kThreads)
+    transfer_compact_kernel(TransferArgs a, int* __restrict__ counts,
+                            uint32_t* __restrict__ list, int cap) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ int base[kWarps + 1];
+  bool ok[R];
+  uint32_t g[R];
+  transfer_probe<R, kAdjacent>(a, blockIdx.x * kThreads * R, ok, g);
+  int c = 0;
+#pragma unroll
+  for (int i = 0; i < R; ++i) c += ok[i];
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = c;  // inclusive scan over the warp
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) base[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kWarps ? base[lane] : 0;  // inclusive scan of the warps
+#pragma unroll
+    for (int o = 1; o < kWarps; o <<= 1) {
+      int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    int stripe = blockIdx.x & (kListStripes - 1);
+    int at = 0;
+    if (lane == kWarps - 1 && w) {
+      at = atomicAdd(counts + stripe * kCountStride, w) + stripe * cap;
+    }
+    at = __shfl_sync(0xffffffffu, at, kWarps - 1);
+    if (lane < kWarps) base[lane] = at + w - base[lane];
+  }
+  __syncthreads();
+  int at = base[warp] + x - c;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (ok[i]) list[at++] = g[i];
+  }
+}
+
+// Hashes a stripe of K7's survivors' list holds for n rows: a stripe gets
+// at most ceil(CTAs / kListStripes) CTAs of at most kThreads *
+// kTransferRows survivors each, so n / kListStripes + 2 * 1024 will do;
+// rounded up to whole tiles of the scatter.
+int list_cap(int n) {
+  int cap = (n + kListStripes - 1) / kListStripes +
+            2 * kThreads * kTransferRows;
+  return (cap + kTile - 1) / kTile * kTile;
+}
+
+// Zeroes `nvec` 16-byte words (K7's outgoing filter, or its cursors): a
+// store each, as torch's own fill does (cheaper on the card than a
+// cudaMemsetAsync of the same bytes).
+__global__ void zero_kernel(uint4* __restrict__ p, long long nvec) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < nvec) p[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+int zero_words(void* p, size_t bytes, cudaStream_t st) {
+  long long nvec = (long long)(bytes / 16);
+  zero_kernel<<<(unsigned)((nvec + kThreads - 1) / kThreads), kThreads, 0,
+                st>>>(static_cast<uint4*>(p), nvec);
+  return (int)cudaGetLastError();
+}
+
+// K2's partitioned route's layout of its scratch for up to `count` rows
+// into 2^log2nb blocks: the cursors first (fill: an int a slice, one for
+// the overflow list, then `extra` more for the caller), the slices'
+// regions `hs` ([p, cap]), the overflow list ([count]).
+struct Partition {
+  int log2s, log2p, p, cap, cursors;
+  int* fill;
+  uint32_t* hs;
+  uint32_t* overflow;
+};
+
+Partition partition(int count, int log2nb, int extra, void* scratch) {
+  Partition q;
+  q.log2s = slice_log2(log2nb);
+  q.log2p = log2nb - q.log2s;
+  q.p = 1 << q.log2p;
+  q.cap = slice_cap(count, q.log2p);
+  q.cursors = q.p + 1 + extra;
+  q.fill = static_cast<int*>(scratch);
+  q.hs = reinterpret_cast<uint32_t*>(q.fill + q.cursors);
+  q.overflow = q.hs + (size_t)q.p * q.cap;
+  return q;
+}
+
+long long partition_bytes(const Partition& q, int count) {
+  return 4ll * q.cursors + 4ll * q.p * q.cap + 4ll * count;
+}
+
+// K2's partitioned route after its cursors are zeroed: the scatter of
+// `rows` (grid_rows of them at most), each slice built in shared memory and
+// stored whole, the overflow list ORed into L2. `words` need not be zeroed.
+template <class Rows>
+int partitioned_kernels(Rows rows, int grid_rows, const Partition& q,
+                        int log2nb, int k, uint32_t* words, cudaStream_t st) {
+  // the largest shared memory sizes, once a device
+  static bool attrs_set[kMaxDevices] = {};
+  int dev = 0;
+  int err = cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev >= kMaxDevices || !attrs_set[dev]) {
+    int scatter_max = 4 * (3 * (1 << kMaxSlicesLog2) + 1 + kTile);
+    err = cudaFuncSetAttribute(slice_scatter_kernel<BuildRows>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               scatter_max);
+    if (!err) {
+      err = cudaFuncSetAttribute(slice_scatter_kernel<ListRows>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 scatter_max);
+    }
+    if (!err) {
+      err = cudaFuncSetAttribute(slice_build_kernel<false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kLanes * 4 << kMaxSliceLog2);
+    }
+    if (err) return err;
+    if (dev < kMaxDevices) attrs_set[dev] = true;
+  }
+  size_t scatter_smem = 4 * ((size_t)3 * q.p + 1 + kTile);
+  size_t build_smem = (size_t)kLanes * 4 << q.log2s;
+  slice_scatter_kernel<<<(grid_rows + kTile - 1) / kTile, kPassThreads,
+                         scatter_smem, st>>>(rows, q.log2p, q.cap, q.fill,
+                                             q.hs, q.overflow);
+  slice_build_kernel<false><<<q.p, kBuildThreads, build_smem, st>>>(
+      nullptr, nullptr, nullptr, nullptr, q.hs, q.fill, q.cap, 0, log2nb,
+      q.log2s, k, words);
+  overflow_kernel<<<kOverflowCtas, kThreads, 0, st>>>(q.overflow, q.fill + q.p,
+                                                      log2nb, k, words);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -637,9 +1086,7 @@ int bloom_build_force_route(int route) {
 long long bloom_build_scratch_bytes(int count, int log2nb) {
   Route route = build_route(count, log2nb);
   if (route.kind != kPartitioned) return 0;
-  int log2p = log2nb - route.log2s;
-  long long p = 1ll << log2p;
-  return 4 * (p + 1) + 4 * p * slice_cap(count, log2p) + 4ll * count;
+  return partition_bytes(partition(count, log2nb, 0, nullptr), count);
 }
 
 // lo/hi: uint32 key halves (device); idx: int32 [>= count] or null;
@@ -679,43 +1126,11 @@ int bloom_build(const void* lo, const void* hi, const void* idx,
       break;
     }
     case kPartitioned: {
-      int log2p = log2nb - route.log2s, p = 1 << log2p;
-      int cap = slice_cap(count, log2p);
-      int* fill = static_cast<int*>(scratch);
-      uint32_t* hs = reinterpret_cast<uint32_t*>(fill + p + 1);
-      uint32_t* overflow = hs + (size_t)p * cap;
-      size_t scatter_smem = 4 * ((size_t)3 * p + 1 + kTile);
-      size_t build_smem = (size_t)kLanes * 4 << route.log2s;
-      // the largest sizes, once a device
-      static bool attrs_set[kMaxDevices] = {};
-      int dev = 0;
-      err = cudaGetDevice(&dev);
+      Partition q = partition(count, log2nb, 0, scratch);
+      err = cudaMemsetAsync(q.fill, 0, 4 * ((size_t)q.p + 1), st);
       if (err) return err;
-      if (dev >= kMaxDevices || !attrs_set[dev]) {
-        err = cudaFuncSetAttribute(
-            slice_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            4 * (3 * (1 << kMaxSlicesLog2) + 1 + kTile));
-        if (!err) {
-          err = cudaFuncSetAttribute(
-              slice_build_kernel<false>,
-              cudaFuncAttributeMaxDynamicSharedMemorySize,
-              kLanes * 4 << kMaxSliceLog2);
-        }
-        if (err) return err;
-        if (dev < kMaxDevices) attrs_set[dev] = true;
-      }
-      err = cudaMemsetAsync(fill, 0, 4 * ((size_t)p + 1), st);
-      if (err) return err;
-      slice_scatter_kernel<<<(count + kTile - 1) / kTile, kPassThreads,
-                             scatter_smem, st>>>(lo32, hi32, ix, ok, count,
-                                                 log2p, cap, fill, hs,
-                                                 overflow);
-      slice_build_kernel<false><<<p, kBuildThreads, build_smem, st>>>(
-          nullptr, nullptr, nullptr, nullptr, hs, fill, cap, count, log2nb,
-          route.log2s, k, w);
-      overflow_kernel<<<kOverflowCtas, kThreads, 0, st>>>(overflow, fill + p,
-                                                          log2nb, k, w);
-      break;
+      return partitioned_kernels(BuildRows{lo32, hi32, ix, ok, count}, count,
+                                 q, log2nb, k, w, st);
     }
   }
   return (int)cudaGetLastError();
@@ -753,25 +1168,114 @@ int bloom_probe_force_rows(int rows) {
 // The rows a thread bloom_probe takes for n rows.
 int bloom_probe_rows(int n) { return probe_rows(n); }
 
+// K7's partitioned route keeps kListStripes * kCountStride + 3 ints after
+// K2's cursors: the stripes' counts from fill[p + 1], and 3 to make the
+// cursors whole 16-byte words (p is a power of two >= 8) for zero_words;
+// the survivors' list (kListStripes * list_cap(n) hashes) follows K2's
+// scratch.
+constexpr int kTransferCursors = kListStripes * kCountStride + 3;
+
+// Bytes of device scratch bloom_transfer needs for n rows into
+// 2^log2nb_out blocks: on the partitioned route K2's scratch for n rows
+// (the survivors are not known before the probe, and are at most n) with
+// K7's cursors, and the survivors' list; none on the others.
+long long bloom_transfer_scratch_bytes(int n, int log2nb_out) {
+  if (n <= 0) return 0;
+  TransferPlan p = transfer_plan(n, log2nb_out);
+  if (p.route != kPartitionedTransfer) return 0;
+  return partition_bytes(partition(n, log2nb_out, kTransferCursors, nullptr),
+                         n) +
+         4ll * kListStripes * list_cap(n);
+}
+
 // in_words: uint32 [2^log2nb_in, 8]; in_lo/in_hi/out_lo/out_hi: uint32 key
 // halves [n]; mask: uint8 [n]; ok: uint8 [n]; out_words: uint32
-// [2^log2nb_out, 8], zeroed by the caller.
+// [2^log2nb_out, 8], 16-byte aligned, need not be zeroed; scratch:
+// bloom_transfer_scratch_bytes(n, log2nb_out) bytes, 16-byte aligned. On
+// `stream`: zero_kernel and one kernel (the tiny route's single CTA: that
+// kernel alone), or on the partitioned route zero_kernel (the cursors) and
+// four kernels (K7's note).
 int bloom_transfer(const void* in_words, int log2nb_in, const void* in_lo,
                    const void* in_hi, const void* out_lo, const void* out_hi,
                    const void* mask, int n, int log2nb_out, int k, void* ok,
-                   void* out_words, void* stream) {
-  if (n > 0) {
-    int grid = (n + kThreads - 1) / kThreads;
-    transfer_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(in_words), log2nb_in,
-        static_cast<const uint32_t*>(in_lo),
-        static_cast<const uint32_t*>(in_hi),
-        static_cast<const uint32_t*>(out_lo),
-        static_cast<const uint32_t*>(out_hi),
-        static_cast<const uint8_t*>(mask), n, log2nb_out, k,
-        static_cast<uint8_t*>(ok), static_cast<uint32_t*>(out_words));
+                   void* out_words, void* scratch, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  size_t filter_bytes = (size_t)kLanes * 4 << log2nb_out;
+  if (n <= 0) return zero_words(out_words, filter_bytes, st);
+  TransferPlan p = transfer_plan(n, log2nb_out);
+  uintptr_t cols = reinterpret_cast<uintptr_t>(in_lo) |
+                   reinterpret_cast<uintptr_t>(in_hi) |
+                   reinterpret_cast<uintptr_t>(out_lo) |
+                   reinterpret_cast<uintptr_t>(out_hi);
+  uintptr_t bytes = reinterpret_cast<uintptr_t>(mask) |
+                    reinterpret_cast<uintptr_t>(ok);
+  TransferArgs a = {static_cast<const uint32_t*>(in_words),
+                    static_cast<const uint32_t*>(in_lo),
+                    static_cast<const uint32_t*>(in_hi),
+                    static_cast<const uint32_t*>(out_lo),
+                    static_cast<const uint32_t*>(out_hi),
+                    static_cast<const uint8_t*>(mask),
+                    static_cast<uint8_t*>(ok),
+                    static_cast<uint32_t*>(out_words),
+                    log2nb_in, log2nb_out, k, n,
+                    (cols & 15u) == 0 && (bytes & 3u) == 0};
+  bool four = p.layout != kOneRow;
+  int rows = four ? kThreads * kTransferRows : kThreads;
+  int grid = (n + rows - 1) / rows;
+  int err = 0;
+  if (p.route == kPartitionedTransfer) {
+    Partition q = partition(n, log2nb_out, kTransferCursors, scratch);
+    int* counts = q.fill + q.p + 1;
+    uint32_t* list = q.overflow + n;
+    int cap = list_cap(n);
+    err = zero_words(q.fill, 4 * (size_t)q.cursors, st);
+    if (err) return err;
+    auto compact = p.layout == kOneRow ? transfer_compact_kernel<1, false>
+                   : p.layout == kStridedRows
+                       ? transfer_compact_kernel<kTransferRows, false>
+                       : transfer_compact_kernel<kTransferRows, true>;
+    compact<<<grid, kThreads, 0, st>>>(a, counts, list, cap);
+    return partitioned_kernels(ListRows{list, counts, cap},
+                               kListStripes * cap, q, log2nb_out, k,
+                               static_cast<uint32_t*>(out_words), st);
   }
+  bool tiny = p.route == kTinyTransferRoute;
+  if (tiny && grid > kTinyTransferCtas) grid = kTinyTransferCtas;
+  if (!tiny || grid > 1) {
+    err = zero_words(out_words, filter_bytes, st);
+    if (err) return err;
+  }
+  TransferFn fn = p.layout == kOneRow ? transfer_fn<1, false>(p.insert, tiny)
+                  : p.layout == kStridedRows
+                      ? transfer_fn<kTransferRows, false>(p.insert, tiny)
+                      : transfer_fn<kTransferRows, true>(p.insert, tiny);
+  fn<<<grid, kThreads, tiny ? filter_bytes : 0, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Makes every later bloom_transfer (and its scratch query) take `layout`
+// (1 one row a thread, 2 four strided rows, 3 four adjacent rows where the
+// columns allow), `insert` (1 bit_insert, 2 block_insert<true>, 3 the warp
+// OR) and `route` (1 L2; 2 tiny where the filter has at most 64 blocks; 3
+// partitioned where it has more: no insert choice); 0 for any of them:
+// the rule's. For timing them against each
+// other at one shape; not thread-safe. Returns 0, or cudaErrorInvalidValue
+// for a value out of range (nothing is changed then).
+int bloom_transfer_force(int layout, int insert, int route) {
+  if (layout < 0 || layout > kAdjacentRows || insert < 0 ||
+      insert > kWarpOrInsert || route < 0 || route > kPartitionedTransfer) {
+    return (int)cudaErrorInvalidValue;
+  }
+  forced_transfer = {layout, insert, route};
+  return 0;
+}
+
+// The plan bloom_transfer takes for n rows into 2^log2nb_out blocks:
+// layout | insert << 4 | route << 8 (the values bloom_transfer_force
+// takes).
+int bloom_transfer_plan(int n, int log2nb_out) {
+  TransferPlan p = transfer_plan(n, log2nb_out);
+  return p.layout | p.insert << 4 | p.route << 8;
 }
 
 }  // extern "C"

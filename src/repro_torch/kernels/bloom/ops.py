@@ -78,8 +78,15 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p]
         lib.bloom_transfer.restype = ctypes.c_int
+        lib.bloom_transfer_scratch_bytes.argtypes = [ctypes.c_int,
+                                                     ctypes.c_int]
+        lib.bloom_transfer_scratch_bytes.restype = ctypes.c_longlong
+        lib.bloom_transfer_force.argtypes = [ctypes.c_int] * 3
+        lib.bloom_transfer_force.restype = ctypes.c_int
+        lib.bloom_transfer_plan.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.bloom_transfer_plan.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -331,13 +338,20 @@ def transfer(in_words: torch.Tensor, in_lo: torch.Tensor,
     check_bool(mask, dev, n, "mask")
     log2nb_in, log2nb_out = _log2(in_words.shape[0]), _log2(nblocks)
     ok = torch.empty(n, dtype=torch.bool, device=dev)
-    words = torch.zeros((nblocks, LANES), dtype=torch.int32, device=dev)
     if n == 0:
-        return ok, words
+        return ok, torch.zeros((nblocks, LANES), dtype=torch.int32,
+                               device=dev)
+    # the library zeroes the words where its route needs it; the scratch
+    # (the partitioned route's, as K2's) is its for the call (bloom.cu, K7)
+    words = torch.empty((nblocks, LANES), dtype=torch.int32, device=dev)
+    nscratch = int(lib.bloom_transfer_scratch_bytes(n, log2nb_out))
+    scratch = (torch.empty(nscratch, dtype=torch.uint8, device=dev)
+               if nscratch else None)
     err = lib.bloom_transfer(
         in_words.data_ptr(), log2nb_in, in_lo.data_ptr(), in_hi.data_ptr(),
         out_lo.data_ptr(), out_hi.data_ptr(), mask.data_ptr(), n, log2nb_out,
         int(k), ok.data_ptr(), words.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "bloom_transfer")
     LAUNCHES["bloom_transfer"] += 1

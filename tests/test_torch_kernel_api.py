@@ -358,9 +358,11 @@ def test_wrapper_raises_when_its_library_call_fails(monkeypatch, name):
     error raises RuntimeError naming it, and counts no launch; on a
     device that is neither CUDA nor the CPU it raises before any call."""
     mod, key, entry, call = _kernel_call(name)
-    # K6a's wrapper asks the library for its scratch size first
+    # K6a's and K7's wrappers ask the library for their scratch size first
     fake = types.SimpleNamespace(**{entry: lambda *a: 700,
                                     "joinmap_build_scratch_bytes":
+                                        lambda *a: 0,
+                                    "bloom_transfer_scratch_bytes":
                                         lambda *a: 0})
     monkeypatch.setattr(mod, "_lib", lambda: fake)
 

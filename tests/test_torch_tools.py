@@ -1,5 +1,6 @@
-"""The design-reading tools (`tools/k3_floor.py`, `tools/k5_passes.py`)
-and `chip_smoke.py`'s input and bound helpers, on the CPU.
+"""The design-reading tools (`tools/k3_floor.py`, `tools/k5_passes.py`,
+`tools/k7_floor.py`) and `chip_smoke.py`'s input and bound helpers, on
+the CPU.
 
 The tools build their variant kernels from copies of the port's CUDA
 sources, cut and pasted by text: these tests hold each cut against the
@@ -32,6 +33,7 @@ def _tool(name):
 
 K3_FLOOR = _tool("k3_floor")
 K5_PASSES = _tool("k5_passes")
+K7_FLOOR = _tool("k7_floor")
 
 
 @pytest.mark.parametrize("name", sorted(K3_FLOOR.VARIANTS))
@@ -51,6 +53,60 @@ def test_k3_floor_variant_sources(name):
     for kernel in ("multi_probe_kernel", "slice_build_kernel",
                    "transfer_kernel", "__global__ void probe_kernel"):
         assert kernel in src, kernel
+
+
+@pytest.mark.parametrize("name", sorted(K7_FLOOR.VARIANTS))
+def test_k7_floor_variant_sources(name):
+    """Each K7 variant: `bloom.cu` with one `bloom_transfer`, which zeroes
+    the outgoing filter and launches the added `floor_kernel` (`memset`:
+    no kernel), added inside the anonymous namespace with every
+    placeholder filled, and K1-K7's own kernels still in place."""
+    text = build.SOURCES["bloom"].read_text()
+    src = K7_FLOOR.replace_k7(text, K7_FLOOR.VARIANTS[name])
+    assert src.count("int bloom_transfer(") == 1
+    launcher = src[src.index("int bloom_transfer("):].split("\n}\n")[0]
+    assert "zero_words(" in launcher
+    assert ("floor_kernel<<<" in launcher) == (name != "memset")
+    if name != "memset":
+        at = src.index("tools/k7_floor.py's variant of K7")
+        added = src[at:src.index("}  // namespace")]
+        assert "__global__" in added and "floor_kernel(" in added
+        for mark in ("ROWS", "PROBE", "INSERT", "ADJACENT"):
+            assert mark not in added, mark
+    for kernel in ("multi_probe_kernel", "slice_build_kernel",
+                   "__global__ void probe_kernel", "build_kernel(",
+                   "transfer_kernel(TransferArgs a)"):
+        assert kernel in src, kernel
+
+
+def test_transfer_cases_and_plan_codes():
+    """K7's cases from small catalog columns: case C's incoming filter is
+    sized for the Q5 rows, its outgoing one for every lineitem row, the
+    distinct case's outgoing keys are distinct, "5003 ragged" goes into 8
+    blocks; `transfer_plan` decodes `bloom_transfer_plan`'s fields."""
+    import types
+    from repro_torch.core import bloom
+    from repro_torch.kernels.bloom import ops as kb
+    rng = np.random.default_rng(5)
+    api = {"o_orderkey": np.arange(4000, dtype=np.int64) * 4,
+           "q5": rng.random(4000) < 0.15,
+           "l_orderkey": np.sort(rng.integers(0, 4000, 9000)) * 4,
+           "l_suppkey": rng.integers(0, 100, 9000)}
+    cases = chip_smoke.transfer_cases(torch, np, kb, bloom,
+                                      torch.device("cpu"), api)
+    assert list(cases) == ["SF 1 case C", "case C distinct", "5003 ragged"]
+    c, d, r = cases.values()
+    assert c[0].shape[0] == bloom.blocks_for(int(api["q5"].sum()))
+    assert c[6] == d[6] == bloom.blocks_for(9000) and bool(c[5].all())
+    assert len(torch.unique(d[3])) == 9000
+    assert r[6] == 8 and r[1].shape[0] == 5003
+    ok, words = kb.transfer(*c)
+    assert words.shape == (c[6], 8) and int(ok.sum()) > 0
+    lib = types.SimpleNamespace(
+        bloom_transfer_plan=lambda n, log2nb: 3 | 2 << 4 | 2 << 8)
+    assert chip_smoke.transfer_plan(lib, 5, 64) == {
+        "layout": "adjacent", "insert": "read_first", "route": "tiny"}
+    assert all(nb is None or nb <= 64 for _, nb in chip_smoke.TRANSFER_SWEEP)
 
 
 def test_k5_passes_source():
