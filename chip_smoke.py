@@ -63,8 +63,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    distinct, and a ragged shape into 8 blocks (`transfer_cases`); with
    `--phase kernels` only, K7 at 2^16 to 2^23 rows and into filters of
    at most 64 blocks, foreign and distinct outgoing keys, with each
-   layout, insert and route forced (`transfer_sweep`; each case's device
-   ops name the outgoing filter's memset apart from the kernel); K6a/K6b
+   plan (one or four rows a thread, L2, tiny or partitioned route)
+   forced (`transfer_sweep`; each case's device ops name the outgoing
+   filter's zeroing apart from the kernels); K6a/K6b
    (key set build and membership probe) at case A's (1.5 M orders keys,
    2^22 slots, probed by lineitem's order keys), each beside a small
    ragged shape (their
@@ -492,9 +493,9 @@ def transfer_cases(torch, np, kb, bloom, dev, api) -> dict:
 TRANSFER_SWEEP = ([(1 << log2n, None) for log2n in range(16, 24)]
                   + [(1024, 64), (4096, 64), (16384, 64), (5003, 8),
                      (1 << 16, 1)])
-#: bloom_transfer_force's codes (bloom.cu, K7's note)
-TRANSFER_LAYOUTS = {1: "one", 2: "strided", 3: "adjacent"}
-TRANSFER_INSERTS = {1: "bit", 2: "read_first", 3: "warp_or"}
+#: bloom_transfer_force's codes (bloom.cu, K7's note): rows a thread (4:
+#: adjacent where the columns allow) and routes
+TRANSFER_ROWS = {1: "one", 4: "adjacent"}
 TRANSFER_ROUTES = {1: "l2", 2: "tiny", 3: "partitioned"}
 
 
@@ -527,28 +528,20 @@ def transfer_sweep_cases(torch, np, kb, bloom, dev) -> dict:
 
 
 def transfer_plans(nb: int) -> dict:
-    """K7's distinct plans into nb blocks, (layout, insert, route) codes ->
-    name: every layout and insert on the L2 route; every layout on the
-    tiny route (at most 64 blocks: its inserts go to shared memory) or the
-    partitioned one (more: its layout and inserts are its own)."""
-    plans = {(layout, insert, 1): f"{lname}_{iname}_l2"
-             for layout, lname in TRANSFER_LAYOUTS.items()
-             for insert, iname in TRANSFER_INSERTS.items()}
-    if nb <= 64:
-        plans.update({(layout, 1, 2): f"{lname}_tiny"
-                      for layout, lname in TRANSFER_LAYOUTS.items()})
-    else:
-        plans[(3, 1, 3)] = "partitioned"
-    return plans
+    """K7's plans into nb blocks, (rows, route) codes -> name: one and
+    four rows a thread on the L2 route and on the tiny route (at most 64
+    blocks) or the partitioned one (more)."""
+    routes = (1, 2) if nb <= 64 else (1, 3)
+    return {(rows, route): f"{rname}_{TRANSFER_ROUTES[route]}"
+            for route in routes for rows, rname in TRANSFER_ROWS.items()}
 
 
 def transfer_plan(lib, n: int, nb: int) -> dict:
-    """The layout, insert and route K7's rule takes for n rows into nb
+    """The rows a thread and the route K7's rule takes for n rows into nb
     blocks (`bloom_transfer_plan`)."""
     code = lib.bloom_transfer_plan(n, nb.bit_length() - 1)
-    return {"layout": TRANSFER_LAYOUTS[code & 15],
-            "insert": TRANSFER_INSERTS[code >> 4 & 15],
-            "route": TRANSFER_ROUTES[code >> 8]}
+    return {"rows": TRANSFER_ROWS[code & 15],
+            "route": TRANSFER_ROUTES[code >> 4]}
 
 
 def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
@@ -834,12 +827,13 @@ def probe_rows_sweep(torch, np, kb, bloom, dev) -> None:
 
 
 def transfer_sweep(torch, np, kb, bloom, dev) -> None:
-    """K7 with each layout, insert and route forced in turn
+    """K7 with each plan (rows a thread, route) forced in turn
     (`bloom_transfer_force`) at `transfer_sweep_cases`' shapes, each run
     bit-exact against the plain version (survivors and words): one line
     a shape with every plan's CUDA-event and device ms and the plan K7's
-    rule takes there (`kManyTransferRows` and the rule's insert in
-    bloom.cu come from these)."""
+    rule takes there (`kManyTransferRows` and `kTinyRowsABlock` in
+    bloom.cu come from these). The inserts other than one atomic a bit
+    are `tools/k7_floor.py`'s variants."""
     lib = kb._lib()
     for case, args in transfer_sweep_cases(torch, np, kb, bloom,
                                            dev).items():
@@ -849,8 +843,8 @@ def transfer_sweep(torch, np, kb, bloom, dev) -> None:
                "case": "transfer sweep", "shape": case, "n": n,
                "nblocks_out": nb, "survivors": int(ok_ref.sum()),
                "rule": transfer_plan(lib, n, nb)}
-        for (layout, insert, route), name in transfer_plans(nb).items():
-            check(lib.bloom_transfer_force(layout, insert, route) == 0,
+        for (rows, route), name in transfer_plans(nb).items():
+            check(lib.bloom_transfer_force(rows, route) == 0,
                   f"bloom_transfer_force {name}")
             try:
                 ok, words = kb.transfer(*args)
@@ -863,7 +857,7 @@ def transfer_sweep(torch, np, kb, bloom, dev) -> None:
                 rec[f"{name}_device_ms"] = device_ms(
                     torch, lambda: kb.transfer(*args))
             finally:
-                lib.bloom_transfer_force(0, 0, 0)
+                lib.bloom_transfer_force(0, 0)
         emit(rec)
 
 

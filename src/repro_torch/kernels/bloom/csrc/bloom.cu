@@ -357,7 +357,6 @@ struct BuildRows {
   const uint8_t* valid;
   int count;
   __device__ __forceinline__ int size() const { return count; }
-  __device__ __forceinline__ bool skip(int) const { return false; }
   __device__ __forceinline__ void operator()(int t0, uint32_t (&h)[kPassRows],
                                              bool (&live)[kPassRows]) const {
     rows_hash(lo, hi, idx, valid, t0 + threadIdx.x, blockDim.x, count, h,
@@ -365,31 +364,19 @@ struct BuildRows {
   }
 };
 
-// K7's survivors' list (transfer_compact_kernel): kListStripes stripes of
-// `cap` hashes each (a multiple of kTile), stripe s holding
-// counts[s * kCountStride] hashes from its start (the counts 128 bytes
-// apart, so their atomics spread over L2's slices). A row of the scatter
-// is a slot of the list; a tile past its stripe's count is skipped whole.
-constexpr int kListStripes = 32;
-constexpr int kCountStride = 32;
-
+// K7's rows for the scatter: the survivors' outgoing hashes, a list of *n
+// (written by transfer_compact_kernel).
 struct ListRows {
   const uint32_t* list;
-  const int* counts;
-  int cap;
-  __device__ __forceinline__ int size() const { return kListStripes * cap; }
-  __device__ __forceinline__ bool skip(int t0) const {
-    int s = t0 / cap;
-    return t0 - s * cap >= __ldg(counts + s * kCountStride);
-  }
+  const int* n;
+  __device__ __forceinline__ int size() const { return *n; }
   __device__ __forceinline__ void operator()(int t0, uint32_t (&h)[kPassRows],
                                              bool (&live)[kPassRows]) const {
-    int s = t0 / cap;
-    int end = s * cap + __ldg(counts + s * kCountStride);
+    int count = *n;
 #pragma unroll
     for (int i = 0; i < kPassRows; ++i) {
       int r = t0 + threadIdx.x + i * blockDim.x;
-      live[i] = r < end;
+      live[i] = r < count;
       h[i] = live[i] ? __ldg(list + r) : 0u;
     }
   }
@@ -398,10 +385,9 @@ struct ListRows {
 // The partitioned route's scatter: each live row's hash into its slice's
 // region of `hs` (or the overflow list), a tile of kTile rows at a time,
 // staged in shared memory sorted by slice so the stores of a slice are
-// contiguous. `rows` gives the rows' count (size()), the tiles with no live
-// row (skip(t0), the same for the whole CTA), and a thread's kPassRows
-// hashes of the tile from row t0, and which are live: K2's build rows
-// (BuildRows) or K7's survivors' outgoing hashes (ListRows). fill[s]
+// contiguous. `rows` gives the rows' count (size()) and a thread's
+// kPassRows hashes of the tile from row t0, and which are live: K2's build
+// rows (BuildRows) or K7's survivors' outgoing hashes (ListRows). fill[s]
 // counts the hashes meant for slice s, fill[p] those on the overflow list
 // (all zeroed before).
 template <class Rows>
@@ -418,7 +404,6 @@ __global__ void __launch_bounds__(kPassThreads)
   uint32_t* stage = reinterpret_cast<uint32_t*>(spill + p);  // [kTile]
   int count = rows.size();
   for (int t0 = blockIdx.x * kTile; t0 < count; t0 += gridDim.x * kTile) {
-    if (rows.skip(t0)) continue;
     for (int s = threadIdx.x; s < p; s += blockDim.x) tile[s] = 0;
     uint32_t h[kPassRows];
     bool live[kPassRows];
@@ -618,46 +603,58 @@ __device__ __forceinline__ void bit_insert(uint32_t* __restrict__ words,
 // Bound on this card: memory. The mask byte in and the ok byte out per
 // row, the incoming key halves of the masked rows and the outgoing ones of
 // the survivors only (each 32-byte sector once), the incoming filter read
-// and the outgoing one written once; both filters mostly stay in the 50 MB
-// L2.
+// and the outgoing one written once: at chip_smoke.py's "SF 1 case C"
+// (6,000,205 rows, 987,900 survivors, a 16 MB outgoing filter) 0.0286 ms
+// on the H100.
+//
+// What sets the pace there (tools/k7_floor.py, device ms on the H100):
+// the outgoing filter's zeroing takes 0.006; the key and mask stream alone
+// 0.042 at one row a thread and 0.030 at four adjacent rows; the stream
+// and the incoming probe 0.053 and 0.045; the probe and the survivors'
+// inserts into L2 0.083 (one atomicOr a bit, the parent's kernel) and
+// 0.085. The inserts' ~4 M L2 atomics cost 0.030-0.040, on repeated keys
+// (about 90 copies each) and distinct ones alike; reading the block first
+// (block_insert<true>), 64-bit quarters, or a warp's survivors ORed
+// together first (__match_any_sync) all cost more (0.092-0.195).
 //
 // Design (the rule lives here only, in transfer_plan; bloom_transfer takes
 // it, bloom_transfer_force forces each part):
-//  - layout: one row a thread below kManyTransferRows rows; from there
-//    kTransferRows = 4 rows a thread, each row's probe chain (block_hit)
-//    after the last's, so a warp waits on the sum of its lanes' chains and
-//    not on the longest of each round (K3's lever). The rows of a thread
-//    are adjacent where the key columns are 16-byte aligned and the mask
-//    and ok 4-byte aligned: one 16-byte load of each key half column, one
-//    4-byte load of the mask and one 4-byte store of ok per 4 rows;
-//    otherwise, as for column views such as lo[1:], row i of thread t is
-//    base + i * blockDim + t, inside the same kernel.
-//  - insert (L2 route): kBitInsert (bit_insert: one 32-bit atomicOr a
-//    bit), kReadFirstInsert (block_insert<true>: the block read from L2
-//    first, so a repeated key costs a read and not atomics) or
-//    kWarpOrInsert (the survivors of a warp that share an outgoing block
-//    ORed together by __match_any_sync and __reduce_or_sync, one lane's
-//    atomics a word).
-//  - route: kTinyTransferRoute for an outgoing filter of at most
-//    2^kTinyLog2 = 64 blocks (2 KB): each CTA (kTinyTransferCtas at most,
-//    walking the tiles) builds it in shared memory and ORs its non-zero
-//    64-bit words into the output (one CTA: plain stores, no zeroing).
-//    kPartitionedTransfer: transfer_compact_kernel probes and appends the
-//    survivors' outgoing hashes to a list in the scratch (one atomicAdd a
-//    CTA, on one of 32 counters); K2's scatter, slice build and overflow
-//    kernels then build the
-//    filter from that list (ListRows) a slice at a time in shared memory
-//    and store each slice whole, so the filter needs no zeroing and its
-//    inserts no L2 atomics. kL2Route: the survivors OR into L2 after the
-//    filter is zeroed. Zeroing is zero_kernel's (a 16-byte store a
-//    thread), not a cudaMemsetAsync.
+//  - kPartitionedTransfer (outgoing filters of more than 64 blocks, from
+//    kManyTransferRows = 2^22 rows on): no L2 atomics and no zeroing of the
+//    filter. transfer_compact_kernel probes kTransferRows = 4 rows a
+//    thread, each row's probe chain (block_hit) after the last's, the
+//    rows adjacent where the key columns are 16-byte aligned and the mask
+//    and ok 4-byte aligned (one 16-byte load a key half column, one 4-byte
+//    mask load and one 4-byte ok store per 4 rows; otherwise, as for
+//    column views such as lo[1:], row i of thread t is base + i * blockDim
+//    + t, in the same kernel), and appends the survivors' outgoing hashes
+//    to a list (one atomicAdd a CTA, append_survivors); K2's scatter,
+//    slice build and overflow kernels then build the filter from the list
+//    (ListRows) a slice at a time in shared memory and store each slice
+//    whole. At case C: 0.070-0.072 ms against the parent's 0.080-0.083
+//    (1.16x; 1.2x needed 0.0687): the compaction kernel 0.0515, K2's
+//    scatter 0.0088 and slice build 0.0090, the overflow kernel 0.0012,
+//    the cursors' zeroing 0.0009. Loading the outgoing keys with the
+//    incoming ones before the probe (0.083), or reading the incoming
+//    block whole (0.104), was slower; so was the probe inside K2's scatter
+//    (0.087: a tile's survivors are too few a slice) and a compaction a
+//    warp at a time (0.073). Below 2^22 rows the four kernels' fixed cost
+//    loses to the L2 route (chip_smoke.py's transfer_sweep).
+//  - kTinyTransferRoute (at most 2^kTinyLog2 = 64 blocks, 2 KB, from
+//    kTinyRowsABlock = 128 rows a block on): each CTA (kTinyTransferCtas
+//    at most, walking the tiles) builds the filter in shared memory and
+//    ORs its non-zero 64-bit words into the output (one CTA: plain stores,
+//    no zeroing): 0.0041 against 0.0142 ms at 2^16 rows into one block.
+//  - kL2Route (otherwise): one row a thread, bit_insert into L2 after the
+//    filter is zeroed, the parent's kernel (four adjacent rows a thread
+//    were slower on this route at every size up to 2^22 rows).
+// Zeroing is zero_kernel's (a 16-byte store a thread): a cudaMemsetAsync
+// of the same bytes took 0.0002 ms more at small filters.
 constexpr int kTransferRows = 4;
 constexpr int kManyTransferRows = 1 << 22;  // the partitioned route's rows
 constexpr int kTinyRowsABlock = 128;        // the tiny route's rows a block
 constexpr int kTinyTransferCtas = 264;      // two an SM
 
-enum TransferLayout { kOneRow = 1, kStridedRows = 2, kAdjacentRows = 3 };
-enum TransferInsert { kBitInsert = 1, kReadFirstInsert = 2, kWarpOrInsert = 3 };
 enum TransferRoute {
   kL2Route = 1,
   kTinyTransferRoute = 2,
@@ -665,13 +662,13 @@ enum TransferRoute {
 };
 
 struct TransferPlan {
-  int layout, insert, route;
+  int rows, route;  // rows a thread (1 or kTransferRows), TransferRoute
 };
 
-// 0 each: transfer_plan's rule; otherwise that layout, insert or route
+// 0 each: transfer_plan's rule; otherwise those rows a thread or that route
 // (the tiny route only where the filter has at most 64 blocks, the
 // partitioned one only where it has more) (bloom_transfer_force).
-TransferPlan forced_transfer = {0, 0, 0};
+TransferPlan forced_transfer = {0, 0};
 
 TransferPlan transfer_plan(int n, int log2nb_out) {
   TransferPlan p;
@@ -685,10 +682,9 @@ TransferPlan transfer_plan(int n, int log2nb_out) {
   } else {
     p.route = n >= kManyTransferRows ? kPartitionedTransfer : kL2Route;
   }
-  p.layout = forced_transfer.layout ? forced_transfer.layout
-             : p.route == kPartitionedTransfer ? kAdjacentRows
-                                               : kOneRow;
-  p.insert = forced_transfer.insert ? forced_transfer.insert : kBitInsert;
+  p.rows = forced_transfer.rows ? forced_transfer.rows
+           : p.route == kPartitionedTransfer ? kTransferRows
+                                             : 1;
   return p;
 }
 
@@ -705,15 +701,15 @@ struct TransferArgs {
   bool adjacent;  // the columns allow adjacent rows (see K7's note)
 };
 
-// Probes R rows a thread of the tile from row `base` (blockDim.x threads:
-// adjacent rows where kAdjacent and a.adjacent, else strided), writes their
-// ok bytes, and returns each row's ok and its outgoing key's hash (0 where
-// not ok).
-template <int R, bool kAdjacent>
+// Probes R rows a thread of the tile from row `base` (blockDim.x threads;
+// at R = kTransferRows adjacent rows where a.adjacent, else strided),
+// writes their ok bytes, and returns each row's ok and its outgoing key's
+// hash (0 where not ok).
+template <int R>
 __device__ __forceinline__ void transfer_probe(const TransferArgs& a,
                                                int base, bool (&ok)[R],
                                                uint32_t (&g)[R]) {
-  static_assert(!kAdjacent || R % 4 == 0, "adjacent rows come 4 at a time");
+  constexpr bool kAdjacent = R % 4 == 0;
   bool adj = kAdjacent && a.adjacent;
   int first = adj ? base + threadIdx.x * R : base + threadIdx.x;
   int step = adj ? 1 : blockDim.x;
@@ -782,57 +778,12 @@ __device__ __forceinline__ void transfer_probe(const TransferArgs& a,
   }
 }
 
-// ORs the survivor's (live) outgoing key with hash h into `words` (the
-// tiny route's shared filter, or the output in L2). Every lane of the warp
-// calls it (kWarpOrInsert votes).
-template <int kInsert, bool kTiny>
-__device__ __forceinline__ void transfer_insert(uint32_t* words, bool live,
-                                                uint32_t h, int log2nb,
-                                                int k) {
-  if (kTiny) {
-    if (!live) return;
-    uint32_t* blk = words + block_of(h, log2nb) * kLanes;
-    uint32_t g1 = fmix32(h ^ kGolden), g2 = fmix32(h ^ kP2) | 1u;
-    for (int j = 0; j < k; ++j) {
-      uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
-      slice_or(blk + (pos >> 5), 1u << (pos & 31u));
-    }
-  } else if (kInsert == kWarpOrInsert) {
-    unsigned alive = __ballot_sync(0xffffffffu, live);
-    if (!live) return;
-    uint32_t b = block_of(h, log2nb);
-    unsigned peers = __match_any_sync(alive, b);
-    uint32_t g1 = fmix32(h ^ kGolden), g2 = fmix32(h ^ kP2) | 1u;
-    uint32_t u[kLanes];
-#pragma unroll
-    for (int w = 0; w < kLanes; ++w) u[w] = 0u;
-    for (int j = 0; j < k; ++j) {
-      uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
-#pragma unroll
-      for (int w = 0; w < kLanes; ++w) {
-        u[w] |= (pos >> 5) == (uint32_t)w ? 1u << (pos & 31u) : 0u;
-      }
-    }
-    bool lead = (threadIdx.x & 31u) == (unsigned)(__ffs(peers) - 1);
-#pragma unroll
-    for (int w = 0; w < kLanes; ++w) {
-      uint32_t bits = __reduce_or_sync(peers, u[w]);
-      if (lead && bits) atomicOr(words + (size_t)b * kLanes + w, bits);
-    }
-  } else if (live) {
-    if (kInsert == kReadFirstInsert) {
-      block_insert<true>(words, h, log2nb, k);
-    } else {
-      bit_insert(words, h, log2nb, k);
-    }
-  }
-}
-
-// K7's kernel on the L2 and tiny routes: on the L2 route one tile of
-// kThreads * R rows a CTA; on the tiny route each CTA walks tiles
-// blockIdx.x, blockIdx.x + gridDim.x, ... into its shared copy of the
-// outgoing filter, then ORs (or, alone, stores) it into the output.
-template <int R, bool kAdjacent, int kInsert, bool kTiny>
+// K7's kernel on the L2 and tiny routes. L2: one tile of kThreads * R rows
+// a CTA, each survivor's key ORed into the (zeroed) output (bit_insert).
+// Tiny: each CTA walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... into
+// its shared copy of the outgoing filter (slice_or a bit), then ORs it into
+// the (zeroed) output, or, alone, stores it.
+template <int R, bool kTiny>
 __global__ void __launch_bounds__(kThreads)
     transfer_kernel(TransferArgs a) {
   extern __shared__ uint4 tiny_vecs[];  // kTiny: the outgoing filter
@@ -841,72 +792,59 @@ __global__ void __launch_bounds__(kThreads)
   int rows = kThreads * R;
   bool ok[R];
   uint32_t g[R];
-  if (kTiny) {
-    for (int i = threadIdx.x; i < vecs; i += kThreads) {
-      tiny_vecs[i] = make_uint4(0u, 0u, 0u, 0u);
-    }
-    __syncthreads();
-    for (int t = blockIdx.x * rows; t < a.n; t += gridDim.x * rows) {
-      transfer_probe<R, kAdjacent>(a, t, ok, g);
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        transfer_insert<kInsert, true>(tiny, ok[i], g[i], a.log2nb_out, a.k);
-      }
-    }
-    __syncthreads();
-    if (gridDim.x == 1) {
-      uint4* out = reinterpret_cast<uint4*>(a.out_words);
-      for (int i = threadIdx.x; i < vecs; i += kThreads) out[i] = tiny_vecs[i];
-    } else {
-      const unsigned long long* src =
-          reinterpret_cast<const unsigned long long*>(tiny);
-      unsigned long long* out =
-          reinterpret_cast<unsigned long long*>(a.out_words);
-      for (int i = threadIdx.x; i < 2 * vecs; i += kThreads) {
-        unsigned long long v = src[i];
-        if (v) atomicOr(out + i, v);
-      }
-    }
-  } else {
-    transfer_probe<R, kAdjacent>(a, blockIdx.x * rows, ok, g);
+  if (!kTiny) {
+    transfer_probe<R>(a, blockIdx.x * rows, ok, g);
 #pragma unroll
     for (int i = 0; i < R; ++i) {
-      transfer_insert<kInsert, false>(a.out_words, ok[i], g[i],
-                                      a.log2nb_out, a.k);
+      if (ok[i]) bit_insert(a.out_words, g[i], a.log2nb_out, a.k);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < vecs; i += kThreads) {
+    tiny_vecs[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+  for (int t = blockIdx.x * rows; t < a.n; t += gridDim.x * rows) {
+    transfer_probe<R>(a, t, ok, g);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (!ok[i]) continue;
+      uint32_t* blk = tiny + block_of(g[i], a.log2nb_out) * kLanes;
+      uint32_t g1 = fmix32(g[i] ^ kGolden), g2 = fmix32(g[i] ^ kP2) | 1u;
+      for (int j = 0; j < a.k; ++j) {
+        uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
+        slice_or(blk + (pos >> 5), 1u << (pos & 31u));
+      }
+    }
+  }
+  __syncthreads();
+  if (gridDim.x == 1) {
+    uint4* out = reinterpret_cast<uint4*>(a.out_words);
+    for (int i = threadIdx.x; i < vecs; i += kThreads) out[i] = tiny_vecs[i];
+  } else {
+    const unsigned long long* src =
+        reinterpret_cast<const unsigned long long*>(tiny);
+    unsigned long long* out =
+        reinterpret_cast<unsigned long long*>(a.out_words);
+    for (int i = threadIdx.x; i < 2 * vecs; i += kThreads) {
+      unsigned long long v = src[i];
+      if (v) atomicOr(out + i, v);
     }
   }
 }
 
-using TransferFn = void (*)(TransferArgs);
-
-template <int R, bool kAdjacent>
-TransferFn transfer_fn(int insert, bool tiny) {
-  if (tiny) return transfer_kernel<R, kAdjacent, kBitInsert, true>;
-  switch (insert) {
-    case kReadFirstInsert:
-      return transfer_kernel<R, kAdjacent, kReadFirstInsert, false>;
-    case kWarpOrInsert:
-      return transfer_kernel<R, kAdjacent, kWarpOrInsert, false>;
-    default:
-      return transfer_kernel<R, kAdjacent, kBitInsert, false>;
-  }
-}
-
-// K7's partitioned route, first kernel: R rows a thread probed
-// (transfer_probe), and the survivors' outgoing hashes appended to the
-// list: a CTA counts its survivors by a scan and takes its place in stripe
-// blockIdx.x mod kListStripes with one atomicAdd on that stripe's count
-// (zeroed before); its threads store their survivors' hashes contiguously
-// there (the order does not matter: OR is order-independent).
-template <int R, bool kAdjacent>
-__global__ void __launch_bounds__(kThreads)
-    transfer_compact_kernel(TransferArgs a, int* __restrict__ counts,
-                            uint32_t* __restrict__ list, int cap) {
+// Appends the survivors (ok) of a CTA's rows, R a thread, to K7's list of
+// outgoing hashes: the CTA counts them by a scan, takes its place in the
+// list with one atomicAdd on *n (zeroed before), and its threads store
+// their survivors' hashes contiguously there (the order does not matter:
+// OR is order-independent). Every thread of the CTA calls it.
+template <int R>
+__device__ __forceinline__ void append_survivors(const bool (&ok)[R],
+                                                 const uint32_t (&g)[R],
+                                                 int* __restrict__ n,
+                                                 uint32_t* __restrict__ list) {
   constexpr int kWarps = kThreads / 32;
-  __shared__ int base[kWarps + 1];
-  bool ok[R];
-  uint32_t g[R];
-  transfer_probe<R, kAdjacent>(a, blockIdx.x * kThreads * R, ok, g);
+  __shared__ int base[kWarps];
   int c = 0;
 #pragma unroll
   for (int i = 0; i < R; ++i) c += ok[i];
@@ -926,11 +864,8 @@ __global__ void __launch_bounds__(kThreads)
       int y = __shfl_up_sync(0xffffffffu, w, o);
       if (lane >= o) w += y;
     }
-    int stripe = blockIdx.x & (kListStripes - 1);
     int at = 0;
-    if (lane == kWarps - 1 && w) {
-      at = atomicAdd(counts + stripe * kCountStride, w) + stripe * cap;
-    }
+    if (lane == kWarps - 1 && w) at = atomicAdd(n, w);
     at = __shfl_sync(0xffffffffu, at, kWarps - 1);
     if (lane < kWarps) base[lane] = at + w - base[lane];
   }
@@ -942,14 +877,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Hashes a stripe of K7's survivors' list holds for n rows: a stripe gets
-// at most ceil(CTAs / kListStripes) CTAs of at most kThreads *
-// kTransferRows survivors each, so n / kListStripes + 2 * 1024 will do;
-// rounded up to whole tiles of the scatter.
-int list_cap(int n) {
-  int cap = (n + kListStripes - 1) / kListStripes +
-            2 * kThreads * kTransferRows;
-  return (cap + kTile - 1) / kTile * kTile;
+// K7's partitioned route, first kernel: R rows a thread probed
+// (transfer_probe), the survivors' outgoing hashes appended to the list.
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+    transfer_compact_kernel(TransferArgs a, int* __restrict__ n,
+                            uint32_t* __restrict__ list) {
+  bool ok[R];
+  uint32_t g[R];
+  transfer_probe<R>(a, blockIdx.x * kThreads * R, ok, g);
+  append_survivors<R>(ok, g, n, list);
 }
 
 // Zeroes `nvec` 16-byte words (K7's outgoing filter, or its cursors): a
@@ -1168,24 +1105,23 @@ int bloom_probe_force_rows(int rows) {
 // The rows a thread bloom_probe takes for n rows.
 int bloom_probe_rows(int n) { return probe_rows(n); }
 
-// K7's partitioned route keeps kListStripes * kCountStride + 3 ints after
-// K2's cursors: the stripes' counts from fill[p + 1], and 3 to make the
-// cursors whole 16-byte words (p is a power of two >= 8) for zero_words;
-// the survivors' list (kListStripes * list_cap(n) hashes) follows K2's
-// scratch.
-constexpr int kTransferCursors = kListStripes * kCountStride + 3;
+// K7's partitioned route keeps 3 ints after K2's cursors: the survivors'
+// count at fill[p + 1], and 2 to make the cursors whole 16-byte words (p
+// is a power of two >= 8) for zero_words; the survivors' list (n hashes:
+// the survivors are not known before the probe, and are at most n) follows
+// K2's scratch.
+constexpr int kTransferCursors = 3;
 
 // Bytes of device scratch bloom_transfer needs for n rows into
 // 2^log2nb_out blocks: on the partitioned route K2's scratch for n rows
-// (the survivors are not known before the probe, and are at most n) with
-// K7's cursors, and the survivors' list; none on the others.
+// with K7's cursors, and the survivors' list; none on the others.
 long long bloom_transfer_scratch_bytes(int n, int log2nb_out) {
   if (n <= 0) return 0;
   TransferPlan p = transfer_plan(n, log2nb_out);
   if (p.route != kPartitionedTransfer) return 0;
   return partition_bytes(partition(n, log2nb_out, kTransferCursors, nullptr),
                          n) +
-         4ll * kListStripes * list_cap(n);
+         4ll * n;
 }
 
 // in_words: uint32 [2^log2nb_in, 8]; in_lo/in_hi/out_lo/out_hi: uint32 key
@@ -1219,24 +1155,19 @@ int bloom_transfer(const void* in_words, int log2nb_in, const void* in_lo,
                     static_cast<uint32_t*>(out_words),
                     log2nb_in, log2nb_out, k, n,
                     (cols & 15u) == 0 && (bytes & 3u) == 0};
-  bool four = p.layout != kOneRow;
-  int rows = four ? kThreads * kTransferRows : kThreads;
+  int rows = kThreads * p.rows;
   int grid = (n + rows - 1) / rows;
   int err = 0;
   if (p.route == kPartitionedTransfer) {
     Partition q = partition(n, log2nb_out, kTransferCursors, scratch);
-    int* counts = q.fill + q.p + 1;
+    int* count = q.fill + q.p + 1;
     uint32_t* list = q.overflow + n;
-    int cap = list_cap(n);
     err = zero_words(q.fill, 4 * (size_t)q.cursors, st);
     if (err) return err;
-    auto compact = p.layout == kOneRow ? transfer_compact_kernel<1, false>
-                   : p.layout == kStridedRows
-                       ? transfer_compact_kernel<kTransferRows, false>
-                       : transfer_compact_kernel<kTransferRows, true>;
-    compact<<<grid, kThreads, 0, st>>>(a, counts, list, cap);
-    return partitioned_kernels(ListRows{list, counts, cap},
-                               kListStripes * cap, q, log2nb_out, k,
+    auto compact = p.rows == 1 ? transfer_compact_kernel<1>
+                               : transfer_compact_kernel<kTransferRows>;
+    compact<<<grid, kThreads, 0, st>>>(a, count, list);
+    return partitioned_kernels(ListRows{list, count}, n, q, log2nb_out, k,
                                static_cast<uint32_t*>(out_words), st);
   }
   bool tiny = p.route == kTinyTransferRoute;
@@ -1245,37 +1176,34 @@ int bloom_transfer(const void* in_words, int log2nb_in, const void* in_lo,
     err = zero_words(out_words, filter_bytes, st);
     if (err) return err;
   }
-  TransferFn fn = p.layout == kOneRow ? transfer_fn<1, false>(p.insert, tiny)
-                  : p.layout == kStridedRows
-                      ? transfer_fn<kTransferRows, false>(p.insert, tiny)
-                      : transfer_fn<kTransferRows, true>(p.insert, tiny);
-  fn<<<grid, kThreads, tiny ? filter_bytes : 0, st>>>(a);
+  auto kernel = p.rows == 1
+                    ? (tiny ? transfer_kernel<1, true> : transfer_kernel<1, false>)
+                    : (tiny ? transfer_kernel<kTransferRows, true>
+                            : transfer_kernel<kTransferRows, false>);
+  kernel<<<grid, kThreads, tiny ? filter_bytes : 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-// Makes every later bloom_transfer (and its scratch query) take `layout`
-// (1 one row a thread, 2 four strided rows, 3 four adjacent rows where the
-// columns allow), `insert` (1 bit_insert, 2 block_insert<true>, 3 the warp
-// OR) and `route` (1 L2; 2 tiny where the filter has at most 64 blocks; 3
-// partitioned where it has more: no insert choice); 0 for any of them:
-// the rule's. For timing them against each
-// other at one shape; not thread-safe. Returns 0, or cudaErrorInvalidValue
-// for a value out of range (nothing is changed then).
-int bloom_transfer_force(int layout, int insert, int route) {
-  if (layout < 0 || layout > kAdjacentRows || insert < 0 ||
-      insert > kWarpOrInsert || route < 0 || route > kPartitionedTransfer) {
+// Makes every later bloom_transfer (and its scratch query) take `rows` rows
+// a thread (1, or kTransferRows adjacent where the columns allow) and
+// `route` (1 L2; 2 tiny where the filter has at most 64 blocks; 3
+// partitioned where it has more); 0 for either: the rule's. For timing them
+// against each other at one shape; not thread-safe. Returns 0, or
+// cudaErrorInvalidValue for a value out of range (nothing is changed then).
+int bloom_transfer_force(int rows, int route) {
+  if ((rows != 0 && rows != 1 && rows != kTransferRows) || route < 0 ||
+      route > kPartitionedTransfer) {
     return (int)cudaErrorInvalidValue;
   }
-  forced_transfer = {layout, insert, route};
+  forced_transfer = {rows, route};
   return 0;
 }
 
-// The plan bloom_transfer takes for n rows into 2^log2nb_out blocks:
-// layout | insert << 4 | route << 8 (the values bloom_transfer_force
-// takes).
+// The plan bloom_transfer takes for n rows into 2^log2nb_out blocks: rows a
+// thread | route << 4 (the values bloom_transfer_force takes).
 int bloom_transfer_plan(int n, int log2nb_out) {
   TransferPlan p = transfer_plan(n, log2nb_out);
-  return p.layout | p.insert << 4 | p.route << 8;
+  return p.rows | p.route << 4;
 }
 
 }  // extern "C"

@@ -655,40 +655,32 @@ def test_transfer_kernel_matches_plain_version(cuda, nb):
 
 
 #: K7's plans (`bloom.cu`, K7's note; `bloom_transfer_force`'s codes):
-#: layouts one row, four strided rows, four adjacent rows (strided where
-#: the columns are not 16-byte aligned); inserts one atomic a bit, the
-#: block read first, the warp OR; routes L2, tiny (an outgoing filter of
-#: at most TINY blocks in shared memory) and partitioned (larger filters:
-#: the survivors' hashes scattered by slice, each slice built in shared
-#: memory). The rule: into at most TINY blocks the tiny route from
-#: TINY_ROWS rows a block on, L2 below; into more the partitioned route
-#: (four adjacent rows a thread) from MANY_TRANSFER rows on, L2 (one row a
-#: thread) below; TRANSFER_INSERT.
-TRANSFER_LAYOUTS, TRANSFER_INSERTS, TRANSFER_ROUTES = (1, 2, 3), (1, 2, 3), \
-    (1, 2, 3)
-MANY_TRANSFER, TINY_ROWS, TRANSFER_INSERT = 1 << 22, 128, 1
+#: one row or TRANSFER_ROWS adjacent rows a thread (strided where the
+#: columns are not 16-byte aligned); routes L2 (one atomic a bit into the
+#: zeroed filter), tiny (an outgoing filter of at most TINY blocks in
+#: shared memory) and partitioned (larger filters: the survivors' hashes
+#: listed, scattered by slice, each slice built in shared memory). The
+#: rule: into at most TINY blocks the tiny route from TINY_ROWS rows a
+#: block on, L2 below; into more the partitioned route (four rows a
+#: thread) from MANY_TRANSFER rows on, L2 (one row a thread) below.
+TRANSFER_ROWS, TRANSFER_ROUTES = 4, (1, 2, 3)
+MANY_TRANSFER, TINY_ROWS = 1 << 22, 128
 TRANSFER_NS = (1, 3, (1 << 16) - 3, MANY_TRANSFER - 5, MANY_TRANSFER + 5)
 TRANSFER_NBS = (1, 8, TINY, 4096, 1 << 19)
 
 
 @pytest.mark.parametrize("route", TRANSFER_ROUTES,
                          ids=["l2", "tiny", "partitioned"])
-@pytest.mark.parametrize("insert", TRANSFER_INSERTS,
-                         ids=["bit", "read_first", "warp_or"])
-@pytest.mark.parametrize("layout", TRANSFER_LAYOUTS,
-                         ids=["one", "strided", "adjacent"])
-def test_transfer_kernel_forced_plans_match_plain_version(cuda, layout,
-                                                          insert, route):
-    """K7 with its layout, insert and route forced in turn
+@pytest.mark.parametrize("rows", [1, TRANSFER_ROWS], ids=["one", "four"])
+def test_transfer_kernel_forced_plans_match_plain_version(cuda, rows, route):
+    """K7 with its rows a thread and route forced in turn
     (`bloom_transfer_force`) == its plain version bit for bit, survivors
-    and outgoing words: at n in TRANSFER_NS (a partitioned list stripe's
-    count is at most its rows; MANY_TRANSFER ± 5 sits at the rule's
-    edge) into 1 to 2^19 outgoing blocks, with outgoing keys of about 90
-    copies each and all distinct,
-    masks all True, all False and 80% True, and over column views
-    (`lo[1:]`, not 16-byte aligned: the strided rows); one launch a
-    call."""
-    rng = np.random.default_rng(10 * layout + insert + 100 * route)
+    and outgoing words: at n in TRANSFER_NS (MANY_TRANSFER ± 5 sits at
+    the rule's edge) into 1 to 2^19 outgoing blocks, with outgoing keys
+    of about 90 copies each and all distinct, masks all True, all False
+    and 80% True, and over column views (`lo[1:]`, not 16-byte aligned:
+    the strided rows); one launch a call."""
+    rng = np.random.default_rng(10 * rows + route)
     big = MANY_TRANSFER + 6
     keys = _keys(rng, big)
     lo, hi = bloom.keys_to_device(keys, cuda)
@@ -700,7 +692,7 @@ def test_transfer_kernel_forced_plans_match_plain_version(cuda, layout,
              torch.from_numpy(rng.random(big) < 0.8).to(cuda))
     words = kb.build_ref(lo[: 1 << 16], hi[: 1 << 16], 4096)
     lib = kb._lib()
-    assert lib.bloom_transfer_force(layout, insert, route) == 0
+    assert lib.bloom_transfer_force(rows, route) == 0
     kb.reset_launches()
     calls = 0
     try:
@@ -719,19 +711,18 @@ def test_transfer_kernel_forced_plans_match_plain_version(cuda, layout,
                     assert torch.equal(w, w_ref), (n, nb, kind, at)
                     calls += 1
     finally:
-        lib.bloom_transfer_force(0, 0, 0)
+        lib.bloom_transfer_force(0, 0)
     assert kb.LAUNCHES["bloom_transfer"] == calls
 
 
 def test_transfer_plan_follows_the_source_note(cuda):
-    """K7's rule (`bloom_transfer_plan`: layout | insert << 4 | route <<
-    8): into at most TINY blocks the tiny route from TINY_ROWS rows a
-    block on, L2 below; into more the partitioned route from
-    MANY_TRANSFER rows on (four adjacent rows a thread, scratch for n
-    rows), L2 below (one row a thread, no scratch); TRANSFER_INSERT; a
-    forced part overrides the rule's (the tiny route only where the
-    filter allows it, the partitioned one only where it does not), and
-    an out-of-range code is refused."""
+    """K7's rule (`bloom_transfer_plan`: rows a thread | route << 4):
+    into at most TINY blocks the tiny route from TINY_ROWS rows a block
+    on, L2 below; into more the partitioned route from MANY_TRANSFER rows
+    on (TRANSFER_ROWS rows a thread, scratch for n rows), L2 below (one
+    row a thread, no scratch); a forced part overrides the rule's (the
+    tiny route only where the filter allows it, the partitioned one only
+    where it does not), and an out-of-range value is refused."""
     lib = kb._lib()
     for n in (1, 1024, 5003, MANY_TRANSFER - 1, MANY_TRANSFER, 1 << 23):
         for log2nb in (0, 3, 6, 7, 19):
@@ -739,24 +730,24 @@ def test_transfer_plan_follows_the_source_note(cuda):
             route = ((2 if n >= TINY_ROWS << log2nb else 1)
                      if (1 << log2nb) <= TINY else
                      3 if n >= MANY_TRANSFER else 1)
-            assert code >> 8 == route, (n, log2nb)
-            assert code & 15 == (3 if route == 3 else 1), (n, log2nb)
-            assert code >> 4 & 15 == TRANSFER_INSERT
+            assert code >> 4 == route, (n, log2nb)
+            assert code & 15 == (TRANSFER_ROWS if route == 3 else 1)
             scratch = lib.bloom_transfer_scratch_bytes(n, log2nb)
             assert (scratch > 4 * n) == (route == 3), (n, log2nb)
     try:
-        assert lib.bloom_transfer_force(2, 3, 2) == 0
-        assert lib.bloom_transfer_plan(1, 19) == 2 | 3 << 4 | 1 << 8
-        assert lib.bloom_transfer_plan(1, 6) == 2 | 3 << 4 | 2 << 8
-        assert lib.bloom_transfer_force(0, 0, 3) == 0
-        assert lib.bloom_transfer_plan(1, 19) >> 8 == 3
-        assert lib.bloom_transfer_plan(1, 6) >> 8 == 2
-        assert lib.bloom_transfer_force(0, 0, 1) == 0
-        assert lib.bloom_transfer_plan(1, 0) >> 8 == 1
-        assert lib.bloom_transfer_force(4, 0, 0) != 0
-        assert lib.bloom_transfer_plan(1, 0) >> 8 == 1    # left as it was
+        assert lib.bloom_transfer_force(TRANSFER_ROWS, 2) == 0
+        assert lib.bloom_transfer_plan(1, 19) == TRANSFER_ROWS | 1 << 4
+        assert lib.bloom_transfer_plan(1, 6) == TRANSFER_ROWS | 2 << 4
+        assert lib.bloom_transfer_force(0, 3) == 0
+        assert lib.bloom_transfer_plan(1, 19) == TRANSFER_ROWS | 3 << 4
+        assert lib.bloom_transfer_plan(1, 6) >> 4 == 2
+        assert lib.bloom_transfer_force(0, 1) == 0
+        assert lib.bloom_transfer_plan(1 << 16, 0) == 1 | 1 << 4
+        for bad in ((2, 0), (0, 4), (-1, 0)):
+            assert lib.bloom_transfer_force(*bad) != 0
+        assert lib.bloom_transfer_plan(1 << 16, 0) >> 4 == 1  # left as it was
     finally:
-        lib.bloom_transfer_force(0, 0, 0)
+        lib.bloom_transfer_force(0, 0)
 
 
 def _attn_inputs(rng, b, sq, skv, h, kvh, d, dev, ragged=True,

@@ -83,7 +83,8 @@ def test_transfer_cases_and_plan_codes():
     """K7's cases from small catalog columns: case C's incoming filter is
     sized for the Q5 rows, its outgoing one for every lineitem row, the
     distinct case's outgoing keys are distinct, "5003 ragged" goes into 8
-    blocks; `transfer_plan` decodes `bloom_transfer_plan`'s fields."""
+    blocks; `transfer_plan` decodes `bloom_transfer_plan`'s fields and
+    `transfer_plans` names each plan the sweep forces."""
     import types
     from repro_torch.core import bloom
     from repro_torch.kernels.bloom import ops as kb
@@ -103,10 +104,13 @@ def test_transfer_cases_and_plan_codes():
     ok, words = kb.transfer(*c)
     assert words.shape == (c[6], 8) and int(ok.sum()) > 0
     lib = types.SimpleNamespace(
-        bloom_transfer_plan=lambda n, log2nb: 3 | 2 << 4 | 2 << 8)
-    assert chip_smoke.transfer_plan(lib, 5, 64) == {
-        "layout": "adjacent", "insert": "read_first", "route": "tiny"}
+        bloom_transfer_plan=lambda n, log2nb: 4 | 3 << 4)
+    assert chip_smoke.transfer_plan(lib, 5, 1024) == {
+        "rows": "adjacent", "route": "partitioned"}
     assert all(nb is None or nb <= 64 for _, nb in chip_smoke.TRANSFER_SWEEP)
+    assert set(chip_smoke.transfer_plans(8).values()) == {
+        "one_l2", "adjacent_l2", "one_tiny", "adjacent_tiny"}
+    assert chip_smoke.transfer_plans(4096)[(4, 3)] == "adjacent_partitioned"
 
 
 def test_k5_passes_source():

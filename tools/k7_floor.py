@@ -38,12 +38,14 @@ library swapped in; the wrapper leaves the zeroing to the library):
   rows a thread, one 16-byte load each of the key halves, one 4-byte
   load of the mask and one 4-byte store of the survivors where the
   columns allow it (else strided, as `r4_*`);
-- `warp_compact`: K7's partitioned route with its compaction done a warp
-  at a time (one atomic a warp on its stripe's count, no CTA-wide step)
-  instead of a CTA at a time (case C only: it needs the route's
-  scratch).
+- `early_out`, `whole_probe`, `early_whole`: K7's partitioned route
+  with another first kernel at four adjacent rows a thread: the
+  outgoing key halves loaded with the incoming ones, before the probe,
+  for every masked row (`early_*`), and the incoming block read whole in
+  two 16-byte loads with every bit tested from registers (`*_whole`,
+  `whole_probe`) (case C only: they need the route's scratch).
 
-`k7` is the package's K7 as it is (its rule's layout, insert and route;
+`k7` is the package's K7 as it is (its rule's rows a thread and route;
 at case C the partitioned route),
 measured first and again last. Cases: "SF 1 case C" (`chip_smoke.py`'s
 case: lineitem's 6,001,215 rows probed on `l_orderkey` against the
@@ -56,8 +58,8 @@ filters of at most 64 blocks). One JSON line: each variant's CUDA-event
 ms, device ms and device ops (torch.profiler, `chip_smoke.device_busy`:
 a memset and each kernel apart) a case. `k7`,
 `bit`, `read_first`, `quarters`, `warp_or`, `r4_bit`, `c4_bit` and
-`c4_read_first`, `warp_compact` must equal the plain version; the
-others answer wrongly by design.
+`c4_read_first` and the three partitioned variants must equal the plain
+version; the others answer wrongly by design.
 
 `--src` is the `src/` directory whose package (wrapper and `bloom.cu`)
 is measured as `k7` (default: this checkout's); with another tree's,
@@ -248,40 +250,74 @@ VARIANTS = {
     "c4_bit": (4, True, HIT, "bit"),
     "c4_read_first": (4, True, HIT, "read_first"),
 }
-#: the partitioned route with the compaction done a warp at a time: each
-#: warp's survivors appended by one atomic on its stripe's count (32
-#: counts 128 bytes apart), no CTA-wide step; the rest as K7's own
-WARP_COMPACT = r"""
-// tools/k7_floor.py's variant of K7: the compaction a warp at a time.
+#: K7's partitioned route with another compaction kernel at four adjacent
+#: rows a thread: EARLY loads the outgoing key halves with the incoming
+#: ones (for every masked row, before the probe) instead of for the
+#: survivors after it; HIT is the probe (`block_hit`, or `whole_hit`: the
+#: block's two 16-byte halves loaded at once, every bit tested from
+#: registers, no early exit); the rest is K7's own
+COMPACT = r"""
+// tools/k7_floor.py's variant of K7: another compaction kernel.
+__device__ __forceinline__ bool whole_hit(const uint32_t* __restrict__ words,
+                                          uint32_t h, int log2nb, int k) {
+  const uint4* blk =
+      reinterpret_cast<const uint4*>(words) + (size_t)block_of(h, log2nb) * 2;
+  uint4 a = __ldg(blk), b = __ldg(blk + 1);
+  uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t g1 = fmix32(h ^ kGolden), g2 = fmix32(h ^ kP2) | 1u;
+  bool ok = true;
+  for (int j = 0; j < k; ++j) {
+    uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
+    uint32_t word = 0u;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) word = (pos >> 5) == (uint32_t)q ? w[q] : word;
+    ok &= ((word >> (pos & 31u)) & 1u) != 0u;
+  }
+  return ok;
+}
+
 __global__ void __launch_bounds__(kThreads)
-    floor_kernel(TransferArgs a, int* __restrict__ counts,
-                 uint32_t* __restrict__ list, int cap) {
-  bool ok[kTransferRows];
-  uint32_t g[kTransferRows];
-  transfer_probe<kTransferRows, true>(a, blockIdx.x * kThreads * kTransferRows,
-                                      ok, g);
-  int c = 0;
+    floor_kernel(TransferArgs a, int* __restrict__ n,
+                 uint32_t* __restrict__ list) {
+  constexpr int R = kTransferRows;
+  int base = blockIdx.x * kThreads * R, first = base + threadIdx.x * R;
+  bool ok[R];
+  uint32_t g[R];
+  if (a.adjacent && first + R <= a.n) {
+    unsigned m4 = __ldg(reinterpret_cast<const unsigned*>(a.mask + first));
+    uint4 x = make_uint4(0u, 0u, 0u, 0u), y = x, u = x, v = x;
+    if (m4) {
+      x = __ldg(reinterpret_cast<const uint4*>(a.in_lo + first));
+      y = __ldg(reinterpret_cast<const uint4*>(a.in_hi + first));
+      if (EARLY) {
+        u = __ldg(reinterpret_cast<const uint4*>(a.out_lo + first));
+        v = __ldg(reinterpret_cast<const uint4*>(a.out_hi + first));
+      }
+    }
+    uint32_t lo[4] = {x.x, x.y, x.z, x.w}, hi[4] = {y.x, y.y, y.z, y.w};
+    unsigned packed = 0u;
 #pragma unroll
-  for (int i = 0; i < kTransferRows; ++i) c += ok[i];
-  int lane = threadIdx.x & 31;
-  int x = c;
+    for (int i = 0; i < R; ++i) {
+      ok[i] = ((m4 >> (8 * i)) & 0xffu) &&
+              HIT(a.in_words, key_hash(lo[i], hi[i]), a.log2nb_in, a.k);
+      packed |= (unsigned)ok[i] << (8 * i);
+    }
+    *reinterpret_cast<unsigned*>(a.ok + first) = packed;
+    if (!EARLY && packed) {
+      u = __ldg(reinterpret_cast<const uint4*>(a.out_lo + first));
+      v = __ldg(reinterpret_cast<const uint4*>(a.out_hi + first));
+    }
+    uint32_t olo[4] = {u.x, u.y, u.z, u.w}, ohi[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
+    for (int i = 0; i < R; ++i) g[i] = ok[i] ? key_hash(olo[i], ohi[i]) : 0u;
+  } else {
+    transfer_probe<R>(a, base, ok, g);
   }
-  int stripe = ((blockIdx.x * kThreads + threadIdx.x) >> 5) & (kListStripes - 1);
-  int at = 0;
-  if (lane == 31 && x) at = atomicAdd(counts + stripe * kCountStride, x);
-  at = __shfl_sync(0xffffffffu, at, 31) + stripe * cap + x - c;
-#pragma unroll
-  for (int i = 0; i < kTransferRows; ++i) {
-    if (ok[i]) list[at++] = g[i];
-  }
+  append_survivors<R>(ok, g, n, list);
 }
 
 """
-WARP_COMPACT_LAUNCHER = r"""int bloom_transfer(const void* in_words, int log2nb_in, const void* in_lo,
+COMPACT_LAUNCHER = r"""int bloom_transfer(const void* in_words, int log2nb_in, const void* in_lo,
                    const void* in_hi, const void* out_lo, const void* out_hi,
                    const void* mask, int n, int log2nb_out, int k, void* ok,
                    void* out_words, void* scratch, void* stream) {
@@ -304,25 +340,26 @@ WARP_COMPACT_LAUNCHER = r"""int bloom_transfer(const void* in_words, int log2nb_
                     log2nb_in, log2nb_out, k, n,
                     (cols & 15u) == 0 && (bytes & 3u) == 0};
   Partition q = partition(n, log2nb_out, kTransferCursors, scratch);
-  int* counts = q.fill + q.p + 1;
+  int* count = q.fill + q.p + 1;
   uint32_t* list = q.overflow + n;
-  int cap = list_cap(n);
   int err = zero_words(q.fill, 4 * (size_t)q.cursors, st);
   if (err) return err;
   int rows = kThreads * kTransferRows;
-  floor_kernel<<<(n + rows - 1) / rows, kThreads, 0, st>>>(a, counts, list,
-                                                          cap);
-  return partitioned_kernels(ListRows{list, counts, cap}, kListStripes * cap,
-                             q, log2nb_out, k,
+  floor_kernel<<<(n + rows - 1) / rows, kThreads, 0, st>>>(a, count, list);
+  return partitioned_kernels(ListRows{list, count}, n, q, log2nb_out, k,
                              static_cast<uint32_t*>(out_words), st);
 }
 """
-VARIANTS["warp_compact"] = (WARP_COMPACT, WARP_COMPACT_LAUNCHER)
+for name, early, hit in (("early_out", "true", "block_hit"),
+                         ("whole_probe", "false", "whole_hit"),
+                         ("early_whole", "true", "whole_hit")):
+    VARIANTS[name] = (COMPACT.replace("EARLY", early).replace("HIT(", hit + "("),
+                      COMPACT_LAUNCHER)
 #: variants that need the partitioned route's scratch (case C's shapes:
 #: the wrapper allocates it where K7's rule takes that route)
-PARTITIONED = ("warp_compact",)
+PARTITIONED = ("early_out", "whole_probe", "early_whole")
 EXACT = ("k7", "bit", "read_first", "quarters", "warp_or", "r4_bit",
-         "c4_bit", "c4_read_first", "warp_compact")
+         "c4_bit", "c4_read_first", *PARTITIONED)
 
 
 def replace_k7(text: str, variant) -> str:
