@@ -779,19 +779,37 @@ __device__ __forceinline__ void transfer_probe(const TransferArgs& a,
 }
 
 // K7's kernel on the L2 and tiny routes. L2: one tile of kThreads * R rows
-// a CTA, each survivor's key ORed into the (zeroed) output (bit_insert).
-// Tiny: each CTA walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... into
-// its shared copy of the outgoing filter (slice_or a bit), then ORs it into
-// the (zeroed) output, or, alone, stores it.
+// a CTA, each survivor's key ORed into the (zeroed) output (bit_insert);
+// at one row a thread the body is the kernel's from before the tiny and
+// partitioned routes (the row's probe, then its insert): written through
+// transfer_probe it took 0.0001-0.00015 ms more a launch on the H100 at
+// 2^10-2^17 rows (tools/k7_floor.py's device ops). Tiny: each CTA walks
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ... into its shared copy of
+// the outgoing filter (slice_or a bit), then ORs it into the (zeroed)
+// output, or, alone, stores it.
 template <int R, bool kTiny>
-__global__ void __launch_bounds__(kThreads)
-    transfer_kernel(TransferArgs a) {
+__global__ void transfer_kernel(TransferArgs a) {
   extern __shared__ uint4 tiny_vecs[];  // kTiny: the outgoing filter
   uint32_t* tiny = reinterpret_cast<uint32_t*>(tiny_vecs);
   int vecs = (kLanes / 4) << a.log2nb_out;
   int rows = kThreads * R;
   bool ok[R];
   uint32_t g[R];
+  if constexpr (R == 1 && !kTiny) {
+    int r = blockIdx.x * kThreads + threadIdx.x;
+    if (r >= a.n) return;
+    bool hit = a.mask[r] &&
+               block_hit(a.in_words,
+                         key_hash(__ldg(a.in_lo + r), __ldg(a.in_hi + r)),
+                         a.log2nb_in, a.k);
+    a.ok[r] = hit ? 1 : 0;
+    if (hit) {
+      bit_insert(a.out_words,
+                 key_hash(__ldg(a.out_lo + r), __ldg(a.out_hi + r)),
+                 a.log2nb_out, a.k);
+    }
+    return;
+  }
   if (!kTiny) {
     transfer_probe<R>(a, blockIdx.x * rows, ok, g);
 #pragma unroll
