@@ -348,51 +348,22 @@ __device__ __forceinline__ int slice_of(uint32_t h, int log2p) {
   return (int)(h >> (32 - log2p));  // log2p >= 3 on the partitioned route
 }
 
-// K2's rows for the scatter: the hashes of the build rows t0 + threadIdx.x,
-// t0 + threadIdx.x + blockDim.x, ... (rows_hash).
-struct BuildRows {
-  const uint32_t* lo;
-  const uint32_t* hi;
-  const int32_t* idx;
-  const uint8_t* valid;
-  int count;
-  __device__ __forceinline__ int size() const { return count; }
-  __device__ __forceinline__ void operator()(int t0, uint32_t (&h)[kPassRows],
-                                             bool (&live)[kPassRows]) const {
-    rows_hash(lo, hi, idx, valid, t0 + threadIdx.x, blockDim.x, count, h,
-              live);
-  }
-};
-
-// K7's rows for the scatter: the survivors' outgoing hashes, a list of *n
-// (written by transfer_compact_kernel).
-struct ListRows {
-  const uint32_t* list;
-  const int* n;
-  __device__ __forceinline__ int size() const { return *n; }
-  __device__ __forceinline__ void operator()(int t0, uint32_t (&h)[kPassRows],
-                                             bool (&live)[kPassRows]) const {
-    int count = *n;
-#pragma unroll
-    for (int i = 0; i < kPassRows; ++i) {
-      int r = t0 + threadIdx.x + i * blockDim.x;
-      live[i] = r < count;
-      h[i] = live[i] ? __ldg(list + r) : 0u;
-    }
-  }
-};
-
 // The partitioned route's scatter: each live row's hash into its slice's
 // region of `hs` (or the overflow list), a tile of kTile rows at a time,
 // staged in shared memory sorted by slice so the stores of a slice are
-// contiguous. `rows` gives the rows' count (size()) and a thread's
-// kPassRows hashes of the tile from row t0, and which are live: K2's build
-// rows (BuildRows) or K7's survivors' outgoing hashes (ListRows). fill[s]
-// counts the hashes meant for slice s, fill[p] those on the overflow list
-// (all zeroed before).
-template <class Rows>
+// contiguous. K2's rows (kList false): the hashes of the build rows
+// through rows_hash. K7's (kList): the first *nlist entries of `lo`, the
+// survivors' outgoing hashes (transfer_compact_kernel's list); `count` is
+// then only the grid's bound. fill[s] counts the hashes meant for slice s,
+// fill[p] those on the overflow list (all zeroed before).
+template <bool kList>
 __global__ void __launch_bounds__(kPassThreads)
-    slice_scatter_kernel(Rows rows, int log2p, int cap, int* __restrict__ fill,
+    slice_scatter_kernel(const uint32_t* __restrict__ lo,
+                         const uint32_t* __restrict__ hi,
+                         const int32_t* __restrict__ idx,
+                         const uint8_t* __restrict__ valid,
+                         const int* __restrict__ nlist, int count,
+                         int log2p, int cap, int* __restrict__ fill,
                          uint32_t* __restrict__ hs,
                          uint32_t* __restrict__ overflow) {
   extern __shared__ int smem[];
@@ -402,12 +373,22 @@ __global__ void __launch_bounds__(kPassThreads)
   int* dst = tile + p + 1;     // [p] where the tile's rows of a slice go
   int* spill = dst + p;        // [p] ... and where those past `cap` go
   uint32_t* stage = reinterpret_cast<uint32_t*>(spill + p);  // [kTile]
-  int count = rows.size();
+  if (kList) count = *nlist;
   for (int t0 = blockIdx.x * kTile; t0 < count; t0 += gridDim.x * kTile) {
     for (int s = threadIdx.x; s < p; s += blockDim.x) tile[s] = 0;
     uint32_t h[kPassRows];
     bool live[kPassRows];
-    rows(t0, h, live);
+    if constexpr (kList) {
+#pragma unroll
+      for (int i = 0; i < kPassRows; ++i) {
+        int r = t0 + threadIdx.x + i * blockDim.x;
+        live[i] = r < count;
+        h[i] = live[i] ? __ldg(lo + r) : 0u;
+      }
+    } else {
+      rows_hash(lo, hi, idx, valid, t0 + threadIdx.x, blockDim.x, count, h,
+                live);
+    }
     __syncthreads();
     int rank[kPassRows];
 #pragma unroll
@@ -630,11 +611,12 @@ __device__ __forceinline__ void bit_insert(uint32_t* __restrict__ words,
 //    + t, in the same kernel), and appends the survivors' outgoing hashes
 //    to a list (one atomicAdd a CTA, append_survivors); K2's scatter,
 //    slice build and overflow kernels then build the filter from the list
-//    (ListRows) a slice at a time in shared memory and store each slice
-//    whole. At case C: 0.070-0.072 ms against the parent's 0.080-0.083
-//    (1.16x; 1.2x needed 0.0687): the compaction kernel 0.0515, K2's
-//    scatter 0.0088 and slice build 0.0090, the overflow kernel 0.0012,
-//    the cursors' zeroing 0.0009. Loading the outgoing keys with the
+//    (slice_scatter_kernel<true>) a slice at a time in shared memory and
+//    store each slice whole. At case C: 0.070-0.072 ms against the
+//    parent's 0.080-0.083 (1.16x; 1.2x needed 0.0687): the compaction
+//    kernel 0.0515, K2's scatter 0.0088 and slice build 0.0090, the
+//    overflow kernel 0.0012, the cursors' zeroing 0.0009. Loading the
+//    outgoing keys with the
 //    incoming ones before the probe (0.083), or reading the incoming
 //    block whole (0.104), was slower; so was the probe inside K2's scatter
 //    (0.087: a tile's survivors are too few a slice) and a compaction a
@@ -753,7 +735,9 @@ __device__ __forceinline__ void transfer_probe(const TransferArgs& a,
       for (int q = 0; q < R / 4; ++q) {
         unsigned packed = 0u;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) packed |= (unsigned)ok[4 * q + i] << (8 * i);
+        for (int i = 0; i < 4; ++i) {
+          packed |= (unsigned)ok[4 * q + i] << (8 * i);
+        }
         reinterpret_cast<unsigned*>(a.ok + first)[q] = packed;
         uint4 x = make_uint4(0u, 0u, 0u, 0u), y = x;
         if (packed) {
@@ -950,11 +934,14 @@ long long partition_bytes(const Partition& q, int count) {
   return 4ll * q.cursors + 4ll * q.p * q.cap + 4ll * count;
 }
 
-// K2's partitioned route after its cursors are zeroed: the scatter of
-// `rows` (grid_rows of them at most), each slice built in shared memory and
-// stored whole, the overflow list ORed into L2. `words` need not be zeroed.
-template <class Rows>
-int partitioned_kernels(Rows rows, int grid_rows, const Partition& q,
+// K2's partitioned route after its cursors are zeroed: the scatter (of
+// count build rows, or with nlist of K7's list in lo, count its bound),
+// each slice built in shared memory and stored whole, the overflow list
+// ORed into L2. `words` need not be zeroed.
+template <bool kList>
+int partitioned_kernels(const uint32_t* lo, const uint32_t* hi,
+                        const int32_t* idx, const uint8_t* valid,
+                        const int* nlist, int count, const Partition& q,
                         int log2nb, int k, uint32_t* words, cudaStream_t st) {
   // the largest shared memory sizes, once a device
   static bool attrs_set[kMaxDevices] = {};
@@ -963,11 +950,11 @@ int partitioned_kernels(Rows rows, int grid_rows, const Partition& q,
   if (err) return err;
   if (dev >= kMaxDevices || !attrs_set[dev]) {
     int scatter_max = 4 * (3 * (1 << kMaxSlicesLog2) + 1 + kTile);
-    err = cudaFuncSetAttribute(slice_scatter_kernel<BuildRows>,
+    err = cudaFuncSetAttribute(slice_scatter_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                scatter_max);
     if (!err) {
-      err = cudaFuncSetAttribute(slice_scatter_kernel<ListRows>,
+      err = cudaFuncSetAttribute(slice_scatter_kernel<true>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  scatter_max);
     }
@@ -981,11 +968,12 @@ int partitioned_kernels(Rows rows, int grid_rows, const Partition& q,
   }
   size_t scatter_smem = 4 * ((size_t)3 * q.p + 1 + kTile);
   size_t build_smem = (size_t)kLanes * 4 << q.log2s;
-  slice_scatter_kernel<<<(grid_rows + kTile - 1) / kTile, kPassThreads,
-                         scatter_smem, st>>>(rows, q.log2p, q.cap, q.fill,
-                                             q.hs, q.overflow);
+  slice_scatter_kernel<kList><<<(count + kTile - 1) / kTile, kPassThreads,
+                                scatter_smem, st>>>(
+      lo, hi, idx, valid, nlist, count, q.log2p, q.cap, q.fill, q.hs,
+      q.overflow);
   slice_build_kernel<false><<<q.p, kBuildThreads, build_smem, st>>>(
-      nullptr, nullptr, nullptr, nullptr, q.hs, q.fill, q.cap, 0, log2nb,
+      nullptr, nullptr, nullptr, nullptr, q.hs, q.fill, q.cap, count, log2nb,
       q.log2s, k, words);
   overflow_kernel<<<kOverflowCtas, kThreads, 0, st>>>(q.overflow, q.fill + q.p,
                                                       log2nb, k, words);
@@ -1084,8 +1072,8 @@ int bloom_build(const void* lo, const void* hi, const void* idx,
       Partition q = partition(count, log2nb, 0, scratch);
       err = cudaMemsetAsync(q.fill, 0, 4 * ((size_t)q.p + 1), st);
       if (err) return err;
-      return partitioned_kernels(BuildRows{lo32, hi32, ix, ok, count}, count,
-                                 q, log2nb, k, w, st);
+      return partitioned_kernels<false>(lo32, hi32, ix, ok, nullptr, count, q,
+                                        log2nb, k, w, st);
     }
   }
   return (int)cudaGetLastError();
@@ -1185,8 +1173,9 @@ int bloom_transfer(const void* in_words, int log2nb_in, const void* in_lo,
     auto compact = p.rows == 1 ? transfer_compact_kernel<1>
                                : transfer_compact_kernel<kTransferRows>;
     compact<<<grid, kThreads, 0, st>>>(a, count, list);
-    return partitioned_kernels(ListRows{list, count}, n, q, log2nb_out, k,
-                               static_cast<uint32_t*>(out_words), st);
+    return partitioned_kernels<true>(list, nullptr, nullptr, nullptr, count,
+                                     n, q, log2nb_out, k,
+                                     static_cast<uint32_t*>(out_words), st);
   }
   bool tiny = p.route == kTinyTransferRoute;
   if (tiny && grid > kTinyTransferCtas) grid = kTinyTransferCtas;
@@ -1194,10 +1183,10 @@ int bloom_transfer(const void* in_words, int log2nb_in, const void* in_lo,
     err = zero_words(out_words, filter_bytes, st);
     if (err) return err;
   }
-  auto kernel = p.rows == 1
-                    ? (tiny ? transfer_kernel<1, true> : transfer_kernel<1, false>)
-                    : (tiny ? transfer_kernel<kTransferRows, true>
-                            : transfer_kernel<kTransferRows, false>);
+  auto kernel = p.rows == 1 ? (tiny ? transfer_kernel<1, true>
+                                    : transfer_kernel<1, false>)
+                            : (tiny ? transfer_kernel<kTransferRows, true>
+                                    : transfer_kernel<kTransferRows, false>);
   kernel<<<grid, kThreads, tiny ? filter_bytes : 0, st>>>(a);
   return (int)cudaGetLastError();
 }

@@ -346,15 +346,16 @@ COMPACT_LAUNCHER = r"""int bloom_transfer(const void* in_words, int log2nb_in, c
   if (err) return err;
   int rows = kThreads * kTransferRows;
   floor_kernel<<<(n + rows - 1) / rows, kThreads, 0, st>>>(a, count, list);
-  return partitioned_kernels(ListRows{list, count}, n, q, log2nb_out, k,
-                             static_cast<uint32_t*>(out_words), st);
+  return partitioned_kernels<true>(list, nullptr, nullptr, nullptr, count, n,
+                                   q, log2nb_out, k,
+                                   static_cast<uint32_t*>(out_words), st);
 }
 """
 for name, early, hit in (("early_out", "true", "block_hit"),
                          ("whole_probe", "false", "whole_hit"),
                          ("early_whole", "true", "whole_hit")):
-    VARIANTS[name] = (COMPACT.replace("EARLY", early).replace("HIT(", hit + "("),
-                      COMPACT_LAUNCHER)
+    VARIANTS[name] = (COMPACT.replace("EARLY", early)
+                      .replace("HIT(", hit + "("), COMPACT_LAUNCHER)
 #: variants that need the partitioned route's scratch (case C's shapes:
 #: the wrapper allocates it where K7's rule takes that route)
 PARTITIONED = ("early_out", "whole_probe", "early_whole")
