@@ -43,7 +43,9 @@ library swapped in; the wrapper leaves the zeroing to the library):
   outgoing key halves loaded with the incoming ones, before the probe,
   for every masked row (`early_*`), and the incoming block read whole in
   two 16-byte loads with every bit tested from registers (`*_whole`,
-  `whole_probe`) (case C only: they need the route's scratch).
+  `whole_probe`); `compact1`, `compact8`: its first kernel at one row or
+  8 adjacent rows a thread instead of 4 (case C only: these need the
+  route's scratch).
 
 `k7` is the package's K7 as it is (its rule's rows a thread and route;
 at case C the partitioned route),
@@ -58,7 +60,7 @@ filters of at most 64 blocks). One JSON line: each variant's CUDA-event
 ms, device ms and device ops (torch.profiler, `chip_smoke.device_busy`:
 a memset and each kernel apart) a case. `k7`,
 `bit`, `read_first`, `quarters`, `warp_or`, `r4_bit`, `c4_bit` and
-`c4_read_first` and the three partitioned variants must equal the plain
+`c4_read_first` and the five partitioned variants must equal the plain
 version; the others answer wrongly by design.
 
 `--src` is the `src/` directory whose package (wrapper and `bloom.cu`)
@@ -356,9 +358,29 @@ for name, early, hit in (("early_out", "true", "block_hit"),
                          ("early_whole", "true", "whole_hit")):
     VARIANTS[name] = (COMPACT.replace("EARLY", early)
                       .replace("HIT(", hit + "("), COMPACT_LAUNCHER)
+#: K7's partitioned route with its own first kernel at RR rows a thread
+#: (adjacent where the columns allow at 8, strided at 1)
+ROWS_COMPACT = r"""
+// tools/k7_floor.py's variant of K7: the compaction at RR rows a thread.
+__global__ void __launch_bounds__(kThreads)
+    floor_kernel(TransferArgs a, int* __restrict__ n,
+                 uint32_t* __restrict__ list) {
+  bool ok[RR];
+  uint32_t g[RR];
+  transfer_probe<RR>(a, blockIdx.x * kThreads * RR, ok, g);
+  append_survivors<RR>(ok, g, n, list);
+}
+
+"""
+for rr in (1, 8):
+    VARIANTS[f"compact{rr}"] = (
+        ROWS_COMPACT.replace("RR", str(rr)),
+        COMPACT_LAUNCHER.replace("kThreads * kTransferRows",
+                                 f"kThreads * {rr}"))
 #: variants that need the partitioned route's scratch (case C's shapes:
 #: the wrapper allocates it where K7's rule takes that route)
-PARTITIONED = ("early_out", "whole_probe", "early_whole")
+PARTITIONED = ("early_out", "whole_probe", "early_whole", "compact1",
+               "compact8")
 EXACT = ("k7", "bit", "read_first", "quarters", "warp_or", "r4_bit",
          "c4_bit", "c4_read_first", *PARTITIONED)
 
