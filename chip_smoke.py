@@ -59,13 +59,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    public entry points against their plain versions, on the SF 1
    columns of phase 6's cases: K7 (fused filter transfer) at case C's
    shape (lineitem's 6,000,205 rows through a 16,384-block orders
-   filter into a 524,288-block one), the same with every outgoing key
-   distinct, and a ragged shape into 8 blocks (`transfer_cases`); with
-   `--phase kernels` only, K7 at 2^16 to 2^23 rows and into filters of
-   at most 64 blocks, foreign and distinct outgoing keys, with each
-   plan (one or four rows a thread, L2, tiny or partitioned route)
-   forced (`transfer_sweep`; each case's device ops name the outgoing
-   filter's zeroing apart from the kernels); K6a/K6b
+   filter into a 524,288-block one: the partitioned route), the same
+   with every outgoing key distinct, its first 2^20 rows (the L2 route)
+   and a ragged shape into 8 blocks (the tiny route; `transfer_cases`,
+   each line names the route the rule takes); with `--phase kernels`
+   only, K7 at 2^16 to 2^23 rows and into filters of at most 64 blocks,
+   foreign and distinct outgoing keys, with each route (L2, tiny or
+   partitioned) forced (`transfer_sweep`; each case's device ops name
+   the outgoing filter's zeroing apart from the kernels); K6a/K6b
    (key set build and membership probe) at case A's (1.5 M orders keys,
    2^22 slots, probed by lineitem's order keys), each beside a small
    ragged shape (their
@@ -460,26 +461,31 @@ def transfer_cases(torch, np, kb, bloom, dev, api) -> dict:
     out lo, out hi, mask, nblocks_out) on the card: "SF 1 case C"
     (lineitem's rows probed on `l_orderkey` against the Q5-date orders
     filter, from the plain build, into a lineitem-sized filter of the
-    survivors' `l_suppkey`: about 90 copies of each of 10,000 keys),
-    "case C distinct" (the same, every outgoing key distinct) and "5003
-    ragged" (random keys, a 64-block incoming filter, 80% of rows
-    masked, an 8-block outgoing filter: the tiny route)."""
+    survivors' `l_suppkey`: about 90 copies of each of 10,000 keys: the
+    partitioned route), "case C distinct" (the same, every outgoing key
+    distinct), "2^20 case C rows" (case C's first 2^20 rows into a
+    filter sized for them: the L2 route) and "5003 ragged" (random keys,
+    a 64-block incoming filter, 80% of rows masked, an 8-block outgoing
+    filter: the tiny route)."""
     olo, ohi = bloom.keys_to_device(api["o_orderkey"], dev)
     q5 = torch.from_numpy(api["q5"]).to(dev)
     in_words = kb.build_ref(olo, ohi, bloom.blocks_for(int(api["q5"].sum())),
                             valid=q5)
     n_l = len(api["l_orderkey"])
     ilo, ihi = bloom.keys_to_device(api["l_orderkey"], dev)
+    slo, shi = bloom.keys_to_device(api["l_suppkey"], dev)
     live = torch.ones(n_l, dtype=torch.bool, device=dev)
     nb = bloom.blocks_for(n_l)
     rng = np.random.default_rng(53)
     keys = rng.integers(0, 1 << 40, 5003).astype(np.int64)
     klo, khi = bloom.keys_to_device(keys[:1700], dev)
-    return {"SF 1 case C": (in_words, ilo, ihi,
-                            *bloom.keys_to_device(api["l_suppkey"], dev),
-                            live, nb),
+    few = min(n_l, 1 << 20)
+    return {"SF 1 case C": (in_words, ilo, ihi, slo, shi, live, nb),
             "case C distinct": (in_words, ilo, ihi, *bloom.keys_to_device(
                 np.arange(n_l, dtype=np.int64) + (1 << 33), dev), live, nb),
+            "2^20 case C rows": (in_words, ilo[:few], ihi[:few], slo[:few],
+                                 shi[:few], live[:few],
+                                 bloom.blocks_for(few)),
             "5003 ragged": (kb.build_ref(klo, khi, 64),
                             *bloom.keys_to_device(keys, dev),
                             *bloom.keys_to_device(rng.integers(
@@ -493,9 +499,7 @@ def transfer_cases(torch, np, kb, bloom, dev, api) -> dict:
 TRANSFER_SWEEP = ([(1 << log2n, None) for log2n in range(16, 24)]
                   + [(1024, 64), (4096, 64), (16384, 64), (5003, 8),
                      (1 << 16, 1)])
-#: bloom_transfer_force's codes (bloom.cu, K7's note): rows a thread (4:
-#: adjacent where the columns allow) and routes
-TRANSFER_ROWS = {1: "one", 4: "adjacent"}
+#: bloom_transfer_force's route codes (bloom.cu, K7's note)
 TRANSFER_ROUTES = {1: "l2", 2: "tiny", 3: "partitioned"}
 
 
@@ -527,21 +531,17 @@ def transfer_sweep_cases(torch, np, kb, bloom, dev) -> dict:
     return cases
 
 
-def transfer_plans(nb: int) -> dict:
-    """K7's plans into nb blocks, (rows, route) codes -> name: one and
-    four rows a thread on the L2 route and on the tiny route (at most 64
-    blocks) or the partitioned one (more)."""
-    routes = (1, 2) if nb <= 64 else (1, 3)
-    return {(rows, route): f"{rname}_{TRANSFER_ROUTES[route]}"
-            for route in routes for rows, rname in TRANSFER_ROWS.items()}
+def transfer_routes(nb: int) -> dict:
+    """K7's routes into nb blocks, code -> name: the L2 route, and the
+    tiny one (at most 64 blocks) or the partitioned one (more)."""
+    return {route: TRANSFER_ROUTES[route]
+            for route in ((1, 2) if nb <= 64 else (1, 3))}
 
 
-def transfer_plan(lib, n: int, nb: int) -> dict:
-    """The rows a thread and the route K7's rule takes for n rows into nb
-    blocks (`bloom_transfer_plan`)."""
-    code = lib.bloom_transfer_plan(n, nb.bit_length() - 1)
-    return {"rows": TRANSFER_ROWS[code & 15],
-            "route": TRANSFER_ROUTES[code >> 4]}
+def transfer_route(lib, n: int, nb: int) -> str:
+    """The route K7's rule takes for n rows into nb blocks
+    (`bloom_transfer_plan`)."""
+    return TRANSFER_ROUTES[lib.bloom_transfer_plan(n, nb.bit_length() - 1)]
 
 
 def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
@@ -679,6 +679,7 @@ def kernel_phase(torch, np, kb, bloom, dev, api, later: list):
         rec = {"kernel": "bloom_transfer", "case": name, "n": n,
                "live": int(mask.sum()), "nblocks_in": int(in_words.shape[0]),
                "nblocks_out": nb, "survivors": int(ok_ref.sum()),
+               "route": transfer_route(kb._lib(), n, nb),
                "ms": cuda_ms(torch, lambda: kb.transfer(*args), 20),
                "plain_ms": cuda_ms(torch, lambda: bloom.transfer(*args), 3,
                                    warm=1),
@@ -827,13 +828,13 @@ def probe_rows_sweep(torch, np, kb, bloom, dev) -> None:
 
 
 def transfer_sweep(torch, np, kb, bloom, dev) -> None:
-    """K7 with each plan (rows a thread, route) forced in turn
-    (`bloom_transfer_force`) at `transfer_sweep_cases`' shapes, each run
-    bit-exact against the plain version (survivors and words): one line
-    a shape with every plan's CUDA-event and device ms and the plan K7's
-    rule takes there (`kManyTransferRows` and `kTinyRowsABlock` in
-    bloom.cu come from these). The inserts other than one atomic a bit
-    are `tools/k7_floor.py`'s variants."""
+    """K7 with each route forced in turn (`bloom_transfer_force`) at
+    `transfer_sweep_cases`' shapes, each run bit-exact against the plain
+    version (survivors and words): one line a shape with every route's
+    CUDA-event and device ms and the route K7's rule takes there
+    (`kManyTransferRows` and `kTinyRowsABlock` in bloom.cu come from
+    these). Other layouts and inserts are `tools/k7_floor.py`'s
+    variants."""
     lib = kb._lib()
     for case, args in transfer_sweep_cases(torch, np, kb, bloom,
                                            dev).items():
@@ -842,9 +843,9 @@ def transfer_sweep(torch, np, kb, bloom, dev) -> None:
         rec = {"phase": "kernels", "kernel": "bloom_transfer",
                "case": "transfer sweep", "shape": case, "n": n,
                "nblocks_out": nb, "survivors": int(ok_ref.sum()),
-               "rule": transfer_plan(lib, n, nb)}
-        for (rows, route), name in transfer_plans(nb).items():
-            check(lib.bloom_transfer_force(rows, route) == 0,
+               "rule": transfer_route(lib, n, nb)}
+        for route, name in transfer_routes(nb).items():
+            check(lib.bloom_transfer_force(route) == 0,
                   f"bloom_transfer_force {name}")
             try:
                 ok, words = kb.transfer(*args)
@@ -857,7 +858,7 @@ def transfer_sweep(torch, np, kb, bloom, dev) -> None:
                 rec[f"{name}_device_ms"] = device_ms(
                     torch, lambda: kb.transfer(*args))
             finally:
-                lib.bloom_transfer_force(0, 0)
+                lib.bloom_transfer_force(0)
         emit(rec)
 
 

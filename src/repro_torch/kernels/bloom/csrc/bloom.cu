@@ -352,17 +352,18 @@ __device__ __forceinline__ int slice_of(uint32_t h, int log2p) {
 // region of `hs` (or the overflow list), a tile of kTile rows at a time,
 // staged in shared memory sorted by slice so the stores of a slice are
 // contiguous. K2's rows (kList false): the hashes of the build rows
-// through rows_hash. K7's (kList): the first *nlist entries of `lo`, the
-// survivors' outgoing hashes (transfer_compact_kernel's list); `count` is
-// then only the grid's bound. fill[s] counts the hashes meant for slice s,
-// fill[p] those on the overflow list (all zeroed before).
+// through rows_hash. K7's (kList): the first *idx entries of `lo`, the
+// survivors' outgoing hashes (transfer_compact_kernel's list, its length
+// at *idx); `count` is then only the grid's bound. K2's instantiation is
+// the kernel as it was before K7 shared it (tools/sass_compare.py holds
+// the two). fill[s] counts the hashes meant for slice s, fill[p] those on
+// the overflow list (all zeroed before).
 template <bool kList>
 __global__ void __launch_bounds__(kPassThreads)
     slice_scatter_kernel(const uint32_t* __restrict__ lo,
                          const uint32_t* __restrict__ hi,
                          const int32_t* __restrict__ idx,
-                         const uint8_t* __restrict__ valid,
-                         const int* __restrict__ nlist, int count,
+                         const uint8_t* __restrict__ valid, int count,
                          int log2p, int cap, int* __restrict__ fill,
                          uint32_t* __restrict__ hs,
                          uint32_t* __restrict__ overflow) {
@@ -373,7 +374,7 @@ __global__ void __launch_bounds__(kPassThreads)
   int* dst = tile + p + 1;     // [p] where the tile's rows of a slice go
   int* spill = dst + p;        // [p] ... and where those past `cap` go
   uint32_t* stage = reinterpret_cast<uint32_t*>(spill + p);  // [kTile]
-  if (kList) count = *nlist;
+  if (kList) count = *idx;
   for (int t0 = blockIdx.x * kTile; t0 < count; t0 += gridDim.x * kTile) {
     for (int s = threadIdx.x; s < p; s += blockDim.x) tile[s] = 0;
     uint32_t h[kPassRows];
@@ -599,37 +600,40 @@ __device__ __forceinline__ void bit_insert(uint32_t* __restrict__ words,
 // together first (__match_any_sync) all cost more (0.092-0.195).
 //
 // Design (the rule lives here only, in transfer_plan; bloom_transfer takes
-// it, bloom_transfer_force forces each part):
-//  - kPartitionedTransfer (outgoing filters of more than 64 blocks, from
-//    kManyTransferRows = 2^22 rows on): no L2 atomics and no zeroing of the
-//    filter. transfer_compact_kernel probes kTransferRows = 4 rows a
-//    thread, each row's probe chain (block_hit) after the last's, the
-//    rows adjacent where the key columns are 16-byte aligned and the mask
-//    and ok 4-byte aligned (one 16-byte load a key half column, one 4-byte
-//    mask load and one 4-byte ok store per 4 rows; otherwise, as for
-//    column views such as lo[1:], row i of thread t is base + i * blockDim
-//    + t, in the same kernel), and appends the survivors' outgoing hashes
-//    to a list (one atomicAdd a CTA, append_survivors); K2's scatter,
-//    slice build and overflow kernels then build the filter from the list
+// it, bloom_transfer_force forces its route):
+//  - kPartitionedTransfer (outgoing filters of more than 64 blocks and of
+//    at most 2^kMaxSlicesLog2 of K2's slices, from kManyTransferRows =
+//    2^22 rows on): no L2 atomics and no zeroing of the filter.
+//    transfer_compact_kernel probes kTransferRows = 4 rows a thread, each
+//    row's probe chain (block_hit) after the last's, the rows adjacent
+//    where the key columns are 16-byte aligned and the mask and ok 4-byte
+//    aligned (one 16-byte load a key half column, one 4-byte mask load and
+//    one 4-byte ok store per 4 rows; otherwise, as for column views such
+//    as lo[1:], row i of thread t is base + i * blockDim + t, in the same
+//    kernel), and appends the survivors' outgoing hashes to a list (one
+//    atomicAdd a CTA, append_survivors); K2's scatter, slice build and
+//    overflow kernels then build the filter from the list
 //    (slice_scatter_kernel<true>) a slice at a time in shared memory and
 //    store each slice whole. At case C: 0.070-0.072 ms against the
 //    parent's 0.080-0.083 (1.16x; 1.2x needed 0.0687): the compaction
 //    kernel 0.0515, K2's scatter 0.0088 and slice build 0.0090, the
 //    overflow kernel 0.0012, the cursors' zeroing 0.0009. Loading the
-//    outgoing keys with the
-//    incoming ones before the probe (0.083), or reading the incoming
-//    block whole (0.104), was slower; so was the probe inside K2's scatter
-//    (0.087: a tile's survivors are too few a slice) and a compaction a
-//    warp at a time (0.073). Below 2^22 rows the four kernels' fixed cost
+//    outgoing keys with the incoming ones before the probe (0.083), or
+//    reading the incoming block whole (0.104), was slower; so were the
+//    probe inside K2's scatter (0.087: a tile's survivors are too few a
+//    slice), a compaction a warp at a time (0.073), and one row or 8 a
+//    thread (0.091, 0.077). Below 2^22 rows the four kernels' fixed cost
 //    loses to the L2 route (chip_smoke.py's transfer_sweep).
 //  - kTinyTransferRoute (at most 2^kTinyLog2 = 64 blocks, 2 KB, from
 //    kTinyRowsABlock = 128 rows a block on): each CTA (kTinyTransferCtas
 //    at most, walking the tiles) builds the filter in shared memory and
 //    ORs its non-zero 64-bit words into the output (one CTA: plain stores,
-//    no zeroing): 0.0041 against 0.0142 ms at 2^16 rows into one block.
+//    no zeroing), one row a thread: 0.0041 against 0.0142 ms at 2^16 rows
+//    into one block (four adjacent rows a thread were slower).
 //  - kL2Route (otherwise): one row a thread, bit_insert into L2 after the
-//    filter is zeroed, the parent's kernel (four adjacent rows a thread
-//    were slower on this route at every size up to 2^22 rows).
+//    filter is zeroed, the kernel from before the other routes (four
+//    adjacent rows a thread, tools/k7_floor.py's c4_bit, were slower on
+//    this route at every size up to 2^22 rows).
 // Zeroing is zero_kernel's (a 16-byte store a thread): a cudaMemsetAsync
 // of the same bytes took 0.0002 ms more at small filters.
 constexpr int kTransferRows = 4;
@@ -643,31 +647,24 @@ enum TransferRoute {
   kPartitionedTransfer = 3
 };
 
-struct TransferPlan {
-  int rows, route;  // rows a thread (1 or kTransferRows), TransferRoute
-};
+// 0: transfer_plan's rule; otherwise that route where the filter allows
+// it (bloom_transfer_force).
+int forced_transfer = 0;
 
-// 0 each: transfer_plan's rule; otherwise those rows a thread or that route
-// (the tiny route only where the filter has at most 64 blocks, the
-// partitioned one only where it has more) (bloom_transfer_force).
-TransferPlan forced_transfer = {0, 0};
-
-TransferPlan transfer_plan(int n, int log2nb_out) {
-  TransferPlan p;
-  int route = forced_transfer.route;
+// The route for n rows into 2^log2nb_out blocks: the tiny one only into
+// at most 64 blocks, the partitioned one only into more, in at most
+// 2^kMaxSlicesLog2 slices (K2's scatter's shared memory), L2 otherwise.
+TransferRoute transfer_plan(int n, int log2nb_out) {
+  int route = forced_transfer;
   if (log2nb_out <= kTinyLog2) {
     bool tiny = route ? route != kL2Route
                       : n >= kTinyRowsABlock << log2nb_out;
-    p.route = tiny ? kTinyTransferRoute : kL2Route;
-  } else if (route == kL2Route || route == kPartitionedTransfer) {
-    p.route = route;
-  } else {
-    p.route = n >= kManyTransferRows ? kPartitionedTransfer : kL2Route;
+    return tiny ? kTinyTransferRoute : kL2Route;
   }
-  p.rows = forced_transfer.rows ? forced_transfer.rows
-           : p.route == kPartitionedTransfer ? kTransferRows
-                                             : 1;
-  return p;
+  bool many = route ? route == kPartitionedTransfer : n >= kManyTransferRows;
+  return many && log2nb_out - slice_log2(log2nb_out) <= kMaxSlicesLog2
+             ? kPartitionedTransfer
+             : kL2Route;
 }
 
 struct TransferArgs {
@@ -684,7 +681,7 @@ struct TransferArgs {
 };
 
 // Probes R rows a thread of the tile from row `base` (blockDim.x threads;
-// at R = kTransferRows adjacent rows where a.adjacent, else strided),
+// at R a multiple of 4 adjacent rows where a.adjacent, else strided),
 // writes their ok bytes, and returns each row's ok and its outgoing key's
 // hash (0 where not ok).
 template <int R>
@@ -762,24 +759,24 @@ __device__ __forceinline__ void transfer_probe(const TransferArgs& a,
   }
 }
 
-// K7's kernel on the L2 and tiny routes. L2: one tile of kThreads * R rows
-// a CTA, each survivor's key ORed into the (zeroed) output (bit_insert);
-// at one row a thread the body is the kernel's from before the tiny and
-// partitioned routes (the row's probe, then its insert): written through
-// transfer_probe it took 0.0001-0.00015 ms more a launch on the H100 at
-// 2^10-2^17 rows (tools/k7_floor.py's device ops). Tiny: each CTA walks
-// tiles blockIdx.x, blockIdx.x + gridDim.x, ... into its shared copy of
-// the outgoing filter (slice_or a bit), then ORs it into the (zeroed)
-// output, or, alone, stores it.
-template <int R, bool kTiny>
+// K7's kernel on the L2 and tiny routes, one row a thread. L2: the row's
+// probe, then its key ORed into the (zeroed) output (bit_insert), the
+// kernel's body from before the other routes (through transfer_probe<1>
+// it compiles to 240 instructions and 29 registers against 232 and 28,
+// tools/sass_compare.py, and took 0.0001-0.00015 ms more a launch on the
+// H100 at 2^10-2^17 rows, tools/k7_floor.py's device ops). Tiny: each CTA
+// walks tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ... into its shared copy of the outgoing filter
+// (slice_or a bit), then ORs it into the (zeroed) output, or, alone,
+// stores it.
+template <bool kTiny>
 __global__ void transfer_kernel(TransferArgs a) {
   extern __shared__ uint4 tiny_vecs[];  // kTiny: the outgoing filter
   uint32_t* tiny = reinterpret_cast<uint32_t*>(tiny_vecs);
   int vecs = (kLanes / 4) << a.log2nb_out;
-  int rows = kThreads * R;
-  bool ok[R];
-  uint32_t g[R];
-  if constexpr (R == 1 && !kTiny) {
+  bool ok[1];
+  uint32_t g[1];
+  if (!kTiny) {
     int r = blockIdx.x * kThreads + threadIdx.x;
     if (r >= a.n) return;
     bool hit = a.mask[r] &&
@@ -794,29 +791,18 @@ __global__ void transfer_kernel(TransferArgs a) {
     }
     return;
   }
-  if (!kTiny) {
-    transfer_probe<R>(a, blockIdx.x * rows, ok, g);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      if (ok[i]) bit_insert(a.out_words, g[i], a.log2nb_out, a.k);
-    }
-    return;
-  }
   for (int i = threadIdx.x; i < vecs; i += kThreads) {
     tiny_vecs[i] = make_uint4(0u, 0u, 0u, 0u);
   }
   __syncthreads();
-  for (int t = blockIdx.x * rows; t < a.n; t += gridDim.x * rows) {
-    transfer_probe<R>(a, t, ok, g);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      if (!ok[i]) continue;
-      uint32_t* blk = tiny + block_of(g[i], a.log2nb_out) * kLanes;
-      uint32_t g1 = fmix32(g[i] ^ kGolden), g2 = fmix32(g[i] ^ kP2) | 1u;
-      for (int j = 0; j < a.k; ++j) {
-        uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
-        slice_or(blk + (pos >> 5), 1u << (pos & 31u));
-      }
+  for (int t = blockIdx.x * kThreads; t < a.n; t += gridDim.x * kThreads) {
+    transfer_probe<1>(a, t, ok, g);
+    if (!ok[0]) continue;
+    uint32_t* blk = tiny + block_of(g[0], a.log2nb_out) * kLanes;
+    uint32_t g1 = fmix32(g[0] ^ kGolden), g2 = fmix32(g[0] ^ kP2) | 1u;
+    for (int j = 0; j < a.k; ++j) {
+      uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
+      slice_or(blk + (pos >> 5), 1u << (pos & 31u));
     }
   }
   __syncthreads();
@@ -879,12 +865,13 @@ __device__ __forceinline__ void append_survivors(const bool (&ok)[R],
   }
 }
 
-// K7's partitioned route, first kernel: R rows a thread probed
-// (transfer_probe), the survivors' outgoing hashes appended to the list.
-template <int R>
+// K7's partitioned route, first kernel: kTransferRows rows a thread
+// probed (transfer_probe), the survivors' outgoing hashes appended to the
+// list.
 __global__ void __launch_bounds__(kThreads)
     transfer_compact_kernel(TransferArgs a, int* __restrict__ n,
                             uint32_t* __restrict__ list) {
+  constexpr int R = kTransferRows;
   bool ok[R];
   uint32_t g[R];
   transfer_probe<R>(a, blockIdx.x * kThreads * R, ok, g);
@@ -935,14 +922,14 @@ long long partition_bytes(const Partition& q, int count) {
 }
 
 // K2's partitioned route after its cursors are zeroed: the scatter (of
-// count build rows, or with nlist of K7's list in lo, count its bound),
-// each slice built in shared memory and stored whole, the overflow list
-// ORed into L2. `words` need not be zeroed.
+// count build rows, or of K7's list in lo, its length at *idx and count
+// its bound), each slice built in shared memory and stored whole, the
+// overflow list ORed into L2. `words` need not be zeroed.
 template <bool kList>
 int partitioned_kernels(const uint32_t* lo, const uint32_t* hi,
-                        const int32_t* idx, const uint8_t* valid,
-                        const int* nlist, int count, const Partition& q,
-                        int log2nb, int k, uint32_t* words, cudaStream_t st) {
+                        const int32_t* idx, const uint8_t* valid, int count,
+                        const Partition& q, int log2nb, int k,
+                        uint32_t* words, cudaStream_t st) {
   // the largest shared memory sizes, once a device
   static bool attrs_set[kMaxDevices] = {};
   int dev = 0;
@@ -970,8 +957,7 @@ int partitioned_kernels(const uint32_t* lo, const uint32_t* hi,
   size_t build_smem = (size_t)kLanes * 4 << q.log2s;
   slice_scatter_kernel<kList><<<(count + kTile - 1) / kTile, kPassThreads,
                                 scatter_smem, st>>>(
-      lo, hi, idx, valid, nlist, count, q.log2p, q.cap, q.fill, q.hs,
-      q.overflow);
+      lo, hi, idx, valid, count, q.log2p, q.cap, q.fill, q.hs, q.overflow);
   slice_build_kernel<false><<<q.p, kBuildThreads, build_smem, st>>>(
       nullptr, nullptr, nullptr, nullptr, q.hs, q.fill, q.cap, count, log2nb,
       q.log2s, k, words);
@@ -1072,8 +1058,8 @@ int bloom_build(const void* lo, const void* hi, const void* idx,
       Partition q = partition(count, log2nb, 0, scratch);
       err = cudaMemsetAsync(q.fill, 0, 4 * ((size_t)q.p + 1), st);
       if (err) return err;
-      return partitioned_kernels<false>(lo32, hi32, ix, ok, nullptr, count, q,
-                                        log2nb, k, w, st);
+      return partitioned_kernels<false>(lo32, hi32, ix, ok, count, q, log2nb,
+                                        k, w, st);
     }
   }
   return (int)cudaGetLastError();
@@ -1122,9 +1108,9 @@ constexpr int kTransferCursors = 3;
 // 2^log2nb_out blocks: on the partitioned route K2's scratch for n rows
 // with K7's cursors, and the survivors' list; none on the others.
 long long bloom_transfer_scratch_bytes(int n, int log2nb_out) {
-  if (n <= 0) return 0;
-  TransferPlan p = transfer_plan(n, log2nb_out);
-  if (p.route != kPartitionedTransfer) return 0;
+  if (n <= 0 || transfer_plan(n, log2nb_out) != kPartitionedTransfer) {
+    return 0;
+  }
   return partition_bytes(partition(n, log2nb_out, kTransferCursors, nullptr),
                          n) +
          4ll * n;
@@ -1144,7 +1130,7 @@ int bloom_transfer(const void* in_words, int log2nb_in, const void* in_lo,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   size_t filter_bytes = (size_t)kLanes * 4 << log2nb_out;
   if (n <= 0) return zero_words(out_words, filter_bytes, st);
-  TransferPlan p = transfer_plan(n, log2nb_out);
+  TransferRoute route = transfer_plan(n, log2nb_out);
   uintptr_t cols = reinterpret_cast<uintptr_t>(in_lo) |
                    reinterpret_cast<uintptr_t>(in_hi) |
                    reinterpret_cast<uintptr_t>(out_lo) |
@@ -1161,56 +1147,50 @@ int bloom_transfer(const void* in_words, int log2nb_in, const void* in_lo,
                     static_cast<uint32_t*>(out_words),
                     log2nb_in, log2nb_out, k, n,
                     (cols & 15u) == 0 && (bytes & 3u) == 0};
-  int rows = kThreads * p.rows;
-  int grid = (n + rows - 1) / rows;
   int err = 0;
-  if (p.route == kPartitionedTransfer) {
+  if (route == kPartitionedTransfer) {
     Partition q = partition(n, log2nb_out, kTransferCursors, scratch);
     int* count = q.fill + q.p + 1;
     uint32_t* list = q.overflow + n;
     err = zero_words(q.fill, 4 * (size_t)q.cursors, st);
     if (err) return err;
-    auto compact = p.rows == 1 ? transfer_compact_kernel<1>
-                               : transfer_compact_kernel<kTransferRows>;
-    compact<<<grid, kThreads, 0, st>>>(a, count, list);
-    return partitioned_kernels<true>(list, nullptr, nullptr, nullptr, count,
-                                     n, q, log2nb_out, k,
+    int rows = kThreads * kTransferRows;
+    transfer_compact_kernel<<<(n + rows - 1) / rows, kThreads, 0, st>>>(
+        a, count, list);
+    return partitioned_kernels<true>(list, nullptr, count, nullptr, n, q,
+                                     log2nb_out, k,
                                      static_cast<uint32_t*>(out_words), st);
   }
-  bool tiny = p.route == kTinyTransferRoute;
+  bool tiny = route == kTinyTransferRoute;
+  int grid = (n + kThreads - 1) / kThreads;
   if (tiny && grid > kTinyTransferCtas) grid = kTinyTransferCtas;
   if (!tiny || grid > 1) {
     err = zero_words(out_words, filter_bytes, st);
     if (err) return err;
   }
-  auto kernel = p.rows == 1 ? (tiny ? transfer_kernel<1, true>
-                                    : transfer_kernel<1, false>)
-                            : (tiny ? transfer_kernel<kTransferRows, true>
-                                    : transfer_kernel<kTransferRows, false>);
+  auto kernel = tiny ? transfer_kernel<true> : transfer_kernel<false>;
   kernel<<<grid, kThreads, tiny ? filter_bytes : 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-// Makes every later bloom_transfer (and its scratch query) take `rows` rows
-// a thread (1, or kTransferRows adjacent where the columns allow) and
-// `route` (1 L2; 2 tiny where the filter has at most 64 blocks; 3
-// partitioned where it has more); 0 for either: the rule's. For timing them
-// against each other at one shape; not thread-safe. Returns 0, or
-// cudaErrorInvalidValue for a value out of range (nothing is changed then).
-int bloom_transfer_force(int rows, int route) {
-  if ((rows != 0 && rows != 1 && rows != kTransferRows) || route < 0 ||
-      route > kPartitionedTransfer) {
+// Makes every later bloom_transfer (and its scratch query) take `route`
+// (1 L2; 2 tiny where the filter has at most 64 blocks; 3 partitioned
+// where it has more, in at most 2^kMaxSlicesLog2 slices), or, at 0, the
+// rule's. For timing the routes against each other at one shape; not
+// thread-safe. Returns 0, or cudaErrorInvalidValue for a value out of
+// range (nothing is changed then).
+int bloom_transfer_force(int route) {
+  if (route < 0 || route > kPartitionedTransfer) {
     return (int)cudaErrorInvalidValue;
   }
-  forced_transfer = {rows, route};
+  forced_transfer = route;
   return 0;
 }
 
-// The plan bloom_transfer takes for n rows into 2^log2nb_out blocks: rows a
-// thread | route << 4 (the values bloom_transfer_force takes).
+// The route bloom_transfer takes for n rows into 2^log2nb_out blocks (the
+// values bloom_transfer_force takes).
 int bloom_transfer_plan(int n, int log2nb_out) {
-  TransferPlan p = transfer_plan(n, log2nb_out);
-  return p.rows | p.route << 4;
+  return transfer_plan(n, log2nb_out);
 }
 
 }  // extern "C"

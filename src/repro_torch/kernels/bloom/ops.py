@@ -83,7 +83,7 @@ def _lib() -> ctypes.CDLL:
         lib.bloom_transfer_scratch_bytes.argtypes = [ctypes.c_int,
                                                      ctypes.c_int]
         lib.bloom_transfer_scratch_bytes.restype = ctypes.c_longlong
-        lib.bloom_transfer_force.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.bloom_transfer_force.argtypes = [ctypes.c_int]
         lib.bloom_transfer_force.restype = ctypes.c_int
         lib.bloom_transfer_plan.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.bloom_transfer_plan.restype = ctypes.c_int

@@ -654,100 +654,138 @@ def test_transfer_kernel_matches_plain_version(cuda, nb):
     assert got[0][keep].all()
 
 
-#: K7's plans (`bloom.cu`, K7's note; `bloom_transfer_force`'s codes):
-#: one row or TRANSFER_ROWS adjacent rows a thread (strided where the
-#: columns are not 16-byte aligned); routes L2 (one atomic a bit into the
-#: zeroed filter), tiny (an outgoing filter of at most TINY blocks in
-#: shared memory) and partitioned (larger filters: the survivors' hashes
-#: listed, scattered by slice, each slice built in shared memory). The
-#: rule: into at most TINY blocks the tiny route from TINY_ROWS rows a
-#: block on, L2 below; into more the partitioned route (four rows a
-#: thread) from MANY_TRANSFER rows on, L2 (one row a thread) below.
+#: K7's routes (`bloom.cu`, K7's note; `bloom_transfer_force`'s codes):
+#: L2 (one row a thread, one atomic a bit into the zeroed filter), tiny
+#: (one row a thread, an outgoing filter of at most TINY blocks in shared
+#: memory) and partitioned (larger filters in at most 2^MAX_SLICES_LOG2
+#: slices: TRANSFER_ROWS adjacent rows a thread, strided where the
+#: columns are not 16-byte aligned, the survivors' hashes listed,
+#: scattered by slice, each slice built in shared memory). The rule: into
+#: at most TINY blocks the tiny route from TINY_ROWS rows a block on, L2
+#: below; into more the partitioned route from MANY_TRANSFER rows on
+#: where its slices allow, L2 otherwise.
 TRANSFER_ROWS, TRANSFER_ROUTES = 4, (1, 2, 3)
-MANY_TRANSFER, TINY_ROWS = 1 << 22, 128
+MANY_TRANSFER, TINY_ROWS, MAX_SLICES_LOG2 = 1 << 22, 128, 12
 TRANSFER_NS = (1, 3, (1 << 16) - 3, MANY_TRANSFER - 5, MANY_TRANSFER + 5)
 TRANSFER_NBS = (1, 8, TINY, 4096, 1 << 19)
 
 
+def _slices_log2(log2nb):
+    """log2 of K2's slices in a 2^log2nb-block filter (`slice_log2`)."""
+    return log2nb - min(max(log2nb - 8, 4), 11)
+
+
+@pytest.mark.parametrize("kind", ["repeats", "distinct"])
 @pytest.mark.parametrize("route", TRANSFER_ROUTES,
                          ids=["l2", "tiny", "partitioned"])
-@pytest.mark.parametrize("rows", [1, TRANSFER_ROWS], ids=["one", "four"])
-def test_transfer_kernel_forced_plans_match_plain_version(cuda, rows, route):
-    """K7 with its rows a thread and route forced in turn
-    (`bloom_transfer_force`) == its plain version bit for bit, survivors
-    and outgoing words: at n in TRANSFER_NS (MANY_TRANSFER ± 5 sits at
-    the rule's edge) into 1 to 2^19 outgoing blocks, with outgoing keys
-    of about 90 copies each and all distinct, masks all True, all False
-    and 80% True, and over column views (`lo[1:]`, not 16-byte aligned:
-    the strided rows); one launch a call."""
-    rng = np.random.default_rng(10 * rows + route)
+def test_transfer_kernel_forced_plans_match_plain_version(cuda, route, kind):
+    """K7 with each route forced in turn (`bloom_transfer_force`) == its
+    plain version bit for bit, survivors and outgoing words: at n in
+    TRANSFER_NS (MANY_TRANSFER ± 5 sits at the rule's edge) into 1 to
+    2^19 outgoing blocks, with outgoing keys of about 90 copies each or
+    all distinct, masks all True, all False and 80% True, and over column
+    views (`lo[1:]`, not 16-byte aligned: the partitioned route's strided
+    rows); one launch a call."""
+    rng = np.random.default_rng(10 * route + (kind == "distinct"))
     big = MANY_TRANSFER + 6
     keys = _keys(rng, big)
     lo, hi = bloom.keys_to_device(keys, cuda)
-    outs = {"repeats": bloom.keys_to_device(
-                rng.integers(0, big // 90, big, dtype=np.int64), cuda),
-            "distinct": bloom.keys_to_device(_keys(rng, big), cuda)}
+    olo, ohi = bloom.keys_to_device(
+        rng.integers(0, big // 90, big, dtype=np.int64)
+        if kind == "repeats" else _keys(rng, big), cuda)
     masks = (torch.ones(big, dtype=torch.bool, device=cuda),
              torch.zeros(big, dtype=torch.bool, device=cuda),
              torch.from_numpy(rng.random(big) < 0.8).to(cuda))
     words = kb.build_ref(lo[: 1 << 16], hi[: 1 << 16], 4096)
     lib = kb._lib()
-    assert lib.bloom_transfer_force(rows, route) == 0
+    assert lib.bloom_transfer_force(route) == 0
     kb.reset_launches()
     calls = 0
     try:
         for i, (n, nb) in enumerate((n, nb) for n in TRANSFER_NS
                                     for nb in TRANSFER_NBS):
             mask = masks[i % 3]
-            for kind, (olo, ohi) in outs.items():
-                for at in ((0, 1) if n == (1 << 16) - 3 else (0,)):
-                    args = (words, lo[at:at + n], hi[at:at + n],
-                            olo[at:at + n], ohi[at:at + n],
-                            mask[at:at + n], nb)
-                    ok, w = kb.transfer(*args)
-                    ok_ref, w_ref = bloom.transfer(*args)
-                    torch.cuda.synchronize()
-                    assert torch.equal(ok, ok_ref), (n, nb, kind, at)
-                    assert torch.equal(w, w_ref), (n, nb, kind, at)
-                    calls += 1
+            for at in ((0, 1) if n == (1 << 16) - 3 else (0,)):
+                args = (words, lo[at:at + n], hi[at:at + n],
+                        olo[at:at + n], ohi[at:at + n], mask[at:at + n], nb)
+                ok, w = kb.transfer(*args)
+                ok_ref, w_ref = bloom.transfer(*args)
+                torch.cuda.synchronize()
+                assert torch.equal(ok, ok_ref), (n, nb, at)
+                assert torch.equal(w, w_ref), (n, nb, at)
+                calls += 1
     finally:
-        lib.bloom_transfer_force(0, 0)
+        lib.bloom_transfer_force(0)
     assert kb.LAUNCHES["bloom_transfer"] == calls
 
 
+@pytest.mark.parametrize("log2nb", [23, 24])
+@pytest.mark.parametrize("forced", [0, 3], ids=["rule", "partitioned"])
+def test_transfer_into_the_most_slices_matches_plain_version(cuda, log2nb,
+                                                             forced):
+    """K7 at MANY_TRANSFER + 5 rows into 2^23 blocks (2^MAX_SLICES_LOG2
+    slices: the partitioned route's largest filter) and 2^24 (more: the
+    L2 route, by the rule and when the partitioned route is forced): its
+    survivors == the plain version's (which do not depend on the outgoing
+    filter, so it runs into TINY blocks), its outgoing words == K2's build
+    of the survivors' outgoing keys (held to its plain version by its own
+    tests; the plain version's words take 16 and 32 GiB of int64 at these
+    sizes)."""
+    lib = kb._lib()
+    n = MANY_TRANSFER + 5
+    route = 3 if _slices_log2(log2nb) <= MAX_SLICES_LOG2 else 1
+    assert (route == 3) == (log2nb == 23)
+    rng = np.random.default_rng(log2nb)
+    lo, hi = bloom.keys_to_device(_keys(rng, n), cuda)
+    olo, ohi = bloom.keys_to_device(_keys(rng, n), cuda)
+    mask = torch.from_numpy(rng.random(n) < 0.8).to(cuda)
+    words = kb.build_ref(lo[: 1 << 16], hi[: 1 << 16], 4096)
+    assert lib.bloom_transfer_force(forced) == 0
+    try:
+        assert lib.bloom_transfer_plan(n, log2nb) == route
+        ok, w = kb.transfer(words, lo, hi, olo, ohi, mask, 1 << log2nb)
+    finally:
+        lib.bloom_transfer_force(0)
+    ok_ref, _ = bloom.transfer(words, lo, hi, olo, ohi, mask, TINY)
+    assert torch.equal(ok, ok_ref)
+    assert torch.equal(w, kb.build(olo, ohi, 1 << log2nb, valid=ok_ref))
+
+
 def test_transfer_plan_follows_the_source_note(cuda):
-    """K7's rule (`bloom_transfer_plan`: rows a thread | route << 4):
-    into at most TINY blocks the tiny route from TINY_ROWS rows a block
-    on, L2 below; into more the partitioned route from MANY_TRANSFER rows
-    on (TRANSFER_ROWS rows a thread, scratch for n rows), L2 below (one
-    row a thread, no scratch); a forced part overrides the rule's (the
-    tiny route only where the filter allows it, the partitioned one only
-    where it does not), and an out-of-range value is refused."""
+    """K7's rule (`bloom_transfer_plan`: the route's code): into at most
+    TINY blocks the tiny route from TINY_ROWS rows a block on, L2 below;
+    into more the partitioned route from MANY_TRANSFER rows on (scratch
+    for n rows) where the filter has at most 2^MAX_SLICES_LOG2 slices, L2
+    otherwise (no scratch); a forced route overrides the rule's (the tiny
+    route only where the filter allows it, the partitioned one only where
+    it has more blocks in few enough slices), and an out-of-range value
+    is refused."""
     lib = kb._lib()
     for n in (1, 1024, 5003, MANY_TRANSFER - 1, MANY_TRANSFER, 1 << 23):
-        for log2nb in (0, 3, 6, 7, 19):
-            code = lib.bloom_transfer_plan(n, log2nb)
+        for log2nb in (0, 3, 6, 7, 19, 23, 24, 26):
             route = ((2 if n >= TINY_ROWS << log2nb else 1)
                      if (1 << log2nb) <= TINY else
-                     3 if n >= MANY_TRANSFER else 1)
-            assert code >> 4 == route, (n, log2nb)
-            assert code & 15 == (TRANSFER_ROWS if route == 3 else 1)
+                     3 if n >= MANY_TRANSFER
+                     and _slices_log2(log2nb) <= MAX_SLICES_LOG2 else 1)
+            assert lib.bloom_transfer_plan(n, log2nb) == route, (n, log2nb)
             scratch = lib.bloom_transfer_scratch_bytes(n, log2nb)
             assert (scratch > 4 * n) == (route == 3), (n, log2nb)
     try:
-        assert lib.bloom_transfer_force(TRANSFER_ROWS, 2) == 0
-        assert lib.bloom_transfer_plan(1, 19) == TRANSFER_ROWS | 1 << 4
-        assert lib.bloom_transfer_plan(1, 6) == TRANSFER_ROWS | 2 << 4
-        assert lib.bloom_transfer_force(0, 3) == 0
-        assert lib.bloom_transfer_plan(1, 19) == TRANSFER_ROWS | 3 << 4
-        assert lib.bloom_transfer_plan(1, 6) >> 4 == 2
-        assert lib.bloom_transfer_force(0, 1) == 0
-        assert lib.bloom_transfer_plan(1 << 16, 0) == 1 | 1 << 4
-        for bad in ((2, 0), (0, 4), (-1, 0)):
-            assert lib.bloom_transfer_force(*bad) != 0
-        assert lib.bloom_transfer_plan(1 << 16, 0) >> 4 == 1  # left as it was
+        assert lib.bloom_transfer_force(2) == 0
+        assert lib.bloom_transfer_plan(1, 19) == 1
+        assert lib.bloom_transfer_plan(1, 6) == 2
+        assert lib.bloom_transfer_force(3) == 0
+        assert lib.bloom_transfer_plan(1, 19) == 3
+        assert lib.bloom_transfer_plan(1, 23) == 3
+        assert lib.bloom_transfer_plan(1, 24) == 1
+        assert lib.bloom_transfer_plan(1, 6) == 2
+        assert lib.bloom_transfer_force(1) == 0
+        assert lib.bloom_transfer_plan(1 << 16, 0) == 1
+        for bad in (4, -1):
+            assert lib.bloom_transfer_force(bad) != 0
+        assert lib.bloom_transfer_plan(1 << 16, 0) == 1  # left as it was
     finally:
-        lib.bloom_transfer_force(0, 0)
+        lib.bloom_transfer_force(0)
 
 
 def _attn_inputs(rng, b, sq, skv, h, kvh, d, dev, ragged=True,

@@ -71,20 +71,23 @@ def test_k7_floor_variant_sources(name):
         at = src.index("tools/k7_floor.py's variant of K7")
         added = src[at:src.index("}  // namespace")]
         assert "__global__" in added and "floor_kernel(" in added
-        for mark in ("ROWS", "PROBE", "INSERT", "ADJACENT"):
+        for mark in ("ROWS", "PROBE", "INSERT", "ADJACENT", "RR", "EARLY"):
             assert mark not in added, mark
     for kernel in ("multi_probe_kernel", "slice_build_kernel",
                    "__global__ void probe_kernel", "build_kernel(",
-                   "transfer_kernel(TransferArgs a)"):
+                   "transfer_kernel(TransferArgs a)",
+                   "transfer_compact_kernel("):
         assert kernel in src, kernel
 
 
 def test_transfer_cases_and_plan_codes():
     """K7's cases from small catalog columns: case C's incoming filter is
     sized for the Q5 rows, its outgoing one for every lineitem row, the
-    distinct case's outgoing keys are distinct, "5003 ragged" goes into 8
-    blocks; `transfer_plan` decodes `bloom_transfer_plan`'s fields and
-    `transfer_plans` names each plan the sweep forces."""
+    distinct case's outgoing keys are distinct, "2^20 case C rows" takes
+    case C's first rows (all of them here) into a filter sized for them,
+    "5003 ragged" goes into 8 blocks; `transfer_route` names
+    `bloom_transfer_plan`'s route and `transfer_routes` each route the
+    sweep forces."""
     import types
     from repro_torch.core import bloom
     from repro_torch.kernels.bloom import ops as kb
@@ -95,22 +98,24 @@ def test_transfer_cases_and_plan_codes():
            "l_suppkey": rng.integers(0, 100, 9000)}
     cases = chip_smoke.transfer_cases(torch, np, kb, bloom,
                                       torch.device("cpu"), api)
-    assert list(cases) == ["SF 1 case C", "case C distinct", "5003 ragged"]
-    c, d, r = cases.values()
+    assert list(cases) == ["SF 1 case C", "case C distinct",
+                           "2^20 case C rows", "5003 ragged"]
+    c, d, f, r = cases.values()
     assert c[0].shape[0] == bloom.blocks_for(int(api["q5"].sum()))
     assert c[6] == d[6] == bloom.blocks_for(9000) and bool(c[5].all())
     assert len(torch.unique(d[3])) == 9000
+    assert all(torch.equal(x, y) for x, y in zip(f[:6], c[:6]))
+    assert f[6] == bloom.blocks_for(9000)
     assert r[6] == 8 and r[1].shape[0] == 5003
     ok, words = kb.transfer(*c)
     assert words.shape == (c[6], 8) and int(ok.sum()) > 0
     lib = types.SimpleNamespace(
-        bloom_transfer_plan=lambda n, log2nb: 4 | 3 << 4)
-    assert chip_smoke.transfer_plan(lib, 5, 1024) == {
-        "rows": "adjacent", "route": "partitioned"}
+        bloom_transfer_plan=lambda n, log2nb: 3 if log2nb > 6 else 2)
+    assert chip_smoke.transfer_route(lib, 5, 1024) == "partitioned"
+    assert chip_smoke.transfer_route(lib, 5, 64) == "tiny"
     assert all(nb is None or nb <= 64 for _, nb in chip_smoke.TRANSFER_SWEEP)
-    assert set(chip_smoke.transfer_plans(8).values()) == {
-        "one_l2", "adjacent_l2", "one_tiny", "adjacent_tiny"}
-    assert chip_smoke.transfer_plans(4096)[(4, 3)] == "adjacent_partitioned"
+    assert chip_smoke.transfer_routes(8) == {1: "l2", 2: "tiny"}
+    assert chip_smoke.transfer_routes(4096) == {1: "l2", 3: "partitioned"}
 
 
 def test_k5_passes_source():

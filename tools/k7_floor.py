@@ -37,31 +37,34 @@ library swapped in; the wrapper leaves the zeroing to the library):
 - `c4_stream`, `c4_probe`, `c4_bit`, `c4_read_first`: at 4 adjacent
   rows a thread, one 16-byte load each of the key halves, one 4-byte
   load of the mask and one 4-byte store of the survivors where the
-  columns allow it (else strided, as `r4_*`);
+  columns allow it (else strided, as `r4_*`); `c4_bit` is K7's L2 route
+  at the partitioned route's layout;
+- `tiny4`: K7's tiny route at 4 adjacent rows a thread (its probe,
+  `transfer_probe`, and its insert into shared memory), where K7 takes
+  one; at outgoing filters of at most 64 blocks only (`--sweep`);
 - `early_out`, `whole_probe`, `early_whole`: K7's partitioned route
   with another first kernel at four adjacent rows a thread: the
   outgoing key halves loaded with the incoming ones, before the probe,
   for every masked row (`early_*`), and the incoming block read whole in
   two 16-byte loads with every bit tested from registers (`*_whole`,
   `whole_probe`); `compact1`, `compact8`: its first kernel at one row or
-  8 adjacent rows a thread instead of 4 (case C only: these need the
-  route's scratch).
+  8 adjacent rows a thread instead of 4 (at case C's two shapes only:
+  these need the route's scratch).
 
-`k7` is the package's K7 as it is (its rule's rows a thread and route;
-at case C the partitioned route),
-measured first and again last. Cases: "SF 1 case C" (`chip_smoke.py`'s
+`k7` is the package's K7 as it is (its rule's route; at case C the
+partitioned route), measured first and again last. Cases: "SF 1 case C" (`chip_smoke.py`'s
 case: lineitem's 6,001,215 rows probed on `l_orderkey` against the
 Q5-date orders filter of 16,384 blocks, survivors' `l_suppkey` into
 524,288 blocks: about 90 copies of each of 10,000 keys) and "case C
 distinct" (the same rows, every outgoing key distinct). `--sweep` adds
-"5003 ragged" and the K7 sweep's shapes (`chip_smoke.transfer_sweep_cases`,
+"2^20 case C rows", "5003 ragged" and the K7 sweep's shapes (`chip_smoke.transfer_sweep_cases`,
 2^16-2^23 rows, foreign and distinct outgoing keys, and the out
 filters of at most 64 blocks). One JSON line: each variant's CUDA-event
 ms, device ms and device ops (torch.profiler, `chip_smoke.device_busy`:
 a memset and each kernel apart) a case. `k7`,
-`bit`, `read_first`, `quarters`, `warp_or`, `r4_bit`, `c4_bit` and
-`c4_read_first` and the five partitioned variants must equal the plain
-version; the others answer wrongly by design.
+`bit`, `read_first`, `quarters`, `warp_or`, `r4_bit`, `c4_bit`,
+`c4_read_first`, `tiny4` and the five partitioned variants must equal
+the plain version; the others answer wrongly by design.
 
 `--src` is the `src/` directory whose package (wrapper and `bloom.cu`)
 is measured as `k7` (default: this checkout's); with another tree's,
@@ -377,12 +380,80 @@ for rr in (1, 8):
         ROWS_COMPACT.replace("RR", str(rr)),
         COMPACT_LAUNCHER.replace("kThreads * kTransferRows",
                                  f"kThreads * {rr}"))
+#: K7's tiny route with its kernel at RR rows a thread
+TINY = r"""
+// tools/k7_floor.py's variant of K7: the tiny route at RR rows a thread.
+__global__ void floor_kernel(TransferArgs a) {
+  extern __shared__ uint4 tiny_vecs[];  // the outgoing filter
+  uint32_t* tiny = reinterpret_cast<uint32_t*>(tiny_vecs);
+  int vecs = (kLanes / 4) << a.log2nb_out;
+  int rows = kThreads * RR;
+  bool ok[RR];
+  uint32_t g[RR];
+  for (int i = threadIdx.x; i < vecs; i += kThreads) {
+    tiny_vecs[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+  for (int t = blockIdx.x * rows; t < a.n; t += gridDim.x * rows) {
+    transfer_probe<RR>(a, t, ok, g);
+#pragma unroll
+    for (int i = 0; i < RR; ++i) {
+      if (!ok[i]) continue;
+      uint32_t* blk = tiny + block_of(g[i], a.log2nb_out) * kLanes;
+      uint32_t g1 = fmix32(g[i] ^ kGolden), g2 = fmix32(g[i] ^ kP2) | 1u;
+      for (int j = 0; j < a.k; ++j) {
+        uint32_t pos = (g1 + (uint32_t)j * g2) & 255u;
+        slice_or(blk + (pos >> 5), 1u << (pos & 31u));
+      }
+    }
+  }
+  __syncthreads();
+  if (gridDim.x == 1) {
+    uint4* out = reinterpret_cast<uint4*>(a.out_words);
+    for (int i = threadIdx.x; i < vecs; i += kThreads) out[i] = tiny_vecs[i];
+  } else {
+    const unsigned long long* src =
+        reinterpret_cast<const unsigned long long*>(tiny);
+    unsigned long long* out =
+        reinterpret_cast<unsigned long long*>(a.out_words);
+    for (int i = threadIdx.x; i < 2 * vecs; i += kThreads) {
+      unsigned long long v = src[i];
+      if (v) atomicOr(out + i, v);
+    }
+  }
+}
+
+"""
+#: its launcher: K7's arguments as the partitioned variants take them, a
+#: CTA a tile up to kTinyTransferCtas, the filter zeroed where they OR
+TINY_LAUNCHER = (
+    COMPACT_LAUNCHER[:COMPACT_LAUNCHER.index("  if (n <= 0")]
+    + "  size_t filter_bytes = (size_t)kLanes * 4 << log2nb_out;\n"
+    + "  if (n <= 0 || log2nb_out > kTinyLog2) "
+      "return (int)cudaErrorInvalidValue;\n"
+    + COMPACT_LAUNCHER[COMPACT_LAUNCHER.index("  uintptr_t cols"):
+                       COMPACT_LAUNCHER.index("  Partition q")]
+    + r"""  int rows = kThreads * RR;
+  int grid = (n + rows - 1) / rows;
+  if (grid > kTinyTransferCtas) grid = kTinyTransferCtas;
+  if (grid > 1) {
+    int err = zero_words(out_words, filter_bytes, st);
+    if (err) return err;
+  }
+  floor_kernel<<<grid, kThreads, filter_bytes, st>>>(a);
+  return (int)cudaGetLastError();
+}
+""")
+VARIANTS["tiny4"] = (TINY.replace("RR", "4"),
+                     TINY_LAUNCHER.replace("RR", "4"))
 #: variants that need the partitioned route's scratch (case C's shapes:
 #: the wrapper allocates it where K7's rule takes that route)
 PARTITIONED = ("early_out", "whole_probe", "early_whole", "compact1",
                "compact8")
+#: variants of the tiny route (outgoing filters of at most 64 blocks)
+TINY_ONLY = ("tiny4",)
 EXACT = ("k7", "bit", "read_first", "quarters", "warp_or", "r4_bit",
-         "c4_bit", "c4_read_first", *PARTITIONED)
+         "c4_bit", "c4_read_first", *TINY_ONLY, *PARTITIONED)
 
 
 def replace_k7(text: str, variant) -> str:
@@ -428,6 +499,8 @@ def main() -> int:
             raise SystemExit(f"k7_floor: no variant {name!r}")
         if args.sweep and name in PARTITIONED:
             raise SystemExit(f"k7_floor: {name} runs at case C only")
+        if not args.sweep and name in TINY_ONLY:
+            raise SystemExit(f"k7_floor: {name} runs with --sweep only")
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     import chip_smoke as cs
@@ -462,6 +535,7 @@ def main() -> int:
     api = cs.api_inputs(np, generate(sf=1.0, seed=7))
     cases = cs.transfer_cases(torch, np, kb, bloom, dev, api)
     if not args.sweep:
+        cases.pop("2^20 case C rows")
         cases.pop("5003 ragged")
     else:
         cases.update(cs.transfer_sweep_cases(torch, np, kb, bloom, dev))
@@ -479,6 +553,8 @@ def main() -> int:
             "nblocks_in": int(targs[0].shape[0]), "nblocks_out": targs[6],
             "survivors": int(ok_ref.sum())}
         for i, name in enumerate(order):
+            if name in TINY_ONLY and targs[6] > 64:
+                continue
             kb._LIB = libs[name]
             ok, words = kb.transfer(*targs)
             torch.cuda.synchronize()
