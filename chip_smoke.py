@@ -115,6 +115,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              equal to the plain probe with no false negative. The path
              must launch K2, K3, K6a, K6b and K7 and never K1, K4 or K5;
              the three engine paths never launch K6a, K6b or K7.
+6a. serve-tpch — path `serve-tpch`: the serving layer on the card over
+             the same catalog. `QueryServer` (`pred-trans`, the cuda
+             backends, 4 workers, a queue of 64) takes the 20 join
+             queries twice in a shuffle seeded 1234, all submitted, then
+             awaited: a cold pass, then a warm pass on the same server,
+             then 4 `Session` clients on 4 threads (2 `pred-trans`, 2
+             `pred-trans-adaptive`) each submitting the 20. Every result
+             must have phase 5's eager-oracle md5. Each pass prints its
+             wall seconds, queries a second, the server's p50/p99, its
+             slot- and filter-cache hits, its summed `report()["device"]`
+             round trips and its K1/K2 launches; K1 and K2 must launch in
+             the cold pass and fewer times in the warm one, K3-K8 never.
+             Then `drain_to_snapshot` to a temporary file: a new server
+             restored from it must answer Q5 first from the cache
+             (`transfer.from_cache`), md5-equal, with no K1/K2 launch; and
+             `update_table("orders", <the same data, a new version>)`
+             must drop entries, after which Q5 must launch K2 again and
+             stay md5-equal. The path's count sums every window.
+6b. curation — path `curation`: `CurationPipeline` on the card
+             (`pred-trans`, 100,000 documents, 800,000 chunks: the size of
+             `benchmarks/curation_bench.py`); its selection must have the
+             md5 of the numpy backends' `pred-trans` and `no-pred-trans`
+             selections, and it must launch K1 and K2 (K3-K8 never).
 7. attention — K8 (flash attention, bf16) against its plain version
              `flash_plain` and the dense oracle `sdpa_ref` on the card,
              within atol = rtol = 2e-2 (the reference's bf16 tolerance),
@@ -1206,6 +1229,14 @@ def check_path(counts: dict, path: str, must, never) -> None:
         check(counts[name] == 0, f"kernel {name} launched on {path}")
 
 
+def launch_window(kb, sj, fa):
+    """Zero every launch count; the returned function reads them."""
+    kb.reset_launches()
+    sj.reset_launches()
+    fa.reset_launches()
+    return lambda: {**kb.LAUNCHES, **sj.LAUNCHES, **fa.LAUNCHES}
+
+
 def record_shapes(kb, shapes: dict):
     """Wrap K1's and K2's wrappers (`kb.multi_probe`, `kb.build`, which
     the engine looks up at each call) so each call's shape is counted in
@@ -1272,8 +1303,7 @@ def slice_phase(torch, kb, sj, fa, cat, sf: float):
     from repro_torch.relational.table import table_digest
     from repro_torch.tpch import QUERIES, build_query
 
-    def launches():
-        return {**kb.LAUNCHES, **sj.LAUNCHES, **fa.LAUNCHES}
+    launches = launch_window(kb, sj, fa)
 
     def cfg(strategy, plane: bool):
         return ExecConfig(
@@ -1306,9 +1336,7 @@ def slice_phase(torch, kb, sj, fa, cat, sf: float):
     for path, strategy, plane, _, _ in PATHS:
         queries = [5] if strategy == "pred-trans-adaptive" \
             else sorted(QUERIES)
-        kb.reset_launches()           # this path's counts start at 0 here
-        sj.reset_launches()
-        fa.reset_launches()
+        launch_window(kb, sj, fa)     # this path's counts start at 0 here
         for qn in queries:
             _, _, cold, _ = run(strategy, plane, qn)
             # the warm sweeps' K1/K2 and K3/K4/K5 shapes
@@ -1362,7 +1390,7 @@ def slice_phase(torch, kb, sj, fa, cat, sf: float):
         for qn in (5, 9):             # outside every counted window
             emit(profile_query(torch, lambda: run(strategy, plane, qn), qn,
                                path))
-    return per_query, counts
+    return per_query, counts, oracle
 
 
 def kernel_api_phase(torch, np, kb, sj, fa, bloom, dev, api) -> dict:
@@ -1389,9 +1417,7 @@ def kernel_api_phase(torch, np, kb, sj, fa, bloom, dev, api) -> dict:
         ok, w2 = bloom_transfer(w, l_key, l_supp)
         return w, ok, w2, bloom_probe(w2, s_key)
 
-    kb.reset_launches()             # the path's counts start at 0 here
-    sj.reset_launches()
-    fa.reset_launches()
+    read = launch_window(kb, sj, fa)  # the path's counts start at 0 here
     runs = []
     for run in ("cold", "warm"):
         a, sec_a = timed(lambda: semi_mask(l_key, o_key, q5))
@@ -1400,8 +1426,7 @@ def kernel_api_phase(torch, np, kb, sj, fa, bloom, dev, api) -> dict:
         c, sec_c = timed(chain)
         runs.append((run, a, table_b, b, c, sec_a, sec_build + sec_probe,
                      sec_c))
-    # read just after the path
-    counts = {**kb.LAUNCHES, **sj.LAUNCHES, **fa.LAUNCHES}
+    counts = read()                 # just after the path
 
     # the oracles, outside the window
     want_a = semi_mask_ref(l_key, o_key, q5)
@@ -1461,6 +1486,227 @@ def kernel_api_phase(torch, np, kb, sj, fa, bloom, dev, api) -> dict:
                               "build_ref"]}})
     emit({"phase": "kernel-api", "launches": counts})
     check_path(counts, "kernel-api", *API_PATH)
+    return counts
+
+
+#: the kernels the serving and curation paths may launch: K1 and K2 (the
+#: plane-on transfer); K3-K8 never
+SERVE_NEVER = ("probe", "joinmap_build", "joinmap_lookup", *API_ONLY,
+               *FLASH)
+
+
+def serve_tpch_phase(torch, kb, sj, fa, cat, sf: float, oracle: dict):
+    """Path `serve-tpch`: `QueryServer` on the card (4 workers) over the
+    slice phase's catalog, the 20 join queries twice in a seeded shuffle,
+    a cold pass then a warm pass, then 4 `Session` clients on 4 threads
+    (2 `pred-trans`, 2 `pred-trans-adaptive`) each submitting the 20;
+    then a drained snapshot restored into a new server, whose first Q5
+    must replay warm, and an `update_table` that must invalidate. Every
+    result must have the eager oracle's md5. Counts are zeroed before
+    each window and read after it; the path's count is their sum."""
+    import random
+    import tempfile
+    import threading
+    from repro_torch.relational.table import Table, table_digest
+    from repro_torch.serve import QueryServer, ServeConfig
+    from repro_torch.tpch import QUERIES, build_query
+
+    # the cache holds SF 1's working set: the reference's 256 MB default
+    # (sized for sf <= 0.1) held 41 of its entries, evicted 458 and let
+    # 12 of 40 warm queries replay on the H100 (PERF.md)
+    cfg = dict(strategy="pred-trans", join_backend="cuda", workers=4,
+               max_queue=64, artifact_cache_bytes=16 << 30)
+    schedule = sorted(QUERIES) * 2
+    random.Random(1234).shuffle(schedule)
+    total = collections.Counter()
+    passes = {}
+
+    def cache_hits(srv):
+        kinds = srv.metrics_snapshot()["artifact_cache"]["kinds"]
+        return {k: kinds.get(k, {}).get("hits", 0) for k in ("slots",
+                                                             "bloom")}
+
+    def run_pass(srv, name, submit_all):
+        hits0 = cache_hits(srv)
+        read = launch_window(kb, sj, fa)
+        t = time.perf_counter()
+        done = submit_all()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = read()                  # read just after the pass
+        total.update(counts)
+        trips = 0
+        for qn, res, st in done:
+            check(table_digest(res) == oracle[qn],
+                  f"serve-tpch {name}: Q{qn} differs from the eager oracle")
+            trips += st.report()["device"]["round_trips"]
+        hits1 = cache_hits(srv)
+        lat = srv.metrics_snapshot()["server"]["per_tag"][name]
+        rec = {"phase": "serve-tpch", "pass": name, "queries": len(done),
+               "seconds": wall, "qps": len(done) / wall,
+               "p50_ms": lat["p50_ms"], "p99_ms": lat["p99_ms"],
+               "slot_hits": hits1["slots"] - hits0["slots"],
+               "filter_hits": hits1["bloom"] - hits0["bloom"],
+               "from_cache": sum(st.transfer.from_cache
+                                 for _, _, st in done),
+               "round_trips": trips,
+               "launches": {k: counts[k] for k in ("multi_probe",
+                                                   "bloom_build")},
+               "md5_equal": True}
+        emit(rec)
+        check_path(counts, f"serve-tpch {name}", (), SERVE_NEVER)
+        passes[name] = counts
+        return done
+
+    def submit_schedule(srv, name):
+        def go():
+            futs = [(qn, srv.submit(build_query(qn, sf=sf), tag=name))
+                    for qn in schedule]
+            return [(qn, *f.result()) for qn, f in futs]
+        return go
+
+    def submit_sessions(srv):
+        def go():
+            sessions = [srv.session(s, tag="mixed") for s in (
+                "pred-trans", "pred-trans", "pred-trans-adaptive",
+                "pred-trans-adaptive")]
+            futs, errors = [[] for _ in sessions], []
+
+            def client(i):
+                try:
+                    futs[i] = [(qn, sessions[i].submit(build_query(qn, sf=sf)))
+                               for qn in sorted(QUERIES)]
+                except BaseException as e:   # noqa: BLE001 — re-raised
+                    errors.append(e)
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(sessions))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            if errors:
+                raise errors[0]
+            return [(qn, *f.result()) for fs in futs for qn, f in fs]
+        return go
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(pathlib.Path(tmp) / "serve.snap")
+        srv = QueryServer(cat, ServeConfig(**cfg))
+        try:
+            run_pass(srv, "cold", submit_schedule(srv, "cold"))
+            run_pass(srv, "warm", submit_schedule(srv, "warm"))
+            run_pass(srv, "mixed", submit_sessions(srv))
+            snap = srv.metrics_snapshot()
+            t = time.perf_counter()
+            written = srv.drain_to_snapshot(path)
+            written["seconds"] = time.perf_counter() - t
+        finally:
+            srv.close()
+        cold, warm = passes["cold"], passes["warm"]
+        for name in ("multi_probe", "bloom_build"):
+            check(cold[name] > 0, f"serve-tpch cold: {name} never launched")
+            check(warm[name] < cold[name],
+                  f"serve-tpch warm: {name} launched {warm[name]} times, "
+                  f"the cold pass {cold[name]}")
+        server = snap["server"]
+        emit({"phase": "serve-tpch", "server": {
+            k: server[k] for k in ("submitted", "completed", "failed",
+                                   "warm_replays", "degradations")},
+            "latency": server["latency"],
+            "artifact_cache": {k: snap["artifact_cache"][k] for k in (
+                "entries", "bytes", "evictions", "kinds")},
+            "plan_cache": snap["plan_cache"], "snapshot": written})
+        check(server["failed"] == 0 and server["degradations"] == 0,
+              "serve-tpch: a query failed or degraded")
+
+        t = time.perf_counter()
+        with QueryServer(cat, ServeConfig(snapshot_path=path,
+                                          **cfg)) as srv2:
+            info = {**srv2.restore_info,
+                    "seconds": time.perf_counter() - t}
+            read = launch_window(kb, sj, fa)
+            t = time.perf_counter()
+            res, st = srv2.query(build_query(5, sf=sf))
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t
+            counts = read()
+            total.update(counts)
+            check(info["loaded"] and info["artifacts"] > 0,
+                  f"serve-tpch restart: snapshot not restored ({info})")
+            check(st.transfer.from_cache,
+                  "serve-tpch restart: the first Q5 was not a cache hit")
+            check(table_digest(res) == oracle[5],
+                  "serve-tpch restart: Q5 differs from the eager oracle")
+            check(counts["multi_probe"] == counts["bloom_build"] == 0,
+                  f"serve-tpch restart: K1/K2 launched ({counts})")
+            emit({"phase": "serve-tpch", "step": "restart",
+                  "restore": info, "seconds": sec, "from_cache": True,
+                  "launches": {k: counts[k] for k in ("multi_probe",
+                                                      "bloom_build")},
+                  "md5_equal": True})
+
+            orders = srv2.catalog["orders"]
+            dropped = srv2.update_table("orders",
+                                        Table(orders.columns, "orders"))
+            read = launch_window(kb, sj, fa)
+            t = time.perf_counter()
+            res, st = srv2.query(build_query(5, sf=sf))
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t
+            counts = read()
+            total.update(counts)
+            check(dropped > 0, "serve-tpch update_table dropped nothing")
+            check(not st.transfer.from_cache and counts["bloom_build"] > 0,
+                  "serve-tpch update_table: Q5 did not rebuild its filters")
+            check(table_digest(res) == oracle[5],
+                  "serve-tpch update_table: Q5 differs from the eager oracle")
+            check_path(counts, "serve-tpch update_table", (), SERVE_NEVER)
+            emit({"phase": "serve-tpch", "step": "update_table",
+                  "dropped": dropped, "seconds": sec,
+                  "launches": {k: counts[k] for k in ("multi_probe",
+                                                      "bloom_build")},
+                  "md5_equal": True})
+    counts = dict(total)
+    check_path(counts, "serve-tpch", ("multi_probe", "bloom_build"),
+               SERVE_NEVER)
+    return counts
+
+
+def curation_phase(torch, np, kb, sj, fa):
+    """Path `curation`: `CurationPipeline` on the card at
+    `benchmarks/curation_bench.py`'s size (100,000 documents, 800,000
+    chunks) with `pred-trans`; its selection must have the md5 of the
+    numpy backends' `pred-trans` and `no-pred-trans` selections."""
+    from repro_torch.data import CurationPipeline, synthetic_corpus
+    from repro_torch.relational.table import table_digest
+
+    t = time.perf_counter()
+    corpus = synthetic_corpus(n_docs=100_000)
+    gen = time.perf_counter() - t
+    read = launch_window(kb, sj, fa)
+    pipe = CurationPipeline(corpus, "pred-trans", device="cuda")
+    sel = pipe.select()
+    torch.cuda.synchronize()
+    counts = read()                       # read just after the path
+    digest = table_digest(sel)
+    host = {}
+    for strategy in ("pred-trans", "no-pred-trans"):
+        ref = CurationPipeline(corpus, strategy, device=None)
+        check(table_digest(ref.select()) == digest,
+              f"curation: the card's selection != numpy {strategy}'s")
+        host[strategy] = {"seconds": ref.stats.seconds,
+                          "join_input_rows": ref.stats.join_input_rows}
+    toks, tgts = next(pipe.batches(batch_size=8, seq_len=128))
+    check(toks.shape == (8, 128) and tgts.shape == (8, 128),
+          "curation: a batch of the wrong shape")
+    emit({"phase": "curation", "device": "cuda", "generate_seconds": gen,
+          "seconds": pipe.stats.seconds, "chunks_in": pipe.stats.chunks_in,
+          "chunks_out": pipe.stats.chunks_out,
+          "join_input_rows": pipe.stats.join_input_rows,
+          "numpy": host, "launches": {k: counts[k] for k in (
+              "multi_probe", "bloom_build")}, "md5_equal": True})
+    check_path(counts, "curation", ("multi_probe", "bloom_build"),
+               SERVE_NEVER)
     return counts
 
 
@@ -1741,9 +1987,7 @@ def serve_phase(torch, kb, sj, fa, path: str, spec: dict,
     moe = (get_config if spec["config"] == "full" else get_smoke_config)(
         spec["arch"]).moe is not None
     routes, restore = record_routes(L) if moe else (None, None)
-    kb.reset_launches()             # the path's counts start at 0 here
-    sj.reset_launches()
-    fa.reset_launches()
+    read = launch_window(kb, sj, fa)  # the path's counts start at 0 here
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
@@ -1752,7 +1996,7 @@ def serve_phase(torch, kb, sj, fa, path: str, spec: dict,
         if restore:
             restore()
     seconds = time.perf_counter() - t0
-    counts = {**kb.LAUNCHES, **sj.LAUNCHES, **fa.LAUNCHES}  # just after
+    counts = read()                   # just after
     peak = torch.cuda.max_memory_allocated()
 
     model, params, prompt = res["model"], res["params"], res["prompt"]
@@ -1882,9 +2126,12 @@ def main() -> int:
         return 0
     rep.update(jrep)
     worst.update(jworst)
-    _, counts = slice_phase(torch, kb, sj, fa, cat, args.sf)
+    _, counts, oracle = slice_phase(torch, kb, sj, fa, cat, args.sf)
     counts["kernel-api"] = kernel_api_phase(torch, np, kb, sj, fa, bloom,
                                             dev, api)
+    counts["serve-tpch"] = serve_tpch_phase(torch, kb, sj, fa, cat, args.sf,
+                                            oracle)
+    counts["curation"] = curation_phase(torch, np, kb, sj, fa)
     del cat, api
     arep, aworst = attention_phase(torch, fa, dev,
                                    info.get("flashattn", (0.0, ""))[1])

@@ -20,7 +20,7 @@ Device layout: key halves and filter words are `int32` tensors holding
 the uint32 bit pattern (the kernels read them as `uint32_t`); survivor
 ids are `int32`; masks are `bool` (one byte, the kernels write 0/1).
 
-`LAUNCHES` counts kernel launches (plain integers, bumped only where a
+`LAUNCHES` counts kernel launches (bumped under a lock, only where a
 kernel is launched), so a run can show that its main path went through
 the kernels.
 """
@@ -34,11 +34,11 @@ import torch
 
 from repro_torch.core import bloom
 from repro_torch.core.bloom import DEFAULT_BITS_PER_KEY, DEFAULT_K, LANES
-from repro_torch.kernels.build import (check, check_bool, check_i32,
-                                      library)
+from repro_torch.kernels.build import (LaunchCounts, check, check_bool,
+                                      check_i32, library)
 
-LAUNCHES = {"multi_probe": 0, "bloom_build": 0, "probe": 0,
-            "bloom_transfer": 0}
+LAUNCHES = LaunchCounts("multi_probe", "bloom_build", "probe",
+                        "bloom_transfer")
 
 _c_void_p_p = ctypes.POINTER(ctypes.c_void_p)
 _c_int_p = ctypes.POINTER(ctypes.c_int)
@@ -186,7 +186,7 @@ def multi_probe(words_list: Sequence[torch.Tensor],
         m, int(k), None if idx is None else idx.data_ptr(), n, count,
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check(err, "bloom_multi_probe")
-    LAUNCHES["multi_probe"] += 1
+    LAUNCHES.bump("multi_probe")
     return out
 
 
@@ -238,7 +238,7 @@ def probe(words: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
         None if idx is None else idx.data_ptr(), n, count, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "bloom_probe")
-    LAUNCHES["probe"] += 1
+    LAUNCHES.bump("probe")
     return out
 
 
@@ -305,7 +305,7 @@ def build(lo: torch.Tensor, hi: torch.Tensor, nblocks: int,
         words.data_ptr(), None if scratch is None else scratch.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "bloom_build")
-    LAUNCHES["bloom_build"] += 1
+    LAUNCHES.bump("bloom_build")
     return words
 
 
@@ -354,7 +354,7 @@ def transfer(in_words: torch.Tensor, in_lo: torch.Tensor,
         None if scratch is None else scratch.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "bloom_transfer")
-    LAUNCHES["bloom_transfer"] += 1
+    LAUNCHES.bump("bloom_transfer")
     return ok, words
 
 
@@ -413,5 +413,4 @@ def bloom_transfer(in_words: torch.Tensor, in_keys: np.ndarray,
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    LAUNCHES.reset()

@@ -117,6 +117,27 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+class LaunchCounts(dict):
+    """One kernel family's launch counts: kernel name -> launches. A
+    wrapper calls `bump` where it launches its kernel. Server worker
+    threads launch kernels at once, and `counts[k] += 1` is a read then
+    a write with room for another thread between them, so `bump` and
+    `reset` take a lock."""
+
+    def __init__(self, *names: str):
+        super().__init__((name, 0) for name in names)
+        self._lock = threading.Lock()
+
+    def bump(self, name: str) -> None:
+        with self._lock:
+            self[name] += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            for name in self:
+                self[name] = 0
+
+
 def check(err: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a C entry point."""
     if err != 0:

@@ -37,8 +37,8 @@ accumulate in f32; the finish is o / max(l, 1e-30), cast to q's dtype.
 Keys past Skv take no part (nothing is padded), so a row with no valid
 key averages v over the Skv keys, as `ref.sdpa_ref` does.
 
-`LAUNCHES` counts kernel launches per variant (plain integers, bumped
-only where a kernel is launched).
+`LAUNCHES` counts kernel launches per variant (bumped under a lock, only
+where a kernel is launched).
 """
 from __future__ import annotations
 
@@ -48,7 +48,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import check, library
+from repro_torch.kernels.build import LaunchCounts, check, library
 from repro_torch.kernels.flashattn.ref import NEG, attend_mask
 
 BLOCK = 128
@@ -58,7 +58,7 @@ HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 #: (`kMaxGroup` in csrc/flashattn.cu)
 MAX_GROUP = 16
 
-LAUNCHES = {"flash_prefill": 0, "flash_decode": 0}
+LAUNCHES = LaunchCounts("flash_prefill", "flash_decode")
 
 _LIB: Optional[ctypes.CDLL] = None
 #: the decode variant's ticket counters, one int32 per (batch, kv head),
@@ -87,8 +87,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    LAUNCHES.reset()
 
 
 def prefill_smem_bytes(d: int, dv: int) -> int:
@@ -234,10 +233,10 @@ def flash_attention(q, k, v, q_pos, kv_pos, kv_valid, *,
                                scratch.data_ptr(), tickets.data_ptr(),
                                stream)
         check(err, "flash_decode")
-        LAUNCHES["flash_decode"] += 1
+        LAUNCHES.bump("flash_decode")
     else:
         err = lib.flash_prefill(*ptrs, b, sq, skv, h, kvh, d, dv, *flags,
                                 scale, stream)
         check(err, "flash_prefill")
-        LAUNCHES["flash_prefill"] += 1
+        LAUNCHES.bump("flash_prefill")
     return out

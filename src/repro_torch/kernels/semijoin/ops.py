@@ -51,13 +51,13 @@ import torch
 from repro_torch.core import bloom
 from repro_torch.core import device_plane as dp
 from repro_torch.core import hashing
-from repro_torch.kernels.build import (check, check_bool, check_i32,
-                                      library)
+from repro_torch.kernels.build import (LaunchCounts, check, check_bool,
+                                      check_i32, library)
 
 _I64MAX = torch.iinfo(torch.int64).max
 
-LAUNCHES = {"joinmap_build": 0, "joinmap_lookup": 0, "semijoin_build": 0,
-            "semijoin_probe": 0}
+LAUNCHES = LaunchCounts("joinmap_build", "joinmap_lookup", "semijoin_build",
+                        "semijoin_probe")
 
 #: the reference's Pallas tile: `capacity_for` keeps its floor of TILE // 2
 TILE = 1024
@@ -310,11 +310,11 @@ def _build(lib, rows: bool, lo: torch.Tensor, hi: torch.Tensor, cap: int,
     if rows:
         check(lib.joinmap_build_rows(lo.data_ptr(), hi.data_ptr(), n, cap,
                                      *args), "joinmap_build_rows")
-        LAUNCHES["joinmap_build"] += 1
+        LAUNCHES.bump("joinmap_build")
     else:
         check(lib.semijoin_set_build(lo.data_ptr(), hi.data_ptr(), keep, n,
                                      cap, *args), "semijoin_set_build")
-        LAUNCHES["semijoin_build"] += 1
+        LAUNCHES.bump("semijoin_build")
     return table, occupied
 
 
@@ -393,7 +393,7 @@ def lookup(table: torch.Tensor, lo: torch.Tensor,
         table.data_ptr(), cap, lo.data_ptr(), hi.data_ptr(), n,
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check(err, "joinmap_lookup")
-    LAUNCHES["joinmap_lookup"] += 1
+    LAUNCHES.bump("joinmap_lookup")
     return out
 
 
@@ -483,7 +483,7 @@ def set_probe(table: torch.Tensor, lo: torch.Tensor,
         table.data_ptr(), cap, lo.data_ptr(), hi.data_ptr(), n,
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check(err, "semijoin_set_probe")
-    LAUNCHES["semijoin_probe"] += 1
+    LAUNCHES.bump("semijoin_probe")
     return out
 
 
@@ -518,5 +518,4 @@ def semi_mask(probe_keys: np.ndarray, build_keys: np.ndarray,
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    LAUNCHES.reset()

@@ -194,13 +194,13 @@ class ExecConfig:
 
     `plan_cache` (`repro_torch.relational.plancache.PlanCache`) skips
     planning/annotation work on canonically-identical plans;
-    `artifact_cache` (an `ArtifactCache`, serving layer, not ported yet)
+    `artifact_cache` (`repro_torch.core.artifact_cache.ArtifactCache`)
     replays whole post-transfer slot states on exact repeats;
     `sel_history` (`repro_torch.relational.plancache.SelHistory`) feeds
     measured per-edge selectivities back into the adaptive scheduler's
     estimates on repeat plan fingerprints (DESIGN.md §12/§14). All
     shared, thread-safe, and optional — the serving layer
-    wires them in.
+    (`repro_torch.serve`) wires them in.
 
     `degrade=True` arms the degradation ladder (DESIGN.md §13): a
     backend failure retries the query on the next-safer rung

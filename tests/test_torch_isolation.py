@@ -58,6 +58,33 @@ def test_port_runs_q5_without_jax_or_reference_in_process():
     assert "LOADED []" in out.stdout
 
 
+def test_port_serves_and_curates_without_jax_or_reference_in_process():
+    """A fresh interpreter serves Q5 cold and warm through the port's
+    `QueryServer` and runs a `CurationPipeline`, both on the CPU, and
+    ends with neither `jax` nor `repro` loaded."""
+    code = (
+        "import sys\n"
+        "from repro_torch.tpch import generate, build_query\n"
+        "from repro_torch.serve import QueryServer, ServeConfig\n"
+        "from repro_torch.data import CurationPipeline, synthetic_corpus\n"
+        "cat = generate(sf=0.002, seed=3)\n"
+        "cfg = ServeConfig(strategy='pred-trans', torch_device='cpu')\n"
+        "with QueryServer(cat, cfg) as srv:\n"
+        "    srv.query(build_query(5, sf=0.002))\n"
+        "    _, st = srv.query(build_query(5, sf=0.002))\n"
+        "assert st.transfer.from_cache\n"
+        "pipe = CurationPipeline(synthetic_corpus(n_docs=300), device='cpu')\n"
+        "assert len(pipe.select()) > 0\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
+        "or m.startswith(('jax.', 'repro.'))]\n"
+        "print('LOADED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+
+
 @pytest.fixture()
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
