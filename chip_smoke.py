@@ -138,6 +138,46 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              `benchmarks/curation_bench.py`); its selection must have the
              md5 of the numpy backends' `pred-trans` and `no-pred-trans`
              selections, and it must launch K1 and K2 (K3-K8 never).
+6c. dist   — the distributed runtime (`core/distributed.py`,
+             `core/engine_join_dist.py`) on the card over the same
+             catalog, four shards of one card (a `DataMesh` of `cuda:0`
+             four times), three paths, each its own launch-count window.
+             (a) `dist-api`: `BloomEngine.make_distributed_transfer` at
+             Q5's first edge, σ(orders, o_orderdate in 1994)'s o_orderkey
+             into lineitem's 6,001,215 l_orderkey (sharded 4 ways and
+             bucketed by `shard_keys`), the filter sized by the engine for
+             the live build keys, with the gather OR and the
+             recursive-doubling OR: every shard's all-reduced words must
+             equal the plain build (`build_ref`) over all the build keys
+             and the mask the plain probe (`probe_ref`) of the whole
+             column, bit for bit, and K2 on each shard (its padding mask
+             as `valid`) must equal `build_ref` on that shard; then
+             `distributed_semi_join` over the same shards must equal
+             `torch.isin` and lie inside the Bloom mask. CUDA-event ms of
+             a whole call each (host-bound: the shards' Python calls lie
+             between the launches), and the transfer call's device ms
+             under torch.profiler. It must launch K2 and K3 four times a call
+             (one a shard) and never K1 or K4-K8. (b) `dist-exchange`: a
+             `DistributedJoinEngine` over a 4-shard `MeshExchange`, its
+             local engine the cuda backend with the plane on, joins
+             lineitem's l_orderkey against orders' 1,500,000 o_orderkey:
+             `broadcast_join_indices` and `shuffle_join_indices`, each
+             called directly, must equal `sorted_join_indices` for inner,
+             left, semi and anti; each line has each strategy's wire
+             bytes, host seconds and `DeviceStats`. It launches no hand
+             kernel (the exchange is `.to(device)` copies, the local joins
+             the torch segment join). (c) `dist-tpch`: the 20 join
+             queries, cold, through `Executor(engine="distributed",
+             dist_shards=4)` with the cuda backends; the auto rule
+             simulates the exchange unless four cards are visible
+             (`report()["dist"]["device_backed"]` must follow it, so False
+             on one card). Every result must have phase 5's
+             eager-oracle md5; the summary line sums wire bytes, strategy
+             counts, round trips and K1/K2 launches, and K1 and K2 must
+             launch (K3-K8 never). Then Q5 once more under an
+             `exchange.send` fault at one call index drawn by a seeded
+             RNG: it must be retried in place (`report()["recoveries"]
+             ["retries"]` >= 1, no ladder move) and stay md5-equal.
 7. attention — K8 (flash attention, bf16) against its plain version
              `flash_plain` and the dense oracle `sdpa_ref` on the card,
              within atol = rtol = 2e-2 (the reference's bf16 tolerance),
@@ -207,7 +247,8 @@ of their own, `flash_prefill_mla` and `flash_decode_mla`, whose
 launches are path `serve-deepseek`'s)
 `{"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "plain_device", "bound_ms", "bound_by",
-"library_ms", "launches_by_path"}]}` (`plain_device` says where
+"library_ms", "launches_by_path"}]}` (`launches_by_path` has every
+path's count, the `dist-*` paths' included; `plain_device` says where
 `plain_ms` was taken: "cuda" for CUDA-event times on the card, "cpu" for
 the sequential K4 and K6a builds timed on the host; K6's and K8's rows
 add `library_call`, what `library_ms` timed; K8's rows add `device_ms`
@@ -1710,6 +1751,268 @@ def curation_phase(torch, np, kb, sj, fa):
     return counts
 
 
+#: the distributed runtime's paths: (kernels that must launch, kernels
+#: that must not). Its exchange moves blocks with `.to(device)` copies
+#: and its local joins take the torch segment join, so `dist-exchange`
+#: launches no hand kernel
+DIST_PATHS = {
+    "dist-api": (("bloom_build", "probe"),
+                 ("multi_probe", "joinmap_build", "joinmap_lookup",
+                  *API_ONLY, *FLASH)),
+    "dist-exchange": ((), ("multi_probe", "bloom_build", "probe",
+                           "joinmap_build", "joinmap_lookup", *API_ONLY,
+                           *FLASH)),
+    "dist-tpch": (("multi_probe", "bloom_build"), SERVE_NEVER),
+}
+#: the distributed phases' shard count: four shards of one card
+DIST_SHARDS = 4
+
+
+def dist_api_phase(torch, np, kb, sj, fa, bloom, dev, api) -> dict:
+    """Path `dist-api`: `BloomEngine.make_distributed_transfer` on a
+    4-shard mesh of one card at Q5's first edge, σ(orders, 1994)'s
+    o_orderkey into lineitem's l_orderkey (bucketed by `shard_keys`),
+    with the gather OR and the recursive-doubling OR; then
+    `distributed_semi_join` over the same shards. Each transfer call must
+    launch K2 and K3 once a shard. Checked after the window: every
+    shard's all-reduced words == `build_ref` over all the build keys,
+    the mask == `probe_ref` of the whole column, K2 on each shard (its
+    padding mask as `valid`) == `build_ref` on that shard, the semi-join
+    == `torch.isin` and a subset of the Bloom mask."""
+    from repro_torch.core import distributed
+    from repro_torch.core.engine_bloom import get_engine
+    from repro_torch.launch.mesh import make_data_mesh
+
+    p = DIST_SHARDS
+    mesh = make_data_mesh(p, devices=[dev] * p)
+    eng = get_engine("cuda")
+    bkeys = api["o_orderkey"][api["q5"]]
+    pkeys = api["l_orderkey"]
+    n = len(pkeys)
+    nblocks = bloom.blocks_for(len(bkeys))
+    b = eng.shard_keys(bkeys, mesh)
+    pr = eng.shard_keys(pkeys, mesh)
+
+    def key_shards(keys, per):
+        padded = np.zeros(p * per, np.int64)
+        padded[:len(keys)] = keys
+        return [torch.from_numpy(padded[s * per:(s + 1) * per]).to(dev)
+                for s in range(p)]
+    bk64 = key_shards(bkeys, len(b[0][0]))
+    pk64 = key_shards(pkeys, len(pr[0][0]))
+    semi = distributed.distributed_semi_join(mesh)
+
+    read = launch_window(kb, sj, fa)  # the path's counts start at 0 here
+    calls = 0
+    masks, ms = {}, {}
+    for tree in (False, True):
+        fn = eng.make_distributed_transfer(mesh, live_keys=len(bkeys),
+                                           tree_or=tree)
+
+        def run(fn=fn):
+            nonlocal calls
+            calls += 1
+            return fn(*b, *pr)
+        masks[tree] = run()
+        ms[tree] = cuda_ms(torch, run, reps=5, warm=1)
+    semi_mask = semi(bk64, b[2], pk64, pr[2])
+    semi_ms = cuda_ms(torch, lambda: semi(bk64, b[2], pk64, pr[2]), reps=3,
+                      warm=1)
+    torch.cuda.synchronize()
+    counts = read()                   # just after the path
+    # the same calls' device time under torch.profiler (the CUDA-event ms
+    # above are host-bound: per-shard Python calls between the launches)
+    dev_ms = {}
+    for tree in (False, True):
+        fn = eng.make_distributed_transfer(mesh, live_keys=len(bkeys),
+                                           tree_or=tree)
+        dev_ms[tree] = device_ms(torch, lambda fn=fn: fn(*b, *pr))
+
+    # the oracles, outside the window: the plain versions over the whole
+    # column, and K2 against its plain version on each shard at the
+    # path's shape (its padding mask as `valid`)
+    blo, bhi = bloom.keys_to_device(bkeys, dev)
+    plo, phi = bloom.keys_to_device(pkeys, dev)
+    whole = kb.build_ref(blo, bhi, nblocks)
+    hit = kb.probe_ref(whole, plo, phi)
+    isin = torch.isin(torch.from_numpy(pkeys).to(dev),
+                      torch.from_numpy(bkeys).to(dev))
+    for s in range(p):
+        got = kb.build(b[0][s], b[1][s], nblocks, valid=b[2][s])
+        check(torch.equal(got, kb.build_ref(b[0][s], b[1][s], nblocks,
+                                            valid=b[2][s])),
+              f"dist-api: K2 on shard {s} != build_ref on the same shard")
+    for tree in (False, True):
+        words = distributed.distributed_bloom_build(*b, nblocks, mesh,
+                                                    tree_or=tree)
+        check(all(torch.equal(w, whole) for w in words),
+              f"dist-api (tree_or={tree}): all-reduced words != build_ref "
+              "over all the build keys")
+        got = torch.cat(masks[tree])
+        check(torch.equal(got[:n], hit) and not bool(got[n:].any()),
+              f"dist-api (tree_or={tree}): mask != probe_ref of the "
+              "whole column")
+    semi_all = torch.cat(semi_mask)
+    check(torch.equal(semi_all[:n], isin) and not bool(semi_all[n:].any()),
+          "dist-api: distributed_semi_join != torch.isin")
+    check(not bool((isin & ~hit).any()),
+          "dist-api: the semi-join is not a subset of the Bloom mask")
+    emit({"phase": "dist", "path": "dist-api", "shards": p,
+          "build_keys": len(bkeys), "probe_rows": n,
+          "rows_a_shard": int(pr[0][0].shape[0]), "nblocks": nblocks,
+          "ms": {"gather_or": ms[False], "tree_or": ms[True],
+                 "semi_join": semi_ms},
+          "device_ms": {"gather_or": dev_ms[False], "tree_or": dev_ms[True]},
+          "survivors": int(hit.sum()), "exact": int(isin.sum()),
+          "false_positives": int((hit & ~isin).sum()),
+          "filter_wire_bytes": (p - 1) * nblocks * bloom.LANES * 4,
+          "key_wire_bytes": (p - 1) * len(bkeys) * 8,
+          "calls": calls, "launches": {k: counts[k] for k in (
+              "bloom_build", "probe")},
+          "equal": ["build_ref (all keys)", "probe_ref (whole column)",
+                    "build_ref (each shard, valid=padding mask)",
+                    "torch.isin"]})
+    check(counts["bloom_build"] == counts["probe"] == p * calls,
+          f"dist-api: {counts['bloom_build']} K2 and {counts['probe']} K3 "
+          f"launches in {calls} calls of {p} shards")
+    check_path(counts, "dist-api", *DIST_PATHS["dist-api"])
+    return counts
+
+
+def dist_exchange_phase(torch, np, kb, sj, fa, dev, api) -> dict:
+    """Path `dist-exchange`: a `DistributedJoinEngine` over a 4-shard
+    `MeshExchange` of one card, its local engine the cuda backend (plane
+    on: device index vectors), joins lineitem's 6,001,215 l_orderkey
+    against orders' 1,500,000 o_orderkey; `broadcast_join_indices` and
+    `shuffle_join_indices`, each called directly, must equal
+    `sorted_join_indices` for inner, left, semi and anti."""
+    from repro_torch.core import device_plane
+    from repro_torch.core.engine_join import sorted_join_indices
+    from repro_torch.core.engine_join_dist import (
+        DistributedJoinEngine, broadcast_join_indices, shuffle_join_indices,
+    )
+    from repro_torch.launch.mesh import make_data_mesh
+
+    eng = DistributedJoinEngine(
+        nshards=DIST_SHARDS, local_backend="cuda",
+        mesh=make_data_mesh(DIST_SHARDS, devices=[dev] * DIST_SHARDS))
+    check(eng.exchange.device_backed and eng.local.device_resident,
+          "dist-exchange: not a device-backed exchange over plane-on joins")
+    bk, pk = api["o_orderkey"], api["l_orderkey"]
+    strategies = {
+        "broadcast": lambda how: broadcast_join_indices(
+            bk, pk, how, eng.exchange, eng.local),
+        "shuffle": lambda how: shuffle_join_indices(bk, pk, how,
+                                                    eng.exchange)}
+    read = launch_window(kb, sj, fa)  # the path's counts start at 0 here
+    for how in ("inner", "left", "semi", "anti"):
+        rec = {"phase": "dist", "path": "dist-exchange", "how": how,
+               "build_rows": len(bk), "probe_rows": len(pk)}
+        want = sorted_join_indices(bk, pk, how)
+        for name, fn in strategies.items():
+            st = device_plane.DeviceStats()
+            t = time.perf_counter()
+            with device_plane.track(st):
+                bidx, pidx, wire = fn(how)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t
+            check(np.array_equal(bidx, want[0])
+                  and np.array_equal(pidx, want[1]),
+                  f"dist-exchange {name} {how} != sorted_join_indices")
+            rec[name] = {"seconds": sec, "wire_bytes": wire,
+                         "rows_out": len(pidx), "device": st.report()}
+        emit({**rec, "equal": "sorted_join_indices"})
+    counts = read()                   # just after the path
+    check_path(counts, "dist-exchange", *DIST_PATHS["dist-exchange"])
+    return counts
+
+
+def dist_tpch_phase(torch, kb, sj, fa, cat, sf: float, oracle: dict
+                    ) -> dict:
+    """Path `dist-tpch`: the 20 join queries, cold, through
+    `Executor(engine="distributed", dist_shards=4)` with the cuda
+    backends; the exchange is simulated unless four cards are visible
+    (so on one card). Every result must
+    have phase 5's eager-oracle md5; K1 and K2 must launch. Then Q5 once
+    more under an `exchange.send` fault at one call index (seeded), which
+    the engine must retry in place, md5-equal."""
+    import random
+
+    from repro_torch.core import faultinject
+    from repro_torch.core.transfer import make_strategy
+    from repro_torch.relational import ExecConfig, Executor
+    from repro_torch.relational.table import table_digest
+    from repro_torch.tpch import QUERIES, build_query
+
+    def cfg():
+        return ExecConfig(strategy=make_strategy("pred-trans",
+                                                 backend="cuda"),
+                          join_backend="cuda", engine="distributed",
+                          dist_shards=DIST_SHARDS)
+
+    read = launch_window(kb, sj, fa)  # the path's counts start at 0 here
+    total = {"seconds": 0.0, "shuffle_bytes": 0, "broadcast_bytes": 0,
+             "round_trips": 0, "strategies": collections.Counter()}
+    q5 = None
+    for qn in sorted(QUERIES):
+        before = read()
+        t = time.perf_counter()
+        res, st = Executor(cat, cfg()).execute(build_query(qn, sf=sf))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        after = read()
+        check(table_digest(res) == oracle[qn],
+              f"dist-tpch Q{qn} differs from the eager oracle")
+        rep = st.report()
+        d = rep["dist"]
+        # the auto rule: a mesh exchange only when the shards fit the cards
+        meshed = torch.cuda.device_count() >= DIST_SHARDS
+        check(d["nshards"] == DIST_SHARDS and d["device_backed"] == meshed,
+              f"dist-tpch Q{qn}: not {DIST_SHARDS} shards with "
+              f"device_backed={meshed} ({d})")
+        total["seconds"] += sec
+        total["shuffle_bytes"] += d["shuffle_bytes"]
+        total["broadcast_bytes"] += d["broadcast_bytes"]
+        total["round_trips"] += rep["device"]["round_trips"]
+        total["strategies"].update(d["strategies"])
+        if qn == 5:
+            q5 = d["strategies"]
+        emit({"phase": "dist", "path": "dist-tpch", "query": qn,
+              "seconds": sec, "phase_seconds": rep["phase_seconds"],
+              "rows": len(res), "dist": d, "device": rep["device"],
+              "launches": {k: after[k] - before[k]
+                           for k in ("multi_probe", "bloom_build")},
+              "md5_equal": True})
+    # an exchange.send fault at one of Q5's collectives: a broadcast
+    # gathers once, a shuffle exchanges each side once
+    sends = q5.get("broadcast", 0) + 2 * q5.get("shuffle", 0)
+    check(sends > 0, f"dist-tpch Q5 made no collective ({q5})")
+    at = random.Random(24).randrange(sends)
+    t = time.perf_counter()
+    with faultinject.inject(faultinject.FaultSchedule(
+            {"exchange.send": at})) as sched:
+        res, st = Executor(cat, cfg()).execute(build_query(5, sf=sf))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    counts = read()                   # just after the path
+    rec = st.report()["recoveries"]
+    check(sched.total_fired() == 1 and rec["retries"] >= 1
+          and not st.degraded,
+          f"dist-tpch Q5: the exchange.send fault was not retried ({rec})")
+    check(table_digest(res) == oracle[5],
+          "dist-tpch Q5 under the fault differs from the eager oracle")
+    emit({"phase": "dist", "path": "dist-tpch", "queries": len(QUERIES),
+          **{k: v for k, v in total.items() if k != "strategies"},
+          "strategies": dict(total["strategies"]),
+          "launches": {k: counts[k] for k in ("multi_probe",
+                                              "bloom_build")},
+          "fault": {"query": 5, "exchange.send_call": at, "of": sends,
+                    "seconds": sec, "retries": rec["retries"],
+                    "replays": rec["replays"], "md5_equal": True}})
+    check_path(counts, "dist-tpch", *DIST_PATHS["dist-tpch"])
+    return counts
+
+
 def ptxas_usage(log: str, kernel: str) -> dict:
     """Registers and spill bytes of the entry function whose mangled name
     holds `kernel`, from nvcc's `-Xptxas -v` log (None each when the log
@@ -2132,6 +2435,12 @@ def main() -> int:
     counts["serve-tpch"] = serve_tpch_phase(torch, kb, sj, fa, cat, args.sf,
                                             oracle)
     counts["curation"] = curation_phase(torch, np, kb, sj, fa)
+    counts["dist-api"] = dist_api_phase(torch, np, kb, sj, fa, bloom, dev,
+                                        api)
+    counts["dist-exchange"] = dist_exchange_phase(torch, np, kb, sj, fa,
+                                                  dev, api)
+    counts["dist-tpch"] = dist_tpch_phase(torch, kb, sj, fa, cat, args.sf,
+                                          oracle)
     del cat, api
     arep, aworst = attention_phase(torch, fa, dev,
                                    info.get("flashattn", (0.0, ""))[1])

@@ -781,6 +781,27 @@ class BloomEngine:
         scan.probe([(filt.words, ek)])
         return scan.mask
 
+    # -- distributed hook ---------------------------------------------
+    def make_distributed_transfer(self, mesh, live_keys: int,
+                                  bits_per_key: int = DEFAULT_BITS_PER_KEY,
+                                  axis: str = "data",
+                                  tree_or: bool = False):
+        """Sharded one-edge transfer (build → OR all-reduce → probe),
+        filter sized by the building relation's live keys. The engine is
+        the sizing/padding authority; `repro_torch.core.distributed` owns
+        the collectives."""
+        from repro_torch.core import distributed
+        nblocks = blocks_for(max(live_keys, 1), bits_per_key)
+        return distributed.make_distributed_transfer(
+            mesh, nblocks, k=self.k, axis=axis, tree_or=tree_or)
+
+    def shard_keys(self, keys: np.ndarray, mesh, axis: str = "data"):
+        """Row-shard a key column, padding each shard to a power-of-two
+        bucket."""
+        from repro_torch.core import distributed
+        return distributed.shard_table_arrays(keys, mesh, axis,
+                                              bucket=True)
+
 
 class NumpyEngine(BloomEngine):
     """Host mirror backend."""

@@ -71,6 +71,10 @@ class ExecStats:
     # bytes gathered by the join phase when materializing intermediate /
     # final payload columns (the late-materialization win metric)
     join_materialized_bytes: int = 0
+    # distributed runtime accounting (engine="distributed" only):
+    # per-join strategy + shuffle/broadcast wire bytes
+    # (repro_torch.core.engine_join_dist.DistStats)
+    dist: Optional[object] = None
     subqueries: List["ExecStats"] = dataclasses.field(default_factory=list)
     # degradation-ladder record (DESIGN.md §13): one dict per fallback
     # taken before this result was produced — {"from", "to", "phase",
@@ -87,6 +91,11 @@ class ExecStats:
     # folded in. Always present; all-zero on pure-host runs.
     device: "device_plane.DeviceStats" = dataclasses.field(
         default_factory=device_plane.DeviceStats)
+    # recovery events carried over from ladder rungs that ultimately
+    # failed (their DistStats die with the discarded attempt): the
+    # retries/replays a rung burned before degrading stay visible in
+    # `report()["recoveries"]` alongside the final rung's own events
+    recovery_carry: List[dict] = dataclasses.field(default_factory=list)
 
     @property
     def total_seconds(self) -> float:
@@ -122,7 +131,8 @@ class ExecStats:
         ints/floats/strs, NaN mapped to None). Benches and the serving
         layer's `ServerMetrics` consume this instead of poking fields —
         per-phase seconds, transfer decisions with per-edge q-error,
-        runtime-vs-static join order, degradations, device crossings."""
+        runtime-vs-static join order, degradations, device crossings,
+        distributed wire bytes and shard-level recoveries."""
         def num(x):
             if x is None:
                 return None
@@ -178,6 +188,33 @@ class ExecStats:
             },
             "degraded": list(self.degraded),
             "device": self.device.report(),
+            "dist": None,
+        }
+        if self.dist is not None:
+            out["dist"] = {
+                "nshards": int(self.dist.nshards),
+                "device_backed": bool(self.dist.device_backed),
+                "shuffle_bytes": int(self.dist.shuffle_bytes),
+                "broadcast_bytes": int(self.dist.broadcast_bytes),
+                "strategies": self.dist.strategy_counts(),
+            }
+        # shard-level recovery record (DESIGN.md §16): every retry /
+        # lineage replay / hedge the distributed runtime absorbed while
+        # producing this result, plus the attempts burned by ladder
+        # rungs that still failed (carried out of their discarded stats
+        # so "all"-schedule faults leave an exhaustion trace here too)
+        events = list(self.recovery_carry)
+        if self.dist is not None:
+            events.extend(getattr(self.dist, "recoveries", ()))
+        kinds: Dict[str, int] = {}
+        for e in events:
+            kinds[e.get("kind", "?")] = kinds.get(e.get("kind", "?"), 0) + 1
+        out["recoveries"] = {
+            "events": events,
+            "retries": kinds.get("retry", 0),
+            "replays": kinds.get("replay", 0),
+            "hedges": kinds.get("hedge", 0),
+            "exhausted": kinds.get("retry_exhausted", 0),
         }
         return out
 
@@ -188,9 +225,15 @@ class ExecConfig:
     value (three PRs of kwargs sprawl, consolidated).
 
     `engine="single"` (default) runs the late-materialized join
-    runtime on one host. The reference's `engine="distributed"` (and
-    its shard, retry and hedge settings) is not ported yet and raises
-    NotImplementedError (ROADMAP Queue 1 item 8).
+    runtime on one host; `engine="distributed"` routes every join
+    through `repro_torch.core.engine_join_dist` — row-sharded cursors,
+    broadcast/all-to-all key exchange over `dist_shards` shards
+    (default: a mesh of the visible CUDA devices when `torch_device` is
+    a CUDA device and more than one is visible, else 4 simulated
+    shards), each shard's local join on `join_backend`.
+    `dist_device` forces the device-backed exchange (True) or the
+    simulated one (False). Results are bit-identical; the single-host
+    engine is the distributed runtime's correctness oracle.
 
     `plan_cache` (`repro_torch.relational.plancache.PlanCache`) skips
     planning/annotation work on canonically-identical plans;
@@ -204,12 +247,12 @@ class ExecConfig:
 
     `degrade=True` arms the degradation ladder (DESIGN.md §13): a
     backend failure retries the query on the next-safer rung
-    (late-numpy → eager oracle; pred-trans-adaptive → pred-trans →
-    no-prefilter), recorded in `ExecStats.degraded`. Off by default so
-    engine-vs-oracle tests can never silently pass via a fallback. A
-    rung that runs on the cuda backends never steps down: every rung
-    below it runs on the host, so a kernel that fails to build or
-    launch re-raises instead of being answered on the CPU.
+    (distributed → late-numpy → eager oracle; pred-trans-adaptive →
+    pred-trans → no-prefilter), recorded in `ExecStats.degraded`. Off
+    by default so engine-vs-oracle tests can never silently pass via a
+    fallback. A rung that runs on the cuda backends never steps down:
+    every rung below it runs on the host, so a kernel that fails to
+    build or launch re-raises instead of being answered on the CPU.
 
     `mem_budget_bytes` caps the join phase's payload-gather bytes
     per query, estimated *before* allocation — exceeding it raises
@@ -238,17 +281,27 @@ class ExecConfig:
     (`make_strategy(..., device_resident=)`). `torch_device` (default
     "cuda") is the torch device the cuda join backend runs on; without
     CUDA a CUDA device raises RuntimeError — pass "cpu" to run on the
-    CPU. The numpy backend ignores both.
+    CPU. The numpy backend ignores both. The distributed engine ignores
+    `device`: its local engine resolves the plane from `torch_device`.
 
-    `breakers` (optional) is a shared `BreakerBoard` the degradation
-    ladder consults before attempting a rung — an open breaker skips
-    the rung outright (recorded in `ExecStats.degraded` as a
-    "CircuitOpen" move) instead of rediscovering the failure."""
+    Recovery knobs (DESIGN.md §16, all optional,
+    `repro_torch.core.recovery`): `retry_policy` overrides the
+    distributed engine's default seeded-jitter backoff for transient
+    exchange faults; `retry_budget` is a shared `RetryBudget` every
+    retry/replay spends (the serving layer passes one per server so
+    retry storms cannot amplify overload); `hedge` arms `HedgePolicy`
+    straggler hedging on the per-shard local joins; `breakers` is a
+    shared `BreakerBoard` the degradation ladder consults before
+    attempting a rung — an open breaker skips the rung outright
+    (recorded in `ExecStats.degraded` as a "CircuitOpen" move) instead
+    of rediscovering the failure."""
 
     strategy: Optional[Strategy] = None
     join_backend: str = "numpy"
     late_materialize: bool = True
     engine: str = "single"
+    dist_shards: Optional[int] = None
+    dist_device: Optional[bool] = None
     plan_cache: Optional[object] = None
     artifact_cache: Optional[object] = None
     sel_history: Optional[object] = None
@@ -258,16 +311,15 @@ class ExecConfig:
     reorder_fn: Optional[Callable] = None
     device: str = "auto"
     torch_device: str = "cuda"
+    retry_policy: Optional[object] = None
+    retry_budget: Optional[object] = None
+    hedge: Optional[object] = None
     breakers: Optional[object] = None
 
     def __post_init__(self):
-        if self.engine == "distributed":
-            raise NotImplementedError(
-                "engine='distributed' is not ported yet (ROADMAP Queue 1 "
-                "item 8)")
-        if self.engine != "single":
+        if self.engine not in ("single", "distributed"):
             raise ValueError(f"unknown engine {self.engine!r}; "
-                             "the port runs engine='single' only")
+                             "choose 'single' or 'distributed'")
         if self.device not in ("auto", "on", "off"):
             raise ValueError(f"device must be 'auto', 'on' or 'off', "
                              f"got {self.device!r}")
@@ -278,6 +330,9 @@ class ExecConfig:
                 and self.mem_budget_bytes <= 0):
             raise ValueError("mem_budget_bytes must be positive, got "
                              f"{self.mem_budget_bytes!r}")
+        if self.dist_shards is not None and self.dist_shards < 1:
+            raise ValueError(f"dist_shards must be >= 1, "
+                             f"got {self.dist_shards!r}")
 
     def replace(self, **overrides) -> "ExecConfig":
         return dataclasses.replace(self, **overrides)
@@ -285,7 +340,8 @@ class ExecConfig:
 
 _UNSET = object()
 _LEGACY_KWARGS = ("join_backend", "late_materialize", "engine",
-                  "plan_cache", "artifact_cache", "sel_history", "degrade",
+                  "dist_shards", "dist_device", "plan_cache",
+                  "artifact_cache", "sel_history", "degrade",
                   "mem_budget_bytes", "reorder", "reorder_fn")
 _legacy_warned = False
 
@@ -316,7 +372,7 @@ class Executor:
         """Preferred construction: `Executor(catalog, ExecConfig(...))`
         (the config may also be passed in `strategy`'s position, or as
         `config=`). The pre-ExecConfig kwargs (`join_backend=`,
-        `engine=`, `degrade=`, ... — see `_LEGACY_KWARGS`) keep
+        `engine=`, `dist_shards=`, ... — see `_LEGACY_KWARGS`) keep
         working through a shim that builds the equivalent config and
         emits one DeprecationWarning per process. See `ExecConfig` for
         what every knob means."""
@@ -342,6 +398,8 @@ class Executor:
         self.join_backend = config.join_backend
         self.late_materialize = config.late_materialize
         self.engine = config.engine
+        self.dist_shards = config.dist_shards
+        self.dist_device = config.dist_device
         self.plan_cache = config.plan_cache
         self.artifact_cache = config.artifact_cache
         self.sel_history = config.sel_history
@@ -356,9 +414,17 @@ class Executor:
         # "auto" defers to the engine's default: on for a CUDA device,
         # off for the CPU
         dr = {"auto": None, "on": True, "off": False}[config.device]
-        self.join_engine = get_join_engine(config.join_backend,
-                                           device_resident=dr,
-                                           device=config.torch_device)
+        if config.engine == "distributed":
+            from repro_torch.core.engine_join_dist import (
+                get_distributed_engine,
+            )
+            self.join_engine = get_distributed_engine(
+                config.dist_shards, config.join_backend,
+                config.dist_device, config.torch_device)
+        else:
+            self.join_engine = get_join_engine(config.join_backend,
+                                               device_resident=dr,
+                                               device=config.torch_device)
 
     def _sub_executor(self) -> "Executor":
         # degrade stays off: a subquery failure propagates to the outer
@@ -400,6 +466,8 @@ class Executor:
         return self._clone(strategy=make_strategy(nxt, **kw))
 
     def _degrade_engine(self) -> Optional["Executor"]:
+        if self.engine == "distributed":
+            return self._clone(engine="single", join_backend="numpy")
         if self.late_materialize and self.join_backend != "numpy":
             return self._clone(join_backend="numpy")
         if self.late_materialize:
@@ -455,6 +523,7 @@ class Executor:
         Cooperative aborts (deadline/cancel) always propagate — the
         client asked for the abort, a cheaper rung is not an answer."""
         degraded: List[dict] = []
+        carried: List[dict] = []
         board = self.config.breakers
         cur = self
         for _ in range(12):             # > total rung count, by margin
@@ -473,17 +542,29 @@ class Executor:
                     "detail": f"breaker open for {rung}"})
                 cur = nxt
                 continue
+            pre_dist = getattr(getattr(cur, "join_engine", None),
+                               "stats", None)
             try:
                 result, stats = cur._execute_once(plan, ctx)
                 if board is not None:
                     board.record(rung, True)
                 stats.degraded = degraded
+                stats.recovery_carry = carried
                 return result, stats
             except (DeadlineExceeded, QueryCancelled):
                 raise
             except Exception as e:
                 if board is not None:
                     board.record(rung, False)
+                # keep the failed rung's recovery attempts: its stats
+                # object dies with the discarded attempt. Only a stats
+                # object forked *during* this attempt counts — a rung
+                # that failed pre-fork still points at an older query's
+                # stats, which must not leak in here.
+                failed_dist = getattr(getattr(cur, "join_engine", None),
+                                      "stats", None)
+                if failed_dist is not None and failed_dist is not pre_dist:
+                    carried.extend(getattr(failed_dist, "recoveries", ()))
                 nxt = cur._next_rung(e)
                 if nxt is None:
                     raise
@@ -515,6 +596,16 @@ class Executor:
         self._reorder_info = None
         if ctx is not None:
             ctx.check("scan")
+        if self.engine == "distributed":
+            # fresh fork per execute(): a prior call's returned stats
+            # object must keep describing that call
+            self.join_engine = self.join_engine.fork()
+            self.join_engine.ctx = ctx   # forks are per-query: safe
+            self.join_engine.arm_recovery(
+                retry=self.config.retry_policy,
+                budget=self.config.retry_budget,
+                hedge=self.config.hedge)
+            stats.dist = self.join_engine.stats
 
         # -- cache identity: canonical plan fingerprint (DESIGN §12) ----
         t0 = time.perf_counter()
@@ -650,9 +741,11 @@ class Executor:
         Works on both the cold path and the warm slot-replay path."""
         if not self._reorder_active():
             return
+        shards = getattr(self.join_engine, "nshards", None) \
+            if self.engine == "distributed" else None
         self._reorder_info = reorder_mod.build_info(
             leaves, transfer, self.catalog,
-            getattr(self.strategy, "costs", None), None)
+            getattr(self.strategy, "costs", None), shards)
 
     # -- slot-state caching (DESIGN §12) --------------------------------
     def _store_slots(self, slot_key, leaves, slots: Dict[int, Slot],

@@ -52,19 +52,12 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.engine_join import JoinCursor, Slot
+from repro_torch.core.engine_join_dist import (
+    KEY_WIRE_BYTES, ROW_WIRE_BYTES, WIRE_NS_PER_BYTE,
+)
 from repro_torch.relational import ops
 from repro_torch.relational.plan import Join, LeafNode, PlanNode, Scan
 from repro_torch.relational.table import Table
-
-# wire-cost constants of the distributed join runtime, copied from the
-# reference package's `repro/core/engine_join_dist.py` (not ported yet):
-# bytes per shuffled row (key_lo, key_hi, row_id as uint32), bytes per
-# broadcast key (key_lo, key_hi), and modeled ns per wire byte (~2 GB/s
-# effective exchange bandwidth; only its ratio to the per-row join
-# coefficients matters)
-ROW_WIRE_BYTES = 12
-KEY_WIRE_BYTES = 8
-WIRE_NS_PER_BYTE = 0.5
 
 if False:  # type-only (repro_torch.core.transfer imports repro_torch.relational)
     from repro_torch.core.transfer import TransferCosts

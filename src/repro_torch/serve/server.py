@@ -45,10 +45,11 @@ the host mirror. Worker threads launch the kernels on the current
 stream of their own thread, which for a new thread is the default
 stream, so the card serialises the queries' kernels: concurrency
 overlaps host work. Cached artifacts are host values, so snapshots
-load without a card. `engine="distributed"` is not ported yet (ROADMAP
-Queue 1 item 8); until it is, `retry_budget` and `hedge` are built and
-reported as in the reference but consulted by nothing, since the
-reference's distributed engine is their only reader. A query whose
+load without a card. `engine="distributed"` runs the joins through
+the distributed runtime (`repro_torch.core.engine_join_dist`), whose
+per-shard local joins run on `join_backend`; the server's
+`retry_budget` and `hedge` reach its exchange recovery through
+`ExecConfig`, as in the reference. A query whose
 kernel fails to build or launch errors its Future: the degradation
 ladder has no move from a rung on the cuda backends (every rung below
 runs on the host), and the per-rung breaker records the failure.
@@ -140,10 +141,6 @@ class ServeConfig:
         if self.join_backend not in ("numpy", "cuda"):
             raise ValueError(f"unknown join_backend {self.join_backend!r}; "
                              "choose 'numpy' or 'cuda'")
-        if self.engine == "distributed":
-            raise NotImplementedError(
-                "engine='distributed' is not ported yet (ROADMAP Queue 1 "
-                "item 8)")
         if self.reorder not in ("auto", "on", "off"):
             raise ValueError(f"unknown reorder {self.reorder!r}; "
                              "choose 'auto', 'on' or 'off'")
@@ -388,6 +385,8 @@ class QueryServer:
             degrade=self.config.degrade,
             mem_budget_bytes=self.config.mem_budget_bytes,
             reorder=self.config.reorder,
+            retry_budget=self.retry_budget,
+            hedge=self.hedge,
             breakers=self.breakers)
         return Executor(catalog, cfg).execute(req.plan, ctx=req.ctx)
 

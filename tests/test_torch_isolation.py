@@ -35,8 +35,9 @@ def test_port_sources_import_no_jax_or_reference():
 
 
 def test_port_runs_q5_without_jax_or_reference_in_process():
-    """A fresh interpreter runs Q5 through the port on the CPU and ends
-    with neither `jax` nor `repro` loaded."""
+    """A fresh interpreter runs Q5 through the port on the CPU, on one
+    host and through the distributed runtime (4 shards of a CPU mesh),
+    and ends with neither `jax` nor `repro` loaded."""
     code = (
         "import sys\n"
         "from repro_torch.tpch import generate, build_query\n"
@@ -48,6 +49,17 @@ def test_port_runs_q5_without_jax_or_reference_in_process():
         "join_backend='cuda', device='on', torch_device='cpu')\n"
         "res, st = Executor(cat, cfg).execute(build_query(5, sf=0.002))\n"
         "assert st.report()['device']['fused_calls'] > 0\n"
+        "from repro_torch.core.engine_join_dist import "
+        "DistributedJoinEngine\n"
+        "from repro_torch.launch.mesh import make_data_mesh\n"
+        "from repro_torch.relational.table import table_digest\n"
+        "d, dst = Executor(cat, cfg.replace(engine='distributed', "
+        "dist_shards=4)).execute(build_query(5, sf=0.002))\n"
+        "assert table_digest(d) == table_digest(res)\n"
+        "assert dst.report()['dist']['nshards'] == 4\n"
+        "eng = DistributedJoinEngine(mesh=make_data_mesh(4, devices=['cpu'] "
+        "* 4), local_backend='cuda', torch_device='cpu')\n"
+        "assert eng.exchange.device_backed\n"
         "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
         "or m.startswith(('jax.', 'repro.'))]\n"
         "print('LOADED', bad)\n")
@@ -105,22 +117,35 @@ def test_device_backends_raise_without_cuda(no_cuda):
         make_strategy("pred-trans", backend="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         Executor({}, ExecConfig(join_backend="cuda", device="on"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Executor({}, ExecConfig(join_backend="cuda", engine="distributed",
+                                dist_shards=4))
     # the numpy backend ignores the device
     assert get_engine("numpy").backend == "numpy"
     assert get_join_engine("numpy", device="cuda").backend == "numpy"
 
 
 def test_unported_routes_raise_not_implemented():
-    """The distributed runtime is not ported; the plane-off route of the
-    cuda backends is, so its engines now construct."""
+    """Routes that once raised here now construct and run: the plane-off
+    route of the cuda backends, and the distributed runtime (on the numpy
+    backends and on the cuda backends on the CPU)."""
     from repro_torch.core.engine_bloom import CudaEngine
     from repro_torch.core.engine_join import CudaJoinEngine
     from repro_torch.relational import ExecConfig, Executor
+    from repro_torch.relational.table import table_digest
+    from repro_torch.tpch import build_query, generate
     assert not CudaEngine(device_resident=False, device="cpu").device_resident
     assert not CudaJoinEngine(device_resident=False,
                               device="cpu").device_resident
-    with pytest.raises(NotImplementedError, match="distributed"):
-        Executor({}, ExecConfig(engine="distributed"))
+    cat = generate(sf=0.002, seed=3)
+    want, _ = Executor(cat, ExecConfig(late_materialize=False)).execute(
+        build_query(5, sf=0.002))
+    for kw in ({}, {"join_backend": "cuda", "torch_device": "cpu"}):
+        ex = Executor(cat, ExecConfig(engine="distributed", **kw))
+        assert ex.join_engine.backend == "distributed"
+        got, st = ex.execute(build_query(5, sf=0.002))
+        assert table_digest(got) == table_digest(want)
+        assert st.report()["dist"]["nshards"] == 4
 
 
 def _q5_config(backend, **kw):

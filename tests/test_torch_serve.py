@@ -231,11 +231,16 @@ def test_round_trips_under_concurrency_equal_serial(port_small):
 # --------------------------------------------------------------------------
 
 
-def test_defaults_run_on_the_card():
+def test_defaults_run_on_the_card(port_small):
     cfg = ServeConfig()
     assert (cfg.join_backend, cfg.torch_device) == ("cuda", "cuda")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ServeConfig(engine="distributed")
+    # the distributed route constructs and serves (cuda backends on the
+    # CPU: 4 simulated shards)
+    with QueryServer(port_small, ServeConfig(
+            strategy="pred-trans", engine="distributed",
+            torch_device="cpu", workers=1)) as srv:
+        _, st = srv.query(build_query(5, SF))
+    assert st.report()["dist"]["nshards"] == 4
     with pytest.raises(ValueError, match="join_backend"):
         ServeConfig(join_backend="pallas")
 
