@@ -178,6 +178,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              `exchange.send` fault at one call index drawn by a seeded
              RNG: it must be retried in place (`report()["recoveries"]
              ["retries"]` >= 1, no ladder move) and stay md5-equal.
+6d. torch-tpch — path `torch-tpch`: the 20 join queries through
+             `Executor` with the plain-torch `torch` bloom and join
+             backends (the reference's `jax` role: torch ops, no hand
+             kernel) on the same catalog, the device-resident plane on
+             and off, each query cold then warm; every result must have
+             phase 5's eager-oracle md5, and no hand kernel (K1-K8) may
+             launch in the path's window. Each line sets the warm seconds
+             and round trips beside phase 5's cuda-backend run of the same
+             query and plane, the summary line sums both. Then, outside
+             the window, the largest plane-off map build — the orders
+             keys (1,500,000 at SF 1) — timed alone through the plain
+             build (`joinmap_build_torch`) and through K4;
 7. attention — K8 (flash attention, bf16) against its plain version
              `flash_plain` and the dense oracle `sdpa_ref` on the card,
              within atol = rtol = 2e-2 (the reference's bf16 tolerance),
@@ -239,6 +251,37 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              `TF_MLA_MEAN_ABS`, and the share of (token, layer) routing
              choices whose experts differ between the flash run and the
              "auto" run (`route_differing_share`).
+10. train  — path `train`: qwen1.5-4b at its full config (3.95 B
+             parameters, bf16, random weights from seed 0) through
+             `train.step.build_train_step` with AdamW (cosine schedule,
+             peak 3e-4) and `TrainConfig(microbatches=2, remat=True)`, as
+             `launch/train.py` sets it, at batch 4 x 2048 tokens for
+             `TRAIN["steps"]` steps on one repeated batch, once the serving
+             models are freed. First the bytes reckoned (bf16 params and
+             gradients, f32 accumulation, f32 m and v) and, on the same
+             weights cast to f32 and the same batch, one f32 step's loss
+             and gradient (`GradNorm`, no moments), with two controls
+             beside it: accumulation in bf16, and one microbatch's
+             gradient dropped. Gates: every loss finite, the last at
+             least `TRAIN_LOSS_DROP` under the first, the first bf16 step
+             within `TRAIN_ORACLE_LOSS_ABS` and `TRAIN_ORACLE_GNORM_REL`
+             of the f32 step, the dropped microbatch outside them (the
+             f32 step is the port's own, so this checks precision, not
+             the algorithm: the CPU tests do that); no hand kernel
+             launches (training runs attention on "auto": K8 has no
+             backward). Prints each step's loss, gradient norm and
+             seconds, the mean step seconds after the first two, tokens a
+             second, the model-FLOP share of 989 TFLOP/s (6 N tokens over
+             the step), the peak memory, and one more step under
+             torch.profiler (device busy share);
+11. train-ft — path `train-ft`: `FaultTolerantTrainer` over a
+             `CheckpointManager` (keep 1, a temporary directory removed at
+             the end) at the same width with one layer: `TRAIN_FT["steps"]`
+             steps straight, then the same run preempted at step
+             `TRAIN_FT["preempt"]` and resumed by a new trainer, with
+             deterministic algorithms on; the losses and the final
+             parameters and optimizer state must be bit-equal. Prints the
+             bytes a checkpoint holds and the save and restore seconds.
 f32 matmuls run with TF32 off (`torch.backends.cuda.matmul.allow_tf32 =
 False`) throughout, so the plain versions and oracles sum in f32.
 
@@ -248,7 +291,8 @@ launches are path `serve-deepseek`'s)
 `{"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "plain_device", "bound_ms", "bound_by",
 "library_ms", "launches_by_path"}]}` (`launches_by_path` has every
-path's count, the `dist-*` paths' included; `plain_device` says where
+path's count, the `dist-*`, `torch-tpch`, `train` and `train-ft`
+paths' included, 0 on the last three; `plain_device` says where
 `plain_ms` was taken: "cuda" for CUDA-event times on the card, "cpu" for
 the sequential K4 and K6a builds timed on the host; K6's and K8's rows
 add `library_call`, what `library_ms` timed; K8's rows add `device_ms`
@@ -323,6 +367,32 @@ FLASH_TOL = 2e-2
 #: of their own scale, well past two ulps
 DECODE_ULPS = 2
 FLASH = ("flash_prefill", "flash_decode")
+#: train path: qwen1.5-4b at its published config, random weights from
+#: seed 0, batch 4 x 2048 tokens in 2 microbatches, remat, AdamW on a
+#: cosine schedule (peak 3e-4, 2 warm-up steps), 8 steps on one batch
+TRAIN = {"arch": "qwen1.5-4b", "batch": 4, "seq": 2048, "steps": 8,
+         "microbatches": 2}
+#: The train path's gates, set before its first run. The loss of random
+#: init is about ln(151,936) = 11.9; AdamW moves every weight by about the
+#: learning rate a step, coherently on a batch it sees again, so 8 steps
+#: must take at least half a nat off the repeated batch's loss.
+TRAIN_LOSS_DROP = 0.5
+#: The bf16 step against the f32 step of the same weights and batch.
+#: Both are the port's own step (`build_train_step`, `Model.loss`), so
+#: this gate checks precision only: a fault of the algorithm is the same
+#: on both sides, and only the CPU tests against the reference's
+#: `jax.value_and_grad` (tests/test_torch_train_ref.py) check that. The
+#: sound readings were 0.0001 nats and 0.03% of the norm on an NVIDIA
+#: H100 80GB HBM3 at 700 W; the limits sit a few times above them.
+#: Two controls run beside the gate and are reported (`controls`): the
+#: gradient of one microbatch dropped, which the gate must reject, and
+#: microbatch gradients accumulated in bf16.
+TRAIN_ORACLE_LOSS_ABS = 0.002
+TRAIN_ORACLE_GNORM_REL = 0.01
+#: train-ft path: the same width with one layer (about 8.8 GB a
+#: checkpoint: bf16 params and f32 moments), batch 2 x 2048, 4 steps,
+#: preempted at step 2
+TRAIN_FT = {"layers": 1, "batch": 2, "steps": 4, "preempt": 2}
 #: the kernel table's rows of K8 at MLA's head sizes (launched as FLASH)
 FLASH_MLA = ("flash_prefill_mla", "flash_decode_mla")
 
@@ -2013,6 +2083,403 @@ def dist_tpch_phase(torch, kb, sj, fa, cat, sf: float, oracle: dict
     return counts
 
 
+def torch_tpch_phase(torch, np, kb, sj, fa, dev, cat, sf: float,
+                     oracle: dict, cuda_runs: dict, api) -> dict:
+    """Path `torch-tpch`: the 20 join queries through `Executor` with the
+    plain-torch `torch` backends (no hand kernel), the device-resident
+    plane on and off, each query cold then warm. Every result must have
+    phase 5's eager-oracle md5, and no hand kernel may launch in the
+    path's window. Each line sets the warm seconds and round trips beside
+    phase 5's cuda-backend run of the same query and plane; each plane's
+    sums add the plain map's syncs (`MAP_SYNCS`), which the round trips
+    leave out. Then, outside
+    the window, the largest plane-off map build the path made (the
+    orders keys at SF 1) timed alone: the plain-torch build
+    (`joinmap_build_torch`) and K4 (`joinmap_build`) on the same keys.
+    Returns the path's launch counts."""
+    from repro_torch.core.transfer import make_strategy
+    from repro_torch.relational import ExecConfig, Executor
+    from repro_torch.relational.table import table_digest
+    from repro_torch.tpch import QUERIES, build_query
+
+    def cfg(plane: bool):
+        return ExecConfig(strategy=make_strategy(
+            "pred-trans", backend="torch", device_resident=plane),
+            join_backend="torch", device="on" if plane else "off")
+
+    sizes = []                        # padded keys of each map build
+    build_rows_torch = sj.build_rows_torch
+
+    def sized(lo, hi, mask, cap):
+        sizes.append(int(lo.shape[0]))
+        return build_rows_torch(lo, hi, mask, cap)
+
+    read = launch_window(kb, sj, fa)  # the path's counts start at 0 here
+    sums = {}
+    sj.build_rows_torch = sized
+    try:
+        for plane, cuda_path in ((True, "pred-trans"),
+                                 (False, "pred-trans-plane-off")):
+            tot = {"seconds": 0.0, "round_trips": 0, "cuda_seconds": 0.0,
+                   "cuda_round_trips": 0}
+            sj.MAP_SYNCS.reset()
+            for qn in sorted(QUERIES):
+                secs = []
+                for _ in range(2):    # cold, then warm
+                    t = time.perf_counter()
+                    res, st = Executor(cat, cfg(plane)).execute(
+                        build_query(qn, sf=sf))
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t)
+                check(table_digest(res) == oracle[qn],
+                      f"torch-tpch Q{qn} plane "
+                      f"{'on' if plane else 'off'} differs from the oracle")
+                drep = st.report()["device"]
+                cuda = cuda_runs[(cuda_path, qn)]
+                tot["seconds"] += secs[1]
+                tot["round_trips"] += drep["round_trips"]
+                tot["cuda_seconds"] += cuda["seconds"]
+                tot["cuda_round_trips"] += cuda["device"]["round_trips"]
+                emit({"phase": "torch-tpch", "query": qn,
+                      "plane": "on" if plane else "off",
+                      "seconds": secs[1], "cold_seconds": secs[0],
+                      "rows": len(res), "device": drep,
+                      "cuda_seconds": cuda["seconds"],
+                      "cuda_round_trips": cuda["device"]["round_trips"],
+                      "md5_equal": True})
+            # the plain map's own syncs, which DeviceStats leaves out
+            tot["map_syncs"] = dict(sj.MAP_SYNCS)
+            sums["on" if plane else "off"] = tot
+    finally:
+        sj.build_rows_torch = build_rows_torch
+    counts = read()                   # just after the path
+    check_path(counts, "torch-tpch", (), tuple(counts))
+    check(len(sizes) > 0, "torch-tpch plane off built no hash map")
+
+    # the largest plane-off build alone, outside the window: the orders
+    # keys (1,500,000 at SF 1) through the plain build and through K4
+    keys = api["o_orderkey"]
+
+    def build_with(fn):
+        def run():
+            fn(keys, dev)
+            torch.cuda.synchronize()
+        run()
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            run()
+            times.append(time.perf_counter() - t)
+        return statistics.median(times)
+    emit({"phase": "torch-tpch", "queries": len(QUERIES), "sums": sums,
+          "map_builds": len(sizes), "largest_build_padded_keys": max(sizes),
+          "largest_build": {"keys": len(keys),
+                            "torch_seconds": build_with(
+                                sj.joinmap_build_torch),
+                            "k4_seconds": build_with(sj.joinmap_build)},
+          "launches": counts})
+    return counts
+
+
+class GradNorm:
+    """An optimizer that leaves the parameters as they are, reports the
+    global norm of the gradient the train step hands it and keeps that
+    gradient's leaves (`grads`): the train phase's f32 oracle and its
+    controls, with no moments to hold."""
+
+    grads = None
+
+    def init(self, params):
+        return None
+
+    def update(self, grads, state, params):
+        from repro_torch.train.optim import global_norm
+        from repro_torch.train.tree import leaves
+        self.grads = leaves(grads)
+        return params, state, {"grad_norm": global_norm(grads)}
+
+
+def grad_rel_err(torch, got, want) -> float:
+    """||got - want|| / ||want|| over every leaf, in f32."""
+    num = den = 0.0
+    for g, w in zip(got, want):
+        num += float((g.float() - w).pow(2).sum())
+        den += float(w.pow(2).sum())
+    return math.sqrt(num / den)
+
+
+def train_oracle_phase(torch, model, params, batch, tc) -> dict:
+    """The train gate's oracle and its controls, on the same weights and
+    batch: the f32 step (the weights cast to f32), the sound bf16 step,
+    the bf16 step with `accum_dtype=bf16` (control), and the gradient the
+    step would hand the optimizer had it dropped the second microbatch
+    (control: the first microbatch's gradient over the microbatch count;
+    the loss is the sound step's, as only a gradient was dropped). Each
+    reading: loss, gradient norm, and the gradient's
+    relative L2 distance from the f32 one. Returns
+    {"oracle_f32": ..., "bf16": ..., "controls": {...}}."""
+    import dataclasses
+
+    from repro_torch.models.model import Batch
+    from repro_torch.train.step import build_train_step
+    from repro_torch.train.tree import tree_map
+
+    def step(ps, cfg, b=batch):
+        opt = GradNorm()
+        t = time.perf_counter()
+        _, _, m = build_train_step(model, opt, cfg)(ps, None, b)
+        return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "seconds": time.perf_counter() - t}, opt.grads
+
+    p32 = tree_map(lambda t: t.float(), params)
+    oracle, g32 = step(p32, tc)
+    del p32
+    torch.cuda.empty_cache()
+    out = {"oracle_f32": oracle, "controls": {}}
+    out["bf16"], g = step(params, tc)
+    out["bf16"]["grad_rel_err"] = grad_rel_err(torch, g, g32)
+    del g
+    rec, g = step(params, dataclasses.replace(tc,
+                                              accum_dtype=torch.bfloat16))
+    rec["grad_rel_err"] = grad_rel_err(torch, g, g32)
+    out["controls"]["accum_bf16"] = rec
+    del g
+    m = tc.microbatches
+    first = Batch(batch.tokens[: batch.tokens.shape[0] // m],
+                  batch.targets[: batch.targets.shape[0] // m])
+    rec, g = step(params, dataclasses.replace(tc, microbatches=1), first)
+    for x in g:
+        x.div_(m)
+    out["controls"]["dropped_microbatch"] = {
+        "loss": out["bf16"]["loss"], "grad_norm": rec["grad_norm"] / m,
+        "grad_rel_err": grad_rel_err(torch, g, g32),
+        "seconds": rec["seconds"]}
+    del g, g32
+    torch.cuda.empty_cache()
+    for rec in (out["bf16"], *out["controls"].values()):
+        rec["passes_gate"] = oracle_gate(rec, oracle)
+    return out
+
+
+def oracle_gate(rec: dict, oracle: dict) -> bool:
+    """A bf16 step's loss and gradient norm within TRAIN_ORACLE_LOSS_ABS
+    and TRAIN_ORACLE_GNORM_REL of the f32 step's."""
+    return (abs(rec["loss"] - oracle["loss"]) <= TRAIN_ORACLE_LOSS_ABS
+            and abs(rec["grad_norm"] - oracle["grad_norm"])
+            <= TRAIN_ORACLE_GNORM_REL * oracle["grad_norm"])
+
+
+def train_batch(torch, np, vocab: int, batch: int, seq: int, seed: int):
+    """Random tokens from numpy, the targets the tokens shifted by one
+    (`launch/train.py`'s batches), on the card."""
+    from repro_torch.models.model import Batch
+    rng = np.random.default_rng(seed)
+    t = torch.from_numpy(rng.integers(0, vocab, (batch, seq))).cuda()
+    return Batch(t, torch.roll(t, -1, 1))
+
+
+def train_phase(torch, np, kb, sj, fa) -> dict:
+    """Path `train`: qwen1.5-4b at its full config through
+    `build_train_step` (AdamW, `TrainConfig(microbatches=2, remat=True)`),
+    TRAIN["steps"] steps on one repeated batch. First, on the same batch
+    and weights, the oracle and its controls (`train_oracle_phase`).
+    Gates: every loss finite, the last loss TRAIN_LOSS_DROP nats under
+    the first, the first bf16 step within TRAIN_ORACLE_LOSS_ABS of the
+    oracle's loss and TRAIN_ORACLE_GNORM_REL of its gradient norm, the
+    dropped-microbatch control outside them; no hand kernel launches.
+    Returns the path's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.train import optim as O
+    from repro_torch.train.step import TrainConfig, build_train_step
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN["arch"])
+    n = cfg.param_count()
+    b, s, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    # bf16 params and gradients, f32 accumulation buffers, f32 m and v
+    reckoned = n * (2 + 2 + 4 + 8)
+    emit({"phase": "train", "step": "reckoning", "arch": TRAIN["arch"],
+          "params": n, "bytes_before_activations": reckoned,
+          "card_bytes": torch.cuda.get_device_properties(0).total_memory})
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = train_batch(torch, np, cfg.vocab_size, b, s, 0)
+    tc = TrainConfig(microbatches=TRAIN["microbatches"], remat=True)
+
+    read = launch_window(kb, sj, fa)  # the path's counts start at 0 here
+    checks = train_oracle_phase(torch, model, params, batch, tc)
+    oracle = checks["oracle_f32"]
+    emit({"phase": "train", "check": "f32 oracle and controls",
+          "tol_loss_abs": TRAIN_ORACLE_LOSS_ABS,
+          "tol_grad_norm_rel": TRAIN_ORACLE_GNORM_REL, **checks})
+    torch.cuda.reset_peak_memory_stats()
+
+    opt = O.AdamW(lr=O.cosine_schedule(3e-4, 2, steps))
+    step = build_train_step(model, opt, tc)
+    state = opt.init(params)
+    losses, norms, secs = [], [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t)
+        norms.append(float(m["grad_norm"]))
+        emit({"phase": "train", "step": i + 1, "loss": losses[-1],
+              "grad_norm": norms[-1], "lr": float(m["lr"]),
+              "seconds": secs[-1]})
+    counts = read()                   # just after the path
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.mean(secs[2:])
+    tokens = b * s
+    prof = device_profile(torch, lambda: step(params, state, batch))
+    rec = {"phase": "train", "path": "train", "arch": TRAIN["arch"],
+           "config": cfg.name, "params": n, "batch": b, "seq": s,
+           "microbatches": tc.microbatches, "remat": tc.remat,
+           "steps": steps, "losses": losses, "grad_norms": norms,
+           "oracle_f32": oracle, "step_seconds": step_s,
+           "step_seconds_all": secs, "tokens_per_second": tokens / step_s,
+           "model_flop_share": 6 * n * tokens / step_s / BF16_FLOPS,
+           "peak_memory_bytes": peak, "bytes_reckoned": reckoned,
+           "profile_one_step": prof, "launches": counts}
+    emit(rec)
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"train: a loss or gradient norm is not finite ({losses})")
+    check(losses[-1] <= losses[0] - TRAIN_LOSS_DROP,
+          f"train: the loss fell from {losses[0]} to {losses[-1]}, less "
+          f"than {TRAIN_LOSS_DROP}")
+    check(oracle_gate({"loss": losses[0], "grad_norm": norms[0]}, oracle),
+          f"train: first bf16 step (loss {losses[0]}, grad norm "
+          f"{norms[0]}) vs f32 {oracle}")
+    check(not checks["controls"]["dropped_microbatch"]["passes_gate"],
+          f"train: the oracle gate passes a dropped microbatch "
+          f"({checks['controls']['dropped_microbatch']})")
+    check_path(counts, "train", (), tuple(counts))
+    del params, state, step, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_ft_phase(torch, np, kb, sj, fa) -> dict:
+    """Path `train-ft`: `FaultTolerantTrainer` with a `CheckpointManager`
+    (keep=1, under a temporary directory removed at the end), qwen1.5-4b
+    at full width with its depth cut to TRAIN_FT["layers"]. A run of
+    TRAIN_FT["steps"] steps straight, then the same run preempted at step
+    TRAIN_FT["preempt"] and resumed by a new trainer from its checkpoint,
+    with deterministic algorithms on: the per-step losses and the final
+    parameters and optimizer state must be bit-equal. Prints the bytes a
+    checkpoint holds and the save and restore seconds. No hand kernel
+    launches. Returns the path's launch counts."""
+    import dataclasses
+    import itertools
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.ft import FaultTolerantTrainer, Preempted
+    from repro_torch.models.model import Model
+    from repro_torch.train import optim as O
+    from repro_torch.train.step import TrainConfig, build_train_step
+    from repro_torch.train.tree import leaves
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              n_layers=TRAIN_FT["layers"])
+    model = Model(cfg)
+    opt = O.AdamW(lr=O.cosine_schedule(3e-4, 2, TRAIN_FT["steps"]))
+    step = build_train_step(model, opt, TrainConfig(microbatches=2))
+    steps, at = TRAIN_FT["steps"], TRAIN_FT["preempt"]
+
+    def fresh():
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        return {"params": params, "opt": opt.init(params), "step": 0}
+
+    def batches():
+        for i in itertools.count():
+            yield train_batch(torch, np, cfg.vocab_size, TRAIN_FT["batch"],
+                              TRAIN["seq"], i)
+
+    def run(trainer, state, gen, losses, times):
+        def on(i, m):
+            losses.append(m["loss"])
+            times.append(m["step_seconds"])
+        t = time.perf_counter()
+        try:
+            return trainer.run(state, gen, max_steps=steps, on_metrics=on)
+        finally:
+            times.append(time.perf_counter() - t)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    read = launch_window(kb, sj, fa)  # the path's counts start at 0 here
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want_losses = []
+        trainer = FaultTolerantTrainer(step, CheckpointManager(
+            f"{tmp}/straight", keep=1), save_every=10 ** 6)
+        out = run(trainer, fresh(), batches(), want_losses, [])
+        want = [x.cpu() for x in leaves({"p": out["params"],
+                                         "o": out["opt"]})]
+        del out, trainer
+        shutil.rmtree(f"{tmp}/straight")
+
+        got_losses, times = [], []
+        mgr = CheckpointManager(f"{tmp}/preempted", keep=1)
+        trainer = FaultTolerantTrainer(step, mgr, save_every=10 ** 6)
+        gen = batches()
+
+        def interrupting():
+            for i, b in enumerate(gen):
+                if i == at:
+                    trainer.preempt()
+                yield b
+        preempted = False
+        try:
+            run(trainer, fresh(), interrupting(), got_losses, times)
+        except Preempted:
+            preempted = True
+        check(preempted and mgr.latest_step() == at,
+              f"train-ft: no checkpoint at the preemption ({mgr.all_steps()})")
+        save_s = times[-1] - sum(times[:-1])
+        step_dir = mgr._step_dir(at)
+        nbytes = sum(f.stat().st_size for f in pathlib.Path(step_dir).iterdir())
+        del trainer
+        torch.cuda.empty_cache()
+
+        trainer = FaultTolerantTrainer(step, CheckpointManager(
+            f"{tmp}/preempted", keep=1), save_every=10 ** 6)
+        target = fresh()
+        t = time.perf_counter()
+        resumed = trainer.resume_or_init(target["params"], target["opt"])
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        del target
+        check(resumed["step"] == at, f"train-ft resumed at {resumed['step']}")
+        out = run(trainer, resumed, itertools.islice(batches(), at, None),
+                  got_losses, [])
+        got = leaves({"p": out["params"], "o": out["opt"]})
+        diffs = [float((g.cpu().float() - w.float()).abs().max())
+                 if g.numel() else 0.0 for g, w in zip(got, want)]
+        equal = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = read()                   # just after the path
+    emit({"phase": "train-ft", "path": "train-ft", "arch": TRAIN["arch"],
+          "layers": cfg.n_layers, "params": cfg.param_count(),
+          "steps": steps, "preempt_at": at, "losses_straight": want_losses,
+          "losses_resumed": got_losses, "checkpoint_bytes": nbytes,
+          "save_seconds": save_s, "restore_seconds": restore_s,
+          "bit_equal": equal, "max_abs_diff": max(diffs),
+          "launches": counts})
+    check(got_losses == want_losses,
+          f"train-ft: resumed losses {got_losses} vs {want_losses}")
+    check(equal, f"train-ft: resumed state differs (max {max(diffs)})")
+    check_path(counts, "train-ft", (), tuple(counts))
+    del out, got, want, resumed
+    torch.cuda.empty_cache()
+    return counts
+
+
 def ptxas_usage(log: str, kernel: str) -> dict:
     """Registers and spill bytes of the entry function whose mangled name
     holds `kernel`, from nvcc's `-Xptxas -v` log (None each when the log
@@ -2429,7 +2896,7 @@ def main() -> int:
         return 0
     rep.update(jrep)
     worst.update(jworst)
-    _, counts, oracle = slice_phase(torch, kb, sj, fa, cat, args.sf)
+    cuda_runs, counts, oracle = slice_phase(torch, kb, sj, fa, cat, args.sf)
     counts["kernel-api"] = kernel_api_phase(torch, np, kb, sj, fa, bloom,
                                             dev, api)
     counts["serve-tpch"] = serve_tpch_phase(torch, kb, sj, fa, cat, args.sf,
@@ -2441,7 +2908,9 @@ def main() -> int:
                                                   dev, api)
     counts["dist-tpch"] = dist_tpch_phase(torch, kb, sj, fa, cat, args.sf,
                                           oracle)
-    del cat, api
+    counts["torch-tpch"] = torch_tpch_phase(torch, np, kb, sj, fa, dev, cat,
+                                            args.sf, oracle, cuda_runs, api)
+    del cat, api, cuda_runs
     arep, aworst = attention_phase(torch, fa, dev,
                                    info.get("flashattn", (0.0, ""))[1])
     rep.update(arep)
@@ -2451,6 +2920,8 @@ def main() -> int:
     counts["serve-deepseek"] = serve_phase(
         torch, kb, sj, fa, "serve-deepseek", SERVE_MLA,
         (TF_MLA_MAX_ABS, TF_MLA_MEAN_ABS))
+    counts["train"] = train_phase(torch, np, kb, sj, fa)
+    counts["train-ft"] = train_ft_phase(torch, np, kb, sj, fa)
 
     bloom_cu = "src/repro_torch/kernels/bloom/csrc/bloom.cu"
     semijoin_cu = "src/repro_torch/kernels/semijoin/csrc/semijoin.cu"

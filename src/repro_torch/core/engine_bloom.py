@@ -26,17 +26,20 @@ executed:
   own (K3) and the survivors are compacted on the device after one
   scalar sync per filter; range cuts and min-max go through the host;
 * **bucketed batches** — key batches are padded to power-of-two buckets
-  (`TILE` floor), the same rule as the reference package, so the bytes
-  `DeviceStats` counts match it.
+  (`TILE` floor for the kernels), the same rule as the reference
+  package, so the bytes `DeviceStats` counts match it.
 
-Two backends with bit-identical filter semantics:
+Three backends with bit-identical filter semantics:
 
 * ``numpy`` — host mirror;
+* ``torch`` — plain torch ops over the same survivor-compacted device
+  scans (the reference's ``jax`` role): the column's hash state is
+  computed on the device once (`EngineKeys.dev_hashed`) and every probe
+  gathers from it; it launches no hand-written kernel. Off a CUDA
+  device with the data plane off it builds and compacts through the
+  host mirrors, as the reference's does off a TPU;
 * ``cuda``  — `repro_torch.kernels.bloom` CUDA kernels on a CUDA device;
   on a CPU device (tests only) the kernels' plain torch versions.
-
-The plain-torch device engine (the reference's ``jax`` role) is not part
-of this package yet.
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import device_plane, faultinject, hashing
+from repro_torch.core import bloom, device_plane, faultinject, hashing
 from repro_torch.core.bloom import (
     BLOCK_BITS, DEFAULT_BITS_PER_KEY, DEFAULT_K, LANES, BloomFilter,
     _bucket, _pad, blocks_for,
@@ -56,7 +59,7 @@ from repro_torch.core.bloom import (
 
 _LITTLE_ENDIAN = sys.byteorder == "little"
 
-BACKENDS = ("numpy", "cuda")
+BACKENDS = ("numpy", "torch", "cuda")
 
 #: bucket floor of the device backend — the reference's Pallas tile, kept
 #: so padded sizes (and the h2d bytes counted for them) match it
@@ -77,8 +80,9 @@ class EngineKeys:
     column is hashed (and cached) only when a mostly-alive row set needs
     it; a shrunken survivor set is hashed directly from the raw keys.
     Hash state is uint32 block hash + double-hash generators. The device
-    backend keeps the uint32 key halves on host and caches padded int32
-    device copies of them per bucket size (`dev`)."""
+    backends keep the uint32 key halves on host and cache padded int32
+    device copies of them per bucket size (`dev`), and the torch backend
+    the device hash state of those copies (`dev_hashed`)."""
 
     n: int
     lo: Optional[np.ndarray] = None   # uint32 [n] (device backend)
@@ -89,6 +93,7 @@ class EngineKeys:
     raw: Optional[np.ndarray] = None  # int64 [n] (host, lazy source)
     device: Optional[torch.device] = None
     _dev: Dict[int, Tuple] = dataclasses.field(default_factory=dict)
+    _devh: Dict[int, Tuple] = dataclasses.field(default_factory=dict)
 
     def __len__(self):
         return self.n
@@ -127,6 +132,16 @@ class EngineKeys:
                    device_plane.to_device(_pad(self.hi, bucket),
                                           self.device))
             self._dev[bucket] = hit
+        return hit
+
+    def dev_hashed(self, bucket: int) -> Tuple[torch.Tensor, ...]:
+        """Padded (h, g1, g2) int64 device hash state, computed once per
+        bucket and reused by every probe and build (hash once, also on
+        the device)."""
+        hit = self._devh.get(bucket)
+        if hit is None:
+            hit = bloom.hash_state(*self.dev(bucket))
+            self._devh[bucket] = hit
         return hit
 
 
@@ -528,9 +543,15 @@ class _DeviceScan(VertexScan):
     and 16 bytes per min-max. With it off, the host syncs one scalar per
     filter, and range cuts and min-max read the survivor ids on the
     host. Either way the survivor ids themselves sync only when the host
-    needs them."""
+    needs them.
 
-    def __init__(self, mask: np.ndarray, engine: "CudaEngine"):
+    An engine with `host_side` (the torch backend off a CUDA device with
+    the plane off) keeps the survivor ids as a host array instead, syncs
+    each filter's mask to compact them there, and builds through the
+    host mirror (`build_alive_np`) — the reference's off-TPU posture of
+    its jit'd engine."""
+
+    def __init__(self, mask: np.ndarray, engine: "BloomEngine"):
         self._e = engine
         self._n = len(mask)
         mask = np.asarray(mask, bool)
@@ -542,12 +563,18 @@ class _DeviceScan(VertexScan):
             host_idx = np.flatnonzero(mask).astype(np.int32)
             self._count = int(host_idx.size)
             self._bucket = engine.bucket(self._count)
-            self._idx = device_plane.to_device(_pad(host_idx, self._bucket),
-                                               engine.device)
+            self._idx = self._ids(_pad(host_idx, self._bucket))
         self._mask_out: Optional[np.ndarray] = None
         # host copy of the device survivor-id array, synced at most once
         # per state (invalidated whenever the live set changes)
         self._hidx: Optional[np.ndarray] = None
+
+    def _ids(self, host_ids: np.ndarray):
+        """A padded host survivor-id array as the scan holds it: as it
+        is under `host_side`, else uploaded (and counted)."""
+        if self._e.host_side:
+            return host_ids
+        return device_plane.to_device(host_ids, self._e.device)
 
     def _set_live(self, idx, new_count: int) -> None:
         """Adopt a front-packed survivor-id array after a cut."""
@@ -581,10 +608,25 @@ class _DeviceScan(VertexScan):
             ok = self._e.probe_idx(
                 device_plane.to_device(words, self._e.device), ek,
                 self._idx, self._count, self._n)
-            count = device_plane.scalar(torch.sum(ok, dtype=torch.int32))
-            if count != self._count:
-                self._set_live(device_plane.compact(ok, ok.shape[0],
-                                                    self._idx), count)
+            if self._e.host_side:
+                # one mask sync, compacted on the host (the reference's
+                # off-TPU idiom: the count sync moves the mask anyway)
+                live = np.flatnonzero(device_plane.to_host(ok))
+                count = int(live.size)
+                if count != self._count:
+                    ids = (live if self._idx is None
+                           else self._idx[live]).astype(np.int32)
+                    self._count = count
+                    self._bucket = self._e.bucket(count)
+                    self._idx = _pad(ids, self._bucket)
+                    self._mask_out = None
+                    self._hidx = None
+            else:
+                count = device_plane.scalar(torch.sum(ok,
+                                                      dtype=torch.int32))
+                if count != self._count:
+                    self._set_live(device_plane.compact(
+                        ok, ok.shape[0], self._idx), count)
             counts.append(count)
         return rows
 
@@ -630,8 +672,7 @@ class _DeviceScan(VertexScan):
                     else idx[keep]).astype(np.int32)
             self._count = int(live.size)
             self._bucket = self._e.bucket(self._count)
-            self._idx = device_plane.to_device(_pad(live, self._bucket),
-                                               self._e.device)
+            self._idx = self._ids(_pad(live, self._bucket))
             self._mask_out = None
             self._hidx = None
         return rows
@@ -663,8 +704,7 @@ class _DeviceScan(VertexScan):
     def clear(self):
         self._count = 0
         self._bucket = self._e.bucket(0)
-        self._idx = device_plane.to_device(
-            _pad(np.empty(0, np.int32), self._bucket), self._e.device)
+        self._idx = self._ids(_pad(np.empty(0, np.int32), self._bucket))
         self._mask_out = None
         self._hidx = None
 
@@ -674,6 +714,8 @@ class _DeviceScan(VertexScan):
         changes."""
         if self._idx is None:
             return None
+        if isinstance(self._idx, np.ndarray):       # host_side
+            return self._idx[: self._count].astype(np.int64)
         if self._hidx is None:
             out = device_plane.to_host(self._idx)
             self._hidx = out[: self._count].astype(np.int64)
@@ -697,6 +739,19 @@ class _DeviceScan(VertexScan):
 
     def build(self, ek, nblocks, valid=None):
         faultinject.fire("engine.build")
+        if self._e.host_side:
+            idx = self._host_idx()
+            if valid is not None:
+                # NULL-tight: intersect the live ids with the validity
+                # mask on host (same control-plane idiom as compaction)
+                if idx is None:
+                    if not valid.all():
+                        idx = np.flatnonzero(valid).astype(np.int64)
+                else:
+                    idx = idx[valid[idx]]
+            # host words stay host: the probe that consumes them uploads
+            # (and counts) them once
+            return build_alive_np(ek, idx, nblocks, self._e.k)
         return self._e.build_idx(ek, self._idx, self._count, self._n,
                                  nblocks, valid=valid)
 
@@ -716,6 +771,9 @@ class BloomEngine:
       benches, tests)."""
 
     backend = "base"
+    #: keep survivor ids on host, compact each probe's mask there and
+    #: build filters through the host mirror (`build_alive_np`)
+    host_side = False
     #: the device-resident data plane: fused multi-filter probes, device
     #: compaction/range-cut/min-max, device builds — the host syncs
     #: scalars and tiny counts vectors only
@@ -821,6 +879,77 @@ class NumpyEngine(BloomEngine):
         return _NumpyScan(mask, self.k)
 
 
+class TorchEngine(BloomEngine):
+    """Plain torch ops over bucketed, survivor-compacted device scans
+    (the reference's `JaxEngine` role): the device hash state of each
+    column is computed once (`EngineKeys.dev_hashed`), every probe is the
+    hashed flat-gather op (`bloom.probe_hashed_dev`), the fused probe is
+    their AND, builds are `bloom.build` over the live rows (K2's plain
+    version, `kernels.bloom.ops.build_ref`). No hand-written kernel runs.
+
+    Its postures are the reference's: the device-resident plane is on by
+    default on a CUDA device (and on request, `ExecConfig.device="on"`,
+    on the CPU). Off it, a CUDA device still builds and compacts on the
+    device (the reference on a TPU), while the CPU builds through the
+    host mirror and compacts on host (the reference off a TPU)."""
+
+    backend = "torch"
+
+    def __init__(self, k: int = DEFAULT_K,
+                 device_resident: Optional[bool] = None,
+                 device="cuda"):
+        super().__init__(k)
+        self.device = device_plane.resolve_device(device)
+        on_card = self.device.type == "cuda"
+        if device_resident is None:
+            device_resident = on_card
+        self.device_resident = bool(device_resident)
+        self.host_side = not on_card and not self.device_resident
+
+    def keys(self, values):
+        lo, hi = hashing.key_halves(np.asarray(values))
+        return EngineKeys(len(lo), lo=lo, hi=hi, device=self.device)
+
+    def begin(self, mask):
+        return _DeviceScan(mask, self)
+
+    def _rows(self, ek, idx, count: int, n: int):
+        """(h, g1, g2) of the scan's rows and their live mask."""
+        state = ek.dev_hashed(self.bucket(n))
+        if idx is not None:
+            if isinstance(idx, np.ndarray):
+                # host_side holds host ids; it runs only on the CPU,
+                # where this is no copy
+                idx = torch.from_numpy(idx)
+            idx = idx.to(self.device, torch.int64)
+            state = tuple(t[idx] for t in state)
+        return state, _live(state[0].shape[0], count, self.device)
+
+    def probe_idx(self, words, ek, idx, count, n):
+        (h, g1, g2), live = self._rows(ek, idx, count, n)
+        return live & bloom.probe_hashed_dev(words, h, g1, g2, k=self.k)
+
+    def fused_probe_idx(self, words, eks, idx, count, n):
+        ok = None
+        counts = []
+        for w, ek in zip(words, eks):
+            (h, g1, g2), live = self._rows(ek, idx, count, n)
+            ok = live if ok is None else ok
+            ok = ok & bloom.probe_hashed_dev(w, h, g1, g2, k=self.k)
+            counts.append(torch.sum(ok, dtype=torch.int32))
+        return (device_plane.compact(ok, ok.shape[0], idx),
+                torch.stack(counts))
+
+    def build_idx(self, ek, idx, count, n, nblocks, valid=None):
+        from repro_torch.kernels.bloom import ops as kb
+        b = self.bucket(n)
+        lo, hi = ek.dev(b)
+        vdev = None if valid is None else device_plane.to_device(
+            _pad(np.asarray(valid, bool), b, False), self.device)
+        return kb.build_ref(lo, hi, nblocks, idx=idx, count=count,
+                            valid=vdev, k=self.k)
+
+
 class CudaEngine(BloomEngine):
     """`repro_torch.kernels.bloom` kernels over survivor-compacted
     batches on the device (the reference's `PallasEngine` role). With
@@ -885,9 +1014,11 @@ def get_engine(backend: str = "numpy", k: int = DEFAULT_K,
     strategies and queries; creation is locked so concurrent sessions
     agree on one instance per key.
 
-    `device` is where the ``cuda`` backend runs: a CUDA device (the
-    default) launches the kernels, ``"cpu"`` runs their plain torch
-    versions (tests). Without CUDA, a CUDA device raises RuntimeError.
+    `device` is where the ``torch`` and ``cuda`` backends run: a CUDA
+    device (the default) runs on the card — the cuda backend launches
+    the kernels, the torch backend its torch ops — and ``"cpu"`` runs on
+    the CPU (the cuda backend's kernels as their plain torch versions;
+    tests). Without CUDA, a CUDA device raises RuntimeError.
     `device_resident` picks the data plane: None resolves to on for a
     CUDA device and off for the CPU, False is the plane-off route. The
     numpy backend ignores both."""
@@ -904,6 +1035,9 @@ def get_engine(backend: str = "numpy", k: int = DEFAULT_K,
         if eng is None:
             if backend == "numpy":
                 eng = NumpyEngine(k)
+            elif backend == "torch":
+                eng = TorchEngine(k, device_resident=device_resident,
+                                  device=dev)
             else:
                 eng = CudaEngine(k, device_resident=device_resident,
                                  device=dev)

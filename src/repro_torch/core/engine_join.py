@@ -26,6 +26,11 @@ phase itself stop re-materializing them. Two layers:
     global probe order — identical (build_idx, probe_idx) to the sorted
     path because equal keys always share a partition and the
     partition-local stable sort preserves their global relative order;
+  - ``torch``  — the ``cuda`` engine's two routes in plain torch, no
+    hand-written kernel (the reference's ``jax`` role): with the plane
+    on the same sorted-segment device join; with it off an
+    open-addressing key -> row map built by rounds of parallel slot
+    claims and walked by a plain lookup, with the same host fallbacks;
   - ``cuda``   — with the device-resident data plane on, every join
     runs as the sorted-segment device join
     (`repro_torch.kernels.semijoin.ops`), duplicate build keys and NULLs
@@ -56,7 +61,7 @@ from repro_torch.core import faultinject
 if TYPE_CHECKING:   # type-only: relational imports this module's engines
     from repro_torch.relational.table import Table
 
-BACKENDS = ("numpy", "cuda")
+BACKENDS = ("numpy", "torch", "cuda")
 
 _FIB64 = np.uint64(0x9E3779B97F4A7C15)
 
@@ -297,27 +302,22 @@ class NumpyJoinEngine(JoinEngine):
         return sorted_join_indices(build_key, probe_key, how)
 
 
-class CudaJoinEngine(JoinEngine):
-    """Joins on the device (the reference's `PallasJoinEngine` role).
+class _HashMapJoinEngine(JoinEngine):
+    """Shared torch/cuda path. With the device-resident data plane on,
+    every join goes through the sorted-segment device join
+    (`kernels.semijoin.ops.segment_join_device`), which joins duplicate
+    build keys natively, handles the NULL contract by zeroing match
+    counts instead of the host compact-and-remap, and returns *device*
+    index vectors.
 
-    With the device-resident data plane on, every join goes through the
-    sorted-segment device join (`kernels.semijoin.ops.
-    segment_join_device`), which joins duplicate build keys natively,
-    handles the NULL contract by zeroing match counts instead of the
-    host compact-and-remap, and returns *device* index vectors.
-
-    With it off, a join builds the key -> row map (K4) and looks the
-    probe keys up (K5), returning host index vectors. The data decides
-    the route, as in the reference: empty sides, builds above
-    `device_max_build` and builds with duplicate keys (occupancy below
-    the build size) join on the host engine. A kernel that fails to
-    build or launch raises. NULLs take the base class's
-    compact-and-remap.
-
-    On a CPU device (tests only) the kernel wrappers run their plain
-    torch versions."""
-
-    backend = "cuda"
+    With it off, a join builds an open-addressing key -> row map
+    (`_build`) and looks the probe keys up in it (`_lookup`), returning
+    host index vectors. With unique build keys every probe row has 0 or
+    1 matches, so the pairs are order-identical to the sorted reference.
+    The data decides the route, as in the reference: empty sides, builds
+    above `device_max_build` and builds with duplicate keys (occupancy
+    below the build size) join on the host engine. NULLs take the base
+    class's compact-and-remap."""
 
     #: plane off: builds above this size join on the host (the
     #: reference's bound, which keeps the table within 2^23 slots)
@@ -332,6 +332,14 @@ class CudaJoinEngine(JoinEngine):
         self.device_resident = bool(device_resident)
         self._host = NumpyJoinEngine()
 
+    def _build(self, build_key):
+        """(table, occupied) of the key -> row map of `build_key`."""
+        raise NotImplementedError
+
+    def _lookup(self, table, probe_key) -> np.ndarray:
+        """Host int64 build row per probe key, -1 on a miss."""
+        raise NotImplementedError
+
     def join_indices(self, build_key, probe_key, how="inner"):
         from repro_torch.kernels.semijoin import ops as sj
         nb = len(build_key)
@@ -344,10 +352,10 @@ class CudaJoinEngine(JoinEngine):
         faultinject.fire("join.indices")
         if nb == 0 or len(probe_key) == 0 or nb > self.device_max_build:
             return self._host.join_indices(build_key, probe_key, how)
-        table, occupied = sj.joinmap_build(build_key, self.device)
+        table, occupied = self._build(build_key)
         if occupied < nb:                     # duplicate build keys
             return self._host.join_indices(build_key, probe_key, how)
-        rows = sj.joinmap_lookup(table, probe_key)  # int64, -1 on a miss
+        rows = self._lookup(table, probe_key)  # int64, -1 on a miss
         found = rows >= 0
         if how == "semi":
             sel = np.flatnonzero(found)
@@ -381,6 +389,40 @@ class CudaJoinEngine(JoinEngine):
                                       device=self.device)
 
 
+class TorchJoinEngine(_HashMapJoinEngine):
+    """Plain torch joins on the device (the reference's `JaxJoinEngine`
+    role). Plane off, the map is `semijoin.ops.joinmap_build_torch` /
+    `joinmap_lookup_torch`, whose uploads and syncs are the reference's
+    jnp build and lookup's, so `DeviceStats` match it."""
+
+    backend = "torch"
+
+    def _build(self, build_key):
+        from repro_torch.kernels.semijoin import ops as sj
+        return sj.joinmap_build_torch(build_key, self.device)
+
+    def _lookup(self, table, probe_key):
+        from repro_torch.kernels.semijoin import ops as sj
+        return sj.joinmap_lookup_torch(table, probe_key)
+
+
+class CudaJoinEngine(_HashMapJoinEngine):
+    """Joins on the device (the reference's `PallasJoinEngine` role).
+    Plane off, the map is built by kernel K4 and looked up by K5; a
+    kernel that fails to build or launch raises. On a CPU device (tests
+    only) the kernel wrappers run their plain torch versions."""
+
+    backend = "cuda"
+
+    def _build(self, build_key):
+        from repro_torch.kernels.semijoin import ops as sj
+        return sj.joinmap_build(build_key, self.device)
+
+    def _lookup(self, table, probe_key):
+        from repro_torch.kernels.semijoin import ops as sj
+        return sj.joinmap_lookup(table, probe_key)
+
+
 _ENGINES: Dict[Tuple, JoinEngine] = {}
 _ENGINES_LOCK = threading.Lock()
 
@@ -392,8 +434,9 @@ def get_join_engine(backend: str = "numpy",
     created under a lock, so concurrent sessions share one instance
     (mirrors `engine_bloom.get_engine`).
 
-    ``device`` is where the ``cuda`` engine runs (``"cpu"`` for tests;
-    a CUDA device without CUDA raises RuntimeError);
+    ``device`` is where the ``torch`` and ``cuda`` engines run
+    (``"cpu"`` for tests; a CUDA device without CUDA raises
+    RuntimeError);
     ``device_resident`` picks its data plane: None resolves to on for a
     CUDA device and off for the CPU. The numpy engine has no device path
     and ignores both."""
@@ -412,8 +455,9 @@ def get_join_engine(backend: str = "numpy",
             if backend == "numpy":
                 eng = NumpyJoinEngine()
             else:
-                eng = CudaJoinEngine(device_resident=device_resident,
-                                     device=dev)
+                cls = TorchJoinEngine if backend == "torch" \
+                    else CudaJoinEngine
+                eng = cls(device_resident=device_resident, device=dev)
             _ENGINES[key] = eng
     return eng
 

@@ -40,7 +40,7 @@ from repro_torch.core.graph import (  # noqa: F401  (re-exported)
 )
 from repro_torch.relational import ops
 
-# strategies that take a `backend=` engine switch (numpy | cuda)
+# strategies that take a `backend=` engine switch (numpy | torch | cuda)
 BACKEND_AWARE = {"bloom-join", "pred-trans", "pred-trans-opt",
                  "pred-trans-adaptive"}
 
@@ -381,12 +381,13 @@ class TransferCosts:
 #: `kernel_bench.calibrate` sweep, tuned end-to-end on TPC-H — the
 #: *ratios* are what gate an edge). The reference's device rows were
 #: calibrated for its JAX backends and do not carry over; until the H100
-#: calibration exists (ROADMAP Queue 1 item 6) the cuda backend uses the
-#: numpy row.
+#: calibration exists (ROADMAP Queue 1 item 6) the torch and cuda
+#: backends use the numpy row.
 DEFAULT_COSTS: Dict[str, TransferCosts] = {
     "numpy": TransferCosts(probe=45.0, build=45.0,
                            join_small=40.0, join_large=110.0),
 }
+DEFAULT_COSTS["torch"] = DEFAULT_COSTS["numpy"]
 DEFAULT_COSTS["cuda"] = DEFAULT_COSTS["numpy"]
 
 
@@ -993,9 +994,9 @@ STRATEGIES = {
 
 
 def make_strategy(name: str, **kw) -> Strategy:
-    """`backend="numpy"|"cuda"` selects the bloom engine for the
-    strategies in BACKEND_AWARE, `device=` where the cuda engine runs
-    (default "cuda"; "cpu" runs the kernels' plain versions, for tests)
+    """`backend="numpy"|"torch"|"cuda"` selects the bloom engine for the
+    strategies in BACKEND_AWARE, `device=` where the torch and cuda
+    engines run (default "cuda"; "cpu" runs on the CPU, for tests)
     and `device_resident=` its data plane; other strategies reject all
     three (they do no Bloom work)."""
     for knob in ("backend", "device", "device_resident"):

@@ -190,7 +190,17 @@ def flash_attention(q, k, v, q_pos, kv_pos, kv_valid, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """K8. q [B,Sq,H,D]; k [B,Skv,KVH,D], v [B,Skv,KVH,Dv] (KVH | H,
-    Dv <= D); positions [B,S*]. Returns [B,Sq,H,Dv]."""
+    Dv <= D); positions [B,S*]. Returns [B,Sq,H,Dv].
+
+    K8 has no backward: under grad mode with an input that requires
+    grad it raises (the kernel's output would leave the graph and the
+    inputs get no gradient); run such a pass on the "auto" attention
+    backend (`models.layers.attention_backend`)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: its output would carry no "
+            "gradient to q, k, v; run training on the 'auto' attention "
+            "backend")
     _check_shapes(q, k, v, q_pos, kv_pos, kv_valid)
     dev = q.device
     if dev.type == "cpu":

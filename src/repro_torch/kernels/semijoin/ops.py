@@ -58,6 +58,11 @@ _I64MAX = torch.iinfo(torch.int64).max
 
 LAUNCHES = LaunchCounts("joinmap_build", "joinmap_lookup", "semijoin_build",
                         "semijoin_probe")
+#: host syncs of the plain-torch map (`build_rows_torch`) and of the plain
+#: lookup walk (`lookup_ref`, `set_probe_ref`): one a round, each a
+#: `torch.nonzero` that sizes the next round. `DeviceStats` leaves them
+#: out, as the reference's jnp map makes its rounds inside one program.
+MAP_SYNCS = LaunchCounts("build_rows_torch", "lookup_walk")
 
 #: the reference's Pallas tile: `capacity_for` keeps its floor of TILE // 2
 TILE = 1024
@@ -334,45 +339,55 @@ def build_rows(lo: torch.Tensor, hi: torch.Tensor, cap: int
     return _build(lib, True, lo, hi, cap, None)
 
 
-def _walk(table: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
-    """The plain lookup loop: (int32 rows [n], slots visited, distinct
-    32-byte sectors read). Each round reads the next slot of every key
-    still unresolved; a key resolves at its own slot (its row) or an
-    empty one (-1). Two 16-byte slots share a sector."""
+def _walk_rows(table: torch.Tensor, lo: torch.Tensor,
+               hi: torch.Tensor) -> torch.Tensor:
+    """The plain lookup loop: int32 rows [n], -1 on a miss. Each round
+    reads the next slot of every key still unresolved; a key resolves at
+    its own slot (its row) or an empty one (-1). One sync a round
+    (`MAP_SYNCS`): the `nonzero` of the keys that go on."""
     cap = table.shape[0]
     slot = hashing.hash64(lo, hi) & (cap - 1)
     rows = torch.full(lo.shape, -1, dtype=torch.int32, device=lo.device)
     ids = torch.arange(lo.shape[0], device=lo.device)
-    read = torch.zeros(max(cap // 2, 1), dtype=torch.bool, device=lo.device)
-    visited = 0
     while ids.numel():
         rec = table[slot]
-        visited += int(ids.numel())
-        read[slot >> 1] = True
         full = rec[:, _STATE] != 0
         hit = full & (rec[:, _LO] == lo) & (rec[:, _HI] == hi)
-        rows[ids[hit]] = rec[hit, _ROW]
-        go = full & ~hit
+        rows[ids] = torch.where(hit, rec[:, _ROW], -1)
+        go = torch.nonzero(full & ~hit).flatten()
+        MAP_SYNCS.bump("lookup_walk")
         ids, lo, hi = ids[go], lo[go], hi[go]
         slot = (slot[go] + 1) & (cap - 1)
-    return rows, visited, int(read.sum())
+    return rows
 
 
 def lookup_ref(table: torch.Tensor, lo: torch.Tensor,
                hi: torch.Tensor) -> torch.Tensor:
     """Plain torch K5: the matched build row of each probe key (int32
     [n]), -1 on a miss."""
-    return _walk(table, lo, hi)[0]
+    return _walk_rows(table, lo, hi)
 
 
 def lookup_work(table: torch.Tensor, lo: torch.Tensor,
                 hi: torch.Tensor) -> Tuple[int, int]:
     """K5's (and K6b's: the two walk alike) data-dependent work for these
     probe keys: (slots visited, distinct 32-byte sectors of the table they
-    fall in). The sectors are the table bytes the walk must move; a
-    revisit may hit in cache."""
-    _, visited, sectors = _walk(table, lo, hi)
-    return visited, sectors
+    fall in; two 16-byte slots share a sector). The sectors are the table
+    bytes the walk must move; a revisit may hit in cache. The walk of
+    `_walk_rows`, counting as it goes."""
+    cap = table.shape[0]
+    slot = hashing.hash64(lo, hi) & (cap - 1)
+    read = torch.zeros(max(cap // 2, 1), dtype=torch.bool, device=lo.device)
+    visited = 0
+    while slot.numel():
+        rec = table[slot]
+        visited += int(slot.numel())
+        read[slot >> 1] = True
+        go = (rec[:, _STATE] != 0) & ~((rec[:, _LO] == lo)
+                                        & (rec[:, _HI] == hi))
+        lo, hi = lo[go], hi[go]
+        slot = (slot[go] + 1) & (cap - 1)
+    return visited, int(read.sum())
 
 
 def lookup(table: torch.Tensor, lo: torch.Tensor,
@@ -423,6 +438,89 @@ def joinmap_lookup(table: torch.Tensor, keys: np.ndarray) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
+# key -> row map in plain torch (the torch join engine's plane-off route)
+# --------------------------------------------------------------------------
+
+
+def _pad_tile(a: np.ndarray, fill=0) -> np.ndarray:
+    """`a` padded to a multiple of TILE (the reference's jnp map pads its
+    inputs so, and `DeviceStats` counts the padded bytes)."""
+    return _pad_pow2(a, -(-len(a) // TILE) * TILE, fill)
+
+
+def build_rows_torch(lo: torch.Tensor, hi: torch.Tensor, mask: torch.Tensor,
+                     cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Key -> row map of the rows whose `mask` holds, in plain torch, by
+    rounds of parallel slot claims: each round every key still unplaced
+    reads its slot; on an empty slot the lowest row among the keys there
+    claims it, on its own key the row column keeps the later row, on
+    another key the key moves to the next slot. Slots are never freed,
+    so each key sits at the first free slot of its probe run and the
+    table answers every lookup as the reference's sequential insert
+    does (its layout may differ: a table is held by `occupied` and
+    lookups). One sync a round, and one to start (`MAP_SYNCS`): the
+    `nonzero` of the keys that go on. Returns (int32 table [cap, 4],
+    int64 [] occupied count)."""
+    _check_cap(cap, 0)      # the padded rows past `mask` take no slot
+    dev, wrap = lo.device, cap - 1
+    # one spill entry past the table takes the writes of the rows that
+    # do not write in a round (no boolean-index sync inside a round)
+    klo, khi, state, row = (torch.zeros(cap + 1, dtype=torch.int32,
+                                        device=dev) for _ in range(4))
+    claim = torch.empty(cap + 1, dtype=torch.int64, device=dev)
+    ids = torch.nonzero(mask.to(torch.bool)).flatten()
+    MAP_SYNCS.bump("build_rows_torch")
+    slot = hashing.hash64(lo[ids], hi[ids]) & wrap
+    while ids.numel():
+        a, b = lo[ids], hi[ids]
+        full = state[slot] != 0
+        same = full & (klo[slot] == a) & (khi[slot] == b)
+        row.scatter_reduce_(0, torch.where(same, slot, cap),
+                            ids.to(torch.int32), "amax")
+        empty = ~full
+        claim.fill_(_I64MAX)
+        claim.scatter_reduce_(0, torch.where(empty, slot, cap), ids, "amin")
+        won = empty & (claim[slot] == ids)
+        at = torch.where(won, slot, cap)
+        klo[at], khi[at], row[at] = a, b, ids.to(torch.int32)
+        state[at] = _PUBLISHED
+        moved = full & ~same
+        slot = torch.where(moved, (slot + 1) & wrap, slot)
+        go = torch.nonzero(moved | (empty & ~won)).flatten()
+        MAP_SYNCS.bump("build_rows_torch")
+        ids, slot = ids[go], slot[go]
+    table = torch.stack([c[:cap] for c in (klo, khi, state, row)], dim=1)
+    return table, torch.sum(state[:cap], dtype=torch.int64)
+
+
+def joinmap_build_torch(keys: np.ndarray, device):
+    """Key -> row map of host int64 build keys on `device`, in plain torch
+    (`build_rows_torch`). Returns (table, occupied) as `joinmap_build`
+    does. Three counted uploads (key halves and a mask, padded to a TILE
+    multiple) and one scalar sync: the reference's jnp build's."""
+    keys = np.asarray(keys)
+    n = len(keys)
+    lo, hi = hashing.key_halves(_pad_tile(keys))
+    mask = _pad_tile(np.ones(n, bool), False)
+    table, occupied = build_rows_torch(
+        dp.to_device(lo, device), dp.to_device(hi, device),
+        dp.to_device(mask, device), capacity_for(n))
+    return table, dp.scalar(occupied)
+
+
+def joinmap_lookup_torch(table: torch.Tensor, keys: np.ndarray) -> np.ndarray:
+    """Matched build row per host int64 probe key (host int64, -1 on a
+    miss) through the plain lookup walk (`lookup_ref`): two counted
+    uploads and one d2h of the rows, padded to a TILE multiple as the
+    reference's jnp lookup's (the walk's own syncs go to `MAP_SYNCS`)."""
+    keys = np.asarray(keys)
+    lo, hi = hashing.key_halves(_pad_tile(keys))
+    rows = lookup_ref(table, dp.to_device(lo, table.device),
+                      dp.to_device(hi, table.device))
+    return dp.to_host(rows)[: len(keys)].astype(np.int64)
+
+
+# --------------------------------------------------------------------------
 # key set: K6a (build) and K6b (membership probe), and the public semi-join
 # --------------------------------------------------------------------------
 
@@ -462,7 +560,7 @@ def set_probe_ref(table: torch.Tensor, lo: torch.Tensor,
                   hi: torch.Tensor) -> torch.Tensor:
     """Plain torch K6b: is each probe key in the set? bool [n], by K5's
     walk (a set's slots all hold row 0, so a hit is a row >= 0)."""
-    return _walk(table, lo, hi)[0] >= 0
+    return _walk_rows(table, lo, hi) >= 0
 
 
 def set_probe(table: torch.Tensor, lo: torch.Tensor,

@@ -29,13 +29,20 @@ Differences from the reference, on purpose:
 The reference's sharding hints (`parallel/hints.py`) are identities
 without a mesh and are left out (they return with the distributed
 runtime); so is its MoE's token grouping, one group without a mesh.
-Cross-attention, the MoE's auxiliary loss (training's) and Mamba-2 raise
-NotImplementedError.
+Cross-attention and Mamba-2 raise NotImplementedError.
+
+Training differentiates these functions with torch's autograd. K8 has
+no backward (nor has the reference's Pallas kernel), so the training
+step runs attention on "auto" inside `attention_backend("auto")`, a
+per-thread override that leaves the process-wide backend — and a server
+in the same process — on "flash".
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -154,21 +161,44 @@ def _sdpa_chunked(q, k, v, q_pos, kv_pos, kv_valid, *, causal, window):
 # version on CPU tensors) or "auto" (the reference's dense path, chunked
 # for long sequences, in plain torch)
 _SDPA_BACKEND = "flash"
+# a per-thread override of it (`attention_backend`)
+_BACKEND_TLS = threading.local()
+
+
+def _check_backend(name: str) -> None:
+    if name not in ("auto", "flash"):
+        raise ValueError(f"attention backend must be 'auto' or 'flash', "
+                         f"got {name!r}")
 
 
 def set_attention_backend(name: str) -> None:
     global _SDPA_BACKEND
-    if name not in ("auto", "flash"):
-        raise ValueError(f"attention backend must be 'auto' or 'flash', "
-                         f"got {name!r}")
+    _check_backend(name)
     _SDPA_BACKEND = name
+
+
+@contextlib.contextmanager
+def attention_backend(name: str):
+    """Run attention on `name` in this thread for the block's duration
+    (nestable); other threads keep theirs."""
+    _check_backend(name)
+    prev = getattr(_BACKEND_TLS, "name", None)
+    _BACKEND_TLS.name = name
+    try:
+        yield
+    finally:
+        _BACKEND_TLS.name = prev
+
+
+def current_attention_backend() -> str:
+    return getattr(_BACKEND_TLS, "name", None) or _SDPA_BACKEND
 
 
 def _sdpa(q, k, v, q_pos, kv_pos, kv_valid, *, causal: bool,
           window: Optional[int]):
     """q [B,Sq,H,D], k [B,Skv,KVH,D], v [B,Skv,KVH,Dv] (KVH divides H,
     Dv <= D). fp32 softmax, scores scaled by 1/sqrt(D)."""
-    if _SDPA_BACKEND == "flash":
+    if current_attention_backend() == "flash":
         return flash_attention(q, k, v, q_pos, kv_pos, kv_valid,
                                causal=causal, window=window)
     rep = q.shape[2] // k.shape[2]
@@ -393,9 +423,18 @@ def moe(p, x, cfg: ModelConfig, norm_kind: str = "rmsnorm"):
     return x + y.reshape(b, s, d)
 
 
-def moe_aux_loss(p, x, cfg, norm_kind: str = "rmsnorm"):
-    raise NotImplementedError("the MoE auxiliary loss is training's, not "
-                              "ported yet (ROADMAP Queue 1 item 10a)")
+def moe_aux_loss(p, x, cfg: ModelConfig, norm_kind: str = "rmsnorm"):
+    """Load-balancing auxiliary loss (Switch/GShard): E times the dot of
+    each expert's share of top-1 choices and its mean router
+    probability, in f32."""
+    m = cfg.moe
+    h = norm(x, p["ln"], norm_kind)
+    probs = torch.softmax(h.reshape(-1, h.shape[-1]).float() @ p["router"],
+                          dim=-1)
+    top_e = torch.argmax(probs, dim=-1)
+    frac_tokens = F.one_hot(top_e, m.num_experts).float().mean(dim=0)
+    frac_probs = probs.mean(dim=0)
+    return m.num_experts * torch.sum(frac_tokens * frac_probs)
 
 
 def mamba2(p, x, mb, cache=None, norm_kind: str = "rmsnorm"):

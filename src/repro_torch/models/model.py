@@ -16,12 +16,19 @@ every cursor is a host int. The port runs the full-attention
 architectures, MLA and MoE ones included (qwen1.5-4b, minitron-4b,
 starcoder2-7b, command-r-35b, deepseek-v2-lite-16b): any other raises
 NotImplementedError from `Model.__init__`.
+
+`loss` is training's objective, the reference's token-mean cross
+entropy over sequence chunks plus 0.01 times the MoE load-balancing
+loss. Under autograd each chunk's logits are recomputed in the backward
+pass (`torch.utils.checkpoint`), so the [tokens, vocab] logits are held
+one chunk at a time, as the reference's chunked scan bounds them.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.common import (
@@ -42,6 +49,15 @@ def _at(tree, r: int):
     return tree[r]
 
 
+def _chunk_nll(xc, w, tc):
+    """Summed NLL of one chunk: f32 logits, logsumexp minus the gold
+    logit where the target is >= 0."""
+    logits = (xc @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1, torch.clamp(tc, min=0)[:, None].long())
+    return torch.where(tc >= 0, lse - gold[:, 0], 0.0).sum()
+
+
 class Model:
     def __init__(self, cfg: ModelConfig):
         check_ported(cfg)
@@ -59,15 +75,21 @@ class Model:
         return init_params(gen, self.cfg)
 
     # ------------------------------------------------------------------
-    def _apply_block(self, is_moe: bool, p, x, positions, cache, ring):
+    def _apply_block(self, is_moe: bool, p, x, positions, cache, ring,
+                     collect_aux: bool = False):
+        """One layer: (x, new cache, f32 MoE aux loss — the Python 0.0
+        unless `collect_aux` on a MoE layer, so serving adds no work)."""
         cfg = self.cfg
+        aux = 0.0
         x, new_cache = L.attention(p["mixer"], x, cfg.attn, positions,
                                    cache, norm_kind=cfg.norm, ring=ring)
         if is_moe:
+            if collect_aux:
+                aux = L.moe_aux_loss(p["ffn"], x, cfg, norm_kind=cfg.norm)
             x = L.moe(p["ffn"], x, cfg, norm_kind=cfg.norm)
         elif "ffn" in p:                # d_ff == 0: mixer-only block
             x = L.mlp(p["ffn"], x, cfg.act, norm_kind=cfg.norm)
-        return x, new_cache
+        return x, new_cache, aux
 
     # ------------------------------------------------------------------
     def _empty_cache_slot(self, batch: int, cap: int, device,
@@ -93,13 +115,16 @@ class Model:
                           for _ in self.slot_moe]}
 
     # ------------------------------------------------------------------
-    def backbone(self, params, x, positions, caches=None):
-        """Embedded input -> final hidden. Returns (x, caches), the caches
-        written in place with their cursors moved on. (The reference also
-        returns the MoE auxiliary loss, which is training's.) A cache's
+    def backbone(self, params, x, positions, caches=None,
+                 collect_aux: bool = False):
+        """Embedded input -> final hidden. Returns (x, caches, aux), the
+        caches written in place with their cursors moved on, aux the sum
+        of the MoE layers' load-balancing losses (the Python 0.0 unless
+        `collect_aux`: no device work on the serving path). A cache's
         positions after this write are computed once per call (one for
         the prefix layers, one per slot) and shared by its layers."""
         b, s = x.shape[:2]
+        aux = 0.0
 
         def ring(sc, cap_dim):
             return L._ring_positions(sc.index + s, sc.k.shape[cap_dim], b,
@@ -107,10 +132,13 @@ class Model:
         prefix = []
         for i, is_moe in enumerate(self.prefix_moe):
             c = caches["prefix"][i] if caches else None
-            x, nc = self._apply_block(is_moe, params["prefix_layers"][i], x,
-                                      positions, c,
-                                      ring(c, 1) if caches else None)
+            x, nc, a = self._apply_block(is_moe, params["prefix_layers"][i],
+                                         x, positions, c,
+                                         ring(c, 1) if caches else None,
+                                         collect_aux)
             prefix.append(nc)
+            if collect_aux:
+                aux = aux + a
         index = [None] * self.full_period
         rings = [ring(sc, 2) for sc in caches["slots"]] if caches else None
         for r in range(self.n_reps):
@@ -120,15 +148,18 @@ class Model:
                     sc = caches["slots"][si]
                     c = L.KVCache(sc.k[r], sc.v[r], sc.index)
                     rg = rings[si]
-                x, nc = self._apply_block(is_moe, _at(params["layers"][si], r),
-                                          x, positions, c, rg)
+                x, nc, a = self._apply_block(
+                    is_moe, _at(params["layers"][si], r), x, positions, c,
+                    rg, collect_aux)
+                if collect_aux:
+                    aux = aux + a
                 if nc is not None:
                     index[si] = nc.index
         if not caches:
-            return x, None
+            return x, None, aux
         slots = [L.KVCache(sc.k, sc.v, index[si])
                  for si, sc in enumerate(caches["slots"])]
-        return x, {"prefix": prefix, "slots": slots}
+        return x, {"prefix": prefix, "slots": slots}, aux
 
     # ------------------------------------------------------------------
     def embed_inputs(self, params, batch: Batch):
@@ -140,6 +171,40 @@ class Model:
         return (h @ w).float()
 
     # ------------------------------------------------------------------
+    def loss(self, params, batch: Batch, loss_chunk: int = 2048):
+        """Token-mean cross entropy (targets -1 carry no loss) over
+        `loss_chunk`-token chunks of the flattened batch — the tokens
+        past the last whole chunk are dropped, as the reference's — plus
+        0.01 times the MoE auxiliary loss. A scalar f32 tensor."""
+        cfg = self.cfg
+        x = self.embed_inputs(params, batch)
+        b, s, _ = x.shape
+        pos = torch.arange(s, dtype=torch.int32,
+                           device=x.device)[None].expand(b, s)
+        x, _, aux = self.backbone(params, x, pos, None,
+                                  collect_aux=cfg.moe is not None)
+        x = L.norm(x, params["ln_f"], cfg.norm)
+        t = b * s
+        xf = x.reshape(t, cfg.d_model)
+        tf = batch.targets.reshape(t)
+        nchunk = max(1, t // max(loss_chunk, 1))
+        csize = t // nchunk
+        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        count = torch.zeros((), dtype=torch.int64, device=x.device)
+        for c in range(nchunk):
+            xc = xf[c * csize:(c + 1) * csize]
+            tc = tf[c * csize:(c + 1) * csize]
+            if torch.is_grad_enabled():
+                nll = torch.utils.checkpoint.checkpoint(
+                    _chunk_nll, xc, w, tc, use_reentrant=False)
+            else:
+                nll = _chunk_nll(xc, w, tc)
+            total = total + nll
+            count = count + (tc >= 0).sum()
+        return total / torch.clamp(count, min=1) + 0.01 * aux
+
+    # ------------------------------------------------------------------
     def prefill(self, params, batch: Batch, cap: int):
         """Run the full prompt, returning (last-token logits, caches)."""
         cfg = self.cfg
@@ -148,7 +213,7 @@ class Model:
         caches = self.init_cache(b, cap, x.device)
         pos = torch.arange(s, dtype=torch.int32,
                            device=x.device)[None].expand(b, s)
-        x, caches = self.backbone(params, x, pos, caches)
+        x, caches, _ = self.backbone(params, x, pos, caches)
         x = L.norm(x, params["ln_f"], cfg.norm)
         return self.hidden_to_logits(params, x[:, -1:]), caches
 
@@ -159,6 +224,6 @@ class Model:
         b = x.shape[0]
         pos = torch.full((b, 1), int(position), dtype=torch.int32,
                          device=x.device)
-        x, caches = self.backbone(params, x, pos, caches)
+        x, caches, _ = self.backbone(params, x, pos, caches)
         x = L.norm(x, params["ln_f"], cfg.norm)
         return self.hidden_to_logits(params, x), caches

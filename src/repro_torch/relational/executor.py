@@ -250,9 +250,11 @@ class ExecConfig:
     (distributed → late-numpy → eager oracle; pred-trans-adaptive →
     pred-trans → no-prefilter), recorded in `ExecStats.degraded`. Off
     by default so engine-vs-oracle tests can never silently pass via a
-    fallback. A rung that runs on the cuda backends never steps down:
-    every rung below it runs on the host, so a kernel that fails to
-    build or launch re-raises instead of being answered on the CPU.
+    fallback. A rung that runs on the cuda backends, or on the torch
+    backends on a CUDA device, never steps down: every rung below it
+    runs on the host, so a kernel that fails to build or launch (or a
+    device op that fails) re-raises instead of being answered on the
+    CPU.
 
     `mem_budget_bytes` caps the join phase's payload-gather bytes
     per query, estimated *before* allocation — exceeding it raises
@@ -271,15 +273,16 @@ class ExecConfig:
     adversarial orders through it; see `reorder.seeded_order`).
 
     `device` controls the device-resident data plane (DESIGN.md §15)
-    for the cuda join backend: "auto" (default) keeps join indices on
+    for the torch and cuda join backends: "auto" (default) keeps join indices on
     the device when `torch_device` is a CUDA device and takes the
     plane-off route on the CPU, "on" forces the device path on any
     `torch_device` (the CPU test configuration), "off" takes the
-    plane-off route: the hash-map join (kernels K4/K5) for
-    duplicate-free build sides, host index vectors, the host engine
-    for the rest. The strategy's bloom engine picks its own plane
-    (`make_strategy(..., device_resident=)`). `torch_device` (default
-    "cuda") is the torch device the cuda join backend runs on; without
+    plane-off route: the hash-map join (kernels K4/K5 on cuda, plain
+    torch on torch) for duplicate-free build sides, host index vectors,
+    the host engine for the rest. The strategy's bloom engine picks its
+    own plane (`make_strategy(..., device_resident=)`). `torch_device`
+    (default "cuda") is the torch device the torch and cuda join
+    backends run on; without
     CUDA a CUDA device raises RuntimeError — pass "cpu" to run on the
     CPU. The numpy backend ignores both. The distributed engine ignores
     `device`: its local engine resolves the plane from `torch_device`.
@@ -476,10 +479,15 @@ class Executor:
         return None
 
     def _on_device(self) -> bool:
-        """Does this rung run on the cuda backends (bloom or join)?"""
+        """Does this rung run on the GPU: the cuda backends (bloom or
+        join) on any device, or the torch backends on a CUDA device?"""
+        import torch
         eng = getattr(self.strategy, "engine", None)
-        return (self.join_backend == "cuda"
-                or getattr(eng, "backend", None) == "cuda")
+        bloom = getattr(eng, "backend", None)
+        return (self.join_backend == "cuda" or bloom == "cuda"
+                or (self.join_backend == "torch" and torch.device(
+                    self.config.torch_device).type == "cuda")
+                or (bloom == "torch" and eng.device.type == "cuda"))
 
     def _next_rung(self, err: Exception) -> Optional["Executor"]:
         """Classify a failure to a ladder move. Injected/engine faults
@@ -487,8 +495,8 @@ class Executor:
         executor was in. Transfer-side failures step the strategy rung
         first; join/engine-side failures step the engine rung, falling
         over to the strategy ladder once the engine rungs are spent.
-        A rung on the cuda backends has no move: every rung below it
-        runs on the host, and a failed kernel build or launch must
+        A rung on the GPU (`_on_device`) has no move: every rung below
+        it runs on the host, and a failed kernel build or launch must
         surface, not be answered on the CPU."""
         if self._on_device():
             return None

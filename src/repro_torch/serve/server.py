@@ -40,8 +40,9 @@ persist and restore the cache tier across restarts (see
 
 In the port the server runs the cuda backends on the card by default
 (`join_backend="cuda"`, `torch_device="cuda"`); `torch_device="cpu"`
-runs the kernels' plain versions (tests), and `join_backend="numpy"`
-the host mirror. Worker threads launch the kernels on the current
+runs the kernels' plain versions (tests), `join_backend="torch"` the
+plain-torch backends (no hand kernel), and `join_backend="numpy"` the
+host mirror. Worker threads launch the kernels on the current
 stream of their own thread, which for a new thread is the default
 stream, so the card serialises the queries' kernels: concurrency
 overlaps host work. Cached artifacts are host values, so snapshots
@@ -95,8 +96,8 @@ class ServeConfig:
     strategy: str = "pred-trans-adaptive"
     strategy_kw: dict = dataclasses.field(default_factory=dict)
     join_backend: str = "cuda"
-    # the torch device the cuda backends run on ("cpu": the kernels'
-    # plain versions); the numpy backend ignores it
+    # the torch device the torch and cuda backends run on ("cpu": on the
+    # CPU, the kernels' plain versions); the numpy backend ignores it
     torch_device: str = "cuda"
     engine: str = "single"
     late_materialize: bool = True
@@ -138,9 +139,9 @@ class ServeConfig:
                              "choose 'block' or 'reject'")
         if self.strategy not in STRATEGIES:
             raise ValueError(f"unknown strategy {self.strategy!r}")
-        if self.join_backend not in ("numpy", "cuda"):
+        if self.join_backend not in ("numpy", "torch", "cuda"):
             raise ValueError(f"unknown join_backend {self.join_backend!r}; "
-                             "choose 'numpy' or 'cuda'")
+                             "choose 'numpy', 'torch' or 'cuda'")
         if self.reorder not in ("auto", "on", "off"):
             raise ValueError(f"unknown reorder {self.reorder!r}; "
                              "choose 'auto', 'on' or 'off'")

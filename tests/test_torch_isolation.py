@@ -26,11 +26,19 @@ def _imported_roots(path):
 
 
 def test_port_sources_import_no_jax_or_reference():
-    """AST scan of every module under src/repro_torch."""
+    """AST scan of every module under src/repro_torch, the training path
+    (train/, checkpoint/, ft/, launch/train.py) included: no jax, no
+    ml_dtypes, no reference package."""
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 20
+    names = {str(f.relative_to(PORT)) for f in files}
+    for need in ("train/optim.py", "train/step.py", "train/tree.py",
+                 "checkpoint/manager.py", "ft/runner.py",
+                 "launch/train.py", "parallel/compress.py"):
+        assert need in names, need
     bad = [(str(f.relative_to(SRC)), root) for f in files
-           for root in _imported_roots(f) if root in ("jax", "repro")]
+           for root in _imported_roots(f)
+           if root in ("jax", "repro", "ml_dtypes")]
     assert bad == []
 
 
@@ -109,17 +117,18 @@ def test_device_backends_raise_without_cuda(no_cuda):
     from repro_torch.core.engine_join import get_join_engine
     from repro_torch.core.transfer import make_strategy
     from repro_torch.relational import ExecConfig, Executor
-    with pytest.raises(RuntimeError, match="CUDA"):
-        get_engine("cuda")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        get_join_engine("cuda")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        make_strategy("pred-trans", backend="cuda")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        Executor({}, ExecConfig(join_backend="cuda", device="on"))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        Executor({}, ExecConfig(join_backend="cuda", engine="distributed",
-                                dist_shards=4))
+    for backend in ("torch", "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_engine(backend)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_join_engine(backend)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_strategy("pred-trans", backend=backend)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Executor({}, ExecConfig(join_backend=backend, device="on"))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Executor({}, ExecConfig(join_backend=backend,
+                                    engine="distributed", dist_shards=4))
     # the numpy backend ignores the device
     assert get_engine("numpy").backend == "numpy"
     assert get_join_engine("numpy", device="cuda").backend == "numpy"
@@ -127,8 +136,9 @@ def test_device_backends_raise_without_cuda(no_cuda):
 
 def test_unported_routes_raise_not_implemented():
     """Routes that once raised here now construct and run: the plane-off
-    route of the cuda backends, and the distributed runtime (on the numpy
-    backends and on the cuda backends on the CPU)."""
+    route of the cuda backends, the distributed runtime (on the numpy
+    backends and on the cuda and torch backends on the CPU), the torch
+    backends on both planes, the MoE auxiliary loss and `Model.loss`."""
     from repro_torch.core.engine_bloom import CudaEngine
     from repro_torch.core.engine_join import CudaJoinEngine
     from repro_torch.relational import ExecConfig, Executor
@@ -140,12 +150,38 @@ def test_unported_routes_raise_not_implemented():
     cat = generate(sf=0.002, seed=3)
     want, _ = Executor(cat, ExecConfig(late_materialize=False)).execute(
         build_query(5, sf=0.002))
-    for kw in ({}, {"join_backend": "cuda", "torch_device": "cpu"}):
+    for kw in ({}, {"join_backend": "cuda", "torch_device": "cpu"},
+               {"join_backend": "torch", "torch_device": "cpu"}):
         ex = Executor(cat, ExecConfig(engine="distributed", **kw))
         assert ex.join_engine.backend == "distributed"
         got, st = ex.execute(build_query(5, sf=0.002))
         assert table_digest(got) == table_digest(want)
         assert st.report()["dist"]["nshards"] == 4
+    from repro_torch.core.transfer import make_strategy
+    for plane in ("on", "off"):
+        cfg = ExecConfig(strategy=make_strategy(
+            "pred-trans", backend="torch", device_resident=plane == "on",
+            device="cpu"), join_backend="torch", device=plane,
+            torch_device="cpu")
+        got, _ = Executor(cat, cfg).execute(build_query(5, sf=0.002))
+        assert table_digest(got) == table_digest(want)
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Batch, Model
+    cfg = dataclasses.replace(get_smoke_config("deepseek-v2-lite-16b"),
+                              dtype=torch.float32)
+    m = Model(cfg)
+    params = m.init(torch.Generator().manual_seed(0))
+    x = torch.randn(2, 8, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    moe = params["layers"][0]["ffn"]
+    aux = L.moe_aux_loss({k: v[0] for k, v in moe.items()
+                          if not isinstance(v, dict)}, x, cfg)
+    assert aux.ndim == 0 and 0.0 < float(aux) < cfg.moe.num_experts
+    tok = torch.randint(0, cfg.vocab_size, (2, 8))
+    with L.attention_backend("auto"):
+        assert torch.isfinite(m.loss(params, Batch(tok, tok)))
 
 
 def _q5_config(backend, **kw):
@@ -233,6 +269,37 @@ def test_port_serves_mla_moe_without_jax_or_reference_in_process():
     assert "LOADED []" in out.stdout
     assert "deepseek-v2-lite-smoke" in out.stdout
     assert "generated shape (2, 4)" in out.stdout
+
+
+def test_port_trains_without_jax_or_reference_in_process(tmp_path):
+    """A fresh interpreter runs the training launcher on the CPU (smoke
+    config, checkpoints under a temp directory), resumes from its
+    checkpoint, and ends with neither `jax`, `ml_dtypes` nor `repro`
+    loaded."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import train\n"
+        f"args = ['--arch', 'qwen1.5-4b', '--device', 'cpu', '--steps', "
+        f"'3', '--batch', '2', '--seq', '16', '--ckpt-dir', "
+        f"{str(tmp_path)!r}]\n"
+        "assert train.main(args) == 0\n"
+        "assert train.main(args[:5] + ['5'] + args[6:]) == 0\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'repro', "
+        "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.'))]\n"
+        "print('LOADED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+    assert "finished at step 3" in out.stdout
+    assert "finished at step 5" in out.stdout
+
+
+def test_train_on_cuda_without_cuda_raises(no_cuda):
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "qwen1.5-4b", "--steps", "1"])
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-370m"])

@@ -203,8 +203,8 @@ def test_port_decode_matches_full_forward(arch):
     tokens = torch.randint(0, tcfg.vocab_size, (B, S),
                            generator=torch.Generator().manual_seed(2))
     pos = torch.arange(S, dtype=torch.int32)[None].expand(B, S)
-    h, _ = m.backbone(params, m.embed_inputs(params, Batch(tokens, tokens)),
-                      pos)
+    h, _, _ = m.backbone(params, m.embed_inputs(params,
+                                                Batch(tokens, tokens)), pos)
     full = m.hidden_to_logits(params, L.norm(h, params["ln_f"], tcfg.norm))
     logits, caches = m.prefill(params, Batch(tokens[:, :T0], None), cap=S + 4)
     torch.testing.assert_close(logits[:, 0], full[:, T0 - 1], rtol=2e-4,
