@@ -205,7 +205,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              GQA at B 2, and d 64 with a window of 64 (31 of 33 tiles
              skipped), then MLA's head sizes (deepseek-v2-lite-16b:
              16 heads, q/k 192, v 128) at its serve shapes, prefill and
-             decode, each fresh and on a wrapped ring. A decode line must
+             decode, each fresh and on a wrapped ring, and mixtral-8x7b's
+             heads (32/8, d 128, window 4096): prefill over 8192
+             positions with no cache (the full forward's and the loss's
+             shape, where the window masks and tiles wholly outside it
+             are skipped) and decode at position 4100 on a wrapped
+             4096-slot ring. A decode line must
              also lie within two bf16 ulps
              of the largest output of each reference (`decode_limit`).
              Each line's bound is the larger of 2*(D + Dv) flops per
@@ -251,7 +256,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              `TF_MLA_MEAN_ABS`, and the share of (token, layer) routing
              choices whose experts differ between the flash run and the
              "auto" run (`route_differing_share`).
-10. train  — path `train`: qwen1.5-4b at its full config (3.95 B
+10. serve-mixtral — path `serve-mixtral`: mixtral-8x7b at its published
+             widths (d_model 4096, 32/8 heads of 128, window 4096, 8
+             experts top-2 of d_ff 14336) cut from 32 to 16 layers (all 32
+             are 93.4 GB of bf16; 16 are 47.0 GB), built here
+             (`SERVE_MIXTRAL`) and served through
+             `serve.serve_config` at batch 2, a 4080-token prompt and 32
+             tokens: the ring holds the window, 4096 slots, and wraps at
+             decode step 16. K8 launches 16 times per prefill call and per
+             decode step, K1-K7 never; the teacher-forced check against
+             "auto" with the flash run's routing choices replayed, within
+             `TF_SWA_MAX_ABS` and `TF_SWA_MEAN_ABS`, and the share of
+             routing choices that flip when the dense run routes on its
+             own. The path's line adds the parameter and cache bytes
+             reckoned beside the peak memory;
+11. serve-mamba2 — path `serve-mamba2`: mamba2-370m uncut (48 Mamba-2
+             layers, no attention) at batch 4, a 2048-token prompt and 32
+             tokens: no hand kernel launches; the check is the prefill's
+             and every decode step's logits against the full forward over
+             the 2080 tokens fed (`full_forward_gap`), within
+             `FULL_MAMBA_MAX_ABS` and `FULL_MAMBA_MEAN_ABS`. jamba-1.5-
+             large-398b does not run here: one period of its pattern (8
+             layers) is 45.1 B parameters, 90.3 GB of bf16;
+12. train  — path `train`: qwen1.5-4b at its full config (3.95 B
              parameters, bf16, random weights from seed 0) through
              `train.step.build_train_step` with AdamW (cosine schedule,
              peak 3e-4) and `TrainConfig(microbatches=2, remat=True)`, as
@@ -274,7 +301,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              second, the model-FLOP share of 989 TFLOP/s (6 N tokens over
              the step), the peak memory, and one more step under
              torch.profiler (device busy share);
-11. train-ft — path `train-ft`: `FaultTolerantTrainer` over a
+13. train-ft — path `train-ft`: `FaultTolerantTrainer` over a
              `CheckpointManager` (keep 1, a temporary directory removed at
              the end) at the same width with one layer: `TRAIN_FT["steps"]`
              steps straight, then the same run preempted at step
@@ -291,8 +318,10 @@ launches are path `serve-deepseek`'s)
 `{"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "plain_device", "bound_ms", "bound_by",
 "library_ms", "launches_by_path"}]}` (`launches_by_path` has every
-path's count, the `dist-*`, `torch-tpch`, `train` and `train-ft`
-paths' included, 0 on the last three; `plain_device` says where
+path's count, the `dist-*`, `torch-tpch`, `serve-mixtral`,
+`serve-mamba2`, `train` and `train-ft` paths' included (K8's two
+non-MLA rows count `serve-mixtral`'s launches there; every kernel 0 on
+`torch-tpch`, `serve-mamba2`, `train` and `train-ft`); `plain_device` says where
 `plain_ms` was taken: "cuda" for CUDA-event times on the card, "cpu" for
 the sequential K4 and K6a builds timed on the host; K6's and K8's rows
 add `library_call`, what `library_ms` timed; K8's rows add `device_ms`
@@ -356,6 +385,50 @@ SERVE_MLA = {**SERVE, "arch": "deepseek-v2-lite-16b"}
 #: on its own is reported, with its share of flipped choices.
 TF_MLA_MAX_ABS = 0.25
 TF_MLA_MEAN_ABS = 0.04
+#: serve-mixtral: mixtral-8x7b at its published widths (d_model 4096,
+#: 32/8 heads of 128, 8 experts top-2 of d_ff 14336, window 4096) cut from
+#: 32 to 16 layers: all 32 are 46.70 B parameters, 93.4 GB of bf16, more
+#: than one 80 GB card holds; 16 are 23.48 B, 46.96 GB. Batch 2, a
+#: 4080-token prompt and 32 greedy tokens: cap 4120 is capped at the
+#: window, so the ring wraps at decode step 16 (position 4096) and decode
+#: runs on a ring whose positions are not monotone
+SERVE_MIXTRAL = {"arch": "mixtral-8x7b", "config": "full", "layers": 16,
+                 "batch": 2, "prompt_len": 4080, "gen_tokens": 32}
+#: Its teacher-forced check against "auto", the dense run taking the flash
+#: run's routing choices, as deepseek's. On the CPU (`tools/tf_gap.py
+#: --arch mixtral-8x7b`, flash_plain, full width, batch 2, prompt 256, 6
+#: steps) the replayed run lies max |d| 0.0625 / 0.070 / 0.078 and mean
+#: 0.0091 / 0.0117 / 0.0124 from the flash run at 1 / 2 / 4 layers; at the
+#: deepseek bounds' growth of about x1.25 a doubling, about 0.12 / 0.019 at
+#: 16 layers. The bounds leave twice that, the same as qwen1.5-4b's and
+#: deepseek's. The logits have std ~1.3 at init (unembed scale 0.02 *
+#: sqrt(4096)): a wrong window, ring slot or position moves them by about
+#: that. Routing on its own, the dense run flips 0.2% / 0.3% / 2.9% of
+#: (token, layer) choices and then lies max 3.77 / mean 0.34 away at 4
+#: layers: that run is reported, not gated.
+TF_SWA_MAX_ABS = 0.25
+TF_SWA_MEAN_ABS = 0.04
+#: serve-mamba2: mamba2-370m uncut (48 layers, d_model 1024, d_state 128,
+#: head_dim 64, chunk 256; 0.368 B parameters with tied embeddings) at
+#: batch 4, a 2048-token prompt and 32 tokens
+SERVE_MAMBA = {"arch": "mamba2-370m", "config": "full", "batch": 4,
+               "prompt_len": 2048, "gen_tokens": 32}
+#: Its check (no attention, so flash against auto would be vacuous): the
+#: prefill's and each decode step's logits against the full forward's over
+#: the 2080 tokens fed (2080 % 256 = 32: the padded chunk path). The two
+#: round at other places in bf16: the prefill's conv is d_conv shifted
+#: multiply-adds, the decode step's a dot over the conv window, and the
+#: decode's residual stream rounds each step where the full forward's
+#: rounds a whole sequence. Measured on the CPU (`tools/tf_gap.py --arch
+#: mamba2-370m`, full width, batch 2, prompt 300, 8 tokens): max |d|
+#: 0.035 / 0.047 / 0.070 / 0.099 and mean 0.0053 / 0.0071 / 0.012 / 0.017
+#: at 2 / 4 / 8 / 16 layers, the same at prompt 2048 (4 and 16 layers);
+#: about x1.4 a doubling, so about 0.17 / 0.029 at 48. The bounds leave
+#: twice that. The logits have std ~0.64 at init (tied embeddings of
+#: scale 0.02 * sqrt(1024)): a conv window or SSM state handed over wrong
+#: moves them by about that, far above the bounds.
+FULL_MAMBA_MAX_ABS = 0.35
+FULL_MAMBA_MEAN_ABS = 0.06
 #: the reference's bf16 tolerance for the flash kernel
 #: (tests/test_kernels_flash.py)
 FLASH_TOL = 2e-2
@@ -2564,6 +2637,16 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
          None, rows(4, 1, 2080), ring(2081, 2088, 4)),
         ("deepseek-v2-lite decode, ring wrapped", 4, 1, 2088, 16, 16,
          (192, 128), True, None, rows(4, 1, 3087), ring(3088, 2088, 4)),
+        # mixtral-8x7b (32/8 heads of 128, window 4096): the full forward's
+        # and the loss's shape, where the window masks and the tiles wholly
+        # outside it are skipped; and decode at position 4100 on its
+        # 4096-slot ring, wrapped (the serve path's ring after step 20)
+        ("mixtral prefill, window 4096 over 8192", 1, 8192, 8192, 32, 8,
+         (128, 128), True, 4096, rows(1, 8192),
+         (rows(1, 8192), torch.ones(1, 8192, dtype=torch.bool,
+                                    device=dev))),
+        ("mixtral decode, window 4096, ring wrapped", 2, 1, 4096, 32, 8,
+         (128, 128), True, 4096, rows(2, 1, 4100), ring(4101, 4096, 2)),
     )
     worst = dict.fromkeys(FLASH + FLASH_MLA, 0.0)
     rep = {}
@@ -2740,28 +2823,83 @@ def teacher_forced_gap(torch, L, fa, serve, res, routes=None,
     return out
 
 
+def full_forward_gap(torch, L, res) -> dict:
+    """The greedy run `res` against the same model's full forward (no
+    cache) over the prompt and the tokens fed after it: the prefill's
+    logits and each decode step's against the full forward's at the same
+    positions, each row's max and mean |d| and argmax agreement."""
+    from repro_torch.models.model import Batch
+    model, params, prompt = res["model"], res["params"], res["prompt"]
+    b, s = prompt.shape
+    g = res["tokens"].shape[1] - 1
+    seq = torch.cat([prompt, res["tokens"][:, :g]], dim=1)
+    pos = torch.arange(s + g, dtype=torch.int32,
+                       device=seq.device)[None].expand(b, s + g)
+    t0 = time.perf_counter()
+    h, _, _ = model.backbone(params, model.embed_inputs(
+        params, Batch(seq, None)), pos)
+    full = model.hidden_to_logits(params, L.norm(
+        h[:, s - 1:], params["ln_f"], model.cfg.norm))
+    if seq.is_cuda:
+        torch.cuda.synchronize(seq.device)
+    seconds = time.perf_counter() - t0
+    steps = []
+    for i, a in enumerate(res["logits"]):
+        diff = (a - full[:, i]).abs()
+        steps.append({"step": i, "max_abs": float(diff.max()),
+                      "mean_abs": float(diff.mean()),
+                      "argmax_equal": int((a.argmax(-1) == full[:, i]
+                                           .argmax(-1)).sum())})
+    return {"max_abs": max(x["max_abs"] for x in steps),
+            "mean_abs": max(x["mean_abs"] for x in steps),
+            "argmax_agreement": sum(x["argmax_equal"] for x in steps)
+            / (b * len(steps)),
+            "full_forward_tokens": s + g, "full_forward_seconds": seconds,
+            "steps": steps}
+
+
+def cache_tensors(caches: dict):
+    """Every tensor of a model's caches (`Model.init_cache`)."""
+    for c in caches["prefix"] + caches["slots"]:
+        yield from (c.conv, c.ssm) if hasattr(c, "conv") else (c.k, c.v)
+
+
+def spec_config(spec: dict):
+    """The config a serve spec names: the registry's full or smoke config
+    of its arch, cut to `spec["layers"]` layers where given."""
+    import dataclasses
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_config if spec["config"] == "full" else get_smoke_config)(
+        spec["arch"])
+    if "layers" in spec:
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    return cfg
+
+
 def serve_phase(torch, kb, sj, fa, path: str, spec: dict,
                 tol: tuple) -> dict:
-    """Path `path`: the model of `spec` at full width through the serving
-    launcher, K8's launches counted and checked (one a layer per prefill
-    call and per decode step, K1-K7 none), then the teacher-forced check
-    against dense attention within `tol` (max |d|, mean |d|), and a
-    profile. For a MoE model the routing choices are recorded in both runs
-    and the share that differs is reported. Returns the path's launch
-    counts."""
-    from repro_torch.configs import get_config, get_smoke_config
+    """Path `path`: the model of `spec` at full width (its depth cut to
+    `spec["layers"]` where given) through the serving launcher
+    (`serve.serve_config`), K8's launches counted and checked (one an
+    attention layer per prefill call and per decode step, K1-K7 none),
+    then the check within `tol` (max |d|, mean |d|): against dense
+    attention, teacher-forced, for a model with attention; against the
+    full forward for one without (`full_forward_gap`). Then a profile.
+    For a MoE model the routing choices are recorded in both runs and the
+    share that differs is reported. Returns the path's launch counts."""
     from repro_torch.launch import serve
     from repro_torch.models import layers as L
     from repro_torch.models.model import Batch
     torch.cuda.empty_cache()
-    moe = (get_config if spec["config"] == "full" else get_smoke_config)(
-        spec["arch"]).moe is not None
+    cfg = spec_config(spec)
+    moe = cfg.moe is not None
     routes, restore = record_routes(L) if moe else (None, None)
     read = launch_window(kb, sj, fa)  # the path's counts start at 0 here
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
-        res = serve.serve(**spec, device="cuda")
+        res = serve.serve_config(cfg, spec["batch"], spec["prompt_len"],
+                                 spec["gen_tokens"], torch.device("cuda"))
     finally:
         if restore:
             restore()
@@ -2771,10 +2909,11 @@ def serve_phase(torch, kb, sj, fa, path: str, spec: dict,
 
     model, params, prompt = res["model"], res["params"], res["prompt"]
     b, s, g = spec["batch"], spec["prompt_len"], spec["gen_tokens"]
-    n_layers = res["cfg"].n_layers
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers)) \
+        if cfg.attn is not None else 0
     runs = len(res["passes"])
-    want = {"flash_prefill": n_layers * runs,
-            "flash_decode": n_layers * g * runs}
+    want = {"flash_prefill": n_attn * runs,
+            "flash_decode": n_attn * g * runs}
     for name, n in counts.items():
         check(n == want.get(name, 0),
               f"{path} launched {name} {n} times, expected "
@@ -2787,33 +2926,57 @@ def serve_phase(torch, kb, sj, fa, path: str, spec: dict,
         check(tuple(lg.shape) == (b, vocab)
               and bool(torch.isfinite(lg).all()), f"{path}: bad logits")
     t_pre, t_dec = res["prefill_seconds"], res["decode_seconds"]
+    n_params = cfg.param_count()
+    published = spec_config({k: v for k, v in spec.items()
+                             if k != "layers"}).n_layers
     emit({"phase": "serve", "path": path, "arch": spec["arch"],
-          "config": res["cfg"].name, "params": res["cfg"].param_count(),
-          "batch": b, "prompt_len": s, "gen_tokens": g, "cap": res["cap"],
-          "passes_seconds": res["passes"], "seconds": seconds,
-          "prefill_seconds": t_pre, "prefill_tok_s": b * s / t_pre,
+          "config": cfg.name, "layers": cfg.n_layers,
+          "published_layers": published, "params": n_params, "batch": b, "prompt_len": s, "gen_tokens": g,
+          "cap": res["cap"], "passes_seconds": res["passes"],
+          "seconds": seconds, "prefill_seconds": t_pre,
+          "prefill_tok_s": b * s / t_pre,
           "decode_ms_per_token": t_dec / g * 1e3,
           "decode_tok_s": b * g / t_dec, "peak_memory_bytes": peak,
+          "param_bytes": n_params * res["params"]["embed"].element_size(),
+          "cache_bytes": sum(t.numel() * t.element_size() for t in
+                             cache_tensors(model.init_cache(
+                                 b, res["cap"], "meta"))),
           "launches": counts, "launches_expected": want,
           "sample": res["tokens"][0, :12].tolist()})
 
-    # the check: the greedy tokens through dense attention; a MoE model's
-    # dense run takes the flash run's routing choices (a flipped choice is
-    # a discrete jump, not attention's rounding), after a run that routes
-    # on its own, reported only, for the share of choices that flip
-    if moe:
-        free = teacher_forced_gap(torch, L, fa, serve, res, routes)
-        free.pop("steps")
+    if n_attn == 0:
+        # no attention: the check is decode against the full forward
+        gap = full_forward_gap(torch, L, res)
         emit({"phase": "serve", "path": path,
-              "check": "teacher-forced vs auto, own routing (reported)",
-              **free})
-    gap = teacher_forced_gap(torch, L, fa, serve, res, routes, replay=moe)
-    emit({"phase": "serve", "path": path, "check": "teacher-forced vs auto",
-          "tol_max_abs": tol[0], "tol_mean_abs": tol[1], **gap})
+              "check": "decode vs full forward", "tol_max_abs": tol[0],
+              "tol_mean_abs": tol[1], **gap})
+        what = "decode vs full forward"
+    else:
+        # the check: the greedy tokens through dense attention; a MoE
+        # model's dense run takes the flash run's routing choices (a
+        # flipped choice is a discrete jump, not attention's rounding),
+        # after a run that routes on its own, reported only, for the share
+        # of choices that flip
+        if moe:
+            free = teacher_forced_gap(torch, L, fa, serve, res, routes)
+            free.pop("steps")
+            emit({"phase": "serve", "path": path,
+                  "check": "teacher-forced vs auto, own routing (reported)",
+                  **free})
+        gap = teacher_forced_gap(torch, L, fa, serve, res, routes,
+                                 replay=moe)
+        emit({"phase": "serve", "path": path,
+              "check": "teacher-forced vs auto", "tol_max_abs": tol[0],
+              "tol_mean_abs": tol[1], **gap})
+        what = "flash vs auto"
     for x in gap["steps"]:
         check(x["max_abs"] <= tol[0] and x["mean_abs"] <= tol[1],
-              f"{path} step {x['step']}: flash vs auto logits differ by "
+              f"{path} step {x['step']}: {what} logits differ by "
               f"{x['max_abs']} (mean {x['mean_abs']})")
+    # the peak since the serve call began, the checks' runs included
+    peak_all = torch.cuda.max_memory_allocated()
+    emit({"phase": "serve", "path": path, "peak_memory_bytes_with_check":
+          peak_all})
 
     # one prefill and one decode step under the profiler, uncounted
     cap = res["cap"]
@@ -2920,6 +3083,12 @@ def main() -> int:
     counts["serve-deepseek"] = serve_phase(
         torch, kb, sj, fa, "serve-deepseek", SERVE_MLA,
         (TF_MLA_MAX_ABS, TF_MLA_MEAN_ABS))
+    counts["serve-mixtral"] = serve_phase(
+        torch, kb, sj, fa, "serve-mixtral", SERVE_MIXTRAL,
+        (TF_SWA_MAX_ABS, TF_SWA_MEAN_ABS))
+    counts["serve-mamba2"] = serve_phase(
+        torch, kb, sj, fa, "serve-mamba2", SERVE_MAMBA,
+        (FULL_MAMBA_MAX_ABS, FULL_MAMBA_MEAN_ABS))
     counts["train"] = train_phase(torch, np, kb, sj, fa)
     counts["train-ft"] = train_ft_phase(torch, np, kb, sj, fa)
 

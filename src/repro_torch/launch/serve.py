@@ -11,7 +11,11 @@ it never runs on the CPU instead). Weights are random, drawn from a
 `torch.Generator` seeded 0 on the device; the prompt is random tokens
 from one seeded 1. The run is one warm-up pass, then one timed pass:
 prefill, then `--gen-tokens` greedy decode steps; it prints prefill
-tok/s and decode ms/token as `serve_lm.py` does.
+tok/s and decode ms/token as `serve_lm.py` does. The cache holds
+prompt + gen + 8 slots (a sliding-window layer's ring at most its
+window, a Mamba layer its fixed-size state: `Model.init_cache`).
+`serve_config` runs the same on a config the caller builds, such as a
+published one cut in depth.
 """
 from __future__ import annotations
 
@@ -78,17 +82,24 @@ def generate(model: Model, params, prompt: torch.Tensor, gen_tokens: int,
 
 def serve(arch: str, config: str, batch: int, prompt_len: int,
           gen_tokens: int, device: str) -> Dict[str, Any]:
-    """Build the model (random weights drawn on the device from seed 0,
-    a random prompt from seed 1), then two passes of `generate`: a
-    warm-up and the timed one; returns the timed pass's result with the
-    model, its parameters, the prompt, the cache size and both passes'
-    seconds."""
+    """`serve_config` of the registry's config of `arch`: its published
+    one (`config="full"`) or its reduced smoke config."""
     dev = resolve_device(device)
     if arch not in ARCHS:
         raise ValueError(f"--arch must be one of {ARCHS}")
     if config not in ("full", "smoke"):
         raise ValueError("--config must be 'full' or 'smoke'")
     cfg = get_config(arch) if config == "full" else get_smoke_config(arch)
+    return serve_config(cfg, batch, prompt_len, gen_tokens, dev)
+
+
+def serve_config(cfg, batch: int, prompt_len: int, gen_tokens: int,
+                 dev: torch.device) -> Dict[str, Any]:
+    """Build the model of `cfg` (random weights drawn on `dev` from seed
+    0, a random prompt from seed 1), then two passes of `generate`: a
+    warm-up and the timed one; returns the timed pass's result with the
+    model, its parameters, the prompt, the cache size and both passes'
+    seconds."""
     model = Model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),

@@ -10,10 +10,12 @@ leading `[n_reps]` axis.
 `param_shapes` walks every architecture's layout from its shapes alone,
 so `param_count` needs no initialisation. `init_params` draws from a
 `torch.Generator` at the reference's distributions for the layers the
-port runs: full attention (with QKV bias), MLA's latent attention, the
-swiglu, relu2 and gelu MLPs and the routed MoE (with shared experts and
-deepseek's leading dense layers as `prefix_layers`). Sliding-window
-attention, Mamba, the encoder and the stub frontends raise
+port runs: full and sliding-window attention (with QKV bias), MLA's
+latent attention, the Mamba-2 mixer, the swiglu, relu2 and gelu MLPs
+and the routed MoE (with shared experts and deepseek's leading dense
+layers as `prefix_layers`); a pattern slot's mixer follows
+`cfg.layer_kind`, so a hybrid stack (jamba's 1 attention : 7 Mamba)
+mixes them. The encoder and the stub frontends raise
 NotImplementedError (ROADMAP Queue 1 item 10c).
 """
 from __future__ import annotations
@@ -247,15 +249,10 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError unless every layer of `cfg` is one the
-    port runs: full attention (optionally with QKV bias) or MLA, then an
-    MLP or a routed MoE."""
+    port runs: attention (full or sliding-window, optionally with QKV
+    bias), MLA or a Mamba-2 mixer, then an MLP, a routed MoE or nothing
+    (`d_ff == 0`)."""
     what = []
-    if cfg.mamba is not None or "mamba" in cfg.block_pattern:
-        what.append("Mamba-2 layers")
-    if cfg.attn is None:
-        what.append("attention-free stacks")
-    elif cfg.attn.sliding_window:
-        what.append("sliding-window attention")
     if cfg.n_enc_layers:
         what.append("the encoder and cross-attention")
     if cfg.frontend is not None:
@@ -341,6 +338,26 @@ def init_moe_layer(gen, cfg: ModelConfig, lead=()) -> Dict[str, Any]:
     return p
 
 
+def init_mamba_layer(gen, cfg: ModelConfig, lead=()) -> Dict[str, Any]:
+    """The reference's `init_mamba_layer`: `in_proj` (emitting z, x, B,
+    C and dt) and `out_proj` as `_dense`, the depthwise conv's taps
+    N(0, 1) * 0.1 in the model dtype, `a_log` and `dt_bias` zeros and
+    `d_skip` ones in f32."""
+    mb, d, dt = cfg.mamba, cfg.d_model, cfg.dtype
+    d_inner = mb.expand * d
+    n_heads = d_inner // mb.head_dim
+    f32 = dict(dtype=torch.float32, device=gen.device)
+    return {"in_proj": _dense(gen, lead, d,
+                              2 * d_inner + 2 * mb.d_state + n_heads, dt),
+            "conv_w": _normal(gen, (*lead, mb.d_conv,
+                                    d_inner + 2 * mb.d_state), 0.1, dt),
+            "a_log": torch.zeros((*lead, n_heads), **f32),   # A = -exp(a_log)
+            "dt_bias": torch.zeros((*lead, n_heads), **f32),
+            "d_skip": torch.ones((*lead, n_heads), **f32),
+            "out_proj": _dense(gen, lead, d_inner, d, dt),
+            "ln": torch.ones((*lead, d), **f32)}
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     """Full parameter pytree on `gen.device`. Repeated layers are drawn
     stacked on a leading axis per pattern slot, as the reference's; the
@@ -359,7 +376,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     moe_idx = set(moe_layer_indices(cfg))
 
     def block(i: int, lead) -> Dict[str, Any]:
-        out = {"mixer": init_attn_layer(gen, cfg, lead)}
+        mixer = init_mamba_layer if cfg.layer_kind(i) == "mamba" \
+            else init_attn_layer
+        out = {"mixer": mixer(gen, cfg, lead)}
         if i in moe_idx:
             out["ffn"] = init_moe_layer(gen, cfg, lead)
         elif cfg.d_ff > 0:                # d_ff == 0: mixer-only block

@@ -1,20 +1,26 @@
 """Forward passes of the blocks the port runs: pre-norm residual
-attention (GQA, optionally biased QKV — qwen; RoPE; a static-capacity
-ring KV cache for serving), MLA's latent attention (deepseek-v2), the
-swiglu / relu2 / gelu MLPs and the top-k routed MoE with shared experts.
+attention (GQA, optionally biased QKV — qwen; sliding-window — mixtral;
+RoPE; a static-capacity ring KV cache for serving), MLA's latent
+attention (deepseek-v2), the Mamba-2 mixer (the chunked SSD for a whole
+sequence, the recurrent step for decode, a conv window and SSM state
+cache), the swiglu / relu2 / gelu MLPs and the top-k routed MoE with
+shared experts.
 
 Two execution modes, as the reference's:
-  * prefill: full-sequence forward, writing the KV cache if one is given;
+  * prefill: full-sequence forward, writing the cache if one is given;
   * decode: q_len == 1 step against the cache.
 
 Numerics: matmuls in the param dtype (bf16), softmax/logits in fp32,
 norms in fp32 (their weights are f32), RoPE tables in f32 cast to the
-activations' dtype before the rotation.
+activations' dtype before the rotation. Mamba-2's conv runs in the
+model dtype, its SSD and SSM state in f32 (the output cast back), its
+dt as softplus(dt_raw in f32 + dt_bias).
 
 Differences from the reference, on purpose:
-  * the cache is updated in place (the reference copies it functionally:
-    at qwen1.5-4b's full width a copy is 3.42 GB per decode step), and
-    its cursor is a host int, so no step syncs the device to read it;
+  * the caches are updated in place (the reference copies them
+    functionally: at qwen1.5-4b's full width a copy is 3.42 GB per
+    decode step), and a KV cursor is a host int, so no step syncs the
+    device to read it;
   * the attention backend defaults to "flash", the hand-written kernel
     (K8): the reference defaults to "auto" only because Pallas runs in
     interpret mode off a TPU (ROADMAP Queue 3);
@@ -25,11 +31,13 @@ Differences from the reference, on purpose:
     the experts' outputs back per token, where the reference multiplies
     by one-hot [T, E, C] dispatch and combine tensors: the same sums
     without the products by zero (at deepseek-v2-lite's prefill each
-    such tensor has 503 M entries).
+    such tensor has 503 M entries);
+  * the SSD's three- and four-operand einsums run as pairs of products
+    (the same f32 sums, in another order).
 The reference's sharding hints (`parallel/hints.py`) are identities
 without a mesh and are left out (they return with the distributed
 runtime); so is its MoE's token grouping, one group without a mesh.
-Cross-attention and Mamba-2 raise NotImplementedError.
+Cross-attention raises NotImplementedError.
 
 Training differentiates these functions with torch's autograd. K8 has
 no backward (nor has the reference's Pallas kernel), so the training
@@ -50,7 +58,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flashattn import flash_attention
 from repro_torch.kernels.flashattn.ref import masked_logits, sdpa_ref
-from repro_torch.models.common import TODO, AttnConfig, ModelConfig, MoEConfig
+from repro_torch.models.common import (
+    TODO, AttnConfig, MambaConfig, ModelConfig, MoEConfig,
+)
 
 # --------------------------------------------------------------------------
 # norms & basics
@@ -437,5 +447,134 @@ def moe_aux_loss(p, x, cfg: ModelConfig, norm_kind: str = "rmsnorm"):
     return m.num_experts * torch.sum(frac_tokens * frac_probs)
 
 
-def mamba2(p, x, mb, cache=None, norm_kind: str = "rmsnorm"):
-    raise NotImplementedError(f"Mamba-2 layers {TODO}")
+# --------------------------------------------------------------------------
+# Mamba-2 (SSD)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class MambaCache:
+    """A Mamba-2 layer's decode state, written in place: the last
+    d_conv - 1 inputs of the causal conv (the xBC stream, before the
+    conv, in the model dtype) and the SSM state (f32)."""
+    conv: torch.Tensor       # [B, d_conv-1, d_inner + 2N] ([n_reps, ...])
+    ssm: torch.Tensor        # [B, H, P, N]
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x [..., T] -> [..., T, T]; out[i,j] = sum_{l=j+1..i} x[l] (tril),
+    -inf above the diagonal."""
+    t = x.shape[-1]
+    xe = x[..., :, None].expand(*x.shape, t)
+    m1 = torch.ones((t, t), dtype=torch.bool, device=x.device).tril(-1)
+    s = torch.cumsum(torch.where(m1, xe, 0.0), dim=-2)
+    m2 = torch.ones((t, t), dtype=torch.bool, device=x.device).tril(0)
+    return torch.where(m2, s, -math.inf)
+
+
+def _ssd_chunked(xh, dt, a_log, B, C, chunk: int):
+    """SSD block-decomposition scan (Mamba-2 §6, ngroups=1), in f32.
+
+    xh [b,s,h,p], dt [b,s,h] (post-softplus, f32), a_log [h], B/C [b,s,n]
+    with s a multiple of `chunk`. Returns y [b,s,h,p] in xh's dtype and
+    the final state [b,h,p,n] (f32). The reference's three- and
+    four-operand einsums run as pairs of products."""
+    b, s, hh, pp = xh.shape
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    c = s // chunk
+    A = -torch.exp(a_log.float())                            # [h]
+    dA = dt * A[None, None, :]                               # [b,s,h]
+    xd = xh * dt[..., None].to(xh.dtype)                     # dt-weighted x
+
+    def r(t):
+        return t.reshape(b, c, chunk, *t.shape[2:])
+    Xc, Ac, Bc, Cc = r(xd).float(), r(dA), r(B).float(), r(C).float()
+    Ac = Ac.movedim(-1, 1)                                   # [b,h,c,l]
+    A_cum = torch.cumsum(Ac, dim=-1)
+
+    L = torch.exp(_segsum(Ac))                               # [b,h,c,l,l]
+    CB = torch.einsum("bcln,bcsn->bcls", Cc, Bc)
+    Y_diag = torch.einsum("bhcls,bcshp->bclhp", L * CB[:, None], Xc)
+
+    decay_states = torch.exp(A_cum[..., -1:] - A_cum)        # [b,h,c,l]
+    states = torch.einsum("bcln,bclhp->bchpn", Bc,
+                          Xc * decay_states.permute(0, 2, 3, 1)[..., None])
+
+    states = torch.cat([torch.zeros_like(states[:, :1]), states], dim=1)
+    pad_cum = F.pad(A_cum[..., -1], (1, 0))                  # [b,h,c+1]
+    decay_chunk = torch.exp(_segsum(pad_cum))                # [b,h,c+1,c+1]
+    new_states = torch.einsum("bhzc,bchpn->bzhpn", decay_chunk, states)
+    states, final = new_states[:, :-1], new_states[:, -1]
+
+    state_decay = torch.exp(A_cum)                           # [b,h,c,l]
+    Y_off = torch.einsum("bcln,bchpn->bclhp", Cc, states) \
+        * state_decay.permute(0, 2, 3, 1)[..., None]
+    y = (Y_diag + Y_off).reshape(b, s, hh, pp)
+    return y.to(xh.dtype), final
+
+
+def mamba2(p, x: torch.Tensor, mb: MambaConfig,
+           cache: Optional[MambaCache] = None, norm_kind: str = "rmsnorm"
+           ) -> Tuple[torch.Tensor, Optional[MambaCache]]:
+    """Mamba-2 mixer block (pre-norm residual). With no cache, or s > 1,
+    the full-sequence path (train, whole-prompt prefill): the causal
+    depthwise conv as d_conv shifted multiply-adds in the model dtype,
+    SSD in f32 over the sequence zero-padded to a multiple of `chunk`,
+    starting from the zero state whatever the cache holds; a given cache
+    takes the conv window and the final state. s == 1 with a cache is
+    the recurrent decode step. The cache is written in place."""
+    b, s, d = x.shape
+    d_inner = mb.expand * d
+    nheads = d_inner // mb.head_dim
+    n = mb.d_state
+    h = norm(x, p["ln"], norm_kind)
+    zxbcdt = h @ p["in_proj"]
+    z = zxbcdt[..., :d_inner]
+    xbc = zxbcdt[..., d_inner:d_inner + d_inner + 2 * n]
+    dt_raw = zxbcdt[..., -nheads:]
+
+    if cache is None or s > 1:
+        xbc_pad = F.pad(xbc, (0, 0, mb.d_conv - 1, 0))
+        w = p["conv_w"].to(xbc.dtype)
+        acc = torch.zeros_like(xbc)
+        for kk in range(mb.d_conv):
+            acc = acc + xbc_pad[:, kk:kk + s] * w[kk]
+        xbc = silu(acc)
+        xh = xbc[..., :d_inner].reshape(b, s, nheads, mb.head_dim)
+        B = xbc[..., d_inner:d_inner + n]
+        C = xbc[..., d_inner + n:]
+        dt = F.softplus(dt_raw.float() + p["dt_bias"])
+        pad_len = (-s) % mb.chunk
+
+        def zpad(t):
+            return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad_len))
+        y, final = _ssd_chunked(zpad(xh), zpad(dt), p["a_log"], zpad(B),
+                                zpad(C), mb.chunk)
+        y = y[:, :s]
+        if cache is not None:           # prefill -> decode handoff
+            cache.conv.copy_(xbc_pad[:, s:])      # the last d_conv - 1
+            cache.ssm.copy_(final)
+    else:
+        # single-token recurrent step
+        xbc_win = torch.cat([cache.conv, xbc], dim=1)        # [b,k,ch]
+        xbc1 = silu(torch.einsum("bkc,kc->bc", xbc_win,
+                                 p["conv_w"].to(xbc.dtype)))
+        xh = xbc1[:, :d_inner].reshape(b, nheads, mb.head_dim)
+        B = xbc1[:, d_inner:d_inner + n]
+        C = xbc1[:, d_inner + n:]
+        dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])   # [b,h]
+        dA = torch.exp(dt * -torch.exp(p["a_log"].float()))
+        hstate = cache.ssm * dA[..., None, None] \
+            + (dt[..., None, None] * xh.float()[..., None]
+               * B.float()[:, None, None, :])
+        y = torch.einsum("bhpn,bn->bhp", hstate, C.float())
+        y = y.to(x.dtype).reshape(b, 1, nheads, mb.head_dim)
+        cache.conv.copy_(xbc_win[:, 1:])
+        cache.ssm.copy_(hstate)
+
+    y = y.reshape(b, s, d_inner) + (
+        p["d_skip"].to(x.dtype)[None, None, :, None]
+        * xh.reshape(b, s, nheads, mb.head_dim)).reshape(b, s, d_inner)
+    y = y * silu(z)
+    return x + y @ p["out_proj"], cache

@@ -4,18 +4,22 @@ The leading layers that do not repeat (deepseek's first dense layer)
 run first, one by one; then depth runs as a Python loop over repetitions
 of the config's block pattern (the reference's `lax.scan`): repetition r
 of pattern slot s takes the views `[r]` of that slot's stacked
-parameters and cache. Every ported layer is attention (or MLA), so a
-layer's descriptor is whether its FFN is the MoE (the reference's slot
-descriptors also name the mixer kind, for Mamba).
+parameters and cache. A layer's descriptor is the reference's
+`(kind, is_moe)`: its mixer ("attn": attention, sliding-window or MLA;
+"mamba": the Mamba-2 mixer) and whether its FFN is the MoE, so one stack
+may mix the kinds (jamba's 1 attention : 7 Mamba).
 
 Caches: each attention layer writes a static-capacity ring `KVCache` in
 place (`layers._cache_update`): K and V, or under MLA the latent c_kv
-and the rotated k_rope. A slot's cache tensors are stacked on the same
-leading `[n_reps]` axis as its parameters, a prefix layer's are not;
-every cursor is a host int. The port runs the full-attention
-architectures, MLA and MoE ones included (qwen1.5-4b, minitron-4b,
-starcoder2-7b, command-r-35b, deepseek-v2-lite-16b): any other raises
-NotImplementedError from `Model.__init__`.
+and the rotated k_rope; a sliding-window layer's ring holds at most the
+window. Each Mamba layer writes its `MambaCache` (conv window and SSM
+state) in place. A slot's cache tensors are stacked on the same leading
+`[n_reps]` axis as its parameters, a prefix layer's are not; every
+cursor is a host int. The port runs every decoder-only architecture of
+the zoo (qwen1.5-4b, minitron-4b, starcoder2-7b, command-r-35b,
+deepseek-v2-lite-16b, mixtral-8x7b, mamba2-370m, jamba-1.5-large-398b);
+the encoder-decoder and stub-frontend ones (whisper-base,
+llava-next-mistral-7b) raise NotImplementedError from `Model.__init__`.
 
 `loss` is training's objective, the reference's token-mean cross
 entropy over sequence chunks plus 0.01 times the MoE load-balancing
@@ -25,6 +29,7 @@ one chunk at a time, as the reference's chunked scan bounds them.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
@@ -49,6 +54,15 @@ def _at(tree, r: int):
     return tree[r]
 
 
+def _slot_view(sc, r: int):
+    """Repetition r's cache of a stacked slot cache: views `[r]` of its
+    tensors, written in place by the layer; a `KVCache` keeps the slot's
+    cursor."""
+    if isinstance(sc, L.MambaCache):
+        return L.MambaCache(sc.conv[r], sc.ssm[r])
+    return L.KVCache(sc.k[r], sc.v[r], sc.index)
+
+
 def _chunk_nll(xc, w, tc):
     """Summed NLL of one chunk: f32 logits, logsumexp minus the gold
     logit where the target is >= 0."""
@@ -64,9 +78,10 @@ class Model:
         self.cfg = cfg
         self.prefix_n, self.full_period, self.n_reps = layer_layout(cfg)
         moe_idx = set(moe_layer_indices(cfg))
-        # static layer descriptors: whether the layer's FFN is the MoE
-        self.prefix_moe = [i in moe_idx for i in range(self.prefix_n)]
-        self.slot_moe = [i in moe_idx for i in range(
+        # static layer descriptors: (mixer kind, whether the FFN is the MoE)
+        self.prefix_slots = [(cfg.layer_kind(i), i in moe_idx)
+                             for i in range(self.prefix_n)]
+        self.slots = [(cfg.layer_kind(i), i in moe_idx) for i in range(
             self.prefix_n, self.prefix_n + self.full_period)]
 
     # ------------------------------------------------------------------
@@ -75,14 +90,18 @@ class Model:
         return init_params(gen, self.cfg)
 
     # ------------------------------------------------------------------
-    def _apply_block(self, is_moe: bool, p, x, positions, cache, ring,
-                     collect_aux: bool = False):
+    def _apply_block(self, kind: str, is_moe: bool, p, x, positions, cache,
+                     ring, collect_aux: bool = False):
         """One layer: (x, new cache, f32 MoE aux loss — the Python 0.0
         unless `collect_aux` on a MoE layer, so serving adds no work)."""
         cfg = self.cfg
         aux = 0.0
-        x, new_cache = L.attention(p["mixer"], x, cfg.attn, positions,
-                                   cache, norm_kind=cfg.norm, ring=ring)
+        if kind == "mamba":
+            x, new_cache = L.mamba2(p["mixer"], x, cfg.mamba, cache,
+                                    norm_kind=cfg.norm)
+        else:
+            x, new_cache = L.attention(p["mixer"], x, cfg.attn, positions,
+                                       cache, norm_kind=cfg.norm, ring=ring)
         if is_moe:
             if collect_aux:
                 aux = L.moe_aux_loss(p["ffn"], x, cfg, norm_kind=cfg.norm)
@@ -92,9 +111,20 @@ class Model:
         return x, new_cache, aux
 
     # ------------------------------------------------------------------
-    def _empty_cache_slot(self, batch: int, cap: int, device,
-                          lead=()) -> L.KVCache:
-        cfg, a = self.cfg, self.cfg.attn
+    def _empty_cache_slot(self, kind: str, batch: int, cap: int, device,
+                          lead=()):
+        cfg = self.cfg
+        if kind == "mamba":
+            mb = cfg.mamba
+            d_inner = mb.expand * cfg.d_model
+            return L.MambaCache(
+                conv=torch.zeros((*lead, batch, mb.d_conv - 1,
+                                  d_inner + 2 * mb.d_state),
+                                 dtype=cfg.dtype, device=device),
+                ssm=torch.zeros((*lead, batch, d_inner // mb.head_dim,
+                                 mb.head_dim, mb.d_state),
+                                dtype=torch.float32, device=device))
+        a = cfg.attn
         if a.kv_lora_rank:              # MLA: c_kv and k_rope
             k_shape = (*lead, batch, cap, a.kv_lora_rank)
             v_shape = (*lead, batch, cap, a.rope_head_dim)
@@ -107,58 +137,66 @@ class Model:
 
     def init_cache(self, batch: int, cap: int, device) -> Dict[str, Any]:
         """Empty caches: one per prefix layer, and one per pattern slot
-        stacked on `[n_reps]`."""
-        return {"prefix": [self._empty_cache_slot(batch, cap, device)
-                           for _ in self.prefix_moe],
-                "slots": [self._empty_cache_slot(batch, cap, device,
-                                                 (self.n_reps,))
-                          for _ in self.slot_moe]}
+        stacked on `[n_reps]`. A sliding-window layer's ring holds
+        min(cap, window) slots (context_class "window"); a Mamba layer's
+        state does not grow with `cap`."""
+        window = self.cfg.attn and self.cfg.attn.sliding_window
+
+        def cap_for(kind):
+            return min(cap, window) if kind == "attn" and window else cap
+        return {"prefix": [self._empty_cache_slot(k, batch, cap_for(k),
+                                                  device)
+                           for k, _ in self.prefix_slots],
+                "slots": [self._empty_cache_slot(k, batch, cap_for(k),
+                                                 device, (self.n_reps,))
+                          for k, _ in self.slots]}
 
     # ------------------------------------------------------------------
     def backbone(self, params, x, positions, caches=None,
                  collect_aux: bool = False):
         """Embedded input -> final hidden. Returns (x, caches, aux), the
-        caches written in place with their cursors moved on, aux the sum
-        of the MoE layers' load-balancing losses (the Python 0.0 unless
-        `collect_aux`: no device work on the serving path). A cache's
-        positions after this write are computed once per call (one for
-        the prefix layers, one per slot) and shared by its layers."""
+        caches written in place with the attention cursors moved on, aux
+        the sum of the MoE layers' load-balancing losses (the Python 0.0
+        unless `collect_aux`: no device work on the serving path). An
+        attention cache's positions after this write are computed once
+        per call (one for each prefix layer, one per slot) and shared by
+        its layers; a Mamba cache has neither positions nor cursor."""
         b, s = x.shape[:2]
         aux = 0.0
 
-        def ring(sc, cap_dim):
+        def ring(kind, sc, cap_dim):
+            if kind != "attn":
+                return None
             return L._ring_positions(sc.index + s, sc.k.shape[cap_dim], b,
                                      x.device)
         prefix = []
-        for i, is_moe in enumerate(self.prefix_moe):
+        for i, (kind, is_moe) in enumerate(self.prefix_slots):
             c = caches["prefix"][i] if caches else None
-            x, nc, a = self._apply_block(is_moe, params["prefix_layers"][i],
-                                         x, positions, c,
-                                         ring(c, 1) if caches else None,
+            x, nc, a = self._apply_block(kind, is_moe,
+                                         params["prefix_layers"][i], x,
+                                         positions, c,
+                                         ring(kind, c, 1) if caches else None,
                                          collect_aux)
             prefix.append(nc)
             if collect_aux:
                 aux = aux + a
-        index = [None] * self.full_period
-        rings = [ring(sc, 2) for sc in caches["slots"]] if caches else None
+        rings = [ring(kind, sc, 2) for (kind, _), sc in
+                 zip(self.slots, caches["slots"])] if caches else None
         for r in range(self.n_reps):
-            for si, is_moe in enumerate(self.slot_moe):
+            for si, (kind, is_moe) in enumerate(self.slots):
                 c = rg = None
                 if caches:
-                    sc = caches["slots"][si]
-                    c = L.KVCache(sc.k[r], sc.v[r], sc.index)
-                    rg = rings[si]
-                x, nc, a = self._apply_block(
-                    is_moe, _at(params["layers"][si], r), x, positions, c,
-                    rg, collect_aux)
+                    c, rg = _slot_view(caches["slots"][si], r), rings[si]
+                x, _, a = self._apply_block(
+                    kind, is_moe, _at(params["layers"][si], r), x,
+                    positions, c, rg, collect_aux)
                 if collect_aux:
                     aux = aux + a
-                if nc is not None:
-                    index[si] = nc.index
         if not caches:
             return x, None, aux
-        slots = [L.KVCache(sc.k, sc.v, index[si])
-                 for si, sc in enumerate(caches["slots"])]
+        slots = [dataclasses.replace(sc, index=sc.index + s)
+                 if isinstance(sc, L.KVCache) else sc
+                 for sc in caches["slots"]]
         return x, {"prefix": prefix, "slots": slots}, aux
 
     # ------------------------------------------------------------------

@@ -51,17 +51,21 @@ def _remat_model(model: Model, enabled: bool) -> Model:
     model = copy.copy(model)
     orig = model._apply_block
 
-    def run(is_moe, collect_aux, p, x, positions):
+    def run(kind, is_moe, collect_aux, p, x, positions):
         # the recomputation may run in autograd's own thread: set the
         # attention backend there too
         with L.attention_backend("auto"):
-            return orig(is_moe, p, x, positions, None, None, collect_aux)
+            return orig(kind, is_moe, p, x, positions, None, None,
+                        collect_aux)
 
-    def ckpt_block(is_moe, p, x, positions, cache, ring, collect_aux=False):
+    def ckpt_block(kind, is_moe, p, x, positions, cache, ring,
+                   collect_aux=False):
         if cache is not None or not torch.is_grad_enabled():
-            return orig(is_moe, p, x, positions, cache, ring, collect_aux)
+            return orig(kind, is_moe, p, x, positions, cache, ring,
+                        collect_aux)
         return torch.utils.checkpoint.checkpoint(
-            run, is_moe, collect_aux, p, x, positions, use_reentrant=False)
+            run, kind, is_moe, collect_aux, p, x, positions,
+            use_reentrant=False)
 
     model._apply_block = ckpt_block
     return model

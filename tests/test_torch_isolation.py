@@ -271,6 +271,31 @@ def test_port_serves_mla_moe_without_jax_or_reference_in_process():
     assert "generated shape (2, 4)" in out.stdout
 
 
+def test_port_serves_swa_and_ssm_without_jax_or_reference_in_process():
+    """A fresh interpreter serves the sliding-window (mixtral), Mamba-2
+    (mamba2-370m) and hybrid (jamba) smoke configs through the launcher
+    on the CPU and ends with neither `jax` nor `repro` loaded."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import serve\n"
+        "for arch in ('mixtral-8x7b', 'mamba2-370m', "
+        "'jamba-1.5-large-398b'):\n"
+        "    assert serve.main(['--arch', arch, '--config', 'smoke', "
+        "'--device', 'cpu', '--batch', '2', '--prompt-len', '40', "
+        "'--gen-tokens', '3']) == 0\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
+        "or m.startswith(('jax.', 'repro.'))]\n"
+        "print('LOADED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+    for name in ("mixtral-8x7b-smoke", "mamba2-370m-smoke", "jamba-smoke"):
+        assert name in out.stdout
+    assert out.stdout.count("generated shape (2, 4)") == 3
+
+
 def test_port_trains_without_jax_or_reference_in_process(tmp_path):
     """A fresh interpreter runs the training launcher on the CPU (smoke
     config, checkpoints under a temp directory), resumes from its
@@ -302,11 +327,11 @@ def test_train_on_cuda_without_cuda_raises(no_cuda):
         train.main(["--arch", "qwen1.5-4b", "--steps", "1"])
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["whisper-base", "llava-next-mistral-7b"])
 def test_unported_archs_raise_not_implemented(arch):
-    """Sliding-window attention (mixtral) and Mamba-2 models are not
-    ported yet: building one, or serving one, raises NotImplementedError
-    naming its ROADMAP item."""
+    """The encoder-decoder (whisper: the encoder and cross-attention) and
+    the stub-frontend (llava) models are not ported yet: building one, or
+    serving one, raises NotImplementedError naming its ROADMAP item."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch import serve
     from repro_torch.models.model import Model

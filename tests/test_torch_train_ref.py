@@ -3,10 +3,12 @@ smoke configs (bf16 rounds at other places in the two frameworks, so the
 algorithm is compared in f32, as tests/test_torch_models.py does):
 
 * `Model.loss` and its gradient for every parameter against
-  `jax.value_and_grad` of the reference's `Model.loss`, for qwen1.5-4b
-  and deepseek-v2-lite-16b (MLA, the routed MoE and its auxiliary loss,
-  a leading dense layer): loss within rel 1e-5, each gradient within
-  1e-4 of its largest entry;
+  `jax.value_and_grad` of the reference's `Model.loss`, for qwen1.5-4b,
+  deepseek-v2-lite-16b (MLA, the routed MoE and its auxiliary loss, a
+  leading dense layer), mixtral-8x7b (sliding-window attention, the
+  MoE), mamba2-370m (Mamba-2's chunked SSD, tied embeddings) and
+  jamba-1.5-large-398b (attention and Mamba in one stack): loss within
+  rel 1e-5, each gradient within 1e-4 of its largest entry;
 * three steps of `build_train_step` (2 microbatches, remat) with AdamW
   and with Adafactor against the reference's jit'd step: losses within
   rel 1e-5; parameters within 1e-5 (the learning rate is 1e-3, so that
@@ -41,7 +43,8 @@ from repro_torch.train import optim as O
 from repro_torch.train.step import TrainConfig, build_train_step
 from repro_torch.train.tree import leaves, unflatten
 
-ARCHS = ["qwen1.5-4b", "deepseek-v2-lite-16b"]
+ARCHS = ["qwen1.5-4b", "deepseek-v2-lite-16b", "mixtral-8x7b", "mamba2-370m",
+         "jamba-1.5-large-398b"]
 
 
 @pytest.fixture(autouse=True, scope="module")

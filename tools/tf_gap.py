@@ -3,7 +3,9 @@
 depth, on any device: how far the flash backend's logits (K8, or its
 plain version `flash_plain` on the CPU) lie from dense attention's
 ("auto") when both are fed the same tokens, and, for a MoE model, the
-share of (token, layer) routing choices that differ.
+share of (token, layer) routing choices that differ. For a model with no
+attention (mamba2-370m) the gap is instead the one between its decode
+and its full forward over the same tokens (`chip_smoke.full_forward_gap`).
 
     PYTHONPATH=src python3 tools/tf_gap.py --arch deepseek-v2-lite-16b \\
         --layers 3 6 --batch 2 --prompt-len 256 --gen-tokens 6 --device cpu
@@ -67,15 +69,19 @@ def main() -> int:
             if restore:
                 restore()
         res.update(model=model, params=params, prompt=prompt, cap=cap)
-        for replay in (False, True) if cfg.moe else (False,):
-            gap = chip_smoke.teacher_forced_gap(torch, L, fa, serve, res,
-                                                routes, replay=replay)
+        head = {"arch": args.arch, "layers": n, "device": str(dev),
+                "batch": args.batch, "prompt_len": args.prompt_len,
+                "gen_tokens": args.gen_tokens}
+        if cfg.attn is None:
+            gaps = [{"check": "decode vs full forward",
+                     **chip_smoke.full_forward_gap(torch, L, res)}]
+        else:
+            gaps = [chip_smoke.teacher_forced_gap(torch, L, fa, serve, res,
+                                                  routes, replay=replay)
+                    for replay in ((False, True) if cfg.moe else (False,))]
+        for gap in gaps:
             gap.pop("steps")
-            print(json.dumps({"arch": args.arch, "layers": n,
-                              "device": str(dev), "batch": args.batch,
-                              "prompt_len": args.prompt_len,
-                              "gen_tokens": args.gen_tokens, **gap}),
-                  flush=True)
+            print(json.dumps({**head, **gap}), flush=True)
         del model, params, res
     return 0
 
