@@ -210,7 +210,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              positions with no cache (the full forward's and the loss's
              shape, where the window masks and tiles wholly outside it
              are skipped) and decode at position 4100 on a wrapped
-             4096-slot ring. A decode line must
+             4096-slot ring, and whisper-base's heads (8/8, d 64) at
+             serve-whisper's shapes: the encoder's non-causal
+             self-attention (B 16, 1500 x 1500 frames, its last key tile
+             ragged), cross-attention at the prefill's 32 queries and at
+             a decode step over the 1500 frames, every position 0. A
+             decode line must
              also lie within two bf16 ulps
              of the largest output of each reference (`decode_limit`).
              Each line's bound is the larger of 2*(D + Dv) flops per
@@ -278,6 +283,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              `FULL_MAMBA_MAX_ABS` and `FULL_MAMBA_MEAN_ABS`. jamba-1.5-
              large-398b does not run here: one period of its pattern (8
              layers) is 45.1 B parameters, 90.3 GB of bf16;
+11a. serve-whisper — path `serve-whisper`: whisper-base uncut (6
+             encoder and 6 decoder layers, d_model 512, 8 heads of 64,
+             0.097 B parameters) at batch 16, 1500 stub frames a clip
+             (f32 N(0, 1), seed 2), a 32-token prompt and 96 tokens: the
+             prefill encodes the frames and runs the decoder with its
+             cross-attention, `generate` encodes once more for the decode
+             steps. K8 launches 24 times per prefill call (6 encoder, 6
+             self-attention, 6 cross-attention, 6 from `generate`'s
+             encode) and 12 times per decode step (6 self, 6 cross);
+             K1-K7 never. The teacher-forced check against "auto" (the
+             same frames) within `TF_ENCDEC_MAX_ABS` and
+             `TF_ENCDEC_MEAN_ABS`;
+11b. serve-llava — path `serve-llava`: llava-next-mistral-7b uncut (32
+             layers, d_model 4096, 32/8 heads of 128; 7.26 B parameters,
+             14.52 GB of bf16) at batch 4, 576 stub patch positions
+             before a 1472-token prompt and 32 tokens: the cache holds
+             all 2048 prefill positions (cap 2088) and decode positions
+             start at 2048. K8 launches 32 times per prefill call and per
+             decode step, K1-K7 never; the teacher-forced check against
+             "auto" (the same patches) within `TF_VLM_MAX_ABS` and
+             `TF_VLM_MEAN_ABS`;
 12. train  — path `train`: qwen1.5-4b at its full config (3.95 B
              parameters, bf16, random weights from seed 0) through
              `train.step.build_train_step` with AdamW (cosine schedule,
@@ -314,14 +340,17 @@ False`) throughout, so the plain versions and oracles sum in f32.
 
 The line before the last is the kernel table (K8's MLA shapes in rows
 of their own, `flash_prefill_mla` and `flash_decode_mla`, whose
-launches are path `serve-deepseek`'s)
+launches are path `serve-deepseek`'s, and its (64, 64) shapes in
+`flash_prefill_d64` and `flash_decode_d64`, at whisper's encoder and
+cross decode shapes, whose launches are path `serve-whisper`'s)
 `{"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "plain_device", "bound_ms", "bound_by",
 "library_ms", "launches_by_path"}]}` (`launches_by_path` has every
 path's count, the `dist-*`, `torch-tpch`, `serve-mixtral`,
-`serve-mamba2`, `train` and `train-ft` paths' included (K8's two
-non-MLA rows count `serve-mixtral`'s launches there; every kernel 0 on
-`torch-tpch`, `serve-mamba2`, `train` and `train-ft`); `plain_device` says where
+`serve-mamba2`, `serve-whisper`, `serve-llava`, `train` and
+`train-ft` paths' included (K8's (128, 128) rows count
+`serve-mixtral`'s and `serve-llava`'s launches there; every kernel 0
+on `torch-tpch`, `serve-mamba2`, `train` and `train-ft`); `plain_device` says where
 `plain_ms` was taken: "cuda" for CUDA-event times on the card, "cpu" for
 the sequential K4 and K6a builds timed on the host; K6's and K8's rows
 add `library_call`, what `library_ms` timed; K8's rows add `device_ms`
@@ -429,6 +458,57 @@ SERVE_MAMBA = {"arch": "mamba2-370m", "config": "full", "batch": 4,
 #: moves them by about that, far above the bounds.
 FULL_MAMBA_MAX_ABS = 0.35
 FULL_MAMBA_MEAN_ABS = 0.06
+#: serve-whisper: whisper-base uncut (6 encoder and 6 decoder layers,
+#: d_model 512, 8 heads of 64; 0.097 B parameters, 0.195 GB of bf16) at
+#: batch 16, 1500 stub frames a clip, a 32-token prompt and 96 greedy
+#: tokens: cap 32 + 96 + 8 = 136, inside its 448-token decoder context.
+#: K8 at (64, 64): the encoder's non-causal 1500 x 1500 calls, the
+#: decoder's causal ones on the ring, cross-attention over the 1500
+#: frames (Sq 32 at prefill, 1 a step, every position 0)
+SERVE_WHISPER = {"arch": "whisper-base", "config": "full", "batch": 16,
+                 "prompt_len": 32, "gen_tokens": 96}
+#: Its teacher-forced check against "auto", fed the same frames and tokens.
+#: On the CPU (`tools/tf_gap.py --arch whisper-base`, flash_plain, full
+#: width) the flash run lies max |d| 0.0195 / 0.0166 / 0.0195 and mean
+#: 0.0025 / 0.0027 / 0.0028 from the dense run at 2 / 4 / 6 decoder layers
+#: (batch 2, prompt 32, 16 tokens), and 0.0234 / 0.0028 uncut at this
+#: path's batch 16, prompt 32 and 96 tokens: the gap hardly grows with
+#: depth. The bounds leave about 2.5 times that. The logits have std
+#: ~0.45 at init (unembed scale 0.02 * sqrt(512)): a wrong mask, position
+#: or encoder output moves them by about that
+TF_ENCDEC_MAX_ABS = 0.06
+TF_ENCDEC_MEAN_ABS = 0.008
+#: serve-llava: llava-next-mistral-7b uncut (32 layers, d_model 4096,
+#: 32/8 heads of 128, no window; 7.26 B parameters, 14.52 GB of bf16) at
+#: batch 4, 576 stub patch positions before a 1472-token prompt (2048
+#: positions) and 32 greedy tokens: cap 576 + 1472 + 32 + 8 = 2088, the
+#: Skv of qwen1.5-4b's serve path; decode positions start at 2048
+SERVE_LLAVA = {"arch": "llava-next-mistral-7b", "config": "full",
+               "batch": 4, "prompt_len": 1472, "gen_tokens": 32}
+#: Its teacher-forced check against "auto", fed the same patches and
+#: tokens. On the CPU (`tools/tf_gap.py --arch llava-next-mistral-7b`,
+#: flash_plain, full width, batch 2, the 576 patches and a 256-token
+#: prompt, 6 tokens) the flash run lies max |d| 0.047 / 0.064 / 0.098 /
+#: 0.154 / 0.172 and mean 0.0082 / 0.0119 / 0.0170 / 0.0231 / 0.0307 from
+#: the dense run at 1 / 2 / 4 / 8 / 16 layers: it grows faster than
+#: qwen1.5-4b's (likely as the patch rows' residual stream is O(1), the
+#: tokens' O(0.02), so attention's output weighs more), x1.12 (max) and x1.33
+#: (mean) from 8 to 16, so about 0.23 / 0.041 at 32. The bounds leave
+#: about twice that. The logits have std ~1.3 at init (unembed scale
+#: 0.02 * sqrt(4096)): patches dropped from the cache, a wrong position
+#: or mask move the mean |d| by a share of that, well above 0.08
+TF_VLM_MAX_ABS = 0.5
+TF_VLM_MEAN_ABS = 0.08
+#: phases 8-11b in order: path -> (spec, its check's (max, mean) bounds)
+SERVE_PATHS = {
+    "serve": (SERVE, (TF_MAX_ABS, TF_MEAN_ABS)),
+    "serve-deepseek": (SERVE_MLA, (TF_MLA_MAX_ABS, TF_MLA_MEAN_ABS)),
+    "serve-mixtral": (SERVE_MIXTRAL, (TF_SWA_MAX_ABS, TF_SWA_MEAN_ABS)),
+    "serve-mamba2": (SERVE_MAMBA, (FULL_MAMBA_MAX_ABS, FULL_MAMBA_MEAN_ABS)),
+    "serve-whisper": (SERVE_WHISPER, (TF_ENCDEC_MAX_ABS,
+                                      TF_ENCDEC_MEAN_ABS)),
+    "serve-llava": (SERVE_LLAVA, (TF_VLM_MAX_ABS, TF_VLM_MEAN_ABS)),
+}
 #: the reference's bf16 tolerance for the flash kernel
 #: (tests/test_kernels_flash.py)
 FLASH_TOL = 2e-2
@@ -466,14 +546,21 @@ TRAIN_ORACLE_GNORM_REL = 0.01
 #: checkpoint: bf16 params and f32 moments), batch 2 x 2048, 4 steps,
 #: preempted at step 2
 TRAIN_FT = {"layers": 1, "batch": 2, "steps": 4, "preempt": 2}
-#: the kernel table's rows of K8 at MLA's head sizes (launched as FLASH)
+#: the kernel table's rows of K8 at MLA's head sizes and at (64, 64)
+#: (launched as FLASH)
 FLASH_MLA = ("flash_prefill_mla", "flash_decode_mla")
+FLASH_D64 = ("flash_prefill_d64", "flash_decode_d64")
 
 
 def launched(row: str) -> str:
-    """The launch counter a kernel-table row reads: an MLA row counts its
-    variant's launches (on its own path)."""
-    return row.removesuffix("_mla")
+    """The launch counter a kernel-table row reads: an MLA or (64, 64) row
+    counts its variant's launches (on its own path)."""
+    return row.removesuffix("_mla").removesuffix("_d64")
+
+
+def k8_row(variant: str, d: int, dv: int) -> str:
+    """The kernel-table row of a K8 call at head sizes (d, dv)."""
+    return variant + ("_mla" if dv != d else "_d64" if d == 64 else "")
 #: TPC-H SF 1 shapes: lineitem's rows pad to the 2^23 bucket; filters are
 #: sized for the orders-sized (1.5 M) and lineitem-sized (6 M) key sets
 N_BIG, N_MID = 1 << 23, 1 << 21
@@ -2583,8 +2670,9 @@ def decode_limit(ref) -> float:
 
 def attention_phase(torch, fa, dev, ptxas_log: str):
     """K8 against `flash_plain` and `sdpa_ref` on the card, one line per
-    shape; returns the records of qwen1.5-4b's prefill and decode shapes
-    (the serve path's) and each variant's largest error. Every line adds
+    shape; returns the records of the kernel table's rows (qwen1.5-4b's,
+    deepseek-v2-lite's and whisper-base's serve shapes: the encoder's and
+    a cross decode step's for (64, 64)) and each row's largest error. Every line adds
     the kernel's registers and spills from `ptxas_log`; a prefill line
     its device TFLOP/s (unmasked flops over `device_ms`) and the shared
     memory one of its CTAs takes, a decode line its device GB/s."""
@@ -2599,6 +2687,9 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
 
     def ring(index, cap, b):          # the model's own cache positions
         return _ring_positions(index, cap, b, dev)
+
+    def zeros(b, n):                  # cross-attention's positions
+        return torch.zeros(b, n, dtype=torch.int32, device=dev)
 
     ragged = torch.tensor([1024, 1000, 900, 700], device=dev)
     cases = (  # name, b, sq, skv, h, kvh, (d, dv), causal, window, q_pos, kv
@@ -2647,8 +2738,21 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
                                     device=dev))),
         ("mixtral decode, window 4096, ring wrapped", 2, 1, 4096, 32, 8,
          (128, 128), True, 4096, rows(2, 1, 4100), ring(4101, 4096, 2)),
+        # whisper-base (8 heads of 64) at serve-whisper's shapes: the
+        # encoder's self-attention over 1500 frames (non-causal, no tile
+        # skipped, the last key tile 92 of 128), cross-attention at the
+        # prefill's 32 queries and at a decode step, every position 0
+        ("whisper encoder", 16, 1500, 1500, 8, 8, (64, 64), False, None,
+         rows(16, 1500), (rows(16, 1500), torch.ones(
+             16, 1500, dtype=torch.bool, device=dev))),
+        ("whisper cross prefill", 16, 32, 1500, 8, 8, (64, 64), False, None,
+         zeros(16, 32), (zeros(16, 1500), torch.ones(
+             16, 1500, dtype=torch.bool, device=dev))),
+        ("whisper cross decode", 16, 1, 1500, 8, 8, (64, 64), False, None,
+         zeros(16, 1), (zeros(16, 1500), torch.ones(
+             16, 1500, dtype=torch.bool, device=dev))),
     )
-    worst = dict.fromkeys(FLASH + FLASH_MLA, 0.0)
+    worst = dict.fromkeys(FLASH + FLASH_MLA + FLASH_D64, 0.0)
     rep = {}
     for name, b, sq, skv, h, kvh, (d, dv), causal, window, qp, (kp, kval) \
             in cases:
@@ -2679,7 +2783,7 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
                       f"K8 {name} differs from {ref_name} by "
                       f"{errs[ref_name]}, over {limits[ref_name]}")
         variant = "flash_decode" if sq == 1 else "flash_prefill"
-        row = variant + ("_mla" if dv != d else "")
+        row = k8_row(variant, d, dv)
         worst[row] = max(worst[row], errs["flash_plain"])
         # the work these inputs need: 2*(d + dv) flops per unmasked (q, k)
         # pair; q, o and the positions moved once, K (at KVH heads) at the
@@ -2736,7 +2840,8 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
                 ptxas_log, f"decode_kernelILi{d}ELi{dv}ELi{group}E")
         emit(rec)
         if name in ("qwen1.5-4b prefill", "qwen1.5-4b decode",
-                    "deepseek-v2-lite prefill", "deepseek-v2-lite decode"):
+                    "deepseek-v2-lite prefill", "deepseek-v2-lite decode",
+                    "whisper encoder", "whisper cross decode"):
             rep[row] = rec
     return rep, worst
 
@@ -2772,7 +2877,8 @@ def route_differences(a: list, b: list) -> tuple:
 def teacher_forced_gap(torch, L, fa, serve, res, routes=None,
                        replay: bool = False) -> dict:
     """The greedy run `res` (from `serve.serve` or `serve.generate` on the
-    flash backend) against the same model fed the same tokens with dense
+    flash backend) against the same model fed the same tokens (and the
+    same stub embeddings, `res["extra"]`, where it has them) with dense
     attention ("auto", no K8 launch): each logit row's max and mean |d|
     and argmax agreement. For a MoE model, given the flash run's recorded
     `routes` (`record_routes`; its last pass is the one compared): with
@@ -2793,7 +2899,7 @@ def teacher_forced_gap(torch, L, fa, serve, res, routes=None,
         if mine is not None else ([], None)
     try:
         tf = serve.generate(model, params, prompt, g, res["cap"],
-                            forced=res["tokens"])
+                            forced=res["tokens"], extra=res.get("extra"))
     finally:
         L.set_attention_backend("flash")
         if restore:
@@ -2876,12 +2982,25 @@ def spec_config(spec: dict):
     return cfg
 
 
+def expected_launches(cfg, gen_tokens: int, runs: int) -> dict:
+    """K8's launches in `runs` passes of `serve.generate`: one a
+    self-attention layer per prefill call and per decode step; whisper
+    adds its cross-attention layers to both, and its encoder layers twice
+    to the prefill (the prefill encodes, and `generate` encodes once more
+    for the decode steps)."""
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers)) \
+        if cfg.attn is not None else 0
+    cross = cfg.n_layers if cfg.n_enc_layers else 0
+    return {"flash_prefill": (n_attn + cross + 2 * cfg.n_enc_layers) * runs,
+            "flash_decode": (n_attn + cross) * gen_tokens * runs}
+
+
 def serve_phase(torch, kb, sj, fa, path: str, spec: dict,
                 tol: tuple) -> dict:
     """Path `path`: the model of `spec` at full width (its depth cut to
     `spec["layers"]` where given) through the serving launcher
-    (`serve.serve_config`), K8's launches counted and checked (one an
-    attention layer per prefill call and per decode step, K1-K7 none),
+    (`serve.serve_config`), K8's launches counted and checked
+    (`expected_launches`, K1-K7 none),
     then the check within `tol` (max |d|, mean |d|): against dense
     attention, teacher-forced, for a model with attention; against the
     full forward for one without (`full_forward_gap`). Then a profile.
@@ -2908,12 +3027,10 @@ def serve_phase(torch, kb, sj, fa, path: str, spec: dict,
     peak = torch.cuda.max_memory_allocated()
 
     model, params, prompt = res["model"], res["params"], res["prompt"]
+    extra = res["extra"]
     b, s, g = spec["batch"], spec["prompt_len"], spec["gen_tokens"]
-    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers)) \
-        if cfg.attn is not None else 0
-    runs = len(res["passes"])
-    want = {"flash_prefill": n_attn * runs,
-            "flash_decode": n_attn * g * runs}
+    prefix = serve.prefix_len(cfg, extra)
+    want = expected_launches(cfg, g, len(res["passes"]))
     for name, n in counts.items():
         check(n == want.get(name, 0),
               f"{path} launched {name} {n} times, expected "
@@ -2931,7 +3048,9 @@ def serve_phase(torch, kb, sj, fa, path: str, spec: dict,
                              if k != "layers"}).n_layers
     emit({"phase": "serve", "path": path, "arch": spec["arch"],
           "config": cfg.name, "layers": cfg.n_layers,
-          "published_layers": published, "params": n_params, "batch": b, "prompt_len": s, "gen_tokens": g,
+          "published_layers": published, "params": n_params, "batch": b,
+          "prompt_len": s, "gen_tokens": g, "prefix_positions": prefix,
+          "encoder_positions": cfg.enc_seq_len if cfg.n_enc_layers else 0,
           "cap": res["cap"], "passes_seconds": res["passes"],
           "seconds": seconds, "prefill_seconds": t_pre,
           "prefill_tok_s": b * s / t_pre,
@@ -2944,7 +3063,7 @@ def serve_phase(torch, kb, sj, fa, path: str, spec: dict,
           "launches": counts, "launches_expected": want,
           "sample": res["tokens"][0, :12].tolist()})
 
-    if n_attn == 0:
+    if cfg.attn is None:
         # no attention: the check is decode against the full forward
         gap = full_forward_gap(torch, L, res)
         emit({"phase": "serve", "path": path,
@@ -2984,11 +3103,13 @@ def serve_phase(torch, kb, sj, fa, path: str, spec: dict,
 
     def prefill():
         state["logits"], state["caches"] = model.prefill(
-            params, Batch(prompt, prompt), cap=cap)
+            params, Batch(prompt, prompt, extra), cap=cap)
+
+    enc_out = model.encode(params, extra) if cfg.n_enc_layers else None
 
     def decode():
         tok = state["logits"][:, -1].argmax(-1)[:, None]
-        model.decode_step(params, tok, state["caches"], s)
+        model.decode_step(params, tok, state["caches"], prefix + s, enc_out)
     for step, fn in (("prefill", prefill), ("decode", decode)):
         emit({"phase": "profile", "path": path, "step": step,
               **device_profile(torch, fn)})
@@ -3078,17 +3199,8 @@ def main() -> int:
                                    info.get("flashattn", (0.0, ""))[1])
     rep.update(arep)
     worst.update(aworst)
-    counts["serve"] = serve_phase(torch, kb, sj, fa, "serve", SERVE,
-                                  (TF_MAX_ABS, TF_MEAN_ABS))
-    counts["serve-deepseek"] = serve_phase(
-        torch, kb, sj, fa, "serve-deepseek", SERVE_MLA,
-        (TF_MLA_MAX_ABS, TF_MLA_MEAN_ABS))
-    counts["serve-mixtral"] = serve_phase(
-        torch, kb, sj, fa, "serve-mixtral", SERVE_MIXTRAL,
-        (TF_SWA_MAX_ABS, TF_SWA_MEAN_ABS))
-    counts["serve-mamba2"] = serve_phase(
-        torch, kb, sj, fa, "serve-mamba2", SERVE_MAMBA,
-        (FULL_MAMBA_MAX_ABS, FULL_MAMBA_MEAN_ABS))
+    for path, (spec, tol) in SERVE_PATHS.items():
+        counts[path] = serve_phase(torch, kb, sj, fa, path, spec, tol)
     counts["train"] = train_phase(torch, np, kb, sj, fa)
     counts["train-ft"] = train_ft_phase(torch, np, kb, sj, fa)
 
@@ -3130,6 +3242,12 @@ def main() -> int:
         "flash_decode_mla": (flash_cu,
                              "src/repro/kernels/flashattn/flashattn.py:79",
                              "serve-deepseek"),
+        "flash_prefill_d64": (flash_cu,
+                              "src/repro/kernels/flashattn/flashattn.py:79",
+                              "serve-whisper"),
+        "flash_decode_d64": (flash_cu,
+                             "src/repro/kernels/flashattn/flashattn.py:79",
+                             "serve-whisper"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,

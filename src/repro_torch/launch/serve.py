@@ -9,11 +9,19 @@ The flags of the reference's `examples/serve_lm.py`, plus `--config`
 `--device` (default `cuda`; asking for CUDA where there is none raises,
 it never runs on the CPU instead). Weights are random, drawn from a
 `torch.Generator` seeded 0 on the device; the prompt is random tokens
-from one seeded 1. The run is one warm-up pass, then one timed pass:
+from one seeded 1, and the stub frontends' embeddings (whisper's
+`enc_seq_len` frames, llava's `num_patches` patches, f32 N(0, 1)) from
+one seeded 2. The run is one warm-up pass, then one timed pass:
 prefill, then `--gen-tokens` greedy decode steps; it prints prefill
-tok/s and decode ms/token as `serve_lm.py` does. The cache holds
-prompt + gen + 8 slots (a sliding-window layer's ring at most its
-window, a Mamba layer its fixed-size state: `Model.init_cache`).
+tok/s and decode ms/token as `serve_lm.py` does. Whisper's prefill
+encodes the frames inside, and `generate` encodes them once more after
+it, within the prefill's seconds, for the decode steps, as
+`serve_lm.py` does. Llava's decode positions start past the patches.
+The cache holds every position the prefill writes, the patches
+included, plus gen + 8 slots (a sliding-window layer's ring at most its
+window, a Mamba layer its fixed-size state: `Model.init_cache`);
+`serve_lm.py` leaves the patches out of its cap, so at full width its
+ring drops them (ROADMAP Queue 3).
 `serve_config` runs the same on a config the caller builds, such as a
 published one cut in depth.
 """
@@ -43,20 +51,55 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def prefix_len(cfg, extra: Optional[torch.Tensor]) -> int:
+    """Positions the prefill writes before the prompt: the patches under
+    the vision stub, else none."""
+    if cfg.frontend == "vision_stub" and extra is not None:
+        return extra.shape[1]
+    return 0
+
+
+def stub_len(cfg) -> Optional[int]:
+    """Embeddings a sample of the stub frontend carries: `num_patches`
+    under the vision stub, `enc_seq_len` frames under the audio stub,
+    None without a frontend."""
+    return {"vision_stub": cfg.num_patches,
+            "audio_stub": cfg.enc_seq_len}.get(cfg.frontend)
+
+
+def stub_inputs(cfg, batch: int, dev: torch.device,
+                seed: int = 2) -> Optional[torch.Tensor]:
+    """The stub frontend's embeddings [batch, `stub_len`, d], f32 N(0, 1)
+    from a `torch.Generator` on `dev` seeded `seed`; None without a
+    frontend."""
+    n = stub_len(cfg)
+    if n is None:
+        return None
+    return torch.randn((batch, n, cfg.d_model),
+                       generator=torch.Generator(device=dev).manual_seed(
+                           seed), dtype=torch.float32, device=dev)
+
+
 def generate(model: Model, params, prompt: torch.Tensor, gen_tokens: int,
-             cap: int, forced: Optional[torch.Tensor] = None
-             ) -> Dict[str, Any]:
-    """Prefill `prompt` [B, S] into a `cap`-slot cache, then decode
-    `gen_tokens` steps greedily — or, given `forced` [B, gen_tokens + 1]
-    (a greedy run's tokens), feed those instead (teacher forcing).
-    Returns the tokens fed [B, gen_tokens + 1] (the first from the
-    prefill), the logits of the prefill and of every step ([B, V] f32
-    each), and the prefill and decode seconds (host clock, synchronised)."""
+             cap: int, forced: Optional[torch.Tensor] = None,
+             extra: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+    """Prefill `prompt` [B, S] (with the stub frontend's `extra`) into a
+    `cap`-slot cache, then decode `gen_tokens` steps greedily — or, given
+    `forced` [B, gen_tokens + 1] (a greedy run's tokens), feed those
+    instead (teacher forcing). Whisper's `enc_out` is encoded once after
+    the prefill, inside its seconds, and given to every step; decode
+    positions start past the patches. Returns the tokens fed [B,
+    gen_tokens + 1] (the first from the prefill), the logits of the
+    prefill and of every step ([B, V] f32 each), and the prefill and
+    decode seconds (host clock, synchronised)."""
     dev = prompt.device
-    s = prompt.shape[1]
+    s = prefix_len(model.cfg, extra) + prompt.shape[1]
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = model.prefill(params, Batch(prompt, prompt), cap=cap)
+    logits, caches = model.prefill(params, Batch(prompt, prompt, extra),
+                                   cap=cap)
+    enc_out = model.encode(params, extra) if model.cfg.n_enc_layers \
+        else None
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -70,7 +113,8 @@ def generate(model: Model, params, prompt: torch.Tensor, gen_tokens: int,
     fed = [tok]
     t0 = time.perf_counter()
     for i in range(gen_tokens):
-        logits, caches = model.decode_step(params, tok, caches, s + i)
+        logits, caches = model.decode_step(params, tok, caches, s + i,
+                                           enc_out)
         all_logits.append(logits[:, -1])
         tok = pick(i + 1, logits)
         fed.append(tok)
@@ -96,20 +140,23 @@ def serve(arch: str, config: str, batch: int, prompt_len: int,
 def serve_config(cfg, batch: int, prompt_len: int, gen_tokens: int,
                  dev: torch.device) -> Dict[str, Any]:
     """Build the model of `cfg` (random weights drawn on `dev` from seed
-    0, a random prompt from seed 1), then two passes of `generate`: a
-    warm-up and the timed one; returns the timed pass's result with the
-    model, its parameters, the prompt, the cache size and both passes'
-    seconds."""
+    0, a random prompt from seed 1, the stub frontend's embeddings from
+    seed 2), then two passes of `generate`: a warm-up and the timed one;
+    returns the timed pass's result with the model, its parameters, the
+    prompt, the stub embeddings (`extra`), the cache size and both
+    passes' seconds."""
     model = Model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=torch.Generator(device=dev)
                            .manual_seed(1), device=dev)
-    cap = prompt_len + gen_tokens + 8           # serve_lm.py's rule
-    passes = [generate(model, params, prompt, gen_tokens, cap)
+    extra = stub_inputs(cfg, batch, dev)
+    # serve_lm.py's rule, with the patches the prefill writes counted
+    cap = prefix_len(cfg, extra) + prompt_len + gen_tokens + 8
+    passes = [generate(model, params, prompt, gen_tokens, cap, extra=extra)
               for _ in range(2)]        # the warm-up, then the timed pass
     return {**passes[1], "cfg": cfg, "model": model, "params": params,
-            "prompt": prompt, "cap": cap,
+            "prompt": prompt, "extra": extra, "cap": cap,
             "passes": [(p["prefill_seconds"], p["decode_seconds"])
                        for p in passes]}
 

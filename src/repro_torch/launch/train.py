@@ -14,7 +14,10 @@ schedule with `TrainConfig(microbatches=2, remat=True)`, driven by a
 under the temp directory) every `--save-every` steps, resumes from the
 latest checkpoint there, and saves on SIGTERM. Weights are random,
 drawn from a `torch.Generator` seeded 0; batches are random tokens from
-numpy seeded 0, the targets the tokens shifted by one.
+numpy seeded 0, the targets the tokens shifted by one, and for the stub
+frontends the embeddings the reference draws after them from the same
+generator (f32 N(0, 1): whisper's `enc_seq_len` frames, llava's
+`num_patches` patches).
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_smoke_config
     from repro_torch.ft import FaultTolerantTrainer
-    from repro_torch.launch.serve import resolve_device
+    from repro_torch.launch.serve import resolve_device, stub_len
     from repro_torch.models.model import Batch, Model
     from repro_torch.train import optim as O
     from repro_torch.train.step import TrainConfig, build_train_step
@@ -69,7 +72,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         while True:
             t = torch.from_numpy(rng.integers(
                 0, cfg.vocab_size, (args.batch, args.seq))).to(dev)
-            yield Batch(t, torch.roll(t, -1, 1))
+            n = stub_len(cfg)
+            extra = None if n is None else torch.from_numpy(rng.normal(
+                size=(args.batch, n, cfg.d_model)).astype(np.float32)).to(dev)
+            yield Batch(t, torch.roll(t, -1, 1), extra)
 
     def on_metrics(i, m):
         if i % 5 == 0:

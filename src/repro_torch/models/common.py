@@ -9,14 +9,16 @@ leading `[n_reps]` axis.
 
 `param_shapes` walks every architecture's layout from its shapes alone,
 so `param_count` needs no initialisation. `init_params` draws from a
-`torch.Generator` at the reference's distributions for the layers the
-port runs: full and sliding-window attention (with QKV bias), MLA's
-latent attention, the Mamba-2 mixer, the swiglu, relu2 and gelu MLPs
-and the routed MoE (with shared experts and deepseek's leading dense
-layers as `prefix_layers`); a pattern slot's mixer follows
+`torch.Generator` at the reference's distributions for every
+architecture of the zoo: full and sliding-window attention (with QKV
+bias), MLA's latent attention, the Mamba-2 mixer, the swiglu, relu2 and
+gelu MLPs and the routed MoE (with shared experts and deepseek's leading
+dense layers as `prefix_layers`); a pattern slot's mixer follows
 `cfg.layer_kind`, so a hybrid stack (jamba's 1 attention : 7 Mamba)
-mixes them. The encoder and the stub frontends raise
-NotImplementedError (ROADMAP Queue 1 item 10c).
+mixes them. Whisper's encoder (`encoder`, stacked on `[n_enc_layers]`,
+and `enc_ln_f`) and decoder cross-attention (`cross`, stacked on
+`[n_layers]`), and the stub frontends' projections (`frame_proj`,
+`patch_proj`), are drawn as the reference draws them.
 """
 from __future__ import annotations
 
@@ -26,10 +28,6 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-
-#: where the layers the port does not run yet are listed
-TODO = "not ported yet (ROADMAP Queue 1 item 10c)"
-
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
@@ -247,20 +245,6 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
 # --------------------------------------------------------------------------
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless every layer of `cfg` is one the
-    port runs: attention (full or sliding-window, optionally with QKV
-    bias), MLA or a Mamba-2 mixer, then an MLP, a routed MoE or nothing
-    (`d_ff == 0`)."""
-    what = []
-    if cfg.n_enc_layers:
-        what.append("the encoder and cross-attention")
-    if cfg.frontend is not None:
-        what.append(f"the {cfg.frontend} frontend")
-    if what:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(what)} {TODO}")
-
-
 def _normal(gen: torch.Generator, shape, scale: float, dtype,
             by_lead: bool = False):
     """N(0, 1) * scale drawn in f32, cast to `dtype`. `by_lead` draws one
@@ -362,8 +346,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     """Full parameter pytree on `gen.device`. Repeated layers are drawn
     stacked on a leading axis per pattern slot, as the reference's; the
     leading dense layers of a MoE config (`first_dense`) unstacked in
-    `prefix_layers`."""
-    check_ported(cfg)
+    `prefix_layers`; whisper's encoder layers stacked on `[n_enc_layers]`
+    and its cross-attention layers (an attention layer with `ln_x`, the
+    norm of its queries) on `[n_layers]`."""
     d, dt = cfg.d_model, cfg.dtype
     params: Dict[str, Any] = {
         "embed": _normal(gen, (cfg.vocab_size, d), 0.02, dt),
@@ -372,6 +357,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["unembed"] = _dense(gen, (), d, cfg.vocab_size, dt,
                                    scale=0.02)
+    if cfg.frontend == "vision_stub":
+        params["patch_proj"] = _dense(gen, (), d, d, dt)
+    if cfg.frontend == "audio_stub":
+        params["frame_proj"] = _dense(gen, (), d, d, dt)
     prefix, period, n_reps = layer_layout(cfg)
     moe_idx = set(moe_layer_indices(cfg))
 
@@ -387,4 +376,12 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
 
     params["prefix_layers"] = [block(i, ()) for i in range(prefix)]
     params["layers"] = [block(prefix + s, (n_reps,)) for s in range(period)]
+    if cfg.n_enc_layers:
+        ne, f32 = cfg.n_enc_layers, dict(dtype=torch.float32,
+                                         device=gen.device)
+        params["encoder"] = {"mixer": init_attn_layer(gen, cfg, (ne,)),
+                             "ffn": init_mlp_layer(gen, cfg, (ne,))}
+        params["enc_ln_f"] = torch.ones(d, **f32)
+        params["cross"] = {**init_attn_layer(gen, cfg, (cfg.n_layers,)),
+                           "ln_x": torch.ones((cfg.n_layers, d), **f32)}
     return params

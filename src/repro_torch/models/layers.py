@@ -3,8 +3,8 @@ attention (GQA, optionally biased QKV — qwen; sliding-window — mixtral;
 RoPE; a static-capacity ring KV cache for serving), MLA's latent
 attention (deepseek-v2), the Mamba-2 mixer (the chunked SSD for a whole
 sequence, the recurrent step for decode, a conv window and SSM state
-cache), the swiglu / relu2 / gelu MLPs and the top-k routed MoE with
-shared experts.
+cache), whisper's cross-attention, the swiglu / relu2 / gelu MLPs and
+the top-k routed MoE with shared experts.
 
 Two execution modes, as the reference's:
   * prefill: full-sequence forward, writing the cache if one is given;
@@ -37,7 +37,6 @@ Differences from the reference, on purpose:
 The reference's sharding hints (`parallel/hints.py`) are identities
 without a mesh and are left out (they return with the distributed
 runtime); so is its MoE's token grouping, one group without a mesh.
-Cross-attention raises NotImplementedError.
 
 Training differentiates these functions with torch's autograd. K8 has
 no backward (nor has the reference's Pallas kernel), so the training
@@ -59,7 +58,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.flashattn import flash_attention
 from repro_torch.kernels.flashattn.ref import masked_logits, sdpa_ref
 from repro_torch.models.common import (
-    TODO, AttnConfig, MambaConfig, ModelConfig, MoEConfig,
+    AttnConfig, MambaConfig, ModelConfig, MoEConfig,
 )
 
 # --------------------------------------------------------------------------
@@ -349,7 +348,25 @@ def _mla_attention(p, x, h, a: AttnConfig, positions, cache, ring):
 
 
 def cross_attention(p, x, enc_out, a: AttnConfig, norm_kind="rmsnorm"):
-    raise NotImplementedError(f"cross-attention {TODO}")
+    """Decoder cross-attention (whisper), the reference's: queries from
+    norm(x, ln_x), K and V projected from the encoder output, no RoPE,
+    every position 0 and every key valid, non-causal, through `_sdpa`
+    (on "flash" K8: its decode variant at a decode step's Sq of 1); the
+    QKV biases are not applied, as the reference applies none here.
+    Returns x + y @ wo."""
+    b, s, _ = x.shape
+    h = norm(x, p["ln_x"], norm_kind)
+    q = (h @ p["wq"]).reshape(b, s, a.num_heads, a.head_dim)
+    se = enc_out.shape[1]
+    k = (enc_out @ p["wk"]).reshape(b, se, a.num_kv_heads, a.head_dim)
+    v = (enc_out @ p["wv"]).reshape(b, se, a.num_kv_heads, a.head_dim)
+    pos = dict(dtype=torch.int32, device=x.device)
+    out = _sdpa(q, k, v, torch.zeros((b, s), **pos),
+                torch.zeros((b, se), **pos),
+                torch.ones((b, se), dtype=torch.bool, device=x.device),
+                causal=False, window=None)
+    y = out.reshape(b, s, a.num_heads * a.head_dim) @ p["wo"]
+    return x + y
 
 
 # --------------------------------------------------------------------------

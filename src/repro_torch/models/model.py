@@ -15,11 +15,22 @@ and the rotated k_rope; a sliding-window layer's ring holds at most the
 window. Each Mamba layer writes its `MambaCache` (conv window and SSM
 state) in place. A slot's cache tensors are stacked on the same leading
 `[n_reps]` axis as its parameters, a prefix layer's are not; every
-cursor is a host int. The port runs every decoder-only architecture of
-the zoo (qwen1.5-4b, minitron-4b, starcoder2-7b, command-r-35b,
-deepseek-v2-lite-16b, mixtral-8x7b, mamba2-370m, jamba-1.5-large-398b);
-the encoder-decoder and stub-frontend ones (whisper-base,
-llava-next-mistral-7b) raise NotImplementedError from `Model.__init__`.
+cursor is a host int. The port runs every architecture of the zoo:
+the decoder-only ones (qwen1.5-4b, minitron-4b, starcoder2-7b,
+command-r-35b, deepseek-v2-lite-16b, mixtral-8x7b, mamba2-370m,
+jamba-1.5-large-398b), the encoder-decoder whisper-base and the
+stub-frontend llava-next-mistral-7b.
+
+Whisper (`n_enc_layers > 0`): `encode` runs the stub frontend's frame
+embeddings through `frame_proj` and the stacked encoder layers
+(non-causal attention, then the MLP) to `enc_out`; the decoder stack
+(`backbone_with_cross`) follows each layer's self-attention block with
+that layer's cross-attention over `enc_out`. `prefill` encodes inside;
+`decode_step` takes `enc_out` from its caller. Llava (`frontend ==
+"vision_stub"`): `embed_inputs` prepends the stub's patch embeddings,
+projected by `patch_proj`, to the token embeddings, so the patches take
+positions 0..P-1 and the caches; `loss` pads the targets with -1 over
+them.
 
 `loss` is training's objective, the reference's token-mean cross
 entropy over sequence chunks plus 0.01 times the MoE load-balancing
@@ -37,7 +48,7 @@ import torch.utils.checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.common import (
-    ModelConfig, check_ported, init_params, layer_layout, moe_layer_indices,
+    ModelConfig, init_params, layer_layout, moe_layer_indices,
 )
 
 
@@ -74,7 +85,6 @@ def _chunk_nll(xc, w, tc):
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        check_ported(cfg)
         self.cfg = cfg
         self.prefix_n, self.full_period, self.n_reps = layer_layout(cfg)
         moe_idx = set(moe_layer_indices(cfg))
@@ -200,8 +210,60 @@ class Model:
         return x, {"prefix": prefix, "slots": slots}, aux
 
     # ------------------------------------------------------------------
+    def encode(self, params, frames):
+        """Whisper's encoder: the stub frontend's frame embeddings [B, Se,
+        d] -> enc_out [B, Se, d] in the model dtype. `frame_proj`, then
+        each of the `[n_enc_layers]` stacked layers (attention with RoPE
+        at positions 0..Se-1, non-causal and without a window, then the
+        MLP), then `enc_ln_f`."""
+        cfg = self.cfg
+        x = frames.to(cfg.dtype) @ params["frame_proj"]
+        b, se, _ = x.shape
+        pos = torch.arange(se, dtype=torch.int32,
+                           device=x.device)[None].expand(b, se)
+        enc = dataclasses.replace(cfg.attn, causal=False,
+                                  sliding_window=None)
+        for r in range(cfg.n_enc_layers):
+            lp = _at(params["encoder"], r)
+            x, _ = L.attention(lp["mixer"], x, enc, pos, None,
+                               norm_kind=cfg.norm)
+            x = L.mlp(lp["ffn"], x, cfg.act, norm_kind=cfg.norm)
+        return L.norm(x, params["enc_ln_f"], cfg.norm)
+
+    def backbone_with_cross(self, params, x, positions, enc_out,
+                            caches=None):
+        """Whisper's decoder stack: each layer's block (self-attention,
+        its ring cache written when `caches` is given, then the MLP),
+        then that layer's cross-attention over `enc_out`. The ring's
+        positions after this write are computed once a call. Returns (x,
+        caches with the cursor moved on, the Python 0.0)."""
+        cfg = self.cfg
+        b, s = x.shape[:2]
+        sc = caches["slots"][0] if caches else None
+        ring = L._ring_positions(sc.index + s, sc.k.shape[2], b,
+                                 x.device) if caches else None
+        for r in range(self.n_reps):
+            c = _slot_view(sc, r) if caches else None
+            x, _, _ = self._apply_block("attn", False,
+                                        _at(params["layers"][0], r), x,
+                                        positions, c, ring)
+            x = L.cross_attention(_at(params["cross"], r), x, enc_out,
+                                  cfg.attn, norm_kind=cfg.norm)
+        if not caches:
+            return x, None, 0.0
+        return x, {"prefix": [], "slots": [
+            dataclasses.replace(sc, index=sc.index + s)]}, 0.0
+
+    # ------------------------------------------------------------------
     def embed_inputs(self, params, batch: Batch):
-        return params["embed"][batch.tokens]
+        """Token embeddings; under the vision stub, the patch embeddings
+        `batch.extra` [B, P, d] projected by `patch_proj` go first."""
+        cfg = self.cfg
+        x = params["embed"][batch.tokens]
+        if cfg.frontend == "vision_stub" and batch.extra is not None:
+            patches = batch.extra.to(cfg.dtype) @ params["patch_proj"]
+            x = torch.cat([patches, x], dim=1)
+        return x
 
     def hidden_to_logits(self, params, h):
         cfg = self.cfg
@@ -213,18 +275,28 @@ class Model:
         """Token-mean cross entropy (targets -1 carry no loss) over
         `loss_chunk`-token chunks of the flattened batch — the tokens
         past the last whole chunk are dropped, as the reference's — plus
-        0.01 times the MoE auxiliary loss. A scalar f32 tensor."""
+        0.01 times the MoE auxiliary loss. A scalar f32 tensor. Whisper:
+        `batch.extra` is the encoder's frame embeddings; llava: the patch
+        embeddings, prepended, whose positions carry no loss."""
         cfg = self.cfg
         x = self.embed_inputs(params, batch)
         b, s, _ = x.shape
         pos = torch.arange(s, dtype=torch.int32,
                            device=x.device)[None].expand(b, s)
-        x, _, aux = self.backbone(params, x, pos, None,
-                                  collect_aux=cfg.moe is not None)
+        if cfg.n_enc_layers:
+            x, _, aux = self.backbone_with_cross(
+                params, x, pos, self.encode(params, batch.extra))
+        else:
+            x, _, aux = self.backbone(params, x, pos, None,
+                                      collect_aux=cfg.moe is not None)
         x = L.norm(x, params["ln_f"], cfg.norm)
+        targets = batch.targets
+        if cfg.frontend == "vision_stub" and batch.extra is not None:
+            targets = torch.cat([targets.new_full(
+                (b, batch.extra.shape[1]), -1), targets], dim=1)
         t = b * s
         xf = x.reshape(t, cfg.d_model)
-        tf = batch.targets.reshape(t)
+        tf = targets.reshape(t)
         nchunk = max(1, t // max(loss_chunk, 1))
         csize = t // nchunk
         w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
@@ -244,24 +316,37 @@ class Model:
 
     # ------------------------------------------------------------------
     def prefill(self, params, batch: Batch, cap: int):
-        """Run the full prompt, returning (last-token logits, caches)."""
+        """Run the full prompt (after the patches, under the vision
+        stub), returning (last-token logits, caches). Whisper encodes
+        `batch.extra` here."""
         cfg = self.cfg
         x = self.embed_inputs(params, batch)
         b, s, _ = x.shape
         caches = self.init_cache(b, cap, x.device)
         pos = torch.arange(s, dtype=torch.int32,
                            device=x.device)[None].expand(b, s)
-        x, caches, _ = self.backbone(params, x, pos, caches)
+        if cfg.n_enc_layers:
+            x, caches, _ = self.backbone_with_cross(
+                params, x, pos, self.encode(params, batch.extra), caches)
+        else:
+            x, caches, _ = self.backbone(params, x, pos, caches)
         x = L.norm(x, params["ln_f"], cfg.norm)
         return self.hidden_to_logits(params, x[:, -1:]), caches
 
-    def decode_step(self, params, tokens, caches, position: int):
-        """One token step. tokens [B, 1]; position a host int."""
+    def decode_step(self, params, tokens, caches, position: int,
+                    enc_out=None):
+        """One token step. tokens [B, 1]; position a host int (past the
+        patches, under the vision stub); whisper's `enc_out` from
+        `encode`."""
         cfg = self.cfg
         x = params["embed"][tokens]
         b = x.shape[0]
         pos = torch.full((b, 1), int(position), dtype=torch.int32,
                          device=x.device)
-        x, caches, _ = self.backbone(params, x, pos, caches)
+        if cfg.n_enc_layers:
+            x, caches, _ = self.backbone_with_cross(params, x, pos, enc_out,
+                                                    caches)
+        else:
+            x, caches, _ = self.backbone(params, x, pos, caches)
         x = L.norm(x, params["ln_f"], cfg.norm)
         return self.hidden_to_logits(params, x), caches

@@ -1,6 +1,7 @@
 """The port stands alone: `src/repro_torch` imports neither `jax` nor the
 reference package `repro`, device backends never carry on quietly on the
-CPU, and routes not ported yet raise NotImplementedError."""
+CPU, and routes not ported yet raise NotImplementedError; every
+architecture of the zoo is ported."""
 import ast
 import os
 import pathlib
@@ -328,18 +329,27 @@ def test_train_on_cuda_without_cuda_raises(no_cuda):
 
 
 @pytest.mark.parametrize("arch", ["whisper-base", "llava-next-mistral-7b"])
-def test_unported_archs_raise_not_implemented(arch):
+def test_encdec_and_vlm_archs_serve_and_train(arch, tmp_path, capsys):
     """The encoder-decoder (whisper: the encoder and cross-attention) and
-    the stub-frontend (llava) models are not ported yet: building one, or
-    serving one, raises NotImplementedError naming its ROADMAP item."""
+    the stub-frontend (llava: the patch prefix) models are ported: both
+    configs build, the launcher serves the smoke config on the CPU, and
+    the training launcher takes two steps of it, with the stub
+    frontend's embeddings in every batch."""
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models.model import Model
     for cfg in (get_config(arch), get_smoke_config(arch)):
-        with pytest.raises(NotImplementedError, match="item 10c"):
-            Model(cfg)
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        serve.main(["--arch", arch, "--config", "smoke", "--device", "cpu"])
+        assert Model(cfg).cfg is cfg
+    assert serve.main(["--arch", arch, "--config", "smoke", "--device",
+                       "cpu", "--batch", "2", "--prompt-len", "16",
+                       "--gen-tokens", "3"]) == 0
+    assert train.main(["--arch", arch, "--device", "cpu", "--steps", "2",
+                       "--batch", "2", "--seq", "16", "--ckpt-dir",
+                       str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert get_smoke_config(arch).name in out
+    assert "generated shape (2, 4)" in out
+    assert "finished at step 2" in out
 
 
 def test_serve_on_cuda_without_cuda_raises(no_cuda):

@@ -197,3 +197,36 @@ def test_teacher_forced_gap_replays_and_counts_routes():
     assert 0 <= free["route_differing_share"] <= 1
     assert len(held["steps"]) == 4 and held["max_abs"] < 0.25
     assert chip_smoke.route_differences(routes, routes) == (0, 108)
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "llava-next-mistral-7b"])
+def test_serve_launch_expectations_and_check_take_the_stub_inputs(
+        arch, monkeypatch):
+    """`chip_smoke.expected_launches` counts what the serving launcher
+    calls K8 for: on the CPU the smoke config through `serve.serve_config`
+    calls `layers.flash_attention` (here counted by Sq) once a
+    self-attention layer, once a cross-attention layer and, per prefill
+    call, twice an encoder layer (whisper's prefill encodes, and
+    `generate` once more); `teacher_forced_gap` feeds the run's own stub
+    embeddings to the dense run, so in f32 the two agree within 1e-4."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flashattn import ops as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    calls = {"flash_prefill": 0, "flash_decode": 0}
+    inner = L.flash_attention
+
+    def counted(q, *args, **kw):
+        calls["flash_decode" if q.shape[1] == 1 else "flash_prefill"] += 1
+        return inner(q, *args, **kw)
+    monkeypatch.setattr(L, "flash_attention", counted)
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    res = serve.serve_config(cfg, 2, 12, 3, torch.device("cpu"))
+    assert calls == chip_smoke.expected_launches(cfg, 3, len(res["passes"]))
+    if arch == "whisper-base":
+        assert calls == {"flash_prefill": 2 * (2 + 2 + 2 * 2),
+                         "flash_decode": 2 * 3 * (2 + 2)}
+    gap = chip_smoke.teacher_forced_gap(torch, L, fa, serve, res)
+    assert len(gap["steps"]) == 4 and gap["max_abs"] < 1e-4
+    assert L._SDPA_BACKEND == "flash"

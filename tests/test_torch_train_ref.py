@@ -6,9 +6,13 @@ algorithm is compared in f32, as tests/test_torch_models.py does):
   `jax.value_and_grad` of the reference's `Model.loss`, for qwen1.5-4b,
   deepseek-v2-lite-16b (MLA, the routed MoE and its auxiliary loss, a
   leading dense layer), mixtral-8x7b (sliding-window attention, the
-  MoE), mamba2-370m (Mamba-2's chunked SSD, tied embeddings) and
-  jamba-1.5-large-398b (attention and Mamba in one stack): loss within
-  rel 1e-5, each gradient within 1e-4 of its largest entry;
+  MoE), mamba2-370m (Mamba-2's chunked SSD, tied embeddings),
+  jamba-1.5-large-398b (attention and Mamba in one stack), whisper-base
+  (the encoder over the batch's frame embeddings, cross-attention; each
+  cross layer's unread `ln` gets a zero gradient in both) and
+  llava-next-mistral-7b (the batch's patch embeddings prepended, their
+  targets -1): loss within rel 1e-5, each gradient within 1e-4 of its
+  largest entry;
 * three steps of `build_train_step` (2 microbatches, remat) with AdamW
   and with Adafactor against the reference's jit'd step: losses within
   rel 1e-5; parameters within 1e-5 (the learning rate is 1e-3, so that
@@ -44,7 +48,7 @@ from repro_torch.train.step import TrainConfig, build_train_step
 from repro_torch.train.tree import leaves, unflatten
 
 ARCHS = ["qwen1.5-4b", "deepseek-v2-lite-16b", "mixtral-8x7b", "mamba2-370m",
-         "jamba-1.5-large-398b"]
+         "jamba-1.5-large-398b", "whisper-base", "llava-next-mistral-7b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -76,19 +80,34 @@ def _tokens(vocab, B=4, S=32, seed=0):
     return toks, tgt
 
 
+def _extra(cfg, B=4, seed=0):
+    """The stub frontend's f32 embeddings (None without one)."""
+    n = {"vision_stub": cfg.num_patches,
+         "audio_stub": cfg.enc_seq_len}.get(cfg.frontend)
+    if n is None:
+        return None
+    return np.random.default_rng(seed).standard_normal(
+        (B, n, cfg.d_model)).astype(np.float32)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_grads_match_reference(arch):
     rm, rparams, tm, tparams = _pair(arch)
     toks, tgt = _tokens(rm.cfg.vocab_size)
+    extra = _extra(rm.cfg)
     rloss, rgrads = jax.value_and_grad(lambda p: rm.loss(
-        p, RBatch(jnp.asarray(toks), jnp.asarray(tgt)), loss_chunk=32))(
-        rparams)
+        p, RBatch(jnp.asarray(toks), jnp.asarray(tgt),
+                  None if extra is None else jnp.asarray(extra)),
+        loss_chunk=32))(rparams)
     ps = [p.requires_grad_(True) for p in leaves(tparams)]
     with L.attention_backend("auto"):
         loss = tm.loss(unflatten(tparams, ps),
-                       Batch(torch.from_numpy(toks), torch.from_numpy(tgt)),
+                       Batch(torch.from_numpy(toks), torch.from_numpy(tgt),
+                             None if extra is None
+                             else torch.from_numpy(extra)),
                        loss_chunk=32)
-    grads = torch.autograd.grad(loss, ps)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+        ps, torch.autograd.grad(loss, ps, allow_unused=True))]
     assert float(loss) == pytest.approx(float(rloss), rel=1e-5)
     want = jax.tree.leaves(rgrads)
     assert len(want) == len(grads)

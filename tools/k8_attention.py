@@ -7,8 +7,11 @@ NVIDIA GPU.
 Imports `chip_smoke` and `repro_torch` from the checkout at DIR (default:
 this one), builds its kernel libraries from its own sources, and runs its
 `attention_phase`: one JSON line a K8 case (CUDA-event and device ms,
-errors against `flash_plain` and `sdpa_ref`, bound, SDPA's times), then
-one line with each case's device ms. Two trees are compared by running
+errors against `flash_plain` and `sdpa_ref`, bound, SDPA's times; every
+case of phase 7, whisper-base's encoder, cross prefill and cross decode
+shapes at (64, 64) among them), then one line with each case's device
+ms. In a fresh process the profiler's K8 device times read right (in a
+full smoke run they read low; PERF.md §7). Two trees are compared by running
 each tree's phase in its own process, in turns within one call on one
 card: parent, change, change, parent (the parent unpacked with
 `git archive` into the ignored `.chip_check/`).

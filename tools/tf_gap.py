@@ -11,7 +11,9 @@ and its full forward over the same tokens (`chip_smoke.full_forward_gap`).
         --layers 3 6 --batch 2 --prompt-len 256 --gen-tokens 6 --device cpu
 
 For each depth: the model's published config with `n_layers` cut to
-that depth (random weights from seed 0, a random prompt from seed 1, as
+that depth (random weights from seed 0, a random prompt from seed 1, the
+stub frontend's embeddings from seed 2 — whisper's frames, llava's
+patches, whose positions the cache holds too — as
 `repro_torch.launch.serve`), one greedy pass on the flash backend, then
 one JSON line of `chip_smoke.teacher_forced_gap` (max and mean |d| over
 the prefill's and every step's logits, argmax agreement) and, for a MoE
@@ -60,15 +62,19 @@ def main() -> int:
                                (args.batch, args.prompt_len),
                                generator=torch.Generator(device=dev)
                                .manual_seed(1), device=dev)
-        cap = args.prompt_len + args.gen_tokens + 8
+        extra = serve.stub_inputs(cfg, args.batch, dev)
+        cap = serve.prefix_len(cfg, extra) + args.prompt_len \
+            + args.gen_tokens + 8
         routes, restore = chip_smoke.record_routes(L) if cfg.moe else \
             (None, None)
         try:
-            res = serve.generate(model, params, prompt, args.gen_tokens, cap)
+            res = serve.generate(model, params, prompt, args.gen_tokens, cap,
+                                 extra=extra)
         finally:
             if restore:
                 restore()
-        res.update(model=model, params=params, prompt=prompt, cap=cap)
+        res.update(model=model, params=params, prompt=prompt, extra=extra,
+                   cap=cap)
         head = {"arch": args.arch, "layers": n, "device": str(dev),
                 "batch": args.batch, "prompt_len": args.prompt_len,
                 "gen_tokens": args.gen_tokens}
