@@ -178,6 +178,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              `exchange.send` fault at one call index drawn by a seeded
              RNG: it must be retried in place (`report()["recoveries"]
              ["retries"]` >= 1, no ladder move) and stay md5-equal.
+             (d) `dist-pod`: dist-api's transfer on a (2, 4) ("pod",
+             "data") mesh of eight shards of the card (`DIST_POD`, shards
+             pod-major), the filter ORed over "pod" and then "data", with
+             the gather OR and the recursive-doubling OR: every shard's
+             words must equal `build_ref` over all the build keys and the
+             1-D mesh's words over the same 8 shards, the mask
+             `probe_ref` of the whole column, bit for bit; 8 K2 and 8 K3
+             launches a call, K1 and K4-K8 never; CUDA-event ms and
+             device ms of a call, beside the card's name and power limit.
 6d. torch-tpch — path `torch-tpch`: the 20 join queries through
              `Executor` with the plain-torch `torch` bloom and join
              backends (the reference's `jax` role: torch ops, no hand
@@ -304,6 +313,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              decode step, K1-K7 never; the teacher-forced check against
              "auto" (the same patches) within `TF_VLM_MAX_ABS` and
              `TF_VLM_MEAN_ABS`;
+11c. launch-reports — path `launch-reports`: the launch layer's
+             reckonings (`launch.dryrun`, `launch.analytic`) against the
+             card for qwen1.5-4b at the serve path's shape
+             (`LAUNCH_REPORTS`: batch 4, prompt 2048, cap 2088) on a
+             one-device mesh: the dry run's argument bytes of the prefill
+             (parameters + batch) and of a decode step (parameters +
+             tokens + ring caches) must equal the bytes of the storages
+             the model really allocates; `FlopCounterMode`'s count of one
+             real prefill call ("auto" attention) over the cost model's
+             must lie in `FLOP_RATIO_BOUNDS` (fixed before the first card
+             run); the analytic compute and memory times beside the
+             measured prefill seconds (K8) and decode device ms, and the
+             bound's share of each. K8 launches on the served calls,
+             K1-K7 never;
 12. train  — path `train`: qwen1.5-4b at its full config (3.95 B
              parameters, bf16, random weights from seed 0) through
              `train.step.build_train_step` with AdamW (cosine schedule,
@@ -346,7 +369,8 @@ cross decode shapes, whose launches are path `serve-whisper`'s)
 `{"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "plain_device", "bound_ms", "bound_by",
 "library_ms", "launches_by_path"}]}` (`launches_by_path` has every
-path's count, the `dist-*`, `torch-tpch`, `serve-mixtral`,
+path's count, the `dist-*` (`dist-pod` too), `launch-reports`,
+`torch-tpch`, `serve-mixtral`,
 `serve-mamba2`, `serve-whisper`, `serve-llava`, `train` and
 `train-ft` paths' included (K8's (128, 128) rows count
 `serve-mixtral`'s and `serve-llava`'s launches there; every kernel 0
@@ -546,6 +570,22 @@ TRAIN_ORACLE_GNORM_REL = 0.01
 #: checkpoint: bf16 params and f32 moments), batch 2 x 2048, 4 steps,
 #: preempted at step 2
 TRAIN_FT = {"layers": 1, "batch": 2, "steps": 4, "preempt": 2}
+#: path `launch-reports`: qwen1.5-4b at the serve path's shape, on a
+#: one-device mesh
+LAUNCH_REPORTS = {"arch": "qwen1.5-4b", "batch": 4, "prompt_len": 2048,
+                  "cap": 2088}
+#: bounds of a real prefill's FlopCounterMode count ("auto" attention:
+#: K8 is opaque to the counter) over `analytic.prefill_cost(...).flops`,
+#: fixed on the CPU before the first card run. A trace of the same call
+#: on the meta device counts 58,978,381,332,480 FLOPs against the
+#: model's 68,158,824,120,320: 0.8653. The model counts 2 N D with N
+#: the embedding table and the LM head too (a lookup and, in a prefill,
+#: the head over the last token only) and causal attention at half its
+#: scores; the port's dense "auto" attention multiplies every (query,
+#: cache slot) pair of the 2088-slot ring. The bounds keep 5% either side
+#: of 0.8653: a count outside them is a different computation, not
+#: rounding
+FLOP_RATIO_BOUNDS = (0.82, 0.91)
 #: the kernel table's rows of K8 at MLA's head sizes and at (64, 64)
 #: (launched as FLASH)
 FLASH_MLA = ("flash_prefill_mla", "flash_decode_mla")
@@ -1993,6 +2033,9 @@ DIST_PATHS = {
                            "joinmap_build", "joinmap_lookup", *API_ONLY,
                            *FLASH)),
     "dist-tpch": (("multi_probe", "bloom_build"), SERVE_NEVER),
+    "dist-pod": (("bloom_build", "probe"),
+                 ("multi_probe", "joinmap_build", "joinmap_lookup",
+                  *API_ONLY, *FLASH)),
 }
 #: the distributed phases' shard count: four shards of one card
 DIST_SHARDS = 4
@@ -2106,6 +2149,101 @@ def dist_api_phase(torch, np, kb, sj, fa, bloom, dev, api) -> dict:
           f"dist-api: {counts['bloom_build']} K2 and {counts['probe']} K3 "
           f"launches in {calls} calls of {p} shards")
     check_path(counts, "dist-api", *DIST_PATHS["dist-api"])
+    return counts
+
+
+#: the multi-pod path's mesh: 2 pods of 4 data shards, all of one card
+DIST_POD = (2, 4)
+
+
+def dist_pod_phase(torch, np, kb, sj, fa, bloom, dev, api, smi: str
+                   ) -> dict:
+    """Path `dist-pod`: `BloomEngine.make_distributed_transfer` on a
+    (2, 4) ("pod", "data") mesh of eight shards of one card at dist-api's
+    edge (σ(orders, 1994)'s o_orderkey into lineitem's l_orderkey, SF 1,
+    bucketed by `shard_keys` into 8 shards, pod-major), with the gather
+    OR and the recursive-doubling OR, each over "pod" and then "data".
+    Each call must launch K2 and K3 once a shard (8 each). Checked after
+    the window: every shard's all-reduced words (`distributed_bloom_build`
+    on the pod mesh) == `build_ref` over all the build keys == the words
+    of the 1-D mesh over the same 8 shards, and the mask == `probe_ref`
+    of the whole column, bit for bit."""
+    from repro_torch.core import distributed
+    from repro_torch.core.engine_bloom import get_engine
+    from repro_torch.launch.mesh import make_data_mesh, make_test_mesh
+
+    p = DIST_POD[0] * DIST_POD[1]
+    mesh = make_test_mesh(DIST_POD, ("pod", "data"), devices=[dev] * p)
+    flat = make_data_mesh(p, devices=[dev] * p)
+    eng = get_engine("cuda")
+    bkeys = api["o_orderkey"][api["q5"]]
+    pkeys = api["l_orderkey"]
+    n = len(pkeys)
+    nblocks = bloom.blocks_for(len(bkeys))
+    b = eng.shard_keys(bkeys, mesh)
+    pr = eng.shard_keys(pkeys, mesh)
+
+    read = launch_window(kb, sj, fa)  # the path's counts start at 0 here
+    calls = 0
+    masks, ms = {}, {}
+    for tree in (False, True):
+        fn = eng.make_distributed_transfer(mesh, live_keys=len(bkeys),
+                                           tree_or=tree)
+
+        def run(fn=fn):
+            nonlocal calls
+            calls += 1
+            return fn(*b, *pr)
+        masks[tree] = run()
+        ms[tree] = cuda_ms(torch, run, reps=5, warm=1)
+    torch.cuda.synchronize()
+    counts = read()                   # just after the path
+    dev_ms = {}
+    for tree in (False, True):
+        fn = eng.make_distributed_transfer(mesh, live_keys=len(bkeys),
+                                           tree_or=tree)
+        dev_ms[tree] = device_ms(torch, lambda fn=fn: fn(*b, *pr))
+
+    # the oracles, outside the window
+    blo, bhi = bloom.keys_to_device(bkeys, dev)
+    plo, phi = bloom.keys_to_device(pkeys, dev)
+    whole = kb.build_ref(blo, bhi, nblocks)
+    hit = kb.probe_ref(whole, plo, phi)
+    for tree in (False, True):
+        words = distributed.distributed_bloom_build(*b, nblocks, mesh,
+                                                    tree_or=tree)
+        one_d = distributed.distributed_bloom_build(*b, nblocks, flat,
+                                                    tree_or=tree)
+        check(all(torch.equal(w, whole) for w in words),
+              f"dist-pod (tree_or={tree}): all-reduced words != build_ref "
+              "over all the build keys")
+        check(all(torch.equal(w, v) for w, v in zip(words, one_d)),
+              f"dist-pod (tree_or={tree}): words != the 1-D mesh's")
+        got = torch.cat(masks[tree])
+        check(torch.equal(got[:n], hit) and not bool(got[n:].any()),
+              f"dist-pod (tree_or={tree}): mask != probe_ref of the "
+              "whole column")
+    emit({"phase": "dist", "path": "dist-pod", "mesh": dict(mesh.shape),
+          "shards": p, "card": smi, "build_keys": len(bkeys),
+          "probe_rows": n, "rows_a_shard": int(pr[0][0].shape[0]),
+          "nblocks": nblocks,
+          "ms": {"gather_or": ms[False], "tree_or": ms[True]},
+          "device_ms": {"gather_or": dev_ms[False], "tree_or": dev_ms[True]},
+          "survivors": int(hit.sum()),
+          "filter_wire_bytes": {
+              "gather_or": (DIST_POD[0] - 1 + DIST_POD[1] - 1) * nblocks
+              * bloom.LANES * 4,
+              "tree_or": (int(math.log2(DIST_POD[0]))
+                          + int(math.log2(DIST_POD[1]))) * nblocks
+              * bloom.LANES * 4},
+          "calls": calls, "launches": {k: counts[k] for k in (
+              "bloom_build", "probe")},
+          "equal": ["build_ref (all keys)", "1-D mesh words (8 shards)",
+                    "probe_ref (whole column)"]})
+    check(counts["bloom_build"] == counts["probe"] == p * calls,
+          f"dist-pod: {counts['bloom_build']} K2 and {counts['probe']} K3 "
+          f"launches in {calls} calls of {p} shards")
+    check_path(counts, "dist-pod", *DIST_PATHS["dist-pod"])
     return counts
 
 
@@ -2846,6 +2984,150 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
     return rep, worst
 
 
+def storage_bytes(tensors) -> int:
+    """Bytes of the distinct storages behind `tensors`."""
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def param_tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from param_tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from param_tensors(v)
+    else:
+        yield tree
+
+
+def launch_reports_phase(torch, kb, sj, fa, dev, smi: str) -> dict:
+    """Path `launch-reports`: the launch layer's reckonings against the
+    card, for qwen1.5-4b at the serve path's shape (`LAUNCH_REPORTS`) on a
+    one-device mesh (`make_test_mesh((1, 1))`). Exact check:
+    `dryrun.argument_bytes` of the prefill (parameters + batch) and of a
+    decode step (parameters + tokens + the ring caches) must equal the
+    bytes of the storages the served model really allocates. FLOP check:
+    `FlopCounterMode`'s count of one real prefill call on the card, on
+    "auto" attention, over `analytic.prefill_cost(...).flops` must lie in
+    `FLOP_RATIO_BOUNDS`; the meta device's trace of the same call is
+    printed beside it. Prints the analytic compute and memory times
+    beside the measured prefill seconds (K8, CUDA events) and a decode
+    step's device ms (torch.profiler), and the bound's share of each.
+    The served calls run on "flash": K8 must launch, K1-K7 never."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import analytic, dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.models import layers as L
+    from repro_torch.models.common import abstract_params
+    from repro_torch.models.model import Batch, Model
+
+    spec = LAUNCH_REPORTS
+    arch, b, s, cap = spec["arch"], spec["batch"], spec["prompt_len"], \
+        spec["cap"]
+    cfg = get_config(arch)
+    mesh = make_test_mesh((1, 1))
+    pre_shape = ShapeSpec("serve-prefill", s, b, "prefill")
+    dec_shape = ShapeSpec("serve-decode", cap, b, "decode")
+    torch.cuda.empty_cache()
+    read = launch_window(kb, sj, fa)  # the path's counts start at 0 here
+    base = torch.cuda.memory_allocated()
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    _, args, _ = input_specs(arch, pre_shape, mesh, cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, tuple(args[0].tokens.shape),
+                        generator=gen, device=dev,
+                        dtype=args[0].tokens.dtype)
+    batch = Batch(tok, tok.clone())
+    allocated = torch.cuda.memory_allocated() - base
+    p_bytes = storage_bytes(param_tensors(params))
+    b_bytes = storage_bytes([batch.tokens]) + storage_bytes([batch.targets])
+    want_pre = dryrun.argument_bytes(arch, pre_shape, mesh, cfg)
+    state = {}
+
+    def prefill():
+        state["logits"], state["caches"] = model.prefill(params, batch,
+                                                         cap=cap)
+    prefill_ms = cuda_ms(torch, prefill, reps=3, warm=1)
+    step_tok = state["logits"][:, -1].argmax(-1)[:, None].to(tok.dtype)
+    caches = state["caches"]
+    c_bytes = storage_bytes(t for c in caches["prefix"] + caches["slots"]
+                            for t in (c.k, c.v))
+    want_dec = dryrun.argument_bytes(arch, dec_shape, mesh, cfg)
+    t_bytes = storage_bytes([step_tok])
+
+    def decode():
+        model.decode_step(params, step_tok, caches, s)
+    decode_ms = device_ms(torch, decode)
+    torch.cuda.synchronize()
+    counts = read()                   # just after the path
+
+    check(want_pre["argument_bytes"] == p_bytes + b_bytes,
+          f"launch-reports: prefill argument bytes {want_pre} != "
+          f"{p_bytes} + {b_bytes} allocated")
+    check(want_dec["argument_bytes"] == p_bytes + t_bytes + c_bytes,
+          f"launch-reports: decode argument bytes {want_dec} != "
+          f"{p_bytes} + {t_bytes} + {c_bytes} allocated")
+    with L.attention_backend("auto"), torch.no_grad(), \
+            FlopCounterMode(display=False) as fc:
+        model.prefill(params, batch, cap=cap)
+    flops = fc.get_total_flops()
+    meta = torch.empty(tuple(tok.shape), dtype=tok.dtype, device="meta")
+    with L.attention_backend("auto"), torch.no_grad(), \
+            FlopCounterMode(display=False) as fc:
+        model.prefill(abstract_params(cfg), Batch(meta, meta), cap=cap)
+    meta_flops = fc.get_total_flops()
+    pre_cost = analytic.prefill_cost(cfg, pre_shape, mesh.shape)
+    dec_cost = analytic.decode_cost(cfg, dec_shape, mesh.shape)
+    ratio = flops / pre_cost.flops
+    pre_t, dec_t = pre_cost.terms(), dec_cost.terms()
+    emit({"phase": "launch-reports", "path": "launch-reports", "card": smi,
+          "arch": arch, "batch": b, "prompt_len": s, "cap": cap,
+          "mesh": dict(mesh.shape),
+          "argument_bytes": {
+              "prefill": want_pre["argument_bytes"],
+              "prefill_parts": want_pre["parts"],
+              "decode": want_dec["argument_bytes"],
+              "decode_parts": want_dec["parts"],
+              "allocated_params": p_bytes, "allocated_batch": b_bytes,
+              "allocated_step_tokens": t_bytes,
+              "allocated_caches": c_bytes,
+              "memory_allocated_delta": allocated, "exact": True},
+          "flops": {"counted_on_card": flops, "counted_on_meta": meta_flops,
+                    "equal": flops == meta_flops,
+                    "analytic": pre_cost.flops, "ratio": ratio,
+                    "bounds": FLOP_RATIO_BOUNDS, "attention": "auto"},
+          "prefill": {"analytic_compute_s": pre_t["compute_s"],
+                      "analytic_memory_s": pre_t["memory_s"],
+                      "measured_s": prefill_ms / 1e3,
+                      "bound_share": max(pre_t["compute_s"],
+                                         pre_t["memory_s"])
+                      / (prefill_ms / 1e3)},
+          "decode": {"analytic_compute_s": dec_t["compute_s"],
+                     "analytic_memory_s": dec_t["memory_s"],
+                     "measured_device_ms": decode_ms,
+                     "bound_share": max(dec_t["compute_s"],
+                                        dec_t["memory_s"])
+                     / (decode_ms / 1e3)},
+          "launches": {k: counts[k] for k in FLASH}})
+    check(FLOP_RATIO_BOUNDS[0] <= ratio <= FLOP_RATIO_BOUNDS[1],
+          f"launch-reports: counted prefill FLOPs {flops} are {ratio} of "
+          f"the model's {pre_cost.flops}, outside {FLOP_RATIO_BOUNDS}")
+    check_path(counts, "launch-reports", FLASH,
+               ("multi_probe", "bloom_build", "probe", "joinmap_build",
+                "joinmap_lookup", *API_ONLY))
+    del model, params, caches, state
+    torch.cuda.empty_cache()
+    return counts
+
+
 def record_routes(L, replay=None) -> tuple:
     """Wrap `layers.moe_route` so that each call's `Route` is kept in call
     order; with `replay` (the routes of an earlier run on the same tokens,
@@ -3188,6 +3470,8 @@ def main() -> int:
     counts["curation"] = curation_phase(torch, np, kb, sj, fa)
     counts["dist-api"] = dist_api_phase(torch, np, kb, sj, fa, bloom, dev,
                                         api)
+    counts["dist-pod"] = dist_pod_phase(torch, np, kb, sj, fa, bloom, dev,
+                                        api, smi)
     counts["dist-exchange"] = dist_exchange_phase(torch, np, kb, sj, fa,
                                                   dev, api)
     counts["dist-tpch"] = dist_tpch_phase(torch, kb, sj, fa, cat, args.sf,
@@ -3201,6 +3485,8 @@ def main() -> int:
     worst.update(aworst)
     for path, (spec, tol) in SERVE_PATHS.items():
         counts[path] = serve_phase(torch, kb, sj, fa, path, spec, tol)
+    counts["launch-reports"] = launch_reports_phase(torch, kb, sj, fa, dev,
+                                                    smi)
     counts["train"] = train_phase(torch, np, kb, sj, fa)
     counts["train-ft"] = train_ft_phase(torch, np, kb, sj, fa)
 

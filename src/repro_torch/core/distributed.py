@@ -18,8 +18,10 @@ The semi-join alternative (`distributed_semi_join`) must all-gather the
 "succinct filter" insight mapped onto device collectives.
 
 A sharded array is a list of per-shard tensors, entry `s` on
-`mesh.devices[s]` of a `repro_torch.launch.mesh.DataMesh`; concatenating
-the shards on the host gives the global array. One controller process
+`mesh.devices[s]` of a `repro_torch.launch.mesh.DataMesh`, or of a
+`Mesh` over ("pod", "data") (shards pod-major); concatenating the shards
+on the host gives the global array. On a multi-pod mesh the filter is
+OR-all-reduced over "pod" and then over "data", as the reference's is. One controller process
 drives every shard, and a collective is a set of `.to(device)` copies
 (peer copies between distinct GPUs). On a CPU shard K2 and K3 run their
 plain torch versions; the filter is bit-identical either way. Filter
@@ -78,20 +80,51 @@ def _or_all_reduce_tree(words: Shards, devices: Sequence) -> Shards:
     return out
 
 
+def shard_axes(mesh, axis: str = "data") -> Tuple[str, ...]:
+    """The axes rows are sharded over: ("pod", axis) on a multi-pod
+    mesh, else (axis,). They must be every axis of a mesh with devices,
+    in its order, so that shard `s` lives on `mesh.devices[s]`."""
+    axes = ("pod", axis) if "pod" in mesh.axis_names else (axis,)
+    if tuple(mesh.axis_names) != axes or mesh.devices is None:
+        raise ValueError(f"a transfer mesh has devices and the axes "
+                         f"{axes}; got {tuple(mesh.axis_names)}")
+    return axes
+
+
+def _axis_groups(mesh, axis: str) -> List[List[int]]:
+    """The shards that differ only in their coordinate along `axis`, one
+    list a group (row-major shard order)."""
+    names = list(mesh.axis_names)
+    sizes = [mesh.shape[a] for a in names]
+    i = names.index(axis)
+    inner = int(np.prod(sizes[i + 1:], dtype=np.int64))
+    outer = int(np.prod(sizes[:i], dtype=np.int64))
+    return [[o * sizes[i] * inner + j * inner + r for j in range(sizes[i])]
+            for o in range(outer) for r in range(inner)]
+
+
 def distributed_bloom_build(lo: Shards, hi: Shards, mask: Shards,
                             nblocks: int, mesh, k: int = bloom.DEFAULT_K,
-                            tree_or: bool = False) -> Shards:
-    """Local build on every shard (K2) + OR all-reduce => the global
-    filter's words, one copy on each shard's device."""
+                            tree_or: bool = False,
+                            axis: str = "data") -> Shards:
+    """Local build on every shard (K2) + OR all-reduce over each shard
+    axis in turn ("pod" first on a multi-pod mesh, inside each axis's
+    groups) => the global filter's words, one copy on each shard's
+    device."""
     from repro_torch.kernels.bloom import ops as kb
     words = []
     for s in range(len(lo)):
         with _on(lo[s].device):
             words.append(kb.build(lo[s], hi[s], nblocks, valid=mask[s],
                                   k=k))
-    if tree_or:
-        return _or_all_reduce_tree(words, mesh.devices)
-    return _or_all_reduce(words, mesh.devices)
+    reduce = _or_all_reduce_tree if tree_or else _or_all_reduce
+    for a in shard_axes(mesh, axis):
+        for group in _axis_groups(mesh, a):
+            out = reduce([words[s] for s in group],
+                         [mesh.devices[s] for s in group])
+            for s, w in zip(group, out):
+                words[s] = w
+    return words
 
 
 def make_distributed_transfer(mesh, nblocks: int,
@@ -101,17 +134,16 @@ def make_distributed_transfer(mesh, nblocks: int,
 
     (build_lo, build_hi, build_mask) live on the building relation's
     shards; (probe_lo, probe_hi, probe_mask) on the probing relation's.
-    Returns the probing relation's reduced mask, still sharded. The
-    reference also ORs across a leading "pod" axis of multi-pod meshes;
-    a `DataMesh` has one axis, so that branch has no counterpart."""
+    Returns the probing relation's reduced mask, still sharded. On a
+    multi-pod mesh the rows are sharded over ("pod", axis), pod-major,
+    and the filter ORed over "pod" and then over `axis`."""
     from repro_torch.kernels.bloom import ops as kb
-    p = axis_size(mesh, axis)
-    if p != len(mesh.devices):
-        raise ValueError(f"mesh has no axis {axis!r}")
+    shard_axes(mesh, axis)
+    p = len(mesh.devices)
 
     def edge(blo, bhi, bmask, plo, phi, pmask) -> Shards:
         words = distributed_bloom_build(blo, bhi, bmask, nblocks, mesh,
-                                        k=k, tree_or=tree_or)
+                                        k=k, tree_or=tree_or, axis=axis)
         out = []
         for s in range(p):
             with _on(plo[s].device):
@@ -149,11 +181,13 @@ def shard_table_arrays(keys: np.ndarray, mesh, axis: str = "data",
                        bucket: bool = False
                        ) -> Tuple[Shards, Shards, Shards]:
     """Host helper: split int64 keys into padded (lo, hi, mask) shards,
-    row-sharded over `axis` (the halves as their int32 bit pattern, the
-    mask as bool; each upload counted by `device_plane`). With
+    row-sharded over `shard_axes(mesh, axis)` (the halves as their
+    int32 bit pattern, the mask as bool; each upload counted by
+    `device_plane`). With
     `bucket=True` the per-shard row count is rounded up to a
     power-of-two bucket (the engine's padding contract)."""
-    n_shards = axis_size(mesh, axis)
+    n_shards = int(np.prod([axis_size(mesh, a)
+                            for a in shard_axes(mesh, axis)]))
     n = len(keys)
     per = -(-n // n_shards)
     if bucket:

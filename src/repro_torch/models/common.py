@@ -101,6 +101,19 @@ class ModelConfig:
         """Total parameters (exact, from the layout's shapes)."""
         return sum(math.prod(s) for s in _leaves(param_shapes(self)))
 
+    def active_param_count(self) -> int:
+        """Parameters active per token (MoE: top_k + shared experts only)."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        m = self.moe
+        # count routed expert params then scale by top_k/num_experts
+        per_expert = 3 * self.d_model * m.d_ff_expert
+        n_moe = len(moe_layer_indices(self))
+        routed = n_moe * m.num_experts * per_expert
+        active_routed = n_moe * m.top_k * per_expert
+        return total - routed + active_routed
+
 
 def moe_layer_indices(cfg: ModelConfig) -> Sequence[int]:
     if cfg.moe is None:
@@ -238,6 +251,30 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
         out["cross"] = _stacked({**_attn_shapes(cfg), "ln_x": (d,)},
                                 cfg.n_layers)
     return out
+
+
+#: the leaves `init_params` keeps in f32 whatever `cfg.dtype` is: norms'
+#: weights, the MoE router, Mamba-2's per-head scalars
+F32_LEAVES = frozenset({"ln", "ln_f", "ln_x", "enc_ln_f", "router",
+                        "a_log", "dt_bias", "d_skip"})
+
+
+def _with_names(tree, fn, name: str = ""):
+    """`fn(leaf name, shape)` over a tree of shape tuples (a leaf's name
+    is its dict key; a list entry keeps its parent's)."""
+    if isinstance(tree, dict):
+        return {k: _with_names(v, fn, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_with_names(v, fn, name) for v in tree]
+    return fn(name, tree)
+
+
+def abstract_params(cfg: ModelConfig, device="meta") -> Dict[str, Any]:
+    """`init_params`' tree as empty tensors of its shapes and dtypes on
+    `device` (default "meta": no storage), drawing nothing."""
+    return _with_names(param_shapes(cfg), lambda name, shape: torch.empty(
+        shape, device=device,
+        dtype=torch.float32 if name in F32_LEAVES else cfg.dtype))
 
 
 # --------------------------------------------------------------------------

@@ -34,9 +34,12 @@ Differences from the reference, on purpose:
     such tensor has 503 M entries);
   * the SSD's three- and four-operand einsums run as pairs of products
     (the same f32 sums, in another order).
-The reference's sharding hints (`parallel/hints.py`) are identities
-without a mesh and are left out (they return with the distributed
-runtime); so is its MoE's token grouping, one group without a mesh.
+The reference's sharding hints (`parallel.hints`) are called where the
+reference calls them; each returns its tensor as it is (one controller,
+no partitioner). The MoE splits its tokens into `hints.dp_size()` groups
+as the reference does: one group without a mesh, one a data-parallel
+shard under `launch.mesh.set_mesh`, each with its own capacity and queue
+positions.
 
 Training differentiates these functions with torch's autograd. K8 has
 no backward (nor has the reference's Pallas kernel), so the training
@@ -60,6 +63,7 @@ from repro_torch.kernels.flashattn.ref import masked_logits, sdpa_ref
 from repro_torch.models.common import (
     AttnConfig, MambaConfig, ModelConfig, MoEConfig,
 )
+from repro_torch.parallel import hints as HT
 
 # --------------------------------------------------------------------------
 # norms & basics
@@ -292,6 +296,8 @@ def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, a: AttnConfig,
     cos, sin = rope_tables(positions, a.head_dim, a.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    layout = HT.attn_layout(a.num_heads, s)
+    q, k, v = HT.hint_qkv(q, k, v, layout)
 
     if cache is None:
         kv_valid = torch.ones(k.shape[:2], dtype=torch.bool, device=x.device)
@@ -305,6 +311,7 @@ def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, a: AttnConfig,
         out = _sdpa(q, new_cache.k.to(q.dtype), new_cache.v.to(q.dtype),
                     positions, kv_pos, kv_valid, causal=a.causal,
                     window=a.sliding_window)
+    out = HT.hint_attn_out(out, layout)
     y = out.reshape(b, s, a.num_heads * a.head_dim) @ p["wo"]
     return x + y, new_cache
 
@@ -341,8 +348,11 @@ def _mla_attention(p, x, h, a: AttnConfig, positions, cache, ring):
     # hd + dr, sliced back after)
     qq = torch.cat([q, q_rope], dim=-1)
     kk = torch.cat([k_nope, kr_all.expand(b, skv, nh, dr)], dim=-1)
+    layout = HT.attn_layout(nh, s)
+    qq, kk, vv = HT.hint_qkv(qq, kk, vv, layout)
     out = _sdpa(qq, kk, vv, positions, kv_pos, kv_valid, causal=a.causal,
                 window=None)
+    out = HT.hint_attn_out(out, layout)
     y = out.reshape(b, s, nh * hd) @ p["wo"]
     return x + y, cache
 
@@ -386,59 +396,78 @@ def mlp(p, x, act: str, norm_kind: str = "rmsnorm"):
 
 
 class Route(NamedTuple):
-    """A MoE layer's routing of T tokens: each token's top-k experts
-    (`top_e`, by descending weight) and weights renormalised over them
-    (`top_w`, f32), each (token, slot)'s place in its expert's queue
-    (`pos`, counted over the tokens and slots in order), whether it fits
-    the expert's `capacity` (`keep`)."""
+    """A MoE layer's routing of T tokens in `groups` equal groups of
+    consecutive tokens: each token's top-k experts (`top_e`, by
+    descending weight) and weights renormalised over them (`top_w`,
+    f32), each (token, slot)'s place in its expert's queue in its group
+    (`pos`, counted over the group's tokens and slots in order), whether
+    it fits the expert's `capacity` in that group (`keep`)."""
     top_w: torch.Tensor     # [T, k] f32
     top_e: torch.Tensor     # [T, k] int64
     pos: torch.Tensor       # [T, k] int64
     keep: torch.Tensor      # [T, k] bool
     capacity: int
+    groups: int
 
 
 def moe_route(router: torch.Tensor, h: torch.Tensor, m: MoEConfig,
               s: int) -> Route:
-    """The reference's routing with one token group: f32 router logits,
-    softmax, top-k renormalised, capacity int(cf * T * k / E) (at least
-    1), or T at decode (s == 1: dropless). `h` is [T, d]."""
+    """The reference's routing: the T tokens split into G = dp_size()
+    groups (1 when G does not divide T; G is the ambient mesh's
+    data-parallel ways), f32 router logits, softmax, top-k renormalised,
+    each group's capacity int(cf * Tg * k / E) (at least 1), or Tg at
+    decode (s == 1: dropless), queue positions counted within the
+    group. `h` is [T, d]."""
     t = h.shape[0]
+    g = HT.dp_size()
+    if t % g:
+        g = 1
+    tg = t // g
     probs = torch.softmax(h.float() @ router, dim=-1)
     top_w, top_e = torch.topk(probs, m.top_k, dim=-1)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
-    cap = t if s == 1 else int(max(1, m.capacity_factor * t * m.top_k
-                                   / m.num_experts))
-    # each expert's row of (token, slot) picks, scanned along the row: a
-    # scan down [T*k, E] would run E-wide (336 ms of deepseek-v2-lite's
-    # 0.53 s prefill on an H100)
-    flat = F.one_hot(top_e.reshape(-1), m.num_experts).t().contiguous()
-    pos = ((torch.cumsum(flat, dim=1) - flat) * flat).sum(0)
+    cap = tg if s == 1 else int(max(1, m.capacity_factor * tg * m.top_k
+                                    / m.num_experts))
+    # each expert's row of (token, slot) picks in each group, scanned
+    # along the row: a scan down [T*k, E] would run E-wide (336 ms of
+    # deepseek-v2-lite's 0.53 s prefill on an H100)
+    flat = F.one_hot(top_e.reshape(-1), m.num_experts).t().contiguous() \
+        .reshape(m.num_experts, g, tg * m.top_k)
+    pos = ((torch.cumsum(flat, dim=2) - flat) * flat).sum(0)
     pos = pos.reshape(t, m.top_k)
-    return Route(top_w, top_e, pos, pos < cap, cap)
+    return Route(top_w, top_e, pos, pos < cap, cap, g)
 
 
 def moe(p, x, cfg: ModelConfig, norm_kind: str = "rmsnorm"):
-    """Top-k routed experts with a capacity (overflow tokens take only the
-    residual path), plus the shared experts run densely (deepseek). Each
-    expert's kept tokens are gathered into its rows of [E, C + 1, d] (a
-    dropped (token, slot) into the spare row C, whose output no token
-    takes), the experts run as batched products, and each (token, slot)
-    adds its expert's output times its weight (rounded to the model dtype,
-    as the reference's combine; 0 where dropped) back to the token, summed
-    in f32. Nothing waits on the device: no count of kept slots is read."""
+    """Top-k routed experts with a capacity per token group (overflow
+    tokens take only the residual path), plus the shared experts run
+    densely (deepseek). Each expert's kept tokens are gathered into its
+    rows of [E, G * (C + 1), d], group g's at rows g * (C + 1) onward (a
+    dropped (token, slot) into its group's spare row C, whose output no
+    token takes), the experts run as batched products, and each (token,
+    slot) adds its expert's output times its weight (rounded to the model
+    dtype, as the reference's combine; 0 where dropped) back to the
+    token, summed in f32. Nothing waits on the device: no count of kept
+    slots is read."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
     h = norm(x, p["ln"], norm_kind).reshape(t, d)
     r = moe_route(p["router"], h, m, s)
+    h = HT.hint(h.reshape(r.groups, t // r.groups, d), "batch", None,
+                None).reshape(t, d)
     tok = torch.arange(t, device=x.device).repeat_interleave(m.top_k)
     e = r.top_e.reshape(-1)
+    rows = r.capacity + 1
     c = r.pos.reshape(-1).clamp(max=r.capacity)
-    xin = h.new_zeros((m.num_experts, r.capacity + 1, d))
+    if r.groups > 1:                # group g's rows start at g * (C + 1)
+        c = c + tok // (t // r.groups) * rows
+    xin = h.new_zeros((m.num_experts, r.groups * rows, d))
     xin[e, c] = h[tok]
+    xin = HT.hint(xin, "model", None, None)
     hmid = silu(torch.bmm(xin, p["w1"])) * torch.bmm(xin, p["w3"])
-    xout = torch.bmm(hmid, p["w2"])                          # [E,C+1,d]
+    hmid = HT.hint(hmid, "model", None, None)
+    xout = torch.bmm(hmid, p["w2"])                       # [E,G(C+1),d]
     w = (r.top_w * r.keep).reshape(-1).to(x.dtype).float()
     y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
     y.index_add_(0, tok, xout[e, c].float() * w[:, None])
@@ -561,7 +590,9 @@ def mamba2(p, x: torch.Tensor, mb: MambaConfig,
         xh = xbc[..., :d_inner].reshape(b, s, nheads, mb.head_dim)
         B = xbc[..., d_inner:d_inner + n]
         C = xbc[..., d_inner + n:]
+        xh = HT.hint(xh, "batch", None, "model", None)
         dt = F.softplus(dt_raw.float() + p["dt_bias"])
+        dt = HT.hint(dt, "batch", None, "model")
         pad_len = (-s) % mb.chunk
 
         def zpad(t):
@@ -585,6 +616,7 @@ def mamba2(p, x: torch.Tensor, mb: MambaConfig,
         hstate = cache.ssm * dA[..., None, None] \
             + (dt[..., None, None] * xh.float()[..., None]
                * B.float()[:, None, None, :])
+        hstate = HT.hint(hstate, "batch", "model", None, None)
         y = torch.einsum("bhpn,bn->bhp", hstate, C.float())
         y = y.to(x.dtype).reshape(b, 1, nheads, mb.head_dim)
         cache.conv.copy_(xbc_win[:, 1:])

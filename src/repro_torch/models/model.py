@@ -350,3 +350,7 @@ class Model:
             x, caches, _ = self.backbone(params, x, pos, caches)
         x = L.norm(x, params["ln_f"], cfg.norm)
         return self.hidden_to_logits(params, x), caches
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

@@ -12,7 +12,9 @@
     held are one block's plus each block's input;
   * attention on the "auto" backend (`layers.attention_backend`), in
     this thread only, for the forward and the recomputation: the
-    hand-written flash kernel has no backward;
+    hand-written flash kernel has no backward; the recomputation also
+    runs under the ambient mesh of the forward (`launch.mesh.set_mesh`),
+    so a MoE block regroups its tokens as it did;
   * optional int8 gradient compression (`parallel.compress.
     fake_quant_int8`) of the accumulated gradient;
   * the optimizer update (`train.optim`), in place.
@@ -28,6 +30,7 @@ from typing import Any, Callable, Tuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.launch.mesh import get_abstract_mesh, set_mesh
 from repro_torch.models import layers as L
 from repro_torch.models.model import Batch, Model
 from repro_torch.train.tree import leaves, unflatten
@@ -51,10 +54,10 @@ def _remat_model(model: Model, enabled: bool) -> Model:
     model = copy.copy(model)
     orig = model._apply_block
 
-    def run(kind, is_moe, collect_aux, p, x, positions):
+    def run(kind, is_moe, collect_aux, mesh, p, x, positions):
         # the recomputation may run in autograd's own thread: set the
-        # attention backend there too
-        with L.attention_backend("auto"):
+        # attention backend and the forward's mesh there too
+        with L.attention_backend("auto"), set_mesh(mesh):
             return orig(kind, is_moe, p, x, positions, None, None,
                         collect_aux)
 
@@ -64,8 +67,8 @@ def _remat_model(model: Model, enabled: bool) -> Model:
             return orig(kind, is_moe, p, x, positions, cache, ring,
                         collect_aux)
         return torch.utils.checkpoint.checkpoint(
-            run, kind, is_moe, collect_aux, p, x, positions,
-            use_reentrant=False)
+            run, kind, is_moe, collect_aux, get_abstract_mesh(), p, x,
+            positions, use_reentrant=False)
 
     model._apply_block = ckpt_block
     return model

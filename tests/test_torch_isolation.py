@@ -35,7 +35,11 @@ def test_port_sources_import_no_jax_or_reference():
     names = {str(f.relative_to(PORT)) for f in files}
     for need in ("train/optim.py", "train/step.py", "train/tree.py",
                  "checkpoint/manager.py", "ft/runner.py",
-                 "launch/train.py", "parallel/compress.py"):
+                 "launch/train.py", "parallel/compress.py",
+                 "launch/analytic.py", "launch/specs.py",
+                 "launch/dryrun.py", "launch/roofline.py",
+                 "launch/mesh.py", "parallel/hints.py",
+                 "parallel/sharding.py"):
         assert need in names, need
     bad = [(str(f.relative_to(SRC)), root) for f in files
            for root in _imported_roots(f)
@@ -320,6 +324,31 @@ def test_port_trains_without_jax_or_reference_in_process(tmp_path):
     assert "LOADED []" in out.stdout
     assert "finished at step 3" in out.stdout
     assert "finished at step 5" in out.stdout
+
+
+def test_launch_reports_without_jax_or_reference_in_process(tmp_path):
+    """A fresh interpreter writes the dry-run report of two cells on both
+    production meshes (the FLOP trace on the meta device) and the
+    roofline over them, under a temp directory, and ends with neither
+    `jax`, `ml_dtypes` nor `repro` loaded."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import dryrun, roofline\n"
+        f"root = {str(tmp_path)!r}\n"
+        "for shape in ('decode_32k', 'long_500k'):\n"
+        "    assert dryrun.main(['--arch', 'mamba2-370m', '--shape', shape,"
+        " '--reports', root]) == 0\n"
+        "assert roofline.main(['--mesh', 'multi', '--reports', root]) == 0\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'repro', "
+        "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.'))]\n"
+        "print('LOADED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+    assert len(list((tmp_path / "dryrun").glob("*.json"))) == 4
+    assert (tmp_path / "roofline_multi.md").exists()
 
 
 def test_train_on_cuda_without_cuda_raises(no_cuda):

@@ -2,7 +2,9 @@
 compress`) on the CPU: the properties `tests/test_train.py` holds the
 reference to — the loss falls, microbatch invariance, remat equals no
 remat, Adafactor trains with a small state, compressed gradients train,
-bf16 accumulation is close to f32, clipping and the schedule — and the
+bf16 accumulation is close to f32 (and the default f32 buffer holds an
+f32 sum over 16 microbatches, which a bf16 one does not), clipping and
+the schedule — and the
 int8 compression against the reference's: `fake_quant_int8` bit for bit,
 `compressed_psum_int8` over an 8-shard CPU `DataMesh` against the
 reference's `shard_map` version on 8 forced host devices (a subprocess,
@@ -127,6 +129,54 @@ def test_bf16_accum_close_to_fp32():
         res[dt] = float(metrics["loss"])
     assert res[torch.bfloat16] == pytest.approx(res[torch.float32],
                                                 rel=1e-2)
+
+
+class _Recorder:
+    """An optimizer that keeps the gradient the step hands it and leaves
+    the parameters as they are."""
+
+    def __init__(self):
+        self.grads = None
+
+    def init(self, params):
+        return ()
+
+    def update(self, grads, state, params):
+        self.grads = [g.clone() for g in leaves(grads)]
+        return params, state, {}
+
+
+def test_accumulation_buffer_holds_an_f32_sum():
+    """At 16 microbatches of qwen's smoke config (bf16 parameters and
+    gradients), the default buffer is f32 and the accumulated gradient
+    lies within 1e-6 (relative L2) of the f32-exact sum of the 16
+    microbatch gradients (each taken alone, summed in f64); a bf16
+    buffer falls outside that bound."""
+    assert TrainConfig().accum_dtype == torch.float32
+    cfg = get_smoke_config("qwen1.5-4b")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = next(_batches(1, B=16, S=16, seed=3))
+    rec = _Recorder()
+    alone = None
+    for i in range(16):
+        build_train_step(model, rec, TrainConfig(microbatches=1))(
+            params, (), Batch(batch.tokens[i:i + 1],
+                              batch.targets[i:i + 1]))
+        g64 = [g.double() for g in rec.grads]
+        alone = g64 if alone is None else [a + g for a, g in zip(alone,
+                                                                 g64)]
+    want = torch.cat([a.flatten() / 16 for a in alone])
+    err = {}
+    for dt in (None, torch.bfloat16):
+        kw = {} if dt is None else {"accum_dtype": dt}
+        build_train_step(model, rec, TrainConfig(microbatches=16, **kw))(
+            params, (), batch)
+        assert all(g.dtype == (dt or torch.float32) for g in rec.grads)
+        got = torch.cat([g.double().flatten() for g in rec.grads])
+        err[dt] = float((got - want).norm() / want.norm())
+    assert err[None] <= 1e-6, err
+    assert err[torch.bfloat16] > 1e-6, err
 
 
 def test_grad_clip_and_schedule():
