@@ -327,6 +327,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              measured prefill seconds (K8) and decode device ms, and the
              bound's share of each. K8 launches on the served calls,
              K1-K7 never;
+11d. serve-sharded — path `serve-sharded` (`SERVE_SHARDED`): mixtral-
+             8x7b at its published widths cut to 8 layers, sharded over
+             a (2, 2) ("data", "model") mesh of four points of the card
+             through `serve.serve_config(..., mesh=...)`: the parameters
+             drawn straight into their shards, every point on its own
+             thread and stream, K8 on its 16 query and 4 kv heads, the
+             row-parallel sums and the vocab-parallel embedding
+             all-reduced, the logits all-gathered. K8 launches 32 times
+             per prefill call and per decode step (8 layers x 4 points),
+             K1-K7 never; each point must hold `dryrun.local_bytes` of
+             `param_specs` and `cache_spec`'s share of the caches; the
+             collective counts and bytes are printed. The check: the same
+             model unsharded (`serve_config` on the same weights and
+             tokens, run first under the mesh's abstract twin, so its MoE
+             groups are the sharded run's), its greedy tokens fed to the
+             sharded model with its routing choices replayed on each
+             point, every logit row within `SHARDED_MAX_ABS` and
+             `SHARDED_MEAN_ABS`; first the same routing on its own, its
+             logits reported and its routing held to the unsharded run's
+             (`sharded_route_check`: capacities, groups, the points of a
+             data shard alike, a group's queues where its choices agree;
+             at most `SHARDED_ROUTE_SHARE` of the choices differing);
 12. train  — path `train`: qwen1.5-4b at its full config (3.95 B
              parameters, bf16, random weights from seed 0) through
              `train.step.build_train_step` with AdamW (cosine schedule,
@@ -371,9 +393,9 @@ cross decode shapes, whose launches are path `serve-whisper`'s)
 "library_ms", "launches_by_path"}]}` (`launches_by_path` has every
 path's count, the `dist-*` (`dist-pod` too), `launch-reports`,
 `torch-tpch`, `serve-mixtral`,
-`serve-mamba2`, `serve-whisper`, `serve-llava`, `train` and
-`train-ft` paths' included (K8's (128, 128) rows count
-`serve-mixtral`'s and `serve-llava`'s launches there; every kernel 0
+`serve-mamba2`, `serve-whisper`, `serve-llava`, `serve-sharded`, `train`
+and `train-ft` paths' included (K8's (128, 128) rows count
+`serve-mixtral`'s, `serve-llava`'s and `serve-sharded`'s launches there; every kernel 0
 on `torch-tpch`, `serve-mamba2`, `train` and `train-ft`); `plain_device` says where
 `plain_ms` was taken: "cuda" for CUDA-event times on the card, "cpu" for
 the sequential K4 and K6a builds timed on the host; K6's and K8's rows
@@ -533,6 +555,44 @@ SERVE_PATHS = {
                                       TF_ENCDEC_MEAN_ABS)),
     "serve-llava": (SERVE_LLAVA, (TF_VLM_MAX_ABS, TF_VLM_MEAN_ABS)),
 }
+#: serve-sharded: mixtral-8x7b at its published widths cut to 8 of its 32
+#: layers (11.87 B parameters, 23.74 GB of bf16), served sharded on a
+#: (2, 2) ("data", "model") mesh of four points of the card (`cuda:0` x
+#: 4, `spmd.run`: a thread and a stream a point) at serve-mixtral's
+#: batch, prompt and tokens. fsdp off (`dryrun.serve_fsdp`): each point
+#: holds half the model (its 16 of 32 query heads, 4 of 8 kv heads, 4 of
+#: 8 experts, 16,000 of the 32,000 vocabulary rows and columns), so the
+#: data axis of 2 holds it twice: 47.5 GB of shards on the card, 55 GB
+#: at the draws' peak (one full 7.5 GB leaf of stacked experts beside
+#: the shards), the unsharded run's 23.74 GB freed before
+SERVE_SHARDED = {"arch": "mixtral-8x7b", "config": "full", "layers": 8,
+                 "batch": 2, "prompt_len": 4080, "gen_tokens": 32,
+                 "mesh": (2, 2)}
+#: Its check: the sharded run fed the unsharded greedy run's tokens,
+#: taking its routing choices, against its logits. They differ where the
+#: sharded sums round: wo's, w2's and the combine's partial products are
+#: rounded to bf16 on each point before their f32 sum (one rounding
+#: unsharded), and K8's decode splits the cache by local heads. On the
+#: CPU (`tools/tf_gap.py --arch mixtral-8x7b --mesh 2x2 --device cpu`,
+#: K8's plain version, full width, batch 2, prompt 256, 6 steps),
+#: replayed: max |d| 0.0469 / 0.0664 / 0.0674 and mean 0.0080 / 0.0110
+#: / 0.0114 at 1 / 2 / 4 layers; at the x1.25 a doubling the other MoE
+#: bounds assume, about 0.11 / 0.018 at 8. Routing on its own it lies
+#: 0.0547 / 0.1133 / 0.125 and 0.0085 / 0.0158 / 0.0189 away (reported,
+#: not gated). The bounds are serve-mixtral's, over twice that; the
+#: logits have std ~1.3 at init: a wrong shard, head, expert or sum
+#: moves them by about that
+SHARDED_MAX_ABS = 0.25
+SHARDED_MEAN_ABS = 0.04
+#: The sharded run routing on its own: the most of its (token, layer)
+#: choices whose experts may differ from the unsharded run's. The sums'
+#: rounding moves the residual about as much as K8 against dense
+#: attention does (replayed gaps 0.0859 / 0.0136 here against
+#: serve-mixtral's 0.0938 / 0.0143), and there 7.55% of mixtral's
+#: choices flip at 16 layers; twice that. A fault in the sharded MoE
+#: (a wrong expert row, capacity or sum) moves later layers' residual
+#: by its own scale, which flips a choice of top-2 of 8 at random
+SHARDED_ROUTE_SHARE = 0.15
 #: the reference's bf16 tolerance for the flash kernel
 #: (tests/test_kernels_flash.py)
 FLASH_TOL = 2e-2
@@ -3137,12 +3197,145 @@ def record_routes(L, replay=None) -> tuple:
     seen, inner = [], L.moe_route
     queue = iter(replay) if replay is not None else None
 
-    def wrapped(router, h, m, s):
-        route = inner(router, h, m, s) if queue is None else next(queue)
+    def wrapped(router, h, m, s, groups=None):
+        route = inner(router, h, m, s, groups) if queue is None \
+            else next(queue)
         seen.append(route)
         return route
     L.moe_route = wrapped
     return seen, lambda: setattr(L, "moe_route", inner)
+
+
+def sharded_routes(L, SP, routes: list, replay: bool):
+    """Wrap `layers.moe_route` for a sharded run (`spmd.run`): each mesh
+    point's n-th call is matched with the n-th of `routes` (an unsharded
+    run's on the same tokens, in call order) cut to the point's rows (its
+    data shard's tokens: one group of the unsharded run's). With `replay`
+    the call returns that cut; without, it routes on its own and the pair
+    (its route, the cut) is kept under the point. Returns (the kept pairs
+    by point, a function that takes the wrapper off)."""
+    inner, calls, kept = L.moe_route, {}, {}
+
+    def wrapped(router, h, m, s, groups=None):
+        ctx = SP.context()
+        n = calls.get(ctx.point, 0)
+        calls[ctx.point] = n + 1
+        r, t = routes[n], h.shape[0]
+        shard = 0
+        if r.top_e.shape[0] != t:       # the batch is split over data
+            shard = (ctx.coords.get("pod", 0) * ctx.mesh.shape.get("data", 1)
+                     + ctx.coords.get("data", 0))
+        rows = slice(shard * t, (shard + 1) * t)
+        cut = L.Route(*(x[rows].to(h.device) for x in r[:4]), r.capacity,
+                      r.groups * t // r.top_e.shape[0])
+        if replay:
+            return cut
+        own = inner(router, h, m, s, groups)
+        kept.setdefault(ctx.point, []).append((own, cut))
+        return own
+    L.moe_route = wrapped
+    return kept, lambda: setattr(L, "moe_route", inner)
+
+
+def sharded_route_check(torch, SP, kept: dict, mesh, n_moe: int) -> dict:
+    """A sharded run's own routing (`sharded_routes`' kept pairs) against
+    the unsharded run's, call i being MoE layer i % `n_moe` (prefill
+    first). The (token, layer) choices whose experts differ, counted over
+    the first point of each data shard (its tokens once): in all, at
+    prefill, at decode and by layer. And `routes_consistent`, which holds
+    where every call's capacity and group count equal the unsharded
+    run's, the points of a data shard route alike (experts, weights,
+    positions, kept), and in each group whose experts all agree the
+    positions and kept flags equal the unsharded run's (a fault of the
+    sharded routing breaks one of these; rounding does not)."""
+    faults, shards = [], {}
+    for point, pairs in sorted(kept.items()):
+        c = SP.point_coords(mesh, point)
+        key = tuple(v for a, v in c.items() if a != "model")
+        shards.setdefault(key, []).append((point, pairs))
+    counts = {"all": [0, 0], "prefill": [0, 0], "decode": [0, 0]}
+    layers = [[0, 0] for _ in range(n_moe)]
+    compared = 0
+    for (first, pairs), *rest in shards.values():
+        for point, other in rest:
+            if len(other) != len(pairs) or not all(
+                    torch.equal(x, y) for (a, _), (b, _) in zip(pairs, other)
+                    for x, y in zip(a[:4], b[:4])):
+                faults.append(f"points {first} and {point} of one data "
+                              "shard route differently")
+        for i, (own, cut) in enumerate(pairs):
+            if (own.capacity, own.groups) != (cut.capacity, cut.groups):
+                faults.append(f"point {first} call {i}: capacity, groups "
+                              f"{own.capacity}, {own.groups} against "
+                              f"{cut.capacity}, {cut.groups}")
+            differ = (own.top_e.sort(-1).values
+                      != cut.top_e.sort(-1).values).any(-1)
+            n, t = int(differ.sum()), differ.shape[0]
+            phase = "prefill" if i < n_moe else "decode"
+            for tally in (counts["all"], counts[phase], layers[i % n_moe]):
+                tally[0] += n
+                tally[1] += t
+            same = (own.top_e == cut.top_e).all(-1)
+            tg = t // max(own.groups, 1)
+            for g0 in range(0, t, tg):
+                rows = slice(g0, g0 + tg)
+                if not bool(same[rows].all()):
+                    continue
+                compared += 1
+                if not (torch.equal(own.pos[rows], cut.pos[rows])
+                        and torch.equal(own.keep[rows], cut.keep[rows])):
+                    faults.append(f"point {first} call {i}: a group routed "
+                                  "alike queues or drops otherwise")
+    return {"route_choices": counts["all"][1],
+            "route_choices_differing": counts["all"][0],
+            **{"route_differing_share" + ("" if k == "all" else "_" + k):
+               n / max(t, 1) for k, (n, t) in counts.items()},
+            "route_differing_share_by_layer": [n / max(t, 1)
+                                               for n, t in layers],
+            "route_groups_compared": compared,
+            "routes_consistent": not faults, "route_faults": faults[:4]}
+
+
+def sharded_gap(torch, L, SP, serve, ref: dict, model, params, mesh,
+                routes=None, replay: bool = False) -> dict:
+    """The sharded model (`params` on `mesh`) fed the unsharded greedy run
+    `ref`'s prompt and tokens (`serve.generate_sharded`, forced), against
+    `ref`'s logits: each logit row's max and mean |d| and argmax
+    agreement. Given the unsharded run's recorded `routes` (its last
+    pass is the one compared): with `replay` every point routes as it
+    did (`sharded_routes`), so the two differ only where the sharded
+    sums round; without, every point routes on its own and its routing
+    is held against the unsharded run's (`sharded_route_check`)."""
+    from repro_torch.models.common import moe_layer_indices
+    g = ref["tokens"].shape[1] - 1
+    n_moe = len(moe_layer_indices(model.cfg))
+    kept, restore = sharded_routes(L, SP, routes[-n_moe * (g + 1):],
+                                   replay) if routes is not None \
+        else ({}, None)
+    try:
+        tf = serve.generate_sharded(model, params, ref["prompt"], g,
+                                    ref["cap"], mesh, forced=ref["tokens"])
+    finally:
+        if restore:
+            restore()
+    steps = []
+    for i, (a, r) in enumerate(zip(tf["logits"], ref["logits"])):
+        diff = (a.to(r.device) - r).abs()
+        steps.append({"step": i, "max_abs": float(diff.max()),
+                      "mean_abs": float(diff.mean()),
+                      "argmax_equal": int((a.to(r.device).argmax(-1)
+                                           == r.argmax(-1)).sum())})
+    out = {"max_abs": max(x["max_abs"] for x in steps),
+           "mean_abs": max(x["mean_abs"] for x in steps),
+           "argmax_agreement": sum(x["argmax_equal"] for x in steps)
+           / (ref["tokens"].shape[0] * len(steps)),
+           "routes_replayed": routes is not None and replay,
+           "forced_prefill_seconds": tf["prefill_seconds"],
+           "forced_decode_ms_per_token": tf["decode_seconds"] / g * 1e3,
+           "steps": steps}
+    if routes is not None and not replay:
+        out.update(sharded_route_check(torch, SP, kept, mesh, n_moe))
+    return out
 
 
 def route_differences(a: list, b: list) -> tuple:
@@ -3246,12 +3439,6 @@ def full_forward_gap(torch, L, res) -> dict:
             "steps": steps}
 
 
-def cache_tensors(caches: dict):
-    """Every tensor of a model's caches (`Model.init_cache`)."""
-    for c in caches["prefix"] + caches["slots"]:
-        yield from (c.conv, c.ssm) if hasattr(c, "conv") else (c.k, c.v)
-
-
 def spec_config(spec: dict):
     """The config a serve spec names: the registry's full or smoke config
     of its arch, cut to `spec["layers"]` layers where given."""
@@ -3339,9 +3526,8 @@ def serve_phase(torch, kb, sj, fa, path: str, spec: dict,
           "decode_ms_per_token": t_dec / g * 1e3,
           "decode_tok_s": b * g / t_dec, "peak_memory_bytes": peak,
           "param_bytes": n_params * res["params"]["embed"].element_size(),
-          "cache_bytes": sum(t.numel() * t.element_size() for t in
-                             cache_tensors(model.init_cache(
-                                 b, res["cap"], "meta"))),
+          "cache_bytes": serve.cache_bytes(model.init_cache(
+              b, res["cap"], "meta")),
           "launches": counts, "launches_expected": want,
           "sample": res["tokens"][0, :12].tolist()})
 
@@ -3395,6 +3581,131 @@ def serve_phase(torch, kb, sj, fa, path: str, spec: dict,
     for step, fn in (("prefill", prefill), ("decode", decode)):
         emit({"phase": "profile", "path": path, "step": step,
               **device_profile(torch, fn)})
+    return counts
+
+
+def serve_sharded_phase(torch, kb, sj, fa, dev) -> dict:
+    """Path `serve-sharded` (phase 11d): `SERVE_SHARDED`'s model through
+    `serve.serve_config(..., mesh=...)` on a mesh of four points of the
+    card, its launches and collectives counted, each point's parameter
+    and cache bytes held to the specs' shares, then the check against
+    the same model unsharded (`sharded_gap`). Returns the path's launch
+    counts."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.dryrun import local_bytes
+    from repro_torch.launch.mesh import make_test_mesh, set_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.common import abstract_params
+    from repro_torch.parallel import sharding as S
+    from repro_torch.parallel import spmd as SP
+    spec, path = SERVE_SHARDED, "serve-sharded"
+    cfg = spec_config(spec)
+    b, s, g = spec["batch"], spec["prompt_len"], spec["gen_tokens"]
+    shape = spec["mesh"]
+    mesh = make_test_mesh(shape, devices=[dev] * math.prod(shape))
+    torch.cuda.empty_cache()
+    # the unsharded run (outside the path's window) under the mesh's
+    # abstract twin, so both runs route in the same token groups
+    routes, restore = record_routes(L)
+    t0 = time.perf_counter()
+    try:
+        with set_mesh(make_test_mesh(shape)):
+            ref = serve.serve_config(cfg, b, s, g, dev)
+    finally:
+        restore()
+    unsharded = {"seconds": time.perf_counter() - t0,
+                 "prefill_seconds": ref["prefill_seconds"],
+                 "decode_ms_per_token": ref["decode_seconds"] / g * 1e3,
+                 "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    ref = {k: ref[k] for k in ("tokens", "logits", "prompt", "cap")}
+    torch.cuda.empty_cache()
+
+    read = launch_window(kb, sj, fa)  # the path's counts start at 0 here
+    SP.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = serve.serve_config(cfg, b, s, g, dev, mesh=mesh)
+    seconds = time.perf_counter() - t0
+    counts = read()                   # just after
+    comm = dict(SP.COMM)
+    peak = torch.cuda.max_memory_allocated()
+    one = expected_launches(cfg, g, len(res["passes"]))
+    want = {k: n * mesh.size for k, n in one.items()}
+    for name, n in counts.items():
+        check(n == want.get(name, 0),
+              f"{path} launched {name} {n} times, expected "
+              f"{want.get(name, 0)}")
+    specs = S.param_specs(cfg, mesh, fsdp=res["fsdp"])
+    per_point = local_bytes(abstract_params(cfg), specs, mesh)
+    held = [SP.tree_local_bytes(res["params"], p) for p in range(mesh.size)]
+    check(held == [per_point] * mesh.size,
+          f"{path}: points hold {held} parameter bytes, the specs "
+          f"{per_point} each")
+    cache_share = local_bytes(
+        res["model"].init_cache(b, res["cap"], "meta"),
+        S.cache_spec(cfg, mesh, b), mesh)
+    row = res["device_bytes"][str(dev)]
+    check(row["caches"] == cache_share * mesh.size,
+          f"{path}: caches {row['caches']} bytes, cache_spec's share "
+          f"{cache_share} a point")
+    vocab = cfg.vocab_size
+    check(tuple(res["tokens"].shape) == (b, g + 1)
+          and int(res["tokens"].min()) >= 0
+          and int(res["tokens"].max()) < vocab, f"{path}: bad tokens")
+    for lg in res["logits"]:
+        check(tuple(lg.shape) == (b, vocab)
+              and bool(torch.isfinite(lg).all()), f"{path}: bad logits")
+    t_pre, t_dec = res["prefill_seconds"], res["decode_seconds"]
+    published = spec_config({k: v for k, v in spec.items()
+                             if k != "layers"}).n_layers
+    emit({"phase": "serve", "path": path, "arch": spec["arch"],
+          "config": cfg.name, "layers": cfg.n_layers,
+          "published_layers": published, "params": cfg.param_count(),
+          "mesh": list(shape), "axes": list(mesh.axis_names),
+          "devices": [str(d) for d in mesh.devices], "fsdp": res["fsdp"],
+          "batch": b, "prompt_len": s, "gen_tokens": g, "cap": res["cap"],
+          "passes_seconds": res["passes"], "seconds": seconds,
+          "prefill_seconds": t_pre, "prefill_tok_s": b * s / t_pre,
+          "decode_ms_per_token": t_dec / g * 1e3,
+          "decode_tok_s": b * g / t_dec, "peak_memory_bytes": peak,
+          "param_bytes_per_point": per_point,
+          "cache_bytes_per_point": cache_share,
+          "device_bytes": res["device_bytes"], "collectives": comm,
+          "launches": counts, "launches_expected": want,
+          "greedy_tokens_equal_unsharded": float(
+              (res["tokens"] == ref["tokens"]).float().mean()),
+          "unsharded": unsharded, "sample": res["tokens"][0, :12].tolist()})
+
+    # the check: the sharded model fed the unsharded run's tokens, first
+    # routing on its own (its logits reported: a flipped choice is a
+    # discrete jump; its routing held to the unsharded run's), then
+    # taking the unsharded run's routing choices (its logits gated)
+    free = sharded_gap(torch, L, SP, serve, ref, res["model"],
+                       res["params"], mesh, routes)
+    free.pop("steps")
+    emit({"phase": "serve", "path": path,
+          "check": "sharded vs unsharded, own routing",
+          "tol_route_differing_share": SHARDED_ROUTE_SHARE, **free})
+    check(free["routes_consistent"],
+          f"{path}: the sharded routing is not the unsharded run's: "
+          f"{free['route_faults']}")
+    check(free["route_differing_share"] <= SHARDED_ROUTE_SHARE,
+          f"{path}: {free['route_differing_share']} of the sharded run's "
+          f"routing choices differ from the unsharded run's")
+    gap = sharded_gap(torch, L, SP, serve, ref, res["model"], res["params"],
+                      mesh, routes, replay=True)
+    emit({"phase": "serve", "path": path, "check": "sharded vs unsharded",
+          "tol_max_abs": SHARDED_MAX_ABS, "tol_mean_abs": SHARDED_MEAN_ABS,
+          **gap})
+    for x in gap["steps"]:
+        check(x["max_abs"] <= SHARDED_MAX_ABS
+              and x["mean_abs"] <= SHARDED_MEAN_ABS,
+              f"{path} step {x['step']}: sharded logits differ from the "
+              f"unsharded run's by {x['max_abs']} (mean {x['mean_abs']})")
+    emit({"phase": "serve", "path": path, "peak_memory_bytes_with_check":
+          torch.cuda.max_memory_allocated()})
+    del res, ref, routes
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -3485,6 +3796,7 @@ def main() -> int:
     worst.update(aworst)
     for path, (spec, tol) in SERVE_PATHS.items():
         counts[path] = serve_phase(torch, kb, sj, fa, path, spec, tol)
+    counts["serve-sharded"] = serve_sharded_phase(torch, kb, sj, fa, dev)
     counts["launch-reports"] = launch_reports_phase(torch, kb, sj, fa, dev,
                                                     smi)
     counts["train"] = train_phase(torch, np, kb, sj, fa)

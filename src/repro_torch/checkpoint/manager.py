@@ -16,9 +16,12 @@ so nothing beyond torch and numpy is needed.
 Writes are atomic (tmp dir + rename); `keep` bounds retained steps;
 async mode copies the tree to host memory, then writes on a background
 thread, so the train loop is blocked only for the device-to-host copy.
-Restore places each leaf on the target leaf's device and dtype. The
-reference's resharding restore (`shardings=`) has no counterpart: the
-port has no sharded training path yet.
+Restore places each leaf on the target leaf's device and dtype, or,
+given `shardings` (a tree of `parallel.sharding.NamedSharding` on a mesh
+with devices, such as `param_shardings`), as its shards on the mesh's
+devices (`parallel.spmd.Sharded`): the reference's resharding restore,
+which puts a checkpoint written on any mesh (or on one device) onto
+another. Each leaf is read once.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.parallel import spmd as SP
 from repro_torch.train.tree import leaves, unflatten
 
 
@@ -93,34 +97,47 @@ def _treedef(tree) -> str:
     return "*"
 
 
-def _from_numpy(arr: np.ndarray, logical: str, ref) -> torch.Tensor:
+def _from_numpy(arr: np.ndarray, logical: str, ref,
+                sharding=None) -> Any:
     arr = np.asarray(arr, order="C")        # keeps a 0-d leaf 0-d
     if logical == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
+    if isinstance(ref, (torch.Tensor, SP.Sharded)):
+        t = t.to(dtype=ref.dtype)
+    if sharding is not None:
+        return SP.shard_leaf(t, sharding.spec, sharding.mesh)
     if isinstance(ref, torch.Tensor):
-        return t.to(device=ref.device, dtype=ref.dtype)
+        return t.to(device=ref.device)
     return t
 
 
-def restore_tree(path: str, target_tree: Any) -> Any:
-    """Restore into `target_tree`'s structure, each leaf on its target
-    leaf's device and in its dtype. Raises AssertionError on a leaf count
-    or shape mismatch, as the reference does."""
+def restore_tree(path: str, target_tree: Any,
+                 shardings: Optional[Any] = None) -> Any:
+    """Restore into `target_tree`'s structure, each leaf in its target
+    leaf's dtype: on its device, or, given `shardings` (a tree of
+    `NamedSharding` in the target's structure), as its shards on the
+    sharding's mesh. Raises AssertionError on a leaf count or shape
+    mismatch, as the reference does."""
     flat = leaves(target_tree)
+    shard_flat = leaves(shardings) if shardings is not None \
+        else [None] * len(flat)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     assert manifest["n_leaves"] == len(flat), \
         f"checkpoint has {manifest['n_leaves']} leaves, target {len(flat)}"
+    assert len(shard_flat) == len(flat), \
+        f"{len(shard_flat)} shardings for {len(flat)} leaves"
     out = []
-    for i, ref in enumerate(flat):
+    for i, (ref, sh) in enumerate(zip(flat, shard_flat)):
         arr = np.load(os.path.join(path, f"{i}.npy"))
         expect = tuple(ref.shape) if hasattr(ref, "shape") \
             else tuple(np.shape(ref))
         assert tuple(arr.shape) == expect, \
             f"leaf {i}: ckpt {arr.shape} != target {expect}"
-        out.append(_from_numpy(arr, manifest["leaves"][i]["dtype"], ref))
+        out.append(_from_numpy(arr, manifest["leaves"][i]["dtype"], ref,
+                               sh))
     return unflatten(target_tree, out)
 
 
@@ -169,15 +186,17 @@ class CheckpointManager:
         else:
             work()
 
-    def restore(self, step: int, target_tree: Any) -> Any:
+    def restore(self, step: int, target_tree: Any,
+                shardings: Optional[Any] = None) -> Any:
         self.wait()
-        return restore_tree(self._step_dir(step), target_tree)
+        return restore_tree(self._step_dir(step), target_tree, shardings)
 
-    def restore_latest(self, target_tree: Any):
+    def restore_latest(self, target_tree: Any,
+                       shardings: Optional[Any] = None):
         step = self.latest_step()
         if step is None:
             return None, None
-        return step, self.restore(step, target_tree)
+        return step, self.restore(step, target_tree, shardings)
 
     def _gc(self):
         steps = self.all_steps()

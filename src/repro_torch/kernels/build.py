@@ -128,9 +128,9 @@ class LaunchCounts(dict):
         super().__init__((name, 0) for name in names)
         self._lock = threading.Lock()
 
-    def bump(self, name: str) -> None:
+    def bump(self, name: str, n: int = 1) -> None:
         with self._lock:
-            self[name] += 1
+            self[name] += n
 
     def reset(self) -> None:
         with self._lock:

@@ -24,8 +24,10 @@ an online softmax, skipping those it may not see, and writes its partial
 state to f32 scratch taken here with `torch.empty`; the last CTA of a
 (kv head, batch), found by a ticket on an int32 counter, merges them in
 the same launch. The counters live in a zeroed buffer kept per (device,
-stream), so calls on different streams never share one; the kernel sets
-each counter it used back to 0. On a CPU tensor it runs `flash_plain`,
+stream), so calls on different streams never share one (the points of a
+sharded run on one card each run on a stream of their own); the kernel
+sets each counter it used back to 0, and the buffers are grown under a
+lock. On a CPU tensor it runs `flash_plain`,
 the same online-softmax algorithm in torch over 128-row Q and KV blocks,
 at every Sq — the port's counterpart of running the reference's Pallas
 kernel in interpret mode. Any other device raises.
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -65,6 +68,7 @@ _LIB: Optional[ctypes.CDLL] = None
 #: zeroed, per (device index, stream handle); grown by a fresh
 #: `torch.zeros` only when a call has more groups
 _TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+_TICKETS_LOCK = threading.Lock()
 
 
 def _lib() -> ctypes.CDLL:
@@ -162,10 +166,11 @@ def flash_plain(q, k, v, q_pos, kv_pos, kv_valid, *, causal: bool = True,
 def _decode_tickets(dev: torch.device, stream: int,
                     groups: int) -> torch.Tensor:
     key = (dev.index, stream)
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < groups:
-        t = torch.zeros(groups, dtype=torch.int32, device=dev)
-        _TICKETS[key] = t
+    with _TICKETS_LOCK:
+        t = _TICKETS.get(key)
+        if t is None or t.numel() < groups:
+            t = torch.zeros(groups, dtype=torch.int32, device=dev)
+            _TICKETS[key] = t
     return t
 
 

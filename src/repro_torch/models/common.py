@@ -22,8 +22,10 @@ and `enc_ln_f`) and decoder cross-attention (`cross`, stacked on
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -282,11 +284,37 @@ def abstract_params(cfg: ModelConfig, device="meta") -> Dict[str, Any]:
 # --------------------------------------------------------------------------
 
 
+_PLACE = threading.local()
+
+
+@contextlib.contextmanager
+def placing(place):
+    """Inside the block, each leaf `init_params` would draw in this
+    thread is `place(shape, dtype, draw)` instead, where `draw()` draws
+    it as it would have been (`parallel.spmd.init_sharded` shards each
+    leaf as it is drawn, or draws nothing at all)."""
+    prev = getattr(_PLACE, "fn", None)
+    _PLACE.fn = place
+    try:
+        yield
+    finally:
+        _PLACE.fn = prev
+
+
 def _normal(gen: torch.Generator, shape, scale: float, dtype,
             by_lead: bool = False):
     """N(0, 1) * scale drawn in f32, cast to `dtype`. `by_lead` draws one
     leading index at a time into the result, so the f32 temporary is a
-    slice of it (the stacked experts of a full MoE are 9.6 GB in bf16)."""
+    slice of it (the stacked experts of a full MoE are 9.6 GB in bf16).
+    Under `placing`, the leaf goes through its hook."""
+    place = getattr(_PLACE, "fn", None)
+    if place is not None:
+        _PLACE.fn = None
+        try:
+            return place(tuple(shape), dtype, lambda: _normal(
+                gen, shape, scale, dtype, by_lead))
+        finally:
+            _PLACE.fn = place
     if by_lead and len(shape) > 1:
         out = torch.empty(shape, dtype=dtype, device=gen.device)
         for i in range(shape[0]):

@@ -41,6 +41,35 @@ as the reference does: one group without a mesh, one a data-parallel
 shard under `launch.mesh.set_mesh`, each with its own capacity and queue
 positions.
 
+Sharded (inside `parallel.spmd.run`, one thread a mesh point, each
+holding its local parameters and batch rows; with no shard context every
+function runs unsharded). Which dims of a leaf are split, and over which
+axes, is read from the leaf's spec (`spmd.split_axes`, `spmd.whole`),
+never from its shape. The collectives sit at the reference's hint sites:
+  * attention, where tp (the "model" axis) divides both the query and
+    the kv heads (`heads_split`): wq/wk/wv and the QKV biases are the
+    point's columns, K8 runs on its H/tp query and KVH/tp kv heads
+    (whole heads, as K8 takes them; its ring cache holds those kv
+    heads), and wo's partial product is all-reduced over "model". Where
+    the heads do not split whole (mixtral's 2 smoke kv heads on a model
+    axis of 4: `fit_spec` cuts `wk` mid-head), every attention leaf is
+    gathered over "model" and the block runs whole on each point;
+  * the MLP: w1/w3 are the point's columns of d_ff and w2's partial
+    product is all-reduced;
+  * the MoE: the router is replicated and the routing is the global one
+    (capacity from the global E; a data shard's tokens are exactly its
+    group); under expert parallelism a point holds E/tp experts and runs
+    only the (token, slot) pairs routed to them, at local expert indices
+    (the rest into a spare row with weight 0); otherwise d_ff is split
+    inside each expert; the f32 combine is all-reduced over "model";
+  * the embedding is a vocab-parallel lookup (`embed`), then an
+    all-reduce;
+  * with FSDP a leaf split over "data" is all-gathered just before use
+    and dropped after the layer.
+Partial products are summed in f32 and cast once (`spmd.all_reduce`).
+MLA, Mamba-2 and whisper's cross-attention raise under a mesh of more
+than one point (ROADMAP item 10e.2).
+
 Training differentiates these functions with torch's autograd. K8 has
 no backward (nor has the reference's Pallas kernel), so the training
 step runs attention on "auto" inside `attention_backend("auto")`, a
@@ -64,6 +93,7 @@ from repro_torch.models.common import (
     AttnConfig, MambaConfig, ModelConfig, MoEConfig,
 )
 from repro_torch.parallel import hints as HT
+from repro_torch.parallel import spmd as SP
 
 # --------------------------------------------------------------------------
 # norms & basics
@@ -283,16 +313,18 @@ def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, a: AttnConfig,
     if a.kv_lora_rank:
         return _mla_attention(p, x, h, a, positions, cache, ring)
 
-    q = h @ p["wq"]
-    k = h @ p["wk"]
-    v = h @ p["wv"]
+    w, tp = _attn_weights(p, a)
+    nh, nkv = a.num_heads // tp, a.num_kv_heads // tp
+    q = h @ w["wq"]
+    k = h @ w["wk"]
+    v = h @ w["wv"]
     if a.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
-    q = q.reshape(b, s, a.num_heads, a.head_dim)
-    k = k.reshape(b, s, a.num_kv_heads, a.head_dim)
-    v = v.reshape(b, s, a.num_kv_heads, a.head_dim)
+        q = q + w["bq"]
+        k = k + w["bk"]
+        v = v + w["bv"]
+    q = q.reshape(b, s, nh, a.head_dim)
+    k = k.reshape(b, s, nkv, a.head_dim)
+    v = v.reshape(b, s, nkv, a.head_dim)
     cos, sin = rope_tables(positions, a.head_dim, a.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -312,8 +344,39 @@ def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, a: AttnConfig,
                     positions, kv_pos, kv_valid, causal=a.causal,
                     window=a.sliding_window)
     out = HT.hint_attn_out(out, layout)
-    y = out.reshape(b, s, a.num_heads * a.head_dim) @ p["wo"]
+    y = out.reshape(b, s, nh * a.head_dim) @ w["wo"]
+    if tp > 1:
+        y = SP.all_reduce(y, "model")
     return x + y, new_cache
+
+
+def heads_split(a: AttnConfig) -> int:
+    """The ways attention's heads split over "model" in `spmd.run`: tp
+    where it divides both the query and the kv heads, else 1 (also with
+    no shard context)."""
+    ctx = SP.context()
+    tp = ctx.size("model") if ctx is not None else 1
+    return tp if a.num_heads % tp == 0 and a.num_kv_heads % tp == 0 else 1
+
+
+def _attn_weights(p, a: AttnConfig):
+    """(attention's weights as this point uses them, the ways its heads
+    split): `p` and 1 with no shard context; in `spmd.run` the leaves
+    split over "data" (FSDP) gathered, and where the heads do not split
+    whole over "model" every leaf gathered whole over "model" too. Where
+    they do, each leaf must be split over "model" along its heads."""
+    if SP.context() is None:
+        return p, 1
+    tp = heads_split(a)
+    w = {n: SP.whole(p[n], "data")
+         for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv") if n in p}
+    if tp == 1:
+        return {n: SP.whole(t, "model") for n, t in w.items()}, 1
+    for n, t in w.items():
+        if SP.split_axes(t, 0 if n == "wo" else -1) != ("model",):
+            raise ValueError(f"attention's heads split over 'model' but "
+                             f"{n}'s spec does not split them")
+    return w, tp
 
 
 def _mla_attention(p, x, h, a: AttnConfig, positions, cache, ring):
@@ -321,6 +384,7 @@ def _mla_attention(p, x, h, a: AttnConfig, positions, cache, ring):
     compressed c_kv [B, cap, r] (in `KVCache.k`) and the shared, rotated
     k_rope [B, cap, dr] (in `KVCache.v`); k_nope and v are expanded from
     the whole cache at each call, as the reference does."""
+    SP.require_unsharded("MLA attention")
     b, s, _ = x.shape
     nh, hd, dr = a.num_heads, a.head_dim, a.rope_head_dim
     c_kv = h @ p["w_dkv"]                                   # [B,S,r]
@@ -364,6 +428,7 @@ def cross_attention(p, x, enc_out, a: AttnConfig, norm_kind="rmsnorm"):
     (on "flash" K8: its decode variant at a decode step's Sq of 1); the
     QKV biases are not applied, as the reference applies none here.
     Returns x + y @ wo."""
+    SP.require_unsharded("whisper's cross-attention")
     b, s, _ = x.shape
     h = norm(x, p["ln_x"], norm_kind)
     q = (h @ p["wq"]).reshape(b, s, a.num_heads, a.head_dim)
@@ -384,15 +449,40 @@ def cross_attention(p, x, enc_out, a: AttnConfig, norm_kind="rmsnorm"):
 # --------------------------------------------------------------------------
 
 
-def mlp(p, x, act: str, norm_kind: str = "rmsnorm"):
-    h = norm(x, p["ln"], norm_kind)
+def _ffn(p, h, act: str):
+    """An MLP's output for the normed input `h`. In `spmd.run` its leaves
+    split over "data" are gathered, and where its hidden units are split
+    (w2's rows) w2's partial product is all-reduced over their axes."""
+    w1, w2 = SP.whole(p["w1"], "data"), SP.whole(p["w2"], "data")
+    w3 = SP.whole(p["w3"], "data") if "w3" in p else None
     if act == "swiglu":
-        y = (silu(h @ p["w1"]) * (h @ p["w3"])) @ p["w2"]
+        y = (silu(h @ w1) * (h @ w3)) @ w2
     elif act == "relu2":                      # squared ReLU (nemotron)
-        y = torch.square(torch.relu(h @ p["w1"])) @ p["w2"]
+        y = torch.square(torch.relu(h @ w1)) @ w2
     else:                                     # jax.nn.gelu's tanh form
-        y = F.gelu(h @ p["w1"], approximate="tanh") @ p["w2"]
-    return x + y
+        y = F.gelu(h @ w1, approximate="tanh") @ w2
+    split = SP.split_axes(w2, 0)
+    return SP.all_reduce(y, split) if split else y
+
+
+def mlp(p, x, act: str, norm_kind: str = "rmsnorm"):
+    """Pre-norm residual MLP."""
+    return x + _ffn(p, norm(x, p["ln"], norm_kind), act)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """`table[tokens]`; in `spmd.run`, with the vocabulary split, each
+    point looks up the tokens of its range (0 for the others) and the
+    points' rows are all-reduced over the vocabulary's axes."""
+    table = SP.whole(table, "data")
+    split = SP.split_axes(table, 0)
+    if not split:
+        return table[tokens]
+    n = table.shape[0]
+    ids = tokens - SP.offset(table, 0)
+    hit = (ids >= 0) & (ids < n)
+    rows = table[ids.clamp(0, n - 1)]
+    return SP.all_reduce(torch.where(hit[..., None], rows, 0), split)
 
 
 class Route(NamedTuple):
@@ -411,15 +501,17 @@ class Route(NamedTuple):
 
 
 def moe_route(router: torch.Tensor, h: torch.Tensor, m: MoEConfig,
-              s: int) -> Route:
+              s: int, groups: Optional[int] = None) -> Route:
     """The reference's routing: the T tokens split into G = dp_size()
     groups (1 when G does not divide T; G is the ambient mesh's
-    data-parallel ways), f32 router logits, softmax, top-k renormalised,
-    each group's capacity int(cf * Tg * k / E) (at least 1), or Tg at
+    data-parallel ways; a sharded MoE passes as `groups` the count of
+    groups its local tokens hold), f32 router logits, softmax, top-k
+    renormalised, each group's capacity int(cf * Tg * k / E) (at least
+    1), or Tg at
     decode (s == 1: dropless), queue positions counted within the
     group. `h` is [T, d]."""
     t = h.shape[0]
-    g = HT.dp_size()
+    g = HT.dp_size() if groups is None else groups
     if t % g:
         g = 1
     tg = t // g
@@ -452,30 +544,46 @@ def moe(p, x, cfg: ModelConfig, norm_kind: str = "rmsnorm"):
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
+    # FSDP gathers; in spmd.run the groups the local tokens hold
+    router, w1, w2, w3 = (SP.whole(p[n], "data")
+                          for n in ("router", "w1", "w2", "w3"))
+    ctx = SP.context()
+    groups = None if ctx is None else HT.dp_size() // ctx.batch_ways
     h = norm(x, p["ln"], norm_kind).reshape(t, d)
-    r = moe_route(p["router"], h, m, s)
+    r = moe_route(router, h, m, s, groups)
     h = HT.hint(h.reshape(r.groups, t // r.groups, d), "batch", None,
                 None).reshape(t, d)
     tok = torch.arange(t, device=x.device).repeat_interleave(m.top_k)
     e = r.top_e.reshape(-1)
     rows = r.capacity + 1
     c = r.pos.reshape(-1).clamp(max=r.capacity)
+    w = (r.top_w * r.keep).reshape(-1)
+    n_local = w1.shape[0]
+    if SP.split_axes(w1, 0):        # expert-parallel: this point's experts
+        lo = SP.offset(w1, 0)
+        mine = (e >= lo) & (e < lo + n_local)
+        e = (e - lo).clamp(0, n_local - 1)
+        c = torch.where(mine, c, r.capacity)
+        w = w * mine
     if r.groups > 1:                # group g's rows start at g * (C + 1)
         c = c + tok // (t // r.groups) * rows
-    xin = h.new_zeros((m.num_experts, r.groups * rows, d))
+    xin = h.new_zeros((n_local, r.groups * rows, d))
     xin[e, c] = h[tok]
     xin = HT.hint(xin, "model", None, None)
-    hmid = silu(torch.bmm(xin, p["w1"])) * torch.bmm(xin, p["w3"])
+    hmid = silu(torch.bmm(xin, w1)) * torch.bmm(xin, w3)
     hmid = HT.hint(hmid, "model", None, None)
-    xout = torch.bmm(hmid, p["w2"])                       # [E,G(C+1),d]
-    w = (r.top_w * r.keep).reshape(-1).to(x.dtype).float()
+    xout = torch.bmm(hmid, w2)                            # [E,G(C+1),d]
+    w = w.to(x.dtype).float()
     y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
     y.index_add_(0, tok, xout[e, c].float() * w[:, None])
+    split = SP.split_axes(w1, 0) or SP.split_axes(w2, 1)
+    if split:                       # experts, or d_ff inside them
+        y = SP.all_reduce(y, split)
     y = y.to(x.dtype)
     if m.num_shared:
         sp = p["shared"]
         hs = norm(x, sp["ln"], norm_kind).reshape(t, d)
-        y = y + (silu(hs @ sp["w1"]) * (hs @ sp["w3"])) @ sp["w2"]
+        y = y + _ffn(sp, hs, "swiglu")
     return x + y.reshape(b, s, d)
 
 
@@ -570,6 +678,7 @@ def mamba2(p, x: torch.Tensor, mb: MambaConfig,
     starting from the zero state whatever the cache holds; a given cache
     takes the conv window and the final state. s == 1 with a cache is
     the recurrent decode step. The cache is written in place."""
+    SP.require_unsharded("the Mamba-2 mixer")
     b, s, d = x.shape
     d_inner = mb.expand * d
     nheads = d_inner // mb.head_dim

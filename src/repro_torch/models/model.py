@@ -37,6 +37,15 @@ entropy over sequence chunks plus 0.01 times the MoE load-balancing
 loss. Under autograd each chunk's logits are recomputed in the backward
 pass (`torch.utils.checkpoint`), so the [tokens, vocab] logits are held
 one chunk at a time, as the reference's chunked scan bounds them.
+
+Sharded serving (`parallel.spmd.run`, each mesh point calling `prefill`
+and `decode_step` on its local parameters and batch rows): the
+embedding is a vocab-parallel lookup (`layers.embed`), the LM head's
+local vocabulary columns give local logits that are all-gathered over
+"model", and `init_cache` holds the point's kv heads (`layers.
+heads_split`), so a point's cache bytes are `cache_spec`'s local share
+wherever the heads split whole. The patch prefix, whisper's encoder and
+`loss` raise under a mesh of more than one point (ROADMAP item 10e.2).
 """
 from __future__ import annotations
 
@@ -50,6 +59,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.common import (
     ModelConfig, init_params, layer_layout, moe_layer_indices,
 )
+from repro_torch.parallel import spmd as SP
 
 
 class Batch(NamedTuple):
@@ -59,10 +69,11 @@ class Batch(NamedTuple):
 
 
 def _at(tree, r: int):
-    """The views `[r]` of a dict of stacked tensors."""
+    """The views `[r]` of a dict of stacked tensors (a sharded leaf's
+    keeping its spec: `spmd.index`)."""
     if isinstance(tree, dict):
         return {k: _at(v, r) for k, v in tree.items()}
-    return tree[r]
+    return SP.index(tree, r)
 
 
 def _slot_view(sc, r: int):
@@ -139,7 +150,8 @@ class Model:
             k_shape = (*lead, batch, cap, a.kv_lora_rank)
             v_shape = (*lead, batch, cap, a.rope_head_dim)
         else:
-            k_shape = v_shape = (*lead, batch, cap, a.num_kv_heads,
+            k_shape = v_shape = (*lead, batch, cap,
+                                 a.num_kv_heads // L.heads_split(a),
                                  a.head_dim)
         return L.KVCache(
             k=torch.zeros(k_shape, dtype=cfg.dtype, device=device),
@@ -216,6 +228,7 @@ class Model:
         each of the `[n_enc_layers]` stacked layers (attention with RoPE
         at positions 0..Se-1, non-causal and without a window, then the
         MLP), then `enc_ln_f`."""
+        SP.require_unsharded("whisper's encoder")
         cfg = self.cfg
         x = frames.to(cfg.dtype) @ params["frame_proj"]
         b, se, _ = x.shape
@@ -259,16 +272,25 @@ class Model:
         """Token embeddings; under the vision stub, the patch embeddings
         `batch.extra` [B, P, d] projected by `patch_proj` go first."""
         cfg = self.cfg
-        x = params["embed"][batch.tokens]
+        x = L.embed(params["embed"], batch.tokens)
         if cfg.frontend == "vision_stub" and batch.extra is not None:
+            SP.require_unsharded("the vision stub's patch prefix")
             patches = batch.extra.to(cfg.dtype) @ params["patch_proj"]
             x = torch.cat([patches, x], dim=1)
         return x
 
     def hidden_to_logits(self, params, h):
-        cfg = self.cfg
-        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-        return (h @ w).float()
+        """f32 logits; in `spmd.run` the LM head's FSDP rows gathered and
+        the local vocabulary columns' logits all-gathered over the
+        vocabulary's axes."""
+        if self.cfg.tie_embeddings:
+            table = SP.whole(params["embed"], "data")
+            w, vocab = table.T, SP.split_axes(table, 0)
+        else:
+            w = SP.whole(params["unembed"], "data")
+            vocab = SP.split_axes(w, 1)
+        logits = (h @ w).float()
+        return SP.all_gather(logits, vocab, -1) if vocab else logits
 
     # ------------------------------------------------------------------
     def loss(self, params, batch: Batch, loss_chunk: int = 2048):
@@ -278,6 +300,7 @@ class Model:
         0.01 times the MoE auxiliary loss. A scalar f32 tensor. Whisper:
         `batch.extra` is the encoder's frame embeddings; llava: the patch
         embeddings, prepended, whose positions carry no loss."""
+        SP.require_unsharded("the loss")
         cfg = self.cfg
         x = self.embed_inputs(params, batch)
         b, s, _ = x.shape
@@ -339,7 +362,7 @@ class Model:
         patches, under the vision stub); whisper's `enc_out` from
         `encode`."""
         cfg = self.cfg
-        x = params["embed"][tokens]
+        x = L.embed(params["embed"], tokens)
         b = x.shape[0]
         pos = torch.full((b, 1), int(position), dtype=torch.int32,
                          device=x.device)

@@ -10,6 +10,8 @@ layer library still calls it where the reference does, and the sizes
 the hints read (`tp_size`, `dp_size`, `attn_layout`) follow the mesh
 that `launch.mesh.set_mesh` made ambient. `dp_size` also sets the MoE's
 token groups (`models.layers.moe_route`), which change the numbers.
+Sharded execution (`parallel.spmd.run`) places its collectives at these
+sites of the layer library, not through `hint`.
 Axis entries may be:
   * None            — unsharded dim
   * "data"/"model"  — mesh axis (dropped if absent/non-dividing)

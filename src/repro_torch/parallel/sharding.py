@@ -20,9 +20,15 @@ The reference's rules, copied. A spec is `P`, the counterpart of
 name or a tuple of names (a 1-tuple is stored as the bare name). Every
 function takes any mesh with `.shape` (a dict of axis sizes) and
 `.axis_names`. Shapes come from `models.common.param_shapes` and from
-caches built on the "meta" device, so nothing is allocated. The port
-executes no sharded model (ROADMAP item 10e): these specs feed the
-launch reports (`launch.specs`, `launch.dryrun`).
+caches built on the "meta" device, so nothing is allocated. These specs
+feed the launch reports (`launch.specs`, `launch.dryrun`) and sharded
+serving (`parallel.spmd`: `shard_tree`, `init_sharded`,
+`launch.serve.serve_config(mesh=...)`). Two differences there, on
+purpose: a cache splits its kv heads over "model", not `head_dim` as
+`cache_spec` says (K8 takes whole heads; the bytes a point holds are
+the same wherever the heads split whole), and a block whose heads do
+not split whole runs gathered, replicated over "model". Sharded
+training is ROADMAP item 10e.2.
 """
 from __future__ import annotations
 

@@ -91,7 +91,7 @@ def _split_micro(batch: Batch, m: int):
 def build_train_step(model: Model, optimizer, tc: TrainConfig
                      ) -> Callable:
     """The step runs on the device of the parameters (the reference's
-    GSPMD `mesh` hook has no counterpart yet)."""
+    GSPMD `mesh` hook has no counterpart yet: ROADMAP item 10e.2)."""
     model = _remat_model(model, tc.remat)
 
     def grads_of(params, mb: Batch):

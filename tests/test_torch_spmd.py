@@ -1,0 +1,216 @@
+"""Sharded serving against the reference's sharded run, on the CPU.
+
+The reference runs its model sharded through GSPMD: `jax.device_put` of
+`param_shardings(cfg, mesh, fsdp)` and of the tokens under `batch_spec`,
+then the jitted prefill and decode steps under `jax.set_mesh(mesh)`, in a
+subprocess under 8 forced XLA host devices (as tests/test_distributed.py
+runs its meshes). The port runs `Model.prefill` and `Model.decode_step`
+inside `parallel.spmd.run` on a mesh of `["cpu"] * n`, its parameters
+the reference's init (carried with `interop.params_from_arrays`, then
+`spmd.shard_tree` under the port's `param_specs`), its tokens the same.
+
+Compared: the prefill's and every teacher-forced decode step's logits,
+in f32, within the model tests' 2e-4 / 3e-4. Here qwen1.5-4b's smoke
+config (biased QKV, 4/4 heads) on the meshes: (2, 2) over ("data",
+"model") with `fsdp` on and off; (1, 4); and (2, 1, 2) over ("pod",
+"data", "model"). The other cases run in files of their own (one
+reference subprocess each, so each file stays short): mixtral-8x7b on
+the same meshes (tests/test_torch_spmd_moe.py), mixtral at capacity
+factor 0.5, where capacity binds (tests/test_torch_spmd_capacity.py),
+and minitron-4b, starcoder2-7b and command-r-35b at (2, 2) with the
+resharding restore of a checkpoint the reference wrote
+(tests/test_torch_spmd_archs.py)."""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+
+from repro.configs import get_smoke_config as ref_smoke
+from repro.models.model import Model as RModel
+from repro_torch.configs import get_smoke_config
+from repro_torch.interop import params_from_arrays
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models.model import Batch, Model
+from repro_torch.parallel import sharding as S
+from repro_torch.parallel import spmd as SP
+
+_ROOT = os.path.join(os.path.dirname(__file__), "..")
+B, S_LEN, T0, SEED = 4, 24, 16, 3
+MESHES = {"2x2": ((2, 2), ("data", "model"), True),
+          "2x2-nofsdp": ((2, 2), ("data", "model"), False),
+          "1x4": ((1, 4), ("data", "model"), True),
+          "2x1x2": ((2, 1, 2), ("pod", "data", "model"), True)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the suite runs in several
+    worker processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+#: the reference's sharded runs: argv[1] a JSON list of [tag, arch,
+#: capacity factor or null, mesh shape, axes, fsdp], argv[2] the .npz,
+#: then B, S_LEN, T0, SEED and, optionally, a directory where it saves
+#: qwen1.5-4b's f32 smoke parameters (`save_tree`) beside their
+#: unsharded prefill logits (under "ckpt/prefill")
+REF = """
+import os, sys, json, dataclasses
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax, jax.numpy as jnp, numpy as np
+assert jax.device_count() == 8
+from jax.sharding import NamedSharding
+from repro.configs import get_smoke_config
+from repro.launch.mesh import make_test_mesh
+from repro.models.model import Batch, Model
+from repro.parallel import sharding as S
+cases, out = json.loads(sys.argv[1]), sys.argv[2]
+B, S_LEN, T0, SEED = (int(x) for x in sys.argv[3:7])
+res, inits = {}, {}
+for tag, arch, cf, shape, axes, fsdp in cases:
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=jnp.float32)
+    if cf is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+    m = Model(cfg)
+    if arch not in inits:
+        inits[arch] = m.init(jax.random.PRNGKey(SEED))
+    params = inits[arch]
+    tok = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, S_LEN)).astype(np.int32)
+    mesh = make_test_mesh(tuple(shape), tuple(axes))
+    with jax.set_mesh(mesh):
+        p = jax.device_put(params, S.param_shardings(cfg, mesh, fsdp=fsdp))
+        bsh = NamedSharding(mesh, S.batch_spec(mesh, B))
+        pre = jax.jit(lambda p, t: m.prefill(p, Batch(t, t),
+                                             cap=S_LEN + 4))
+        dec = jax.jit(lambda p, t, c, pos: m.decode_step(p, t, c, pos))
+        lg, c = pre(p, jax.device_put(jnp.asarray(tok[:, :T0]), bsh))
+        res[tag + "/prefill"] = np.asarray(lg)
+        for t in range(T0, S_LEN):
+            lg, c = dec(p, jax.device_put(jnp.asarray(tok[:, t:t + 1]),
+                                          bsh), c, jnp.int32(t))
+            res[f"{tag}/step{t}"] = np.asarray(lg)
+if len(sys.argv) > 7:
+    from repro.checkpoint import save_tree
+    cfg = dataclasses.replace(get_smoke_config("qwen1.5-4b"),
+                              dtype=jnp.float32)
+    m = Model(cfg)
+    params = m.init(jax.random.PRNGKey(SEED))
+    save_tree(params, sys.argv[7])
+    tok = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, S_LEN)).astype(np.int32)
+    pre = jax.jit(lambda p, t: m.prefill(p, Batch(t, t), cap=S_LEN + 4))
+    res["ckpt/prefill"] = np.asarray(pre(params, jnp.asarray(tok[:, :T0]))[0])
+np.savez(out, **res)
+"""
+
+
+def reference_runs(tmp_path_factory, cases, ckpt=None):
+    """{tag/call: logits} of the reference's sharded runs of `cases`
+    [(tag, arch, cf, shape, axes, fsdp)], from one subprocess (which
+    also writes the checkpoint of REF's note into `ckpt`, if given)."""
+    path = tmp_path_factory.mktemp("spmd") / "ref.npz"
+    env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
+    run = subprocess.run(
+        [sys.executable, "-c", REF, json.dumps(cases), str(path),
+         str(B), str(S_LEN), str(T0), str(SEED)]
+        + ([str(ckpt)] if ckpt else []),
+        env=env, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    return dict(np.load(path))
+
+
+def mesh_cases(tag, arch, cf=None):
+    """REF's case rows of `arch` (at capacity factor `cf`) on MESHES."""
+    return [[f"{tag}@{m}", arch, cf, *MESHES[m]] for m in MESHES]
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    return reference_runs(tmp_path_factory,
+                          mesh_cases("qwen1.5-4b", "qwen1.5-4b"))
+
+
+def port_config(arch, cf=None):
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    if cf is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+    return cfg
+
+
+def reference_params(arch, cfg):
+    """The reference's init at SEED, as the port's full tensors."""
+    rcfg = dataclasses.replace(ref_smoke(arch), dtype=jax.numpy.float32)
+    tree = jax.tree.map(np.asarray, RModel(rcfg).init(
+        jax.random.PRNGKey(SEED)))
+    return params_from_arrays(tree, cfg, "cpu")
+
+
+def cpu_mesh(shape, axes):
+    return make_test_mesh(shape, axes, devices=["cpu"] * int(np.prod(shape)))
+
+
+def port_sharded_run(cfg, params, shape, axes, fsdp, calls_to=S_LEN):
+    """The port's sharded prefill and teacher-forced decode (up to
+    position `calls_to`) on `["cpu"] * n` of full `params`, or of
+    already sharded ones where `fsdp` is None: {call: full logits as
+    numpy}."""
+    mesh = cpu_mesh(shape, axes)
+    model = Model(cfg)
+    sharded = params if fsdp is None else SP.shard_tree(
+        params, S.param_specs(cfg, mesh, fsdp=fsdp), mesh)
+    tok = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, S_LEN)).astype(np.int32)).long()
+    spec = S.batch_spec(mesh, B)
+    ways = int(np.prod([mesh.shape[a] for a in S.batch_axes(mesh)])) \
+        if spec[0] is not None else 1
+
+    def calls(p, t):
+        out = {}
+        lg, c = model.prefill(p, Batch(t[:, :T0], t[:, :T0]), cap=S_LEN + 4)
+        out["prefill"] = lg
+        for i in range(T0, calls_to):
+            lg, c = model.decode_step(p, t[:, i:i + 1], c, i)
+            out[f"step{i}"] = lg
+        return out
+    with torch.no_grad():
+        per_point = SP.run(mesh, calls, sharded,
+                           SP.shard_leaf(tok, spec, mesh), batch_ways=ways,
+                           timeout=120)
+    return {k: SP.gather_results(mesh, spec, [r[k] for r in per_point])
+            .numpy() for k in per_point[0]}
+
+
+def check_against(ref, tag, got):
+    np.testing.assert_allclose(got["prefill"], ref[f"{tag}/prefill"],
+                               rtol=2e-4, atol=2e-4,
+                               err_msg=f"{tag} prefill")
+    for t in range(T0, S_LEN):
+        np.testing.assert_allclose(got[f"step{t}"], ref[f"{tag}/step{t}"],
+                                   rtol=3e-4, atol=3e-4,
+                                   err_msg=f"{tag} step {t}")
+
+
+def check_case(ref, tag, arch, cf, mesh):
+    """The port's sharded run of `arch` on MESHES[mesh] against REF's."""
+    cfg = port_config(arch, cf)
+    got = port_sharded_run(cfg, reference_params(arch, cfg), *MESHES[mesh])
+    check_against(ref, f"{tag}@{mesh}", got)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_sharded_serving_matches_reference_sharded_run(mesh, reference):
+    check_case(reference, "qwen1.5-4b", "qwen1.5-4b", None, mesh)

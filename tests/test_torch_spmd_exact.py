@@ -1,0 +1,477 @@
+"""Sharded execution (`repro_torch.parallel.spmd`) on the CPU: exact
+checks that need no reference run.
+
+Meshes of `["cpu"] * n` (a device may repeat), one thread a point. The
+shards of a tree must gather back to it bit for bit, a point's
+parameter bytes must be `launch.dryrun.local_bytes` of `param_specs` and
+its cache bytes `cache_spec`'s share, the collectives must count what
+the formula in `spmd.py` says, a point that raises must make `run`
+raise within its timeout, the block kinds outside the serving slice
+must raise under a mesh of more than one point, and the resharding
+restore must place a checkpoint's leaves as their shards (the
+counterpart of the reference's `test_elastic_reshard_restore`). The
+parity of sharded prefill and decode with the reference's sharded run
+is in tests/test_torch_spmd.py and tests/test_torch_spmd_archs.py."""
+import dataclasses
+import sys
+import threading
+import time
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import serve
+from repro_torch.launch.dryrun import local_bytes
+from repro_torch.launch.mesh import make_test_mesh, set_mesh
+from repro_torch.models.common import abstract_params
+from repro_torch.models.model import Batch, Model
+from repro_torch.parallel import sharding as S
+from repro_torch.parallel import spmd as SP
+from repro_torch.parallel.sharding import P, NamedSharding
+
+MESHES = (((2, 2), ("data", "model")), ((1, 4), ("data", "model")),
+          ((2, 1, 2), ("pod", "data", "model")),
+          ((4, 2), ("data", "model")))
+B, T0, STEPS = 4, 12, 3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the suite runs in several
+    worker processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _mesh(shape, axes):
+    n = 1
+    for k in shape:
+        n *= k
+    return make_test_mesh(shape, axes, devices=["cpu"] * n)
+
+
+def _f32(arch):
+    return dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+
+
+def _ways(mesh, batch):
+    spec = S.batch_spec(mesh, batch)
+    if spec[0] is None:
+        return 1
+    n = 1
+    for a in S.batch_axes(mesh):
+        n *= mesh.shape[a]
+    return n
+
+
+def _serve_calls(model, params, tok, cap):
+    """A prefill of T0 tokens, then STEPS decode steps: (the logits of
+    each call, the caches)."""
+    lg, c = model.prefill(params, Batch(tok[:, :T0], tok[:, :T0]), cap=cap)
+    out = [lg[:, -1]]
+    for i in range(T0, T0 + STEPS):
+        lg, c = model.decode_step(params, tok[:, i:i + 1], c, i)
+        out.append(lg[:, -1])
+    return out, c
+
+
+@pytest.mark.parametrize("fsdp", (True, False))
+@pytest.mark.parametrize("shape,axes", MESHES)
+@pytest.mark.parametrize("arch", ("qwen1.5-4b", "mixtral-8x7b"))
+def test_shard_gather_roundtrip_and_param_bytes(arch, shape, axes, fsdp):
+    """gather_tree(shard_tree(x)) == x bit for bit (bf16), and every
+    point holds `dryrun.local_bytes` of `param_specs`."""
+    cfg = get_smoke_config(arch)
+    mesh = _mesh(shape, axes)
+    params = Model(cfg).init(torch.Generator().manual_seed(0))
+    specs = S.param_specs(cfg, mesh, fsdp=fsdp)
+    sharded = SP.shard_tree(params, specs, mesh)
+    back = SP.gather_tree(sharded)
+    flat_a, flat_b = [], []
+    SP._map(lambda a, b: flat_a.append(a) or flat_b.append(b), params, back)
+    assert len(flat_a) > 10
+    for a, b in zip(flat_a, flat_b):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    want = local_bytes(abstract_params(cfg), specs, mesh)
+    for point in range(mesh.size):
+        assert SP.tree_local_bytes(sharded, point) == want
+    if mesh.shape["model"] > 1:     # something is really split
+        assert want < sum(t.numel() * t.element_size() for t in flat_a)
+
+
+def test_init_sharded_equals_init_then_shard():
+    """Drawing each leaf straight into its shards gives the shards of
+    the whole draw, bit for bit."""
+    cfg = get_smoke_config("mixtral-8x7b")
+    mesh = _mesh((2, 2), ("data", "model"))
+    specs = S.param_specs(cfg, mesh, fsdp=True)
+    model = Model(cfg)
+    a = SP.init_sharded(lambda: model.init(torch.Generator().manual_seed(5)),
+                        specs, mesh)
+    b = SP.shard_tree(model.init(torch.Generator().manual_seed(5)), specs,
+                      mesh)
+    pairs = []
+    SP._map(lambda x, y: pairs.append((x, y)), a, b)
+    assert len(pairs) > 10
+    for x, y in pairs:
+        assert x.spec == y.spec and x.shape == y.shape
+        for u, v in zip(x.shards, y.shards):
+            assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("arch,shape", (
+    ("qwen1.5-4b", (2, 2)), ("qwen1.5-4b", (1, 4)),
+    ("mixtral-8x7b", (2, 2)), ("command-r-35b", (1, 2))))
+def test_cache_bytes_are_cache_spec_share(arch, shape):
+    """Where the heads split whole, a point's caches after a prefill
+    hold `cache_spec`'s local share (the port splits kv heads where
+    `cache_spec` splits head_dim: the same bytes)."""
+    cfg = _f32(arch)
+    mesh = _mesh(shape, ("data", "model"))
+    model = Model(cfg)
+    params = SP.shard_tree(model.init(torch.Generator().manual_seed(0)),
+                           S.param_specs(cfg, mesh, fsdp=False), mesh)
+    tok = torch.randint(0, cfg.vocab_size, (B, T0 + STEPS),
+                        generator=torch.Generator().manual_seed(1))
+    cap = T0 + STEPS + 4
+    toks = SP.shard_leaf(tok, S.batch_spec(mesh, B), mesh)
+    with torch.no_grad():
+        out = SP.run(mesh, lambda p, t: serve.cache_bytes(
+            _serve_calls(model, p, t, cap)[1]), params, toks,
+            batch_ways=_ways(mesh, B), timeout=60)
+    whole = model.init_cache(B, cap, "meta")
+    want = local_bytes(whole, S.cache_spec(cfg, mesh, B), mesh)
+    assert want < serve.cache_bytes(whole)
+    assert out == [want] * mesh.size
+
+
+def _formula(cfg, mesh, fsdp, calls):
+    """spmd.py's counts for a dense-MLP model whose heads, d_ff, vocab
+    and d_model all divide the axes: (all_reduce calls, all_reduce bytes,
+    all_gather calls, all_gather bytes) summed over the points, for
+    `calls` [(local batch rows, sequence length), ...]."""
+    a, d, L = cfg.attn, cfg.d_model, cfg.n_layers
+    tp, dp = mesh.shape["model"], mesh.shape["data"]
+    e = 4                                           # f32
+    hq, hk, f, v = (a.num_heads * a.head_dim, a.num_kv_heads * a.head_dim,
+                    cfg.d_ff, cfg.vocab_size)
+    per_layer = (2 * d * hq + 2 * d * hk + 3 * d * f) // (dp * tp)
+    ar = ar_b = ag = ag_b = 0
+    for b, s in calls:
+        ar += 1 + 2 * L
+        ar_b += (tp - 1) * e * b * s * d * (1 + 2 * L)
+        ag += 1
+        ag_b += (tp - 1) * e * b * (v // tp)
+        if fsdp:
+            ag += 7 * L + 1
+            ag_b += (dp - 1) * e * (L * per_layer + d * v // (dp * tp))
+    n = mesh.size
+    return ar * n, ar_b * n, ag * n, ag_b * n
+
+
+@pytest.mark.parametrize("fsdp", (True, False))
+def test_collective_counts_match_formula(fsdp):
+    cfg = _f32("qwen1.5-4b")
+    mesh = _mesh((2, 2), ("data", "model"))
+    model = Model(cfg)
+    params = SP.shard_tree(model.init(torch.Generator().manual_seed(0)),
+                           S.param_specs(cfg, mesh, fsdp=fsdp), mesh)
+    tok = torch.randint(0, cfg.vocab_size, (B, T0 + STEPS),
+                        generator=torch.Generator().manual_seed(1))
+    toks = SP.shard_leaf(tok, S.batch_spec(mesh, B), mesh)
+    SP.reset_counts()
+    with torch.no_grad():
+        SP.run(mesh, lambda p, t: _serve_calls(model, p, t, 32)[0], params,
+               toks, batch_ways=2, timeout=60)
+    got = (SP.COMM["all_reduce"], SP.COMM["all_reduce_bytes"],
+           SP.COMM["all_gather"], SP.COMM["all_gather_bytes"])
+    assert got == _formula(cfg, mesh, fsdp,
+                           [(B // 2, T0)] + [(B // 2, 1)] * STEPS)
+
+
+def _respec(specs, names, tail):
+    """`specs` with each leaf named in `names` split by `tail` over its
+    last dims (its stacked leading dims whole)."""
+    if isinstance(specs, dict):
+        return {k: P(*(None,) * (len(v) - len(tail)), *tail)
+                if k in names and isinstance(v, P)
+                else _respec(v, names, tail) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [_respec(v, names, tail) for v in specs]
+    return specs
+
+
+# (arch, [(leaves, their new split over the last dims)]): an FSDP entry
+# on the embedding, the MLP replicated, and the MoE's d_ff split inside
+# each expert where the policy splits the experts
+RESPECS = (("qwen1.5-4b", [(("embed",), ("model", "data"))]),
+           ("qwen1.5-4b", [(("w1", "w2", "w3"), (None, None))]),
+           ("mixtral-8x7b", [(("w1", "w3"), (None, None, "model")),
+                             (("w2",), (None, "model", None))]))
+
+
+@pytest.mark.parametrize("case", range(len(RESPECS)))
+def test_layers_follow_the_leaf_spec(case):
+    """The layer library reads each leaf's split from its spec: a spec
+    tree other than `param_specs`'s gives the unsharded logits, and a
+    spec that leaves attention's heads whole where they split raises."""
+    arch, moves = RESPECS[case]
+    cfg = _f32(arch)
+    mesh = _mesh((2, 2), ("data", "model"))
+    model = Model(cfg)
+    full = model.init(torch.Generator().manual_seed(0))
+    specs = S.param_specs(cfg, mesh, fsdp=True)
+    for names, tail in moves:
+        specs = _respec(specs, names, tail)
+    tok = torch.randint(0, cfg.vocab_size, (B, T0 + STEPS),
+                        generator=torch.Generator().manual_seed(1))
+    spec = S.batch_spec(mesh, B)
+    with torch.no_grad():
+        with set_mesh(make_test_mesh((2, 2))):     # the same MoE groups
+            want = _serve_calls(model, full, tok, 32)[0]
+        parts = SP.run(mesh, lambda p, t: _serve_calls(model, p, t, 32)[0],
+                       SP.shard_tree(full, specs, mesh),
+                       SP.shard_leaf(tok, spec, mesh), batch_ways=2,
+                       timeout=60)
+    for i, w in enumerate(want):
+        got = SP.gather_results(mesh, spec, [p[i] for p in parts])
+        torch.testing.assert_close(got, w, rtol=2e-4, atol=3e-4)
+    bad = SP.shard_tree(full, _respec(specs, ("wq",), (None, None)), mesh)
+    with pytest.raises(ValueError, match="wq's spec"):
+        with torch.no_grad():
+            SP.run(mesh, lambda p, t: _serve_calls(model, p, t, 32)[0],
+                   bad, SP.shard_leaf(tok, spec, mesh), batch_ways=2,
+                   timeout=60)
+
+
+def test_collectives_sum_in_shard_order_into_new_tensors():
+    """all_reduce: every point of a group gets the same bits, a tensor
+    of its own (also in a group of one); all_gather: shard order."""
+    mesh = _mesh((2, 3), ("data", "model"))
+
+    def fn():
+        ctx = SP.context()
+        x = torch.full((5,), float(ctx.point) + 0.1, dtype=torch.float32)
+        one = SP.all_reduce(x, "pod")           # no such axis: size 1
+        return (x, one, SP.all_reduce(x, "model"),
+                SP.all_gather(x[:1], ("data", "model"), 0),
+                SP.all_gather(x[:1], "data", 0))
+    out = SP.run(mesh, fn, timeout=30)
+    for point, (x, one, red, everyone, col) in enumerate(out):
+        assert one.data_ptr() != x.data_ptr() and torch.equal(one, x)
+        row = point // 3
+        want = torch.zeros(5)
+        for q in range(3 * row, 3 * row + 3):
+            want += torch.full((5,), float(q) + 0.1)
+        assert torch.equal(red, want)
+        assert torch.equal(everyone, torch.arange(6) + 0.1)
+        assert torch.equal(col, torch.tensor([point % 3, point % 3 + 3])
+                           + 0.1)
+
+
+def test_collective_stress_with_many_points():
+    """16 points (more than this host's cores) on one rendezvous, the
+    interpreter switching threads every microsecond: every sum is exact
+    and the counts are what the calls make."""
+    mesh = _mesh((4, 4), ("data", "model"))
+    rounds = 40
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    SP.reset_counts()
+    try:
+        def fn():
+            p = SP.context().point
+            total = []
+            for r in range(rounds):
+                total.append(SP.all_reduce(torch.tensor([p + r]),
+                                           ("data", "model")).item())
+            return total
+        out = SP.run(mesh, fn, timeout=60)
+    finally:
+        sys.setswitchinterval(prev)
+    want = [sum(range(16)) + 16 * r for r in range(rounds)]
+    assert out == [want] * 16
+    assert SP.COMM["all_reduce"] == 16 * rounds
+    assert SP.COMM["all_reduce_bytes"] == 16 * rounds * 15 * 8
+
+
+def test_run_raises_the_first_error_within_its_timeout():
+    mesh = _mesh((2, 2), ("data", "model"))
+
+    def fn():
+        if SP.context().point == 2:
+            raise ValueError("point 2 fails")
+        return SP.all_reduce(torch.ones(3), "model")
+    t0 = time.monotonic()
+    with pytest.raises(ValueError, match="point 2 fails"):
+        SP.run(mesh, fn, timeout=5.0)
+    assert time.monotonic() - t0 < 5.0
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("spmd-point")]
+
+
+def test_run_fails_a_rendezvous_that_waits_past_its_timeout():
+    """A point that leaves out a collective: the others' rendezvous
+    times out and `run` raises instead of hanging."""
+    mesh = _mesh((1, 3), ("data", "model"))
+
+    def fn():
+        if SP.context().point == 0:
+            return None
+        return SP.all_gather(torch.ones(1), "model", 0)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="failed or timed out"):
+        SP.run(mesh, fn, timeout=0.5)
+    assert time.monotonic() - t0 < 3.0
+
+
+def test_collective_outside_run_raises():
+    with pytest.raises(RuntimeError, match="only inside spmd.run"):
+        SP.all_reduce(torch.ones(2), "model")
+
+
+@pytest.mark.parametrize("arch", (
+    "deepseek-v2-lite-16b", "mamba2-370m", "jamba-1.5-large-398b",
+    "whisper-base", "llava-next-mistral-7b"))
+def test_blocks_outside_the_slice_raise_under_a_mesh(arch):
+    """MLA, Mamba-2, whisper's encoder and llava's patch prefix raise
+    under a mesh of two points, naming ROADMAP item 10e.2; on a mesh of
+    one point they serve as unsharded."""
+    cfg = get_smoke_config(arch)
+    with pytest.raises(NotImplementedError, match="10e.2"):
+        serve.serve_config(cfg, 2, 8, 1, "cpu",
+                           mesh=_mesh((1, 2), ("data", "model")))
+    one = serve.serve_config(cfg, 2, 8, 1, "cpu",
+                             mesh=_mesh((1, 1), ("data", "model")))
+    ref = serve.serve_config(cfg, 2, 8, 1, "cpu")
+    assert torch.equal(one["tokens"], ref["tokens"])
+
+
+@pytest.mark.parametrize("arch", ("qwen1.5-4b", "mixtral-8x7b"))
+def test_serve_config_on_a_mesh_matches_unsharded(arch):
+    """The launcher on a (2, 2) mesh (parameters drawn straight into
+    shards) against the unsharded launcher under the same ambient
+    abstract mesh (the MoE's groups): the same greedy tokens, logits
+    within the model tests' 2e-4 in f32; per device the parameter and
+    cache bytes of its four points."""
+    cfg = _f32(arch)
+    mesh = _mesh((2, 2), ("data", "model"))
+    got = serve.serve_config(cfg, B, T0, STEPS, "cpu", mesh=mesh)
+    with set_mesh(make_test_mesh((2, 2))):
+        ref = serve.serve_config(cfg, B, T0, STEPS, "cpu")
+    assert torch.equal(got["tokens"], ref["tokens"])
+    for a, b in zip(got["logits"], ref["logits"]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+    assert got["fsdp"] is False
+    row = got["device_bytes"]["cpu"]
+    specs = S.param_specs(cfg, mesh, fsdp=False)
+    assert row["points"] == 4 and row["peak"] is None
+    assert row["params"] == 4 * local_bytes(abstract_params(cfg), specs,
+                                            mesh)
+    whole = Model(cfg).init_cache(B, got["cap"], "meta")
+    assert row["caches"] == 4 * local_bytes(
+        whole, S.cache_spec(cfg, mesh, B), mesh)
+
+
+def test_parse_mesh():
+    m = serve.parse_mesh("2x1x2", "cpu")
+    assert m.axis_names == ("pod", "data", "model")
+    assert m.shape == {"pod": 2, "data": 1, "model": 2}
+    assert [str(d) for d in m.devices] == ["cpu"] * 4
+    assert serve.parse_mesh("1x4", "cpu").axis_names == ("data", "model")
+    with pytest.raises(ValueError):
+        serve.parse_mesh("4", "cpu")
+
+
+def test_elastic_reshard_restore(tmp_path):
+    """The reference's test of the same name: a tree saved whole,
+    restored onto a (4, 2) mesh with `w` over ("data", "model")."""
+    tree = {"w": torch.arange(64, dtype=torch.float32).reshape(8, 8),
+            "s": torch.tensor(7, dtype=torch.int32)}
+    mgr = CheckpointManager(str(tmp_path), keep=2, async_save=False)
+    mgr.save(5, tree)
+    mesh = _mesh((4, 2), ("data", "model"))
+    sh = {"w": NamedSharding(mesh, P("data", "model")),
+          "s": NamedSharding(mesh, P())}
+    step, out = mgr.restore_latest(tree, sh)
+    assert step == 5
+    assert out["w"].spec == P("data", "model")
+    assert torch.equal(SP.gather_leaf(out["w"]), tree["w"])
+    for point in range(8):
+        d, m = divmod(point, 2)
+        assert torch.equal(out["w"].shards[point],
+                           tree["w"][2 * d:2 * d + 2, 4 * m:4 * m + 4])
+        assert torch.equal(out["s"].shards[point], tree["s"])
+    # without shardings the restore keeps today's behaviour
+    plain = mgr.restore(5, tree)
+    assert torch.equal(plain["w"], tree["w"])
+
+
+@pytest.mark.parametrize("shape,axes", MESHES[:3])
+def test_smoke_sharded_check_replays_each_points_routes(shape, axes):
+    """`chip_smoke.sharded_gap` (path `serve-sharded`'s check) at
+    mixtral's smoke config in f32 with binding capacity: each point
+    replays its own rows of the unsharded run's routes (rows of other
+    tokens would route them elsewhere), so the two agree within 1e-4;
+    routing on its own, each point's routing is the unsharded run's
+    (`sharded_route_check`)."""
+    import chip_smoke
+    from repro_torch.models import layers as L
+    cfg = _f32("mixtral-8x7b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    mesh = _mesh(shape, axes)
+    routes, restore = chip_smoke.record_routes(L)
+    try:
+        with set_mesh(make_test_mesh(shape, axes)):
+            ref = serve.serve_config(cfg, B, T0, STEPS, "cpu")
+    finally:
+        restore()
+    res = serve.serve_config(cfg, B, T0, STEPS, "cpu", mesh=mesh)
+    inner = L.moe_route
+    gap = chip_smoke.sharded_gap(torch, L, SP, serve, ref, res["model"],
+                                 res["params"], mesh, routes, replay=True)
+    assert L.moe_route is inner
+    assert gap["routes_replayed"] and len(gap["steps"]) == STEPS + 1
+    assert gap["max_abs"] < 1e-4 and gap["argmax_agreement"] == 1.0
+    free = chip_smoke.sharded_gap(torch, L, SP, serve, ref, res["model"],
+                                  res["params"], mesh, routes)
+    assert L.moe_route is inner and not free["routes_replayed"]
+    assert free["routes_consistent"], free["route_faults"]
+    assert free["route_choices"] == B * (T0 + STEPS) * cfg.n_layers
+    assert free["route_differing_share"] == 0.0
+    assert free["route_groups_compared"] > 0
+
+
+def test_points_take_turns_between_rendezvous():
+    """Only the point holding the turn runs its Python between two
+    rendezvous (16 points, a thread switch every microsecond): the count
+    of points inside a segment never exceeds one."""
+    mesh = _mesh((4, 4), ("data", "model"))
+    inside, most, lock = [0], [0], threading.Lock()
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+
+    def segment():
+        with lock:
+            inside[0] += 1
+            most[0] = max(most[0], inside[0])
+        time.sleep(0.001)               # lets the interpreter lock go
+        with lock:
+            inside[0] -= 1
+
+    def fn():
+        for _ in range(10):
+            segment()
+            SP.all_reduce(torch.ones(1), "model")
+        segment()
+    try:
+        SP.run(mesh, fn, timeout=60)
+    finally:
+        sys.setswitchinterval(prev)
+    assert most[0] == 1

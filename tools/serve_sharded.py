@@ -1,0 +1,102 @@
+#!/usr/bin/env python3
+"""Sharded serving of a model too large for one card: mixtral-8x7b
+uncut (32 layers, 46.70 B parameters, 93.4 GB of bf16) on a (1, 4)
+("data", "model") mesh of four GPUs, point i on `cuda:i`, through
+`repro_torch.launch.serve.serve_config(..., mesh=...)`.
+
+    python3 tools/serve_sharded.py [--arch mixtral-8x7b] [--mesh 1x4] \\
+        [--batch 2] [--prompt-len 4080] [--gen-tokens 32]
+
+The parameters are drawn on cuda:0 a leaf at a time straight into their
+shards (`spmd.init_sharded`), so the whole model never exists on one
+card; then the launcher's two passes (a warm-up, then the timed one) of
+prefill and greedy decode, every point on its own thread. Prints the
+cards' names and power limits (nvidia-smi), then one JSON line: prefill
+seconds and tok/s, decode ms/token, K8's launches against layers x
+points a prefill call and a decode step, the collective counts
+(`spmd.COMM`) and, per card, the parameter bytes it holds beside
+`dryrun.local_bytes` of `param_specs` (reckoned), its cache bytes
+beside `cache_spec`'s share, and its peak memory (since the start: the
+draws' one full leaf on cuda:0 included). Needs as many visible CUDA
+devices as mesh points (`chip_smoke.py`'s path `serve-sharded` runs a
+cut model on four points of one card).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def run(arch: str, mesh_text: str, batch: int, prompt_len: int,
+        gen_tokens: int) -> dict:
+    """One sharded serve of `arch`'s published config on `mesh_text`'s
+    mesh of CUDA devices; the record the module's note describes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flashattn import ops as fa
+    from repro_torch.launch import serve
+    from repro_torch.launch.dryrun import local_bytes
+    from repro_torch.models.common import abstract_params
+    from repro_torch.models.model import Model
+    from repro_torch.parallel import sharding as S
+    from repro_torch.parallel import spmd as SP
+    cfg = get_config(arch)
+    mesh = serve.parse_mesh(mesh_text, "cuda")
+    fa.reset_launches()
+    SP.reset_counts()
+    res = serve.serve_config(cfg, batch, prompt_len, gen_tokens, "cuda:0",
+                             mesh=mesh)
+    launches, comm = dict(fa.LAUNCHES), dict(SP.COMM)
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    want = {"flash_prefill": 2 * n_attn * mesh.size,
+            "flash_decode": 2 * n_attn * mesh.size * gen_tokens}
+    specs = S.param_specs(cfg, mesh, fsdp=res["fsdp"])
+    reckoned = local_bytes(abstract_params(cfg), specs, mesh)
+    cache = local_bytes(Model(cfg).init_cache(batch, res["cap"], "meta"),
+                        S.cache_spec(cfg, mesh, batch), mesh)
+    devices = {}
+    for dev, row in res["device_bytes"].items():
+        devices[dev] = {**row, "params_reckoned": reckoned * row["points"],
+                        "caches_cache_spec": cache * row["points"]}
+    t_pre, t_dec = res["prefill_seconds"], res["decode_seconds"]
+    return {"arch": arch, "config": cfg.name, "layers": cfg.n_layers,
+            "params": cfg.param_count(), "mesh": mesh_text,
+            "axes": list(mesh.axis_names), "fsdp": res["fsdp"],
+            "batch": batch, "prompt_len": prompt_len,
+            "gen_tokens": gen_tokens, "cap": res["cap"],
+            "passes_seconds": res["passes"], "prefill_seconds": t_pre,
+            "prefill_tok_s": batch * prompt_len / t_pre,
+            "decode_ms_per_token": t_dec / max(gen_tokens, 1) * 1e3,
+            "launches": launches, "launches_expected": want,
+            "launches_ok": launches == want, "collectives": comm,
+            "finite": all(bool(torch.isfinite(x).all())
+                          for x in res["logits"]),
+            "sample": res["tokens"][0, :12].tolist(), "devices": devices}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="mixtral-8x7b")
+    ap.add_argument("--mesh", default="1x4")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=4080)
+    ap.add_argument("--gen-tokens", type=int, default=32)
+    args = ap.parse_args()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    out = run(args.arch, args.mesh, args.batch, args.prompt_len,
+              args.gen_tokens)
+    print(json.dumps({"nvidia_smi": smi.splitlines(), **out}), flush=True)
+    return 0 if out["finite"] and out["launches_ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -21,6 +21,18 @@ model, a second with the dense run taking the flash run's routing
 choices (`routes_replayed`; the first reports the share of routing
 choices that differ). `chip_smoke.py`'s teacher-forced bounds are set
 from these readings.
+
+With `--mesh DxM` (point i on `cuda:i`, or every point on the CPU with
+`--device cpu`) the gap is instead the sharded model's from the
+unsharded one, both on the flash backend: one greedy pass of the
+unsharded model under the mesh's abstract twin (so both have the same
+MoE token groups), then the model drawn straight into shards
+(`spmd.init_sharded`, `fsdp` by `dryrun.serve_fsdp`'s rule) and fed the
+same tokens (`chip_smoke.sharded_gap`): once routing on its own, and,
+for a MoE model, once taking the unsharded run's routing choices.
+
+    PYTHONPATH=src python3 tools/tf_gap.py --arch mixtral-8x7b \
+        --layers 1 2 --mesh 2x2 --device cpu
 """
 from __future__ import annotations
 
@@ -45,6 +57,8 @@ def main() -> int:
     ap.add_argument("--prompt-len", type=int, default=256)
     ap.add_argument("--gen-tokens", type=int, default=6)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM: the gap of the model sharded over this mesh")
     args = ap.parse_args()
 
     import torch
@@ -56,6 +70,9 @@ def main() -> int:
     dev = serve.resolve_device(args.device)
     for n in args.layers:
         cfg = dataclasses.replace(get_config(args.arch), n_layers=n)
+        if args.mesh:
+            sharded(torch, args, cfg, dev)
+            continue
         model = Model(cfg)
         params = model.init(torch.Generator(device=dev).manual_seed(0))
         prompt = torch.randint(0, cfg.vocab_size,
@@ -90,6 +107,47 @@ def main() -> int:
             print(json.dumps({**head, **gap}), flush=True)
         del model, params, res
     return 0
+
+
+def sharded(torch, args, cfg, dev) -> None:
+    """`--mesh`'s readings at one depth (the module's note)."""
+    from repro_torch.launch.dryrun import serve_fsdp
+    from repro_torch.launch.mesh import make_test_mesh, set_mesh
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    from repro_torch.parallel import sharding as S
+    from repro_torch.parallel import spmd as SP
+    mesh = serve.parse_mesh(args.mesh, args.device)
+    model = Model(cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(1), device=dev)
+    cap = args.prompt_len + args.gen_tokens + 8
+    with set_mesh(make_test_mesh(mesh.axis_sizes, mesh.axis_names)):
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        routes, restore = chip_smoke.record_routes(L) if cfg.moe else \
+            (None, None)
+        try:
+            ref = serve.generate(model, params, prompt, args.gen_tokens, cap)
+        finally:
+            if restore:
+                restore()
+    del params
+    ref.update(prompt=prompt, cap=cap)
+    fsdp = serve_fsdp(cfg, mesh)
+    shards = SP.init_sharded(
+        lambda: model.init(torch.Generator(device=dev).manual_seed(0)),
+        S.param_specs(cfg, mesh, fsdp), mesh)
+    head = {"arch": args.arch, "layers": cfg.n_layers, "mesh": args.mesh,
+            "fsdp": fsdp, "device": str(dev), "batch": args.batch,
+            "prompt_len": args.prompt_len, "gen_tokens": args.gen_tokens,
+            "check": "sharded vs unsharded, teacher-forced"}
+    for replay in (False, True) if cfg.moe else (False,):
+        gap = chip_smoke.sharded_gap(torch, L, SP, serve, ref, model, shards,
+                                     mesh, routes, replay)
+        gap.pop("steps")
+        print(json.dumps({**head, **gap}), flush=True)
 
 
 if __name__ == "__main__":
