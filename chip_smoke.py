@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--sf 1.0] [--phase all|kernels]
+    python3 chip_smoke.py [--sf 1.0] [--phase all|kernels|train-sharded]
 
 `--phase kernels` runs phases 1-4 only (to iterate on a kernel), then
 each Bloom and hash-map case's device time alone, the route sweeps of
 K2 and K4, the rows-a-thread sweep of K3 and the plan sweep of K7, and
-prints neither the kernel table nor the ok line.
+prints neither the kernel table nor the ok line. `--phase train-sharded`
+runs phase 14 alone (no kernel is built), with neither line either.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -380,6 +381,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              deterministic algorithms on; the losses and the final
              parameters and optimizer state must be bit-equal. Prints the
              bytes a checkpoint holds and the save and restore seconds.
+14. train-sharded — path `train-sharded` (`TRAIN_SHARDED`): qwen1.5-4b
+             at its published widths cut to 8 layers through
+             `build_train_step(..., mesh=)` on a (2, 2) ("data", "model")
+             mesh of four points of the card, FSDP on, the train path's
+             TrainConfig and batch. The f32 gate (`sharded_train_gate`):
+             one AdamW step from the same f32 weights sharded and
+             unsharded, the loss within `SHARDED_TRAIN_LOSS_ABS`, the
+             gradient norm within `SHARDED_TRAIN_GNORM_REL`, every leaf's
+             gradient within `SHARDED_TRAIN_GRAD_REL`, the parameters
+             after the step within `SHARDED_TRAIN_PARAM_REL` and their
+             updates within `SHARDED_TRAIN_UPDATE_REL` relative L2; its
+             control (the gradient of data shard 0's rows only) outside
+             them. Then `TRAIN_SHARDED["steps"]` bf16 steps on one
+             repeated batch: every loss finite and each under the one
+             before; `spmd.COMM` equal to `spmd.train_comm` (the formula
+             of `parallel/spmd.py`'s note) times the steps; each
+             point's parameter bytes `dryrun.local_bytes` of the specs; no
+             hand kernel launches (attention on "auto"). Prints the step
+             seconds, tokens a second and the peak memory beside the
+             card's name and power limit, and one more step under
+             torch.profiler (the summed device time of the four points'
+             streams).
 f32 matmuls run with TF32 off (`torch.backends.cuda.matmul.allow_tf32 =
 False`) throughout, so the plain versions and oracles sum in f32.
 
@@ -393,10 +416,11 @@ cross decode shapes, whose launches are path `serve-whisper`'s)
 "library_ms", "launches_by_path"}]}` (`launches_by_path` has every
 path's count, the `dist-*` (`dist-pod` too), `launch-reports`,
 `torch-tpch`, `serve-mixtral`,
-`serve-mamba2`, `serve-whisper`, `serve-llava`, `serve-sharded`, `train`
-and `train-ft` paths' included (K8's (128, 128) rows count
-`serve-mixtral`'s, `serve-llava`'s and `serve-sharded`'s launches there; every kernel 0
-on `torch-tpch`, `serve-mamba2`, `train` and `train-ft`); `plain_device` says where
+`serve-mamba2`, `serve-whisper`, `serve-llava`, `serve-sharded`, `train`,
+`train-ft` and `train-sharded` paths' included (K8's (128, 128) rows
+count `serve-mixtral`'s, `serve-llava`'s and `serve-sharded`'s launches
+there; every kernel 0 on `torch-tpch`, `serve-mamba2`, `train`,
+`train-ft` and `train-sharded`); `plain_device` says where
 `plain_ms` was taken: "cuda" for CUDA-event times on the card, "cpu" for
 the sequential K4 and K6a builds timed on the host; K6's and K8's rows
 add `library_call`, what `library_ms` timed; K8's rows add `device_ms`
@@ -630,6 +654,46 @@ TRAIN_ORACLE_GNORM_REL = 0.01
 #: checkpoint: bf16 params and f32 moments), batch 2 x 2048, 4 steps,
 #: preempted at step 2
 TRAIN_FT = {"layers": 1, "batch": 2, "steps": 4, "preempt": 2}
+#: train-sharded path: qwen1.5-4b at its published widths (d_model 2560,
+#: 20/20 heads of 128, d_ff 6912, vocabulary 151,936) with its depth cut
+#: to 8 of its 40 layers (0.63 B parameters in the layers and 0.78 B in
+#: the two vocabulary tables: 1.41 B), sharded over a (2, 2) ("data",
+#: "model") mesh of four points of the card with FSDP on; the train
+#: path's TrainConfig and batch (4 x 2048 in 2 microbatches, remat),
+#: AdamW on a cosine schedule (peak 3e-4, 2 warm-up steps), 3 bf16 steps
+#: on one repeated batch
+TRAIN_SHARDED = {"arch": "qwen1.5-4b", "layers": 8, "mesh": (2, 2),
+                 "fsdp": True, "batch": 4, "seq": 2048, "microbatches": 2,
+                 "steps": 3}
+#: The f32 gate of train-sharded: on the same f32 weights and batch, one
+#: AdamW step sharded against the same step unsharded (clipping active:
+#: the gradient norm is above 1). Set before the path's first card run
+#: from CPU readings of `sharded_train_gate` at a narrow width (qwen's
+#: block at d_model 256, 4/4 heads of 64, d_ff 704, vocabulary 4096, 2
+#: layers, batch 4 x 256, the same mesh, microbatches and schedule):
+#: the losses and gradient norms equal to f32's print, the parameters
+#: after the step 3.5e-7 relative L2 apart (their updates 1.2e-4). The
+#: limits sit far above those (cuBLAS sums in other orders than the CPU,
+#: and AdamW's first step, about lr * sign(g), steps an entry whose
+#: gradient is at f32 noise otherwise) and far below a fault: the
+#: control, the step's gradient taken from data shard 0's rows only (a
+#: data-parallel sum left out), read 0.44 relative in the norm and
+#: 2.9e-3 in the parameters (0.98 in their updates) on the CPU.
+SHARDED_TRAIN_LOSS_ABS = 1e-4
+SHARDED_TRAIN_GNORM_REL = 1e-4
+SHARDED_TRAIN_PARAM_REL = 1e-4
+#: Two more readings of the same step, as AdamW's first step (about lr *
+#: sign(g)) hides a fault in one leaf's data-parallel sum from the
+#: parameters and dilutes it in the norm: the worst leaf's gradient (each
+#: point's slice against the unsharded gradient's, relative L2 a leaf)
+#: and the updates' relative L2. Set before the path's first card run
+#: from CPU readings of `sharded_train_gate` at the narrow width above
+#: (in brackets: d_model 1024, 4/4 heads of 256, d_ff 2816, the rest as
+#: above): worst leaf 1.3e-6 (1.7e-6), updates 1.2e-4 (8.0e-5); the control
+#: 1.09 (1.02) and 0.98 (1.00). A fault scales some leaf's gradient by
+#: 0.5 to 2, a relative L2 of 0.3 or more.
+SHARDED_TRAIN_GRAD_REL = 1e-3
+SHARDED_TRAIN_UPDATE_REL = 1e-2
 #: path `launch-reports`: qwen1.5-4b at the serve path's shape, on a
 #: one-device mesh
 LAUNCH_REPORTS = {"arch": "qwen1.5-4b", "batch": 4, "prompt_len": 2048,
@@ -2838,6 +2902,279 @@ def train_ft_phase(torch, np, kb, sj, fa) -> dict:
     return counts
 
 
+def tree_rel(torch, got, want, base=None) -> float:
+    """||got - want|| / ||want - base|| (base 0) over the leaves of three
+    trees of tensors, each pair compared on the card a leaf at a time."""
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    num = den = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.to(dev).float(), w.to(dev).float()
+        num += float((g - w).pow(2).sum())
+        ref = w if base is None else w - base[i].to(dev).float()
+        den += float(ref.pow(2).sum())
+    return math.sqrt(num / den)
+
+
+class GradRecorder:
+    """An optimizer that keeps a host copy of the gradient leaves the
+    step hands it, by mesh point (-1 unsharded), then updates with
+    `inner`."""
+
+    def __init__(self, inner):
+        self.inner, self.grads = inner, {}
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, state, params):
+        from repro_torch.parallel import spmd as SP
+        from repro_torch.train.tree import leaves
+        ctx = SP.context()
+        self.grads[-1 if ctx is None else ctx.point] = [
+            g.detach().to("cpu", copy=True) for g in leaves(grads)]
+        return self.inner.update(grads, state, params)
+
+
+def leaf_rels(torch, got, want) -> list:
+    """Each leaf's ||got - want|| / ||want||, where `got[i]` and `want[i]`
+    are lists of the leaf's pieces (a point's slice each), compared on
+    the card a piece at a time."""
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    out = []
+    for gs, ws in zip(got, want):
+        num = den = 0.0
+        for g, w in zip(gs, ws):
+            g, w = g.to(dev).float(), w.to(dev).float()
+            num += float((g - w).pow(2).sum())
+            den += float(w.pow(2).sum())
+        out.append(math.sqrt(num / den) if den else
+                   (0.0 if num == 0 else math.inf))
+    return out
+
+
+def sharded_train_gate(torch, cfg, mesh, batch, tc, fsdp: bool) -> dict:
+    """Path `train-sharded`'s f32 gate: `cfg`'s model in f32 from seed 0,
+    one AdamW step (cosine, peak 3e-4) on `batch` unsharded (under the
+    mesh's abstract twin) and sharded on `mesh`, from the same weights
+    (kept on the host between the runs, so one state is on the card at a
+    time; each run's gradients are kept on the host too). Readings: each
+    run's loss, gradient norm and seconds; the sharded run's loss and
+    norm against the unsharded run's; every leaf's gradient, each point's
+    slice against that slice of the unsharded gradient, as a relative L2
+    a leaf (the worst leaf's, and its index in `leaves` order); the
+    parameters' relative L2 after the step and that of their updates;
+    and the control, the unsharded step on data shard 0's rows only (a
+    data-parallel sum left out: the loss is the sound run's, only the
+    gradient is cut), which the gate must reject."""
+    import dataclasses
+
+    from repro_torch.launch.dryrun import opt_shardings
+    from repro_torch.launch.mesh import make_test_mesh, set_mesh
+    from repro_torch.models.model import Batch, Model
+    from repro_torch.parallel import sharding as S
+    from repro_torch.parallel import spmd as SP
+    from repro_torch.train import optim as O
+    from repro_torch.train.step import build_train_step
+    from repro_torch.train.tree import leaves, tree_map
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    model = Model(cfg)
+    dev = mesh.devices[0]
+    cuda = torch.device(dev).type == "cuda"
+    init = tree_map(lambda t: t.cpu(), model.init(
+        torch.Generator(device=dev).manual_seed(0)))
+    opt = GradRecorder(O.AdamW(lr=O.cosine_schedule(3e-4, 2, 3)))
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def unsharded(b):
+        p = tree_map(lambda t: t.to(dev, copy=True), init)
+        state = opt.init(p)
+        with set_mesh(make_test_mesh(mesh.axis_sizes, mesh.axis_names)):
+            sync()
+            t = time.perf_counter()
+            p, state, m = build_train_step(model, opt, tc)(p, state, b)
+            sync()
+        rec = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "seconds": time.perf_counter() - t}
+        out = [x.cpu() for x in leaves(p)]
+        del p, state
+        if cuda:
+            torch.cuda.empty_cache()
+        return rec, out, opt.grads.pop(-1)
+    sound, want, full = unsharded(batch)
+    rows_b = batch.tokens.shape[0]
+    per = rows_b // tc.microbatches
+    mine = per // mesh.shape["data"]
+    rows = [i * per + j for i in range(tc.microbatches) for j in range(mine)]
+    control, cut, grads = unsharded(
+        Batch(batch.tokens[rows], batch.targets[rows]))
+    control["loss"] = sound["loss"]
+    control["leaf_rels"] = leaf_rels(torch, [[g] for g in grads],
+                                     [[w] for w in full])
+    del grads
+
+    specs = S.param_specs(cfg, mesh, fsdp)
+    params = SP.shard_tree(init, specs, mesh)
+    state = SP.init_state(opt.init, params, opt_shardings)
+    step = build_train_step(model, opt, tc, mesh=mesh)
+    sync()
+    t = time.perf_counter()
+    params, state, m = step(params, state, batch)
+    sync()
+    sharded = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "seconds": time.perf_counter() - t}
+    got = leaves(SP.gather_tree(params, "cpu"))
+    del params, state, step
+    if cuda:
+        torch.cuda.empty_cache()
+    points = range(mesh.size)
+    sharded["leaf_rels"] = leaf_rels(
+        torch, [[opt.grads[p][i] for p in points] for i in range(len(full))],
+        [[w[SP.local_slices(w.shape, spec, mesh, p)] for p in points]
+         for w, spec in zip(full, S.spec_leaves(specs))])
+    opt.grads.clear()
+    base = leaves(init)
+    out = {"unsharded": sound, "sharded": sharded, "control": control}
+    for rec, ps in (("sharded", got), ("control", cut)):
+        r = out[rec]
+        rels = r.pop("leaf_rels")
+        r["loss_abs"] = abs(r["loss"] - sound["loss"])
+        r["grad_norm_rel"] = abs(r["grad_norm"] - sound["grad_norm"]) \
+            / sound["grad_norm"]
+        r["grad_leaf_rel"] = max(rels)
+        r["grad_leaf_worst"] = rels.index(max(rels))
+        r["param_rel"] = tree_rel(torch, ps, want)
+        r["update_rel"] = tree_rel(torch, ps, want, base)
+        r["passes_gate"] = (r["loss_abs"] <= SHARDED_TRAIN_LOSS_ABS
+                            and r["grad_norm_rel"] <= SHARDED_TRAIN_GNORM_REL
+                            and r["grad_leaf_rel"] <= SHARDED_TRAIN_GRAD_REL
+                            and r["param_rel"] <= SHARDED_TRAIN_PARAM_REL
+                            and r["update_rel"] <= SHARDED_TRAIN_UPDATE_REL)
+    return out
+
+
+def train_sharded_phase(torch, np, kb, sj, fa, dev, smi: str) -> dict:
+    """Path `train-sharded`: TRAIN_SHARDED's model through
+    `build_train_step(..., mesh=)` on four points of the card. First the
+    bytes reckoned; then the f32 gate (`sharded_train_gate`: loss,
+    gradient norm and parameters after one step against the unsharded
+    step, and its control); then TRAIN_SHARDED["steps"] bf16 steps on
+    one repeated batch, whose collectives (`spmd.COMM`) must equal
+    `spmd.train_comm` times the steps, every loss finite and each
+    under the one before. No hand kernel launches (attention on
+    "auto"). Prints the step seconds, tokens a second and the peak
+    memory beside the card's name and power limit. Returns the path's
+    launch counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import local_bytes, opt_shardings
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.common import abstract_params
+    from repro_torch.models.model import Model
+    from repro_torch.parallel import sharding as S
+    from repro_torch.parallel import spmd as SP
+    from repro_torch.train import optim as O
+    from repro_torch.train.step import TrainConfig, build_train_step
+    spec, path = TRAIN_SHARDED, "train-sharded"
+    full = get_config(spec["arch"])
+    cfg = dataclasses.replace(full, n_layers=spec["layers"])
+    n = cfg.param_count()
+    b, s, steps = spec["batch"], spec["seq"], spec["steps"]
+    mesh = make_test_mesh(spec["mesh"], devices=[dev] * 4)
+    specs = S.param_specs(cfg, mesh, spec["fsdp"])
+    per_point = local_bytes(abstract_params(cfg), specs, mesh)
+    tc = TrainConfig(microbatches=spec["microbatches"], remat=True)
+    torch.cuda.empty_cache()
+    # f32: a copy of the weights, and with the gradient and AdamW's two
+    # moments; the gate holds one state at a time on the card
+    emit({"phase": path, "step": "reckoning", "arch": spec["arch"],
+          "layers": cfg.n_layers, "published_layers": full.n_layers,
+          "params": n, "f32_weights_bytes": 4 * n,
+          "f32_state_bytes": 16 * n, "bf16_param_bytes_per_point":
+          per_point, "mesh": list(spec["mesh"]), "fsdp": spec["fsdp"],
+          "card_bytes": torch.cuda.get_device_properties(0).total_memory})
+    batch = train_batch(torch, np, cfg.vocab_size, b, s, 0)
+
+    t_path = time.perf_counter()
+    read = launch_window(kb, sj, fa)  # the path's counts start at 0 here
+    torch.cuda.reset_peak_memory_stats()
+    gate = sharded_train_gate(torch, cfg, mesh, batch, tc, spec["fsdp"])
+    gate_peak = torch.cuda.max_memory_allocated()
+    emit({"phase": path, "check": "f32 sharded vs unsharded step",
+          "tol_loss_abs": SHARDED_TRAIN_LOSS_ABS,
+          "tol_grad_norm_rel": SHARDED_TRAIN_GNORM_REL,
+          "tol_grad_leaf_rel": SHARDED_TRAIN_GRAD_REL,
+          "tol_param_rel": SHARDED_TRAIN_PARAM_REL,
+          "tol_update_rel": SHARDED_TRAIN_UPDATE_REL,
+          "peak_memory_bytes": gate_peak, "card": smi, **gate})
+
+    model = Model(cfg)
+    opt = O.AdamW(lr=O.cosine_schedule(3e-4, 2, steps))
+    params = SP.shard_tree(model.init(torch.Generator(
+        device=dev).manual_seed(0)), specs, mesh)
+    state = SP.init_state(opt.init, params, opt_shardings)
+    torch.cuda.empty_cache()
+    step = build_train_step(model, opt, tc, mesh=mesh)
+    SP.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, secs = [], [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t)
+        norms.append(float(m["grad_norm"]))
+        emit({"phase": path, "step": i + 1, "loss": losses[-1],
+              "grad_norm": norms[-1], "lr": float(m["lr"]),
+              "seconds": secs[-1]})
+    comm = dict(SP.COMM)
+    peak = torch.cuda.max_memory_allocated()
+    counts = read()                   # just after the path
+    want = {k: x * steps for k, x in
+            SP.train_comm(cfg, mesh, b, s, tc, spec["fsdp"]).items()}
+    held = [SP.tree_local_bytes(params, p) for p in range(mesh.size)]
+    step_s = statistics.mean(secs[1:])
+    # one more step under torch.profiler, outside the path's counts: the
+    # four points' streams may overlap, so the summed device time is at
+    # most the busy time and the idle share at least the true one
+    prof = device_profile(torch, lambda: step(params, state, batch))
+    emit({"phase": path, "path": path, "arch": spec["arch"],
+          "config": cfg.name, "layers": cfg.n_layers, "params": n,
+          "mesh": list(spec["mesh"]), "axes": list(mesh.axis_names),
+          "devices": [str(d) for d in mesh.devices], "fsdp": spec["fsdp"],
+          "batch": b, "seq": s, "microbatches": tc.microbatches,
+          "remat": tc.remat, "steps": steps, "losses": losses,
+          "grad_norms": norms, "step_seconds_all": secs,
+          "step_seconds": step_s, "tokens_per_second": b * s / step_s,
+          "peak_memory_bytes": peak, "param_bytes_per_point": held,
+          "param_bytes_per_point_reckoned": per_point,
+          "collectives": comm, "collectives_formula": want,
+          "profile_one_step": prof, "launches": counts,
+          "path_seconds": time.perf_counter() - t_path, "card": smi})
+    check(gate["sharded"]["passes_gate"],
+          f"{path}: the f32 sharded step is off the unsharded one "
+          f"({gate['sharded']})")
+    check(not gate["control"]["passes_gate"],
+          f"{path}: the f32 gate passes a data-parallel sum left out "
+          f"({gate['control']})")
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"{path}: a loss or gradient norm is not finite ({losses})")
+    check(all(y < x for x, y in zip(losses, losses[1:])),
+          f"{path}: the losses did not fall step by step ({losses})")
+    check(comm == want, f"{path}: collectives {comm}, the formula {want}")
+    check(held == [per_point] * mesh.size,
+          f"{path}: points hold {held} parameter bytes, the specs "
+          f"{per_point} each")
+    check_path(counts, path, (), tuple(counts))
+    del params, state, step, model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def ptxas_usage(log: str, kernel: str) -> dict:
     """Registers and spill bytes of the entry function whose mangled name
     holds `kernel`, from nvcc's `-Xptxas -v` log (None each when the log
@@ -3713,9 +4050,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0,
                     help="TPC-H scale factor of the slice phase")
-    ap.add_argument("--phase", choices=("all", "kernels"), default="all",
-                    help="kernels: phases 1-4 only, with no kernel table "
-                         "and no ok line")
+    ap.add_argument("--phase", choices=("all", "kernels", "train-sharded"),
+                    default="all",
+                    help="kernels: phases 1-4 only; train-sharded: that "
+                         "path only (no kernel is built); either with no "
+                         "kernel table and no ok line")
     args = ap.parse_args()
 
     import numpy as np
@@ -3742,6 +4081,9 @@ def main() -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    if args.phase == "train-sharded":
+        train_sharded_phase(torch, np, kb, sj, fa, dev, smi)
+        return 0
     t0 = time.perf_counter()
     info = kbuild.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -3801,6 +4143,8 @@ def main() -> int:
                                                     smi)
     counts["train"] = train_phase(torch, np, kb, sj, fa)
     counts["train-ft"] = train_ft_phase(torch, np, kb, sj, fa)
+    counts["train-sharded"] = train_sharded_phase(torch, np, kb, sj, fa, dev,
+                                                  smi)
 
     bloom_cu = "src/repro_torch/kernels/bloom/csrc/bloom.cu"
     semijoin_cu = "src/repro_torch/kernels/semijoin/csrc/semijoin.cu"

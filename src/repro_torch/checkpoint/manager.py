@@ -21,7 +21,11 @@ given `shardings` (a tree of `parallel.sharding.NamedSharding` on a mesh
 with devices, such as `param_shardings`), as its shards on the mesh's
 devices (`parallel.spmd.Sharded`): the reference's resharding restore,
 which puts a checkpoint written on any mesh (or on one device) onto
-another. Each leaf is read once.
+another; a target leaf that is itself sharded, with no sharding given,
+is restored onto its own spec and mesh. Each leaf is read once. A save
+of a sharded leaf writes the whole tensor (gathered from one point a
+slice), so a sharded state's checkpoint is the unsharded one's, file
+for file.
 """
 from __future__ import annotations
 
@@ -45,6 +49,8 @@ def _snapshot(tree):
     optimizer updates the leaves in place while an async save writes."""
     items = []
     for leaf in leaves(tree):
+        if isinstance(leaf, SP.Sharded):
+            leaf = SP.gather_leaf(leaf, "cpu")
         if isinstance(leaf, torch.Tensor):
             t = leaf.detach().to("cpu", copy=True)
             if t.dtype == torch.bfloat16:
@@ -106,6 +112,8 @@ def _from_numpy(arr: np.ndarray, logical: str, ref,
         t = torch.from_numpy(arr)
     if isinstance(ref, (torch.Tensor, SP.Sharded)):
         t = t.to(dtype=ref.dtype)
+    if sharding is None and isinstance(ref, SP.Sharded):
+        sharding = ref
     if sharding is not None:
         return SP.shard_leaf(t, sharding.spec, sharding.mesh)
     if isinstance(ref, torch.Tensor):
@@ -116,10 +124,11 @@ def _from_numpy(arr: np.ndarray, logical: str, ref,
 def restore_tree(path: str, target_tree: Any,
                  shardings: Optional[Any] = None) -> Any:
     """Restore into `target_tree`'s structure, each leaf in its target
-    leaf's dtype: on its device, or, given `shardings` (a tree of
-    `NamedSharding` in the target's structure), as its shards on the
-    sharding's mesh. Raises AssertionError on a leaf count or shape
-    mismatch, as the reference does."""
+    leaf's dtype: on its device (a sharded target leaf: onto its spec and
+    mesh), or, given `shardings` (a tree of `NamedSharding` in the
+    target's structure), as its shards on the sharding's mesh. Raises
+    AssertionError on a leaf count or shape mismatch, as the reference
+    does."""
     flat = leaves(target_tree)
     shard_flat = leaves(shardings) if shardings is not None \
         else [None] * len(flat)

@@ -56,6 +56,18 @@ class StragglerMonitor:
         return is_straggler
 
 
+def _opt_shardings(opt_state, shardings):
+    """The optimizer state's `NamedSharding` tree for parameters placed
+    by `shardings`: `launch.dryrun.opt_shardings` of their specs."""
+    from repro_torch.launch.dryrun import opt_shardings
+    from repro_torch.parallel.sharding import NamedSharding, map_specs
+    from repro_torch.train.tree import leaves, tree_map
+    mesh = leaves(shardings)[0].mesh
+    specs = tree_map(lambda s: s.spec, shardings)
+    return map_specs(lambda s: NamedSharding(mesh, s),
+                     opt_shardings(opt_state, specs, mesh))
+
+
 class FaultTolerantTrainer:
     """Drives train_step with periodic async checkpoints, preemption-safe
     shutdown, and restart-with-resume."""
@@ -78,13 +90,20 @@ class FaultTolerantTrainer:
         """Test hook: simulate a preemption notice."""
         self._preempted = True
 
-    def resume_or_init(self, params, opt_state):
-        """Restore the latest checkpoint if present (onto the devices
-        and dtypes of `params` and `opt_state`), else return the fresh
-        state."""
+    def resume_or_init(self, params, opt_state, shardings=None):
+        """Restore the latest checkpoint if present, else return the
+        fresh state. The checkpoint's leaves go onto the devices and
+        dtypes of `params` and `opt_state` (a sharded leaf onto its
+        spec), or, given `shardings` (the parameters' `NamedSharding`
+        tree, `sharding.param_shardings`), the parameters onto those and
+        the optimizer state onto `launch.dryrun.opt_shardings` of their
+        specs: the reference's resume onto a new mesh."""
         state = {"params": params, "opt": opt_state, "step": 0}
         step, restored = self.ckpt.restore_latest(
-            {"params": params, "opt": opt_state})
+            {"params": params, "opt": opt_state},
+            None if shardings is None else
+            {"params": shardings,
+             "opt": _opt_shardings(opt_state, shardings)})
         if restored is not None:
             state = {"params": restored["params"],
                      "opt": restored["opt"], "step": step}

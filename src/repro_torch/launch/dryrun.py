@@ -32,9 +32,9 @@ the numbers XLA's compiler supplied to the reference's report
 `collective_bytes_per_device`, `memory.output_bytes`, `temp_bytes`,
 `generated_code_bytes`) are null and listed under `not_measured`; the
 reference's `launch/hlo.py`, which parses XLA's partitioned HLO for the
-collectives, has no counterpart (sharded serving counts its collectives
-as it runs them, `parallel.spmd.COMM`; filling these fields from such
-counts is ROADMAP item 10e.2). Skipped cells (`skip`) come
+collectives, has no counterpart (sharded serving and training count
+their collectives as they run them, `parallel.spmd.COMM`; filling these
+fields from such counts is ROADMAP item 10e.2). Skipped cells (`skip`) come
 from `shape_skip_reason`. The roofline (`launch.roofline`) reads these
 reports beside the analytic cost model.
 

@@ -67,8 +67,18 @@ never from its shape. The collectives sit at the reference's hint sites:
   * with FSDP a leaf split over "data" is all-gathered just before use
     and dropped after the layer.
 Partial products are summed in f32 and cast once (`spmd.all_reduce`).
-MLA, Mamba-2 and whisper's cross-attention raise under a mesh of more
-than one point (ROADMAP item 10e.2).
+Where an activation every point of the model axis holds alike enters
+compute split over that axis (q/k/v over the local heads, w1/w3 over
+the local hidden units, the MoE's tokens and routing weights into the
+local experts or hidden units, the LM head's local vocabulary), it
+passes through `spmd.copy`, whose backward all-reduces the points'
+partial gradients: with the collectives' own backwards (a sum's is the
+identity, a gather's keeps the point's slice) every point's gradient of
+a local tensor is its slice of the unsharded gradient, the same bits on
+every replica. The MoE's auxiliary loss is the global batch's (its
+sums all-reduced over the batch's axes). MLA, Mamba-2 and whisper's
+cross-attention raise under a mesh of more than one point (ROADMAP item
+10e.2).
 
 Training differentiates these functions with torch's autograd. K8 has
 no backward (nor has the reference's Pallas kernel), so the training
@@ -315,6 +325,8 @@ def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, a: AttnConfig,
 
     w, tp = _attn_weights(p, a)
     nh, nkv = a.num_heads // tp, a.num_kv_heads // tp
+    if tp > 1:                  # h enters the point's heads
+        h = SP.copy(h, "model")
     q = h @ w["wq"]
     k = h @ w["wk"]
     v = h @ w["wv"]
@@ -455,13 +467,14 @@ def _ffn(p, h, act: str):
     (w2's rows) w2's partial product is all-reduced over their axes."""
     w1, w2 = SP.whole(p["w1"], "data"), SP.whole(p["w2"], "data")
     w3 = SP.whole(p["w3"], "data") if "w3" in p else None
+    split = SP.split_axes(w2, 0)
+    h = SP.copy(h, split)           # h enters the point's hidden units
     if act == "swiglu":
         y = (silu(h @ w1) * (h @ w3)) @ w2
     elif act == "relu2":                      # squared ReLU (nemotron)
         y = torch.square(torch.relu(h @ w1)) @ w2
     else:                                     # jax.nn.gelu's tanh form
         y = F.gelu(h @ w1, approximate="tanh") @ w2
-    split = SP.split_axes(w2, 0)
     return SP.all_reduce(y, split) if split else y
 
 
@@ -553,11 +566,15 @@ def moe(p, x, cfg: ModelConfig, norm_kind: str = "rmsnorm"):
     r = moe_route(router, h, m, s, groups)
     h = HT.hint(h.reshape(r.groups, t // r.groups, d), "batch", None,
                 None).reshape(t, d)
+    # experts, or d_ff inside them, split over `split`: the tokens and
+    # their weights enter the point's share of the experts' work
+    split = SP.split_axes(w1, 0) or SP.split_axes(w2, 1)
+    h, top_w = SP.copy(h, split), SP.copy(r.top_w, split)
     tok = torch.arange(t, device=x.device).repeat_interleave(m.top_k)
     e = r.top_e.reshape(-1)
     rows = r.capacity + 1
     c = r.pos.reshape(-1).clamp(max=r.capacity)
-    w = (r.top_w * r.keep).reshape(-1)
+    w = (top_w * r.keep).reshape(-1)
     n_local = w1.shape[0]
     if SP.split_axes(w1, 0):        # expert-parallel: this point's experts
         lo = SP.offset(w1, 0)
@@ -576,7 +593,6 @@ def moe(p, x, cfg: ModelConfig, norm_kind: str = "rmsnorm"):
     w = w.to(x.dtype).float()
     y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
     y.index_add_(0, tok, xout[e, c].float() * w[:, None])
-    split = SP.split_axes(w1, 0) or SP.split_axes(w2, 1)
     if split:                       # experts, or d_ff inside them
         y = SP.all_reduce(y, split)
     y = y.to(x.dtype)
@@ -590,15 +606,24 @@ def moe(p, x, cfg: ModelConfig, norm_kind: str = "rmsnorm"):
 def moe_aux_loss(p, x, cfg: ModelConfig, norm_kind: str = "rmsnorm"):
     """Load-balancing auxiliary loss (Switch/GShard): E times the dot of
     each expert's share of top-1 choices and its mean router
-    probability, in f32."""
+    probability, in f32. In `spmd.run` with the batch split, the shares
+    are the global batch's: each point's counts and probability sums
+    all-reduced over the batch's axes (one call)."""
     m = cfg.moe
     h = norm(x, p["ln"], norm_kind)
-    probs = torch.softmax(h.reshape(-1, h.shape[-1]).float() @ p["router"],
+    router = SP.whole(p["router"], "data")
+    probs = torch.softmax(h.reshape(-1, h.shape[-1]).float() @ router,
                           dim=-1)
     top_e = torch.argmax(probs, dim=-1)
-    frac_tokens = F.one_hot(top_e, m.num_experts).float().mean(dim=0)
-    frac_probs = probs.mean(dim=0)
-    return m.num_experts * torch.sum(frac_tokens * frac_probs)
+    chosen = F.one_hot(top_e, m.num_experts).float()
+    axes = SP.batch_axes()
+    if not axes:
+        return m.num_experts * torch.sum(chosen.mean(dim=0)
+                                         * probs.mean(dim=0))
+    sums = SP.all_reduce(torch.cat([chosen.sum(0), probs.sum(0)]), axes)
+    n = probs.shape[0] * SP.context().size(axes)
+    return m.num_experts * torch.sum((sums[:m.num_experts] / n)
+                                     * (sums[m.num_experts:] / n))
 
 
 # --------------------------------------------------------------------------

@@ -44,8 +44,10 @@ embedding is a vocab-parallel lookup (`layers.embed`), the LM head's
 local vocabulary columns give local logits that are all-gathered over
 "model", and `init_cache` holds the point's kv heads (`layers.
 heads_split`), so a point's cache bytes are `cache_spec`'s local share
-wherever the heads split whole. The patch prefix, whisper's encoder and
-`loss` raise under a mesh of more than one point (ROADMAP item 10e.2).
+wherever the heads split whole. Sharded training differentiates `loss`
+there: the collectives carry gradients (`parallel.spmd`) and the loss
+is the global batch's. The patch prefix and whisper's encoder raise
+under a mesh of more than one point (ROADMAP item 10e.2).
 """
 from __future__ import annotations
 
@@ -85,10 +87,20 @@ def _slot_view(sc, r: int):
     return L.KVCache(sc.k[r], sc.v[r], sc.index)
 
 
-def _chunk_nll(xc, w, tc):
+def _logits(h, w, vocab):
+    """f32 logits of hidden `h` under the LM head `w` [d, V]; in
+    `spmd.run`, with the vocabulary split over `vocab`, `w` holds the
+    point's columns and their logits are all-gathered over `vocab`."""
+    if not vocab:
+        return (h @ w).float()
+    logits = (SP.copy(h, vocab) @ w).float()
+    return SP.all_gather(logits, vocab, -1)
+
+
+def _chunk_nll(xc, w, vocab, tc):
     """Summed NLL of one chunk: f32 logits, logsumexp minus the gold
     logit where the target is >= 0."""
-    logits = (xc @ w).float()
+    logits = _logits(xc, w, vocab)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, 1, torch.clamp(tc, min=0)[:, None].long())
     return torch.where(tc >= 0, lse - gold[:, 0], 0.0).sum()
@@ -279,18 +291,21 @@ class Model:
             x = torch.cat([patches, x], dim=1)
         return x
 
+    def _head(self, params):
+        """(the LM head [d, V] as this point uses it, the axes its
+        vocabulary is split over): in `spmd.run` its FSDP rows gathered,
+        its columns the point's share of the vocabulary."""
+        if self.cfg.tie_embeddings:
+            table = SP.whole(params["embed"], "data")
+            return table.T, SP.split_axes(table, 0)
+        w = SP.whole(params["unembed"], "data")
+        return w, SP.split_axes(w, 1)
+
     def hidden_to_logits(self, params, h):
         """f32 logits; in `spmd.run` the LM head's FSDP rows gathered and
         the local vocabulary columns' logits all-gathered over the
         vocabulary's axes."""
-        if self.cfg.tie_embeddings:
-            table = SP.whole(params["embed"], "data")
-            w, vocab = table.T, SP.split_axes(table, 0)
-        else:
-            w = SP.whole(params["unembed"], "data")
-            vocab = SP.split_axes(w, 1)
-        logits = (h @ w).float()
-        return SP.all_gather(logits, vocab, -1) if vocab else logits
+        return _logits(h, *self._head(params))
 
     # ------------------------------------------------------------------
     def loss(self, params, batch: Batch, loss_chunk: int = 2048):
@@ -299,8 +314,14 @@ class Model:
         past the last whole chunk are dropped, as the reference's — plus
         0.01 times the MoE auxiliary loss. A scalar f32 tensor. Whisper:
         `batch.extra` is the encoder's frame embeddings; llava: the patch
-        embeddings, prepended, whose positions carry no loss."""
-        SP.require_unsharded("the loss")
+        embeddings, prepended, whose positions carry no loss.
+
+        In `spmd.run` (each point its rows of the batch) the loss is the
+        global batch's, the same on every point: the chunks are cut from
+        the global flattened batch as above (a point's rows are its
+        range of it), each point's NLL sum and count of targets are
+        all-reduced over the batch's axes, and the MoE's auxiliary loss
+        is the global batch's (`layers.moe_aux_loss`)."""
         cfg = self.cfg
         x = self.embed_inputs(params, batch)
         b, s, _ = x.shape
@@ -320,21 +341,38 @@ class Model:
         t = b * s
         xf = x.reshape(t, cfg.d_model)
         tf = targets.reshape(t)
-        nchunk = max(1, t // max(loss_chunk, 1))
-        csize = t // nchunk
-        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        axes = SP.batch_axes()
+        ways = SP.context().size(axes) if axes else 1
+        nchunk = max(1, t * ways // max(loss_chunk, 1))
+        csize = t * ways // nchunk
+
+        def cuts(start):
+            """The chunk bounds of the tokens at `start` of the global
+            flattened batch: those before the end of the last whole
+            chunk, cut where the global chunks are."""
+            keep = min(max(nchunk * csize - start, 0), t)
+            return [0] + [c * csize - start for c in range(1, nchunk)
+                          if 0 < c * csize - start < keep] + [keep]
+        # every point runs as many chunks (each chunk's collectives are a
+        # rendezvous of the whole mesh): empty ones where it has fewer
+        mine = cuts(SP.batch_offset() * t)
+        most = max(len(cuts(i * t)) for i in range(ways))
+        mine += mine[-1:] * (most - len(mine))
+        w, vocab = self._head(params)
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         count = torch.zeros((), dtype=torch.int64, device=x.device)
-        for c in range(nchunk):
-            xc = xf[c * csize:(c + 1) * csize]
-            tc = tf[c * csize:(c + 1) * csize]
+        for lo, hi in zip(mine[:-1], mine[1:]):
+            xc, tc = xf[lo:hi], tf[lo:hi]
             if torch.is_grad_enabled():
                 nll = torch.utils.checkpoint.checkpoint(
-                    _chunk_nll, xc, w, tc, use_reentrant=False)
+                    _chunk_nll, xc, w, vocab, tc, use_reentrant=False)
             else:
-                nll = _chunk_nll(xc, w, tc)
+                nll = _chunk_nll(xc, w, vocab, tc)
             total = total + nll
             count = count + (tc >= 0).sum()
+        if axes:
+            sums = SP.all_reduce(torch.stack([total, count.float()]), axes)
+            total, count = sums[0], sums[1]
         return total / torch.clamp(count, min=1) + 0.01 * aux
 
     # ------------------------------------------------------------------

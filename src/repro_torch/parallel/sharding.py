@@ -22,13 +22,13 @@ function takes any mesh with `.shape` (a dict of axis sizes) and
 `.axis_names`. Shapes come from `models.common.param_shapes` and from
 caches built on the "meta" device, so nothing is allocated. These specs
 feed the launch reports (`launch.specs`, `launch.dryrun`) and sharded
-serving (`parallel.spmd`: `shard_tree`, `init_sharded`,
-`launch.serve.serve_config(mesh=...)`). Two differences there, on
-purpose: a cache splits its kv heads over "model", not `head_dim` as
-`cache_spec` says (K8 takes whole heads; the bytes a point holds are
-the same wherever the heads split whole), and a block whose heads do
-not split whole runs gathered, replicated over "model". Sharded
-training is ROADMAP item 10e.2.
+serving and training (`parallel.spmd`: `shard_tree`, `init_sharded`,
+`launch.serve.serve_config(mesh=...)`, `train.step.build_train_step(
+..., mesh=...)`). Two differences there, on purpose: a cache splits its
+kv heads over "model", not `head_dim` as `cache_spec` says (K8 takes
+whole heads; the bytes a point holds are the same wherever the heads
+split whole), and a block whose heads do not split whole runs gathered,
+replicated over "model".
 """
 from __future__ import annotations
 
@@ -169,6 +169,16 @@ def map_specs(fn, tree):
             if hasattr(tree, "_fields") else tuple(map_specs(fn, v)
                                                    for v in tree)
     return tree
+
+
+def spec_leaves(specs) -> list:
+    """The specs of a spec tree in `train.tree.leaves` order (a spec is a
+    tuple, so `leaves` would walk into it)."""
+    if isinstance(specs, P):
+        return [specs]
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in spec_leaves(specs[k])]
+    return [x for v in specs for x in spec_leaves(v)]
 
 
 def param_shardings(cfg: ModelConfig, mesh, fsdp: bool = True) -> Any:

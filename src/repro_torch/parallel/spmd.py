@@ -44,10 +44,31 @@ distinct GPUs, plain copies on one card; a device may repeat).
     the same bits, and no result aliases a point's own buffer.
     `all_gather` concatenates them along `dim` in that order.
 
+Gradients. Under autograd the collectives are `torch.autograd.Function`s
+with the conjugate backward, in the Megatron convention: over the model
+axes a point's gradient of a value every point holds alike is the whole
+gradient (the same on every point), over the axes that split the batch
+(`ShardContext.batch_axes`) it is the point's own data's share.
+`all_reduce` (partial outputs summed) backs the identity; `all_gather`
+keeps the point's slice of the gradient, summed over the gathered axes
+that split the batch (a reduce-scatter: FSDP's weights, used by every
+data shard) and taken as it is over the others (the vocab-parallel
+logits); `copy`, where an activation held alike enters compute split
+over some axes, all-reduces its gradient over them. A training step
+then sums each leaf's gradient over the batch's axes the leaf is not
+split over (`data_parallel_sum`). Each Function keeps its point's
+context from the forward and raises if its backward runs on another
+thread: `run` turns multithreaded backward off in each point's thread
+(`torch.autograd.set_multithreading_enabled(False)`), so a backward, and
+a remat recomputation within it, runs on the point's own thread,
+context, stream and turn (on CUDA autograd would otherwise run it on
+one worker thread per device, which the points of one card share).
+
 Counts. `COMM` counts collective calls and bytes, summed over the
-points (every point makes every call): `all_reduce` and `all_gather`
-each add one a point a call, and `*_bytes` add the bytes a point
-receives, the (n - 1) other tensors of its group of n. A point's share
+points (every point makes every call): `all_reduce`, `all_gather` and
+`reduce_scatter` each add one a point a call, and `*_bytes` add the
+bytes a point receives, the (n - 1) other tensors (a reduce-scatter:
+their slices) of its group of n. A point's share
 is the count over the mesh size. For a prefill or decode call of a
 model of L layers, attention heads split over a model axis of size
 tp > 1 and a vocabulary that tp divides, a point calls `all_reduce`
@@ -56,6 +77,33 @@ layer for the FFN's `w2` (or the MoE's combine) where the FFN is split,
 and `all_gather` once for the logits; with `fsdp` each weight a layer
 uses that is split over "data" adds one `all_gather` (wq, wk, wv, wo;
 w1, w3, w2; the MoE's router, w1, w3, w2), and the LM head one more.
+
+A train step (`train.step.build_train_step(..., mesh=)`, remat on) of a
+dense model of L layers whose heads, d_ff and vocabulary V split over a
+model axis of size tp, with the batch split over a data axis of size dp
+(each microbatch t tokens a point, its loss in c chunks of t_c) and, with
+FSDP, the weights over "data" too; e the parameters' element bytes, d
+the model width, W the weights' elements (wq, wk, wv, wo, w1, w2, w3) a
+layer and H = d V the LM head's. Each of m microbatches, a point calls:
+  * all_reduce 2 + 5 L + c times: the embedding, wo and w2 a layer (the
+    forward), wo a layer again (the remat recomputation runs a block
+    forward up to its last saved tensor, which comes before w2's sum),
+    the q/k/v and w1/w3 copies' backward a layer, the LM head copy's
+    backward a chunk, and the loss's sum and count over "data": (tp - 1)
+    e d t bytes each (t_c for a chunk's), (dp - 1) 8 for the loss;
+  * all_gather 2 c times, the f32 logits of a chunk over "model" in the
+    forward and the recomputation, (tp - 1) 4 t_c V / tp bytes; with FSDP
+    also 14 L + 1 times, each weight a layer in the forward and the
+    recomputation and the LM head once: (dp - 1) e (2 L W + H) / (dp tp)
+    bytes in all;
+  * reduce_scatter (with FSDP) 7 L + 1 times, each gathered weight's
+    backward, (dp - 1) e (L W + H) / (dp tp) bytes in all.
+Then once a step: all_reduce of each leaf's f32 gradient that "data"
+does not split, over "data" ((dp - 1) 4 bytes an element the point
+holds: with FSDP the embedding, the norms and the QKV biases; without,
+every leaf), and of the gradient norm's sums once for each set of axes
+that splits some leaf ((n - 1) 4 bytes a leaf of it, n the points of
+its group). `train_comm` computes it.
 
 CUDA streams. A point's collective deposit records an event on its
 stream; a reader's stream waits on it before reading, and the deposited
@@ -80,6 +128,7 @@ within `timeout`.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import math
@@ -90,14 +139,19 @@ import torch
 
 from repro_torch.kernels.build import LaunchCounts
 from repro_torch.launch.mesh import set_mesh
+from repro_torch.models.common import abstract_params
 from repro_torch.parallel.sharding import P
+from repro_torch.parallel.sharding import batch_axes as batch_axes_of
+from repro_torch.parallel.sharding import param_specs, spec_leaves
+from repro_torch.train.tree import leaves
 
 #: seconds a rendezvous (or a wait for the turn) waits before the run
 #: is failed
 DEFAULT_TIMEOUT = 300.0
 
-COMM = LaunchCounts("all_reduce", "all_gather", "all_reduce_bytes",
-                    "all_gather_bytes")
+COMM = LaunchCounts("all_reduce", "all_gather", "reduce_scatter",
+                    "all_reduce_bytes", "all_gather_bytes",
+                    "reduce_scatter_bytes")
 
 
 def reset_counts() -> None:
@@ -246,6 +300,37 @@ def shard_tree(tree, specs, mesh):
     return _map(one, tree, specs)
 
 
+def join(template, parts: Sequence[Any]):
+    """The points' trees `parts` (what `run` returns, in point order) as
+    one tree: a sharded leaf wherever `template` has one (its spec, mesh
+    and shape, the points' tensors as its shards), point 0's value
+    elsewhere."""
+    def one(tmpl, *ps):
+        if isinstance(tmpl, Sharded):
+            return Sharded(tmpl.spec, tmpl.mesh,
+                           tuple(_tag(p, tmpl.spec) for p in ps), tmpl.shape)
+        return ps[0]
+    return _map(one, template, *parts)
+
+
+def init_state(init: Callable, params, place: Callable):
+    """`init` (an optimizer's) of the sharded `params`, run on every
+    point over its own shards and on its device, joined under the specs
+    `place(state, param_specs, mesh)` gives (`launch.dryrun.
+    opt_shardings`): a sharded state never whole on one device. Its
+    shapes are `init`'s of the parameters' meta twins."""
+    found = []
+    _map(lambda x: found.append(x) if isinstance(x, Sharded) else x, params)
+    mesh = found[0].mesh
+    meta = _map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                      device="meta"), params)
+    abstract = init(meta)
+    specs = place(abstract, _map(lambda x: x.spec, params), mesh)
+    template = _map(lambda a, s: Sharded(P(*s), mesh, (), tuple(a.shape)),
+                    abstract, specs)
+    return join(template, run(mesh, init, params))
+
+
 def gather_tree(tree, device=None):
     """Every sharded leaf of `tree` as its full tensor on `device`."""
     return _map(lambda x: gather_leaf(x, device)
@@ -377,6 +462,13 @@ class ShardContext:
     def size(self, axes) -> int:
         return _ways(self.mesh, _axes(axes))
 
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        """The axes that split the batch ("pod", "data": the sharding
+        rules' `batch_axes`), () where the batch is whole on every
+        point (`batch_ways` 1)."""
+        return batch_axes_of(self.mesh) if self.batch_ways > 1 else ()
+
     def take_turn(self) -> None:
         if not self.world.turn.acquire(timeout=self.world.timeout):
             raise RuntimeError(f"spmd: point {self.point} waited past its "
@@ -404,10 +496,12 @@ def _need() -> ShardContext:
     return ctx
 
 
-def _exchange(x: torch.Tensor, axes, kind: str) -> List[torch.Tensor]:
+def _exchange(x: torch.Tensor, axes, kind: str,
+              take: Optional[Callable] = None) -> List[torch.Tensor]:
     """Deposit `x`, meet every point, and read the group's tensors over
     `axes` in shard order, each on this point's device (this point's own
-    is `x`)."""
+    is `x`); `take`, where given, cuts what this point reads of each
+    (a reduce-scatter reads only its own slice)."""
     ctx = _need()
     world, axes = ctx.world, _axes(axes)
     slot = world.slots[ctx.calls % 2]
@@ -427,6 +521,8 @@ def _exchange(x: torch.Tensor, axes, kind: str) -> List[torch.Tensor]:
     out, received = [], 0
     for q in world.group(ctx.point, axes):
         t, ev = slot[q]
+        if take is not None:
+            t = take(t)
         if q != ctx.point:
             if t.is_cuda:
                 stream = torch.cuda.current_stream(t.device)
@@ -440,22 +536,142 @@ def _exchange(x: torch.Tensor, axes, kind: str) -> List[torch.Tensor]:
     return out
 
 
-def all_reduce(x: torch.Tensor, axes) -> torch.Tensor:
-    """The sum of `x` over the group of points that differ on `axes`, in
-    shard order, accumulated in f32 (or `x`'s dtype if wider), cast to
-    `x`'s dtype; a new tensor on every point."""
-    parts = _exchange(x, axes, "all_reduce")
-    acc_dtype = torch.promote_types(x.dtype, torch.float32)
-    acc = parts[0].to(acc_dtype, copy=True)
+def _sum(parts: Sequence[torch.Tensor], dtype) -> torch.Tensor:
+    """The parts summed in order in `dtype` (a new tensor)."""
+    acc = parts[0].to(dtype, copy=True)
     for t in parts[1:]:
-        acc += t.to(acc_dtype)
+        acc += t.to(dtype)
+    return acc
+
+
+def _reduce(x: torch.Tensor, axes, op: str, dtype=None) -> torch.Tensor:
+    parts = _exchange(x, axes, "all_reduce")
+    if op == "max":
+        acc = parts[0].clone()
+        for t in parts[1:]:
+            acc = torch.maximum(acc, t)
+        return acc
+    if dtype is not None:
+        return _sum(parts, dtype)
+    acc = _sum(parts, torch.promote_types(x.dtype, torch.float32))
     return acc.to(x.dtype)
+
+
+def _scatter(g: torch.Tensor, axes, dim: int, size: int) -> torch.Tensor:
+    """The backward of a gather over `axes` along `dim` of slices of
+    `size`: this point's slice of `g`, summed over the gathered axes
+    that split the batch (`ShardContext.batch_axes`: there each point's
+    `g` is its own data's share, as for a weight gathered by FSDP) and
+    taken as it is over the others (there every point holds the same
+    `g`). A reduce-scatter where it sums: each point reads only its own
+    slice of the others'."""
+    ctx = _need()
+    axes = _axes(axes)
+    start = _flat(ctx.mesh, ctx.coords, axes) * size
+    summed = tuple(a for a in axes if a in ctx.batch_axes)
+    if ctx.size(summed) == 1:
+        return g.narrow(dim, start, size)
+    parts = _exchange(g, summed, "reduce_scatter",
+                      take=lambda t: t.narrow(dim, start, size))
+    return _sum(parts, torch.promote_types(g.dtype, torch.float32)) \
+        .to(g.dtype)
+
+
+def _on_thread(point: ShardContext) -> None:
+    """Raise unless the calling thread is the one of `point`, whose
+    forward recorded the node: a backward on autograd's own device
+    thread has no shard context, and the points sharing that thread
+    would wait for each other there."""
+    if context() is not point:
+        raise RuntimeError(
+            f"spmd: a collective's backward ran off point {point.point}'s "
+            "thread (spmd.run turns multithreaded backward off in each "
+            "point's thread; run backward inside the point's function)")
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum of the points' partial outputs, held alike by every point of
+    the group: the backward is the identity (each partial's gradient is
+    the result's, which every point holds)."""
+
+    @staticmethod
+    def forward(fc, x, axes):
+        fc.point = _need()
+        return _reduce(x, axes, "sum")
+
+    @staticmethod
+    def backward(fc, g):
+        _on_thread(fc.point)
+        return g, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Concatenation of the group's slices: the backward keeps the
+    point's slice of the gradient (`_scatter`)."""
+
+    @staticmethod
+    def forward(fc, x, axes, dim):
+        fc.point, fc.axes, fc.dim, fc.size = _need(), axes, dim, x.shape[dim]
+        return torch.cat(_exchange(x, axes, "all_gather"), dim=dim)
+
+    @staticmethod
+    def backward(fc, g):
+        _on_thread(fc.point)
+        return _scatter(g, fc.axes, fc.dim, fc.size), None, None
+
+
+class _Copy(torch.autograd.Function):
+    """The identity, where an activation every point of the group holds
+    alike enters compute split over the group: the backward sums the
+    points' partial gradients (an all-reduce)."""
+
+    @staticmethod
+    def forward(fc, x, axes):
+        fc.point, fc.axes = _need(), axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fc, g):
+        _on_thread(fc.point)
+        return _reduce(g, fc.axes, "sum"), None
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def all_reduce(x: torch.Tensor, axes, op: str = "sum",
+               dtype=None) -> torch.Tensor:
+    """The sum (or, with `op="max"`, the largest) of `x` over the group
+    of points that differ on `axes`, in shard order, a new tensor on
+    every point. A sum accumulates in f32 (or `x`'s dtype if wider) and
+    is cast to `x`'s dtype, or accumulates and stays in `dtype` where
+    given (the int8 payloads' int32 sum). Under autograd a sum's
+    backward is the identity (`_AllReduce`)."""
+    if op == "sum" and dtype is None and _tracked(x):
+        return _AllReduce.apply(x, _axes(axes))
+    if op not in ("sum", "max"):
+        raise ValueError(f"all_reduce: op must be 'sum' or 'max', got {op!r}")
+    return _reduce(x, axes, op, dtype)
 
 
 def all_gather(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
     """`x` of every point of the group over `axes`, concatenated along
-    `dim` in shard order."""
+    `dim` in shard order. Under autograd the backward keeps the point's
+    slice of the gradient, summed over the batch's axes (`_scatter`)."""
+    if _tracked(x):
+        return _AllGather.apply(x, _axes(axes), dim)
     return torch.cat(_exchange(x, axes, "all_gather"), dim=dim)
+
+
+def copy(x: torch.Tensor, axes) -> torch.Tensor:
+    """`x`, which every point of the group over `axes` holds alike, as
+    it enters compute split over `axes`: under autograd the backward
+    all-reduces the points' partial gradients over `axes` (`_Copy`);
+    otherwise `x` itself."""
+    if not _axes(axes) or not _tracked(x):
+        return x
+    return _Copy.apply(x, _axes(axes))
 
 
 def _tag(t: torch.Tensor, spec) -> torch.Tensor:
@@ -498,6 +714,58 @@ def whole(t: torch.Tensor, axis: str) -> torch.Tensor:
     return t
 
 
+def like(t: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """`t`, marked with the spec `src` carries as a point's tensor of a
+    sharded leaf (a detached copy of a parameter, its gradient); `t` as
+    it is where `src` carries none."""
+    spec = getattr(src, "_spmd_spec", None)
+    return t if spec is None else _tag(t, spec)
+
+
+def leaf_axes(t: torch.Tensor) -> Tuple[str, ...]:
+    """The mesh axes, in the mesh's order, that split any dim of the
+    leaf of which `t` is a point's tensor (axes of one point left out);
+    () outside `run` and for any other tensor. A sum over the leaf is
+    the all-reduce of the points' sums over these axes."""
+    ctx, spec = context(), getattr(t, "_spmd_spec", None)
+    if ctx is None or spec is None:
+        return ()
+    named = {a for entry in spec for a in _axes(entry)}
+    return tuple(a for a in ctx.mesh.axis_names
+                 if a in named and ctx.mesh.shape[a] > 1)
+
+
+def batch_axes() -> Tuple[str, ...]:
+    """The axes that split the batch in this `run` (`ShardContext.
+    batch_axes`); () outside `run`."""
+    ctx = context()
+    return () if ctx is None else ctx.batch_axes
+
+
+def batch_offset() -> int:
+    """This point's shard of the batch: its flattened coordinate over
+    `batch_axes()` (0 outside `run` or where the batch is whole)."""
+    ctx = context()
+    return 0 if ctx is None else _flat(ctx.mesh, ctx.coords, ctx.batch_axes)
+
+
+def data_parallel_sum(g: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """The gradient `g` of a point's tensor `leaf` of a sharded
+    parameter, summed over the batch's axes the leaf is not split over,
+    and marked with the leaf's spec. Over an axis that splits the leaf
+    `whole`'s backward has summed it already (every such leaf is
+    gathered before use); over the others each point holds its own
+    data's share. `g` itself (marked) where nothing is left to sum."""
+    ctx = context()
+    if ctx is None:
+        return g
+    split = leaf_axes(leaf)
+    axes = tuple(a for a in ctx.batch_axes if a not in split)
+    if ctx.size(axes) > 1:
+        g = all_reduce(g, axes)
+    return like(g, leaf)
+
+
 def index(t: torch.Tensor, r: int) -> torch.Tensor:
     """`t[r]`: a stacked leaf's layer r, keeping the spec of the other
     dims where `t` is a point's tensor of a sharded leaf."""
@@ -508,8 +776,8 @@ def index(t: torch.Tensor, r: int) -> torch.Tensor:
 
 def require_unsharded(what: str) -> None:
     """Raise where `what` runs inside `run` on more than one point: the
-    sharded execution of the block kinds outside the serving slice is
-    ROADMAP item 10e.2."""
+    sharded execution of MLA, Mamba-2, whisper's encoder and
+    cross-attention and llava's patch prefix is ROADMAP item 10e.2."""
     ctx = context()
     if ctx is not None and ctx.mesh.size > 1:
         raise NotImplementedError(
@@ -562,6 +830,10 @@ def run(mesh, fn: Callable, *args, timeout: float = DEFAULT_TIMEOUT,
                 stack.enter_context(set_mesh(mesh))
                 stack.enter_context(L.attention_backend(backend))
                 stack.enter_context(torch.set_grad_enabled(grad))
+                # a backward in this thread runs in this thread, under
+                # this point's context (not on autograd's device thread)
+                stack.enter_context(
+                    torch.autograd.set_multithreading_enabled(False))
                 if dev.type == "cuda":
                     stream = torch.cuda.Stream(dev)
                     stream.wait_stream(callers[dev])
@@ -612,3 +884,61 @@ def gather_results(mesh, spec: P, parts: Sequence[torch.Tensor],
         shape[d] *= _ways(mesh, _axes(entry))
     return gather_leaf(Sharded(spec, mesh, tuple(parts), tuple(shape)),
                        device)
+
+
+def train_comm(cfg, mesh, batch: int, seq: int, tc, fsdp: bool) -> dict:
+    """`COMM` of one sharded train step (AdamW, remat; `tc` a
+    `train.step.TrainConfig`), summed over the points, by the formula of
+    this module's note: a dense model whose heads, d_ff and vocabulary
+    split over "model", FSDP over "data", the batch split over "data",
+    each point's loss chunks whole."""
+    a, d, n_layers, v = cfg.attn, cfg.d_model, cfg.n_layers, cfg.vocab_size
+    tp, dp, m = mesh.shape["model"], mesh.shape["data"], tc.microbatches
+    e = cfg.dtype.itemsize
+    t = batch // m // dp * seq                     # a point's tokens
+    nchunk = max(1, t * dp // tc.loss_chunk)
+    chunk = t * dp // nchunk
+    chunks = t // chunk
+    layer = (2 * a.num_heads + 2 * a.num_kv_heads) * a.head_dim * d \
+        + 3 * d * cfg.d_ff                         # the 7 weights
+    n = {"all_reduce": 2 + 5 * n_layers + chunks,
+         "all_gather": 2 * chunks, "reduce_scatter": 0}
+    b = {"all_reduce": (tp - 1) * e * d * (5 * n_layers * t + t
+                                           + chunks * chunk)
+         + (dp - 1) * 8,
+         "all_gather": 2 * chunks * (tp - 1) * 4 * chunk * v // tp,
+         "reduce_scatter": 0}
+    if fsdp:
+        n["all_gather"] += 14 * n_layers + 1
+        b["all_gather"] += (dp - 1) * e * (2 * n_layers * layer + d * v) \
+            // (dp * tp)
+        n["reduce_scatter"] += 7 * n_layers + 1
+        b["reduce_scatter"] += (dp - 1) * e * (n_layers * layer + d * v) \
+            // (dp * tp)
+    n = {k: x * m for k, x in n.items()}
+    b = {k: x * m for k, x in b.items()}
+    # once a step: the f32 gradients "data" does not split summed over
+    # it, then the norm's sums, one all-reduce for each set of axes
+    groups = collections.Counter()
+    for leaf, spec in zip(leaves(abstract_params(cfg)),
+                          spec_leaves(param_specs(cfg, mesh, fsdp))):
+        axes = tuple(x for x in mesh.axis_names if mesh.shape[x] > 1
+                     and any(x in (en if isinstance(en, tuple) else (en,))
+                             for en in spec if en is not None))
+        local = leaf.numel() // math.prod(mesh.shape[x] for x in axes)
+        if "data" not in axes:
+            n["all_reduce"] += 1
+            b["all_reduce"] += (dp - 1) * 4 * local
+        if axes:
+            groups[axes] += 1
+    for axes, count in groups.items():
+        n["all_reduce"] += 1
+        b["all_reduce"] += (math.prod(mesh.shape[x] for x in axes) - 1) \
+            * 4 * count
+    out = {}
+    for k in ("all_reduce", "all_gather", "reduce_scatter"):
+        out[k] = n[k] * mesh.size
+        out[k + "_bytes"] = b[k] * mesh.size
+    return {k: out[k] for k in ("all_reduce", "all_gather",
+                                "reduce_scatter", "all_reduce_bytes",
+                                "all_gather_bytes", "reduce_scatter_bytes")}

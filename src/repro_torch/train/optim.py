@@ -8,6 +8,16 @@ in place, leaf by leaf, with the reference's f32 arithmetic (the
 reference returns new trees: at qwen1.5-4b's full width a second copy of
 its parameters and f32 moments is 39.5 GB). It returns the same
 parameter tree and a state holding the same moment tensors.
+
+Sharded (inside `parallel.spmd.run`, each point updating its shards of
+the parameters and their state; the gradients carry their leaves' specs,
+`spmd.like`): a sum or mean over a leaf is the all-reduce of the points'
+over the axes that split it (`spmd.leaf_axes`), so a replica counts
+once. The global norm reduces each leaf's sum of squares so (one call
+for each set of axes), then sums the leaves in order; Adafactor's row
+and column means over a split dim are all-reduced and divided by the
+whole dim, and its update's RMS is the whole leaf's. The step counter
+and the learning rate are the same on every point.
 """
 from __future__ import annotations
 
@@ -17,15 +27,39 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.parallel import spmd as SP
 from repro_torch.train.tree import leaves, tree_map
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's f32 sum of squares (f32)."""
+    """sqrt of the sum of every leaf's f32 sum of squares (f32); a
+    sharded leaf's sum is the whole leaf's (the points' sums all-reduced
+    over its split axes, one call for each set of axes)."""
+    xs = leaves(tree)
+    sums = [torch.sum(torch.square(x.float())) for x in xs]
+    groups = {}
+    for i, x in enumerate(xs):
+        axes = SP.leaf_axes(x)
+        if axes:
+            groups.setdefault(axes, []).append(i)
+    for axes, idx in groups.items():
+        whole = SP.all_reduce(torch.stack([sums[i] for i in idx]), axes)
+        for j, i in enumerate(idx):
+            sums[i] = whole[j]
     total = 0.0
-    for x in leaves(tree):
-        total = total + torch.sum(torch.square(x.float()))
+    for x in sums:
+        total = total + x
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def _mean(x: torch.Tensor, dim: int, axes, keepdim: bool = False):
+    """The mean of `x` over `dim`, a dim split over `axes` (a point's
+    slice of it): the points' sums all-reduced over `axes` and divided by
+    the whole dim."""
+    if not axes:
+        return x.mean(dim=dim, keepdim=keepdim)
+    total = SP.all_reduce(x.sum(dim=dim, keepdim=keepdim), axes)
+    return total / (x.shape[dim] * SP.context().size(axes))
 
 
 def _clip_scale(g: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -176,10 +210,11 @@ class Adafactor:
                                 leaves(state.vr), leaves(state.vc)):
             gf = g.float()
             g2 = gf * gf + self.eps
+            rows, cols = SP.split_axes(g, -2), SP.split_axes(g, -1)
             if p.ndim >= 2:
-                vrf = beta * vr.float() + (1 - beta) * g2.mean(dim=-1)
-                vcf = beta * vc.float() + (1 - beta) * g2.mean(dim=-2)
-                r = vrf / torch.clamp(vrf.mean(dim=-1, keepdim=True),
+                vrf = beta * vr.float() + (1 - beta) * _mean(g2, -1, cols)
+                vcf = beta * vc.float() + (1 - beta) * _mean(g2, -2, rows)
+                r = vrf / torch.clamp(_mean(vrf, -1, rows, keepdim=True),
                                       min=self.eps)
                 # v̂[i,j] ≈ r[i] * vc[j]  (factored second moment)
                 upd = gf * torch.rsqrt(r[..., :, None] * vcf[..., None, :]
@@ -189,8 +224,12 @@ class Adafactor:
                 vrf = beta * vr.float() + (1 - beta) * g2
                 upd = gf * torch.rsqrt(vrf + self.eps)
             vr.copy_(vrf)
-            # update clipping (RMS)
-            rms = torch.sqrt(torch.mean(upd * upd) + 1e-12)
+            # update clipping (RMS over the whole leaf)
+            axes = SP.leaf_axes(g)
+            msq = SP.all_reduce((upd * upd).sum(), axes) / (
+                upd.numel() * SP.context().size(axes)) if axes \
+                else torch.mean(upd * upd)
+            rms = torch.sqrt(msq + 1e-12)
             upd = upd / torch.clamp(rms / self.clip_threshold, min=1.0)
             newp = p.float() - lr * upd
             if self.weight_decay and p.ndim >= 2:

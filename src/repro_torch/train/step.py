@@ -20,11 +20,33 @@
   * the optimizer update (`train.optim`), in place.
 The parameters are a tree of plain tensors; the step differentiates
 `Model.loss` with `torch.autograd.grad` over detached views of them.
+
+With a `mesh` (the reference's GSPMD hook: there distribution comes
+from the shardings of the arguments) the step runs the same per-point
+function inside `parallel.spmd.run`, one thread a mesh point, on trees
+of `spmd.Sharded` leaves: the parameters under `sharding.param_specs`,
+the optimizer state under `launch.dryrun.opt_shardings`. The batch
+(full tensors, or sharded under `batch_spec`) is cut into microbatches
+as the unsharded step cuts it, and each microbatch's rows are split by
+`batch_spec`, so the MoE's token groups are the reference's. A point
+differentiates the global loss (`Model.loss` under a mesh) on its
+shards; the collectives carry the gradients back (`spmd`: a copy's
+backward all-reduces, a gather's keeps the point's slice, FSDP's summed
+over the data axes), and each point's backward runs in its own thread,
+the remat recomputation too. After the microbatches, each leaf's f32
+gradient is summed over the batch's axes it is replicated on
+(`spmd.data_parallel_sum`), then compressed (the scale the max over
+the whole leaf) and handed to the optimizer, which updates each point's
+shards in place (`train.optim`: norms and means over a leaf's split
+axes). The step returns the parameters and the state as sharded trees
+and the metrics of point 0 (the loss and the gradient norm are the
+same on every point).
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 from typing import Any, Callable, Tuple
 
 import torch
@@ -33,6 +55,8 @@ import torch.utils.checkpoint
 from repro_torch.launch.mesh import get_abstract_mesh, set_mesh
 from repro_torch.models import layers as L
 from repro_torch.models.model import Batch, Model
+from repro_torch.parallel import sharding as S
+from repro_torch.parallel import spmd as SP
 from repro_torch.train.tree import leaves, unflatten
 
 
@@ -55,8 +79,9 @@ def _remat_model(model: Model, enabled: bool) -> Model:
     orig = model._apply_block
 
     def run(kind, is_moe, collect_aux, mesh, p, x, positions):
-        # the recomputation may run in autograd's own thread: set the
-        # attention backend and the forward's mesh there too
+        # unsharded on CUDA the recomputation runs in autograd's own
+        # device thread: set the attention backend and the forward's
+        # mesh there too (in spmd.run it runs in the point's thread)
         with L.attention_backend("auto"), set_mesh(mesh):
             return orig(kind, is_moe, p, x, positions, None, None,
                         collect_aux)
@@ -88,27 +113,48 @@ def _split_micro(batch: Batch, m: int):
             for i in range(m)]
 
 
-def build_train_step(model: Model, optimizer, tc: TrainConfig
-                     ) -> Callable:
-    """The step runs on the device of the parameters (the reference's
-    GSPMD `mesh` hook has no counterpart yet: ROADMAP item 10e.2)."""
+def _shard_micro(batch: Batch, m: int, mesh):
+    """The microbatches of `batch` (full tensors, or sharded leaves,
+    gathered first), each one's rows split by `batch_spec` on `mesh`;
+    and how many ways that splits them (1 where the rows do not
+    divide)."""
+    full = Batch(*SP.gather_tree(tuple(batch)))
+    micro = _split_micro(full, m)
+    spec = S.batch_spec(mesh, micro[0].tokens.shape[0])
+    ways = math.prod(mesh.shape[a] for a in S.batch_axes(mesh)) \
+        if spec[0] is not None else 1
+
+    def split(t):
+        if t is None:
+            return None
+        return SP.shard_leaf(t, S.P(*spec, *([None] * (t.dim() - 2))),
+                             mesh)
+    return [Batch(*(split(t) for t in mb)) for mb in micro], ways
+
+
+def build_train_step(model: Model, optimizer, tc: TrainConfig,
+                     mesh=None) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, metrics): on the
+    device of the parameters, or, given `mesh` (with devices), sharded
+    over it as the module's note says."""
     model = _remat_model(model, tc.remat)
 
     def grads_of(params, mb: Batch):
-        ps = [p.detach().requires_grad_(True) for p in leaves(params)]
+        ps = [SP.like(p.detach().requires_grad_(True), p)
+              for p in leaves(params)]
         with torch.enable_grad(), L.attention_backend("auto"):
             loss = model.loss(unflatten(params, ps), mb,
                               loss_chunk=tc.loss_chunk)
             grads = torch.autograd.grad(loss, ps, allow_unused=True)
         return loss.detach(), grads
 
-    def train_step(params, opt_state, batch: Batch):
+    def point_step(params, opt_state, micro):
         flat = leaves(params)
         acc = [torch.zeros(p.shape, dtype=tc.accum_dtype, device=p.device)
                for p in flat]
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=flat[0].device)
-        for mb in _split_micro(batch, tc.microbatches):
+        for mb in micro:
             loss, grads = grads_of(params, mb)
             for a, g in zip(acc, grads):
                 if g is not None:
@@ -117,15 +163,30 @@ def build_train_step(model: Model, optimizer, tc: TrainConfig
             del grads
         for a in acc:
             a.div_(tc.microbatches)
+        acc = [SP.data_parallel_sum(a, p) for a, p in zip(acc, flat)]
         if tc.compress_grads:
             from repro_torch.parallel.compress import fake_quant_int8
-            acc = [fake_quant_int8(a) for a in acc]
+            acc = [SP.like(fake_quant_int8(a), a) for a in acc]
         new_params, new_state, metrics = optimizer.update(
             unflatten(params, acc), opt_state, params)
         metrics = dict(metrics, loss=loss_sum / tc.microbatches)
         return new_params, new_state, metrics
 
-    return train_step
+    def train_step(params, opt_state, batch: Batch):
+        return point_step(params, opt_state,
+                          _split_micro(batch, tc.microbatches))
+
+    if mesh is None:
+        return train_step
+
+    def sharded_step(params, opt_state, batch: Batch):
+        micro, ways = _shard_micro(batch, tc.microbatches, mesh)
+        out = SP.run(mesh, point_step, params, opt_state, micro,
+                     batch_ways=ways, timeout=SP.DEFAULT_TIMEOUT)
+        return (SP.join(params, [o[0] for o in out]),
+                SP.join(opt_state, [o[1] for o in out]), out[0][2])
+
+    return sharded_step
 
 
 def build_eval_loss(model: Model, tc: TrainConfig) -> Callable:
