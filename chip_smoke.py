@@ -215,7 +215,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              GQA at B 2, and d 64 with a window of 64 (31 of 33 tiles
              skipped), then MLA's head sizes (deepseek-v2-lite-16b:
              16 heads, q/k 192, v 128) at its serve shapes, prefill and
-             decode, each fresh and on a wrapped ring, and mixtral-8x7b's
+             decode, each fresh and on a wrapped ring, the same at a
+             (2, 2) mesh point's share (B 2, 8 heads: serve-sharded-mla's
+             shapes), llava-next-mistral-7b's point (B 2, 16/4 heads,
+             serve-sharded-llava's) prefill and decode, and mixtral-8x7b's
              heads (32/8, d 128, window 4096): prefill over 8192
              positions with no cache (the full forward's and the loss's
              shape, where the window masks and tiles wholly outside it
@@ -350,6 +353,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              (`sharded_route_check`: capacities, groups, the points of a
              data shard alike, a group's queues where its choices agree;
              at most `SHARDED_ROUTE_SHARE` of the choices differing);
+11e. serve-sharded-mla — path `serve-sharded-mla` (`SERVE_SHARDED_MLA`):
+             deepseek-v2-lite-16b uncut at serve-deepseek's shape on
+             (2, 2) of four points of the card, as 11d: MLA's latent and
+             rope caches hold each point's columns and are all-gathered
+             over "model" before the per-head expansion, K8 (192, 128)
+             runs on each point's 8 heads (27 launches a point per
+             prefill call and per decode step), 32 of the 64 experts a
+             point; the check replays the routing within
+             `SHARDED_MLA_MAX_ABS` and `SHARDED_MLA_MEAN_ABS`, its own
+             routing consistent and at most `SHARDED_MLA_ROUTE_SHARE` of
+             its choices differing;
+11f. serve-sharded-llava — path `serve-sharded-llava`
+             (`SERVE_SHARDED_LLAVA`): llava-next-mistral-7b uncut at
+             serve-llava's shape on (2, 2) of four points of the card:
+             the patches split with the prompt, projected by each point's
+             columns of `patch_proj` and all-gathered, K8 (128, 128) on
+             each point's 16/4 heads (32 launches a point a call); the
+             check within `SHARDED_VLM_MAX_ABS` and `SHARDED_VLM_MEAN_ABS`;
 12. train  — path `train`: qwen1.5-4b at its full config (3.95 B
              parameters, bf16, random weights from seed 0) through
              `train.step.build_train_step` with AdamW (cosine schedule,
@@ -416,10 +437,12 @@ cross decode shapes, whose launches are path `serve-whisper`'s)
 "library_ms", "launches_by_path"}]}` (`launches_by_path` has every
 path's count, the `dist-*` (`dist-pod` too), `launch-reports`,
 `torch-tpch`, `serve-mixtral`,
-`serve-mamba2`, `serve-whisper`, `serve-llava`, `serve-sharded`, `train`,
-`train-ft` and `train-sharded` paths' included (K8's (128, 128) rows
-count `serve-mixtral`'s, `serve-llava`'s and `serve-sharded`'s launches
-there; every kernel 0 on `torch-tpch`, `serve-mamba2`, `train`,
+`serve-mamba2`, `serve-whisper`, `serve-llava`, `serve-sharded`,
+`serve-sharded-mla`, `serve-sharded-llava`, `train`, `train-ft` and
+`train-sharded` paths' included (K8's (128, 128) rows count
+`serve-mixtral`'s, `serve-llava`'s, `serve-sharded`'s and
+`serve-sharded-llava`'s launches there, its MLA rows
+`serve-sharded-mla`'s; every kernel 0 on `torch-tpch`, `serve-mamba2`, `train`,
 `train-ft` and `train-sharded`); `plain_device` says where
 `plain_ms` was taken: "cuda" for CUDA-event times on the card, "cpu" for
 the sequential K4 and K6a builds timed on the host; K6's and K8's rows
@@ -617,6 +640,70 @@ SHARDED_MEAN_ABS = 0.04
 #: (a wrong expert row, capacity or sum) moves later layers' residual
 #: by its own scale, which flips a choice of top-2 of 8 at random
 SHARDED_ROUTE_SHARE = 0.15
+#: serve-sharded-mla: deepseek-v2-lite-16b uncut (27 layers, d_model 2048,
+#: MLA with 16 heads, r 512, dr 64; 64 experts top-6 + 2 shared; 15.7 B
+#: parameters, 31.4 GB of bf16) at serve-deepseek's batch, prompt and
+#: tokens on a (2, 2) mesh of four points of the card, fsdp off
+#: (`dryrun.serve_fsdp`): a point holds 8 of 16 heads, 32 of 64 experts,
+#: 13 of the shared experts' 26 stacked layers and half the vocabulary,
+#: about 15.7 GB; the data axis of 2 holds it twice, 62.8 GB on the card,
+#: about 72 GB at the draws' peak (one full 9.6 GB leaf of stacked
+#: experts beside the shards), the unsharded run's 31.4 GB freed first.
+#: K8 at (192, 128) on each point's 8 heads, against the whole latent
+#: and rope caches gathered over "model"
+SERVE_SHARDED_MLA = {"arch": "deepseek-v2-lite-16b", "config": "full",
+                     "batch": 4, "prompt_len": 2048, "gen_tokens": 32,
+                     "mesh": (2, 2)}
+#: Its check, set before the path's first card run. On the CPU
+#: (`tools/tf_gap.py --arch deepseek-v2-lite-16b --mesh 2x2 --device
+#: cpu`, K8's plain version, full width, batch 2, prompt 256, 6 steps),
+#: replayed: max |d| 0.0352 / 0.0471 / 0.0612 and mean 0.0056 / 0.0078 /
+#: 0.0099 at 1 / 2 / 4 layers; at x1.3 a doubling, about 0.13 / 0.019 at
+#: 27. The bounds are serve-deepseek's, about twice that
+SHARDED_MLA_MAX_ABS = 0.25
+SHARDED_MLA_MEAN_ABS = 0.04
+#: Its own routing: 5.5% / 7.3% of (token, layer) choices differ at 2 / 4
+#: layers (one / three MoE layers; 0.0474 / 0.256 max |d|), as the
+#: unsharded flash run against "auto" flipped 5% / 8% / 14% at 2 / 4 / 8
+#: layers on the CPU and 27% at 27 on the card (path serve-deepseek's
+#: reported own-routing run): about 27% here, and the bound about twice
+#: that. Top-6 of 64 flips far more than
+#: mixtral's top-2 of 8; a fault (a wrong expert, shard or sum) moves the
+#: residual by its own scale, which leaves a token's set of six experts
+#: as it was only by chance, so nearly every choice differs
+SHARDED_MLA_ROUTE_SHARE = 0.5
+#: serve-sharded-llava: llava-next-mistral-7b uncut (32 layers, d_model
+#: 4096, 32/8 heads of 128; 7.26 B parameters, 14.52 GB of bf16) at
+#: serve-llava's batch, patches, prompt and tokens on a (2, 2) mesh of
+#: four points of the card, fsdp off: 29 GB of shards on the card. The
+#: patch prefix projected by each point's columns of `patch_proj` and
+#: all-gathered; K8 at (128, 128) on each point's 16 query and 4 kv heads
+SERVE_SHARDED_LLAVA = {"arch": "llava-next-mistral-7b", "config": "full",
+                       "batch": 4, "prompt_len": 1472, "gen_tokens": 32,
+                       "mesh": (2, 2)}
+#: Its check, set before the path's first card run. On the CPU
+#: (`tools/tf_gap.py --arch llava-next-mistral-7b --mesh 2x2 --device
+#: cpu`, full width, batch 2, the 576 patches and a 256-token prompt, 6
+#: steps): max |d| 0.0469 / 0.0649 / 0.0938 and mean 0.0078 / 0.0112 /
+#: 0.0159 at 1 / 2 / 4 layers; at the x1.44 / x1.42 a doubling from 2 to
+#: 4, about 0.28 / 0.045 at 32, an upper reckoning (serve-llava's gap
+#: grew x1.12 / x1.33 from 8 to 16). The bounds are serve-llava's. The
+#: logits have std ~1.3 at init: a patch column on the wrong point, a
+#: wrong shard or sum moves the mean |d| by a share of that
+SHARDED_VLM_MAX_ABS = 0.5
+SHARDED_VLM_MEAN_ABS = 0.08
+#: phases 11d-11f in order: path -> (spec, its check's (max, mean) bounds
+#: and, for a MoE, the most of its own routing's choices that may differ)
+SERVE_SHARDED_PATHS = {
+    "serve-sharded": (SERVE_SHARDED, (SHARDED_MAX_ABS, SHARDED_MEAN_ABS,
+                                      SHARDED_ROUTE_SHARE)),
+    "serve-sharded-mla": (SERVE_SHARDED_MLA, (SHARDED_MLA_MAX_ABS,
+                                              SHARDED_MLA_MEAN_ABS,
+                                              SHARDED_MLA_ROUTE_SHARE)),
+    "serve-sharded-llava": (SERVE_SHARDED_LLAVA, (SHARDED_VLM_MAX_ABS,
+                                                  SHARDED_VLM_MEAN_ABS,
+                                                  None)),
+}
 #: the reference's bf16 tolerance for the flash kernel
 #: (tests/test_kernels_flash.py)
 FLASH_TOL = 2e-2
@@ -3263,6 +3350,23 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
          None, rows(4, 1, 2080), ring(2081, 2088, 4)),
         ("deepseek-v2-lite decode, ring wrapped", 4, 1, 2088, 16, 16,
          (192, 128), True, None, rows(4, 1, 3087), ring(3088, 2088, 4)),
+        # a mesh point's share on (2, 2) (serve-sharded-mla: 2 of the 4
+        # rows, 8 of the 16 heads; decode's split-KV tiling differs)
+        ("deepseek-v2-lite point prefill", 2, 2048, 2088, 8, 8, (192, 128),
+         True, None, rows(2, 2048), ring(2048, 2088, 2)),
+        ("deepseek-v2-lite point prefill, ring wrapped", 2, 2048, 2088, 8,
+         8, (192, 128), True, None, rows(2, 2048, 1040),
+         ring(3088, 2088, 2)),
+        ("deepseek-v2-lite point decode", 2, 1, 2088, 8, 8, (192, 128),
+         True, None, rows(2, 1, 2080), ring(2081, 2088, 2)),
+        ("deepseek-v2-lite point decode, ring wrapped", 2, 1, 2088, 8, 8,
+         (192, 128), True, None, rows(2, 1, 3087), ring(3088, 2088, 2)),
+        # llava-next-mistral-7b's point on (2, 2) (serve-sharded-llava: 2
+        # rows, 16/4 heads; 576 patches and 1472 tokens in 2088 slots)
+        ("llava point prefill", 2, 2048, 2088, 16, 4, (128, 128), True,
+         None, rows(2, 2048), ring(2048, 2088, 2)),
+        ("llava point decode", 2, 1, 2088, 16, 4, (128, 128), True, None,
+         rows(2, 1, 2080), ring(2081, 2088, 2)),
         # mixtral-8x7b (32/8 heads of 128, window 4096): the full forward's
         # and the loss's shape, where the window masks and the tiles wholly
         # outside it are skipped; and decode at position 4100 on its
@@ -3636,7 +3740,8 @@ def sharded_route_check(torch, SP, kept: dict, mesh, n_moe: int) -> dict:
 def sharded_gap(torch, L, SP, serve, ref: dict, model, params, mesh,
                 routes=None, replay: bool = False) -> dict:
     """The sharded model (`params` on `mesh`) fed the unsharded greedy run
-    `ref`'s prompt and tokens (`serve.generate_sharded`, forced), against
+    `ref`'s prompt, stub embeddings (`ref["extra"]`, where it has them)
+    and tokens (`serve.generate_sharded`, forced), against
     `ref`'s logits: each logit row's max and mean |d| and argmax
     agreement. Given the unsharded run's recorded `routes` (its last
     pass is the one compared): with `replay` every point routes as it
@@ -3651,7 +3756,8 @@ def sharded_gap(torch, L, SP, serve, ref: dict, model, params, mesh,
         else ({}, None)
     try:
         tf = serve.generate_sharded(model, params, ref["prompt"], g,
-                                    ref["cap"], mesh, forced=ref["tokens"])
+                                    ref["cap"], mesh, forced=ref["tokens"],
+                                    extra=ref.get("extra"))
     finally:
         if restore:
             restore()
@@ -3921,12 +4027,15 @@ def serve_phase(torch, kb, sj, fa, path: str, spec: dict,
     return counts
 
 
-def serve_sharded_phase(torch, kb, sj, fa, dev) -> dict:
-    """Path `serve-sharded` (phase 11d): `SERVE_SHARDED`'s model through
-    `serve.serve_config(..., mesh=...)` on a mesh of four points of the
-    card, its launches and collectives counted, each point's parameter
-    and cache bytes held to the specs' shares, then the check against
-    the same model unsharded (`sharded_gap`). Returns the path's launch
+def serve_sharded_phase(torch, kb, sj, fa, dev, smi: str, path: str,
+                        spec: dict, tol: tuple) -> dict:
+    """Path `path` (phases 11d-11f, `SERVE_SHARDED_PATHS`): the model of
+    `spec` through `serve.serve_config(..., mesh=...)` on a mesh of four
+    points of the card, its launches and collectives counted, each
+    point's parameter and cache bytes held to the specs' shares, then the
+    check against the same model unsharded (`sharded_gap`) within `tol`
+    (max |d|, mean |d|, and for a MoE the most of its routing choices
+    that may differ on its own routing). Returns the path's launch
     counts."""
     from repro_torch.launch import serve
     from repro_torch.launch.dryrun import local_bytes
@@ -3935,26 +4044,29 @@ def serve_sharded_phase(torch, kb, sj, fa, dev) -> dict:
     from repro_torch.models.common import abstract_params
     from repro_torch.parallel import sharding as S
     from repro_torch.parallel import spmd as SP
-    spec, path = SERVE_SHARDED, "serve-sharded"
     cfg = spec_config(spec)
+    moe = cfg.moe is not None
+    max_abs, mean_abs, route_share = tol
     b, s, g = spec["batch"], spec["prompt_len"], spec["gen_tokens"]
     shape = spec["mesh"]
     mesh = make_test_mesh(shape, devices=[dev] * math.prod(shape))
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     # the unsharded run (outside the path's window) under the mesh's
     # abstract twin, so both runs route in the same token groups
-    routes, restore = record_routes(L)
+    routes, restore = record_routes(L) if moe else (None, None)
     t0 = time.perf_counter()
     try:
         with set_mesh(make_test_mesh(shape)):
             ref = serve.serve_config(cfg, b, s, g, dev)
     finally:
-        restore()
+        if restore:
+            restore()
     unsharded = {"seconds": time.perf_counter() - t0,
                  "prefill_seconds": ref["prefill_seconds"],
                  "decode_ms_per_token": ref["decode_seconds"] / g * 1e3,
                  "peak_memory_bytes": torch.cuda.max_memory_allocated()}
-    ref = {k: ref[k] for k in ("tokens", "logits", "prompt", "cap")}
+    ref = {k: ref[k] for k in ("tokens", "logits", "prompt", "extra", "cap")}
     torch.cuda.empty_cache()
 
     read = launch_window(kb, sj, fa)  # the path's counts start at 0 here
@@ -4000,7 +4112,9 @@ def serve_sharded_phase(torch, kb, sj, fa, dev) -> dict:
           "published_layers": published, "params": cfg.param_count(),
           "mesh": list(shape), "axes": list(mesh.axis_names),
           "devices": [str(d) for d in mesh.devices], "fsdp": res["fsdp"],
-          "batch": b, "prompt_len": s, "gen_tokens": g, "cap": res["cap"],
+          "batch": b, "prompt_len": s, "gen_tokens": g,
+          "prefix_positions": serve.prefix_len(cfg, res["extra"]),
+          "cap": res["cap"], "card": smi,
           "passes_seconds": res["passes"], "seconds": seconds,
           "prefill_seconds": t_pre, "prefill_tok_s": b * s / t_pre,
           "decode_ms_per_token": t_dec / g * 1e3,
@@ -4013,30 +4127,29 @@ def serve_sharded_phase(torch, kb, sj, fa, dev) -> dict:
               (res["tokens"] == ref["tokens"]).float().mean()),
           "unsharded": unsharded, "sample": res["tokens"][0, :12].tolist()})
 
-    # the check: the sharded model fed the unsharded run's tokens, first
-    # routing on its own (its logits reported: a flipped choice is a
-    # discrete jump; its routing held to the unsharded run's), then
-    # taking the unsharded run's routing choices (its logits gated)
-    free = sharded_gap(torch, L, SP, serve, ref, res["model"],
-                       res["params"], mesh, routes)
-    free.pop("steps")
-    emit({"phase": "serve", "path": path,
-          "check": "sharded vs unsharded, own routing",
-          "tol_route_differing_share": SHARDED_ROUTE_SHARE, **free})
-    check(free["routes_consistent"],
-          f"{path}: the sharded routing is not the unsharded run's: "
-          f"{free['route_faults']}")
-    check(free["route_differing_share"] <= SHARDED_ROUTE_SHARE,
-          f"{path}: {free['route_differing_share']} of the sharded run's "
-          f"routing choices differ from the unsharded run's")
+    # the check: the sharded model fed the unsharded run's tokens. A MoE
+    # first routes on its own (its logits reported: a flipped choice is a
+    # discrete jump; its routing held to the unsharded run's), then takes
+    # the unsharded run's routing choices (its logits gated)
+    if moe:
+        free = sharded_gap(torch, L, SP, serve, ref, res["model"],
+                           res["params"], mesh, routes)
+        free.pop("steps")
+        emit({"phase": "serve", "path": path,
+              "check": "sharded vs unsharded, own routing",
+              "tol_route_differing_share": route_share, **free})
+        check(free["routes_consistent"],
+              f"{path}: the sharded routing is not the unsharded run's: "
+              f"{free['route_faults']}")
+        check(free["route_differing_share"] <= route_share,
+              f"{path}: {free['route_differing_share']} of the sharded "
+              f"run's routing choices differ from the unsharded run's")
     gap = sharded_gap(torch, L, SP, serve, ref, res["model"], res["params"],
-                      mesh, routes, replay=True)
+                      mesh, routes, replay=moe)
     emit({"phase": "serve", "path": path, "check": "sharded vs unsharded",
-          "tol_max_abs": SHARDED_MAX_ABS, "tol_mean_abs": SHARDED_MEAN_ABS,
-          **gap})
+          "tol_max_abs": max_abs, "tol_mean_abs": mean_abs, **gap})
     for x in gap["steps"]:
-        check(x["max_abs"] <= SHARDED_MAX_ABS
-              and x["mean_abs"] <= SHARDED_MEAN_ABS,
+        check(x["max_abs"] <= max_abs and x["mean_abs"] <= mean_abs,
               f"{path} step {x['step']}: sharded logits differ from the "
               f"unsharded run's by {x['max_abs']} (mean {x['mean_abs']})")
     emit({"phase": "serve", "path": path, "peak_memory_bytes_with_check":
@@ -4138,7 +4251,9 @@ def main() -> int:
     worst.update(aworst)
     for path, (spec, tol) in SERVE_PATHS.items():
         counts[path] = serve_phase(torch, kb, sj, fa, path, spec, tol)
-    counts["serve-sharded"] = serve_sharded_phase(torch, kb, sj, fa, dev)
+    for path, (spec, tol) in SERVE_SHARDED_PATHS.items():
+        counts[path] = serve_sharded_phase(torch, kb, sj, fa, dev, smi, path,
+                                           spec, tol)
     counts["launch-reports"] = launch_reports_phase(torch, kb, sj, fa, dev,
                                                     smi)
     counts["train"] = train_phase(torch, np, kb, sj, fa)

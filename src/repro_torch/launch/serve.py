@@ -35,8 +35,10 @@ axes by `batch_spec`, and every mesh point runs `generate` on its rows
 gathered over the data axes at the end. `--mesh` puts point i on
 `cuda:i` (or every point on the CPU with `--device cpu`); the printed
 lines add each device's parameter and cache bytes beside its peak.
-Attention with an MLP or a MoE runs sharded; MLA, Mamba-2, whisper and
-llava raise (ROADMAP item 10e.2).
+Attention (MLA included: deepseek's latent cache holds the point's
+columns) with an MLP or a MoE runs sharded, and llava's patch prefix
+(the patches split with the prompt); Mamba-2 and whisper raise (ROADMAP
+item 10e.2).
 """
 from __future__ import annotations
 

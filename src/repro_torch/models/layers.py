@@ -54,6 +54,14 @@ never from its shape. The collectives sit at the reference's hint sites:
     the heads do not split whole (mixtral's 2 smoke kv heads on a model
     axis of 4: `fit_spec` cuts `wk` mid-head), every attention leaf is
     gathered over "model" and the block runs whole on each point;
+  * MLA (`_mla_attention`), where tp divides its heads, r and dr
+    (`mla_split`): the point's heads of wq, w_qr, w_uk, w_uv and wo, its
+    r/tp columns of w_dkv and of the latent cache, its dr/tp columns of
+    the rope cache (w_kr gathered whole: RoPE pairs columns across the
+    split); the latent and rope caches are all-gathered over "model"
+    before the per-head expansion, K8 runs on the point's heads, wo's
+    partial product is all-reduced. Otherwise MLA runs gathered, as
+    attention does;
   * the MLP: w1/w3 are the point's columns of d_ff and w2's partial
     product is all-reduced;
   * the MoE: the router is replicated and the routing is the global one
@@ -76,7 +84,7 @@ partial gradients: with the collectives' own backwards (a sum's is the
 identity, a gather's keeps the point's slice) every point's gradient of
 a local tensor is its slice of the unsharded gradient, the same bits on
 every replica. The MoE's auxiliary loss is the global batch's (its
-sums all-reduced over the batch's axes). MLA, Mamba-2 and whisper's
+sums all-reduced over the batch's axes). Mamba-2 and whisper's
 cross-attention raise under a mesh of more than one point (ROADMAP item
 10e.2).
 
@@ -391,45 +399,108 @@ def _attn_weights(p, a: AttnConfig):
     return w, tp
 
 
+def mla_split(a: AttnConfig) -> int:
+    """The ways MLA splits over "model" in `spmd.run`: `heads_split`'s tp
+    where tp also divides the latent rank r and the rope dims dr (the
+    cache's columns a point holds, as `cache_spec` splits them), else 1."""
+    tp = heads_split(a)
+    return tp if a.kv_lora_rank % tp == 0 and a.rope_head_dim % tp == 0 \
+        else 1
+
+
+_MLA_LEAVES = ("wq", "w_qr", "w_dkv", "w_kr", "w_uk", "w_uv", "wo")
+
+
+def _mla_weights(p, a: AttnConfig):
+    """(MLA's weights as this point uses them, the ways it splits, where
+    this point's rope columns start): `p`, 1 and 0 with no shard context.
+    In `spmd.run` the leaves split over "data" (FSDP) are gathered; where
+    MLA does not split (`mla_split` 1) every leaf is gathered whole over
+    "model" too. Where it does, each leaf must be split over "model":
+    wq, w_qr, w_uk and w_uv by whole heads (their columns), wo by its rows,
+    w_dkv along r; w_kr along dr, which is gathered whole, since RoPE
+    pairs rope column i with i + dr/2, which may lie on another point.
+    The third value is where this point's dr/tp rope columns start."""
+    if SP.context() is None:
+        return p, 1, 0
+    tp = mla_split(a)
+    w = {n: SP.whole(p[n], "data") for n in _MLA_LEAVES}
+    if tp == 1:
+        return {n: SP.whole(t, "model") for n, t in w.items()}, 1, 0
+    for n, t in w.items():
+        if SP.split_axes(t, 0 if n == "wo" else -1) != ("model",):
+            raise ValueError(f"MLA splits over 'model' but {n}'s spec does "
+                             f"not split it")
+    off = SP.offset(w["w_kr"], -1)
+    # every point rotates the whole k_rope, and the rotation's backward
+    # moves a point's gradient into the pair columns of other points:
+    # the whole w_kr's gradient is summed over "model" before the
+    # gather's backward keeps the point's slice
+    w["w_kr"] = SP.copy(SP.whole(w["w_kr"], "model"), "model")
+    return w, tp, off
+
+
 def _mla_attention(p, x, h, a: AttnConfig, positions, cache, ring):
     """DeepSeek-V2 multi-head latent attention. The cache holds only the
     compressed c_kv [B, cap, r] (in `KVCache.k`) and the shared, rotated
     k_rope [B, cap, dr] (in `KVCache.v`); k_nope and v are expanded from
-    the whole cache at each call, as the reference does."""
-    SP.require_unsharded("MLA attention")
-    b, s, _ = x.shape
-    nh, hd, dr = a.num_heads, a.head_dim, a.rope_head_dim
-    c_kv = h @ p["w_dkv"]                                   # [B,S,r]
-    cos, sin = rope_tables(positions, dr, a.rope_theta)
-    k_rope = apply_rope((h @ p["w_kr"]).reshape(b, s, 1, dr), cos, sin)
-    q = (h @ p["wq"]).reshape(b, s, nh, hd)
-    q_rope = apply_rope((h @ p["w_qr"]).reshape(b, s, nh, dr), cos, sin)
+    the whole cache at each call, as the reference does.
 
-    if cache is not None:
-        cache = _cache_update(cache, c_kv, k_rope[:, :, 0])
-        c_all = cache.k.to(x.dtype)                         # [B,cap,r]
-        kr_all = cache.v.to(x.dtype)[:, :, None]            # [B,cap,1,dr]
+    Sharded (`mla_split` tp > 1): a point computes its r/tp columns of
+    c_kv and the whole k_rope (from the gathered w_kr), and keeps (in its
+    cache, which holds `cache_spec`'s share) c_kv's columns and its dr/tp
+    columns of k_rope; both are all-gathered over "model" along their
+    last dim (without a cache, only c_kv: the whole k_rope is at hand),
+    and k_nope and v are expanded for the point's nh/tp heads only (w_uk's
+    and w_uv's local columns), K8 runs on those heads and wo's partial
+    product is all-reduced. Under autograd the gathered latent enters the
+    local heads through `spmd.copy`, so its gather's backward keeps the
+    point's slice of a gradient summed over "model"; the whole k_rope's
+    reaches h and w_kr through their own copies."""
+    b, s, _ = x.shape
+    w, tp, off = _mla_weights(p, a)
+    nh, hd, dr = a.num_heads // tp, a.head_dim, a.rope_head_dim
+    if tp > 1:                  # h enters the point's heads and columns
+        h = SP.copy(h, "model")
+    c_kv = h @ w["w_dkv"]                                   # [B,S,r/tp]
+    cos, sin = rope_tables(positions, dr, a.rope_theta)
+    k_rope = apply_rope((h @ w["w_kr"]).reshape(b, s, 1, dr), cos,
+                        sin)[:, :, 0]                        # [B,S,dr]
+    q = (h @ w["wq"]).reshape(b, s, nh, hd)
+    q_rope = apply_rope((h @ w["w_qr"]).reshape(b, s, nh, dr), cos, sin)
+
+    if cache is not None:       # the point's dr/tp rope columns
+        cache = _cache_update(cache, c_kv, k_rope[..., off:off + dr // tp])
+        c_all = cache.k.to(x.dtype)                         # [B,cap,r/tp]
+        kr_all = cache.v.to(x.dtype)                        # [B,cap,dr/tp]
         kv_pos, kv_valid = ring or _ring_positions(
             cache.index, cache.k.shape[1], b, x.device)
+        if tp > 1:
+            kr_all = SP.copy(SP.all_gather(kr_all, "model", -1), "model")
     else:
         c_all, kr_all = c_kv, k_rope
         kv_pos = positions
         kv_valid = torch.ones((b, s), dtype=torch.bool, device=x.device)
+    if tp > 1:                  # the whole latent
+        c_all = SP.copy(SP.all_gather(c_all, "model", -1), "model")
 
     skv = c_all.shape[1]
-    k_nope = (c_all @ p["w_uk"]).reshape(b, skv, nh, hd)
-    vv = (c_all @ p["w_uv"]).reshape(b, skv, nh, hd)
+    k_nope = (c_all @ w["w_uk"]).reshape(b, skv, nh, hd)
+    vv = (c_all @ w["w_uv"]).reshape(b, skv, nh, hd)
     # [q_nope; q_rope] . [k_nope; k_rope] is the two-term MLA logit, and
     # the scale 1/sqrt(hd + dr) is the reference's (its v padded to
     # hd + dr, sliced back after)
     qq = torch.cat([q, q_rope], dim=-1)
-    kk = torch.cat([k_nope, kr_all.expand(b, skv, nh, dr)], dim=-1)
-    layout = HT.attn_layout(nh, s)
+    kk = torch.cat([k_nope, kr_all[:, :, None].expand(b, skv, nh, dr)],
+                   dim=-1)
+    layout = HT.attn_layout(a.num_heads, s)
     qq, kk, vv = HT.hint_qkv(qq, kk, vv, layout)
     out = _sdpa(qq, kk, vv, positions, kv_pos, kv_valid, causal=a.causal,
                 window=None)
     out = HT.hint_attn_out(out, layout)
-    y = out.reshape(b, s, nh * hd) @ p["wo"]
+    y = out.reshape(b, s, nh * hd) @ w["wo"]
+    if tp > 1:
+        y = SP.all_reduce(y, "model")
     return x + y, cache
 
 

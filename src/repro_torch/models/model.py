@@ -43,11 +43,13 @@ and `decode_step` on its local parameters and batch rows): the
 embedding is a vocab-parallel lookup (`layers.embed`), the LM head's
 local vocabulary columns give local logits that are all-gathered over
 "model", and `init_cache` holds the point's kv heads (`layers.
-heads_split`), so a point's cache bytes are `cache_spec`'s local share
-wherever the heads split whole. Sharded training differentiates `loss`
-there: the collectives carry gradients (`parallel.spmd`) and the loss
-is the global batch's. The patch prefix and whisper's encoder raise
-under a mesh of more than one point (ROADMAP item 10e.2).
+heads_split`; MLA's latent and rope caches the point's columns,
+`layers.mla_split`), so a point's cache bytes are `cache_spec`'s local
+share wherever the heads split whole. The patch prefix is projected by
+the point's columns of `patch_proj` and all-gathered. Sharded training
+differentiates `loss` there: the collectives carry gradients
+(`parallel.spmd`) and the loss is the global batch's. Whisper's encoder
+raises under a mesh of more than one point (ROADMAP item 10e.2).
 """
 from __future__ import annotations
 
@@ -76,6 +78,18 @@ def _at(tree, r: int):
     if isinstance(tree, dict):
         return {k: _at(v, r) for k, v in tree.items()}
     return SP.index(tree, r)
+
+
+def _stacked(tree):
+    """A dict of stacked tensors with each sharded leaf whose stacked dim
+    is split (deepseek's shared experts under expert parallelism: the
+    sharding rules give them the experts' spec, so a point holds a run of
+    the layers) all-gathered along it, once a call, so `_at` can take any
+    layer; the others as they are."""
+    if isinstance(tree, dict):
+        return {k: _stacked(v) for k, v in tree.items()}
+    axes = SP.split_axes(tree, 0)
+    return SP.whole(tree, axes[0]) if axes else tree
 
 
 def _slot_view(sc, r: int):
@@ -159,8 +173,9 @@ class Model:
                                 dtype=torch.float32, device=device))
         a = cfg.attn
         if a.kv_lora_rank:              # MLA: c_kv and k_rope
-            k_shape = (*lead, batch, cap, a.kv_lora_rank)
-            v_shape = (*lead, batch, cap, a.rope_head_dim)
+            tp = L.mla_split(a)         # the point's columns of each
+            k_shape = (*lead, batch, cap, a.kv_lora_rank // tp)
+            v_shape = (*lead, batch, cap, a.rope_head_dim // tp)
         else:
             k_shape = v_shape = (*lead, batch, cap,
                                  a.num_kv_heads // L.heads_split(a),
@@ -216,13 +231,14 @@ class Model:
                 aux = aux + a
         rings = [ring(kind, sc, 2) for (kind, _), sc in
                  zip(self.slots, caches["slots"])] if caches else None
+        stacks = [_stacked(lp) for lp in params["layers"]]
         for r in range(self.n_reps):
             for si, (kind, is_moe) in enumerate(self.slots):
                 c = rg = None
                 if caches:
                     c, rg = _slot_view(caches["slots"][si], r), rings[si]
                 x, _, a = self._apply_block(
-                    kind, is_moe, _at(params["layers"][si], r), x,
+                    kind, is_moe, _at(stacks[si], r), x,
                     positions, c, rg, collect_aux)
                 if collect_aux:
                     aux = aux + a
@@ -282,12 +298,19 @@ class Model:
     # ------------------------------------------------------------------
     def embed_inputs(self, params, batch: Batch):
         """Token embeddings; under the vision stub, the patch embeddings
-        `batch.extra` [B, P, d] projected by `patch_proj` go first."""
+        `batch.extra` [B, P, d] projected by `patch_proj` go first. In
+        `spmd.run` (`batch.extra` the point's rows) `patch_proj`'s FSDP
+        rows are gathered, the patches are projected by the point's
+        columns and the [B, P, d/tp] results all-gathered over their
+        axes: the gather moves the projected patches, not the weight."""
         cfg = self.cfg
         x = L.embed(params["embed"], batch.tokens)
         if cfg.frontend == "vision_stub" and batch.extra is not None:
-            SP.require_unsharded("the vision stub's patch prefix")
-            patches = batch.extra.to(cfg.dtype) @ params["patch_proj"]
+            w = SP.whole(params["patch_proj"], "data")
+            split = SP.split_axes(w, -1)
+            patches = batch.extra.to(cfg.dtype) @ w
+            if split:
+                patches = SP.all_gather(patches, split, -1)
             x = torch.cat([patches, x], dim=1)
         return x
 

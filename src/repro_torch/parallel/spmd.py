@@ -77,6 +77,21 @@ layer for the FFN's `w2` (or the MoE's combine) where the FFN is split,
 and `all_gather` once for the logits; with `fsdp` each weight a layer
 uses that is split over "data" adds one `all_gather` (wq, wk, wv, wo;
 w1, w3, w2; the MoE's router, w1, w3, w2), and the LM head one more.
+An MLA layer that splits over "model" (`layers.mla_split` tp > 1) calls,
+for a call of S tokens on b local batch rows, latent rank r, rope dims
+dr, width d and element bytes e, against a cache of cap slots:
+`all_gather` 3 times, the latent and rope caches along their last dim
+and w_kr whole, (tp - 1) e (b cap (r + dr) + d dr) / tp bytes in all;
+without a cache (the loss) twice, the latent of the call and w_kr,
+(tp - 1) e (b S r + d dr) / tp bytes; `all_reduce` once, wo's,
+(tp - 1) e b S d bytes; with `fsdp` over a data axis of dp > 1, 7
+gathers more, wq, w_qr, w_dkv, w_kr, w_uk, w_uv and wo over "data",
+(dp - 1) e W / (dp tp) bytes for their W elements. The patch prefix
+(llava) adds one `all_gather` a call, (tp - 1) e b P d / tp bytes for P
+patches. A stacked leaf whose layer dim is split (deepseek's shared
+experts under expert parallelism: the rules give them the experts'
+spec) is all-gathered along it once a call (`models.model.Model.
+backbone`), the layers a point does not hold.
 
 A train step (`train.step.build_train_step(..., mesh=)`, remat on) of a
 dense model of L layers whose heads, d_ff and vocabulary V split over a
@@ -768,7 +783,11 @@ def data_parallel_sum(g: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
 
 def index(t: torch.Tensor, r: int) -> torch.Tensor:
     """`t[r]`: a stacked leaf's layer r, keeping the spec of the other
-    dims where `t` is a point's tensor of a sharded leaf."""
+    dims where `t` is a point's tensor of a sharded leaf. Raises where
+    the stacked dim itself is split: gather it first (`whole`)."""
+    if split_axes(t, 0):
+        raise ValueError("spmd.index: the stacked dim is split; gather "
+                         "the leaf along it first")
     out = t[r]
     spec = getattr(t, "_spmd_spec", None)
     return out if spec is None else _tag(out, tuple(spec)[1:])
@@ -776,8 +795,8 @@ def index(t: torch.Tensor, r: int) -> torch.Tensor:
 
 def require_unsharded(what: str) -> None:
     """Raise where `what` runs inside `run` on more than one point: the
-    sharded execution of MLA, Mamba-2, whisper's encoder and
-    cross-attention and llava's patch prefix is ROADMAP item 10e.2."""
+    sharded execution of Mamba-2 and of whisper's encoder and
+    cross-attention is ROADMAP item 10e.2."""
     ctx = context()
     if ctx is not None and ctx.mesh.size > 1:
         raise NotImplementedError(

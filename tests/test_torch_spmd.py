@@ -64,7 +64,9 @@ def one_torch_thread():
 #: capacity factor or null, mesh shape, axes, fsdp], argv[2] the .npz,
 #: then B, S_LEN, T0, SEED and, optionally, a directory where it saves
 #: qwen1.5-4b's f32 smoke parameters (`save_tree`) beside their
-#: unsharded prefill logits (under "ckpt/prefill")
+#: unsharded prefill logits (under "ckpt/prefill"). Under the vision stub
+#: the prefill takes `patches`' embeddings (split as the tokens) first,
+#: and the cap and decode positions count them
 REF = """
 import os, sys, json, dataclasses
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
@@ -89,18 +91,26 @@ for tag, arch, cf, shape, axes, fsdp in cases:
     params = inits[arch]
     tok = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (B, S_LEN)).astype(np.int32)
+    extra, npre = None, 0
+    if cfg.frontend == "vision_stub":
+        extra = np.random.default_rng(SEED + 1).standard_normal(
+            (B, cfg.num_patches, cfg.d_model)).astype(np.float32)
+        npre = cfg.num_patches
     mesh = make_test_mesh(tuple(shape), tuple(axes))
     with jax.set_mesh(mesh):
         p = jax.device_put(params, S.param_shardings(cfg, mesh, fsdp=fsdp))
         bsh = NamedSharding(mesh, S.batch_spec(mesh, B))
-        pre = jax.jit(lambda p, t: m.prefill(p, Batch(t, t),
-                                             cap=S_LEN + 4))
+        if extra is not None:
+            extra = jax.device_put(jnp.asarray(extra), NamedSharding(
+                mesh, S.batch_spec(mesh, B, 2)))
+        pre = jax.jit(lambda p, t, e: m.prefill(p, Batch(t, t, e),
+                                                cap=npre + S_LEN + 4))
         dec = jax.jit(lambda p, t, c, pos: m.decode_step(p, t, c, pos))
-        lg, c = pre(p, jax.device_put(jnp.asarray(tok[:, :T0]), bsh))
+        lg, c = pre(p, jax.device_put(jnp.asarray(tok[:, :T0]), bsh), extra)
         res[tag + "/prefill"] = np.asarray(lg)
         for t in range(T0, S_LEN):
             lg, c = dec(p, jax.device_put(jnp.asarray(tok[:, t:t + 1]),
-                                          bsh), c, jnp.int32(t))
+                                          bsh), c, jnp.int32(npre + t))
             res[f"{tag}/step{t}"] = np.asarray(lg)
 if len(sys.argv) > 7:
     from repro.checkpoint import save_tree
@@ -163,33 +173,46 @@ def cpu_mesh(shape, axes):
     return make_test_mesh(shape, axes, devices=["cpu"] * int(np.prod(shape)))
 
 
+def patches(cfg):
+    """REF's patch embeddings [B, P, d] under the vision stub, else None."""
+    if cfg.frontend != "vision_stub":
+        return None
+    return torch.from_numpy(np.random.default_rng(SEED + 1).standard_normal(
+        (B, cfg.num_patches, cfg.d_model)).astype(np.float32))
+
+
 def port_sharded_run(cfg, params, shape, axes, fsdp, calls_to=S_LEN):
-    """The port's sharded prefill and teacher-forced decode (up to
-    position `calls_to`) on `["cpu"] * n` of full `params`, or of
-    already sharded ones where `fsdp` is None: {call: full logits as
-    numpy}."""
+    """The port's sharded prefill (after `patches`, under the vision
+    stub) and teacher-forced decode (up to position `calls_to`) on
+    `["cpu"] * n` of full `params`, or of already sharded ones where
+    `fsdp` is None: {call: full logits as numpy}."""
     mesh = cpu_mesh(shape, axes)
     model = Model(cfg)
     sharded = params if fsdp is None else SP.shard_tree(
         params, S.param_specs(cfg, mesh, fsdp=fsdp), mesh)
     tok = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (B, S_LEN)).astype(np.int32)).long()
+    extra = patches(cfg)
+    npre = 0 if extra is None else extra.shape[1]
     spec = S.batch_spec(mesh, B)
     ways = int(np.prod([mesh.shape[a] for a in S.batch_axes(mesh)])) \
         if spec[0] is not None else 1
 
-    def calls(p, t):
+    def calls(p, t, e):
         out = {}
-        lg, c = model.prefill(p, Batch(t[:, :T0], t[:, :T0]), cap=S_LEN + 4)
+        lg, c = model.prefill(p, Batch(t[:, :T0], t[:, :T0], e),
+                              cap=npre + S_LEN + 4)
         out["prefill"] = lg
         for i in range(T0, calls_to):
-            lg, c = model.decode_step(p, t[:, i:i + 1], c, i)
+            lg, c = model.decode_step(p, t[:, i:i + 1], c, npre + i)
             out[f"step{i}"] = lg
         return out
     with torch.no_grad():
         per_point = SP.run(mesh, calls, sharded,
-                           SP.shard_leaf(tok, spec, mesh), batch_ways=ways,
-                           timeout=120)
+                           SP.shard_leaf(tok, spec, mesh),
+                           None if extra is None else SP.shard_leaf(
+                               extra, S.batch_spec(mesh, B, 2), mesh),
+                           batch_ways=ways, timeout=120)
     return {k: SP.gather_results(mesh, spec, [r[k] for r in per_point])
             .numpy() for k in per_point[0]}
 

@@ -11,7 +11,8 @@ must raise under a mesh of more than one point, and the resharding
 restore must place a checkpoint's leaves as their shards (the
 counterpart of the reference's `test_elastic_reshard_restore`). The
 parity of sharded prefill and decode with the reference's sharded run
-is in tests/test_torch_spmd.py and tests/test_torch_spmd_archs.py."""
+is in tests/test_torch_spmd.py, tests/test_torch_spmd_archs.py,
+tests/test_torch_spmd_mla.py and tests/test_torch_spmd_vlm.py."""
 import dataclasses
 import sys
 import threading
@@ -126,11 +127,13 @@ def test_init_sharded_equals_init_then_shard():
 
 @pytest.mark.parametrize("arch,shape", (
     ("qwen1.5-4b", (2, 2)), ("qwen1.5-4b", (1, 4)),
-    ("mixtral-8x7b", (2, 2)), ("command-r-35b", (1, 2))))
+    ("mixtral-8x7b", (2, 2)), ("command-r-35b", (1, 2)),
+    ("deepseek-v2-lite-16b", (2, 2)), ("deepseek-v2-lite-16b", (1, 4))))
 def test_cache_bytes_are_cache_spec_share(arch, shape):
     """Where the heads split whole, a point's caches after a prefill
     hold `cache_spec`'s local share (the port splits kv heads where
-    `cache_spec` splits head_dim: the same bytes)."""
+    `cache_spec` splits head_dim: the same bytes; MLA's latent and rope
+    caches are split by their columns, as `cache_spec` splits them)."""
     cfg = _f32(arch)
     mesh = _mesh(shape, ("data", "model"))
     model = Model(cfg)
@@ -192,6 +195,85 @@ def test_collective_counts_match_formula(fsdp):
            SP.COMM["all_gather"], SP.COMM["all_gather_bytes"])
     assert got == _formula(cfg, mesh, fsdp,
                            [(B // 2, T0)] + [(B // 2, 1)] * STEPS)
+
+
+def _mla_formula(cfg, mesh, fsdp, calls, cap):
+    """spmd.py's counts for MLA layers that split over "model": (all_reduce
+    calls, all_reduce bytes, all_gather calls, all_gather bytes) summed
+    over the points, for `calls` [(local batch rows, sequence length),
+    ...] against a cache of `cap` slots (None: without a cache; f32)."""
+    a, d = cfg.attn, cfg.d_model
+    tp, dp = mesh.shape["model"], mesh.shape["data"]
+    e, r, dr = 4, a.kv_lora_rank, a.rope_head_dim
+    hq = a.num_heads * a.head_dim
+    w = 2 * d * hq + a.num_heads * dr * d + d * r + d * dr + 2 * r * hq
+    ar = ar_b = ag = ag_b = 0
+    for b, s in calls:
+        if cap is None:
+            ag += 2
+            ag_b += (tp - 1) * e * (b * s * r + d * dr) // tp
+        else:
+            ag += 3
+            ag_b += (tp - 1) * e * (b * cap * (r + dr) + d * dr) // tp
+        ar += 1
+        ar_b += (tp - 1) * e * b * s * d
+        if fsdp and dp > 1:
+            ag += 7
+            ag_b += (dp - 1) * e * w // (dp * tp)
+    n = mesh.size
+    return ar * n, ar_b * n, ag * n, ag_b * n
+
+
+@pytest.mark.parametrize("shape,fsdp,cached", (
+    ((2, 2), True, True), ((2, 2), False, True), ((1, 4), False, True),
+    ((2, 2), True, False)))
+def test_mla_layer_collectives_match_formula(shape, fsdp, cached):
+    """One MLA layer of deepseek's smoke config, a prefill of T0 tokens
+    into its cache and STEPS decode steps on every point (or, without a
+    cache, one call over all T0 + STEPS tokens, as the loss runs it):
+    `spmd.COMM` against the formula of spmd.py's note (the latent and
+    rope caches gathered, w_kr whole, wo's sum; FSDP's gathers), and the
+    layer's output against the unsharded layer's."""
+    from repro_torch.models import layers as L
+    cfg = _f32("deepseek-v2-lite-16b")
+    mesh = _mesh(shape, ("data", "model"))
+    model = Model(cfg)
+    full = model.init(torch.Generator().manual_seed(0))
+    mixer = full["prefix_layers"][0]["mixer"]
+    specs = S.param_specs(cfg, mesh, fsdp=fsdp)["prefix_layers"][0]["mixer"]
+    cap = T0 + STEPS + 4
+    x = torch.randn((B, T0 + STEPS, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    pos = torch.arange(T0 + STEPS)[None].expand(B, -1).to(torch.int32)
+
+    def layer(p, x, pos):
+        if not cached:
+            return L.attention(p, x, cfg.attn, pos, None)[0]
+        c = model._empty_cache_slot("attn", x.shape[0], cap, "cpu")
+        y, c = L.attention(p, x[:, :T0], cfg.attn, pos[:, :T0], c)
+        out = [y]
+        for i in range(T0, T0 + STEPS):
+            y, c = L.attention(p, x[:, i:i + 1], cfg.attn, pos[:, i:i + 1],
+                               c)
+            out.append(y)
+        return torch.cat(out, dim=1)
+    spec = S.batch_spec(mesh, B, 2)
+    ways = _ways(mesh, B)
+    SP.reset_counts()
+    with torch.no_grad():
+        parts = SP.run(mesh, layer, SP.shard_tree(mixer, specs, mesh),
+                       SP.shard_leaf(x, spec, mesh),
+                       SP.shard_leaf(pos, S.batch_spec(mesh, B), mesh),
+                       batch_ways=ways, timeout=60)
+        want = layer(mixer, x, pos)
+    got = (SP.COMM["all_reduce"], SP.COMM["all_reduce_bytes"],
+           SP.COMM["all_gather"], SP.COMM["all_gather_bytes"])
+    b = B // ways
+    calls = [(b, T0)] + [(b, 1)] * STEPS if cached else [(b, T0 + STEPS)]
+    assert got == _mla_formula(cfg, mesh, fsdp, calls,
+                               cap if cached else None)
+    torch.testing.assert_close(SP.gather_results(mesh, spec, parts), want,
+                               rtol=2e-5, atol=2e-5)
 
 
 def _respec(specs, names, tail):
@@ -300,6 +382,40 @@ def test_collective_stress_with_many_points():
     assert SP.COMM["all_reduce_bytes"] == 16 * rounds * 15 * 8
 
 
+def test_a_split_stacked_dim_is_gathered_once_a_call():
+    """A stacked leaf whose layer dim is split over "model" (as the rules
+    split deepseek's shared experts): `spmd.index` refuses it, the
+    backbone's `_stacked` all-gathers it once (counted), and every layer
+    taken from that is the whole leaf's; under autograd a point's
+    gradient is its slice of the layers' gradient, summed over the data
+    shards by `data_parallel_sum`."""
+    from repro_torch.models.model import _stacked
+    mesh = _mesh((2, 2), ("data", "model"))
+    full = torch.arange(24, dtype=torch.float32).reshape(4, 6)
+    leaf = SP.shard_leaf(full, P("model", None), mesh)
+
+    def fn(t):
+        t = SP.like(t.detach().requires_grad_(), t)
+        with pytest.raises(ValueError, match="stacked dim is split"):
+            SP.index(t, 0)
+        st = _stacked({"w": t})["w"]
+        layers = [SP.index(st, r) for r in range(4)]
+        loss = sum((r + 1) * layers[r].sum() for r in range(4))
+        g, = torch.autograd.grad(loss, t)
+        return [x.detach() for x in layers], SP.data_parallel_sum(g, t)
+    SP.reset_counts()
+    out = SP.run(mesh, fn, leaf, batch_ways=2, timeout=30)
+    assert SP.COMM["all_gather"] == 4
+    assert SP.COMM["all_gather_bytes"] == 4 * 2 * 6 * 4  # the other half
+    for point, (layers, g) in enumerate(out):
+        for r in range(4):
+            assert torch.equal(layers[r], full[r])
+        m = point % 2                   # the point's two layers, 2m, 2m + 1
+        want = torch.stack([torch.full((6,), 2.0 * (2 * m + 1)),
+                            torch.full((6,), 2.0 * (2 * m + 2))])
+        assert torch.equal(g, want)
+
+
 def test_run_raises_the_first_error_within_its_timeout():
     mesh = _mesh((2, 2), ("data", "model"))
 
@@ -336,12 +452,11 @@ def test_collective_outside_run_raises():
 
 
 @pytest.mark.parametrize("arch", (
-    "deepseek-v2-lite-16b", "mamba2-370m", "jamba-1.5-large-398b",
-    "whisper-base", "llava-next-mistral-7b"))
+    "mamba2-370m", "jamba-1.5-large-398b", "whisper-base"))
 def test_blocks_outside_the_slice_raise_under_a_mesh(arch):
-    """MLA, Mamba-2, whisper's encoder and llava's patch prefix raise
-    under a mesh of two points, naming ROADMAP item 10e.2; on a mesh of
-    one point they serve as unsharded."""
+    """Mamba-2 and whisper's encoder raise under a mesh of two points,
+    naming ROADMAP item 10e.2; on a mesh of one point they serve as
+    unsharded."""
     cfg = get_smoke_config(arch)
     with pytest.raises(NotImplementedError, match="10e.2"):
         serve.serve_config(cfg, 2, 8, 1, "cpu",
@@ -352,7 +467,9 @@ def test_blocks_outside_the_slice_raise_under_a_mesh(arch):
     assert torch.equal(one["tokens"], ref["tokens"])
 
 
-@pytest.mark.parametrize("arch", ("qwen1.5-4b", "mixtral-8x7b"))
+@pytest.mark.parametrize("arch", ("qwen1.5-4b", "mixtral-8x7b",
+                                  "deepseek-v2-lite-16b",
+                                  "llava-next-mistral-7b"))
 def test_serve_config_on_a_mesh_matches_unsharded(arch):
     """The launcher on a (2, 2) mesh (parameters drawn straight into
     shards) against the unsharded launcher under the same ambient
@@ -446,6 +563,26 @@ def test_smoke_sharded_check_replays_each_points_routes(shape, axes):
     assert free["route_choices"] == B * (T0 + STEPS) * cfg.n_layers
     assert free["route_differing_share"] == 0.0
     assert free["route_groups_compared"] > 0
+
+
+def test_smoke_sharded_check_feeds_the_patches():
+    """`chip_smoke.sharded_gap` (path `serve-sharded-llava`'s check) at
+    llava's smoke config in f32 on (2, 2): the sharded model fed the
+    unsharded run's patches and tokens agrees within 1e-4; fed other
+    patches, it does not."""
+    import chip_smoke
+    from repro_torch.models import layers as L
+    cfg = _f32("llava-next-mistral-7b")
+    mesh = _mesh((2, 2), ("data", "model"))
+    with set_mesh(make_test_mesh((2, 2))):
+        ref = serve.serve_config(cfg, B, T0, STEPS, "cpu")
+    res = serve.serve_config(cfg, B, T0, STEPS, "cpu", mesh=mesh)
+    gap = chip_smoke.sharded_gap(torch, L, SP, serve, ref, res["model"],
+                                 res["params"], mesh)
+    assert gap["max_abs"] < 1e-4 and gap["argmax_agreement"] == 1.0
+    other = dict(ref, extra=torch.flip(ref["extra"], (1,)))
+    assert chip_smoke.sharded_gap(torch, L, SP, serve, other, res["model"],
+                                  res["params"], mesh)["max_abs"] > 1e-2
 
 
 def test_points_take_turns_between_rendezvous():

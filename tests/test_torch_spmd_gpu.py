@@ -13,7 +13,12 @@ tokens, fed the unsharded run's greedy tokens (teacher forcing), under
 the mesh's abstract twin (the MoE's groups). Small configs at K8's head
 size 128: bf16 with K8 on every point's heads, within bounds measured
 on the CPU with K8's plain version (`BF16_MAX_ABS`); a MoE in f32 with
-dense attention ("auto"), within the model tests' 2e-4 / 3e-4."""
+dense attention ("auto"), within the model tests' 2e-4 / 3e-4. Then two
+zoo configs at their published widths, cut in depth (`ZOO`): deepseek-
+v2-lite-16b's MLA (K8 at (192, 128) on each point's heads, the latent
+and rope caches gathered) and llava-next-mistral-7b's patch prefix, in
+bf16 with the routing replayed for deepseek (`chip_smoke.sharded_gap`),
+within bounds measured the same way (`ZOO_BOUNDS`)."""
 import dataclasses
 import importlib.util
 import pathlib
@@ -22,6 +27,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config
 from repro_torch.kernels.flashattn import ops as fa
 from repro_torch.launch import serve
 from repro_torch.launch.dryrun import local_bytes
@@ -56,6 +62,18 @@ B, S_LEN, G = 4, 96, 6
 #: that (cuBLAS rounds elsewhere than the CPU); a wrong head, shard or
 #: sum moves the logits (std 0.64) by their own scale
 BF16_MAX_ABS, BF16_MEAN_ABS = 0.12, 0.02
+#: arch -> the layers its published config is cut to: deepseek's dense
+#: first layer and two MoE layers (so the shared experts' two stacked
+#: layers split one a point over "model"), llava's first four
+ZOO = {"deepseek-v2-lite-16b": 3, "llava-next-mistral-7b": 4}
+#: arch -> (max |d|, mean |d|) bounds of its bf16 gap from the unsharded
+#: run (`_zoo_gap`), measured on the CPU (K8's plain version, `_zoo_gap`
+#: on ["cpu"] * 4 at B, S_LEN and G) at max |d| 0.0625 and mean 0.0088
+#: (deepseek, routing replayed) and 0.109 and 0.0163 (llava, its 576
+#: patches first); the bounds leave about three times that, as
+#: `BF16_MAX_ABS` does
+ZOO_BOUNDS = {"deepseek-v2-lite-16b": (0.19, 0.027),
+              "llava-next-mistral-7b": (0.33, 0.05)}
 
 
 @pytest.fixture()
@@ -145,3 +163,49 @@ def test_mixtral_uncut_on_four_cards(cuda):
     assert out["finite"] and out["launches_ok"]
     for row in out["devices"].values():
         assert row["params"] == row["params_reckoned"]
+
+
+def _zoo_gap(cfg, mesh, device):
+    """(`chip_smoke.sharded_gap` of `cfg` sharded over `mesh` against its
+    unsharded greedy run, the routing replayed for a MoE; the sharded
+    serve result)."""
+    import chip_smoke
+    moe = cfg.moe is not None
+    routes, restore = chip_smoke.record_routes(L) if moe else (None, None)
+    try:
+        with set_mesh(make_test_mesh(mesh.axis_sizes, mesh.axis_names)):
+            ref = serve.serve_config(cfg, B, S_LEN, G, device)
+    finally:
+        if restore:
+            restore()
+    res = serve.serve_config(cfg, B, S_LEN, G, device, mesh=mesh)
+    gap = chip_smoke.sharded_gap(torch, L, SP, serve, ref, res["model"],
+                                 res["params"], mesh, routes, replay=moe)
+    return gap, res
+
+
+@pytest.mark.parametrize("arch", list(ZOO))
+def test_zoo_config_on_one_card_matches_unsharded(arch, cuda):
+    """(2, 2) over cuda:0 x 4 at published widths, cut in depth: K8 once
+    a layer a point a call (at (192, 128) for MLA), every point's
+    parameter bytes `dryrun.local_bytes` of the specs and its cache bytes
+    `cache_spec`'s share (MLA's latent split by its columns), the forced
+    logits within `ZOO_BOUNDS`."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=ZOO[arch])
+    mesh = make_test_mesh((2, 2), devices=[cuda] * 4)
+    fa.reset_launches()
+    gap, res = _zoo_gap(cfg, mesh, cuda)
+    n = cfg.n_layers
+    # the unsharded run's two passes, the sharded run's two, the forced
+    assert fa.LAUNCHES["flash_prefill"] == 2 * n + 3 * 4 * n
+    assert fa.LAUNCHES["flash_decode"] == (2 * n + 3 * 4 * n) * G
+    specs = S.param_specs(cfg, mesh, fsdp=res["fsdp"])
+    per_point = local_bytes(abstract_params(cfg), specs, mesh)
+    assert [SP.tree_local_bytes(res["params"], p) for p in range(4)] \
+        == [per_point] * 4
+    whole = res["model"].init_cache(B, res["cap"], "meta")
+    assert res["device_bytes"][str(cuda)]["caches"] == 4 * local_bytes(
+        whole, S.cache_spec(cfg, mesh, B), mesh)
+    most, mean = ZOO_BOUNDS[arch]
+    for step in gap["steps"]:
+        assert step["max_abs"] <= most and step["mean_abs"] <= mean, step

@@ -1,6 +1,10 @@
 """Sharded training (`build_train_step(..., mesh=)`) against the port's
 own unsharded step, on the CPU.
 
+deepseek-v2-lite-16b's and llava-next-mistral-7b's smoke configs (MLA;
+the patch prefix, its patches in the batch) on (2, 2) and (1, 4) with
+FSDP are held the same way as qwen's below.
+
 qwen1.5-4b's smoke config in f32 on meshes of `["cpu"] * n`: (2, 2)
 over ("data", "model") with `fsdp` on and off, (1, 4), (2, 1, 2) over
 ("pod", "data", "model"), and (4, 1) with loss chunks that cut across
@@ -112,24 +116,30 @@ def check_quantized(g, mine, full):
 
 
 def batch_of(cfg, device="cpu"):
+    """B x S_LEN seeded tokens, their targets shifted by one, and under
+    the vision stub seeded patch embeddings."""
     rng = np.random.default_rng(SEED)
     tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S_LEN)))
     tgt = torch.roll(tok, -1, 1)
     tgt[:, -1] = -1
-    return Batch(tok.to(device), tgt.to(device))
+    extra = None
+    if cfg.frontend == "vision_stub":
+        extra = torch.from_numpy(rng.standard_normal(
+            (B, cfg.num_patches, cfg.d_model)).astype(np.float32)).to(device)
+    return Batch(tok.to(device), tgt.to(device), extra)
 
 
-def run_pair(shape, axes, fsdp, opt_name, tc_kw, device="cpu"):
-    """One f32 step unsharded (on `device`, or the first of a list of a
-    device a point) and one sharded (on a mesh of `device` repeated, or
-    of that list) from the same weights and batch: (unsharded (params,
-    state, optimizer), sharded (params, state, optimizer), the mesh, the
-    specs)."""
+def run_pair(shape, axes, fsdp, opt_name, tc_kw, device="cpu",
+             arch="qwen1.5-4b"):
+    """One f32 step of `arch`'s smoke config unsharded (on `device`, or
+    the first of a list of a device a point) and one sharded (on a mesh
+    of `device` repeated, or of that list) from the same weights and
+    batch: (unsharded (params, state, optimizer), sharded (params, state,
+    optimizer), the mesh, the specs)."""
     devices = device if isinstance(device, list) \
         else [device] * int(np.prod(shape))
     device = devices[0]
-    cfg = dataclasses.replace(get_smoke_config("qwen1.5-4b"),
-                              dtype=torch.float32)
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
     model = Model(cfg)
     params = tree_map(lambda t: t.to(device),
                       model.init(torch.Generator().manual_seed(SEED)))
@@ -154,12 +164,13 @@ def run_pair(shape, axes, fsdp, opt_name, tc_kw, device="cpu"):
     return (p1, s1, one), (p2, s2, many), mesh, specs
 
 
-def check_case(case, device="cpu", tol=1e-5):
-    """CASES[case] on `device`: the sharded step against the unsharded
-    one, as the module's note says, `tol` for the relative bounds."""
+def check_case(case, device="cpu", tol=1e-5, arch="qwen1.5-4b"):
+    """CASES[case] of `arch` on `device`: the sharded step against the
+    unsharded one, as the module's note says, `tol` for the relative
+    bounds."""
     shape, axes, fsdp, opt_name, tc_kw = CASES[case]
     (p1, s1, one), (p2, s2, many), mesh, specs = run_pair(
-        shape, axes, fsdp, opt_name, tc_kw, device)
+        shape, axes, fsdp, opt_name, tc_kw, device, arch)
     assert sorted(many.grads) == list(range(mesh.size))
     want = one.metrics[-1]
     for point in range(mesh.size):
@@ -199,6 +210,16 @@ def check_case(case, device="cpu", tol=1e-5):
 @pytest.mark.parametrize("case", list(CASES))
 def test_sharded_step_matches_unsharded_step(case):
     check_case(case)
+
+
+@pytest.mark.parametrize("case", ("2x2", "1x4"))
+@pytest.mark.parametrize("arch", ("deepseek-v2-lite-16b",
+                                  "llava-next-mistral-7b"))
+def test_mla_and_patch_prefix_step_matches_unsharded_step(arch, case):
+    """MLA (deepseek: on (2, 2) the shared expert's stacked layers split
+    one a point; on (1, 4) the rope dims four ways) and the patch prefix
+    (llava: on (1, 4) its attention gathered) under the same check."""
+    check_case(case, arch=arch)
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
@@ -262,3 +283,18 @@ def test_smoke_gate_passes_the_step_and_rejects_its_control():
     assert sound["grad_leaf_rel"] < 1e-5 and sound["update_rel"] < 1e-3
     assert control["grad_leaf_rel"] > chip_smoke.SHARDED_TRAIN_GRAD_REL
     assert control["update_rel"] > chip_smoke.SHARDED_TRAIN_UPDATE_REL
+
+
+def test_smoke_gate_passes_the_mla_step_and_rejects_its_control():
+    """The same gate on deepseek-v2-lite-16b's smoke config (MLA, the
+    experts split two a point, the shared expert's stacked layers one a
+    point): the sharded step passes it, its control fails it (CPU
+    readings: worst leaf 1.5e-6, control 1.10 and updates 0.99)."""
+    import chip_smoke
+    cfg = get_smoke_config("deepseek-v2-lite-16b")
+    mesh = make_test_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    out = chip_smoke.sharded_train_gate(
+        torch, cfg, mesh, batch_of(cfg), TrainConfig(microbatches=2,
+                                                     loss_chunk=64), True)
+    assert out["sharded"]["passes_gate"] and not out["control"]["passes_gate"]
+    assert out["sharded"]["grad_leaf_rel"] < 1e-5

@@ -19,16 +19,29 @@ Every test carries the `gpu` marker and skips, with a reason, where
   caller's thread);
 * the sharded step with a point on each of four cards (the collectives
   as peer copies) against the unsharded step, at the same bounds; it
-  skips with fewer than four cards."""
+  skips with fewer than four cards;
+* deepseek-v2-lite-16b at its published widths cut to 3 layers (MLA's
+  gathered latent and rope keys; 64 experts, 32 a point, and the shared
+  experts' two stacked layers, one a point; the dense first layer), one
+  f32 AdamW step sharded on (2, 2) of cuda:0 x 4 with FSDP against the
+  unsharded step, through `chip_smoke.sharded_train_gate`: the step
+  passes the gate of path `train-sharded` (every leaf's gradient within
+  `SHARDED_TRAIN_GRAD_REL`, the loss, norm, parameters and updates
+  within theirs), the card's check of the expert-parallel backward, and
+  its control (a data shard's gradient only) fails it."""
+import dataclasses
 import time
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.parallel import spmd as SP
+from repro_torch.train.step import TrainConfig
 
-from test_torch_spmd_train import CASES, check_case
+from test_torch_spmd_train import CASES, batch_of, check_case
 
 pytestmark = pytest.mark.gpu
 
@@ -61,3 +74,15 @@ def test_sharded_step_backward_finishes_within_its_timeout(cuda,
     t0 = time.perf_counter()
     check_case("2x2", device="cuda:0", tol=1e-4)
     assert time.perf_counter() - t0 < 30.0
+
+
+def test_deepseek_sharded_step_passes_the_smoke_gate(cuda):
+    import chip_smoke
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"), n_layers=3)
+    mesh = make_test_mesh((2, 2), ("data", "model"), devices=[cuda] * 4)
+    out = chip_smoke.sharded_train_gate(
+        torch, cfg, mesh, batch_of(cfg, cuda), TrainConfig(microbatches=2,
+                                                     loss_chunk=64), True)
+    sound, control = out["sharded"], out["control"]
+    assert sound["passes_gate"], sound
+    assert not control["passes_gate"], control

@@ -60,7 +60,9 @@ CASES = {"qwen1.5-4b@4x2": ("qwen1.5-4b", (4, 2), True),
 
 #: argv[1] a JSON list of [tag, arch, mesh shape, fsdp], argv[2] the .npz,
 #: then B, S_LEN, SEED, LR: per case the loss, the gradient norm and the
-#: parameters' leaves after one step, and the gradient's leaves (`Keep`)
+#: parameters' leaves after one step, and the gradient's leaves (`Keep`).
+#: Under the vision stub the batch carries patch embeddings drawn from
+#: SEED + 1 (`patches`)
 REF = """
 import os, sys, json, dataclasses
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
@@ -90,7 +92,12 @@ for tag, arch, shape, fsdp in cases:
     state = opt.init(params)
     tok = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (B, S_LEN)).astype(np.int32)
-    batch = Batch(jnp.asarray(tok), jnp.roll(jnp.asarray(tok), -1, 1))
+    extra = None
+    if cfg.frontend == "vision_stub":
+        extra = jnp.asarray(np.random.default_rng(SEED + 1).standard_normal(
+            (B, cfg.num_patches, cfg.d_model)).astype(np.float32))
+    batch = Batch(jnp.asarray(tok), jnp.roll(jnp.asarray(tok), -1, 1),
+                  extra)
     step = build_train_step(model, opt, TrainConfig(microbatches=2))
     mesh = make_test_mesh(tuple(shape), ("data", "model"))
     with jax.set_mesh(mesh):
@@ -100,7 +107,9 @@ for tag, arch, shape, fsdp in cases:
                                                psh, psh))
         bsh = NamedSharding(mesh, S.batch_spec(mesh, B))
         b = Batch(jax.device_put(batch.tokens, bsh),
-                  jax.device_put(batch.targets, bsh), None)
+                  jax.device_put(batch.targets, bsh),
+                  None if extra is None else jax.device_put(
+                      extra, NamedSharding(mesh, S.batch_spec(mesh, B, 2))))
         _, _, g = jax.jit(build_train_step(
             model, Keep(), TrainConfig(microbatches=2)))(p, (), b)
         p, s, m = jax.jit(step)(p, s, b)
@@ -124,11 +133,12 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
+def reference_steps(tmp_path_factory, cases: dict) -> dict:
+    """REF's readings of `cases` (tag -> (arch, mesh shape, fsdp)), from
+    one subprocess."""
     path = tmp_path_factory.mktemp("spmd_train") / "ref.npz"
     cases = [[tag, arch, list(shape), fsdp]
-             for tag, (arch, shape, fsdp) in CASES.items()]
+             for tag, (arch, shape, fsdp) in cases.items()]
     env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
     run = subprocess.run(
         [sys.executable, "-c", REF, json.dumps(cases), str(path), str(B),
@@ -138,9 +148,27 @@ def reference(tmp_path_factory):
     return dict(np.load(path))
 
 
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    return reference_steps(tmp_path_factory, CASES)
+
+
+def patches(cfg):
+    """REF's patch embeddings under the vision stub, else None."""
+    if cfg.frontend != "vision_stub":
+        return None
+    return torch.from_numpy(np.random.default_rng(SEED + 1).standard_normal(
+        (B, cfg.num_patches, cfg.d_model)).astype(np.float32))
+
+
 @pytest.mark.parametrize("tag", list(CASES))
 def test_sharded_step_matches_reference_sharded_step(tag, reference):
-    arch, shape, fsdp = CASES[tag]
+    check_step(tag, *CASES[tag], reference)
+
+
+def check_step(tag, arch, shape, fsdp, reference):
+    """The port's sharded step of case `tag` against REF's, as the
+    module's note says."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
     rcfg = dataclasses.replace(ref_smoke(arch), dtype=jax.numpy.float32)
     tree = jax.tree.map(np.asarray, RModel(rcfg).init(
@@ -158,7 +186,7 @@ def test_sharded_step_matches_reference_sharded_step(tag, reference):
         0, cfg.vocab_size, (B, S_LEN)).astype(np.int32)).long()
     step = build_train_step(Model(cfg), opt, TrainConfig(microbatches=2),
                             mesh=mesh)
-    p, s, m = step(p, s, Batch(tok, torch.roll(tok, -1, 1)))
+    p, s, m = step(p, s, Batch(tok, torch.roll(tok, -1, 1), patches(cfg)))
     assert float(m["loss"]) == pytest.approx(
         float(reference[f"{tag}/loss"]), abs=2e-4)
     assert float(m["grad_norm"]) == pytest.approx(

@@ -6,16 +6,21 @@
 Builds the kernel libraries from the sources in this checkout, then runs
 `chip_smoke.serve_phase` for each named path in turn (the paths of phases
 8-11b, `chip_smoke.SERVE_PATHS`: `serve`, `serve-deepseek`,
-`serve-mixtral`, `serve-mamba2`, `serve-whisper`, `serve-llava`), with
-the same specs and bounds as the full run: its serve, check and profile
-lines, then one line with each path's launch counts. Any failure raises
-and exits non-zero.
+`serve-mixtral`, `serve-mamba2`, `serve-whisper`, `serve-llava`), or
+`chip_smoke.serve_sharded_phase` (phases 11d-11f,
+`chip_smoke.SERVE_SHARDED_PATHS`: `serve-sharded`, `serve-sharded-mla`,
+`serve-sharded-llava`), with the same specs and bounds as the full run:
+its serve, check and profile lines, then one line with each path's
+launch counts. Any failure raises and exits non-zero.
+
+    python3 tools/serve_paths.py --path serve-sharded-mla serve-sharded-llava
 """
 from __future__ import annotations
 
 import argparse
 import json
 import pathlib
+import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -24,9 +29,9 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 def main() -> int:
     import chip_smoke
-    paths = chip_smoke.SERVE_PATHS
+    paths, sharded = chip_smoke.SERVE_PATHS, chip_smoke.SERVE_SHARDED_PATHS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--path", nargs="+", choices=list(paths),
+    ap.add_argument("--path", nargs="+", choices=[*paths, *sharded],
                     default=["serve-whisper", "serve-llava"])
     args = ap.parse_args()
     import torch
@@ -39,8 +44,19 @@ def main() -> int:
     from repro_torch.kernels.semijoin import ops as sj
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
     counts = {}
     for path in args.path:
+        if path in sharded:
+            spec, tol = sharded[path]
+            counts[path] = chip_smoke.serve_sharded_phase(
+                torch, kb, sj, fa, torch.device("cuda", 0), smi, path, spec,
+                tol)
+            continue
         spec, tol = paths[path]
         counts[path] = chip_smoke.serve_phase(torch, kb, sj, fa, path, spec,
                                               tol)

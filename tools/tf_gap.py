@@ -28,8 +28,9 @@ unsharded one, both on the flash backend: one greedy pass of the
 unsharded model under the mesh's abstract twin (so both have the same
 MoE token groups), then the model drawn straight into shards
 (`spmd.init_sharded`, `fsdp` by `dryrun.serve_fsdp`'s rule) and fed the
-same tokens (`chip_smoke.sharded_gap`): once routing on its own, and,
-for a MoE model, once taking the unsharded run's routing choices.
+same tokens and stub embeddings (`chip_smoke.sharded_gap`): once routing
+on its own, and, for a MoE model, once taking the unsharded run's
+routing choices.
 
     PYTHONPATH=src python3 tools/tf_gap.py --arch mixtral-8x7b \
         --layers 1 2 --mesh 2x2 --device cpu
@@ -123,18 +124,21 @@ def sharded(torch, args, cfg, dev) -> None:
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=torch.Generator(device=dev)
                            .manual_seed(1), device=dev)
-    cap = args.prompt_len + args.gen_tokens + 8
+    extra = serve.stub_inputs(cfg, args.batch, dev)
+    cap = serve.prefix_len(cfg, extra) + args.prompt_len \
+        + args.gen_tokens + 8
     with set_mesh(make_test_mesh(mesh.axis_sizes, mesh.axis_names)):
         params = model.init(torch.Generator(device=dev).manual_seed(0))
         routes, restore = chip_smoke.record_routes(L) if cfg.moe else \
             (None, None)
         try:
-            ref = serve.generate(model, params, prompt, args.gen_tokens, cap)
+            ref = serve.generate(model, params, prompt, args.gen_tokens, cap,
+                                 extra=extra)
         finally:
             if restore:
                 restore()
     del params
-    ref.update(prompt=prompt, cap=cap)
+    ref.update(prompt=prompt, cap=cap, extra=extra)
     fsdp = serve_fsdp(cfg, mesh)
     shards = SP.init_sharded(
         lambda: model.init(torch.Generator(device=dev).manual_seed(0)),
