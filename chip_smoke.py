@@ -227,8 +227,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              serve-whisper's shapes: the encoder's non-causal
              self-attention (B 16, 1500 x 1500 frames, its last key tile
              ragged), cross-attention at the prefill's 32 queries and at
-             a decode step over the 1500 frames, every position 0. A
-             decode line must
+             a decode step over the 1500 frames, every position 0, and
+             the same three at a (2, 2) mesh point's share (B 8, 4 heads:
+             serve-sharded-whisper's shapes). A decode line must
              also lie within two bf16 ulps
              of the largest output of each reference (`decode_limit`).
              Each line's bound is the larger of 2*(D + Dv) flops per
@@ -371,6 +372,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              columns of `patch_proj` and all-gathered, K8 (128, 128) on
              each point's 16/4 heads (32 launches a point a call); the
              check within `SHARDED_VLM_MAX_ABS` and `SHARDED_VLM_MEAN_ABS`;
+11g. serve-sharded-mamba2 — path `serve-sharded-mamba2`
+             (`SERVE_SHARDED_MAMBA`): mamba2-370m uncut at serve-mamba2's
+             shape on (2, 2) of four points of the card: each point
+             projects with its columns of in_proj and all-gathers, runs
+             the conv on its 1,152 channels and all-gathers, the SSD and
+             the recurrent step on its 16 of 32 heads (its caches hold
+             those channels and heads), out_proj's rows all-reduced; no
+             hand kernel launches; the check within `SHARDED_SSM_MAX_ABS`
+             and `SHARDED_SSM_MEAN_ABS`;
+11h. serve-sharded-whisper — path `serve-sharded-whisper`
+             (`SERVE_SHARDED_WHISPER`): whisper-base uncut at
+             serve-whisper's shape on (2, 2) of four points of the card:
+             the frames split with the prompt, projected by each point's
+             columns of `frame_proj` and all-gathered, K8 (64, 64) on each
+             point's 4 of 8 heads in the encoder, the self-attention and
+             the cross-attention (24 launches a point a prefill call, 12
+             a decode step), the vocabulary whole; the check within
+             `SHARDED_ENCDEC_MAX_ABS` and `SHARDED_ENCDEC_MEAN_ABS`;
 12. train  — path `train`: qwen1.5-4b at its full config (3.95 B
              parameters, bf16, random weights from seed 0) through
              `train.step.build_train_step` with AdamW (cosine schedule,
@@ -438,12 +457,13 @@ cross decode shapes, whose launches are path `serve-whisper`'s)
 path's count, the `dist-*` (`dist-pod` too), `launch-reports`,
 `torch-tpch`, `serve-mixtral`,
 `serve-mamba2`, `serve-whisper`, `serve-llava`, `serve-sharded`,
-`serve-sharded-mla`, `serve-sharded-llava`, `train`, `train-ft` and
-`train-sharded` paths' included (K8's (128, 128) rows count
-`serve-mixtral`'s, `serve-llava`'s, `serve-sharded`'s and
-`serve-sharded-llava`'s launches there, its MLA rows
-`serve-sharded-mla`'s; every kernel 0 on `torch-tpch`, `serve-mamba2`, `train`,
-`train-ft` and `train-sharded`); `plain_device` says where
+`serve-sharded-mla`, `serve-sharded-llava`, `serve-sharded-mamba2`,
+`serve-sharded-whisper`, `train`, `train-ft` and `train-sharded` paths'
+included (K8's (128, 128) rows count `serve-mixtral`'s, `serve-llava`'s,
+`serve-sharded`'s and `serve-sharded-llava`'s launches there, its MLA
+rows `serve-sharded-mla`'s, its (64, 64) rows `serve-sharded-whisper`'s;
+every kernel 0 on `torch-tpch`, `serve-mamba2`, `serve-sharded-mamba2`,
+`train`, `train-ft` and `train-sharded`); `plain_device` says where
 `plain_ms` was taken: "cuda" for CUDA-event times on the card, "cpu" for
 the sequential K4 and K6a builds timed on the host; K6's and K8's rows
 add `library_call`, what `library_ms` timed; K8's rows add `device_ms`
@@ -692,7 +712,58 @@ SERVE_SHARDED_LLAVA = {"arch": "llava-next-mistral-7b", "config": "full",
 #: wrong shard or sum moves the mean |d| by a share of that
 SHARDED_VLM_MAX_ABS = 0.5
 SHARDED_VLM_MEAN_ABS = 0.08
-#: phases 11d-11f in order: path -> (spec, its check's (max, mean) bounds
+#: serve-sharded-mamba2: mamba2-370m uncut (48 layers, d_model 1024, 32
+#: heads of 64, state 128; 0.368 B parameters, 0.74 GB of bf16) at
+#: serve-mamba2's batch, prompt and tokens on a (2, 2) mesh of four
+#: points of the card, fsdp off: a point holds 2,192 of in_proj's 4,384
+#: columns, 1,152 of the conv's 2,304 channels, 1,024 of out_proj's 2,048
+#: rows (16 heads) and 25,140 of the 50,280 tied embedding rows, about
+#: 0.39 GB; its caches 2 rows x (3 x 1,152 conv entries in bf16 + 16 x 64
+#: x 128 SSM entries in f32) a layer, 50.9 MB in all. No hand kernel
+SERVE_SHARDED_MAMBA = {"arch": "mamba2-370m", "config": "full",
+                       "batch": 4, "prompt_len": 2048, "gen_tokens": 32,
+                       "mesh": (2, 2)}
+#: Its check, set before the path's first card run: the sharded run fed
+#: the unsharded greedy run's tokens, against its logits. They differ
+#: where out_proj's partial products are rounded to bf16 on each point
+#: before their f32 sum (the gathers move values unchanged). On the CPU
+#: (`tools/tf_gap.py --arch mamba2-370m --mesh 2x2 --device cpu`, full
+#: width, batch 2, prompt 256, 6 steps): max |d| 0.0625 / 0.0313 /
+#: 0.0391 and mean 0.0018 / 0.0036 / 0.0063 at 1 / 2 / 4 layers, then
+#: 0.0752 / 0.102 / 0.182 and 0.0101 / 0.0162 / 0.0296 at 8 / 16 / 48
+#: (uncut): the mean about x1.6 a doubling. The bounds are
+#: serve-mamba2's, about twice the uncut reading; the logits have std
+#: ~0.64 at init: a head, channel or state on the wrong point moves them
+#: by about that
+SHARDED_SSM_MAX_ABS = 0.35
+SHARDED_SSM_MEAN_ABS = 0.06
+#: serve-sharded-whisper: whisper-base uncut (6 encoder and 6 decoder
+#: layers, d_model 512, 8 heads of 64, vocabulary 51,865; 0.097 B
+#: parameters, 0.195 GB of bf16) at serve-whisper's batch, frames, prompt
+#: and tokens on a (2, 2) mesh of four points of the card, fsdp off: the
+#: frames split with the prompt (8 clips a data shard), projected by each
+#: point's 256 columns of `frame_proj` and all-gathered; K8 at (64, 64)
+#: on each point's 4 of 8 heads in the encoder, the self-attention and
+#: the cross-attention; the vocabulary (51,865 divides neither 2 nor 4)
+#: whole on every point: the embedding a plain lookup, no logits gather
+SERVE_SHARDED_WHISPER = {"arch": "whisper-base", "config": "full",
+                         "batch": 16, "prompt_len": 32, "gen_tokens": 96,
+                         "mesh": (2, 2)}
+#: Its check, set before the path's first card run. They differ where
+#: the row-parallel sums round (wo's in the encoder, the self- and the
+#: cross-attention, w2's) and K8 takes 4 heads a call. On the CPU
+#: (`tools/tf_gap.py --arch whisper-base --mesh 2x2 --device cpu
+#: --prompt-len 32 --gen-tokens 16`, K8's plain version, full width and
+#: encoder, batch 2): max |d| 0.0156 / 0.0156 / 0.0195 / 0.0195 and mean
+#: 0.0021 / 0.0025 / 0.0029 / 0.0031 at 1 / 2 / 4 / 6 (uncut) decoder
+#: layers: it hardly grows with depth. The bounds are serve-whisper's,
+#: about three and two and a half times the uncut reading (the path's
+#: batch 16 and 96 tokens give the max more rows); the logits have std
+#: ~0.45 at init: a frame column, head or sum on the wrong point moves
+#: them by about that
+SHARDED_ENCDEC_MAX_ABS = 0.06
+SHARDED_ENCDEC_MEAN_ABS = 0.008
+#: phases 11d-11h in order: path -> (spec, its check's (max, mean) bounds
 #: and, for a MoE, the most of its own routing's choices that may differ)
 SERVE_SHARDED_PATHS = {
     "serve-sharded": (SERVE_SHARDED, (SHARDED_MAX_ABS, SHARDED_MEAN_ABS,
@@ -703,6 +774,11 @@ SERVE_SHARDED_PATHS = {
     "serve-sharded-llava": (SERVE_SHARDED_LLAVA, (SHARDED_VLM_MAX_ABS,
                                                   SHARDED_VLM_MEAN_ABS,
                                                   None)),
+    "serve-sharded-mamba2": (SERVE_SHARDED_MAMBA, (SHARDED_SSM_MAX_ABS,
+                                                   SHARDED_SSM_MEAN_ABS,
+                                                   None)),
+    "serve-sharded-whisper": (SERVE_SHARDED_WHISPER, (
+        SHARDED_ENCDEC_MAX_ABS, SHARDED_ENCDEC_MEAN_ABS, None)),
 }
 #: the reference's bf16 tolerance for the flash kernel
 #: (tests/test_kernels_flash.py)
@@ -3292,9 +3368,10 @@ def decode_limit(ref) -> float:
 
 def attention_phase(torch, fa, dev, ptxas_log: str):
     """K8 against `flash_plain` and `sdpa_ref` on the card, one line per
-    shape; returns the records of the kernel table's rows (qwen1.5-4b's,
-    deepseek-v2-lite's and whisper-base's serve shapes: the encoder's and
-    a cross decode step's for (64, 64)) and each row's largest error. Every line adds
+    shape (a mesh point's share of some served shapes too); returns the
+    records of the kernel table's rows (qwen1.5-4b's, deepseek-v2-lite's
+    and whisper-base's serve shapes: the encoder's and a cross decode
+    step's for (64, 64)) and each row's largest error. Every line adds
     the kernel's registers and spills from `ptxas_log`; a prefill line
     its device TFLOP/s (unmasked flops over `device_ms`) and the shared
     memory one of its CTAs takes, a decode line its device GB/s."""
@@ -3390,6 +3467,17 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
         ("whisper cross decode", 16, 1, 1500, 8, 8, (64, 64), False, None,
          zeros(16, 1), (zeros(16, 1500), torch.ones(
              16, 1500, dtype=torch.bool, device=dev))),
+        # whisper-base's point on (2, 2) (serve-sharded-whisper: 8 of the
+        # 16 rows, 4 of the 8 heads) at the same three shapes
+        ("whisper point encoder", 8, 1500, 1500, 4, 4, (64, 64), False,
+         None, rows(8, 1500), (rows(8, 1500), torch.ones(
+             8, 1500, dtype=torch.bool, device=dev))),
+        ("whisper point cross prefill", 8, 32, 1500, 4, 4, (64, 64), False,
+         None, zeros(8, 32), (zeros(8, 1500), torch.ones(
+             8, 1500, dtype=torch.bool, device=dev))),
+        ("whisper point cross decode", 8, 1, 1500, 4, 4, (64, 64), False,
+         None, zeros(8, 1), (zeros(8, 1500), torch.ones(
+             8, 1500, dtype=torch.bool, device=dev))),
     )
     worst = dict.fromkeys(FLASH + FLASH_MLA + FLASH_D64, 0.0)
     rep = {}
@@ -4029,7 +4117,7 @@ def serve_phase(torch, kb, sj, fa, path: str, spec: dict,
 
 def serve_sharded_phase(torch, kb, sj, fa, dev, smi: str, path: str,
                         spec: dict, tol: tuple) -> dict:
-    """Path `path` (phases 11d-11f, `SERVE_SHARDED_PATHS`): the model of
+    """Path `path` (phases 11d-11h, `SERVE_SHARDED_PATHS`): the model of
     `spec` through `serve.serve_config(..., mesh=...)` on a mesh of four
     points of the card, its launches and collectives counted, each
     point's parameter and cache bytes held to the specs' shares, then the

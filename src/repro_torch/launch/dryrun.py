@@ -34,7 +34,7 @@ the numbers XLA's compiler supplied to the reference's report
 reference's `launch/hlo.py`, which parses XLA's partitioned HLO for the
 collectives, has no counterpart (sharded serving and training count
 their collectives as they run them, `parallel.spmd.COMM`; filling these
-fields from such counts is ROADMAP item 10e.2). Skipped cells (`skip`) come
+fields from such counts is ROADMAP item 10e.2d). Skipped cells (`skip`) come
 from `shape_skip_reason`. The roofline (`launch.roofline`) reads these
 reports beside the analytic cost model.
 

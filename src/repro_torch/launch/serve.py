@@ -35,10 +35,12 @@ axes by `batch_spec`, and every mesh point runs `generate` on its rows
 gathered over the data axes at the end. `--mesh` puts point i on
 `cuda:i` (or every point on the CPU with `--device cpu`); the printed
 lines add each device's parameter and cache bytes beside its peak.
-Attention (MLA included: deepseek's latent cache holds the point's
-columns) with an MLP or a MoE runs sharded, and llava's patch prefix
-(the patches split with the prompt); Mamba-2 and whisper raise (ROADMAP
-item 10e.2).
+Every block kind of the zoo runs sharded: attention (MLA included:
+deepseek's latent cache holds the point's columns) with an MLP or a MoE,
+the Mamba-2 mixer (its caches the point's conv channels and SSM heads),
+llava's patch prefix and whisper's frames (each split with the prompt;
+whisper's `enc_out` is then the point's rows) with its encoder and
+cross-attention.
 """
 from __future__ import annotations
 

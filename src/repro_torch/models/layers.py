@@ -70,23 +70,33 @@ never from its shape. The collectives sit at the reference's hint sites:
     only the (token, slot) pairs routed to them, at local expert indices
     (the rest into a spare row with weight 0); otherwise d_ff is split
     inside each expert; the f32 combine is all-reduced over "model";
+  * the Mamba-2 mixer, where tp divides its heads and conv channels
+    (`mamba_split`): in_proj's columns are the point's
+    and its output is all-gathered over "model", the depthwise conv runs
+    on the point's channels (its conv cache holds those) and its output
+    is all-gathered, the SSD or recurrent step runs on the point's heads
+    (its SSM cache holds those) with B and C whole, and out_proj's
+    partial product is all-reduced. Otherwise the mixer runs gathered;
+  * whisper's cross-attention as attention (`_attn_weights`): K and V
+    projected from the whole encoder output on the point's heads;
   * the embedding is a vocab-parallel lookup (`embed`), then an
-    all-reduce;
+    all-reduce (a vocabulary tp does not divide, whisper's 51,865, stays
+    whole: a plain lookup);
   * with FSDP a leaf split over "data" is all-gathered just before use
     and dropped after the layer.
 Partial products are summed in f32 and cast once (`spmd.all_reduce`).
 Where an activation every point of the model axis holds alike enters
 compute split over that axis (q/k/v over the local heads, w1/w3 over
 the local hidden units, the MoE's tokens and routing weights into the
-local experts or hidden units, the LM head's local vocabulary), it
-passes through `spmd.copy`, whose backward all-reduces the points'
-partial gradients: with the collectives' own backwards (a sum's is the
-identity, a gather's keeps the point's slice) every point's gradient of
-a local tensor is its slice of the unsharded gradient, the same bits on
-every replica. The MoE's auxiliary loss is the global batch's (its
-sums all-reduced over the batch's axes). Mamba-2 and whisper's
-cross-attention raise under a mesh of more than one point (ROADMAP item
-10e.2).
+local experts or hidden units, the LM head's local vocabulary, the
+encoder output into cross-attention's local heads, the Mamba-2 mixer's
+gathered projections and its per-head scalars into its local heads and
+channels), it passes through `spmd.copy`, whose backward all-reduces
+the points' partial gradients: with the collectives' own backwards (a
+sum's is the identity, a gather's keeps the point's slice) every
+point's gradient of a local tensor is its slice of the unsharded
+gradient, the same bits on every replica. The MoE's auxiliary loss is
+the global batch's (its sums all-reduced over the batch's axes).
 
 Training differentiates these functions with torch's autograd. K8 has
 no backward (nor has the reference's Pallas kernel), so the training
@@ -510,20 +520,27 @@ def cross_attention(p, x, enc_out, a: AttnConfig, norm_kind="rmsnorm"):
     every position 0 and every key valid, non-causal, through `_sdpa`
     (on "flash" K8: its decode variant at a decode step's Sq of 1); the
     QKV biases are not applied, as the reference applies none here.
-    Returns x + y @ wo."""
-    SP.require_unsharded("whisper's cross-attention")
+    Returns x + y @ wo. Sharded as `attention` (`_attn_weights`): the
+    point's heads of wq, wk and wv, K and V projected from its rows of the
+    whole `enc_out`, wo's partial product all-reduced over "model"."""
     b, s, _ = x.shape
+    w, tp = _attn_weights(p, a)
+    nh, nkv = a.num_heads // tp, a.num_kv_heads // tp
     h = norm(x, p["ln_x"], norm_kind)
-    q = (h @ p["wq"]).reshape(b, s, a.num_heads, a.head_dim)
+    if tp > 1:                  # h and enc_out enter the point's heads
+        h, enc_out = SP.copy(h, "model"), SP.copy(enc_out, "model")
+    q = (h @ w["wq"]).reshape(b, s, nh, a.head_dim)
     se = enc_out.shape[1]
-    k = (enc_out @ p["wk"]).reshape(b, se, a.num_kv_heads, a.head_dim)
-    v = (enc_out @ p["wv"]).reshape(b, se, a.num_kv_heads, a.head_dim)
+    k = (enc_out @ w["wk"]).reshape(b, se, nkv, a.head_dim)
+    v = (enc_out @ w["wv"]).reshape(b, se, nkv, a.head_dim)
     pos = dict(dtype=torch.int32, device=x.device)
     out = _sdpa(q, k, v, torch.zeros((b, s), **pos),
                 torch.zeros((b, se), **pos),
                 torch.ones((b, se), dtype=torch.bool, device=x.device),
                 causal=False, window=None)
-    y = out.reshape(b, s, a.num_heads * a.head_dim) @ p["wo"]
+    y = out.reshape(b, s, nh * a.head_dim) @ w["wo"]
+    if tp > 1:
+        y = SP.all_reduce(y, "model")
     return x + y
 
 
@@ -764,6 +781,50 @@ def _ssd_chunked(xh, dt, a_log, B, C, chunk: int):
     return y.to(xh.dtype), final
 
 
+def mamba_split(mb: MambaConfig, d: int) -> int:
+    """The ways the Mamba-2 mixer of width `d` splits over "model" in
+    `spmd.run`: tp where it divides the heads and the conv's d_inner + 2N
+    channels (and so in_proj's d_inner + channels + heads columns: the
+    dims `param_specs` and `cache_spec` split), else 1 (also with no
+    shard context)."""
+    ctx = SP.context()
+    tp = ctx.size("model") if ctx is not None else 1
+    d_inner = mb.expand * d
+    nheads, ch = d_inner // mb.head_dim, d_inner + 2 * mb.d_state
+    return tp if nheads % tp == 0 and ch % tp == 0 else 1
+
+
+_MAMBA_LEAVES = ("in_proj", "conv_w", "out_proj", "a_log", "dt_bias",
+                 "d_skip")
+
+
+def _mamba_weights(p, mb: MambaConfig, d: int):
+    """(the mixer's weights as this point uses them, the ways it splits,
+    this point's first head, its first conv channel): `p`, 1, 0 and 0
+    with no shard context. In `spmd.run` the leaves split over "data"
+    (FSDP) are gathered; where the mixer does not split (`mamba_split`
+    1) every leaf is gathered whole over "model" too. Where it does,
+    in_proj must be split over "model" by its columns, conv_w by its
+    channels and out_proj by its rows (whole heads, as d_inner / tp is);
+    the per-head a_log, dt_bias and d_skip are taken at the point's heads
+    (through `spmd.copy`: their gradient is summed over "model")."""
+    if SP.context() is None:
+        return p, 1, 0, 0
+    tp = mamba_split(mb, d)
+    w = {n: SP.whole(p[n], "data") for n in _MAMBA_LEAVES}
+    if tp == 1:
+        return {n: SP.whole(t, "model") for n, t in w.items()}, 1, 0, 0
+    for n, dim in (("in_proj", -1), ("conv_w", -1), ("out_proj", 0)):
+        if SP.split_axes(w[n], dim) != ("model",):
+            raise ValueError(f"the Mamba-2 mixer splits over 'model' but "
+                             f"{n}'s spec does not split it")
+    nh = mb.expand * d // mb.head_dim // tp
+    h0 = SP.offset(w["out_proj"], 0) // mb.head_dim
+    for n in ("a_log", "dt_bias", "d_skip"):
+        w[n] = SP.copy(SP.whole(w[n], "model"), "model")[h0:h0 + nh]
+    return w, tp, h0, SP.offset(w["conv_w"], -1)
+
+
 def mamba2(p, x: torch.Tensor, mb: MambaConfig,
            cache: Optional[MambaCache] = None, norm_kind: str = "rmsnorm"
            ) -> Tuple[torch.Tensor, Optional[MambaCache]]:
@@ -773,36 +834,62 @@ def mamba2(p, x: torch.Tensor, mb: MambaConfig,
     SSD in f32 over the sequence zero-padded to a multiple of `chunk`,
     starting from the zero state whatever the cache holds; a given cache
     takes the conv window and the final state. s == 1 with a cache is
-    the recurrent decode step. The cache is written in place."""
-    SP.require_unsharded("the Mamba-2 mixer")
+    the recurrent decode step. The cache is written in place.
+
+    Sharded (`mamba_split` tp > 1; in_proj's contiguous column split
+    does not follow the heads: on tp 2 at mamba2-370m a point holds all
+    of z and the first 144 columns of xBC): a point projects with its
+    columns of in_proj and all-gathers the result over "model", runs the
+    conv on its ch/tp channels (its conv cache holds those), all-gathers
+    the conv's output, takes its H/tp heads of x, z and dt with B and C
+    whole (one group), runs the SSD or the recurrent step on those heads
+    (its SSM cache holds them), gates, multiplies by its rows of out_proj
+    and all-reduces over "model". Under autograd both gathered tensors
+    enter the point's share through `spmd.copy`: each point reads other
+    points' columns, so a gather's backward keeps the point's slice of
+    a gradient summed over "model"."""
     b, s, d = x.shape
     d_inner = mb.expand * d
     nheads = d_inner // mb.head_dim
     n = mb.d_state
+    ch = d_inner + 2 * n
+    w, tp, h0, c0 = _mamba_weights(p, mb, d)
+    nh, cl = nheads // tp, ch // tp
+    heads = slice(h0 * mb.head_dim, (h0 + nh) * mb.head_dim)
     h = norm(x, p["ln"], norm_kind)
-    zxbcdt = h @ p["in_proj"]
-    z = zxbcdt[..., :d_inner]
-    xbc = zxbcdt[..., d_inner:d_inner + d_inner + 2 * n]
-    dt_raw = zxbcdt[..., -nheads:]
+    if tp > 1:                  # h enters the point's columns
+        h = SP.copy(h, "model")
+    zxbcdt = h @ w["in_proj"]
+    if tp > 1:
+        zxbcdt = SP.copy(SP.all_gather(zxbcdt, "model", -1), "model")
+    z = zxbcdt[..., :d_inner][..., heads]
+    xbc = zxbcdt[..., d_inner:d_inner + ch][..., c0:c0 + cl]
+    dt_raw = zxbcdt[..., -nheads:][..., h0:h0 + nh]
+
+    def whole_channels(t):      # the conv's output over every channel
+        t = silu(t)
+        if tp > 1:
+            t = SP.copy(SP.all_gather(t, "model", -1), "model")
+        return t
 
     if cache is None or s > 1:
         xbc_pad = F.pad(xbc, (0, 0, mb.d_conv - 1, 0))
-        w = p["conv_w"].to(xbc.dtype)
+        cw = w["conv_w"].to(xbc.dtype)
         acc = torch.zeros_like(xbc)
         for kk in range(mb.d_conv):
-            acc = acc + xbc_pad[:, kk:kk + s] * w[kk]
-        xbc = silu(acc)
-        xh = xbc[..., :d_inner].reshape(b, s, nheads, mb.head_dim)
+            acc = acc + xbc_pad[:, kk:kk + s] * cw[kk]
+        xbc = whole_channels(acc)
+        xh = xbc[..., :d_inner][..., heads].reshape(b, s, nh, mb.head_dim)
         B = xbc[..., d_inner:d_inner + n]
         C = xbc[..., d_inner + n:]
         xh = HT.hint(xh, "batch", None, "model", None)
-        dt = F.softplus(dt_raw.float() + p["dt_bias"])
+        dt = F.softplus(dt_raw.float() + w["dt_bias"])
         dt = HT.hint(dt, "batch", None, "model")
         pad_len = (-s) % mb.chunk
 
         def zpad(t):
             return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad_len))
-        y, final = _ssd_chunked(zpad(xh), zpad(dt), p["a_log"], zpad(B),
+        y, final = _ssd_chunked(zpad(xh), zpad(dt), w["a_log"], zpad(B),
                                 zpad(C), mb.chunk)
         y = y[:, :s]
         if cache is not None:           # prefill -> decode handoff
@@ -811,24 +898,26 @@ def mamba2(p, x: torch.Tensor, mb: MambaConfig,
     else:
         # single-token recurrent step
         xbc_win = torch.cat([cache.conv, xbc], dim=1)        # [b,k,ch]
-        xbc1 = silu(torch.einsum("bkc,kc->bc", xbc_win,
-                                 p["conv_w"].to(xbc.dtype)))
-        xh = xbc1[:, :d_inner].reshape(b, nheads, mb.head_dim)
+        xbc1 = whole_channels(torch.einsum("bkc,kc->bc", xbc_win,
+                                           w["conv_w"].to(xbc.dtype)))
+        xh = xbc1[:, :d_inner][:, heads].reshape(b, nh, mb.head_dim)
         B = xbc1[:, d_inner:d_inner + n]
         C = xbc1[:, d_inner + n:]
-        dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])   # [b,h]
-        dA = torch.exp(dt * -torch.exp(p["a_log"].float()))
+        dt = F.softplus(dt_raw[:, 0].float() + w["dt_bias"])   # [b,h]
+        dA = torch.exp(dt * -torch.exp(w["a_log"].float()))
         hstate = cache.ssm * dA[..., None, None] \
             + (dt[..., None, None] * xh.float()[..., None]
                * B.float()[:, None, None, :])
         hstate = HT.hint(hstate, "batch", "model", None, None)
         y = torch.einsum("bhpn,bn->bhp", hstate, C.float())
-        y = y.to(x.dtype).reshape(b, 1, nheads, mb.head_dim)
+        y = y.to(x.dtype).reshape(b, 1, nh, mb.head_dim)
         cache.conv.copy_(xbc_win[:, 1:])
         cache.ssm.copy_(hstate)
 
-    y = y.reshape(b, s, d_inner) + (
-        p["d_skip"].to(x.dtype)[None, None, :, None]
-        * xh.reshape(b, s, nheads, mb.head_dim)).reshape(b, s, d_inner)
-    y = y * silu(z)
-    return x + y @ p["out_proj"], cache
+    y = y.reshape(b, s, nh * mb.head_dim) + (
+        w["d_skip"].to(x.dtype)[None, None, :, None]
+        * xh.reshape(b, s, nh, mb.head_dim)).reshape(b, s, nh * mb.head_dim)
+    y = (y * silu(z)) @ w["out_proj"]
+    if tp > 1:
+        y = SP.all_reduce(y, "model")
+    return x + y, cache

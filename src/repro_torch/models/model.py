@@ -44,12 +44,15 @@ embedding is a vocab-parallel lookup (`layers.embed`), the LM head's
 local vocabulary columns give local logits that are all-gathered over
 "model", and `init_cache` holds the point's kv heads (`layers.
 heads_split`; MLA's latent and rope caches the point's columns,
-`layers.mla_split`), so a point's cache bytes are `cache_spec`'s local
-share wherever the heads split whole. The patch prefix is projected by
-the point's columns of `patch_proj` and all-gathered. Sharded training
+`layers.mla_split`; a Mamba layer's conv window the point's channels and
+its SSM state the point's heads, `layers.mamba_split`), so a point's
+cache bytes are `cache_spec`'s local share wherever the heads split
+whole. The stub frontends' embeddings (llava's patches, whisper's
+frames) are projected by the point's columns of `patch_proj` or
+`frame_proj` and all-gathered (`_stub_proj`); whisper's encoder layers
+and cross-attention run on the point's heads. Sharded training
 differentiates `loss` there: the collectives carry gradients
-(`parallel.spmd`) and the loss is the global batch's. Whisper's encoder
-raises under a mesh of more than one point (ROADMAP item 10e.2).
+(`parallel.spmd`) and the loss is the global batch's.
 """
 from __future__ import annotations
 
@@ -111,6 +114,18 @@ def _logits(h, w, vocab):
     return SP.all_gather(logits, vocab, -1)
 
 
+def _stub_proj(w, emb):
+    """The stub frontend's embeddings `emb` [B, n, d] projected by `w`
+    (`patch_proj`, `frame_proj`); in `spmd.run` (`emb` the point's rows)
+    `w`'s FSDP rows gathered, `emb` projected by the point's columns and
+    the [B, n, d/tp] results all-gathered over their axes: the gather
+    moves the projected embeddings, not the weight."""
+    w = SP.whole(w, "data")
+    split = SP.split_axes(w, -1)
+    out = emb @ w
+    return SP.all_gather(out, split, -1) if split else out
+
+
 def _chunk_nll(xc, w, vocab, tc):
     """Summed NLL of one chunk: f32 logits, logsumexp minus the gold
     logit where the target is >= 0."""
@@ -164,11 +179,12 @@ class Model:
         if kind == "mamba":
             mb = cfg.mamba
             d_inner = mb.expand * cfg.d_model
+            tp = L.mamba_split(mb, cfg.d_model)  # the point's share of each
             return L.MambaCache(
                 conv=torch.zeros((*lead, batch, mb.d_conv - 1,
-                                  d_inner + 2 * mb.d_state),
+                                  (d_inner + 2 * mb.d_state) // tp),
                                  dtype=cfg.dtype, device=device),
-                ssm=torch.zeros((*lead, batch, d_inner // mb.head_dim,
+                ssm=torch.zeros((*lead, batch, d_inner // mb.head_dim // tp,
                                  mb.head_dim, mb.d_state),
                                 dtype=torch.float32, device=device))
         a = cfg.attn
@@ -255,10 +271,11 @@ class Model:
         d] -> enc_out [B, Se, d] in the model dtype. `frame_proj`, then
         each of the `[n_enc_layers]` stacked layers (attention with RoPE
         at positions 0..Se-1, non-causal and without a window, then the
-        MLP), then `enc_ln_f`."""
-        SP.require_unsharded("whisper's encoder")
+        MLP), then `enc_ln_f`. In `spmd.run` (`frames` the point's rows)
+        `frame_proj` projects as `_stub_proj` does and the layers run on
+        the point's heads and hidden units, as the decoder's do."""
         cfg = self.cfg
-        x = frames.to(cfg.dtype) @ params["frame_proj"]
+        x = _stub_proj(params["frame_proj"], frames.to(cfg.dtype))
         b, se, _ = x.shape
         pos = torch.arange(se, dtype=torch.int32,
                            device=x.device)[None].expand(b, se)
@@ -298,20 +315,13 @@ class Model:
     # ------------------------------------------------------------------
     def embed_inputs(self, params, batch: Batch):
         """Token embeddings; under the vision stub, the patch embeddings
-        `batch.extra` [B, P, d] projected by `patch_proj` go first. In
-        `spmd.run` (`batch.extra` the point's rows) `patch_proj`'s FSDP
-        rows are gathered, the patches are projected by the point's
-        columns and the [B, P, d/tp] results all-gathered over their
-        axes: the gather moves the projected patches, not the weight."""
+        `batch.extra` [B, P, d] projected by `patch_proj` (`_stub_proj`,
+        sharded in `spmd.run`) go first."""
         cfg = self.cfg
         x = L.embed(params["embed"], batch.tokens)
         if cfg.frontend == "vision_stub" and batch.extra is not None:
-            w = SP.whole(params["patch_proj"], "data")
-            split = SP.split_axes(w, -1)
-            patches = batch.extra.to(cfg.dtype) @ w
-            if split:
-                patches = SP.all_gather(patches, split, -1)
-            x = torch.cat([patches, x], dim=1)
+            x = torch.cat([_stub_proj(params["patch_proj"],
+                                      batch.extra.to(cfg.dtype)), x], dim=1)
         return x
 
     def _head(self, params):

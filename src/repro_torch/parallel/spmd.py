@@ -88,10 +88,24 @@ without a cache (the loss) twice, the latent of the call and w_kr,
 gathers more, wq, w_qr, w_dkv, w_kr, w_uk, w_uv and wo over "data",
 (dp - 1) e W / (dp tp) bytes for their W elements. The patch prefix
 (llava) adds one `all_gather` a call, (tp - 1) e b P d / tp bytes for P
-patches. A stacked leaf whose layer dim is split (deepseek's shared
-experts under expert parallelism: the rules give them the experts'
-spec) is all-gathered along it once a call (`models.model.Model.
-backbone`), the layers a point does not hold.
+patches, and whisper's frames the same for its Se frames a call that
+encodes (with `fsdp`, one gather more each, of `patch_proj` or
+`frame_proj` over "data"). A Mamba-2 layer that splits over "model"
+(`layers.mamba_split` tp > 1), with d_inner = expand d, H heads, state
+N, conv channels c = d_inner + 2 N and in_proj's W = d_inner + c + H
+columns, calls `all_gather` twice, in_proj's output and the conv's,
+(tp - 1) e b S (W + c) / tp bytes, and `all_reduce` once, out_proj's,
+(tp - 1) e b S d bytes; with `fsdp` over a data axis of dp > 1, 2
+gathers more, in_proj and out_proj over "data", (dp - 1) e d (W +
+d_inner) / (dp tp) bytes. Whisper's encoder layer (attention without a
+cache, then the MLP) calls `all_reduce` twice, and a cross-attention
+layer once (wo's, (tp - 1) e b S d bytes; with `fsdp`, 4 gathers more,
+wq, wk, wv and wo); a vocabulary tp does not divide (whisper's) is
+whole on every point, so the embedding adds no all-reduce and the
+logits no gather. A stacked leaf whose layer dim is split (deepseek's
+shared experts under expert parallelism: the rules give them the
+experts' spec) is all-gathered along it once a call (`models.model.
+Model.backbone`), the layers a point does not hold.
 
 A train step (`train.step.build_train_step(..., mesh=)`, remat on) of a
 dense model of L layers whose heads, d_ff and vocabulary V split over a
@@ -791,16 +805,6 @@ def index(t: torch.Tensor, r: int) -> torch.Tensor:
     out = t[r]
     spec = getattr(t, "_spmd_spec", None)
     return out if spec is None else _tag(out, tuple(spec)[1:])
-
-
-def require_unsharded(what: str) -> None:
-    """Raise where `what` runs inside `run` on more than one point: the
-    sharded execution of Mamba-2 and of whisper's encoder and
-    cross-attention is ROADMAP item 10e.2."""
-    ctx = context()
-    if ctx is not None and ctx.mesh.size > 1:
-        raise NotImplementedError(
-            f"{what} does not run sharded yet (ROADMAP item 10e.2)")
 
 
 # --------------------------------------------------------------------------

@@ -66,7 +66,9 @@ def one_torch_thread():
 #: qwen1.5-4b's f32 smoke parameters (`save_tree`) beside their
 #: unsharded prefill logits (under "ckpt/prefill"). Under the vision stub
 #: the prefill takes `patches`' embeddings (split as the tokens) first,
-#: and the cap and decode positions count them
+#: and the cap and decode positions count them; under the audio stub the
+#: prefill encodes `patches`' frames (split as the tokens), which are
+#: encoded once more for the decode steps' `enc_out`
 REF = """
 import os, sys, json, dataclasses
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
@@ -96,6 +98,9 @@ for tag, arch, cf, shape, axes, fsdp in cases:
         extra = np.random.default_rng(SEED + 1).standard_normal(
             (B, cfg.num_patches, cfg.d_model)).astype(np.float32)
         npre = cfg.num_patches
+    elif cfg.frontend == "audio_stub":
+        extra = np.random.default_rng(SEED + 1).standard_normal(
+            (B, cfg.enc_seq_len, cfg.d_model)).astype(np.float32)
     mesh = make_test_mesh(tuple(shape), tuple(axes))
     with jax.set_mesh(mesh):
         p = jax.device_put(params, S.param_shardings(cfg, mesh, fsdp=fsdp))
@@ -105,12 +110,14 @@ for tag, arch, cf, shape, axes, fsdp in cases:
                 mesh, S.batch_spec(mesh, B, 2)))
         pre = jax.jit(lambda p, t, e: m.prefill(p, Batch(t, t, e),
                                                 cap=npre + S_LEN + 4))
-        dec = jax.jit(lambda p, t, c, pos: m.decode_step(p, t, c, pos))
+        dec = jax.jit(lambda p, t, c, pos, e: m.decode_step(p, t, c, pos,
+                                                             e))
         lg, c = pre(p, jax.device_put(jnp.asarray(tok[:, :T0]), bsh), extra)
         res[tag + "/prefill"] = np.asarray(lg)
+        enc = jax.jit(m.encode)(p, extra) if cfg.n_enc_layers else None
         for t in range(T0, S_LEN):
             lg, c = dec(p, jax.device_put(jnp.asarray(tok[:, t:t + 1]),
-                                          bsh), c, jnp.int32(npre + t))
+                                          bsh), c, jnp.int32(npre + t), enc)
             res[f"{tag}/step{t}"] = np.asarray(lg)
 if len(sys.argv) > 7:
     from repro.checkpoint import save_tree
@@ -174,18 +181,23 @@ def cpu_mesh(shape, axes):
 
 
 def patches(cfg):
-    """REF's patch embeddings [B, P, d] under the vision stub, else None."""
-    if cfg.frontend != "vision_stub":
+    """REF's stub embeddings, drawn from SEED + 1: the patches [B, P, d]
+    under the vision stub, the frames [B, Se, d] under the audio stub,
+    else None."""
+    n = {"vision_stub": cfg.num_patches,
+         "audio_stub": cfg.enc_seq_len}.get(cfg.frontend)
+    if n is None:
         return None
     return torch.from_numpy(np.random.default_rng(SEED + 1).standard_normal(
-        (B, cfg.num_patches, cfg.d_model)).astype(np.float32))
+        (B, n, cfg.d_model)).astype(np.float32))
 
 
 def port_sharded_run(cfg, params, shape, axes, fsdp, calls_to=S_LEN):
     """The port's sharded prefill (after `patches`, under the vision
-    stub) and teacher-forced decode (up to position `calls_to`) on
-    `["cpu"] * n` of full `params`, or of already sharded ones where
-    `fsdp` is None: {call: full logits as numpy}."""
+    stub; encoding them, under the audio stub, whose decode steps take
+    them encoded once more) and teacher-forced decode (up to position
+    `calls_to`) on `["cpu"] * n` of full `params`, or of already sharded
+    ones where `fsdp` is None: {call: full logits as numpy}."""
     mesh = cpu_mesh(shape, axes)
     model = Model(cfg)
     sharded = params if fsdp is None else SP.shard_tree(
@@ -193,7 +205,7 @@ def port_sharded_run(cfg, params, shape, axes, fsdp, calls_to=S_LEN):
     tok = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (B, S_LEN)).astype(np.int32)).long()
     extra = patches(cfg)
-    npre = 0 if extra is None else extra.shape[1]
+    npre = 0 if cfg.frontend != "vision_stub" else extra.shape[1]
     spec = S.batch_spec(mesh, B)
     ways = int(np.prod([mesh.shape[a] for a in S.batch_axes(mesh)])) \
         if spec[0] is not None else 1
@@ -203,8 +215,9 @@ def port_sharded_run(cfg, params, shape, axes, fsdp, calls_to=S_LEN):
         lg, c = model.prefill(p, Batch(t[:, :T0], t[:, :T0], e),
                               cap=npre + S_LEN + 4)
         out["prefill"] = lg
+        enc = model.encode(p, e) if cfg.n_enc_layers else None
         for i in range(T0, calls_to):
-            lg, c = model.decode_step(p, t[:, i:i + 1], c, npre + i)
+            lg, c = model.decode_step(p, t[:, i:i + 1], c, npre + i, enc)
             out[f"step{i}"] = lg
         return out
     with torch.no_grad():

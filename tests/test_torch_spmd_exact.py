@@ -6,13 +6,14 @@ shards of a tree must gather back to it bit for bit, a point's
 parameter bytes must be `launch.dryrun.local_bytes` of `param_specs` and
 its cache bytes `cache_spec`'s share, the collectives must count what
 the formula in `spmd.py` says, a point that raises must make `run`
-raise within its timeout, the block kinds outside the serving slice
-must raise under a mesh of more than one point, and the resharding
+raise within its timeout, and the resharding
 restore must place a checkpoint's leaves as their shards (the
 counterpart of the reference's `test_elastic_reshard_restore`). The
 parity of sharded prefill and decode with the reference's sharded run
 is in tests/test_torch_spmd.py, tests/test_torch_spmd_archs.py,
-tests/test_torch_spmd_mla.py and tests/test_torch_spmd_vlm.py."""
+tests/test_torch_spmd_mla.py, tests/test_torch_spmd_vlm.py,
+tests/test_torch_spmd_ssm.py, tests/test_torch_spmd_hybrid.py and
+tests/test_torch_spmd_encdec.py."""
 import dataclasses
 import sys
 import threading
@@ -70,15 +71,27 @@ def _ways(mesh, batch):
     return n
 
 
-def _serve_calls(model, params, tok, cap):
+def _serve_calls(model, params, tok, cap, frames=None):
     """A prefill of T0 tokens, then STEPS decode steps: (the logits of
-    each call, the caches)."""
-    lg, c = model.prefill(params, Batch(tok[:, :T0], tok[:, :T0]), cap=cap)
+    each call, the caches). Whisper's prefill encodes `frames`, which
+    are encoded once more for the decode steps, as `serve.generate`
+    does."""
+    lg, c = model.prefill(params, Batch(tok[:, :T0], tok[:, :T0], frames),
+                          cap=cap)
+    enc = model.encode(params, frames) if frames is not None else None
     out = [lg[:, -1]]
     for i in range(T0, T0 + STEPS):
-        lg, c = model.decode_step(params, tok[:, i:i + 1], c, i)
+        lg, c = model.decode_step(params, tok[:, i:i + 1], c, i, enc)
         out.append(lg[:, -1])
     return out, c
+
+
+def _frames(cfg):
+    """Whisper's stub frames [B, Se, d] (seeded), else None."""
+    if cfg.frontend != "audio_stub":
+        return None
+    return torch.randn((B, cfg.enc_seq_len, cfg.d_model),
+                       generator=torch.Generator().manual_seed(2))
 
 
 @pytest.mark.parametrize("fsdp", (True, False))
@@ -128,12 +141,17 @@ def test_init_sharded_equals_init_then_shard():
 @pytest.mark.parametrize("arch,shape", (
     ("qwen1.5-4b", (2, 2)), ("qwen1.5-4b", (1, 4)),
     ("mixtral-8x7b", (2, 2)), ("command-r-35b", (1, 2)),
-    ("deepseek-v2-lite-16b", (2, 2)), ("deepseek-v2-lite-16b", (1, 4))))
+    ("deepseek-v2-lite-16b", (2, 2)), ("deepseek-v2-lite-16b", (1, 4)),
+    ("mamba2-370m", (2, 2)), ("mamba2-370m", (1, 4)),
+    ("jamba-1.5-large-398b", (2, 2)), ("whisper-base", (2, 2)),
+    ("whisper-base", (1, 4))))
 def test_cache_bytes_are_cache_spec_share(arch, shape):
     """Where the heads split whole, a point's caches after a prefill
     hold `cache_spec`'s local share (the port splits kv heads where
     `cache_spec` splits head_dim: the same bytes; MLA's latent and rope
-    caches are split by their columns, as `cache_spec` splits them)."""
+    caches are split by their columns, a Mamba layer's conv window by its
+    channels and its SSM state by its heads, as `cache_spec` splits
+    them)."""
     cfg = _f32(arch)
     mesh = _mesh(shape, ("data", "model"))
     model = Model(cfg)
@@ -143,9 +161,12 @@ def test_cache_bytes_are_cache_spec_share(arch, shape):
                         generator=torch.Generator().manual_seed(1))
     cap = T0 + STEPS + 4
     toks = SP.shard_leaf(tok, S.batch_spec(mesh, B), mesh)
+    frames = _frames(cfg)
+    if frames is not None:
+        frames = SP.shard_leaf(frames, S.batch_spec(mesh, B, 2), mesh)
     with torch.no_grad():
-        out = SP.run(mesh, lambda p, t: serve.cache_bytes(
-            _serve_calls(model, p, t, cap)[1]), params, toks,
+        out = SP.run(mesh, lambda p, t, f: serve.cache_bytes(
+            _serve_calls(model, p, t, cap, f)[1]), params, toks, frames,
             batch_ways=_ways(mesh, B), timeout=60)
     whole = model.init_cache(B, cap, "meta")
     want = local_bytes(whole, S.cache_spec(cfg, mesh, B), mesh)
@@ -274,6 +295,164 @@ def test_mla_layer_collectives_match_formula(shape, fsdp, cached):
                                cap if cached else None)
     torch.testing.assert_close(SP.gather_results(mesh, spec, parts), want,
                                rtol=2e-5, atol=2e-5)
+
+
+def _layer(tree, specs, r=0):
+    """Repetition `r` of a stacked slot's leaves, and their specs with
+    the stacked dim dropped."""
+    return ({k: v[r] for k, v in tree.items()},
+            {k: P(*tuple(v)[1:]) for k, v in specs.items()})
+
+
+def _mamba_formula(cfg, mesh, fsdp, calls):
+    """spmd.py's counts for Mamba-2 layers that split over "model":
+    (all_reduce calls, all_reduce bytes, all_gather calls, all_gather
+    bytes) summed over the points, for `calls` [(local batch rows,
+    sequence length), ...] (f32)."""
+    mb, d = cfg.mamba, cfg.d_model
+    tp, dp = mesh.shape["model"], mesh.shape["data"]
+    e, d_inner = 4, mb.expand * d
+    c = d_inner + 2 * mb.d_state
+    w = d_inner + c + d_inner // mb.head_dim
+    ar = ar_b = ag = ag_b = 0
+    for b, s in calls:
+        ag += 2
+        ag_b += (tp - 1) * e * b * s * (w + c) // tp
+        ar += 1
+        ar_b += (tp - 1) * e * b * s * d
+        if fsdp and dp > 1:
+            ag += 2
+            ag_b += (dp - 1) * e * d * (w + d_inner) // (dp * tp)
+    n = mesh.size
+    return ar * n, ar_b * n, ag * n, ag_b * n
+
+
+@pytest.mark.parametrize("shape,fsdp,cached", (
+    ((2, 2), True, True), ((2, 2), False, True), ((1, 4), False, True),
+    ((2, 2), True, False)))
+def test_mamba_layer_collectives_match_formula(shape, fsdp, cached):
+    """One Mamba-2 layer of mamba2-370m's smoke config, a prefill of T0
+    tokens into its cache and STEPS decode steps on every point (or,
+    without a cache, one call over all T0 + STEPS tokens, as the loss
+    runs it): `spmd.COMM` against the formula of spmd.py's note (in_proj's
+    output and the conv's gathered, out_proj's sum; FSDP's gathers), each
+    point's conv and SSM caches `cache_spec`'s share, and the layer's
+    output against the unsharded layer's."""
+    from repro_torch.launch.dryrun import local_bytes as lb
+    from repro_torch.models import layers as L
+    cfg = _f32("mamba2-370m")
+    mesh = _mesh(shape, ("data", "model"))
+    model = Model(cfg)
+    mixer, specs = _layer(
+        model.init(torch.Generator().manual_seed(0))["layers"][0]["mixer"],
+        S.param_specs(cfg, mesh, fsdp=fsdp)["layers"][0]["mixer"])
+    x = torch.randn((B, T0 + STEPS, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+
+    def layer(p, x):
+        if not cached:
+            return L.mamba2(p, x, cfg.mamba)[0], 0
+        c = model._empty_cache_slot("mamba", x.shape[0], 1, "cpu")
+        y, c = L.mamba2(p, x[:, :T0], cfg.mamba, c)
+        out = [y]
+        for i in range(T0, T0 + STEPS):
+            y, c = L.mamba2(p, x[:, i:i + 1], cfg.mamba, c)
+            out.append(y)
+        return torch.cat(out, dim=1), serve.cache_bytes(
+            {"prefix": [c], "slots": []})
+    spec = S.batch_spec(mesh, B, 2)
+    ways = _ways(mesh, B)
+    SP.reset_counts()
+    with torch.no_grad():
+        parts = SP.run(mesh, layer, SP.shard_tree(mixer, specs, mesh),
+                       SP.shard_leaf(x, spec, mesh), batch_ways=ways,
+                       timeout=60)
+        want = layer(mixer, x)[0]
+    got = (SP.COMM["all_reduce"], SP.COMM["all_reduce_bytes"],
+           SP.COMM["all_gather"], SP.COMM["all_gather_bytes"])
+    b = B // ways
+    calls = [(b, T0)] + [(b, 1)] * STEPS if cached else [(b, T0 + STEPS)]
+    assert got == _mamba_formula(cfg, mesh, fsdp, calls)
+    torch.testing.assert_close(SP.gather_results(
+        mesh, spec, [y for y, _ in parts]), want, rtol=2e-5, atol=2e-5)
+    if cached:
+        whole = model.init_cache(B, 1, "meta")      # stacked [n_reps]
+        share = lb(whole, S.cache_spec(cfg, mesh, B), mesh) // model.n_reps
+        assert share < serve.cache_bytes(whole) // model.n_reps
+        assert [n for _, n in parts] == [share] * mesh.size
+
+
+def _whisper_formula(cfg, mesh, fsdp, calls, frames):
+    """spmd.py's counts for whisper whose heads and d_ff split over
+    "model" and whose vocabulary does not (whole on every point: no
+    embedding sum, no logits gather): (all_reduce calls, all_reduce
+    bytes, all_gather calls, all_gather bytes) summed over the points,
+    for decoder `calls` [(local batch rows, sequence length), ...] and
+    encoder calls `frames` [(local batch rows, frames), ...] (f32)."""
+    a, d, v = cfg.attn, cfg.d_model, cfg.vocab_size
+    tp, dp = mesh.shape["model"], mesh.shape["data"]
+    e, f = 4, cfg.d_ff
+    hq, hk = a.num_heads * a.head_dim, a.num_kv_heads * a.head_dim
+    attn = 2 * d * hq + 2 * d * hk
+    ar = ar_b = ag = ag_b = 0
+    gather = fsdp and dp > 1
+    for b, se in frames:
+        ag += 1
+        ag_b += (tp - 1) * e * b * se * d // tp
+        ar += 2 * cfg.n_enc_layers
+        ar_b += 2 * cfg.n_enc_layers * (tp - 1) * e * b * se * d
+        if gather:
+            ag += 1 + 6 * cfg.n_enc_layers
+            ag_b += (dp - 1) * e * (d * d + cfg.n_enc_layers
+                                    * (attn + 2 * d * f)) // (dp * tp)
+    for b, s in calls:
+        ar += 3 * cfg.n_layers
+        ar_b += 3 * cfg.n_layers * (tp - 1) * e * b * s * d
+        if gather:
+            ag += 10 * cfg.n_layers + 1
+            ag_b += (dp - 1) * e * (cfg.n_layers * (2 * attn + 2 * d * f)
+                                    // (dp * tp) + d * v // dp)
+    n = mesh.size
+    return ar * n, ar_b * n, ag * n, ag_b * n
+
+
+@pytest.mark.parametrize("fsdp", (True, False))
+def test_whisper_collectives_match_formula(fsdp):
+    """whisper's smoke config with a vocabulary of 515 rows, which 2 does
+    not divide (as whisper-base's 51,865 divides neither 2 nor 4), on
+    (2, 2): the embedding and the LM head stay whole (a plain lookup, no
+    logits gather), `spmd.COMM` of a prefill (which encodes), an encode
+    and STEPS decode steps against the formula of spmd.py's note, and
+    the logits against the unsharded run's."""
+    cfg = dataclasses.replace(_f32("whisper-base"), vocab_size=515)
+    mesh = _mesh((2, 2), ("data", "model"))
+    model = Model(cfg)
+    full = model.init(torch.Generator().manual_seed(0))
+    specs = S.param_specs(cfg, mesh, fsdp=fsdp)
+    assert specs["embed"] == P(None, None)
+    assert specs["unembed"] == (P("data", None) if fsdp else P(None, None))
+    tok = torch.randint(0, cfg.vocab_size, (B, T0 + STEPS),
+                        generator=torch.Generator().manual_seed(1))
+    frames = _frames(cfg)
+    SP.reset_counts()
+    with torch.no_grad():
+        parts = SP.run(mesh, lambda p, t, f: _serve_calls(model, p, t, 32,
+                                                          f)[0],
+                       SP.shard_tree(full, specs, mesh),
+                       SP.shard_leaf(tok, S.batch_spec(mesh, B), mesh),
+                       SP.shard_leaf(frames, S.batch_spec(mesh, B, 2), mesh),
+                       batch_ways=2, timeout=60)
+        want = _serve_calls(model, full, tok, 32, frames)[0]
+    got = (SP.COMM["all_reduce"], SP.COMM["all_reduce_bytes"],
+           SP.COMM["all_gather"], SP.COMM["all_gather_bytes"])
+    b = B // 2
+    assert got == _whisper_formula(
+        cfg, mesh, fsdp, [(b, T0)] + [(b, 1)] * STEPS,
+        [(b, cfg.enc_seq_len)] * 2)
+    spec = S.batch_spec(mesh, B)
+    for i, w in enumerate(want):
+        torch.testing.assert_close(SP.gather_results(
+            mesh, spec, [p[i] for p in parts]), w, rtol=2e-4, atol=2e-4)
 
 
 def _respec(specs, names, tail):
@@ -451,25 +630,10 @@ def test_collective_outside_run_raises():
         SP.all_reduce(torch.ones(2), "model")
 
 
-@pytest.mark.parametrize("arch", (
-    "mamba2-370m", "jamba-1.5-large-398b", "whisper-base"))
-def test_blocks_outside_the_slice_raise_under_a_mesh(arch):
-    """Mamba-2 and whisper's encoder raise under a mesh of two points,
-    naming ROADMAP item 10e.2; on a mesh of one point they serve as
-    unsharded."""
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="10e.2"):
-        serve.serve_config(cfg, 2, 8, 1, "cpu",
-                           mesh=_mesh((1, 2), ("data", "model")))
-    one = serve.serve_config(cfg, 2, 8, 1, "cpu",
-                             mesh=_mesh((1, 1), ("data", "model")))
-    ref = serve.serve_config(cfg, 2, 8, 1, "cpu")
-    assert torch.equal(one["tokens"], ref["tokens"])
-
-
 @pytest.mark.parametrize("arch", ("qwen1.5-4b", "mixtral-8x7b",
                                   "deepseek-v2-lite-16b",
-                                  "llava-next-mistral-7b"))
+                                  "llava-next-mistral-7b", "mamba2-370m",
+                                  "jamba-1.5-large-398b", "whisper-base"))
 def test_serve_config_on_a_mesh_matches_unsharded(arch):
     """The launcher on a (2, 2) mesh (parameters drawn straight into
     shards) against the unsharded launcher under the same ambient
@@ -493,6 +657,22 @@ def test_serve_config_on_a_mesh_matches_unsharded(arch):
     whole = Model(cfg).init_cache(B, got["cap"], "meta")
     assert row["caches"] == 4 * local_bytes(
         whole, S.cache_spec(cfg, mesh, B), mesh)
+
+
+@pytest.mark.parametrize("arch", ("mamba2-370m", "jamba-1.5-large-398b",
+                                  "whisper-base"))
+def test_serve_config_on_1x4_matches_unsharded(arch):
+    """The launcher on (1, 4): the Mamba-2 mixers split four ways (jamba's
+    2 kv heads leave its attention gathered), whisper one head a point;
+    the same greedy tokens as unsharded, logits within 2e-4 in f32."""
+    cfg = _f32(arch)
+    got = serve.serve_config(cfg, B, T0, STEPS, "cpu",
+                             mesh=_mesh((1, 4), ("data", "model")))
+    with set_mesh(make_test_mesh((1, 4))):
+        ref = serve.serve_config(cfg, B, T0, STEPS, "cpu")
+    assert torch.equal(got["tokens"], ref["tokens"])
+    for a, b in zip(got["logits"], ref["logits"]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
 
 
 def test_parse_mesh():

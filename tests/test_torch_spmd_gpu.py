@@ -13,12 +13,14 @@ tokens, fed the unsharded run's greedy tokens (teacher forcing), under
 the mesh's abstract twin (the MoE's groups). Small configs at K8's head
 size 128: bf16 with K8 on every point's heads, within bounds measured
 on the CPU with K8's plain version (`BF16_MAX_ABS`); a MoE in f32 with
-dense attention ("auto"), within the model tests' 2e-4 / 3e-4. Then two
-zoo configs at their published widths, cut in depth (`ZOO`): deepseek-
-v2-lite-16b's MLA (K8 at (192, 128) on each point's heads, the latent
-and rope caches gathered) and llava-next-mistral-7b's patch prefix, in
-bf16 with the routing replayed for deepseek (`chip_smoke.sharded_gap`),
-within bounds measured the same way (`ZOO_BOUNDS`)."""
+dense attention ("auto"), within the model tests' 2e-4 / 3e-4. Then four
+zoo configs at their published widths (`ZOO`): deepseek-v2-lite-16b's
+MLA (K8 at (192, 128) on each point's heads, the latent and rope caches
+gathered) and llava-next-mistral-7b's patch prefix, cut in depth, and
+mamba2-370m's Mamba-2 mixers and whisper-base's encoder and
+cross-attention, uncut, in bf16 with the routing replayed for deepseek
+(`chip_smoke.sharded_gap`), within bounds measured the same way
+(`ZOO_BOUNDS`)."""
 import dataclasses
 import importlib.util
 import pathlib
@@ -64,16 +66,21 @@ B, S_LEN, G = 4, 96, 6
 BF16_MAX_ABS, BF16_MEAN_ABS = 0.12, 0.02
 #: arch -> the layers its published config is cut to: deepseek's dense
 #: first layer and two MoE layers (so the shared experts' two stacked
-#: layers split one a point over "model"), llava's first four
-ZOO = {"deepseek-v2-lite-16b": 3, "llava-next-mistral-7b": 4}
+#: layers split one a point over "model"), llava's first four;
+#: mamba2-370m and whisper-base uncut
+ZOO = {"deepseek-v2-lite-16b": 3, "llava-next-mistral-7b": 4,
+       "mamba2-370m": 48, "whisper-base": 6}
 #: arch -> (max |d|, mean |d|) bounds of its bf16 gap from the unsharded
 #: run (`_zoo_gap`), measured on the CPU (K8's plain version, `_zoo_gap`
 #: on ["cpu"] * 4 at B, S_LEN and G) at max |d| 0.0625 and mean 0.0088
-#: (deepseek, routing replayed) and 0.109 and 0.0163 (llava, its 576
-#: patches first); the bounds leave about three times that, as
-#: `BF16_MAX_ABS` does
+#: (deepseek, routing replayed), 0.109 and 0.0163 (llava, its 576
+#: patches first), 0.184 and 0.0302 (mamba2, its mixers' two gathers
+#: and out_proj's sum) and 0.0195 and 0.0029 (whisper, its 1500 stub
+#: frames); the bounds leave about three times that, as `BF16_MAX_ABS`
+#: does
 ZOO_BOUNDS = {"deepseek-v2-lite-16b": (0.19, 0.027),
-              "llava-next-mistral-7b": (0.33, 0.05)}
+              "llava-next-mistral-7b": (0.33, 0.05),
+              "mamba2-370m": (0.55, 0.09), "whisper-base": (0.06, 0.009)}
 
 
 @pytest.fixture()
@@ -187,18 +194,22 @@ def _zoo_gap(cfg, mesh, device):
 @pytest.mark.parametrize("arch", list(ZOO))
 def test_zoo_config_on_one_card_matches_unsharded(arch, cuda):
     """(2, 2) over cuda:0 x 4 at published widths, cut in depth: K8 once
-    a layer a point a call (at (192, 128) for MLA), every point's
-    parameter bytes `dryrun.local_bytes` of the specs and its cache bytes
-    `cache_spec`'s share (MLA's latent split by its columns), the forced
-    logits within `ZOO_BOUNDS`."""
+    an attention layer a point a call (at (192, 128) for MLA; whisper's
+    cross-attention and encoder too, `chip_smoke.expected_launches`;
+    none for mamba2), every point's parameter bytes `dryrun.local_bytes`
+    of the specs and its cache bytes `cache_spec`'s share (MLA's latent
+    split by its columns, Mamba's conv by its channels and its SSM state
+    by its heads), the forced logits within `ZOO_BOUNDS`."""
+    import chip_smoke
     cfg = dataclasses.replace(get_config(arch), n_layers=ZOO[arch])
     mesh = make_test_mesh((2, 2), devices=[cuda] * 4)
     fa.reset_launches()
     gap, res = _zoo_gap(cfg, mesh, cuda)
-    n = cfg.n_layers
     # the unsharded run's two passes, the sharded run's two, the forced
-    assert fa.LAUNCHES["flash_prefill"] == 2 * n + 3 * 4 * n
-    assert fa.LAUNCHES["flash_decode"] == (2 * n + 3 * 4 * n) * G
+    one, each = (chip_smoke.expected_launches(cfg, G, runs)
+                 for runs in (2, 3))
+    for name in ("flash_prefill", "flash_decode"):
+        assert fa.LAUNCHES[name] == one[name] + 4 * each[name]
     specs = S.param_specs(cfg, mesh, fsdp=res["fsdp"])
     per_point = local_bytes(abstract_params(cfg), specs, mesh)
     assert [SP.tree_local_bytes(res["params"], p) for p in range(4)] \

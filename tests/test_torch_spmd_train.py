@@ -3,7 +3,8 @@ own unsharded step, on the CPU.
 
 deepseek-v2-lite-16b's and llava-next-mistral-7b's smoke configs (MLA;
 the patch prefix, its patches in the batch) on (2, 2) and (1, 4) with
-FSDP are held the same way as qwen's below.
+FSDP, and mamba2-370m's and whisper-base's (its frames in the batch) on
+(2, 2) with FSDP, are held the same way as qwen's below.
 
 qwen1.5-4b's smoke config in f32 on meshes of `["cpu"] * n`: (2, 2)
 over ("data", "model") with `fsdp` on and off, (1, 4), (2, 1, 2) over
@@ -116,16 +117,19 @@ def check_quantized(g, mine, full):
 
 
 def batch_of(cfg, device="cpu"):
-    """B x S_LEN seeded tokens, their targets shifted by one, and under
-    the vision stub seeded patch embeddings."""
+    """B x S_LEN seeded tokens, their targets shifted by one, and seeded
+    stub embeddings: patches under the vision stub, frames under the
+    audio stub."""
     rng = np.random.default_rng(SEED)
     tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S_LEN)))
     tgt = torch.roll(tok, -1, 1)
     tgt[:, -1] = -1
     extra = None
-    if cfg.frontend == "vision_stub":
+    n = {"vision_stub": cfg.num_patches,
+         "audio_stub": cfg.enc_seq_len}.get(cfg.frontend)
+    if n is not None:
         extra = torch.from_numpy(rng.standard_normal(
-            (B, cfg.num_patches, cfg.d_model)).astype(np.float32)).to(device)
+            (B, n, cfg.d_model)).astype(np.float32)).to(device)
     return Batch(tok.to(device), tgt.to(device), extra)
 
 
@@ -220,6 +224,17 @@ def test_mla_and_patch_prefix_step_matches_unsharded_step(arch, case):
     one a point; on (1, 4) the rope dims four ways) and the patch prefix
     (llava: on (1, 4) its attention gathered) under the same check."""
     check_case(case, arch=arch)
+
+
+@pytest.mark.parametrize("arch", ("mamba2-370m", "whisper-base"))
+def test_mamba_and_encoder_decoder_step_matches_unsharded_step(arch):
+    """The Mamba-2 mixer (mamba2-370m: in_proj's and the conv's outputs
+    gathered, their gradients summed over "model" before a point keeps
+    its columns; the per-head scalars' gradients summed) and whisper
+    (`frame_proj`'s columns, the encoder's and cross-attention's heads,
+    the encoder output's gradient summed over "model") on (2, 2) with
+    FSDP, under the same check."""
+    check_case("2x2", arch=arch)
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))

@@ -61,8 +61,8 @@ CASES = {"qwen1.5-4b@4x2": ("qwen1.5-4b", (4, 2), True),
 #: argv[1] a JSON list of [tag, arch, mesh shape, fsdp], argv[2] the .npz,
 #: then B, S_LEN, SEED, LR: per case the loss, the gradient norm and the
 #: parameters' leaves after one step, and the gradient's leaves (`Keep`).
-#: Under the vision stub the batch carries patch embeddings drawn from
-#: SEED + 1 (`patches`)
+#: Under a stub frontend the batch carries its embeddings drawn from
+#: SEED + 1 (`patches`: llava's patches, whisper's frames)
 REF = """
 import os, sys, json, dataclasses
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
@@ -93,9 +93,11 @@ for tag, arch, shape, fsdp in cases:
     tok = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (B, S_LEN)).astype(np.int32)
     extra = None
-    if cfg.frontend == "vision_stub":
+    n = {"vision_stub": cfg.num_patches,
+         "audio_stub": cfg.enc_seq_len}.get(cfg.frontend)
+    if n is not None:
         extra = jnp.asarray(np.random.default_rng(SEED + 1).standard_normal(
-            (B, cfg.num_patches, cfg.d_model)).astype(np.float32))
+            (B, n, cfg.d_model)).astype(np.float32))
     batch = Batch(jnp.asarray(tok), jnp.roll(jnp.asarray(tok), -1, 1),
                   extra)
     step = build_train_step(model, opt, TrainConfig(microbatches=2))
@@ -154,11 +156,14 @@ def reference(tmp_path_factory):
 
 
 def patches(cfg):
-    """REF's patch embeddings under the vision stub, else None."""
-    if cfg.frontend != "vision_stub":
+    """REF's stub embeddings: the patches under the vision stub, the
+    frames under the audio stub, else None."""
+    n = {"vision_stub": cfg.num_patches,
+         "audio_stub": cfg.enc_seq_len}.get(cfg.frontend)
+    if n is None:
         return None
     return torch.from_numpy(np.random.default_rng(SEED + 1).standard_normal(
-        (B, cfg.num_patches, cfg.d_model)).astype(np.float32))
+        (B, n, cfg.d_model)).astype(np.float32))
 
 
 @pytest.mark.parametrize("tag", list(CASES))

@@ -6,14 +6,23 @@ uncut (32 layers, 46.70 B parameters, 93.4 GB of bf16) on a (1, 4)
 
     python3 tools/serve_sharded.py [--arch mixtral-8x7b] [--mesh 1x4] \\
         [--batch 2] [--prompt-len 4080] [--gen-tokens 32]
+    python3 tools/serve_sharded.py --arch jamba-1.5-large-398b \\
+        --layers 8 --batch 4 --prompt-len 2048
+
+`--layers` cuts the published config's depth, and only jamba-1.5-large-
+398b's: its 72 layers (398 B parameters, 796 GB of bf16) fit on no four
+cards, and one 8-layer period of its pattern (one attention layer, seven
+Mamba-2 layers, the MoE on every second) at published widths is 90.3
+GB, about 22.6 GB a card on (1, 4), the smallest cut that keeps every
+block kind. Every other arch runs uncut.
 
 The parameters are drawn on cuda:0 a leaf at a time straight into their
 shards (`spmd.init_sharded`), so the whole model never exists on one
 card; then the launcher's two passes (a warm-up, then the timed one) of
 prefill and greedy decode, every point on its own thread. Prints the
 cards' names and power limits (nvidia-smi), then one JSON line: prefill
-seconds and tok/s, decode ms/token, K8's launches against layers x
-points a prefill call and a decode step, the collective counts
+seconds and tok/s, decode ms/token, K8's launches against attention
+layers x points a prefill call and a decode step, the collective counts
 (`spmd.COMM`) and, per card, the parameter bytes it holds beside
 `dryrun.local_bytes` of `param_specs` (reckoned), its cache bytes
 beside `cache_spec`'s share, and its peak memory (since the start: the
@@ -33,10 +42,16 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 
+#: the one arch whose depth `--layers` may cut (the module's note)
+CUT_ARCH = "jamba-1.5-large-398b"
+
+
 def run(arch: str, mesh_text: str, batch: int, prompt_len: int,
-        gen_tokens: int) -> dict:
-    """One sharded serve of `arch`'s published config on `mesh_text`'s
-    mesh of CUDA devices; the record the module's note describes."""
+        gen_tokens: int, layers=None) -> dict:
+    """One sharded serve of `arch`'s published config (cut to `layers`
+    layers where given) on `mesh_text`'s mesh of CUDA devices; the record
+    the module's note describes."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flashattn import ops as fa
@@ -47,6 +62,8 @@ def run(arch: str, mesh_text: str, batch: int, prompt_len: int,
     from repro_torch.parallel import sharding as S
     from repro_torch.parallel import spmd as SP
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     mesh = serve.parse_mesh(mesh_text, "cuda")
     fa.reset_launches()
     SP.reset_counts()
@@ -64,6 +81,9 @@ def run(arch: str, mesh_text: str, batch: int, prompt_len: int,
     for dev, row in res["device_bytes"].items():
         devices[dev] = {**row, "params_reckoned": reckoned * row["points"],
                         "caches_cache_spec": cache * row["points"]}
+    bytes_ok = all(r["params"] == r["params_reckoned"]
+                   and r["caches"] == r["caches_cache_spec"]
+                   for r in devices.values())
     t_pre, t_dec = res["prefill_seconds"], res["decode_seconds"]
     return {"arch": arch, "config": cfg.name, "layers": cfg.n_layers,
             "params": cfg.param_count(), "mesh": mesh_text,
@@ -74,7 +94,8 @@ def run(arch: str, mesh_text: str, batch: int, prompt_len: int,
             "prefill_tok_s": batch * prompt_len / t_pre,
             "decode_ms_per_token": t_dec / max(gen_tokens, 1) * 1e3,
             "launches": launches, "launches_expected": want,
-            "launches_ok": launches == want, "collectives": comm,
+            "launches_ok": launches == want, "bytes_ok": bytes_ok,
+            "collectives": comm,
             "finite": all(bool(torch.isfinite(x).all())
                           for x in res["logits"]),
             "sample": res["tokens"][0, :12].tolist(), "devices": devices}
@@ -87,15 +108,20 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=4080)
     ap.add_argument("--gen-tokens", type=int, default=32)
+    ap.add_argument("--layers", type=int, default=None,
+                    help=f"cut the depth ({CUT_ARCH} only)")
     args = ap.parse_args()
+    if args.layers is not None and args.arch != CUT_ARCH:
+        ap.error(f"--layers cuts {CUT_ARCH} only")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     out = run(args.arch, args.mesh, args.batch, args.prompt_len,
-              args.gen_tokens)
+              args.gen_tokens, args.layers)
     print(json.dumps({"nvidia_smi": smi.splitlines(), **out}), flush=True)
-    return 0 if out["finite"] and out["launches_ok"] else 1
+    return 0 if out["finite"] and out["launches_ok"] and out["bytes_ok"] \
+        else 1
 
 
 if __name__ == "__main__":
