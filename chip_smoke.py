@@ -246,7 +246,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              nvcc's ptxas log; a prefill line adds the kernel's device
              TFLOP/s (unmasked flops over its device time) and its shared
              memory a CTA, a decode line its device GB/s (the bytes above
-             over its device time);
+             over its device time). Also the shapes of context
+             parallelism's mesh points: qwen1.5-4b's point on (1, 8)
+             (serve-sharded-cp: 256 query rows of a 2048-token prefill
+             against its 2048 keys; decode over a point's 259 slots) and
+             on (2, 2) at batch 1 (serve-sharded-b1: decode over 16,384
+             slots, 10 heads);
+7a. lse    — K8 decode's log-sum-exp (`return_lse`, the merge of context
+             parallelism) on the card at (128, 128) and (64, 64), GQA
+             groups 1 and 4: the output and the lse against
+             `flash_plain`'s on the same inputs (the output within
+             FLASH_TOL and `decode_limit`, the lse within `LSE_TOL`, -inf
+             exactly where plain's is), then the cache cut into 2 and 4
+             slot ranges whose last holds no valid key (its lse -inf), K8
+             on each range, merged by `ops.merge_partials`, against the
+             whole-cache K8 call within `decode_limit` (DECODE_ULPS);
 8. serve   — path `serve`: `repro_torch.launch.serve.serve` runs
              qwen1.5-4b at its full config (40 layers, d_model 2560,
              random weights from seed 0) with batch 4, a 2048-token
@@ -333,14 +347,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              bound's share of each. K8 launches on the served calls,
              K1-K7 never;
 11d. serve-sharded — path `serve-sharded` (`SERVE_SHARDED`): mixtral-
-             8x7b at its published widths cut to 8 layers, sharded over
+             8x7b at its published widths cut to 4 layers, sharded over
              a (2, 2) ("data", "model") mesh of four points of the card
              through `serve.serve_config(..., mesh=...)`: the parameters
              drawn straight into their shards, every point on its own
              thread and stream, K8 on its 16 query and 4 kv heads, the
              row-parallel sums and the vocab-parallel embedding
-             all-reduced, the logits all-gathered. K8 launches 32 times
-             per prefill call and per decode step (8 layers x 4 points),
+             all-reduced, the logits all-gathered. K8 launches 16 times
+             per prefill call and per decode step (4 layers x 4 points),
              K1-K7 never; each point must hold `dryrun.local_bytes` of
              `param_specs` and `cache_spec`'s share of the caches; the
              collective counts and bytes are printed. The check: the same
@@ -355,25 +369,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              data shard alike, a group's queues where its choices agree;
              at most `SHARDED_ROUTE_SHARE` of the choices differing);
 11e. serve-sharded-mla — path `serve-sharded-mla` (`SERVE_SHARDED_MLA`):
-             deepseek-v2-lite-16b uncut at serve-deepseek's shape on
+             deepseek-v2-lite-16b at its published widths cut to 3 of
+             27 layers at serve-deepseek's shape on
              (2, 2) of four points of the card, as 11d: MLA's latent and
              rope caches hold each point's columns and are all-gathered
              over "model" before the per-head expansion, K8 (192, 128)
-             runs on each point's 8 heads (27 launches a point per
+             runs on each point's 8 heads (3 launches a point per
              prefill call and per decode step), 32 of the 64 experts a
              point; the check replays the routing within
              `SHARDED_MLA_MAX_ABS` and `SHARDED_MLA_MEAN_ABS`, its own
              routing consistent and at most `SHARDED_MLA_ROUTE_SHARE` of
              its choices differing;
 11f. serve-sharded-llava — path `serve-sharded-llava`
-             (`SERVE_SHARDED_LLAVA`): llava-next-mistral-7b uncut at
+             (`SERVE_SHARDED_LLAVA`): llava-next-mistral-7b cut to 8 of
+             32 layers at
              serve-llava's shape on (2, 2) of four points of the card:
              the patches split with the prompt, projected by each point's
              columns of `patch_proj` and all-gathered, K8 (128, 128) on
-             each point's 16/4 heads (32 launches a point a call); the
+             each point's 16/4 heads (8 launches a point a call); the
              check within `SHARDED_VLM_MAX_ABS` and `SHARDED_VLM_MEAN_ABS`;
 11g. serve-sharded-mamba2 — path `serve-sharded-mamba2`
-             (`SERVE_SHARDED_MAMBA`): mamba2-370m uncut at serve-mamba2's
+             (`SERVE_SHARDED_MAMBA`): mamba2-370m cut to 8 of 48 layers
+             at serve-mamba2's
              shape on (2, 2) of four points of the card: each point
              projects with its columns of in_proj and all-gathers, runs
              the conv on its 1,152 channels and all-gathers, the SSD and
@@ -382,14 +399,35 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              hand kernel launches; the check within `SHARDED_SSM_MAX_ABS`
              and `SHARDED_SSM_MEAN_ABS`;
 11h. serve-sharded-whisper — path `serve-sharded-whisper`
-             (`SERVE_SHARDED_WHISPER`): whisper-base uncut at
-             serve-whisper's shape on (2, 2) of four points of the card:
-             the frames split with the prompt, projected by each point's
-             columns of `frame_proj` and all-gathered, K8 (64, 64) on each
-             point's 4 of 8 heads in the encoder, the self-attention and
-             the cross-attention (24 launches a point a prefill call, 12
-             a decode step), the vocabulary whole; the check within
+             (`SERVE_SHARDED_WHISPER`): whisper-base, its encoder whole
+             and 2 of its 6 decoder layers, at serve-whisper's shape on
+             (2, 2) of four points of the card: the frames split with the
+             prompt, projected by each point's columns of `frame_proj`
+             and all-gathered, K8 (64, 64) on each point's 4 of 8 heads
+             in the encoder, the self-attention and the cross-attention
+             (16 launches a point a prefill call, 4 a decode step), the
+             vocabulary whole; the check within
              `SHARDED_ENCDEC_MAX_ABS` and `SHARDED_ENCDEC_MEAN_ABS`;
+11i. serve-sharded-cp — path `serve-sharded-cp` (`SERVE_SHARDED_CP`):
+             qwen1.5-4b uncut (20 heads, which 8 does not divide) on a
+             (1, 8) mesh of eight points of the card, context parallel:
+             the attention weights gathered over "model", each point's
+             256 of the prompt's 2048 query rows against the gathered k
+             and v (K8 prefill, Sq 256, Skv 2048), its 259 of the 2072
+             cache slots, K8 decode on them with their log-sum-exp and
+             the eight partials merged; each point's cache bytes held to
+             `cache_spec`'s share, `spmd.COMM` to `dense_serve_comm` (the
+             formula of `parallel/spmd.py`'s note) and K8's calls to
+             their (Sq, Skv); the check within `SHARDED_CP_MAX_ABS` and
+             `SHARDED_CP_MEAN_ABS`;
+11j. serve-sharded-b1 — path `serve-sharded-b1` (`SERVE_SHARDED_B1`):
+             qwen1.5-4b uncut at batch 1, a 32,744-token prompt, 16
+             tokens (cap 32,768, its published context) on (2, 2) of four
+             points: the batch whole on each data point, the cache's
+             length split over "data" and its kv heads over "model" (K8
+             decode over 16,384 slots and 10 heads a point, the two data
+             points' partials merged); held as 11i within
+             `SHARDED_B1_MAX_ABS` and `SHARDED_B1_MEAN_ABS`;
 12. train  — path `train`: qwen1.5-4b at its full config (3.95 B
              parameters, bf16, random weights from seed 0) through
              `train.step.build_train_step` with AdamW (cosine schedule,
@@ -458,9 +496,11 @@ path's count, the `dist-*` (`dist-pod` too), `launch-reports`,
 `torch-tpch`, `serve-mixtral`,
 `serve-mamba2`, `serve-whisper`, `serve-llava`, `serve-sharded`,
 `serve-sharded-mla`, `serve-sharded-llava`, `serve-sharded-mamba2`,
-`serve-sharded-whisper`, `train`, `train-ft` and `train-sharded` paths'
+`serve-sharded-whisper`, `serve-sharded-cp`, `serve-sharded-b1`, `train`,
+`train-ft` and `train-sharded` paths'
 included (K8's (128, 128) rows count `serve-mixtral`'s, `serve-llava`'s,
-`serve-sharded`'s and `serve-sharded-llava`'s launches there, its MLA
+`serve-sharded`'s, `serve-sharded-llava`'s, `serve-sharded-cp`'s and
+`serve-sharded-b1`'s launches there, its MLA
 rows `serve-sharded-mla`'s, its (64, 64) rows `serve-sharded-whisper`'s;
 every kernel 0 on `torch-tpch`, `serve-mamba2`, `serve-sharded-mamba2`,
 `train`, `train-ft` and `train-sharded`); `plain_device` says where
@@ -483,6 +523,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -622,17 +663,16 @@ SERVE_PATHS = {
                                       TF_ENCDEC_MEAN_ABS)),
     "serve-llava": (SERVE_LLAVA, (TF_VLM_MAX_ABS, TF_VLM_MEAN_ABS)),
 }
-#: serve-sharded: mixtral-8x7b at its published widths cut to 8 of its 32
-#: layers (11.87 B parameters, 23.74 GB of bf16), served sharded on a
-#: (2, 2) ("data", "model") mesh of four points of the card (`cuda:0` x
-#: 4, `spmd.run`: a thread and a stream a point) at serve-mixtral's
-#: batch, prompt and tokens. fsdp off (`dryrun.serve_fsdp`): each point
-#: holds half the model (its 16 of 32 query heads, 4 of 8 kv heads, 4 of
-#: 8 experts, 16,000 of the 32,000 vocabulary rows and columns), so the
-#: data axis of 2 holds it twice: 47.5 GB of shards on the card, 55 GB
-#: at the draws' peak (one full 7.5 GB leaf of stacked experts beside
-#: the shards), the unsharded run's 23.74 GB freed before
-SERVE_SHARDED = {"arch": "mixtral-8x7b", "config": "full", "layers": 8,
+#: serve-sharded: mixtral-8x7b at its published widths cut to 4 of its 32
+#: layers (5.9 B parameters, 11.8 GB of bf16; 8 layers until the smoke
+#: outgrew its time limit), served sharded on a (2, 2) ("data",
+#: "model") mesh of four points of the card (`cuda:0` x 4, `spmd.run`: a
+#: thread and a stream a point) at serve-mixtral's batch, prompt and
+#: tokens. fsdp off (`dryrun.serve_fsdp`): each point holds half the
+#: model (its 16 of 32 query heads, 4 of 8 kv heads, 4 of 8 experts,
+#: 16,000 of the 32,000 vocabulary rows and columns), so the data axis
+#: of 2 holds it twice, the unsharded run's weights freed before
+SERVE_SHARDED = {"arch": "mixtral-8x7b", "config": "full", "layers": 4,
                  "batch": 2, "prompt_len": 4080, "gen_tokens": 32,
                  "mesh": (2, 2)}
 #: Its check: the sharded run fed the unsharded greedy run's tokens,
@@ -643,8 +683,8 @@ SERVE_SHARDED = {"arch": "mixtral-8x7b", "config": "full", "layers": 8,
 #: CPU (`tools/tf_gap.py --arch mixtral-8x7b --mesh 2x2 --device cpu`,
 #: K8's plain version, full width, batch 2, prompt 256, 6 steps),
 #: replayed: max |d| 0.0469 / 0.0664 / 0.0674 and mean 0.0080 / 0.0110
-#: / 0.0114 at 1 / 2 / 4 layers; at the x1.25 a doubling the other MoE
-#: bounds assume, about 0.11 / 0.018 at 8. Routing on its own it lies
+#: / 0.0114 at 1 / 2 / 4 layers (4 layers served; at 8, as served
+#: before, the run read 0.0859 / 0.0136). Routing on its own it lies
 #: 0.0547 / 0.1133 / 0.125 and 0.0085 / 0.0158 / 0.0189 away (reported,
 #: not gated). The bounds are serve-mixtral's, over twice that; the
 #: logits have std ~1.3 at init: a wrong shard, head, expert or sum
@@ -670,16 +710,19 @@ SHARDED_ROUTE_SHARE = 0.15
 #: about 72 GB at the draws' peak (one full 9.6 GB leaf of stacked
 #: experts beside the shards), the unsharded run's 31.4 GB freed first.
 #: K8 at (192, 128) on each point's 8 heads, against the whole latent
-#: and rope caches gathered over "model"
+#: and rope caches gathered over "model". Served cut to 3 of the 27
+#: layers (the dense first and 2 MoE layers, whose shared experts'
+#: stacked layers split one a point; uncut until the smoke outgrew its
+#: time limit): a point then holds about a ninth of the above
 SERVE_SHARDED_MLA = {"arch": "deepseek-v2-lite-16b", "config": "full",
-                     "batch": 4, "prompt_len": 2048, "gen_tokens": 32,
-                     "mesh": (2, 2)}
+                     "layers": 3, "batch": 4, "prompt_len": 2048,
+                     "gen_tokens": 32, "mesh": (2, 2)}
 #: Its check, set before the path's first card run. On the CPU
 #: (`tools/tf_gap.py --arch deepseek-v2-lite-16b --mesh 2x2 --device
 #: cpu`, K8's plain version, full width, batch 2, prompt 256, 6 steps),
 #: replayed: max |d| 0.0352 / 0.0471 / 0.0612 and mean 0.0056 / 0.0078 /
 #: 0.0099 at 1 / 2 / 4 layers; at x1.3 a doubling, about 0.13 / 0.019 at
-#: 27. The bounds are serve-deepseek's, about twice that
+#: 27. The bounds are serve-deepseek's, about twice the uncut reckoning
 SHARDED_MLA_MAX_ABS = 0.25
 SHARDED_MLA_MEAN_ABS = 0.04
 #: Its own routing: 5.5% / 7.3% of (token, layer) choices differ at 2 / 4
@@ -697,10 +740,12 @@ SHARDED_MLA_ROUTE_SHARE = 0.5
 #: serve-llava's batch, patches, prompt and tokens on a (2, 2) mesh of
 #: four points of the card, fsdp off: 29 GB of shards on the card. The
 #: patch prefix projected by each point's columns of `patch_proj` and
-#: all-gathered; K8 at (128, 128) on each point's 16 query and 4 kv heads
+#: all-gathered; K8 at (128, 128) on each point's 16 query and 4 kv
+#: heads. Served cut to 8 of the 32 layers (uncut until the smoke
+#: outgrew its time limit)
 SERVE_SHARDED_LLAVA = {"arch": "llava-next-mistral-7b", "config": "full",
-                       "batch": 4, "prompt_len": 1472, "gen_tokens": 32,
-                       "mesh": (2, 2)}
+                       "layers": 8, "batch": 4, "prompt_len": 1472,
+                       "gen_tokens": 32, "mesh": (2, 2)}
 #: Its check, set before the path's first card run. On the CPU
 #: (`tools/tf_gap.py --arch llava-next-mistral-7b --mesh 2x2 --device
 #: cpu`, full width, batch 2, the 576 patches and a 256-token prompt, 6
@@ -719,10 +764,12 @@ SHARDED_VLM_MEAN_ABS = 0.08
 #: columns, 1,152 of the conv's 2,304 channels, 1,024 of out_proj's 2,048
 #: rows (16 heads) and 25,140 of the 50,280 tied embedding rows, about
 #: 0.39 GB; its caches 2 rows x (3 x 1,152 conv entries in bf16 + 16 x 64
-#: x 128 SSM entries in f32) a layer, 50.9 MB in all. No hand kernel
+#: x 128 SSM entries in f32) a layer, 50.9 MB in all. No hand kernel.
+#: Served cut to 8 of the 48 layers (uncut until the smoke outgrew its
+#: time limit)
 SERVE_SHARDED_MAMBA = {"arch": "mamba2-370m", "config": "full",
-                       "batch": 4, "prompt_len": 2048, "gen_tokens": 32,
-                       "mesh": (2, 2)}
+                       "layers": 8, "batch": 4, "prompt_len": 2048,
+                       "gen_tokens": 32, "mesh": (2, 2)}
 #: Its check, set before the path's first card run: the sharded run fed
 #: the unsharded greedy run's tokens, against its logits. They differ
 #: where out_proj's partial products are rounded to bf16 on each point
@@ -732,7 +779,8 @@ SERVE_SHARDED_MAMBA = {"arch": "mamba2-370m", "config": "full",
 #: 0.0391 and mean 0.0018 / 0.0036 / 0.0063 at 1 / 2 / 4 layers, then
 #: 0.0752 / 0.102 / 0.182 and 0.0101 / 0.0162 / 0.0296 at 8 / 16 / 48
 #: (uncut): the mean about x1.6 a doubling. The bounds are
-#: serve-mamba2's, about twice the uncut reading; the logits have std
+#: serve-mamba2's, about twice the uncut reading (over four times the
+#: 8-layer one, as served); the logits have std
 #: ~0.64 at init: a head, channel or state on the wrong point moves them
 #: by about that
 SHARDED_SSM_MAX_ABS = 0.35
@@ -745,10 +793,12 @@ SHARDED_SSM_MEAN_ABS = 0.06
 #: point's 256 columns of `frame_proj` and all-gathered; K8 at (64, 64)
 #: on each point's 4 of 8 heads in the encoder, the self-attention and
 #: the cross-attention; the vocabulary (51,865 divides neither 2 nor 4)
-#: whole on every point: the embedding a plain lookup, no logits gather
+#: whole on every point: the embedding a plain lookup, no logits gather.
+#: Served with 2 of its 6 decoder layers (the encoder's 6 whole; uncut
+#: until the smoke outgrew its time limit)
 SERVE_SHARDED_WHISPER = {"arch": "whisper-base", "config": "full",
-                         "batch": 16, "prompt_len": 32, "gen_tokens": 96,
-                         "mesh": (2, 2)}
+                         "layers": 2, "batch": 16, "prompt_len": 32,
+                         "gen_tokens": 96, "mesh": (2, 2)}
 #: Its check, set before the path's first card run. They differ where
 #: the row-parallel sums round (wo's in the encoder, the self- and the
 #: cross-attention, w2's) and K8 takes 4 heads a call. On the CPU
@@ -763,7 +813,58 @@ SERVE_SHARDED_WHISPER = {"arch": "whisper-base", "config": "full",
 #: them by about that
 SHARDED_ENCDEC_MAX_ABS = 0.06
 SHARDED_ENCDEC_MEAN_ABS = 0.008
-#: phases 11d-11h in order: path -> (spec, its check's (max, mean) bounds
+#: serve-sharded-cp: qwen1.5-4b uncut (40 layers, d_model 2560, 20/20
+#: heads of 128, d_ff 6912, vocabulary 151,936; 3.95 B parameters) at
+#: batch 4, a 2048-token prompt and 16 tokens on a (1, 8) mesh of eight
+#: points of the card, the production mesh's model axis (ROADMAP, the
+#: launch layer: (32, 8)). 8 divides neither 20 heads: the reference lays
+#: attention out by sequence ("seq"). fsdp off: a point holds an eighth
+#: of every weight (its columns of wq, wk, wv, w1, w3 and the LM head, its
+#: rows of wo, w2 and the embedding), about 1 GB; its cache 259 of the
+#: 2072 slots, 0.42 GB (the whole cache, which each point held before the
+#: sequence split, is 3.39 GB)
+SERVE_SHARDED_CP = {"arch": "qwen1.5-4b", "config": "full", "batch": 4,
+                    "prompt_len": 2048, "gen_tokens": 16, "mesh": (1, 8),
+                    "k8_shapes": {"prefill": (256, 2048),
+                                  "decode": (1, 259)}}
+#: Its check, set before the path's first card run. They differ where w2's
+#: partial products are rounded to bf16 on each point before their f32
+#: sum, and where each point's decode output over its slots is rounded
+#: to bf16 before the merge (a point's rows and the gathers move values
+#: unchanged). On the CPU (`tools/tf_gap.py --arch qwen1.5-4b --mesh 1x8
+#: --batch 2 --prompt-len 256 --gen-tokens 8 --device cpu`, K8's plain
+#: version, full width): max |d| 0.0469 / 0.0625 / 0.0706 / 0.0781 /
+#: 0.0889 and mean 0.0071 / 0.0095 / 0.0112 / 0.0127 / 0.0137 at 1 / 2 /
+#: 4 / 8 / 16 layers: x1.14 and x1.08 a doubling by 16, about 0.10 /
+#: 0.015 at 40. The bounds are serve's (`TF_MAX_ABS`), about two and a
+#: half times that (the path's batch 4 and 16 tokens give the max more
+#: rows); the logits have std ~1.3 at init: a slot range, a row or a
+#: merge weight gone wrong moves them by a share of that
+SHARDED_CP_MAX_ABS = 0.25
+SHARDED_CP_MEAN_ABS = 0.04
+#: serve-sharded-b1: qwen1.5-4b uncut at batch 1, which the data axis of 2
+#: does not divide, a 32,744-token prompt and 16 tokens (cap 32,768,
+#: hf:Qwen/Qwen1.5-4B's max_position_embeddings) on (2, 2) of four points
+#: of the card: the batch whole on every point, the cache's length split
+#: over "data" (16,384 slots a point) and its 20 kv heads over "model" (10
+#: a point): 3.36 GB a point, where the whole batch's cache on each data
+#: point held 6.71 GB
+SERVE_SHARDED_B1 = {"arch": "qwen1.5-4b", "config": "full", "batch": 1,
+                    "prompt_len": 32744, "gen_tokens": 16, "mesh": (2, 2),
+                    "k8_shapes": {"prefill": (32744, 32744),
+                                  "decode": (1, 16384)}}
+#: Its check, set before the path's first card run (`tools/tf_gap.py --arch
+#: qwen1.5-4b --mesh 2x2 --batch 1 --prompt-len 256 --gen-tokens 6
+#: --device cpu`): max |d| 0.0488 / 0.0625 / 0.0781 / 0.0781 and mean
+#: 0.0075 / 0.0098 / 0.0115 / 0.0133 at 1 / 2 / 4 / 8 layers (wo's and
+#: w2's sums over "model", the two data points' decode partials merged),
+#: about 0.10 / 0.016 at 40 as above. The bounds are serve's, as for
+#: serve-sharded-cp: the path's 32,744-token prompt adds no rounding a
+#: token (each sum is a token's own), and its decode outputs, averages
+#: over more keys, are smaller
+SHARDED_B1_MAX_ABS = 0.25
+SHARDED_B1_MEAN_ABS = 0.04
+#: phases 11d-11j in order: path -> (spec, its check's (max, mean) bounds
 #: and, for a MoE, the most of its own routing's choices that may differ)
 SERVE_SHARDED_PATHS = {
     "serve-sharded": (SERVE_SHARDED, (SHARDED_MAX_ABS, SHARDED_MEAN_ABS,
@@ -779,6 +880,10 @@ SERVE_SHARDED_PATHS = {
                                                    None)),
     "serve-sharded-whisper": (SERVE_SHARDED_WHISPER, (
         SHARDED_ENCDEC_MAX_ABS, SHARDED_ENCDEC_MEAN_ABS, None)),
+    "serve-sharded-cp": (SERVE_SHARDED_CP, (SHARDED_CP_MAX_ABS,
+                                            SHARDED_CP_MEAN_ABS, None)),
+    "serve-sharded-b1": (SERVE_SHARDED_B1, (SHARDED_B1_MAX_ABS,
+                                            SHARDED_B1_MEAN_ABS, None)),
 }
 #: the reference's bf16 tolerance for the flash kernel
 #: (tests/test_kernels_flash.py)
@@ -790,6 +895,13 @@ FLASH_TOL = 2e-2
 #: FLASH_TOL, while a split left out or misweighted moves them by a share
 #: of their own scale, well past two ulps
 DECODE_ULPS = 2
+#: K8 decode's log-sum-exp against `flash_plain`'s: both are f32 (the
+#: kernel sums a split's exp(s - m) in another order and merges the
+#: splits), about 1e-6 apart at these magnitudes (10-20); a key left out
+#: or counted twice moves the lse by log(1 + exp(s - lse)), which for a
+#: typical key of a 2048-slot cache is about 5e-4 and grows with the key's
+#: weight
+LSE_TOL = 1e-4
 FLASH = ("flash_prefill", "flash_decode")
 #: train path: qwen1.5-4b at its published config, random weights from
 #: seed 0, batch 4 x 2048 tokens in 2 microbatches, remat, AdamW on a
@@ -902,7 +1014,15 @@ COLUMNS = ((6_000_000, KEYS_ORDERS, "orders"),
            (25, 5, "one-block"))
 
 
+#: the script's start on the host clock (`emit` stamps each phase line)
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase line gains `elapsed_s`, the seconds since
+    the script started, so the phases' share of the time limit shows."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -3384,8 +3504,8 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
         return (torch.arange(start, start + n, dtype=torch.int32,
                              device=dev)[None].expand(b, n).contiguous())
 
-    def ring(index, cap, b):          # the model's own cache positions
-        return _ring_positions(index, cap, b, dev)
+    def ring(index, cap, b, start=0, n=None):   # the model's own cache
+        return _ring_positions(index, cap, b, dev, start, n)   # positions
 
     def zeros(b, n):                  # cross-attention's positions
         return torch.zeros(b, n, dtype=torch.int32, device=dev)
@@ -3478,6 +3598,18 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
         ("whisper point cross decode", 8, 1, 1500, 4, 4, (64, 64), False,
          None, zeros(8, 1), (zeros(8, 1500), torch.ones(
              8, 1500, dtype=torch.bool, device=dev))),
+        # qwen1.5-4b's points under context parallelism: on (1, 8)
+        # (serve-sharded-cp) the last point's 256 query rows of the
+        # 2048-token prefill against the gathered 2048 keys, and decode at
+        # position 2063 over the last point's 259 of the 2072 slots; on
+        # (2, 2) at batch 1 (serve-sharded-b1) decode at position 32,759
+        # over the first data point's 16,384 slots and 10 of the 20 heads
+        ("qwen1.5-4b cp point prefill", 4, 256, 2048, 20, 20, (128, 128),
+         True, None, rows(4, 256, 1792), ring(2048, 2048, 4)),
+        ("qwen1.5-4b cp point decode", 4, 1, 259, 20, 20, (128, 128), True,
+         None, rows(4, 1, 2063), ring(2064, 2072, 4, 1813, 259)),
+        ("qwen1.5-4b b1 point decode", 1, 1, 16384, 10, 10, (128, 128),
+         True, None, rows(1, 1, 32759), ring(32760, 32768, 1, 0, 16384)),
     )
     worst = dict.fromkeys(FLASH + FLASH_MLA + FLASH_D64, 0.0)
     rep = {}
@@ -3571,6 +3703,90 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
                     "whisper encoder", "whisper cross decode"):
             rep[row] = rec
     return rep, worst
+
+
+def lse_phase(torch, fa, dev) -> dict:
+    """Phase 7a: K8 decode's `return_lse` on the card, as the module's note
+    says; returns the worst errors (the output's against `flash_plain`,
+    the lse's, and the merged ranges' against the whole-cache call, each
+    over its limit)."""
+    from repro_torch.models.layers import _ring_positions
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = {"o": 0.0, "lse": 0.0, "merged_over_limit": 0.0}
+    cases = (  # name, b, skv, h, kvh, d, window, index
+        ("qwen1.5-4b cp decode", 4, 2072, 20, 20, 128, None, 2064),
+        ("GQA 32/8 decode", 2, 2048, 32, 8, 128, None, 1500),
+        ("d64 decode", 4, 1024, 8, 8, 64, None, 1000),
+        ("d64 GQA 16/4 window 256", 2, 1024, 16, 4, 64, 256, 1000),
+    )
+    for name, b, skv, h, kvh, d, window, index in cases:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+        q, k, v = randn(b, 1, h, d), randn(b, skv, kvh, d), \
+            randn(b, skv, kvh, d)
+        kp, kval = _ring_positions(index, skv, b, dev)
+        qp = torch.full((b, 1), index - 1, dtype=torch.int32, device=dev)
+        kw = {"causal": True, "window": window}
+        o, lse = fa.flash_attention(q, k, v, qp, kp, kval, return_lse=True,
+                                    **kw)
+        po, plse = fa.flash_plain(q, k, v, qp, kp, kval, return_lse=True,
+                                  **kw)
+        torch.cuda.synchronize()
+        o_err = float((o.float() - po.float()).abs().max())
+        check(o_err <= min(FLASH_TOL, decode_limit(po)),
+              f"K8 lse {name}: o differs from flash_plain's by {o_err}")
+        check(torch.equal(torch.isinf(lse), torch.isinf(plse)),
+              f"K8 lse {name}: -inf where flash_plain's is not")
+        live = torch.isfinite(plse)
+        lse_err = float((lse[live] - plse[live]).abs().max())
+        check(lse_err <= LSE_TOL,
+              f"K8 lse {name}: lse differs from flash_plain's by {lse_err}")
+        whole = fa.flash_attention(q, k, v, qp, kp, kval, **kw)
+        rec = {"phase": "lse", "case": name,
+               "shape": {"B": b, "Skv": skv, "H": h, "KVH": kvh, "D": d},
+               "window": window, "o_err": o_err, "lse_err": lse_err,
+               "tol": {"o": min(FLASH_TOL, decode_limit(po)),
+                       "lse": LSE_TOL},
+               "ms": cuda_ms(torch, lambda: fa.flash_attention(
+                   q, k, v, qp, kp, kval, return_lse=True, **kw), 10,
+                   per=10),
+               "ms_without_lse": cuda_ms(torch, lambda: fa.flash_attention(
+                   q, k, v, qp, kp, kval, **kw), 10, per=10)}
+        worst["o"] = max(worst["o"], o_err)
+        worst["lse"] = max(worst["lse"], lse_err)
+        for ranges in (2, 4):
+            # the cursor stands before the last range: it holds no valid
+            # key (context parallelism's later points early in a decode)
+            n = skv // ranges
+            pos, valid = _ring_positions((ranges - 1) * n, skv, b, dev)
+            qp_r = torch.full((b, 1), (ranges - 1) * n - 1,
+                              dtype=torch.int32, device=dev)
+            ref = fa.flash_attention(q, k, v, qp_r, pos, valid, **kw)
+            outs, lses = [], []
+            for r in range(ranges):
+                sl = slice(r * n, skv if r == ranges - 1 else (r + 1) * n)
+                o_r, l_r = fa.flash_attention(
+                    q, k[:, sl].contiguous(), v[:, sl].contiguous(), qp_r,
+                    pos[:, sl].contiguous(), valid[:, sl].contiguous(),
+                    return_lse=True, **kw)
+                outs.append(o_r[:, 0])
+                lses.append(l_r)
+            check(bool(torch.isneginf(lses[-1]).all()),
+                  f"K8 lse {name}: a range with no valid key reports a "
+                  f"finite lse")
+            merged = fa.merge_partials(torch.stack(outs),
+                                        torch.stack(lses)).to(torch.bfloat16)
+            err = float((merged.float() - ref[:, 0].float()).abs().max())
+            limit = decode_limit(ref)
+            check(err <= limit, f"K8 lse {name}: {ranges} ranges merged "
+                  f"differ from the whole call by {err}, over {limit}")
+            rec[f"merged_{ranges}_err"] = err
+            rec[f"merged_{ranges}_limit"] = limit
+            worst["merged_over_limit"] = max(worst["merged_over_limit"],
+                                             err / limit)
+        emit(rec)
+    return worst
 
 
 def storage_bytes(tensors) -> int:
@@ -4115,16 +4331,93 @@ def serve_phase(torch, kb, sj, fa, path: str, spec: dict,
     return counts
 
 
+def record_k8_shapes(L) -> tuple:
+    """Count the layer library's K8 calls by (Sq, Skv, H, KVH) until
+    `restore()` is called: (the counter, restore)."""
+    seen = collections.Counter()
+    lock = threading.Lock()
+    orig = L.flash_attention
+
+    def counted(q, k, *args, **kw):
+        with lock:
+            seen[(q.shape[1], k.shape[1], q.shape[2], k.shape[2])] += 1
+        return orig(q, k, *args, **kw)
+    L.flash_attention = counted
+
+    def restore():
+        L.flash_attention = orig
+    return seen, restore
+
+
+def dense_serve_comm(cfg, mesh, batch: int, prompt_len: int,
+                     gen_tokens: int, cap: int, passes: int = 1) -> dict:
+    """`spmd.COMM` of `passes` passes of `serve.generate_sharded` of a
+    dense attention model (an MLP in every layer, fsdp off), summed over
+    the points, by the formulas of `parallel/spmd.py`'s note: the
+    vocab-parallel embedding's all-reduce and the logits' gather (where tp
+    divides the vocabulary), w2's all-reduce (where tp divides d_ff);
+    where the heads split whole, wo's all-reduce; under the sequence
+    split, one gather of the attention leaves split over "model" each
+    call and, where tp divides the call's tokens, k, v and y gathered;
+    where the cache's slots are split over n points, a decode step's
+    merge."""
+    a, d, f, v = cfg.attn, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    tp = mesh.shape.get("model", 1)
+    dp = math.prod(mesh.shape.get(x, 1) for x in ("pod", "data"))
+    e = cfg.dtype.itemsize
+    b_ok = batch % dp == 0
+    b = batch // dp if b_ok else batch
+    hd, kvh = a.head_dim, a.num_kv_heads
+    hs = tp if a.num_heads % tp == 0 and kvh % tp == 0 else 1
+    cp = tp > 1 and hs == 1
+    want = ([mesh.shape["data"]] if not b_ok and mesh.shape.get("data", 1)
+            > 1 else []) + ([tp] if cp else [])
+    n = 1
+    for w in want:                   # the ways the cache's slots split
+        if cap % (n * w) == 0:
+            n *= w
+    from repro_torch.models.common import abstract_params
+    from repro_torch.parallel import sharding as S
+    mixer = abstract_params(cfg)["layers"][0]["mixer"]
+    specs = S.param_specs(cfg, mesh, fsdp=False)["layers"][0]["mixer"]
+    gathered = [mixer[k][0].numel() for k in mixer
+                if k != "ln" and "model" in tuple(specs[k])]
+    ar = ag = ar_b = ag_b = 0
+    for s in [prompt_len] + [1] * gen_tokens:
+        if tp > 1 and v % tp == 0:   # the embedding, the logits
+            ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
+            ag, ag_b = ag + 1, ag_b + (tp - 1) * 4 * b * v // tp
+        for _ in range(cfg.n_layers):
+            if hs > 1:               # wo
+                ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
+            elif cp:                 # the attention leaves, in one
+                ag += 1
+                ag_b += (tp - 1) * e * sum(gathered) // tp
+                if s % tp == 0:      # k, v and y
+                    ag += 3
+                    ag_b += (tp - 1) * e * b * s * (2 * kvh * hd + d) // tp
+            if s == 1 and n > 1:     # the decode merge
+                ag += 1
+                ag_b += (n - 1) * 4 * b * (a.num_heads // hs) * (hd + 1)
+            if tp > 1 and f % tp == 0:   # w2
+                ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
+    k = passes * mesh.size
+    return {"all_reduce": ar * k, "all_gather": ag * k, "reduce_scatter": 0,
+            "all_reduce_bytes": ar_b * k, "all_gather_bytes": ag_b * k,
+            "reduce_scatter_bytes": 0}
+
+
 def serve_sharded_phase(torch, kb, sj, fa, dev, smi: str, path: str,
                         spec: dict, tol: tuple) -> dict:
-    """Path `path` (phases 11d-11h, `SERVE_SHARDED_PATHS`): the model of
-    `spec` through `serve.serve_config(..., mesh=...)` on a mesh of four
-    points of the card, its launches and collectives counted, each
-    point's parameter and cache bytes held to the specs' shares, then the
-    check against the same model unsharded (`sharded_gap`) within `tol`
-    (max |d|, mean |d|, and for a MoE the most of its routing choices
-    that may differ on its own routing). Returns the path's launch
-    counts."""
+    """Path `path` (phases 11d-11j, `SERVE_SHARDED_PATHS`): the model of
+    `spec` through `serve.serve_config(..., mesh=...)` on a mesh of
+    points of the card, its launches and collectives counted (K8's calls
+    by shape, held to `spec["k8_shapes"]` and `spmd.COMM` to
+    `dense_serve_comm` where the spec has them), each point's parameter
+    and cache bytes held to the specs' shares, then the check against the
+    same model unsharded (`sharded_gap`) within `tol` (max |d|, mean |d|,
+    and for a MoE the most of its routing choices that may differ on its
+    own routing). Returns the path's launch counts."""
     from repro_torch.launch import serve
     from repro_torch.launch.dryrun import local_bytes
     from repro_torch.launch.mesh import make_test_mesh, set_mesh
@@ -4160,11 +4453,33 @@ def serve_sharded_phase(torch, kb, sj, fa, dev, smi: str, path: str,
     read = launch_window(kb, sj, fa)  # the path's counts start at 0 here
     SP.reset_counts()
     torch.cuda.reset_peak_memory_stats()
+    shapes, restore = record_k8_shapes(L)
     t0 = time.perf_counter()
-    res = serve.serve_config(cfg, b, s, g, dev, mesh=mesh)
+    try:
+        res = serve.serve_config(cfg, b, s, g, dev, mesh=mesh)
+    finally:
+        restore()
     seconds = time.perf_counter() - t0
     counts = read()                   # just after
     comm = dict(SP.COMM)
+    k8_shapes = [{"Sq": sq, "Skv": skv, "H": h, "KVH": kvh, "calls": n}
+                 for (sq, skv, h, kvh), n in sorted(shapes.items())]
+    if "k8_shapes" in spec:
+        n_attn = sum(cfg.layer_kind(i) == "attn"
+                     for i in range(cfg.n_layers))
+        runs = len(res["passes"]) * mesh.size * n_attn
+        want_shapes = {spec["k8_shapes"]["prefill"]: runs,
+                       spec["k8_shapes"]["decode"]: runs * g}
+        got_shapes = collections.Counter()
+        for (sq, skv, _, _), n in shapes.items():
+            got_shapes[(sq, skv)] += n
+        check(dict(got_shapes) == want_shapes,
+              f"{path}: K8 ran at (Sq, Skv) {dict(got_shapes)}, expected "
+              f"{want_shapes}")
+        want_comm = dense_serve_comm(cfg, mesh, b, s, g, res["cap"],
+                                     len(res["passes"]))
+        check(comm == want_comm, f"{path}: collectives {comm}, the "
+              f"formula {want_comm}")
     peak = torch.cuda.max_memory_allocated()
     one = expected_launches(cfg, g, len(res["passes"]))
     want = {k: n * mesh.size for k, n in one.items()}
@@ -4209,6 +4524,9 @@ def serve_sharded_phase(torch, kb, sj, fa, dev, smi: str, path: str,
           "decode_tok_s": b * g / t_dec, "peak_memory_bytes": peak,
           "param_bytes_per_point": per_point,
           "cache_bytes_per_point": cache_share,
+          "cache_bytes_whole": serve.cache_bytes(
+              res["model"].init_cache(b, res["cap"], "meta")),
+          "k8_shapes": k8_shapes,
           "device_bytes": res["device_bytes"], "collectives": comm,
           "launches": counts, "launches_expected": want,
           "greedy_tokens_equal_unsharded": float(
@@ -4337,6 +4655,7 @@ def main() -> int:
                                    info.get("flashattn", (0.0, ""))[1])
     rep.update(arep)
     worst.update(aworst)
+    lse_phase(torch, fa, dev)
     for path, (spec, tol) in SERVE_PATHS.items():
         counts[path] = serve_phase(torch, kb, sj, fa, path, spec, tol)
     for path, (spec, tol) in SERVE_SHARDED_PATHS.items():

@@ -127,6 +127,14 @@
 //     m_new) = 0. With no live split the row has no allowed key, and the
 //     merging CTA writes the mean of V over the Skv keys, as ref.sdpa_ref
 //     gives.
+//   * the log-sum-exp, where the caller asks for it (`lse`, [B, H] f32):
+//     the merging CTA writes M + log(L) beside o, the row's log of its sum
+//     of exp(s) over the keys it may see, so a caller that cut the cache
+//     into ranges (context parallelism: a mesh point's slots) can merge
+//     the ranges' outputs by their weights exp(lse - max). Every launch
+//     merges through the ticket, one split included, so no path writes o
+//     without it. A row with no allowed key reports -inf (weight 0 in
+//     such a merge), whatever its o (the mean of V, as above).
 //   * bound: bytes, each K and V row of a live tile read once (85.5 MB a
 //     layer at the qwen shape, 0.026 ms at 3.35 TB/s); its 2 * (DK + DV)
 //     flops a head and key run on CUDA cores in a small share of that
@@ -164,6 +172,7 @@ struct Args {
   int B, Sq, Skv, H, KVH;
   int causal, has_window, window;
   float scale;
+  float* lse;               // [B, H] f32, decode only; null: not written
 };
 
 __device__ __forceinline__ bool allowed(const Args& a, int qp, int kp,
@@ -686,8 +695,9 @@ __device__ __forceinline__ float* decode_record(const Args& a, float* part,
 // split max, each live split weighed by exp(m - M) (skipped splits left
 // out), o = sum(w o) / max(sum(w l), 1e-30). With no live split the row
 // has no allowed key, and p = exp(NEG - NEG) = 1 for every key makes it
-// the mean of V over the Skv keys. The last CTA sets the counter back to
-// 0 for the next call on the stream.
+// the mean of V over the Skv keys. Where `a.lse` is given, the row's
+// M + log(L) goes there, -inf for a row with no allowed key. The last CTA
+// sets the counter back to 0 for the next call on the stream.
 template <int DV>
 __device__ void decode_finish(const Args& a, float* part, int* tickets,
                               int rep, int kvh, int b) {
@@ -726,6 +736,8 @@ __device__ void decode_finish(const Args& a, float* part, int* tickets,
       for (int j = 0; j < a.Skv; ++j)
         sum += __bfloat162float(vb[(long long)j * a.v_s]);
       out = sum / fmaxf((float)a.Skv, 1.f);
+      if (a.lse != nullptr && d == 0)
+        a.lse[(long long)b * a.H + kvh * rep + r] = -INFINITY;
     } else {
       constexpr int kBatch = 8;  // records whose loads are in flight
       float L = 0.f, O = 0.f;
@@ -748,6 +760,8 @@ __device__ void decode_finish(const Args& a, float* part, int* tickets,
         }
       }
       out = O / fmaxf(L, 1e-30f);
+      if (a.lse != nullptr && d == 0)
+        a.lse[(long long)b * a.H + kvh * rep + r] = M + logf(L);
     }
     a.o[b * a.o_b + (kvh * rep + r) * a.o_h + d] = __float2bfloat16_rn(out);
   }
@@ -1016,6 +1030,7 @@ Args make_args(const void* q, const void* k, const void* v, void* o,
   a.B = B, a.Sq = Sq, a.Skv = Skv, a.H = H, a.KVH = KVH;
   a.causal = causal, a.has_window = has_window, a.window = window;
   a.scale = scale;
+  a.lse = nullptr;
   return a;
 }
 
@@ -1167,17 +1182,21 @@ int flash_decode_splits(int B, int KVH, int Skv) {
   return decode_splits(B, KVH, Skv);
 }
 
-// K8, decode variant: as flash_prefill with Sq == 1. `part` is f32 scratch
-// of B * H * flash_decode_splits(B, KVH, Skv) * (Dv + 2) floats, `tickets`
-// B * KVH int32 counters, zero before the call and zero again after it.
-// Calls that share `tickets` must run in order (one stream).
+// K8, decode variant: as flash_prefill with Sq == 1. `lse` is null or
+// [B, H] f32, where each row's log-sum-exp goes (-inf for a row with no
+// allowed key). `part` is f32 scratch of B * H * flash_decode_splits(B,
+// KVH, Skv) * (Dv + 2) floats, `tickets` B * KVH int32 counters, zero
+// before the call and zero again after it. Calls that share `tickets`
+// must run in order (one stream).
 int flash_decode(const void* q, const void* k, const void* v, void* o,
                  const void* q_pos, const void* kv_pos, const void* kv_valid,
                  const long long* strides, int B, int Skv, int H, int KVH,
                  int D, int Dv, int causal, int has_window, int window,
-                 float scale, void* part, void* tickets, void* stream) {
+                 float scale, void* lse, void* part, void* tickets,
+                 void* stream) {
   Args a = make_args(q, k, v, o, q_pos, kv_pos, kv_valid, strides, B, 1, Skv,
                      H, KVH, causal, has_window, window, scale);
+  a.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H % KVH != 0 || H / KVH > kMaxGroup) return (int)cudaErrorInvalidValue;
   const int tps = decode_tps(B, KVH, Skv);

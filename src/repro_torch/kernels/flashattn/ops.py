@@ -39,6 +39,14 @@ accumulate in f32; the finish is o / max(l, 1e-30), cast to q's dtype.
 Keys past Skv take no part (nothing is padded), so a row with no valid
 key averages v over the Skv keys, as `ref.sdpa_ref` does.
 
+`return_lse=True` (decode, Sq == 1) also returns each row's log-sum-exp
+[B, H] f32, m + log(l) of the online softmax: the log of the row's sum
+of exp(score) over the keys it may see, -inf where it may see none
+(whatever its output, the mean of v above). A caller that cut the cache
+into slot ranges merges the ranges' outputs o_r by the weights
+exp(lse_r - max_r lse_r) (`merge_partials`): a range with no valid key
+carries weight 0. The output stays in q's dtype.
+
 `LAUNCHES` counts kernel launches per variant (bumped under a lock, only
 where a kernel is launched).
 """
@@ -80,7 +88,7 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_float, ctypes.c_void_p]
         lib.flash_prefill.restype = ctypes.c_int
         lib.flash_decode.argtypes = common + [ctypes.c_int] * 9 + [
-            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_float] + [ctypes.c_void_p] * 4
         lib.flash_decode.restype = ctypes.c_int
         lib.flash_decode_splits.argtypes = [ctypes.c_int] * 3
         lib.flash_decode_splits.restype = ctypes.c_int
@@ -122,11 +130,33 @@ def _check_shapes(q, k, v, q_pos, kv_pos, kv_valid) -> None:
         raise ValueError(f"kv_pos and kv_valid must be [{b}, {skv}]")
 
 
+def _check_lse(q, return_lse: bool) -> None:
+    if return_lse and q.shape[1] != 1:
+        raise ValueError("flash_attention returns the log-sum-exp for a "
+                         "decode call (Sq == 1) only")
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The attention output over a cache cut into slot ranges, from the
+    ranges' outputs `o` [n, ..., H, Dv] and log-sum-exps `lse` [n, ...,
+    H]: sum_r w_r o_r / sum_r w_r in f32 with w_r = exp(lse_r - max_r
+    lse_r), a range whose lse is -inf weighing 0; f32. A row whose every
+    range is -inf (no valid key anywhere) comes out 0."""
+    o = o.float()
+    top = lse.amax(dim=0)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.exp(lse - top)
+    return (w[..., None] * o).sum(0) / torch.clamp(w.sum(0), min=1e-30)[
+        ..., None]
+
+
 def flash_plain(q, k, v, q_pos, kv_pos, kv_valid, *, causal: bool = True,
-                window: Optional[int] = None) -> torch.Tensor:
+                window: Optional[int] = None, return_lse: bool = False):
     """Plain torch K8: the kernel's online softmax over 128-row Q and KV
-    blocks (the last block of each is ragged, not padded)."""
+    blocks (the last block of each is ragged, not padded). With
+    `return_lse` (Sq == 1) also each row's log-sum-exp [B, H] f32."""
     _check_shapes(q, k, v, q_pos, kv_pos, kv_valid)
+    _check_lse(q, return_lse)
     b, sq, h, d = q.shape
     dv = v.shape[3]
     skv, rep = k.shape[1], h // k.shape[2]
@@ -137,6 +167,7 @@ def flash_plain(q, k, v, q_pos, kv_pos, kv_valid, *, causal: bool = True,
         kh = kh.repeat_interleave(rep, dim=1)
         vh = vh.repeat_interleave(rep, dim=1)
     out = q.new_empty((b, sq, h, dv))
+    lse = None
     for i in range(0, sq, BLOCK):
         qb = qh[:, :, i:i + BLOCK].float()
         qp = q_pos[:, i:i + BLOCK]
@@ -160,7 +191,9 @@ def flash_plain(q, k, v, q_pos, kv_pos, kv_valid, *, causal: bool = True,
             m = m_new
         res = acc / torch.clamp(l, min=1e-30)[..., None]
         out[:, i:i + BLOCK] = res.to(q.dtype).permute(0, 2, 1, 3)
-    return out
+        if return_lse:              # m stays NEG where no key is allowed
+            lse = torch.where(m > NEG, m + torch.log(l), -math.inf)[..., 0]
+    return (out, lse) if return_lse else out
 
 
 def _decode_tickets(dev: torch.device, stream: int,
@@ -192,10 +225,11 @@ def _kernel_checks(q, k, v, dev) -> None:
 
 
 def flash_attention(q, k, v, q_pos, kv_pos, kv_valid, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    return_lse: bool = False):
     """K8. q [B,Sq,H,D]; k [B,Skv,KVH,D], v [B,Skv,KVH,Dv] (KVH | H,
-    Dv <= D); positions [B,S*]. Returns [B,Sq,H,Dv].
+    Dv <= D); positions [B,S*]. Returns [B,Sq,H,Dv]; with `return_lse`
+    (Sq == 1), (that, the rows' log-sum-exp [B, H] f32).
 
     K8 has no backward: under grad mode with an input that requires
     grad it raises (the kernel's output would leave the graph and the
@@ -207,10 +241,11 @@ def flash_attention(q, k, v, q_pos, kv_pos, kv_valid, *,
             "gradient to q, k, v; run training on the 'auto' attention "
             "backend")
     _check_shapes(q, k, v, q_pos, kv_pos, kv_valid)
+    _check_lse(q, return_lse)
     dev = q.device
     if dev.type == "cpu":
         return flash_plain(q, k, v, q_pos, kv_pos, kv_valid, causal=causal,
-                           window=window)
+                           window=window, return_lse=return_lse)
     if dev.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {dev}")
     _kernel_checks(q, k, v, dev)
@@ -227,8 +262,10 @@ def flash_attention(q, k, v, q_pos, kv_pos, kv_valid, *,
     kv_pos = kv_pos.to(torch.int32).contiguous()
     kv_valid = kv_valid.to(torch.bool).contiguous()
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, h), dtype=torch.float32, device=dev) \
+        if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     strides = (ctypes.c_longlong * 12)(*[
         t.stride(i) for t in (q, k, v, out) for i in range(3)])
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -245,6 +282,7 @@ def flash_attention(q, k, v, q_pos, kv_pos, kv_valid, *,
                               dtype=torch.float32, device=dev)
         tickets = _decode_tickets(dev, stream, b * kvh)
         err = lib.flash_decode(*ptrs, b, skv, h, kvh, d, dv, *flags, scale,
+                               None if lse is None else lse.data_ptr(),
                                scratch.data_ptr(), tickets.data_ptr(),
                                stream)
         check(err, "flash_decode")
@@ -254,4 +292,4 @@ def flash_attention(q, k, v, q_pos, kv_pos, kv_valid, *,
                                 scale, stream)
         check(err, "flash_prefill")
         LAUNCHES.bump("flash_prefill")
-    return out
+    return (out, lse) if return_lse else out

@@ -51,17 +51,29 @@ never from its shape. The collectives sit at the reference's hint sites:
     point's columns, K8 runs on its H/tp query and KVH/tp kv heads
     (whole heads, as K8 takes them; its ring cache holds those kv
     heads), and wo's partial product is all-reduced over "model". Where
-    the heads do not split whole (mixtral's 2 smoke kv heads on a model
-    axis of 4: `fit_spec` cuts `wk` mid-head), every attention leaf is
-    gathered over "model" and the block runs whole on each point;
+    the heads do not split whole (minitron's 6/2 smoke heads or
+    mixtral's 2 smoke kv heads on a model axis of 4, qwen1.5-4b's 20 on
+    8: `fit_spec` cuts `wk` mid-head), attention splits by sequence
+    (`seq_split`, the reference's "seq" layout, context parallelism):
+    every attention leaf is gathered over "model", a point takes its
+    S/tp query rows (every row where tp does not divide S) against the
+    gathered k and v, and its rows of y are all-gathered; its cache
+    holds cap/tp of the ring's slots (`cache_split`);
+  * a batch the data axes do not divide (batch 1) is whole on every
+    point, and its attention caches hold a range of the slots over
+    "data", where `cache_spec` splits the KV length. Under a split of
+    the slots (either axis, or both, "data" first) a point writes only
+    the slots it holds, and a decode step runs K8 on them with their
+    log-sum-exp and merges the points' outputs (`attention`);
   * MLA (`_mla_attention`), where tp divides its heads, r and dr
     (`mla_split`): the point's heads of wq, w_qr, w_uk, w_uv and wo, its
     r/tp columns of w_dkv and of the latent cache, its dr/tp columns of
     the rope cache (w_kr gathered whole: RoPE pairs columns across the
     split); the latent and rope caches are all-gathered over "model"
     before the per-head expansion, K8 runs on the point's heads, wo's
-    partial product is all-reduced. Otherwise MLA runs gathered, as
-    attention does;
+    partial product is all-reduced. Otherwise MLA runs gathered,
+    replicated over "model" (its sequence split and the batch-1 split
+    of its latent are item 10e.2c.2);
   * the MLP: w1/w3 are the point's columns of d_ff and w2's partial
     product is all-reduced;
   * the MoE: the router is replicated and the routing is the global one
@@ -86,7 +98,8 @@ never from its shape. The collectives sit at the reference's hint sites:
     and dropped after the layer.
 Partial products are summed in f32 and cast once (`spmd.all_reduce`).
 Where an activation every point of the model axis holds alike enters
-compute split over that axis (q/k/v over the local heads, w1/w3 over
+compute split over that axis (q/k/v over the local heads, or over the
+local rows with the gathered weights, k and v after, w1/w3 over
 the local hidden units, the MoE's tokens and routing weights into the
 local experts or hidden units, the LM head's local vocabulary, the
 encoder output into cross-attention's local heads, the Mamba-2 mixer's
@@ -116,12 +129,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flashattn import flash_attention
-from repro_torch.kernels.flashattn.ref import masked_logits, sdpa_ref
+from repro_torch.kernels.flashattn.ops import merge_partials
+from repro_torch.kernels.flashattn.ref import NEG, masked_logits, sdpa_ref
 from repro_torch.models.common import (
     AttnConfig, MambaConfig, ModelConfig, MoEConfig,
 )
 from repro_torch.parallel import hints as HT
 from repro_torch.parallel import spmd as SP
+from repro_torch.parallel.sharding import batch_axes as batch_axes_of
 
 # --------------------------------------------------------------------------
 # norms & basics
@@ -266,16 +281,26 @@ def current_attention_backend() -> str:
 
 
 def _sdpa(q, k, v, q_pos, kv_pos, kv_valid, *, causal: bool,
-          window: Optional[int]):
+          window: Optional[int], return_lse: bool = False):
     """q [B,Sq,H,D], k [B,Skv,KVH,D], v [B,Skv,KVH,Dv] (KVH divides H,
-    Dv <= D). fp32 softmax, scores scaled by 1/sqrt(D)."""
+    Dv <= D). fp32 softmax, scores scaled by 1/sqrt(D). With
+    `return_lse` (a decode step, Sq 1) also each row's log-sum-exp [B, H]
+    f32, -inf where the row may see no key (K8's `return_lse`)."""
     if current_attention_backend() == "flash":
         return flash_attention(q, k, v, q_pos, kv_pos, kv_valid,
-                               causal=causal, window=window)
+                               causal=causal, window=window,
+                               return_lse=return_lse)
     rep = q.shape[2] // k.shape[2]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
+    if return_lse:
+        s = masked_logits(q, k, q_pos, kv_pos, kv_valid, causal=causal,
+                          window=window)[..., 0, :]          # [B,H,Skv]
+        lse = torch.where(s.amax(-1) > NEG, torch.logsumexp(s, -1),
+                          -math.inf)
+        return _sdpa_dense(q, k, v, q_pos, kv_pos, kv_valid, causal=causal,
+                           window=window), lse
     if q.shape[1] * k.shape[1] > _SDPA_CHUNK_THRESHOLD:
         return _sdpa_chunked(q, k, v, q_pos, kv_pos, kv_valid,
                              causal=causal, window=window)
@@ -287,43 +312,64 @@ def _sdpa(q, k, v, q_pos, kv_pos, kv_valid, *, causal: bool,
 class KVCache:
     """Static-capacity *ring* cache. `index` counts tokens ever written
     (a host int); token at position p lives in slot p % cap. For
-    full-attention layers cap >= tokens, so the ring never wraps."""
+    full-attention layers cap >= tokens, so the ring never wraps.
+
+    In `spmd.run` a point may hold a range of the ring's slots
+    (`cache_split`): its tensors hold the global slots [start, start +
+    their length) of a ring of `slots` (0: the tensors' own length), the
+    range at its coordinate over `axes`, the mesh axes the slots are
+    split over (() where it holds them all)."""
     k: torch.Tensor          # [B, cap, KVH, D] ([n_reps, ...] when stacked)
     v: torch.Tensor
     index: int = 0
+    start: int = 0
+    slots: int = 0
+    axes: Tuple[str, ...] = ()
 
 
 def _cache_update(cache: KVCache, k_new, v_new) -> KVCache:
-    """Ring write of S_new entries at the cursor, in place; returns the
-    cache with the cursor moved on."""
-    cap = cache.k.shape[1]
-    idx = cache.index
-    s = k_new.shape[1]
-    if s >= cap:
-        # keep only the last `cap` tokens, placed at slot pos % cap
-        p0 = idx + s - cap
-        cache.k.copy_(torch.roll(k_new[:, -cap:], p0 % cap, dims=1))
-        cache.v.copy_(torch.roll(v_new[:, -cap:], p0 % cap, dims=1))
-    elif idx % cap + s <= cap:          # one run of slots (decode: s == 1)
-        slot = idx % cap
-        cache.k[:, slot:slot + s] = k_new
-        cache.v[:, slot:slot + s] = v_new
-    else:                               # the run wraps round the ring
-        slots = (idx + torch.arange(s, device=k_new.device)) % cap
-        cache.k[:, slots] = k_new.to(cache.k.dtype)
-        cache.v[:, slots] = v_new.to(cache.v.dtype)
-    return KVCache(cache.k, cache.v, idx + s)
+    """Ring write of S_new entries at the cursor, in place: token t to
+    global slot (index + t) % slots, only the last `slots` tokens where
+    S_new is more; a point holding a range of the slots writes the
+    tokens that fall in it (a decode step's slot is written by its owner
+    alone). Returns the cache with the cursor moved on."""
+    n, s = cache.k.shape[1], k_new.shape[1]
+    cap, lo0, idx = cache.slots or n, cache.start, cache.index
+    t = max(0, s - cap)
+    while t < s:                        # runs of consecutive slots
+        slot = (idx + t) % cap
+        run = min(s - t, cap - slot)
+        lo, hi = max(slot, lo0), min(slot + run, lo0 + n)
+        if lo < hi:
+            src = slice(t + lo - slot, t + hi - slot)
+            cache.k[:, lo - lo0:hi - lo0] = k_new[:, src]
+            cache.v[:, lo - lo0:hi - lo0] = v_new[:, src]
+        t += run
+    return dataclasses.replace(cache, index=idx + s)
 
 
-def _ring_positions(index: int, cap: int, batch: int,
-                    device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(kv_pos, kv_valid) [batch, cap] for a ring cache whose cursor is
-    `index`: slot j holds position index-1-((index-1-j) % cap), invalid
-    if < 0. Contiguous int32 and bool, as K8 reads them."""
-    j = torch.arange(cap, device=device)
+def _ring_positions(index: int, cap: int, batch: int, device,
+                    start: int = 0, n: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(kv_pos, kv_valid) [batch, n] for the global slots [start, start +
+    n) (default: all `cap`) of a ring cache whose cursor is `index`: slot
+    j holds position index-1-((index-1-j) % cap), invalid if < 0.
+    Contiguous int32 and bool, as K8 reads them."""
+    n = cap - start if n is None else n
+    j = torch.arange(start, start + n, device=device)
     kv_pos = index - 1 - ((index - 1 - j) % cap)
     return (kv_pos.to(torch.int32)[None, :].repeat(batch, 1),
             (kv_pos >= 0)[None, :].repeat(batch, 1))
+
+
+def cache_positions(cache: KVCache, index: int, batch: int, device,
+                    slot_dim: int = 1):
+    """`_ring_positions` at cursor `index` of the slots `cache` holds (a
+    point's range of the global ring), along its tensors' `slot_dim` (2
+    for a stacked cache)."""
+    n = cache.k.shape[slot_dim]
+    return _ring_positions(index, cache.slots or n, batch, device,
+                           cache.start, n)
 
 
 def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, a: AttnConfig,
@@ -334,8 +380,25 @@ def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, a: AttnConfig,
     """Pre-norm residual attention block. If `cache` is given, new KV are
     written to it and attention runs against the whole cache (decode /
     prefill into the cache); otherwise self-attention over x. `ring` is
-    the cache's `_ring_positions` after this write, when the caller has
-    them (every layer of a step shares them)."""
+    the cache's `cache_positions` after this write, when the caller has
+    them (every layer of a step shares them).
+
+    Sharded where the heads do not split whole (`seq_split` tp > 1, the
+    reference's "seq" layout): the weights are gathered whole over
+    "model"; where tp divides the call's S a point takes its S/tp query
+    rows, projects and rotates them, all-gathers k and v along the
+    sequence, attends with its rows' positions and all-gathers its rows
+    of y, so the residual is whole on every point (otherwise every point
+    takes every row). Under autograd h, the gathered weights and the
+    gathered k and v enter the row split through `spmd.copy`: each
+    point's gradient of them is its rows' share. A cache whose slots are
+    split (`KVCache.axes`) is written by each point at its slots; a
+    decode step runs K8 on the point's slots with their log-sum-exp and
+    merges the points' outputs (one all-gather of (o, lse) over those
+    axes, `merge_partials`); a prefill into an empty cache that it does
+    not overfill attends against the call's own (gathered) k and v,
+    which is what the written slots hold; any other call all-gathers the
+    written slots."""
     b, s, d = x.shape
     h = norm(x, p["ln"], norm_kind)
     if a.kv_lora_rank:
@@ -343,8 +406,15 @@ def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, a: AttnConfig,
 
     w, tp = _attn_weights(p, a)
     nh, nkv = a.num_heads // tp, a.num_kv_heads // tp
+    rows = _query_rows(a, s)
+    q_pos = positions
     if tp > 1:                  # h enters the point's heads
         h = SP.copy(h, "model")
+    elif rows is not None:      # h and the weights enter the point's rows
+        h = SP.copy(h, "model")[:, rows]
+        w = {n: SP.copy(t, "model") for n, t in w.items()}
+        q_pos = positions[:, rows]
+    sq = h.shape[1]
     q = h @ w["wq"]
     k = h @ w["wk"]
     v = h @ w["wv"]
@@ -352,31 +422,54 @@ def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, a: AttnConfig,
         q = q + w["bq"]
         k = k + w["bk"]
         v = v + w["bv"]
-    q = q.reshape(b, s, nh, a.head_dim)
-    k = k.reshape(b, s, nkv, a.head_dim)
-    v = v.reshape(b, s, nkv, a.head_dim)
-    cos, sin = rope_tables(positions, a.head_dim, a.rope_theta)
+    q = q.reshape(b, sq, nh, a.head_dim)
+    k = k.reshape(b, sq, nkv, a.head_dim)
+    v = v.reshape(b, sq, nkv, a.head_dim)
+    cos, sin = rope_tables(q_pos, a.head_dim, a.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    if rows is not None:        # every row's keys and values
+        k = SP.copy(SP.all_gather(k, "model", 1), "model")
+        v = SP.copy(SP.all_gather(v, "model", 1), "model")
     layout = HT.attn_layout(a.num_heads, s)
     q, k, v = HT.hint_qkv(q, k, v, layout)
 
+    kw = dict(causal=a.causal, window=a.sliding_window)
     if cache is None:
         kv_valid = torch.ones(k.shape[:2], dtype=torch.bool, device=x.device)
-        out = _sdpa(q, k, v, positions, positions, kv_valid,
-                    causal=a.causal, window=a.sliding_window)
+        out = _sdpa(q, k, v, q_pos, positions, kv_valid, **kw)
         new_cache = None
     else:
         new_cache = _cache_update(cache, k, v)
-        kv_pos, kv_valid = ring or _ring_positions(
-            new_cache.index, cache.k.shape[1], b, x.device)
-        out = _sdpa(q, new_cache.k.to(q.dtype), new_cache.v.to(q.dtype),
-                    positions, kv_pos, kv_valid, causal=a.causal,
-                    window=a.sliding_window)
+        split, cap = cache.axes, cache.slots or cache.k.shape[1]
+        if not split or s == 1:     # the slots this point holds
+            kv_pos, kv_valid = ring or cache_positions(
+                new_cache, new_cache.index, b, x.device)
+            out = _sdpa(q, new_cache.k.to(q.dtype), new_cache.v.to(q.dtype),
+                        q_pos, kv_pos, kv_valid, return_lse=bool(split),
+                        **kw)
+            if split:               # a decode step: the points' partials
+                part = torch.cat([out[0][:, 0].float(), out[1][..., None]],
+                                 dim=-1)
+                parts = SP.all_gather(part[None], split, 0)
+                out = merge_partials(parts[..., :-1], parts[..., -1]) \
+                    .to(q.dtype)[:, None]
+        elif cache.index == 0 and s <= cap:     # the slots hold this call
+            out = _sdpa(q, k, v, q_pos, positions,
+                        torch.ones((b, s), dtype=torch.bool,
+                                   device=x.device), **kw)
+        else:                   # every point's written slots
+            kv_pos, kv_valid = _ring_positions(new_cache.index, cap, b,
+                                               x.device)
+            out = _sdpa(q, SP.all_gather(new_cache.k, split, 1).to(q.dtype),
+                        SP.all_gather(new_cache.v, split, 1).to(q.dtype),
+                        q_pos, kv_pos, kv_valid, **kw)
     out = HT.hint_attn_out(out, layout)
-    y = out.reshape(b, s, nh * a.head_dim) @ w["wo"]
+    y = out.reshape(b, sq, nh * a.head_dim) @ w["wo"]
     if tp > 1:
         y = SP.all_reduce(y, "model")
+    elif rows is not None:      # every point's rows
+        y = SP.all_gather(y, "model", 1)
     return x + y, new_cache
 
 
@@ -389,19 +482,70 @@ def heads_split(a: AttnConfig) -> int:
     return tp if a.num_heads % tp == 0 and a.num_kv_heads % tp == 0 else 1
 
 
+def seq_split(a: AttnConfig) -> int:
+    """The ways attention splits by sequence over "model" in `spmd.run`
+    (context parallelism): tp where tp > 1 and the heads do not split
+    whole (`heads_split` 1), else 1."""
+    ctx = SP.context()
+    tp = ctx.size("model") if ctx is not None else 1
+    return tp if tp > 1 and heads_split(a) == 1 else 1
+
+
+def _query_rows(a: AttnConfig, s: int) -> Optional[slice]:
+    """This point's query rows [r S/tp, (r + 1) S/tp) of a call of S
+    tokens under the sequence split (`seq_split` tp, r its coordinate on
+    "model"); None, every row, where there is none or tp does not divide
+    S (the reference's "none" layout)."""
+    tp = seq_split(a)
+    if tp == 1 or s % tp:
+        return None
+    r = SP.coordinate("model")
+    return slice(r * s // tp, (r + 1) * s // tp)
+
+
+def cache_split(a: AttnConfig, batch: int, cap: int
+                ) -> Tuple[Tuple[str, ...], int]:
+    """(the mesh axes a point's attention cache of `cap` ring slots, for
+    `batch` local rows, is split over along its slots, the global slot
+    its range starts at) in `spmd.run`; ((), 0) with no shard context.
+    "data" where the global batch (`batch` times the run's `batch_ways`)
+    does not divide the data axes, where `cache_spec` splits the KV
+    length; then "model" under the sequence split (`seq_split`), where
+    `cache_spec` splits head_dim and the port, whose K8 takes whole
+    heads, splits the slots. An axis is kept only where `cap` divides
+    over it and the axes kept before it, as `fit_spec` leaves a dim
+    whole: never an uneven split."""
+    ctx = SP.context()
+    if ctx is None:
+        return (), 0
+    want = []
+    dp = ctx.size(batch_axes_of(ctx.mesh))
+    if ctx.size("data") > 1 and (batch * ctx.batch_ways) % dp:
+        want.append("data")
+    if seq_split(a) > 1:
+        want.append("model")
+    axes, ways = [], 1
+    for ax in want:
+        if cap % (ways * ctx.size(ax)) == 0:
+            axes.append(ax)
+            ways *= ctx.size(ax)
+    return tuple(axes), SP.coordinate(tuple(axes)) * (cap // ways)
+
+
 def _attn_weights(p, a: AttnConfig):
     """(attention's weights as this point uses them, the ways its heads
     split): `p` and 1 with no shard context; in `spmd.run` the leaves
     split over "data" (FSDP) gathered, and where the heads do not split
-    whole over "model" every leaf gathered whole over "model" too. Where
+    whole over "model" every leaf gathered whole over "model" too, in
+    one all-gather (`spmd.whole_all`). Where
     they do, each leaf must be split over "model" along its heads."""
     if SP.context() is None:
         return p, 1
     tp = heads_split(a)
     w = {n: SP.whole(p[n], "data")
          for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv") if n in p}
-    if tp == 1:
-        return {n: SP.whole(t, "model") for n, t in w.items()}, 1
+    if tp == 1:                 # one gather for them all
+        return SP.whole_all(w, "model"), 1
     for n, t in w.items():
         if SP.split_axes(t, 0 if n == "wo" else -1) != ("model",):
             raise ValueError(f"attention's heads split over 'model' but "
@@ -483,8 +627,8 @@ def _mla_attention(p, x, h, a: AttnConfig, positions, cache, ring):
         cache = _cache_update(cache, c_kv, k_rope[..., off:off + dr // tp])
         c_all = cache.k.to(x.dtype)                         # [B,cap,r/tp]
         kr_all = cache.v.to(x.dtype)                        # [B,cap,dr/tp]
-        kv_pos, kv_valid = ring or _ring_positions(
-            cache.index, cache.k.shape[1], b, x.device)
+        kv_pos, kv_valid = ring or cache_positions(cache, cache.index, b,
+                                                   x.device)
         if tp > 1:
             kr_all = SP.copy(SP.all_gather(kr_all, "model", -1), "model")
     else:

@@ -43,20 +43,23 @@ and `decode_step` on its local parameters and batch rows): the
 embedding is a vocab-parallel lookup (`layers.embed`), the LM head's
 local vocabulary columns give local logits that are all-gathered over
 "model", and `init_cache` holds the point's kv heads (`layers.
-heads_split`; MLA's latent and rope caches the point's columns,
-`layers.mla_split`; a Mamba layer's conv window the point's channels and
-its SSM state the point's heads, `layers.mamba_split`), so a point's
-cache bytes are `cache_spec`'s local share wherever the heads split
-whole. The stub frontends' embeddings (llava's patches, whisper's
-frames) are projected by the point's columns of `patch_proj` or
-`frame_proj` and all-gathered (`_stub_proj`); whisper's encoder layers
-and cross-attention run on the point's heads. Sharded training
-differentiates `loss` there: the collectives carry gradients
+heads_split`), or, where they do not split whole, its range of the
+slots (`layers.cache_split`: the sequence split), and at a batch the
+data axes do not divide its range of the slots over "data" too (MLA's
+latent and rope caches the point's columns, `layers.mla_split`; a Mamba
+layer's conv window the point's channels and its SSM state the point's
+heads, `layers.mamba_split`), so a point's cache bytes are
+`cache_spec`'s local share. The stub frontends' embeddings (llava's
+patches, whisper's frames) are projected by the point's columns of
+`patch_proj` or `frame_proj` and all-gathered (`_stub_proj`); whisper's
+encoder layers and cross-attention run on the point's heads. Sharded
+training differentiates `loss` there: the collectives carry gradients
 (`parallel.spmd`) and the loss is the global batch's.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
@@ -101,7 +104,7 @@ def _slot_view(sc, r: int):
     cursor."""
     if isinstance(sc, L.MambaCache):
         return L.MambaCache(sc.conv[r], sc.ssm[r])
-    return L.KVCache(sc.k[r], sc.v[r], sc.index)
+    return dataclasses.replace(sc, k=sc.k[r], v=sc.v[r])
 
 
 def _logits(h, w, vocab):
@@ -188,23 +191,28 @@ class Model:
                                  mb.head_dim, mb.d_state),
                                 dtype=torch.float32, device=device))
         a = cfg.attn
+        axes, start = (), 0
         if a.kv_lora_rank:              # MLA: c_kv and k_rope
             tp = L.mla_split(a)         # the point's columns of each
             k_shape = (*lead, batch, cap, a.kv_lora_rank // tp)
             v_shape = (*lead, batch, cap, a.rope_head_dim // tp)
-        else:
-            k_shape = v_shape = (*lead, batch, cap,
+        else:                           # the point's kv heads and slots
+            axes, start = L.cache_split(a, batch, cap)
+            ways = math.prod(SP.context().size(x) for x in axes)
+            k_shape = v_shape = (*lead, batch, cap // ways,
                                  a.num_kv_heads // L.heads_split(a),
                                  a.head_dim)
         return L.KVCache(
             k=torch.zeros(k_shape, dtype=cfg.dtype, device=device),
-            v=torch.zeros(v_shape, dtype=cfg.dtype, device=device), index=0)
+            v=torch.zeros(v_shape, dtype=cfg.dtype, device=device), index=0,
+            start=start, slots=cap, axes=axes)
 
     def init_cache(self, batch: int, cap: int, device) -> Dict[str, Any]:
         """Empty caches: one per prefix layer, and one per pattern slot
         stacked on `[n_reps]`. A sliding-window layer's ring holds
         min(cap, window) slots (context_class "window"); a Mamba layer's
-        state does not grow with `cap`."""
+        state does not grow with `cap`. In `spmd.run` each holds this
+        point's share (the module's note); `batch` is the point's rows."""
         window = self.cfg.attn and self.cfg.attn.sliding_window
 
         def cap_for(kind):
@@ -232,8 +240,7 @@ class Model:
         def ring(kind, sc, cap_dim):
             if kind != "attn":
                 return None
-            return L._ring_positions(sc.index + s, sc.k.shape[cap_dim], b,
-                                     x.device)
+            return L.cache_positions(sc, sc.index + s, b, x.device, cap_dim)
         prefix = []
         for i, (kind, is_moe) in enumerate(self.prefix_slots):
             c = caches["prefix"][i] if caches else None
@@ -298,8 +305,8 @@ class Model:
         cfg = self.cfg
         b, s = x.shape[:2]
         sc = caches["slots"][0] if caches else None
-        ring = L._ring_positions(sc.index + s, sc.k.shape[2], b,
-                                 x.device) if caches else None
+        ring = L.cache_positions(sc, sc.index + s, b, x.device, 2) \
+            if caches else None
         for r in range(self.n_reps):
             c = _slot_view(sc, r) if caches else None
             x, _, _ = self._apply_block("attn", False,

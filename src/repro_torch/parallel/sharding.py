@@ -24,11 +24,11 @@ caches built on the "meta" device, so nothing is allocated. These specs
 feed the launch reports (`launch.specs`, `launch.dryrun`) and sharded
 serving and training (`parallel.spmd`: `shard_tree`, `init_sharded`,
 `launch.serve.serve_config(mesh=...)`, `train.step.build_train_step(
-..., mesh=...)`). Two differences there, on purpose: a cache splits its
-kv heads over "model", not `head_dim` as `cache_spec` says (K8 takes
-whole heads; the bytes a point holds are the same wherever the heads
-split whole), and a block whose heads do not split whole runs gathered,
-replicated over "model".
+..., mesh=...)`). One difference there, on purpose: an attention cache
+splits its kv heads over "model" where they split whole, and its slots
+where they do not (the sequence split), not `head_dim` as `cache_spec`
+says (K8 takes whole heads); the bytes a point holds are the same
+(`models.layers.cache_split`).
 """
 from __future__ import annotations
 

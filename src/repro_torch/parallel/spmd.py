@@ -107,6 +107,23 @@ shared experts under expert parallelism: the rules give them the
 experts' spec) is all-gathered along it once a call (`models.model.
 Model.backbone`), the layers a point does not hold.
 
+Context parallelism. An attention layer whose heads tp does not split
+whole (`layers.seq_split` tp > 1; H query and KVH kv heads of hd, width
+d) gathers its leaves that "model" splits (wq, wk, wv, wo and the QKV
+biases, flattened into one: `whole_all`) at every call, one gather of
+(tp - 1) e W / tp bytes for their W elements, and no wo all-reduce; where tp divides the call's S tokens it also
+gathers k and v, (tp - 1) e b S KVH hd 2 / tp bytes, and y, (tp - 1) e b
+S d / tp bytes (3 gathers). A cache whose slots are split over n points
+(`layers.cache_split`: over "data" where the batch does not divide the
+data axes, and over "model" under the sequence split) adds one gather a
+decode step a layer, of each point's f32 output and log-sum-exp, (n -
+1) 4 b h (hd + 1) bytes for its h query heads (H, or H / tp where the
+heads split); a prefill into an empty cache that holds it adds none, and
+any other call with more than one token gathers the written K and V
+slots, 2 gathers of (n - 1) e b cap KVH' hd / n bytes (KVH' the point's
+kv heads). `chip_smoke.dense_serve_comm` sums these for a dense model's
+serve passes.
+
 A train step (`train.step.build_train_step(..., mesh=)`, remat on) of a
 dense model of L layers whose heads, d_ff and vocabulary V split over a
 model axis of size tp, with the batch split over a data axis of size dp
@@ -743,6 +760,39 @@ def whole(t: torch.Tensor, axis: str) -> torch.Tensor:
     return t
 
 
+def whole_all(ts: Dict[str, torch.Tensor], axis: str
+              ) -> Dict[str, torch.Tensor]:
+    """`whole(t, axis)` of every tensor of `ts`, with one rendezvous: the
+    tensors split along one dim over `axis` alone (of the first such
+    tensor's dtype) are flattened into one, all-gathered once and cut
+    back, each whole along that dim; any other goes through `whole`. The
+    bytes moved are `whole`'s; under autograd the one gather's backward
+    keeps the point's slice of each gradient, as each `whole` would."""
+    fused: Dict[str, int] = {}
+    for name, t in ts.items():
+        dims = [d for d in range(t.dim()) if split_axes(t, d)]
+        if len(dims) == 1 and split_axes(t, dims[0]) == (axis,) and (
+                not fused or t.dtype == ts[next(iter(fused))].dtype):
+            fused[name] = dims[0]
+    out = {name: whole(t, axis) for name, t in ts.items()
+           if name not in fused}
+    if not fused:
+        return out
+    flat = torch.cat([ts[name].reshape(-1) for name in fused])
+    parts = all_gather(flat[None], axis, 0)        # [ways, the local sum]
+    at = 0
+    for name, dim in fused.items():
+        t = ts[name]
+        piece = parts[:, at:at + t.numel()].reshape(-1, *t.shape)
+        spec = list(t._spmd_spec) + [None] * (t.dim() - len(t._spmd_spec))
+        spec[dim] = None
+        shape = list(t.shape)
+        shape[dim] *= piece.shape[0]        # the points' slices along dim
+        out[name] = _tag(piece.movedim(0, dim).reshape(shape), spec)
+        at += t.numel()
+    return {name: out[name] for name in ts}
+
+
 def like(t: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """`t`, marked with the spec `src` carries as a point's tensor of a
     sharded leaf (a detached copy of a parameter, its gradient); `t` as
@@ -771,11 +821,19 @@ def batch_axes() -> Tuple[str, ...]:
     return () if ctx is None else ctx.batch_axes
 
 
+def coordinate(axes) -> int:
+    """This point's flattened coordinate over `axes` (a name or a tuple,
+    the first major), the index of its range of a dim split over them;
+    0 outside `run`."""
+    ctx = context()
+    return 0 if ctx is None else _flat(ctx.mesh, ctx.coords, _axes(axes))
+
+
 def batch_offset() -> int:
     """This point's shard of the batch: its flattened coordinate over
     `batch_axes()` (0 outside `run` or where the batch is whole)."""
     ctx = context()
-    return 0 if ctx is None else _flat(ctx.mesh, ctx.coords, ctx.batch_axes)
+    return 0 if ctx is None else coordinate(ctx.batch_axes)
 
 
 def data_parallel_sum(g: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:

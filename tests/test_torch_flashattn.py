@@ -267,6 +267,106 @@ def test_split_kv_merge_matches_flash_plain(b, skv, h, kvh, d, window, pos,
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
+def _ref_lse(jx, causal, window):
+    """The rows' log-sum-exp [B, H] of a decode call, from the reference's
+    numerics in numpy: the f32 scores q.k / sqrt(D) over the keys the
+    reference's mask allows, -inf for a row allowed none."""
+    q, k, _, qp, kp, kval = (np.asarray(x, np.float32) if i < 3
+                             else np.asarray(x) for i, x in enumerate(jx))
+    rep = q.shape[2] // k.shape[2]
+    s = np.einsum("bhd,bkhd->bhk", q[:, 0], np.repeat(k, rep, axis=2)) \
+        / math.sqrt(q.shape[-1])
+    ok = kval[:, None, :] & (~causal | (kp <= qp)[:, None, :])
+    if window is not None:
+        ok = ok & ((qp - kp) < window)[:, None, :]
+    top = np.where(ok, s, -np.inf).max(-1)
+    with np.errstate(divide="ignore"):      # log(0) where none is allowed
+        out = top + np.log(np.where(ok, np.exp(s - np.where(
+            np.isfinite(top), top, 0)[..., None]), 0).sum(-1))
+    return np.where(ok.any(-1), out, -np.inf)
+
+
+@pytest.mark.parametrize("b,skv,h,kvh,d,window,pos", DECODE_CASES)
+def test_decode_lse_matches_reference_logsumexp(b, skv, h, kvh, d, window,
+                                                pos):
+    """K8 decode's `return_lse` on the CPU (`flash_plain`): each row's
+    log-sum-exp equals the reference's masked scores' within 2e-5 in f32,
+    -inf exactly where a row may see no key (row 0 of "dead"); the
+    output is the call's without it."""
+    jx, tx = _both(_decode_inputs(b, skv, h, kvh, d, pos, seed=skv + 2),
+                   "float32")
+    o, lse = fa.flash_attention(*tx, causal=True, window=window,
+                                return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h)
+    want = _ref_lse(jx, True, window)
+    got = lse.numpy()
+    assert np.array_equal(np.isinf(got), np.isinf(want))
+    live = np.isfinite(want)
+    np.testing.assert_allclose(got[live], want[live], atol=2e-5, rtol=2e-5)
+    assert torch.equal(o, fa.flash_attention(*tx, causal=True,
+                                             window=window))
+    with pytest.raises(ValueError, match="decode call"):
+        fa.flash_attention(tx[0].repeat(1, 2, 1, 1), *tx[1:3],
+                           tx[3].repeat(1, 2), *tx[4:], return_lse=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ranges", [2, 4])
+@pytest.mark.parametrize("b,skv,h,kvh,d,window,pos", [
+    (2, 300, 4, 4, 64, None, "tail"), (2, 400, 6, 2, 32, None, "ring"),
+    (2, 320, 4, 2, 32, 64, "tail")])
+def test_merged_slot_ranges_equal_the_whole_call(dtype, ranges, b, skv, h,
+                                                 kvh, d, window, pos):
+    """Context parallelism's decode merge (`merge_partials`): the cache
+    cut into `ranges` slot ranges, K8 on each with its log-sum-exp, merged
+    by the weights exp(lse - max), equals the whole-cache call: within
+    2e-5 in f32, within 2 bf16 ulps of the largest output in bf16 (the
+    ranges' outputs are rounded once more before the f32 merge; the
+    card's phase holds K8 to `chip_smoke.DECODE_ULPS`, 2). The cursor is
+    put before the last range, so that range holds no valid key: its lse
+    is -inf and it weighs 0 (leaving it out changes nothing)."""
+    from repro_torch.models.layers import _ring_positions
+    _, tx = _both(_inputs(b, 1, skv, h, kvh, d, seed=ranges), dtype)
+    q, k, v = tx[:3]
+    n = skv // ranges
+    index = skv + 57 if pos == "ring" else (ranges - 1) * n
+    kp, kval = _ring_positions(index, skv, b, "cpu")
+    if pos == "ring":               # the last range's slots: not yet valid
+        kval[:, (ranges - 1) * n:] = False
+    qp = torch.full((b, 1), index - 1, dtype=torch.int32)
+    whole = fa.flash_attention(q, k, v, qp, kp, kval, window=window)
+    outs, lses = [], []
+    for r in range(ranges):
+        sl = slice(r * n, skv if r == ranges - 1 else (r + 1) * n)
+        o, lse = fa.flash_attention(q, k[:, sl], v[:, sl], qp, kp[:, sl],
+                                    kval[:, sl], window=window,
+                                    return_lse=True)
+        outs.append(o[:, 0])
+        lses.append(lse)
+    assert bool(torch.isneginf(lses[-1]).all())
+    got = fa.merge_partials(torch.stack(outs), torch.stack(lses))
+    assert torch.equal(got, fa.merge_partials(torch.stack(outs[:-1]),
+                                          torch.stack(lses[:-1])))
+    ref = whole[:, 0].float()
+    if dtype == "float32":
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5)
+    else:
+        ulp = 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7)
+        assert float((got.to(torch.bfloat16).float() - ref).abs().max()) \
+            <= 2 * ulp
+
+
+def test_merge_of_rows_with_no_valid_key_anywhere_is_zero():
+    """A row whose every range reports -inf takes no NaN from the merge
+    (it comes out 0); a finite range among -inf ones is taken as it is."""
+    o = torch.randn(3, 2, 4, 8)
+    lse = torch.full((3, 2, 4), -math.inf)
+    lse[1, 1] = 0.5
+    got = fa.merge_partials(o, lse)
+    assert torch.equal(got[0], torch.zeros(4, 8))
+    torch.testing.assert_close(got[1], o[1, 1])
+
+
 def test_port_sdpa_ref_matches_reference_sdpa_ref():
     jx, tx = _both(_inputs(2, 64, 96, 4, 4, 32, seed=2), "float32")
     for causal, window in ((True, None), (False, 9)):

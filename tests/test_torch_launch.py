@@ -377,6 +377,20 @@ def test_input_specs_equal_reference(arch, mesh):
         # the port's ring cursors are host ints (the reference's int32)
         cursors = [k for k in want if k.endswith("/index")]
         assert all(isinstance(got[k], int) for k in cursors)
+        # and its cache records carry the slot range a mesh point holds
+        # (`layers.KVCache`: start, the ring's slots, the split axes),
+        # which the reference leaves to GSPMD: outside `spmd.run` every
+        # slot of the ring, split over no axis
+        # (an empty `axes` flattens to no key; a split one would show)
+        ranges = {k: got.pop(k) for k in list(got)
+                  if k.rsplit("/", 1)[-1] in ("start", "slots")}
+        for k in cursors:
+            rec = k[:-len("/index")]
+            assert ranges.pop(rec + "/start") == 0, (shape, rec)
+            slot_dim = 2 if "/slots/" in rec else 1     # a stacked record
+            assert ranges.pop(rec + "/slots") == \
+                got[rec + "/k"].shape[slot_dim], (shape, rec)
+        assert not ranges, ranges
         assert set(got) == set(want)
         for k in set(want) - set(cursors):
             if want[k] is None:
@@ -387,6 +401,10 @@ def test_input_specs_equal_reference(arch, mesh):
             assert str(got[k].dtype).split(".")[-1] == \
                 jnp.dtype(want[k].dtype).name, (shape, k)
         gs, ws = _flat(specs), _flat(rspecs)
+        # the spec tree's cache records hold the range fields as host ints
+        for k in [k for k in gs if k.rsplit("/", 1)[-1] in ("start",
+                                                            "slots")]:
+            assert isinstance(gs.pop(k), int), k
         assert {k: None if v is None else tuple(v) for k, v in gs.items()} \
             == {k: None if v is None else tuple(v) for k, v in ws.items()}, \
             (arch, shape)

@@ -61,7 +61,9 @@ def one_torch_thread():
 
 
 #: the reference's sharded runs: argv[1] a JSON list of [tag, arch,
-#: capacity factor or null, mesh shape, axes, fsdp], argv[2] the .npz,
+#: capacity factor or null, mesh shape, axes, fsdp] (and, optionally, a
+#: seventh entry {"B": ..., "T0": ...} overriding the batch or the
+#: prefill's length for that case), argv[2] the .npz,
 #: then B, S_LEN, T0, SEED and, optionally, a directory where it saves
 #: qwen1.5-4b's f32 smoke parameters (`save_tree`) beside their
 #: unsharded prefill logits (under "ckpt/prefill"). Under the vision stub
@@ -80,9 +82,12 @@ from repro.launch.mesh import make_test_mesh
 from repro.models.model import Batch, Model
 from repro.parallel import sharding as S
 cases, out = json.loads(sys.argv[1]), sys.argv[2]
-B, S_LEN, T0, SEED = (int(x) for x in sys.argv[3:7])
+B0, S_LEN, T00, SEED = (int(x) for x in sys.argv[3:7])
 res, inits = {}, {}
-for tag, arch, cf, shape, axes, fsdp in cases:
+for case in cases:
+    tag, arch, cf, shape, axes, fsdp = case[:6]
+    opts = case[6] if len(case) > 6 else {}
+    B, T0 = opts.get("B", B0), opts.get("T0", T00)
     cfg = dataclasses.replace(get_smoke_config(arch), dtype=jnp.float32)
     if cf is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -120,6 +125,7 @@ for tag, arch, cf, shape, axes, fsdp in cases:
                                           bsh), c, jnp.int32(npre + t), enc)
             res[f"{tag}/step{t}"] = np.asarray(lg)
 if len(sys.argv) > 7:
+    B, T0 = B0, T00
     from repro.checkpoint import save_tree
     cfg = dataclasses.replace(get_smoke_config("qwen1.5-4b"),
                               dtype=jnp.float32)
@@ -180,43 +186,45 @@ def cpu_mesh(shape, axes):
     return make_test_mesh(shape, axes, devices=["cpu"] * int(np.prod(shape)))
 
 
-def patches(cfg):
-    """REF's stub embeddings, drawn from SEED + 1: the patches [B, P, d]
-    under the vision stub, the frames [B, Se, d] under the audio stub,
-    else None."""
+def patches(cfg, batch=B):
+    """REF's stub embeddings, drawn from SEED + 1: the patches [batch, P,
+    d] under the vision stub, the frames [batch, Se, d] under the audio
+    stub, else None."""
     n = {"vision_stub": cfg.num_patches,
          "audio_stub": cfg.enc_seq_len}.get(cfg.frontend)
     if n is None:
         return None
     return torch.from_numpy(np.random.default_rng(SEED + 1).standard_normal(
-        (B, n, cfg.d_model)).astype(np.float32))
+        (batch, n, cfg.d_model)).astype(np.float32))
 
 
-def port_sharded_run(cfg, params, shape, axes, fsdp, calls_to=S_LEN):
-    """The port's sharded prefill (after `patches`, under the vision
-    stub; encoding them, under the audio stub, whose decode steps take
-    them encoded once more) and teacher-forced decode (up to position
-    `calls_to`) on `["cpu"] * n` of full `params`, or of already sharded
-    ones where `fsdp` is None: {call: full logits as numpy}."""
+def port_sharded_run(cfg, params, shape, axes, fsdp, calls_to=S_LEN,
+                     batch=B, t0=T0):
+    """The port's sharded prefill of `t0` tokens (after `patches`, under
+    the vision stub; encoding them, under the audio stub, whose decode
+    steps take them encoded once more) and teacher-forced decode (up to
+    position `calls_to`) of `batch` rows on `["cpu"] * n` of full
+    `params`, or of already sharded ones where `fsdp` is None: {call:
+    full logits as numpy}."""
     mesh = cpu_mesh(shape, axes)
     model = Model(cfg)
     sharded = params if fsdp is None else SP.shard_tree(
         params, S.param_specs(cfg, mesh, fsdp=fsdp), mesh)
     tok = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (B, S_LEN)).astype(np.int32)).long()
-    extra = patches(cfg)
+        0, cfg.vocab_size, (batch, S_LEN)).astype(np.int32)).long()
+    extra = patches(cfg, batch)
     npre = 0 if cfg.frontend != "vision_stub" else extra.shape[1]
-    spec = S.batch_spec(mesh, B)
+    spec = S.batch_spec(mesh, batch)
     ways = int(np.prod([mesh.shape[a] for a in S.batch_axes(mesh)])) \
         if spec[0] is not None else 1
 
     def calls(p, t, e):
         out = {}
-        lg, c = model.prefill(p, Batch(t[:, :T0], t[:, :T0], e),
+        lg, c = model.prefill(p, Batch(t[:, :t0], t[:, :t0], e),
                               cap=npre + S_LEN + 4)
         out["prefill"] = lg
         enc = model.encode(p, e) if cfg.n_enc_layers else None
-        for i in range(T0, calls_to):
+        for i in range(t0, calls_to):
             lg, c = model.decode_step(p, t[:, i:i + 1], c, npre + i, enc)
             out[f"step{i}"] = lg
         return out
@@ -224,27 +232,29 @@ def port_sharded_run(cfg, params, shape, axes, fsdp, calls_to=S_LEN):
         per_point = SP.run(mesh, calls, sharded,
                            SP.shard_leaf(tok, spec, mesh),
                            None if extra is None else SP.shard_leaf(
-                               extra, S.batch_spec(mesh, B, 2), mesh),
+                               extra, S.batch_spec(mesh, batch, 2), mesh),
                            batch_ways=ways, timeout=120)
     return {k: SP.gather_results(mesh, spec, [r[k] for r in per_point])
             .numpy() for k in per_point[0]}
 
 
-def check_against(ref, tag, got):
+def check_against(ref, tag, got, t0=T0):
     np.testing.assert_allclose(got["prefill"], ref[f"{tag}/prefill"],
                                rtol=2e-4, atol=2e-4,
                                err_msg=f"{tag} prefill")
-    for t in range(T0, S_LEN):
+    for t in range(t0, S_LEN):
         np.testing.assert_allclose(got[f"step{t}"], ref[f"{tag}/step{t}"],
                                    rtol=3e-4, atol=3e-4,
                                    err_msg=f"{tag} step {t}")
 
 
-def check_case(ref, tag, arch, cf, mesh):
-    """The port's sharded run of `arch` on MESHES[mesh] against REF's."""
+def check_case(ref, tag, arch, cf, mesh, batch=B, t0=T0):
+    """The port's sharded run of `arch` (`batch` rows, a prefill of `t0`
+    tokens) on MESHES[mesh] against REF's."""
     cfg = port_config(arch, cf)
-    got = port_sharded_run(cfg, reference_params(arch, cfg), *MESHES[mesh])
-    check_against(ref, f"{tag}@{mesh}", got)
+    got = port_sharded_run(cfg, reference_params(arch, cfg), *MESHES[mesh],
+                           batch=batch, t0=t0)
+    check_against(ref, f"{tag}@{mesh}", got, t0)
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

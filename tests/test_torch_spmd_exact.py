@@ -138,40 +138,100 @@ def test_init_sharded_equals_init_then_shard():
             assert torch.equal(u, v)
 
 
-@pytest.mark.parametrize("arch,shape", (
-    ("qwen1.5-4b", (2, 2)), ("qwen1.5-4b", (1, 4)),
-    ("mixtral-8x7b", (2, 2)), ("command-r-35b", (1, 2)),
-    ("deepseek-v2-lite-16b", (2, 2)), ("deepseek-v2-lite-16b", (1, 4)),
-    ("mamba2-370m", (2, 2)), ("mamba2-370m", (1, 4)),
-    ("jamba-1.5-large-398b", (2, 2)), ("whisper-base", (2, 2)),
-    ("whisper-base", (1, 4))))
-def test_cache_bytes_are_cache_spec_share(arch, shape):
-    """Where the heads split whole, a point's caches after a prefill
-    hold `cache_spec`'s local share (the port splits kv heads where
-    `cache_spec` splits head_dim: the same bytes; MLA's latent and rope
-    caches are split by their columns, a Mamba layer's conv window by its
-    channels and its SSM state by its heads, as `cache_spec` splits
-    them)."""
+@pytest.mark.parametrize("arch,shape,batch", (
+    ("qwen1.5-4b", (2, 2), B), ("qwen1.5-4b", (1, 4), B),
+    ("mixtral-8x7b", (2, 2), B), ("command-r-35b", (1, 2), B),
+    ("deepseek-v2-lite-16b", (2, 2), B), ("deepseek-v2-lite-16b", (1, 4), B),
+    ("mamba2-370m", (2, 2), B), ("mamba2-370m", (1, 4), B),
+    ("jamba-1.5-large-398b", (2, 2), B), ("whisper-base", (2, 2), B),
+    ("whisper-base", (1, 4), B), ("mixtral-8x7b", (1, 4), B),
+    ("minitron-4b", (1, 4), B), ("qwen1.5-4b", (2, 2), 1),
+    ("qwen1.5-4b", (4, 1), 1)))
+def test_cache_bytes_are_cache_spec_share(arch, shape, batch):
+    """A point's caches after a prefill and decode steps of `batch` rows
+    hold `cache_spec`'s local share: the port splits the kv heads where
+    `cache_spec` splits head_dim and tp divides the heads, and the slots
+    where it does not (mixtral's 2 and minitron's 2 kv heads on (1, 4):
+    the sequence split), and at a batch the data axes do not divide the
+    slots over "data" where `cache_spec` splits the KV length (batch 1 on
+    (2, 2) and (4, 1)): the same bytes. MLA's latent and rope caches are
+    split by their columns, a Mamba layer's conv window by its channels
+    and its SSM state by its heads, as `cache_spec` splits them. The cap,
+    20, divides over each mesh's axes."""
     cfg = _f32(arch)
     mesh = _mesh(shape, ("data", "model"))
     model = Model(cfg)
     params = SP.shard_tree(model.init(torch.Generator().manual_seed(0)),
                            S.param_specs(cfg, mesh, fsdp=False), mesh)
-    tok = torch.randint(0, cfg.vocab_size, (B, T0 + STEPS),
+    tok = torch.randint(0, cfg.vocab_size, (batch, T0 + STEPS),
                         generator=torch.Generator().manual_seed(1))
-    cap = T0 + STEPS + 4
-    toks = SP.shard_leaf(tok, S.batch_spec(mesh, B), mesh)
+    cap = T0 + STEPS + 5
+    toks = SP.shard_leaf(tok, S.batch_spec(mesh, batch), mesh)
     frames = _frames(cfg)
     if frames is not None:
-        frames = SP.shard_leaf(frames, S.batch_spec(mesh, B, 2), mesh)
+        frames = SP.shard_leaf(frames[:batch],
+                               S.batch_spec(mesh, batch, 2), mesh)
     with torch.no_grad():
         out = SP.run(mesh, lambda p, t, f: serve.cache_bytes(
             _serve_calls(model, p, t, cap, f)[1]), params, toks, frames,
-            batch_ways=_ways(mesh, B), timeout=60)
-    whole = model.init_cache(B, cap, "meta")
-    want = local_bytes(whole, S.cache_spec(cfg, mesh, B), mesh)
+            batch_ways=_ways(mesh, batch), timeout=60)
+    whole = model.init_cache(batch, cap, "meta")
+    want = local_bytes(whole, S.cache_spec(cfg, mesh, batch), mesh)
     assert want < serve.cache_bytes(whole)
     assert out == [want] * mesh.size
+
+
+@pytest.mark.parametrize("arch,shape,batch,prompt", (
+    ("minitron-4b", (1, 4), B, 16), ("minitron-4b", (1, 4), B, 14),
+    ("qwen1.5-4b", (2, 2), 1, 16), ("minitron-4b", (2, 4), 1, 16)))
+def test_context_parallel_collectives_and_k8_shapes(arch, shape, batch,
+                                                    prompt):
+    """A served pass (`serve.generate_sharded`: a prefill of `prompt`
+    tokens, STEPS decode steps, cap 24) under the sequence split
+    (minitron's 6/2 heads on (1, 4): its weights gathered, its rows' k, v
+    and y gathered where 4 divides the prompt, 16 but not 14), the
+    length split (qwen at batch 1 on (2, 2): the decode merge over
+    "data", wo summed over "model") and both (minitron at batch 1 on (2,
+    4): the slots over ("data", "model")): `spmd.COMM` equals
+    `chip_smoke.dense_serve_comm` (the formulas of spmd.py's note), K8
+    runs at Sq = S/tp (every row where tp does not divide S) against the
+    call's S keys, and a decode step over the point's cap/n slots; the
+    logits are the unsharded pass's."""
+    import chip_smoke
+    from repro_torch.models import layers as L
+    cfg = _f32(arch)
+    mesh = _mesh(shape, ("data", "model"))
+    model = Model(cfg)
+    full = model.init(torch.Generator().manual_seed(0))
+    params = SP.shard_tree(full, S.param_specs(cfg, mesh, fsdp=False), mesh)
+    tok = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                        generator=torch.Generator().manual_seed(1))
+    cap = 24
+    SP.reset_counts()
+    seen, restore = chip_smoke.record_k8_shapes(L)
+    try:
+        with torch.no_grad():
+            got = serve.generate_sharded(model, params, tok, STEPS, cap,
+                                         mesh)
+    finally:
+        restore()
+    assert dict(SP.COMM) == chip_smoke.dense_serve_comm(
+        cfg, mesh, batch, prompt, STEPS, cap)
+    tp = shape[1]
+    seq = tp > 1 and (cfg.attn.num_heads % tp or cfg.attn.num_kv_heads % tp)
+    rows = prompt // tp if seq and prompt % tp == 0 else prompt
+    n = 1
+    for w in ([shape[0]] if batch % shape[0] else []) + ([tp] if seq
+                                                          else []):
+        n *= w if cap % (n * w) == 0 else 1
+    calls = cfg.n_layers * mesh.size
+    assert {(sq, skv): c for (sq, skv, _, _), c in seen.items()} == {
+        (rows, prompt): calls, (1, cap // n): calls * STEPS}
+    with set_mesh(make_test_mesh(shape)), torch.no_grad():
+        want = serve.generate(model, full, tok, STEPS, cap,
+                              forced=got["tokens"])
+    for a, b in zip(got["logits"], want["logits"]):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
 
 
 def _formula(cfg, mesh, fsdp, calls):

@@ -20,7 +20,11 @@ gathered) and llava-next-mistral-7b's patch prefix, cut in depth, and
 mamba2-370m's Mamba-2 mixers and whisper-base's encoder and
 cross-attention, uncut, in bf16 with the routing replayed for deepseek
 (`chip_smoke.sharded_gap`), within bounds measured the same way
-(`ZOO_BOUNDS`)."""
+(`ZOO_BOUNDS`). Last, context parallelism: K8 decode's log-sum-exp
+against `flash_plain`'s on the card, slot ranges merged against the
+whole-cache call, and qwen1.5-4b at published widths cut to 2 layers on
+(1, 8) of one card (its 20 heads split by sequence) against the same
+model unsharded (`CP_BOUNDS`)."""
 import dataclasses
 import importlib.util
 import pathlib
@@ -218,5 +222,101 @@ def test_zoo_config_on_one_card_matches_unsharded(arch, cuda):
     assert res["device_bytes"][str(cuda)]["caches"] == 4 * local_bytes(
         whole, S.cache_spec(cfg, mesh, B), mesh)
     most, mean = ZOO_BOUNDS[arch]
+    for step in gap["steps"]:
+        assert step["max_abs"] <= most and step["mean_abs"] <= mean, step
+
+
+@pytest.mark.parametrize("d,h,kvh", ((128, 20, 20), (64, 16, 4)))
+def test_decode_lse_on_the_card_matches_flash_plain(d, h, kvh, cuda):
+    """K8 decode's `return_lse` (the CUDA kernel): the output and the
+    log-sum-exp against `flash_plain`'s on the same inputs (the lse within
+    `chip_smoke.LSE_TOL`, -inf where plain's is), then the cache cut into
+    2 and 4 slot ranges, the last with no valid key (its lse -inf), merged
+    by `ops.merge_partials` within `chip_smoke.DECODE_ULPS` of the
+    whole-cache K8 call."""
+    import chip_smoke
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    b, skv = 2, 1040
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(
+        torch.bfloat16) for shape in ((b, 1, h, d), (b, skv, kvh, d),
+                                      (b, skv, kvh, d)))
+    for ranges in (2, 4):
+        n = skv // ranges
+        kp, kval = L._ring_positions((ranges - 1) * n, skv, b, cuda)
+        qp = torch.full((b, 1), (ranges - 1) * n - 1, dtype=torch.int32,
+                        device=cuda)
+        fa.reset_launches()
+        o, lse = fa.flash_attention(q, k, v, qp, kp, kval, return_lse=True)
+        assert fa.LAUNCHES["flash_decode"] == 1
+        po, plse = fa.flash_plain(q, k, v, qp, kp, kval, return_lse=True)
+        assert float((o.float() - po.float()).abs().max()) \
+            <= chip_smoke.decode_limit(po)
+        assert torch.equal(torch.isinf(lse), torch.isinf(plse))
+        assert float((lse - plse).abs().max()) <= chip_smoke.LSE_TOL
+        outs, lses = [], []
+        for r in range(ranges):
+            sl = slice(r * n, (r + 1) * n)
+            o_r, l_r = fa.flash_attention(
+                q, k[:, sl].contiguous(), v[:, sl].contiguous(), qp,
+                kp[:, sl].contiguous(), kval[:, sl].contiguous(),
+                return_lse=True)
+            outs.append(o_r[:, 0])
+            lses.append(l_r)
+        assert bool(torch.isneginf(lses[-1]).all())
+        merged = fa.merge_partials(torch.stack(outs),
+                                   torch.stack(lses)).to(torch.bfloat16)
+        assert float((merged.float() - o[:, 0].float()).abs().max()) \
+            <= chip_smoke.decode_limit(o)
+
+
+#: qwen1.5-4b at its published widths cut to 2 layers, served on (1, 8):
+#: B, a prompt of 104 tokens (13 query rows a point) and 8 tokens, so
+#: the 120 cache slots split 15 a point
+CP_PROMPT, CP_GEN = 104, 8
+#: (max |d|, mean |d|) bounds of its bf16 gap from the unsharded run
+#: (`_cp_gap`), measured on the CPU (K8's plain version, `_cp_gap` on
+#: ["cpu"] * 8) at max |d| 0.0586 and mean 0.0087; about three times
+#: that, as `BF16_MAX_ABS`
+CP_BOUNDS = (0.18, 0.027)
+
+
+def _cp_gap(mesh, device):
+    """(`chip_smoke.sharded_gap` of qwen1.5-4b cut to 2 layers on `mesh`
+    against its unsharded greedy run at B, CP_PROMPT and CP_GEN, the K8
+    calls by (Sq, Skv) of the sharded pass, the sharded serve result)."""
+    import chip_smoke
+    cfg = dataclasses.replace(get_config("qwen1.5-4b"), n_layers=2)
+    with set_mesh(make_test_mesh(mesh.axis_sizes, mesh.axis_names)):
+        ref = serve.serve_config(cfg, B, CP_PROMPT, CP_GEN, device)
+    seen, restore = chip_smoke.record_k8_shapes(L)
+    try:
+        res = serve.serve_config(cfg, B, CP_PROMPT, CP_GEN, device,
+                                 mesh=mesh)
+    finally:
+        restore()
+    gap = chip_smoke.sharded_gap(torch, L, SP, serve, ref, res["model"],
+                                 res["params"], mesh)
+    shapes = {}
+    for (sq, skv, _, _), c in seen.items():
+        shapes[(sq, skv)] = shapes.get((sq, skv), 0) + c
+    return gap, shapes, res
+
+
+def test_sequence_split_on_one_card_matches_unsharded(cuda):
+    """qwen1.5-4b's 20 heads on (1, 8) of cuda:0 x 8, context parallel:
+    K8 prefill on each point's 13 query rows against the 104 gathered
+    keys and decode on its 15 slots with the log-sum-exp (two passes, 2
+    layers, 8 points), each point's cache bytes `cache_spec`'s share,
+    the forced logits within `CP_BOUNDS`."""
+    mesh = make_test_mesh((1, 8), devices=[cuda] * 8)
+    gap, shapes, res = _cp_gap(mesh, cuda)
+    calls = 2 * 2 * 8
+    assert shapes == {(CP_PROMPT // 8, CP_PROMPT): calls,
+                      (1, 15): calls * CP_GEN}
+    cfg = res["cfg"]
+    whole = res["model"].init_cache(B, res["cap"], "meta")
+    assert res["device_bytes"][str(cuda)]["caches"] == 8 * local_bytes(
+        whole, S.cache_spec(cfg, mesh, B), mesh)
+    most, mean = CP_BOUNDS
     for step in gap["steps"]:
         assert step["max_abs"] <= most and step["mean_abs"] <= mean, step

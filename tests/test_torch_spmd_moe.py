@@ -3,7 +3,8 @@ mixtral-8x7b's smoke config (4 experts top-2, 4/2 heads, a window of 64)
 on tests/test_torch_spmd.py's meshes (its note says how both sides run).
 On (2, 2) and (2, 1, 2) the experts split 2 a point (expert-parallel)
 and the kv heads 1 a point; on (1, 4) each point holds one expert, and
-the 2 kv heads do not split whole over 4, so attention runs gathered.
+the 2 kv heads do not split whole over 4, so attention runs by sequence
+(context parallel: tests/test_torch_spmd_cp.py).
 Prefill and teacher-forced decode logits within 2e-4 / 3e-4, in f32."""
 import pytest
 

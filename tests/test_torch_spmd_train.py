@@ -3,8 +3,9 @@ own unsharded step, on the CPU.
 
 deepseek-v2-lite-16b's and llava-next-mistral-7b's smoke configs (MLA;
 the patch prefix, its patches in the batch) on (2, 2) and (1, 4) with
-FSDP, and mamba2-370m's and whisper-base's (its frames in the batch) on
-(2, 2) with FSDP, are held the same way as qwen's below.
+FSDP, mamba2-370m's and whisper-base's (its frames in the batch) on
+(2, 2) with FSDP, and minitron-4b's and mixtral-8x7b's on (1, 4), whose
+attention splits by sequence, are held the same way as qwen's below.
 
 qwen1.5-4b's smoke config in f32 on meshes of `["cpu"] * n`: (2, 2)
 over ("data", "model") with `fsdp` on and off, (1, 4), (2, 1, 2) over
@@ -235,6 +236,16 @@ def test_mamba_and_encoder_decoder_step_matches_unsharded_step(arch):
     the encoder output's gradient summed over "model") on (2, 2) with
     FSDP, under the same check."""
     check_case("2x2", arch=arch)
+
+
+@pytest.mark.parametrize("arch", ("minitron-4b", "mixtral-8x7b"))
+def test_sequence_split_step_matches_unsharded_step(arch):
+    """Context parallelism under autograd (minitron's 6/2 and mixtral's
+    4/2 heads on (1, 4): each point's 8 query rows of a microbatch
+    against the gathered k and v, y gathered; h, the gathered weights and
+    the gathered k and v entering the row split through `spmd.copy`),
+    every leaf's gradient within 1e-5 of the unsharded step's."""
+    check_case("1x4", arch=arch)
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))

@@ -230,3 +230,27 @@ def test_serve_launch_expectations_and_check_take_the_stub_inputs(
     gap = chip_smoke.teacher_forced_gap(torch, L, fa, serve, res)
     assert len(gap["steps"]) == 4 and gap["max_abs"] < 1e-4
     assert L._SDPA_BACKEND == "flash"
+
+
+@pytest.mark.parametrize("mesh,batch,prompt,gen", [("1x8", 2, 16, 8),
+                                                   ("2x2", 1, 16, 6)])
+def test_tf_gap_takes_batch_one_and_a_model_axis_of_eight(
+        mesh, batch, prompt, gen, capsys):
+    """`tools/tf_gap.py --mesh` on qwen1.5-4b's smoke config on the CPU
+    at the two layouts context parallelism adds: a (1, 8) mesh (its 4
+    heads split by sequence; the cap, 32, split 4 slots a point) and
+    batch 1 on (2, 2) (the cache's length split over "data"): one JSON
+    line a depth, its bf16 sharded gap within a tenth of the smoke
+    logits' scale (a sum or a slot range gone wrong moves them by about
+    their own)."""
+    import json
+    tool = _tool("tf_gap")
+    assert tool.main(["--arch", "qwen1.5-4b", "--config", "smoke",
+                      "--layers", "1", "2", "--mesh", mesh, "--batch",
+                      str(batch), "--prompt-len", str(prompt),
+                      "--gen-tokens", str(gen), "--device", "cpu"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["layers"] for x in lines] == [1, 2]
+    for x in lines:
+        assert x["mesh"] == mesh and x["batch"] == batch
+        assert x["max_abs"] < 0.05 and x["mean_abs"] < 0.01

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K8's cases alone (phase 7 of `chip_smoke.py`) from any checkout, on one
-NVIDIA GPU.
+"""K8's cases alone (phases 7 and 7a of `chip_smoke.py`) from any
+checkout, on one NVIDIA GPU.
 
     python3 tools/k8_attention.py [--root DIR]
 
@@ -9,8 +9,9 @@ this one), builds its kernel libraries from its own sources, and runs its
 `attention_phase`: one JSON line a K8 case (CUDA-event and device ms,
 errors against `flash_plain` and `sdpa_ref`, bound, SDPA's times; every
 case of phase 7, whisper-base's encoder, cross prefill and cross decode
-shapes at (64, 64) among them), then one line with each case's device
-ms. In a fresh process the profiler's K8 device times read right (in a
+shapes at (64, 64) among them), its `lse_phase` (decode's log-sum-exp
+against `flash_plain`'s, and slot ranges merged against the whole-cache
+call: one line a case), then one line with each case's device ms. In a fresh process the profiler's K8 device times read right (in a
 full smoke run they read low; PERF.md §7). Two trees are compared by running
 each tree's phase in its own process, in turns within one call on one
 card: parent, change, change, parent (the parent unpacked with
@@ -48,6 +49,7 @@ def main() -> int:
         emit(obj)
     chip_smoke.emit = keep
     chip_smoke.attention_phase(torch, fa, torch.device("cuda", 0), log)
+    chip_smoke.lse_phase(torch, fa, torch.device("cuda", 0))
     print(json.dumps({"root": str(root), "device_ms": {
         rec["case"]: rec["device_ms"] for rec in lines
         if "device_ms" in rec}}), flush=True)

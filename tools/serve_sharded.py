@@ -8,6 +8,10 @@ uncut (32 layers, 46.70 B parameters, 93.4 GB of bf16) on a (1, 4)
         [--batch 2] [--prompt-len 4080] [--gen-tokens 32]
     python3 tools/serve_sharded.py --arch jamba-1.5-large-398b \\
         --layers 8 --batch 4 --prompt-len 2048
+    python3 tools/serve_sharded.py --arch qwen1.5-4b --mesh 1x8 \\
+        --batch 4 --prompt-len 2048 --gen-tokens 16 --one-card
+    python3 tools/serve_sharded.py --arch qwen1.5-4b --mesh 2x2 \\
+        --batch 1 --prompt-len 32744 --gen-tokens 16 --one-card
 
 `--layers` cuts the published config's depth, and only jamba-1.5-large-
 398b's: its 72 layers (398 B parameters, 796 GB of bf16) fit on no four
@@ -26,20 +30,26 @@ layers x points a prefill call and a decode step, the collective counts
 (`spmd.COMM`) and, per card, the parameter bytes it holds beside
 `dryrun.local_bytes` of `param_specs` (reckoned), its cache bytes
 beside `cache_spec`'s share, and its peak memory (since the start: the
-draws' one full leaf on cuda:0 included). Needs as many visible CUDA
-devices as mesh points (`chip_smoke.py`'s path `serve-sharded` runs a
-cut model on four points of one card).
+draws' one full leaf on cuda:0 included); for a dense attention model
+also `chip_smoke.dense_serve_comm`, the collectives' formula, beside
+them. Needs as many visible CUDA devices as mesh points, or, with
+`--one-card`, puts every point on cuda:0 (`chip_smoke.py`'s sharded
+paths run so: the two commands above repeat `serve-sharded-cp`'s run,
+qwen1.5-4b's 20 heads split by sequence over 8 points, and
+`serve-sharded-b1`'s, batch 1 with the cache's length split over
+"data", without their checks).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 
 #: the one arch whose depth `--layers` may cut (the module's note)
@@ -47,10 +57,11 @@ CUT_ARCH = "jamba-1.5-large-398b"
 
 
 def run(arch: str, mesh_text: str, batch: int, prompt_len: int,
-        gen_tokens: int, layers=None) -> dict:
+        gen_tokens: int, layers=None, one_card: bool = False) -> dict:
     """One sharded serve of `arch`'s published config (cut to `layers`
-    layers where given) on `mesh_text`'s mesh of CUDA devices; the record
-    the module's note describes."""
+    layers where given) on `mesh_text`'s mesh of CUDA devices (every
+    point on cuda:0 with `one_card`); the record the module's note
+    describes."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -64,7 +75,15 @@ def run(arch: str, mesh_text: str, batch: int, prompt_len: int,
     cfg = get_config(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    mesh = serve.parse_mesh(mesh_text, "cuda")
+    if one_card:
+        from repro_torch.launch.mesh import make_test_mesh
+        shape = tuple(int(n) for n in mesh_text.lower().split("x"))
+        axes = ("data", "model") if len(shape) == 2 \
+            else ("pod", "data", "model")
+        mesh = make_test_mesh(shape, axes,
+                              devices=["cuda:0"] * math.prod(shape))
+    else:
+        mesh = serve.parse_mesh(mesh_text, "cuda")
     fa.reset_launches()
     SP.reset_counts()
     res = serve.serve_config(cfg, batch, prompt_len, gen_tokens, "cuda:0",
@@ -85,6 +104,14 @@ def run(arch: str, mesh_text: str, batch: int, prompt_len: int,
                    and r["caches"] == r["caches_cache_spec"]
                    for r in devices.values())
     t_pre, t_dec = res["prefill_seconds"], res["decode_seconds"]
+    formula = None
+    if cfg.attn is not None and not cfg.attn.kv_lora_rank and \
+            cfg.moe is None and cfg.mamba is None and not cfg.n_enc_layers \
+            and cfg.frontend is None and not res["fsdp"]:
+        import chip_smoke           # a dense attention model: its formula
+        formula = chip_smoke.dense_serve_comm(
+            cfg, mesh, batch, prompt_len, gen_tokens, res["cap"],
+            len(res["passes"]))
     return {"arch": arch, "config": cfg.name, "layers": cfg.n_layers,
             "params": cfg.param_count(), "mesh": mesh_text,
             "axes": list(mesh.axis_names), "fsdp": res["fsdp"],
@@ -95,7 +122,7 @@ def run(arch: str, mesh_text: str, batch: int, prompt_len: int,
             "decode_ms_per_token": t_dec / max(gen_tokens, 1) * 1e3,
             "launches": launches, "launches_expected": want,
             "launches_ok": launches == want, "bytes_ok": bytes_ok,
-            "collectives": comm,
+            "collectives": comm, "collectives_formula": formula,
             "finite": all(bool(torch.isfinite(x).all())
                           for x in res["logits"]),
             "sample": res["tokens"][0, :12].tolist(), "devices": devices}
@@ -110,6 +137,8 @@ def main() -> int:
     ap.add_argument("--gen-tokens", type=int, default=32)
     ap.add_argument("--layers", type=int, default=None,
                     help=f"cut the depth ({CUT_ARCH} only)")
+    ap.add_argument("--one-card", action="store_true",
+                    help="put every mesh point on cuda:0")
     args = ap.parse_args()
     if args.layers is not None and args.arch != CUT_ARCH:
         ap.error(f"--layers cuts {CUT_ARCH} only")
@@ -118,7 +147,7 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     out = run(args.arch, args.mesh, args.batch, args.prompt_len,
-              args.gen_tokens, args.layers)
+              args.gen_tokens, args.layers, args.one_card)
     print(json.dumps({"nvidia_smi": smi.splitlines(), **out}), flush=True)
     return 0 if out["finite"] and out["launches_ok"] and out["bytes_ok"] \
         else 1

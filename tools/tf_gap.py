@@ -32,8 +32,23 @@ same tokens and stub embeddings (`chip_smoke.sharded_gap`): once routing
 on its own, and, for a MoE model, once taking the unsharded run's
 routing choices.
 
-    PYTHONPATH=src python3 tools/tf_gap.py --arch mixtral-8x7b \
+    PYTHONPATH=src python3 tools/tf_gap.py --arch mixtral-8x7b \\
         --layers 1 2 --mesh 2x2 --device cpu
+
+A batch the data axes do not divide runs whole on every point, its
+cache's slots split over "data" (`chip_smoke.py`'s `serve-sharded-b1`),
+and a model axis of 8 splits qwen1.5-4b's 20 heads by sequence
+(`serve-sharded-cp`; the cap, prompt + tokens + 8, should divide by 8):
+
+    PYTHONPATH=src python3 tools/tf_gap.py --arch qwen1.5-4b \\
+        --layers 1 2 4 --mesh 1x8 --batch 2 --prompt-len 256 \\
+        --gen-tokens 8 --device cpu
+    PYTHONPATH=src python3 tools/tf_gap.py --arch qwen1.5-4b \\
+        --layers 1 2 4 --mesh 2x2 --batch 1 --prompt-len 256 \\
+        --gen-tokens 6 --device cpu
+
+`--config smoke` takes the registry's smoke config instead (its depth
+cut the same way), for a quick run of the tool itself.
 """
 from __future__ import annotations
 
@@ -50,7 +65,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke  # noqa: E402
 
 
-def main() -> int:
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="deepseek-v2-lite-16b")
     ap.add_argument("--layers", type=int, nargs="+", default=[3])
@@ -60,17 +75,19 @@ def main() -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mesh", default=None,
                     help="DxM: the gap of the model sharded over this mesh")
-    args = ap.parse_args()
+    ap.add_argument("--config", default="full", choices=("full", "smoke"))
+    args = ap.parse_args(argv)
 
     import torch
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels.flashattn import ops as fa
     from repro_torch.launch import serve
     from repro_torch.models import layers as L
     from repro_torch.models.model import Model
     dev = serve.resolve_device(args.device)
     for n in args.layers:
-        cfg = dataclasses.replace(get_config(args.arch), n_layers=n)
+        base = get_config if args.config == "full" else get_smoke_config
+        cfg = dataclasses.replace(base(args.arch), n_layers=n)
         if args.mesh:
             sharded(torch, args, cfg, dev)
             continue
