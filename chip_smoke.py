@@ -251,10 +251,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              (serve-sharded-cp: 256 query rows of a 2048-token prefill
              against its 2048 keys; decode over a point's 259 slots) and
              on (2, 2) at batch 1 (serve-sharded-b1: decode over 16,384
-             slots, 10 heads);
+             slots, 10 heads), and deepseek-v2-lite-16b's point on (2, 2)
+             at batch 1 (serve-sharded-b1-mla: 8 heads at (192, 128), the
+             32,744-row prefill against its own keys, whose plain version
+             is timed on its one call and whose 34 GB of f32 scores keep
+             `sdpa_ref` out, its library call SDPA with `is_causal`; decode
+             over 16,384 slots);
 7a. lse    — K8 decode's log-sum-exp (`return_lse`, the merge of context
-             parallelism) on the card at (128, 128) and (64, 64), GQA
-             groups 1 and 4: the output and the lse against
+             parallelism) on the card at (128, 128), (64, 64) and MLA's
+             (192, 128) (a batch-1 point's 8 heads over 16,384 slots),
+             GQA groups 1 and 4: the output and the lse against
              `flash_plain`'s on the same inputs (the output within
              FLASH_TOL and `decode_limit`, the lse within `LSE_TOL`, -inf
              exactly where plain's is), then the cache cut into 2 and 4
@@ -409,14 +415,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              vocabulary whole; the check within
              `SHARDED_ENCDEC_MAX_ABS` and `SHARDED_ENCDEC_MEAN_ABS`;
 11i. serve-sharded-cp — path `serve-sharded-cp` (`SERVE_SHARDED_CP`):
-             qwen1.5-4b uncut (20 heads, which 8 does not divide) on a
+             qwen1.5-4b at published widths cut to 16 of 40 layers (20
+             heads, which 8 does not divide) on a
              (1, 8) mesh of eight points of the card, context parallel:
              the attention weights gathered over "model", each point's
              256 of the prompt's 2048 query rows against the gathered k
              and v (K8 prefill, Sq 256, Skv 2048), its 259 of the 2072
              cache slots, K8 decode on them with their log-sum-exp and
              the eight partials merged; each point's cache bytes held to
-             `cache_spec`'s share, `spmd.COMM` to `dense_serve_comm` (the
+             `cache_spec`'s share, `spmd.COMM` to `serve_comm` (the
              formula of `parallel/spmd.py`'s note) and K8's calls to
              their (Sq, Skv); the check within `SHARDED_CP_MAX_ABS` and
              `SHARDED_CP_MEAN_ABS`;
@@ -428,6 +435,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              decode over 16,384 slots and 10 heads a point, the two data
              points' partials merged); held as 11i within
              `SHARDED_B1_MAX_ABS` and `SHARDED_B1_MEAN_ABS`;
+11k. serve-sharded-b1-mla — path `serve-sharded-b1-mla`
+             (`SERVE_SHARDED_B1_MLA`): deepseek-v2-lite-16b at published
+             widths cut to 3 layers at batch 1, a 32,744-token prompt, 16
+             tokens (cap 32,768) on (2, 2) of four points: MLA's latent
+             and rope caches split by their slots over "data" at every
+             column (16,384 slots a point), the call's latent gathered
+             over "model", K8 (192, 128) prefill on the point's 8 heads
+             at (32,744, 32,744) and decode over its 16,384 slots with
+             the log-sum-exp, the data points' partials merged; `COMM`
+             held to `serve_comm`, K8's calls to their (Sq, Skv), the
+             check as 11e's within `SHARDED_B1_MLA_MAX_ABS` and
+             `SHARDED_B1_MLA_MEAN_ABS`;
+11l. serve-sharded-b1-mamba2 — path `serve-sharded-b1-mamba2`
+             (`SERVE_SHARDED_B1_MAMBA`): mamba2-370m cut to 8 layers at
+             batch 1, a 2,048-token prompt, 32 tokens on (2, 2): the SSM
+             state's 16 heads a point by its "data" coordinate, its gated
+             output gathered over "data" before out_proj's rows; `COMM`
+             held to `serve_comm`, no hand kernel; the check within
+             `SHARDED_B1_SSM_MAX_ABS` and `SHARDED_B1_SSM_MEAN_ABS`;
 12. train  — path `train`: qwen1.5-4b at its full config (3.95 B
              parameters, bf16, random weights from seed 0) through
              `train.step.build_train_step` with AdamW (cosine schedule,
@@ -496,13 +522,15 @@ path's count, the `dist-*` (`dist-pod` too), `launch-reports`,
 `torch-tpch`, `serve-mixtral`,
 `serve-mamba2`, `serve-whisper`, `serve-llava`, `serve-sharded`,
 `serve-sharded-mla`, `serve-sharded-llava`, `serve-sharded-mamba2`,
-`serve-sharded-whisper`, `serve-sharded-cp`, `serve-sharded-b1`, `train`,
-`train-ft` and `train-sharded` paths'
+`serve-sharded-whisper`, `serve-sharded-cp`, `serve-sharded-b1`,
+`serve-sharded-b1-mla`, `serve-sharded-b1-mamba2`, `train`, `train-ft`
+and `train-sharded` paths'
 included (K8's (128, 128) rows count `serve-mixtral`'s, `serve-llava`'s,
 `serve-sharded`'s, `serve-sharded-llava`'s, `serve-sharded-cp`'s and
 `serve-sharded-b1`'s launches there, its MLA
-rows `serve-sharded-mla`'s, its (64, 64) rows `serve-sharded-whisper`'s;
-every kernel 0 on `torch-tpch`, `serve-mamba2`, `serve-sharded-mamba2`,
+rows `serve-sharded-mla`'s and `serve-sharded-b1-mla`'s, its (64, 64)
+rows `serve-sharded-whisper`'s; every kernel 0 on `torch-tpch`,
+`serve-mamba2`, `serve-sharded-mamba2`, `serve-sharded-b1-mamba2`,
 `train`, `train-ft` and `train-sharded`); `plain_device` says where
 `plain_ms` was taken: "cuda" for CUDA-event times on the card, "cpu" for
 the sequential K4 and K6a builds timed on the host; K6's and K8's rows
@@ -822,9 +850,12 @@ SHARDED_ENCDEC_MEAN_ABS = 0.008
 #: of every weight (its columns of wq, wk, wv, w1, w3 and the LM head, its
 #: rows of wo, w2 and the embedding), about 1 GB; its cache 259 of the
 #: 2072 slots, 0.42 GB (the whole cache, which each point held before the
-#: sequence split, is 3.39 GB)
-SERVE_SHARDED_CP = {"arch": "qwen1.5-4b", "config": "full", "batch": 4,
-                    "prompt_len": 2048, "gen_tokens": 16, "mesh": (1, 8),
+#: sequence split, is 3.39 GB). Served cut to 16 of the 40 layers (uncut
+#: until the two batch-1 paths of MLA and Mamba-2 took the smoke past its
+#: time budget, this path being the longest sharded one)
+SERVE_SHARDED_CP = {"arch": "qwen1.5-4b", "config": "full", "layers": 16,
+                    "batch": 4, "prompt_len": 2048, "gen_tokens": 16,
+                    "mesh": (1, 8),
                     "k8_shapes": {"prefill": (256, 2048),
                                   "decode": (1, 259)}}
 #: Its check, set before the path's first card run. They differ where w2's
@@ -864,7 +895,60 @@ SERVE_SHARDED_B1 = {"arch": "qwen1.5-4b", "config": "full", "batch": 1,
 #: over more keys, are smaller
 SHARDED_B1_MAX_ABS = 0.25
 SHARDED_B1_MEAN_ABS = 0.04
-#: phases 11d-11j in order: path -> (spec, its check's (max, mean) bounds
+#: serve-sharded-b1-mla: deepseek-v2-lite-16b at its published widths (16
+#: heads, r 512, dr 64; 64 experts top-6 + 2 shared) cut to 3 layers, as
+#: serve-sharded-mla is (the dense first layer and 2 MoE layers), at batch
+#: 1, a 32,744-token prompt and 16 tokens (cap 32,768, its published 32k
+#: context) on (2, 2) of four points of the card, fsdp off: the batch
+#: whole on every point, MLA's latent and rope caches split by their slots
+#: over "data" at every column (`cache_spec`'s `P(None, "data", None)`:
+#: 16,384 slots x 576 columns a layer a point), the call's latent gathered
+#: over "model" instead of the cache, K8 (192, 128) on each point's 8
+#: heads over its slots with the log-sum-exp, the two data points'
+#: partials merged
+SERVE_SHARDED_B1_MLA = {"arch": "deepseek-v2-lite-16b", "config": "full",
+                        "layers": 3, "batch": 1, "prompt_len": 32744,
+                        "gen_tokens": 16, "mesh": (2, 2),
+                        "k8_shapes": {"prefill": (32744, 32744),
+                                      "decode": (1, 16384)}}
+#: Its check, set before the path's first card run (`tools/tf_gap.py --arch
+#: deepseek-v2-lite-16b --mesh 2x2 --batch 1 --prompt-len 256 --gen-tokens
+#: 6 --device cpu`, K8's plain version, full width): replayed, max |d|
+#: 0.0391 / 0.0508 / 0.0625 and mean 0.0067 / 0.0089 / 0.0102 at 1 / 2 /
+#: 3 layers; routing on its own 6.1% / 5.2% of the choices differ at 2 / 3
+#: layers. The bounds are serve-sharded-mla's, four times the 3-layer
+#: reading (the 32,744-token prompt adds no rounding a token: each sum is
+#: a token's own); a slot range, merge weight or head on the wrong point
+#: moves the logits (std ~1.3) by a share of their scale
+SHARDED_B1_MLA_MAX_ABS = SHARDED_MLA_MAX_ABS
+SHARDED_B1_MLA_MEAN_ABS = SHARDED_MLA_MEAN_ABS
+#: serve-sharded-b1-mamba2: mamba2-370m at its published widths (32 heads of
+#: 64, state 128) cut to 8 layers, as serve-sharded-mamba2 is, at batch 1,
+#: a 2,048-token prompt and 32 tokens on (2, 2) of four points of the
+#: card: the SSM state's heads split over "data" (16 of the 32 by the
+#: point's data coordinate, whole over "model"), the conv window's 1,152
+#: of 2,304 channels by its model coordinate (`cache_spec`); a point runs
+#: the SSD and the recurrent step on its SSM heads, gathers their gated
+#: output over "data" and multiplies its out_proj rows' heads of it. The
+#: state does not grow with the prompt: a longer one adds time and nothing
+#: to check. No hand kernel
+SERVE_SHARDED_B1_MAMBA = {"arch": "mamba2-370m", "config": "full",
+                          "layers": 8, "batch": 1, "prompt_len": 2048,
+                          "gen_tokens": 32, "mesh": (2, 2), "k8_shapes": {}}
+#: Its check, set before the path's first card run: the sharded run fed
+#: the unsharded greedy run's tokens, against its logits. They differ
+#: where out_proj's partial products are rounded to bf16 on each point
+#: before their f32 sum (the gathers move values unchanged). On the CPU
+#: (`tools/tf_gap.py --arch mamba2-370m --mesh 2x2 --batch 1 --prompt-len
+#: 256 --gen-tokens 6 --device cpu`, full width): max |d| 0.0156 / 0.0234
+#: / 0.0342 / 0.0625 and mean 0.0017 / 0.0039 / 0.0063 / 0.0103 at 1 / 2 /
+#: 4 / 8 layers, as serve-sharded-mamba2's batch-4 readings. The bounds
+#: are serve-sharded-mamba2's, over five times the 8-layer reading; a
+#: head's output, state or gate from the wrong point moves the logits
+#: (std ~0.64) by about their scale
+SHARDED_B1_SSM_MAX_ABS = SHARDED_SSM_MAX_ABS
+SHARDED_B1_SSM_MEAN_ABS = SHARDED_SSM_MEAN_ABS
+#: phases 11d-11l in order: path -> (spec, its check's (max, mean) bounds
 #: and, for a MoE, the most of its own routing's choices that may differ)
 SERVE_SHARDED_PATHS = {
     "serve-sharded": (SERVE_SHARDED, (SHARDED_MAX_ABS, SHARDED_MEAN_ABS,
@@ -884,6 +968,11 @@ SERVE_SHARDED_PATHS = {
                                             SHARDED_CP_MEAN_ABS, None)),
     "serve-sharded-b1": (SERVE_SHARDED_B1, (SHARDED_B1_MAX_ABS,
                                             SHARDED_B1_MEAN_ABS, None)),
+    "serve-sharded-b1-mla": (SERVE_SHARDED_B1_MLA, (
+        SHARDED_B1_MLA_MAX_ABS, SHARDED_B1_MLA_MEAN_ABS,
+        SHARDED_MLA_ROUTE_SHARE)),
+    "serve-sharded-b1-mamba2": (SERVE_SHARDED_B1_MAMBA, (
+        SHARDED_B1_SSM_MAX_ABS, SHARDED_B1_SSM_MEAN_ABS, None)),
 }
 #: the reference's bf16 tolerance for the flash kernel
 #: (tests/test_kernels_flash.py)
@@ -903,6 +992,9 @@ DECODE_ULPS = 2
 #: weight
 LSE_TOL = 1e-4
 FLASH = ("flash_prefill", "flash_decode")
+#: query rows of a batch-1 point's 32,744-row prefill that phase 7 holds
+#: K8 to `flash_plain` on (the last: they see the most keys)
+PLAIN_ROWS = 256
 #: train path: qwen1.5-4b at its published config, random weights from
 #: seed 0, batch 4 x 2048 tokens in 2 microbatches, remat, AdamW on a
 #: cosine schedule (peak 3e-4, 2 warm-up steps), 8 steps on one batch
@@ -3486,7 +3578,8 @@ def decode_limit(ref) -> float:
         if top > 0 else 0.0
 
 
-def attention_phase(torch, fa, dev, ptxas_log: str):
+def attention_phase(torch, fa, dev, ptxas_log: str,
+                    whole_plain: bool = False):
     """K8 against `flash_plain` and `sdpa_ref` on the card, one line per
     shape (a mesh point's share of some served shapes too); returns the
     records of the kernel table's rows (qwen1.5-4b's, deepseek-v2-lite's
@@ -3494,7 +3587,12 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
     step's for (64, 64)) and each row's largest error. Every line adds
     the kernel's registers and spills from `ptxas_log`; a prefill line
     its device TFLOP/s (unmasked flops over `device_ms`) and the shared
-    memory one of its CTAs takes, a decode line its device GB/s."""
+    memory one of its CTAs takes, a decode line its device GB/s. A case
+    whose dense f32 scores pass 8 GB (a batch-1 point's 32,744-row
+    prefill) is held to `flash_plain` alone, and, unless `whole_plain`,
+    on its last `PLAIN_ROWS` query rows (they see the most keys; its
+    plain version over every row took 36 s on the H100), the line
+    saying which rows its `plain_ms` covers."""
     import torch.nn.functional as F
     from repro_torch.kernels.flashattn.ref import attend_mask, sdpa_ref
     from repro_torch.models.layers import _ring_positions
@@ -3610,6 +3708,16 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
          None, rows(4, 1, 2063), ring(2064, 2072, 4, 1813, 259)),
         ("qwen1.5-4b b1 point decode", 1, 1, 16384, 10, 10, (128, 128),
          True, None, rows(1, 1, 32759), ring(32760, 32768, 1, 0, 16384)),
+        # deepseek-v2-lite-16b's point on (2, 2) at batch 1
+        # (serve-sharded-b1-mla): its 8 heads of the 32,744-token prefill
+        # against the call's own latent, and decode at position 32,759 over
+        # the first data point's 16,384 slots
+        ("deepseek-v2-lite b1 point prefill", 1, 32744, 32744, 8, 8,
+         (192, 128), True, None, rows(1, 32744),
+         (rows(1, 32744), torch.ones(1, 32744, dtype=torch.bool,
+                                     device=dev))),
+        ("deepseek-v2-lite b1 point decode", 1, 1, 16384, 8, 8, (192, 128),
+         True, None, rows(1, 1, 32759), ring(32760, 32768, 1, 0, 16384)),
     )
     worst = dict.fromkeys(FLASH + FLASH_MLA + FLASH_D64, 0.0)
     rep = {}
@@ -3623,16 +3731,34 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
         args = (q, k, v, qp, kp, kval)
         kw = {"causal": causal, "window": window}
         got = fa.flash_attention(*args, **kw)
-        plain = fa.flash_plain(*args, **kw)
+        # a batch-1 point's 32,744-row prefill: sdpa_ref's f32 scores would
+        # take 34 GB and `flash_plain`'s 65,536 blocks 36 s, so the plain
+        # version runs once, on the last rows unless `whole_plain`, and
+        # SDPA is asked for the causal mask without a mask tensor (the
+        # same mask here)
+        big = b * h * sq * skv > 1 << 31
+        rows_p = slice(0 if whole_plain or not big else sq - PLAIN_ROWS, sq)
+        held = {}
+
+        def plain_call():
+            held["plain"] = fa.flash_plain(q[:, rows_p], k, v, qp[:, rows_p],
+                                           kp, kval, **kw)
+        plain_ms = cuda_ms(torch, plain_call, 1 if big else 3,
+                           warm=0 if big else 1)
+        plain = held.pop("plain")
+        refs = [("flash_plain", plain)]
         rep_kv = h // kvh
-        dense = sdpa_ref(q, k.repeat_interleave(rep_kv, 2),
-                         v.repeat_interleave(rep_kv, 2), qp, kp, kval, **kw)
+        if not big:
+            refs.append(("sdpa_ref", sdpa_ref(
+                q, k.repeat_interleave(rep_kv, 2),
+                v.repeat_interleave(rep_kv, 2), qp, kp, kval, **kw)))
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"K8 {name}: not finite")
         errs, limits = {}, {}
-        for ref_name, ref in (("flash_plain", plain), ("sdpa_ref", dense)):
-            errs[ref_name] = float((got.float() - ref.float()).abs().max())
-            check(torch.allclose(got.float(), ref.float(), atol=FLASH_TOL,
+        for ref_name, ref in refs:
+            mine = got[:, rows_p] if ref_name == "flash_plain" else got
+            errs[ref_name] = float((mine.float() - ref.float()).abs().max())
+            check(torch.allclose(mine.float(), ref.float(), atol=FLASH_TOL,
                                  rtol=FLASH_TOL),
                   f"K8 {name} differs from {ref_name} by "
                   f"{errs[ref_name]}")
@@ -3661,6 +3787,9 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
         mask = allowed[:, None]
 
         def library():
+            if big:
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=h != kvh)
             return F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=h != kvh)
         rec = {"phase": "attention", "kernel": variant, "case": name,
@@ -3670,22 +3799,23 @@ def attention_phase(torch, fa, dev, ptxas_log: str):
                "unmasked_pairs": pairs, "flops": flops, "bytes": nbytes,
                "ms": cuda_ms(torch, lambda: fa.flash_attention(*args, **kw),
                              10, per=10),
-               "plain_ms": cuda_ms(torch, lambda: fa.flash_plain(*args, **kw),
-                                   3, warm=1),
-               "plain_device": "cuda",
+               "plain_ms": plain_ms, "plain_device": "cuda",
+               "plain_rows": rows_p.stop - rows_p.start,
                "bound_ms": max(t_ops, t_bytes) * 1e3,
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "library_ms": cuda_ms(torch, library, 10, per=10),
                "library_call": "torch.nn.functional."
-                               "scaled_dot_product_attention(attn_mask="
-                               "bool, enable_gqa)",
+                               "scaled_dot_product_attention(" + (
+                                   "is_causal" if big else "attn_mask=bool")
+                               + ", enable_gqa)",
                # device time alone, out of the profiler: at Sq 1 the
                # host's dispatch can outlast both calls' kernels
                "device_ms": device_ms(
                    torch, lambda: fa.flash_attention(*args, **kw)),
                "library_device_ms": device_ms(torch, library),
                "max_abs_err": errs["flash_plain"],
-               "max_abs_err_sdpa_ref": errs["sdpa_ref"], "tol": FLASH_TOL}
+               "max_abs_err_sdpa_ref": errs.get("sdpa_ref"),
+               "tol": FLASH_TOL}
         if variant == "flash_prefill":
             rec["device_tflops"] = flops / (rec["device_ms"] * 1e-3) / 1e12
             rec["ptxas"] = ptxas_usage(ptxas_log,
@@ -3713,18 +3843,21 @@ def lse_phase(torch, fa, dev) -> dict:
     from repro_torch.models.layers import _ring_positions
     gen = torch.Generator(device=dev).manual_seed(5)
     worst = {"o": 0.0, "lse": 0.0, "merged_over_limit": 0.0}
-    cases = (  # name, b, skv, h, kvh, d, window, index
-        ("qwen1.5-4b cp decode", 4, 2072, 20, 20, 128, None, 2064),
-        ("GQA 32/8 decode", 2, 2048, 32, 8, 128, None, 1500),
-        ("d64 decode", 4, 1024, 8, 8, 64, None, 1000),
-        ("d64 GQA 16/4 window 256", 2, 1024, 16, 4, 64, 256, 1000),
+    cases = (  # name, b, skv, h, kvh, (d, dv), window, index
+        ("qwen1.5-4b cp decode", 4, 2072, 20, 20, (128, 128), None, 2064),
+        ("GQA 32/8 decode", 2, 2048, 32, 8, (128, 128), None, 1500),
+        ("d64 decode", 4, 1024, 8, 8, (64, 64), None, 1000),
+        ("d64 GQA 16/4 window 256", 2, 1024, 16, 4, (64, 64), 256, 1000),
+        # deepseek-v2-lite-16b's point at batch 1 on (2, 2)
+        # (serve-sharded-b1-mla): 8 heads over a data point's 16,384 slots
+        ("MLA b1 point decode", 1, 16384, 8, 8, (192, 128), None, 16000),
     )
-    for name, b, skv, h, kvh, d, window, index in cases:
+    for name, b, skv, h, kvh, (d, dv), window, index in cases:
         def randn(*shape):
             return torch.randn(shape, generator=gen, device=dev).to(
                 torch.bfloat16)
         q, k, v = randn(b, 1, h, d), randn(b, skv, kvh, d), \
-            randn(b, skv, kvh, d)
+            randn(b, skv, kvh, dv)
         kp, kval = _ring_positions(index, skv, b, dev)
         qp = torch.full((b, 1), index - 1, dtype=torch.int32, device=dev)
         kw = {"causal": True, "window": window}
@@ -3744,7 +3877,8 @@ def lse_phase(torch, fa, dev) -> dict:
               f"K8 lse {name}: lse differs from flash_plain's by {lse_err}")
         whole = fa.flash_attention(q, k, v, qp, kp, kval, **kw)
         rec = {"phase": "lse", "case": name,
-               "shape": {"B": b, "Skv": skv, "H": h, "KVH": kvh, "D": d},
+               "shape": {"B": b, "Skv": skv, "H": h, "KVH": kvh, "D": d,
+                         "Dv": dv},
                "window": window, "o_err": o_err, "lse_err": lse_err,
                "tol": {"o": min(FLASH_TOL, decode_limit(po)),
                        "lse": LSE_TOL},
@@ -4349,46 +4483,108 @@ def record_k8_shapes(L) -> tuple:
     return seen, restore
 
 
-def dense_serve_comm(cfg, mesh, batch: int, prompt_len: int,
-                     gen_tokens: int, cap: int, passes: int = 1) -> dict:
-    """`spmd.COMM` of `passes` passes of `serve.generate_sharded` of a
-    dense attention model (an MLP in every layer, fsdp off), summed over
-    the points, by the formulas of `parallel/spmd.py`'s note: the
+def serve_comm(cfg, mesh, batch: int, prompt_len: int, gen_tokens: int,
+               cap: int, passes: int = 1) -> dict:
+    """`spmd.COMM` of `passes` passes of `serve.generate_sharded` (fsdp
+    off), summed over the points, by the formulas of `parallel/spmd.py`'s
+    note, for a model whose layers are attention, MLA or Mamba-2 mixers,
+    each followed by an MLP, an expert-parallel MoE or nothing: the
     vocab-parallel embedding's all-reduce and the logits' gather (where tp
-    divides the vocabulary), w2's all-reduce (where tp divides d_ff);
-    where the heads split whole, wo's all-reduce; under the sequence
-    split, one gather of the attention leaves split over "model" each
-    call and, where tp divides the call's tokens, k, v and y gathered;
-    where the cache's slots are split over n points, a decode step's
-    merge."""
-    a, d, f, v = cfg.attn, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    divides the vocabulary); per layer, for attention wo's all-reduce
+    where the heads split whole, and under the sequence split one gather
+    of the attention leaves split over "model" each call and, where tp
+    divides the call's tokens, k, v and y gathered; for MLA where it
+    splits over "model", w_kr gathered whole and wo's all-reduce, and the
+    latent and rope caches gathered, or, at a batch the data axes do not
+    divide (batch 1), the call's latent; for the Mamba-2 mixer where it
+    splits, in_proj's and the conv's outputs gathered and out_proj's
+    all-reduce, and at batch 1 its gated output gathered over "data"
+    where "data" splits its heads; where a cache's slots are split over
+    n points, a decode step's merge; w2's all-reduce where its rows are
+    split, the MoE's f32 combine where its experts or their d_ff are, and
+    once a call the stacked leaves whose layer dim is split (deepseek's
+    shared experts); the splits read from `param_specs`. Raises
+    ValueError for a layer this does not cover (MLA or a Mamba-2 mixer
+    gathered over a model axis of more than one point)."""
+    from repro_torch.models.common import abstract_params, layer_layout
+    from repro_torch.parallel import sharding as S
+    a, d, v = cfg.attn, cfg.d_model, cfg.vocab_size
     tp = mesh.shape.get("model", 1)
+    ways_d = mesh.shape.get("data", 1)
     dp = math.prod(mesh.shape.get(x, 1) for x in ("pod", "data"))
     e = cfg.dtype.itemsize
     b_ok = batch % dp == 0
     b = batch // dp if b_ok else batch
-    hd, kvh = a.head_dim, a.num_kv_heads
-    hs = tp if a.num_heads % tp == 0 and kvh % tp == 0 else 1
-    cp = tp > 1 and hs == 1
-    want = ([mesh.shape["data"]] if not b_ok and mesh.shape.get("data", 1)
-            > 1 else []) + ([tp] if cp else [])
-    n = 1
-    for w in want:                   # the ways the cache's slots split
-        if cap % (n * w) == 0:
-            n *= w
-    from repro_torch.models.common import abstract_params
-    from repro_torch.parallel import sharding as S
-    mixer = abstract_params(cfg)["layers"][0]["mixer"]
-    specs = S.param_specs(cfg, mesh, fsdp=False)["layers"][0]["mixer"]
-    gathered = [mixer[k][0].numel() for k in mixer
-                if k != "ln" and "model" in tuple(specs[k])]
+    b1 = not b_ok and ways_d > 1     # the batch whole on every point
+    full, specs = abstract_params(cfg), S.param_specs(cfg, mesh, fsdp=False)
+
+    def model_split(entry):          # a spec entry that "model" splits
+        return tp > 1 and "model" in (entry if isinstance(entry, tuple)
+                                      else (entry,))
+    stacked = []    # gathered once a call: the layer dim "model" splits
+
+    def walk(x, y):
+        if isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k])
+        elif model_split(y[0]):
+            stacked.append(math.prod(x.shape))
+    for x, y in zip(full["layers"], specs["layers"]):
+        walk(x, y)
+    prefix, period, _ = layer_layout(cfg)
+    # each layer's FFN's specs (None for a mixer-only block)
+    ffns = [(specs["prefix_layers"][i] if i < prefix else specs["layers"][
+        (i - prefix) % period]).get("ffn") for i in range(cfg.n_layers)]
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    if a is not None:
+        hd, kvh = a.head_dim, a.num_kv_heads
+        hs = tp if a.num_heads % tp == 0 and kvh % tp == 0 else 1
+        cp = tp > 1 and hs == 1 and not a.kv_lora_rank
+        want = ([ways_d] if b1 else []) + ([tp] if cp else [])
+        n = 1
+        for w in want:               # the ways the cache's slots split
+            if cap % (n * w) == 0:
+                n *= w
+        lay = specs["layers"][0]["mixer"]
+        mixer = full["layers"][0]["mixer"]
+        gathered = [mixer[k][0].numel() for k in mixer
+                    if k != "ln" and "model" in tuple(lay[k])]
+        if a.kv_lora_rank:
+            r, dr = a.kv_lora_rank, a.rope_head_dim
+            mla = hs if r % tp == 0 and dr % tp == 0 else 1
+            if tp > 1 and mla == 1:
+                raise ValueError("serve_comm: MLA gathered over 'model'")
+    if cfg.mamba is not None:
+        mb = cfg.mamba
+        d_in = mb.expand * d
+        nheads, ch = d_in // mb.head_dim, d_in + 2 * mb.d_state
+        if tp > 1 and (nheads % tp or ch % tp):
+            raise ValueError("serve_comm: a Mamba-2 mixer gathered over "
+                             "'model'")
     ar = ag = ar_b = ag_b = 0
     for s in [prompt_len] + [1] * gen_tokens:
         if tp > 1 and v % tp == 0:   # the embedding, the logits
             ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
             ag, ag_b = ag + 1, ag_b + (tp - 1) * 4 * b * v // tp
-        for _ in range(cfg.n_layers):
-            if hs > 1:               # wo
+        for numel in stacked:        # the split layer dims, in one call
+            ag, ag_b = ag + 1, ag_b + (tp - 1) * e * numel // tp
+        for i, kind in enumerate(kinds):
+            if kind == "mamba":
+                if tp > 1:           # in_proj's and the conv's outputs
+                    ag += 2
+                    ag_b += (tp - 1) * e * b * s * (
+                        d_in + ch + nheads + ch) // tp
+                    ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
+                if b1 and nheads % ways_d == 0:     # the gated output
+                    ag += 1
+                    ag_b += (ways_d - 1) * e * b * s * d_in // ways_d
+            elif a.kv_lora_rank:
+                if tp > 1:           # w_kr; the call's latent, or the
+                    ag += 2 if b1 else 3     # cached latent and rope
+                    ag_b += (tp - 1) * e * (d * dr + (
+                        b * s * r if b1 else b * cap * (r + dr))) // tp
+                    ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
+            elif hs > 1:             # wo
                 ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
             elif cp:                 # the attention leaves, in one
                 ag += 1
@@ -4396,10 +4592,16 @@ def dense_serve_comm(cfg, mesh, batch: int, prompt_len: int,
                 if s % tp == 0:      # k, v and y
                     ag += 3
                     ag_b += (tp - 1) * e * b * s * (2 * kvh * hd + d) // tp
-            if s == 1 and n > 1:     # the decode merge
+            if kind != "mamba" and s == 1 and n > 1:   # the decode merge
                 ag += 1
                 ag_b += (n - 1) * 4 * b * (a.num_heads // hs) * (hd + 1)
-            if tp > 1 and f % tp == 0:   # w2
+            ffn = ffns[i]
+            if ffn is None:
+                continue
+            if "router" in ffn:      # the MoE's f32 combine
+                if any(model_split(x) for x in ffn["w2"][-3:-1]):
+                    ar, ar_b = ar + 1, ar_b + (tp - 1) * 4 * b * s * d
+            elif model_split(ffn["w2"][-2]):     # w2
                 ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
     k = passes * mesh.size
     return {"all_reduce": ar * k, "all_gather": ag * k, "reduce_scatter": 0,
@@ -4409,11 +4611,11 @@ def dense_serve_comm(cfg, mesh, batch: int, prompt_len: int,
 
 def serve_sharded_phase(torch, kb, sj, fa, dev, smi: str, path: str,
                         spec: dict, tol: tuple) -> dict:
-    """Path `path` (phases 11d-11j, `SERVE_SHARDED_PATHS`): the model of
+    """Path `path` (phases 11d-11l, `SERVE_SHARDED_PATHS`): the model of
     `spec` through `serve.serve_config(..., mesh=...)` on a mesh of
     points of the card, its launches and collectives counted (K8's calls
     by shape, held to `spec["k8_shapes"]` and `spmd.COMM` to
-    `dense_serve_comm` where the spec has them), each point's parameter
+    `serve_comm` where the spec has them), each point's parameter
     and cache bytes held to the specs' shares, then the check against the
     same model unsharded (`sharded_gap`) within `tol` (max |d|, mean |d|,
     and for a MoE the most of its routing choices that may differ on its
@@ -4468,15 +4670,16 @@ def serve_sharded_phase(torch, kb, sj, fa, dev, smi: str, path: str,
         n_attn = sum(cfg.layer_kind(i) == "attn"
                      for i in range(cfg.n_layers))
         runs = len(res["passes"]) * mesh.size * n_attn
-        want_shapes = {spec["k8_shapes"]["prefill"]: runs,
-                       spec["k8_shapes"]["decode"]: runs * g}
+        want_shapes = {spec["k8_shapes"][k]: n for k, n in (
+            ("prefill", runs), ("decode", runs * g))
+            if k in spec["k8_shapes"]}
         got_shapes = collections.Counter()
         for (sq, skv, _, _), n in shapes.items():
             got_shapes[(sq, skv)] += n
         check(dict(got_shapes) == want_shapes,
               f"{path}: K8 ran at (Sq, Skv) {dict(got_shapes)}, expected "
               f"{want_shapes}")
-        want_comm = dense_serve_comm(cfg, mesh, b, s, g, res["cap"],
+        want_comm = serve_comm(cfg, mesh, b, s, g, res["cap"],
                                      len(res["passes"]))
         check(comm == want_comm, f"{path}: collectives {comm}, the "
               f"formula {want_comm}")

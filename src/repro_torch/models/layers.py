@@ -59,21 +59,25 @@ never from its shape. The collectives sit at the reference's hint sites:
     S/tp query rows (every row where tp does not divide S) against the
     gathered k and v, and its rows of y are all-gathered; its cache
     holds cap/tp of the ring's slots (`cache_split`);
-  * a batch the data axes do not divide (batch 1) is whole on every
-    point, and its attention caches hold a range of the slots over
-    "data", where `cache_spec` splits the KV length. Under a split of
-    the slots (either axis, or both, "data" first) a point writes only
-    the slots it holds, and a decode step runs K8 on them with their
-    log-sum-exp and merges the points' outputs (`attention`);
+  * a batch the data axes do not divide (batch 1, `whole_batch`) is
+    whole on every point, and its attention and MLA caches hold a range
+    of the slots over "data", where `cache_spec` splits the KV length.
+    Under a split of the slots (either axis, or both, "data" first) a
+    point writes only the slots it holds, and a decode step runs K8 on
+    them with their log-sum-exp and merges the points' outputs
+    (`_cache_keys`, `_sdpa_merged`);
   * MLA (`_mla_attention`), where tp divides its heads, r and dr
     (`mla_split`): the point's heads of wq, w_qr, w_uk, w_uv and wo, its
-    r/tp columns of w_dkv and of the latent cache, its dr/tp columns of
-    the rope cache (w_kr gathered whole: RoPE pairs columns across the
-    split); the latent and rope caches are all-gathered over "model"
-    before the per-head expansion, K8 runs on the point's heads, wo's
-    partial product is all-reduced. Otherwise MLA runs gathered,
-    replicated over "model" (its sequence split and the batch-1 split
-    of its latent are item 10e.2c.2);
+    r/tp columns of w_dkv, and w_kr gathered whole (RoPE pairs columns
+    across the split); K8 runs on the point's heads and wo's partial
+    product is all-reduced. Its cache holds `cache_spec`'s share: at a
+    batch the data axes divide, the r/tp columns of the latent cache and
+    dr/tp of the rope cache, both all-gathered over "model" before the
+    per-head expansion; at batch 1, its slots over "data" at every
+    column, the call's latent all-gathered over "model" before it is
+    written, so no cache is gathered. Otherwise MLA runs gathered,
+    replicated over "model" (its sequence split is not ported: ROADMAP
+    Queue 3);
   * the MLP: w1/w3 are the point's columns of d_ff and w2's partial
     product is all-reduced;
   * the MoE: the router is replicated and the routing is the global one
@@ -88,7 +92,11 @@ never from its shape. The collectives sit at the reference's hint sites:
     on the point's channels (its conv cache holds those) and its output
     is all-gathered, the SSD or recurrent step runs on the point's heads
     (its SSM cache holds those) with B and C whole, and out_proj's
-    partial product is all-reduced. Otherwise the mixer runs gathered;
+    partial product is all-reduced. Otherwise the mixer runs gathered.
+    At batch 1 the SSM state's heads split over "data" instead
+    (`ssm_split`, as `cache_spec`): a point runs its data coordinate's
+    heads and all-gathers their gated output over "data" before its rows
+    of out_proj;
   * whisper's cross-attention as attention (`_attn_weights`): K and V
     projected from the whole encoder output on the point's heads;
   * the embedding is a vocab-parallel lookup (`embed`), then an
@@ -372,6 +380,48 @@ def cache_positions(cache: KVCache, index: int, batch: int, device,
                            cache.start, n)
 
 
+def _cache_keys(cache: KVCache, k, v, positions, ring):
+    """Write a call's `k` and `v` [B, S, ...] into `cache` and return (the
+    cache, the keys and values the call attends to, their positions and
+    validity, the axes a decode step's partial outputs are merged over).
+    A cache that holds every slot, or a decode step's, is read as it
+    stands (at `ring`, its `cache_positions` after the write, where the
+    caller has them); under a split of the slots (`KVCache.axes`) a
+    decode step's output over the point's slots is a partial merged over
+    those axes (`_sdpa_merged`), a prefill into an empty cache that it
+    does not overfill attends to the call's own k and v, which is what
+    the written slots hold, and any other call all-gathers the written
+    slots."""
+    b, s = k.shape[:2]
+    new = _cache_update(cache, k, v)
+    split, cap = cache.axes, cache.slots or cache.k.shape[1]
+    if not split or s == 1:             # the slots this point holds
+        kv_pos, kv_valid = ring or cache_positions(new, new.index, b,
+                                                   k.device)
+        return new, new.k, new.v, kv_pos, kv_valid, split
+    if cache.index == 0 and s <= cap:   # the slots hold this call
+        return new, k, v, positions, torch.ones(
+            (b, s), dtype=torch.bool, device=k.device), ()
+    kv_pos, kv_valid = _ring_positions(new.index, cap, b, k.device)
+    return (new, SP.all_gather(new.k, split, 1),
+            SP.all_gather(new.v, split, 1), kv_pos, kv_valid, ())
+
+
+def _sdpa_merged(q, k, v, q_pos, kv_pos, kv_valid, merge, **kw):
+    """`_sdpa` of a call; where `merge` names axes (a decode step over a
+    point's range of the slots) K8 also returns its log-sum-exp, and the
+    points' f32 (output, lse) are all-gathered over `merge` in one
+    gather and combined (`merge_partials`)."""
+    out = _sdpa(q, k, v, q_pos, kv_pos, kv_valid, return_lse=bool(merge),
+                **kw)
+    if not merge:
+        return out
+    part = torch.cat([out[0][:, 0].float(), out[1][..., None]], dim=-1)
+    parts = SP.all_gather(part[None], merge, 0)
+    return merge_partials(parts[..., :-1], parts[..., -1]) \
+        .to(q.dtype)[:, None]
+
+
 def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, a: AttnConfig,
               positions: torch.Tensor, cache: Optional[KVCache] = None,
               norm_kind: str = "rmsnorm",
@@ -440,30 +490,10 @@ def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, a: AttnConfig,
         out = _sdpa(q, k, v, q_pos, positions, kv_valid, **kw)
         new_cache = None
     else:
-        new_cache = _cache_update(cache, k, v)
-        split, cap = cache.axes, cache.slots or cache.k.shape[1]
-        if not split or s == 1:     # the slots this point holds
-            kv_pos, kv_valid = ring or cache_positions(
-                new_cache, new_cache.index, b, x.device)
-            out = _sdpa(q, new_cache.k.to(q.dtype), new_cache.v.to(q.dtype),
-                        q_pos, kv_pos, kv_valid, return_lse=bool(split),
-                        **kw)
-            if split:               # a decode step: the points' partials
-                part = torch.cat([out[0][:, 0].float(), out[1][..., None]],
-                                 dim=-1)
-                parts = SP.all_gather(part[None], split, 0)
-                out = merge_partials(parts[..., :-1], parts[..., -1]) \
-                    .to(q.dtype)[:, None]
-        elif cache.index == 0 and s <= cap:     # the slots hold this call
-            out = _sdpa(q, k, v, q_pos, positions,
-                        torch.ones((b, s), dtype=torch.bool,
-                                   device=x.device), **kw)
-        else:                   # every point's written slots
-            kv_pos, kv_valid = _ring_positions(new_cache.index, cap, b,
-                                               x.device)
-            out = _sdpa(q, SP.all_gather(new_cache.k, split, 1).to(q.dtype),
-                        SP.all_gather(new_cache.v, split, 1).to(q.dtype),
-                        q_pos, kv_pos, kv_valid, **kw)
+        new_cache, k, v, kv_pos, kv_valid, merge = _cache_keys(
+            cache, k, v, positions, ring)
+        out = _sdpa_merged(q, k.to(q.dtype), v.to(q.dtype), q_pos, kv_pos,
+                           kv_valid, merge, **kw)
     out = HT.hint_attn_out(out, layout)
     y = out.reshape(b, sq, nh * a.head_dim) @ w["wo"]
     if tp > 1:
@@ -503,26 +533,39 @@ def _query_rows(a: AttnConfig, s: int) -> Optional[slice]:
     return slice(r * s // tp, (r + 1) * s // tp)
 
 
+def whole_batch(batch: int) -> bool:
+    """Whether, in `spmd.run`, a batch of `batch` local rows is whole on
+    every point of a data axis of more than one point: the global batch
+    (`batch` times the run's `batch_ways`) does not divide the data axes
+    (batch 1). There `cache_spec` splits a cache's length and the Mamba
+    heads over "data" (`cache_split`, `ssm_split`). False with no shard
+    context."""
+    ctx = SP.context()
+    if ctx is None:
+        return False
+    dp = ctx.size(batch_axes_of(ctx.mesh))
+    return ctx.size("data") > 1 and (batch * ctx.batch_ways) % dp != 0
+
+
 def cache_split(a: AttnConfig, batch: int, cap: int
                 ) -> Tuple[Tuple[str, ...], int]:
-    """(the mesh axes a point's attention cache of `cap` ring slots, for
-    `batch` local rows, is split over along its slots, the global slot
-    its range starts at) in `spmd.run`; ((), 0) with no shard context.
-    "data" where the global batch (`batch` times the run's `batch_ways`)
-    does not divide the data axes, where `cache_spec` splits the KV
-    length; then "model" under the sequence split (`seq_split`), where
-    `cache_spec` splits head_dim and the port, whose K8 takes whole
-    heads, splits the slots. An axis is kept only where `cap` divides
+    """(the mesh axes a point's attention or MLA cache of `cap` ring
+    slots, for `batch` local rows, is split over along its slots, the
+    global slot its range starts at) in `spmd.run`; ((), 0) with no shard
+    context. "data" at a batch whole on every point (`whole_batch`),
+    where `cache_spec` splits the KV length; then, for attention, "model"
+    under the sequence split (`seq_split`), where `cache_spec` splits
+    head_dim and the port, whose K8 takes whole heads, splits the slots
+    (MLA has no sequence split). An axis is kept only where `cap` divides
     over it and the axes kept before it, as `fit_spec` leaves a dim
     whole: never an uneven split."""
     ctx = SP.context()
     if ctx is None:
         return (), 0
     want = []
-    dp = ctx.size(batch_axes_of(ctx.mesh))
-    if ctx.size("data") > 1 and (batch * ctx.batch_ways) % dp:
+    if whole_batch(batch):
         want.append("data")
-    if seq_split(a) > 1:
+    if seq_split(a) > 1 and not a.kv_lora_rank:
         want.append("model")
     axes, ways = [], 1
     for ax in want:
@@ -598,22 +641,29 @@ def _mla_attention(p, x, h, a: AttnConfig, positions, cache, ring):
     """DeepSeek-V2 multi-head latent attention. The cache holds only the
     compressed c_kv [B, cap, r] (in `KVCache.k`) and the shared, rotated
     k_rope [B, cap, dr] (in `KVCache.v`); k_nope and v are expanded from
-    the whole cache at each call, as the reference does.
+    the cache's slots at each call, as the reference does.
 
     Sharded (`mla_split` tp > 1): a point computes its r/tp columns of
-    c_kv and the whole k_rope (from the gathered w_kr), and keeps (in its
-    cache, which holds `cache_spec`'s share) c_kv's columns and its dr/tp
-    columns of k_rope; both are all-gathered over "model" along their
-    last dim (without a cache, only c_kv: the whole k_rope is at hand),
-    and k_nope and v are expanded for the point's nh/tp heads only (w_uk's
-    and w_uv's local columns), K8 runs on those heads and wo's partial
-    product is all-reduced. Under autograd the gathered latent enters the
-    local heads through `spmd.copy`, so its gather's backward keeps the
-    point's slice of a gradient summed over "model"; the whole k_rope's
-    reaches h and w_kr through their own copies."""
+    c_kv and the whole k_rope (from the gathered w_kr), expands k_nope and
+    v for its nh/tp heads only (w_uk's and w_uv's local columns), runs K8
+    on those heads and all-reduces wo's partial product. Its cache holds
+    `cache_spec`'s share. At a batch the data axes divide, that is c_kv's
+    columns and its dr/tp columns of k_rope for every slot; both are
+    all-gathered over "model" along their last dim before the expansion
+    (without a cache, only c_kv: the whole k_rope is at hand). At a batch
+    whole on every point (`whole_batch`, batch 1) it is a range of the
+    slots over "data" at every column (`cache_split`): the call's c_kv is
+    all-gathered over "model" before it is written, the point expands
+    its slots alone, and a decode step's partial outputs are merged over
+    "data" (`_cache_keys`, `_sdpa_merged`, as attention's are); the
+    latent is never gathered over "model". Under autograd the gathered
+    latent enters the local heads through `spmd.copy`, so its gather's
+    backward keeps the point's slice of a gradient summed over "model";
+    the whole k_rope's reaches h and w_kr through their own copies."""
     b, s, _ = x.shape
     w, tp, off = _mla_weights(p, a)
     nh, hd, dr = a.num_heads // tp, a.head_dim, a.rope_head_dim
+    wide = cache is not None and whole_batch(b)  # the cache's every column
     if tp > 1:                  # h enters the point's heads and columns
         h = SP.copy(h, "model")
     c_kv = h @ w["w_dkv"]                                   # [B,S,r/tp]
@@ -623,7 +673,14 @@ def _mla_attention(p, x, h, a: AttnConfig, positions, cache, ring):
     q = (h @ w["wq"]).reshape(b, s, nh, hd)
     q_rope = apply_rope((h @ w["w_qr"]).reshape(b, s, nh, dr), cos, sin)
 
-    if cache is not None:       # the point's dr/tp rope columns
+    merge = ()
+    if wide:                    # the point's slots, every column
+        if tp > 1:              # the call's whole latent
+            c_kv = SP.copy(SP.all_gather(c_kv, "model", -1), "model")
+        cache, c_all, kr_all, kv_pos, kv_valid, merge = _cache_keys(
+            cache, c_kv, k_rope, positions, ring)
+        c_all, kr_all = c_all.to(x.dtype), kr_all.to(x.dtype)
+    elif cache is not None:     # the point's dr/tp rope columns
         cache = _cache_update(cache, c_kv, k_rope[..., off:off + dr // tp])
         c_all = cache.k.to(x.dtype)                         # [B,cap,r/tp]
         kr_all = cache.v.to(x.dtype)                        # [B,cap,dr/tp]
@@ -635,7 +692,7 @@ def _mla_attention(p, x, h, a: AttnConfig, positions, cache, ring):
         c_all, kr_all = c_kv, k_rope
         kv_pos = positions
         kv_valid = torch.ones((b, s), dtype=torch.bool, device=x.device)
-    if tp > 1:                  # the whole latent
+    if tp > 1 and not wide:     # the whole latent
         c_all = SP.copy(SP.all_gather(c_all, "model", -1), "model")
 
     skv = c_all.shape[1]
@@ -649,8 +706,8 @@ def _mla_attention(p, x, h, a: AttnConfig, positions, cache, ring):
                    dim=-1)
     layout = HT.attn_layout(a.num_heads, s)
     qq, kk, vv = HT.hint_qkv(qq, kk, vv, layout)
-    out = _sdpa(qq, kk, vv, positions, kv_pos, kv_valid, causal=a.causal,
-                window=None)
+    out = _sdpa_merged(qq, kk, vv, positions, kv_pos, kv_valid, merge,
+                       causal=a.causal, window=None)
     out = HT.hint_attn_out(out, layout)
     y = out.reshape(b, s, nh * hd) @ w["wo"]
     if tp > 1:
@@ -950,8 +1007,9 @@ def _mamba_weights(p, mb: MambaConfig, d: int):
     1) every leaf is gathered whole over "model" too. Where it does,
     in_proj must be split over "model" by its columns, conv_w by its
     channels and out_proj by its rows (whole heads, as d_inner / tp is);
-    the per-head a_log, dt_bias and d_skip are taken at the point's heads
-    (through `spmd.copy`: their gradient is summed over "model")."""
+    the per-head a_log, dt_bias and d_skip enter the point's heads
+    through `spmd.copy` (their gradient is summed over "model"). The
+    third value is the first head of the point's rows of out_proj."""
     if SP.context() is None:
         return p, 1, 0, 0
     tp = mamba_split(mb, d)
@@ -962,11 +1020,31 @@ def _mamba_weights(p, mb: MambaConfig, d: int):
         if SP.split_axes(w[n], dim) != ("model",):
             raise ValueError(f"the Mamba-2 mixer splits over 'model' but "
                              f"{n}'s spec does not split it")
-    nh = mb.expand * d // mb.head_dim // tp
-    h0 = SP.offset(w["out_proj"], 0) // mb.head_dim
     for n in ("a_log", "dt_bias", "d_skip"):
-        w[n] = SP.copy(SP.whole(w[n], "model"), "model")[h0:h0 + nh]
-    return w, tp, h0, SP.offset(w["conv_w"], -1)
+        w[n] = SP.copy(SP.whole(w[n], "model"), "model")
+    return (w, tp, SP.offset(w["out_proj"], 0) // mb.head_dim,
+            SP.offset(w["conv_w"], -1))
+
+
+def ssm_split(mb: MambaConfig, d: int, data: bool
+              ) -> Tuple[Tuple[str, ...], int, int]:
+    """(the mesh axes a Mamba-2 mixer of width `d` splits the heads of its
+    SSM state and step over, its first head, its number of heads) in
+    `spmd.run`; ((), 0, H) with no shard context. Where `data` (a cache at
+    a batch whole on every point: `whole_batch`), "data", as `cache_spec`
+    splits the heads at batch 1, or no axis where the data axis does not
+    divide them (`fit_spec`); otherwise "model" where the mixer splits
+    (`mamba_split`)."""
+    nheads = mb.expand * d // mb.head_dim
+    ctx = SP.context()
+    if ctx is None:
+        return (), 0, nheads
+    if data:
+        axes = ("data",) if nheads % ctx.size("data") == 0 else ()
+    else:
+        axes = ("model",) if mamba_split(mb, d) > 1 else ()
+    n = nheads // ctx.size(axes)
+    return axes, SP.coordinate(axes) * n, n
 
 
 def mamba2(p, x: torch.Tensor, mb: MambaConfig,
@@ -991,15 +1069,27 @@ def mamba2(p, x: torch.Tensor, mb: MambaConfig,
     and all-reduces over "model". Under autograd both gathered tensors
     enter the point's share through `spmd.copy`: each point reads other
     points' columns, so a gather's backward keeps the point's slice of
-    a gradient summed over "model"."""
+    a gradient summed over "model".
+
+    With a cache at a batch whole on every point (`whole_batch`, batch
+    1) the SSM state's heads split over "data" instead (`ssm_split`,
+    whole over "model", as `cache_spec` splits them), and those are
+    generally not the heads of the point's rows of out_proj: the point
+    runs the SSD or the step on its data coordinate's H/dp heads (their
+    z, dt and per-head scalars), all-gathers the gated output over
+    "data", and multiplies its rows' heads of it by its rows of out_proj
+    (then the sum over "model" as above). The conv keeps its ch/tp
+    channels over "model"."""
     b, s, d = x.shape
     d_inner = mb.expand * d
     nheads = d_inner // mb.head_dim
-    n = mb.d_state
+    n, hp = mb.d_state, mb.head_dim
     ch = d_inner + 2 * n
     w, tp, h0, c0 = _mamba_weights(p, mb, d)
     nh, cl = nheads // tp, ch // tp
-    heads = slice(h0 * mb.head_dim, (h0 + nh) * mb.head_dim)
+    # the SSM's heads [s0, s0 + sn), split over `over`
+    over, s0, sn = ssm_split(mb, d, cache is not None and whole_batch(b))
+    heads = slice(s0 * hp, (s0 + sn) * hp)
     h = norm(x, p["ln"], norm_kind)
     if tp > 1:                  # h enters the point's columns
         h = SP.copy(h, "model")
@@ -1008,7 +1098,9 @@ def mamba2(p, x: torch.Tensor, mb: MambaConfig,
         zxbcdt = SP.copy(SP.all_gather(zxbcdt, "model", -1), "model")
     z = zxbcdt[..., :d_inner][..., heads]
     xbc = zxbcdt[..., d_inner:d_inner + ch][..., c0:c0 + cl]
-    dt_raw = zxbcdt[..., -nheads:][..., h0:h0 + nh]
+    dt_raw = zxbcdt[..., -nheads:][..., s0:s0 + sn]
+    a_log, dt_bias, d_skip = (w[k][s0:s0 + sn]
+                              for k in ("a_log", "dt_bias", "d_skip"))
 
     def whole_channels(t):      # the conv's output over every channel
         t = silu(t)
@@ -1023,17 +1115,17 @@ def mamba2(p, x: torch.Tensor, mb: MambaConfig,
         for kk in range(mb.d_conv):
             acc = acc + xbc_pad[:, kk:kk + s] * cw[kk]
         xbc = whole_channels(acc)
-        xh = xbc[..., :d_inner][..., heads].reshape(b, s, nh, mb.head_dim)
+        xh = xbc[..., :d_inner][..., heads].reshape(b, s, sn, hp)
         B = xbc[..., d_inner:d_inner + n]
         C = xbc[..., d_inner + n:]
         xh = HT.hint(xh, "batch", None, "model", None)
-        dt = F.softplus(dt_raw.float() + w["dt_bias"])
+        dt = F.softplus(dt_raw.float() + dt_bias)
         dt = HT.hint(dt, "batch", None, "model")
         pad_len = (-s) % mb.chunk
 
         def zpad(t):
             return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad_len))
-        y, final = _ssd_chunked(zpad(xh), zpad(dt), w["a_log"], zpad(B),
+        y, final = _ssd_chunked(zpad(xh), zpad(dt), a_log, zpad(B),
                                 zpad(C), mb.chunk)
         y = y[:, :s]
         if cache is not None:           # prefill -> decode handoff
@@ -1044,24 +1136,27 @@ def mamba2(p, x: torch.Tensor, mb: MambaConfig,
         xbc_win = torch.cat([cache.conv, xbc], dim=1)        # [b,k,ch]
         xbc1 = whole_channels(torch.einsum("bkc,kc->bc", xbc_win,
                                            w["conv_w"].to(xbc.dtype)))
-        xh = xbc1[:, :d_inner][:, heads].reshape(b, nh, mb.head_dim)
+        xh = xbc1[:, :d_inner][:, heads].reshape(b, sn, hp)
         B = xbc1[:, d_inner:d_inner + n]
         C = xbc1[:, d_inner + n:]
-        dt = F.softplus(dt_raw[:, 0].float() + w["dt_bias"])   # [b,h]
-        dA = torch.exp(dt * -torch.exp(w["a_log"].float()))
+        dt = F.softplus(dt_raw[:, 0].float() + dt_bias)   # [b,h]
+        dA = torch.exp(dt * -torch.exp(a_log.float()))
         hstate = cache.ssm * dA[..., None, None] \
             + (dt[..., None, None] * xh.float()[..., None]
                * B.float()[:, None, None, :])
         hstate = HT.hint(hstate, "batch", "model", None, None)
         y = torch.einsum("bhpn,bn->bhp", hstate, C.float())
-        y = y.to(x.dtype).reshape(b, 1, nh, mb.head_dim)
+        y = y.to(x.dtype).reshape(b, 1, sn, hp)
         cache.conv.copy_(xbc_win[:, 1:])
         cache.ssm.copy_(hstate)
 
-    y = y.reshape(b, s, nh * mb.head_dim) + (
-        w["d_skip"].to(x.dtype)[None, None, :, None]
-        * xh.reshape(b, s, nh, mb.head_dim)).reshape(b, s, nh * mb.head_dim)
-    y = (y * silu(z)) @ w["out_proj"]
+    y = y.reshape(b, s, sn * hp) + (
+        d_skip.to(x.dtype)[None, None, :, None]
+        * xh.reshape(b, s, sn, hp)).reshape(b, s, sn * hp)
+    y = y * silu(z)
+    if "data" in over:          # every head, then the out_proj rows' own
+        y, s0 = SP.all_gather(y, "data", -1), 0
+    y = y[..., (h0 - s0) * hp:(h0 - s0 + nh) * hp] @ w["out_proj"]
     if tp > 1:
         y = SP.all_reduce(y, "model")
     return x + y, cache

@@ -45,16 +45,19 @@ local vocabulary columns give local logits that are all-gathered over
 "model", and `init_cache` holds the point's kv heads (`layers.
 heads_split`), or, where they do not split whole, its range of the
 slots (`layers.cache_split`: the sequence split), and at a batch the
-data axes do not divide its range of the slots over "data" too (MLA's
-latent and rope caches the point's columns, `layers.mla_split`; a Mamba
-layer's conv window the point's channels and its SSM state the point's
-heads, `layers.mamba_split`), so a point's cache bytes are
-`cache_spec`'s local share. The stub frontends' embeddings (llava's
-patches, whisper's frames) are projected by the point's columns of
-`patch_proj` or `frame_proj` and all-gathered (`_stub_proj`); whisper's
-encoder layers and cross-attention run on the point's heads. Sharded
-training differentiates `loss` there: the collectives carry gradients
-(`parallel.spmd`) and the loss is the global batch's.
+data axes do not divide its range of the slots over "data" too. MLA's
+latent and rope caches hold the point's columns (`layers.mla_split`),
+or at that batch its range of the slots over "data" at every column; a
+Mamba layer's conv window holds the point's channels (`layers.
+mamba_split`) and its SSM state the point's heads, over "model", or at
+that batch over "data" (`layers.ssm_split`). So a point's cache bytes
+are `cache_spec`'s local share, laid out as it lays them out. The stub
+frontends' embeddings (llava's patches, whisper's frames) are projected
+by the point's columns of `patch_proj` or `frame_proj` and all-gathered
+(`_stub_proj`); whisper's encoder layers and cross-attention run on the
+point's heads. Sharded training differentiates `loss` there: the
+collectives carry gradients (`parallel.spmd`) and the loss is the
+global batch's.
 """
 from __future__ import annotations
 
@@ -182,23 +185,25 @@ class Model:
         if kind == "mamba":
             mb = cfg.mamba
             d_inner = mb.expand * cfg.d_model
-            tp = L.mamba_split(mb, cfg.d_model)  # the point's share of each
+            tp = L.mamba_split(mb, cfg.d_model)  # the point's channels
+            _, _, nh = L.ssm_split(mb, cfg.d_model,   # and SSM heads
+                                   L.whole_batch(batch))
             return L.MambaCache(
                 conv=torch.zeros((*lead, batch, mb.d_conv - 1,
                                   (d_inner + 2 * mb.d_state) // tp),
                                  dtype=cfg.dtype, device=device),
-                ssm=torch.zeros((*lead, batch, d_inner // mb.head_dim // tp,
-                                 mb.head_dim, mb.d_state),
+                ssm=torch.zeros((*lead, batch, nh, mb.head_dim, mb.d_state),
                                 dtype=torch.float32, device=device))
         a = cfg.attn
-        axes, start = (), 0
-        if a.kv_lora_rank:              # MLA: c_kv and k_rope
-            tp = L.mla_split(a)         # the point's columns of each
-            k_shape = (*lead, batch, cap, a.kv_lora_rank // tp)
-            v_shape = (*lead, batch, cap, a.rope_head_dim // tp)
-        else:                           # the point's kv heads and slots
-            axes, start = L.cache_split(a, batch, cap)
-            ways = math.prod(SP.context().size(x) for x in axes)
+        axes, start = L.cache_split(a, batch, cap)  # the point's slots
+        ways = math.prod(SP.context().size(x) for x in axes)
+        if a.kv_lora_rank:              # MLA: c_kv and k_rope, the point's
+            # columns of each, or every column at a batch whole on every
+            # point
+            tp = 1 if L.whole_batch(batch) else L.mla_split(a)
+            k_shape = (*lead, batch, cap // ways, a.kv_lora_rank // tp)
+            v_shape = (*lead, batch, cap // ways, a.rope_head_dim // tp)
+        else:                           # the point's kv heads
             k_shape = v_shape = (*lead, batch, cap // ways,
                                  a.num_kv_heads // L.heads_split(a),
                                  a.head_dim)

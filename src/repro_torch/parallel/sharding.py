@@ -24,10 +24,13 @@ caches built on the "meta" device, so nothing is allocated. These specs
 feed the launch reports (`launch.specs`, `launch.dryrun`) and sharded
 serving and training (`parallel.spmd`: `shard_tree`, `init_sharded`,
 `launch.serve.serve_config(mesh=...)`, `train.step.build_train_step(
-..., mesh=...)`). One difference there, on purpose: an attention cache
-splits its kv heads over "model" where they split whole, and its slots
-where they do not (the sequence split), not `head_dim` as `cache_spec`
-says (K8 takes whole heads); the bytes a point holds are the same
+..., mesh=...)`). A point's caches follow `cache_spec`, MLA's and the
+Mamba-2 mixer's at batch 1 too (the latent's slots and the SSM heads
+over "data": `models.layers.cache_split`, `ssm_split`), with one
+difference, on purpose: an attention cache splits its kv heads over
+"model" where they split whole, and its slots where they do not (the
+sequence split), not `head_dim` as `cache_spec` says (K8 takes whole
+heads); the bytes a point holds are the same
 (`models.layers.cache_split`).
 """
 from __future__ import annotations

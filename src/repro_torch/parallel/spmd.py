@@ -121,8 +121,29 @@ decode step a layer, of each point's f32 output and log-sum-exp, (n -
 heads split); a prefill into an empty cache that holds it adds none, and
 any other call with more than one token gathers the written K and V
 slots, 2 gathers of (n - 1) e b cap KVH' hd / n bytes (KVH' the point's
-kv heads). `chip_smoke.dense_serve_comm` sums these for a dense model's
-serve passes.
+kv heads).
+
+Batch 1. At a batch the data axes do not divide (`layers.whole_batch`)
+MLA's latent and rope caches hold a point's range of the slots over
+"data" at every column, and a Mamba-2 layer's SSM state the heads of its
+"data" coordinate (`layers.ssm_split`), as `cache_spec` lays them out.
+An MLA layer that splits over "model" then calls, for a call of S
+tokens: `all_gather` twice, w_kr whole and the call's latent along r,
+(tp - 1) e (d dr + b S r) / tp bytes (no cache is gathered over
+"model"), and `all_reduce` once, wo's, (tp - 1) e b S d bytes; where
+its slots are split over n data points a decode step adds the merge,
+one gather of (n - 1) 4 b (H / tp) (hd + 1) bytes (hd, v's head size),
+a prefill into an empty cache that holds it nothing, and any other
+call of more than one token 2 gathers of the written slots, (n - 1) e b
+cap (r + dr) / n bytes. Where tp is 1 only the merge and the written
+slots' gathers remain. A prefill and a decode step of a Mamba-2 layer
+call what they call at any batch (in_proj's and the conv's outputs
+gathered and out_proj's sum, where the mixer splits over "model") and,
+where "data" splits the heads (dp data points dividing H), one
+`all_gather` more: the gated output over "data", (dp - 1) e b S
+d_inner / dp bytes. `chip_smoke.serve_comm` sums these, with the
+embedding's, the logits', the MLP's and the MoE's, for a model's serve
+passes.
 
 A train step (`train.step.build_train_step(..., mesh=)`, remat on) of a
 dense model of L layers whose heads, d_ff and vocabulary V split over a

@@ -25,14 +25,22 @@ from repro_torch.kernels.flashattn.ref import NEG, sdpa_ref
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
+def _dims(d):
+    """(q and k's head size, v's) of a case's `d`: an int, or a pair where
+    v's is smaller (MLA's (192, 128))."""
+    return d if isinstance(d, tuple) else (d, d)
+
+
 def _inputs(b, sq, skv, h, kvh, d, seed=0, dead_rows=0):
     """f32 numpy q/k/v, decode-style positions and ragged validity (the
     last 3 keys invalid), as the reference's tests; `dead_rows` first
-    query rows placed before every key (they see no valid key)."""
+    query rows placed before every key (they see no valid key); `d` as
+    `_dims` reads it."""
+    d, dv = _dims(d)
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
     k = rng.standard_normal((b, skv, kvh, d)).astype(np.float32)
-    v = rng.standard_normal((b, skv, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((b, skv, kvh, dv)).astype(np.float32)
     q_pos = np.broadcast_to(np.arange(skv - sq, skv)[None], (b, sq)).copy()
     kv_pos = np.broadcast_to(np.arange(skv)[None], (b, skv)).copy()
     q_pos[:, :dead_rows] = -1
@@ -190,6 +198,7 @@ DECODE_CASES = [  # b, skv, h, kvh, d, window, pos
     (2, 700, 4, 2, 32, 64, "tail"),     # window: tiles 0-8 see no key
     (2, 300, 4, 2, 32, None, "ring"),   # wrapped ring
     (2, 300, 6, 2, 32, 100, "dead"),    # row 0 sees no key in any tile
+    (1, 300, 4, 4, (192, 128), None, "ring"),   # MLA's Dv < D, wrapped
 ]
 
 
@@ -199,15 +208,20 @@ def test_flash_decode_vs_reference(dtype, b, skv, h, kvh, d, window, pos):
     """At Sq == 1 the port == the reference's Pallas kernel and its dense
     oracle. A row that sees no key is held to `sdpa_ref` and to the mean
     of v over the Skv keys only (the padded Pallas path averages over
-    128-padded lengths, ROADMAP Queue 3)."""
+    128-padded lengths, ROADMAP Queue 3). Where Dv < D the Pallas kernel
+    takes v padded with zeros to D and its output is sliced back, as the
+    reference's MLA calls it."""
     jx, tx = _both(_decode_inputs(b, skv, h, kvh, d, pos, seed=skv), dtype)
     got = fa.flash_attention(*tx, causal=True, window=window)
-    assert got.dtype == tx[0].dtype and got.shape == (b, 1, h, d)
+    d, dv = _dims(d)
+    assert got.dtype == tx[0].dtype and got.shape == (b, 1, h, dv)
     rep = h // kvh
     wants = [ref_sdpa(jx[0], _expanded(jx[1], rep), _expanded(jx[2], rep),
                       *jx[3:], causal=True, window=window)]
     if pos != "dead":
-        wants.append(ref_flash(*jx, causal=True, window=window))
+        v_pad = jnp.pad(jx[2], ((0, 0),) * 3 + ((0, d - dv),))
+        wants.append(ref_flash(jx[0], jx[1], v_pad, *jx[3:], causal=True,
+                               window=window)[..., :dv])
     tol = TOL[dtype]
     for want in wants:
         np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
@@ -225,7 +239,7 @@ def _split_merge_decode(q, k, v, allowed, n):
     the largest m; with no split left the row averages v over the Skv
     slots."""
     b, _, h, d = q.shape
-    kvh = k.shape[2]
+    kvh, dv = k.shape[2], v.shape[-1]
     s = torch.einsum("bgrd,bkgd->bgrk", q[:, 0].view(b, kvh, h // kvh, d),
                      k) / math.sqrt(d)
     s = torch.where(allowed[:, None, None], s, NEG)
@@ -242,9 +256,9 @@ def _split_merge_decode(q, k, v, allowed, n):
     w = torch.exp(m - m.amax(dim=0).clamp(min=NEG))    # 0 for a dead split
     out = (w[..., None] * o).sum(dim=0) / torch.clamp(
         (w * l).sum(dim=0), min=1e-30)[..., None]
-    mean_v = v.mean(dim=1)[:, :, None]                 # [B,KVH,1,D]
+    mean_v = v.mean(dim=1)[:, :, None]                 # [B,KVH,1,Dv]
     out = torch.where(allowed.any(dim=1)[:, None, None, None], out, mean_v)
-    return out.reshape(b, 1, h, d)
+    return out.reshape(b, 1, h, dv)
 
 
 @pytest.mark.parametrize("split", [64, 128, 832])

@@ -12,8 +12,10 @@ counterpart of the reference's `test_elastic_reshard_restore`). The
 parity of sharded prefill and decode with the reference's sharded run
 is in tests/test_torch_spmd.py, tests/test_torch_spmd_archs.py,
 tests/test_torch_spmd_mla.py, tests/test_torch_spmd_vlm.py,
-tests/test_torch_spmd_ssm.py, tests/test_torch_spmd_hybrid.py and
-tests/test_torch_spmd_encdec.py."""
+tests/test_torch_spmd_ssm.py, tests/test_torch_spmd_hybrid.py,
+tests/test_torch_spmd_encdec.py and, at batch 1,
+tests/test_torch_spmd_b1.py, tests/test_torch_spmd_b1_mla.py and
+tests/test_torch_spmd_b1_ssm.py."""
 import dataclasses
 import sys
 import threading
@@ -146,7 +148,9 @@ def test_init_sharded_equals_init_then_shard():
     ("jamba-1.5-large-398b", (2, 2), B), ("whisper-base", (2, 2), B),
     ("whisper-base", (1, 4), B), ("mixtral-8x7b", (1, 4), B),
     ("minitron-4b", (1, 4), B), ("qwen1.5-4b", (2, 2), 1),
-    ("qwen1.5-4b", (4, 1), 1)))
+    ("qwen1.5-4b", (4, 1), 1), ("deepseek-v2-lite-16b", (2, 2), 1),
+    ("deepseek-v2-lite-16b", (4, 1), 1), ("mamba2-370m", (2, 2), 1),
+    ("mamba2-370m", (4, 1), 1), ("jamba-1.5-large-398b", (2, 2), 1)))
 def test_cache_bytes_are_cache_spec_share(arch, shape, batch):
     """A point's caches after a prefill and decode steps of `batch` rows
     hold `cache_spec`'s local share: the port splits the kv heads where
@@ -156,8 +160,11 @@ def test_cache_bytes_are_cache_spec_share(arch, shape, batch):
     slots over "data" where `cache_spec` splits the KV length (batch 1 on
     (2, 2) and (4, 1)): the same bytes. MLA's latent and rope caches are
     split by their columns, a Mamba layer's conv window by its channels
-    and its SSM state by its heads, as `cache_spec` splits them. The cap,
-    20, divides over each mesh's axes."""
+    and its SSM state by its heads, as `cache_spec` splits them; at
+    batch 1 MLA's by their slots over "data", every column whole, and
+    the SSM state by its heads over "data" (on (4, 1) a point holding
+    the whole latent or every head would hold four times the share). The
+    cap, 20, divides over each mesh's axes."""
     cfg = _f32(arch)
     mesh = _mesh(shape, ("data", "model"))
     model = Model(cfg)
@@ -193,7 +200,7 @@ def test_context_parallel_collectives_and_k8_shapes(arch, shape, batch,
     length split (qwen at batch 1 on (2, 2): the decode merge over
     "data", wo summed over "model") and both (minitron at batch 1 on (2,
     4): the slots over ("data", "model")): `spmd.COMM` equals
-    `chip_smoke.dense_serve_comm` (the formulas of spmd.py's note), K8
+    `chip_smoke.serve_comm` (the formulas of spmd.py's note), K8
     runs at Sq = S/tp (every row where tp does not divide S) against the
     call's S keys, and a decode step over the point's cap/n slots; the
     logits are the unsharded pass's."""
@@ -215,7 +222,7 @@ def test_context_parallel_collectives_and_k8_shapes(arch, shape, batch,
                                          mesh)
     finally:
         restore()
-    assert dict(SP.COMM) == chip_smoke.dense_serve_comm(
+    assert dict(SP.COMM) == chip_smoke.serve_comm(
         cfg, mesh, batch, prompt, STEPS, cap)
     tp = shape[1]
     seq = tp > 1 and (cfg.attn.num_heads % tp or cfg.attn.num_kv_heads % tp)
@@ -231,6 +238,56 @@ def test_context_parallel_collectives_and_k8_shapes(arch, shape, batch,
         want = serve.generate(model, full, tok, STEPS, cap,
                               forced=got["tokens"])
     for a, b in zip(got["logits"], want["logits"]):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("arch,shape,batch", (
+    ("deepseek-v2-lite-16b", (2, 2), 1), ("deepseek-v2-lite-16b", (4, 1), 1),
+    ("mamba2-370m", (2, 2), 1), ("jamba-1.5-large-398b", (2, 2), 1),
+    ("deepseek-v2-lite-16b", (2, 2), B), ("mamba2-370m", (1, 4), B)))
+def test_mla_and_ssm_serve_collectives_and_k8_shapes(arch, shape, batch):
+    """A served pass (`serve.generate_sharded`: a prefill of 16 tokens,
+    STEPS decode steps, cap 24) of MLA, Mamba-2 and jamba's hybrid stack
+    (at batch 4 too, where the data axes divide the batch):
+    `spmd.COMM` equals `chip_smoke.serve_comm` (the formulas of spmd.py's
+    note: at batch 1 MLA's latent gathered a call instead of its caches
+    and a decode step's partials merged over "data", the Mamba-2 mixer's
+    gated output gathered over "data"; deepseek's shared experts gathered
+    along their layers once a call), K8 runs at batch 1 at (16, 16) a
+    prefill and over the point's cap/dp slots a decode step (at batch 4
+    against the whole cache), and the logits are the unsharded pass's
+    (its MoE groups the sharded run's)."""
+    import chip_smoke
+    from repro_torch.models import layers as L
+    cfg = _f32(arch)
+    mesh = _mesh(shape, ("data", "model"))
+    model = Model(cfg)
+    full = model.init(torch.Generator().manual_seed(0))
+    params = SP.shard_tree(full, S.param_specs(cfg, mesh, fsdp=False), mesh)
+    prompt, cap = 16, 24
+    tok = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                        generator=torch.Generator().manual_seed(1))
+    SP.reset_counts()
+    seen, restore = chip_smoke.record_k8_shapes(L)
+    try:
+        with torch.no_grad():
+            got = serve.generate_sharded(model, params, tok, STEPS, cap,
+                                         mesh)
+    finally:
+        restore()
+    assert dict(SP.COMM) == chip_smoke.serve_comm(
+        cfg, mesh, batch, prompt, STEPS, cap)
+    split = batch == 1 and cap % shape[0] == 0      # the slots, over data
+    calls = mesh.size * sum(cfg.layer_kind(i) == "attn"
+                            for i in range(cfg.n_layers))
+    want = {(prompt, prompt if split else cap): calls,
+            (1, cap // shape[0] if split else cap): calls * STEPS} \
+        if calls else {}
+    assert {(sq, skv): c for (sq, skv, _, _), c in seen.items()} == want
+    with set_mesh(make_test_mesh(shape)), torch.no_grad():
+        ref = serve.generate(model, full, tok, STEPS, cap,
+                             forced=got["tokens"])
+    for a, b in zip(got["logits"], ref["logits"]):
         torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
 
 
@@ -278,21 +335,36 @@ def test_collective_counts_match_formula(fsdp):
                            [(B // 2, T0)] + [(B // 2, 1)] * STEPS)
 
 
-def _mla_formula(cfg, mesh, fsdp, calls, cap):
+def _mla_formula(cfg, mesh, fsdp, calls, cap, b1=False):
     """spmd.py's counts for MLA layers that split over "model": (all_reduce
     calls, all_reduce bytes, all_gather calls, all_gather bytes) summed
     over the points, for `calls` [(local batch rows, sequence length),
-    ...] against a cache of `cap` slots (None: without a cache; f32)."""
+    ...] against a cache of `cap` slots (None: without a cache; f32),
+    made one after the other into an empty cache. With `b1` (a batch the
+    data axis does not divide) the cache holds cap/dp slots at every
+    column, the call's latent is gathered over "model", a decode step's
+    partials are merged over "data" and any multi-token call but the
+    first gathers the written slots."""
     a, d = cfg.attn, cfg.d_model
     tp, dp = mesh.shape["model"], mesh.shape["data"]
     e, r, dr = 4, a.kv_lora_rank, a.rope_head_dim
     hq = a.num_heads * a.head_dim
     w = 2 * d * hq + a.num_heads * dr * d + d * r + d * dr + 2 * r * hq
     ar = ar_b = ag = ag_b = 0
-    for b, s in calls:
+    for i, (b, s) in enumerate(calls):
         if cap is None:
             ag += 2
             ag_b += (tp - 1) * e * (b * s * r + d * dr) // tp
+        elif b1:
+            ag += 2 if tp > 1 else 0
+            ag_b += (tp - 1) * e * (b * s * r + d * dr) // tp
+            if s == 1:          # the decode merge over "data"
+                ag += 1
+                ag_b += (dp - 1) * 4 * b * a.num_heads // tp \
+                    * (a.head_dim + 1)
+            elif i:             # the written slots over "data"
+                ag += 2
+                ag_b += (dp - 1) * e * b * cap * (r + dr) // dp
         else:
             ag += 3
             ag_b += (tp - 1) * e * (b * cap * (r + dr) + d * dr) // tp
@@ -305,16 +377,21 @@ def _mla_formula(cfg, mesh, fsdp, calls, cap):
     return ar * n, ar_b * n, ag * n, ag_b * n
 
 
-@pytest.mark.parametrize("shape,fsdp,cached", (
-    ((2, 2), True, True), ((2, 2), False, True), ((1, 4), False, True),
-    ((2, 2), True, False)))
-def test_mla_layer_collectives_match_formula(shape, fsdp, cached):
+@pytest.mark.parametrize("shape,fsdp,cached,batch", (
+    ((2, 2), True, True, B), ((2, 2), False, True, B),
+    ((1, 4), False, True, B), ((2, 2), True, False, B),
+    ((2, 2), False, True, 1), ((2, 2), True, "chunks", 1)))
+def test_mla_layer_collectives_match_formula(shape, fsdp, cached, batch):
     """One MLA layer of deepseek's smoke config, a prefill of T0 tokens
     into its cache and STEPS decode steps on every point (or, without a
     cache, one call over all T0 + STEPS tokens, as the loss runs it):
     `spmd.COMM` against the formula of spmd.py's note (the latent and
     rope caches gathered, w_kr whole, wo's sum; FSDP's gathers), and the
-    layer's output against the unsharded layer's."""
+    layer's output against the unsharded layer's. At batch 1 the cache
+    holds each point's slots at every column: the call's latent gathered
+    instead of the cache, a decode step's partials merged over "data";
+    with "chunks" the prefill comes in two calls, the second of which
+    gathers the written slots."""
     from repro_torch.models import layers as L
     cfg = _f32("deepseek-v2-lite-16b")
     mesh = _mesh(shape, ("data", "model"))
@@ -322,37 +399,39 @@ def test_mla_layer_collectives_match_formula(shape, fsdp, cached):
     full = model.init(torch.Generator().manual_seed(0))
     mixer = full["prefix_layers"][0]["mixer"]
     specs = S.param_specs(cfg, mesh, fsdp=fsdp)["prefix_layers"][0]["mixer"]
-    cap = T0 + STEPS + 4
-    x = torch.randn((B, T0 + STEPS, cfg.d_model),
+    cap = T0 + STEPS + 5
+    x = torch.randn((batch, T0 + STEPS, cfg.d_model),
                     generator=torch.Generator().manual_seed(1))
-    pos = torch.arange(T0 + STEPS)[None].expand(B, -1).to(torch.int32)
+    pos = torch.arange(T0 + STEPS)[None].expand(batch, -1).to(torch.int32)
+    lens = ([T0 // 2] * 2 if cached == "chunks" else [T0]) + [1] * STEPS
 
     def layer(p, x, pos):
         if not cached:
             return L.attention(p, x, cfg.attn, pos, None)[0]
         c = model._empty_cache_slot("attn", x.shape[0], cap, "cpu")
-        y, c = L.attention(p, x[:, :T0], cfg.attn, pos[:, :T0], c)
-        out = [y]
-        for i in range(T0, T0 + STEPS):
-            y, c = L.attention(p, x[:, i:i + 1], cfg.attn, pos[:, i:i + 1],
-                               c)
+        out, at = [], 0
+        for n in lens:
+            y, c = L.attention(p, x[:, at:at + n], cfg.attn,
+                               pos[:, at:at + n], c)
             out.append(y)
+            at += n
         return torch.cat(out, dim=1)
-    spec = S.batch_spec(mesh, B, 2)
-    ways = _ways(mesh, B)
+    spec = S.batch_spec(mesh, batch, 2)
+    ways = _ways(mesh, batch)
     SP.reset_counts()
     with torch.no_grad():
         parts = SP.run(mesh, layer, SP.shard_tree(mixer, specs, mesh),
                        SP.shard_leaf(x, spec, mesh),
-                       SP.shard_leaf(pos, S.batch_spec(mesh, B), mesh),
+                       SP.shard_leaf(pos, S.batch_spec(mesh, batch), mesh),
                        batch_ways=ways, timeout=60)
         want = layer(mixer, x, pos)
     got = (SP.COMM["all_reduce"], SP.COMM["all_reduce_bytes"],
            SP.COMM["all_gather"], SP.COMM["all_gather_bytes"])
-    b = B // ways
-    calls = [(b, T0)] + [(b, 1)] * STEPS if cached else [(b, T0 + STEPS)]
+    b = batch // ways
+    calls = [(b, n) for n in lens] if cached else [(b, T0 + STEPS)]
     assert got == _mla_formula(cfg, mesh, fsdp, calls,
-                               cap if cached else None)
+                               cap if cached else None,
+                               b1=bool(cached) and batch == 1)
     torch.testing.assert_close(SP.gather_results(mesh, spec, parts), want,
                                rtol=2e-5, atol=2e-5)
 
@@ -364,11 +443,13 @@ def _layer(tree, specs, r=0):
             {k: P(*tuple(v)[1:]) for k, v in specs.items()})
 
 
-def _mamba_formula(cfg, mesh, fsdp, calls):
+def _mamba_formula(cfg, mesh, fsdp, calls, b1=False):
     """spmd.py's counts for Mamba-2 layers that split over "model":
     (all_reduce calls, all_reduce bytes, all_gather calls, all_gather
     bytes) summed over the points, for `calls` [(local batch rows,
-    sequence length), ...] (f32)."""
+    sequence length), ...] (f32); with `b1` (a cache at batch 1, which
+    the data axis does not divide) the SSM heads split over "data" and
+    the gated output is gathered over it."""
     mb, d = cfg.mamba, cfg.d_model
     tp, dp = mesh.shape["model"], mesh.shape["data"]
     e, d_inner = 4, mb.expand * d
@@ -376,10 +457,14 @@ def _mamba_formula(cfg, mesh, fsdp, calls):
     w = d_inner + c + d_inner // mb.head_dim
     ar = ar_b = ag = ag_b = 0
     for b, s in calls:
-        ag += 2
-        ag_b += (tp - 1) * e * b * s * (w + c) // tp
-        ar += 1
-        ar_b += (tp - 1) * e * b * s * d
+        if tp > 1:
+            ag += 2
+            ag_b += (tp - 1) * e * b * s * (w + c) // tp
+            ar += 1
+            ar_b += (tp - 1) * e * b * s * d
+        if b1:
+            ag += 1
+            ag_b += (dp - 1) * e * b * s * d_inner // dp
         if fsdp and dp > 1:
             ag += 2
             ag_b += (dp - 1) * e * d * (w + d_inner) // (dp * tp)
@@ -387,17 +472,19 @@ def _mamba_formula(cfg, mesh, fsdp, calls):
     return ar * n, ar_b * n, ag * n, ag_b * n
 
 
-@pytest.mark.parametrize("shape,fsdp,cached", (
-    ((2, 2), True, True), ((2, 2), False, True), ((1, 4), False, True),
-    ((2, 2), True, False)))
-def test_mamba_layer_collectives_match_formula(shape, fsdp, cached):
+@pytest.mark.parametrize("shape,fsdp,cached,batch", (
+    ((2, 2), True, True, B), ((2, 2), False, True, B),
+    ((1, 4), False, True, B), ((2, 2), True, False, B),
+    ((2, 2), False, True, 1), ((4, 1), True, True, 1)))
+def test_mamba_layer_collectives_match_formula(shape, fsdp, cached, batch):
     """One Mamba-2 layer of mamba2-370m's smoke config, a prefill of T0
     tokens into its cache and STEPS decode steps on every point (or,
     without a cache, one call over all T0 + STEPS tokens, as the loss
     runs it): `spmd.COMM` against the formula of spmd.py's note (in_proj's
-    output and the conv's gathered, out_proj's sum; FSDP's gathers), each
-    point's conv and SSM caches `cache_spec`'s share, and the layer's
-    output against the unsharded layer's."""
+    output and the conv's gathered, out_proj's sum; FSDP's gathers; at
+    batch 1 the gated output gathered over "data"), each point's conv
+    and SSM caches `cache_spec`'s share, and the layer's output against
+    the unsharded layer's."""
     from repro_torch.launch.dryrun import local_bytes as lb
     from repro_torch.models import layers as L
     cfg = _f32("mamba2-370m")
@@ -406,7 +493,7 @@ def test_mamba_layer_collectives_match_formula(shape, fsdp, cached):
     mixer, specs = _layer(
         model.init(torch.Generator().manual_seed(0))["layers"][0]["mixer"],
         S.param_specs(cfg, mesh, fsdp=fsdp)["layers"][0]["mixer"])
-    x = torch.randn((B, T0 + STEPS, cfg.d_model),
+    x = torch.randn((batch, T0 + STEPS, cfg.d_model),
                     generator=torch.Generator().manual_seed(1))
 
     def layer(p, x):
@@ -420,8 +507,8 @@ def test_mamba_layer_collectives_match_formula(shape, fsdp, cached):
             out.append(y)
         return torch.cat(out, dim=1), serve.cache_bytes(
             {"prefix": [c], "slots": []})
-    spec = S.batch_spec(mesh, B, 2)
-    ways = _ways(mesh, B)
+    spec = S.batch_spec(mesh, batch, 2)
+    ways = _ways(mesh, batch)
     SP.reset_counts()
     with torch.no_grad():
         parts = SP.run(mesh, layer, SP.shard_tree(mixer, specs, mesh),
@@ -430,14 +517,16 @@ def test_mamba_layer_collectives_match_formula(shape, fsdp, cached):
         want = layer(mixer, x)[0]
     got = (SP.COMM["all_reduce"], SP.COMM["all_reduce_bytes"],
            SP.COMM["all_gather"], SP.COMM["all_gather_bytes"])
-    b = B // ways
+    b = batch // ways
     calls = [(b, T0)] + [(b, 1)] * STEPS if cached else [(b, T0 + STEPS)]
-    assert got == _mamba_formula(cfg, mesh, fsdp, calls)
+    assert got == _mamba_formula(cfg, mesh, fsdp, calls,
+                                 b1=bool(cached) and batch == 1)
     torch.testing.assert_close(SP.gather_results(
         mesh, spec, [y for y, _ in parts]), want, rtol=2e-5, atol=2e-5)
     if cached:
-        whole = model.init_cache(B, 1, "meta")      # stacked [n_reps]
-        share = lb(whole, S.cache_spec(cfg, mesh, B), mesh) // model.n_reps
+        whole = model.init_cache(batch, 1, "meta")  # stacked [n_reps]
+        share = lb(whole, S.cache_spec(cfg, mesh, batch), mesh) \
+            // model.n_reps
         assert share < serve.cache_bytes(whole) // model.n_reps
         assert [n for _, n in parts] == [share] * mesh.size
 

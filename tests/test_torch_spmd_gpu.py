@@ -24,7 +24,8 @@ cross-attention, uncut, in bf16 with the routing replayed for deepseek
 against `flash_plain`'s on the card, slot ranges merged against the
 whole-cache call, and qwen1.5-4b at published widths cut to 2 layers on
 (1, 8) of one card (its 20 heads split by sequence) against the same
-model unsharded (`CP_BOUNDS`)."""
+model unsharded (`CP_BOUNDS`); deepseek-v2-lite-16b at batch 1 on (2, 2),
+its latent split by slots over "data" (`B1_MLA_BOUNDS`)."""
 import dataclasses
 import importlib.util
 import pathlib
@@ -176,20 +177,20 @@ def test_mixtral_uncut_on_four_cards(cuda):
         assert row["params"] == row["params_reckoned"]
 
 
-def _zoo_gap(cfg, mesh, device):
+def _zoo_gap(cfg, mesh, device, batch=B):
     """(`chip_smoke.sharded_gap` of `cfg` sharded over `mesh` against its
-    unsharded greedy run, the routing replayed for a MoE; the sharded
-    serve result)."""
+    unsharded greedy run of `batch` rows, the routing replayed for a MoE;
+    the sharded serve result)."""
     import chip_smoke
     moe = cfg.moe is not None
     routes, restore = chip_smoke.record_routes(L) if moe else (None, None)
     try:
         with set_mesh(make_test_mesh(mesh.axis_sizes, mesh.axis_names)):
-            ref = serve.serve_config(cfg, B, S_LEN, G, device)
+            ref = serve.serve_config(cfg, batch, S_LEN, G, device)
     finally:
         if restore:
             restore()
-    res = serve.serve_config(cfg, B, S_LEN, G, device, mesh=mesh)
+    res = serve.serve_config(cfg, batch, S_LEN, G, device, mesh=mesh)
     gap = chip_smoke.sharded_gap(torch, L, SP, serve, ref, res["model"],
                                  res["params"], mesh, routes, replay=moe)
     return gap, res
@@ -226,20 +227,23 @@ def test_zoo_config_on_one_card_matches_unsharded(arch, cuda):
         assert step["max_abs"] <= most and step["mean_abs"] <= mean, step
 
 
-@pytest.mark.parametrize("d,h,kvh", ((128, 20, 20), (64, 16, 4)))
-def test_decode_lse_on_the_card_matches_flash_plain(d, h, kvh, cuda):
+@pytest.mark.parametrize("d,dv,h,kvh", ((128, 128, 20, 20),
+                                         (64, 64, 16, 4),
+                                         (192, 128, 8, 8)))
+def test_decode_lse_on_the_card_matches_flash_plain(d, dv, h, kvh, cuda):
     """K8 decode's `return_lse` (the CUDA kernel): the output and the
     log-sum-exp against `flash_plain`'s on the same inputs (the lse within
     `chip_smoke.LSE_TOL`, -inf where plain's is), then the cache cut into
     2 and 4 slot ranges, the last with no valid key (its lse -inf), merged
     by `ops.merge_partials` within `chip_smoke.DECODE_ULPS` of the
-    whole-cache K8 call."""
+    whole-cache K8 call; at MLA's (192, 128) too, on a (2, 2) point's 8
+    heads."""
     import chip_smoke
     gen = torch.Generator(device=cuda).manual_seed(d)
     b, skv = 2, 1040
     q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(
         torch.bfloat16) for shape in ((b, 1, h, d), (b, skv, kvh, d),
-                                      (b, skv, kvh, d)))
+                                      (b, skv, kvh, dv)))
     for ranges in (2, 4):
         n = skv // ranges
         kp, kval = L._ring_positions((ranges - 1) * n, skv, b, cuda)
@@ -267,6 +271,45 @@ def test_decode_lse_on_the_card_matches_flash_plain(d, h, kvh, cuda):
                                    torch.stack(lses)).to(torch.bfloat16)
         assert float((merged.float() - o[:, 0].float()).abs().max()) \
             <= chip_smoke.decode_limit(o)
+
+
+#: (max |d|, mean |d|) bounds of deepseek-v2-lite-16b's bf16 gap at batch
+#: 1 from the unsharded run (`_zoo_gap` at batch 1, its published widths
+#: cut to 2 layers, routing replayed), measured on the CPU (K8's plain
+#: version on ["cpu"] * 4) at max |d| 0.0508 and mean 0.0091; about three
+#: times that, as `ZOO_BOUNDS`
+B1_MLA_BOUNDS = (0.15, 0.027)
+
+
+def test_mla_batch_one_on_one_card_matches_unsharded(cuda):
+    """deepseek-v2-lite-16b at published widths cut to 2 layers (its dense
+    first layer and one MoE layer) at batch 1 on (2, 2) of cuda:0 x 4:
+    each point holds 55 of the 110 slots of MLA's latent and rope caches
+    at every column (`cache_spec`'s share), K8 (192, 128) runs on its 8
+    heads at (S_LEN, S_LEN) a prefill and over its 55 slots a decode step
+    with the log-sum-exp (two passes and the forced run, 2 layers, 4
+    points), the unsharded run's at (S_LEN, 110) and (1, 110); the forced
+    logits, routing replayed, within `B1_MLA_BOUNDS`."""
+    import chip_smoke
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"), n_layers=2)
+    mesh = make_test_mesh((2, 2), devices=[cuda] * 4)
+    seen, restore = chip_smoke.record_k8_shapes(L)
+    try:
+        gap, res = _zoo_gap(cfg, mesh, cuda, batch=1)
+    finally:
+        restore()
+    cap = res["cap"]
+    assert cap == S_LEN + G + 8
+    assert dict(seen) == {(S_LEN, cap, 16, 16): 2 * 2,
+                          (1, cap, 16, 16): 2 * 2 * G,
+                          (S_LEN, S_LEN, 8, 8): 3 * 2 * 4,
+                          (1, cap // 2, 8, 8): 3 * 2 * 4 * G}
+    whole = res["model"].init_cache(1, cap, "meta")
+    assert res["device_bytes"][str(cuda)]["caches"] == 4 * local_bytes(
+        whole, S.cache_spec(cfg, mesh, 1), mesh)
+    most, mean = B1_MLA_BOUNDS
+    for step in gap["steps"]:
+        assert step["max_abs"] <= most and step["mean_abs"] <= mean, step
 
 
 #: qwen1.5-4b at its published widths cut to 2 layers, served on (1, 8):

@@ -6,8 +6,11 @@ checkout, on one NVIDIA GPU.
 
 Imports `chip_smoke` and `repro_torch` from the checkout at DIR (default:
 this one), builds its kernel libraries from its own sources, and runs its
-`attention_phase`: one JSON line a K8 case (CUDA-event and device ms,
-errors against `flash_plain` and `sdpa_ref`, bound, SDPA's times; every
+`attention_phase`, every case's plain version over all its query rows
+(the smoke takes the last rows of a batch-1 point's 32,744-row prefill,
+whose plain call alone takes 36 s): one JSON line a K8 case (CUDA-event
+and device ms, errors against `flash_plain` and `sdpa_ref`, bound,
+SDPA's times; every
 case of phase 7, whisper-base's encoder, cross prefill and cross decode
 shapes at (64, 64) among them), its `lse_phase` (decode's log-sum-exp
 against `flash_plain`'s, and slot ranges merged against the whole-cache
@@ -20,6 +23,7 @@ card: parent, change, change, parent (the parent unpacked with
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import pathlib
 import sys
@@ -48,7 +52,10 @@ def main() -> int:
         lines.append(obj)
         emit(obj)
     chip_smoke.emit = keep
-    chip_smoke.attention_phase(torch, fa, torch.device("cuda", 0), log)
+    phase = chip_smoke.attention_phase      # an older tree's has no option
+    whole = {"whole_plain": True} if "whole_plain" in \
+        inspect.signature(phase).parameters else {}
+    phase(torch, fa, torch.device("cuda", 0), log, **whole)
     chip_smoke.lse_phase(torch, fa, torch.device("cuda", 0))
     print(json.dumps({"root": str(root), "device_ms": {
         rec["case"]: rec["device_ms"] for rec in lines

@@ -30,14 +30,15 @@ layers x points a prefill call and a decode step, the collective counts
 (`spmd.COMM`) and, per card, the parameter bytes it holds beside
 `dryrun.local_bytes` of `param_specs` (reckoned), its cache bytes
 beside `cache_spec`'s share, and its peak memory (since the start: the
-draws' one full leaf on cuda:0 included); for a dense attention model
-also `chip_smoke.dense_serve_comm`, the collectives' formula, beside
-them. Needs as many visible CUDA devices as mesh points, or, with
-`--one-card`, puts every point on cuda:0 (`chip_smoke.py`'s sharded
-paths run so: the two commands above repeat `serve-sharded-cp`'s run,
-qwen1.5-4b's 20 heads split by sequence over 8 points, and
-`serve-sharded-b1`'s, batch 1 with the cache's length split over
-"data", without their checks).
+draws' one full leaf on cuda:0 included); with fsdp off and no stub
+frontend, also `chip_smoke.serve_comm`, the collectives' formula,
+beside them (null for a layer it does not cover). Needs as many
+visible CUDA devices as mesh points, or, with `--one-card`, puts every
+point on cuda:0 (`chip_smoke.py`'s sharded paths run so: the two
+commands above repeat `serve-sharded-cp`'s run uncut (the smoke cuts
+it to 16 layers), qwen1.5-4b's 20 heads split by sequence over 8
+points, and `serve-sharded-b1`'s, batch 1 with the cache's length split
+over "data", without their checks).
 """
 from __future__ import annotations
 
@@ -105,13 +106,14 @@ def run(arch: str, mesh_text: str, batch: int, prompt_len: int,
                    for r in devices.values())
     t_pre, t_dec = res["prefill_seconds"], res["decode_seconds"]
     formula = None
-    if cfg.attn is not None and not cfg.attn.kv_lora_rank and \
-            cfg.moe is None and cfg.mamba is None and not cfg.n_enc_layers \
-            and cfg.frontend is None and not res["fsdp"]:
-        import chip_smoke           # a dense attention model: its formula
-        formula = chip_smoke.dense_serve_comm(
-            cfg, mesh, batch, prompt_len, gen_tokens, res["cap"],
-            len(res["passes"]))
+    if not cfg.n_enc_layers and cfg.frontend is None and not res["fsdp"]:
+        import chip_smoke           # the formula, where it covers the model
+        try:
+            formula = chip_smoke.serve_comm(
+                cfg, mesh, batch, prompt_len, gen_tokens, res["cap"],
+                len(res["passes"]))
+        except ValueError:
+            pass
     return {"arch": arch, "config": cfg.name, "layers": cfg.n_layers,
             "params": cfg.param_count(), "mesh": mesh_text,
             "axes": list(mesh.axis_names), "fsdp": res["fsdp"],
