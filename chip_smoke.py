@@ -351,7 +351,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              run); the analytic compute and memory times beside the
              measured prefill seconds (K8) and decode device ms, and the
              bound's share of each. K8 launches on the served calls,
-             K1-K7 never;
+             K1-K7 never. Then the dry run's collective fields
+             (`collectives`, `collective_bytes_per_device`,
+             `collective_received_bytes_per_device`), counted from one
+             point's step on the meta device, of qwen1.5-4b x decode_32k
+             and deepseek-v2-lite-16b x decode_32k on (32, 8) and (2, 32,
+             8), with each count's seconds (`LAUNCH_REPORT_CELLS`);
 11d. serve-sharded — path `serve-sharded` (`SERVE_SHARDED`): mixtral-
              8x7b at its published widths cut to 4 layers, sharded over
              a (2, 2) ("data", "model") mesh of four points of the card
@@ -363,7 +368,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              per prefill call and per decode step (4 layers x 4 points),
              K1-K7 never; each point must hold `dryrun.local_bytes` of
              `param_specs` and `cache_spec`'s share of the caches; the
-             collective counts and bytes are printed. The check: the same
+             collective counts and bytes (`spmd.COMM`) must equal one
+             point's pass counted on the meta device
+             (`collectives.count_serve`) times the points and the passes,
+             on every path 11d-11l. The check: the same
              model unsharded (`serve_config` on the same weights and
              tokens, run first under the mesh's abstract twin, so its MoE
              groups are the sharded run's), its greedy tokens fed to the
@@ -423,7 +431,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              and v (K8 prefill, Sq 256, Skv 2048), its 259 of the 2072
              cache slots, K8 decode on them with their log-sum-exp and
              the eight partials merged; each point's cache bytes held to
-             `cache_spec`'s share, `spmd.COMM` to `serve_comm` (the
+             `cache_spec`'s share, `spmd.COMM` to `spmd.serve_comm` (the
              formula of `parallel/spmd.py`'s note) and K8's calls to
              their (Sq, Skv); the check within `SHARDED_CP_MAX_ABS` and
              `SHARDED_CP_MEAN_ABS`;
@@ -444,7 +452,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              over "model", K8 (192, 128) prefill on the point's 8 heads
              at (32,744, 32,744) and decode over its 16,384 slots with
              the log-sum-exp, the data points' partials merged; `COMM`
-             held to `serve_comm`, K8's calls to their (Sq, Skv), the
+             held to `spmd.serve_comm`, K8's calls to their (Sq, Skv), the
              check as 11e's within `SHARDED_B1_MLA_MAX_ABS` and
              `SHARDED_B1_MLA_MEAN_ABS`;
 11l. serve-sharded-b1-mamba2 — path `serve-sharded-b1-mamba2`
@@ -452,7 +460,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              batch 1, a 2,048-token prompt, 32 tokens on (2, 2): the SSM
              state's 16 heads a point by its "data" coordinate, its gated
              output gathered over "data" before out_proj's rows; `COMM`
-             held to `serve_comm`, no hand kernel; the check within
+             held to `spmd.serve_comm`, no hand kernel; the check within
              `SHARDED_B1_SSM_MAX_ABS` and `SHARDED_B1_SSM_MEAN_ABS`;
 12. train  — path `train`: qwen1.5-4b at its full config (3.95 B
              parameters, bf16, random weights from seed 0) through
@@ -500,7 +508,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              them. Then `TRAIN_SHARDED["steps"]` bf16 steps on one
              repeated batch: every loss finite and each under the one
              before; `spmd.COMM` equal to `spmd.train_comm` (the formula
-             of `parallel/spmd.py`'s note) times the steps; each
+             of `parallel/spmd.py`'s note) times the steps, and to one
+             point's step counted on the meta device
+             (`collectives.count`) times the points and steps; each
              point's parameter bytes `dryrun.local_bytes` of the specs; no
              hand kernel launches (attention on "auto"). Prints the step
              seconds, tokens a second and the peak memory beside the
@@ -1065,6 +1075,11 @@ SHARDED_TRAIN_UPDATE_REL = 1e-2
 #: one-device mesh
 LAUNCH_REPORTS = {"arch": "qwen1.5-4b", "batch": 4, "prompt_len": 2048,
                   "cap": 2088}
+#: path `launch-reports`: the dry run's cells whose collective fields it
+#: prints at full width on both production meshes (the sequence split on
+#: a model axis of 8; MLA and the expert-parallel MoE)
+LAUNCH_REPORT_CELLS = (("qwen1.5-4b", "decode_32k"),
+                       ("deepseek-v2-lite-16b", "decode_32k"))
 #: bounds of a real prefill's FlopCounterMode count ("auto" attention:
 #: K8 is opaque to the counter) over `analytic.prefill_cost(...).flops`,
 #: fixed on the CPU before the first card run. A trace of the same call
@@ -3437,14 +3452,17 @@ def train_sharded_phase(torch, np, kb, sj, fa, dev, smi: str) -> dict:
     gradient norm and parameters after one step against the unsharded
     step, and its control); then TRAIN_SHARDED["steps"] bf16 steps on
     one repeated batch, whose collectives (`spmd.COMM`) must equal
-    `spmd.train_comm` times the steps, every loss finite and each
+    `spmd.train_comm` times the steps and `collectives.count` (one
+    point's step counted on "meta") times the points and the steps,
+    every loss finite and each
     under the one before. No hand kernel launches (attention on
     "auto"). Prints the step seconds, tokens a second and the peak
     memory beside the card's name and power limit. Returns the path's
     launch counts."""
     import dataclasses
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import collectives
     from repro_torch.launch.dryrun import local_bytes, opt_shardings
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models.common import abstract_params
@@ -3511,6 +3529,13 @@ def train_sharded_phase(torch, np, kb, sj, fa, dev, smi: str) -> dict:
     counts = read()                   # just after the path
     want = {k: x * steps for k, x in
             SP.train_comm(cfg, mesh, b, s, tc, spec["fsdp"]).items()}
+    # one point's step counted on "meta", times the points and steps
+    t0 = time.perf_counter()
+    one = collectives.count(cfg, ShapeSpec(path, s, b, "train"), mesh,
+                            fsdp=spec["fsdp"], tc=tc, optimizer=O.AdamW(
+                                lr=O.cosine_schedule(3e-4, 2, steps)))
+    count_seconds = time.perf_counter() - t0
+    counted = {k: one[k] * mesh.size * steps for k in SP.COMM}
     held = [SP.tree_local_bytes(params, p) for p in range(mesh.size)]
     step_s = statistics.mean(secs[1:])
     # one more step under torch.profiler, outside the path's counts: the
@@ -3528,6 +3553,8 @@ def train_sharded_phase(torch, np, kb, sj, fa, dev, smi: str) -> dict:
           "peak_memory_bytes": peak, "param_bytes_per_point": held,
           "param_bytes_per_point_reckoned": per_point,
           "collectives": comm, "collectives_formula": want,
+          "collectives_counted": counted,
+          "collectives_count_seconds": count_seconds,
           "profile_one_step": prof, "launches": counts,
           "path_seconds": time.perf_counter() - t_path, "card": smi})
     check(gate["sharded"]["passes_gate"],
@@ -3541,6 +3568,8 @@ def train_sharded_phase(torch, np, kb, sj, fa, dev, smi: str) -> dict:
     check(all(y < x for x, y in zip(losses, losses[1:])),
           f"{path}: the losses did not fall step by step ({losses})")
     check(comm == want, f"{path}: collectives {comm}, the formula {want}")
+    check(comm == counted, f"{path}: collectives {comm}, the count of one "
+          f"point on meta {counted}")
     check(held == [per_point] * mesh.size,
           f"{path}: points hold {held} parameter bytes, the specs "
           f"{per_point} each")
@@ -3956,12 +3985,15 @@ def launch_reports_phase(torch, kb, sj, fa, dev, smi: str) -> dict:
     printed beside it. Prints the analytic compute and memory times
     beside the measured prefill seconds (K8, CUDA events) and a decode
     step's device ms (torch.profiler), and the bound's share of each.
-    The served calls run on "flash": K8 must launch, K1-K7 never."""
+    The served calls run on "flash": K8 must launch, K1-K7 never. Then
+    the dry run's collective fields (`launch.collectives.count_cell`, one
+    point's step on "meta") of `LAUNCH_REPORT_CELLS` on both production
+    meshes, with each count's seconds."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs import ShapeSpec, get_config
-    from repro_torch.launch import analytic, dryrun
-    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch import analytic, collectives, dryrun
+    from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
     from repro_torch.launch.specs import input_specs
     from repro_torch.models import layers as L
     from repro_torch.models.common import abstract_params
@@ -4056,6 +4088,27 @@ def launch_reports_phase(torch, kb, sj, fa, dev, smi: str) -> dict:
                                         dec_t["memory_s"])
                      / (decode_ms / 1e3)},
           "launches": {k: counts[k] for k in FLASH}})
+    cells = []
+    for cell_arch, cell_shape in LAUNCH_REPORT_CELLS:
+        for multi in (False, True):
+            cell_mesh = make_production_mesh(multi_pod=multi)
+            t0 = time.perf_counter()
+            one = collectives.count_cell(cell_arch, cell_shape, cell_mesh)
+            stats = collectives.collective_stats(one)
+            cells.append({
+                "arch": cell_arch, "shape": cell_shape,
+                "mesh": dict(cell_mesh.shape), "collectives": stats,
+                "collective_bytes_per_device":
+                    collectives.collective_bytes(stats),
+                "collective_received_bytes_per_device":
+                    collectives.received_bytes(one),
+                "collective_trace_seconds": time.perf_counter() - t0})
+            check(stats["all-gather"]["count"] > 0
+                  and stats["all-reduce"]["count"] > 0,
+                  f"launch-reports: {cell_arch} x {cell_shape} on "
+                  f"{cell_mesh.shape} counted no collectives ({stats})")
+    emit({"phase": "launch-reports", "path": "launch-reports",
+          "dry_run_collectives": cells, "card": smi})
     check(FLOP_RATIO_BOUNDS[0] <= ratio <= FLOP_RATIO_BOUNDS[1],
           f"launch-reports: counted prefill FLOPs {flops} are {ratio} of "
           f"the model's {pre_cost.flops}, outside {FLOP_RATIO_BOUNDS}")
@@ -4483,144 +4536,20 @@ def record_k8_shapes(L) -> tuple:
     return seen, restore
 
 
-def serve_comm(cfg, mesh, batch: int, prompt_len: int, gen_tokens: int,
-               cap: int, passes: int = 1) -> dict:
-    """`spmd.COMM` of `passes` passes of `serve.generate_sharded` (fsdp
-    off), summed over the points, by the formulas of `parallel/spmd.py`'s
-    note, for a model whose layers are attention, MLA or Mamba-2 mixers,
-    each followed by an MLP, an expert-parallel MoE or nothing: the
-    vocab-parallel embedding's all-reduce and the logits' gather (where tp
-    divides the vocabulary); per layer, for attention wo's all-reduce
-    where the heads split whole, and under the sequence split one gather
-    of the attention leaves split over "model" each call and, where tp
-    divides the call's tokens, k, v and y gathered; for MLA where it
-    splits over "model", w_kr gathered whole and wo's all-reduce, and the
-    latent and rope caches gathered, or, at a batch the data axes do not
-    divide (batch 1), the call's latent; for the Mamba-2 mixer where it
-    splits, in_proj's and the conv's outputs gathered and out_proj's
-    all-reduce, and at batch 1 its gated output gathered over "data"
-    where "data" splits its heads; where a cache's slots are split over
-    n points, a decode step's merge; w2's all-reduce where its rows are
-    split, the MoE's f32 combine where its experts or their d_ff are, and
-    once a call the stacked leaves whose layer dim is split (deepseek's
-    shared experts); the splits read from `param_specs`. Raises
-    ValueError for a layer this does not cover (MLA or a Mamba-2 mixer
-    gathered over a model axis of more than one point)."""
-    from repro_torch.models.common import abstract_params, layer_layout
-    from repro_torch.parallel import sharding as S
-    a, d, v = cfg.attn, cfg.d_model, cfg.vocab_size
-    tp = mesh.shape.get("model", 1)
-    ways_d = mesh.shape.get("data", 1)
-    dp = math.prod(mesh.shape.get(x, 1) for x in ("pod", "data"))
-    e = cfg.dtype.itemsize
-    b_ok = batch % dp == 0
-    b = batch // dp if b_ok else batch
-    b1 = not b_ok and ways_d > 1     # the batch whole on every point
-    full, specs = abstract_params(cfg), S.param_specs(cfg, mesh, fsdp=False)
-
-    def model_split(entry):          # a spec entry that "model" splits
-        return tp > 1 and "model" in (entry if isinstance(entry, tuple)
-                                      else (entry,))
-    stacked = []    # gathered once a call: the layer dim "model" splits
-
-    def walk(x, y):
-        if isinstance(x, dict):
-            for k in x:
-                walk(x[k], y[k])
-        elif model_split(y[0]):
-            stacked.append(math.prod(x.shape))
-    for x, y in zip(full["layers"], specs["layers"]):
-        walk(x, y)
-    prefix, period, _ = layer_layout(cfg)
-    # each layer's FFN's specs (None for a mixer-only block)
-    ffns = [(specs["prefix_layers"][i] if i < prefix else specs["layers"][
-        (i - prefix) % period]).get("ffn") for i in range(cfg.n_layers)]
-    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
-    if a is not None:
-        hd, kvh = a.head_dim, a.num_kv_heads
-        hs = tp if a.num_heads % tp == 0 and kvh % tp == 0 else 1
-        cp = tp > 1 and hs == 1 and not a.kv_lora_rank
-        want = ([ways_d] if b1 else []) + ([tp] if cp else [])
-        n = 1
-        for w in want:               # the ways the cache's slots split
-            if cap % (n * w) == 0:
-                n *= w
-        lay = specs["layers"][0]["mixer"]
-        mixer = full["layers"][0]["mixer"]
-        gathered = [mixer[k][0].numel() for k in mixer
-                    if k != "ln" and "model" in tuple(lay[k])]
-        if a.kv_lora_rank:
-            r, dr = a.kv_lora_rank, a.rope_head_dim
-            mla = hs if r % tp == 0 and dr % tp == 0 else 1
-            if tp > 1 and mla == 1:
-                raise ValueError("serve_comm: MLA gathered over 'model'")
-    if cfg.mamba is not None:
-        mb = cfg.mamba
-        d_in = mb.expand * d
-        nheads, ch = d_in // mb.head_dim, d_in + 2 * mb.d_state
-        if tp > 1 and (nheads % tp or ch % tp):
-            raise ValueError("serve_comm: a Mamba-2 mixer gathered over "
-                             "'model'")
-    ar = ag = ar_b = ag_b = 0
-    for s in [prompt_len] + [1] * gen_tokens:
-        if tp > 1 and v % tp == 0:   # the embedding, the logits
-            ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
-            ag, ag_b = ag + 1, ag_b + (tp - 1) * 4 * b * v // tp
-        for numel in stacked:        # the split layer dims, in one call
-            ag, ag_b = ag + 1, ag_b + (tp - 1) * e * numel // tp
-        for i, kind in enumerate(kinds):
-            if kind == "mamba":
-                if tp > 1:           # in_proj's and the conv's outputs
-                    ag += 2
-                    ag_b += (tp - 1) * e * b * s * (
-                        d_in + ch + nheads + ch) // tp
-                    ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
-                if b1 and nheads % ways_d == 0:     # the gated output
-                    ag += 1
-                    ag_b += (ways_d - 1) * e * b * s * d_in // ways_d
-            elif a.kv_lora_rank:
-                if tp > 1:           # w_kr; the call's latent, or the
-                    ag += 2 if b1 else 3     # cached latent and rope
-                    ag_b += (tp - 1) * e * (d * dr + (
-                        b * s * r if b1 else b * cap * (r + dr))) // tp
-                    ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
-            elif hs > 1:             # wo
-                ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
-            elif cp:                 # the attention leaves, in one
-                ag += 1
-                ag_b += (tp - 1) * e * sum(gathered) // tp
-                if s % tp == 0:      # k, v and y
-                    ag += 3
-                    ag_b += (tp - 1) * e * b * s * (2 * kvh * hd + d) // tp
-            if kind != "mamba" and s == 1 and n > 1:   # the decode merge
-                ag += 1
-                ag_b += (n - 1) * 4 * b * (a.num_heads // hs) * (hd + 1)
-            ffn = ffns[i]
-            if ffn is None:
-                continue
-            if "router" in ffn:      # the MoE's f32 combine
-                if any(model_split(x) for x in ffn["w2"][-3:-1]):
-                    ar, ar_b = ar + 1, ar_b + (tp - 1) * 4 * b * s * d
-            elif model_split(ffn["w2"][-2]):     # w2
-                ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
-    k = passes * mesh.size
-    return {"all_reduce": ar * k, "all_gather": ag * k, "reduce_scatter": 0,
-            "all_reduce_bytes": ar_b * k, "all_gather_bytes": ag_b * k,
-            "reduce_scatter_bytes": 0}
-
-
 def serve_sharded_phase(torch, kb, sj, fa, dev, smi: str, path: str,
                         spec: dict, tol: tuple) -> dict:
     """Path `path` (phases 11d-11l, `SERVE_SHARDED_PATHS`): the model of
     `spec` through `serve.serve_config(..., mesh=...)` on a mesh of
     points of the card, its launches and collectives counted (K8's calls
     by shape, held to `spec["k8_shapes"]` and `spmd.COMM` to
-    `serve_comm` where the spec has them), each point's parameter
+    `spmd.serve_comm` where the spec has them, and `spmd.COMM` to
+    `collectives.count_serve`, one point's pass counted on "meta", times
+    the points and passes), each point's parameter
     and cache bytes held to the specs' shares, then the check against the
     same model unsharded (`sharded_gap`) within `tol` (max |d|, mean |d|,
     and for a MoE the most of its routing choices that may differ on its
     own routing). Returns the path's launch counts."""
-    from repro_torch.launch import serve
+    from repro_torch.launch import collectives, serve
     from repro_torch.launch.dryrun import local_bytes
     from repro_torch.launch.mesh import make_test_mesh, set_mesh
     from repro_torch.models import layers as L
@@ -4664,6 +4593,14 @@ def serve_sharded_phase(torch, kb, sj, fa, dev, smi: str, path: str,
     seconds = time.perf_counter() - t0
     counts = read()                   # just after
     comm = dict(SP.COMM)
+    # one point's pass counted on "meta", times the points and passes
+    t0 = time.perf_counter()
+    one = collectives.count_serve(cfg, mesh, b, s, g, res["cap"],
+                                  res["fsdp"])
+    count_seconds = time.perf_counter() - t0
+    counted = {k: one[k] * mesh.size * len(res["passes"]) for k in SP.COMM}
+    check(comm == counted, f"{path}: collectives {comm}, the count of one "
+          f"point on meta {counted}")
     k8_shapes = [{"Sq": sq, "Skv": skv, "H": h, "KVH": kvh, "calls": n}
                  for (sq, skv, h, kvh), n in sorted(shapes.items())]
     if "k8_shapes" in spec:
@@ -4679,8 +4616,8 @@ def serve_sharded_phase(torch, kb, sj, fa, dev, smi: str, path: str,
         check(dict(got_shapes) == want_shapes,
               f"{path}: K8 ran at (Sq, Skv) {dict(got_shapes)}, expected "
               f"{want_shapes}")
-        want_comm = serve_comm(cfg, mesh, b, s, g, res["cap"],
-                                     len(res["passes"]))
+        want_comm = SP.serve_comm(cfg, mesh, b, s, g, res["cap"],
+                                  len(res["passes"]))
         check(comm == want_comm, f"{path}: collectives {comm}, the "
               f"formula {want_comm}")
     peak = torch.cuda.max_memory_allocated()
@@ -4731,6 +4668,8 @@ def serve_sharded_phase(torch, kb, sj, fa, dev, smi: str, path: str,
               res["model"].init_cache(b, res["cap"], "meta")),
           "k8_shapes": k8_shapes,
           "device_bytes": res["device_bytes"], "collectives": comm,
+          "collectives_counted": counted,
+          "collectives_count_seconds": count_seconds,
           "launches": counts, "launches_expected": want,
           "greedy_tokens_equal_unsharded": float(
               (res["tokens"] == ref["tokens"]).float().mean()),

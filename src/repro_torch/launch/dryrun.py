@@ -24,19 +24,30 @@ reference's keys (`repro/launch/dryrun.py`):
     optimizer's elementwise work counts no FLOPs. The trace runs under
     the cell's mesh, so a MoE routes the mesh's per-shard token groups
     (each adds a spare gather row an expert, and at decode each group's
-    capacity is its own token count).
+    capacity is its own token count);
+  * `collectives` — the reference's five kinds (`all-gather`,
+    `all-reduce`, `reduce-scatter`, `all-to-all`, `collective-permute`),
+    each {count, bytes} per device, counted from one mesh point's own
+    sharded step (`launch.collectives`: the step as the sharded path
+    runs it, `parallel.spmd.counting`, traced on "meta" at the cell's
+    full shape, point 0; every point makes the same calls). "bytes" is
+    the reference's rule: each collective's output (the gathered tensor,
+    the sum in its dtype, the reduce-scatter's slice).
+    `collective_bytes_per_device` is their sum, and
+    `collective_received_bytes_per_device` the bytes a point receives
+    from the others (`spmd.COMM`'s rule: (n - 1) times its tensor in a
+    group of n), the wire term the cost model's `coll_bytes` estimates.
+    The port's MoE combines by an all-reduce, so `all-to-all` and
+    `collective-permute` are 0. `collective_trace_seconds` is the
+    count's time, beside the FLOP trace's `trace_seconds`.
 
 The port has no SPMD partitioner and compiles no partitioned program, so
-the numbers XLA's compiler supplied to the reference's report
-(`compile_seconds`, `bytes_accessed_per_device`, `collectives`,
-`collective_bytes_per_device`, `memory.output_bytes`, `temp_bytes`,
-`generated_code_bytes`) are null and listed under `not_measured`; the
-reference's `launch/hlo.py`, which parses XLA's partitioned HLO for the
-collectives, has no counterpart (sharded serving and training count
-their collectives as they run them, `parallel.spmd.COMM`; filling these
-fields from such counts is ROADMAP item 10e.2d). Skipped cells (`skip`) come
-from `shape_skip_reason`. The roofline (`launch.roofline`) reads these
-reports beside the analytic cost model.
+the numbers only XLA's compiler supplied to the reference's report
+(`compile_seconds`, `bytes_accessed_per_device`, `memory.output_bytes`,
+`temp_bytes`, `generated_code_bytes`) are null and listed under
+`not_measured`. Skipped cells (`skip`) come from `shape_skip_reason`.
+The roofline (`launch.roofline`) reads these reports beside the
+analytic cost model.
 
 Usage (CPU; nothing is allocated at full size):
     python -m repro_torch.launch.dryrun [--arch A] [--shape S]
@@ -57,6 +68,7 @@ import torch
 
 from repro_torch.configs import ARCHS, SHAPES, get_config, shape_skip_reason
 from repro_torch.launch import analytic
+from repro_torch.launch import collectives as C
 from repro_torch.launch.mesh import (
     make_production_mesh, make_test_mesh, set_mesh,
 )
@@ -75,7 +87,6 @@ REPORT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                           "reports", "torch")
 
 NOT_MEASURED = ("compile_seconds", "bytes_accessed_per_device",
-                "collectives", "collective_bytes_per_device",
                 "memory.output_bytes", "memory.temp_bytes",
                 "memory.generated_code_bytes")
 
@@ -256,6 +267,10 @@ def build_cell(arch: str, shape: str, mesh,
     if key not in counted:
         counted[key] = step_flops(arch, shape, m, cfg, mesh)
     flops = counted[key]
+    t0 = time.perf_counter()
+    comm = C.count_cell(arch, shape, mesh, cfg)
+    comm_seconds = time.perf_counter() - t0
+    stats = C.collective_stats(comm)
     n_dev = math.prod(mesh.shape.values())
     extra = {"fsdp": args["fsdp"]}
     if kind == "train":
@@ -268,9 +283,11 @@ def build_cell(arch: str, shape: str, mesh,
         "flops_global": flops["flops"],
         "flops_note": flops["flops_note"],
         "trace_seconds": flops["trace_seconds"],
+        "collective_trace_seconds": comm_seconds,
         "bytes_accessed_per_device": None,
-        "collectives": None,
-        "collective_bytes_per_device": None,
+        "collectives": stats,
+        "collective_bytes_per_device": C.collective_bytes(stats),
+        "collective_received_bytes_per_device": C.received_bytes(comm),
         "memory": {"argument_bytes": args["argument_bytes"],
                    "argument_parts": args["parts"],
                    "output_bytes": None, "temp_bytes": None,
@@ -330,7 +347,9 @@ def main(argv=None) -> int:
                 print(f"=== {arch} x {shape} x {tag}: flops/dev="
                       f"{out['flops_per_device']:.3e} args="
                       f"{out['memory']['argument_bytes'] / 2**30:.2f}GiB "
-                      f"(trace {out['trace_seconds']:.1f}s)", flush=True)
+                      f"coll/dev={out['collective_bytes_per_device']:.3e}B "
+                      f"(trace {out['trace_seconds']:.1f}s, collectives "
+                      f"{out['collective_trace_seconds']:.1f}s)", flush=True)
     print("\nALL DRY-RUN CELLS WRITTEN")
     return 0
 

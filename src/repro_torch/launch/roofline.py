@@ -6,7 +6,14 @@ Reads the dry-run reports (reports/torch/dryrun/*.json, written by
 three roofline terms per (arch x shape x mesh), dominant bottleneck,
 MODEL_FLOPS / executed-FLOPs ratio, and what would move the dominant
 term — written to reports/torch/roofline_<mesh>.md and .json. The terms
-are arithmetic over configs, not measurements on a card.
+are arithmetic over configs, not measurements on a card. Beside the
+collective term's analytic bytes a device (`coll_bytes_per_dev_analytic`)
+stand the dry run's counted ones (`launch.collectives`: one mesh point's
+step on the meta device): `coll_bytes_per_dev_counted` by the
+reference's rule (each collective's output) and
+`coll_received_bytes_per_dev_counted` by the bytes a point receives,
+the wire term the analytic bytes estimate (`coll_received_over_analytic`
+their ratio).
 
     python -m repro_torch.launch.roofline [--mesh single|multi]
         [--reports DIR]
@@ -90,6 +97,7 @@ def build_table(mesh_tag: str = "single",
             dominant = cost.bottleneck()
             step_s = max(terms.values())
             useful_s = (cost.model_flops / meas["devices"]) / PEAK_FLOPS
+            received = meas.get("collective_received_bytes_per_device")
             rows.append({
                 "arch": arch, "shape": shape, "mesh": mesh_tag,
                 "devices": meas["devices"],
@@ -105,8 +113,13 @@ def build_table(mesh_tag: str = "single",
                 "traced_flops_per_dev": meas["flops_per_device"],
                 "traced_over_executed": meas["flops_per_device"]
                 / cost.flops,
-                "coll_bytes_per_dev_measured":
+                "coll_bytes_per_dev_analytic": cost.coll_bytes,
+                "coll_bytes_per_dev_counted":
                     meas["collective_bytes_per_device"],
+                "coll_received_bytes_per_dev_counted": received,
+                "coll_received_over_analytic": None
+                if received is None or not cost.coll_bytes
+                else received / cost.coll_bytes,
                 "memory_report": meas["memory"],
                 "improve": _IMPROVE[dominant],
             })
@@ -116,18 +129,22 @@ def build_table(mesh_tag: str = "single",
 def render_md(rows: List[dict]) -> str:
     lines = [
         "| arch | shape | compute s | memory s | collective s | "
+        "coll B/dev analytic | coll B/dev counted | "
         "bottleneck | MODEL/executed flops | traced/executed flops | "
         "roofline frac |",
-        "|---|---|---|---|---|---|---|---|---|",
+        "|---|---|---|---|---|---|---|---|---|---|---|",
     ]
     for r in rows:
         if "skip" in r:
-            lines.append(f"| {r['arch']} | {r['shape']} | — | — | — | "
-                         f"SKIP | — | — | {r['skip'][:60]}… |")
+            lines.append(f"| {r['arch']} | {r['shape']} | — | — | — | — | "
+                         f"— | SKIP | — | — | {r['skip'][:60]}… |")
             continue
+        counted = r["coll_bytes_per_dev_counted"]
         lines.append(
             f"| {r['arch']} | {r['shape']} | {r['compute_s']:.3e} | "
             f"{r['memory_s']:.3e} | {r['collective_s']:.3e} | "
+            f"{r['coll_bytes_per_dev_analytic']:.3e} | "
+            f"{'—' if counted is None else format(counted, '.3e')} | "
             f"{r['bottleneck']} | {r['useful_ratio']:.2f} | "
             f"{r['traced_over_executed']:.2f} | "
             f"{r['roofline_fraction']:.2f} |")

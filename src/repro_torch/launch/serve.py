@@ -146,6 +146,21 @@ def generate(model: Model, params, prompt: torch.Tensor, gen_tokens: int,
             "decode_seconds": time.perf_counter() - t0}
 
 
+def batch_ways(mesh, batch: int) -> int:
+    """The ways `batch_spec` splits a batch of `batch` rows over the data
+    axes (1 where they do not divide it: whole on every point)."""
+    if S.batch_spec(mesh, batch)[0] is None:
+        return 1
+    return math.prod(S.axis_size(mesh, a) for a in S.batch_axes(mesh))
+
+
+def split_rows(mesh, t: Optional[torch.Tensor]):
+    """`t` [B, ...] as a sharded leaf, its rows split by `batch_spec`
+    (None stays None)."""
+    return None if t is None else SP.shard_leaf(
+        t, S.batch_spec(mesh, t.shape[0], t.dim() - 1), mesh)
+
+
 def generate_sharded(model: Model, params, prompt: torch.Tensor,
                      gen_tokens: int, cap: int, mesh,
                      forced: Optional[torch.Tensor] = None,
@@ -157,14 +172,10 @@ def generate_sharded(model: Model, params, prompt: torch.Tensor,
     them), the tokens and logits gathered over them; the seconds are the
     slowest point's."""
     spec = S.batch_spec(mesh, prompt.shape[0])
-    ways = math.prod(S.axis_size(mesh, a) for a in S.batch_axes(mesh)) \
-        if spec[0] is not None else 1
-
-    def split(t):
-        return None if t is None else SP.shard_leaf(
-            t, S.batch_spec(mesh, t.shape[0], t.dim() - 1), mesh)
-    outs = SP.run(mesh, generate, model, params, split(prompt), gen_tokens,
-                  cap, split(forced), split(extra), batch_ways=ways)
+    outs = SP.run(mesh, generate, model, params, split_rows(mesh, prompt),
+                  gen_tokens, cap, split_rows(mesh, forced),
+                  split_rows(mesh, extra),
+                  batch_ways=batch_ways(mesh, prompt.shape[0]))
     return {"tokens": SP.gather_results(mesh, spec,
                                         [o["tokens"] for o in outs]),
             "logits": [SP.gather_results(mesh, spec,
@@ -201,8 +212,7 @@ def device_bytes(model: Model, params, mesh, batch: int,
     bytes of their caches (each point's `init_cache` of its batch rows
     and kv heads, built on the "meta" device) and, on CUDA, the peak
     memory allocated since the last reset."""
-    ways = math.prod(S.axis_size(mesh, a) for a in S.batch_axes(mesh)) \
-        if S.batch_spec(mesh, batch)[0] is not None else 1
+    ways = batch_ways(mesh, batch)
     caches = SP.run(mesh, lambda: cache_bytes(
         model.init_cache(batch // ways, cap, "meta")), batch_ways=ways)
     out: Dict[str, Dict[str, Any]] = {}

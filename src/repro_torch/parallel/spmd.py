@@ -141,23 +141,24 @@ call what they call at any batch (in_proj's and the conv's outputs
 gathered and out_proj's sum, where the mixer splits over "model") and,
 where "data" splits the heads (dp data points dividing H), one
 `all_gather` more: the gated output over "data", (dp - 1) e b S
-d_inner / dp bytes. `chip_smoke.serve_comm` sums these, with the
-embedding's, the logits', the MLP's and the MoE's, for a model's serve
-passes.
+d_inner / dp bytes. `serve_comm` sums these, with the embedding's, the
+logits', the MLP's and the MoE's, for a model's serve passes.
 
 A train step (`train.step.build_train_step(..., mesh=)`, remat on) of a
 dense model of L layers whose heads, d_ff and vocabulary V split over a
-model axis of size tp, with the batch split over a data axis of size dp
-(each microbatch t tokens a point, its loss in c chunks of t_c) and, with
-FSDP, the weights over "data" too; e the parameters' element bytes, d
+model axis of size tp, with the batch split over the data axes, "pod"
+and "data", of w points in all (each microbatch t tokens a point, its
+loss in c chunks of t_c) and, with FSDP, the weights over "data", of
+size dp, too; e the parameters' element bytes, d
 the model width, W the weights' elements (wq, wk, wv, wo, w1, w2, w3) a
 layer and H = d V the LM head's. Each of m microbatches, a point calls:
   * all_reduce 2 + 5 L + c times: the embedding, wo and w2 a layer (the
     forward), wo a layer again (the remat recomputation runs a block
     forward up to its last saved tensor, which comes before w2's sum),
     the q/k/v and w1/w3 copies' backward a layer, the LM head copy's
-    backward a chunk, and the loss's sum and count over "data": (tp - 1)
-    e d t bytes each (t_c for a chunk's), (dp - 1) 8 for the loss;
+    backward a chunk, and the loss's sum and count over the data axes
+    (where w > 1): (tp - 1) e d t bytes each (t_c for a chunk's), (w -
+    1) 8 for the loss;
   * all_gather 2 c times, the f32 logits of a chunk over "model" in the
     forward and the recomputation, (tp - 1) 4 t_c V / tp bytes; with FSDP
     also 14 L + 1 times, each weight a layer in the forward and the
@@ -165,12 +166,30 @@ layer and H = d V the LM head's. Each of m microbatches, a point calls:
     bytes in all;
   * reduce_scatter (with FSDP) 7 L + 1 times, each gathered weight's
     backward, (dp - 1) e (L W + H) / (dp tp) bytes in all.
-Then once a step: all_reduce of each leaf's f32 gradient that "data"
-does not split, over "data" ((dp - 1) 4 bytes an element the point
-holds: with FSDP the embedding, the norms and the QKV biases; without,
-every leaf), and of the gradient norm's sums once for each set of axes
-that splits some leaf ((n - 1) 4 bytes a leaf of it, n the points of
-its group). `train_comm` computes it.
+Then once a step: all_reduce of each leaf's f32 gradient over the data
+axes that do not split it, where they hold more than one point ((n - 1)
+4 bytes an element the point holds, n their points: with FSDP "pod"
+for the weights "data" splits, and both for the embedding, the norms
+and the QKV biases; without, both for every leaf), and of the gradient
+norm's sums once for each set of axes that splits some leaf ((n - 1) 4
+bytes a leaf of it, n the points of its group). `train_comm` computes
+it.
+
+Counting. Inside `counting(point)` a collective meets no one: `run`
+calls `fn` once, for `point` alone, on the caller's thread (under the
+context stack a point's thread has), and each collective returns
+shape-true tensors (the point's own repeated for the group, or its
+slice for a reduce-scatter) and counts the call twice into the counts
+`counting` yields, a point's: under COMM's rule (`all_reduce`, ...,
+`*_bytes`: the bytes the point receives) and under the rule of the
+reference's HLO accounting (`*_output_bytes`: the bytes of the
+collective's result, the gathered tensor, the sum in its dtype, the
+point's slice). Every point makes every call and receives the same
+bytes, so the count times the mesh's size is COMM's of a real `run`.
+The mesh's devices are "meta" (an abstract mesh serves), `shard_leaf`
+builds the counted point's slice alone (on "meta", standing for every
+point's) and `gather_leaf` a meta tensor; a tensor that reaches a
+collective off "meta" raises, so a count never runs on real values.
 
 CUDA streams. A point's collective deposit records an event on its
 stream; a reader's stream waits on it before reading, and the deposited
@@ -206,7 +225,7 @@ import torch
 
 from repro_torch.kernels.build import LaunchCounts
 from repro_torch.launch.mesh import set_mesh
-from repro_torch.models.common import abstract_params
+from repro_torch.models.common import abstract_params, layer_layout
 from repro_torch.parallel.sharding import P
 from repro_torch.parallel.sharding import batch_axes as batch_axes_of
 from repro_torch.parallel.sharding import param_specs, spec_leaves
@@ -216,13 +235,44 @@ from repro_torch.train.tree import leaves
 #: is failed
 DEFAULT_TIMEOUT = 300.0
 
-COMM = LaunchCounts("all_reduce", "all_gather", "reduce_scatter",
-                    "all_reduce_bytes", "all_gather_bytes",
-                    "reduce_scatter_bytes")
+_KINDS = ("all_reduce", "all_gather", "reduce_scatter")
+COMM = LaunchCounts(*_KINDS, *(k + "_bytes" for k in _KINDS))
+#: what `counting` counts, a point's: COMM's keys and each kind's bytes
+#: of output
+COUNTED = (*COMM, *(k + "_output_bytes" for k in _KINDS))
 
 
 def reset_counts() -> None:
     COMM.reset()
+
+
+_TLS = threading.local()
+
+
+@dataclasses.dataclass(frozen=True)
+class _Counting:
+    point: int
+    counts: LaunchCounts
+
+
+def _counting() -> Optional[_Counting]:
+    return getattr(_TLS, "counting", None)
+
+
+@contextlib.contextmanager
+def counting(point: int = 0):
+    """`with counting(point) as counts:` every `run` in this thread runs
+    mesh point `point` alone on the meta device, its collectives meeting
+    no one and counted into `counts` (`COUNTED`, a point's: the module's
+    note)."""
+    if _counting() is not None or context() is not None:
+        raise RuntimeError("spmd.counting: already counting or in a run")
+    counts = LaunchCounts(*COUNTED)
+    _TLS.counting = _Counting(point, counts)
+    try:
+        yield counts
+    finally:
+        _TLS.counting = None
 
 
 # --------------------------------------------------------------------------
@@ -295,7 +345,9 @@ class Sharded:
 
 def _devices(mesh) -> Tuple[torch.device, ...]:
     """The mesh's devices, a CUDA device without an index as the current
-    one."""
+    one; "meta" for every point when counting."""
+    if _counting() is not None:
+        return (torch.device("meta"),) * mesh.size
     if getattr(mesh, "devices", None) is None:
         raise ValueError("sharded execution needs a mesh with devices "
                          "(launch.mesh.make_test_mesh(..., devices=...))")
@@ -307,9 +359,16 @@ def _devices(mesh) -> Tuple[torch.device, ...]:
 
 def shard_leaf(t: torch.Tensor, spec: P, mesh) -> Sharded:
     """Full tensor `t` -> its shards on the mesh's devices (each point a
-    contiguous copy of its slice, whatever device `t` is on)."""
+    contiguous copy of its slice, whatever device `t` is on; when
+    counting, the counted point's slice on "meta" for every point)."""
     devs = _devices(mesh)
     spec = P(*spec)
+    mode = _counting()
+    if mode is not None:
+        one = _tag(t[local_slices(t.shape, spec, mesh, mode.point)].to(
+            devs[0], copy=True, memory_format=torch.contiguous_format),
+            spec)
+        return Sharded(spec, mesh, (one,) * mesh.size, tuple(t.shape))
     shards = tuple(
         _tag(t[local_slices(t.shape, spec, mesh, i)].to(
             devs[i], copy=True, memory_format=torch.contiguous_format),
@@ -320,7 +379,9 @@ def shard_leaf(t: torch.Tensor, spec: P, mesh) -> Sharded:
 
 def gather_leaf(x: Sharded, device=None) -> torch.Tensor:
     """The full tensor of `x` on `device` (default: point 0's), built
-    from one point a slice."""
+    from one point a slice; a meta tensor when counting."""
+    if _counting() is not None:
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
     dev = torch.device(device) if device is not None else \
         x.shards[0].device
     out = torch.empty(x.shape, dtype=x.dtype, device=dev)
@@ -515,14 +576,16 @@ class ShardContext:
     """A mesh point's view of a `run`: its index, coordinates and
     device, and how many ways the batch is split over the data axes
     (`batch_ways`: the MoE routes the local tokens in dp_size() /
-    batch_ways groups)."""
+    batch_ways groups). Counting, it has no world and counts into
+    `counts`."""
 
     mesh: Any
     point: int
     coords: Dict[str, int]
     device: torch.device
     batch_ways: int
-    world: _World
+    world: Optional[_World]
+    counts: Optional[LaunchCounts] = None
     calls: int = 0
     has_turn: bool = False
 
@@ -548,9 +611,6 @@ class ShardContext:
             self.world.turn.release()
 
 
-_TLS = threading.local()
-
-
 def context() -> Optional[ShardContext]:
     """The calling thread's shard context inside `run`, else None."""
     return getattr(_TLS, "ctx", None)
@@ -563,13 +623,37 @@ def _need() -> ShardContext:
     return ctx
 
 
+def _count(ctx: ShardContext, x: torch.Tensor, axes, kind: str,
+           take: Optional[Callable], dtype) -> List[torch.Tensor]:
+    """`_exchange` when counting: the group's tensors stand as this
+    point's, and the call is counted under both rules (the module's
+    note; `dtype` the result's where it is not `x`'s)."""
+    if x.device.type != "meta":
+        raise RuntimeError(
+            f"spmd.counting: a {kind} was given a tensor on {x.device}; a "
+            "counted collective meets no one and takes only meta tensors")
+    n = ctx.size(axes)
+    t = x if take is None else take(x)
+    size = t.numel() * t.element_size()
+    out = {"all_gather": n * size, "reduce_scatter": size,
+           "all_reduce": t.numel() * (dtype or x.dtype).itemsize}[kind]
+    ctx.counts.bump(kind)
+    ctx.counts.bump(kind + "_bytes", (n - 1) * size)
+    ctx.counts.bump(kind + "_output_bytes", out)
+    return [t] * n
+
+
 def _exchange(x: torch.Tensor, axes, kind: str,
-              take: Optional[Callable] = None) -> List[torch.Tensor]:
+              take: Optional[Callable] = None,
+              dtype=None) -> List[torch.Tensor]:
     """Deposit `x`, meet every point, and read the group's tensors over
     `axes` in shard order, each on this point's device (this point's own
     is `x`); `take`, where given, cuts what this point reads of each
-    (a reduce-scatter reads only its own slice)."""
+    (a reduce-scatter reads only its own slice). `dtype` is the result's
+    where it is not `x`'s (counted when counting)."""
     ctx = _need()
+    if ctx.world is None:
+        return _count(ctx, x, axes, kind, take, dtype)
     world, axes = ctx.world, _axes(axes)
     slot = world.slots[ctx.calls % 2]
     ctx.calls += 1
@@ -612,7 +696,7 @@ def _sum(parts: Sequence[torch.Tensor], dtype) -> torch.Tensor:
 
 
 def _reduce(x: torch.Tensor, axes, op: str, dtype=None) -> torch.Tensor:
-    parts = _exchange(x, axes, "all_reduce")
+    parts = _exchange(x, axes, "all_reduce", dtype=dtype)
     if op == "max":
         acc = parts[0].clone()
         for t in parts[1:]:
@@ -902,6 +986,38 @@ def _cuda_tensors(tree):
     return found
 
 
+def _enter_point(stack: contextlib.ExitStack, mesh, backend: str,
+                 grad: bool) -> None:
+    """What a point's function runs under: the mesh ambient, the
+    caller's attention backend and grad mode, and a backward in this
+    thread run in this thread, under this point's context (not on
+    autograd's device thread)."""
+    from repro_torch.models import layers as L
+    stack.enter_context(set_mesh(mesh))
+    stack.enter_context(L.attention_backend(backend))
+    stack.enter_context(torch.set_grad_enabled(grad))
+    stack.enter_context(torch.autograd.set_multithreading_enabled(False))
+
+
+def _run_counted(mesh, fn: Callable, args, batch_ways: int, mode: _Counting,
+                 backend: str, grad: bool) -> List[Any]:
+    """`run` when counting: `fn` once, for the counted point alone, on
+    this thread; its result stands for every point's."""
+    if context() is not None:
+        raise RuntimeError("spmd.run: already in a run")
+    point = mode.point
+    _TLS.ctx = ShardContext(mesh, point, point_coords(mesh, point),
+                            torch.device("meta"), batch_ways, None,
+                            mode.counts)
+    try:
+        with contextlib.ExitStack() as stack:
+            _enter_point(stack, mesh, backend, grad)
+            result = fn(*local(args, point))
+    finally:
+        _TLS.ctx = None
+    return [result] * mesh.size
+
+
 def run(mesh, fn: Callable, *args, timeout: float = DEFAULT_TIMEOUT,
         batch_ways: int = 1) -> List[Any]:
     """`fn(*args)` once a mesh point, each on its own thread, every
@@ -910,12 +1026,15 @@ def run(mesh, fn: Callable, *args, timeout: float = DEFAULT_TIMEOUT,
     batch in `args` is split over the data axes (1: every point holds
     the whole batch). Raises the first exception a point raised (within
     `timeout` of it), or RuntimeError if a rendezvous waited longer than
-    `timeout`."""
+    `timeout`. When counting, the counted point alone (`counting`)."""
     from repro_torch.models import layers as L
     devs = _devices(mesh)
-    world = _World(mesh, timeout)
     backend = L.current_attention_backend()
     grad = torch.is_grad_enabled()
+    mode = _counting()
+    if mode is not None:
+        return _run_counted(mesh, fn, args, batch_ways, mode, backend, grad)
+    world = _World(mesh, timeout)
     callers = {d: torch.cuda.current_stream(d) for d in set(devs)
                if d.type == "cuda"}
     results: List[Any] = [None] * mesh.size
@@ -929,13 +1048,7 @@ def run(mesh, fn: Callable, *args, timeout: float = DEFAULT_TIMEOUT,
         try:
             ctx.take_turn()
             with contextlib.ExitStack() as stack:
-                stack.enter_context(set_mesh(mesh))
-                stack.enter_context(L.attention_backend(backend))
-                stack.enter_context(torch.set_grad_enabled(grad))
-                # a backward in this thread runs in this thread, under
-                # this point's context (not on autograd's device thread)
-                stack.enter_context(
-                    torch.autograd.set_multithreading_enabled(False))
+                _enter_point(stack, mesh, backend, grad)
                 if dev.type == "cuda":
                     stream = torch.cuda.Stream(dev)
                     stream.wait_stream(callers[dev])
@@ -992,25 +1105,31 @@ def train_comm(cfg, mesh, batch: int, seq: int, tc, fsdp: bool) -> dict:
     """`COMM` of one sharded train step (AdamW, remat; `tc` a
     `train.step.TrainConfig`), summed over the points, by the formula of
     this module's note: a dense model whose heads, d_ff and vocabulary
-    split over "model", FSDP over "data", the batch split over "data",
-    each point's loss chunks whole."""
+    split over "model", FSDP over "data", the batch split over the data
+    axes ("pod" and "data", `sharding.batch_axes`: the global batch and
+    its microbatches divide them), each point's loss chunks whole. It
+    does not model a MoE, MLA, a Mamba-2 mixer, the sequence split, a
+    vocabulary tp does not divide or a stub frontend; `launch.
+    collectives` counts every case."""
     a, d, n_layers, v = cfg.attn, cfg.d_model, cfg.n_layers, cfg.vocab_size
     tp, dp, m = mesh.shape["model"], mesh.shape["data"], tc.microbatches
+    ways = math.prod(mesh.shape[x] for x in batch_axes_of(mesh))
     e = cfg.dtype.itemsize
-    t = batch // m // dp * seq                     # a point's tokens
-    nchunk = max(1, t * dp // tc.loss_chunk)
-    chunk = t * dp // nchunk
+    t = batch // m // ways * seq                   # a point's tokens
+    nchunk = max(1, t * ways // tc.loss_chunk)
+    chunk = t * ways // nchunk
     chunks = t // chunk
     layer = (2 * a.num_heads + 2 * a.num_kv_heads) * a.head_dim * d \
         + 3 * d * cfg.d_ff                         # the 7 weights
-    n = {"all_reduce": 2 + 5 * n_layers + chunks,
+    loss = ways > 1                  # the loss's sum and count
+    n = {"all_reduce": 1 + loss + 5 * n_layers + chunks,
          "all_gather": 2 * chunks, "reduce_scatter": 0}
     b = {"all_reduce": (tp - 1) * e * d * (5 * n_layers * t + t
                                            + chunks * chunk)
-         + (dp - 1) * 8,
+         + (ways - 1) * 8,
          "all_gather": 2 * chunks * (tp - 1) * 4 * chunk * v // tp,
          "reduce_scatter": 0}
-    if fsdp:
+    if fsdp and dp > 1:
         n["all_gather"] += 14 * n_layers + 1
         b["all_gather"] += (dp - 1) * e * (2 * n_layers * layer + d * v) \
             // (dp * tp)
@@ -1019,8 +1138,9 @@ def train_comm(cfg, mesh, batch: int, seq: int, tc, fsdp: bool) -> dict:
             // (dp * tp)
     n = {k: x * m for k, x in n.items()}
     b = {k: x * m for k, x in b.items()}
-    # once a step: the f32 gradients "data" does not split summed over
-    # it, then the norm's sums, one all-reduce for each set of axes
+    # once a step: the f32 gradients summed over the data axes that do
+    # not split them, then the norm's sums, one all-reduce for each set
+    # of axes
     groups = collections.Counter()
     for leaf, spec in zip(leaves(abstract_params(cfg)),
                           spec_leaves(param_specs(cfg, mesh, fsdp))):
@@ -1028,9 +1148,11 @@ def train_comm(cfg, mesh, batch: int, seq: int, tc, fsdp: bool) -> dict:
                      and any(x in (en if isinstance(en, tuple) else (en,))
                              for en in spec if en is not None))
         local = leaf.numel() // math.prod(mesh.shape[x] for x in axes)
-        if "data" not in axes:
+        rest = math.prod(mesh.shape[x] for x in batch_axes_of(mesh)
+                         if x not in axes)
+        if rest > 1:
             n["all_reduce"] += 1
-            b["all_reduce"] += (dp - 1) * 4 * local
+            b["all_reduce"] += (rest - 1) * 4 * local
         if axes:
             groups[axes] += 1
     for axes, count in groups.items():
@@ -1038,9 +1160,140 @@ def train_comm(cfg, mesh, batch: int, seq: int, tc, fsdp: bool) -> dict:
         b["all_reduce"] += (math.prod(mesh.shape[x] for x in axes) - 1) \
             * 4 * count
     out = {}
-    for k in ("all_reduce", "all_gather", "reduce_scatter"):
+    for k in _KINDS:
         out[k] = n[k] * mesh.size
         out[k + "_bytes"] = b[k] * mesh.size
-    return {k: out[k] for k in ("all_reduce", "all_gather",
-                                "reduce_scatter", "all_reduce_bytes",
-                                "all_gather_bytes", "reduce_scatter_bytes")}
+    return {k: out[k] for k in COMM}
+
+
+def serve_comm(cfg, mesh, batch: int, prompt_len: int, gen_tokens: int,
+               cap: int, passes: int = 1) -> dict:
+    """`spmd.COMM` of `passes` passes of `serve.generate_sharded` (fsdp
+    off), summed over the points, by the formulas of `parallel/spmd.py`'s
+    note, for a model whose layers are attention, MLA or Mamba-2 mixers,
+    each followed by an MLP, an expert-parallel MoE or nothing: the
+    vocab-parallel embedding's all-reduce and the logits' gather (where tp
+    divides the vocabulary); per layer, for attention wo's all-reduce
+    where the heads split whole, and under the sequence split one gather
+    of the attention leaves split over "model" each call and, where tp
+    divides the call's tokens, k, v and y gathered; for MLA where it
+    splits over "model", w_kr gathered whole and wo's all-reduce, and the
+    latent and rope caches gathered, or, at a batch the data axes do not
+    divide (batch 1), the call's latent; for the Mamba-2 mixer where it
+    splits, in_proj's and the conv's outputs gathered and out_proj's
+    all-reduce, and at batch 1 its gated output gathered over "data"
+    where "data" splits its heads; where a cache's slots are split over
+    n points, a decode step's merge, and a prompt longer than a window
+    layer's ring gathers the written slots; w2's all-reduce where its rows are
+    split, the MoE's f32 combine where its experts or their d_ff are, and
+    once a call the stacked leaves whose layer dim is split (deepseek's
+    shared experts); the splits read from `param_specs`. Raises
+    ValueError for a layer this does not cover (MLA or a Mamba-2 mixer
+    gathered over a model axis of more than one point). It does not model
+    FSDP, whisper's encoder and cross-attention or llava's patch prefix
+    (their collectives are left out); `launch.collectives` counts every
+    case."""
+    a, d, v = cfg.attn, cfg.d_model, cfg.vocab_size
+    tp = mesh.shape.get("model", 1)
+    ways_d = mesh.shape.get("data", 1)
+    dp = math.prod(mesh.shape.get(x, 1) for x in ("pod", "data"))
+    e = cfg.dtype.itemsize
+    b_ok = batch % dp == 0
+    b = batch // dp if b_ok else batch
+    b1 = not b_ok and ways_d > 1     # the batch whole on every point
+    full, specs = abstract_params(cfg), param_specs(cfg, mesh, fsdp=False)
+
+    def model_split(entry):          # a spec entry that "model" splits
+        return tp > 1 and "model" in (entry if isinstance(entry, tuple)
+                                      else (entry,))
+    stacked = []    # gathered once a call: the layer dim "model" splits
+
+    def walk(x, y):
+        if isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k])
+        elif model_split(y[0]):
+            stacked.append(math.prod(x.shape))
+    for x, y in zip(full["layers"], specs["layers"]):
+        walk(x, y)
+    prefix, period, _ = layer_layout(cfg)
+    # each layer's FFN's specs (None for a mixer-only block)
+    ffns = [(specs["prefix_layers"][i] if i < prefix else specs["layers"][
+        (i - prefix) % period]).get("ffn") for i in range(cfg.n_layers)]
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    if a is not None:
+        hd, kvh = a.head_dim, a.num_kv_heads
+        hs = tp if a.num_heads % tp == 0 and kvh % tp == 0 else 1
+        cp = tp > 1 and hs == 1 and not a.kv_lora_rank
+        want = ([ways_d] if b1 else []) + ([tp] if cp else [])
+        ring = min(cap, a.sliding_window) if a.sliding_window else cap
+        n = 1
+        for w in want:               # the ways the ring's slots split
+            if ring % (n * w) == 0:
+                n *= w
+        lay = specs["layers"][0]["mixer"]
+        mixer = full["layers"][0]["mixer"]
+        gathered = [mixer[k][0].numel() for k in mixer
+                    if k != "ln" and "model" in tuple(lay[k])]
+        if a.kv_lora_rank:
+            r, dr = a.kv_lora_rank, a.rope_head_dim
+            mla = hs if r % tp == 0 and dr % tp == 0 else 1
+            if tp > 1 and mla == 1:
+                raise ValueError("serve_comm: MLA gathered over 'model'")
+    if cfg.mamba is not None:
+        mb = cfg.mamba
+        d_in = mb.expand * d
+        nheads, ch = d_in // mb.head_dim, d_in + 2 * mb.d_state
+        if tp > 1 and (nheads % tp or ch % tp):
+            raise ValueError("serve_comm: a Mamba-2 mixer gathered over "
+                             "'model'")
+    ar = ag = ar_b = ag_b = 0
+    for s in [prompt_len] + [1] * gen_tokens:
+        if tp > 1 and v % tp == 0:   # the embedding, the logits
+            ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
+            ag, ag_b = ag + 1, ag_b + (tp - 1) * 4 * b * v // tp
+        for numel in stacked:        # the split layer dims, in one call
+            ag, ag_b = ag + 1, ag_b + (tp - 1) * e * numel // tp
+        for i, kind in enumerate(kinds):
+            if kind == "mamba":
+                if tp > 1:           # in_proj's and the conv's outputs
+                    ag += 2
+                    ag_b += (tp - 1) * e * b * s * (
+                        d_in + ch + nheads + ch) // tp
+                    ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
+                if b1 and nheads % ways_d == 0:     # the gated output
+                    ag += 1
+                    ag_b += (ways_d - 1) * e * b * s * d_in // ways_d
+            elif a.kv_lora_rank:
+                if tp > 1:           # w_kr; the call's latent, or the
+                    ag += 2 if b1 else 3     # cached latent and rope
+                    ag_b += (tp - 1) * e * (d * dr + (
+                        b * s * r if b1 else b * cap * (r + dr))) // tp
+                    ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
+            elif hs > 1:             # wo
+                ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
+            elif cp:                 # the attention leaves, in one
+                ag += 1
+                ag_b += (tp - 1) * e * sum(gathered) // tp
+                if s % tp == 0:      # k, v and y
+                    ag += 3
+                    ag_b += (tp - 1) * e * b * s * (2 * kvh * hd + d) // tp
+            if kind != "mamba" and s == 1 and n > 1:   # the decode merge
+                ag += 1
+                ag_b += (n - 1) * 4 * b * (a.num_heads // hs) * (hd + 1)
+            if kind == "attn" and not a.kv_lora_rank and n > 1 \
+                    and s > ring:    # a prompt that overfills the ring:
+                ag += 2              # its written slots, k and v
+                ag_b += 2 * (n - 1) * e * b * ring * (kvh // hs) * hd // n
+            ffn = ffns[i]
+            if ffn is None:
+                continue
+            if "router" in ffn:      # the MoE's f32 combine
+                if any(model_split(x) for x in ffn["w2"][-3:-1]):
+                    ar, ar_b = ar + 1, ar_b + (tp - 1) * 4 * b * s * d
+            elif model_split(ffn["w2"][-2]):     # w2
+                ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
+    k = passes * mesh.size
+    return {"all_reduce": ar * k, "all_gather": ag * k, "reduce_scatter": 0,
+            "all_reduce_bytes": ar_b * k, "all_gather_bytes": ag_b * k,
+            "reduce_scatter_bytes": 0}

@@ -38,7 +38,8 @@ def test_port_sources_import_no_jax_or_reference():
                  "launch/train.py", "parallel/compress.py",
                  "launch/analytic.py", "launch/specs.py",
                  "launch/dryrun.py", "launch/roofline.py",
-                 "launch/mesh.py", "parallel/hints.py",
+                 "launch/collectives.py", "launch/mesh.py",
+                 "parallel/hints.py",
                  "parallel/sharding.py", "parallel/spmd.py"):
         assert need in names, need
     bad = [(str(f.relative_to(SRC)), root) for f in files

@@ -444,17 +444,25 @@ def test_argument_bytes_equal_reference_leaves(reference_runs):
 
 
 def test_dryrun_and_roofline_write_40_rows_a_mesh(tmp_path, monkeypatch):
-    """`dryrun.main` over every cell and both meshes (the FLOP trace
-    replaced by a stand-in: `test_traced_flops_*` hold it), then the
-    roofline over those reports: 40 rows a mesh, the skip rows where
-    `shape_skip_reason` says so, nothing under the reference's
-    reports/dryrun."""
+    """`dryrun.main` over every cell and both meshes (the FLOP trace and
+    the collectives' count replaced by stand-ins: `test_traced_flops_*`
+    and tests/test_torch_spmd_count*.py hold them), then the roofline
+    over those reports: 40 rows a mesh, the skip rows where
+    `shape_skip_reason` says so, the reference's five collective kinds
+    in each cell that runs with their bytes summed, nothing under the
+    reference's reports/dryrun."""
+    from repro_torch.launch import collectives as C
+    from repro_torch.parallel import spmd
     calls = []
 
     def fake_flops(arch, shape, m=1, cfg=None, mesh=None):
         calls.append((arch, shape, m))
         return {"flops": 1e18, "trace_seconds": 0.0, "flops_note": None}
+
+    def fake_count(arch, shape, mesh, cfg=None, point=0):
+        return {k: 3 for k in spmd.COUNTED}
     monkeypatch.setattr(D, "step_flops", fake_flops)
+    monkeypatch.setattr(C, "count_cell", fake_count)
     assert D.main(["--mesh", "both", "--reports", str(tmp_path)]) == 0
     files = sorted(os.listdir(tmp_path / "dryrun"))
     assert len(files) == 80
@@ -471,11 +479,25 @@ def test_dryrun_and_roofline_write_40_rows_a_mesh(tmp_path, monkeypatch):
                                            "collective")
                 assert 0 < r["roofline_fraction"] <= 1.0
                 assert r["traced_flops_per_dev"] == 1e18 / r["devices"]
+                assert r["coll_bytes_per_dev_counted"] == 3 * 3
+                assert r["coll_received_bytes_per_dev_counted"] == 3 * 3
+                assert r["coll_bytes_per_dev_analytic"] >= 0
         assert (tmp_path / f"roofline_{tag}.md").read_text().count(
             "\n") == 42
         rep = json.loads((tmp_path / "dryrun" /
                           f"qwen1.5-4b__decode_32k__{tag}.json").read_text())
-        assert rep["compile_seconds"] is None and rep["collectives"] is None
+        assert rep["compile_seconds"] is None
+        assert rep["collectives"] == {
+            "all-gather": {"count": 3, "bytes": 3},
+            "all-reduce": {"count": 3, "bytes": 3},
+            "reduce-scatter": {"count": 3, "bytes": 3},
+            "all-to-all": {"count": 0, "bytes": 0},
+            "collective-permute": {"count": 0, "bytes": 0}}
+        assert rep["collective_bytes_per_device"] == sum(
+            v["bytes"] for v in rep["collectives"].values())
+        assert rep["collective_received_bytes_per_device"] == 3 * 3
+        assert "collectives" not in rep["not_measured"]
+        assert "collective_bytes_per_device" not in rep["not_measured"]
         assert "memory.temp_bytes" in rep["not_measured"]
     # a cell's FLOPs are traced once for both meshes when the
     # microbatches agree (every serving cell but a MoE's: its groups

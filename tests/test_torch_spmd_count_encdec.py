@@ -1,0 +1,23 @@
+"""The count of tests/test_torch_spmd_count.py (its note says what is
+held) for whisper-base's smoke config: its frames projected by each point's
+columns of `frame_proj`, the encoder and the cross-attention on the
+point's heads, a vocabulary "model" does not split."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from test_torch_spmd_count import (  # noqa: F401  (a fixture)
+    cases, check_call, check_serve, one_torch_thread,
+)
+
+ARCH = "whisper-base"
+
+
+@pytest.mark.parametrize("arch,layout,call", cases((ARCH,)))
+def test_count_is_the_real_runs_comm(arch, layout, call, monkeypatch):
+    check_call(arch, layout, call, monkeypatch)
+
+
+@pytest.mark.parametrize("layout", ("2x2", "2x2-b1", "1x4"))
+def test_count_serve_is_the_real_pass_comm(layout):
+    check_serve(ARCH, layout)

@@ -200,7 +200,7 @@ def test_context_parallel_collectives_and_k8_shapes(arch, shape, batch,
     length split (qwen at batch 1 on (2, 2): the decode merge over
     "data", wo summed over "model") and both (minitron at batch 1 on (2,
     4): the slots over ("data", "model")): `spmd.COMM` equals
-    `chip_smoke.serve_comm` (the formulas of spmd.py's note), K8
+    `spmd.serve_comm` (the formulas of spmd.py's note), K8
     runs at Sq = S/tp (every row where tp does not divide S) against the
     call's S keys, and a decode step over the point's cap/n slots; the
     logits are the unsharded pass's."""
@@ -222,7 +222,7 @@ def test_context_parallel_collectives_and_k8_shapes(arch, shape, batch,
                                          mesh)
     finally:
         restore()
-    assert dict(SP.COMM) == chip_smoke.serve_comm(
+    assert dict(SP.COMM) == SP.serve_comm(
         cfg, mesh, batch, prompt, STEPS, cap)
     tp = shape[1]
     seq = tp > 1 and (cfg.attn.num_heads % tp or cfg.attn.num_kv_heads % tp)
@@ -249,7 +249,7 @@ def test_mla_and_ssm_serve_collectives_and_k8_shapes(arch, shape, batch):
     """A served pass (`serve.generate_sharded`: a prefill of 16 tokens,
     STEPS decode steps, cap 24) of MLA, Mamba-2 and jamba's hybrid stack
     (at batch 4 too, where the data axes divide the batch):
-    `spmd.COMM` equals `chip_smoke.serve_comm` (the formulas of spmd.py's
+    `spmd.COMM` equals `spmd.serve_comm` (the formulas of spmd.py's
     note: at batch 1 MLA's latent gathered a call instead of its caches
     and a decode step's partials merged over "data", the Mamba-2 mixer's
     gated output gathered over "data"; deepseek's shared experts gathered
@@ -275,7 +275,7 @@ def test_mla_and_ssm_serve_collectives_and_k8_shapes(arch, shape, batch):
                                          mesh)
     finally:
         restore()
-    assert dict(SP.COMM) == chip_smoke.serve_comm(
+    assert dict(SP.COMM) == SP.serve_comm(
         cfg, mesh, batch, prompt, STEPS, cap)
     split = batch == 1 and cap % shape[0] == 0      # the slots, over data
     calls = mesh.size * sum(cfg.layer_kind(i) == "attn"

@@ -25,7 +25,10 @@ against `flash_plain`'s on the card, slot ranges merged against the
 whole-cache call, and qwen1.5-4b at published widths cut to 2 layers on
 (1, 8) of one card (its 20 heads split by sequence) against the same
 model unsharded (`CP_BOUNDS`); deepseek-v2-lite-16b at batch 1 on (2, 2),
-its latent split by slots over "data" (`B1_MLA_BOUNDS`)."""
+its latent split by slots over "data" (`B1_MLA_BOUNDS`). A served
+pass's collectives (`spmd.COMM`) on (2, 2) of one card equal one point's
+pass counted on the meta device (`launch.collectives.count_serve`)
+times the points."""
 import dataclasses
 import importlib.util
 import pathlib
@@ -43,6 +46,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.common import (
     AttnConfig, ModelConfig, MoEConfig, abstract_params,
 )
+from repro_torch.models.model import Model
 from repro_torch.parallel import sharding as S
 from repro_torch.parallel import spmd as SP
 
@@ -132,6 +136,30 @@ def test_dense_bf16_on_one_card_matches_unsharded(cuda):
         assert float(d.max()) <= BF16_MAX_ABS and \
             float(d.mean()) <= BF16_MEAN_ABS, (float(d.max()),
                                                float(d.mean()))
+
+
+@pytest.mark.parametrize("cfg,batch", ((DENSE, B), (MOE, B), (DENSE, 1)),
+                         ids=("dense", "moe", "dense-b1"))
+def test_collectives_on_one_card_are_the_count(cfg, batch, cuda):
+    """A served pass (`serve.generate_sharded`, K8 on every point's heads)
+    on (2, 2) of cuda:0 x 4: its `spmd.COMM` is one point's pass counted
+    on the meta device (`collectives.count_serve`) times the points; at
+    batch 1 too, where the cache's slots split over "data"."""
+    from repro_torch.launch import collectives
+    mesh = make_test_mesh((2, 2), devices=[cuda] * 4)
+    model = Model(cfg)
+    params = SP.init_sharded(
+        lambda: model.init(torch.Generator(device=cuda).manual_seed(0)),
+        S.param_specs(cfg, mesh, fsdp=False), mesh)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, S_LEN), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    cap = S_LEN + G + 4
+    SP.reset_counts()
+    with torch.no_grad():
+        serve.generate_sharded(model, params, prompt, G, cap, mesh)
+    one = collectives.count_serve(cfg, mesh, batch, S_LEN, G, cap, False)
+    assert dict(SP.COMM) == {k: one[k] * mesh.size for k in SP.COMM}
 
 
 def test_moe_f32_on_one_card_matches_unsharded(cuda):

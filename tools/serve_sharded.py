@@ -31,7 +31,7 @@ layers x points a prefill call and a decode step, the collective counts
 `dryrun.local_bytes` of `param_specs` (reckoned), its cache bytes
 beside `cache_spec`'s share, and its peak memory (since the start: the
 draws' one full leaf on cuda:0 included); with fsdp off and no stub
-frontend, also `chip_smoke.serve_comm`, the collectives' formula,
+frontend, also `spmd.serve_comm`, the collectives' formula,
 beside them (null for a layer it does not cover). Needs as many
 visible CUDA devices as mesh points, or, with `--one-card`, puts every
 point on cuda:0 (`chip_smoke.py`'s sharded paths run so: the two
@@ -107,9 +107,8 @@ def run(arch: str, mesh_text: str, batch: int, prompt_len: int,
     t_pre, t_dec = res["prefill_seconds"], res["decode_seconds"]
     formula = None
     if not cfg.n_enc_layers and cfg.frontend is None and not res["fsdp"]:
-        import chip_smoke           # the formula, where it covers the model
-        try:
-            formula = chip_smoke.serve_comm(
+        try:                        # the formula, where it covers the model
+            formula = SP.serve_comm(
                 cfg, mesh, batch, prompt_len, gen_tokens, res["cap"],
                 len(res["passes"]))
         except ValueError:
