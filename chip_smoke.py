@@ -256,10 +256,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              32,744-row prefill against its own keys, whose plain version
              is timed on its one call and whose 34 GB of f32 scores keep
              `sdpa_ref` out, its library call SDPA with `is_causal`; decode
-             over 16,384 slots);
+             over 16,384 slots), and its last point on (1, 3)
+             (serve-sharded-seq-mla: 682 query rows of the 2,046-token
+             prefill against every key; decode over its 690 slots, also
+             timed with the log-sum-exp as the path runs it, `lse_ms`);
 7a. lse    — K8 decode's log-sum-exp (`return_lse`, the merge of context
              parallelism) on the card at (128, 128), (64, 64) and MLA's
-             (192, 128) (a batch-1 point's 8 heads over 16,384 slots),
+             (192, 128) (a batch-1 point's 8 heads over 16,384 slots, a
+             (1, 3) point's 16 heads over 690),
              GQA groups 1 and 4: the output and the lse against
              `flash_plain`'s on the same inputs (the output within
              FLASH_TOL and `decode_limit`, the lse within `LSE_TOL`, -inf
@@ -371,7 +375,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              collective counts and bytes (`spmd.COMM`) must equal one
              point's pass counted on the meta device
              (`collectives.count_serve`) times the points and the passes,
-             on every path 11d-11l. The check: the same
+             on every path 11d-11m. The check: the same
              model unsharded (`serve_config` on the same weights and
              tokens, run first under the mesh's abstract twin, so its MoE
              groups are the sharded run's), its greedy tokens fed to the
@@ -462,6 +466,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              output gathered over "data" before out_proj's rows; `COMM`
              held to `spmd.serve_comm`, no hand kernel; the check within
              `SHARDED_B1_SSM_MAX_ABS` and `SHARDED_B1_SSM_MEAN_ABS`;
+11m. serve-sharded-seq-mla — path `serve-sharded-seq-mla`
+             (`SERVE_SHARDED_SEQ_MLA`): deepseek-v2-lite-16b at published
+             widths cut to 3 layers, batch 4, a 2,046-token prompt, 16
+             tokens (cap 2,070) on (1, 3) of three points, where 3
+             divides none of its 16 heads, r and dr: MLA split by
+             sequence, its leaves gathered over "model", K8 (192, 128)
+             prefill on each point's 682 query rows against the 2,046
+             gathered keys, decode over its 690 of the slots (every
+             column) with the log-sum-exp, the three partials merged;
+             `COMM` held to `spmd.serve_comm`, K8's calls to their (Sq,
+             Skv), each point's cache bytes to a third of the whole, the
+             check as 11e's within `SHARDED_SEQ_MLA_MAX_ABS` and
+             `SHARDED_SEQ_MLA_MEAN_ABS`;
 12. train  — path `train`: qwen1.5-4b at its full config (3.95 B
              parameters, bf16, random weights from seed 0) through
              `train.step.build_train_step` with AdamW (cosine schedule,
@@ -533,12 +550,13 @@ path's count, the `dist-*` (`dist-pod` too), `launch-reports`,
 `serve-mamba2`, `serve-whisper`, `serve-llava`, `serve-sharded`,
 `serve-sharded-mla`, `serve-sharded-llava`, `serve-sharded-mamba2`,
 `serve-sharded-whisper`, `serve-sharded-cp`, `serve-sharded-b1`,
-`serve-sharded-b1-mla`, `serve-sharded-b1-mamba2`, `train`, `train-ft`
-and `train-sharded` paths'
+`serve-sharded-b1-mla`, `serve-sharded-b1-mamba2`,
+`serve-sharded-seq-mla`, `train`, `train-ft` and `train-sharded` paths'
 included (K8's (128, 128) rows count `serve-mixtral`'s, `serve-llava`'s,
 `serve-sharded`'s, `serve-sharded-llava`'s, `serve-sharded-cp`'s and
 `serve-sharded-b1`'s launches there, its MLA
-rows `serve-sharded-mla`'s and `serve-sharded-b1-mla`'s, its (64, 64)
+rows `serve-sharded-mla`'s, `serve-sharded-b1-mla`'s and
+`serve-sharded-seq-mla`'s, its (64, 64)
 rows `serve-sharded-whisper`'s; every kernel 0 on `torch-tpch`,
 `serve-mamba2`, `serve-sharded-mamba2`, `serve-sharded-b1-mamba2`,
 `train`, `train-ft` and `train-sharded`); `plain_device` says where
@@ -958,7 +976,44 @@ SERVE_SHARDED_B1_MAMBA = {"arch": "mamba2-370m", "config": "full",
 #: (std ~0.64) by about their scale
 SHARDED_B1_SSM_MAX_ABS = SHARDED_SSM_MAX_ABS
 SHARDED_B1_SSM_MEAN_ABS = SHARDED_SSM_MEAN_ABS
-#: phases 11d-11l in order: path -> (spec, its check's (max, mean) bounds
+#: serve-sharded-seq-mla: deepseek-v2-lite-16b at its published widths (16
+#: heads, r 512, dr 64; 64 experts top-6 + 2 shared) cut to 3 layers, as
+#: serve-sharded-mla is (the dense first layer and 2 MoE layers), at batch
+#: 4, a 2,046-token prompt and 16 tokens (cap 2,070) on a (1, 3) mesh of
+#: three points of the card, fsdp off. 3 divides none of the 16 heads, r
+#: and dr, so MLA splits by sequence (the reference's "seq" layout): its
+#: leaves gathered over "model" in one gather, each point's 682 query rows
+#: (2,046 = 3 x 682) against every row's gathered latent and rope keys (K8
+#: (192, 128) prefill at (682, 2046) on 16 heads), its 690 of the 2,070
+#: slots at every column, K8 decode over them with the log-sum-exp and the
+#: three partials merged. The experts (64), their d_ff (1,408), the shared
+#: experts and the vocabulary (102,400) stay whole over "model"
+#: (`fit_spec`); the dense FFN's 10,944 splits. A model axis of 3 is the
+#: smallest on which published widths reach the split (8 and 16 divide
+#: the heads, r and dr); no one deploys deepseek-v2-lite on it: the path
+#: runs the split at published widths on one card. `cache_spec` keeps the
+#: latent whole on 3, where a point holds a third of the slots
+#: (`cache_slot_ways`: its cache bytes are a third of the whole)
+SERVE_SHARDED_SEQ_MLA = {"arch": "deepseek-v2-lite-16b", "config": "full",
+                         "layers": 3, "batch": 4, "prompt_len": 2046,
+                         "gen_tokens": 16, "mesh": (1, 3),
+                         "cache_slot_ways": 3,
+                         "k8_shapes": {"prefill": (682, 2046),
+                                       "decode": (1, 690)}}
+#: Its check, set before the path's first card run (`tools/tf_gap.py --arch
+#: deepseek-v2-lite-16b --mesh 1x3 --batch 2 --prompt-len 255 --gen-tokens
+#: 7 --device cpu`, K8's plain version, full width, 85 rows a point, 90 of
+#: the 270 slots): replayed, max |d| 0.0391 / 0.0547 / 0.0625 and mean
+#: 0.0061 / 0.0082 / 0.0094 at 1 / 2 / 3 layers, as serve-sharded-mla's
+#: on (2, 2); routing on its own 1.3% / 5.2% of the choices differ at 2 /
+#: 3 layers. The bounds are serve-sharded-mla's, four times the 3-layer
+#: reading (a point's rows and the gathers move values unchanged; the
+#: decode partials are rounded to bf16 before the merge and the dense
+#: FFN's w2 sums are three); a row, slot range or merge weight on the
+#: wrong point moves the logits (std ~1.3) by a share of their scale
+SHARDED_SEQ_MLA_MAX_ABS = SHARDED_MLA_MAX_ABS
+SHARDED_SEQ_MLA_MEAN_ABS = SHARDED_MLA_MEAN_ABS
+#: phases 11d-11m in order: path -> (spec, its check's (max, mean) bounds
 #: and, for a MoE, the most of its own routing's choices that may differ)
 SERVE_SHARDED_PATHS = {
     "serve-sharded": (SERVE_SHARDED, (SHARDED_MAX_ABS, SHARDED_MEAN_ABS,
@@ -983,7 +1038,13 @@ SERVE_SHARDED_PATHS = {
         SHARDED_MLA_ROUTE_SHARE)),
     "serve-sharded-b1-mamba2": (SERVE_SHARDED_B1_MAMBA, (
         SHARDED_B1_SSM_MAX_ABS, SHARDED_B1_SSM_MEAN_ABS, None)),
+    "serve-sharded-seq-mla": (SERVE_SHARDED_SEQ_MLA, (
+        SHARDED_SEQ_MLA_MAX_ABS, SHARDED_SEQ_MLA_MEAN_ABS,
+        SHARDED_MLA_ROUTE_SHARE)),
 }
+#: phase 7's decode cases also timed with K8's log-sum-exp, as their
+#: path runs them (`lse_ms`, `lse_device_ms`)
+LSE_TIMED = ("deepseek-v2-lite seq point decode",)
 #: the reference's bf16 tolerance for the flash kernel
 #: (tests/test_kernels_flash.py)
 FLASH_TOL = 2e-2
@@ -3747,6 +3808,17 @@ def attention_phase(torch, fa, dev, ptxas_log: str,
                                      device=dev))),
         ("deepseek-v2-lite b1 point decode", 1, 1, 16384, 8, 8, (192, 128),
          True, None, rows(1, 1, 32759), ring(32760, 32768, 1, 0, 16384)),
+        # deepseek-v2-lite-16b's last point on (1, 3) (serve-sharded-seq-
+        # mla: MLA split by sequence): its 682 query rows of the
+        # 2,046-token prefill against every row's keys, and decode at
+        # position 2,061 over its 690 of the 2,070 slots (the path runs it
+        # with the log-sum-exp: `lse_ms`)
+        ("deepseek-v2-lite seq point prefill", 4, 682, 2046, 16, 16,
+         (192, 128), True, None, rows(4, 682, 1364),
+         (rows(4, 2046), torch.ones(4, 2046, dtype=torch.bool,
+                                    device=dev))),
+        ("deepseek-v2-lite seq point decode", 4, 1, 690, 16, 16, (192, 128),
+         True, None, rows(4, 1, 2061), ring(2062, 2070, 4, 1380, 690)),
     )
     worst = dict.fromkeys(FLASH + FLASH_MLA + FLASH_D64, 0.0)
     rep = {}
@@ -3845,6 +3917,11 @@ def attention_phase(torch, fa, dev, ptxas_log: str,
                "max_abs_err": errs["flash_plain"],
                "max_abs_err_sdpa_ref": errs.get("sdpa_ref"),
                "tol": FLASH_TOL}
+        if name in LSE_TIMED:       # as its path calls it
+            def lse_call():
+                return fa.flash_attention(*args, return_lse=True, **kw)
+            rec["lse_ms"] = cuda_ms(torch, lse_call, 10, per=10)
+            rec["lse_device_ms"] = device_ms(torch, lse_call)
         if variant == "flash_prefill":
             rec["device_tflops"] = flops / (rec["device_ms"] * 1e-3) / 1e12
             rec["ptxas"] = ptxas_usage(ptxas_log,
@@ -3880,6 +3957,9 @@ def lse_phase(torch, fa, dev) -> dict:
         # deepseek-v2-lite-16b's point at batch 1 on (2, 2)
         # (serve-sharded-b1-mla): 8 heads over a data point's 16,384 slots
         ("MLA b1 point decode", 1, 16384, 8, 8, (192, 128), None, 16000),
+        # its point on (1, 3) (serve-sharded-seq-mla): 16 heads over 690
+        # slots
+        ("MLA seq point decode", 4, 690, 16, 16, (192, 128), None, 600),
     )
     for name, b, skv, h, kvh, (d, dv), window, index in cases:
         def randn(*shape):
@@ -4538,7 +4618,7 @@ def record_k8_shapes(L) -> tuple:
 
 def serve_sharded_phase(torch, kb, sj, fa, dev, smi: str, path: str,
                         spec: dict, tol: tuple) -> dict:
-    """Path `path` (phases 11d-11l, `SERVE_SHARDED_PATHS`): the model of
+    """Path `path` (phases 11d-11m, `SERVE_SHARDED_PATHS`): the model of
     `spec` through `serve.serve_config(..., mesh=...)` on a mesh of
     points of the card, its launches and collectives counted (K8's calls
     by shape, held to `spec["k8_shapes"]` and `spmd.COMM` to
@@ -4633,13 +4713,17 @@ def serve_sharded_phase(torch, kb, sj, fa, dev, smi: str, path: str,
     check(held == [per_point] * mesh.size,
           f"{path}: points hold {held} parameter bytes, the specs "
           f"{per_point} each")
-    cache_share = local_bytes(
-        res["model"].init_cache(b, res["cap"], "meta"),
-        S.cache_spec(cfg, mesh, b), mesh)
+    whole = res["model"].init_cache(b, res["cap"], "meta")
+    cache_share = local_bytes(whole, S.cache_spec(cfg, mesh, b), mesh)
+    # where `cache_spec` keeps a cache whole that the port splits by its
+    # slots (MLA's sequence split on a model axis that divides neither r
+    # nor dr), a point holds its share of the slots
+    cache_held = serve.cache_bytes(whole) // spec["cache_slot_ways"] \
+        if "cache_slot_ways" in spec else cache_share
     row = res["device_bytes"][str(dev)]
-    check(row["caches"] == cache_share * mesh.size,
-          f"{path}: caches {row['caches']} bytes, cache_spec's share "
-          f"{cache_share} a point")
+    check(row["caches"] == cache_held * mesh.size,
+          f"{path}: caches {row['caches']} bytes, {cache_held} a point "
+          f"expected (cache_spec's share {cache_share})")
     vocab = cfg.vocab_size
     check(tuple(res["tokens"].shape) == (b, g + 1)
           and int(res["tokens"].min()) >= 0
@@ -4664,8 +4748,8 @@ def serve_sharded_phase(torch, kb, sj, fa, dev, smi: str, path: str,
           "decode_tok_s": b * g / t_dec, "peak_memory_bytes": peak,
           "param_bytes_per_point": per_point,
           "cache_bytes_per_point": cache_share,
-          "cache_bytes_whole": serve.cache_bytes(
-              res["model"].init_cache(b, res["cap"], "meta")),
+          "cache_bytes_held_per_point": cache_held,
+          "cache_bytes_whole": serve.cache_bytes(whole),
           "k8_shapes": k8_shapes,
           "device_bytes": res["device_bytes"], "collectives": comm,
           "collectives_counted": counted,

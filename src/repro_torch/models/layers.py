@@ -75,9 +75,12 @@ never from its shape. The collectives sit at the reference's hint sites:
     dr/tp of the rope cache, both all-gathered over "model" before the
     per-head expansion; at batch 1, its slots over "data" at every
     column, the call's latent all-gathered over "model" before it is
-    written, so no cache is gathered. Otherwise MLA runs gathered,
-    replicated over "model" (its sequence split is not ported: ROADMAP
-    Queue 3);
+    written, so no cache is gathered. Where tp divides none of them
+    (`seq_split`), MLA splits by sequence as attention does: its leaves
+    gathered over "model", a point's S/tp query rows against every row's
+    gathered c_kv and k_rope (every row where tp does not divide S), its
+    rows of y all-gathered; its cache holds cap/tp of the slots at every
+    column (`cache_split`), a decode step's outputs merged;
   * the MLP: w1/w3 are the point's columns of d_ff and w2's partial
     product is all-reduced;
   * the MoE: the router is replicated and the routing is the global one
@@ -513,12 +516,13 @@ def heads_split(a: AttnConfig) -> int:
 
 
 def seq_split(a: AttnConfig) -> int:
-    """The ways attention splits by sequence over "model" in `spmd.run`
-    (context parallelism): tp where tp > 1 and the heads do not split
-    whole (`heads_split` 1), else 1."""
+    """The ways attention or MLA splits by sequence over "model" in
+    `spmd.run` (context parallelism): tp where tp > 1 and the heads do
+    not split (`heads_split` 1; for MLA `mla_split` 1), else 1."""
     ctx = SP.context()
     tp = ctx.size("model") if ctx is not None else 1
-    return tp if tp > 1 and heads_split(a) == 1 else 1
+    whole = mla_split(a) if a.kv_lora_rank else heads_split(a)
+    return tp if tp > 1 and whole == 1 else 1
 
 
 def _query_rows(a: AttnConfig, s: int) -> Optional[slice]:
@@ -553,19 +557,19 @@ def cache_split(a: AttnConfig, batch: int, cap: int
     slots, for `batch` local rows, is split over along its slots, the
     global slot its range starts at) in `spmd.run`; ((), 0) with no shard
     context. "data" at a batch whole on every point (`whole_batch`),
-    where `cache_spec` splits the KV length; then, for attention, "model"
-    under the sequence split (`seq_split`), where `cache_spec` splits
-    head_dim and the port, whose K8 takes whole heads, splits the slots
-    (MLA has no sequence split). An axis is kept only where `cap` divides
-    over it and the axes kept before it, as `fit_spec` leaves a dim
-    whole: never an uneven split."""
+    where `cache_spec` splits the KV length; then "model" under the
+    sequence split (`seq_split`), where `cache_spec` splits attention's
+    head_dim (MLA's latent r) and the port, whose K8 takes whole heads,
+    splits the slots. An axis is kept only where `cap` divides over it
+    and the axes kept before it, as `fit_spec` leaves a dim whole: never
+    an uneven split."""
     ctx = SP.context()
     if ctx is None:
         return (), 0
     want = []
     if whole_batch(batch):
         want.append("data")
-    if seq_split(a) > 1 and not a.kv_lora_rank:
+    if seq_split(a) > 1:
         want.append("model")
     axes, ways = [], 1
     for ax in want:
@@ -613,7 +617,8 @@ def _mla_weights(p, a: AttnConfig):
     this point's rope columns start): `p`, 1 and 0 with no shard context.
     In `spmd.run` the leaves split over "data" (FSDP) are gathered; where
     MLA does not split (`mla_split` 1) every leaf is gathered whole over
-    "model" too. Where it does, each leaf must be split over "model":
+    "model" too, in one all-gather (`spmd.whole_all`: the sequence
+    split). Where it does, each leaf must be split over "model":
     wq, w_qr, w_uk and w_uv by whole heads (their columns), wo by its rows,
     w_dkv along r; w_kr along dr, which is gathered whole, since RoPE
     pairs rope column i with i + dr/2, which may lie on another point.
@@ -622,8 +627,8 @@ def _mla_weights(p, a: AttnConfig):
         return p, 1, 0
     tp = mla_split(a)
     w = {n: SP.whole(p[n], "data") for n in _MLA_LEAVES}
-    if tp == 1:
-        return {n: SP.whole(t, "model") for n, t in w.items()}, 1, 0
+    if tp == 1:                 # one gather for them all
+        return SP.whole_all(w, "model"), 1, 0
     for n, t in w.items():
         if SP.split_axes(t, 0 if n == "wo" else -1) != ("model",):
             raise ValueError(f"MLA splits over 'model' but {n}'s spec does "
@@ -643,35 +648,61 @@ def _mla_attention(p, x, h, a: AttnConfig, positions, cache, ring):
     k_rope [B, cap, dr] (in `KVCache.v`); k_nope and v are expanded from
     the cache's slots at each call, as the reference does.
 
-    Sharded (`mla_split` tp > 1): a point computes its r/tp columns of
-    c_kv and the whole k_rope (from the gathered w_kr), expands k_nope and
-    v for its nh/tp heads only (w_uk's and w_uv's local columns), runs K8
-    on those heads and all-reduces wo's partial product. Its cache holds
-    `cache_spec`'s share. At a batch the data axes divide, that is c_kv's
-    columns and its dr/tp columns of k_rope for every slot; both are
-    all-gathered over "model" along their last dim before the expansion
-    (without a cache, only c_kv: the whole k_rope is at hand). At a batch
-    whole on every point (`whole_batch`, batch 1) it is a range of the
-    slots over "data" at every column (`cache_split`): the call's c_kv is
-    all-gathered over "model" before it is written, the point expands
-    its slots alone, and a decode step's partial outputs are merged over
-    "data" (`_cache_keys`, `_sdpa_merged`, as attention's are); the
-    latent is never gathered over "model". Under autograd the gathered
-    latent enters the local heads through `spmd.copy`, so its gather's
-    backward keeps the point's slice of a gradient summed over "model";
-    the whole k_rope's reaches h and w_kr through their own copies."""
+    Sharded by heads (`mla_split` tp > 1): a point computes its r/tp
+    columns of c_kv and the whole k_rope (from the gathered w_kr), expands
+    k_nope and v for its nh/tp heads only (w_uk's and w_uv's local
+    columns), runs K8 on those heads and all-reduces wo's partial product.
+    Its cache holds `cache_spec`'s share. At a batch the data axes divide,
+    that is c_kv's columns and its dr/tp columns of k_rope for every slot;
+    both are all-gathered over "model" along their last dim before the
+    expansion (without a cache, only c_kv: the whole k_rope is at hand).
+    At a batch whole on every point (`whole_batch`, batch 1) it is a
+    range of the slots over "data" at every column (`cache_split`): the
+    call's c_kv is all-gathered over "model" before it is written, the
+    point expands its slots alone, and a decode step's partial outputs
+    are merged over "data" (`_cache_keys`, `_sdpa_merged`, as attention's
+    are); the latent is never gathered over "model". Under autograd the
+    gathered latent enters the local heads through `spmd.copy`, so its
+    gather's backward keeps the point's slice of a gradient summed over
+    "model"; the whole k_rope's reaches h and w_kr through their own
+    copies.
+
+    Sharded by sequence (`seq_split` tp > 1, where tp does not divide the
+    heads, r and dr: the reference's "seq" layout), as attention is: the
+    leaves are gathered whole over "model" in one gather; where tp
+    divides the call's S a point projects and rotates its S/tp query rows
+    (q, q_rope, and its rows' c_kv and k_rope), all-gathers c_kv and
+    k_rope along the sequence (narrower than h), expands every head, runs
+    K8 on its rows against every key and all-gathers its rows of y
+    (otherwise every point takes every row). Its cache holds cap/tp of
+    the slots at every column (`cache_split`), written, attended and
+    merged as attention's (`_cache_keys`, `_sdpa_merged`). Under autograd
+    h, the gathered leaves and the gathered c_kv and k_rope enter the row
+    split through `spmd.copy`."""
     b, s, _ = x.shape
     w, tp, off = _mla_weights(p, a)
     nh, hd, dr = a.num_heads // tp, a.head_dim, a.rope_head_dim
-    wide = cache is not None and whole_batch(b)  # the cache's every column
+    # the cache's every column: at batch 1, or where MLA's heads do not
+    # split
+    wide = cache is not None and (tp == 1 or whole_batch(b))
+    rows = _query_rows(a, s)
+    q_pos = positions
     if tp > 1:                  # h enters the point's heads and columns
         h = SP.copy(h, "model")
-    c_kv = h @ w["w_dkv"]                                   # [B,S,r/tp]
-    cos, sin = rope_tables(positions, dr, a.rope_theta)
-    k_rope = apply_rope((h @ w["w_kr"]).reshape(b, s, 1, dr), cos,
-                        sin)[:, :, 0]                        # [B,S,dr]
-    q = (h @ w["wq"]).reshape(b, s, nh, hd)
-    q_rope = apply_rope((h @ w["w_qr"]).reshape(b, s, nh, dr), cos, sin)
+    elif rows is not None:      # h and the leaves enter the point's rows
+        h = SP.copy(h, "model")[:, rows]
+        w = {n: SP.copy(t, "model") for n, t in w.items()}
+        q_pos = positions[:, rows]
+    sq = h.shape[1]
+    c_kv = h @ w["w_dkv"]                                  # [B,Sq,r/tp]
+    cos, sin = rope_tables(q_pos, dr, a.rope_theta)
+    k_rope = apply_rope((h @ w["w_kr"]).reshape(b, sq, 1, dr), cos,
+                        sin)[:, :, 0]                       # [B,Sq,dr]
+    q = (h @ w["wq"]).reshape(b, sq, nh, hd)
+    q_rope = apply_rope((h @ w["w_qr"]).reshape(b, sq, nh, dr), cos, sin)
+    if rows is not None:        # every row's latent and rope keys
+        c_kv = SP.copy(SP.all_gather(c_kv, "model", 1), "model")
+        k_rope = SP.copy(SP.all_gather(k_rope, "model", 1), "model")
 
     merge = ()
     if wide:                    # the point's slots, every column
@@ -682,18 +713,18 @@ def _mla_attention(p, x, h, a: AttnConfig, positions, cache, ring):
         c_all, kr_all = c_all.to(x.dtype), kr_all.to(x.dtype)
     elif cache is not None:     # the point's dr/tp rope columns
         cache = _cache_update(cache, c_kv, k_rope[..., off:off + dr // tp])
-        c_all = cache.k.to(x.dtype)                         # [B,cap,r/tp]
-        kr_all = cache.v.to(x.dtype)                        # [B,cap,dr/tp]
         kv_pos, kv_valid = ring or cache_positions(cache, cache.index, b,
                                                    x.device)
-        if tp > 1:
-            kr_all = SP.copy(SP.all_gather(kr_all, "model", -1), "model")
+        kr_all = SP.copy(SP.all_gather(cache.v.to(x.dtype), "model", -1),
+                         "model")                           # [B,cap,dr]
+        c_all = SP.copy(SP.all_gather(cache.k.to(x.dtype), "model", -1),
+                        "model")                            # [B,cap,r]
     else:
         c_all, kr_all = c_kv, k_rope
         kv_pos = positions
         kv_valid = torch.ones((b, s), dtype=torch.bool, device=x.device)
-    if tp > 1 and not wide:     # the whole latent
-        c_all = SP.copy(SP.all_gather(c_all, "model", -1), "model")
+        if tp > 1:              # the whole latent
+            c_all = SP.copy(SP.all_gather(c_all, "model", -1), "model")
 
     skv = c_all.shape[1]
     k_nope = (c_all @ w["w_uk"]).reshape(b, skv, nh, hd)
@@ -706,12 +737,14 @@ def _mla_attention(p, x, h, a: AttnConfig, positions, cache, ring):
                    dim=-1)
     layout = HT.attn_layout(a.num_heads, s)
     qq, kk, vv = HT.hint_qkv(qq, kk, vv, layout)
-    out = _sdpa_merged(qq, kk, vv, positions, kv_pos, kv_valid, merge,
+    out = _sdpa_merged(qq, kk, vv, q_pos, kv_pos, kv_valid, merge,
                        causal=a.causal, window=None)
     out = HT.hint_attn_out(out, layout)
-    y = out.reshape(b, s, nh * hd) @ w["wo"]
+    y = out.reshape(b, sq, nh * hd) @ w["wo"]
     if tp > 1:
         y = SP.all_reduce(y, "model")
+    elif rows is not None:      # every point's rows
+        y = SP.all_gather(y, "model", 1)
     return x + y, cache
 
 
@@ -841,8 +874,9 @@ def moe(p, x, cfg: ModelConfig, norm_kind: str = "rmsnorm"):
     token takes), the experts run as batched products, and each (token,
     slot) adds its expert's output times its weight (rounded to the model
     dtype, as the reference's combine; 0 where dropped) back to the
-    token, summed in f32. Nothing waits on the device: no count of kept
-    slots is read."""
+    token, summed in f32 by a reduction over the slots (the same bits on
+    every point that runs it). Nothing waits on the device: no count of
+    kept slots is read."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -880,8 +914,10 @@ def moe(p, x, cfg: ModelConfig, norm_kind: str = "rmsnorm"):
     hmid = HT.hint(hmid, "model", None, None)
     xout = torch.bmm(hmid, w2)                            # [E,G(C+1),d]
     w = w.to(x.dtype).float()
-    y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
-    y.index_add_(0, tok, xout[e, c].float() * w[:, None])
+    # a token's k slots summed by a reduction, not scattered: CUDA's
+    # `index_add_` adds in the order its atomics land, so the points that
+    # each run a MoE no mesh axis splits would hold other bits
+    y = (xout[e, c].float() * w[:, None]).reshape(t, m.top_k, d).sum(1)
     if split:                       # experts, or d_ff inside them
         y = SP.all_reduce(y, split)
     y = y.to(x.dtype)

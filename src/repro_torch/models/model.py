@@ -47,7 +47,9 @@ heads_split`), or, where they do not split whole, its range of the
 slots (`layers.cache_split`: the sequence split), and at a batch the
 data axes do not divide its range of the slots over "data" too. MLA's
 latent and rope caches hold the point's columns (`layers.mla_split`),
-or at that batch its range of the slots over "data" at every column; a
+or at that batch its range of the slots over "data" at every column,
+or, where MLA splits by sequence, its range of the slots over "model"
+(and "data" at that batch) at every column; a
 Mamba layer's conv window holds the point's channels (`layers.
 mamba_split`) and its SSM state the point's heads, over "model", or at
 that batch over "data" (`layers.ssm_split`). So a point's cache bytes
@@ -199,7 +201,7 @@ class Model:
         ways = math.prod(SP.context().size(x) for x in axes)
         if a.kv_lora_rank:              # MLA: c_kv and k_rope, the point's
             # columns of each, or every column at a batch whole on every
-            # point
+            # point or under the sequence split (`mla_split` 1)
             tp = 1 if L.whole_batch(batch) else L.mla_split(a)
             k_shape = (*lead, batch, cap // ways, a.kv_lora_rank // tp)
             v_shape = (*lead, batch, cap // ways, a.rope_head_dim // tp)

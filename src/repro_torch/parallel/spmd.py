@@ -111,9 +111,13 @@ Context parallelism. An attention layer whose heads tp does not split
 whole (`layers.seq_split` tp > 1; H query and KVH kv heads of hd, width
 d) gathers its leaves that "model" splits (wq, wk, wv, wo and the QKV
 biases, flattened into one: `whole_all`) at every call, one gather of
-(tp - 1) e W / tp bytes for their W elements, and no wo all-reduce; where tp divides the call's S tokens it also
+(tp - 1) e W / tp bytes for their W elements (none where "model" splits
+no leaf), and no wo all-reduce; where tp divides the call's S tokens it also
 gathers k and v, (tp - 1) e b S KVH hd 2 / tp bytes, and y, (tp - 1) e b
-S d / tp bytes (3 gathers). A cache whose slots are split over n points
+S d / tp bytes (3 gathers). An MLA layer that tp splits by sequence
+(where tp divides none of its heads, r and dr) calls the same, its 7
+leaves in the one gather and c_kv and k_rope in place of k and v,
+(tp - 1) e b S (r + dr) / tp bytes. A cache whose slots are split over n points
 (`layers.cache_split`: over "data" where the batch does not divide the
 data axes, and over "model" under the sequence split) adds one gather a
 decode step a layer, of each point's f32 output and log-sum-exp, (n -
@@ -121,7 +125,7 @@ decode step a layer, of each point's f32 output and log-sum-exp, (n -
 heads split); a prefill into an empty cache that holds it adds none, and
 any other call with more than one token gathers the written K and V
 slots, 2 gathers of (n - 1) e b cap KVH' hd / n bytes (KVH' the point's
-kv heads).
+kv heads; MLA's latent and rope slots, (n - 1) e b cap (r + dr) / n).
 
 Batch 1. At a batch the data axes do not divide (`layers.whole_batch`)
 MLA's latent and rope caches hold a point's range of the slots over
@@ -159,6 +163,22 @@ layer and H = d V the LM head's. Each of m microbatches, a point calls:
     backward a chunk, and the loss's sum and count over the data axes
     (where w > 1): (tp - 1) e d t bytes each (t_c for a chunk's), (w -
     1) 8 for the loss;
+    under the sequence split (attention or MLA; the leaves no layer of
+    which "model" splits need no gather) in place of a layer's wo sums
+    and q/k/v copy: all_gather 2 times, its split leaves in the forward
+    and the recomputation ((tp - 1) e W_s / tp bytes each), and where
+    tp divides the sequence 6 more, k and v (MLA: c_kv and k_rope) and
+    y in both ((tp - 1) e t (kv + d) / tp bytes a pass, kv = 2 KVH hd or
+    r + dr), and all_reduce 3 + n_w times in the backward, the copies of
+    h, of each of its n_w leaves and of k and v ((tp - 1) e (t d + W + t
+    kv) bytes in all, W its leaves' elements); a MoE whose d_ff_expert
+    tp splits (not expert parallel) in place of w2's sums: all_reduce of
+    the f32 combine in the forward (and the recomputation where its
+    shared experts' sum follows it), its shared experts' w2 in the
+    forward, and in the backward the copies of h and of the routing
+    weights (f32, top-k a token) and the shared experts' h; with the
+    batch split (w > 1) its auxiliary loss's sums twice ((w - 1) 4 2E
+    bytes);
   * all_gather 2 c times, the f32 logits of a chunk over "model" in the
     forward and the recomputation, (tp - 1) 4 t_c V / tp bytes; with FSDP
     also 14 L + 1 times, each weight a layer in the forward and the
@@ -1101,16 +1121,36 @@ def gather_results(mesh, spec: P, parts: Sequence[torch.Tensor],
                        device)
 
 
+def _layer_leaves(cfg, full, specs, model_split):
+    """(each layer's FFN specs, None for a mixer-only block; the element
+    counts of the first stacked layer's mixer leaves but its norm, and of
+    those "model" splits, `model_split` saying which spec entry does) in
+    the trees of `abstract_params` and `param_specs`."""
+    prefix, period, _ = layer_layout(cfg)
+    ffns = [(specs["prefix_layers"][i] if i < prefix else specs["layers"][
+        (i - prefix) % period]).get("ffn") for i in range(cfg.n_layers)]
+    mixer, lay = full["layers"][0]["mixer"], specs["layers"][0]["mixer"]
+    leaves = {k: mixer[k][0].numel() for k in mixer if k != "ln"}
+    split = [n for k, n in leaves.items()
+             if any(model_split(x) for x in lay[k])]
+    return ffns, list(leaves.values()), split
+
+
 def train_comm(cfg, mesh, batch: int, seq: int, tc, fsdp: bool) -> dict:
     """`COMM` of one sharded train step (AdamW, remat; `tc` a
     `train.step.TrainConfig`), summed over the points, by the formula of
-    this module's note: a dense model whose heads, d_ff and vocabulary
-    split over "model", FSDP over "data", the batch split over the data
-    axes ("pod" and "data", `sharding.batch_axes`: the global batch and
-    its microbatches divide them), each point's loss chunks whole. It
-    does not model a MoE, MLA, a Mamba-2 mixer, the sequence split, a
-    vocabulary tp does not divide or a stub frontend; `launch.
-    collectives` counts every case."""
+    this module's note: a model of attention or MLA layers, each
+    followed by an MLP or a MoE, the batch split over the data axes
+    ("pod" and "data", `sharding.batch_axes`: the global batch and its
+    microbatches divide them), each point's loss chunks whole; attention
+    whose heads split whole over "model", or attention and MLA under the
+    sequence split (`layers.seq_split`); an MLP's d_ff and a MoE's
+    d_ff_expert (its shared experts' d_ff too) split over "model" where
+    tp divides them; a vocabulary tp divides; FSDP over "data" for a
+    dense model whose heads split whole. Raises ValueError for what it
+    does not model (a Mamba-2 mixer, a stub frontend, MLA split by heads,
+    expert parallelism, FSDP over more than one point of any other
+    model); `launch.collectives` counts every case."""
     a, d, n_layers, v = cfg.attn, cfg.d_model, cfg.n_layers, cfg.vocab_size
     tp, dp, m = mesh.shape["model"], mesh.shape["data"], tc.microbatches
     ways = math.prod(mesh.shape[x] for x in batch_axes_of(mesh))
@@ -1119,16 +1159,71 @@ def train_comm(cfg, mesh, batch: int, seq: int, tc, fsdp: bool) -> dict:
     nchunk = max(1, t * ways // tc.loss_chunk)
     chunk = t * ways // nchunk
     chunks = t // chunk
+    full, specs = abstract_params(cfg), param_specs(cfg, mesh, fsdp)
+    if cfg.mamba is not None or cfg.frontend or cfg.n_enc_layers:
+        raise ValueError("train_comm: a Mamba-2 mixer or a stub frontend")
+    hs = tp if a.num_heads % tp == 0 and a.num_kv_heads % tp == 0 else 1
+    r, dr = a.kv_lora_rank, a.rope_head_dim
+    if r and tp > 1 and hs > 1 and r % tp == 0 and dr % tp == 0:
+        raise ValueError("train_comm: MLA split by heads")
+    if r and (r % tp or dr % tp):
+        hs = 1
+    cp = tp > 1 and hs == 1          # the sequence split
+    rows = cp and seq % tp == 0      # each point's query rows
+
+    def model_split(entry):          # a spec entry that "model" splits
+        return tp > 1 and "model" in (entry if isinstance(entry, tuple)
+                                      else (entry,))
+    ffns, ws, split = _layer_leaves(cfg, full, specs, model_split)
+    dense = not cp and cfg.moe is None
+    if fsdp and dp > 1 and not dense:
+        raise ValueError("train_comm: FSDP of a MoE or the sequence split")
     layer = (2 * a.num_heads + 2 * a.num_kv_heads) * a.head_dim * d \
         + 3 * d * cfg.d_ff                         # the 7 weights
     loss = ways > 1                  # the loss's sum and count
-    n = {"all_reduce": 1 + loss + 5 * n_layers + chunks,
-         "all_gather": 2 * chunks, "reduce_scatter": 0}
-    b = {"all_reduce": (tp - 1) * e * d * (5 * n_layers * t + t
-                                           + chunks * chunk)
+    vocab = tp > 1 and v % tp == 0   # the embedding, the logits
+    n = {"all_reduce": vocab + loss + vocab * chunks,
+         "all_gather": 2 * chunks * vocab, "reduce_scatter": 0}
+    b = {"all_reduce": vocab * (tp - 1) * e * d * (t + chunks * chunk)
          + (ways - 1) * 8,
-         "all_gather": 2 * chunks * (tp - 1) * 4 * chunk * v // tp,
+         "all_gather": vocab * 2 * chunks * (tp - 1) * 4 * chunk * v // tp,
          "reduce_scatter": 0}
+
+    def add(kind, calls, nbytes):
+        n[kind] += calls
+        b[kind] += calls * nbytes
+    per = (tp - 1) * e * t * d       # an all-reduce of a point's tokens
+    for ffn in ffns:
+        if hs > 1:                   # wo, forward and remat; the copy
+            add("all_reduce", 3, per)
+        elif cp:                     # the split leaves, in one, forward
+            add("all_gather", 2 * bool(split),                # and remat
+                (tp - 1) * e * sum(split) // tp)
+            if rows:                 # k and v (c_kv, k_rope) and y,
+                kv = r + dr if r else 2 * a.num_kv_heads * a.head_dim
+                n["all_gather"] += 6     # forward and remat
+                b["all_gather"] += 2 * (tp - 1) * e * t * (kv + d) // tp
+                # the copies' backward: h, each leaf, k and v (c_kv,
+                # k_rope)
+                n["all_reduce"] += 3 + len(ws)
+                b["all_reduce"] += per + (tp - 1) * e * (sum(ws) + t * kv)
+        if ffn is None:
+            continue
+        if "router" not in ffn:      # w2 forward; the copy's backward
+            if model_split(ffn["w2"][-2]):
+                add("all_reduce", 2, per)
+            continue
+        if model_split(ffn["w2"][-3]):
+            raise ValueError("train_comm: expert parallelism")
+        shared = "shared" in ffn and model_split(ffn["shared"]["w2"][-2])
+        if model_split(ffn["w2"][-2]):   # the f32 combine, forward (and
+            add("all_reduce", 1 + shared, (tp - 1) * 4 * t * d)  # remat
+            add("all_reduce", 1, per)    # before the shared sum); the
+            add("all_reduce", 1, (tp - 1) * 4 * t * cfg.moe.top_k)  # copies
+        if shared:                   # the shared w2, forward; its copy
+            add("all_reduce", 2, per)
+        if ways > 1:                 # the auxiliary loss, forward, remat
+            add("all_reduce", 2, (ways - 1) * 4 * 2 * cfg.moe.num_experts)
     if fsdp and dp > 1:
         n["all_gather"] += 14 * n_layers + 1
         b["all_gather"] += (dp - 1) * e * (2 * n_layers * layer + d * v) \
@@ -1176,20 +1271,23 @@ def serve_comm(cfg, mesh, batch: int, prompt_len: int, gen_tokens: int,
     divides the vocabulary); per layer, for attention wo's all-reduce
     where the heads split whole, and under the sequence split one gather
     of the attention leaves split over "model" each call and, where tp
-    divides the call's tokens, k, v and y gathered; for MLA where it
-    splits over "model", w_kr gathered whole and wo's all-reduce, and the
-    latent and rope caches gathered, or, at a batch the data axes do not
-    divide (batch 1), the call's latent; for the Mamba-2 mixer where it
+    divides the call's tokens, k, v and y gathered; for MLA where its
+    heads split over "model", w_kr gathered whole and wo's all-reduce,
+    and the latent and rope caches gathered, or, at a batch the data axes
+    do not divide (batch 1), the call's latent; under MLA's sequence
+    split, as attention's, with c_kv and k_rope in place of k and v; for
+    the Mamba-2 mixer where it
     splits, in_proj's and the conv's outputs gathered and out_proj's
     all-reduce, and at batch 1 its gated output gathered over "data"
     where "data" splits its heads; where a cache's slots are split over
     n points, a decode step's merge, and a prompt longer than a window
     layer's ring gathers the written slots; w2's all-reduce where its rows are
-    split, the MoE's f32 combine where its experts or their d_ff are, and
+    split, the MoE's f32 combine where its experts or their d_ff are and
+    its shared experts' w2 where their d_ff is, and
     once a call the stacked leaves whose layer dim is split (deepseek's
     shared experts); the splits read from `param_specs`. Raises
-    ValueError for a layer this does not cover (MLA or a Mamba-2 mixer
-    gathered over a model axis of more than one point). It does not model
+    ValueError for a layer this does not cover (a Mamba-2 mixer gathered
+    over a model axis of more than one point). It does not model
     FSDP, whisper's encoder and cross-attention or llava's patch prefix
     (their collectives are left out); `launch.collectives` counts every
     case."""
@@ -1207,6 +1305,7 @@ def serve_comm(cfg, mesh, batch: int, prompt_len: int, gen_tokens: int,
         return tp > 1 and "model" in (entry if isinstance(entry, tuple)
                                       else (entry,))
     stacked = []    # gathered once a call: the layer dim "model" splits
+    ffns, _, gathered = _layer_leaves(cfg, full, specs, model_split)
 
     def walk(x, y):
         if isinstance(x, dict):
@@ -1216,30 +1315,20 @@ def serve_comm(cfg, mesh, batch: int, prompt_len: int, gen_tokens: int,
             stacked.append(math.prod(x.shape))
     for x, y in zip(full["layers"], specs["layers"]):
         walk(x, y)
-    prefix, period, _ = layer_layout(cfg)
-    # each layer's FFN's specs (None for a mixer-only block)
-    ffns = [(specs["prefix_layers"][i] if i < prefix else specs["layers"][
-        (i - prefix) % period]).get("ffn") for i in range(cfg.n_layers)]
     kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
     if a is not None:
         hd, kvh = a.head_dim, a.num_kv_heads
         hs = tp if a.num_heads % tp == 0 and kvh % tp == 0 else 1
-        cp = tp > 1 and hs == 1 and not a.kv_lora_rank
+        if a.kv_lora_rank:           # MLA splits its heads where tp also
+            r, dr = a.kv_lora_rank, a.rope_head_dim     # divides r, dr
+            hs = hs if r % tp == 0 and dr % tp == 0 else 1
+        cp = tp > 1 and hs == 1      # the sequence split
         want = ([ways_d] if b1 else []) + ([tp] if cp else [])
         ring = min(cap, a.sliding_window) if a.sliding_window else cap
         n = 1
         for w in want:               # the ways the ring's slots split
             if ring % (n * w) == 0:
                 n *= w
-        lay = specs["layers"][0]["mixer"]
-        mixer = full["layers"][0]["mixer"]
-        gathered = [mixer[k][0].numel() for k in mixer
-                    if k != "ln" and "model" in tuple(lay[k])]
-        if a.kv_lora_rank:
-            r, dr = a.kv_lora_rank, a.rope_head_dim
-            mla = hs if r % tp == 0 and dr % tp == 0 else 1
-            if tp > 1 and mla == 1:
-                raise ValueError("serve_comm: MLA gathered over 'model'")
     if cfg.mamba is not None:
         mb = cfg.mamba
         d_in = mb.expand * d
@@ -1264,20 +1353,20 @@ def serve_comm(cfg, mesh, batch: int, prompt_len: int, gen_tokens: int,
                 if b1 and nheads % ways_d == 0:     # the gated output
                     ag += 1
                     ag_b += (ways_d - 1) * e * b * s * d_in // ways_d
-            elif a.kv_lora_rank:
-                if tp > 1:           # w_kr; the call's latent, or the
-                    ag += 2 if b1 else 3     # cached latent and rope
-                    ag_b += (tp - 1) * e * (d * dr + (
-                        b * s * r if b1 else b * cap * (r + dr))) // tp
-                    ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
+            elif a.kv_lora_rank and hs > 1:
+                ag += 2 if b1 else 3     # w_kr; the call's latent, or
+                ag_b += (tp - 1) * e * (d * dr + (   # the cached latent
+                    b * s * r if b1 else b * cap * (r + dr))) // tp
+                ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
             elif hs > 1:             # wo
                 ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
-            elif cp:                 # the attention leaves, in one
-                ag += 1
+            elif cp:                 # the leaves "model" splits, in one
+                ag += bool(gathered)
                 ag_b += (tp - 1) * e * sum(gathered) // tp
-                if s % tp == 0:      # k, v and y
+                if s % tp == 0:      # k and v (MLA: c_kv, k_rope) and y
                     ag += 3
-                    ag_b += (tp - 1) * e * b * s * (2 * kvh * hd + d) // tp
+                    ag_b += (tp - 1) * e * b * s * (d + (
+                        r + dr if a.kv_lora_rank else 2 * kvh * hd)) // tp
             if kind != "mamba" and s == 1 and n > 1:   # the decode merge
                 ag += 1
                 ag_b += (n - 1) * 4 * b * (a.num_heads // hs) * (hd + 1)
@@ -1291,6 +1380,8 @@ def serve_comm(cfg, mesh, batch: int, prompt_len: int, gen_tokens: int,
             if "router" in ffn:      # the MoE's f32 combine
                 if any(model_split(x) for x in ffn["w2"][-3:-1]):
                     ar, ar_b = ar + 1, ar_b + (tp - 1) * 4 * b * s * d
+                if "shared" in ffn and model_split(ffn["shared"]["w2"][-2]):
+                    ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
             elif model_split(ffn["w2"][-2]):     # w2
                 ar, ar_b = ar + 1, ar_b + (tp - 1) * e * b * s * d
     k = passes * mesh.size

@@ -62,8 +62,9 @@ def one_torch_thread():
 
 #: the reference's sharded runs: argv[1] a JSON list of [tag, arch,
 #: capacity factor or null, mesh shape, axes, fsdp] (and, optionally, a
-#: seventh entry {"B": ..., "T0": ...} overriding the batch or the
-#: prefill's length for that case), argv[2] the .npz,
+#: seventh entry {"B": ..., "T0": ..., "S": ...} overriding the batch,
+#: the prefill's length or the tokens' (and so the cap) for that case),
+#: argv[2] the .npz,
 #: then B, S_LEN, T0, SEED and, optionally, a directory where it saves
 #: qwen1.5-4b's f32 smoke parameters (`save_tree`) beside their
 #: unsharded prefill logits (under "ckpt/prefill"). Under the vision stub
@@ -82,12 +83,13 @@ from repro.launch.mesh import make_test_mesh
 from repro.models.model import Batch, Model
 from repro.parallel import sharding as S
 cases, out = json.loads(sys.argv[1]), sys.argv[2]
-B0, S_LEN, T00, SEED = (int(x) for x in sys.argv[3:7])
+B0, S_LEN0, T00, SEED = (int(x) for x in sys.argv[3:7])
 res, inits = {}, {}
 for case in cases:
     tag, arch, cf, shape, axes, fsdp = case[:6]
     opts = case[6] if len(case) > 6 else {}
     B, T0 = opts.get("B", B0), opts.get("T0", T00)
+    S_LEN = opts.get("S", S_LEN0)
     cfg = dataclasses.replace(get_smoke_config(arch), dtype=jnp.float32)
     if cf is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -125,7 +127,7 @@ for case in cases:
                                           bsh), c, jnp.int32(npre + t), enc)
             res[f"{tag}/step{t}"] = np.asarray(lg)
 if len(sys.argv) > 7:
-    B, T0 = B0, T00
+    B, T0, S_LEN = B0, T00, S_LEN0
     from repro.checkpoint import save_tree
     cfg = dataclasses.replace(get_smoke_config("qwen1.5-4b"),
                               dtype=jnp.float32)
@@ -198,20 +200,22 @@ def patches(cfg, batch=B):
         (batch, n, cfg.d_model)).astype(np.float32))
 
 
-def port_sharded_run(cfg, params, shape, axes, fsdp, calls_to=S_LEN,
-                     batch=B, t0=T0):
+def port_sharded_run(cfg, params, shape, axes, fsdp, calls_to=None,
+                     batch=B, t0=T0, s_len=S_LEN):
     """The port's sharded prefill of `t0` tokens (after `patches`, under
     the vision stub; encoding them, under the audio stub, whose decode
     steps take them encoded once more) and teacher-forced decode (up to
-    position `calls_to`) of `batch` rows on `["cpu"] * n` of full
-    `params`, or of already sharded ones where `fsdp` is None: {call:
-    full logits as numpy}."""
+    position `calls_to`, default `s_len`) of `batch` rows of `s_len`
+    tokens (cap `s_len` + 4) on `["cpu"] * n` of full `params`, or of
+    already sharded ones where `fsdp` is None: {call: full logits as
+    numpy}."""
+    calls_to = s_len if calls_to is None else calls_to
     mesh = cpu_mesh(shape, axes)
     model = Model(cfg)
     sharded = params if fsdp is None else SP.shard_tree(
         params, S.param_specs(cfg, mesh, fsdp=fsdp), mesh)
     tok = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (batch, S_LEN)).astype(np.int32)).long()
+        0, cfg.vocab_size, (batch, s_len)).astype(np.int32)).long()
     extra = patches(cfg, batch)
     npre = 0 if cfg.frontend != "vision_stub" else extra.shape[1]
     spec = S.batch_spec(mesh, batch)
@@ -221,7 +225,7 @@ def port_sharded_run(cfg, params, shape, axes, fsdp, calls_to=S_LEN,
     def calls(p, t, e):
         out = {}
         lg, c = model.prefill(p, Batch(t[:, :t0], t[:, :t0], e),
-                              cap=npre + S_LEN + 4)
+                              cap=npre + s_len + 4)
         out["prefill"] = lg
         enc = model.encode(p, e) if cfg.n_enc_layers else None
         for i in range(t0, calls_to):
@@ -238,11 +242,11 @@ def port_sharded_run(cfg, params, shape, axes, fsdp, calls_to=S_LEN,
             .numpy() for k in per_point[0]}
 
 
-def check_against(ref, tag, got, t0=T0):
+def check_against(ref, tag, got, t0=T0, s_len=S_LEN):
     np.testing.assert_allclose(got["prefill"], ref[f"{tag}/prefill"],
                                rtol=2e-4, atol=2e-4,
                                err_msg=f"{tag} prefill")
-    for t in range(t0, S_LEN):
+    for t in range(t0, s_len):
         np.testing.assert_allclose(got[f"step{t}"], ref[f"{tag}/step{t}"],
                                    rtol=3e-4, atol=3e-4,
                                    err_msg=f"{tag} step {t}")

@@ -43,7 +43,10 @@ LAYOUTS = {"2x2-fsdp": ((2, 2), ("data", "model"), True, 4),
            "2x2": ((2, 2), ("data", "model"), False, 4),
            "1x4": ((1, 4), ("data", "model"), False, 4),
            "2x1x2-pod": ((2, 1, 2), ("pod", "data", "model"), True, 4),
-           "2x2-b1": ((2, 2), ("data", "model"), False, 1)}
+           "2x2-b1": ((2, 2), ("data", "model"), False, 1),
+           "1x8": ((1, 8), ("data", "model"), False, 4)}
+#: the layouts every block kind's file counts (`cases`)
+CASE_LAYOUTS = ("2x2-fsdp", "2x2", "1x4", "2x1x2-pod", "2x2-b1")
 CALLS = ("prefill", "decode", "train")
 SEQ = 16                # a call's positions (a decode step's cache slots)
 GEN = 3                 # a served pass's decode steps
@@ -59,8 +62,8 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def cases(archs, calls=CALLS):
-    return [(arch, layout, call) for arch in archs for layout in LAYOUTS
+def cases(archs, calls=CALLS, layouts=CASE_LAYOUTS):
+    return [(arch, layout, call) for arch in archs for layout in layouts
             for call in calls]
 
 
@@ -181,9 +184,9 @@ def check_call(arch, layout, call, monkeypatch):
     assert {k: first[k] * mesh.size for k in SP.COMM} == want
 
 
-def check_serve(arch, layout):
-    """`collectives.count_serve` of a served pass against the real
-    pass's `spmd.COMM`."""
+def check_serve(arch, layout, cap=SEQ + GEN + 8):
+    """`collectives.count_serve` of a served pass (into `cap` slots)
+    against the real pass's `spmd.COMM`; returns the count."""
     cfg, mesh, fsdp, batch = _setup(arch, layout)
     model, params = _sharded_params(cfg, mesh, fsdp)
     rng = np.random.default_rng(1)
@@ -193,13 +196,13 @@ def check_serve(arch, layout):
     prompt_len = SEQ - serve.prefix_len(cfg, extra)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                            (batch, prompt_len)))
-    cap = SEQ + GEN + 8
     SP.reset_counts()
     with torch.no_grad():
         serve.generate_sharded(model, params, prompt, GEN, cap, mesh,
                                extra=extra)
     got = C.count_serve(cfg, mesh, batch, prompt_len, GEN, cap, fsdp)
     assert {k: got[k] * mesh.size for k in SP.COMM} == dict(SP.COMM)
+    return got
 
 
 ARCHS = ("qwen1.5-4b",)

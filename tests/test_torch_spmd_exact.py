@@ -188,15 +188,100 @@ def test_cache_bytes_are_cache_spec_share(arch, shape, batch):
     assert out == [want] * mesh.size
 
 
+def test_mla_sequence_split_cache_is_cache_spec_share():
+    """deepseek's smoke config on (1, 8), which divides none of its 4
+    heads, r 64 and dr 16 (MLA split by sequence), cap 24: after a
+    prefill and decode steps each point's latent and rope caches hold its
+    3 slots [3p, 3p + 3) over "model" at every column, cap/8 (r + dr)
+    elements a row, which is `cache_spec`'s share (r and dr split 8
+    ways): 1/8 of the whole cache."""
+    cfg = _f32("deepseek-v2-lite-16b")
+    mesh = _mesh((1, 8), ("data", "model"))
+    model = Model(cfg)
+    params = SP.shard_tree(model.init(torch.Generator().manual_seed(0)),
+                           S.param_specs(cfg, mesh, fsdp=False), mesh)
+    tok = torch.randint(0, cfg.vocab_size, (B, T0 + STEPS),
+                        generator=torch.Generator().manual_seed(1))
+    cap, a = 24, cfg.attn
+
+    def point(p, t):
+        c = _serve_calls(model, p, t, cap)[1]
+        kv = [c["prefix"][0], c["slots"][0]]
+        return serve.cache_bytes(c), [(x.axes, x.start, tuple(x.k.shape),
+                                       tuple(x.v.shape)) for x in kv]
+    with torch.no_grad():
+        out = SP.run(mesh, point, params,
+                     SP.shard_leaf(tok, S.batch_spec(mesh, B), mesh),
+                     timeout=60)
+    whole = model.init_cache(B, cap, "meta")
+    want = local_bytes(whole, S.cache_spec(cfg, mesh, B), mesh)
+    assert want * 8 == serve.cache_bytes(whole)
+    reps = cfg.n_layers - 1
+    for p, (nbytes, kv) in enumerate(out):
+        assert nbytes == want
+        assert kv == [(("model",), 3 * p, (B, 3, a.kv_lora_rank),
+                       (B, 3, a.rope_head_dim)),
+                      (("model",), 3 * p, (reps, B, 3, a.kv_lora_rank),
+                       (reps, B, 3, a.rope_head_dim))]
+
+
+def test_moe_combine_is_a_reduction_not_a_scatter(monkeypatch):
+    """The MoE sums a token's k weighted expert outputs by a reduction. It
+    scattered them with `index_add_`, which on CUDA adds in the order its
+    atomics land, so on a model axis that splits neither the experts nor
+    their d_ff (deepseek-v2-lite's 64 experts of 1,408 on (1, 3)) each
+    point's replica of the MoE held other bits and the points routed the
+    next layer differently (the H100's `serve-sharded-seq-mla`). Here a
+    scatter-add whose terms land in the reverse order must leave the
+    layer's output bit for bit as it was (deepseek's smoke config at top-4
+    of its 4 experts: reversed, four f32 terms round otherwise)."""
+    from repro_torch.models import layers as L
+    cfg = _f32("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           top_k=4))
+    stacked = Model(cfg).init(torch.Generator().manual_seed(0))
+    ffn = {k: v[0] for k, v in stacked["layers"][0]["ffn"].items()
+           if k != "shared"}
+    ffn["shared"] = {k: v[0] for k, v in
+                     stacked["layers"][0]["ffn"]["shared"].items()}
+    x = torch.randn((2, 8, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    want = L.moe(ffn, x, cfg)
+    add = torch.Tensor.index_add_
+
+    def reversed_order(self, dim, index, source, *a, **k):
+        return add(self, dim, index.flip(0), source.flip(0), *a, **k)
+    monkeypatch.setattr(torch.Tensor, "index_add_", reversed_order)
+    assert torch.equal(L.moe(ffn, x, cfg), want)
+
+
+def test_mla_sequence_split_step_matches_unsharded_step():
+    """MLA's sequence split under autograd (deepseek's smoke config on
+    (1, 8): 2 query rows a point of a microbatch's 16, against every
+    row's gathered c_kv and k_rope; h, the gathered leaves and the
+    gathered c_kv and k_rope entering the row split through `spmd.copy`),
+    every point's gradient of every leaf within 1e-5 of its slice of the
+    unsharded step's (tests/test_torch_spmd_train.py's check): leaving
+    out any of those copies fails it."""
+    from test_torch_spmd_train import check_case
+    check_case("1x8", arch="deepseek-v2-lite-16b")
+
+
 @pytest.mark.parametrize("arch,shape,batch,prompt", (
     ("minitron-4b", (1, 4), B, 16), ("minitron-4b", (1, 4), B, 14),
-    ("qwen1.5-4b", (2, 2), 1, 16), ("minitron-4b", (2, 4), 1, 16)))
+    ("qwen1.5-4b", (2, 2), 1, 16), ("minitron-4b", (2, 4), 1, 16),
+    ("deepseek-v2-lite-16b", (1, 8), B, 16),
+    ("deepseek-v2-lite-16b", (1, 8), B, 12),
+    ("deepseek-v2-lite-16b", (1, 3), B, 12)))
 def test_context_parallel_collectives_and_k8_shapes(arch, shape, batch,
                                                     prompt):
     """A served pass (`serve.generate_sharded`: a prefill of `prompt`
     tokens, STEPS decode steps, cap 24) under the sequence split
     (minitron's 6/2 heads on (1, 4): its weights gathered, its rows' k, v
-    and y gathered where 4 divides the prompt, 16 but not 14), the
+    and y gathered where 4 divides the prompt, 16 but not 14; MLA's (deepseek's 4
+    heads, r 64 and dr 16 on (1, 8)), its rows' c_kv, k_rope and y
+    gathered where 8 divides the prompt, 16 but not 12; on (1, 3), where
+    3 splits none of its leaves, no leaf gathered), the
     length split (qwen at batch 1 on (2, 2): the decode merge over
     "data", wo summed over "model") and both (minitron at batch 1 on (2,
     4): the slots over ("data", "model")): `spmd.COMM` equals
@@ -224,8 +309,9 @@ def test_context_parallel_collectives_and_k8_shapes(arch, shape, batch,
         restore()
     assert dict(SP.COMM) == SP.serve_comm(
         cfg, mesh, batch, prompt, STEPS, cap)
-    tp = shape[1]
-    seq = tp > 1 and (cfg.attn.num_heads % tp or cfg.attn.num_kv_heads % tp)
+    tp, a = shape[1], cfg.attn
+    seq = tp > 1 and (a.num_heads % tp or a.num_kv_heads % tp or (
+        a.kv_lora_rank and (a.kv_lora_rank % tp or a.rope_head_dim % tp)))
     rows = prompt // tp if seq and prompt % tp == 0 else prompt
     n = 1
     for w in ([shape[0]] if batch % shape[0] else []) + ([tp] if seq

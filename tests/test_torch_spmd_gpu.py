@@ -25,7 +25,8 @@ against `flash_plain`'s on the card, slot ranges merged against the
 whole-cache call, and qwen1.5-4b at published widths cut to 2 layers on
 (1, 8) of one card (its 20 heads split by sequence) against the same
 model unsharded (`CP_BOUNDS`); deepseek-v2-lite-16b at batch 1 on (2, 2),
-its latent split by slots over "data" (`B1_MLA_BOUNDS`). A served
+its latent split by slots over "data" (`B1_MLA_BOUNDS`), and cut to 1
+layer on (1, 3), its MLA split by sequence (`SEQ_MLA_BOUNDS`). A served
 pass's collectives (`spmd.COMM`) on (2, 2) of one card equal one point's
 pass counted on the meta device (`launch.collectives.count_serve`)
 times the points."""
@@ -351,18 +352,19 @@ CP_PROMPT, CP_GEN = 104, 8
 CP_BOUNDS = (0.18, 0.027)
 
 
-def _cp_gap(mesh, device):
-    """(`chip_smoke.sharded_gap` of qwen1.5-4b cut to 2 layers on `mesh`
-    against its unsharded greedy run at B, CP_PROMPT and CP_GEN, the K8
-    calls by (Sq, Skv) of the sharded pass, the sharded serve result)."""
+def _cp_gap(mesh, device, arch="qwen1.5-4b", layers=2, prompt=CP_PROMPT,
+            gen=CP_GEN):
+    """(`chip_smoke.sharded_gap` of `arch` cut to `layers` on `mesh`
+    against its unsharded greedy run at B, `prompt` and `gen` tokens, the
+    K8 calls by (Sq, Skv) of the sharded pass, the sharded serve
+    result)."""
     import chip_smoke
-    cfg = dataclasses.replace(get_config("qwen1.5-4b"), n_layers=2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     with set_mesh(make_test_mesh(mesh.axis_sizes, mesh.axis_names)):
-        ref = serve.serve_config(cfg, B, CP_PROMPT, CP_GEN, device)
+        ref = serve.serve_config(cfg, B, prompt, gen, device)
     seen, restore = chip_smoke.record_k8_shapes(L)
     try:
-        res = serve.serve_config(cfg, B, CP_PROMPT, CP_GEN, device,
-                                 mesh=mesh)
+        res = serve.serve_config(cfg, B, prompt, gen, device, mesh=mesh)
     finally:
         restore()
     gap = chip_smoke.sharded_gap(torch, L, SP, serve, ref, res["model"],
@@ -389,5 +391,40 @@ def test_sequence_split_on_one_card_matches_unsharded(cuda):
     assert res["device_bytes"][str(cuda)]["caches"] == 8 * local_bytes(
         whole, S.cache_spec(cfg, mesh, B), mesh)
     most, mean = CP_BOUNDS
+    for step in gap["steps"]:
+        assert step["max_abs"] <= most and step["mean_abs"] <= mean, step
+
+
+#: deepseek-v2-lite-16b at its published widths cut to 1 layer (its dense
+#: first layer: MLA, the FFN's 10,944 hidden units split three ways)
+#: served on (1, 3), where 3 divides none of its 16 heads, r 512 and dr
+#: 64: B, a prompt of 96 tokens (32 query rows a point) and 7 tokens, so
+#: the 111 cache slots split 37 a point
+SEQ_MLA_PROMPT, SEQ_MLA_GEN = 96, 7
+#: (max |d|, mean |d|) bounds of its bf16 gap from the unsharded run
+#: (`_cp_gap`), measured on the CPU (K8's plain version, `_cp_gap` on
+#: ["cpu"] * 3) at max |d| 0.0391 and mean 0.0062; about three times
+#: that, as `BF16_MAX_ABS`
+SEQ_MLA_BOUNDS = (0.12, 0.019)
+
+
+def test_mla_sequence_split_on_one_card_matches_unsharded(cuda):
+    """deepseek-v2-lite-16b's MLA on (1, 3) of cuda:0 x 3, split by
+    sequence: K8 (192, 128) prefill on each point's 32 query rows against
+    the 96 gathered keys and decode over its 37 slots with the
+    log-sum-exp (two passes, 1 layer, 3 points), each point's cache a
+    third of the whole (`cache_spec` keeps the latent whole on 3), the
+    forced logits within `SEQ_MLA_BOUNDS`."""
+    mesh = make_test_mesh((1, 3), devices=[cuda] * 3)
+    gap, shapes, res = _cp_gap(mesh, cuda, "deepseek-v2-lite-16b", 1,
+                               SEQ_MLA_PROMPT, SEQ_MLA_GEN)
+    calls = 2 * 1 * 3
+    assert res["cap"] == 111
+    assert shapes == {(SEQ_MLA_PROMPT // 3, SEQ_MLA_PROMPT): calls,
+                      (1, 37): calls * SEQ_MLA_GEN}
+    whole = res["model"].init_cache(B, res["cap"], "meta")
+    assert res["device_bytes"][str(cuda)]["caches"] == \
+        serve.cache_bytes(whole)
+    most, mean = SEQ_MLA_BOUNDS
     for step in gap["steps"]:
         assert step["max_abs"] <= most and step["mean_abs"] <= mean, step

@@ -8,7 +8,8 @@ FSDP, mamba2-370m's and whisper-base's (its frames in the batch) on
 attention splits by sequence, are held the same way as qwen's below.
 
 qwen1.5-4b's smoke config in f32 on meshes of `["cpu"] * n`: (2, 2)
-over ("data", "model") with `fsdp` on and off, (1, 4), (2, 1, 2) over
+over ("data", "model") with `fsdp` on and off, (1, 4), (1, 8) (its 4
+heads split by sequence, 2 query rows a point), (2, 1, 2) over
 ("pod", "data", "model"), and (4, 1) with loss chunks that cut across
 the points' rows (the points then run as many chunks each, some empty);
 remat on and off; `compress_grads` on; Adafactor on (2, 2). The
@@ -58,6 +59,7 @@ CASES = {
     "2x2": ((2, 2), ("data", "model"), True, "adamw", {}),
     "2x2-nofsdp": ((2, 2), ("data", "model"), False, "adamw", {}),
     "1x4": ((1, 4), ("data", "model"), True, "adamw", {}),
+    "1x8": ((1, 8), ("data", "model"), False, "adamw", {}),
     "2x1x2": ((2, 1, 2), ("pod", "data", "model"), True, "adamw", {}),
     "4x1-chunks": ((4, 1), ("data", "model"), True, "adamw",
                    {"loss_chunk": 40}),

@@ -20,8 +20,12 @@ parameter after the step within 3e-4 but for under 0.01% of the
 entries, each of those within 2 lr (AdamW's first step is about lr *
 sign(g): an entry whose gradient is at f32 noise may step otherwise;
 in qwen's (4, 2) case one embedding entry of 65,536 steps 3.3e-4
-otherwise). Cases: qwen1.5-4b's smoke config on the reference test's
-(4, 2) mesh; mixtral-8x7b's on (2, 2) (the MoE's
+otherwise). A case may ask for two steps on the same batch
+(`check_step(..., steps=2)`): then the second step's loss and gradient
+norm are held too, AdamW's moments after it within 1e-4 (m) and 2e-4
+(v) of their leaf's largest entry, and every parameter within 3e-4,
+with no entry left out. Cases: qwen1.5-4b's smoke config on the
+reference test's (4, 2) mesh; mixtral-8x7b's on (2, 2) (the MoE's
 auxiliary loss over the global batch, the experts' backward split two a
 point)."""
 import dataclasses
@@ -58,9 +62,12 @@ B, S_LEN, SEED, LR = 8, 32, 3, 1e-3
 CASES = {"qwen1.5-4b@4x2": ("qwen1.5-4b", (4, 2), True),
          "mixtral-8x7b@2x2": ("mixtral-8x7b", (2, 2), True)}
 
-#: argv[1] a JSON list of [tag, arch, mesh shape, fsdp], argv[2] the .npz,
-#: then B, S_LEN, SEED, LR: per case the loss, the gradient norm and the
-#: parameters' leaves after one step, and the gradient's leaves (`Keep`).
+#: argv[1] a JSON list of [tag, arch, mesh shape, fsdp] (and, optionally,
+#: a fifth entry {"steps": 2}), argv[2] the .npz, then B, S_LEN, SEED,
+#: LR: per case the loss, the gradient norm and the parameters' leaves
+#: after one step (or two: then the second's loss and gradient norm and
+#: AdamW's moments' leaves too), and the first step's gradient's leaves
+#: (`Keep`).
 #: Under a stub frontend the batch carries its embeddings drawn from
 #: SEED + 1 (`patches`: llava's patches, whisper's frames)
 REF = """
@@ -84,7 +91,9 @@ class Keep:    # hands the step's gradient back as a metric
     def update(self, grads, state, params):
         return params, state, {"grads": grads}
 res = {}
-for tag, arch, shape, fsdp in cases:
+for case in cases:
+    tag, arch, shape, fsdp = case[:4]
+    steps = case[4].get("steps", 1) if len(case) > 4 else 1
     cfg = dataclasses.replace(get_smoke_config(arch), dtype=jnp.float32)
     model = Model(cfg)
     params = model.init(jax.random.PRNGKey(SEED))
@@ -119,6 +128,15 @@ for tag, arch, shape, fsdp in cases:
         res[f"{tag}/g{i}"] = np.asarray(leaf)
     res[tag + "/loss"] = np.asarray(m["loss"])
     res[tag + "/grad_norm"] = np.asarray(m["grad_norm"])
+    if steps == 2:
+        with jax.set_mesh(mesh):
+            p, s, m = jax.jit(step)(p, s, b)
+        res[tag + "/loss2"] = np.asarray(m["loss"])
+        res[tag + "/grad_norm2"] = np.asarray(m["grad_norm"])
+        for i, (mu, nu) in enumerate(zip(jax.tree.leaves(s.m),
+                                         jax.tree.leaves(s.v))):
+            res[f"{tag}/m{i}"] = np.asarray(mu)
+            res[f"{tag}/v{i}"] = np.asarray(nu)
     for i, leaf in enumerate(jax.tree.leaves(p)):
         res[f"{tag}/p{i}"] = np.asarray(leaf)
 np.savez(out, **res)
@@ -136,11 +154,12 @@ def one_torch_thread():
 
 
 def reference_steps(tmp_path_factory, cases: dict) -> dict:
-    """REF's readings of `cases` (tag -> (arch, mesh shape, fsdp)), from
-    one subprocess."""
+    """REF's readings of `cases` (tag -> (arch, mesh shape, fsdp) or
+    (arch, mesh shape, fsdp, steps)), from one subprocess."""
     path = tmp_path_factory.mktemp("spmd_train") / "ref.npz"
-    cases = [[tag, arch, list(shape), fsdp]
-             for tag, (arch, shape, fsdp) in cases.items()]
+    cases = [[tag, c[0], list(c[1]), c[2]] + ([{"steps": c[3]}]
+                                                if len(c) > 3 else [])
+             for tag, c in cases.items()]
     env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
     run = subprocess.run(
         [sys.executable, "-c", REF, json.dumps(cases), str(path), str(B),
@@ -171,9 +190,9 @@ def test_sharded_step_matches_reference_sharded_step(tag, reference):
     check_step(tag, *CASES[tag], reference)
 
 
-def check_step(tag, arch, shape, fsdp, reference):
-    """The port's sharded step of case `tag` against REF's, as the
-    module's note says."""
+def check_step(tag, arch, shape, fsdp, reference, steps=1):
+    """The port's sharded step (or `steps` 2 steps) of case `tag`
+    against REF's, as the module's note says."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
     rcfg = dataclasses.replace(ref_smoke(arch), dtype=jax.numpy.float32)
     tree = jax.tree.map(np.asarray, RModel(rcfg).init(
@@ -191,7 +210,8 @@ def check_step(tag, arch, shape, fsdp, reference):
         0, cfg.vocab_size, (B, S_LEN)).astype(np.int32)).long()
     step = build_train_step(Model(cfg), opt, TrainConfig(microbatches=2),
                             mesh=mesh)
-    p, s, m = step(p, s, Batch(tok, torch.roll(tok, -1, 1), patches(cfg)))
+    batch = Batch(tok, torch.roll(tok, -1, 1), patches(cfg))
+    p, s, m = step(p, s, batch)
     assert float(m["loss"]) == pytest.approx(
         float(reference[f"{tag}/loss"]), abs=2e-4)
     assert float(m["grad_norm"]) == pytest.approx(
@@ -204,6 +224,9 @@ def check_step(tag, arch, shape, fsdp, reference):
         np.testing.assert_allclose(g.numpy(), want, rtol=0,
                                    atol=1e-4 * float(np.abs(want).max()),
                                    err_msg=f"{tag} gradient leaf {i}")
+    if steps == 2:
+        check_second_step(tag, step, p, s, batch, reference)
+        return
     got = leaves(SP.gather_tree(p))
     assert len(got) == sum(k.startswith(f"{tag}/p") for k in reference)
     for i, leaf in enumerate(got):
@@ -211,3 +234,31 @@ def check_step(tag, arch, shape, fsdp, reference):
         d = np.abs(leaf.numpy() - want)
         off = d > 3e-4 + 3e-4 * np.abs(want)
         assert off.mean() < 1e-4 and d.max() <= 2 * LR, (tag, i, d.max())
+
+
+def check_second_step(tag, step, p, s, batch, reference):
+    """A second step on `batch` against REF's: its loss and gradient
+    norm, AdamW's moments after it and every parameter entry (the
+    module's note)."""
+    p, s, m = step(p, s, batch)
+    assert float(m["loss"]) == pytest.approx(
+        float(reference[f"{tag}/loss2"]), abs=2e-4)
+    assert float(m["grad_norm"]) == pytest.approx(
+        float(reference[f"{tag}/grad_norm2"]), abs=2e-4)
+    state = SP.gather_tree(s)
+    for name, tol in (("m", 1e-4), ("v", 2e-4)):
+        got = leaves(getattr(state, name))
+        assert len(got) == sum(k.startswith(f"{tag}/{name}")
+                               for k in reference)
+        for i, leaf in enumerate(got):
+            want = reference[f"{tag}/{name}{i}"]
+            np.testing.assert_allclose(
+                leaf.numpy(), want, rtol=0,
+                atol=tol * float(np.abs(want).max()),
+                err_msg=f"{tag} AdamW {name} leaf {i}")
+    got = leaves(SP.gather_tree(p))
+    assert len(got) == sum(k.startswith(f"{tag}/p") for k in reference)
+    for i, leaf in enumerate(got):
+        np.testing.assert_allclose(leaf.numpy(), reference[f"{tag}/p{i}"],
+                                   rtol=3e-4, atol=3e-4,
+                                   err_msg=f"{tag} parameter leaf {i}")

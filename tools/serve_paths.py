@@ -7,11 +7,11 @@ Builds the kernel libraries from the sources in this checkout, then runs
 `chip_smoke.serve_phase` for each named path in turn (the paths of phases
 8-11b, `chip_smoke.SERVE_PATHS`: `serve`, `serve-deepseek`,
 `serve-mixtral`, `serve-mamba2`, `serve-whisper`, `serve-llava`), or
-`chip_smoke.serve_sharded_phase` (phases 11d-11l,
+`chip_smoke.serve_sharded_phase` (phases 11d-11m,
 `chip_smoke.SERVE_SHARDED_PATHS`: `serve-sharded`, `serve-sharded-mla`,
 `serve-sharded-llava`, `serve-sharded-mamba2`, `serve-sharded-whisper`,
 `serve-sharded-cp`, `serve-sharded-b1`, `serve-sharded-b1-mla`,
-`serve-sharded-b1-mamba2`),
+`serve-sharded-b1-mamba2`, `serve-sharded-seq-mla`),
 with the same specs and bounds as the full run:
 its serve, check and profile lines, then one line with each path's
 launch counts. Any failure raises and exits non-zero.
