@@ -1,0 +1,41 @@
+"""SSB Q3.1 (O'Neil, O'Neil, Chen, Revilak, TPCTC 2009, section 3.1;
+the specification's fixed constants). Flight 3: customer and supplier
+regions over six years, by nation."""
+from perfbench import reflib
+
+ORDER_BY = [("d_year", True), ("revenue", False)]
+
+
+def plan(sf):
+    """The program's plan: lineorder probes customer, supplier and date."""
+    from repro_torch.relational.expr import between, col
+    from repro_torch.relational.plan import GroupBy, Join, Scan, Sort
+    lo = Scan("lineorder")
+    c = Scan("customer", filter=col("c_region") == "ASIA")
+    s = Scan("supplier", filter=col("s_region") == "ASIA")
+    d = Scan("date", filter=between(col("d_year"), 1992, 1997))
+    j = Join(lo, c, ["lo_custkey"], ["c_custkey"])
+    j = Join(j, s, ["lo_suppkey"], ["s_suppkey"])
+    j = Join(j, d, ["lo_orderdate"], ["d_datekey"])
+    g = GroupBy(j, ["c_nation", "s_nation", "d_year"],
+                [("revenue", "sum", "lo_revenue")])
+    return Sort(g, ORDER_BY)
+
+
+def reference(db, acc):
+    lo, c, s, d = db["lineorder"], db["customer"], db["supplier"], db["date"]
+    ci = reflib.lookup(c["c_custkey"], lo["lo_custkey"])
+    si = reflib.lookup(s["s_suppkey"], lo["lo_suppkey"])
+    di = reflib.lookup(d["d_datekey"], lo["lo_orderdate"])
+    keep = (reflib.eq(c["c_region"], "ASIA"))[ci] \
+        & (reflib.eq(s["s_region"], "ASIA"))[si] \
+        & ((d["d_year"] >= 1992) & (d["d_year"] <= 1997))[di]
+    gid, (cc, sc, year) = reflib.group_by([
+        c["c_nation"].codes[ci[keep]], s["s_nation"].codes[si[keep]],
+        d["d_year"][di[keep]]])
+    rev = reflib.measure(lo["lo_revenue"][keep], acc)
+    return reflib.order_by(reflib.answer({
+        "c_nation": c["c_nation"].vocab[cc],
+        "s_nation": s["s_nation"].vocab[sc],
+        "d_year": year,
+        "revenue": reflib.group_sum(gid, len(year), rev, acc)}), ORDER_BY)
